@@ -8,12 +8,15 @@ Phases (any failure exits non-zero without the final result line):
 0. device: the card's name and power limit (nvidia-smi);
 1. build: compile ``tpu_unet_torch/csrc/*.cu`` into ``build/`` with nvcc;
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, in bf16, at the shapes of ``unet_vgg`` serving at 512x512,
-   batch 8 — error, kernel time, plain time, cuDNN-chain time and bound;
-3. serving: ``tpu_unet_torch.infer.wrapper.Unet(model="unet_vgg",
-   num_classes=21, input_shape=[512, 512]).serving_step()`` on a seeded
-   uint8 batch of 8 — launch counts, img/s, masks against the plain
-   versions on the card, and a 256x256 batch against the CPU float32 path;
+   the card, in bf16, at the shapes of ``unet_vgg``, ``unet_resnet50`` and
+   ``self_net`` serving at 512x512, batch 8 (the self_net head at batch 2)
+   — error, kernel time, plain time, cuDNN-chain time and bound;
+3. serving: ``tpu_unet_torch.infer.wrapper.Unet(model=..., num_classes=21,
+   input_shape=[512, 512]).serving_step()`` for ``unet_vgg``,
+   ``unet_resnet50`` and ``self_net``, each on a seeded uint8 batch of 8 —
+   launch counts (set to 0 just before the counted step, read just after),
+   img/s, peak memory, masks against the plain versions on the card, and a
+   256x256 batch against the CPU float32 path;
 4. one ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -42,9 +45,12 @@ CONV_REL_TOL = 2e-2
 # exceeds this share of the logit scale (the f32 dot products differ only
 # in summation order, ~1e-6 relative)
 TAIL_MARGIN = 1e-3
-# serving masks: 21 bf16 layers of kernel vs cuDNN summation order move the
-# logits by ~1% of their scale; flips are allowed only inside that margin,
-# and in at most 1% of the pixels overall
+# serving masks: 20-70 bf16 layers of kernel vs cuDNN summation order move
+# the logits by ~1% of their scale; flips are allowed only inside that
+# margin, and in at most 1% of the pixels overall.  The same limits hold
+# the 256px batch against the CPU float32 path for every model: the bf16
+# rounding of ResNet50's batch norms and of self_net's logits adds to the
+# drift, yet the largest flip measured on an H100 is 0.6% of the scale
 SERVE_MARGIN = 5e-2
 SERVE_MISMATCH = 1e-2
 WARM, REPS = 2, 10
@@ -134,6 +140,7 @@ def phase_kernels(card: str):
     from tpu_unet_torch.kernels.postprocess import (final_argmax_hist,
                                                     final_argmax_hist_plain)
     from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
+    from tpu_unet_torch.kernels.upconv import upconv, upconv_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -211,9 +218,11 @@ def phase_kernels(card: str):
                      flops, nbytes(x, *ws, *bs, *outs))
         check(rel <= CONV_REL_TOL, f"vgg_block {chans} rel err {rel:.3g}")
 
-    # decoder stages up4 … up1: (x H, Cs, Cx, F)
-    for h, cs, cx, f in [(S // 16, 512, 512, 512), (S // 8, 256, 512, 256),
-                         (S // 4, 128, 256, 128), (S // 2, 64, 128, 64)]:
+    # decoder stages up4 … up1: (model, x H, Cs, Cx, F)
+    for m, h, cs, cx, f in [("vgg", S // 16, 512, 512, 512), ("vgg", S // 8, 256, 512, 256),
+                            ("vgg", S // 4, 128, 256, 128), ("vgg", S // 2, 64, 128, 64),
+                            ("rn50", S // 32, 1024, 2048, 512), ("rn50", S // 16, 512, 512, 256),
+                            ("rn50", S // 8, 256, 256, 128), ("rn50", S // 4, 64, 128, 64)]:
         skip, x = act(B, 2 * h, 2 * h, cs), act(B, h, h, cx)
         w1, b1 = conv_w(f, cs + cx)
         w2, b2 = conv_w(f, f)
@@ -228,11 +237,41 @@ def phase_kernels(card: str):
             return torch.relu(F.conv2d(y, w2, b2, padding=1))
 
         flops = conv_flops(B, 2 * h, 2 * h, cs + cx, f) + conv_flops(B, 2 * h, 2 * h, f, f)
-        rel = record("unetup", f"up x{h} Cs={cs} Cx={cx} F={f}", [out], [ref],
+        rel = record("unetup", f"{m} up x{h} Cs={cs} Cx={cx} F={f}", [out], [ref],
                      lambda: unetup(skip, x, w1, b1, w2, b2),
                      lambda: unetup_plain(skip, x, w1, b1, w2, b2), lib,
                      flops, nbytes(skip, x, w1, b1, w2, b2, out))
-        check(rel <= CONV_REL_TOL, f"unetup F={f} rel err {rel:.3g}")
+        check(rel <= CONV_REL_TOL, f"unetup {m} F={f} rel err {rel:.3g}")
+        del skip, x, out, ref
+
+    # up_conv head: unet_resnet50's (x 256^2) and self_net's (x 512^2, at
+    # batch 2 to bound the plain version's time and memory)
+    for b, h in [(B, S // 2), (2, S)]:
+        x = act(b, h, h, 64)
+        w1, b1 = conv_w(64, 64)
+        w2, b2 = conv_w(64, 64)
+        out = upconv(x, w1, b1, w2, b2)
+        ref = upconv_plain(x, w1, b1, w2, b2)
+
+        def lib(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
+            up = F.interpolate(cl(x), scale_factor=2, mode="bilinear",
+                               align_corners=True)
+            y = torch.relu(F.conv2d(up, w1, b1, padding=1))
+            return torch.relu(F.conv2d(y, w2, b2, padding=1))
+
+        flops = 2 * conv_flops(b, 2 * h, 2 * h, 64, 64)
+        rel = record("upconv", f"{b}x{h}x{h}x64->{2 * h}^2x64", [out], [ref],
+                     lambda: upconv(x, w1, b1, w2, b2),
+                     lambda: upconv_plain(x, w1, b1, w2, b2), lib,
+                     flops, nbytes(x, w1, b1, w2, b2, out))
+        check(rel <= CONV_REL_TOL, f"upconv {b}x{h}^2 rel err {rel:.3g}")
+        del x, out, ref
+    # the self_net head's kernel at the serving batch (no plain version)
+    x = act(B, S, S, 64)
+    head_ms = time_ms(lambda: upconv(x, w1, b1, w2, b2))
+    print(json.dumps({"kernel": "upconv", "case": f"{B}x{S}x{S}x64->{2 * S}^2x64",
+                      "ms": head_ms, "gpu": card}), flush=True)
+    del x
 
     # tail: final 1x1 conv + argmax + histogram
     feats = act(B, S, S, 64)
@@ -262,49 +301,129 @@ def phase_kernels(card: str):
     return results
 
 
-def plain_serving(net, imgs):
-    """The serving step composed of the plain versions, on the same device."""
+def plain_logits(model, net, imgs):
+    """The serving step's float32 logits (N·H·W, C) at the input size,
+    composed of the plain versions on the same device."""
+    from tpu_unet_torch.core.precision import normalize_u8
     from tpu_unet_torch.kernels.decoder_fuse import unetup_plain
     from tpu_unet_torch.kernels.encoder import vgg_block_plain
     from tpu_unet_torch.kernels.stem import vgg_stem_plain
+    from tpu_unet_torch.kernels.upconv import upconv_plain
     from tpu_unet_torch.models.backbones import _STAGES
+    from tpu_unet_torch.nn.resize import resize_bilinear
 
-    fs = net.vgg.features
-    wb = [([fs[i].weight for i in idx], [fs[i].bias for i in idx]) for idx in _STAGES]
-    (w0, w2), (b0, b2) = wb[0]
-    feat, x = vgg_stem_plain(imgs, w0, b0, w2, b2)
-    feats = [feat]
-    for si in range(1, 5):
-        skip, pooled = vgg_block_plain(x, *wb[si], pool=si < 4)
-        feats.append(skip)
-        x = pooled
+    if net.backbone == "vgg":
+        fs = net.vgg.features
+        wb = [([fs[i].weight for i in idx], [fs[i].bias for i in idx]) for idx in _STAGES]
+        (w0, w2), (b0, b2) = wb[0]
+        feat, x = vgg_stem_plain(imgs, w0, b0, w2, b2)
+        feats = [feat]
+        for si in range(1, 5):
+            skip, pooled = vgg_block_plain(x, *wb[si], pool=si < 4)
+            feats.append(skip)
+            x = pooled
+    else:  # plain PyTorch on both paths
+        feats = net.resnet(normalize_u8(imgs, net.final.weight.dtype))
     up = feats[4]
     for i, skip in zip((4, 3, 2, 1), feats[3::-1]):
         m = getattr(net, f"up_concat{i}")
         up = unetup_plain(skip, up, m.conv1.weight, m.conv1.bias,
                           m.conv2.weight, m.conv2.bias)
+    del feats
+    if net.up_conv is not None:
+        c1, c2 = net.up_conv[1], net.up_conv[3]
+        up = upconv_plain(up, c1.weight, c1.bias, c2.weight, c2.bias)
     c = net.final.weight.shape[0]
-    return up.reshape(-1, up.shape[-1]).float() @ \
-        net.final.weight.reshape(c, -1).float().t() + net.final.bias.float()
+    w = net.final.weight.reshape(c, -1)
+    if model != "self_net":  # as the fused tail: float32 dot products
+        return up.reshape(-1, up.shape[-1]).float() @ w.float().t() + net.final.bias.float()
+    # as the generic branch: bf16 logits, float32 resize to the input size
+    logits = (up @ w.t() + net.final.bias).float()
+    del up
+    return resize_bilinear(logits, imgs.shape[1:3], align_corners=True).reshape(-1, c)
 
 
 def compare_masks(masks, logits, margin):
+    """(share of pixels that differ from argmax(logits), flips where the
+    top-1/top-2 gap exceeds ``margin`` of the logit scale, largest gap of a
+    flip as a share of the scale)."""
     top2 = logits.topk(2, dim=-1).values
-    gap = (top2[:, 0] - top2[:, 1]).reshape(masks.shape)
+    gap = (top2[:, 0] - top2[:, 1]).reshape(masks.shape).to(masks.device)
     ref = logits.argmax(-1).reshape(masks.shape).to(masks.device)
     differ = masks.long() != ref
-    outside = int((differ & (gap.to(masks.device) > margin * logits.abs().max())).sum())
-    return differ.float().mean().item(), outside
+    scale = logits.abs().max().item()
+    outside = int((differ & (gap > margin * scale)).sum())
+    need = gap[differ].max().item() / scale if differ.any() else 0.0
+    return differ.float().mean().item(), outside, need
 
 
-def phase_serving(card: str):
+# launches each serving path must make, and no other kernel
+SERVING = {
+    "unet_vgg": {"final_argmax_hist": 1, "vgg_stem": 1, "vgg_block": 4,
+                 "unetup": 4, "upconv": 0},
+    "unet_resnet50": {"final_argmax_hist": 1, "vgg_stem": 0, "vgg_block": 0,
+                      "unetup": 4, "upconv": 1},
+    "self_net": {"final_argmax_hist": 0, "vgg_stem": 1, "vgg_block": 4,
+                 "unetup": 4, "upconv": 1},
+}
+
+
+def device_breakdown(fn, net, imgs, steps: int = 3):
+    """Device time per serving step by kernel (torch.profiler over
+    ``steps`` steps) and the device's idle share between the first kernel's
+    start and the last kernel's end.  The port's kernels are named
+    ``conv3x3_kernel<Loader, pool>`` and ``final_argmax_hist_kernel``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(net, imgs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn(net, imgs)
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        name = e.name
+        if "conv3x3_kernel" in name:
+            loader = next((n for n in ("ImageLoader", "UpConcatLoader", "NhwcLoader")
+                           if n in name), "?")
+            name = f"port conv3x3_kernel<{loader}>"
+        elif "final_argmax_hist_kernel" in name:
+            name = "port final_argmax_hist_kernel"
+        else:
+            name = name[:70]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    check(bool(spans), "profiler: no device events in the serving step")
+    spans.sort()
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:  # union of the kernel intervals
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    window = end - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    port = sum(v for k, v in top if k.startswith("port "))
+    return {"device_ms_per_step": busy / 1e3 / steps, "port_kernels_ms": port,
+            "idle_share": 1 - busy / window if window else 0.0,
+            "top_kernels_ms": [[k, v] for k, v in top[:8]]}
+
+
+def serve(model: str, card: str):
+    """Drive ``model``'s serving step; return its launch counts."""
+    from tpu_unet_torch.core.precision import normalize_u8
     from tpu_unet_torch.infer.wrapper import Unet
     from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.nn.resize import resize_bilinear
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    u = Unet(model="unet_vgg", num_classes=CLASSES, input_shape=[SIZE, SIZE])
+    u = Unet(model=model, num_classes=CLASSES, input_shape=[SIZE, SIZE])
     fn, net = u.serving_step()
-    print(f"phase 3: Unet built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 3: {model} built in {time.perf_counter() - t0:.1f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     imgs = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=gen,
                          device="cuda", dtype=torch.uint8)
@@ -315,8 +434,8 @@ def phase_serving(card: str):
     masks, hist = fn(net, imgs)
     torch.cuda.synchronize()
     counts = dict(launch_counts)
-    expect = {"vgg_stem": 1, "vgg_block": 4, "unetup": 4, "final_argmax_hist": 1}
-    check(counts == expect, f"launch counts {counts} != {expect}")
+    expect = SERVING[model]
+    check(counts == expect, f"{model} launch counts {counts} != {expect}")
 
     steps = 5
     t0 = time.perf_counter()
@@ -325,43 +444,64 @@ def phase_serving(card: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     step_ms = time_ms(lambda: fn(net, imgs), reps=steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the encoder alone: kernels for VGG16, cuDNN for ResNet50
+    x = imgs if net.backbone == "vgg" else normalize_u8(imgs, net.final.weight.dtype)
+    enc = net.vgg if net.backbone == "vgg" else net.resnet
+    with torch.no_grad():
+        enc_ms = time_ms(lambda: enc(x), reps=steps)
+    breakdown = device_breakdown(fn, net, imgs)
 
     check(masks.shape == (BATCH, SIZE, SIZE) and masks.dtype == torch.uint8,
-          f"masks {tuple(masks.shape)} {masks.dtype}")
+          f"{model} masks {tuple(masks.shape)} {masks.dtype}")
     check(hist.shape == (BATCH, CLASSES) and hist.dtype == torch.int32,
-          f"hist {tuple(hist.shape)} {hist.dtype}")
-    check(int(hist.sum()) == BATCH * SIZE * SIZE, f"hist sum {int(hist.sum())}")
+          f"{model} hist {tuple(hist.shape)} {hist.dtype}")
+    check(int(hist.sum()) == BATCH * SIZE * SIZE, f"{model} hist sum {int(hist.sum())}")
     own = torch.stack([torch.bincount(m.flatten().long(), minlength=CLASSES)
                        for m in masks]).to(torch.int32)
-    check(bool(torch.equal(own, hist)), "serving hist != bincount(masks)")
+    check(bool(torch.equal(own, hist)), f"{model} serving hist != bincount(masks)")
 
     with torch.no_grad():
-        logits = plain_serving(net, imgs)
-    mism, outside = compare_masks(masks, logits, SERVE_MARGIN)
-    check(mism <= SERVE_MISMATCH, f"serving mask mismatch {mism:.4f} > {SERVE_MISMATCH}")
-    check(outside == 0, f"serving: {outside} flips outside the margin")
-    del logits
+        logits = plain_logits(model, net, imgs)
+    mism, outside, need = compare_masks(masks, logits, SERVE_MARGIN)
+    check(mism <= SERVE_MISMATCH, f"{model} mask mismatch {mism:.4f} > {SERVE_MISMATCH}")
+    check(outside == 0, f"{model}: {outside} flips outside the margin")
+    del logits, masks
 
     # small batch against the CPU float32 path (the path the tests hold
     # against the JAX package), same seeded weights
     small = torch.randint(0, 256, (1, 256, 256, 3), generator=gen, device="cuda",
                           dtype=torch.uint8)
     m_gpu, _ = fn(net, small)
-    cpu = Unet(model="unet_vgg", num_classes=CLASSES, input_shape=[256, 256], cuda=False)
+    cpu = Unet(model=model, num_classes=CLASSES, input_shape=[256, 256], cuda=False)
     with torch.no_grad():
-        cpu_logits = cpu.net(small.cpu(), features_out=False).reshape(-1, CLASSES)
-    mism_cpu, outside_cpu = compare_masks(m_gpu.cpu(), cpu_logits, SERVE_MARGIN)
-    check(mism_cpu <= SERVE_MISMATCH, f"256px vs CPU f32 mismatch {mism_cpu:.4f}")
-    check(outside_cpu == 0, f"256px vs CPU f32: {outside_cpu} flips outside the margin")
+        xs = small.cpu() if net.backbone == "vgg" else normalize_u8(small.cpu(), torch.float32)
+        cpu_logits = cpu.net(xs)
+        cpu_logits = resize_bilinear(cpu_logits, (256, 256), align_corners=True)
+    mism_cpu, outside_cpu, need_cpu = compare_masks(m_gpu.cpu(), cpu_logits.reshape(-1, CLASSES),
+                                                    SERVE_MARGIN)
+    check(mism_cpu <= SERVE_MISMATCH, f"{model} 256px vs CPU f32 mismatch {mism_cpu:.4f}")
+    check(outside_cpu == 0, f"{model} 256px vs CPU f32: {outside_cpu} flips outside the margin")
 
-    line = {"serving": "unet_vgg", "batch": BATCH, "size": SIZE, "classes": CLASSES,
+    line = {"serving": model, "batch": BATCH, "size": SIZE, "classes": CLASSES,
             "img_per_s": BATCH * steps / dt, "step_ms_host": dt / steps * 1e3,
-            "step_ms_events": step_ms, "launches": counts,
+            "step_ms_events": step_ms, "encoder_ms_events": enc_ms, "launches": counts,
             "mask_mismatch_vs_plain": mism, "flips_outside_margin": outside,
-            "mask_mismatch_vs_cpu_f32_256px": mism_cpu,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "gpu": card}
+            "largest_flip_gap": need, "mask_mismatch_vs_cpu_f32_256px": mism_cpu,
+            "largest_flip_gap_vs_cpu": need_cpu, "peak_mem_gib": peak, "gpu": card}
     print(json.dumps(line), flush=True)
+    print(json.dumps({"serving": model, "profile": breakdown}), flush=True)
+    del u, fn, net, imgs, x
     return counts
+
+
+def phase_serving(card: str):
+    """Each serving path with its own counted step; the launch totals."""
+    totals: dict = {}
+    for model in SERVING:
+        for k, v in serve(model, card).items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
 
 
 SOURCES = {
@@ -371,6 +511,7 @@ SOURCES = {
                "tpu_unet/kernels/decoder_fuse.py:1149"),
     "final_argmax_hist": ("tpu_unet_torch/csrc/postprocess.cu",
                           "tpu_unet/kernels/postprocess.py:244"),
+    "upconv": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:227"),
 }
 
 

@@ -71,7 +71,9 @@ def test_block_kernel(cuda, chans, pool):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,cs,cx,f", [(8, 64, 128, 64), (4, 256, 512, 128)])
+@pytest.mark.parametrize("h,cs,cx,f", [(8, 64, 128, 64), (4, 256, 512, 128),
+                                       # unet_resnet50's up4 widths
+                                       (4, 1024, 2048, 512)])
 def test_unetup_kernel(cuda, h, cs, cx, f):
     from tpu_unet_torch.kernels.decoder_fuse import unetup, unetup_plain
 
@@ -80,6 +82,22 @@ def test_unetup_kernel(cuda, h, cs, cx, f):
     w2, b2 = _conv(cuda, f, f)
     out = unetup(skip, x, w1, b1, w2, b2)
     assert _rel(out, unetup_plain(skip, x, w1, b1, w2, b2)) <= CONV_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(8, 8), (4, 16)])
+def test_upconv_kernel(cuda, h, w):
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.upconv import upconv, upconv_plain
+
+    x = _act(cuda, 2, h, w, 64)
+    w1, b1 = _conv(cuda, 64, 64)
+    w2, b2 = _conv(cuda, 64, 64)
+    n = launch_counts["upconv"]
+    out = upconv(x, w1, b1, w2, b2)
+    assert launch_counts["upconv"] == n + 1
+    assert out.shape == (2, 2 * h, 2 * w, 64)
+    assert _rel(out, upconv_plain(x, w1, b1, w2, b2)) <= CONV_REL_TOL
 
 
 @pytest.mark.gpu
@@ -106,3 +124,17 @@ def test_kernel_rejects_untileable_shape(cuda):
     wb = [_conv(cuda, 128, 64), _conv(cuda, 128, 128)]
     with pytest.raises(ValueError):
         vgg_block(x, [w for w, _ in wb], [b for _, b in wb], True)
+
+
+@pytest.mark.gpu
+def test_upconv_rejects_untileable_shape(cuda):
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.upconv import upconv
+
+    x = _act(cuda, 1, 8, 8, 48)          # Cx % 32 != 0: raises, never falls back
+    w1, b1 = _conv(cuda, 64, 48)
+    w2, b2 = _conv(cuda, 64, 64)
+    n = launch_counts["upconv"]
+    with pytest.raises(ValueError):
+        upconv(x, w1, b1, w2, b2)
+    assert launch_counts["upconv"] == n

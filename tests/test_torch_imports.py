@@ -44,7 +44,7 @@ def test_scan_compares_whole_names():
 
 
 def _cuda_entries():
-    from tpu_unet_torch.kernels import decoder_fuse, encoder, postprocess, stem
+    from tpu_unet_torch.kernels import decoder_fuse, encoder, postprocess, stem, upconv
 
     x3 = torch.zeros(1, 16, 16, 3, dtype=torch.uint8)
     w = torch.zeros(64, 3, 3, 3, dtype=torch.bfloat16)
@@ -59,10 +59,11 @@ def _cuda_entries():
             torch.zeros(64, 128, 3, 3, dtype=torch.bfloat16), b, w64, b),
         "tail": lambda: postprocess._final_argmax_hist_cuda(
             f, torch.zeros(21, 64, 1, 1), torch.zeros(21), 21),
+        "upconv": lambda: upconv._upconv_cuda(f, w64, b, w64, b),
     }
 
 
-@pytest.mark.parametrize("name", ["stem", "block", "unetup", "tail"])
+@pytest.mark.parametrize("name", ["stem", "block", "unetup", "tail", "upconv"])
 def test_kernel_path_refuses_cpu_tensors(name):
     """The kernel side of each wrapper checks its inputs and raises; it
     never computes a CPU tensor (and never builds) on its own."""

@@ -3,7 +3,8 @@
 
 Same I/O contract as the JAX wrapper's ``serving_step``: a uint8
 ``(N, H, W, 3)`` batch in, uint8 masks ``(N, H, W)`` and an int32 class
-histogram ``(N, num_classes)`` out.  ``cuda=True`` (the default) runs on the
+histogram ``(N, num_classes)`` out, for every ported model (``unet_vgg``,
+``unet_resnet50``, ``self_net``).  ``cuda=True`` (the default) runs on the
 card through the hand-written kernels and raises when there is no card;
 ``cuda=False`` runs on the CPU with the kernels' plain versions.
 
@@ -17,9 +18,10 @@ import copy
 import numpy as np
 import torch
 
-from tpu_unet_torch.core.precision import for_device
-from tpu_unet_torch.kernels.postprocess import final_argmax_hist
+from tpu_unet_torch.core.precision import cast_params, for_device, normalize_u8
+from tpu_unet_torch.kernels.postprocess import final_argmax_hist, masks_and_hist
 from tpu_unet_torch.models.registry import MODELS, build_model, init_model
+from tpu_unet_torch.nn.resize import resize_bilinear
 
 
 class Unet:
@@ -76,23 +78,42 @@ class Unet:
     def _build_serving(self):
         """``(fn, net)`` with ``fn(net, images) -> (masks uint8 (N, H, W),
         hist int32 (N, num_classes))``.  On the card ``net`` holds bf16
-        parameters and every layer runs a hand-written kernel; the final
-        1×1 conv, argmax and histogram are one kernel over the last decoder
-        stage's features, so the logits are never stored."""
+        parameters (batch norm as ``core/precision.py`` says) and every
+        decoder and head layer runs a hand-written kernel.
+
+        - ``unet_vgg``: the uint8 batch goes straight to the stem kernel;
+        - ``unet_vgg`` and ``unet_resnet50`` (the JAX fast path,
+          ``wrapper.py:360-383``): the final 1×1 conv, argmax and histogram
+          are one kernel over the last features, so the logits are never
+          stored;
+        - any other model (``self_net``; the JAX generic branch,
+          ``wrapper.py:423-444``): logits → float32 → align-corners resize
+          to the input size where they differ → argmax → histogram."""
         prec = for_device(self.device)
         net = self.net
         if prec.param_dtype != torch.float32:
-            net = copy.deepcopy(net).to(prec.param_dtype)
+            net = cast_params(copy.deepcopy(net), prec.param_dtype)
         num_classes, device = self.num_classes, self.device
+        fused_tail = self._model_name() in ("unet_vgg", "unet_resnet50")
 
         @torch.no_grad()
         def step(net, images):
             imgs = torch.as_tensor(images).to(device)
-            x = imgs if imgs.dtype == torch.uint8 \
-                else imgs.to(prec.compute_dtype)
-            feats = net(x, features_out=True)
-            return final_argmax_hist(feats, net.final.weight, net.final.bias,
-                                     num_classes)
+            if imgs.dtype != torch.uint8:
+                x = imgs.to(prec.compute_dtype)
+            elif net.backbone == "vgg":
+                x = imgs  # the stem kernel reads uint8 and divides by 255
+            else:
+                x = normalize_u8(imgs, prec.compute_dtype)
+            if fused_tail:
+                feats = net(x, features_out=True)
+                return final_argmax_hist(feats, net.final.weight,
+                                         net.final.bias, num_classes)
+            logits = net(x).float()
+            if logits.shape[1:3] != imgs.shape[1:3]:
+                logits = resize_bilinear(logits, imgs.shape[1:3],
+                                         align_corners=True)
+            return masks_and_hist(logits.argmax(-1), num_classes)
 
         return step, net
 

@@ -44,12 +44,14 @@ SIGNATURES = {
     # skip, x, ridx, rw, cidx, cw, w1, b1, w2, b2, y1, out,
     # B, H2, W2, Cs, Cx, F, stream
     "tu_unetup": [_P] * 12 + [_I] * 6 + [_P],
+    # x, ridx, rw, cidx, cw, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F, stream
+    "tu_upconv": [_P] * 11 + [_I] * 5 + [_P],
 }
 
 # launches of each kernel wrapper; a wrapper adds one where it calls its
 # C entry and nowhere else
 launch_counts = {"final_argmax_hist": 0, "vgg_stem": 0, "vgg_block": 0,
-                 "unetup": 0}
+                 "unetup": 0, "upconv": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -23,6 +23,15 @@ def _weights(weight: torch.Tensor, bias: torch.Tensor, num_classes: int):
     return weight.reshape(c, -1), bias
 
 
+def masks_and_hist(cls: torch.Tensor, num_classes: int):
+    """Class indices (N, H, W) → (uint8 masks, int32 per-image histogram
+    (N, num_classes)), one ``bincount`` over image-offset classes."""
+    n = cls.shape[0]
+    offs = torch.arange(n, device=cls.device).reshape(n, 1, 1) * num_classes
+    hist = torch.bincount((cls + offs).reshape(-1), minlength=n * num_classes)
+    return cls.to(torch.uint8), hist.reshape(n, num_classes).to(torch.int32)
+
+
 def final_argmax_hist_plain(feats: torch.Tensor, weight: torch.Tensor,
                             bias: torch.Tensor, num_classes: int):
     """(N, H, W, F) features + torch final conv (C, F, 1, 1), (C,) →
@@ -31,11 +40,8 @@ def final_argmax_hist_plain(feats: torch.Tensor, weight: torch.Tensor,
     w, b = _weights(weight, bias, num_classes)
     n, h, wd, f = feats.shape
     logits = feats.reshape(-1, f).float() @ w.float().t() + b.float()
-    cls = torch.argmax(logits, dim=-1).reshape(n, h * wd)
-    offs = torch.arange(n, device=cls.device).unsqueeze(1) * num_classes
-    hist = torch.bincount((cls + offs).reshape(-1), minlength=n * num_classes)
-    return (cls.reshape(n, h, wd).to(torch.uint8),
-            hist.reshape(n, num_classes).to(torch.int32))
+    return masks_and_hist(torch.argmax(logits, dim=-1).reshape(n, h, wd),
+                          num_classes)
 
 
 def _final_argmax_hist_cuda(feats, weight, bias, num_classes):

@@ -1,26 +1,37 @@
-"""VGG16 feature pyramid (counterpart of ``VGG16`` in
-``tpu_unet/models/backbones.py``): cfg 'D', no batch norm, five features at
-strides 1/2/4/8/16 with 64/128/256/512/512 channels.
+"""Encoder feature pyramids (counterparts of ``tpu_unet/models/backbones.py``).
 
-``features`` is the reference ``nn.Sequential`` (convs at indices 0, 2, 5,
-…, 28, ReLUs and pools between), so the state dict carries the reference
-key names ``features.{i}.weight``.  The forward does not run the
-Sequential: stage 1 goes to the stem kernel wrapper and stages 2-5 to the
-encoder-block wrapper, NHWC throughout.
+``VGG16``: cfg 'D', no batch norm, five features at strides 1/2/4/8/16 with
+64/128/256/512/512 channels.  ``features`` is the reference
+``nn.Sequential`` (convs at indices 0, 2, 5, …, 28, ReLUs and pools
+between), so the state dict carries the reference key names
+``features.{i}.weight``.  The forward does not run the Sequential: stage 1
+goes to the stem kernel wrapper and stages 2-5 to the encoder-block wrapper,
+NHWC throughout.
+
+``ResNet50``: five features at strides 2/4/8/16/32 with 64/256/512/1024/2048
+channels, module names of the reference (``conv1``, ``bn1``,
+``layer{1..4}.{i}.conv{1,2,3}``, ``.bn{1,2,3}``, ``.downsample.{0,1}``).
+The JAX package runs it outside any Pallas kernel, so it is plain PyTorch
+here: ``F.conv2d`` on channels-last views of the NHWC tensors, batch norm in
+eval mode from the running statistics, and the ceil-mode max-pool.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tpu_unet_torch.kernels.encoder import vgg_block
 from tpu_unet_torch.kernels.stem import vgg_stem
+from tpu_unet_torch.nn.blocks import BN_EPS, max_pool_ceil
 
 # cfg 'D' (reference: nets/vgg.py:59)
 _CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
         512, 512, 512, "M"]
 # torch Sequential indices of each stage's convs
 _STAGES = [[0, 2], [5, 7], [10, 12, 14], [17, 19, 21], [24, 26, 28]]
+# bottlenecks in ResNet50's layer1..4
+RESNET50_BLOCKS = (3, 4, 6, 3)
 
 
 def _make_features() -> nn.Sequential:
@@ -54,4 +65,67 @@ class VGG16(nn.Module):
             skip, pooled = vgg_block(x, ws, bs, pool=si < len(_STAGES) - 1)
             feats.append(skip)
             x = pooled
+        return feats
+
+
+def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Batch norm in eval mode, whatever the module's mode: the port
+    serves only.  The running statistics stay float32 on every device."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, bn.eps)
+
+
+def _conv_bn(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
+    return (nn.Conv2d(cin, cout, k, stride, padding, bias=False),
+            nn.BatchNorm2d(cout, eps=BN_EPS))
+
+
+class Bottleneck(nn.Module):
+    """1×1 reduce → 3×3 (stride) → 1×1 expand ×4, residual
+    (reference: nets/resnet.py:55-97).  NCHW channels-last in and out."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1, self.bn1 = _conv_bn(inplanes, planes, 1)
+        self.conv2, self.bn2 = _conv_bn(planes, planes, 3, stride, 1)
+        self.conv3, self.bn3 = _conv_bn(planes, planes * 4, 1)
+        self.downsample = nn.Sequential(
+            *_conv_bn(inplanes, planes * 4, 1, stride)) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(_bn(self.conv1(x), self.bn1))
+        y = torch.relu(_bn(self.conv2(y), self.bn2))
+        y = _bn(self.conv3(y), self.bn3)
+        identity = x if self.downsample is None else \
+            _bn(self.downsample[0](x), self.downsample[1])
+        return torch.relu(y + identity)
+
+
+class ResNet50(nn.Module):
+    """5-stage ResNet50 feature pyramid (reference: nets/resnet.py:100-185)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1, self.bn1 = _conv_bn(3, 64, 7, 2, 3)
+        inplanes = 64
+        for li, (blocks, planes) in enumerate(zip(RESNET50_BLOCKS, (64, 128, 256, 512))):
+            stride = 1 if li == 0 else 2
+            mods = []
+            for bi in range(blocks):
+                s = stride if bi == 0 else 1
+                ds = bi == 0 and (s != 1 or inplanes != planes * 4)
+                mods.append(Bottleneck(inplanes, planes, s, ds))
+                inplanes = planes * 4
+            setattr(self, f"layer{li + 1}", nn.Sequential(*mods))
+
+    def forward(self, x: torch.Tensor):
+        """(B, H, W, 3) float image → [feat1 … feat5], NHWC contiguous."""
+        y = x.permute(0, 3, 1, 2)  # channels-last view, no copy
+        feat1 = torch.relu(_bn(self.conv1(y), self.bn1)).permute(0, 2, 3, 1)
+        y = max_pool_ceil(feat1, 3, 2).permute(0, 3, 1, 2)
+        feats = [feat1.contiguous()]
+        for li in range(1, 5):
+            y = getattr(self, f"layer{li}")(y)
+            feats.append(y.permute(0, 2, 3, 1).contiguous())
         return feats

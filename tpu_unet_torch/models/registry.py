@@ -1,7 +1,7 @@
 """Model registry of the port (counterpart of ``tpu_unet/models/registry.py``).
 
-Only ``unet_vgg`` is ported so far; the other registry models follow in
-later slices.
+The canonical UNets are ported (``unet_vgg``, ``unet_resnet50``,
+``self_net``); the other registry models follow in later slices.
 """
 from __future__ import annotations
 
@@ -11,10 +11,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpu_unet_torch.models.unet import unet_vgg
+from tpu_unet_torch.models.unet import self_net, unet_resnet50, unet_vgg
 
 MODELS: Dict[str, Callable[..., nn.Module]] = {
     "unet_vgg": unet_vgg,
+    "unet_resnet50": unet_resnet50,
+    "self_net": self_net,
 }
 
 # flax's lecun_normal: truncated normal on (-2, 2), stddev corrected for the
@@ -41,15 +43,21 @@ def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded initialisation as flax does it for these layers
     (``nn/blocks.py:152-156``): lecun-normal fan-in conv kernels, zero
-    biases.  Draws come from ``numpy.random.default_rng(seed)`` in
-    parameter order, so a seed gives the same weights on every machine."""
+    biases; batch norm as ``flax.linen.BatchNorm`` starts (scale 1, bias 0,
+    mean 0, var 1).  Draws come from ``numpy.random.default_rng(seed)`` in
+    conv-parameter order, so a seed gives the same weights on every
+    machine."""
     rng = np.random.default_rng(seed)
-    for name, p in model.named_parameters():
-        if name.endswith("bias"):
-            p.zero_()
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()  # weight 1, bias 0, mean 0, var 1, count 0
             continue
-        fan_in = int(np.prod(p.shape[1:]))
-        std = np.sqrt(1.0 / fan_in) / _TRUNC_STD
-        vals = _truncated_normal(rng, tuple(p.shape)) * std
-        p.copy_(torch.from_numpy(vals.astype(np.float32)))
+        for name, p in m.named_parameters(recurse=False):
+            if name == "bias":
+                p.zero_()
+                continue
+            fan_in = int(np.prod(p.shape[1:]))
+            std = np.sqrt(1.0 / fan_in) / _TRUNC_STD
+            vals = _truncated_normal(rng, tuple(p.shape)) * std
+            p.copy_(torch.from_numpy(vals.astype(np.float32)))
     return model

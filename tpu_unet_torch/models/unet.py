@@ -1,43 +1,70 @@
-"""Canonical UNet with the VGG16 encoder (counterpart of
-``tpu_unet/models/unet.py``, backbone "vgg").  NHWC in and out; module
-names follow the reference torch model (``vgg``, ``up_concat1..4``,
+"""Canonical UNet with the VGG16 or ResNet50 encoder (counterpart of
+``tpu_unet/models/unet.py``).  NHWC in and out; module names follow the
+reference torch model (``vgg`` / ``resnet``, ``up_concat1..4``, ``up_conv``,
 ``final``).
+
+The ResNet50 UNet, and ``self_net`` (VGG16 with ``force_up_conv``), end in
+the ``up_conv`` head (reference: nets/unet.py:47-54): ×2 align-corners
+upsample, two 3×3 conv(64) + ReLU.  Its convs carry the reference keys
+``up_conv.1`` and ``up_conv.3``; the forward hands their weights to the
+``upconv`` kernel wrapper instead of running the Sequential.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from tpu_unet_torch.models.backbones import VGG16
+from tpu_unet_torch.kernels.upconv import upconv
+from tpu_unet_torch.models.backbones import VGG16, ResNet50
 from tpu_unet_torch.nn.blocks import UnetUp
 
 # decoder output widths (reference: nets/unet.py:27-35)
 _OUT_FILTERS = (64, 128, 256, 512)
+# decoder input widths: [skip, up] concat of each stage, up1 … up4
+_IN_FILTERS = {"vgg": (192, 384, 768, 1024), "resnet50": (192, 512, 1024, 3072)}
 
 
 class Unet(nn.Module):
-    def __init__(self, num_classes: int = 21, backbone: str = "vgg"):
+    def __init__(self, num_classes: int = 21, backbone: str = "vgg",
+                 force_up_conv: bool = False):
         super().__init__()
-        if backbone != "vgg":
-            raise ValueError(f"backbone {backbone!r} is not ported yet; use vgg")
+        if backbone not in _IN_FILTERS:
+            raise ValueError(f"Unsupported backbone `{backbone}`, use vgg or "
+                             "resnet50.")
         self.num_classes = num_classes
-        self.vgg = VGG16()
-        in_filters = (192, 384, 768, 1024)
+        self.backbone = backbone
+        if backbone == "vgg":
+            self.vgg = VGG16()
+        else:
+            self.resnet = ResNet50()
+        in_filters = _IN_FILTERS[backbone]
         self.up_concat4 = UnetUp(in_filters[3], _OUT_FILTERS[3])
         self.up_concat3 = UnetUp(in_filters[2], _OUT_FILTERS[2])
         self.up_concat2 = UnetUp(in_filters[1], _OUT_FILTERS[1])
         self.up_concat1 = UnetUp(in_filters[0], _OUT_FILTERS[0])
+        self.up_conv = None
+        if backbone == "resnet50" or force_up_conv:
+            f = _OUT_FILTERS[0]
+            self.up_conv = nn.Sequential(
+                nn.UpsamplingBilinear2d(scale_factor=2),
+                nn.Conv2d(f, f, kernel_size=3, padding=1), nn.ReLU(),
+                nn.Conv2d(f, f, kernel_size=3, padding=1), nn.ReLU())
         self.final = nn.Conv2d(_OUT_FILTERS[0], num_classes, 1)
 
     def forward(self, x: torch.Tensor, features_out: bool = False):
-        """(B, H, W, 3) → logits (B, H, W, C); with ``features_out`` the
-        last decoder stage's (B, H, W, 64) features, for the fused tail
-        (``kernels/postprocess.py``) that applies ``final`` itself."""
-        feat1, feat2, feat3, feat4, feat5 = self.vgg(x)
+        """(B, H, W, 3) → logits (B, H', W', C); with ``features_out`` the
+        (B, H', W', 64) features before ``final``, for the fused tail
+        (``kernels/postprocess.py``) that applies ``final`` itself.  H' = H,
+        except for ``self_net``, whose head doubles it."""
+        enc = self.vgg if self.backbone == "vgg" else self.resnet
+        feat1, feat2, feat3, feat4, feat5 = enc(x)
         up4 = self.up_concat4(feat4, feat5)
         up3 = self.up_concat3(feat3, up4)
         up2 = self.up_concat2(feat2, up3)
         up1 = self.up_concat1(feat1, up2)
+        if self.up_conv is not None:
+            c1, c2 = self.up_conv[1], self.up_conv[3]
+            up1 = upconv(up1, c1.weight, c1.bias, c2.weight, c2.bias)
         if features_out:
             return up1
         w = self.final.weight.reshape(self.num_classes, -1)
@@ -46,3 +73,12 @@ class Unet(nn.Module):
 
 def unet_vgg(num_classes: int = 21) -> Unet:
     return Unet(num_classes=num_classes, backbone="vgg")
+
+
+def unet_resnet50(num_classes: int = 21) -> Unet:
+    return Unet(num_classes=num_classes, backbone="resnet50")
+
+
+def self_net(num_classes: int = 21) -> Unet:
+    """Unet_vgg (reference: self_net().py:68-71): VGG16 + forced up_conv."""
+    return Unet(num_classes=num_classes, backbone="vgg", force_up_conv=True)

@@ -1,14 +1,29 @@
-"""Decoder block of the canonical UNet (counterpart of ``UnetUp`` in
-``tpu_unet/nn/blocks.py``): ×2 align-corners upsample of the deep feature,
-concat [skip, up], two 3×3 conv + ReLU, no batch norm.  Parameter names
-follow the reference torch module (``conv1``, ``conv2``), NHWC activations.
+"""Shared blocks of the canonical UNet (counterpart of ``tpu_unet/nn/blocks.py``):
+the decoder block ``UnetUp`` (×2 align-corners upsample of the deep feature,
+concat [skip, up], two 3×3 conv + ReLU, no batch norm; parameter names follow
+the reference torch module, ``conv1``, ``conv2``), the ceil-mode max-pool of
+the ResNet50 stem, and the batch-norm constants.  NHWC activations.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tpu_unet_torch.kernels.decoder_fuse import unetup
+
+# torch BN defaults, as the JAX package uses them (momentum 0.1 in torch's
+# convention; only eval mode is ported)
+BN_EPS = 1e-5
+
+
+def max_pool_ceil(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Max-pool of NHWC ``x`` with ``ceil_mode=True`` and no padding
+    (reference: nets/resnet.py:113).  The JAX package pads the right and
+    bottom edges with -inf up to the ceil size; torch's ceil mode takes the
+    maximum over the valid part of the last window, which is the same."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, ceil_mode=True)
+    return y.permute(0, 2, 3, 1)
 
 
 class UnetUp(nn.Module):
