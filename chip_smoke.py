@@ -8,16 +8,29 @@ Phases (any failure exits non-zero without the final result line):
 0. device: the card's name and power limit (nvidia-smi);
 1. build: compile ``tpu_unet_torch/csrc/*.cu`` into ``build/`` with nvcc;
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, in bf16, at the shapes of ``unet_vgg``, ``unet_resnet50`` and
-   ``self_net`` serving at 512x512, batch 8 (the self_net head at batch 2)
-   — error, kernel time, plain time, cuDNN-chain time and bound;
-3. serving: ``tpu_unet_torch.infer.wrapper.Unet(model=..., num_classes=21,
-   input_shape=[512, 512]).serving_step()`` for ``unet_vgg``,
-   ``unet_resnet50`` and ``self_net``, each on a seeded uint8 batch of 8 —
-   launch counts (set to 0 just before the counted step, read just after),
-   img/s, peak memory, masks against the plain versions on the card, and a
-   256x256 batch against the CPU float32 path;
-4. one ``{"kernels": [...]}`` line, then the card line, then
+   the card at the shapes its serving path gives it — ``unet_vgg``,
+   ``unet_resnet50`` and ``self_net`` at 512x512, batch 8 (the self_net
+   head at batch 2; the stem also at one 512x512 image of the normalize
+   kernel's bf16 output, as the single-image forward gives it), the
+   TraditionalUnet tails at 256x256 and 200x200,
+   batch 32, and the normalize kernel at one image and at 32 — error,
+   kernel time, plain time, library time and bound;
+3. serving: ``tpu_unet_torch.infer.wrapper.Unet(model=..., num_classes=...,
+   input_shape=...).serving_step()`` for ``unet_vgg``, ``unet_resnet50``
+   and ``self_net`` (21 classes, a seeded uint8 batch of 8 at 512x512),
+   ``traditional`` and ``traditional22`` (the DataB competition path: 4
+   classes, batch 32 at 256x256) and ``traditional`` at 200x200 (the
+   mask-only tail) — launch counts (set to 0 just before the counted step,
+   read just after), img/s, peak memory, a ``torch.profiler`` breakdown,
+   masks against the plain versions on the card, and a small batch against
+   the CPU float32 path;
+4. single image: ``detect_image`` (mix_type 0/1/2, ``count``, ``fast``),
+   ``get_miou_png`` and ``get_FPS`` (both protocols) of ``traditional`` at
+   256x256 and ``unet_vgg`` at 512x512 on a seeded 300x200 PIL image —
+   launches of each counted forward, the device mask against the argmax of
+   the probabilities and against the CPU float32 path on the same weights
+   and letterboxed image, seconds and FPS at batch 1;
+5. one ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the ``tpu_unet`` package.
@@ -30,11 +43,17 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-BATCH, SIZE, CLASSES = 8, 512, 21
+BATCH, SIZE = 8, 512              # the canonical UNets' serving shape
+DATAB_BATCH, DATAB_SIZE = 32, 256  # the TraditionalUnet family's (DataB)
+# classes of each model: VOC's 21, DataB's 4 (Background / Inclusions /
+# Patches / Scratches)
+CLASSES = {"unet_vgg": 21, "unet_resnet50": 21, "self_net": 21,
+           "traditional": 4, "traditional22": 4}
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -48,7 +67,8 @@ TAIL_MARGIN = 1e-3
 # serving masks: 20-70 bf16 layers of kernel vs cuDNN summation order move
 # the logits by ~1% of their scale; flips are allowed only inside that
 # margin, and in at most 1% of the pixels overall.  The same limits hold
-# the 256px batch against the CPU float32 path for every model: the bf16
+# the 256px batch and the single image against the CPU float32 path for
+# every model: the bf16
 # rounding of ResNet50's batch norms and of self_net's logits adds to the
 # drift, yet the largest flip measured on an H100 is 0.6% of the scale
 SERVE_MARGIN = 5e-2
@@ -137,8 +157,12 @@ def phase_build():
 def phase_kernels(card: str):
     from tpu_unet_torch.kernels.decoder_fuse import unetup, unetup_plain
     from tpu_unet_torch.kernels.encoder import vgg_block, vgg_block_plain
-    from tpu_unet_torch.kernels.postprocess import (final_argmax_hist,
-                                                    final_argmax_hist_plain)
+    from tpu_unet_torch.kernels.postprocess import (final_argmax,
+                                                    final_argmax_hist,
+                                                    final_argmax_hist_plain,
+                                                    final_argmax_plain)
+    from tpu_unet_torch.kernels.preprocess import (normalize_images,
+                                                   normalize_images_plain)
     from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
     from tpu_unet_torch.kernels.upconv import upconv, upconv_plain
 
@@ -198,6 +222,20 @@ def phase_kernels(card: str):
                  conv_flops(B, S, S, 3, 64) + conv_flops(B, S, S, 64, 64),
                  nbytes(img, w11, b11, w12, b12, *out))
     check(rel <= CONV_REL_TOL, f"vgg_stem rel err {rel:.3g} > {CONV_REL_TOL}")
+    # stem: the single-image forward's input, the normalize kernel's bf16
+    # output at one 512^2 image (the kernel's ImageLoader<false> branch)
+    img1 = torch.randint(0, 256, (1, S, S, 3), generator=gen, device=dev, dtype=torch.uint8)
+    x1 = normalize_images(img1, bf)
+    out = vgg_stem(x1, w11, b11, w12, b12)
+    ref = vgg_stem_plain(x1, w11, b11, w12, b12)
+    rel = record("vgg_stem", f"1x{S}x{S}x3 bf16->64", out, ref,
+                 lambda: vgg_stem(x1, w11, b11, w12, b12),
+                 lambda: vgg_stem_plain(x1, w11, b11, w12, b12),
+                 lambda: cudnn_chain(x1, [w11, w12], [b11, b12], True),
+                 conv_flops(1, S, S, 3, 64) + conv_flops(1, S, S, 64, 64),
+                 nbytes(x1, w11, b11, w12, b12, *out))
+    check(rel <= CONV_REL_TOL, f"vgg_stem bf16 input rel err {rel:.3g} > {CONV_REL_TOL}")
+    del img, img1, x1, out, ref
 
     # encoder blocks 2-5
     blocks = [(S // 2, [64, 128, 128], True), (S // 4, [128, 256, 256, 256], True),
@@ -273,31 +311,74 @@ def phase_kernels(card: str):
                       "ms": head_ms, "gpu": card}), flush=True)
     del x
 
-    # tail: final 1x1 conv + argmax + histogram
-    feats = act(B, S, S, 64)
-    wf = (torch.randn((CLASSES, 64, 1, 1), generator=gen, device=dev) / 8).to(bf)
-    bfin = (0.1 * torch.randn(CLASSES, generator=gen, device=dev)).to(bf)
-    masks, hist = final_argmax_hist(feats, wf, bfin, CLASSES)
-    pm, ph = final_argmax_hist_plain(feats, wf, bfin, CLASSES)
-    logits = feats.reshape(-1, 64).float() @ wf.reshape(CLASSES, 64).float().t() + bfin.float()
-    top2 = logits.topk(2, dim=-1).values
-    gap = (top2[:, 0] - top2[:, 1]).reshape(masks.shape)
-    scale = logits.abs().max()
-    differ = masks != pm
-    flips_outside = int((differ & (gap > TAIL_MARGIN * scale)).sum())
-    own_hist = torch.stack([torch.bincount(m.flatten().long(), minlength=CLASSES)
-                            for m in masks]).to(torch.int32)
-    check(flips_outside == 0, f"tail: {flips_outside} mask flips outside the margin")
-    check(bool(torch.equal(own_hist, hist)), "tail: hist != bincount(own mask)")
-    print(json.dumps({"kernel": "final_argmax_hist", "mask_mismatch": differ.float().mean().item(),
-                      "flips_outside_margin": flips_outside}), flush=True)
-    # error of the tail = largest per-class count difference against plain
-    record("final_argmax_hist", f"{B}x{S}x{S}x64->{CLASSES}",
-           [hist.float()], [ph.float()],
-           lambda: final_argmax_hist(feats, wf, bfin, CLASSES),
-           lambda: final_argmax_hist_plain(feats, wf, bfin, CLASSES), None,
-           2.0 * B * S * S * 64 * CLASSES, nbytes(feats, wf, bfin, masks, hist),
-           peak=PEAK_F32)
+    def tail(kernel, n, h, w, f, c, hist):
+        """A serving tail (final 1x1 conv + argmax, with or without the
+        histogram) against its plain version: masks identical wherever the
+        plain top-1/top-2 gap exceeds TAIL_MARGIN of the logit scale, hist
+        = bincount of the kernel's own masks.  Its error is the largest
+        per-class count difference against plain (hist), or the largest
+        class-index difference (mask only)."""
+        feats = act(n, h, w, f)
+        wf = (torch.randn((c, f, 1, 1), generator=gen, device=dev) / f ** 0.5).to(bf)
+        bfin = (0.1 * torch.randn(c, generator=gen, device=dev)).to(bf)
+        fn, plain_fn = (final_argmax_hist, final_argmax_hist_plain) if hist \
+            else (final_argmax, final_argmax_plain)
+        out, ref = fn(feats, wf, bfin, c), plain_fn(feats, wf, bfin, c)
+        masks, pm = (out[0], ref[0]) if hist else (out, ref)
+        logits = feats.reshape(-1, f).float() @ wf.reshape(c, f).float().t() + bfin.float()
+        top2 = logits.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).reshape(masks.shape)
+        differ = masks != pm
+        flips_outside = int((differ & (gap > TAIL_MARGIN * logits.abs().max())).sum())
+        case = f"{n}x{h}x{w}x{f}->{c}"
+        check(flips_outside == 0, f"{kernel} {case}: {flips_outside} mask flips outside the margin")
+        if hist:
+            own_hist = torch.stack([torch.bincount(m.flatten().long(), minlength=c)
+                                    for m in masks]).to(torch.int32)
+            check(bool(torch.equal(own_hist, out[1])), f"{kernel} {case}: hist != bincount(own mask)")
+            check(bool(differ.any() or torch.equal(out[1], ref[1])),
+                  f"{kernel} {case}: masks equal plain's but hist does not")
+        print(json.dumps({"kernel": kernel, "case": case,
+                          "mask_mismatch": differ.float().mean().item(),
+                          "flips_outside_margin": flips_outside}), flush=True)
+        del logits, top2, gap, differ
+        w2 = wf.reshape(c, f)
+
+        def lib():  # cuBLAS bf16 logits, argmax (+ one offset bincount)
+            cls = F.linear(feats, w2, bfin).argmax(-1)
+            if not hist:
+                return cls
+            offs = torch.arange(n, device=dev).reshape(n, 1, 1) * c
+            return torch.bincount((cls + offs).reshape(-1), minlength=n * c)
+
+        record(kernel, case, [out[1].float()] if hist else [masks.float()],
+               [ref[1].float()] if hist else [pm.float()],
+               lambda: fn(feats, wf, bfin, c), lambda: plain_fn(feats, wf, bfin, c), lib,
+               2.0 * n * h * w * f * c, nbytes(feats, wf, bfin, *(out if hist else [out])),
+               peak=PEAK_F32)
+        del feats, out, ref
+
+    # tails: the canonical UNets' (F = 64, 21 classes); the TraditionalUnet
+    # family's at DataB's 256x256 / batch 32 / 4 classes (F = 32 and 22);
+    # the mask-only tail at 200x200, whose 40,000 pixels an image the JAX
+    # tail's 1024-row block does not divide
+    tail("final_argmax_hist", B, S, S, 64, CLASSES["unet_vgg"], True)
+    c4 = CLASSES["traditional"]
+    for f in (32, 22):
+        tail("final_argmax_hist_natural", DATAB_BATCH, DATAB_SIZE, DATAB_SIZE, f, c4, True)
+    tail("final_argmax", DATAB_BATCH, 200, 200, 32, c4, False)
+
+    # normalize: the single image at each model's size, and a DataB batch;
+    # bit-exact against the plain version
+    for n, h in ((1, DATAB_SIZE), (DATAB_BATCH, DATAB_SIZE), (1, S)):
+        img = torch.randint(0, 256, (n, h, h, 3), generator=gen, device=dev, dtype=torch.uint8)
+        for dt in (torch.float32, torch.bfloat16):
+            out, ref = normalize_images(img, dt), normalize_images_plain(img, dt)
+            case = f"{n}x{h}x{h}x3 u8->{str(dt).split('.')[-1]}"
+            check(bool(torch.equal(out, ref)), f"normalize_images {case}: not bit-exact")
+            record("normalize_images", case, [out], [ref],
+                   lambda: normalize_images(img, dt), lambda: normalize_images_plain(img, dt),
+                   lambda: img.to(dt).mul_(1 / 255), 0.0, nbytes(img, out))
     return results
 
 
@@ -312,6 +393,11 @@ def plain_logits(model, net, imgs):
     from tpu_unet_torch.models.backbones import _STAGES
     from tpu_unet_torch.nn.resize import resize_bilinear
 
+    if model.startswith("traditional"):  # plain PyTorch up to the tail
+        up = net(normalize_u8(imgs, net.outc.weight.dtype), features_out=True)
+        c = net.outc.weight.shape[0]
+        w = net.outc.weight.reshape(c, -1)
+        return up.reshape(-1, up.shape[-1]).float() @ w.float().t() + net.outc.bias.float()
     if net.backbone == "vgg":
         fs = net.vgg.features
         wb = [([fs[i].weight for i in idx], [fs[i].bias for i in idx]) for idx in _STAGES]
@@ -357,22 +443,43 @@ def compare_masks(masks, logits, margin):
     return differ.float().mean().item(), outside, need
 
 
-# launches each serving path must make, and no other kernel
+def expected(launches: dict) -> dict:
+    """``launches`` with every other kernel at 0."""
+    from tpu_unet_torch.kernels import launch_counts
+
+    return {k: launches.get(k, 0) for k in launch_counts}
+
+
+# each counted serving step (model, batch, size) and the launches it must
+# make; every other kernel 0.  Serving normalises in plain PyTorch, as the
+# JAX step does, so normalize_images is 0 throughout.
 SERVING = {
-    "unet_vgg": {"final_argmax_hist": 1, "vgg_stem": 1, "vgg_block": 4,
-                 "unetup": 4, "upconv": 0},
-    "unet_resnet50": {"final_argmax_hist": 1, "vgg_stem": 0, "vgg_block": 0,
-                      "unetup": 4, "upconv": 1},
-    "self_net": {"final_argmax_hist": 0, "vgg_stem": 1, "vgg_block": 4,
-                 "unetup": 4, "upconv": 1},
+    ("unet_vgg", BATCH, SIZE): {"final_argmax_hist": 1, "vgg_stem": 1, "vgg_block": 4,
+                                "unetup": 4},
+    ("unet_resnet50", BATCH, SIZE): {"final_argmax_hist": 1, "unetup": 4, "upconv": 1},
+    ("self_net", BATCH, SIZE): {"vgg_stem": 1, "vgg_block": 4, "unetup": 4, "upconv": 1},
+    ("traditional", DATAB_BATCH, DATAB_SIZE): {"final_argmax_hist": 1},
+    ("traditional22", DATAB_BATCH, DATAB_SIZE): {"final_argmax_hist": 1},
+    # 40,000 pixels an image: the mask-only tail and a separate histogram
+    ("traditional", DATAB_BATCH, 200): {"final_argmax": 1},
 }
+
+
+def entry(model: str, kernel: str) -> str:
+    """The ``kernels`` line entry a launch counts for: the TraditionalUnet
+    family's histogram tail replaces another TPU function (#5) than the
+    canonical UNets' (#4), through the same CUDA kernel."""
+    if kernel == "final_argmax_hist" and model.startswith("traditional"):
+        return "final_argmax_hist_natural"
+    return kernel
 
 
 def device_breakdown(fn, net, imgs, steps: int = 3):
     """Device time per serving step by kernel (torch.profiler over
     ``steps`` steps) and the device's idle share between the first kernel's
     start and the last kernel's end.  The port's kernels are named
-    ``conv3x3_kernel<Loader, pool>`` and ``final_argmax_hist_kernel``."""
+    ``conv3x3_kernel<Loader, pool>``, ``final_argmax_kernel<F, hist>`` and
+    ``normalize_kernel<T>``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -392,8 +499,10 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             loader = next((n for n in ("ImageLoader", "UpConcatLoader", "NhwcLoader")
                            if n in name), "?")
             name = f"port conv3x3_kernel<{loader}>"
-        elif "final_argmax_hist_kernel" in name:
-            name = "port final_argmax_hist_kernel"
+        elif "final_argmax_kernel" in name:
+            name = f"port final_argmax_kernel<{'hist' if 'true' in name else 'mask'}>"
+        elif "normalize_kernel" in name:
+            name = "port normalize_kernel"
         else:
             name = name[:70]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
@@ -411,21 +520,24 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             "top_kernels_ms": [[k, v] for k, v in top[:8]]}
 
 
-def serve(model: str, card: str):
-    """Drive ``model``'s serving step; return its launch counts."""
+def serve(model: str, batch: int, size: int, card: str):
+    """Drive ``model``'s serving step on a seeded uint8 batch; return its
+    launch counts."""
     from tpu_unet_torch.core.precision import normalize_u8
     from tpu_unet_torch.infer.wrapper import Unet
     from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
     from tpu_unet_torch.nn.resize import resize_bilinear
 
+    classes = CLASSES[model]
+    tag = f"{model} {batch}x{size}^2"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    u = Unet(model=model, num_classes=CLASSES, input_shape=[SIZE, SIZE])
+    u = Unet(model=model, num_classes=classes, input_shape=[size, size])
     fn, net = u.serving_step()
-    print(f"phase 3: {model} built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 3: {tag} built in {time.perf_counter() - t0:.1f} s", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    imgs = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=gen,
+    imgs = torch.randint(0, 256, (batch, size, size, 3), generator=gen,
                          device="cuda", dtype=torch.uint8)
     fn(net, imgs)
     torch.cuda.synchronize()
@@ -434,8 +546,8 @@ def serve(model: str, card: str):
     masks, hist = fn(net, imgs)
     torch.cuda.synchronize()
     counts = dict(launch_counts)
-    expect = SERVING[model]
-    check(counts == expect, f"{model} launch counts {counts} != {expect}")
+    expect = expected(SERVING[(model, batch, size)])
+    check(counts == expect, f"{tag} launch counts {counts} != {expect}")
 
     steps = 5
     t0 = time.perf_counter()
@@ -445,61 +557,167 @@ def serve(model: str, card: str):
     dt = time.perf_counter() - t0
     step_ms = time_ms(lambda: fn(net, imgs), reps=steps)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    # the encoder alone: kernels for VGG16, cuDNN for ResNet50
-    x = imgs if net.backbone == "vgg" else normalize_u8(imgs, net.final.weight.dtype)
-    enc = net.vgg if net.backbone == "vgg" else net.resnet
+    # the net without its tail: kernels for VGG16, cuDNN for ResNet50 and
+    # the TraditionalUnet
+    traditional = model.startswith("traditional")
+    vgg = not traditional and net.backbone == "vgg"
+    dtype = next(net.parameters()).dtype
+    x = imgs if vgg else normalize_u8(imgs, dtype)
+    enc = (lambda: net(x, features_out=True)) if traditional else \
+        (lambda: (net.vgg if vgg else net.resnet)(x))
     with torch.no_grad():
-        enc_ms = time_ms(lambda: enc(x), reps=steps)
+        enc_ms = time_ms(enc, reps=steps)
     breakdown = device_breakdown(fn, net, imgs)
 
-    check(masks.shape == (BATCH, SIZE, SIZE) and masks.dtype == torch.uint8,
-          f"{model} masks {tuple(masks.shape)} {masks.dtype}")
-    check(hist.shape == (BATCH, CLASSES) and hist.dtype == torch.int32,
-          f"{model} hist {tuple(hist.shape)} {hist.dtype}")
-    check(int(hist.sum()) == BATCH * SIZE * SIZE, f"{model} hist sum {int(hist.sum())}")
-    own = torch.stack([torch.bincount(m.flatten().long(), minlength=CLASSES)
+    check(masks.shape == (batch, size, size) and masks.dtype == torch.uint8,
+          f"{tag} masks {tuple(masks.shape)} {masks.dtype}")
+    check(hist.shape == (batch, classes) and hist.dtype == torch.int32,
+          f"{tag} hist {tuple(hist.shape)} {hist.dtype}")
+    check(int(hist.sum()) == batch * size * size, f"{tag} hist sum {int(hist.sum())}")
+    own = torch.stack([torch.bincount(m.flatten().long(), minlength=classes)
                        for m in masks]).to(torch.int32)
-    check(bool(torch.equal(own, hist)), f"{model} serving hist != bincount(masks)")
+    check(bool(torch.equal(own, hist)), f"{tag} serving hist != bincount(masks)")
 
     with torch.no_grad():
         logits = plain_logits(model, net, imgs)
     mism, outside, need = compare_masks(masks, logits, SERVE_MARGIN)
-    check(mism <= SERVE_MISMATCH, f"{model} mask mismatch {mism:.4f} > {SERVE_MISMATCH}")
-    check(outside == 0, f"{model}: {outside} flips outside the margin")
+    check(mism <= SERVE_MISMATCH, f"{tag} mask mismatch {mism:.4f} > {SERVE_MISMATCH}")
+    check(outside == 0, f"{tag}: {outside} flips outside the margin")
     del logits, masks
 
     # small batch against the CPU float32 path (the path the tests hold
     # against the JAX package), same seeded weights
-    small = torch.randint(0, 256, (1, 256, 256, 3), generator=gen, device="cuda",
-                          dtype=torch.uint8)
+    small_size = min(size, 256)
+    small = torch.randint(0, 256, (1, small_size, small_size, 3), generator=gen,
+                          device="cuda", dtype=torch.uint8)
     m_gpu, _ = fn(net, small)
-    cpu = Unet(model=model, num_classes=CLASSES, input_shape=[256, 256], cuda=False)
+    cpu = Unet(model=model, num_classes=classes, input_shape=[small_size] * 2, cuda=False)
     with torch.no_grad():
-        xs = small.cpu() if net.backbone == "vgg" else normalize_u8(small.cpu(), torch.float32)
+        xs = small.cpu() if vgg else normalize_u8(small.cpu(), torch.float32)
         cpu_logits = cpu.net(xs)
-        cpu_logits = resize_bilinear(cpu_logits, (256, 256), align_corners=True)
-    mism_cpu, outside_cpu, need_cpu = compare_masks(m_gpu.cpu(), cpu_logits.reshape(-1, CLASSES),
+        cpu_logits = resize_bilinear(cpu_logits, (small_size,) * 2, align_corners=True)
+    mism_cpu, outside_cpu, need_cpu = compare_masks(m_gpu.cpu(), cpu_logits.reshape(-1, classes),
                                                     SERVE_MARGIN)
-    check(mism_cpu <= SERVE_MISMATCH, f"{model} 256px vs CPU f32 mismatch {mism_cpu:.4f}")
-    check(outside_cpu == 0, f"{model} 256px vs CPU f32: {outside_cpu} flips outside the margin")
+    check(mism_cpu <= SERVE_MISMATCH,
+          f"{tag} {small_size}px vs CPU f32 mismatch {mism_cpu:.4f}")
+    check(outside_cpu == 0,
+          f"{tag} {small_size}px vs CPU f32: {outside_cpu} flips outside the margin")
 
-    line = {"serving": model, "batch": BATCH, "size": SIZE, "classes": CLASSES,
-            "img_per_s": BATCH * steps / dt, "step_ms_host": dt / steps * 1e3,
+    line = {"serving": model, "batch": batch, "size": size, "classes": classes,
+            "img_per_s": batch * steps / dt, "step_ms_host": dt / steps * 1e3,
             "step_ms_events": step_ms, "encoder_ms_events": enc_ms, "launches": counts,
             "mask_mismatch_vs_plain": mism, "flips_outside_margin": outside,
-            "largest_flip_gap": need, "mask_mismatch_vs_cpu_f32_256px": mism_cpu,
+            "largest_flip_gap": need, f"mask_mismatch_vs_cpu_f32_{small_size}px": mism_cpu,
             "largest_flip_gap_vs_cpu": need_cpu, "peak_mem_gib": peak, "gpu": card}
     print(json.dumps(line), flush=True)
-    print(json.dumps({"serving": model, "profile": breakdown}), flush=True)
+    print(json.dumps({"serving": model, "size": size, "profile": breakdown}), flush=True)
     del u, fn, net, imgs, x
     return counts
 
 
 def phase_serving(card: str):
-    """Each serving path with its own counted step; the launch totals."""
+    """Each serving path with its own counted step; the launches by
+    ``kernels`` entry."""
     totals: dict = {}
-    for model in SERVING:
-        for k, v in serve(model, card).items():
+    for model, batch, size in SERVING:
+        for k, v in serve(model, batch, size, card).items():
+            totals[entry(model, k)] = totals.get(entry(model, k), 0) + v
+    return totals
+
+
+# the single-image API: (model, input size, get_FPS iterations) and the
+# launches of each forward; every other kernel 0.  The forward runs the
+# normalize kernel once, then the net; its logits go through softmax, not a
+# tail kernel.
+SINGLE = {
+    ("traditional", DATAB_SIZE, 50): {"normalize_images": 1},
+    ("unet_vgg", SIZE, 20): {"normalize_images": 1, "vgg_stem": 1, "vgg_block": 4,
+                             "unetup": 4},
+}
+
+
+def single_image(model: str, size: int, reps: int, card: str):
+    """Drive the single-image API of ``model`` on a seeded 300x200 image
+    (the letterbox has gray bars); return the launches of its two counted
+    forwards."""
+    from PIL import Image
+
+    from tpu_unet_torch.infer.wrapper import Unet
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+
+    classes = CLASSES[model]
+    tag = f"{model} single image {size}^2"
+    u = Unet(model=model, num_classes=classes, input_shape=[size, size])
+    rng = np.random.default_rng(5)
+    image = Image.fromarray(rng.integers(0, 256, (200, 300, 3), dtype=np.uint8))
+    u._probs_for(image)  # warm-up: cuDNN plans
+    torch.cuda.synchronize()
+    expect = expected(SINGLE[(model, size, reps)])
+    totals = dict.fromkeys(expect, 0)
+
+    reset_launch_counts()
+    pr, rgb = u._probs_for(image)
+    counts = dict(launch_counts)
+    check(counts == expect, f"{tag} _probs_for launches {counts} != {expect}")
+    for k, v in counts.items():
+        totals[k] += v
+    reset_launch_counts()
+    mask, _ = u._device_mask_for(image)
+    counts = dict(launch_counts)
+    check(counts == expect, f"{tag} _device_mask_for launches {counts} != {expect}")
+    for k, v in counts.items():
+        totals[k] += v
+
+    x, nw, nh, _ = u._letterbox(image)
+    check(pr.shape == (nh, nw, classes) and nh < size, f"{tag} cropped probabilities {pr.shape}")
+    check(bool(np.allclose(pr.sum(-1), 1.0, atol=1e-4)), f"{tag} probabilities do not sum to 1")
+    check(mask.dtype == np.uint8 and mask.shape == (nh, nw), f"{tag} mask {mask.shape}")
+    check(bool(np.array_equal(mask, pr.argmax(-1))),
+          f"{tag} device mask != argmax of the probabilities")
+
+    # the card's mask against the CPU float32 path (the path the tests hold
+    # against the JAX package): same seeded weights, same letterboxed image
+    cpu = Unet(model=model, num_classes=classes, input_shape=[size, size], cuda=False)
+    cpu_logits = cpu._crop(cpu._forward_logits(x)[0], nh, nw)
+    mism_cpu, outside_cpu, need_cpu = compare_masks(torch.from_numpy(mask),
+                                                    cpu_logits.reshape(-1, classes), SERVE_MARGIN)
+    check(mism_cpu <= SERVE_MISMATCH, f"{tag} mask vs CPU f32 mismatch {mism_cpu:.4f}")
+    check(outside_cpu == 0, f"{tag} mask vs CPU f32: {outside_cpu} flips outside the margin")
+    prob_err = float(np.abs(pr - torch.softmax(cpu_logits, -1).numpy()).max())
+    del cpu, cpu_logits
+
+    s_mask = u.get_FPS(image, reps)
+    s_full = u.get_FPS(image, reps, full_d2h=True)
+    shapes = {}
+    for mix in (0, 1, 2):
+        u.mix_type = mix
+        out = u.detect_image(image)
+        check(out.size == image.size and out.mode == "RGB", f"{tag} detect_image mix {mix}")
+        shapes[f"detect_mix{mix}"] = [out.size, out.mode]
+    u.mix_type = 0
+    fast = u.detect_image(image, count=True, fast=True)
+    check(fast.size == image.size and fast.mode == "RGB", f"{tag} detect_image fast")
+    png, png_fast = u.get_miou_png(image), u.get_miou_png(image, fast=True)
+    for p, what in ((png, "get_miou_png"), (png_fast, "get_miou_png fast")):
+        check(p.size == image.size and p.mode == "L" and int(np.asarray(p).max()) < classes,
+              f"{tag} {what} {p.size} {p.mode}")
+    print(json.dumps({
+        "single_image": model, "size": size, "classes": classes, "image": list(image.size),
+        "letterboxed": [nw, nh], "launches_per_forward": counts,
+        "mask_mismatch_vs_cpu_f32": mism_cpu, "largest_flip_gap_vs_cpu": need_cpu,
+        "probs_max_abs_err_vs_cpu_f32": prob_err,
+        "get_FPS_s_device_mask": s_mask, "fps_device_mask": 1 / s_mask,
+        "get_FPS_s_full_d2h": s_full, "fps_full_d2h": 1 / s_full, "reps": reps,
+        "miou_png_fast_agreement": float((np.asarray(png) == np.asarray(png_fast)).mean()),
+        "outputs": shapes, "gpu": card}), flush=True)
+    del u
+    return totals
+
+
+def phase_single_image(card: str):
+    totals: dict = {}
+    for model, size, reps in SINGLE:
+        for k, v in single_image(model, size, reps, card).items():
             totals[k] = totals.get(k, 0) + v
     return totals
 
@@ -512,6 +730,12 @@ SOURCES = {
     "final_argmax_hist": ("tpu_unet_torch/csrc/postprocess.cu",
                           "tpu_unet/kernels/postprocess.py:244"),
     "upconv": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:227"),
+    "final_argmax_hist_natural": ("tpu_unet_torch/csrc/postprocess.cu",
+                                  "tpu_unet/kernels/postprocess.py:154"),
+    "final_argmax": ("tpu_unet_torch/csrc/postprocess.cu",
+                     "tpu_unet/kernels/postprocess.py:92"),
+    "normalize_images": ("tpu_unet_torch/csrc/preprocess.cu",
+                         "tpu_unet/kernels/preprocess.py:39"),
 }
 
 
@@ -531,10 +755,13 @@ def main() -> int:
     phase_build()
     results = phase_kernels(card)
     counts = phase_serving(card)
+    for k, v in phase_single_image(card).items():
+        counts[k] = counts.get(k, 0) + v
     kernels = []
     for name, (src, repl) in SOURCES.items():
         r = results[name]
         b_ms, b_by = bound(r["flops"], r["bytes"], r["peak"])
+        check(counts.get(name, 0) > 0, f"{name}: no launch on its path")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": counts.get(name, 0),
                         "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],

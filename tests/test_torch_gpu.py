@@ -55,6 +55,27 @@ def test_stem_kernel(cuda):
 
 
 @pytest.mark.gpu
+def test_stem_kernel_bf16_input(cuda):
+    """The single-image forward's input: the normalize kernel's bf16 output
+    (the stem's ImageLoader<false> branch)."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.preprocess import normalize_images
+    from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
+
+    img = torch.randint(0, 256, (1, 32, 48, 3), generator=cuda, device="cuda",
+                        dtype=torch.uint8)
+    x = normalize_images(img, torch.bfloat16)
+    w11, b11 = _conv(cuda, 64, 3)
+    w12, b12 = _conv(cuda, 64, 64)
+    n = launch_counts["vgg_stem"]
+    out = vgg_stem(x, w11, b11, w12, b12)
+    assert launch_counts["vgg_stem"] == n + 1
+    ref = vgg_stem_plain(x, w11, b11, w12, b12)
+    for o, r in zip(out, ref):
+        assert _rel(o, r) <= CONV_REL_TOL
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("chans,pool", [([64, 128, 128], True),
                                         ([128, 256, 256, 256], False)])
 def test_block_kernel(cuda, chans, pool):
@@ -114,6 +135,78 @@ def test_tail_kernel(cuda):
     assert (masks != pm).float().mean().item() < 1e-3
     own = torch.stack([torch.bincount(m.flatten().long(), minlength=21) for m in masks])
     assert torch.equal(own.to(torch.int32), hist)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [22, 32, 64])
+def test_natural_tail_kernel(cuda, f):
+    """The tail at the TraditionalUnet widths (and the canonical 64):
+    masks as plain up to near-ties, hist = bincount of its own masks."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.postprocess import (final_argmax_hist,
+                                                    final_argmax_hist_plain)
+
+    feats = _act(cuda, 3, 32, 64, f)
+    w = (torch.randn((4, f, 1, 1), generator=cuda, device="cuda") / 4).to(torch.bfloat16)
+    b = (0.1 * torch.randn(4, generator=cuda, device="cuda")).to(torch.bfloat16)
+    n = launch_counts["final_argmax_hist"]
+    masks, hist = final_argmax_hist(feats, w, b, 4)
+    assert launch_counts["final_argmax_hist"] == n + 1
+    pm, _ = final_argmax_hist_plain(feats, w, b, 4)
+    assert (masks != pm).float().mean().item() < 1e-3
+    own = torch.stack([torch.bincount(m.flatten().long(), minlength=4) for m in masks])
+    assert torch.equal(own.to(torch.int32), hist)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 25, 25, 32), (1, 7, 13, 22), (3, 20, 30, 64)])
+def test_mask_only_tail_kernel(cuda, shape):
+    """Any pixel count: the last block's ragged edge is masked."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.postprocess import final_argmax, final_argmax_plain
+
+    f = shape[-1]
+    feats = _act(cuda, *shape)
+    w = (torch.randn((4, f, 1, 1), generator=cuda, device="cuda") / 4).to(torch.bfloat16)
+    b = torch.zeros(4, device="cuda", dtype=torch.bfloat16)
+    n = launch_counts["final_argmax"]
+    masks = final_argmax(feats, w, b, 4)
+    assert launch_counts["final_argmax"] == n + 1
+    assert masks.shape == shape[:3] and masks.dtype == torch.uint8
+    assert (masks != final_argmax_plain(feats, w, b, 4)).float().mean().item() < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 256, 256, 3), (2, 17, 9, 3)])
+def test_normalize_kernel_bit_exact(cuda, shape, dtype):
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.preprocess import (normalize_images,
+                                                   normalize_images_plain)
+
+    img = torch.randint(0, 256, shape, generator=cuda, device="cuda", dtype=torch.uint8)
+    n = launch_counts["normalize_images"]
+    out = normalize_images(img, dtype)
+    assert launch_counts["normalize_images"] == n + 1
+    assert torch.equal(out, normalize_images_plain(img, dtype))
+    # a view that is not 16-byte aligned takes the one-at-a-time path
+    flat = img.reshape(-1)[1:]
+    assert torch.equal(normalize_images(flat, dtype), normalize_images_plain(flat, dtype))
+
+
+@pytest.mark.gpu
+def test_tail_rejects_untileable_shape(cuda):
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.postprocess import final_argmax, final_argmax_hist
+
+    w = torch.zeros((4, 48, 1, 1), device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(4, device="cuda", dtype=torch.bfloat16)
+    feats = _act(cuda, 1, 16, 16, 48)    # F = 48 has no kernel: raises
+    counts = dict(launch_counts)
+    for tail in (final_argmax_hist, final_argmax):
+        with pytest.raises(ValueError):
+            tail(feats, w, b, 4)
+    assert launch_counts == counts
 
 
 @pytest.mark.gpu

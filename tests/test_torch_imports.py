@@ -44,7 +44,8 @@ def test_scan_compares_whole_names():
 
 
 def _cuda_entries():
-    from tpu_unet_torch.kernels import decoder_fuse, encoder, postprocess, stem, upconv
+    from tpu_unet_torch.kernels import (decoder_fuse, encoder, postprocess, preprocess,
+                                        stem, upconv)
 
     x3 = torch.zeros(1, 16, 16, 3, dtype=torch.uint8)
     w = torch.zeros(64, 3, 3, 3, dtype=torch.bfloat16)
@@ -60,10 +61,18 @@ def _cuda_entries():
         "tail": lambda: postprocess._final_argmax_hist_cuda(
             f, torch.zeros(21, 64, 1, 1), torch.zeros(21), 21),
         "upconv": lambda: upconv._upconv_cuda(f, w64, b, w64, b),
+        "tail_natural": lambda: postprocess._final_argmax_hist_cuda(
+            torch.zeros(2, 32, 32, 22, dtype=torch.bfloat16), torch.zeros(4, 22, 1, 1),
+            torch.zeros(4), 4),
+        "tail_mask_only": lambda: postprocess._final_argmax_cuda(
+            torch.zeros(1, 25, 25, 32, dtype=torch.bfloat16), torch.zeros(4, 32, 1, 1),
+            torch.zeros(4), 4),
+        "normalize": lambda: preprocess._normalize_images_cuda(x3, torch.bfloat16),
     }
 
 
-@pytest.mark.parametrize("name", ["stem", "block", "unetup", "tail", "upconv"])
+@pytest.mark.parametrize("name", ["stem", "block", "unetup", "tail", "upconv",
+                                  "tail_natural", "tail_mask_only", "normalize"])
 def test_kernel_path_refuses_cpu_tensors(name):
     """The kernel side of each wrapper checks its inputs and raises; it
     never computes a CPU tensor (and never builds) on its own."""
@@ -72,8 +81,25 @@ def test_kernel_path_refuses_cpu_tensors(name):
 
 
 def test_wrapper_rejects_other_devices():
-    from tpu_unet_torch.kernels.postprocess import final_argmax_hist
+    from tpu_unet_torch.kernels.postprocess import final_argmax, final_argmax_hist
+    from tpu_unet_torch.kernels.preprocess import normalize_images
 
     feats = torch.zeros(1, 16, 16, 64, device="meta")
+    for tail in (final_argmax_hist, final_argmax):
+        with pytest.raises(ValueError, match="unsupported device"):
+            tail(feats, torch.zeros(21, 64, 1, 1), torch.zeros(21), 21)
     with pytest.raises(ValueError, match="unsupported device"):
-        final_argmax_hist(feats, torch.zeros(21, 64, 1, 1), torch.zeros(21), 21)
+        normalize_images(torch.zeros(1, 4, 4, 3, dtype=torch.uint8, device="meta"))
+
+
+def test_pil_is_imported_inside_functions():
+    """The port imports PIL only where an image is handled, so importing
+    any of its modules does not need it."""
+    files = sorted((ROOT / "tpu_unet_torch").rglob("*.py"))
+    top = []
+    for f in files:
+        for node in ast.parse(f.read_text(), str(f)).body:
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
+                [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+            top += [(f.name, n) for n in names if n.split(".")[0] in ("PIL", "cv2")]
+    assert not top, top

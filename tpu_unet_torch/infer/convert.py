@@ -7,8 +7,11 @@ become ``weight``/``bias`` and its ``batch_stats`` ``mean``/``var`` become
 ``running_mean``/``running_var`` (with ``num_batches_tracked`` 0), and the
 keys are the reference torch names (``vgg.features.{i}``,
 ``resnet.layer{l}.{i}.conv{j}``, ``up_concat{i}.conv{1,2}``,
-``up_conv.{1,3}``, ``final``).  Load the result with ``strict=True`` so
-every key is used.
+``up_conv.{1,3}``, ``final``; for the TraditionalUnet family
+``convert_traditional`` read backwards: ``inc.double_conv.{0,1,3,4}``,
+``down{i}.maxpool_conv.1.double_conv.*``, ``up{i}.conv.double_conv.*``,
+``outc``), in the order of the torch model's state dict.  Load the result
+with ``strict=True`` so every key is used.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ _VGG_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 # backbone and head of each bridged model
 _MODELS = {"unet_vgg": ("vgg", False), "unet_resnet50": ("resnet50", True),
            "self_net": ("vgg", True)}
+_TRADITIONAL = ("traditional", "traditional22")
 
 
 def _f32(a) -> torch.Tensor:
@@ -62,16 +66,37 @@ def _resnet(params: Mapping, stats: Mapping, sd: dict) -> None:
                     f"{tp}.downsample.1")
 
 
+def _double_conv(params: Mapping, stats: Mapping, sd: dict, torch_key: str) -> None:
+    """DoubleConv ``conv1/bn1/conv2/bn2`` → ``double_conv.{0,1,3,4}``."""
+    for i, (c, b) in zip((0, 3), (("conv1", "bn1"), ("conv2", "bn2"))):
+        _conv(params[c], sd, f"{torch_key}.double_conv.{i}")
+        _bn(params[b], stats[b], sd, f"{torch_key}.double_conv.{i + 1}")
+
+
+def _traditional(params: Mapping, stats: Mapping, sd: dict) -> None:
+    _double_conv(params["inc"], stats["inc"], sd, "inc")
+    for i in (1, 2, 3):
+        d = f"down{i}"
+        _double_conv(params[d]["conv"], stats[d]["conv"], sd, f"{d}.maxpool_conv.1")
+    for i in (1, 2, 3):
+        u = f"up{i}"
+        _double_conv(params[u]["conv"], stats[u]["conv"], sd, f"{u}.conv")
+    _conv(params["outc"], sd, "outc")
+
+
 def state_dict_from_flax(variables_np: Mapping, model: str = "unet_vgg"):
     """Nested numpy dict (``{"params": {...}, "batch_stats": {...}}``, or
     the params tree itself for a model without batch norm) →
     ``OrderedDict`` of torch tensors in reference key names."""
-    if model not in _MODELS:
-        raise ValueError(f"weight bridge covers {sorted(_MODELS)}, "
+    if model not in _MODELS and model not in _TRADITIONAL:
+        raise ValueError(f"weight bridge covers {sorted((*_MODELS, *_TRADITIONAL))}, "
                          f"not {model!r}")
-    backbone, head = _MODELS[model]
     params = variables_np.get("params", variables_np)
     sd: dict = OrderedDict()
+    if model in _TRADITIONAL:
+        _traditional(params, variables_np["batch_stats"], sd)
+        return sd
+    backbone, head = _MODELS[model]
     if backbone == "vgg":
         for i in _VGG_CONV_IDX:
             _conv(params["vgg"][f"features_{i}"], sd, f"vgg.features.{i}")

@@ -36,6 +36,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     # feats, w (F,C) f32, b f32, mask, hist, n_pix, per_img, F, C, stream
     "tu_final_argmax_hist": [_P] * 5 + [_I] * 4 + [_P],
+    # feats, w (F,C) f32, b f32, mask, n_pix, F, C, stream
+    "tu_final_argmax": [_P] * 4 + [_I] * 3 + [_P],
+    # u8 in, out, n (int64), out is bf16, stream
+    "tu_normalize_images": [_P, _P, ctypes.c_longlong, _I, _P],
     # img, is_u8, w11, b11, w12, b12, a1, skip, pooled, B, H, W, F, stream
     "tu_vgg_stem": [_P, _I] + [_P] * 7 + [_I] * 4 + [_P],
     # x, n_convs, ws[3], bs[3], mids[2], skip, pooled, B, H, W, chans[4],
@@ -50,7 +54,8 @@ SIGNATURES = {
 
 # launches of each kernel wrapper; a wrapper adds one where it calls its
 # C entry and nowhere else
-launch_counts = {"final_argmax_hist": 0, "vgg_stem": 0, "vgg_block": 0,
+launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
+                 "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
                  "unetup": 0, "upconv": 0}
 
 _lock = threading.Lock()

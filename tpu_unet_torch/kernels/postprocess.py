@@ -1,12 +1,23 @@
-"""The serving tail: final 1×1 conv + argmax + uint8 mask + per-image
-class histogram (counterpart of ``tpu_unet/kernels/postprocess.py``).
+"""The serving tails: final 1×1 conv + argmax + uint8 mask, with or without
+the per-image class histogram (counterpart of
+``tpu_unet/kernels/postprocess.py``).
 
-CUDA kernel: ``csrc/postprocess.cu`` — replaces
-``postprocess.py::fused_final_argmax_hist_paired``.  It reads natural NHWC
-features (the port has no column-paired layout), keeps the logits out of
-device memory, and counts the histogram in int32 (the JAX kernel counts in
-float32 and the serving step casts; both are exact at these sizes).
-Bound on the H100: memory (reading the features), see the source note.
+CUDA kernels: ``csrc/postprocess.cu``, one template on the feature width
+F ∈ {22, 32, 64}:
+
+- ``final_argmax_hist`` replaces ``fused_final_argmax_hist_paired`` (the
+  tail of ``unet_vgg`` and ``unet_resnet50``, F = 64) and
+  ``fused_final_argmax_hist`` (the natural-layout tail of ``traditional``,
+  F = 32, and ``traditional22``, F = 22).  The port has no column-paired
+  layout, so both read natural NHWC features.  It counts the histogram in
+  int32 (the JAX kernels count in float32 and the serving step casts; both
+  are exact at these sizes).
+- ``final_argmax`` replaces ``fused_final_argmax``: the mask alone, for
+  any pixel count; the serving step then counts the histogram with
+  :func:`masks_and_hist`, as ``postprocess.py:148-152`` does.
+
+Both keep the logits out of device memory.  Bound on the H100: memory
+(reading the features), see the source note.
 """
 from __future__ import annotations
 
@@ -14,6 +25,11 @@ import torch
 
 from tpu_unet_torch.kernels import _build
 from tpu_unet_torch.kernels._plain import on_cpu
+
+# feature widths the CUDA tail is instantiated for; most classes it takes
+_WIDTHS = (22, 32, 64)
+_MAX_CLASSES = 32
+HIST_BLOCK = 256  # pixels a CUDA block; a histogram block never spans two images
 
 
 def _weights(weight: torch.Tensor, bias: torch.Tensor, num_classes: int):
@@ -32,27 +48,46 @@ def masks_and_hist(cls: torch.Tensor, num_classes: int):
     return cls.to(torch.uint8), hist.reshape(n, num_classes).to(torch.int32)
 
 
-def final_argmax_hist_plain(feats: torch.Tensor, weight: torch.Tensor,
-                            bias: torch.Tensor, num_classes: int):
-    """(N, H, W, F) features + torch final conv (C, F, 1, 1), (C,) →
-    (uint8 masks (N, H, W), int32 hist (N, C)).  Logits in float32; the
-    argmax keeps the first maximum."""
+def final_argmax_plain(feats: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(N, H, W, F) features + torch final conv (C, F, 1, 1), (C,) → uint8
+    class mask (N, H, W).  Logits in float32; the argmax keeps the first
+    maximum."""
     w, b = _weights(weight, bias, num_classes)
     n, h, wd, f = feats.shape
     logits = feats.reshape(-1, f).float() @ w.float().t() + b.float()
-    return masks_and_hist(torch.argmax(logits, dim=-1).reshape(n, h, wd),
+    return torch.argmax(logits, dim=-1).reshape(n, h, wd).to(torch.uint8)
+
+
+def final_argmax_hist_plain(feats: torch.Tensor, weight: torch.Tensor,
+                            bias: torch.Tensor, num_classes: int):
+    """(N, H, W, F) features + torch final conv (C, F, 1, 1), (C,) →
+    (uint8 masks (N, H, W), int32 hist (N, C))."""
+    return masks_and_hist(final_argmax_plain(feats, weight, bias, num_classes),
                           num_classes)
 
 
-def _final_argmax_hist_cuda(feats, weight, bias, num_classes):
+def _tail_args(feats, weight, bias, num_classes, name):
+    """Shape rule (checked before the device), then the CUDA operands:
+    (F, C) float32 weights and the float32 bias."""
     w, b = _weights(weight, bias, num_classes)
     n, h, wd, f = feats.shape
-    _build.check(feats, "feats", torch.bfloat16, (n, h, wd, 64))
-    if (h * wd) % 256 or not 1 <= num_classes <= 32:
-        raise ValueError(f"final_argmax_hist: H*W={h * wd} must be a multiple "
-                         f"of 256 and classes={num_classes} in [1, 32]")
-    wt = w.t().float().contiguous().to(feats.device)    # (F, C)
-    bf = b.float().contiguous().to(feats.device)
+    if f not in _WIDTHS or not 1 <= num_classes <= _MAX_CLASSES:
+        raise ValueError(f"{name} kernel: F={f} must be one of {_WIDTHS} "
+                         f"and classes={num_classes} in [1, {_MAX_CLASSES}]")
+    _build.check(feats, "feats", torch.bfloat16, (n, h, wd, f))
+    if feats.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: features must be 16-byte aligned")
+    return w.t().float().contiguous().to(feats.device), \
+        b.float().contiguous().to(feats.device)
+
+
+def _final_argmax_hist_cuda(feats, weight, bias, num_classes):
+    n, h, wd, f = feats.shape
+    if (h * wd) % HIST_BLOCK:
+        raise ValueError(f"final_argmax_hist kernel: H*W={h * wd} must be a "
+                         f"multiple of {HIST_BLOCK}")
+    wt, bf = _tail_args(feats, weight, bias, num_classes, "final_argmax_hist")
     masks = torch.empty((n, h, wd), dtype=torch.uint8, device=feats.device)
     hist = torch.zeros((n, num_classes), dtype=torch.int32, device=feats.device)
     _build.call("tu_final_argmax_hist", feats.data_ptr(), wt.data_ptr(),
@@ -62,10 +97,31 @@ def _final_argmax_hist_cuda(feats, weight, bias, num_classes):
     return masks, hist
 
 
+def _final_argmax_cuda(feats, weight, bias, num_classes):
+    n, h, wd, f = feats.shape
+    wt, bf = _tail_args(feats, weight, bias, num_classes, "final_argmax")
+    masks = torch.empty((n, h, wd), dtype=torch.uint8, device=feats.device)
+    _build.call("tu_final_argmax", feats.data_ptr(), wt.data_ptr(),
+                bf.data_ptr(), masks.data_ptr(), n * h * wd, f, num_classes)
+    _build.launch_counts["final_argmax"] += 1
+    return masks
+
+
 def final_argmax_hist(feats: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, num_classes: int):
     """Dispatching wrapper: plain version for CPU tensors, the CUDA kernel
-    (bf16 features, F = 64, H·W a multiple of 256) for tensors on the card."""
+    (bf16 features, F ∈ {22, 32, 64}, C ≤ 32, H·W a multiple of 256) for
+    tensors on the card."""
     if on_cpu(feats):
         return final_argmax_hist_plain(feats, weight, bias, num_classes)
     return _final_argmax_hist_cuda(feats, weight, bias, num_classes)
+
+
+def final_argmax(feats: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Dispatching wrapper: plain version for CPU tensors, the CUDA kernel
+    (bf16 features, F ∈ {22, 32, 64}, C ≤ 32, any pixel count) for tensors
+    on the card."""
+    if on_cpu(feats):
+        return final_argmax_plain(feats, weight, bias, num_classes)
+    return _final_argmax_cuda(feats, weight, bias, num_classes)

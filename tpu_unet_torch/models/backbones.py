@@ -13,17 +13,17 @@ channels, module names of the reference (``conv1``, ``bn1``,
 ``layer{1..4}.{i}.conv{1,2,3}``, ``.bn{1,2,3}``, ``.downsample.{0,1}``).
 The JAX package runs it outside any Pallas kernel, so it is plain PyTorch
 here: ``F.conv2d`` on channels-last views of the NHWC tensors, batch norm in
-eval mode from the running statistics, and the ceil-mode max-pool.
+eval mode from the running statistics (``nn/blocks.py::bn_eval``), and the
+ceil-mode max-pool.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpu_unet_torch.kernels.encoder import vgg_block
 from tpu_unet_torch.kernels.stem import vgg_stem
-from tpu_unet_torch.nn.blocks import BN_EPS, max_pool_ceil
+from tpu_unet_torch.nn.blocks import BN_EPS, bn_eval, max_pool_ceil
 
 # cfg 'D' (reference: nets/vgg.py:59)
 _CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
@@ -68,13 +68,6 @@ class VGG16(nn.Module):
         return feats
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Batch norm in eval mode, whatever the module's mode: the port
-    serves only.  The running statistics stay float32 on every device."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps)
-
-
 def _conv_bn(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
     return (nn.Conv2d(cin, cout, k, stride, padding, bias=False),
             nn.BatchNorm2d(cout, eps=BN_EPS))
@@ -94,11 +87,11 @@ class Bottleneck(nn.Module):
             *_conv_bn(inplanes, planes * 4, 1, stride)) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(_bn(self.conv1(x), self.bn1))
-        y = torch.relu(_bn(self.conv2(y), self.bn2))
-        y = _bn(self.conv3(y), self.bn3)
+        y = torch.relu(bn_eval(self.conv1(x), self.bn1))
+        y = torch.relu(bn_eval(self.conv2(y), self.bn2))
+        y = bn_eval(self.conv3(y), self.bn3)
         identity = x if self.downsample is None else \
-            _bn(self.downsample[0](x), self.downsample[1])
+            bn_eval(self.downsample[0](x), self.downsample[1])
         return torch.relu(y + identity)
 
 
@@ -122,7 +115,7 @@ class ResNet50(nn.Module):
     def forward(self, x: torch.Tensor):
         """(B, H, W, 3) float image → [feat1 … feat5], NHWC contiguous."""
         y = x.permute(0, 3, 1, 2)  # channels-last view, no copy
-        feat1 = torch.relu(_bn(self.conv1(y), self.bn1)).permute(0, 2, 3, 1)
+        feat1 = torch.relu(bn_eval(self.conv1(y), self.bn1)).permute(0, 2, 3, 1)
         y = max_pool_ceil(feat1, 3, 2).permute(0, 3, 1, 2)
         feats = [feat1.contiguous()]
         for li in range(1, 5):

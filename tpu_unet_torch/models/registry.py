@@ -1,7 +1,8 @@
 """Model registry of the port (counterpart of ``tpu_unet/models/registry.py``).
 
-The canonical UNets are ported (``unet_vgg``, ``unet_resnet50``,
-``self_net``); the other registry models follow in later slices.
+Ported: the canonical UNets (``unet_vgg``, ``unet_resnet50``, ``self_net``)
+and the TraditionalUnet family (``traditional``, ``traditional22``); the
+other registry models follow in later slices.
 """
 from __future__ import annotations
 
@@ -11,12 +12,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpu_unet_torch.models.traditional import traditional, traditional22
 from tpu_unet_torch.models.unet import self_net, unet_resnet50, unet_vgg
 
 MODELS: Dict[str, Callable[..., nn.Module]] = {
     "unet_vgg": unet_vgg,
     "unet_resnet50": unet_resnet50,
     "self_net": self_net,
+    "traditional": traditional,
+    "traditional22": traditional22,
 }
 
 # flax's lecun_normal: truncated normal on (-2, 2), stddev corrected for the

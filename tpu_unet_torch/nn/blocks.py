@@ -1,8 +1,18 @@
-"""Shared blocks of the canonical UNet (counterpart of ``tpu_unet/nn/blocks.py``):
-the decoder block ``UnetUp`` (×2 align-corners upsample of the deep feature,
-concat [skip, up], two 3×3 conv + ReLU, no batch norm; parameter names follow
-the reference torch module, ``conv1``, ``conv2``), the ceil-mode max-pool of
-the ResNet50 stem, and the batch-norm constants.  NHWC activations.
+"""Shared blocks of the port's models (counterpart of ``tpu_unet/nn/blocks.py``).
+
+- ``UnetUp``: the canonical UNet's decoder block (×2 align-corners upsample
+  of the deep feature, concat [skip, up], two 3×3 conv + ReLU, no batch
+  norm; parameter names of the reference torch module, ``conv1``,
+  ``conv2``), on the ``unetup`` kernel;
+- ``DoubleConv``, ``Down``, ``Up``: the TraditionalUnet blocks,
+  (3×3 conv → batch norm → ReLU) ×2, behind a 2×2 max-pool or an
+  upsample + concat.  The JAX package runs them outside any Pallas kernel,
+  so they are plain PyTorch here: ``F.conv2d`` on channels-last views of
+  the NHWC tensors, batch norm in eval mode (:func:`bn_eval`);
+- the ceil-mode max-pool of the ResNet50 stem, the batch-norm constants and
+  :func:`bn_eval`, which ResNet50 and the TraditionalUnet blocks share.
+
+NHWC activations in and out.
 """
 from __future__ import annotations
 
@@ -10,11 +20,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_unet_torch.kernels._plain import max_pool2x2
 from tpu_unet_torch.kernels.decoder_fuse import unetup
+from tpu_unet_torch.nn.resize import upsample2x
 
 # torch BN defaults, as the JAX package uses them (momentum 0.1 in torch's
 # convention; only eval mode is ported)
 BN_EPS = 1e-5
+
+
+def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Batch norm in eval mode, whatever the module's mode: the port
+    serves only.  The running statistics stay float32 on every device."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, bn.eps)
 
 
 def max_pool_ceil(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
@@ -35,3 +54,51 @@ class UnetUp(nn.Module):
     def forward(self, skip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return unetup(skip, x, self.conv1.weight, self.conv1.bias,
                       self.conv2.weight, self.conv2.bias)
+
+
+class DoubleConv(nn.Module):
+    """(3×3 conv → BN → ReLU) ×2 (reference: nets/TraditionalUnet.py:5-18).
+    ``double_conv`` is the reference ``nn.Sequential`` (convs at 0 and 3,
+    batch norms at 1 and 4), so the state dict has its key names; the
+    forward calls the convs and batch norms itself, in eval mode."""
+
+    def __init__(self, in_size: int, out_size: int):
+        super().__init__()
+        self.double_conv = nn.Sequential(
+            nn.Conv2d(in_size, out_size, kernel_size=3, padding=1),
+            nn.BatchNorm2d(out_size, eps=BN_EPS), nn.ReLU(inplace=True),
+            nn.Conv2d(out_size, out_size, kernel_size=3, padding=1),
+            nn.BatchNorm2d(out_size, eps=BN_EPS), nn.ReLU(inplace=True))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.double_conv
+        y = x.permute(0, 3, 1, 2)  # channels-last view, no copy
+        for conv, bn in ((s[0], s[1]), (s[3], s[4])):
+            y = torch.relu(bn_eval(conv(y), bn))
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+class Down(nn.Module):
+    """2×2 max-pool → DoubleConv (reference: nets/TraditionalUnet.py:21-30);
+    keys ``maxpool_conv.1.*``."""
+
+    def __init__(self, in_size: int, out_size: int):
+        super().__init__()
+        self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2),
+                                          DoubleConv(in_size, out_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.maxpool_conv[1](max_pool2x2(x))
+
+
+class Up(nn.Module):
+    """×2 align-corners upsample of the deep ``x`` → concat [skip, up] →
+    DoubleConv (reference: nets/TraditionalUnet.py:33-42); keys ``conv.*``.
+    The argument order is the JAX block's, ``(x, skip)``."""
+
+    def __init__(self, in_size: int, out_size: int):
+        super().__init__()
+        self.conv = DoubleConv(in_size, out_size)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.cat([skip, upsample2x(x)], dim=-1))
