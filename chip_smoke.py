@@ -13,14 +13,19 @@ Phases (any failure exits non-zero without the final result line):
    head at batch 2; the stem also at one 512x512 image of the normalize
    kernel's bf16 output, as the single-image forward gives it), the
    TraditionalUnet tails at 256x256 and 200x200,
-   batch 32, and the normalize kernel at one image and at 32 — error,
-   kernel time, plain time, library time and bound;
+   batch 32, the normalize kernel at one image and at 32, the argmax-mask
+   kernel at its three generic serving shapes (ties and NaNs included) and
+   the palette kernel at 8 frames of 256x256 (also against the host
+   render) — error, kernel time, plain time, library time and bound;
 3. serving: ``tpu_unet_torch.infer.wrapper.Unet(model=..., num_classes=...,
    input_shape=...).serving_step()`` for ``unet_vgg``, ``unet_resnet50``
    and ``self_net`` (21 classes, a seeded uint8 batch of 8 at 512x512),
    ``traditional`` and ``traditional22`` (the DataB competition path: 4
-   classes, batch 32 at 256x256) and ``traditional`` at 200x200 (the
-   mask-only tail) — launch counts (set to 0 just before the counted step,
+   classes, batch 32 at 256x256), ``traditional`` at 200x200 (the
+   mask-only tail), and the generic step of ``ultralight_large_optimized``
+   (the DataB submission model), ``lightweight``, ``ultralight``,
+   ``ultralight_large`` and ``ultralight44`` at 256x256 / batch 32 / 4
+   classes — launch counts (set to 0 just before the counted step,
    read just after), img/s, peak memory, a ``torch.profiler`` breakdown,
    masks against the plain versions on the card, and a small batch against
    the CPU float32 path;
@@ -30,7 +35,14 @@ Phases (any failure exits non-zero without the final result line):
    launches of each counted forward, the device mask against the argmax of
    the probabilities and against the CPU float32 path on the same weights
    and letterboxed image, seconds and FPS at batch 1;
-5. one ``{"kernels": [...]}`` line, then the card line, then
+5. tools, on seeded files in a temporary directory: ``predict_dir_batched``
+   (``traditional``, 40 JPEG/PNG images of mixed sizes, batch 32) against
+   ``batch_infer`` on PIL-letterboxed copies, with images per second and
+   the loader route; ``predict_video_batched`` (``ultralight_large_optimized``,
+   a 20-frame 256x256 MJPG clip, batch 8, the palette kernel on the card);
+   ``evaluate`` over 8 images against the CPU float32 path; the ``predict``
+   and ``miou`` CLI subcommands in the process;
+6. one ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the ``tpu_unet`` package.
@@ -53,7 +65,13 @@ DATAB_BATCH, DATAB_SIZE = 32, 256  # the TraditionalUnet family's (DataB)
 # classes of each model: VOC's 21, DataB's 4 (Background / Inclusions /
 # Patches / Scratches)
 CLASSES = {"unet_vgg": 21, "unet_resnet50": 21, "self_net": 21,
-           "traditional": 4, "traditional22": 4}
+           "traditional": 4, "traditional22": 4, "ultralight": 4,
+           "ultralight_large": 4, "ultralight_large_optimized": 4,
+           "ultralight44": 4, "lightweight": 4}
+# the models whose serving step is the generic one with no kernel before
+# the argmax-mask kernel (self_net runs the VGG kernels first)
+GENERIC = ("ultralight", "ultralight_large", "ultralight_large_optimized",
+           "ultralight44", "lightweight")
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -155,16 +173,20 @@ def phase_build():
 
 
 def phase_kernels(card: str):
+    from tpu_unet_torch.infer.wrapper import VOC_COLORS
     from tpu_unet_torch.kernels.decoder_fuse import unetup, unetup_plain
     from tpu_unet_torch.kernels.encoder import vgg_block, vgg_block_plain
-    from tpu_unet_torch.kernels.postprocess import (final_argmax,
+    from tpu_unet_torch.kernels.postprocess import (argmax_mask, argmax_mask_plain,
+                                                    final_argmax,
                                                     final_argmax_hist,
                                                     final_argmax_hist_plain,
                                                     final_argmax_plain)
     from tpu_unet_torch.kernels.preprocess import (normalize_images,
                                                    normalize_images_plain)
+    from tpu_unet_torch.kernels.render import mask_palette, mask_palette_plain, palette_tensor
     from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
     from tpu_unet_torch.kernels.upconv import upconv, upconv_plain
+    from tpu_unet_torch.tools.predict import render
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -379,6 +401,41 @@ def phase_kernels(card: str):
             record("normalize_images", case, [out], [ref],
                    lambda: normalize_images(img, dt), lambda: normalize_images_plain(img, dt),
                    lambda: img.to(dt).mul_(1 / 255), 0.0, nbytes(img, out))
+
+    # argmax mask at the generic step's shapes: self_net (f32 after the
+    # resize), the ladder models (bf16 logits), lightweight (f32 after the
+    # resize); small-integer logits tie on most pixels, every 37th row
+    # holds a NaN; exact against the plain version
+    u8 = torch.uint8
+    for n, h, c, dt in ((B, S, CLASSES["self_net"], torch.float32),
+                        (DATAB_BATCH, DATAB_SIZE, 4, bf),
+                        (DATAB_BATCH, DATAB_SIZE, 4, torch.float32)):
+        x = torch.randint(-3, 4, (n, h, h, c), generator=gen, device=dev).to(dt)
+        x.view(-1, c)[::37, c // 2] = float("nan")
+        out, ref = argmax_mask(x, u8), argmax_mask_plain(x, u8)
+        case = f"{n}x{h}x{h}x{c} {str(dt).split('.')[-1]}->uint8"
+        check(bool(torch.equal(out, ref)), f"argmax_mask {case}: != plain")
+        record("argmax_mask", case, [out], [ref], lambda: argmax_mask(x, u8),
+               lambda: argmax_mask_plain(x, u8), lambda: torch.argmax(x, dim=-1),
+               float(x.numel()), nbytes(x, out), peak=PEAK_F32)
+        del x, out, ref
+
+    # palette blend of 8 frames at 256x256 with 4-class uint8 masks: exact
+    # against the plain version and the host render; no PyTorch call blends
+    # a palette, so no library time
+    n, h = 8, DATAB_SIZE
+    pal = palette_tensor(VOC_COLORS, dev)
+    mask = torch.randint(0, 4, (n, h, h), generator=gen, device=dev, dtype=u8)
+    img = torch.randint(0, 256, (n, h, h, 3), generator=gen, device=dev, dtype=u8)
+    out, ref = mask_palette(mask, img, pal), mask_palette_plain(mask, img, pal)
+    case = f"{n}x{h}x{h} uint8 mask, {pal.shape[0]} colours"
+    check(bool(torch.equal(out, ref)), f"mask_palette {case}: != plain")
+    host = np.stack([render(f, m, np.asarray(VOC_COLORS, np.uint8), 0.7, (0, 0, h, h), (h, h))
+                     for f, m in zip(img.cpu().numpy(), mask.cpu().numpy())])
+    check(bool(np.array_equal(out.cpu().numpy(), host)), f"mask_palette {case}: != host render")
+    record("mask_palette", case, [out], [ref], lambda: mask_palette(mask, img, pal),
+           lambda: mask_palette_plain(mask, img, pal), None, 9.0 * mask.numel(),
+           nbytes(mask, img, out), peak=PEAK_F32)
     return results
 
 
@@ -393,6 +450,11 @@ def plain_logits(model, net, imgs):
     from tpu_unet_torch.models.backbones import _STAGES
     from tpu_unet_torch.nn.resize import resize_bilinear
 
+    if model in GENERIC:  # plain PyTorch up to the argmax, as the step
+        logits = net(normalize_u8(imgs, next(net.parameters()).dtype))
+        if logits.shape[1:3] != imgs.shape[1:3]:
+            logits = resize_bilinear(logits.float(), imgs.shape[1:3], align_corners=True)
+        return logits.float().reshape(-1, logits.shape[-1])
     if model.startswith("traditional"):  # plain PyTorch up to the tail
         up = net(normalize_u8(imgs, net.outc.weight.dtype), features_out=True)
         c = net.outc.weight.shape[0]
@@ -457,12 +519,17 @@ SERVING = {
     ("unet_vgg", BATCH, SIZE): {"final_argmax_hist": 1, "vgg_stem": 1, "vgg_block": 4,
                                 "unetup": 4},
     ("unet_resnet50", BATCH, SIZE): {"final_argmax_hist": 1, "unetup": 4, "upconv": 1},
-    ("self_net", BATCH, SIZE): {"vgg_stem": 1, "vgg_block": 4, "unetup": 4, "upconv": 1},
+    ("self_net", BATCH, SIZE): {"vgg_stem": 1, "vgg_block": 4, "unetup": 4, "upconv": 1,
+                                "argmax_mask": 1},
     ("traditional", DATAB_BATCH, DATAB_SIZE): {"final_argmax_hist": 1},
     ("traditional22", DATAB_BATCH, DATAB_SIZE): {"final_argmax_hist": 1},
     # 40,000 pixels an image: the mask-only tail and a separate histogram
     ("traditional", DATAB_BATCH, 200): {"final_argmax": 1},
+    # the generic step: plain PyTorch net, the argmax-mask kernel
+    **{(m, DATAB_BATCH, DATAB_SIZE): {"argmax_mask": 1} for m in GENERIC},
 }
+# counted steps without the profiler breakdown
+UNPROFILED = ("ultralight", "ultralight_large", "ultralight44")
 
 
 def entry(model: str, kernel: str) -> str:
@@ -478,8 +545,9 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     """Device time per serving step by kernel (torch.profiler over
     ``steps`` steps) and the device's idle share between the first kernel's
     start and the last kernel's end.  The port's kernels are named
-    ``conv3x3_kernel<Loader, pool>``, ``final_argmax_kernel<F, hist>`` and
-    ``normalize_kernel<T>``."""
+    ``conv3x3_kernel<Loader, pool>``, ``final_argmax_kernel<F, hist>``,
+    ``normalize_kernel<T>``, ``argmax_kernel<T, V, Out>`` and
+    ``palette_kernel<M>``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -503,6 +571,10 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = f"port final_argmax_kernel<{'hist' if 'true' in name else 'mask'}>"
         elif "normalize_kernel" in name:
             name = "port normalize_kernel"
+        elif "argmax_kernel" in name:
+            name = "port argmax_kernel"
+        elif "palette_kernel" in name:
+            name = "port palette_kernel"
         else:
             name = name[:70]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
@@ -558,16 +630,20 @@ def serve(model: str, batch: int, size: int, card: str):
     step_ms = time_ms(lambda: fn(net, imgs), reps=steps)
     peak = torch.cuda.max_memory_allocated() / 2**30
     # the net without its tail: kernels for VGG16, cuDNN for ResNet50 and
-    # the TraditionalUnet
+    # the TraditionalUnet; for the generic models the net up to the logits
     traditional = model.startswith("traditional")
-    vgg = not traditional and net.backbone == "vgg"
+    vgg = not traditional and model not in GENERIC and net.backbone == "vgg"
     dtype = next(net.parameters()).dtype
     x = imgs if vgg else normalize_u8(imgs, dtype)
-    enc = (lambda: net(x, features_out=True)) if traditional else \
-        (lambda: (net.vgg if vgg else net.resnet)(x))
+    if model in GENERIC:
+        enc = lambda: net(x)  # noqa: E731
+    elif traditional:
+        enc = lambda: net(x, features_out=True)  # noqa: E731
+    else:
+        enc = lambda: (net.vgg if vgg else net.resnet)(x)  # noqa: E731
     with torch.no_grad():
         enc_ms = time_ms(enc, reps=steps)
-    breakdown = device_breakdown(fn, net, imgs)
+    breakdown = None if model in UNPROFILED else device_breakdown(fn, net, imgs)
 
     check(masks.shape == (batch, size, size) and masks.dtype == torch.uint8,
           f"{tag} masks {tuple(masks.shape)} {masks.dtype}")
@@ -610,7 +686,8 @@ def serve(model: str, batch: int, size: int, card: str):
             "largest_flip_gap": need, f"mask_mismatch_vs_cpu_f32_{small_size}px": mism_cpu,
             "largest_flip_gap_vs_cpu": need_cpu, "peak_mem_gib": peak, "gpu": card}
     print(json.dumps(line), flush=True)
-    print(json.dumps({"serving": model, "size": size, "profile": breakdown}), flush=True)
+    if breakdown is not None:
+        print(json.dumps({"serving": model, "size": size, "profile": breakdown}), flush=True)
     del u, fn, net, imgs, x
     return counts
 
@@ -722,6 +799,192 @@ def phase_single_image(card: str):
     return totals
 
 
+def _seeded_image(rng, w: int, h: int) -> np.ndarray:
+    """A smooth seeded RGB image with noise (so JPEG keeps some structure)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    f = rng.uniform(0.01, 0.06, 3).astype(np.float32)
+    arr = 127 + 110 * np.sin(f * (xx[..., None] + 0.6 * yy[..., None]))
+    return np.clip(arr + rng.normal(0, 12, arr.shape), 0, 255).astype(np.uint8)
+
+
+def counted(expect: dict, what: str, fn):
+    """Run ``fn`` with the launch counts set to 0; fail unless they equal
+    ``expect`` (every other kernel 0).  Returns (fn's result, counts)."""
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    check(counts == expected(expect), f"{what} launches {counts} != {expected(expect)}")
+    return out, counts
+
+
+def phase_tools(card: str):
+    """The inference entry points on seeded files; returns their launches
+    by ``kernels`` entry."""
+    import contextlib
+    import io
+    import tempfile
+
+    import cv2
+    from PIL import Image
+
+    from tpu_unet_torch import cli
+    from tpu_unet_torch.configs.infer_presets import build_wrapper
+    from tpu_unet_torch.data import native
+    from tpu_unet_torch.data.transforms import cvt_rgb, letterbox_image
+    from tpu_unet_torch.eval.driver import evaluate
+    from tpu_unet_torch.tools import predict as P
+
+    totals: dict = {}
+
+    def add(model, counts):
+        for k, v in counts.items():
+            totals[entry(model, k)] = totals.get(entry(model, k), 0) + v
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    size, batch = DATAB_SIZE, DATAB_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        img_dir = tmp / "img"
+        img_dir.mkdir()
+        dims = [(300, 200), (256, 256), (640, 480)]
+        for i in range(40):
+            w, h = dims[i % 3]
+            Image.fromarray(_seeded_image(rng, w, h)).save(
+                img_dir / f"im{i:02d}{'.jpg' if i % 2 == 0 else '.png'}", quality=90)
+        names = sorted(p.name for p in img_dir.iterdir())
+
+        # predict_dir_batched: traditional at 256^2, batch 32 (two batches,
+        # the second padded); the loader is built before the clock starts
+        route = native.route()
+        u = build_wrapper("traditional")
+        u.batch_infer(np.zeros((batch, size, size, 3), np.uint8))  # cuDNN plans
+        t0 = time.perf_counter()
+        n, counts = counted({"final_argmax_hist": 2}, "predict_dir_batched", lambda: P.predict_dir_batched(
+            u, str(img_dir), str(tmp / "out"), batch_size=batch))
+        dt = time.perf_counter() - t0
+        add("traditional", counts)
+        check(n == 40, f"predict_dir_batched wrote {n} of 40")
+        pngs = np.stack([np.asarray(Image.open(tmp / "out" / (Path(nm).stem + ".png")))
+                         for nm in names])
+        check(pngs.shape == (40, size, size), f"predict_dir_batched PNGs {pngs.shape}")
+        # against batch_infer on PIL-letterboxed copies, in the same chunks
+        ref, mism, outside, need = [], 0.0, 0, 0.0
+        for c0 in range(0, 40, batch):
+            chunk = names[c0:c0 + batch]
+            boxed = np.zeros((batch, size, size, 3), np.uint8)
+            for i, nm in enumerate(chunk):
+                boxed[i] = np.asarray(letterbox_image(cvt_rgb(Image.open(img_dir / nm)),
+                                                      (size, size))[0])
+            ref.append(u.batch_infer(boxed)[:len(chunk)])
+            fn, net = u.serving_step()
+            with torch.no_grad():
+                logits = plain_logits("traditional", net, torch.from_numpy(boxed).cuda())
+            logits = logits.reshape(batch, -1, logits.shape[-1])[:len(chunk)].reshape(
+                -1, logits.shape[-1])
+            m, o, g = compare_masks(torch.from_numpy(pngs[c0:c0 + len(chunk)]).cuda(), logits,
+                                    SERVE_MARGIN)
+            mism, outside, need = max(mism, m), outside + o, max(need, g)
+            del logits
+        same = float((pngs == np.concatenate(ref)).mean())
+        check(mism <= SERVE_MISMATCH, f"predict_dir_batched mask mismatch {mism:.4f}")
+        check(outside == 0, f"predict_dir_batched: {outside} flips outside the margin")
+        print(json.dumps({"tools": "predict_dir_batched", "model": "traditional", "images": n,
+                          "batch": batch, "size": size, "loader": route,
+                          "img_per_s_end_to_end": n / dt, "seconds": dt, "launches": counts,
+                          "agreement_with_batch_infer_on_pil_copies": same,
+                          "mask_mismatch_vs_plain": mism, "largest_flip_gap": need,
+                          "gpu": card}), flush=True)
+
+        # predict_video_batched: the submission model on a 20-frame 256^2
+        # MJPG clip at batch 8; the blend runs on the card (3 batches)
+        clip = str(tmp / "clip.avi")
+        writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 25.0, (size, size))
+        if not writer.isOpened():
+            raise RuntimeError("cv2 cannot write an MJPG clip")
+        for _ in range(20):
+            writer.write(_seeded_image(rng, size, size))
+        writer.release()
+        uv = build_wrapper("ultralight_large_optimized")
+        uv.batch_infer(np.zeros((8, size, size, 3), np.uint8))  # cuDNN plans
+        t0 = time.perf_counter()
+        done, counts = counted({"argmax_mask": 3, "mask_palette": 3}, "predict_video_batched",
+                               lambda: P.predict_video_batched(uv, clip, str(tmp / "out.avi"),
+                                                               batch_size=8))
+        dt = time.perf_counter() - t0
+        add("ultralight_large_optimized", counts)
+        cap = cv2.VideoCapture(str(tmp / "out.avi"))
+        written = 0
+        while cap.read()[0]:
+            written += 1
+        cap.release()
+        check(done == 20 and written == 20, f"predict_video_batched: {done} done, {written} written")
+        print(json.dumps({"tools": "predict_video_batched", "model": "ultralight_large_optimized",
+                          "frames": done, "written": written, "batch": 8, "size": size,
+                          "frames_per_s_end_to_end": done / dt, "launches": counts,
+                          "gpu": card}), flush=True)
+
+        # evaluate over 8 images with ground-truth PNGs, against the CPU
+        # float32 path on the same seeded weights
+        ev, gt_dir = tmp / "eval", tmp / "gt"
+        ev.mkdir()
+        gt_dir.mkdir()
+        ids = [f"e{i}" for i in range(8)]
+        for name in ids:
+            Image.fromarray(_seeded_image(rng, 300, 200)).save(ev / f"{name}.jpg", quality=90)
+            gt = rng.integers(0, 4, (200, 300)).astype(np.uint8)
+            gt[:4] = 255
+            Image.fromarray(gt).save(gt_dir / f"{name}.png")
+        res, counts = counted({"normalize_images": 8}, "evaluate", lambda: evaluate(
+            u, ids, str(gt_dir), 4, image_dir=str(ev), pred_dir=str(tmp / "pred"), verbose=False))
+        add("traditional", counts)
+        res_cpu = evaluate(build_wrapper("traditional", cuda=False), ids, str(gt_dir), 4,
+                           image_dir=str(ev), pred_dir=str(tmp / "pred_cpu"), verbose=False)
+        flips = np.mean([np.mean(np.asarray(Image.open(tmp / "pred" / f"{i}.png"))
+                                 != np.asarray(Image.open(tmp / "pred_cpu" / f"{i}.png")))
+                         for i in ids])
+        d_miou = abs(res["miou"] - res_cpu["miou"])
+        check(int(res["hist"].sum()) == 8 * 196 * 300, f"evaluate counted {res['hist'].sum()}")
+        check(flips <= SERVE_MISMATCH, f"evaluate masks vs CPU f32 differ on {flips:.4f}")
+        check(d_miou <= SERVE_MISMATCH, f"evaluate mIoU {res['miou']:.5f} vs CPU f32 "
+                                        f"{res_cpu['miou']:.5f}")
+        print(json.dumps({"tools": "evaluate", "model": "traditional", "images": 8,
+                          "miou": res["miou"], "miou_cpu_f32": res_cpu["miou"],
+                          "mask_mismatch_vs_cpu_f32": float(flips), "launches": counts,
+                          "gpu": card}), flush=True)
+
+        # the CLI in the process, its standard output captured
+        def quiet(argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+            return buf.getvalue()
+
+        text, counts = counted({"final_argmax_hist": 2}, "cli predict", lambda: quiet([
+            "predict", "--preset", "traditional", "--mode", "dir_batched", "--input",
+            str(img_dir), "--output", str(tmp / "cli"), "--batch-size", str(batch)]))
+        add("traditional", counts)
+        cli_pngs = np.stack([np.asarray(Image.open(tmp / "cli" / (Path(nm).stem + ".png")))
+                             for nm in names])
+        check("processed 40 images" in text, f"cli predict said {text!r}")
+        cli_same = bool(np.array_equal(cli_pngs, pngs))
+        check(cli_same, "cli predict PNGs != predict_dir_batched's")
+        (tmp / "val.txt").write_text("\n".join(ids))
+        text, counts = counted({"normalize_images": 8}, "cli miou", lambda: quiet([
+            "miou", "--preset", "traditional", "--split", str(tmp / "val.txt"),
+            "--image-dir", str(ev), "--gt-dir", str(gt_dir)]))
+        add("traditional", counts)
+        check(f"mIoU: {100 * res['miou']:.2f}" in text, f"cli miou said {text!r}")
+        print(json.dumps({"tools": "cli", "predict_dir_batched_pngs_equal": cli_same,
+                          "miou_line": text.strip().splitlines()[-1],
+                          "gpu": card}), flush=True)
+    print(f"phase 5: tools in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals
+
+
 SOURCES = {
     "vgg_stem": ("tpu_unet_torch/csrc/stem.cu", "tpu_unet/kernels/stem.py:220"),
     "vgg_block": ("tpu_unet_torch/csrc/encoder.cu", "tpu_unet/kernels/encoder.py:288"),
@@ -736,6 +999,8 @@ SOURCES = {
                      "tpu_unet/kernels/postprocess.py:92"),
     "normalize_images": ("tpu_unet_torch/csrc/preprocess.cu",
                          "tpu_unet/kernels/preprocess.py:39"),
+    "argmax_mask": ("tpu_unet_torch/csrc/argmax.cu", "tpu_unet/kernels/postprocess.py:56"),
+    "mask_palette": ("tpu_unet_torch/csrc/palette.cu", "tpu_unet/kernels/postprocess.py:300"),
 }
 
 
@@ -755,8 +1020,9 @@ def main() -> int:
     phase_build()
     results = phase_kernels(card)
     counts = phase_serving(card)
-    for k, v in phase_single_image(card).items():
-        counts[k] = counts.get(k, 0) + v
+    for phase in (phase_single_image, phase_tools):
+        for k, v in phase(card).items():
+            counts[k] = counts.get(k, 0) + v
     kernels = []
     for name, (src, repl) in SOURCES.items():
         r = results[name]

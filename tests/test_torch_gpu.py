@@ -231,3 +231,97 @@ def test_upconv_rejects_untileable_shape(cuda):
     with pytest.raises(ValueError):
         upconv(x, w1, b1, w2, b2)
     assert launch_counts["upconv"] == n
+
+
+def _tied_logits(gen, shape, dtype):
+    """Small integers (most pixels tie) with a NaN in every 37th row."""
+    x = torch.randint(-3, 4, shape, generator=gen, device="cuda").float()
+    x.reshape(-1, shape[-1])[::37, shape[-1] // 2] = float("nan")
+    return x.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.uint8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 4), (1, 17, 23, 21), (1, 5, 9, 32)])
+def test_argmax_mask_kernel_exact(cuda, shape, dtype, out_dtype):
+    """Ties to the first maximum, NaN as the maximum: equal to plain, also
+    on a view whose rows are not 16-byte aligned (narrower loads)."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.postprocess import argmax_mask, argmax_mask_plain
+
+    x = _tied_logits(cuda, shape, dtype)
+    n = launch_counts["argmax_mask"]
+    out = argmax_mask(x, out_dtype)
+    assert launch_counts["argmax_mask"] == n + 1
+    assert out.dtype == out_dtype and out.shape == shape[:3]
+    assert torch.equal(out, argmax_mask_plain(x, out_dtype))
+    c = shape[-1]
+    view = x.reshape(-1)[1:1 + (x.numel() // c - 1) * c].reshape(1, 1, -1, c)
+    assert torch.equal(argmax_mask(view, out_dtype), argmax_mask_plain(view, out_dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("alpha", [0.7, 0.123])
+def test_mask_palette_kernel_exact(cuda, mask_dtype, alpha):
+    """Bit-exact against plain (classes ≥ C black) and, for in-range
+    classes, against the host render."""
+    import numpy as np
+
+    from tpu_unet_torch.infer.wrapper import VOC_COLORS
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.render import mask_palette, mask_palette_plain, palette_tensor
+    from tpu_unet_torch.tools.predict import render
+
+    pal = palette_tensor(VOC_COLORS, "cuda")
+    mask = torch.randint(0, len(VOC_COLORS) + 3, (3, 40, 56), generator=cuda,
+                         device="cuda").to(mask_dtype)
+    img = torch.randint(0, 256, (3, 40, 56, 3), generator=cuda, device="cuda",
+                        dtype=torch.uint8)
+    n = launch_counts["mask_palette"]
+    out = mask_palette(mask, img, pal, alpha)
+    assert launch_counts["mask_palette"] == n + 1
+    assert torch.equal(out, mask_palette_plain(mask, img, pal, alpha))
+    small = (mask % 4).contiguous()
+    out = mask_palette(small, img, pal, alpha).cpu().numpy()
+    colors = np.asarray(VOC_COLORS, np.uint8)
+    for i in range(3):
+        assert np.array_equal(out[i], render(img[i].cpu().numpy(), small[i].cpu().numpy(),
+                                             colors, alpha, (0, 0, 56, 40), (56, 40)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["ultralight_large_optimized", "lightweight"])
+def test_generic_serving_step_on_card(cuda, model):
+    """One serving step on the card (bf16) launches ``argmax_mask`` once;
+    its masks against the CPU float32 path on the same seeded weights flip
+    only where the CPU top-1/top-2 gap is under 5% of the logit scale, and
+    in at most 2% of the pixels: with random weights about 1% of the
+    ladder's pixels lie within 1% of the scale of a tie (0.95% flip at
+    64×64 when the bf16 step is emulated on the CPU, largest gap 1.2%)."""
+    from tpu_unet_torch.core.precision import normalize_u8
+    from tpu_unet_torch.infer.wrapper import Unet
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.nn.resize import resize_bilinear
+
+    u = Unet(model=model, num_classes=4, input_shape=[64, 64])
+    fn, net = u.serving_step()
+    imgs = torch.randint(0, 256, (2, 64, 64, 3), generator=cuda, device="cuda",
+                         dtype=torch.uint8)
+    reset_launch_counts()
+    masks, hist = fn(net, imgs)
+    torch.cuda.synchronize()
+    assert launch_counts["argmax_mask"] == 1 and sum(launch_counts.values()) == 1
+    cpu = Unet(model=model, num_classes=4, input_shape=[64, 64], cuda=False)
+    with torch.no_grad():
+        logits = cpu.net(normalize_u8(imgs.cpu(), torch.float32))
+        logits = resize_bilinear(logits, (64, 64), align_corners=True)
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = masks.cpu().long() != logits.argmax(-1)
+    share = differ.float().mean().item()
+    worst = (gap[differ].max() / logits.abs().max()).item() if differ.any() else 0.0
+    assert share <= 2e-2 and worst <= 5e-2, (share, worst)
+    own = torch.stack([torch.bincount(m.flatten().long(), minlength=4) for m in masks])
+    assert torch.equal(own.to(torch.int32), hist)

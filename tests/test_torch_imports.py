@@ -45,7 +45,7 @@ def test_scan_compares_whole_names():
 
 def _cuda_entries():
     from tpu_unet_torch.kernels import (decoder_fuse, encoder, postprocess, preprocess,
-                                        stem, upconv)
+                                        render, stem, upconv)
 
     x3 = torch.zeros(1, 16, 16, 3, dtype=torch.uint8)
     w = torch.zeros(64, 3, 3, 3, dtype=torch.bfloat16)
@@ -68,11 +68,17 @@ def _cuda_entries():
             torch.zeros(1, 25, 25, 32, dtype=torch.bfloat16), torch.zeros(4, 32, 1, 1),
             torch.zeros(4), 4),
         "normalize": lambda: preprocess._normalize_images_cuda(x3, torch.bfloat16),
+        "argmax_mask": lambda: postprocess._argmax_mask_cuda(
+            torch.zeros(1, 16, 16, 4, dtype=torch.bfloat16), torch.uint8),
+        "mask_palette": lambda: render._mask_palette_cuda(
+            torch.zeros(1, 16, 16, dtype=torch.uint8), x3,
+            torch.zeros(4, 3, dtype=torch.uint8), 0.7),
     }
 
 
 @pytest.mark.parametrize("name", ["stem", "block", "unetup", "tail", "upconv",
-                                  "tail_natural", "tail_mask_only", "normalize"])
+                                  "tail_natural", "tail_mask_only", "normalize",
+                                  "argmax_mask", "mask_palette"])
 def test_kernel_path_refuses_cpu_tensors(name):
     """The kernel side of each wrapper checks its inputs and raises; it
     never computes a CPU tensor (and never builds) on its own."""
@@ -81,8 +87,10 @@ def test_kernel_path_refuses_cpu_tensors(name):
 
 
 def test_wrapper_rejects_other_devices():
-    from tpu_unet_torch.kernels.postprocess import final_argmax, final_argmax_hist
+    from tpu_unet_torch.kernels.postprocess import (argmax_mask, final_argmax,
+                                                    final_argmax_hist)
     from tpu_unet_torch.kernels.preprocess import normalize_images
+    from tpu_unet_torch.kernels.render import mask_palette
 
     feats = torch.zeros(1, 16, 16, 64, device="meta")
     for tail in (final_argmax_hist, final_argmax):
@@ -90,6 +98,18 @@ def test_wrapper_rejects_other_devices():
             tail(feats, torch.zeros(21, 64, 1, 1), torch.zeros(21), 21)
     with pytest.raises(ValueError, match="unsupported device"):
         normalize_images(torch.zeros(1, 4, 4, 3, dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        argmax_mask(torch.zeros(1, 4, 4, 4, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        mask_palette(torch.zeros(1, 4, 4, dtype=torch.uint8, device="meta"),
+                     torch.zeros(1, 4, 4, 3, dtype=torch.uint8), torch.zeros(4, 3, dtype=torch.uint8))
+
+
+def test_native_loader_builds_into_build_dir():
+    """The loader binding builds from ``native/loader.cc`` into ``build/``."""
+    from tpu_unet_torch.data import native
+
+    assert native.BUILD == ROOT / "build" and native.SOURCE == ROOT / "native" / "loader.cc"
 
 
 def test_pil_is_imported_inside_functions():

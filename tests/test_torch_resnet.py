@@ -104,7 +104,7 @@ def test_bridge_is_strict_with_bn_buffers(rn50):
 
 def test_bridge_refuses_unported_model():
     with pytest.raises(ValueError, match="weight bridge"):
-        state_dict_from_flax({}, "lightweight")
+        state_dict_from_flax({}, "sk_ultralight")
 
 
 def test_init_model_batch_norm_as_flax():

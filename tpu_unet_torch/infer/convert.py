@@ -10,8 +10,16 @@ keys are the reference torch names (``vgg.features.{i}``,
 ``up_conv.{1,3}``, ``final``; for the TraditionalUnet family
 ``convert_traditional`` read backwards: ``inc.double_conv.{0,1,3,4}``,
 ``down{i}.maxpool_conv.1.double_conv.*``, ``up{i}.conv.double_conv.*``,
-``outc``), in the order of the torch model's state dict.  Load the result
-with ``strict=True`` so every key is used.
+``outc``; for the ladder family ``enc{i}.conv.{0,1,3,4}`` with
+``conv.3.{depthwise,pointwise}``, ``se{i}.fc.{0,2}``, ``bridge``,
+``dec{i}``, ``final``; for ``lightweight`` ``backbone.stage{i}.{0,1}``,
+``up_concat{i}.conv.{0,1}``, ``final_conv.{0,2,3}``), in the order of the
+torch model's state dict.  Dense kernels ``(in, out)`` become Linear
+weights ``(out, in)``.  Load the result with ``strict=True`` so every key
+is used.
+
+:func:`load_state_dict` loads a reference ``.pth`` into a port model the
+way ``tpu_unet/infer/convert.py:28-36`` reads it.
 """
 from __future__ import annotations
 
@@ -28,6 +36,32 @@ _VGG_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 _MODELS = {"unet_vgg": ("vgg", False), "unet_resnet50": ("resnet50", True),
            "self_net": ("vgg", True)}
 _TRADITIONAL = ("traditional", "traditional22")
+# ladder models and whether each has an SE gate after its encoder stages
+_LADDER = {"ultralight": False, "ultralight_large": True,
+           "ultralight_large_optimized": True, "ultralight44": True}
+_BN_COUNTER = "num_batches_tracked"
+
+
+def load_state_dict(net: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load the reference ``.pth`` at ``path`` into ``net`` as
+    ``tpu_unet/infer/convert.py:28-36`` reads it: the EarlyStopping wrapper
+    ``{"model_state_dict": ...}`` (reference: utils/callbacks.py:129-134)
+    is unwrapped and ``num_batches_tracked`` may be present or not on
+    either side; every other key is strict, and a missing or unexpected
+    weight raises with its name, as ``_check_consumed`` does there."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
+    sd = {k: v for k, v in sd.items() if _BN_COUNTER not in k}
+    own = [k for k in net.state_dict() if _BN_COUNTER not in k]
+    missing = [k for k in own if k not in sd]
+    extra = sorted(set(sd) - set(own))
+    if missing or extra:
+        raise ValueError(f"checkpoint {path!r} does not match "
+                         f"{type(net).__name__}: missing {missing[:10]}, "
+                         f"unexpected {extra[:10]}")
+    net.load_state_dict(sd, strict=False)  # only the BN counters are left out
+    return net
 
 
 def _f32(a) -> torch.Tensor:
@@ -66,6 +100,65 @@ def _resnet(params: Mapping, stats: Mapping, sd: dict) -> None:
                     f"{tp}.downsample.1")
 
 
+def _dense(tree: Mapping, sd: dict, torch_key: str) -> None:
+    sd[f"{torch_key}.weight"] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(tree["kernel"], np.float32).T))
+    sd[f"{torch_key}.bias"] = _f32(tree["bias"])
+
+
+def _light_block(params: Mapping, stats: Mapping, sd: dict, torch_key: str) -> None:
+    """LightConvBlock ``reduce/bn1/dw/bn2`` → ``conv.{0,1,3,4}``."""
+    _conv(params["reduce"], sd, f"{torch_key}.conv.0")
+    _bn(params["bn1"], stats["bn1"], sd, f"{torch_key}.conv.1")
+    for part in ("depthwise", "pointwise"):
+        _conv(params["dw"][part], sd, f"{torch_key}.conv.3.{part}")
+    _bn(params["bn2"], stats["bn2"], sd, f"{torch_key}.conv.4")
+
+
+def _se(params: Mapping, sd: dict, torch_key: str) -> None:
+    _dense(params["fc1"], sd, f"{torch_key}.fc.0")
+    _dense(params["fc2"], sd, f"{torch_key}.fc.2")
+
+
+def _ladder(params: Mapping, stats: Mapping, sd: dict, se: bool) -> None:
+    for i in range(1, 5):
+        _light_block(params[f"enc{i}"], stats[f"enc{i}"], sd, f"enc{i}")
+    if se:
+        for i in range(1, 5):
+            _se(params[f"se{i}"], sd, f"se{i}")
+    _light_block(params["bridge"], stats["bridge"], sd, "bridge")
+    for i in (4, 3, 2, 1):
+        _light_block(params[f"dec{i}"], stats[f"dec{i}"], sd, f"dec{i}")
+    _conv(params["final"], sd, "final")
+
+
+def _conv_bn_relu(params: Mapping, stats: Mapping, sd: dict, torch_key: str) -> None:
+    """ConvBNReLU ``conv/bn`` → ``conv.{0,1}``."""
+    _conv(params["conv"], sd, f"{torch_key}.conv.0")
+    _bn(params["bn"], stats["bn"], sd, f"{torch_key}.conv.1")
+
+
+def _residual(params: Mapping, stats: Mapping, sd: dict, torch_key: str) -> None:
+    for i in (1, 2):
+        _conv(params[f"conv{i}"], sd, f"{torch_key}.conv{i}")
+        _bn(params[f"bn{i}"], stats[f"bn{i}"], sd, f"{torch_key}.bn{i}")
+    _se(params["se"], sd, f"{torch_key}.se")
+
+
+def _lightweight(params: Mapping, stats: Mapping, sd: dict) -> None:
+    for i in range(1, 6):
+        p, s = params[f"stage{i}"], stats[f"stage{i}"]
+        _conv_bn_relu(p["conv"], s["conv"], sd, f"backbone.stage{i}.0")
+        _residual(p["res"], s["res"], sd, f"backbone.stage{i}.1")
+    for i in (4, 3, 2, 1):
+        p, s = params[f"up_concat{i}"], stats[f"up_concat{i}"]
+        _conv_bn_relu(p["conv"], s["conv"], sd, f"up_concat{i}.conv.0")
+        _residual(p["res"], s["res"], sd, f"up_concat{i}.conv.1")
+    _conv_bn_relu(params["final_conv"], stats["final_conv"], sd, "final_conv.0")
+    _residual(params["final_res"], stats["final_res"], sd, "final_conv.2")
+    _conv(params["final"], sd, "final_conv.3")
+
+
 def _double_conv(params: Mapping, stats: Mapping, sd: dict, torch_key: str) -> None:
     """DoubleConv ``conv1/bn1/conv2/bn2`` → ``double_conv.{0,1,3,4}``."""
     for i, (c, b) in zip((0, 3), (("conv1", "bn1"), ("conv2", "bn2"))):
@@ -88,13 +181,19 @@ def state_dict_from_flax(variables_np: Mapping, model: str = "unet_vgg"):
     """Nested numpy dict (``{"params": {...}, "batch_stats": {...}}``, or
     the params tree itself for a model without batch norm) →
     ``OrderedDict`` of torch tensors in reference key names."""
-    if model not in _MODELS and model not in _TRADITIONAL:
-        raise ValueError(f"weight bridge covers {sorted((*_MODELS, *_TRADITIONAL))}, "
-                         f"not {model!r}")
+    covered = (*_MODELS, *_TRADITIONAL, *_LADDER, "lightweight")
+    if model not in covered:
+        raise ValueError(f"weight bridge covers {sorted(covered)}, not {model!r}")
     params = variables_np.get("params", variables_np)
     sd: dict = OrderedDict()
     if model in _TRADITIONAL:
         _traditional(params, variables_np["batch_stats"], sd)
+        return sd
+    if model in _LADDER:
+        _ladder(params, variables_np["batch_stats"], sd, _LADDER[model])
+        return sd
+    if model == "lightweight":
+        _lightweight(params, variables_np["batch_stats"], sd)
         return sd
     backbone, head = _MODELS[model]
     if backbone == "vgg":

@@ -1,7 +1,9 @@
 """The ``Unet`` inference wrapper of the port (counterpart of
 ``tpu_unet/infer/wrapper.py``): the batched serving step and the reference's
 single-image API, for every ported model (``unet_vgg``, ``unet_resnet50``,
-``self_net``, ``traditional``, ``traditional22``).
+``self_net``, ``traditional``, ``traditional22``, ``lightweight``,
+``ultralight``, ``ultralight_large``, ``ultralight_large_optimized``,
+``ultralight44``).
 
 ``cuda=True`` (the default) runs on the card through the hand-written
 kernels and raises when there is no card; ``cuda=False`` runs on the CPU
@@ -36,8 +38,10 @@ import torch
 
 from tpu_unet_torch.core.precision import cast_params, for_device, normalize_u8
 from tpu_unet_torch.data.transforms import cvt_rgb, letterbox_image
-from tpu_unet_torch.kernels.postprocess import (HIST_BLOCK, final_argmax,
-                                                final_argmax_hist, masks_and_hist)
+from tpu_unet_torch.infer.convert import load_state_dict
+from tpu_unet_torch.kernels.postprocess import (HIST_BLOCK, argmax_mask,
+                                                final_argmax, final_argmax_hist,
+                                                masks_and_hist)
 from tpu_unet_torch.kernels.preprocess import normalize_images
 from tpu_unet_torch.models.registry import MODELS, build_model, init_model
 from tpu_unet_torch.models.traditional import TraditionalUnet
@@ -116,13 +120,12 @@ class Unet:
 
     def generate(self):
         """Build the net and its weights: a torch state dict in reference
-        key names from ``model_path`` (loaded strictly), else the seeded
-        init of ``models/registry.py``."""
+        key names from ``model_path`` (``infer/convert.py::load_state_dict``:
+        strict but for ``num_batches_tracked``, an EarlyStopping wrapper
+        unwrapped), else the seeded init of ``models/registry.py``."""
         net = build_model(self._model_name(), self.num_classes)
         if self.model_path:
-            sd = torch.load(self.model_path, map_location="cpu",
-                            weights_only=True)
-            net.load_state_dict(sd, strict=True)
+            load_state_dict(net, self.model_path)
         else:
             init_model(net, self.seed)
         self.net = net.to(self.device).eval()
@@ -312,9 +315,13 @@ class Unet:
           the TraditionalUnet family JAX's 1024-row block,
           ``postprocess.py:146-152``); else the mask-only kernel and a
           separate histogram;
-        - any other model (``self_net``; the JAX generic branch,
-          ``wrapper.py:423-444``): logits → float32 → align-corners resize
-          to the input size where they differ → argmax → histogram."""
+        - any other model (``self_net``, the ladder models, ``lightweight``;
+          the JAX generic branch, ``wrapper.py:423-444``): logits (where
+          their size is not the input's: → float32 → align-corners resize)
+          → the ``argmax_mask`` kernel, which compares in float32 and
+          writes the uint8 mask → histogram.  JAX's ladder fused tail is opt-in only
+          (``wrapper.py:398-400``), so the ladder models take this branch,
+          as they do in JAX by default."""
         prec = self.prec
         net = self._net()
         num_classes, device = self.num_classes, self.device
@@ -340,11 +347,12 @@ class Unet:
                                              num_classes)
                 return masks_and_hist(final_argmax(feats, final.weight, final.bias,
                                                    num_classes), num_classes)
-            logits = net(x).float()
+            logits = net(x)
             if logits.shape[1:3] != imgs.shape[1:3]:
-                logits = resize_bilinear(logits, imgs.shape[1:3],
+                logits = resize_bilinear(logits.float(), imgs.shape[1:3],
                                          align_corners=True)
-            return masks_and_hist(logits.argmax(-1), num_classes)
+            return masks_and_hist(argmax_mask(logits.contiguous(), torch.uint8),
+                                  num_classes)
 
         return step, net
 

@@ -50,13 +50,20 @@ SIGNATURES = {
     "tu_unetup": [_P] * 12 + [_I] * 6 + [_P],
     # x, ridx, rw, cidx, cw, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F, stream
     "tu_upconv": [_P] * 11 + [_I] * 5 + [_P],
+    # logits, out, n_pix (int64), C, logits are bf16, out is uint8, stream
+    "tu_argmax_mask": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    # mask, mask is int32, img, palette, C, alpha, 1 - alpha, out,
+    # n_pix (int64), stream
+    "tu_mask_palette": [_P, _I, _P, _P, _I, ctypes.c_float, ctypes.c_float,
+                        _P, ctypes.c_longlong, _P],
 }
 
 # launches of each kernel wrapper; a wrapper adds one where it calls its
 # C entry and nowhere else
 launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
-                 "unetup": 0, "upconv": 0}
+                 "unetup": 0, "upconv": 0, "argmax_mask": 0,
+                 "mask_palette": 0}
 
 _lock = threading.Lock()
 _lib = None

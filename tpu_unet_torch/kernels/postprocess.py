@@ -18,6 +18,14 @@ F ∈ {22, 32, 64}:
 
 Both keep the logits out of device memory.  Bound on the H100: memory
 (reading the features), see the source note.
+
+CUDA kernel ``csrc/argmax.cu``: ``argmax_mask`` replaces
+``fused_argmax_mask`` (``postprocess.py:38-67``), the class mask of logits
+that were stored: the generic serving step's ``argmax(logits, -1)``
+(``infer/wrapper.py:439``), which ``self_net``, the ladder models and
+``lightweight`` take.  Compared in float32, the first maximum wins, a NaN
+counts as the maximum; int32 as JAX returns it, or uint8 as the serving
+step writes it.  Bound on the H100: memory (reading the logits).
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ from tpu_unet_torch.kernels._plain import on_cpu
 # feature widths the CUDA tail is instantiated for; most classes it takes
 _WIDTHS = (22, 32, 64)
 _MAX_CLASSES = 32
+_LOGIT_DTYPES = (torch.float32, torch.bfloat16)
+_MASK_DTYPES = (torch.int32, torch.uint8)
 HIST_BLOCK = 256  # pixels a CUDA block; a histogram block never spans two images
 
 
@@ -125,3 +135,38 @@ def final_argmax(feats: torch.Tensor, weight: torch.Tensor,
     if on_cpu(feats):
         return final_argmax_plain(feats, weight, bias, num_classes)
     return _final_argmax_cuda(feats, weight, bias, num_classes)
+
+
+def argmax_mask_plain(logits: torch.Tensor,
+                      out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """(N, H, W, C) logits → (N, H, W) index of the first maximum over C,
+    compared in float32 (a NaN counts as the maximum), as ``out_dtype``."""
+    return torch.argmax(logits.float(), dim=-1).to(out_dtype)
+
+
+def _argmax_mask_cuda(logits, out_dtype):
+    if logits.ndim != 4 or logits.dtype not in _LOGIT_DTYPES \
+            or out_dtype not in _MASK_DTYPES \
+            or not 1 <= logits.shape[-1] <= _MAX_CLASSES:
+        raise ValueError(f"argmax_mask kernel: (N, H, W, C ≤ {_MAX_CLASSES}) "
+                         f"logits in {_LOGIT_DTYPES} to {_MASK_DTYPES}, got "
+                         f"{tuple(logits.shape)} {logits.dtype} to {out_dtype}")
+    _build.check(logits, "logits", logits.dtype)
+    out = torch.empty(logits.shape[:-1], dtype=out_dtype, device=logits.device)
+    if out.numel() == 0:
+        return out
+    _build.call("tu_argmax_mask", logits.data_ptr(), out.data_ptr(), out.numel(),
+                logits.shape[-1], int(logits.dtype == torch.bfloat16),
+                int(out_dtype == torch.uint8))
+    _build.launch_counts["argmax_mask"] += 1
+    return out
+
+
+def argmax_mask(logits: torch.Tensor,
+                out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Dispatching wrapper: plain version for CPU tensors, the CUDA kernel
+    (contiguous float32 or bfloat16 logits, C ≤ 32, int32 or uint8 out) for
+    tensors on the card."""
+    if on_cpu(logits):
+        return argmax_mask_plain(logits, out_dtype)
+    return _argmax_mask_cuda(logits, out_dtype)

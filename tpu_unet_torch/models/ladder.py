@@ -1,0 +1,111 @@
+"""LadderUNet — the encoder / bridge / decoder skeleton of the
+UltraLightweight family (counterpart of ``tpu_unet/models/ladder.py``):
+
+    enc1..enc4 (each optionally followed by SE), 2×2 max-pool between stages
+    bridge (Dropout2d on the bridge: the identity in eval)
+    dec4..dec1: align-corners resize to the skip's size, concat [up, skip],
+                block
+    1×1 final conv → align-corners resize to the input size
+
+Four configurations: ``ultralight``, ``ultralight_large``,
+``ultralight_large_optimized`` (the DataB submission model, 926,347
+parameters at 4 classes) and ``ultralight44``.  Only the ``light8`` and
+``light16`` block kinds are ported.  NHWC in and out; module names follow
+the reference torch models (``enc{i}``, ``se{i}``, ``bridge``, ``dec{i}``,
+``final``).  Plain PyTorch: the JAX package runs these models outside any
+Pallas kernel; the serving step's class mask is the ``argmax_mask`` kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from tpu_unet_torch.kernels._plain import max_pool2x2
+from tpu_unet_torch.nn.blocks import (SE, LightConvBlock, se_light,
+                                      se_light_large, se_lightweight)
+from tpu_unet_torch.nn.resize import resize_bilinear
+
+_MID_FLOOR = {"light8": 8, "light16": 16}
+_SE_RULES = {"light": se_light, "light_large": se_light_large,
+             "lightweight": se_lightweight}
+
+
+class LadderUNet(nn.Module):
+    def __init__(self, num_classes: int, channels: Tuple[int, int, int, int, int],
+                 block: str = "light8", se: Optional[str] = None,
+                 dropout: float = 0.0):
+        super().__init__()
+        if block not in _MID_FLOOR:
+            raise NotImplementedError(
+                f"LadderUNet block kind {block!r} is not ported yet "
+                f"(ported: {sorted(_MID_FLOOR)})")
+        floor = _MID_FLOOR[block]
+        self.num_classes = num_classes
+        self.dropout = dropout  # Dropout2d on the bridge: identity in eval
+        c1, c2, c3, c4, cb = channels
+        cin = 3
+        for i, c in enumerate((c1, c2, c3, c4), start=1):
+            setattr(self, f"enc{i}", LightConvBlock(cin, c, floor))
+            cin = c
+        self.se = se
+        if se is not None:
+            for i, c in enumerate((c1, c2, c3, c4), start=1):
+                setattr(self, f"se{i}", SE(c, _SE_RULES[se](c)))
+        self.bridge = LightConvBlock(c4, cb, floor)
+        prev = cb
+        for i, c in zip((4, 3, 2, 1), (c4, c3, c2, c1)):
+            setattr(self, f"dec{i}", LightConvBlock(prev + c, c, floor))
+            prev = c
+        self.final = nn.Conv2d(c1, num_classes, 1)
+
+    def forward(self, x: torch.Tensor, features_out: bool = False):
+        """(B, H, W, 3) float image → logits (B, H, W, C); with
+        ``features_out`` the (B, H, W, c1) features before ``final``."""
+        encs = []
+        h = x
+        for i in range(1, 5):
+            if i > 1:
+                h = max_pool2x2(h)
+            h = getattr(self, f"enc{i}")(h)
+            if self.se is not None:
+                h = getattr(self, f"se{i}")(h)
+            encs.append(h)
+        h = self.bridge(max_pool2x2(h))
+        for i in (4, 3, 2, 1):
+            skip = encs[i - 1]
+            up = resize_bilinear(h, skip.shape[1:3], align_corners=True)
+            h = getattr(self, f"dec{i}")(torch.cat([up, skip], dim=-1))
+        if features_out:
+            return h
+        w = self.final.weight.reshape(self.num_classes, -1)
+        logits = h @ w.t().to(h.dtype) + self.final.bias.to(h.dtype)
+        return resize_bilinear(logits, x.shape[1:3], align_corners=True)
+
+
+def ultralight(num_classes: int = 21) -> LadderUNet:
+    """UltraLightweightUnet (reference: nets/UltraLightweightUnet.py:57-107;
+    its Dropout2d(0.1) is defined but never applied)."""
+    return LadderUNet(num_classes, (32, 64, 128, 256, 512), block="light8")
+
+
+def ultralight_large(num_classes: int = 21) -> LadderUNet:
+    """UltraLightweightUnet_large (reference:
+    nets/UltraLightweightUnet_large.py:55-111)."""
+    return LadderUNet(num_classes, (64, 128, 256, 512, 1024), block="light16",
+                      se="light_large", dropout=0.2)
+
+
+def ultralight_large_optimized(num_classes: int = 21) -> LadderUNet:
+    """UltraLightweightUnet_large_optimized, the DataB submission model
+    (reference: nets/UltraLightweightUnet_large_optimized.py:51-103)."""
+    return LadderUNet(num_classes, (44, 88, 176, 352, 704), block="light16",
+                      se="light_large", dropout=0.15)
+
+
+def ultralight44(num_classes: int = 21) -> LadderUNet:
+    """The 44-wide clone in nets/SegNets.py:673-729 (LightweightSEBlock SE
+    rule, mid floor 16)."""
+    return LadderUNet(num_classes, (44, 88, 176, 352, 704), block="light16",
+                      se="lightweight", dropout=0.15)

@@ -1,8 +1,10 @@
 """Model registry of the port (counterpart of ``tpu_unet/models/registry.py``).
 
-Ported: the canonical UNets (``unet_vgg``, ``unet_resnet50``, ``self_net``)
-and the TraditionalUnet family (``traditional``, ``traditional22``); the
-other registry models follow in later slices.
+Ported: the canonical UNets (``unet_vgg``, ``unet_resnet50``, ``self_net``),
+the TraditionalUnet family (``traditional``, ``traditional22``), the ladder
+family's ``ultralight``, ``ultralight_large``, ``ultralight_large_optimized``
+and ``ultralight44``, and ``lightweight``; the other registry models follow
+in later slices.
 """
 from __future__ import annotations
 
@@ -12,6 +14,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpu_unet_torch.models.ladder import (ultralight, ultralight44,
+                                          ultralight_large,
+                                          ultralight_large_optimized)
+from tpu_unet_torch.models.lightweight import lightweight
 from tpu_unet_torch.models.traditional import traditional, traditional22
 from tpu_unet_torch.models.unet import self_net, unet_resnet50, unet_vgg
 
@@ -21,6 +27,11 @@ MODELS: Dict[str, Callable[..., nn.Module]] = {
     "self_net": self_net,
     "traditional": traditional,
     "traditional22": traditional22,
+    "lightweight": lightweight,
+    "ultralight": ultralight,
+    "ultralight_large": ultralight_large,
+    "ultralight_large_optimized": ultralight_large_optimized,
+    "ultralight44": ultralight44,
 }
 
 # flax's lecun_normal: truncated normal on (-2, 2), stddev corrected for the
@@ -46,9 +57,11 @@ def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
 @torch.no_grad()
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded initialisation as flax does it for these layers
-    (``nn/blocks.py:152-156``): lecun-normal fan-in conv kernels, zero
-    biases; batch norm as ``flax.linen.BatchNorm`` starts (scale 1, bias 0,
-    mean 0, var 1).  Draws come from ``numpy.random.default_rng(seed)`` in
+    (``nn/blocks.py:152-156``): lecun-normal fan-in conv and dense kernels
+    (fan-in ``prod(shape[1:])``: a Linear's inputs, a depthwise kernel's 9
+    taps, as flax counts them on its ``(3, 3, 1, C)`` kernel), zero biases;
+    batch norm as ``flax.linen.BatchNorm`` starts (scale 1, bias 0, mean 0,
+    var 1).  Draws come from ``numpy.random.default_rng(seed)`` in
     conv-parameter order, so a seed gives the same weights on every
     machine."""
     rng = np.random.default_rng(seed)

@@ -9,10 +9,17 @@
   upsample + concat.  The JAX package runs them outside any Pallas kernel,
   so they are plain PyTorch here: ``F.conv2d`` on channels-last views of
   the NHWC tensors, batch norm in eval mode (:func:`bn_eval`);
+- ``ConvBNReLU``, ``DWSeparable``, ``LightConvBlock``, ``SE`` (and its
+  width rules ``se_quarter``, ``se_light``, ``se_light_large``,
+  ``se_lightweight``) and ``ResidualBlock``: the blocks of the ladder
+  family and of ``lightweight`` (JAX ``nn/blocks.py:96-105, 254-373``),
+  plain PyTorch as the JAX package runs them outside any Pallas kernel;
+  parameter names of the reference torch modules;
 - the ceil-mode max-pool of the ResNet50 stem, the batch-norm constants and
-  :func:`bn_eval`, which ResNet50 and the TraditionalUnet blocks share.
+  :func:`bn_eval`, which every block with batch norm shares.
 
-NHWC activations in and out.
+NHWC activations in and out.  Inside a block the NHWC tensor is handed to
+cuDNN as a channels-last NCHW view (``permute``, no copy).
 """
 from __future__ import annotations
 
@@ -102,3 +109,112 @@ class Up(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         return self.conv(torch.cat([skip, upsample2x(x)], dim=-1))
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(y: torch.Tensor) -> torch.Tensor:
+    return y.permute(0, 2, 3, 1)
+
+
+class ConvBNReLU(nn.Module):
+    """conv → BN → ReLU (reference ConvBlock, nets/LightWeightUnet.py:5-15);
+    keys ``conv.0`` (conv), ``conv.1`` (batch norm)."""
+
+    def __init__(self, in_size: int, out_size: int, kernel: int = 3):
+        super().__init__()
+        self.conv = nn.Sequential(
+            nn.Conv2d(in_size, out_size, kernel, padding=(kernel - 1) // 2),
+            nn.BatchNorm2d(out_size, eps=BN_EPS), nn.ReLU(inplace=True))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nhwc(torch.relu(bn_eval(self.conv[0](_nchw(x)), self.conv[1])))
+
+
+class DWSeparable(nn.Module):
+    """Depthwise 3×3 (``groups`` = channels, with bias) → pointwise 1×1
+    (with bias), no norm (reference: nets/UltraLightweightUnet.py:6-16)."""
+
+    def __init__(self, in_size: int, out_size: int, kernel: int = 3):
+        super().__init__()
+        self.depthwise = nn.Conv2d(in_size, in_size, kernel,
+                                   padding=(kernel - 1) // 2, groups=in_size)
+        self.pointwise = nn.Conv2d(in_size, out_size, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nhwc(self.pointwise(self.depthwise(_nchw(x))))
+
+
+class LightConvBlock(nn.Module):
+    """1×1 reduce → BN/ReLU → DWSeparable → BN/ReLU (reference:
+    nets/UltraLightweightUnet.py:19-35), ``mid = max(mid_floor,
+    features // 2)``; keys ``conv.0``, ``conv.1``, ``conv.3.depthwise``,
+    ``conv.3.pointwise``, ``conv.4``."""
+
+    def __init__(self, in_size: int, features: int, mid_floor: int = 8):
+        super().__init__()
+        mid = max(mid_floor, features // 2)
+        self.conv = nn.Sequential(
+            nn.Conv2d(in_size, mid, 1), nn.BatchNorm2d(mid, eps=BN_EPS),
+            nn.ReLU(inplace=True), DWSeparable(mid, features),
+            nn.BatchNorm2d(features, eps=BN_EPS), nn.ReLU(inplace=True))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.conv
+        y = torch.relu(bn_eval(s[0](_nchw(x)), s[1]))
+        dw = s[3]
+        y = dw.pointwise(dw.depthwise(y))
+        return _nhwc(torch.relu(bn_eval(y, s[4])))
+
+
+class SE(nn.Module):
+    """Squeeze-excitation: global average pool → Linear(reduced) → ReLU →
+    Linear(C) → sigmoid → scale (reference: nets/LightWeightUnet.py:19-33
+    and its flavours); keys ``fc.0``, ``fc.2``."""
+
+    def __init__(self, channels: int, reduced: int):
+        super().__init__()
+        self.fc = nn.Sequential(nn.Linear(channels, reduced), nn.ReLU(inplace=True),
+                                nn.Linear(reduced, channels), nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.mean(dim=(1, 2))
+        y = torch.sigmoid(self.fc[2](torch.relu(self.fc[0](y))))
+        return x * y[:, None, None, :]
+
+
+def se_quarter(c: int) -> int:
+    return c // 4
+
+
+def se_light(c: int) -> int:
+    return max(4, c // 8)
+
+
+def se_light_large(c: int) -> int:
+    return max(8, c // 4)
+
+
+def se_lightweight(c: int, reduction: int = 8) -> int:
+    return max(8, c // reduction)
+
+
+class ResidualBlock(nn.Module):
+    """conv-BN-ReLU-conv-BN-SE + residual + ReLU, 3×3 convs with bias
+    (reference: nets/LightWeightUnet.py:36-57); keys ``conv1``, ``bn1``,
+    ``conv2``, ``bn2``, ``se.fc.{0,2}``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.bn1 = nn.BatchNorm2d(channels, eps=BN_EPS)
+        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.bn2 = nn.BatchNorm2d(channels, eps=BN_EPS)
+        self.se = SE(channels, se_quarter(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(bn_eval(self.conv1(_nchw(x)), self.bn1))
+        y = _nhwc(bn_eval(self.conv2(y), self.bn2))
+        return torch.relu(self.se(y) + x)
