@@ -42,13 +42,25 @@ Phases (any failure exits non-zero without the final result line):
    a 20-frame 256x256 MJPG clip, batch 8, the palette kernel on the card);
    ``evaluate`` over 8 images against the CPU float32 path; the ``predict``
    and ``miou`` CLI subcommands in the process;
-6. one ``{"kernels": [...]}`` line, then the card line, then
+6. training: (a) the ``unet_vgg`` train step (``train/step.py``) at
+   512x512, batch 8, 21 classes, bf16, CE + dice, Adam, from
+   ``init_model(seed=0)`` weights on seeded rectangle batches made on the
+   device — exact launch counts, step time, img/s, peak memory, a profiler
+   breakdown, loss and every gradient against a plain step composed here,
+   one 128^2 step against the CPU float32 path, and the loss over 20 steps
+   on one batch; (b) ``cli.main(["train", "--preset", "train_py", ...])``
+   over a seeded VOC-layout directory (64 + 16 images at 256^2, batch 32,
+   2 epochs), a full-state resume for a third epoch, and
+   ``serving_step()`` from the trained ``.pth``;
+7. one ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the ``tpu_unet`` package.
 """
 from __future__ import annotations
 
+import copy
+import functools
 import json
 import subprocess
 import sys
@@ -149,6 +161,37 @@ def cudnn_chain(x, ws, bs, pool):
     return (y, F.max_pool2d(y, 2)) if pool else y
 
 
+def record_case(results, card, kernel, case, outs, refs, fn, plain_fn, lib_fn, flops, nb,
+                peak=PEAK_BF16):
+    """Time one case of ``kernel`` against its plain version (and the
+    library yardstick), print its JSON line and add it to ``results``;
+    returns the largest error relative to the reference's scale."""
+    errs = [rel_err(o, r) for o, r in zip(outs, refs)]
+    err = max(e[0] for e in errs)
+    rel = max(e[1] for e in errs)
+    ms, plain_ms = time_ms(fn), time_ms(plain_fn)
+    lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+    b_ms, b_by = bound(flops, nb, peak)
+    line = {"kernel": kernel, "case": case, "max_abs_err": err,
+            "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "gpu": card}
+    print(json.dumps(line), flush=True)
+    r = results.setdefault(kernel, {"max_abs_err": 0.0, "rel_err": 0.0,
+                                    "ms": 0.0, "plain_ms": 0.0,
+                                    "library_ms": 0.0, "bound_ms": 0.0,
+                                    "flops": 0.0, "bytes": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["rel_err"] = max(r["rel_err"], rel)
+    for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                 ("flops", flops), ("bytes", nb)):
+        r[k] += v
+    r["library_ms"] = None if lib_ms is None or r["library_ms"] is None \
+        else r["library_ms"] + lib_ms
+    r["peak"] = peak
+    return rel
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -202,32 +245,7 @@ def phase_kernels(card: str):
     B, S = BATCH, SIZE
     results = {}
 
-    def record(kernel, case, outs, refs, fn, plain_fn, lib_fn, flops, nb,
-               peak=PEAK_BF16):
-        errs = [rel_err(o, r) for o, r in zip(outs, refs)]
-        err = max(e[0] for e in errs)
-        rel = max(e[1] for e in errs)
-        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-        lib_ms = time_ms(lib_fn) if lib_fn is not None else None
-        b_ms, b_by = bound(flops, nb, peak)
-        line = {"kernel": kernel, "case": case, "max_abs_err": err,
-                "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "gpu": card}
-        print(json.dumps(line), flush=True)
-        r = results.setdefault(kernel, {"max_abs_err": 0.0, "rel_err": 0.0,
-                                        "ms": 0.0, "plain_ms": 0.0,
-                                        "library_ms": 0.0, "bound_ms": 0.0,
-                                        "flops": 0.0, "bytes": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["rel_err"] = max(r["rel_err"], rel)
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                     ("flops", flops), ("bytes", nb)):
-            r[k] += v
-        r["library_ms"] = None if lib_ms is None or r["library_ms"] is None \
-            else r["library_ms"] + lib_ms
-        r["peak"] = peak
-        return rel
+    record = functools.partial(record_case, results, card)
 
     # stem: raw uint8 image → skip + pooled
     img = torch.randint(0, 256, (B, S, S, 3), generator=gen, device=dev,
@@ -439,6 +457,120 @@ def phase_kernels(card: str):
     return results
 
 
+def phase_train_kernels(card: str, results: dict):
+    """#27 / #29 and #13 against their plain versions at the shapes the two
+    training recipes give them: unet_vgg at 512², batch 8, 21 classes (the
+    canonical recipe) and at 256², batch 32, 4 classes (``train_py``)."""
+    from tpu_unet_torch.kernels.decoder_train import unetup_bwd, unetup_bwd_plain
+    from tpu_unet_torch.kernels.loss import (final_ce_dice_bwd, final_ce_dice_bwd_plain,
+                                             final_ce_dice_fwd, final_ce_dice_fwd_plain,
+                                             pack_targets)
+
+    record = functools.partial(record_case, results, card)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    for n, size, c in ((BATCH, SIZE, CLASSES["unet_vgg"]), (DATAB_BATCH, DATAB_SIZE, 4)):
+        feats = torch.relu(torch.randn((n, size, size, 64), generator=gen, device=dev)).to(bf)
+        # float32 weights holding bf16 values, as the step's cast gives them
+        # to the loss: dW and db come back in float32, unrounded
+        w = (torch.randn((c, 64, 1, 1), generator=gen, device=dev) / 8).to(bf).float()
+        b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(bf).float()
+        t = torch.randint(0, c, (n, size, size), generator=gen, device=dev, dtype=torch.int32)
+        r = torch.rand((n, size, size), generator=gen, device=dev)
+        t = torch.where(r < 0.03, torch.full_like(t, c), t)      # ignore class
+        t = torch.where(r > 0.98, torch.full_like(t, 255), t)    # raw VOC border
+        t = pack_targets(t, c)  # one byte a pixel, as the kernels read them
+        cw = tuple(1.0 + 0.1 * i for i in range(c))
+        cw_t = torch.tensor(cw, device=dev)
+        t_cl = torch.clamp_max(t, c).long().reshape(-1)
+        f2, w2 = feats.reshape(-1, 64), w.reshape(c, 64).to(bf)
+        npix = feats.numel() // 64
+        gl = torch.tensor(1.0, device=dev)
+
+        def lib_chain(f2=f2, w2=w2, b=b, c=c, t_cl=t_cl, cw_t=cw_t):
+            lf = F.linear(f2, w2, b.to(bf)).float()
+            ce = F.cross_entropy(lf, t_cl, weight=cw_t, ignore_index=c)
+            p = torch.softmax(lf, -1)
+            oh = F.one_hot(t_cl, c + 1)[:, :c].float()
+            tp, ps, ts = (p * oh).sum(0), p.sum(0), oh.sum(0)
+            pt = (p > 0.5).float()
+            tpt, pts = (pt * oh).sum(0), pt.sum(0)
+            dice = 1 - ((2 * tp + 1e-5) / (2 * tp + (ts - tp) + (ps - tp) + 1e-5)).mean()
+            fs = ((2 * tpt + 1e-5) / (2 * tpt + (ts - tpt) + (pts - tpt) + 1e-5)).mean()
+            return ce + dice, fs
+
+        for dice in (True, False):
+            case = f"{n}x{size}x{size}x64 bf16 -> {c} classes, dice={dice}"
+            loss, fs, res = final_ce_dice_fwd(feats, w, b, t, cw, c, dice)
+            ploss, pfs, pres = final_ce_dice_fwd_plain(feats, w, b, t, cw, c, dice)
+            again = final_ce_dice_fwd(feats, w, b, t, cw, c, dice)
+            check(bool(torch.equal(loss, again[0]) and torch.equal(fs, again[1])),
+                  f"final_ce_dice_fwd {case}: two runs differ")
+            lrel = abs(loss.item() - ploss.item()) / abs(ploss.item())
+            check(lrel <= 1e-4, f"final_ce_dice_fwd {case}: loss rel err {lrel:.3g} > 1e-4")
+            check(abs(fs.item() - pfs.item()) <= 1e-4,
+                  f"final_ce_dice_fwd {case}: f_score {fs.item()} vs {pfs.item()}")
+            record("final_ce_dice_fwd", case, [loss, fs], [ploss, pfs],
+                   lambda: final_ce_dice_fwd(feats, w, b, t, cw, c, dice),
+                   lambda: final_ce_dice_fwd_plain(feats, w, b, t, cw, c, dice),
+                   lib_chain, 2.0 * npix * 64 * c, nbytes(feats, t, w, b))
+            out = final_ce_dice_bwd(feats, w, b, t, cw, c, dice, res, gl)
+            ref = final_ce_dice_bwd_plain(feats, w, b, t, cw, c, dice, pres, gl)
+            rels = [rel_err(o, r_)[1] for o, r_ in zip(out, ref)]
+            check(rels[0] <= CONV_REL_TOL, f"final_ce_dice_bwd {case}: dfeat rel err {rels[0]:.3g}")
+            check(max(rels[1:]) <= 1e-3, f"final_ce_dice_bwd {case}: dW/db rel err {max(rels[1:]):.3g}")
+            fg = f2.detach().clone().requires_grad_()
+            wg, bg = w2.clone().requires_grad_(), b.to(bf).clone().requires_grad_()
+            lf = F.linear(fg, wg, bg).float()
+            p = torch.softmax(lf, -1)
+            oh = F.one_hot(t_cl, c + 1)[:, :c].float()
+            tp, ps, ts = (p * oh).sum(0), p.sum(0), oh.sum(0)
+            graph = F.cross_entropy(lf, t_cl, weight=cw_t, ignore_index=c)
+            if dice:
+                graph = graph + 1 - ((2 * tp + 1e-5) / (2 * tp + (ts - tp) + (ps - tp) + 1e-5)).mean()
+            record("final_ce_dice_bwd", case, list(out), list(ref),
+                   lambda: final_ce_dice_bwd(feats, w, b, t, cw, c, dice, res, gl),
+                   lambda: final_ce_dice_bwd_plain(feats, w, b, t, cw, c, dice, pres, gl),
+                   lambda: torch.autograd.grad(graph, [fg, wg, bg], retain_graph=True),
+                   6.0 * npix * 64 * c, nbytes(feats, t, w, b, *out))
+            del out, ref, fg, wg, bg, lf, p, oh, graph
+        del feats, t, r, t_cl, f2
+
+    # #13 at up1 of both recipes: Cs 64, Cx 128, F 64
+    cs, cx, f = 64, 128, 64
+    for n, size in ((BATCH, SIZE), (DATAB_BATCH, DATAB_SIZE)):
+        g = torch.randn((n, size, size, f), generator=gen, device=dev).to(bf)
+        out_ = torch.relu(torch.randn((n, size, size, f), generator=gen, device=dev)).to(bf)
+        y1 = torch.relu(torch.randn((n, size, size, f), generator=gen, device=dev)).to(bf)
+        w1 = (torch.randn((f, cs + cx, 3, 3), generator=gen, device=dev) / (9 * (cs + cx)) ** 0.5).to(bf)
+        w2 = (torch.randn((f, f, 3, 3), generator=gen, device=dev) / (9 * f) ** 0.5).to(bf)
+        res = unetup_bwd(g, out_, y1, w1, w2, cs)
+        ref = unetup_bwd_plain(g, out_, y1, w1, w2, cs)
+        case = f"{n}x{size}x{size} Cs={cs} Cx={cx} F={f}"
+        check(bool(torch.equal(res[2], ref[2])), f"unetup_bwd {case}: g2 != plain")
+        placeholder = torch.empty((n, cs + cx, size, size), dtype=bf, device=dev,
+                                  memory_format=torch.channels_last)
+
+        def lib13(g=g, out_=out_, y1=y1, w1=w1, w2=w2, placeholder=placeholder):
+            cb = torch.ops.aten.convolution_backward
+            g2 = torch.where(out_ > 0, g, 0)
+            dz1 = cb(cl(g2), cl(y1), w2, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                     [True, False, False])[0]
+            dz1 = torch.where(cl(y1) > 0, dz1, 0)
+            return cb(dz1, placeholder, w1, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                      [True, False, False])[0]
+
+        rel = record("unetup_bwd", case, [res[3], res[0], res[1]], [ref[3], ref[0], ref[1]],
+                     lambda: unetup_bwd(g, out_, y1, w1, w2, cs),
+                     lambda: unetup_bwd_plain(g, out_, y1, w1, w2, cs), lib13,
+                     conv_flops(n, size, size, f, f) + conv_flops(n, size, size, f, cs + cx),
+                     nbytes(g, out_, y1, w1, w2, *res))
+        check(rel <= CONV_REL_TOL, f"unetup_bwd {case}: rel err {rel:.3g} > {CONV_REL_TOL}")
+        del g, out_, y1, res, ref, placeholder
+    print("phase 2: training kernels done", flush=True)
+
+
 def plain_logits(model, net, imgs):
     """The serving step's float32 logits (N·H·W, C) at the input size,
     composed of the plain versions on the same device."""
@@ -563,7 +695,14 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         name = e.name
-        if "conv3x3_kernel" in name:
+        if "conv3x3_grad_kernel" in name:
+            loader = "ReluGradLoader" if "ReluGradLoader" in name else "NhwcLoader"
+            name = f"port conv3x3_grad_kernel<{loader}>"
+        elif "final_loss_fwd_kernel" in name or "final_loss_bwd_kernel" in name:
+            name = "port " + ("final_loss_fwd_kernel" if "fwd" in name else "final_loss_bwd_kernel")
+        elif "sum_rows_kernel" in name:
+            name = "port sum_rows_kernel"
+        elif "conv3x3_kernel" in name:
             loader = next((n for n in ("ImageLoader", "UpConcatLoader", "NhwcLoader")
                            if n in name), "?")
             name = f"port conv3x3_kernel<{loader}>"
@@ -985,6 +1124,258 @@ def phase_tools(card: str):
     return totals
 
 
+# the training step's launches; every other kernel 0 (the encoder and the
+# F >= 128 decoder stages train through cuDNN under autograd)
+TRAIN_STEP = {"unetup": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
+
+
+def rect_batch(gen, n, size, classes, device):
+    """Seeded rectangles on a gray field: each image one rectangle of its
+    class's colour, the label its class inside and 0 outside, a 4-pixel
+    border of 255 (the VOC ignore label)."""
+    palette = torch.randint(0, 256, (classes, 3), generator=torch.Generator().manual_seed(0),
+                            dtype=torch.uint8).to(device)
+    imgs = torch.full((n, size, size, 3), 128, dtype=torch.uint8, device=device)
+    lbl = torch.zeros((n, size, size), dtype=torch.int32, device=device)
+    r = torch.randint(0, 1 << 30, (n, 5), generator=gen).tolist()
+    for i, (c, y0, x0, h, w) in enumerate(r):
+        c = 1 + c % (classes - 1)
+        h, w = size // 4 + h % (size // 4), size // 4 + w % (size // 4)
+        y0, x0 = y0 % (size - h), x0 % (size - w)
+        imgs[i, y0:y0 + h, x0:x0 + w] = palette[c]
+        lbl[i, y0:y0 + h, x0:x0 + w] = c
+    lbl[:, :4], lbl[:, -4:], lbl[:, :, :4], lbl[:, :, -4:] = 255, 255, 255, 255
+    return {"image": imgs, "label": lbl}
+
+
+def plain_step(net, batch, num_classes, cls_weights):
+    """Loss and float32 gradients of one bf16 step composed here of the
+    plain modules and ``train/losses.py`` under autograd, no kernel: a bf16
+    copy of ``net`` (a cast's backward is the gradient's cast, so these are
+    the gradients of the float32 masters).  ``tests/test_torch_gpu.py``
+    holds its train step to this same reference."""
+    from tpu_unet_torch.kernels.decoder_fuse import unetup_plain
+    from tpu_unet_torch.train.losses import ce_loss, dice_loss, one_hot
+    from tpu_unet_torch.train.step import prepare_batch
+
+    n16 = copy.deepcopy(net)
+    for p in n16.parameters():
+        p.data = p.data.to(torch.bfloat16)
+    imgs, target = prepare_batch(batch, torch.bfloat16, "cuda")
+    feats = n16.vgg(imgs, True)
+    up = feats[4]
+    for i, skip in zip((4, 3, 2, 1), feats[3::-1]):
+        m = getattr(n16, f"up_concat{i}")
+        up = unetup_plain(skip, up, m.conv1.weight, m.conv1.bias, m.conv2.weight, m.conv2.bias)
+    logits = (up @ n16.final.weight.reshape(num_classes, -1).t() + n16.final.bias).float()
+    loss = ce_loss(logits, target, cls_weights, num_classes) + \
+        dice_loss(logits, one_hot(target, num_classes))
+    loss.backward()
+    return loss.item(), {k: p.grad.float() for k, p in n16.named_parameters()}
+
+
+def phase_train(card: str):
+    """(a) the unet_vgg training step at 512², batch 8, 21 classes, bf16,
+    CE + dice, Adam; (b) ``cli train`` of the ``train_py`` preset over a
+    seeded VOC-layout directory, a resume, and serving from the trained
+    weights.  Returns the launches of the counted runs."""
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+
+    totals: dict = {}
+    t_phase = time.perf_counter()
+    classes = CLASSES["unet_vgg"]
+    cw = tuple(1.0 for _ in range(classes))
+    cfg = tstep.StepConfig(classes, cw, use_dice=True, compute_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(6)
+    batch = rect_batch(gen, BATCH, SIZE, classes, "cuda")
+    init = init_model(build_model("unet_vgg", classes), seed=0).cuda()
+
+    # the plain step first, from the initial weights
+    ploss, pgrads = plain_step(init, batch, classes, cw)
+    net = copy.deepcopy(init)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    fn = tstep.make_train_step(net, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), counts = counted(TRAIN_STEP, "train step", lambda: fn(state, batch, 1e-4))
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    loss0 = m["loss"].item()
+    lrel = abs(loss0 - ploss) / abs(ploss)
+    check(lrel <= 1e-3, f"train step loss {loss0} vs plain step {ploss}: rel {lrel:.3g}")
+    grad_stats, worst_cos, worst_rel = {}, 1.0, 0.0
+    for k, p in net.named_parameters():
+        a, b = p.grad.float().ravel(), pgrads[k].ravel()
+        cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        grad_stats[k] = [round(cos, 6), rel]
+        worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+        check(cos >= 0.99 and rel <= 5e-2, f"gradient of {k}: cosine {cos:.5f}, rel err {rel:.3g}")
+    del pgrads
+    print(json.dumps({"train_grads_vs_plain_step": grad_stats}), flush=True)
+
+    step = lambda: fn(state, batch, 1e-4)  # noqa: E731
+    step_ms = time_ms(step, reps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = device_breakdown(lambda _net, _imgs: step(), None, None)
+
+    # the card against the CPU float32 path: one step at batch 1, 128²
+    small = rect_batch(gen, 1, 128, classes, "cuda")
+    card_net = copy.deepcopy(init)
+    cpu_net = copy.deepcopy(init).cpu()
+    _, mc = tstep.make_train_step(card_net, cfg)(
+        tstep.TrainState(card_net, tstep.make_optimizer(card_net)), small, 1e-4)
+    f32 = tstep.StepConfig(classes, cw, use_dice=True)
+    _, mcpu = tstep.make_train_step(cpu_net, f32)(
+        tstep.TrainState(cpu_net, tstep.make_optimizer(cpu_net)),
+        {k: v.cpu() for k, v in small.items()}, 1e-4)
+    cpu_rel = abs(mc["loss"].item() - mcpu["loss"].item()) / abs(mcpu["loss"].item())
+    check(cpu_rel <= 2e-2, f"train step 128² vs CPU f32: loss rel {cpu_rel:.3g} > 2e-2")
+    del card_net, cpu_net
+
+    # it learns: 20 steps on one fixed batch from the initial weights
+    lnet = copy.deepcopy(init)
+    lstate = tstep.TrainState(lnet, tstep.make_optimizer(lnet, "adam", 0.9))
+    lfn = tstep.make_train_step(lnet, cfg)
+    losses = [lfn(lstate, batch, 1e-4)[1]["loss"].item() for _ in range(20)]
+    check(losses[-1] <= 0.9 * losses[0], f"20 steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                                         "not 10% lower")
+    del lnet, lstate, init
+    print(json.dumps({
+        "train_step": "unet_vgg", "batch": BATCH, "size": SIZE, "classes": classes,
+        "dtype": "bf16", "recipe": "CE + dice, Adam", "launches": counts,
+        "step_ms_events": step_ms, "img_per_s": BATCH * 10 / host,
+        "step_ms_host": host / 10 * 1e3, "peak_mem_gib": peak, "profile": profile,
+        "loss": loss0, "loss_plain_step": ploss, "loss_rel_err_vs_plain": lrel,
+        "worst_grad_cosine": worst_cos, "worst_grad_rel_err": worst_rel,
+        "loss_rel_err_vs_cpu_f32_128px": cpu_rel, "losses_20_steps": losses,
+        "gpu": card}), flush=True)
+    del net, state, fn
+    torch.cuda.empty_cache()
+    for k, v in cli_train(card).items():
+        totals[k] = totals.get(k, 0) + v
+    print(f"phase 6: training in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals
+
+
+def write_voc(root: Path, n_train: int, n_val: int, size: int, classes: int, seed: int):
+    """A seeded VOC2012-layout tree of rectangle images (JPEG) and labels
+    (PNG, 4-pixel 255 border) with its train / val splits."""
+    from PIL import Image
+
+    base = root / "VOCdevkit" / "VOC2012"
+    for d in ("JPEGImages", "SegmentationClass", "ImageSets/Segmentation"):
+        (base / d).mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator().manual_seed(seed)
+    ids = [f"r{i:03d}" for i in range(n_train + n_val)]
+    for i0 in range(0, len(ids), 16):
+        chunk = ids[i0:i0 + 16]
+        bt = rect_batch(gen, len(chunk), size, classes, "cpu")
+        for name, img, lbl in zip(chunk, bt["image"].numpy(), bt["label"].numpy()):
+            Image.fromarray(img).save(base / "JPEGImages" / f"{name}.jpg", quality=95)
+            Image.fromarray(lbl.astype(np.uint8)).save(base / "SegmentationClass" / f"{name}.png")
+    sets = base / "ImageSets" / "Segmentation"
+    (sets / "train.txt").write_text("\n".join(ids[:n_train]))
+    (sets / "val.txt").write_text("\n".join(ids[n_train:]))
+    return ids[:n_train], ids[n_train:]
+
+
+def cli_train(card: str):
+    """``cli train --preset train_py --no-pretrained`` (unet_vgg, 4 classes,
+    256², batch 32, CE + dice, bf16) for 2 epochs over 64 + 16 seeded
+    rectangle images, a full-state resume for a third epoch, and serving
+    from the best weights; returns the launches of all three."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_unet_torch import cli
+    from tpu_unet_torch.configs.presets import get_preset
+    from tpu_unet_torch.infer.wrapper import Unet
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.train.checkpoint import load_any
+    from tpu_unet_torch.train.fit import fit
+
+    totals: dict = {}
+
+    def add():
+        for k, v in launch_counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train_ids, val_ids = write_voc(tmp, 64, 16, DATAB_SIZE, 4, seed=8)
+        save = tmp / "logs"
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["train", "--preset", "train_py", "--no-pretrained", "--data-root",
+                      str(tmp), "--epochs", "2", "--save-dir", str(save)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        add()
+        text = buf.getvalue()
+        trained = dict(launch_counts)
+        check(trained["unetup_bwd"] == 4 and trained["final_ce_dice_fwd"] == 4
+              and trained["final_ce_dice_bwd"] == 4,
+              f"cli train: 2 epochs x 2 steps, launches {trained}")
+        names = sorted(p.name for p in save.iterdir())
+        ckpts = [n for n in names if n.endswith(".pth")]
+        check({"best_epoch_weights.pth", "last_epoch_weights.pth"} <= set(ckpts)
+              and any(n.startswith("ep002-") for n in ckpts), f"cli train wrote {names}")
+        last = load_any(str(save / "last_epoch_weights.pth"))
+        check(last["epoch"] == 2 and last["step"] == 4, f"last checkpoint epoch "
+              f"{last['epoch']} step {last['step']}")
+
+        cfg = get_preset("train_py", resume=True, model_path=str(save / "last_epoch_weights.pth"),
+                         unfreeze_epoch=3, pretrained_backbone=False, save_dir=str(tmp / "resumed"))
+        buf2 = io.StringIO()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(buf2):
+            state = fit(cfg, train_ids, val_ids, base_dir=str(tmp))
+        torch.cuda.synchronize()
+        add()
+        again = load_any(str(tmp / "resumed" / "last_epoch_weights.pth"))
+        moments = {float(s["step"]) for s in again["optimizer"]["state"].values()}
+        check("Resuming full training state at epoch 2" in buf2.getvalue()
+              and again["epoch"] == 3 and state.step == 6 and moments == {6.0},
+              f"resume: epoch {again['epoch']}, steps {state.step}, Adam steps {moments}")
+
+        reset_launch_counts()
+        u = Unet(model="unet_vgg", num_classes=4, input_shape=[DATAB_SIZE, DATAB_SIZE],
+                 model_path=str(save / "best_epoch_weights.pth"))
+        fn, net = u.serving_step()
+        val = rect_batch(torch.Generator().manual_seed(9), 8, DATAB_SIZE, 4, "cuda")
+        masks, hist = fn(net, val["image"])
+        torch.cuda.synchronize()
+        add()
+        lbl = val["label"]
+        known = lbl != 255
+        acc = (masks.long()[known] == lbl.long()[known]).float().mean().item()
+        check(masks.shape == (8, DATAB_SIZE, DATAB_SIZE) and int(hist.sum()) == 8 * DATAB_SIZE ** 2,
+              f"serving from the trained weights: masks {tuple(masks.shape)}")
+        print(json.dumps({
+            "cli_train": "train_py", "images": [len(train_ids), len(val_ids)], "epochs": 2,
+            # a functional check: at 2 steps an epoch this wall time is
+            # warm-up, loader start, evaluation and checkpoint writes, not a
+            # training rate (the step's rate is phase 6a's)
+            "seconds_wall_incl_warmup": secs,
+            "epoch_lines": [ln for ln in text.splitlines() if ln.startswith("Epoch")],
+            "checkpoints": ckpts, "resumed_epoch_lines": [
+                ln for ln in buf2.getvalue().splitlines() if ln.startswith("Epoch")],
+            "serving_pixel_accuracy_on_rectangles": acc, "launches": totals,
+            "gpu": card}), flush=True)
+    return totals
+
+
 SOURCES = {
     "vgg_stem": ("tpu_unet_torch/csrc/stem.cu", "tpu_unet/kernels/stem.py:220"),
     "vgg_block": ("tpu_unet_torch/csrc/encoder.cu", "tpu_unet/kernels/encoder.py:288"),
@@ -1001,6 +1392,10 @@ SOURCES = {
                          "tpu_unet/kernels/preprocess.py:39"),
     "argmax_mask": ("tpu_unet_torch/csrc/argmax.cu", "tpu_unet/kernels/postprocess.py:56"),
     "mask_palette": ("tpu_unet_torch/csrc/palette.cu", "tpu_unet/kernels/postprocess.py:300"),
+    "unetup_bwd": ("tpu_unet_torch/csrc/decoder_train.cu",
+                   "tpu_unet/kernels/decoder_train.py:140"),
+    "final_ce_dice_fwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:704"),
+    "final_ce_dice_bwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:804"),
 }
 
 
@@ -1019,8 +1414,9 @@ def main() -> int:
     card = phase_device()
     phase_build()
     results = phase_kernels(card)
+    phase_train_kernels(card, results)
     counts = phase_serving(card)
-    for phase in (phase_single_image, phase_tools):
+    for phase in (phase_single_image, phase_tools, phase_train):
         for k, v in phase(card).items():
             counts[k] = counts.get(k, 0) + v
     kernels = []

@@ -325,3 +325,114 @@ def test_generic_serving_step_on_card(cuda, model):
     assert share <= 2e-2 and worst <= 5e-2, (share, worst)
     own = torch.stack([torch.bincount(m.flatten().long(), minlength=4) for m in masks])
     assert torch.equal(own.to(torch.int32), hist)
+
+
+def _loss_case(gen, n, h, w, c, dtype):
+    """Features, final conv, targets with ~5% ignore pixels and some raw
+    255 labels, non-uniform class weights."""
+    feats = torch.relu(torch.randn((n, h, w, 64), generator=gen, device="cuda")).to(dtype)
+    # float32 weights holding feature-dtype values: dW and db come back in
+    # float32, unrounded
+    wt = (torch.randn((c, 64, 1, 1), generator=gen, device="cuda") / 8).to(dtype).float()
+    b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype).float()
+    t = torch.randint(0, c, (n, h, w), generator=gen, device="cuda")
+    r = torch.rand((n, h, w), generator=gen, device="cuda")
+    t = torch.where(r < 0.03, torch.full_like(t, c), t)
+    t = torch.where(r > 0.98, torch.full_like(t, 255), t)
+    cw = tuple(1.0 + 0.1 * i for i in range(c))
+    return feats, wt, b, t, cw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_dice", [True, False])
+@pytest.mark.parametrize("c", [21, 4])
+def test_final_loss_kernels(cuda, dtype, with_dice, c):
+    """#27 and #29 against their plain versions: loss within 1e-4
+    relative, f_score within 1e-4, dW and db within 1e-3 of their largest
+    entry, dfeat within CONV_REL_TOL."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.loss import (final_ce_dice_bwd, final_ce_dice_bwd_plain,
+                                             final_ce_dice_fwd, final_ce_dice_fwd_plain)
+
+    feats, w, b, t, cw = _loss_case(cuda, 2, 24, 40, c, dtype)
+    n0, n1 = launch_counts["final_ce_dice_fwd"], launch_counts["final_ce_dice_bwd"]
+    loss, fs, res = final_ce_dice_fwd(feats, w, b, t, cw, c, with_dice)
+    ploss, pfs, pres = final_ce_dice_fwd_plain(feats, w, b, t, cw, c, with_dice)
+    assert launch_counts["final_ce_dice_fwd"] == n0 + 1
+    assert abs(loss.item() - ploss.item()) <= 1e-4 * abs(ploss.item())
+    assert abs(fs.item() - pfs.item()) <= 1e-4
+    gl = torch.tensor(1.0, device="cuda")
+    out = final_ce_dice_bwd(feats, w, b, t, cw, c, with_dice, res, gl)
+    ref = final_ce_dice_bwd_plain(feats, w, b, t, cw, c, with_dice, pres, gl)
+    assert launch_counts["final_ce_dice_bwd"] == n1 + 1
+    assert out[0].dtype == dtype and out[1].shape == w.shape and out[2].shape == b.shape
+    assert _rel(out[0], ref[0]) <= CONV_REL_TOL
+    for o, r in zip(out[1:], ref[1:]):
+        assert _rel(o, r) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_final_loss_deterministic(cuda):
+    """Two runs of #27 give the bit-identical loss (no float atomics)."""
+    from tpu_unet_torch.kernels.loss import final_ce_dice_fwd
+
+    feats, w, b, t, cw = _loss_case(cuda, 2, 64, 64, 21, torch.bfloat16)
+    a = final_ce_dice_fwd(feats, w, b, t, cw, 21, True)
+    z = final_ce_dice_fwd(feats, w, b, t, cw, 21, True)
+    assert torch.equal(a[0], z[0]) and torch.equal(a[1], z[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,cs,cx,f", [(16, 32, 64, 128, 64), (8, 16, 8, 120, 64)])
+def test_unetup_bwd_kernel(cuda, h, w, cs, cx, f):
+    """#13 against its plain version: g2 exact, dz1 / dskip / dups within
+    CONV_REL_TOL."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.decoder_train import unetup_bwd, unetup_bwd_plain
+
+    g = torch.randn((2, h, w, f), generator=cuda, device="cuda").to(torch.bfloat16)
+    out = torch.randn((2, h, w, f), generator=cuda, device="cuda").to(torch.bfloat16)
+    y1 = torch.randn((2, h, w, f), generator=cuda, device="cuda").to(torch.bfloat16)
+    w1, _ = _conv(cuda, f, cs + cx)
+    w2, _ = _conv(cuda, f, f)
+    n = launch_counts["unetup_bwd"]
+    res = unetup_bwd(g, out, y1, w1, w2, cs)
+    assert launch_counts["unetup_bwd"] == n + 1
+    ref = unetup_bwd_plain(g, out, y1, w1, w2, cs)
+    assert torch.equal(res[2], ref[2])
+    for i in (3, 0, 1):
+        assert res[i].shape == ref[i].shape
+        assert _rel(res[i], ref[i]) <= CONV_REL_TOL
+
+
+@pytest.mark.gpu
+def test_train_step_on_card(cuda):
+    """One unet_vgg step at 128², batch 2, bf16: launches #1, #13, #27, #29
+    once each and no inference encoder kernel; loss within 1e-3 and every
+    gradient at a cosine ≥ 0.99 of the plain step's on the card (the plain
+    step of ``chip_smoke.py``, so both hold the step to one reference)."""
+    from chip_smoke import plain_step
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+
+    net = init_model(build_model("unet_vgg", 21), seed=0).cuda()
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8),
+             "label": torch.randint(0, 22, (2, 128, 128), generator=g, dtype=torch.int32)}
+    cw = tuple(1.0 + 0.05 * i for i in range(21))
+    cfg = tstep.StepConfig(21, cw, use_dice=True, compute_dtype=torch.bfloat16)
+    state = tstep.TrainState(net, tstep.make_optimizer(net))
+    fn = tstep.make_train_step(net, cfg)
+    reset_launch_counts()
+    _, m = fn(state, batch, 0.0)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts.items() if v} == {
+        "unetup": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
+    ploss, pgrads = plain_step(net, batch, 21, cw)
+    assert abs(m["loss"].item() - ploss) <= 1e-3 * ploss
+    for k, p in net.named_parameters():
+        a, b = p.grad.float().ravel(), pgrads[k].float().ravel()
+        cos = (a @ b / (a.norm() * b.norm())).item()
+        assert cos >= 0.99, (k, cos)

@@ -44,8 +44,8 @@ def test_scan_compares_whole_names():
 
 
 def _cuda_entries():
-    from tpu_unet_torch.kernels import (decoder_fuse, encoder, postprocess, preprocess,
-                                        render, stem, upconv)
+    from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, loss,
+                                        postprocess, preprocess, render, stem, upconv)
 
     x3 = torch.zeros(1, 16, 16, 3, dtype=torch.uint8)
     w = torch.zeros(64, 3, 3, 3, dtype=torch.bfloat16)
@@ -73,17 +73,78 @@ def _cuda_entries():
         "mask_palette": lambda: render._mask_palette_cuda(
             torch.zeros(1, 16, 16, dtype=torch.uint8), x3,
             torch.zeros(4, 3, dtype=torch.uint8), 0.7),
+        "unetup_bwd": lambda: decoder_train._unetup_bwd_cuda(
+            f, f, f, torch.zeros(64, 192, 3, 3, dtype=torch.bfloat16), w64, 64),
+        "final_ce_dice_fwd": lambda: loss._fwd_cuda(
+            f, torch.zeros(21, 64, 1, 1), torch.zeros(21),
+            torch.zeros(1, 16, 16, dtype=torch.long), [1.0] * 21, 21, True),
+        "final_ce_dice_bwd": lambda: loss._bwd_cuda(
+            f, torch.zeros(21, 64, 1, 1), torch.zeros(21),
+            torch.zeros(1, 16, 16, dtype=torch.long), [1.0] * 21, 21, True,
+            (torch.ones(()), torch.ones(21), torch.ones(21)), torch.ones(())),
     }
 
 
 @pytest.mark.parametrize("name", ["stem", "block", "unetup", "tail", "upconv",
                                   "tail_natural", "tail_mask_only", "normalize",
-                                  "argmax_mask", "mask_palette"])
+                                  "argmax_mask", "mask_palette", "unetup_bwd",
+                                  "final_ce_dice_fwd", "final_ce_dice_bwd"])
 def test_kernel_path_refuses_cpu_tensors(name):
     """The kernel side of each wrapper checks its inputs and raises; it
     never computes a CPU tensor (and never builds) on its own."""
     with pytest.raises(ValueError, match="CUDA tensor"):
         _cuda_entries()[name]()
+
+
+def _grad_calls():
+    """Each wrapper whose kernel has no backward, called with a float
+    argument that requires grad (integer-only kernels — #8, #9 — cannot
+    receive one)."""
+    from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, loss,
+                                        postprocess, stem, upconv)
+
+    def g(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, requires_grad=True)
+
+    w64, b = g(64, 64, 3, 3), g(64)
+    f = g(1, 16, 16, 64)
+    t = torch.zeros(1, 16, 16, dtype=torch.long)
+    res = (torch.ones(()), torch.ones(21), torch.ones(21))
+    return {
+        "vgg_stem": (stem, lambda: stem.vgg_stem(g(1, 16, 16, 3), g(64, 3, 3, 3), b, w64, b)),
+        "vgg_block": (encoder, lambda: encoder.vgg_block(f, [w64, w64], [b, b])),
+        "unetup": (decoder_fuse, lambda: decoder_fuse.unetup(
+            g(1, 32, 32, 64), f, g(64, 128, 3, 3), b, w64, b)),
+        "upconv": (upconv, lambda: upconv.upconv(f, w64, b, w64, b)),
+        "final_argmax_hist": (postprocess, lambda: postprocess.final_argmax_hist(
+            f, g(21, 64, 1, 1), g(21), 21)),
+        "final_argmax": (postprocess, lambda: postprocess.final_argmax(
+            f, g(21, 64, 1, 1), g(21), 21)),
+        "argmax_mask": (postprocess, lambda: postprocess.argmax_mask(g(1, 4, 4, 4))),
+        "unetup_bwd": (decoder_train, lambda: decoder_train.unetup_bwd(
+            f, f, f, g(64, 192, 3, 3), w64, 64)),
+        "final_ce_dice_fwd": (loss, lambda: loss.final_ce_dice_fwd(
+            f, g(21, 64, 1, 1), g(21), t, [1.0] * 21, 21)),
+        "final_ce_dice_bwd": (loss, lambda: loss.final_ce_dice_bwd(
+            f, g(21, 64, 1, 1), g(21), t, [1.0] * 21, 21, True, res, torch.ones(()))),
+    }
+
+
+@pytest.mark.parametrize("name", ["vgg_stem", "vgg_block", "unetup", "upconv",
+                                  "final_argmax_hist", "final_argmax", "argmax_mask",
+                                  "unetup_bwd", "final_ce_dice_fwd", "final_ce_dice_bwd"])
+def test_kernel_path_refuses_grad_inputs(name, monkeypatch):
+    """The CUDA branch of a kernel without a backward raises when autograd
+    would record it (its output would have no grad_fn, so every parameter
+    upstream would silently get no gradient); under no_grad it goes on to
+    its checks.  The device check is mocked so the CPU tensors take the
+    CUDA branch."""
+    module, call = _grad_calls()[name]
+    monkeypatch.setattr(module, "on_cpu", lambda t: False)
+    with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
+        call()
 
 
 def test_wrapper_rejects_other_devices():

@@ -1,0 +1,180 @@
+"""The port's unet_vgg train step against ``tpu_unet``'s, on the CPU in
+float32: JAX with the kernel configuration of the training slice forced
+(fused loss, fused decoder, fused train on, paired train off; the Pallas
+kernels in interpret mode), the port through the plain versions of #27,
+#29 and #13.  Weights are carried across by the bridge."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_unet.core import fusion
+from tpu_unet.kernels.loss import final_ce_dice_loss_grad
+from tpu_unet.models.registry import build_model as jbuild
+from tpu_unet.models.registry import init_model as jinit
+from tpu_unet.train import step as jstep
+from tpu_unet_torch.infer.convert import state_dict_from_flax
+from tpu_unet_torch.models.registry import build_model
+from tpu_unet_torch.train import step as tstep
+
+SIZE, B, C = 64, 2, 21
+CW = tuple(1.0 + 0.05 * i for i in range(C))
+LR = 1e-3
+
+
+def _batch(seed):
+    rng = np.random.default_rng(seed)
+    lbl = rng.integers(0, C + 1, (B, SIZE, SIZE)).astype(np.int32)
+    lbl[:, :2] = 255  # a raw VOC border: the ignore class
+    return {"image": rng.integers(0, 256, (B, SIZE, SIZE, 3)).astype(np.uint8),
+            "label": lbl}
+
+
+@pytest.fixture(scope="module")
+def kernel_config():
+    """JAX's training-slice configuration (TPU_UNET_FUSED_LOSS=1
+    TPU_UNET_FUSED_TRAIN=1 TPU_UNET_PAIRED_TRAIN=0), reset afterwards."""
+    fusion.set_fused_loss(True)
+    fusion.set_fused_decoder(True)
+    fusion.set_fused_train(True)
+    fusion.set_paired_train(False)
+    try:
+        model = jbuild("unet_vgg", C)
+        variables = jax.tree_util.tree_map(np.asarray, jinit(model, (SIZE, SIZE), seed=0,
+                                                             train=True))
+        yield model, variables
+    finally:
+        for setter in (fusion.set_fused_loss, fusion.set_fused_decoder,
+                       fusion.set_fused_train, fusion.set_paired_train):
+            setter(None)
+
+
+def _port(variables):
+    net = build_model("unet_vgg", C)
+    net.load_state_dict(state_dict_from_flax(variables), strict=True)
+    return net
+
+
+def _cfg(**kw):
+    return tstep.StepConfig(num_classes=C, cls_weights=CW, use_dice=True, **kw)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+# the gradients the slice's kernels produce: #29 (final) and #13 with its
+# weight gradients (up1)
+KERNEL_GRADS = ("final.", "up_concat1.")
+
+
+def test_train_step_matches_jax_kernel_config(kernel_config):
+    """Loss, f_score and the gradients of the kernels' parameters within
+    1e-4 relative of JAX's step in the kernel configuration (its loss is
+    make_train_step's).  The gradients above them run through PyTorch's
+    and XLA's float32 convolutions, whose forwards differ by ~3e-6 of the
+    scale at up3 (their summation order): that flips the ReLU mask of the
+    few pre-activations within 1e-6 of 0 (2 of 262,144 at up2's conv1) and
+    moves a channel's gradient sum by up to a few 1e-3, while JAX's own two
+    configurations (fused and plain) agree within 6e-7.  Those gradients are
+    held at a cosine of 0.99999 and 5e-3 relative."""
+    model, variables = kernel_config
+    batch = _batch(0)
+    feat_model = model.clone(features_out=True)
+    imgs, target, _ = jstep._prepare_batch(jax.tree_util.tree_map(jnp.asarray, batch), C,
+                                           jnp.float32)
+
+    def loss_fn(params):
+        feats, _ = feat_model.apply({"params": params, "batch_stats": {}}, imgs, True,
+                                    rngs={"dropout": jax.random.PRNGKey(0)},
+                                    mutable=["batch_stats"])
+        return final_ce_dice_loss_grad(feats, params["final"]["kernel"],
+                                       params["final"]["bias"], target, CW, C,
+                                       with_dice=True)
+
+    (jloss, jfs), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(variables["params"])
+    tx = jstep.make_optimizer("adam", 0.9)
+    jstate = jstep.create_train_state(model, variables, tx)
+    _, metrics = jstep.make_train_step(model, jstep.StepConfig(
+        num_classes=C, cls_weights=CW, use_dice=True))(jstate, batch, LR,
+                                                       jax.random.PRNGKey(0))
+    np.testing.assert_allclose(float(metrics["loss"]), float(jloss), rtol=1e-6)
+
+    net = _port(variables)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    _, m = tstep.make_train_step(net, _cfg())(state, batch, LR)
+    assert abs(m["loss"].item() - float(jloss)) <= 1e-4 * abs(float(jloss))
+    assert abs(m["f_score"].item() - float(jfs)) <= 1e-4 * abs(float(jfs))
+    ref = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jgrads))
+    params = dict(net.named_parameters())
+    assert set(ref) == set(params)
+    for k, v in ref.items():
+        g, r = params[k].grad.numpy().ravel(), v.numpy().ravel()
+        if k.startswith(KERNEL_GRADS):
+            assert _rel(g, r) <= 1e-4, (k, _rel(g, r))
+        else:
+            cos = float(g @ r / (np.linalg.norm(g) * np.linalg.norm(r)))
+            assert cos >= 0.99999 and _rel(g, r) <= 5e-3, (k, cos, _rel(g, r))
+
+
+def test_fused_route_matches_plain_autograd(kernel_config):
+    """Every gradient of the port's fused route (#27 / #29 and up1 through
+    #13) within 1e-4 relative of autograd of the plain composition (up1 by
+    ``unetup_plain``, logits, ``ce_loss`` + ``dice_loss``) on the same
+    forward."""
+    from tpu_unet_torch.kernels.decoder_fuse import unetup_plain
+    from tpu_unet_torch.train.losses import ce_loss, dice_loss, one_hot
+
+    _, variables = kernel_config
+    batch = _batch(1)
+    net = _port(variables)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    tstep.make_train_step(net, _cfg())(state, batch, 0.0)
+    fused = {k: p.grad.clone() for k, p in net.named_parameters()}
+
+    plain = _port(variables)
+    x = torch.from_numpy(batch["image"]).float() / 255.0
+    target = torch.from_numpy(batch["label"]).long()
+    feats = plain.vgg(x, True)
+    up = feats[4]
+    for i, skip in zip((4, 3, 2, 1), feats[3::-1]):
+        m = getattr(plain, f"up_concat{i}")
+        up = unetup_plain(skip, up, m.conv1.weight, m.conv1.bias, m.conv2.weight,
+                          m.conv2.bias)
+    logits = up @ plain.final.weight.reshape(C, -1).t() + plain.final.bias
+    (ce_loss(logits, target, CW, C) + dice_loss(logits, one_hot(target, C))).backward()
+    for k, p in plain.named_parameters():
+        assert _rel(fused[k].numpy(), p.grad.numpy()) <= 1e-4, k
+
+
+@pytest.mark.parametrize("opt,wd", [("adam", 0.0), ("sgd", 1e-4)])
+def test_two_steps_match_jax(kernel_config, opt, wd):
+    """Parameters after two steps of Adam, and of nesterov SGD with weight
+    decay, against JAX's.  SGD within 1e-6 absolute.  Adam moves an element
+    whose gradient is at the noise level by ±lr whatever its size, so two
+    steps may put such an element up to 2·lr per step away (measured: 19
+    elements of 24.9M beyond lr after step 1, up_concat2's conv1 behind the
+    ReLU near-ties of the test above); the mean distance stays under
+    lr / 100."""
+    model, variables = kernel_config
+    cfg = jstep.StepConfig(num_classes=C, cls_weights=CW, use_dice=True)
+    tx = jstep.make_optimizer(opt, 0.9, weight_decay=wd)
+    jstate = jstep.create_train_state(model, variables, tx)
+    jfn = jstep.make_train_step(model, cfg)
+    net = _port(variables)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, opt, 0.9, wd))
+    fn = tstep.make_train_step(net, _cfg())
+    for i in range(2):
+        jstate, jm = jfn(jstate, _batch(i), LR, jax.random.PRNGKey(i))
+        state, m = fn(state, _batch(i), LR)
+        if i == 0:  # from the same weights
+            assert abs(m["loss"].item() - float(jm["loss"])) <= 1e-4 * abs(float(jm["loss"]))
+    ref = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params))
+    d = torch.cat([(p.detach() - ref[k]).abs().reshape(-1) for k, p in net.named_parameters()])
+    if opt == "sgd":
+        assert d.max().item() <= 1e-6, d.max().item()
+    else:
+        assert d.max().item() <= 2 * LR * 2 and d.mean().item() <= LR / 100, \
+            (d.max().item(), d.mean().item())

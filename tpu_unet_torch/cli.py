@@ -1,13 +1,15 @@
 """Command-line entry points of the port (counterpart of ``tpu_unet/cli.py``):
 
+    python -m tpu_unet_torch.cli train --preset train_py --no-pretrained \\
+        --data-root /data --epochs 2
     python -m tpu_unet_torch.cli predict --preset ultralight_large_optimized \\
         --model-path ckpt.pth --mode dir_batched --input img/ --output out/
     python -m tpu_unet_torch.cli miou --preset traditional --model-path ckpt.pth \\
         --split val.txt --image-dir JPEGImages --gt-dir SegmentationClass
 
 Everything runs on the card; ``--cpu`` runs on the CPU instead.  The
-``train``, ``fold``, ``summary`` and ``export`` subcommands come with their
-slices.
+``fold``, ``summary`` and ``export`` subcommands come with their slices;
+``train --wandb`` is not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +32,75 @@ def _wrapper_overrides(args):
     if args.input_shape:
         over["input_shape"] = list(args.input_shape)
     return over
+
+
+def cmd_train(args):
+    from tpu_unet_torch.configs.presets import get_preset
+    from tpu_unet_torch.data.datasets import read_split
+    from tpu_unet_torch.train.fit import fit
+
+    if args.wandb:
+        raise NotImplementedError("train --wandb is not ported (no wandb package "
+                                  "on the card machine, and nothing is downloaded)")
+    overrides = {}
+    if args.model_path:
+        overrides["model_path"] = args.model_path
+    if args.num_classes:
+        overrides["num_classes"] = args.num_classes
+    if args.input_shape:
+        overrides["input_shape"] = tuple(args.input_shape)
+    if args.epochs:
+        overrides["unfreeze_epoch"] = args.epochs
+    if args.batch_size:
+        overrides["freeze_batch_size"] = args.batch_size
+        overrides["unfreeze_batch_size"] = args.batch_size
+    if args.data_path:
+        overrides["dataset_path"] = args.data_path
+    if args.eval_period:
+        # an explicit period asks for evaluation, even where the preset has
+        # it off
+        overrides["eval_period"] = args.eval_period
+        overrides["eval_flag"] = True
+    if args.save_dir:
+        overrides["save_dir"] = args.save_dir
+    if args.no_pretrained:
+        overrides["pretrained_backbone"] = False
+    cfg = get_preset(args.preset, **overrides)
+
+    if args.train_split:
+        train_ids = read_split(args.train_split)
+        val_ids = read_split(args.val_split) if args.val_split else []
+    else:
+        # default split layouts (reference: train.py:355-358,
+        # train_medical.py:227-230)
+        sub = {"voc": "VOC2012", "voc2007": "VOC2007", "defect": "DataB",
+               "medical": ""}[cfg.dataset]
+        sets = os.path.join(args.data_root, cfg.dataset_path, sub, "ImageSets",
+                            "Segmentation")
+        train_ids = read_split(os.path.join(sets, "train.txt"))
+        val_path = os.path.join(sets, "val.txt")
+        val_ids = read_split(val_path) if os.path.exists(val_path) else []
+
+    if args.dry_run:
+        # the layout audit alone, before a long run
+        import json
+
+        from tpu_unet_torch.data.datasets import validate_layout
+        from tpu_unet_torch.train.fit import DATASETS
+
+        root = cfg.dataset_path if os.path.isabs(cfg.dataset_path) \
+            else os.path.join(args.data_root, cfg.dataset_path)
+        report = validate_layout(DATASETS[cfg.dataset], root, train_ids, val_ids,
+                                 cfg.num_classes)
+        print(json.dumps(report, indent=2))
+        for w in report["warnings"]:
+            print(f"WARNING: {w}")
+        print("dry-run OK — dataset layout is usable; re-run without "
+              "--dry-run to train")
+        return
+    # evaluation during training is on by default, as the reference's
+    fit(cfg, train_ids, val_ids, base_dir=args.data_root,
+        device="cpu" if args.cpu else "cuda", auto_eval_callback=not args.no_eval)
 
 
 def cmd_predict(args):
@@ -75,6 +146,28 @@ def cmd_miou(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="tpu_unet_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train")
+    p.add_argument("--preset", required=True)
+    p.add_argument("--data-root", default=".")
+    p.add_argument("--data-path", default="")
+    p.add_argument("--train-split", default="")
+    p.add_argument("--val-split", default="")
+    p.add_argument("--epochs", type=int)
+    p.add_argument("--batch-size", type=int)
+    p.add_argument("--eval-period", type=int,
+                   help="epochs between validation mIoU evaluations")
+    p.add_argument("--no-eval", action="store_true",
+                   help="no mIoU evaluation during training")
+    p.add_argument("--wandb", action="store_true", help="not ported; raises")
+    p.add_argument("--save-dir", default="")
+    p.add_argument("--no-pretrained", action="store_true",
+                   help="train the backbone from random init even when the "
+                        "preset asks for ImageNet weights")
+    p.add_argument("--dry-run", action="store_true",
+                   help="validate the dataset layout and splits, then exit")
+    _add_common(p)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("predict")
     p.add_argument("--preset", required=True)

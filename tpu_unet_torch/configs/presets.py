@@ -1,0 +1,104 @@
+"""Training configuration — one dataclass, per-variant presets (the port's
+own copy of ``tpu_unet/configs/presets.py``; values lifted from the
+reference's training scripts, cited per preset).
+
+Only the presets of models the port can train are copied: ``voc``,
+``train_py`` and ``medical`` (unet_vgg, CE ± dice).  ``fp16=False`` presets
+need ``fp16=True`` on the card (the conv core is bf16-only,
+``train/step.py::check_ported``).  The presets of the models with batch
+norm, the focal loss or deep supervision come with the slices that port
+their training.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    # model / task
+    model: str = "unet_vgg"
+    num_classes: int = 21
+    input_shape: Tuple[int, int] = (512, 512)
+    model_path: str = ""                  # resume/pretrain checkpoint
+    # True resume: when model_path is a full-state checkpoint (saved by
+    # train/checkpoint.py::save_full_state), also restore opt_state, the
+    # epoch counter (overriding init_epoch) and best-val tracking —
+    # improves on the reference's manual weights-only resume
+    # (train.py:96-97, :288-302)
+    resume: bool = False
+    pretrained_backbone: bool = False
+    # explicit path to a torchvision vgg16/resnet50 ImageNet .pth; when
+    # empty, resolved via $TPU_UNET_PRETRAINED_DIR or ./model_data
+    # (reference downloads there, nets/vgg.py:69 / nets/resnet.py:181)
+    pretrained_path: str = ""
+    # epochs & phases (reference: train.py:96-177)
+    init_epoch: int = 0
+    freeze_epoch: int = 50
+    unfreeze_epoch: int = 100
+    freeze_batch_size: int = 2
+    unfreeze_batch_size: int = 2
+    freeze_train: bool = False
+    # optimization (reference: train.py:182-213)
+    init_lr: float = 1e-4
+    min_lr_ratio: float = 0.01            # Min_lr = Init_lr * ratio
+    optimizer_type: str = "adam"
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    lr_decay_type: str = "cos"
+    # loss (reference: train.py:219-240)
+    dice_loss: bool = False
+    focal_loss: bool = False
+    cls_weights: Tuple[float, ...] = ()
+    aux_weights: Tuple[float, ...] = ()   # deep supervision
+    # precision / misc (reference: train.py:68, :214-248)
+    fp16: bool = False                    # → bf16 compute
+    seed: int = 11
+    save_period: int = 5
+    save_dir: str = "logs"
+    eval_flag: bool = True
+    eval_period: int = 5
+    dataset: str = "voc"                  # voc | voc2007 | medical | defect
+    dataset_path: str = "VOCdevkit"
+    num_workers: int = 4
+    # early stopping ("dataB-train .py":83)
+    patience: Optional[int] = None
+
+    @property
+    def min_lr(self) -> float:
+        return self.init_lr * self.min_lr_ratio
+
+    def resolved_cls_weights(self) -> Tuple[float, ...]:
+        return self.cls_weights or tuple([1.0] * self.num_classes)
+
+
+PRESETS = {
+    # reference: train.py:45-248
+    "voc": TrainConfig(
+        model="unet_vgg", num_classes=21, input_shape=(512, 512),
+        freeze_epoch=50, unfreeze_epoch=100, freeze_batch_size=2,
+        unfreeze_batch_size=2, freeze_train=True, init_lr=1e-4,
+        dice_loss=False, focal_loss=False, fp16=False,
+        pretrained_backbone=True, save_period=5, dataset="voc"),
+    # the shipped train.py constants (steel-defect 4-class via canonical UNet)
+    "train_py": TrainConfig(
+        model="unet_vgg", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=50, unfreeze_epoch=100, freeze_batch_size=2,
+        unfreeze_batch_size=32, freeze_train=False, init_lr=1e-4,
+        dice_loss=True, focal_loss=False, fp16=True, save_period=2,
+        eval_period=2, dataset="voc"),
+    # reference: train_medical.py:43-248
+    "medical": TrainConfig(
+        model="unet_vgg", num_classes=2, input_shape=(512, 512),
+        pretrained_backbone=True, freeze_epoch=50, unfreeze_epoch=100,
+        freeze_batch_size=2, unfreeze_batch_size=2, freeze_train=True,
+        init_lr=1e-4, dice_loss=False, focal_loss=False, fp16=False,
+        save_period=5, eval_flag=False, dataset="medical",
+        dataset_path="Medical_Datasets"),
+}
+
+
+def get_preset(name: str, **overrides) -> TrainConfig:
+    cfg = dataclasses.replace(PRESETS[name], **overrides)
+    return cfg

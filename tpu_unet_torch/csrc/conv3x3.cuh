@@ -156,20 +156,44 @@ struct UpConcatLoader {
   }
 };
 
-template <class Loader, bool POOL>
-__global__ void __launch_bounds__(NT)
-conv3x3_kernel(Loader ld, const bf16* __restrict__ wt, const float* __restrict__ bias,
-               bf16* __restrict__ out, bf16* __restrict__ pooled, int H, int W, int K,
-               int F) {
-  __shared__ ConvSmem s;
+// Backward of a UnetUp stage (csrc/decoder_train.cu): the dgrad operand of
+// conv2, g2 = g * [out > 0], masked as it is gathered.  The centre tap of
+// the blocks with blockIdx.y == 0 also stores g2, so every (pixel,
+// channel) of it is written exactly once.
+struct ReluGradLoader {
+  const bf16* g;
+  const bf16* out;
+  bf16* g2;
+  int H, W, C;
+  __device__ __forceinline__ uint4 operator()(int b, int y, int x, int k) const {
+    const int tap = k / C, c = k - tap * C;
+    const int iy = y + tap / 3 - 1, ix = x + tap % 3 - 1;
+    if (iy < 0 || iy >= H || ix < 0 || ix >= W) return zero4();
+    const size_t o = ((static_cast<size_t>(b) * H + iy) * W + ix) * C + c;
+    const uint4 gu = *reinterpret_cast<const uint4*>(g + o);
+    const uint4 ou = *reinterpret_cast<const uint4*>(out + o);
+    const bf16* gv = reinterpret_cast<const bf16*>(&gu);
+    const bf16* ov = reinterpret_cast<const bf16*>(&ou);
+    __align__(16) bf16 r[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      r[j] = __bfloat162float(ov[j]) > 0.f ? gv[j] : __float2bfloat16_rn(0.f);
+    const uint4 ru = *reinterpret_cast<const uint4*>(r);
+    if (tap == 4 && blockIdx.y == 0) *reinterpret_cast<uint4*>(g2 + o) = ru;
+    return ru;
+  }
+};
+
+// The implicit-GEMM main loop shared by every conv kernel: acc (the warp's
+// 32 x 32 sub-tile, mma.sync fragment layout) = A(block's 128 pixels, K) *
+// Wt(n0 .. n0 + 63, K)^T.
+template <class Loader>
+__device__ __forceinline__ void conv_mainloop(const Loader& ld, const bf16* __restrict__ wt,
+                                              ConvSmem& s, float (&acc)[2][4][4], int b,
+                                              int y0, int x0, int n0, int K) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
-  const int tiles_w = W / TW;
-  const int y0 = (blockIdx.x / tiles_w) * TH, x0 = (blockIdx.x % tiles_w) * TW;
-  const int n0 = blockIdx.y * BN, b = blockIdx.z;
-
-  float acc[2][4][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -223,6 +247,23 @@ conv3x3_kernel(Loader ld, const bf16* __restrict__ wt, const float* __restrict__
     }
     __syncthreads();
   }
+}
+
+template <class Loader, bool POOL>
+__global__ void __launch_bounds__(NT)
+conv3x3_kernel(Loader ld, const bf16* __restrict__ wt, const float* __restrict__ bias,
+               bf16* __restrict__ out, bf16* __restrict__ pooled, int H, int W, int K,
+               int F) {
+  __shared__ ConvSmem s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles_w = W / TW;
+  const int y0 = (blockIdx.x / tiles_w) * TH, x0 = (blockIdx.x % tiles_w) * TW;
+  const int n0 = blockIdx.y * BN, b = blockIdx.z;
+
+  float acc[2][4][4];
+  conv_mainloop(ld, wt, s, acc, b, y0, x0, n0, K);
 
   // epilogue: bias + ReLU, bf16, staged in shared memory
 #pragma unroll
@@ -268,6 +309,75 @@ cudaError_t launch_conv3x3(const Loader& ld, const bf16* wt, const float* bias, 
                            cudaStream_t stream) {
   const dim3 grid((H / TH) * (W / TW), F / BN, B);
   conv3x3_kernel<Loader, POOL><<<grid, NT, 0, stream>>>(ld, wt, bias, out, pooled, H, W, K, F);
+  return cudaGetLastError();
+}
+
+// Epilogues of the gradient convs: no bias, no ReLU, the f32 sums rounded
+// to bf16, then
+//   EPI_MASK:  out = v * [mask > 0], mask laid out as out (F channels);
+//   EPI_SPLIT: channels [0, Fa) to out (Fa channels a pixel), [Fa, F) to
+//              out2 (F - Fa channels a pixel); Fa % 8 == 0.
+enum { EPI_MASK = 0, EPI_SPLIT = 1 };
+
+template <class Loader, int EPI>
+__global__ void __launch_bounds__(NT)
+conv3x3_grad_kernel(Loader ld, const bf16* __restrict__ wt, const bf16* __restrict__ mask,
+                    bf16* __restrict__ out, bf16* __restrict__ out2, int H, int W, int K,
+                    int F, int Fa) {
+  __shared__ ConvSmem s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles_w = W / TW;
+  const int y0 = (blockIdx.x / tiles_w) * TH, x0 = (blockIdx.x % tiles_w) * TW;
+  const int n0 = blockIdx.y * BN, b = blockIdx.z;
+
+  float acc[2][4][4];
+  conv_mainloop(ld, wt, s, acc, b, y0, x0, n0, K);
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int r = wm * 32 + mi * 16 + g, c = wn * 32 + ni * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(&s.c[r * LDC + c]) =
+          __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<__nv_bfloat162*>(&s.c[(r + 8) * LDC + c]) =
+          __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int v = tid + i * NT, p = v >> 3, sub = v & 7;
+    const size_t pix = (static_cast<size_t>(b) * H + y0 + p / TW) * W + x0 + p % TW;
+    const int n = n0 + sub * 8;
+    uint4 val = *reinterpret_cast<const uint4*>(&s.c[p * LDC + sub * 8]);
+    if (EPI == EPI_MASK) {
+      const uint4 mu = *reinterpret_cast<const uint4*>(mask + pix * F + n);
+      const bf16* mv = reinterpret_cast<const bf16*>(&mu);
+      bf16* vv = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (!(__bfloat162float(mv[j]) > 0.f)) vv[j] = __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(out + pix * F + n) = val;
+    } else if (n < Fa) {
+      *reinterpret_cast<uint4*>(out + pix * Fa + n) = val;
+    } else {
+      *reinterpret_cast<uint4*>(out2 + pix * (F - Fa) + (n - Fa)) = val;
+    }
+  }
+}
+
+// Launch one gradient conv on `stream` (F output channels); returns
+// cudaGetLastError().
+template <class Loader, int EPI>
+cudaError_t launch_conv3x3_grad(const Loader& ld, const bf16* wt, const bf16* mask, bf16* out,
+                                bf16* out2, int B, int H, int W, int K, int F, int Fa,
+                                cudaStream_t stream) {
+  const dim3 grid((H / TH) * (W / TW), F / BN, B);
+  conv3x3_grad_kernel<Loader, EPI><<<grid, NT, 0, stream>>>(ld, wt, mask, out, out2, H, W, K,
+                                                            F, Fa);
   return cudaGetLastError();
 }
 

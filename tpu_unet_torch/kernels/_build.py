@@ -56,6 +56,14 @@ SIGNATURES = {
     # n_pix (int64), stream
     "tu_mask_palette": [_P, _I, _P, _P, _I, ctypes.c_float, ctypes.c_float,
                         _P, ctypes.c_longlong, _P],
+    # feats, is_bf16, target, wt, bias, cls_weights, partial, sums,
+    # n_pix (int64), C, stream
+    "tu_final_ce_dice_fwd": [_P, _I] + [_P] * 6 + [ctypes.c_longlong, _I, _P],
+    # feats, is_bf16, target, wt, bias, cls_weights, coefA, coefB, inv_sw,
+    # dfeat, partial, acc, n_pix (int64), C, stream
+    "tu_final_ce_dice_bwd": [_P, _I] + [_P] * 10 + [ctypes.c_longlong, _I, _P],
+    # g, out, y1, w2t, w1t, g2, dz1, dskip, dups, B, H2, W2, Cs, Cx, F, stream
+    "tu_unetup_bwd": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 # launches of each kernel wrapper; a wrapper adds one where it calls its
@@ -63,7 +71,8 @@ SIGNATURES = {
 launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
                  "unetup": 0, "upconv": 0, "argmax_mask": 0,
-                 "mask_palette": 0}
+                 "mask_palette": 0, "unetup_bwd": 0, "final_ce_dice_fwd": 0,
+                 "final_ce_dice_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -158,6 +167,21 @@ def call(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def no_grad_inputs(name: str, *tensors) -> None:
+    """Raise when autograd would record a call to kernel ``name``: its CUDA
+    output has no ``grad_fn``, so every parameter upstream would silently
+    get no gradient.  Lists of tensors are looked into."""
+    if not torch.is_grad_enabled():
+        return
+    flat = []
+    for t in tensors:
+        flat += list(t) if isinstance(t, (list, tuple)) else [t]
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it "
+                           "under torch.no_grad() (serving), or train through "
+                           "the model's train=True path")
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,

@@ -8,6 +8,13 @@ conv1's operand loader gathers the skip channels and lerps the up channels
 from x's four neighbours, so neither ``up2x(x)`` nor the concat is stored;
 conv1's output goes through device memory to conv2.  Bound and design in
 the source note.
+
+Training: :func:`unetup_train` (the port of ``fused_unetup_train``,
+decoder_fuse.py:1245-1340) runs the same kernel forward, keeping conv1's
+output y1, and its backward through the ``unetup_bwd`` kernel
+(``kernels/decoder_train.py``, #13); the weight and bias gradients and the
+upsample's adjoint stay outside any kernel, as JAX's ``_train_bwd`` keeps
+them in XLA.
 """
 from __future__ import annotations
 
@@ -17,14 +24,19 @@ import torch
 
 from tpu_unet_torch.kernels import _build
 from tpu_unet_torch.kernels._plain import conv3x3_relu, on_cpu
+from tpu_unet_torch.kernels.decoder_train import unetup_bwd
 from tpu_unet_torch.nn.resize import lerp_tables, upsample2x
+
+
+def _unetup_plain_y1(skip, x, w1, b1, w2, b2):
+    y1 = conv3x3_relu(torch.cat([skip, upsample2x(x)], dim=-1), w1, b1)
+    return conv3x3_relu(y1, w2, b2), y1
 
 
 def unetup_plain(skip, x, w1, b1, w2, b2):
     """skip (B, 2H, 2W, Cs), x (B, H, W, Cx) → (B, 2H, 2W, F); mirrors
     ``reference_unetup`` (decoder_fuse.py:1181), concat order [skip, up]."""
-    cc = torch.cat([skip, upsample2x(x)], dim=-1)
-    return conv3x3_relu(conv3x3_relu(cc, w1, b1), w2, b2)
+    return _unetup_plain_y1(skip, x, w1, b1, w2, b2)[0]
 
 
 @functools.lru_cache(maxsize=32)
@@ -36,7 +48,8 @@ def _tables(h: int, w: int, device: torch.device):
     return tuple(t.contiguous().to(device) for t in (ridx, rw, cidx, cw))
 
 
-def _unetup_cuda(skip, x, w1, b1, w2, b2):
+def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
+    _build.no_grad_inputs("unetup", skip, x, w1, b1, w2, b2)
     B, H, W, cx = x.shape
     cs, f = skip.shape[-1], w1.shape[0]
     H2, W2 = 2 * H, 2 * W
@@ -58,7 +71,7 @@ def _unetup_cuda(skip, x, w1, b1, w2, b2):
                 b1f.data_ptr(), wt2.data_ptr(), b2f.data_ptr(), y1.data_ptr(),
                 out.data_ptr(), B, H2, W2, cs, cx, f)
     _build.launch_counts["unetup"] += 1
-    return out
+    return (out, y1) if want_y1 else out
 
 
 def unetup(skip, x, w1, b1, w2, b2):
@@ -68,3 +81,50 @@ def unetup(skip, x, w1, b1, w2, b2):
     if on_cpu(x):
         return unetup_plain(skip, x, w1, b1, w2, b2)
     return _unetup_cuda(skip, x, w1, b1, w2, b2)
+
+
+def _conv_wgrad(v, g, w_like):
+    """Weight gradient of a 3×3 SAME conv with NHWC input ``v`` and output
+    gradient ``g`` (the weight output of ``convolution_backward`` only; JAX's
+    ``_conv_wgrad``, decoder_fuse.py:1289-1295), in ``v``'s dtype."""
+    return torch.ops.aten.convolution_backward(
+        g.to(v.dtype).permute(0, 3, 1, 2), v.permute(0, 3, 1, 2), w_like.to(v.dtype),
+        None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False])[1]
+
+
+class _UnetUpTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, skip, x, w1, b1, w2, b2):
+        if on_cpu(x):
+            out, y1 = _unetup_plain_y1(skip, x, w1, b1, w2, b2)
+        else:
+            out, y1 = _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=True)
+        ctx.save_for_backward(skip, x, w1, b1, w2, b2, y1, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        skip, x, w1, b1, w2, b2, y1, out = ctx.saved_tensors
+        cs = skip.shape[-1]
+        dskip, dups, g2, dz1 = unetup_bwd(g.to(y1.dtype).contiguous(), out, y1, w1, w2, cs)
+        db2 = g2.float().sum((0, 1, 2))
+        dk2 = _conv_wgrad(y1, g2, w2)
+        db1 = dz1.float().sum((0, 1, 2))
+        dk1_sk = _conv_wgrad(skip, dz1, w1[:, :cs])
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            up = upsample2x(xg)
+        dk1_up = _conv_wgrad(up.detach().to(skip.dtype), dz1, w1[:, cs:])
+        dx, = torch.autograd.grad(up, xg, dups.to(up.dtype))
+        dk1 = torch.cat([dk1_sk, dk1_up], dim=1)
+        return (dskip, dx.to(x.dtype), dk1.to(w1.dtype), db1.to(b1.dtype),
+                dk2.to(w2.dtype), db2.to(b2.dtype))
+
+
+def unetup_train(skip, x, w1, b1, w2, b2):
+    """One UnetUp stage for training (``fused_unetup_train``): the forward as
+    :func:`unetup` (keeping y1), the backward through ``unetup_bwd`` (#13),
+    then the bias sums, the weight gradients (skip and up halves of conv1's
+    apart, so the concat is not stored) and the upsample's adjoint.  CPU
+    tensors take the plain versions both ways."""
+    return _UnetUpTrain.apply(skip, x, w1, b1, w2, b2)

@@ -23,6 +23,7 @@ def vgg_block_plain(x, ws, bs, pool: bool = True):
 
 
 def _vgg_block_cuda(x, ws, bs, pool):
+    _build.no_grad_inputs("vgg_block", x, ws, bs)
     n = len(ws)
     B, H, W, C = x.shape
     chans = [C] + [int(w.shape[0]) for w in ws]

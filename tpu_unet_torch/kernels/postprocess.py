@@ -93,6 +93,7 @@ def _tail_args(feats, weight, bias, num_classes, name):
 
 
 def _final_argmax_hist_cuda(feats, weight, bias, num_classes):
+    _build.no_grad_inputs("final_argmax_hist", feats, weight, bias)
     n, h, wd, f = feats.shape
     if (h * wd) % HIST_BLOCK:
         raise ValueError(f"final_argmax_hist kernel: H*W={h * wd} must be a "
@@ -108,6 +109,7 @@ def _final_argmax_hist_cuda(feats, weight, bias, num_classes):
 
 
 def _final_argmax_cuda(feats, weight, bias, num_classes):
+    _build.no_grad_inputs("final_argmax", feats, weight, bias)
     n, h, wd, f = feats.shape
     wt, bf = _tail_args(feats, weight, bias, num_classes, "final_argmax")
     masks = torch.empty((n, h, wd), dtype=torch.uint8, device=feats.device)
@@ -145,6 +147,7 @@ def argmax_mask_plain(logits: torch.Tensor,
 
 
 def _argmax_mask_cuda(logits, out_dtype):
+    _build.no_grad_inputs("argmax_mask", logits)
     if logits.ndim != 4 or logits.dtype not in _LOGIT_DTYPES \
             or out_dtype not in _MASK_DTYPES \
             or not 1 <= logits.shape[-1] <= _MAX_CLASSES:

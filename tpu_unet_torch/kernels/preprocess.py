@@ -30,6 +30,7 @@ def normalize_images_plain(images: torch.Tensor,
 
 
 def _normalize_images_cuda(images, dtype):
+    _build.no_grad_inputs("normalize_images", images)
     if images.dtype != torch.uint8 or dtype not in _DTYPES:
         raise ValueError(f"normalize_images kernel: uint8 images to one of "
                          f"{_DTYPES}, got {images.dtype} to {dtype}")

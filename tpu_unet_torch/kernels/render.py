@@ -47,6 +47,7 @@ def mask_palette_plain(mask: torch.Tensor, image: torch.Tensor,
 
 
 def _mask_palette_cuda(mask, image, palette, alpha):
+    _build.no_grad_inputs("mask_palette", mask, image, palette)
     n, h, w = mask.shape
     if mask.dtype not in _MASK_DTYPES or not 1 <= palette.shape[0] <= _MAX_PALETTE:
         raise ValueError(f"mask_palette kernel: mask in {_MASK_DTYPES} and 1 to "

@@ -27,6 +27,7 @@ def vgg_stem_plain(x, w11, b11, w12, b12):
 
 
 def _vgg_stem_cuda(x, w11, b11, w12, b12):
+    _build.no_grad_inputs("vgg_stem", x, w11, b11, w12, b12)
     B, H, W = x.shape[:3]
     f = w11.shape[0]
     if x.dtype not in (torch.uint8, torch.bfloat16):

@@ -26,6 +26,7 @@ def upconv_plain(x, w1, b1, w2, b2):
 
 
 def _upconv_cuda(x, w1, b1, w2, b2):
+    _build.no_grad_inputs("upconv", x, w1, b1, w2, b2)
     B, H, W, cx = x.shape
     f = w1.shape[0]
     H2, W2 = 2 * H, 2 * W

@@ -6,7 +6,9 @@
 between), so the state dict carries the reference key names
 ``features.{i}.weight``.  The forward does not run the Sequential: stage 1
 goes to the stem kernel wrapper and stages 2-5 to the encoder-block wrapper,
-NHWC throughout.
+NHWC throughout.  In training (``train=True``) the stages run their plain
+compositions under autograd (cuDNN convs), as JAX's training step does
+without the paired region (models/unet.py:62-67).
 
 ``ResNet50``: five features at strides 2/4/8/16/32 with 64/256/512/1024/2048
 channels, module names of the reference (``conv1``, ``bn1``,
@@ -21,8 +23,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpu_unet_torch.kernels.encoder import vgg_block
-from tpu_unet_torch.kernels.stem import vgg_stem
+from tpu_unet_torch.kernels.encoder import vgg_block, vgg_block_plain
+from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
 from tpu_unet_torch.nn.blocks import BN_EPS, bn_eval, max_pool_ceil
 
 # cfg 'D' (reference: nets/vgg.py:59)
@@ -55,14 +57,15 @@ class VGG16(nn.Module):
         convs = [self.features[i] for i in idx]
         return [c.weight for c in convs], [c.bias for c in convs]
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         """(B, H, W, 3) uint8 or float image → [feat1 … feat5], NHWC."""
+        stem, block = (vgg_stem_plain, vgg_block_plain) if train else (vgg_stem, vgg_block)
         (w0, w2), (b0, b2) = self._wb(_STAGES[0])
-        feat1, x = vgg_stem(x, w0, b0, w2, b2)
+        feat1, x = stem(x, w0, b0, w2, b2)
         feats = [feat1]
         for si, idx in enumerate(_STAGES[1:], start=1):
             ws, bs = self._wb(idx)
-            skip, pooled = vgg_block(x, ws, bs, pool=si < len(_STAGES) - 1)
+            skip, pooled = block(x, ws, bs, pool=si < len(_STAGES) - 1)
             feats.append(skip)
             x = pooled
         return feats

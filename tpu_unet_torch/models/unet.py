@@ -3,6 +3,13 @@
 reference torch model (``vgg`` / ``resnet``, ``up_concat1..4``, ``up_conv``,
 ``final``).
 
+``forward(x, features_out, train)``: ``train=True`` is the training forward
+of ``unet_vgg`` (encoder and the F ≥ 128 decoder stages as plain
+compositions under autograd, up1 through ``unetup_train``).  The ResNet50
+encoder has batch norm, whose train mode is not ported, and the ``up_conv``
+head's backward (#12) has no kernel yet: both raise in train mode on the
+card; on the CPU the head runs its plain version.
+
 The ResNet50 UNet, and ``self_net`` (VGG16 with ``force_up_conv``), end in
 the ``up_conv`` head (reference: nets/unet.py:47-54): ×2 align-corners
 upsample, two 3×3 conv(64) + ReLU.  Its convs carry the reference keys
@@ -14,7 +21,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpu_unet_torch.kernels.upconv import upconv
+from tpu_unet_torch.kernels._plain import on_cpu
+from tpu_unet_torch.kernels.upconv import upconv, upconv_plain
 from tpu_unet_torch.models.backbones import VGG16, ResNet50
 from tpu_unet_torch.nn.blocks import UnetUp
 
@@ -51,20 +59,36 @@ class Unet(nn.Module):
                 nn.Conv2d(f, f, kernel_size=3, padding=1), nn.ReLU())
         self.final = nn.Conv2d(_OUT_FILTERS[0], num_classes, 1)
 
-    def forward(self, x: torch.Tensor, features_out: bool = False):
+    def forward(self, x: torch.Tensor, features_out: bool = False,
+                train: bool = False):
         """(B, H, W, 3) → logits (B, H', W', C); with ``features_out`` the
         (B, H', W', 64) features before ``final``, for the fused tail
-        (``kernels/postprocess.py``) that applies ``final`` itself.  H' = H,
+        (``kernels/postprocess.py``) or the fused loss
+        (``kernels/loss.py``) that applies ``final`` itself.  H' = H,
         except for ``self_net``, whose head doubles it."""
-        enc = self.vgg if self.backbone == "vgg" else self.resnet
-        feat1, feat2, feat3, feat4, feat5 = enc(x)
-        up4 = self.up_concat4(feat4, feat5)
-        up3 = self.up_concat3(feat3, up4)
-        up2 = self.up_concat2(feat2, up3)
-        up1 = self.up_concat1(feat1, up2)
+        if self.backbone == "vgg":
+            feats = self.vgg(x, train)
+        elif train:
+            raise NotImplementedError(
+                "unet_resnet50 training needs batch norm in train mode, not "
+                "ported yet (ROADMAP §1: the DataB training slice)")
+        else:
+            feats = self.resnet(x)
+        feat1, feat2, feat3, feat4, feat5 = feats
+        up4 = self.up_concat4(feat4, feat5, train)
+        up3 = self.up_concat3(feat3, up4, train)
+        up2 = self.up_concat2(feat2, up3, train)
+        up1 = self.up_concat1(feat1, up2, train)
         if self.up_conv is not None:
             c1, c2 = self.up_conv[1], self.up_conv[3]
-            up1 = upconv(up1, c1.weight, c1.bias, c2.weight, c2.bias)
+            head = upconv
+            if train:
+                if not on_cpu(up1):
+                    raise NotImplementedError(
+                        "training through the up_conv head needs its backward "
+                        "kernel #12, not ported yet (ROADMAP §2, T4)")
+                head = upconv_plain
+            up1 = head(up1, c1.weight, c1.bias, c2.weight, c2.bias)
         if features_out:
             return up1
         w = self.final.weight.reshape(self.num_classes, -1)
