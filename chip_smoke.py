@@ -8,7 +8,8 @@ Phases (any failure exits non-zero without the final result line):
 0. device: the card's name and power limit (nvidia-smi);
 1. build: compile ``tpu_unet_torch/csrc/*.cu`` into ``build/`` with nvcc;
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the shapes its serving path gives it — ``unet_vgg``,
+   the card at the shapes its serving or training path gives it (the loss
+   kernels at the DataB presets' 32x256^2x4 and at 8x512^2x21) — ``unet_vgg``,
    ``unet_resnet50`` and ``self_net`` at 512x512, batch 8 (the self_net
    head at batch 2; the stem also at one 512x512 image of the normalize
    kernel's bf16 output, as the single-image forward gives it), the
@@ -51,7 +52,19 @@ Phases (any failure exits non-zero without the final result line):
    on one batch; (b) ``cli.main(["train", "--preset", "train_py", ...])``
    over a seeded VOC-layout directory (64 + 16 images at 256^2, batch 32,
    2 epochs), a full-state resume for a third epoch, and
-   ``serving_step()`` from the trained ``.pth``;
+   ``serving_step()`` from the trained ``.pth``; (c) the DataB train steps
+   of ``traditional`` and ``ultralight_large_optimized`` (its bridge
+   dropout live) at 256^2, batch 32, 4 classes, bf16, focal + dice with
+   the presets' class weights, Adam at the learning rate ``fit`` gives the
+   presets — exact launch counts (the logit-level loss kernels #25 / #26
+   once each), step time, img/s, peak memory, a profiler breakdown, loss,
+   every gradient and the running statistics against a plain step on the
+   card with the same dropout generator, one 64^2 step against the CPU
+   float32 path, 20 steps on one batch — and one ``lightweight`` step (the
+   plain losses, no kernel); (d) ``cli train --preset traditional`` over
+   a seeded VOC-layout directory with the heavy augmentation (2 epochs of
+   2 steps, evaluation each epoch), a resume, and ``serving_step()``
+   through the natural-layout tail from the trained ``.pth``;
 7. one ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -60,6 +73,7 @@ Imports nothing of JAX or of the ``tpu_unet`` package.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
 import subprocess
@@ -568,7 +582,81 @@ def phase_train_kernels(card: str, results: dict):
                      nbytes(g, out_, y1, w1, w2, *res))
         check(rel <= CONV_REL_TOL, f"unetup_bwd {case}: rel err {rel:.3g} > {CONV_REL_TOL}")
         del g, out_, y1, res, ref, placeholder
+    logit_loss_kernels(record, gen)
     print("phase 2: training kernels done", flush=True)
+
+
+def logit_loss_kernels(record, gen):
+    """#25 / #26 against their plain versions: the DataB presets' shape
+    (32x256^2x4 bf16; ``traditional``'s weights (1, 15, 0, 0) and the
+    ladder's (1, 15, 1.5, 2)), CE + dice, unet_vgg + focal's 8x512^2x21
+    bf16, and a float32 case; targets with the ignore class and raw 255s.
+    Loss and f_score within 1e-4 relative, dlogits within 1% of max |plain|
+    (bf16) or 1e-5 (float32), the loss bit-identical run to run."""
+    from tpu_unet_torch.kernels.loss import (ce_dice_bwd, ce_dice_bwd_plain, ce_dice_fwd,
+                                             ce_dice_fwd_plain, pack_targets)
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    trad, ladder = (1.0, 15.0, 0.0, 0.0), (1.0, 15.0, 1.5, 2.0)
+    cases = [(DATAB_BATCH, DATAB_SIZE, 4, bf, trad, True, True),
+             (DATAB_BATCH, DATAB_SIZE, 4, bf, ladder, True, True),
+             (DATAB_BATCH, DATAB_SIZE, 4, bf, ladder, False, True),
+             (BATCH, SIZE, 21, bf, tuple(1.0 + 0.1 * i for i in range(21)), True, True),
+             (4, DATAB_SIZE, 4, torch.float32, ladder, True, True)]
+    for n, size, c, dt, cw, focal, dice in cases:
+        x = (2 * torch.randn((n, size, size, c), generator=gen, device=dev)).to(dt)
+        t = torch.randint(0, c, (n, size, size), generator=gen, device=dev, dtype=torch.int32)
+        r = torch.rand((n, size, size), generator=gen, device=dev)
+        t = torch.where(r < 0.03, torch.full_like(t, c), t)      # ignore class
+        t = torch.where(r > 0.98, torch.full_like(t, 255), t)    # raw VOC border
+        t = pack_targets(t, c)  # one byte a pixel, as the kernels read them
+        t_cl, cw_t = t.long().reshape(-1), torch.tensor(cw, device=dev)
+        npix = x.numel() // c
+        gl = torch.tensor(1.0, device=dev)
+        case = (f"{n}x{size}x{size}x{c} {str(dt).split('.')[-1]} "
+                f"{'focal' if focal else 'CE'}{' + dice' if dice else ''} w={list(cw)}")
+        loss, fs, res = ce_dice_fwd(x, t, cw, c, dice, focal)
+        ploss, pfs, pres = ce_dice_fwd_plain(x, t, cw, c, dice, focal)
+        again = ce_dice_fwd(x, t, cw, c, dice, focal)
+        check(bool(torch.equal(loss, again[0]) and torch.equal(fs, again[1])),
+              f"ce_dice_fwd {case}: two runs differ")
+        lrel = abs(loss.item() - ploss.item()) / abs(ploss.item())
+        check(lrel <= 1e-4, f"ce_dice_fwd {case}: loss rel err {lrel:.3g} > 1e-4")
+        check(abs(fs.item() - pfs.item()) <= 1e-4 * max(abs(pfs.item()), 1e-30),
+              f"ce_dice_fwd {case}: f_score {fs.item()} vs {pfs.item()}")
+        xf = x.reshape(-1, c)
+
+        def lib(xf=xf, t_cl=t_cl, cw_t=cw_t, c=c):
+            lf = xf.float()
+            ce = F.cross_entropy(lf, t_cl, weight=cw_t, ignore_index=c)
+            p = torch.softmax(lf, -1)
+            oh = F.one_hot(t_cl, c + 1)[:, :c].float()
+            pt = (p > 0.5).float()
+            return ce, (p * oh).sum(0), p.sum(0), oh.sum(0), (pt * oh).sum(0), pt.sum(0)
+
+        record("ce_dice_fwd", case, [loss, fs], [ploss, pfs],
+               lambda: ce_dice_fwd(x, t, cw, c, dice, focal),
+               lambda: ce_dice_fwd_plain(x, t, cw, c, dice, focal), lib,
+               12.0 * npix * c, nbytes(x, t), peak=PEAK_F32)
+        out = ce_dice_bwd(x, t, cw, c, dice, focal, 0.5, 2.0, res, gl)
+        ref = ce_dice_bwd_plain(x, t, cw, c, dice, focal, 0.5, 2.0, pres, gl)
+        drel = rel_err(out, ref)[1]
+        tol = 1e-2 if dt == bf else 1e-5
+        check(out.dtype == dt and drel <= tol, f"ce_dice_bwd {case}: dlogits rel err {drel:.3g}")
+        xg = xf.detach().clone().requires_grad_()
+        lf = xg.float()
+        p = torch.softmax(lf, -1)
+        oh = F.one_hot(t_cl, c + 1)[:, :c].float()
+        tp, ps, ts = (p * oh).sum(0), p.sum(0), oh.sum(0)
+        graph = F.cross_entropy(lf, t_cl, weight=cw_t, ignore_index=c) + \
+            1 - ((2 * tp + 1e-5) / (ps + ts + 1e-5)).mean()
+        record("ce_dice_bwd", case, [out], [ref],
+               lambda: ce_dice_bwd(x, t, cw, c, dice, focal, 0.5, 2.0, res, gl),
+               lambda: ce_dice_bwd_plain(x, t, cw, c, dice, focal, 0.5, 2.0, pres, gl),
+               lambda: torch.autograd.grad(graph, [xg], retain_graph=True),
+               14.0 * npix * c, nbytes(x, t, out), peak=PEAK_F32)
+        del x, t, r, t_cl, out, ref, xg, lf, p, oh, graph
 
 
 def plain_logits(model, net, imgs):
@@ -700,6 +788,8 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = f"port conv3x3_grad_kernel<{loader}>"
         elif "final_loss_fwd_kernel" in name or "final_loss_bwd_kernel" in name:
             name = "port " + ("final_loss_fwd_kernel" if "fwd" in name else "final_loss_bwd_kernel")
+        elif "ce_dice_fwd_kernel" in name or "ce_dice_bwd_kernel" in name:
+            name = "port " + ("ce_dice_fwd_kernel" if "fwd" in name else "ce_dice_bwd_kernel")
         elif "sum_rows_kernel" in name:
             name = "port sum_rows_kernel"
         elif "conv3x3_kernel" in name:
@@ -1259,9 +1349,261 @@ def phase_train(card: str):
         "gpu": card}), flush=True)
     del net, state, fn
     torch.cuda.empty_cache()
-    for k, v in cli_train(card).items():
-        totals[k] = totals.get(k, 0) + v
+    for part in (cli_train, datab_training, cli_train_datab):
+        for k, v in part(card).items():
+            totals[k] = totals.get(k, 0) + v
     print(f"phase 6: training in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals
+
+
+# the DataB train step's launches: the logit-level loss kernels once each,
+# every other kernel 0 (the models train through cuDNN, as XLA in JAX)
+DATAB_STEP = {"ce_dice_fwd": 1, "ce_dice_bwd": 1}
+# the presets' class weights: traditional's, and the ladder models'
+DATAB_CW = {"traditional": (1.0, 15.0, 0.0, 0.0),
+            "ultralight_large_optimized": (1.0, 15.0, 1.5, 2.0)}
+
+
+def bn_stats(net):
+    """The running statistics of every batch norm, by state-dict key."""
+    return {k: v.clone() for k, v in net.state_dict().items() if "running_" in k}
+
+
+def cancelled_biases(net):
+    """The biases of the convs that feed a batch norm (every conv but the
+    classifier; the ladder's depthwise one through the linear pointwise
+    conv): their exact gradient is 0, so both steps give noise."""
+    return {f"{k}.bias" for k, m in net.named_modules()
+            if isinstance(m, torch.nn.Conv2d) and k not in ("outc", "final")}
+
+
+def plain_datab_step(net, batch, cfg, seed):
+    """Loss, float32 gradients and the running statistics after one bf16
+    step composed here of a bf16 copy of ``net`` in train mode (its dropout
+    drawn from a generator seeded ``seed``) and the plain losses of
+    ``train/losses.py`` under autograd, no kernel.  ``tests/test_torch_gpu.py``
+    holds its DataB step to this same reference."""
+    from tpu_unet_torch.train.losses import dice_loss, focal_loss, one_hot
+    from tpu_unet_torch.train.step import prepare_batch
+
+    n16 = copy.deepcopy(net)
+    for p in n16.parameters():
+        p.data = p.data.to(torch.bfloat16)
+    imgs, target = prepare_batch(batch, torch.bfloat16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = n16(imgs, train=True, generator=gen).float()
+    loss = focal_loss(logits, target, cfg.cls_weights, cfg.num_classes) + \
+        dice_loss(logits, one_hot(target, cfg.num_classes))
+    loss.backward()
+    return loss.item(), {k: p.grad.float() for k, p in n16.named_parameters()}, bn_stats(n16)
+
+
+def datab_step(name: str, card: str):
+    """Phase 6c for one DataB model; returns its counted step's launches."""
+    from tpu_unet_torch.configs.presets import get_preset
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+    from tpu_unet_torch.train.schedules import adaptive_lr
+
+    classes, n, size = 4, DATAB_BATCH, DATAB_SIZE
+    preset = get_preset(name)
+    lr = adaptive_lr(preset.init_lr, preset.min_lr, n, preset.optimizer_type)[0]
+    cfg = tstep.StepConfig(classes, DATAB_CW[name], use_focal=True, use_dice=True,
+                           compute_dtype=torch.bfloat16)
+    batch = rect_batch(torch.Generator().manual_seed(12), n, size, classes, "cuda")
+    init = init_model(build_model(name, classes), seed=0).cuda()
+    before = bn_stats(init)
+    ploss, pgrads, pstats = plain_datab_step(init, batch, cfg, seed=5)
+
+    net = copy.deepcopy(init)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9, preset.weight_decay))
+    fn = tstep.make_train_step(net, cfg)
+    dgen = torch.Generator(device="cuda").manual_seed(5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), counts = counted(DATAB_STEP, f"{name} train step",
+                                 lambda: fn(state, batch, lr, dgen))
+    loss0 = m["loss"].item()
+    lrel = abs(loss0 - ploss) / abs(ploss)
+    check(lrel <= 1e-3, f"{name} step loss {loss0} vs plain step {ploss}: rel {lrel:.3g}")
+    noise = cancelled_biases(net)
+    worst_cos, worst_noise = 1.0, 0.0
+    for k, p in net.named_parameters():
+        a, b = p.grad.float().ravel(), pgrads[k].ravel()
+        if k in noise:
+            worst_noise = max(worst_noise, a.abs().max().item(), b.abs().max().item())
+            continue
+        cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+        worst_cos = min(worst_cos, cos)
+        check(cos >= 0.99, f"{name} gradient of {k}: cosine {cos:.5f} against the plain step")
+    stats = bn_stats(net)
+    stat_rel = max(((stats[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                   for k, v in pstats.items())
+    moved = min(((stats[k] - v).abs().max()).item() for k, v in before.items())
+    check(stat_rel <= 1e-2 and moved > 0,
+          f"{name} running statistics: rel err {stat_rel:.3g} vs plain, least move {moved:.3g}")
+    del pgrads, pstats
+
+    step = lambda: fn(state, batch, lr, dgen)  # noqa: E731
+    step_ms = time_ms(step, reps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = device_breakdown(lambda _net, _imgs: step(), None, None)
+
+    # the card against the CPU float32 path: one 64^2 step at batch 8, the
+    # bridge dropout off on both sides (the two devices draw other masks).
+    # At batch 2 the ladder's 4x4 bridge normalises 32 values a channel and
+    # bf16 alone moves its loss 2.9% (so does a bf16 step on the CPU)
+    small = rect_batch(torch.Generator().manual_seed(13), 8, 64, classes, "cuda")
+    card_net, cpu_net = copy.deepcopy(init), copy.deepcopy(init).cpu()
+    for m_ in (card_net, cpu_net):
+        if hasattr(m_, "dropout"):
+            m_.dropout = 0.0
+    _, mc = tstep.make_train_step(card_net, cfg)(
+        tstep.TrainState(card_net, tstep.make_optimizer(card_net)), small, lr)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    _, mcpu = tstep.make_train_step(cpu_net, f32)(
+        tstep.TrainState(cpu_net, tstep.make_optimizer(cpu_net)),
+        {k: v.cpu() for k, v in small.items()}, lr)
+    cpu_rel = abs(mc["loss"].item() - mcpu["loss"].item()) / abs(mcpu["loss"].item())
+    check(cpu_rel <= 2e-2, f"{name} 64^2 step vs CPU f32: loss rel {cpu_rel:.3g} > 2e-2")
+    del card_net, cpu_net
+
+    # it learns: 20 steps on one fixed batch from the initial weights
+    lnet = copy.deepcopy(init)
+    lstate = tstep.TrainState(lnet, tstep.make_optimizer(lnet, "adam", 0.9, preset.weight_decay))
+    lfn = tstep.make_train_step(lnet, cfg)
+    lgen = torch.Generator(device="cuda").manual_seed(7)
+    losses = [lfn(lstate, batch, lr, lgen)[1]["loss"].item() for _ in range(20)]
+    check(losses[-1] <= 0.9 * losses[0], f"{name} 20 steps: loss {losses[0]:.4f} -> "
+                                         f"{losses[-1]:.4f}, not 10% lower")
+    print(json.dumps({
+        "train_step": name, "batch": n, "size": size, "classes": classes, "dtype": "bf16",
+        "recipe": f"focal + dice, w={list(cfg.cls_weights)}, Adam lr {lr:g} wd "
+                  f"{preset.weight_decay:g}", "launches": counts, "step_ms_events": step_ms,
+        "img_per_s": n * 10 / host, "step_ms_host": host / 10 * 1e3, "peak_mem_gib": peak,
+        "profile": profile, "loss": loss0, "loss_plain_step": ploss,
+        "loss_rel_err_vs_plain": lrel, "worst_grad_cosine": worst_cos,
+        "largest_cancelled_bias_grad": worst_noise, "running_stats_rel_err_vs_plain": stat_rel,
+        "loss_rel_err_vs_cpu_f32_64px": cpu_rel, "losses_20_steps": losses, "gpu": card}),
+        flush=True)
+    del net, state, fn, lnet, lstate, init
+    torch.cuda.empty_cache()
+    return counts
+
+
+def datab_training(card: str):
+    """Phase 6c: the DataB steps; returns their counted launches."""
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+
+    totals: dict = {}
+    for name in DATAB_CW:
+        for k, v in datab_step(name, card).items():
+            totals[k] = totals.get(k, 0) + v
+    # lightweight: half-size logits take the plain losses, as in JAX
+    net = init_model(build_model("lightweight", 4), seed=0).cuda()
+    cfg = tstep.StepConfig(4, (1.0,) * 4, use_dice=True, compute_dtype=torch.bfloat16)
+    batch = rect_batch(torch.Generator().manual_seed(14), DATAB_BATCH, DATAB_SIZE, 4, "cuda")
+    fn = tstep.make_train_step(net, cfg)
+    state = tstep.TrainState(net, tstep.make_optimizer(net))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    (_, m), counts = counted({}, "lightweight train step", lambda: fn(state, batch, 1e-4, gen))
+    check(bool(torch.isfinite(m["loss"])), f"lightweight step loss {m['loss'].item()}")
+    print(json.dumps({"train_step": "lightweight", "batch": DATAB_BATCH, "size": DATAB_SIZE,
+                      "recipe": "CE + dice on the plain losses (half-size logits)",
+                      "loss": m["loss"].item(), "launches": counts, "gpu": card}), flush=True)
+    del net, state, fn
+    return totals
+
+
+def cli_train_datab(card: str):
+    """Phase 6d: ``cli train --preset traditional`` (focal + dice, the
+    heavy augmentation, bf16) for 2 epochs of 2 steps over 64 + 16 seeded
+    rectangle images with evaluation each epoch, a full-state resume for a
+    third epoch, and serving from the best weights through the natural-
+    layout tail; returns the launches of all three."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_unet_torch import cli
+    from tpu_unet_torch.configs.presets import get_preset
+    from tpu_unet_torch.infer.wrapper import Unet
+    from tpu_unet_torch.train.checkpoint import load_any
+    from tpu_unet_torch.train.fit import fit
+
+    def quiet(fn, buf):
+        with contextlib.redirect_stdout(buf):
+            return fn()
+
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:  # the curves need matplotlib, in JAX's callback too
+        plots = False
+    totals: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train_ids, val_ids = write_voc(tmp, 64, 16, DATAB_SIZE, 4, seed=10)
+        save = tmp / "logs"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        _, trained = counted({"ce_dice_fwd": 4, "ce_dice_bwd": 4}, "cli train traditional",
+                             lambda: quiet(lambda: cli.main([
+                                 "train", "--preset", "traditional", "--data-root", str(tmp),
+                                 "--epochs", "2", "--eval-period", "1", "--save-dir",
+                                 str(save)]), buf))
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        logs = [d for d in save.iterdir() if d.name.startswith("loss_")]
+        check(len(logs) == 1 and (logs[0] / "epoch_miou.txt").exists()
+              and text.count("val mIoU") == 2, f"cli train traditional: mIoU lines {text!r}")
+        pngs = sorted(p.name for p in logs[0].glob("epoch_*iou.png")) if logs else []
+        if plots:
+            check(pngs == ["epoch_class_iou.png", "epoch_miou.png"], f"curves {pngs}")
+        last = load_any(str(save / "last_epoch_weights.pth"))
+        check(last["epoch"] == 2 and last["step"] == 4, f"last checkpoint epoch "
+              f"{last['epoch']} step {last['step']}")
+        cfg = get_preset("traditional", resume=True, unfreeze_epoch=3, eval_flag=False,
+                         model_path=str(save / "last_epoch_weights.pth"),
+                         save_dir=str(tmp / "resumed"))
+        buf2 = io.StringIO()
+        state, resumed = counted({"ce_dice_fwd": 2, "ce_dice_bwd": 2}, "resume traditional",
+                                 lambda: quiet(lambda: fit(cfg, train_ids, val_ids,
+                                                           base_dir=str(tmp)), buf2))
+        again = load_any(str(tmp / "resumed" / "last_epoch_weights.pth"))
+        moments = {float(s["step"]) for s in again["optimizer"]["state"].values()}
+        check("Resuming full training state at epoch 2" in buf2.getvalue()
+              and again["epoch"] == 3 and state.step == 6 and moments == {6.0},
+              f"resume: epoch {again['epoch']}, steps {state.step}, Adam steps {moments}")
+        u = Unet(model="traditional", num_classes=4, input_shape=[DATAB_SIZE, DATAB_SIZE],
+                 model_path=str(save / "best_epoch_weights.pth"))
+        fn, net = u.serving_step()
+        val = rect_batch(torch.Generator().manual_seed(9), 8, DATAB_SIZE, 4, "cuda")
+        (masks, hist), served = counted({"final_argmax_hist": 1}, "serving the trained .pth",
+                                        lambda: fn(net, val["image"]))
+        check(masks.shape == (8, DATAB_SIZE, DATAB_SIZE)
+              and int(hist.sum()) == 8 * DATAB_SIZE ** 2,
+              f"serving from the trained weights: masks {tuple(masks.shape)}")
+        for counts in (trained, resumed, served):
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+        print(json.dumps({
+            "cli_train": "traditional", "images": [len(train_ids), len(val_ids)], "epochs": 2,
+            # a functional check: at 2 steps an epoch this wall time is
+            # warm-up, loader start, evaluation and checkpoint writes
+            "seconds_wall_incl_warmup": secs,
+            "epoch_lines": [ln for ln in text.splitlines() if ln.startswith(("Epoch", "epoch"))],
+            "curves": pngs if plots else "matplotlib absent: no curves (nor in JAX's callback)",
+            "resumed_epoch_lines": [ln for ln in buf2.getvalue().splitlines()
+                                    if ln.startswith("Epoch")],
+            "launches": totals, "gpu": card}), flush=True)
     return totals
 
 
@@ -1396,6 +1738,8 @@ SOURCES = {
                    "tpu_unet/kernels/decoder_train.py:140"),
     "final_ce_dice_fwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:704"),
     "final_ce_dice_bwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:804"),
+    "ce_dice_fwd": ("tpu_unet_torch/csrc/loss_logits.cu", "tpu_unet/kernels/loss.py:173"),
+    "ce_dice_bwd": ("tpu_unet_torch/csrc/loss_logits.cu", "tpu_unet/kernels/loss.py:313"),
 }
 
 

@@ -209,7 +209,9 @@ def test_missing_pretrained_backbone_raises_as_jax(tmp_path, monkeypatch):
         "vgg16-397923af.pth")
 
 
-@pytest.mark.parametrize("name", ["voc", "train_py", "medical"])
+@pytest.mark.parametrize("name", ["voc", "train_py", "medical", "traditional", "lightweight",
+                                  "ultralight", "ultralight_large",
+                                  "ultralight_large_optimized", "wandb_traditional"])
 def test_presets_match_jax(name):
     """The port's copy of each preset it can train equals JAX's, field by
     field (tuples and lists compared as tuples)."""

@@ -436,3 +436,86 @@ def test_train_step_on_card(cuda):
         a, b = p.grad.float().ravel(), pgrads[k].float().ravel()
         cos = (a @ b / (a.norm() * b.norm())).item()
         assert cos >= 0.99, (k, cos)
+
+
+def _logit_case(gen, shape, dtype):
+    """Logits and targets with ~3% ignore pixels and ~2% raw 255 labels."""
+    c = shape[-1]
+    x = (2 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    t = torch.randint(0, c, shape[:3], generator=gen, device="cuda")
+    r = torch.rand(shape[:3], generator=gen, device="cuda")
+    t = torch.where(r < 0.03, torch.full_like(t, c), t)
+    return x, torch.where(r > 0.98, torch.full_like(t, 255), t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("focal", [True, False])
+@pytest.mark.parametrize("c", [4, 21])
+def test_logit_loss_kernels(cuda, dtype, focal, c):
+    """#25 and #26 against their plain versions, the last tile ragged
+    (1702 pixels): loss within 1e-4 relative, f_score within 1e-4, dlogits
+    within 1% of max |plain| in bf16 and 1e-5 in float32."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.loss import (ce_dice_bwd, ce_dice_bwd_plain, ce_dice_fwd,
+                                             ce_dice_fwd_plain)
+
+    x, t = _logit_case(cuda, (2, 23, 37, c), dtype)
+    cw = (1.0, 15.0, 0.0, 0.0) if c == 4 else tuple(1.0 + 0.1 * i for i in range(c))
+    n0, n1 = launch_counts["ce_dice_fwd"], launch_counts["ce_dice_bwd"]
+    loss, fs, res = ce_dice_fwd(x, t, cw, c, True, focal)
+    ploss, pfs, pres = ce_dice_fwd_plain(x, t, cw, c, True, focal)
+    assert launch_counts["ce_dice_fwd"] == n0 + 1
+    assert abs(loss.item() - ploss.item()) <= 1e-4 * abs(ploss.item())
+    assert abs(fs.item() - pfs.item()) <= 1e-4
+    gl = torch.tensor(1.0, device="cuda")
+    out = ce_dice_bwd(x, t, cw, c, True, focal, 0.5, 2.0, res, gl)
+    ref = ce_dice_bwd_plain(x, t, cw, c, True, focal, 0.5, 2.0, pres, gl)
+    assert launch_counts["ce_dice_bwd"] == n1 + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert _rel(out, ref) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.gpu
+def test_logit_loss_deterministic(cuda):
+    """Two runs of #25 give the bit-identical loss (no float atomics)."""
+    from tpu_unet_torch.kernels.loss import ce_dice_fwd
+
+    x, t = _logit_case(cuda, (4, 64, 64, 4), torch.bfloat16)
+    a = ce_dice_fwd(x, t, (1.0, 15.0, 1.5, 2.0), 4, True, True)
+    z = ce_dice_fwd(x, t, (1.0, 15.0, 1.5, 2.0), 4, True, True)
+    assert torch.equal(a[0], z[0]) and torch.equal(a[1], z[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["traditional", "ultralight_large_optimized"])
+def test_datab_train_step_on_card(cuda, name):
+    """One DataB step at 64², batch 2, bf16, focal + dice: launches #25 and
+    #26 once each and no other kernel; loss within 1e-3 and every gradient
+    (but the conv biases a batch norm cancels) at a cosine ≥ 0.99 of the
+    plain step's on the card with the same dropout generator (the plain
+    step of ``chip_smoke.py``)."""
+    from chip_smoke import DATAB_CW, cancelled_biases, plain_datab_step
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+
+    net = init_model(build_model(name, 4), seed=0).cuda()
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randint(0, 256, (2, 64, 64, 3), generator=g, dtype=torch.uint8),
+             "label": torch.randint(0, 5, (2, 64, 64), generator=g, dtype=torch.int32)}
+    cfg = tstep.StepConfig(4, DATAB_CW[name], use_focal=True, use_dice=True,
+                           compute_dtype=torch.bfloat16)
+    ploss, pgrads, _ = plain_datab_step(net, batch, cfg, seed=3)
+    state = tstep.TrainState(net, tstep.make_optimizer(net))
+    reset_launch_counts()
+    _, m = tstep.make_train_step(net, cfg)(state, batch, 0.0,
+                                           torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts.items() if v} == {"ce_dice_fwd": 1, "ce_dice_bwd": 1}
+    assert abs(m["loss"].item() - ploss) <= 1e-3 * ploss
+    noise = cancelled_biases(net)
+    for k, p in net.named_parameters():
+        if k not in noise:
+            a, b = p.grad.float().ravel(), pgrads[k].ravel()
+            assert (a @ b / (a.norm() * b.norm())).item() >= 0.99, k

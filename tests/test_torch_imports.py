@@ -82,13 +82,21 @@ def _cuda_entries():
             f, torch.zeros(21, 64, 1, 1), torch.zeros(21),
             torch.zeros(1, 16, 16, dtype=torch.long), [1.0] * 21, 21, True,
             (torch.ones(()), torch.ones(21), torch.ones(21)), torch.ones(())),
+        "ce_dice_fwd": lambda: loss._ce_fwd_cuda(
+            torch.zeros(1, 16, 16, 4, dtype=torch.bfloat16),
+            torch.zeros(1, 16, 16, dtype=torch.long), [1.0] * 4, 4, True, True, 0.5, 2.0),
+        "ce_dice_bwd": lambda: loss._ce_bwd_cuda(
+            torch.zeros(1, 16, 16, 4, dtype=torch.bfloat16),
+            torch.zeros(1, 16, 16, dtype=torch.long), [1.0] * 4, 4, True, True, 0.5, 2.0,
+            (torch.ones(()), torch.ones(4), torch.ones(4)), torch.ones(())),
     }
 
 
 @pytest.mark.parametrize("name", ["stem", "block", "unetup", "tail", "upconv",
                                   "tail_natural", "tail_mask_only", "normalize",
                                   "argmax_mask", "mask_palette", "unetup_bwd",
-                                  "final_ce_dice_fwd", "final_ce_dice_bwd"])
+                                  "final_ce_dice_fwd", "final_ce_dice_bwd", "ce_dice_fwd",
+                                  "ce_dice_bwd"])
 def test_kernel_path_refuses_cpu_tensors(name):
     """The kernel side of each wrapper checks its inputs and raises; it
     never computes a CPU tensor (and never builds) on its own."""
@@ -127,12 +135,17 @@ def _grad_calls():
             f, g(21, 64, 1, 1), g(21), t, [1.0] * 21, 21)),
         "final_ce_dice_bwd": (loss, lambda: loss.final_ce_dice_bwd(
             f, g(21, 64, 1, 1), g(21), t, [1.0] * 21, 21, True, res, torch.ones(()))),
+        "ce_dice_fwd": (loss, lambda: loss.ce_dice_fwd(g(1, 16, 16, 4), t, [1.0] * 4, 4)),
+        "ce_dice_bwd": (loss, lambda: loss.ce_dice_bwd(
+            g(1, 16, 16, 4), t, [1.0] * 4, 4, True, True, 0.5, 2.0,
+            (torch.ones(()), torch.ones(4), torch.ones(4)), torch.ones(()))),
     }
 
 
 @pytest.mark.parametrize("name", ["vgg_stem", "vgg_block", "unetup", "upconv",
                                   "final_argmax_hist", "final_argmax", "argmax_mask",
-                                  "unetup_bwd", "final_ce_dice_fwd", "final_ce_dice_bwd"])
+                                  "unetup_bwd", "final_ce_dice_fwd", "final_ce_dice_bwd",
+                                  "ce_dice_fwd", "ce_dice_bwd"])
 def test_kernel_path_refuses_grad_inputs(name, monkeypatch):
     """The CUDA branch of a kernel without a backward raises when autograd
     would record it (its output would have no grad_fn, so every parameter

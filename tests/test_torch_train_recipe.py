@@ -94,10 +94,12 @@ def test_plain_route_trains_focal_and_self_net():
         assert all(p.grad is not None for p in net.parameters())
 
 
-@pytest.mark.parametrize("case", ["focal", "self_net", "f32", "batch_norm"])
+@pytest.mark.parametrize("case", ["focal", "self_net", "f32", "batch_norm", "aux", "resnet50"])
 def test_unported_configurations_raise(case):
-    """On the card: focal (#25/#26), another model (#12), float32 compute
-    (the bf16-only conv core); batch norm in train mode on any device."""
+    """On the card: another head (#12), float32 compute (the bf16-only conv
+    core), deep supervision; unet_resnet50 on any device.  Focal (#25/#26)
+    and batch norm in train mode (the DataB slice) are ported: they pass
+    on both devices."""
     bf = torch.bfloat16
     model, cfg, device = "unet_vgg", tstep.StepConfig(4, (1.0,) * 4, compute_dtype=bf), "cuda"
     if case == "focal":
@@ -106,14 +108,23 @@ def test_unported_configurations_raise(case):
         model = "self_net"
     elif case == "f32":
         cfg = tstep.StepConfig(4, (1.0,) * 4)
+    elif case == "batch_norm":
+        model = "traditional"
+        cfg = tstep.StepConfig(4, (1, 15, 0, 0), use_focal=True, use_dice=True, compute_dtype=bf)
+    elif case == "aux":
+        cfg = tstep.StepConfig(4, (1.0,) * 4, aux_weights=(1.0, 0.4), compute_dtype=bf)
     else:
-        model, device = "traditional", "cpu"
+        model, device = "unet_resnet50", "cpu"
     net = build_model(model, 4)
-    match = {"focal": "#25/#26", "self_net": "#12", "f32": "f32 compute",
-             "batch_norm": "batch norm"}[case]
+    if case in ("focal", "batch_norm"):
+        for dev in ("cuda", "cpu"):
+            tstep.check_ported(net, cfg, torch.device(dev))
+        return
+    match = {"self_net": "#12", "f32": "f32 compute", "aux": "deep supervision",
+             "resnet50": "unet_resnet50"}[case]
     with pytest.raises(NotImplementedError, match=match):
         tstep.check_ported(net, cfg, torch.device(device))
-    if case != "batch_norm":  # the same model and recipe run on the CPU
+    if case != "resnet50":  # the same model and recipe run on the CPU
         tstep.check_ported(net, cfg, torch.device("cpu"))
     ok = tstep.StepConfig(4, (1.0,) * 4, use_dice=True, compute_dtype=bf)
     tstep.check_ported(build_model("unet_vgg", 4), ok, torch.device("cuda"))

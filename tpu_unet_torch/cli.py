@@ -7,9 +7,12 @@
     python -m tpu_unet_torch.cli miou --preset traditional --model-path ckpt.pth \\
         --split val.txt --image-dir JPEGImages --gt-dir SegmentationClass
 
+    python -m tpu_unet_torch.cli train --preset traditional --data-root /data
+
 Everything runs on the card; ``--cpu`` runs on the CPU instead.  The
-``fold``, ``summary`` and ``export`` subcommands come with their slices;
-``train --wandb`` is not ported.
+``fold``, ``summary`` and ``export`` subcommands come with their slices.
+``train --wandb`` logs through ``wandb`` and raises where it does not
+import (nothing is installed or downloaded).
 """
 from __future__ import annotations
 
@@ -35,13 +38,19 @@ def _wrapper_overrides(args):
 
 
 def cmd_train(args):
+    import dataclasses
+
     from tpu_unet_torch.configs.presets import get_preset
     from tpu_unet_torch.data.datasets import read_split
     from tpu_unet_torch.train.fit import fit
 
     if args.wandb:
-        raise NotImplementedError("train --wandb is not ported (no wandb package "
-                                  "on the card machine, and nothing is downloaded)")
+        try:
+            import wandb  # noqa: F401
+        except ImportError as e:
+            raise NotImplementedError(f"train --wandb needs the wandb package, which "
+                                      f"does not import here ({e}); nothing is "
+                                      "installed or downloaded") from e
     overrides = {}
     if args.model_path:
         overrides["model_path"] = args.model_path
@@ -73,8 +82,8 @@ def cmd_train(args):
     else:
         # default split layouts (reference: train.py:355-358,
         # train_medical.py:227-230)
-        sub = {"voc": "VOC2012", "voc2007": "VOC2007", "defect": "DataB",
-               "medical": ""}[cfg.dataset]
+        sub = {"voc": "VOC2012", "heavy": "VOC2012", "voc2007": "VOC2007",
+               "defect": "DataB", "medical": ""}[cfg.dataset]
         sets = os.path.join(args.data_root, cfg.dataset_path, sub, "ImageSets",
                             "Segmentation")
         train_ids = read_split(os.path.join(sets, "train.txt"))
@@ -98,9 +107,16 @@ def cmd_train(args):
         print("dry-run OK — dataset layout is usable; re-run without "
               "--dry-run to train")
         return
+    wandb_logger = None
+    if args.wandb:
+        from tpu_unet_torch.train.wandb_logging import WandbLogger
+
+        wandb_logger = WandbLogger(project=args.wandb_project,
+                                   config=dataclasses.asdict(cfg))
     # evaluation during training is on by default, as the reference's
     fit(cfg, train_ids, val_ids, base_dir=args.data_root,
-        device="cpu" if args.cpu else "cuda", auto_eval_callback=not args.no_eval)
+        device="cpu" if args.cpu else "cuda", wandb_logger=wandb_logger,
+        auto_eval_callback=not args.no_eval)
 
 
 def cmd_predict(args):
@@ -159,7 +175,9 @@ def main(argv=None):
                    help="epochs between validation mIoU evaluations")
     p.add_argument("--no-eval", action="store_true",
                    help="no mIoU evaluation during training")
-    p.add_argument("--wandb", action="store_true", help="not ported; raises")
+    p.add_argument("--wandb", action="store_true",
+                   help="log to wandb (raises where wandb does not import)")
+    p.add_argument("--wandb-project", default="tpu-unet")
     p.add_argument("--save-dir", default="")
     p.add_argument("--no-pretrained", action="store_true",
                    help="train the backbone from random init even when the "

@@ -3,11 +3,13 @@ own copy of ``tpu_unet/configs/presets.py``; values lifted from the
 reference's training scripts, cited per preset).
 
 Only the presets of models the port can train are copied: ``voc``,
-``train_py`` and ``medical`` (unet_vgg, CE ± dice).  ``fp16=False`` presets
-need ``fp16=True`` on the card (the conv core is bf16-only,
-``train/step.py::check_ported``).  The presets of the models with batch
-norm, the focal loss or deep supervision come with the slices that port
-their training.
+``train_py`` and ``medical`` (unet_vgg, CE ± dice), and the DataB presets
+``traditional``, ``lightweight``, ``ultralight``, ``ultralight_large``,
+``ultralight_large_optimized`` and ``wandb_traditional`` (focal or CE +
+dice on the heavy-augmentation set).  ``fp16=False`` presets need
+``fp16=True`` on the card (the conv core is bf16-only,
+``train/step.py::check_ported``).  The presets of the other registry models
+(and of deep supervision) come with the slices that port them.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ class TrainConfig:
     save_dir: str = "logs"
     eval_flag: bool = True
     eval_period: int = 5
-    dataset: str = "voc"                  # voc | voc2007 | medical | defect
+    dataset: str = "voc"                  # voc | voc2007 | medical | defect | heavy
     dataset_path: str = "VOCdevkit"
     num_workers: int = 4
     # early stopping ("dataB-train .py":83)
@@ -96,6 +98,47 @@ PRESETS = {
         init_lr=1e-4, dice_loss=False, focal_loss=False, fp16=False,
         save_period=5, eval_flag=False, dataset="medical",
         dataset_path="Medical_Datasets"),
+    # reference: TraditionalUnet_Train.py (Init_lr 1e-2, cls_weights [1,15,0,0])
+    "traditional": TrainConfig(
+        model="traditional", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=100, unfreeze_epoch=400, freeze_batch_size=32,
+        unfreeze_batch_size=32, freeze_train=False, init_lr=1e-2,
+        weight_decay=1e-4, dice_loss=True, focal_loss=True, fp16=True,
+        cls_weights=(1, 15, 0, 0), dataset="heavy"),
+    # reference: LightweightUnet_Train.py
+    "lightweight": TrainConfig(
+        model="lightweight", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=100, unfreeze_epoch=300, freeze_batch_size=32,
+        unfreeze_batch_size=32, freeze_train=True, init_lr=1e-4,
+        weight_decay=1e-4, dice_loss=True, focal_loss=False, fp16=True,
+        dataset="heavy"),
+    # reference: UltraLightweightUnet_Train.py
+    "ultralight": TrainConfig(
+        model="ultralight", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=100, unfreeze_epoch=400, freeze_batch_size=32,
+        unfreeze_batch_size=32, init_lr=1e-4, weight_decay=1e-4,
+        dice_loss=True, focal_loss=True, fp16=True,
+        cls_weights=(1, 15, 1.5, 2), dataset="heavy"),
+    # reference: UltraLightweightUnet_large_Train.py
+    "ultralight_large": TrainConfig(
+        model="ultralight_large", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=100, unfreeze_epoch=400, freeze_batch_size=32,
+        unfreeze_batch_size=32, init_lr=1e-4, weight_decay=1e-4,
+        dice_loss=True, focal_loss=True, fp16=True,
+        cls_weights=(1, 15, 1.5, 2), dataset="heavy"),
+    # reference: UltraLightweightUnet_large_optimized_Train.py
+    "ultralight_large_optimized": TrainConfig(
+        model="ultralight_large_optimized", num_classes=4,
+        input_shape=(256, 256), freeze_epoch=100, unfreeze_epoch=400,
+        freeze_batch_size=32, unfreeze_batch_size=32, init_lr=1e-4,
+        weight_decay=1e-4, dice_loss=True, focal_loss=True, fp16=True,
+        cls_weights=(1, 15, 1.5, 2), dataset="heavy"),
+    # reference: "wandb-unet-train .py" (TraditionalUnet on heavy aug)
+    "wandb_traditional": TrainConfig(
+        model="traditional", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=100, unfreeze_epoch=400, freeze_batch_size=16,
+        unfreeze_batch_size=16, init_lr=1e-2, weight_decay=1e-4,
+        dice_loss=True, focal_loss=True, fp16=True, dataset="heavy"),
 }
 
 

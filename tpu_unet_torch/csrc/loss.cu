@@ -36,18 +36,11 @@
 // bytes (forward 270.5 MB: 0.081 ms at 3.35 TB/s; backward 539 MB, 0.161
 // ms).  The products (5.6 GFLOP a pass) run on the f32 FMA pipes.
 // Limits: 64 features, 1 <= C <= 126.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "loss_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int NT = 128;          // threads a block = pixels a tile
-constexpr int LDP = NT + 1;      // row stride of the per-class tiles
 constexpr int CF = 64;           // feature width
-constexpr int MAX_BLOCKS = 1024; // partial-sum rows (the wrapper allocates them)
 
 template <typename T>
 struct Feat;
@@ -142,22 +135,6 @@ __device__ __forceinline__ float softmax_row(const float (&f)[CF], const float* 
   return nll;
 }
 
-// the pixel's clamped target: min(t, C)
-__device__ __forceinline__ int clamp_target(uint8_t t, int C) { return t > C ? C : t; }
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < NT / 32; ++w) s += red[w];
-  return s;
-}
-
 // partial row of a block: [sum w*nll, sum w, tp[C], psum[C], tsum[C],
 // tpt[C], ptsum[C]]
 template <typename T>
@@ -173,11 +150,7 @@ final_loss_fwd_kernel(const T* __restrict__ feats, const uint8_t* __restrict__ t
   float* R = reinterpret_cast<float*>(Ts + NT);   // 5 * NT group sums, then NT/32
   const int tid = threadIdx.x;
   for (int i = tid; i < C * CF; i += NT) Ws[i] = wt[i];
-  // class-sum threads: c = tid % C over the pixels i = g, g + G, ...
-  const int G = NT / C;
-  const int cc = tid % C, g = tid / C;
-  const bool summer = tid < G * C;
-  float a_tp = 0.f, a_ps = 0.f, a_ts = 0.f, a_tpt = 0.f, a_pts = 0.f;
+  ClassSums acc;
   float s_wnll = 0.f, s_w = 0.f;
   __syncthreads();
   for (long long tile = blockIdx.x; tile * NT < n; tile += gridDim.x) {
@@ -198,42 +171,10 @@ final_loss_fwd_kernel(const T* __restrict__ feats, const uint8_t* __restrict__ t
     }
     Ts[tid] = t;
     __syncthreads();
-    if (summer) {
-      for (int i = g; i < NT; i += G) {
-        const float pv = L[cc * LDP + i];
-        const bool hit = Ts[i] == cc, pos = pv > 0.5f;
-        a_tp += hit ? pv : 0.f;
-        a_ps += pv;
-        a_ts += hit ? 1.f : 0.f;
-        a_tpt += (hit && pos) ? 1.f : 0.f;
-        a_pts += pos ? 1.f : 0.f;
-      }
-    }
+    acc.add(L, Ts, C);
     __syncthreads();
   }
-  float* row = partial + static_cast<size_t>(blockIdx.x) * (2 + 5 * C);
-  if (summer) {
-    R[0 * NT + tid] = a_tp;
-    R[1 * NT + tid] = a_ps;
-    R[2 * NT + tid] = a_ts;
-    R[3 * NT + tid] = a_tpt;
-    R[4 * NT + tid] = a_pts;
-  }
-  __syncthreads();
-  if (tid < C) {
-    for (int q = 0; q < 5; ++q) {
-      float s = 0.f;
-      for (int gg = 0; gg < G; ++gg) s += R[q * NT + gg * C + tid];
-      row[2 + q * C + tid] = s;
-    }
-  }
-  __syncthreads();
-  const float a = block_sum(s_wnll, R);
-  const float b = block_sum(s_w, R);
-  if (tid == 0) {
-    row[0] = a;
-    row[1] = b;
-  }
+  write_partial(partial + static_cast<size_t>(blockIdx.x) * (2 + 5 * C), s_wnll, s_w, acc, R, C);
 }
 
 // partial row of a block: dW (CF, C) row-major then db (C)
@@ -311,27 +252,6 @@ final_loss_bwd_kernel(const T* __restrict__ feats, const uint8_t* __restrict__ t
   }
   float* row = partial + static_cast<size_t>(blockIdx.x) * M;
   for (int e = tid; e < M; e += NT) row[e] = Acc[e];
-}
-
-// out[j] = sum over the nb rows of partial[:, j], in row order
-__global__ void sum_rows_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                int nb, int M) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= M) return;
-  float s = 0.f;
-  for (int r = 0; r < nb; ++r) s += partial[static_cast<size_t>(r) * M + j];
-  out[j] = s;
-}
-
-int blocks_for(long long n) {
-  const long long tiles = (n + NT - 1) / NT;
-  return static_cast<int>(tiles < MAX_BLOCKS ? tiles : MAX_BLOCKS);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 template <typename T>

@@ -1,15 +1,15 @@
 """Dataset readers of the port (counterpart of ``tpu_unet/data/datasets.py``):
-VOC, VOC2007, the steel-defect DataB layout and the medical cell set
-(reference: utils/dataloader.py:14-137, utils/dataloader_medical.py:12-136,
+VOC, VOC2007, the steel-defect DataB layout, the medical cell set and the
+heavy-augmentation VOC set of the DataB presets (reference:
+utils/dataloader.py:14-226, utils/dataloader_medical.py:12-136,
 utils/dataloader_defect.py:12-135), and the layout audit.
 
 A sample is the uint8 image and the int32 label map (values ≥ C become the
 ignore class C); /255 and the one-hot run on the device in the step.  Each
 sample draws its augmentation from ``np.random.RandomState`` seeded by
 ``(seed · 1000003 + epoch · 10007 + index) mod 2³¹``, as JAX's, so the
-same ids, seed and epoch give byte-equal samples.  The heavy-augmentation
-dataset comes with the DataB training slice.  PIL is imported inside the
-functions.
+same ids, seed and epoch give byte-equal samples.  PIL is imported inside
+the functions.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ class _SegDataset:
     image_dir: str
     label_dir: str
     image_ext: str = ".jpg"
+    heavy: bool = False   # letterbox + the heavy suite instead of the VOC aug
 
     def __init__(self, ids, input_shape, num_classes, train: bool,
                  dataset_path: str, seed: int = 11):
@@ -62,11 +63,13 @@ class _SegDataset:
         label = Image.open(lbl_path)
         rng = np.random.RandomState(
             (self.seed * 1_000_003 + epoch * 10_007 + index) % (2**31))
-        if self.train:
+        if self.train and not self.heavy:
             img, lbl = T.random_voc_aug(image, label, self.input_shape, rng)
         else:
             im, lb = T.letterbox_pair(image, label, self.input_shape)
             img, lbl = np.array(im, np.uint8), np.array(lb, np.uint8)
+            if self.train:
+                img, lbl = T.heavy_aug(img, lbl, rng)
         return img, self._encode_label(lbl)
 
 
@@ -84,6 +87,14 @@ class DefectSegDataset(_SegDataset):
     """Steel-defect DataB (reference: utils/dataloader_defect.py:32-33)."""
     image_dir = "DataB/JPEGImages"
     label_dir = "DataB/SegmentationClass"
+
+
+class HeavyAugDataset(VOCSegDataset):
+    """UltraLightweightUnetDataset counterpart (reference:
+    utils/dataloader.py:143-226): the letterbox, then the heavy augmentation
+    suite in train only, as JAX's (which fixes the reference applying it in
+    eval too and skipping the image resize)."""
+    heavy = True
 
 
 class MedicalSegDataset(_SegDataset):

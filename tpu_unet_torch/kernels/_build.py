@@ -32,6 +32,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of every C entry: pointers and the stream are c_void_p
 SIGNATURES = {
     # feats, w (F,C) f32, b f32, mask, hist, n_pix, per_img, F, C, stream
@@ -64,6 +65,12 @@ SIGNATURES = {
     "tu_final_ce_dice_bwd": [_P, _I] + [_P] * 10 + [ctypes.c_longlong, _I, _P],
     # g, out, y1, w2t, w1t, g2, dz1, dskip, dups, B, H2, W2, Cs, Cx, F, stream
     "tu_unetup_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # logits, is_bf16, target, cls_weights, partial, sums, n_pix (int64), C,
+    # focal, alpha, gamma, stream
+    "tu_ce_dice_fwd": [_P, _I] + [_P] * 4 + [ctypes.c_longlong, _I, _I, _F, _F, _P],
+    # logits, is_bf16, target, cls_weights, coefA, coefB, inv, dlogits,
+    # n_pix (int64), C, focal, alpha, gamma, stream
+    "tu_ce_dice_bwd": [_P, _I] + [_P] * 6 + [ctypes.c_longlong, _I, _I, _F, _F, _P],
 }
 
 # launches of each kernel wrapper; a wrapper adds one where it calls its
@@ -72,7 +79,7 @@ launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
                  "unetup": 0, "upconv": 0, "argmax_mask": 0,
                  "mask_palette": 0, "unetup_bwd": 0, "final_ce_dice_fwd": 0,
-                 "final_ce_dice_bwd": 0}
+                 "final_ce_dice_bwd": 0, "ce_dice_fwd": 0, "ce_dice_bwd": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -15,7 +15,7 @@ channels, module names of the reference (``conv1``, ``bn1``,
 ``layer{1..4}.{i}.conv{1,2,3}``, ``.bn{1,2,3}``, ``.downsample.{0,1}``).
 The JAX package runs it outside any Pallas kernel, so it is plain PyTorch
 here: ``F.conv2d`` on channels-last views of the NHWC tensors, batch norm in
-eval mode from the running statistics (``nn/blocks.py::bn_eval``), and the
+eval mode from the running statistics (``nn/blocks.py::bn``), and the
 ceil-mode max-pool.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ from torch import nn
 
 from tpu_unet_torch.kernels.encoder import vgg_block, vgg_block_plain
 from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
-from tpu_unet_torch.nn.blocks import BN_EPS, bn_eval, max_pool_ceil
+from tpu_unet_torch.nn.blocks import BN_EPS, bn, max_pool_ceil
 
 # cfg 'D' (reference: nets/vgg.py:59)
 _CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
@@ -90,11 +90,11 @@ class Bottleneck(nn.Module):
             *_conv_bn(inplanes, planes * 4, 1, stride)) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(bn_eval(self.conv1(x), self.bn1))
-        y = torch.relu(bn_eval(self.conv2(y), self.bn2))
-        y = bn_eval(self.conv3(y), self.bn3)
+        y = torch.relu(bn(self.conv1(x), self.bn1))
+        y = torch.relu(bn(self.conv2(y), self.bn2))
+        y = bn(self.conv3(y), self.bn3)
         identity = x if self.downsample is None else \
-            bn_eval(self.downsample[0](x), self.downsample[1])
+            bn(self.downsample[0](x), self.downsample[1])
         return torch.relu(y + identity)
 
 
@@ -118,7 +118,7 @@ class ResNet50(nn.Module):
     def forward(self, x: torch.Tensor):
         """(B, H, W, 3) float image → [feat1 … feat5], NHWC contiguous."""
         y = x.permute(0, 3, 1, 2)  # channels-last view, no copy
-        feat1 = torch.relu(bn_eval(self.conv1(y), self.bn1)).permute(0, 2, 3, 1)
+        feat1 = torch.relu(bn(self.conv1(y), self.bn1)).permute(0, 2, 3, 1)
         y = max_pool_ceil(feat1, 3, 2).permute(0, 3, 1, 2)
         feats = [feat1.contiguous()]
         for li in range(1, 5):

@@ -2,7 +2,7 @@
 UltraLightweight family (counterpart of ``tpu_unet/models/ladder.py``):
 
     enc1..enc4 (each optionally followed by SE), 2×2 max-pool between stages
-    bridge (Dropout2d on the bridge: the identity in eval)
+    bridge, then Dropout2d at the model's rate (``train=True`` only)
     dec4..dec1: align-corners resize to the skip's size, concat [up, skip],
                 block
     1×1 final conv → align-corners resize to the input size
@@ -13,7 +13,11 @@ parameters at 4 classes) and ``ultralight44``.  Only the ``light8`` and
 ``light16`` block kinds are ported.  NHWC in and out; module names follow
 the reference torch models (``enc{i}``, ``se{i}``, ``bridge``, ``dec{i}``,
 ``final``).  Plain PyTorch: the JAX package runs these models outside any
-Pallas kernel; the serving step's class mask is the ``argmax_mask`` kernel.
+Pallas kernel; the serving step's class mask is the ``argmax_mask`` kernel,
+the training loss the logit-level loss kernels (``kernels/loss.py``, #25 /
+#26).  ``train=True`` is the training forward (JAX's ``__call__(x,
+train)``): batch norm on the batch statistics, the bridge's Dropout2d drawn
+from ``generator``.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 from torch import nn
 
 from tpu_unet_torch.kernels._plain import max_pool2x2
-from tpu_unet_torch.nn.blocks import (SE, LightConvBlock, se_light,
+from tpu_unet_torch.nn.blocks import (SE, LightConvBlock, dropout2d, se_light,
                                       se_light_large, se_lightweight)
 from tpu_unet_torch.nn.resize import resize_bilinear
 
@@ -43,7 +47,7 @@ class LadderUNet(nn.Module):
                 f"(ported: {sorted(_MID_FLOOR)})")
         floor = _MID_FLOOR[block]
         self.num_classes = num_classes
-        self.dropout = dropout  # Dropout2d on the bridge: identity in eval
+        self.dropout = dropout  # Dropout2d on the bridge, in train mode
         c1, c2, c3, c4, cb = channels
         cin = 3
         for i, c in enumerate((c1, c2, c3, c4), start=1):
@@ -60,7 +64,8 @@ class LadderUNet(nn.Module):
             prev = c
         self.final = nn.Conv2d(c1, num_classes, 1)
 
-    def forward(self, x: torch.Tensor, features_out: bool = False):
+    def forward(self, x: torch.Tensor, features_out: bool = False, train: bool = False,
+                generator: torch.Generator | None = None):
         """(B, H, W, 3) float image → logits (B, H, W, C); with
         ``features_out`` the (B, H, W, c1) features before ``final``."""
         encs = []
@@ -68,15 +73,16 @@ class LadderUNet(nn.Module):
         for i in range(1, 5):
             if i > 1:
                 h = max_pool2x2(h)
-            h = getattr(self, f"enc{i}")(h)
+            h = getattr(self, f"enc{i}")(h, train)
             if self.se is not None:
                 h = getattr(self, f"se{i}")(h)
             encs.append(h)
-        h = self.bridge(max_pool2x2(h))
+        h = self.bridge(max_pool2x2(h), train)
+        h = dropout2d(h, self.dropout, generator, train)
         for i in (4, 3, 2, 1):
             skip = encs[i - 1]
             up = resize_bilinear(h, skip.shape[1:3], align_corners=True)
-            h = getattr(self, f"dec{i}")(torch.cat([up, skip], dim=-1))
+            h = getattr(self, f"dec{i}")(torch.cat([up, skip], dim=-1), train)
         if features_out:
             return h
         w = self.final.weight.reshape(self.num_classes, -1)

@@ -3,8 +3,12 @@
 nets/LightWeightUnet.py:132-185).  Each encoder stage is ConvBlock →
 ResidualBlock → 2×2 max-pool, so the first feature is already at stride 2
 and the raw logits come out at half the input resolution, as in the
-reference; the serving step and the single-image forward resize them.
-Dropout2d is the identity in eval.  NHWC in and out; module names follow
+reference; the serving step and the single-image forward resize them, and
+training takes the plain losses, which resize them too (as JAX, whose fused
+loss needs logits at the target's size).  ``train=True`` is the training
+forward: batch norm on the batch statistics and Dropout2d(0.1) after each
+encoder stage (JAX's ``bdrop1-5``), each decoder stage and ``final_conv``'s
+ConvBlock, drawn from ``generator``.  NHWC in and out; module names follow
 the reference torch model (``backbone.stage{i}.{0,1}``,
 ``up_concat{i}.conv.{0,1}``, ``final_conv.{0,2,3}``).  Plain PyTorch.
 """
@@ -14,10 +18,11 @@ import torch
 from torch import nn
 
 from tpu_unet_torch.kernels._plain import max_pool2x2
-from tpu_unet_torch.nn.blocks import ConvBNReLU, ResidualBlock
+from tpu_unet_torch.nn.blocks import ConvBNReLU, ResidualBlock, dropout2d
 from tpu_unet_torch.nn.resize import upsample2x
 
 _WIDTHS = (24, 48, 96, 192, 384)
+_DROP = 0.1  # every Dropout2d of the model (reference: nets/LightWeightUnet.py)
 
 
 class LightweightUnet(nn.Module):
@@ -40,21 +45,22 @@ class LightweightUnet(nn.Module):
         self.final_conv = nn.Sequential(ConvBNReLU(c, c), nn.Dropout2d(0.1),
                                         ResidualBlock(c), nn.Conv2d(c, num_classes, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, H, W, 3) float image → logits (B, H/2, W/2, C)."""
         feats = []
         h = x
         for i in range(1, 6):
             stage = getattr(self.backbone, f"stage{i}")
-            h = max_pool2x2(stage[1](stage[0](h)))
-            feats.append(h)
+            h = max_pool2x2(stage[1](stage[0](h, train), train))
+            feats.append(dropout2d(h, _DROP, generator, train))
         h = feats[4]
         for i in (4, 3, 2, 1):
             conv = getattr(self, f"up_concat{i}").conv
             h = torch.cat([feats[i - 1], upsample2x(h)], dim=-1)
-            h = conv[1](conv[0](h))
+            h = dropout2d(conv[1](conv[0](h, train), train), _DROP, generator, train)
         fc = self.final_conv
-        h = fc[2](fc[0](h))
+        h = fc[2](dropout2d(fc[0](h, train), _DROP, generator, train), train)
         final = fc[3]
         w = final.weight.reshape(self.num_classes, -1)
         return h @ w.t().to(h.dtype) + final.bias.to(h.dtype)

@@ -4,7 +4,9 @@ competition baseline) and its 22-wide clone (``traditional22``).  NHWC in and
 out; module names follow the reference torch model (``inc``,
 ``down1..3``, ``up1..3``, ``outc``).  Plain PyTorch throughout: its serving
 tail is the one kernel (``kernels/postprocess.py``), applied by the wrapper
-to the features this model emits with ``features_out``.
+to the features this model emits with ``features_out``.  ``train=True`` is
+the training forward (batch norm on the batch statistics, JAX's
+``__call__(x, train)``); the model has no dropout.
 """
 from __future__ import annotations
 
@@ -28,17 +30,19 @@ class TraditionalUnet(nn.Module):
         self.up3 = Up(3 * c, c)
         self.outc = nn.Conv2d(c, num_classes, 1)
 
-    def forward(self, x: torch.Tensor, features_out: bool = False):
+    def forward(self, x: torch.Tensor, features_out: bool = False, train: bool = False,
+                generator: torch.Generator | None = None):
         """(B, H, W, 3) float image → logits (B, H, W, C); with
         ``features_out`` the (B, H, W, base) features before ``outc``, for
-        the fused tail that applies ``outc`` itself."""
-        x1 = self.inc(x)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        h = self.up1(x4, x3)
-        h = self.up2(h, x2)
-        h = self.up3(h, x1)
+        the fused tail that applies ``outc`` itself.  ``generator`` is
+        unused (no dropout)."""
+        x1 = self.inc(x, train)
+        x2 = self.down1(x1, train)
+        x3 = self.down2(x2, train)
+        x4 = self.down3(x3, train)
+        h = self.up1(x4, x3, train)
+        h = self.up2(h, x2, train)
+        h = self.up3(h, x1, train)
         if features_out:
             return h
         w = self.outc.weight.reshape(self.num_classes, -1)

@@ -6,9 +6,9 @@ reference torch model (``vgg`` / ``resnet``, ``up_concat1..4``, ``up_conv``,
 ``forward(x, features_out, train)``: ``train=True`` is the training forward
 of ``unet_vgg`` (encoder and the F ≥ 128 decoder stages as plain
 compositions under autograd, up1 through ``unetup_train``).  The ResNet50
-encoder has batch norm, whose train mode is not ported, and the ``up_conv``
-head's backward (#12) has no kernel yet: both raise in train mode on the
-card; on the CPU the head runs its plain version.
+encoder's train mode comes with its slice (T4) and raises; the ``up_conv``
+head's backward (#12) has no kernel yet: it raises in train mode on the
+card, and on the CPU the head runs its plain version.
 
 The ResNet50 UNet, and ``self_net`` (VGG16 with ``force_up_conv``), end in
 the ``up_conv`` head (reference: nets/unet.py:47-54): ×2 align-corners
@@ -60,18 +60,19 @@ class Unet(nn.Module):
         self.final = nn.Conv2d(_OUT_FILTERS[0], num_classes, 1)
 
     def forward(self, x: torch.Tensor, features_out: bool = False,
-                train: bool = False):
+                train: bool = False, generator: torch.Generator | None = None):
         """(B, H, W, 3) → logits (B, H', W', C); with ``features_out`` the
         (B, H', W', 64) features before ``final``, for the fused tail
         (``kernels/postprocess.py``) or the fused loss
         (``kernels/loss.py``) that applies ``final`` itself.  H' = H,
-        except for ``self_net``, whose head doubles it."""
+        except for ``self_net``, whose head doubles it.  ``generator`` is
+        unused (no dropout)."""
         if self.backbone == "vgg":
             feats = self.vgg(x, train)
         elif train:
             raise NotImplementedError(
-                "unet_resnet50 training needs batch norm in train mode, not "
-                "ported yet (ROADMAP §1: the DataB training slice)")
+                "unet_resnet50 training (its ResNet50 in train mode, the up_conv "
+                "head's backward #12) is not ported yet (ROADMAP §1, T4)")
         else:
             feats = self.resnet(x)
         feat1, feat2, feat3, feat4, feat5 = feats

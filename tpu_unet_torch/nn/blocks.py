@@ -11,16 +11,19 @@
   (3×3 conv → batch norm → ReLU) ×2, behind a 2×2 max-pool or an
   upsample + concat.  The JAX package runs them outside any Pallas kernel,
   so they are plain PyTorch here: ``F.conv2d`` on channels-last views of
-  the NHWC tensors, batch norm in eval mode (:func:`bn_eval`);
+  the NHWC tensors, batch norm through :func:`bn`;
 - ``ConvBNReLU``, ``DWSeparable``, ``LightConvBlock``, ``SE`` (and its
   width rules ``se_quarter``, ``se_light``, ``se_light_large``,
   ``se_lightweight``) and ``ResidualBlock``: the blocks of the ladder
   family and of ``lightweight`` (JAX ``nn/blocks.py:96-105, 254-373``),
   plain PyTorch as the JAX package runs them outside any Pallas kernel;
   parameter names of the reference torch modules;
-- the ceil-mode max-pool of the ResNet50 stem, the batch-norm constants and
-  :func:`bn_eval`, which every block with batch norm shares.
+- the ceil-mode max-pool of the ResNet50 stem; :func:`bn`, the batch norm
+  every block with batch norm shares (``train`` as flax's
+  ``nn.BatchNorm(use_running_average=not train)``, ``nn/blocks.py:40-52``);
+  :func:`dropout2d`, flax's ``nn.Dropout(broadcast_dims=(1, 2))``.
 
+Every block with batch norm takes ``train`` (JAX's ``__call__(x, train)``).
 NHWC activations in and out.  Inside a block the NHWC tensor is handed to
 cuDNN as a channels-last NCHW view (``permute``, no copy).
 """
@@ -34,16 +37,52 @@ from tpu_unet_torch.kernels._plain import max_pool2x2
 from tpu_unet_torch.kernels.decoder_fuse import unetup, unetup_plain, unetup_train
 from tpu_unet_torch.nn.resize import upsample2x
 
-# torch BN defaults, as the JAX package uses them (momentum 0.1 in torch's
-# convention; only eval mode is ported)
+# torch BN defaults, as the JAX package uses them: new = 0.9·old + 0.1·batch
+BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
 
-def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Batch norm in eval mode, whatever the module's mode: the port
-    serves only.  The running statistics stay float32 on every device."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps)
+def bn(x: torch.Tensor, module: nn.BatchNorm2d, train: bool = False) -> torch.Tensor:
+    """Batch norm of NCHW ``x`` with ``module``'s parameters, whatever the
+    module's own mode.  Eval: the running statistics.  Train, as flax's
+    ``nn.BatchNorm`` (``_compute_stats`` / ``_normalize``): the batch mean
+    and the biased variance E[x²]−E[x]² (clipped at 0) in float32 over
+    (N, H, W), which also update the running statistics in place
+    (0.9·old + 0.1·batch, outside autograd; ``F.batch_norm`` would update
+    them with the unbiased variance); the normalisation in float32, the
+    output in ``x``'s dtype.  The running statistics stay float32 on every
+    device."""
+    if not train:
+        if x.is_cuda or x.dtype == module.running_mean.dtype:
+            return F.batch_norm(x, module.running_mean, module.running_var, module.weight,
+                                module.bias, False, 0.0, module.eps)
+        # the CPU's batch_norm takes no bf16 input with float32 statistics
+        return F.batch_norm(x.float(), module.running_mean, module.running_var,
+                            module.weight.float(), module.bias.float(), False, 0.0,
+                            module.eps).to(x.dtype)
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    with torch.no_grad():
+        for buf, stat in ((module.running_mean, mean), (module.running_var, var)):
+            buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * stat)
+    mul = torch.rsqrt(var + module.eps) * module.weight.float()
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + module.bias.float()[:, None, None]
+    return y.to(x.dtype)
+
+
+def dropout2d(x: torch.Tensor, p: float, generator: torch.Generator | None = None,
+              train: bool = True) -> torch.Tensor:
+    """Dropout2d of NHWC ``x`` (flax's ``nn.Dropout(p, broadcast_dims=(1,
+    2))``): each (image, channel) is kept with probability 1 − p, where
+    uniform < 1 − p, and scaled by 1 / (1 − p), or zeroed whole.  The
+    identity in eval or at p = 0.  ``generator`` (on ``x``'s device) draws
+    the (N, C) uniforms; ``None`` takes the default one."""
+    if not train or p == 0.0:
+        return x
+    keep = 1.0 - p
+    u = torch.rand((x.shape[0], 1, 1, x.shape[-1]), generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def max_pool_ceil(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
@@ -78,7 +117,7 @@ class DoubleConv(nn.Module):
     """(3×3 conv → BN → ReLU) ×2 (reference: nets/TraditionalUnet.py:5-18).
     ``double_conv`` is the reference ``nn.Sequential`` (convs at 0 and 3,
     batch norms at 1 and 4), so the state dict has its key names; the
-    forward calls the convs and batch norms itself, in eval mode."""
+    forward calls the convs and :func:`bn` itself."""
 
     def __init__(self, in_size: int, out_size: int):
         super().__init__()
@@ -88,11 +127,11 @@ class DoubleConv(nn.Module):
             nn.Conv2d(out_size, out_size, kernel_size=3, padding=1),
             nn.BatchNorm2d(out_size, eps=BN_EPS), nn.ReLU(inplace=True))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         s = self.double_conv
         y = x.permute(0, 3, 1, 2)  # channels-last view, no copy
-        for conv, bn in ((s[0], s[1]), (s[3], s[4])):
-            y = torch.relu(bn_eval(conv(y), bn))
+        for conv, norm in ((s[0], s[1]), (s[3], s[4])):
+            y = torch.relu(bn(conv(y), norm, train))
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -105,8 +144,8 @@ class Down(nn.Module):
         self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2),
                                           DoubleConv(in_size, out_size))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.maxpool_conv[1](max_pool2x2(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.maxpool_conv[1](max_pool2x2(x), train)
 
 
 class Up(nn.Module):
@@ -118,8 +157,8 @@ class Up(nn.Module):
         super().__init__()
         self.conv = DoubleConv(in_size, out_size)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.conv(torch.cat([skip, upsample2x(x)], dim=-1))
+    def forward(self, x: torch.Tensor, skip: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.conv(torch.cat([skip, upsample2x(x)], dim=-1), train)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -140,8 +179,8 @@ class ConvBNReLU(nn.Module):
             nn.Conv2d(in_size, out_size, kernel, padding=(kernel - 1) // 2),
             nn.BatchNorm2d(out_size, eps=BN_EPS), nn.ReLU(inplace=True))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _nhwc(torch.relu(bn_eval(self.conv[0](_nchw(x)), self.conv[1])))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return _nhwc(torch.relu(bn(self.conv[0](_nchw(x)), self.conv[1], train)))
 
 
 class DWSeparable(nn.Module):
@@ -172,12 +211,12 @@ class LightConvBlock(nn.Module):
             nn.ReLU(inplace=True), DWSeparable(mid, features),
             nn.BatchNorm2d(features, eps=BN_EPS), nn.ReLU(inplace=True))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         s = self.conv
-        y = torch.relu(bn_eval(s[0](_nchw(x)), s[1]))
+        y = torch.relu(bn(s[0](_nchw(x)), s[1], train))
         dw = s[3]
         y = dw.pointwise(dw.depthwise(y))
-        return _nhwc(torch.relu(bn_eval(y, s[4])))
+        return _nhwc(torch.relu(bn(y, s[4], train)))
 
 
 class SE(nn.Module):
@@ -225,7 +264,7 @@ class ResidualBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(channels, eps=BN_EPS)
         self.se = SE(channels, se_quarter(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(bn_eval(self.conv1(_nchw(x)), self.bn1))
-        y = _nhwc(bn_eval(self.conv2(y), self.bn2))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = torch.relu(bn(self.conv1(_nchw(x)), self.bn1, train))
+        y = _nhwc(bn(self.conv2(y), self.bn2, train))
         return torch.relu(self.se(y) + x)

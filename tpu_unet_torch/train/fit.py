@@ -3,11 +3,17 @@
 seed → model build / init / partial load → the freeze and unfreeze phases
 (optimizer rebuilt and its moments reset at the boundary, batch size and
 lr recomputed) → per-epoch cos / step lr → train and validation epochs →
-callbacks and checkpoints, with early stopping and a full-state resume.
+callbacks and checkpoints, with early stopping and a full-state resume;
+``wandb_logger`` logs each step and epoch and saves the periodic
+checkpoints, as JAX's.
+
+Each step's Dropout2d draws from its own generator on the device, seeded
+from ``(cfg.seed, epoch · 100003 + step)`` as JAX folds its dropout key
+(``fit.py:298``): the structure of JAX's keys, not their bits.
 
 Everything runs on the card (``device="cuda"``, the default) unless the
 caller asks for the CPU.  JAX's mesh calls have no counterpart: one
-process, one device (multi-GPU is ROADMAP §1 item 10).
+process, one device (multi-GPU is ROADMAP §1 item 6).
 """
 from __future__ import annotations
 
@@ -19,8 +25,9 @@ import torch
 
 from tpu_unet_torch.configs.presets import TrainConfig
 from tpu_unet_torch.core.precision import BF16_PRECISION, DEFAULT_PRECISION
-from tpu_unet_torch.data.datasets import (DefectSegDataset, MedicalSegDataset,
-                                          VOC2007SegDataset, VOCSegDataset)
+from tpu_unet_torch.data.datasets import (DefectSegDataset, HeavyAugDataset,
+                                          MedicalSegDataset, VOC2007SegDataset,
+                                          VOCSegDataset)
 from tpu_unet_torch.data.loader import Loader
 from tpu_unet_torch.models.registry import build_model, init_model
 from tpu_unet_torch.train.callbacks import EarlyStopping, LossHistory
@@ -35,6 +42,7 @@ DATASETS = {
     "voc2007": VOC2007SegDataset,
     "medical": MedicalSegDataset,
     "defect": DefectSegDataset,
+    "heavy": HeavyAugDataset,
 }
 
 # the torchvision ImageNet checkpoints the reference downloads into
@@ -49,7 +57,10 @@ def reinit_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     ``reinit_weights`` draws it with its defaults: ``np.random.RandomState
     (seed)``, batch-norm scales ~ N(1, 0.02) first, then every conv kernel
     ~ N(0, 0.02) in HWIO order, zero biases; dense layers keep their
-    init."""
+    init.  ``model.modules()`` lists the batch norms and convs in flax's
+    param-tree order for every ported model: where the two trees order
+    their entries differently (the ladder's ``enc{i}`` / ``se{i}``), the
+    entries in between are SE gates, which hold neither."""
     rng = np.random.RandomState(seed)
     mods = list(model.modules())
     for m in mods:
@@ -110,9 +121,6 @@ def load_pretrained_backbone(model: torch.nn.Module, path: str, model_name: str)
 
 
 def make_datasets(cfg: TrainConfig, base_dir: str, train_ids, val_ids, seed: int):
-    if cfg.dataset not in DATASETS:
-        raise NotImplementedError(f"dataset {cfg.dataset!r}: the heavy-augmentation "
-                                  "set comes with the DataB training slice")
     ds_cls = DATASETS[cfg.dataset]
     root = cfg.dataset_path if os.path.isabs(cfg.dataset_path) \
         else os.path.join(base_dir, cfg.dataset_path)
@@ -124,10 +132,14 @@ def make_datasets(cfg: TrainConfig, base_dir: str, train_ids, val_ids, seed: int
 
 def fit(cfg: TrainConfig, train_ids, val_ids, base_dir: str = ".",
         device: str | torch.device = "cuda", max_steps_per_epoch: Optional[int] = None,
-        verbose: bool = True, miou_callback=None,
+        verbose: bool = True, wandb_logger=None, miou_callback=None,
         auto_eval_callback: bool = False) -> TrainState:
     """Run the two-phase training; returns the final :class:`TrainState`.
-    ``device="cpu"`` runs on the CPU through the kernels' plain versions."""
+    ``device="cpu"`` runs on the CPU through the kernels' plain versions.
+    ``wandb_logger``: a :class:`~tpu_unet_torch.train.wandb_logging.WandbLogger`
+    (reference: utils/utils_fit.py:286-471); ``miou_callback``: a
+    :class:`~tpu_unet_torch.train.callbacks.MIoUEvalCallback`, or one over the
+    validation set with ``auto_eval_callback`` (reference: train.py:445-446)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit(device='cuda') needs a CUDA device; pass "
@@ -169,7 +181,7 @@ def fit(cfg: TrainConfig, train_ids, val_ids, base_dir: str = ".",
         from tpu_unet_torch.train.callbacks import MIoUEvalCallback
 
         miou_callback = MIoUEvalCallback(
-            val_ds, cfg.num_classes, model,
+            dataset=val_ds, num_classes=cfg.num_classes, model=model,
             log_dir=loss_history.log_dir if loss_history else cfg.save_dir,
             period=cfg.eval_period, compute_dtype=step_cfg.compute_dtype)
     stopper = EarlyStopping(cfg.patience) if cfg.patience else None
@@ -232,9 +244,16 @@ def fit(cfg: TrainConfig, train_ids, val_ids, base_dir: str = ".",
         train_loader.set_epoch(epoch)
         tloss, nb = 0.0, 0
         for batch in train_loader:
-            state, metrics = train_step(state, batch, lr)
-            tloss += float(metrics["loss"])
+            gen = torch.Generator(device).manual_seed(
+                (cfg.seed << 32) + epoch * 100_003 + nb)
+            state, metrics = train_step(state, batch, lr, gen)
+            step_loss = float(metrics["loss"])
+            tloss += step_loss
             nb += 1
+            if wandb_logger is not None:
+                # per-iteration metrics (reference: utils/utils_fit.py:363-372)
+                wandb_logger.log_step(state.step, loss=step_loss,
+                                      f_score=float(metrics["f_score"]), lr=lr)
             if max_steps_per_epoch and nb >= max_steps_per_epoch:
                 break
         tloss /= max(nb, 1)
@@ -254,6 +273,8 @@ def fit(cfg: TrainConfig, train_ids, val_ids, base_dir: str = ".",
                   f"loss {tloss:.4f} val_loss {vloss:.4f}")
             if loss_history:
                 loss_history.append(epoch, tloss, vloss if nvb else None)
+        if wandb_logger is not None:
+            wandb_logger.log_epoch(epoch, loss=tloss, val_loss=vloss, lr=lr)
         if miou_callback is not None:
             miou_callback.on_epoch_end(epoch)
         # checkpoint cadence of utils/utils_fit.py:153-172: best weights
@@ -262,9 +283,12 @@ def fit(cfg: TrainConfig, train_ids, val_ids, base_dir: str = ".",
             best_val = vloss
             save_variables(os.path.join(cfg.save_dir, "best_epoch_weights.pth"), model)
         if (epoch + 1) % cfg.save_period == 0 or epoch + 1 == cfg.unfreeze_epoch:
-            save_full_state(os.path.join(
-                cfg.save_dir, f"ep{epoch + 1:03d}-loss{tloss:.3f}-val_loss{vloss:.3f}.pth"),
-                state, epoch + 1, best_val)
+            ck_path = os.path.join(
+                cfg.save_dir, f"ep{epoch + 1:03d}-loss{tloss:.3f}-val_loss{vloss:.3f}.pth")
+            save_full_state(ck_path, state, epoch + 1, best_val)
+            if wandb_logger is not None:
+                # reference: utils/utils_fit.py:458-471 wandb.save
+                wandb_logger.save_checkpoint(ck_path)
         save_full_state(os.path.join(cfg.save_dir, "last_epoch_weights.pth"),
                         state, epoch + 1, best_val)
 

@@ -7,12 +7,22 @@
   flow back through the cast, so the optimizer updates float32.
 - Inputs as ``_prepare_batch`` (:120-126): uint8 images / 255 in float32,
   then the compute dtype; int labels.
-- Routing as ``make_train_step`` (:151-216) with the fused loss on: without
-  aux weights, ``unet_vgg`` with CE (± dice) emits its 64-channel features
+- Routing as ``make_train_step`` (:151-216) with the fused loss on, and no
+  aux weights: ``unet_vgg`` with CE (± dice) emits its 64-channel features
   and the fused final-conv + loss (``kernels/loss.py``, #27 / #29) applies
-  ``final``; every other recipe takes the plain losses on the logits
-  (``train/losses.py``).  The eval step always takes the plain losses
-  (:246-261) on the serving forward.
+  ``final``; every other model whose logits come out at the target's size
+  (``_fused_shape_ok``, :226-243), with CE or focal (± dice), takes the
+  logit-level loss (#25 / #26; ``unet_vgg`` with focal too); the rest
+  (``lightweight``'s half-size logits, aux heads) take the plain losses on
+  the logits (``train/losses.py``).  The eval step always takes the plain
+  losses (:246-261) on the serving forward, batch norm on the running
+  statistics.
+- Batch norm and dropout as ``apply(..., True, rngs={"dropout": key},
+  mutable=["batch_stats"])``: the training forward normalises with the
+  batch statistics and updates the modules' float32 running statistics in
+  place (the ``batch_stats`` JAX carries in the state; they are buffers, not
+  parameters, so the compute-dtype cast leaves them float32); Dropout2d
+  draws from the step's ``generator``.
 - Optimizer as ``make_optimizer`` (:69-94): ``adam`` with betas
   (momentum, 0.999) and eps 1e-8, ``sgd`` nesterov; L2 weight decay added to
   the raw gradient; the update ``-lr·u`` with ``lr`` set per call; frozen
@@ -20,10 +30,11 @@
   get no update and no decay.  ``torch.optim.Adam`` / ``SGD`` compute the
   optax chain's math.
 
-On the card only what has kernels trains: ``unet_vgg`` with CE (± dice) in
-bf16.  The rest raises (:func:`check_ported`) instead of running a plain
-path silently; on the CPU every recipe of the models without batch norm
-runs through the plain versions.
+On the card only what has kernels trains, in bf16: ``unet_vgg`` and the
+DataB models (``traditional``, ``traditional22``, the ladder family;
+``lightweight`` on the plain losses, as JAX).  The rest raises
+(:func:`check_ported`) instead of running a plain path silently; on the CPU
+every recipe runs through the plain versions.
 """
 from __future__ import annotations
 
@@ -34,7 +45,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from tpu_unet_torch.kernels.loss import final_ce_dice_loss
+from tpu_unet_torch.kernels.loss import ce_dice_loss, final_ce_dice_loss
 from tpu_unet_torch.models.unet import Unet
 from tpu_unet_torch.train.losses import ce_loss, dice_loss, f_score, focal_loss, one_hot
 
@@ -103,24 +114,24 @@ def _fused_route(model: nn.Module, cfg: StepConfig) -> bool:
 def check_ported(model: nn.Module, cfg: StepConfig, device: torch.device) -> None:
     """Raise for a training configuration the port cannot run on ``device``
     without a kernel that is not ported yet; never fall back silently."""
-    if any(isinstance(m, nn.BatchNorm2d) for m in model.modules()):
+    if isinstance(model, Unet) and model.backbone != "vgg":
         raise NotImplementedError(
-            f"training {type(model).__name__}: batch norm in train mode is not "
-            "ported yet (ROADMAP §1: the DataB training slice)")
+            "unet_resnet50 training (its ResNet50 in train mode, the up_conv head's "
+            "backward #12) is not ported yet (ROADMAP §1, T4)")
     if torch.device(device).type != "cuda":
         return
     if cfg.compute_dtype != torch.bfloat16:
         raise NotImplementedError(
             "float32 compute (fp16=False) on the card: the conv core is bf16-only "
             "(ROADMAP §1: an f32 compute path for training)")
-    if cfg.use_focal:
+    if cfg.aux_weights:
         raise NotImplementedError(
-            "the focal recipe on the card needs the logit-level loss kernels "
-            "#25/#26, not ported yet (ROADMAP §2: the DataB training slice)")
-    if not _fused_route(model, cfg):
+            "deep supervision on the card: the aux heads' training is not ported "
+            "yet (ROADMAP §1)")
+    if isinstance(model, Unet) and model.up_conv is not None:
         raise NotImplementedError(
-            "on the card only unet_vgg trains (the up_conv head's backward #12 "
-            "and deep supervision are not ported yet, ROADMAP §2)")
+            "training through the up_conv head (self_net) needs its backward kernel "
+            "#12, not ported yet (ROADMAP §2, T4)")
 
 
 def cast_params(model: nn.Module, dtype: torch.dtype) -> dict:
@@ -156,30 +167,38 @@ def _total_loss(outputs, target, onehot, cfg: StepConfig):
 
 
 def make_train_step(model: nn.Module, cfg: StepConfig):
-    """``train_step(state, batch, lr) → (state, {"loss", "f_score"})``: one
-    optimizer step of ``state.model`` on ``batch`` at learning rate ``lr``;
-    the metrics are float32 scalars on the model's device."""
+    """``train_step(state, batch, lr, generator=None) → (state, {"loss",
+    "f_score"})``: one optimizer step of ``state.model`` on ``batch`` at
+    learning rate ``lr``, dropout drawn from ``generator`` (on the model's
+    device; ``None`` takes the default one); the metrics are float32
+    scalars on the model's device."""
     device = next(model.parameters()).device
     check_ported(model, cfg, device)
     fused = _fused_route(model, cfg)
 
-    def train_step(state: TrainState, batch, lr: float):
+    def train_step(state: TrainState, batch, lr: float, generator=None):
         imgs, target = prepare_batch(batch, cfg.compute_dtype, device)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         params = cast_params(state.model, cfg.compute_dtype)
+        kwargs = {"train": True, "generator": generator}
         if fused:
             feats = functional_call(state.model, params, (imgs,),
-                                    {"features_out": True, "train": True})
+                                    {"features_out": True, **kwargs})
             loss, fs = final_ce_dice_loss(
                 feats, params["final.weight"], params["final.bias"], target,
                 cfg.cls_weights, cfg.num_classes, with_dice=cfg.use_dice)
         else:
-            onehot = one_hot(target, cfg.num_classes)
-            outputs = functional_call(state.model, params, (imgs,), {"train": True})
-            loss, main = _total_loss(outputs, target, onehot, cfg)
-            with torch.no_grad():
-                fs = f_score(main, onehot)
+            outputs = functional_call(state.model, params, (imgs,), kwargs)
+            out = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
+            if not cfg.aux_weights and out.shape[1:3] == target.shape[1:3]:
+                loss, fs = ce_dice_loss(out, target, cfg.cls_weights, cfg.num_classes,
+                                        with_dice=cfg.use_dice, use_focal=cfg.use_focal)
+            else:
+                onehot = one_hot(target, cfg.num_classes)
+                loss, main = _total_loss(outputs, target, onehot, cfg)
+                with torch.no_grad():
+                    fs = f_score(main, onehot)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
@@ -191,8 +210,9 @@ def make_train_step(model: nn.Module, cfg: StepConfig):
 
 def make_eval_step(model: nn.Module, cfg: StepConfig):
     """``eval_step(state, batch) → {"val_loss", "val_f_score"}``: the
-    serving forward (kernels on the card) and the plain losses on its
-    logits (reference: utils/utils_fit.py:111-151)."""
+    serving forward (kernels on the card; batch norm on the running
+    statistics) and the plain losses on its logits (reference:
+    utils/utils_fit.py:111-151)."""
     device = next(model.parameters()).device
     plain_cfg = dataclasses.replace(cfg, aux_weights=())
 
