@@ -17,7 +17,12 @@ Phases (any failure exits non-zero without the final result line):
    batch 32, the normalize kernel at one image and at 32, the argmax-mask
    kernel at its three generic serving shapes (ties and NaNs included) and
    the palette kernel at 8 frames of 256x256 (also against the host
-   render) — error, kernel time, plain time, library time and bound;
+   render), the whole decoder-stage backward (#13's dgrads, the weight
+   gradients, the upsample's adjoint; a planted dropped split read against
+   the weight-gradient bounds) at the four unet_vgg stages and the training
+   encoder (the block forwards keeping their intermediates, the stem's and
+   the blocks' backwards) at its five stages, bit-identical on a second
+   launch — error, kernel time, plain time, library time and bound;
 3. serving: ``tpu_unet_torch.infer.wrapper.Unet(model=..., num_classes=...,
    input_shape=...).serving_step()`` for ``unet_vgg``, ``unet_resnet50``
    and ``self_net`` (21 classes, a seeded uint8 batch of 8 at 512x512),
@@ -46,10 +51,13 @@ Phases (any failure exits non-zero without the final result line):
 6. training: (a) the ``unet_vgg`` train step (``train/step.py``) at
    512x512, batch 8, 21 classes, bf16, CE + dice, Adam, from
    ``init_model(seed=0)`` weights on seeded rectangle batches made on the
-   device — exact launch counts, step time, img/s, peak memory, a profiler
-   breakdown, loss and every gradient against a plain step composed here,
-   one 128^2 step against the CPU float32 path, and the loss over 20 steps
-   on one batch; (b) ``cli.main(["train", "--preset", "train_py", ...])``
+   device, under both training routes (``"paired"``, the default: the
+   encoder and decoder through their training kernels, and ``"fused"``) —
+   exact launch counts, step time, img/s, peak memory, a
+   profiler breakdown (no ``index_add_`` on the paired route), loss and
+   every gradient against a plain step composed here; then, on the default
+   route, one 128^2 step against the CPU float32 path and the loss over 20
+   steps on one batch; (b) ``cli.main(["train", "--preset", "train_py", ...])``
    over a seeded VOC-layout directory (64 + 16 images at 256^2, batch 32,
    2 epochs), a full-state resume for a third epoch, and
    ``serving_step()`` from the trained ``.pth``; (c) the DataB train steps
@@ -582,8 +590,249 @@ def phase_train_kernels(card: str, results: dict):
                      nbytes(g, out_, y1, w1, w2, *res))
         check(rel <= CONV_REL_TOL, f"unetup_bwd {case}: rel err {rel:.3g} > {CONV_REL_TOL}")
         del g, out_, y1, res, ref, placeholder
+    decoder_bwd_kernels(record, gen)
+    encoder_train_kernels(record, gen)
     logit_loss_kernels(record, gen)
     print("phase 2: training kernels done", flush=True)
+
+
+# unet_vgg's decoder stages at 512², batch 8: (x H, Cs, Cx, F), up1 … up4
+VGG_STAGES = ((SIZE // 2, 64, 128, 64), (SIZE // 4, 128, 256, 128),
+              (SIZE // 8, 256, 512, 256), (SIZE // 16, 512, 512, 512))
+# weight / bias gradients, relative to max |plain|: float32 sums of the same
+# bf16 products in another order (the kernel's split-K runs vs cuDNN's) over
+# up to 2.1M pixels.  The sound readings on an H100 (700 W) are at most
+# 1.49e-4 (up1's dk1) for the GEMM alone;
+# through a whole stage backward the inputs of all but the last conv's
+# gradient also carry the kernel dgrads' bf16 rounding (2.15e-4 at up4's
+# dk1; 7.1e-4 at block 5's first conv, behind two kernel dgrads).  A
+# dropped split-K partial — the fault these bounds must catch — reads
+# 8.7e-2 at up1's dk2 (one split of 118) on an H100, and is planted and read
+# in every run (wgrad_fault_reading).  The bounds sit between the two.
+WGRAD_REL_TOL = 5e-4
+WGRAD_CHAIN_REL_TOL = 1e-3
+# the upsample's adjoint: float32 sums of the same products rounded once to
+# bf16 (one ulp, 2^-8 of an element) relative to max |plain|
+ADJOINT_REL_TOL = 1e-2
+
+
+def wgrad_fault_reading(skip, x, dz1, y1, g2, wref, case):
+    """Plant a dropped split-K partial in ``unetup_wgrad``'s dk2 / db2 (the
+    pixels of split 0 zeroed in g2, which is what losing that split's
+    partial computes) and read it as the checks read the kernel: it must
+    lie above both weight-gradient bounds."""
+    from tpu_unet_torch.kernels.decoder_train import WGRAD_CHUNK, _wgrad_splits, unetup_wgrad
+
+    f = g2.shape[-1]
+    n_pix = g2.numel() // f
+    ns = _wgrad_splits((f // 64) * (9 * f // 64), n_pix)
+    lost = (n_pix // WGRAD_CHUNK) // ns * WGRAD_CHUNK
+    faulty = g2.clone()
+    faulty.view(-1, f)[:lost] = 0
+    res = unetup_wgrad(skip, x, dz1, y1, faulty)
+    fault = max(rel_err(res[2], wref[2])[1], rel_err(res[3], wref[3])[1])
+    print(json.dumps({"wgrad_planted_fault": case, "dropped_split_of": ns,
+                      "rel_err": fault, "bounds": [WGRAD_REL_TOL, WGRAD_CHAIN_REL_TOL]}),
+          flush=True)
+    check(fault > max(WGRAD_REL_TOL, WGRAD_CHAIN_REL_TOL),
+          f"unetup_wgrad {case}: a dropped split reads {fault:.3g}, inside the bounds")
+
+
+def decoder_bwd_kernels(record, gen):
+    """The port of #14-#19 at the four unet_vgg stages (512², batch 8):
+    ``unetup_bwd_full`` against ``unetup_bwd_full_plain`` (dskip / dx within
+    CONV_REL_TOL, the weight and bias gradients within WGRAD_CHAIN_REL_TOL,
+    all six bit-identical on a second launch), against the cuDNN chain
+    (``convolution_backward`` with the data, weight and bias outputs of both
+    convs, and autograd of ``upsample2x``); then ``unetup_wgrad`` and
+    ``upsample_adjoint`` each against its plain version on the same inputs."""
+    from tpu_unet_torch.kernels.decoder_train import (unetup_bwd_full, unetup_bwd_full_plain,
+                                                      unetup_bwd_plain, unetup_wgrad,
+                                                      unetup_wgrad_plain, upsample2x_adjoint,
+                                                      upsample2x_adjoint_plain)
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    dev, bf, B = torch.device("cuda"), torch.bfloat16, BATCH
+    cb = torch.ops.aten.convolution_backward
+    for h, cs, cx, f in VGG_STAGES:
+        h2, cp = 2 * h, cs + cx
+        skip = torch.relu(torch.randn((B, h2, h2, cs), generator=gen, device=dev)).to(bf)
+        x = torch.relu(torch.randn((B, h, h, cx), generator=gen, device=dev)).to(bf)
+        g = torch.randn((B, h2, h2, f), generator=gen, device=dev).to(bf)
+        out_ = torch.relu(torch.randn((B, h2, h2, f), generator=gen, device=dev)).to(bf)
+        y1 = torch.relu(torch.randn((B, h2, h2, f), generator=gen, device=dev)).to(bf)
+        w1 = (torch.randn((f, cp, 3, 3), generator=gen, device=dev) / (9 * cp) ** 0.5).to(bf)
+        w2 = (torch.randn((f, f, 3, 3), generator=gen, device=dev) / (9 * f) ** 0.5).to(bf)
+        args = (g, out_, y1, skip, x, w1, w2)
+        case = f"{B}x{h2}x{h2} Cs={cs} Cx={cx} F={f}"
+        res, again = unetup_bwd_full(*args), unetup_bwd_full(*args)
+        check(all(torch.equal(a, b) for a, b in zip(res, again)),
+              f"unetup_bwd_full {case}: two launches differ")
+        ref = unetup_bwd_full_plain(*args)
+        errs = {n: rel_err(a, b)[1] for n, a, b in
+                zip(("dskip", "dx", "dk1", "db1", "dk2", "db2"), res, ref)}
+        for n, e in errs.items():
+            tol = CONV_REL_TOL if n in ("dskip", "dx") else WGRAD_CHAIN_REL_TOL
+            check(e <= tol, f"unetup_bwd_full {case}: {n} rel err {e:.3g} > {tol}")
+        print(json.dumps({"unetup_bwd_full": case, "rel_err_by_output": errs}), flush=True)
+
+        def lib(g=g, out_=out_, y1=y1, skip=skip, x=x, w1=w1, w2=w2, cs=cs, f=f):
+            g2 = torch.where(out_ > 0, g, 0)
+            dy1, dk2, db2 = cb(cl(g2), cl(y1), w2, [f], [1, 1], [1, 1], [1, 1], False, [0, 0],
+                               1, [True, True, True])
+            dz1 = torch.where(cl(y1) > 0, dy1, 0)
+            with torch.enable_grad():
+                xg = x.detach().requires_grad_()
+                up = upsample2x(xg)
+            cc = torch.cat([cl(skip), cl(up.detach())], dim=1)
+            dcc, dk1, db1 = cb(dz1, cc, w1, [f], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                               [True, True, True])
+            dx, = torch.autograd.grad(up, xg, dcc[:, cs:].permute(0, 2, 3, 1))
+            return dcc[:, :cs], dx, dk1, db1, dk2, db2
+
+        n_pix = B * h2 * h2
+        dflops = conv_flops(B, h2, h2, f, f) + conv_flops(B, h2, h2, f, cp)
+        record("unetup_bwd_full", case, list(res), list(ref), lambda: unetup_bwd_full(*args),
+               lambda: unetup_bwd_full_plain(*args), lib, 2 * dflops,
+               nbytes(*args, *res))
+        # the two new kernels alone, on the plain chain's dz1 / g2 / dups
+        _, dups, g2, dz1 = unetup_bwd_plain(g, out_, y1, w1, w2, cs)
+        wres, wref = unetup_wgrad(skip, x, dz1, y1, g2), unetup_wgrad_plain(skip, x, dz1, y1, g2)
+        check(all(torch.equal(a, b) for a, b in zip(wres, unetup_wgrad(skip, x, dz1, y1, g2))),
+              f"unetup_wgrad {case}: two launches differ")
+
+        def lib_w(skip=skip, x=x, dz1=dz1, y1=y1, g2=g2, w1=w1, w2=w2, f=f):
+            up = upsample2x(x)
+            cc = torch.cat([cl(skip), cl(up)], dim=1)
+            _, dk1, db1 = cb(cl(dz1), cc, w1, [f], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                             [False, True, True])
+            _, dk2, db2 = cb(cl(g2), cl(y1), w2, [f], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                             [False, True, True])
+            return dk1, db1, dk2, db2
+
+        rel = record("unetup_wgrad", case, list(wres), list(wref),
+                     lambda: unetup_wgrad(skip, x, dz1, y1, g2),
+                     lambda: unetup_wgrad_plain(skip, x, dz1, y1, g2), lib_w,
+                     conv_flops(B, h2, h2, cp, f) + conv_flops(B, h2, h2, f, f),
+                     nbytes(skip, x, dz1, y1, g2, *wres))
+        check(rel <= WGRAD_REL_TOL, f"unetup_wgrad {case}: rel err {rel:.3g} > {WGRAD_REL_TOL}")
+        if f == 64:
+            wgrad_fault_reading(skip, x, dz1, y1, g2, wref, case)
+        ares, aref = upsample2x_adjoint(dups, h, h), upsample2x_adjoint_plain(dups, h, h)
+
+        def lib_a(x=x, dups=dups):
+            with torch.enable_grad():
+                xg = x.detach().requires_grad_()
+                up = upsample2x(xg)
+            return torch.autograd.grad(up, xg, dups)[0]
+
+        rel = record("upsample_adjoint", f"{B}x{h2}x{h2}x{cx}->{h}^2", [ares], [aref],
+                     lambda: upsample2x_adjoint(dups, h, h),
+                     lambda: upsample2x_adjoint_plain(dups, h, h), lib_a,
+                     2.0 * 4 * dups.numel(), nbytes(dups, ares), peak=PEAK_F32)
+        check(rel <= ADJOINT_REL_TOL,
+              f"upsample_adjoint {case}: rel err {rel:.3g} > {ADJOINT_REL_TOL}")
+        del skip, x, g, out_, y1, res, again, ref, dups, g2, dz1, wres, wref, ares, aref
+        torch.cuda.empty_cache()
+
+
+# unet_vgg's encoder stages in training at 512², batch 8: (H, widths, pool)
+VGG_TRAIN_STAGES = ((SIZE, [3, 64, 64], True), (SIZE // 2, [64, 128, 128], True),
+                    (SIZE // 4, [128, 256, 256, 256], True),
+                    (SIZE // 8, [256, 512, 512, 512], True),
+                    (SIZE // 16, [512, 512, 512, 512], False))
+
+
+def encoder_train_kernels(record, gen):
+    """The port of the training encoder (#2 / #20, #21 / #22, #23 / #24) at
+    the unet_vgg train step's shapes: the block forward keeping its
+    intermediates (``vgg_block2_fwd`` / ``vgg_block3_fwd``; the stem's is
+    phase 2's ``vgg_stem``) against the plain chain, and the stage backward
+    against its plain version on the same intermediates — dx within
+    CONV_REL_TOL, the last conv's weight and bias gradients (its input
+    gradient is exact) within WGRAD_REL_TOL, the others within
+    WGRAD_CHAIN_REL_TOL, all bit-identical on a second launch — timed
+    against autograd of the cuDNN chain."""
+    from tpu_unet_torch.kernels._plain import conv3x3_relu
+    from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, _vgg_stem_cuda,
+                                                      block_key, vgg_block_bwd,
+                                                      vgg_block_bwd_plain, vgg_stem_bwd,
+                                                      vgg_stem_bwd_plain)
+
+    dev, bf, B = torch.device("cuda"), torch.bfloat16, BATCH
+    for h, chans, pool in VGG_TRAIN_STAGES:
+        stem = chans[0] == 3
+        n = len(chans) - 1
+        x = (torch.rand((B, h, h, 3), generator=gen, device=dev) if stem else
+             torch.relu(torch.randn((B, h, h, chans[0]), generator=gen, device=dev))).to(bf)
+        ws = [(torch.randn((f, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5).to(bf)
+              for c, f in zip(chans[:-1], chans[1:])]
+        bs = [(0.1 * torch.randn(f, generator=gen, device=dev)).to(bf) for f in chans[1:]]
+        case = f"{B}x{h}x{h} {chans} pool={pool}"
+        flops = sum(conv_flops(B, h, h, c, f) for c, f in zip(chans[:-1], chans[1:]))
+
+        def plain_fwd(x=x, ws=ws, bs=bs, pool=pool):
+            y, acts = x, []
+            for w, b in zip(ws, bs):
+                y = conv3x3_relu(y, w, b)
+                acts.append(y)
+            return acts, (F.max_pool2d(cl(y), 2).permute(0, 2, 3, 1) if pool else None)
+
+        if stem:
+            skip, pooled, a1 = _vgg_stem_cuda(x, ws[0], bs[0], ws[1], bs[1])
+            mids = [a1]
+        else:
+            key = block_key(n, "fwd")
+            skip, pooled, mids = _vgg_block_cuda(x, ws, bs, pool, key)
+            acts, ppool = plain_fwd()
+            outs = [*mids, skip] + ([pooled] if pool else [])
+            refs = acts + ([ppool] if pool else [])
+            rel = record(key, case, outs, refs, lambda: _vgg_block_cuda(x, ws, bs, pool, key),
+                         plain_fwd, lambda: cudnn_chain(x, ws, bs, pool), flops,
+                         nbytes(x, *ws, *bs, *outs))
+            check(rel <= CONV_REL_TOL, f"{key} {case}: rel err {rel:.3g} > {CONV_REL_TOL}")
+        dskip = torch.randn(skip.shape, generator=gen, device=dev).to(bf)
+        dpool = (torch.randn((B, h // 2, h // 2, chans[-1]), generator=gen, device=dev).to(bf)
+                 if pool else None)
+        if stem:
+            key = "vgg_stem_bwd"
+
+            def run(fn):
+                return (None, *fn(dskip, dpool, x, mids[0], skip, ws[0], ws[1]))
+
+            kern, plain = (lambda: run(vgg_stem_bwd)), (lambda: run(vgg_stem_bwd_plain))
+        else:
+            key = block_key(n, "bwd")
+            kern = lambda: vgg_block_bwd(dskip, dpool, x, mids, skip, ws)  # noqa: E731
+            plain = lambda: vgg_block_bwd_plain(dskip, dpool, x, mids, skip, ws)  # noqa: E731
+        res, again, ref = kern(), kern(), plain()
+        flat = lambda r: ([] if r[0] is None else [r[0]]) + list(r[1]) + list(r[2])  # noqa: E731
+        check(all(torch.equal(a, b) for a, b in zip(flat(res), flat(again))),
+              f"{key} {case}: two launches differ")
+        errs = {} if res[0] is None else {"dx": rel_err(res[0], ref[0])[1]}
+        for i in range(n):
+            errs[f"dk{i}"] = rel_err(res[1][i], ref[1][i])[1]
+            errs[f"db{i}"] = rel_err(res[2][i], ref[2][i])[1]
+        for name, e in errs.items():
+            tol = CONV_REL_TOL if name == "dx" else \
+                WGRAD_REL_TOL if name[2:] == str(n - 1) else WGRAD_CHAIN_REL_TOL
+            check(e <= tol, f"{key} {case}: {name} rel err {e:.3g} > {tol}")
+        print(json.dumps({key: case, "rel_err_by_output": errs}), flush=True)
+        # the library yardstick: autograd of the cuDNN chain, graph built once
+        with torch.enable_grad():
+            xg = cl(x).detach().requires_grad_(not stem)
+            wg = [w.detach().requires_grad_() for w in ws]
+            bg = [b.detach().requires_grad_() for b in bs]
+            y = cudnn_chain(xg.permute(0, 2, 3, 1), wg, bg, pool)
+            outs, cots = ((list(y), [cl(dskip), cl(dpool)]) if pool else ([y], [cl(dskip)]))
+        wrt = ([] if stem else [xg]) + wg + bg
+        lib = lambda: torch.autograd.grad(outs, wrt, cots, retain_graph=True)  # noqa: E731
+        # a weight gradient and a dgrad per conv; the stem has no dgrad to x
+        bwd_flops = 2 * flops - (conv_flops(B, h, h, 3, chans[1]) if stem else 0)
+        record(key, case, flat(res), flat(ref), kern, plain, lib, bwd_flops,
+               nbytes(x, *mids, skip, dskip, dpool, *ws, *flat(res)))
+        del x, ws, bs, skip, pooled, mids, dskip, dpool, res, again, ref, xg, wg, bg, y, outs
+        torch.cuda.empty_cache()
 
 
 def logit_loss_kernels(record, gen):
@@ -766,8 +1015,10 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     ``steps`` steps) and the device's idle share between the first kernel's
     start and the last kernel's end.  The port's kernels are named
     ``conv3x3_kernel<Loader, pool>``, ``final_argmax_kernel<F, hist>``,
-    ``normalize_kernel<T>``, ``argmax_kernel<T, V, Out>`` and
-    ``palette_kernel<M>``."""
+    ``normalize_kernel<T>``, ``argmax_kernel<T, V, Out>``,
+    ``palette_kernel<M>``, ``wgrad_kernel<Loader>``, ``wgrad_reduce_kernel``
+    and ``upsample_adjoint_kernel``; ``index_add_ms`` sums PyTorch's
+    ``index_add_`` kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -777,12 +1028,14 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
         for _ in range(steps):
             fn(net, imgs)
         torch.cuda.synchronize()
-    spans, by_name = [], {}
+    spans, by_name, index_add = [], {}, 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         name = e.name
+        if "indexFunc" in name:  # index_add_ (the plain upsample's adjoint)
+            index_add += e.time_range.elapsed_us() / 1e3 / steps
         if "conv3x3_grad_kernel" in name:
             loader = "ReluGradLoader" if "ReluGradLoader" in name else "NhwcLoader"
             name = f"port conv3x3_grad_kernel<{loader}>"
@@ -792,6 +1045,11 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = "port " + ("ce_dice_fwd_kernel" if "fwd" in name else "ce_dice_bwd_kernel")
         elif "sum_rows_kernel" in name:
             name = "port sum_rows_kernel"
+        elif "wgrad_kernel" in name:
+            loader = "UpConcatLoader" if "UpConcatLoader" in name else "NhwcLoader"
+            name = f"port wgrad_kernel<{loader}>"
+        elif "wgrad_reduce_kernel" in name or "upsample_adjoint_kernel" in name:
+            name = "port " + ("wgrad_reduce_kernel" if "wgrad" in name else "upsample_adjoint_kernel")
         elif "conv3x3_kernel" in name:
             loader = next((n for n in ("ImageLoader", "UpConcatLoader", "NhwcLoader")
                            if n in name), "?")
@@ -817,7 +1075,7 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     port = sum(v for k, v in top if k.startswith("port "))
     return {"device_ms_per_step": busy / 1e3 / steps, "port_kernels_ms": port,
-            "idle_share": 1 - busy / window if window else 0.0,
+            "index_add_ms": index_add, "idle_share": 1 - busy / window if window else 0.0,
             "top_kernels_ms": [[k, v] for k, v in top[:8]]}
 
 
@@ -1214,9 +1472,19 @@ def phase_tools(card: str):
     return totals
 
 
-# the training step's launches; every other kernel 0 (the encoder and the
-# F >= 128 decoder stages train through cuDNN under autograd)
-TRAIN_STEP = {"unetup": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
+# the unet_vgg training step's launches under each route
+# (StepConfig.train_route); every other kernel 0.  "paired" (the default,
+# JAX's TPU configuration) runs the stem (#2 / #20), block 2 (#21 / #22),
+# blocks 3-5 (#23 / #24) and all four decoder stages (#1 and the whole stage
+# backward) through their kernels; "fused" trains the encoder through cuDNN
+# under autograd, up1 through #1 and #13 and the F >= 128 stages plain
+TRAIN_STEP = {
+    "paired": {"vgg_stem": 1, "vgg_block2_fwd": 1, "vgg_block3_fwd": 3, "vgg_stem_bwd": 1,
+               "vgg_block2_bwd": 1, "vgg_block3_bwd": 3, "unetup": 4, "unetup_bwd": 4,
+               "unetup_wgrad": 4, "upsample_adjoint": 4, "final_ce_dice_fwd": 1,
+               "final_ce_dice_bwd": 1},
+    "fused": {"unetup": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1},
+}
 
 
 def rect_batch(gen, n, size, classes, device):
@@ -1252,7 +1520,7 @@ def plain_step(net, batch, num_classes, cls_weights):
     for p in n16.parameters():
         p.data = p.data.to(torch.bfloat16)
     imgs, target = prepare_batch(batch, torch.bfloat16, "cuda")
-    feats = n16.vgg(imgs, True)
+    feats = n16.vgg(imgs, True, "fused")  # the encoder's plain composition
     up = feats[4]
     for i, skip in zip((4, 3, 2, 1), feats[3::-1]):
         m = getattr(n16, f"up_concat{i}")
@@ -1283,40 +1551,59 @@ def phase_train(card: str):
 
     # the plain step first, from the initial weights
     ploss, pgrads = plain_step(init, batch, classes, cw)
-    net = copy.deepcopy(init)
-    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
-    fn = tstep.make_train_step(net, cfg)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    (state, m), counts = counted(TRAIN_STEP, "train step", lambda: fn(state, batch, 1e-4))
-    for k, v in counts.items():
-        totals[k] = totals.get(k, 0) + v
-    loss0 = m["loss"].item()
-    lrel = abs(loss0 - ploss) / abs(ploss)
-    check(lrel <= 1e-3, f"train step loss {loss0} vs plain step {ploss}: rel {lrel:.3g}")
-    grad_stats, worst_cos, worst_rel = {}, 1.0, 0.0
-    for k, p in net.named_parameters():
-        a, b = p.grad.float().ravel(), pgrads[k].ravel()
-        cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
-        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-        grad_stats[k] = [round(cos, 6), rel]
-        worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
-        check(cos >= 0.99 and rel <= 5e-2, f"gradient of {k}: cosine {cos:.5f}, rel err {rel:.3g}")
+    for route in ("paired", "fused"):
+        rcfg = dataclasses.replace(cfg, train_route=route)
+        net = copy.deepcopy(init)
+        state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+        fn = tstep.make_train_step(net, rcfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (state, m), counts = counted(TRAIN_STEP[route], f"train step ({route})",
+                                     lambda: fn(state, batch, 1e-4))
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        loss0 = m["loss"].item()
+        lrel = abs(loss0 - ploss) / abs(ploss)
+        check(lrel <= 1e-3, f"train step ({route}) loss {loss0} vs plain step {ploss}: "
+                            f"rel {lrel:.3g}")
+        grad_stats, worst_cos, worst_rel = {}, 1.0, 0.0
+        for k, p in net.named_parameters():
+            a, b = p.grad.float().ravel(), pgrads[k].ravel()
+            cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+            rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            grad_stats[k] = [round(cos, 6), rel]
+            worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+            check(cos >= 0.99 and rel <= 5e-2,
+                  f"gradient of {k} ({route}): cosine {cos:.5f}, rel err {rel:.3g}")
+        print(json.dumps({"train_grads_vs_plain_step": grad_stats, "route": route}),
+              flush=True)
+
+        step = lambda: fn(state, batch, 1e-4)  # noqa: E731
+        step_ms = time_ms(step, reps=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        profile = device_breakdown(lambda _net, _imgs: step(), None, None)
+        if route == "paired":  # every stage's upsample adjoint is the kernel's
+            check(profile["index_add_ms"] == 0.0,
+                  f"train step (paired): index_add kernels ran {profile['index_add_ms']} ms")
+        print(json.dumps({
+            "train_step": "unet_vgg", "train_route": route, "batch": BATCH, "size": SIZE,
+            "classes": classes, "dtype": "bf16", "recipe": "CE + dice, Adam",
+            "launches": counts, "step_ms_events": step_ms, "img_per_s": BATCH * 10 / host,
+            "step_ms_host": host / 10 * 1e3, "peak_mem_gib": peak, "profile": profile,
+            "loss": loss0, "loss_plain_step": ploss, "loss_rel_err_vs_plain": lrel,
+            "worst_grad_cosine": worst_cos, "worst_grad_rel_err": worst_rel,
+            "gpu": card}), flush=True)
+        del net, state, fn, step
     del pgrads
-    print(json.dumps({"train_grads_vs_plain_step": grad_stats}), flush=True)
 
-    step = lambda: fn(state, batch, 1e-4)  # noqa: E731
-    step_ms = time_ms(step, reps=5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        step()
-    torch.cuda.synchronize()
-    host = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    profile = device_breakdown(lambda _net, _imgs: step(), None, None)
-
-    # the card against the CPU float32 path: one step at batch 1, 128²
+    # the card (default route) against the CPU float32 path: one step at
+    # batch 1, 128²
     small = rect_batch(gen, 1, 128, classes, "cuda")
     card_net = copy.deepcopy(init)
     cpu_net = copy.deepcopy(init).cpu()
@@ -1339,15 +1626,9 @@ def phase_train(card: str):
                                          "not 10% lower")
     del lnet, lstate, init
     print(json.dumps({
-        "train_step": "unet_vgg", "batch": BATCH, "size": SIZE, "classes": classes,
-        "dtype": "bf16", "recipe": "CE + dice, Adam", "launches": counts,
-        "step_ms_events": step_ms, "img_per_s": BATCH * 10 / host,
-        "step_ms_host": host / 10 * 1e3, "peak_mem_gib": peak, "profile": profile,
-        "loss": loss0, "loss_plain_step": ploss, "loss_rel_err_vs_plain": lrel,
-        "worst_grad_cosine": worst_cos, "worst_grad_rel_err": worst_rel,
+        "train_step": "unet_vgg", "train_route": cfg.train_route,
         "loss_rel_err_vs_cpu_f32_128px": cpu_rel, "losses_20_steps": losses,
         "gpu": card}), flush=True)
-    del net, state, fn
     torch.cuda.empty_cache()
     for part in (cli_train, datab_training, cli_train_datab):
         for k, v in part(card).items():
@@ -1666,8 +1947,9 @@ def cli_train(card: str):
         add()
         text = buf.getvalue()
         trained = dict(launch_counts)
-        check(trained["unetup_bwd"] == 4 and trained["final_ce_dice_fwd"] == 4
-              and trained["final_ce_dice_bwd"] == 4,
+        # 4 steps of the default route: 4 decoder stages a step
+        check(all(trained[k] == 16 for k in ("unetup_bwd", "unetup_wgrad", "upsample_adjoint"))
+              and trained["final_ce_dice_fwd"] == 4 and trained["final_ce_dice_bwd"] == 4,
               f"cli train: 2 epochs x 2 steps, launches {trained}")
         names = sorted(p.name for p in save.iterdir())
         ckpts = [n for n in names if n.endswith(".pth")]
@@ -1736,6 +2018,24 @@ SOURCES = {
     "mask_palette": ("tpu_unet_torch/csrc/palette.cu", "tpu_unet/kernels/postprocess.py:300"),
     "unetup_bwd": ("tpu_unet_torch/csrc/decoder_train.cu",
                    "tpu_unet/kernels/decoder_train.py:140"),
+    # the in-kernel weight gradients of #14 (:506) and #16 (:1459)
+    "unetup_wgrad": ("tpu_unet_torch/csrc/unetup_wgrad.cu",
+                     "tpu_unet/kernels/decoder_train.py:1459"),
+    # #19, the dx epilogue of #14 / #16
+    "upsample_adjoint": ("tpu_unet_torch/csrc/upsample_adjoint.cu",
+                         "tpu_unet/kernels/decoder_train.py:1208"),
+    # the training encoder: block forwards keeping their intermediates (the
+    # block kernel of encoder.cu under its training keys) and the backwards
+    "vgg_block2_fwd": ("tpu_unet_torch/csrc/encoder.cu",
+                       "tpu_unet/kernels/encoder_train.py:139"),
+    "vgg_block3_fwd": ("tpu_unet_torch/csrc/encoder.cu",
+                       "tpu_unet/kernels/encoder3_train.py:279"),
+    "vgg_stem_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",
+                     "tpu_unet/kernels/stem_train.py:245"),
+    "vgg_block2_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",
+                       "tpu_unet/kernels/encoder_train.py:329"),
+    "vgg_block3_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",
+                       "tpu_unet/kernels/encoder3_train.py:349"),
     "final_ce_dice_fwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:704"),
     "final_ce_dice_bwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:804"),
     "ce_dice_fwd": ("tpu_unet_torch/csrc/loss_logits.cu", "tpu_unet/kernels/loss.py:173"),

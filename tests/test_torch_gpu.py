@@ -407,11 +407,153 @@ def test_unetup_bwd_kernel(cuda, h, w, cs, cx, f):
 
 
 @pytest.mark.gpu
-def test_train_step_on_card(cuda):
-    """One unet_vgg step at 128², batch 2, bf16: launches #1, #13, #27, #29
-    once each and no inference encoder kernel; loss within 1e-3 and every
-    gradient at a cosine ≥ 0.99 of the plain step's on the card (the plain
-    step of ``chip_smoke.py``, so both hold the step to one reference)."""
+@pytest.mark.parametrize("h,cs,cx,f", [(16, 64, 128, 64), (8, 128, 256, 128),
+                                       (8, 256, 512, 256), (8, 512, 512, 512)])
+def test_unetup_bwd_full_kernels(cuda, h, cs, cx, f):
+    """The whole stage backward (#13, ``unetup_wgrad``, ``upsample_adjoint``)
+    against its plain version at the unet_vgg stages' channels, batch 2:
+    dskip / dx within CONV_REL_TOL, the float32 weight and bias gradients
+    within 1e-3 of max |plain| (their inputs carry #13's bf16 rounding), all
+    six bit-identical on a second launch; the two new kernels alone on the
+    plain chain's inputs (wgrad 1e-4, the adjoint one bf16 ulp: 1e-2)."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.decoder_train import (unetup_bwd_full, unetup_bwd_full_plain,
+                                                      unetup_bwd_plain, unetup_wgrad,
+                                                      unetup_wgrad_plain, upsample2x_adjoint,
+                                                      upsample2x_adjoint_plain)
+
+    h2 = 2 * h
+    skip, x = _act(cuda, 2, h2, h2, cs), _act(cuda, 2, h, h, cx)
+    g = torch.randn((2, h2, h2, f), generator=cuda, device="cuda").to(torch.bfloat16)
+    out, y1 = _act(cuda, 2, h2, h2, f), _act(cuda, 2, h2, h2, f)
+    w1, _ = _conv(cuda, f, cs + cx)
+    w2, _ = _conv(cuda, f, f)
+    args = (g, out, y1, skip, x, w1, w2)
+    n = {k: launch_counts[k] for k in ("unetup_bwd", "unetup_wgrad", "upsample_adjoint")}
+    res = unetup_bwd_full(*args)
+    assert all(launch_counts[k] == v + 1 for k, v in n.items())
+    assert all(torch.equal(a, b) for a, b in zip(res, unetup_bwd_full(*args)))
+    ref = unetup_bwd_full_plain(*args)
+    for i, (a, b) in enumerate(zip(res, ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel(a, b) <= (CONV_REL_TOL if i < 2 else 1e-3), i
+    _, dups, g2, dz1 = unetup_bwd_plain(g, out, y1, w1, w2, cs)
+    for a, b in zip(unetup_wgrad(skip, x, dz1, y1, g2), unetup_wgrad_plain(skip, x, dz1, y1, g2)):
+        assert _rel(a, b) <= 1e-4
+    assert _rel(upsample2x_adjoint(dups, h, h), upsample2x_adjoint_plain(dups, h, h)) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_stage_backward_rejects_untileable_shape(cuda):
+    """2W = 8 is not a multiple of 16: the wrappers raise, nothing launches."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.decoder_train import unetup_bwd_full, unetup_wgrad
+
+    skip, x = _act(cuda, 1, 8, 8, 64), _act(cuda, 1, 4, 4, 128)
+    t = _act(cuda, 1, 8, 8, 64)
+    w1, _ = _conv(cuda, 64, 192)
+    w2, _ = _conv(cuda, 64, 64)
+    before = dict(launch_counts)
+    with pytest.raises(ValueError, match="must all be 0"):
+        unetup_bwd_full(t, t, t, skip, x, w1, w2)
+    with pytest.raises(ValueError, match="must all be 0"):
+        unetup_wgrad(skip, x, t, t, t)
+    assert dict(launch_counts) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chans,pool", [([3, 64, 64], True), ([64, 128, 128], True),
+                                        ([128, 256, 256, 256], True),
+                                        ([512, 512, 512, 512], False)])
+def test_encoder_train_kernels(cuda, chans, pool):
+    """The training encoder at the VGG16 stages' channels, batch 2, 16x32:
+    the forward keeping its intermediates (within CONV_REL_TOL of the plain
+    chain), and the stage backward (#20 / #22 / #24) against its plain
+    version on the same intermediates — dx within CONV_REL_TOL, the float32
+    weight and bias gradients within 1e-3 of max |plain| (the inner convs'
+    inputs carry the kernel's bf16 dgrad rounding), bit-identical on a
+    second launch, one launch under its key."""
+    from tpu_unet_torch.kernels import _plain, launch_counts
+    from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, _vgg_stem_cuda,
+                                                      block_key, vgg_block_bwd,
+                                                      vgg_block_bwd_plain, vgg_stem_bwd,
+                                                      vgg_stem_bwd_plain)
+
+    stem = chans[0] == 3
+    B, H, W = 2, 16, 32
+    x = (torch.rand((B, H, W, 3), generator=cuda, device="cuda").to(torch.bfloat16) if stem
+         else _act(cuda, B, H, W, chans[0]))
+    ws, bs = zip(*[_conv(cuda, f, c) for c, f in zip(chans[:-1], chans[1:])])
+    ws, bs = list(ws), list(bs)
+    if stem:
+        skip, pooled, a1 = _vgg_stem_cuda(x, ws[0], bs[0], ws[1], bs[1])
+        mids = [a1]
+    else:
+        skip, pooled, mids = _vgg_block_cuda(x, ws, bs, pool, block_key(len(ws), "fwd"))
+    y, ref_mids = x, []
+    for w, b in zip(ws, bs):
+        y = _plain.conv3x3_relu(y, w, b)
+        ref_mids.append(y)
+    for a, b in zip([*mids, skip], ref_mids):
+        assert _rel(a, b) <= CONV_REL_TOL
+    assert (pooled is None) == (not pool)
+    dskip = torch.randn(skip.shape, generator=cuda, device="cuda").to(torch.bfloat16)
+    dpool = (torch.randn((B, H // 2, W // 2, chans[-1]), generator=cuda, device="cuda")
+             .to(torch.bfloat16) if pool else None)
+    key = "vgg_stem_bwd" if stem else block_key(len(ws), "bwd")
+    before = launch_counts[key]
+    if stem:
+        res = vgg_stem_bwd(dskip, dpool, x, mids[0], skip, ws[0], ws[1])
+        again = vgg_stem_bwd(dskip, dpool, x, mids[0], skip, ws[0], ws[1])
+        ref = vgg_stem_bwd_plain(dskip, dpool, x, mids[0], skip, ws[0], ws[1])
+        res, again, ref = (None, *res), (None, *again), (None, *ref)
+    else:
+        res = vgg_block_bwd(dskip, dpool, x, mids, skip, ws)
+        again = vgg_block_bwd(dskip, dpool, x, mids, skip, ws)
+        ref = vgg_block_bwd_plain(dskip, dpool, x, mids, skip, ws)
+        assert _rel(res[0], ref[0]) <= CONV_REL_TOL
+        assert torch.equal(res[0], again[0])
+    assert launch_counts[key] == before + 2
+    for part in (1, 2):
+        for a, b, c in zip(res[part], ref[part], again[part]):
+            assert a.shape == b.shape and a.dtype == torch.float32
+            assert _rel(a, b) <= 1e-3
+            assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_encoder_bwd_rejects_untileable_shape(cuda):
+    """W = 8 is not a multiple of 16: the wrapper raises, nothing launches."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.encoder_train import vgg_block_bwd
+
+    x, t = _act(cuda, 1, 8, 8, 64), _act(cuda, 1, 8, 8, 128)
+    w1, _ = _conv(cuda, 128, 64)
+    w2, _ = _conv(cuda, 128, 128)
+    before = dict(launch_counts)
+    with pytest.raises(ValueError, match="must all be 0"):
+        vgg_block_bwd(t, _act(cuda, 1, 4, 4, 128), x, [t], t, [w1, w2])
+    assert dict(launch_counts) == before
+
+
+# each route's launches in one unet_vgg train step at 128² (block 5's 8x8
+# is no multiple of 16 wide: it trains plain)
+ROUTE_LAUNCHES = {
+    "paired": {"vgg_stem": 1, "vgg_block2_fwd": 1, "vgg_block3_fwd": 2, "vgg_stem_bwd": 1,
+               "vgg_block2_bwd": 1, "vgg_block3_bwd": 2, "unetup": 4, "unetup_bwd": 4,
+               "unetup_wgrad": 4, "upsample_adjoint": 4, "final_ce_dice_fwd": 1,
+               "final_ce_dice_bwd": 1},
+    "fused": {"unetup": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["paired", "fused"])
+def test_train_step_on_card(cuda, route):
+    """One unet_vgg step at 128², batch 2, bf16, under each training route:
+    exactly the route's launches (``ROUTE_LAUNCHES``); loss within 1e-3 and every gradient at a cosine ≥ 0.99 of the
+    plain step's on the card (the plain step of ``chip_smoke.py``, so both
+    hold the step to one reference)."""
     from chip_smoke import plain_step
     from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
     from tpu_unet_torch.models.registry import build_model, init_model
@@ -422,14 +564,14 @@ def test_train_step_on_card(cuda):
     batch = {"image": torch.randint(0, 256, (2, 128, 128, 3), generator=g, dtype=torch.uint8),
              "label": torch.randint(0, 22, (2, 128, 128), generator=g, dtype=torch.int32)}
     cw = tuple(1.0 + 0.05 * i for i in range(21))
-    cfg = tstep.StepConfig(21, cw, use_dice=True, compute_dtype=torch.bfloat16)
+    cfg = tstep.StepConfig(21, cw, use_dice=True, compute_dtype=torch.bfloat16,
+                           train_route=route)
     state = tstep.TrainState(net, tstep.make_optimizer(net))
     fn = tstep.make_train_step(net, cfg)
     reset_launch_counts()
     _, m = fn(state, batch, 0.0)
     torch.cuda.synchronize()
-    assert {k: v for k, v in launch_counts.items() if v} == {
-        "unetup": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
+    assert {k: v for k, v in launch_counts.items() if v} == ROUTE_LAUNCHES[route]
     ploss, pgrads = plain_step(net, batch, 21, cw)
     assert abs(m["loss"].item() - ploss) <= 1e-3 * ploss
     for k, p in net.named_parameters():

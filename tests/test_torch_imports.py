@@ -44,14 +44,15 @@ def test_scan_compares_whole_names():
 
 
 def _cuda_entries():
-    from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, loss,
-                                        postprocess, preprocess, render, stem, upconv)
+    from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encoder_train,
+                                        loss, postprocess, preprocess, render, stem, upconv)
 
     x3 = torch.zeros(1, 16, 16, 3, dtype=torch.uint8)
     w = torch.zeros(64, 3, 3, 3, dtype=torch.bfloat16)
     w64 = torch.zeros(64, 64, 3, 3, dtype=torch.bfloat16)
     b = torch.zeros(64, dtype=torch.bfloat16)
     f = torch.zeros(1, 16, 16, 64, dtype=torch.bfloat16)
+    p = torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16)
     return {
         "stem": lambda: stem._vgg_stem_cuda(x3, w, b, w64, b),
         "block": lambda: encoder._vgg_block_cuda(f, [w64, w64], [b, b], True),
@@ -75,6 +76,17 @@ def _cuda_entries():
             torch.zeros(4, 3, dtype=torch.uint8), 0.7),
         "unetup_bwd": lambda: decoder_train._unetup_bwd_cuda(
             f, f, f, torch.zeros(64, 192, 3, 3, dtype=torch.bfloat16), w64, 64),
+        "unetup_wgrad": lambda: decoder_train._unetup_wgrad_cuda(
+            torch.zeros(1, 16, 16, 64, dtype=torch.bfloat16),
+            torch.zeros(1, 8, 8, 128, dtype=torch.bfloat16), f, f, f),
+        "upsample_adjoint": lambda: decoder_train._upsample_adjoint_cuda(
+            torch.zeros(1, 16, 16, 128, dtype=torch.bfloat16), 8, 8),
+        "block3_fwd": lambda: encoder._vgg_block_cuda(f, [w64] * 3, [b] * 3, True,
+                                                      "vgg_block3_fwd"),
+        "stem_bwd": lambda: encoder_train._bwd_cuda(
+            "vgg_stem_bwd", f, p, x3, [f], f, [w, w64], False, True),
+        "block_bwd": lambda: encoder_train._bwd_cuda(
+            "vgg_block2_bwd", f, p, f, [f], f, [w64, w64], True, False),
         "final_ce_dice_fwd": lambda: loss._fwd_cuda(
             f, torch.zeros(21, 64, 1, 1), torch.zeros(21),
             torch.zeros(1, 16, 16, dtype=torch.long), [1.0] * 21, 21, True),
@@ -95,6 +107,8 @@ def _cuda_entries():
 @pytest.mark.parametrize("name", ["stem", "block", "unetup", "tail", "upconv",
                                   "tail_natural", "tail_mask_only", "normalize",
                                   "argmax_mask", "mask_palette", "unetup_bwd",
+                                  "unetup_wgrad", "upsample_adjoint", "block3_fwd",
+                                  "stem_bwd", "block_bwd",
                                   "final_ce_dice_fwd", "final_ce_dice_bwd", "ce_dice_fwd",
                                   "ce_dice_bwd"])
 def test_kernel_path_refuses_cpu_tensors(name):
@@ -108,8 +122,8 @@ def _grad_calls():
     """Each wrapper whose kernel has no backward, called with a float
     argument that requires grad (integer-only kernels — #8, #9 — cannot
     receive one)."""
-    from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, loss,
-                                        postprocess, stem, upconv)
+    from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encoder_train,
+                                        loss, postprocess, stem, upconv)
 
     def g(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, dtype=dtype, requires_grad=True)
@@ -131,6 +145,16 @@ def _grad_calls():
         "argmax_mask": (postprocess, lambda: postprocess.argmax_mask(g(1, 4, 4, 4))),
         "unetup_bwd": (decoder_train, lambda: decoder_train.unetup_bwd(
             f, f, f, g(64, 192, 3, 3), w64, 64)),
+        "unetup_wgrad": (decoder_train, lambda: decoder_train.unetup_wgrad(
+            g(1, 16, 16, 64), g(1, 8, 8, 128), f, f, f)),
+        "upsample_adjoint": (decoder_train, lambda: decoder_train.upsample2x_adjoint(
+            g(1, 16, 16, 128), 8, 8)),
+        "vgg_stem_bwd": (encoder_train, lambda: encoder_train.vgg_stem_bwd(
+            f, g(1, 8, 8, 64), g(1, 16, 16, 3), f, f, g(64, 3, 3, 3), w64)),
+        "vgg_block2_bwd": (encoder_train, lambda: encoder_train.vgg_block_bwd(
+            f, g(1, 8, 8, 64), f, [f], f, [w64, w64])),
+        "vgg_block3_bwd": (encoder_train, lambda: encoder_train.vgg_block_bwd(
+            f, None, f, [f, f], f, [w64] * 3)),
         "final_ce_dice_fwd": (loss, lambda: loss.final_ce_dice_fwd(
             f, g(21, 64, 1, 1), g(21), t, [1.0] * 21, 21)),
         "final_ce_dice_bwd": (loss, lambda: loss.final_ce_dice_bwd(
@@ -144,7 +168,9 @@ def _grad_calls():
 
 @pytest.mark.parametrize("name", ["vgg_stem", "vgg_block", "unetup", "upconv",
                                   "final_argmax_hist", "final_argmax", "argmax_mask",
-                                  "unetup_bwd", "final_ce_dice_fwd", "final_ce_dice_bwd",
+                                  "unetup_bwd", "unetup_wgrad", "upsample_adjoint",
+                                  "vgg_stem_bwd", "vgg_block2_bwd", "vgg_block3_bwd",
+                                  "final_ce_dice_fwd", "final_ce_dice_bwd",
                                   "ce_dice_fwd", "ce_dice_bwd"])
 def test_kernel_path_refuses_grad_inputs(name, monkeypatch):
     """The CUDA branch of a kernel without a backward raises when autograd

@@ -2,7 +2,14 @@
 float32: JAX with the kernel configuration of the training slice forced
 (fused loss, fused decoder, fused train on, paired train off; the Pallas
 kernels in interpret mode), the port through the plain versions of #27,
-#29 and #13.  Weights are carried across by the bridge."""
+#29 and #13 (``train_route="fused"``) and of #27, #29, #14-#19 and the
+training encoder #2 / #20-#24 (``"paired"``, the default).  JAX's FUSED_TRAIN and PAIRED_TRAIN
+configurations compute the same math (JAX's own
+``test_paired_train_head_end_to_end`` holds the paired one to the natural
+composition); running JAX's paired step itself would add its interpret-mode
+stem kernel #20 (``tests/test_torch_encoder_train.py`` holds the port's
+encoder to the references JAX's encoder VJPs are held to), so both port routes are held to JAX's one step, computed
+once (``jax_step``).  Weights are carried across by the bridge."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +57,45 @@ def kernel_config():
             setter(None)
 
 
+# the batch of the one step both routes are held to: PyTorch's and XLA's
+# float32 encoder forwards differ by ~1e-6 of the scale, so a decoder
+# pre-activation that close to 0 takes another ReLU mask in each, and every
+# gradient above it moves by up to a few 1e-3 on both routes alike (at
+# _batch(0), 2 of up2's conv1; at _batch(5), one of up1's).  _batch(1) has
+# none: there the paired route's decoder and final gradients lie within
+# 2.2e-6 of JAX's.
+STEP_BATCH = 1
+
+
+@pytest.fixture(scope="module")
+def jax_step(kernel_config):
+    """JAX's loss, f_score and gradients of one step on
+    ``_batch(STEP_BATCH)`` in the kernel configuration, and the loss
+    ``make_train_step`` reports."""
+    model, variables = kernel_config
+    batch = _batch(STEP_BATCH)
+    feat_model = model.clone(features_out=True)
+    imgs, target, _ = jstep._prepare_batch(jax.tree_util.tree_map(jnp.asarray, batch), C,
+                                           jnp.float32)
+
+    def loss_fn(params):
+        feats, _ = feat_model.apply({"params": params, "batch_stats": {}}, imgs, True,
+                                    rngs={"dropout": jax.random.PRNGKey(0)},
+                                    mutable=["batch_stats"])
+        return final_ce_dice_loss_grad(feats, params["final"]["kernel"],
+                                       params["final"]["bias"], target, CW, C,
+                                       with_dice=True)
+
+    (jloss, jfs), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(variables["params"])
+    tx = jstep.make_optimizer("adam", 0.9)
+    jstate = jstep.create_train_state(model, variables, tx)
+    _, metrics = jstep.make_train_step(model, jstep.StepConfig(
+        num_classes=C, cls_weights=CW, use_dice=True))(jstate, batch, LR,
+                                                       jax.random.PRNGKey(0))
+    return (float(jloss), float(jfs), float(metrics["loss"]),
+            state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jgrads)))
+
+
 def _port(variables):
     net = build_model("unet_vgg", C)
     net.load_state_dict(state_dict_from_flax(variables), strict=True)
@@ -70,49 +116,61 @@ def _rel(a, b):
 KERNEL_GRADS = ("final.", "up_concat1.")
 
 
-def test_train_step_matches_jax_kernel_config(kernel_config):
+def _port_step(variables, route):
+    """The port's step on ``_batch(STEP_BATCH)``: (loss, f_score,
+    gradients)."""
+    net = _port(variables)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    _, m = tstep.make_train_step(net, _cfg(train_route=route))(
+        state, _batch(STEP_BATCH), LR)
+    return m["loss"].item(), m["f_score"].item(), dict(net.named_parameters())
+
+
+def test_train_step_matches_jax_kernel_config(kernel_config, jax_step):
     """Loss, f_score and the gradients of the kernels' parameters within
     1e-4 relative of JAX's step in the kernel configuration (its loss is
     make_train_step's).  The gradients above them run through PyTorch's
     and XLA's float32 convolutions, whose forwards differ by ~3e-6 of the
-    scale at up3 (their summation order): that flips the ReLU mask of the
-    few pre-activations within 1e-6 of 0 (2 of 262,144 at up2's conv1) and
-    moves a channel's gradient sum by up to a few 1e-3, while JAX's own two
-    configurations (fused and plain) agree within 6e-7.  Those gradients are
-    held at a cosine of 0.99999 and 5e-3 relative."""
-    model, variables = kernel_config
-    batch = _batch(0)
-    feat_model = model.clone(features_out=True)
-    imgs, target, _ = jstep._prepare_batch(jax.tree_util.tree_map(jnp.asarray, batch), C,
-                                           jnp.float32)
-
-    def loss_fn(params):
-        feats, _ = feat_model.apply({"params": params, "batch_stats": {}}, imgs, True,
-                                    rngs={"dropout": jax.random.PRNGKey(0)},
-                                    mutable=["batch_stats"])
-        return final_ce_dice_loss_grad(feats, params["final"]["kernel"],
-                                       params["final"]["bias"], target, CW, C,
-                                       with_dice=True)
-
-    (jloss, jfs), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(variables["params"])
-    tx = jstep.make_optimizer("adam", 0.9)
-    jstate = jstep.create_train_state(model, variables, tx)
-    _, metrics = jstep.make_train_step(model, jstep.StepConfig(
-        num_classes=C, cls_weights=CW, use_dice=True))(jstate, batch, LR,
-                                                       jax.random.PRNGKey(0))
-    np.testing.assert_allclose(float(metrics["loss"]), float(jloss), rtol=1e-6)
-
-    net = _port(variables)
-    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
-    _, m = tstep.make_train_step(net, _cfg())(state, batch, LR)
-    assert abs(m["loss"].item() - float(jloss)) <= 1e-4 * abs(float(jloss))
-    assert abs(m["f_score"].item() - float(jfs)) <= 1e-4 * abs(float(jfs))
-    ref = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jgrads))
-    params = dict(net.named_parameters())
+    scale at up3 (their summation order): that may flip the ReLU mask of
+    the few pre-activations within 1e-6 of 0 (2 of 262,144 at up2's conv1
+    on ``_batch(0)``) and move a channel's gradient sum by up to a few
+    1e-3, while JAX's own two configurations (fused and plain) agree within
+    6e-7.  Those gradients are held at a cosine of 0.99999 and 5e-3
+    relative."""
+    _, variables = kernel_config
+    jloss, jfs, jstep_loss, ref = jax_step
+    np.testing.assert_allclose(jstep_loss, jloss, rtol=1e-6)
+    loss, fs, params = _port_step(variables, "fused")
+    assert abs(loss - jloss) <= 1e-4 * abs(jloss)
+    assert abs(fs - jfs) <= 1e-4 * abs(jfs)
     assert set(ref) == set(params)
     for k, v in ref.items():
         g, r = params[k].grad.numpy().ravel(), v.numpy().ravel()
         if k.startswith(KERNEL_GRADS):
+            assert _rel(g, r) <= 1e-4, (k, _rel(g, r))
+        else:
+            cos = float(g @ r / (np.linalg.norm(g) * np.linalg.norm(r)))
+            assert cos >= 0.99999 and _rel(g, r) <= 5e-3, (k, cos, _rel(g, r))
+
+
+def test_paired_route_matches_jax_step(kernel_config, jax_step):
+    """The default ``"paired"`` route (at 64² the stem and blocks 2-3
+    through the training encoder's plain backward, up1-up3 through the whole
+    stage backward; block 4-5 and up4, untileable at 8x8 and below, plain)
+    against the same JAX step: loss and f_score
+    within 1e-4, every decoder and final gradient within 1e-4 relative (on
+    a batch without a decoder ReLU near-tie, see ``STEP_BATCH``), the
+    encoder (PyTorch's and XLA's float32 convolutions under autograd, as
+    above) at a cosine of 0.99999 and 5e-3 relative."""
+    _, variables = kernel_config
+    jloss, jfs, _, ref = jax_step
+    loss, fs, params = _port_step(variables, "paired")
+    assert abs(loss - jloss) <= 1e-4 * abs(jloss)
+    assert abs(fs - jfs) <= 1e-4 * abs(jfs)
+    assert set(ref) == set(params)
+    for k, v in ref.items():
+        g, r = params[k].grad.numpy().ravel(), v.numpy().ravel()
+        if not k.startswith("vgg."):
             assert _rel(g, r) <= 1e-4, (k, _rel(g, r))
         else:
             cos = float(g @ r / (np.linalg.norm(g) * np.linalg.norm(r)))
@@ -131,13 +189,13 @@ def test_fused_route_matches_plain_autograd(kernel_config):
     batch = _batch(1)
     net = _port(variables)
     state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
-    tstep.make_train_step(net, _cfg())(state, batch, 0.0)
+    tstep.make_train_step(net, _cfg(train_route="fused"))(state, batch, 0.0)
     fused = {k: p.grad.clone() for k, p in net.named_parameters()}
 
     plain = _port(variables)
     x = torch.from_numpy(batch["image"]).float() / 255.0
     target = torch.from_numpy(batch["label"]).long()
-    feats = plain.vgg(x, True)
+    feats = plain.vgg(x, True, "fused")
     up = feats[4]
     for i, skip in zip((4, 3, 2, 1), feats[3::-1]):
         m = getattr(plain, f"up_concat{i}")
@@ -165,7 +223,7 @@ def test_two_steps_match_jax(kernel_config, opt, wd):
     jfn = jstep.make_train_step(model, cfg)
     net = _port(variables)
     state = tstep.TrainState(net, tstep.make_optimizer(net, opt, 0.9, wd))
-    fn = tstep.make_train_step(net, _cfg())
+    fn = tstep.make_train_step(net, _cfg(train_route="fused"))
     for i in range(2):
         jstate, jm = jfn(jstate, _batch(i), LR, jax.random.PRNGKey(i))
         state, m = fn(state, _batch(i), LR)

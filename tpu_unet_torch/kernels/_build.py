@@ -65,6 +65,14 @@ SIGNATURES = {
     "tu_final_ce_dice_bwd": [_P, _I] + [_P] * 10 + [ctypes.c_longlong, _I, _P],
     # g, out, y1, w2t, w1t, g2, dz1, dskip, dups, B, H2, W2, Cs, Cx, F, stream
     "tu_unetup_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # skip, x, ridx, rw, cidx, cw, dz1, y1, g2, work1, work2, dk1, db1, dk2,
+    # db2, B, H2, W2, Cs, Cx, F, ns1, ns2, stream
+    "tu_unetup_wgrad": [_P] * 15 + [_I] * 8 + [_P],
+    # x, is_image, mid0, mid1, out, dskip, dpool, wt0..2, ga, gb, dx, work,
+    # dk0..2, db0..2, n, B, H, W, chans[4], ns[3], stream
+    "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 11 + [_P],
+    # dup, ridx, rw, nr, cidx, cw, nc, dx, B, H, W, C, stream
+    "tu_upsample_adjoint": [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] + [_I] * 4 + [_P],
     # logits, is_bf16, target, cls_weights, partial, sums, n_pix (int64), C,
     # focal, alpha, gamma, stream
     "tu_ce_dice_fwd": [_P, _I] + [_P] * 4 + [ctypes.c_longlong, _I, _I, _F, _F, _P],
@@ -78,7 +86,10 @@ SIGNATURES = {
 launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
                  "unetup": 0, "upconv": 0, "argmax_mask": 0,
-                 "mask_palette": 0, "unetup_bwd": 0, "final_ce_dice_fwd": 0,
+                 "mask_palette": 0, "unetup_bwd": 0, "unetup_wgrad": 0,
+                 "upsample_adjoint": 0, "vgg_block2_fwd": 0,
+                 "vgg_block3_fwd": 0, "vgg_stem_bwd": 0, "vgg_block2_bwd": 0,
+                 "vgg_block3_bwd": 0, "final_ce_dice_fwd": 0,
                  "final_ce_dice_bwd": 0, "ce_dice_fwd": 0, "ce_dice_bwd": 0}
 
 _lock = threading.Lock()

@@ -9,23 +9,27 @@ from x's four neighbours, so neither ``up2x(x)`` nor the concat is stored;
 conv1's output goes through device memory to conv2.  Bound and design in
 the source note.
 
-Training: :func:`unetup_train` (the port of ``fused_unetup_train``,
-decoder_fuse.py:1245-1340) runs the same kernel forward, keeping conv1's
-output y1, and its backward through the ``unetup_bwd`` kernel
-(``kernels/decoder_train.py``, #13); the weight and bias gradients and the
-upsample's adjoint stay outside any kernel, as JAX's ``_train_bwd`` keeps
-them in XLA.
+Training, both run the same kernel forward keeping conv1's output y1:
+- :func:`unetup_train` (the port of ``fused_unetup_train``,
+  decoder_fuse.py:1245-1340, JAX's ``FUSED_TRAIN=1``) takes its backward
+  through the ``unetup_bwd`` kernel (``kernels/decoder_train.py``, #13); the
+  weight and bias gradients and the upsample's adjoint stay outside any
+  kernel, as JAX's ``_train_bwd`` keeps them in XLA;
+- :func:`unetup_train_full` (the port of both ``fused_unetup_train_paired``
+  and ``fused_unetup_train_wide``, :1355-1496, JAX's ``PAIRED_TRAIN=1``:
+  the two differ only in the stages JAX gives them and their TPU layouts;
+  in natural layout they are one function) takes the whole stage backward
+  through ``unetup_bwd_full`` (#14-#19: #13's dgrads, then the weight
+  gradients and the upsample's adjoint as kernels).
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from tpu_unet_torch.kernels import _build
 from tpu_unet_torch.kernels._plain import conv3x3_relu, on_cpu
-from tpu_unet_torch.kernels.decoder_train import unetup_bwd
-from tpu_unet_torch.nn.resize import lerp_tables, upsample2x
+from tpu_unet_torch.kernels.decoder_train import unetup_bwd, unetup_bwd_full, up2x_tables
+from tpu_unet_torch.nn.resize import upsample2x
 
 
 def _unetup_plain_y1(skip, x, w1, b1, w2, b2):
@@ -37,15 +41,6 @@ def unetup_plain(skip, x, w1, b1, w2, b2):
     """skip (B, 2H, 2W, Cs), x (B, H, W, Cx) → (B, 2H, 2W, F); mirrors
     ``reference_unetup`` (decoder_fuse.py:1181), concat order [skip, up]."""
     return _unetup_plain_y1(skip, x, w1, b1, w2, b2)[0]
-
-
-@functools.lru_cache(maxsize=32)
-def _tables(h: int, w: int, device: torch.device):
-    """Row and column (idx, wts) tables of the ×2 align-corners upsample,
-    with bf16-rounded weights, on ``device``."""
-    ridx, rw = lerp_tables(h, 2 * h, True, torch.bfloat16)
-    cidx, cw = lerp_tables(w, 2 * w, True, torch.bfloat16)
-    return tuple(t.contiguous().to(device) for t in (ridx, rw, cidx, cw))
 
 
 def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
@@ -61,7 +56,7 @@ def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
         raise ValueError(f"unetup kernel: 2H={H2} % 8, 2W={W2} % 16, Cs={cs} "
                          f"% 8, Cx={cx} % 8, Cs+Cx % 32 and F={f} % 64 must "
                          "all be 0")
-    ridx, rw, cidx, cw = _tables(H, W, x.device)
+    ridx, rw, cidx, cw = up2x_tables(H, W, x.device)
     wt1, wt2 = _build.pack_conv3x3(w1), _build.pack_conv3x3(w2)
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
     y1 = torch.empty((B, H2, W2, f), dtype=torch.bfloat16, device=x.device)
@@ -92,15 +87,19 @@ def _conv_wgrad(v, g, w_like):
         None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False])[1]
 
 
+def _forward_y1(ctx, skip, x, w1, b1, w2, b2):
+    """The stage's forward (#1 on the card) keeping y1, saved for the
+    backward with the inputs."""
+    if on_cpu(x):
+        out, y1 = _unetup_plain_y1(skip, x, w1, b1, w2, b2)
+    else:
+        out, y1 = _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=True)
+    ctx.save_for_backward(skip, x, w1, b1, w2, b2, y1, out)
+    return out
+
+
 class _UnetUpTrain(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, skip, x, w1, b1, w2, b2):
-        if on_cpu(x):
-            out, y1 = _unetup_plain_y1(skip, x, w1, b1, w2, b2)
-        else:
-            out, y1 = _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=True)
-        ctx.save_for_backward(skip, x, w1, b1, w2, b2, y1, out)
-        return out
+    forward = staticmethod(_forward_y1)
 
     @staticmethod
     def backward(ctx, g):
@@ -128,3 +127,25 @@ def unetup_train(skip, x, w1, b1, w2, b2):
     apart, so the concat is not stored) and the upsample's adjoint.  CPU
     tensors take the plain versions both ways."""
     return _UnetUpTrain.apply(skip, x, w1, b1, w2, b2)
+
+
+class _UnetUpTrainFull(torch.autograd.Function):
+    forward = staticmethod(_forward_y1)
+
+    @staticmethod
+    def backward(ctx, g):
+        skip, x, w1, b1, w2, b2, y1, out = ctx.saved_tensors
+        dskip, dx, dk1, db1, dk2, db2 = unetup_bwd_full(
+            g.to(y1.dtype).contiguous(), out, y1, skip, x, w1, w2)
+        # cast as _ptrain_bwd / _wtrain_bwd (decoder_fuse.py:1432-1436, 1490-1493)
+        return (dskip, dx.to(x.dtype), dk1.to(w1.dtype), db1.to(b1.dtype),
+                dk2.to(w2.dtype), db2.to(b2.dtype))
+
+
+def unetup_train_full(skip, x, w1, b1, w2, b2):
+    """One UnetUp stage for training in JAX's default configuration
+    (``fused_unetup_train_paired`` for up1, ``fused_unetup_train_wide`` for
+    the F ≥ 128 stages): the forward as :func:`unetup` keeping y1, the whole
+    backward through ``unetup_bwd_full`` (#14-#19).  JAX's column-paired
+    output is the free reshape of this one's natural (B, 2H, 2W, F)."""
+    return _UnetUpTrainFull.apply(skip, x, w1, b1, w2, b2)

@@ -22,8 +22,18 @@ def vgg_block_plain(x, ws, bs, pool: bool = True):
     return y, (max_pool2x2(y) if pool else None)
 
 
-def _vgg_block_cuda(x, ws, bs, pool):
-    _build.no_grad_inputs("vgg_block", x, ws, bs)
+def vgg_block_shape_ok(H: int, W: int, chans) -> bool:
+    """The block kernels' shape rule (forward and backward): H % 8, W % 16,
+    input widths % 32 and output widths % 64 all 0."""
+    return not (H % 8 or W % 16 or any(c % 32 for c in chans[:-1])
+                or any(c % 64 for c in chans[1:]))
+
+
+def _vgg_block_cuda(x, ws, bs, pool, key="vgg_block"):
+    """The kernel; returns (skip, pooled or None, [the intermediate ReLU
+    outputs]), counted under ``key`` (the training forward's keys name the
+    JAX kernel it stands for)."""
+    _build.no_grad_inputs(key, x, ws, bs)
     n = len(ws)
     B, H, W, C = x.shape
     chans = [C] + [int(w.shape[0]) for w in ws]
@@ -33,8 +43,7 @@ def _vgg_block_cuda(x, ws, bs, pool):
     for i, w in enumerate(ws):
         _build.check(w, f"ws[{i}]", torch.bfloat16,
                      (chans[i + 1], chans[i], 3, 3), x.device)
-    if H % 8 or W % 16 or any(c % 32 for c in chans[:-1]) \
-            or any(c % 64 for c in chans[1:]):
+    if not vgg_block_shape_ok(H, W, chans):
         raise ValueError(f"vgg_block kernel: H={H} % 8, W={W} % 16, input "
                          f"widths % 32 and output widths % 64 must be 0 "
                          f"(chans {chans})")
@@ -53,8 +62,8 @@ def _vgg_block_cuda(x, ws, bs, pool):
                 *[t.data_ptr() for t in mids], *([None] * (2 - len(mids))),
                 skip.data_ptr(), _build.ptr(pooled), B, H, W,
                 *chans, *([0] * (4 - len(chans))))
-    _build.launch_counts["vgg_block"] += 1
-    return skip, pooled
+    _build.launch_counts[key] += 1
+    return skip, pooled, mids
 
 
 def vgg_block(x, ws, bs, pool: bool = True):
@@ -63,4 +72,4 @@ def vgg_block(x, ws, bs, pool: bool = True):
     output widths % 64 all 0)."""
     if on_cpu(x):
         return vgg_block_plain(x, ws, bs, pool)
-    return _vgg_block_cuda(x, ws, bs, pool)
+    return _vgg_block_cuda(x, ws, bs, pool)[:2]

@@ -26,7 +26,14 @@ def vgg_stem_plain(x, w11, b11, w12, b12):
     return y, max_pool2x2(y)
 
 
+def vgg_stem_shape_ok(H: int, W: int, f: int) -> bool:
+    """The stem kernels' shape rule (forward and backward): H % 8, W % 16
+    and F % 64 all 0."""
+    return not (H % 8 or W % 16 or f % 64)
+
+
 def _vgg_stem_cuda(x, w11, b11, w12, b12):
+    """The kernel; returns (skip, pooled, a1), a1 conv1_1's ReLU output."""
     _build.no_grad_inputs("vgg_stem", x, w11, b11, w12, b12)
     B, H, W = x.shape[:3]
     f = w11.shape[0]
@@ -35,7 +42,7 @@ def _vgg_stem_cuda(x, w11, b11, w12, b12):
     _build.check(x, "x", x.dtype, (B, H, W, 3))
     _build.check(w11, "w11", torch.bfloat16, (f, 3, 3, 3), x.device)
     _build.check(w12, "w12", torch.bfloat16, (f, f, 3, 3), x.device)
-    if H % 8 or W % 16 or f % 64:
+    if not vgg_stem_shape_ok(H, W, f):
         raise ValueError(f"vgg_stem kernel: H={H} % 8, W={W} % 16, F={f} % 64 "
                          "must all be 0")
     wt11 = _build.pack_conv3x3(w11, 32)
@@ -50,7 +57,7 @@ def _vgg_stem_cuda(x, w11, b11, w12, b12):
                 b12f.data_ptr(), a1.data_ptr(), skip.data_ptr(),
                 pooled.data_ptr(), B, H, W, f)
     _build.launch_counts["vgg_stem"] += 1
-    return skip, pooled
+    return skip, pooled, a1
 
 
 def vgg_stem(x, w11, b11, w12, b12):
@@ -58,4 +65,4 @@ def vgg_stem(x, w11, b11, w12, b12):
     for tensors on the card (bf16 weights, H % 8 == 0, W % 16 == 0)."""
     if on_cpu(x):
         return vgg_stem_plain(x, w11, b11, w12, b12)
-    return _vgg_stem_cuda(x, w11, b11, w12, b12)
+    return _vgg_stem_cuda(x, w11, b11, w12, b12)[:2]

@@ -15,7 +15,7 @@ import torch
 
 from tpu_unet_torch.kernels import _build
 from tpu_unet_torch.kernels._plain import conv3x3_relu, on_cpu
-from tpu_unet_torch.kernels.decoder_fuse import _tables
+from tpu_unet_torch.kernels.decoder_train import up2x_tables
 from tpu_unet_torch.nn.resize import upsample2x
 
 
@@ -36,7 +36,7 @@ def _upconv_cuda(x, w1, b1, w2, b2):
     _build.check(x, "x", torch.bfloat16)
     _build.check(w1, "w1", torch.bfloat16, (f, cx, 3, 3), x.device)
     _build.check(w2, "w2", torch.bfloat16, (f, f, 3, 3), x.device)
-    ridx, rw, cidx, cw = _tables(H, W, x.device)
+    ridx, rw, cidx, cw = up2x_tables(H, W, x.device)
     wt1, wt2 = _build.pack_conv3x3(w1), _build.pack_conv3x3(w2)
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
     y1 = torch.empty((B, H2, W2, f), dtype=torch.bfloat16, device=x.device)

@@ -6,9 +6,14 @@
 between), so the state dict carries the reference key names
 ``features.{i}.weight``.  The forward does not run the Sequential: stage 1
 goes to the stem kernel wrapper and stages 2-5 to the encoder-block wrapper,
-NHWC throughout.  In training (``train=True``) the stages run their plain
-compositions under autograd (cuDNN convs), as JAX's training step does
-without the paired region (models/unet.py:62-67).
+NHWC throughout.  In training (``train=True``) the route decides
+(``train/step.py::StepConfig.train_route``): ``"paired"``, as JAX's paired
+training region (``fused_stem_train``, models/backbones.py:79-145), trains
+each stage the kernels tile through its training kernels
+(``kernels/encoder_train.py``: kernel forward keeping the intermediates,
+one backward kernel); ``"fused"`` and any untileable stage run the plain
+composition under autograd (cuDNN convs), as JAX's step does without the
+paired region.
 
 ``ResNet50``: five features at strides 2/4/8/16/32 with 64/256/512/1024/2048
 channels, module names of the reference (``conv1``, ``bn1``,
@@ -24,7 +29,9 @@ import torch
 from torch import nn
 
 from tpu_unet_torch.kernels.encoder import vgg_block, vgg_block_plain
-from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
+from tpu_unet_torch.kernels.encoder_train import (vgg_block_train, vgg_block_train_ok,
+                                                  vgg_stem_train)
+from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain, vgg_stem_shape_ok
 from tpu_unet_torch.nn.blocks import BN_EPS, bn, max_pool_ceil
 
 # cfg 'D' (reference: nets/vgg.py:59)
@@ -57,14 +64,21 @@ class VGG16(nn.Module):
         convs = [self.features[i] for i in idx]
         return [c.weight for c in convs], [c.bias for c in convs]
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, route: str = "paired"):
         """(B, H, W, 3) uint8 or float image → [feat1 … feat5], NHWC."""
-        stem, block = (vgg_stem_plain, vgg_block_plain) if train else (vgg_stem, vgg_block)
+        kernels = train and route == "paired"
         (w0, w2), (b0, b2) = self._wb(_STAGES[0])
+        stem = vgg_stem_plain if train else vgg_stem
+        if kernels and vgg_stem_shape_ok(x.shape[1], x.shape[2], w0.shape[0]):
+            stem = vgg_stem_train
         feat1, x = stem(x, w0, b0, w2, b2)
         feats = [feat1]
         for si, idx in enumerate(_STAGES[1:], start=1):
             ws, bs = self._wb(idx)
+            block = vgg_block_plain if train else vgg_block
+            chans = [x.shape[-1]] + [w.shape[0] for w in ws]
+            if kernels and vgg_block_train_ok(x.shape[1], x.shape[2], chans):
+                block = vgg_block_train
             skip, pooled = block(x, ws, bs, pool=si < len(_STAGES) - 1)
             feats.append(skip)
             x = pooled

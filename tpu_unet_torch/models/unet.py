@@ -3,12 +3,18 @@
 reference torch model (``vgg`` / ``resnet``, ``up_concat1..4``, ``up_conv``,
 ``final``).
 
-``forward(x, features_out, train)``: ``train=True`` is the training forward
-of ``unet_vgg`` (encoder and the F ≥ 128 decoder stages as plain
-compositions under autograd, up1 through ``unetup_train``).  The ResNet50
-encoder's train mode comes with its slice (T4) and raises; the ``up_conv``
-head's backward (#12) has no kernel yet: it raises in train mode on the
-card, and on the CPU the head runs its plain version.
+``forward(x, features_out, train, generator, route)``: ``train=True`` is
+the training forward of ``unet_vgg``, routed by ``route``
+(``train/step.py::StepConfig.train_route``) as JAX's training switches
+route ``Unet.__call__`` (models/unet.py:56-87): under ``"paired"`` the VGG16
+stages through their training kernels (``models/backbones.py::VGG16``) and
+every decoder stage through ``unetup_train_full``, each where the kernels
+tile its shape; under ``"fused"`` the encoder as a plain composition under
+autograd, up1 through ``unetup_train`` and up2-up4 plain
+(``nn/blocks.py::UnetUp``).  The ResNet50 encoder's train mode comes with
+its slice (T4) and raises; the ``up_conv`` head's backward (#12) has no
+kernel yet: it raises in train mode on the card, and on the CPU the head
+runs its plain version.
 
 The ResNet50 UNet, and ``self_net`` (VGG16 with ``force_up_conv``), end in
 the ``up_conv`` head (reference: nets/unet.py:47-54): ×2 align-corners
@@ -60,15 +66,17 @@ class Unet(nn.Module):
         self.final = nn.Conv2d(_OUT_FILTERS[0], num_classes, 1)
 
     def forward(self, x: torch.Tensor, features_out: bool = False,
-                train: bool = False, generator: torch.Generator | None = None):
+                train: bool = False, generator: torch.Generator | None = None,
+                route: str = "paired"):
         """(B, H, W, 3) → logits (B, H', W', C); with ``features_out`` the
         (B, H', W', 64) features before ``final``, for the fused tail
         (``kernels/postprocess.py``) or the fused loss
         (``kernels/loss.py``) that applies ``final`` itself.  H' = H,
         except for ``self_net``, whose head doubles it.  ``generator`` is
-        unused (no dropout)."""
+        unused (no dropout); ``route`` is the training route
+        (``train/step.py::StepConfig.train_route``)."""
         if self.backbone == "vgg":
-            feats = self.vgg(x, train)
+            feats = self.vgg(x, train, route)
         elif train:
             raise NotImplementedError(
                 "unet_resnet50 training (its ResNet50 in train mode, the up_conv "
@@ -76,10 +84,10 @@ class Unet(nn.Module):
         else:
             feats = self.resnet(x)
         feat1, feat2, feat3, feat4, feat5 = feats
-        up4 = self.up_concat4(feat4, feat5, train)
-        up3 = self.up_concat3(feat3, up4, train)
-        up2 = self.up_concat2(feat2, up3, train)
-        up1 = self.up_concat1(feat1, up2, train)
+        up4 = self.up_concat4(feat4, feat5, train, route)
+        up3 = self.up_concat3(feat3, up4, train, route)
+        up2 = self.up_concat2(feat2, up3, train, route)
+        up1 = self.up_concat1(feat1, up2, train, route)
         if self.up_conv is not None:
             c1, c2 = self.up_conv[1], self.up_conv[3]
             head = upconv

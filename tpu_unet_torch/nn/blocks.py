@@ -3,10 +3,14 @@
 - ``UnetUp``: the canonical UNet's decoder block (×2 align-corners upsample
   of the deep feature, concat [skip, up], two 3×3 conv + ReLU, no batch
   norm; parameter names of the reference torch module, ``conv1``,
-  ``conv2``), on the ``unetup`` kernel; in training (``train=True``, as
-  JAX's ``UnetUp.__call__``, blocks.py:214-236) a stage with F < 128 runs
-  ``unetup_train`` (kernel forward, #13 backward) and a wider one the
-  plain composition under autograd;
+  ``conv2``), on the ``unetup`` kernel; in training (``train=True``) routed
+  by ``route`` (``train/step.py::StepConfig.train_route``): ``"paired"``
+  (JAX's ``PAIRED_TRAIN=1``, its TPU default, which gives up1 the paired
+  stage and up2-up4 the wide one, blocks.py:195-236) trains every stage the
+  stage kernels tile through ``unetup_train_full`` (kernel forward, the
+  whole stage backward #14-#19); ``"fused"`` (``FUSED_TRAIN=1``) gives every
+  F < 128 stage ``unetup_train`` (kernel forward, #13 backward); any other
+  stage runs the plain composition under autograd;
 - ``DoubleConv``, ``Down``, ``Up``: the TraditionalUnet blocks,
   (3×3 conv → batch norm → ReLU) ×2, behind a 2×2 max-pool or an
   upsample + concat.  The JAX package runs them outside any Pallas kernel,
@@ -34,7 +38,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_unet_torch.kernels._plain import max_pool2x2
-from tpu_unet_torch.kernels.decoder_fuse import unetup, unetup_plain, unetup_train
+from tpu_unet_torch.kernels.decoder_fuse import (unetup, unetup_plain, unetup_train,
+                                                 unetup_train_full)
+from tpu_unet_torch.kernels.decoder_train import stage_shape_ok
 from tpu_unet_torch.nn.resize import upsample2x
 
 # torch BN defaults, as the JAX package uses them: new = 0.9·old + 0.1·batch
@@ -100,16 +106,19 @@ class UnetUp(nn.Module):
         self.conv1 = nn.Conv2d(in_size, out_size, kernel_size=3, padding=1)
         self.conv2 = nn.Conv2d(out_size, out_size, kernel_size=3, padding=1)
 
-    def forward(self, skip: torch.Tensor, x: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+    def forward(self, skip: torch.Tensor, x: torch.Tensor, train: bool = False,
+                route: str = "paired") -> torch.Tensor:
         args = (skip, x, self.conv1.weight, self.conv1.bias, self.conv2.weight,
                 self.conv2.bias)
         if not train:
             return unetup(*args)
-        f = self.conv1.out_channels
-        # decoder_fuse.py::_train_kernel_ok: the kernel pair for F < 128
-        if f < 128 and skip.shape[-1] % 2 == 0 and f % 8 == 0:
-            return unetup_train(*args)
+        f, cs = self.conv1.out_channels, skip.shape[-1]
+        if route == "fused":
+            # decoder_fuse.py::_train_kernel_ok: the kernel pair for F < 128
+            ok = f < 128 and cs % 2 == 0 and f % 8 == 0
+            return unetup_train(*args) if ok else unetup_plain(*args)
+        if stage_shape_ok(skip.shape[1], skip.shape[2], f, cs + x.shape[-1], cs):
+            return unetup_train_full(*args)
         return unetup_plain(*args)
 
 

@@ -97,3 +97,42 @@ def upsample2x(x: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
     """×2 bilinear upsample of NHWC ``x`` (decoder hot path)."""
     h, w = x.shape[-3], x.shape[-2]
     return resize_bilinear(x, (2 * h, 2 * w), align_corners=align_corners)
+
+
+def adjoint_tables(in_size: int, dtype: torch.dtype):
+    """Gather form of the ×2 align-corners lerp's adjoint on one axis:
+    (idx int32 (in, n), wts float32 (in, n)), row i listing every
+    (output position u, weight) pair of :func:`lerp_tables` that reads
+    input i, in increasing u (i0's entry before i1's), padded at the end
+    with index -1 and weight 0.  n is the longest list (5 for ×2 from 2
+    inputs up)."""
+    idx, wts = lerp_tables(in_size, 2 * in_size, True, dtype)
+    lists = [[] for _ in range(in_size)]
+    for u in range(2 * in_size):
+        for k in (0, 1):
+            lists[int(idx[k, u])].append((u, float(wts[k, u])))
+    n = max(len(entries) for entries in lists)
+    t_idx = torch.full((in_size, n), -1, dtype=torch.int32)
+    t_w = torch.zeros((in_size, n), dtype=torch.float32)
+    for i, entries in enumerate(lists):
+        for a, (u, wt) in enumerate(entries):
+            t_idx[i, a], t_w[i, a] = u, wt
+    return t_idx, t_w
+
+
+def upsample2x_adjoint_plain(dup: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The exact adjoint of :func:`upsample2x` at ``dup``'s dtype: NHWC
+    ``dup`` (B, 2h, 2w, C) → (B, h, w, C).  The lerp weights are those the
+    forward uses at that dtype (rounded to it); the sums run in float32 (W
+    pass first, as autograd of the forward takes them) and round once."""
+    ridx, rw = lerp_tables(h, 2 * h, True, dup.dtype)
+    cidx, cw = lerp_tables(w, 2 * w, True, dup.dtype)
+    dev = dup.device
+    d = dup.float()
+    dh = torch.zeros(d.shape[:2] + (w, d.shape[-1]), dtype=torch.float32, device=dev)
+    for k in (0, 1):
+        dh.index_add_(2, cidx[k].to(dev, torch.long), d * cw[k].to(dev)[:, None])
+    dx = torch.zeros((d.shape[0], h, w, d.shape[-1]), dtype=torch.float32, device=dev)
+    for k in (0, 1):
+        dx.index_add_(1, ridx[k].to(dev, torch.long), dh * rw[k].to(dev)[:, None, None])
+    return dx.to(dup.dtype)

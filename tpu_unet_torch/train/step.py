@@ -17,6 +17,13 @@
   the logits (``train/losses.py``).  The eval step always takes the plain
   losses (:246-261) on the serving forward, batch norm on the running
   statistics.
+- ``unet_vgg``'s encoder and decoder as JAX's training switches route
+  them, named by ``StepConfig.train_route``: ``"paired"`` (JAX's TPU
+  default) trains every stage the kernels tile through its kernel forward
+  and its one backward kernel (the stem #2 / #20, block 2 #21 / #22,
+  blocks 3-5 #23 / #24, the decoder stages #1 and #14-#19); ``"fused"``
+  trains the encoder plain, up1 through #1 and #13 and the other decoder
+  stages plain.
 - Batch norm and dropout as ``apply(..., True, rngs={"dropout": key},
   mutable=["batch_stats"])``: the training forward normalises with the
   batch statistics and updates the modules' float32 running statistics in
@@ -61,14 +68,34 @@ FREEZE_PREFIXES = {
 }
 
 
+# the two training routes of the canonical UNet (StepConfig.train_route)
+TRAIN_ROUTES = ("paired", "fused")
+
+
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
+    """``train_route`` is the counterpart of JAX's two training switches
+    (``core/fusion.py:101-112``): ``"paired"`` is ``TPU_UNET_PAIRED_TRAIN=1
+    TPU_UNET_FUSED_TRAIN=0``, JAX's TPU default (the training stem and
+    encoder blocks, ``models/backbones.py:79-145``, and every decoder stage
+    with its whole stage backward, #14-#19); ``"fused"`` is
+    ``TPU_UNET_FUSED_TRAIN=1 TPU_UNET_PAIRED_TRAIN=0`` (the encoder plain,
+    the F < 128 decoder stages through #13, the wider ones plain).  It
+    routes ``Unet``'s encoder and decoder (``models/backbones.py::VGG16``,
+    ``nn/blocks.py::UnetUp``); on the CPU both run the plain versions.
+    Validated here only."""
     num_classes: int
     cls_weights: tuple
     use_focal: bool = False
     use_dice: bool = False
     aux_weights: tuple = ()      # () = no deep supervision
     compute_dtype: torch.dtype = torch.float32
+    train_route: str = "paired"
+
+    def __post_init__(self):
+        if self.train_route not in TRAIN_ROUTES:
+            raise ValueError(f"train_route {self.train_route!r}, expected one of "
+                             f"{TRAIN_ROUTES}")
 
 
 @dataclasses.dataclass
@@ -182,6 +209,8 @@ def make_train_step(model: nn.Module, cfg: StepConfig):
             group["lr"] = lr
         params = cast_params(state.model, cfg.compute_dtype)
         kwargs = {"train": True, "generator": generator}
+        if isinstance(state.model, Unet):
+            kwargs["route"] = cfg.train_route
         if fused:
             feats = functional_call(state.model, params, (imgs,),
                                     {"features_out": True, **kwargs})
