@@ -19,7 +19,9 @@ Phases (any failure exits non-zero without the final result line):
    the palette kernel at 8 frames of 256x256 (also against the host
    render), the whole decoder-stage backward (#13's dgrads, the weight
    gradients, the upsample's adjoint; a planted dropped split read against
-   the weight-gradient bounds) at the four unet_vgg stages and the training
+   the weight-gradient bounds) at the four unet_vgg and the four
+   unet_resnet50 stages, the up_conv head's backward (#12) at both heads'
+   shapes (batch 8; a planted dropped split as well), and the training
    encoder (the block forwards keeping their intermediates, the stem's and
    the blocks' backwards) at its five stages, bit-identical on a second
    launch — error, kernel time, plain time, library time and bound;
@@ -72,7 +74,20 @@ Phases (any failure exits non-zero without the final result line):
    plain losses, no kernel); (d) ``cli train --preset traditional`` over
    a seeded VOC-layout directory with the heavy augmentation (2 epochs of
    2 steps, evaluation each epoch), a resume, and ``serving_step()``
-   through the natural-layout tail from the trained ``.pth``;
+   through the natural-layout tail from the trained ``.pth``; (e) the
+   ``unet_resnet50`` step (the ``voc_resnet50`` recipe: 512x512, batch 8,
+   21 classes, bf16, CE + dice, Adam 1e-4; its decoder stages and up_conv
+   head through their kernels, the loss through #27 / #29, ResNet50 on
+   cuDNN with batch norm on the batch statistics) — exact launch counts,
+   time, img/s, peak memory, profile (no ``index_add_``), loss, every
+   gradient and the running statistics against ``plain_step`` — then one
+   step of the freeze phase, one at the preset's batch 16, a 128^2 step
+   against the CPU float32 path and 20 learning steps; (f) the ``self_net``
+   step at 512x512, batch 8 (unet_vgg's training kernels, the head, the
+   plain losses on its 2x logits) held the same way; (g) ``fit`` with the
+   ``voc_resnet50`` preset (no ImageNet file) over a seeded VOC-layout
+   directory at 256^2: one frozen and one unfrozen epoch, a resume, and
+   serving from the trained ``.pth``;
 7. one ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -366,11 +381,13 @@ def phase_kernels(card: str):
                      flops, nbytes(x, w1, b1, w2, b2, out))
         check(rel <= CONV_REL_TOL, f"upconv {b}x{h}^2 rel err {rel:.3g}")
         del x, out, ref
-    # the self_net head's kernel at the serving batch (no plain version)
+    # the self_net head's kernel and cuDNN's chain at the serving batch (no
+    # plain version: it is timed at batch 2 above)
     x = act(B, S, S, 64)
     head_ms = time_ms(lambda: upconv(x, w1, b1, w2, b2))
+    lib_ms = time_ms(lambda: lib(x, w1, b1, w2, b2))
     print(json.dumps({"kernel": "upconv", "case": f"{B}x{S}x{S}x64->{2 * S}^2x64",
-                      "ms": head_ms, "gpu": card}), flush=True)
+                      "ms": head_ms, "library_ms": lib_ms, "gpu": card}), flush=True)
     del x
 
     def tail(kernel, n, h, w, f, c, hist):
@@ -591,14 +608,18 @@ def phase_train_kernels(card: str, results: dict):
         check(rel <= CONV_REL_TOL, f"unetup_bwd {case}: rel err {rel:.3g} > {CONV_REL_TOL}")
         del g, out_, y1, res, ref, placeholder
     decoder_bwd_kernels(record, gen)
+    upconv_bwd_kernels(record, gen)
     encoder_train_kernels(record, gen)
     logit_loss_kernels(record, gen)
     print("phase 2: training kernels done", flush=True)
 
 
-# unet_vgg's decoder stages at 512², batch 8: (x H, Cs, Cx, F), up1 … up4
+# the decoder stages at 512², batch 8: (x H, Cs, Cx, F), up1 … up4, of
+# unet_vgg and of unet_resnet50 (its stride-2 pyramid, the head after up1)
 VGG_STAGES = ((SIZE // 2, 64, 128, 64), (SIZE // 4, 128, 256, 128),
               (SIZE // 8, 256, 512, 256), (SIZE // 16, 512, 512, 512))
+RN50_STAGES = ((SIZE // 4, 64, 128, 64), (SIZE // 8, 256, 256, 128),
+               (SIZE // 16, 512, 512, 256), (SIZE // 32, 1024, 2048, 512))
 # weight / bias gradients, relative to max |plain|: float32 sums of the same
 # bf16 products in another order (the kernel's split-K runs vs cuDNN's) over
 # up to 2.1M pixels.  The sound readings on an H100 (700 W) are at most
@@ -616,12 +637,15 @@ WGRAD_CHAIN_REL_TOL = 1e-3
 ADJOINT_REL_TOL = 1e-2
 
 
-def wgrad_fault_reading(skip, x, dz1, y1, g2, wref, case):
-    """Plant a dropped split-K partial in ``unetup_wgrad``'s dk2 / db2 (the
-    pixels of split 0 zeroed in g2, which is what losing that split's
-    partial computes) and read it as the checks read the kernel: it must
-    lie above both weight-gradient bounds."""
-    from tpu_unet_torch.kernels.decoder_train import WGRAD_CHUNK, _wgrad_splits, unetup_wgrad
+def wgrad_fault_reading(kernel, case, g2, run, refs):
+    """Plant a dropped split-K partial in ``kernel``'s dk2 / db2 GEMM and
+    read it as the checks read the kernel: it must lie above both
+    weight-gradient bounds.  ``g2`` (..., F) is the GEMM's output-gradient
+    operand, whose pixels of split 0 are zeroed (which is what losing that
+    split's partial computes; zeroing them in the ReLU-masked g gives the
+    same g2); ``run(faulty)`` returns the (dk2, db2) the kernel then
+    computes, ``refs`` the plain version's on the sound operand."""
+    from tpu_unet_torch.kernels.decoder_train import WGRAD_CHUNK, _wgrad_splits
 
     f = g2.shape[-1]
     n_pix = g2.numel() // f
@@ -629,17 +653,17 @@ def wgrad_fault_reading(skip, x, dz1, y1, g2, wref, case):
     lost = (n_pix // WGRAD_CHUNK) // ns * WGRAD_CHUNK
     faulty = g2.clone()
     faulty.view(-1, f)[:lost] = 0
-    res = unetup_wgrad(skip, x, dz1, y1, faulty)
-    fault = max(rel_err(res[2], wref[2])[1], rel_err(res[3], wref[3])[1])
-    print(json.dumps({"wgrad_planted_fault": case, "dropped_split_of": ns,
+    fault = max(rel_err(a, b)[1] for a, b in zip(run(faulty), refs))
+    print(json.dumps({"wgrad_planted_fault": f"{kernel} {case}", "dropped_split_of": ns,
                       "rel_err": fault, "bounds": [WGRAD_REL_TOL, WGRAD_CHAIN_REL_TOL]}),
           flush=True)
     check(fault > max(WGRAD_REL_TOL, WGRAD_CHAIN_REL_TOL),
-          f"unetup_wgrad {case}: a dropped split reads {fault:.3g}, inside the bounds")
+          f"{kernel} {case}: a dropped split reads {fault:.3g}, inside the bounds")
 
 
 def decoder_bwd_kernels(record, gen):
-    """The port of #14-#19 at the four unet_vgg stages (512², batch 8):
+    """The port of #14-#19 at the four unet_vgg and the four unet_resnet50
+    decoder stages (512², batch 8):
     ``unetup_bwd_full`` against ``unetup_bwd_full_plain`` (dskip / dx within
     CONV_REL_TOL, the weight and bias gradients within WGRAD_CHAIN_REL_TOL,
     all six bit-identical on a second launch), against the cuDNN chain
@@ -654,7 +678,7 @@ def decoder_bwd_kernels(record, gen):
 
     dev, bf, B = torch.device("cuda"), torch.bfloat16, BATCH
     cb = torch.ops.aten.convolution_backward
-    for h, cs, cx, f in VGG_STAGES:
+    for h, cs, cx, f in VGG_STAGES + RN50_STAGES:
         h2, cp = 2 * h, cs + cx
         skip = torch.relu(torch.randn((B, h2, h2, cs), generator=gen, device=dev)).to(bf)
         x = torch.relu(torch.randn((B, h, h, cx), generator=gen, device=dev)).to(bf)
@@ -717,7 +741,8 @@ def decoder_bwd_kernels(record, gen):
                      nbytes(skip, x, dz1, y1, g2, *wres))
         check(rel <= WGRAD_REL_TOL, f"unetup_wgrad {case}: rel err {rel:.3g} > {WGRAD_REL_TOL}")
         if f == 64:
-            wgrad_fault_reading(skip, x, dz1, y1, g2, wref, case)
+            wgrad_fault_reading("unetup_wgrad", case, g2,
+                                lambda t: unetup_wgrad(skip, x, dz1, y1, t)[2:], wref[2:])
         ares, aref = upsample2x_adjoint(dups, h, h), upsample2x_adjoint_plain(dups, h, h)
 
         def lib_a(x=x, dups=dups):
@@ -733,6 +758,58 @@ def decoder_bwd_kernels(record, gen):
         check(rel <= ADJOINT_REL_TOL,
               f"upsample_adjoint {case}: rel err {rel:.3g} > {ADJOINT_REL_TOL}")
         del skip, x, g, out_, y1, res, again, ref, dups, g2, dz1, wres, wref, ares, aref
+        torch.cuda.empty_cache()
+
+
+def upconv_bwd_kernels(record, gen):
+    """The port of #12 at the two heads' shapes, batch 8: unet_resnet50's
+    (x 256^2 -> 512^2) and self_net's (x 512^2 -> 1024^2), 64 channels.
+    ``upconv_bwd`` against ``upconv_bwd_plain``: dx within CONV_REL_TOL,
+    dk2 / db2 (from g2, which the kernel masks exactly as the plain version,
+    and the given y1) within WGRAD_REL_TOL, dk1 / db1 (from dz1, which
+    carries the kernel dgrad's bf16 rounding) within WGRAD_CHAIN_REL_TOL,
+    all five bit-identical on a second launch, and a planted dropped split
+    of the dk2 GEMM read above both bounds; timed against autograd of the
+    cuDNN chain with ``upsample2x`` (its adjoint an ``index_add_``)."""
+    from tpu_unet_torch.kernels.upconv import upconv_bwd, upconv_bwd_plain
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    dev, bf, B = torch.device("cuda"), torch.bfloat16, BATCH
+    for h in (SIZE // 2, SIZE):
+        h2 = 2 * h
+        x = torch.relu(torch.randn((B, h, h, 64), generator=gen, device=dev)).to(bf)
+        g = torch.randn((B, h2, h2, 64), generator=gen, device=dev).to(bf)
+        out_ = torch.relu(torch.randn((B, h2, h2, 64), generator=gen, device=dev)).to(bf)
+        y1 = torch.relu(torch.randn((B, h2, h2, 64), generator=gen, device=dev)).to(bf)
+        w1 = (torch.randn((64, 64, 3, 3), generator=gen, device=dev) / 24).to(bf)
+        w2 = (torch.randn((64, 64, 3, 3), generator=gen, device=dev) / 24).to(bf)
+        args = (g, out_, y1, x, w1, w2)
+        case = f"{B}x{h}x{h}x64->{h2}^2x64"
+        res, again = upconv_bwd(*args), upconv_bwd(*args)
+        check(all(torch.equal(a, b) for a, b in zip(res, again)),
+              f"upconv_bwd {case}: two launches differ")
+        ref = upconv_bwd_plain(*args)
+        errs = {n: rel_err(a, b)[1] for n, a, b in
+                zip(("dx", "dk1", "db1", "dk2", "db2"), res, ref)}
+        tols = {"dx": CONV_REL_TOL, "dk1": WGRAD_CHAIN_REL_TOL, "db1": WGRAD_CHAIN_REL_TOL,
+                "dk2": WGRAD_REL_TOL, "db2": WGRAD_REL_TOL}
+        for n, e in errs.items():
+            check(e <= tols[n], f"upconv_bwd {case}: {n} rel err {e:.3g} > {tols[n]}")
+        print(json.dumps({"upconv_bwd": case, "rel_err_by_output": errs}), flush=True)
+        wgrad_fault_reading("upconv_bwd", case, g,
+                            lambda t: upconv_bwd(t, out_, y1, x, w1, w2)[3:], ref[3:])
+        # the library yardstick: autograd of the cuDNN chain, graph built once
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            wg = [w.detach().requires_grad_() for w in (w1, w2)]
+            bg = [torch.zeros(64, dtype=bf, device=dev, requires_grad=True) for _ in range(2)]
+            y = torch.relu(F.conv2d(cl(upsample2x(xg)), wg[0], bg[0], padding=1))
+            y = torch.relu(F.conv2d(y, wg[1], bg[1], padding=1))
+        lib = lambda: torch.autograd.grad(y, [xg, *wg, *bg], cl(g), retain_graph=True)  # noqa: E731
+        record("upconv_bwd", case, list(res), list(ref), lambda: upconv_bwd(*args),
+               lambda: upconv_bwd_plain(*args), lib, 4 * conv_flops(B, h2, h2, 64, 64),
+               nbytes(*args, *res))
+        del x, g, out_, y1, res, again, ref, xg, wg, bg, y, lib
         torch.cuda.empty_cache()
 
 
@@ -1507,12 +1584,16 @@ def rect_batch(gen, n, size, classes, device):
 
 
 def plain_step(net, batch, num_classes, cls_weights):
-    """Loss and float32 gradients of one bf16 step composed here of the
-    plain modules and ``train/losses.py`` under autograd, no kernel: a bf16
-    copy of ``net`` (a cast's backward is the gradient's cast, so these are
-    the gradients of the float32 masters).  ``tests/test_torch_gpu.py``
-    holds its train step to this same reference."""
+    """Loss, float32 gradients and the running statistics after one bf16
+    step of a canonical UNet (``unet_vgg``, ``unet_resnet50``, ``self_net``)
+    composed here of the plain modules and ``train/losses.py`` under
+    autograd, no kernel: a bf16 copy of ``net`` (a cast's backward is the
+    gradient's cast, so these are the gradients of the float32 masters),
+    ResNet50's batch norm on the batch statistics, self_net's 2x logits
+    resized to the target by the losses.  ``tests/test_torch_gpu.py`` holds
+    its train steps to this same reference."""
     from tpu_unet_torch.kernels.decoder_fuse import unetup_plain
+    from tpu_unet_torch.kernels.upconv import upconv_plain
     from tpu_unet_torch.train.losses import ce_loss, dice_loss, one_hot
     from tpu_unet_torch.train.step import prepare_batch
 
@@ -1520,23 +1601,29 @@ def plain_step(net, batch, num_classes, cls_weights):
     for p in n16.parameters():
         p.data = p.data.to(torch.bfloat16)
     imgs, target = prepare_batch(batch, torch.bfloat16, "cuda")
-    feats = n16.vgg(imgs, True, "fused")  # the encoder's plain composition
+    # the encoders' plain compositions
+    feats = n16.vgg(imgs, True, "fused") if n16.backbone == "vgg" else n16.resnet(imgs, True)
     up = feats[4]
     for i, skip in zip((4, 3, 2, 1), feats[3::-1]):
         m = getattr(n16, f"up_concat{i}")
         up = unetup_plain(skip, up, m.conv1.weight, m.conv1.bias, m.conv2.weight, m.conv2.bias)
+    if n16.up_conv is not None:
+        c1, c2 = n16.up_conv[1], n16.up_conv[3]
+        up = upconv_plain(up, c1.weight, c1.bias, c2.weight, c2.bias)
     logits = (up @ n16.final.weight.reshape(num_classes, -1).t() + n16.final.bias).float()
     loss = ce_loss(logits, target, cls_weights, num_classes) + \
         dice_loss(logits, one_hot(target, num_classes))
     loss.backward()
-    return loss.item(), {k: p.grad.float() for k, p in n16.named_parameters()}
+    return (loss.item(), {k: p.grad.float() for k, p in n16.named_parameters()},
+            bn_stats(n16))
 
 
 def phase_train(card: str):
     """(a) the unet_vgg training step at 512², batch 8, 21 classes, bf16,
-    CE + dice, Adam; (b) ``cli train`` of the ``train_py`` preset over a
-    seeded VOC-layout directory, a resume, and serving from the trained
-    weights.  Returns the launches of the counted runs."""
+    CE + dice, Adam; (e)-(g) unet_resnet50 and self_net; (b) ``cli train``
+    of the ``train_py`` preset over a seeded VOC-layout directory, a
+    resume, and serving from the trained weights; (c), (d) the DataB
+    steps and ``cli train``.  Returns the launches of the counted runs."""
     from tpu_unet_torch.models.registry import build_model, init_model
     from tpu_unet_torch.train import step as tstep
 
@@ -1550,7 +1637,7 @@ def phase_train(card: str):
     init = init_model(build_model("unet_vgg", classes), seed=0).cuda()
 
     # the plain step first, from the initial weights
-    ploss, pgrads = plain_step(init, batch, classes, cw)
+    ploss, pgrads, _ = plain_step(init, batch, classes, cw)
     for route in ("paired", "fused"):
         rcfg = dataclasses.replace(cfg, train_route=route)
         net = copy.deepcopy(init)
@@ -1630,10 +1717,289 @@ def phase_train(card: str):
         "loss_rel_err_vs_cpu_f32_128px": cpu_rel, "losses_20_steps": losses,
         "gpu": card}), flush=True)
     torch.cuda.empty_cache()
-    for part in (cli_train, datab_training, cli_train_datab):
+    for part in (rn50_training, self_net_training, fit_voc_resnet50, cli_train, datab_training,
+                 cli_train_datab):
         for k, v in part(card).items():
             totals[k] = totals.get(k, 0) + v
     print(f"phase 6: training in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals
+
+
+# unet_resnet50's default-route step: its four decoder stages (#1, #13,
+# unetup_wgrad, upsample_adjoint) and the up_conv head (#10 / #12) through
+# their kernels, the loss through #27 / #29, ResNet50 through cuDNN
+RN50_STEP = {"unetup": 4, "unetup_bwd": 4, "unetup_wgrad": 4, "upsample_adjoint": 4,
+             "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
+# self_net's: unet_vgg's training encoder and decoder kernels, the head, and
+# the plain losses on its 2x logits (no loss kernel, as JAX's loss_fn)
+SELF_NET_STEP = {**{k: v for k, v in TRAIN_STEP["paired"].items()
+                    if not k.startswith("final_")}, "upconv": 1, "upconv_bwd": 1}
+
+
+def canonical_step(name: str, card: str, expect: dict, seed: int):
+    """One default-route step of ``name`` (21 classes, 512², batch 8, bf16,
+    CE + dice, Adam 1e-4, the ``voc_resnet50`` recipe) from
+    ``init_model(seed=0)`` weights, held to ``plain_step`` from the same
+    weights: exact launches, loss within 1e-3, every gradient at a cosine
+    ≥ 0.99, the running statistics within 1e-2 (and moved); then its time,
+    rate, peak memory and profile.  Returns (initial model, batch, config,
+    plain gradients, launches)."""
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+
+    classes = CLASSES[name]
+    cw = tuple(1.0 for _ in range(classes))
+    cfg = tstep.StepConfig(classes, cw, use_dice=True, compute_dtype=torch.bfloat16)
+    batch = rect_batch(torch.Generator().manual_seed(seed), BATCH, SIZE, classes, "cuda")
+    init = init_model(build_model(name, classes), seed=0).cuda()
+    before = bn_stats(init)
+    ploss, pgrads, pstats = plain_step(init, batch, classes, cw)
+    net = copy.deepcopy(init)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    fn = tstep.make_train_step(net, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), counts = counted(expect, f"{name} train step", lambda: fn(state, batch, 1e-4))
+    loss0 = m["loss"].item()
+    lrel = abs(loss0 - ploss) / abs(ploss)
+    check(lrel <= 1e-3, f"{name} step loss {loss0} vs plain step {ploss}: rel {lrel:.3g}")
+    worst_cos, worst_rel = 1.0, 0.0
+    for k, p in net.named_parameters():
+        a, b = p.grad.float().ravel(), pgrads[k].ravel()
+        cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+        worst_cos = min(worst_cos, cos)
+        worst_rel = max(worst_rel, ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item())
+        check(cos >= 0.99, f"{name} gradient of {k}: cosine {cos:.5f} against the plain step")
+    stats = bn_stats(net)
+    stat_rel = max((((stats[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                    for k, v in pstats.items()), default=0.0)
+    moved = min((((stats[k] - v).abs().max()).item() for k, v in before.items()), default=1.0)
+    check(stat_rel <= 1e-2 and moved > 0,
+          f"{name} running statistics: rel err {stat_rel:.3g} vs plain, least move {moved:.3g}")
+
+    step = lambda: fn(state, batch, 1e-4)  # noqa: E731
+    step_ms = time_ms(step, reps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = device_breakdown(lambda _net, _imgs: step(), None, None)
+    if name == "unet_resnet50":  # every adjoint of the decoder and head is a kernel's
+        check(profile["index_add_ms"] == 0.0,
+              f"{name} train step: index_add kernels ran {profile['index_add_ms']} ms")
+    print(json.dumps({
+        "train_step": name, "train_route": cfg.train_route, "batch": BATCH, "size": SIZE,
+        "classes": classes, "dtype": "bf16", "recipe": "CE + dice, Adam 1e-4",
+        "launches": counts, "step_ms_events": step_ms, "img_per_s": BATCH * 10 / host,
+        "step_ms_host": host / 10 * 1e3, "peak_mem_gib": peak, "profile": profile,
+        "loss": loss0, "loss_plain_step": ploss, "loss_rel_err_vs_plain": lrel,
+        "worst_grad_cosine": worst_cos, "worst_grad_rel_err": worst_rel,
+        "running_stats_rel_err_vs_plain": stat_rel, "gpu": card}), flush=True)
+    del net, state, fn, step
+    torch.cuda.empty_cache()
+    return init, batch, cfg, pgrads, counts
+
+
+def rn50_training(card: str):
+    """Phase 6e: the unet_resnet50 step (``canonical_step``), one step of
+    the freeze phase (``resnet.*`` frozen: no gradient, the running
+    statistics still moved, the rest held to the plain step), one step at
+    the preset's batch 16 with its peak memory, a 128^2 step at batch 4
+    against the CPU float32 loss, 20 learning steps.  Returns the launches
+    of the counted steps."""
+    from tpu_unet_torch.train import step as tstep
+
+    totals: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    init, batch, cfg, pgrads, counts = canonical_step("unet_resnet50", card, RN50_STEP, seed=16)
+    add(counts)
+    before = bn_stats(init)
+
+    net = copy.deepcopy(init)
+    frozen = tstep.FREEZE_PREFIXES["unet_resnet50"]
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9, freeze_prefixes=frozen))
+    _, counts = counted(RN50_STEP, "unet_resnet50 frozen step",
+                        lambda: tstep.make_train_step(net, cfg)(state, batch, 1e-4))
+    add(counts)
+    worst_cos = 1.0
+    for k, p in net.named_parameters():
+        if k.startswith("resnet."):
+            check(p.grad is None, f"frozen step: {k} has a gradient")
+            continue
+        a, b = p.grad.float().ravel(), pgrads[k].ravel()
+        cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+        worst_cos = min(worst_cos, cos)
+        check(cos >= 0.99, f"frozen step: gradient of {k}: cosine {cos:.5f}")
+    after = bn_stats(net)
+    moved = min(((after[k] - v).abs().max()).item() for k, v in before.items())
+    check(moved > 0, f"frozen step: a running statistic did not move ({moved})")
+    del net, state, pgrads
+
+    # the preset's batch 16
+    big = rect_batch(torch.Generator().manual_seed(17), 16, SIZE, CLASSES["unet_resnet50"], "cuda")
+    net = copy.deepcopy(init)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    fn = tstep.make_train_step(net, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (_, m16), counts = counted(RN50_STEP, "unet_resnet50 step at batch 16",
+                               lambda: fn(state, big, 1e-4))
+    add(counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn(state, big, 1e-4)
+    torch.cuda.synchronize()
+    b16_ms = (time.perf_counter() - t0) / 3 * 1e3
+    peak16 = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(m16["loss"])), f"batch 16 step loss {m16['loss'].item()}")
+    del net, state, fn, big
+    torch.cuda.empty_cache()
+
+    # the card against the CPU float32 path: one step at 128², batch 4
+    small = rect_batch(torch.Generator().manual_seed(18), 4, 128, CLASSES["unet_resnet50"], "cuda")
+    card_net, cpu_net = copy.deepcopy(init), copy.deepcopy(init).cpu()
+    _, mc = tstep.make_train_step(card_net, cfg)(
+        tstep.TrainState(card_net, tstep.make_optimizer(card_net)), small, 1e-4)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    _, mcpu = tstep.make_train_step(cpu_net, f32)(
+        tstep.TrainState(cpu_net, tstep.make_optimizer(cpu_net)),
+        {k: v.cpu() for k, v in small.items()}, 1e-4)
+    cpu_rel = abs(mc["loss"].item() - mcpu["loss"].item()) / abs(mcpu["loss"].item())
+    check(cpu_rel <= 2e-2, f"unet_resnet50 128² step vs CPU f32: loss rel {cpu_rel:.3g} > 2e-2")
+    del card_net, cpu_net
+
+    # it learns: 20 steps on one fixed batch from the initial weights
+    lnet = copy.deepcopy(init)
+    lstate = tstep.TrainState(lnet, tstep.make_optimizer(lnet, "adam", 0.9))
+    lfn = tstep.make_train_step(lnet, cfg)
+    losses = [lfn(lstate, batch, 1e-4)[1]["loss"].item() for _ in range(20)]
+    check(losses[-1] <= 0.9 * losses[0], f"unet_resnet50 20 steps: loss {losses[0]:.4f} -> "
+                                         f"{losses[-1]:.4f}, not 10% lower")
+    print(json.dumps({
+        "train_step": "unet_resnet50", "frozen_step_worst_grad_cosine": worst_cos,
+        "frozen_step_least_running_stat_move": moved, "batch16_step_ms_host": b16_ms,
+        "batch16_img_per_s": 16e3 / b16_ms, "batch16_peak_mem_gib": peak16,
+        "loss_rel_err_vs_cpu_f32_128px_b4": cpu_rel, "losses_20_steps": losses,
+        "gpu": card}), flush=True)
+    del lnet, lstate, lfn, init
+    torch.cuda.empty_cache()
+    return totals
+
+
+def self_net_training(card: str):
+    """Phase 6f: the self_net step (``canonical_step``): unet_vgg's training
+    encoder and decoder kernels, the head through #10 / #12, the plain
+    losses on its 2x logits.  Returns its launches."""
+    init, *_, counts = canonical_step("self_net", card, SELF_NET_STEP, seed=19)
+    del init
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fit_voc_resnet50(card: str):
+    """Phase 6g: ``fit`` with ``get_preset("voc_resnet50",
+    pretrained_backbone=False, freeze_epoch=1, unfreeze_epoch=2)`` over 16 +
+    8 seeded VOC-layout rectangle images at 256², batch 8 (2 steps an
+    epoch): epoch 1 in the freeze phase (the backbone's parameters as
+    ``fit`` drew them, the rest trained), epoch 2 unfrozen (the backbone
+    moves), a full-state resume for a third epoch, and serving from the best
+    weights; returns the launches.  A functional check: its wall time is no
+    rate."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_unet_torch.configs.presets import get_preset
+    from tpu_unet_torch.infer.wrapper import Unet
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train.checkpoint import load_any
+    from tpu_unet_torch.train.fit import fit, reinit_weights
+
+    classes, size = CLASSES["unet_resnet50"], DATAB_SIZE
+    totals: dict = {}
+
+    def add():
+        for k, v in launch_counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train_ids, val_ids = write_voc(tmp, 16, 8, size, classes, seed=20)
+        save = tmp / "logs"
+        cfg = get_preset("voc_resnet50", pretrained_backbone=False, freeze_epoch=1,
+                         unfreeze_epoch=2, input_shape=(size, size), freeze_batch_size=8,
+                         unfreeze_batch_size=8, save_period=1, eval_period=1,
+                         save_dir=str(save))
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fit(cfg, train_ids, val_ids, base_dir=str(tmp))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        add()
+        trained = dict(launch_counts)
+        # 2 epochs x 2 steps of the default route
+        check(all(trained[k] == 16 for k in ("unetup_bwd", "unetup_wgrad", "upsample_adjoint"))
+              and trained["upconv_bwd"] == 4 and trained["final_ce_dice_fwd"] == 4
+              and trained["final_ce_dice_bwd"] == 4, f"fit voc_resnet50: launches {trained}")
+        drawn = reinit_weights(init_model(build_model("unet_resnet50", classes), seed=cfg.seed),
+                               seed=cfg.seed).state_dict()
+        ckpt = {n[:5]: load_any(str(save / n)) for n in sorted(p.name for p in save.iterdir())
+                if n.startswith(("ep001", "ep002"))}
+        w1, w2 = (ckpt[e].get("model_state_dict", ckpt[e]) for e in ("ep001", "ep002"))
+        backbone = [k for k, v in drawn.items() if k.startswith("resnet.")
+                    and v.is_floating_point() and "running" not in k]
+        check(all(torch.equal(w1[k].cpu(), drawn[k]) for k in backbone)
+              and not torch.equal(w1["up_conv.1.weight"].cpu(), drawn["up_conv.1.weight"]),
+              "fit voc_resnet50: epoch 1 (frozen) moved the backbone or not the head")
+        check(any(not torch.equal(w2[k], w1[k]) for k in backbone),
+              "fit voc_resnet50: epoch 2 (unfrozen) left the backbone as it was")
+
+        rcfg = get_preset("voc_resnet50", resume=True, pretrained_backbone=False, freeze_epoch=1,
+                          unfreeze_epoch=3, input_shape=(size, size), freeze_batch_size=8,
+                          unfreeze_batch_size=8, eval_flag=False,
+                          model_path=str(save / "last_epoch_weights.pth"),
+                          save_dir=str(tmp / "resumed"))
+        buf2 = io.StringIO()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(buf2):
+            state = fit(rcfg, train_ids, val_ids, base_dir=str(tmp))
+        torch.cuda.synchronize()
+        add()
+        again = load_any(str(tmp / "resumed" / "last_epoch_weights.pth"))
+        check("Resuming full training state at epoch 2" in buf2.getvalue()
+              and again["epoch"] == 3 and state.step == 6,
+              f"resume voc_resnet50: epoch {again['epoch']}, steps {state.step}")
+
+        u = Unet(model="unet_resnet50", num_classes=classes, input_shape=[size, size],
+                 model_path=str(save / "best_epoch_weights.pth"))
+        fn, net = u.serving_step()
+        val = rect_batch(torch.Generator().manual_seed(21), 8, size, classes, "cuda")
+        (masks, hist), served = counted({"final_argmax_hist": 1, "unetup": 4, "upconv": 1},
+                                        "serving the trained voc_resnet50 .pth",
+                                        lambda: fn(net, val["image"]))
+        for k, v in served.items():
+            totals[k] = totals.get(k, 0) + v
+        check(masks.shape == (8, size, size) and int(hist.sum()) == 8 * size ** 2,
+              f"serving from the trained weights: masks {tuple(masks.shape)}")
+        print(json.dumps({
+            "fit": "voc_resnet50", "images": [len(train_ids), len(val_ids)], "size": size,
+            "epochs": "1 frozen + 1 unfrozen, then 1 resumed",
+            "seconds_wall_incl_warmup": secs,
+            "epoch_lines": [ln for ln in buf.getvalue().splitlines() if ln.startswith("Epoch")],
+            "resumed_epoch_lines": [ln for ln in buf2.getvalue().splitlines()
+                                    if ln.startswith("Epoch")],
+            "launches": totals, "gpu": card}), flush=True)
     return totals
 
 
@@ -2008,6 +2374,7 @@ SOURCES = {
     "final_argmax_hist": ("tpu_unet_torch/csrc/postprocess.cu",
                           "tpu_unet/kernels/postprocess.py:244"),
     "upconv": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:227"),
+    "upconv_bwd": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:475"),
     "final_argmax_hist_natural": ("tpu_unet_torch/csrc/postprocess.cu",
                                   "tpu_unet/kernels/postprocess.py:154"),
     "final_argmax": ("tpu_unet_torch/csrc/postprocess.cu",

@@ -64,13 +64,16 @@ def test_step_gradients_match_float64(name):
 
 @pytest.mark.parametrize("name", ["traditional", "traditional22", "lightweight", "ultralight",
                                   "ultralight_large", "ultralight_large_optimized",
-                                  "ultralight44"])
+                                  "ultralight44", "unet_vgg", "unet_resnet50", "self_net"])
 def test_reinit_weights_draws_jax_numbers(name):
     """JAX's ``reinit_weights`` on its flax tree (insertion order, as its
     ``fit`` hands it over) and the port's on the same initial weights:
     every parameter equal (conv kernels and batch-norm scales drawn, biases
-    zeroed, dense kernels kept)."""
-    variables = _jax_vars(name)
+    zeroed, dense kernels kept).  The canonical UNets' trees are JAX's
+    ``init_model`` at 64² (ResNet50 interleaves its 53 batch norms with its
+    convs)."""
+    canonical = name in ("unet_vgg", "unet_resnet50", "self_net")
+    variables = _jax_vars(name, 64) if canonical else _jax_vars(name)
     net = build_model(name, C)
     net.load_state_dict(state_dict_from_flax(variables, name), strict=True)
     ref = state_dict_from_flax(to_numpy(jreinit(variables, seed=7)), name)

@@ -125,12 +125,12 @@ def _ordered(tree, keys):
     return {k: tree[k] if sub is None else _ordered(tree[k], sub) for k, sub in keys.items()}
 
 
-def _jax_vars(name):
-    """``init_model(model, (SIZE, SIZE), seed=0, train=True)`` of ``name``,
+def _jax_vars(name, size=SIZE):
+    """``init_model(model, (size, size), seed=0, train=True)`` of ``name``,
     jitted (eager init compiles every op on its own), its dicts put back in
     flax's insertion order — recorded while tracing — as ``fit`` hands the
     tree to ``reinit_weights``; made once a module, a copy returned."""
-    if name not in _JAX_VARS:
+    if (name, size) not in _JAX_VARS:
         model, keys = jbuild(name, C), {}
 
         def init(rngs, x):
@@ -139,9 +139,9 @@ def _jax_vars(name):
             return variables
 
         rngs = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}
-        variables = jax.jit(init)(rngs, jnp.zeros((1, SIZE, SIZE, 3), jnp.float32))
-        _JAX_VARS[name] = _ordered(to_numpy(variables), keys["tree"])
-    return to_numpy(_JAX_VARS[name])
+        variables = jax.jit(init)(rngs, jnp.zeros((1, size, size, 3), jnp.float32))
+        _JAX_VARS[name, size] = _ordered(to_numpy(variables), keys["tree"])
+    return to_numpy(_JAX_VARS[name, size])
 
 
 @pytest.fixture

@@ -11,13 +11,17 @@ the backward wrappers ``kernels/encoder_train.py`` and
   (8x8, no multiple of 16 wide) plain, all four decoder stages through
   ``unetup_train_full`` (four ``unetup_bwd_full``), whatever the loss;
 - ``"fused"`` (``FUSED_TRAIN=1``): the encoder plain, up1 →
-  ``unetup_train`` (one #13 ``unetup_bwd``), up2-up4 plain."""
+  ``unetup_train`` (one #13 ``unetup_bwd``), up2-up4 plain.
+
+The ``up_conv`` head of ``unet_resnet50`` and ``self_net`` trains through
+``upconv_train`` (one #12 ``upconv_bwd``) under ``"paired"`` and through
+``upconv_plain`` under ``"fused"``; ResNet50 trains plain on both."""
 import numpy as np
 import pytest
 import torch
 
-from tpu_unet_torch.kernels import decoder_fuse, encoder_train
-from tpu_unet_torch.models import backbones
+from tpu_unet_torch.kernels import decoder_fuse, encoder_train, upconv
+from tpu_unet_torch.models import backbones, unet
 from tpu_unet_torch.models.registry import build_model, init_model
 from tpu_unet_torch.nn import blocks
 from tpu_unet_torch.train import step as tstep
@@ -25,7 +29,8 @@ from tpu_unet_torch.train import step as tstep
 WRAPPED = {blocks: ("unetup_train_full", "unetup_train", "unetup_plain"),
            decoder_fuse: ("unetup_bwd_full", "unetup_bwd"),
            backbones: ("vgg_stem_train", "vgg_block_train", "vgg_stem_plain", "vgg_block_plain"),
-           encoder_train: ("vgg_stem_bwd", "vgg_block_bwd")}
+           encoder_train: ("vgg_stem_bwd", "vgg_block_bwd"),
+           unet: ("upconv_train", "upconv_plain"), upconv: ("upconv_bwd",)}
 ENCODER_PAIRED = {"vgg_stem_train": 1, "vgg_block_train": 3, "vgg_block_plain": 1,
                   "vgg_stem_bwd": 1, "vgg_block_bwd": 3}
 
@@ -48,11 +53,11 @@ def calls(monkeypatch):
     return counts
 
 
-def _step(route, focal=False):
-    net = init_model(build_model("unet_vgg", 4), seed=0)
+def _step(route, focal=False, model="unet_vgg", size=128):
+    net = init_model(build_model(model, 4), seed=0)
     rng = np.random.default_rng(0)
-    batch = {"image": rng.integers(0, 256, (1, 128, 128, 3)).astype(np.uint8),
-             "label": rng.integers(0, 4, (1, 128, 128)).astype(np.int32)}
+    batch = {"image": rng.integers(0, 256, (1, size, size, 3)).astype(np.uint8),
+             "label": rng.integers(0, 4, (1, size, size)).astype(np.int32)}
     cfg = tstep.StepConfig(4, (1.0,) * 4, use_focal=focal, use_dice=True, train_route=route)
     state = tstep.TrainState(net, tstep.make_optimizer(net))
     _, m = tstep.make_train_step(net, cfg)(state, batch, 1e-4)
@@ -68,6 +73,41 @@ def _step(route, focal=False):
 def test_routes_reach_their_functions(calls, route, focal, expect):
     _step(route, focal)
     assert calls == expect
+
+
+@pytest.mark.parametrize("model,route,expect", [
+    # at 256² every unet_resnet50 decoder stage tiles (up4 at 16x16)
+    ("unet_resnet50", "paired", {"unetup_train_full": 4, "unetup_bwd_full": 4,
+                                 "upconv_train": 1, "upconv_bwd": 1}),
+    ("unet_resnet50", "fused", {"unetup_train": 1, "unetup_plain": 3, "unetup_bwd": 1,
+                                "upconv_plain": 1}),
+    ("self_net", "paired", {**ENCODER_PAIRED, "unetup_train_full": 4, "unetup_bwd_full": 4,
+                            "upconv_train": 1, "upconv_bwd": 1}),
+    ("self_net", "fused", {"vgg_stem_plain": 1, "vgg_block_plain": 4, "unetup_train": 1,
+                           "unetup_plain": 3, "unetup_bwd": 1, "upconv_plain": 1}),
+])
+def test_head_models_reach_their_functions(calls, model, route, expect):
+    """The two models with the ``up_conv`` head, each route: the head
+    through ``upconv_train`` and its backward #12 (``"paired"``, JAX's
+    ``fused_upconv_train``) or the plain composition (``"fused"``, JAX's
+    ``reference_upconv`` under autodiff); the decoder and encoder as
+    unet_vgg's."""
+    _step(route, model=model, size=256 if model == "unet_resnet50" else 128)
+    assert calls == expect
+
+
+@pytest.mark.parametrize("model,fused", [("unet_vgg", True), ("unet_resnet50", True),
+                                         ("self_net", False), ("traditional", False)])
+def test_fused_loss_route_is_jax_feat_model_rule(model, fused):
+    """The fused final-conv + loss (#27 / #29) takes a canonical UNet whose
+    features come out at the target's size — unet_vgg, unet_resnet50 — as
+    JAX's ``feat_model`` with ``_fused_shape_ok``; self_net's 2x logits take
+    the plain losses; CE only (focal takes the logit-level loss)."""
+    net = build_model(model, 4)
+    cfg = tstep.StepConfig(4, (1.0,) * 4, use_dice=True)
+    assert tstep._fused_route(net, cfg) == fused
+    focal = tstep.StepConfig(4, (1.0,) * 4, use_focal=True)
+    assert not tstep._fused_route(net, focal)
 
 
 def test_default_route_is_paired():

@@ -211,7 +211,8 @@ def test_missing_pretrained_backbone_raises_as_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", ["voc", "train_py", "medical", "traditional", "lightweight",
                                   "ultralight", "ultralight_large",
-                                  "ultralight_large_optimized", "wandb_traditional"])
+                                  "ultralight_large_optimized", "wandb_traditional",
+                                  "voc_resnet50"])
 def test_presets_match_jax(name):
     """The port's copy of each preset it can train equals JAX's, field by
     field (tuples and lists compared as tuples)."""

@@ -572,7 +572,7 @@ def test_train_step_on_card(cuda, route):
     _, m = fn(state, batch, 0.0)
     torch.cuda.synchronize()
     assert {k: v for k, v in launch_counts.items() if v} == ROUTE_LAUNCHES[route]
-    ploss, pgrads = plain_step(net, batch, 21, cw)
+    ploss, pgrads, _ = plain_step(net, batch, 21, cw)
     assert abs(m["loss"].item() - ploss) <= 1e-3 * ploss
     for k, p in net.named_parameters():
         a, b = p.grad.float().ravel(), pgrads[k].float().ravel()
@@ -661,3 +661,118 @@ def test_datab_train_step_on_card(cuda, name):
         if k not in noise:
             a, b = p.grad.float().ravel(), pgrads[k].ravel()
             assert (a @ b / (a.norm() * b.norm())).item() >= 0.99, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(8, 16), (16, 24)])
+def test_upconv_bwd_kernel(cuda, h, w):
+    """#12's port against its plain version, batch 2, x (2, h, w, 64): one
+    counted launch; dx within CONV_REL_TOL, the float32 weight and bias
+    gradients within 1e-3 of max |plain| (their inputs carry the kernel
+    dgrads' bf16 rounding), all five bit-identical on a second launch."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.upconv import upconv_bwd, upconv_bwd_plain
+
+    x = _act(cuda, 2, h, w, 64)
+    g = torch.randn((2, 2 * h, 2 * w, 64), generator=cuda, device="cuda").to(torch.bfloat16)
+    out, y1 = _act(cuda, 2, 2 * h, 2 * w, 64), _act(cuda, 2, 2 * h, 2 * w, 64)
+    w1, _ = _conv(cuda, 64, 64)
+    w2, _ = _conv(cuda, 64, 64)
+    n = launch_counts["upconv_bwd"]
+    res = upconv_bwd(g, out, y1, x, w1, w2)
+    assert launch_counts["upconv_bwd"] == n + 1
+    assert all(torch.equal(a, b) for a, b in zip(res, upconv_bwd(g, out, y1, x, w1, w2)))
+    ref = upconv_bwd_plain(g, out, y1, x, w1, w2)
+    for i, (a, b) in enumerate(zip(res, ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel(a, b) <= (CONV_REL_TOL if i == 0 else 1e-3), i
+
+
+@pytest.mark.gpu
+def test_upconv_train_on_card(cuda):
+    """``upconv_train`` on the card, bf16: one launch of the forward kernel
+    keeping y1 and one of #12; its gradients are #12's on that forward's
+    own out and y1, cast as ``_t_bwd`` casts them (bit for bit); against
+    autograd of ``upconv_plain`` in float32 on the same values, the output
+    within CONV_REL_TOL and every gradient at a cosine ≥ 0.99 (the bf16
+    forward puts a pre-activation near 0 on the other side of its ReLU now
+    and then: dx reads 9.5% of its largest there, element-wise)."""
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.kernels.upconv import (_upconv_cuda, upconv_bwd, upconv_plain,
+                                               upconv_train)
+
+    x = _act(cuda, 2, 16, 16, 64)
+    w1, b1 = _conv(cuda, 64, 64)
+    w2, b2 = _conv(cuda, 64, 64)
+    g = torch.randn((2, 32, 32, 64), generator=cuda, device="cuda").to(torch.bfloat16)
+    args = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    reset_launch_counts()
+    out = upconv_train(*args)
+    grads = torch.autograd.grad(out, args, g)
+    assert {k: v for k, v in launch_counts.items() if v} == {"upconv": 1, "upconv_bwd": 1}
+    with torch.no_grad():
+        out_k, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
+        own = upconv_bwd(g, out_k, y1, x, w1, w2)
+    assert torch.equal(out, out_k)
+    assert all(torch.equal(a, b.to(a.dtype)) for a, b in zip(grads, own))
+    args32 = [t.detach().float().requires_grad_() for t in args]
+    ref = upconv_plain(*args32)
+    rgrads = torch.autograd.grad(ref, args32, g.float())
+    assert _rel(out, ref) <= CONV_REL_TOL
+    for i, (a, b) in enumerate(zip(grads, rgrads)):
+        a, b = a.float().ravel(), b.ravel()
+        assert (a @ b / (a.norm() * b.norm())).item() >= 0.99, i
+
+
+@pytest.mark.gpu
+def test_upconv_bwd_rejects_untileable_shape(cuda):
+    """Cx = 32 tiles the forward but not the backward's conv1 dgrad: the
+    wrapper raises and nothing launches."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.upconv import upconv_bwd
+
+    x, t = _act(cuda, 1, 8, 8, 32), _act(cuda, 1, 16, 16, 64)
+    w1, _ = _conv(cuda, 64, 32)
+    w2, _ = _conv(cuda, 64, 64)
+    before = dict(launch_counts)
+    with pytest.raises(ValueError, match="must all be 0"):
+        upconv_bwd(t, t, t, x, w1, w2)
+    assert dict(launch_counts) == before
+
+
+# unet_resnet50's default-route step at 256² (every decoder stage and the
+# head tile): the stage kernels 4 each, the head's 1 each, the loss's 1 each
+RN50_LAUNCHES = {"unetup": 4, "unetup_bwd": 4, "unetup_wgrad": 4, "upsample_adjoint": 4,
+                 "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
+
+
+@pytest.mark.gpu
+def test_resnet50_train_step_on_card(cuda):
+    """One unet_resnet50 step at 256², batch 2, bf16, CE + dice: exactly
+    ``RN50_LAUNCHES``; loss within 1e-3, every gradient at a cosine ≥ 0.99
+    and the running statistics within 1e-2 of the plain step's on the card
+    (``chip_smoke.plain_step``)."""
+    from chip_smoke import plain_step
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+
+    net = init_model(build_model("unet_resnet50", 21), seed=0).cuda()
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randint(0, 256, (2, 256, 256, 3), generator=g, dtype=torch.uint8),
+             "label": torch.randint(0, 22, (2, 256, 256), generator=g, dtype=torch.int32)}
+    cw = tuple(1.0 + 0.05 * i for i in range(21))
+    cfg = tstep.StepConfig(21, cw, use_dice=True, compute_dtype=torch.bfloat16)
+    ploss, pgrads, pstats = plain_step(net, batch, 21, cw)
+    state = tstep.TrainState(net, tstep.make_optimizer(net))
+    reset_launch_counts()
+    _, m = tstep.make_train_step(net, cfg)(state, batch, 0.0)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts.items() if v} == RN50_LAUNCHES
+    assert abs(m["loss"].item() - ploss) <= 1e-3 * ploss
+    for k, p in net.named_parameters():
+        a, b = p.grad.float().ravel(), pgrads[k].ravel()
+        assert (a @ b / (a.norm() * b.norm())).item() >= 0.99, k
+    stats = net.state_dict()
+    for k, v in pstats.items():
+        assert _rel(stats[k], v) <= 1e-2, k

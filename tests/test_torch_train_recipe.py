@@ -96,12 +96,12 @@ def test_plain_route_trains_focal_and_self_net():
 
 @pytest.mark.parametrize("case", ["focal", "self_net", "f32", "batch_norm", "aux", "resnet50"])
 def test_unported_configurations_raise(case):
-    """On the card: another head (#12), float32 compute (the bf16-only conv
-    core), deep supervision; unet_resnet50 on any device.  Focal (#25/#26)
-    and batch norm in train mode (the DataB slice) are ported: they pass
-    on both devices."""
+    """On the card: float32 compute (the bf16-only conv core), deep
+    supervision.  Focal (#25/#26), batch norm in train mode (the DataB
+    slice), the up_conv head (self_net, #12) and unet_resnet50 (its
+    ResNet50 in train mode) are ported: they pass on both devices."""
     bf = torch.bfloat16
-    model, cfg, device = "unet_vgg", tstep.StepConfig(4, (1.0,) * 4, compute_dtype=bf), "cuda"
+    model, cfg = "unet_vgg", tstep.StepConfig(4, (1.0,) * 4, compute_dtype=bf)
     if case == "focal":
         cfg = tstep.StepConfig(4, (1.0,) * 4, use_focal=True, compute_dtype=bf)
     elif case == "self_net":
@@ -114,17 +114,16 @@ def test_unported_configurations_raise(case):
     elif case == "aux":
         cfg = tstep.StepConfig(4, (1.0,) * 4, aux_weights=(1.0, 0.4), compute_dtype=bf)
     else:
-        model, device = "unet_resnet50", "cpu"
+        model = "unet_resnet50"
     net = build_model(model, 4)
-    if case in ("focal", "batch_norm"):
+    if case in ("focal", "batch_norm", "self_net", "resnet50"):
         for dev in ("cuda", "cpu"):
             tstep.check_ported(net, cfg, torch.device(dev))
         return
-    match = {"self_net": "#12", "f32": "f32 compute", "aux": "deep supervision",
-             "resnet50": "unet_resnet50"}[case]
+    match = {"f32": "f32 compute", "aux": "deep supervision"}[case]
     with pytest.raises(NotImplementedError, match=match):
-        tstep.check_ported(net, cfg, torch.device(device))
-    if case != "resnet50":  # the same model and recipe run on the CPU
-        tstep.check_ported(net, cfg, torch.device("cpu"))
+        tstep.check_ported(net, cfg, torch.device("cuda"))
+    # the same model and recipe run on the CPU
+    tstep.check_ported(net, cfg, torch.device("cpu"))
     ok = tstep.StepConfig(4, (1.0,) * 4, use_dice=True, compute_dtype=bf)
     tstep.check_ported(build_model("unet_vgg", 4), ok, torch.device("cuda"))

@@ -3,7 +3,10 @@ own copy of ``tpu_unet/configs/presets.py``; values lifted from the
 reference's training scripts, cited per preset).
 
 Only the presets of models the port can train are copied: ``voc``,
-``train_py`` and ``medical`` (unet_vgg, CE ± dice), and the DataB presets
+``train_py`` and ``medical`` (unet_vgg, CE ± dice), ``voc_resnet50``
+(unet_resnet50, CE + dice, 50 frozen then 50 unfrozen epochs; its
+ImageNet ResNet50 file is not in the repository: ``--no-pretrained`` /
+``pretrained_backbone=False``), and the DataB presets
 ``traditional``, ``lightweight``, ``ultralight``, ``ultralight_large``,
 ``ultralight_large_optimized`` and ``wandb_traditional`` (focal or CE +
 dice on the heavy-augmentation set).  ``fp16=False`` presets need
@@ -139,6 +142,13 @@ PRESETS = {
         freeze_epoch=100, unfreeze_epoch=400, freeze_batch_size=16,
         unfreeze_batch_size=16, init_lr=1e-2, weight_decay=1e-4,
         dice_loss=True, focal_loss=True, fp16=True, dataset="heavy"),
+    # the VOC12+SBD mIoU-parity recipe (BASELINE.md #2)
+    "voc_resnet50": TrainConfig(
+        model="unet_resnet50", num_classes=21, input_shape=(512, 512),
+        pretrained_backbone=True, freeze_epoch=50, unfreeze_epoch=100,
+        freeze_batch_size=16, unfreeze_batch_size=16, freeze_train=True,
+        init_lr=1e-4, dice_loss=True, focal_loss=False, fp16=True,
+        dataset="voc"),
 }
 
 

@@ -1,4 +1,5 @@
-// upconv: the up_conv head of unet_resnet50 and self_net, forward —
+// upconv: the up_conv head of unet_resnet50 and self_net, forward and
+// backward.  Forward (tu_upconv) —
 //   relu(conv2(relu(conv1(up2x_align_corners(x)))))
 // with both convs 3x3 SAME and no skip.
 //
@@ -19,6 +20,8 @@
 // tensor cores; lerping once per low-res element into shared memory would
 // remove that and is left to a later change.
 #include "conv3x3.cuh"
+#include "upsample_adjoint.cuh"
+#include "wgrad.cuh"
 
 using tu::bf16;
 
@@ -32,4 +35,61 @@ extern "C" int tu_upconv(const bf16* x, const int* ridx, const float* rw, const 
   if (e != cudaSuccess) return e;
   return tu::launch_conv3x3<tu::NhwcLoader, false>(tu::NhwcLoader{y1, H2, W2, F}, w2, b2, out,
                                                    nullptr, B, H2, W2, 9 * F, F, stream);
+}
+
+// tu_upconv_bwd: the head's backward for training, from the forward's out,
+// y1 and x and the output gradient g (B, 2H, 2W, F) —
+//   g2   = g * [out > 0]                          (conv2's ReLU)
+//   dz1  = conv3x3(g2, flipT(w2)) * [y1 > 0]      (conv2 dgrad, conv1's ReLU)
+//   dups = conv3x3(dz1, flipT(w1))                (conv1 dgrad, Cx channels)
+//   dk2, db2 = wgrad(y1, g2); dk1, db1 = wgrad(up2x(x), dz1)   (float32)
+//   dx   = the x2 upsample's adjoint of dups      (B, H, W, Cx)
+//
+// Replaces tpu_unet/kernels/upconv.py::fused_upconv_bwd_impl (the Pallas call
+// at upconv.py:475), which runs both ReLU VJPs, both dgrads, both weight
+// gradients with their bias sums and the upsample's adjoint in one pass over
+// row tiles.  That kernel is a UnetUp stage backward without the skip, built
+// from decoder_train.py's helpers, so this port is the stage backward of
+// csrc/decoder_train.cu, csrc/unetup_wgrad.cu and csrc/upsample_adjoint.cuh
+// at Cs = 0, in one C entry: the dgrad pair on the conv core (the first
+// masks g by out > 0 as its loader gathers it and writes g2 once, its
+// epilogue masks by y1 > 0; the second writes all its channels to dups),
+// the float32 weight-gradient GEMM of csrc/wgrad.cuh for dk2 over y1 and
+// for dk1 over the forward's UpConcatLoader (so up2x(x) is lerped as the
+// GEMM gathers it and never stored), and the adjoint's gather.  g2, dz1 and
+// dups go through device memory; the TPU kernel keeps them in VMEM.  The
+// split-K partials are added in split order: bit-identical run to run.
+//
+// Bound on the H100: operations (four 3x3 GEMM-convs of 2 * 9 * P * 64 * 64
+// at P = 8 x 512 x 512, the unet_resnet50 head at batch 8: 618 GFLOP,
+// 0.625 ms at 989 TFLOP/s; the least bytes, g, out, y1, x and dx, 0.94 GB,
+// 0.28 ms at 3.35 TB/s).  The design is the single-stage mma.sync core of
+// the other training kernels, at a similar share of the peak.  Shapes:
+// 2H % 8, 2W % 16, Cx % 64, F % 64 all 0.
+// work1 holds ns1 * F * (9 * Cx + 1) floats, work2 ns2 * F * (9 * F + 1).
+extern "C" int tu_upconv_bwd(const bf16* g, const bf16* out, const bf16* y1, const bf16* x,
+                             const int* ridx, const float* rw, const int* cidx,
+                             const float* cw, const int* aridx, const float* arw, int anr,
+                             const int* acidx, const float* acw, int anc, const bf16* w2t,
+                             const bf16* w1t, bf16* g2, bf16* dz1, bf16* dups, float* work1,
+                             float* work2, float* dk1, float* db1, float* dk2, float* db2,
+                             bf16* dx, int B, int H2, int W2, int Cx, int F, int ns1, int ns2,
+                             cudaStream_t stream) {
+  const tu::ReluGradLoader lg{g, out, g2, H2, W2, F};
+  cudaError_t e = tu::launch_conv3x3_grad<tu::ReluGradLoader, tu::EPI_MASK>(
+      lg, w2t, y1, dz1, nullptr, B, H2, W2, 9 * F, F, F, stream);
+  if (e != cudaSuccess) return e;
+  // no skip channels: EPI_SPLIT at Fa = 0 writes every channel to dups
+  e = tu::launch_conv3x3_grad<tu::NhwcLoader, tu::EPI_SPLIT>(
+      tu::NhwcLoader{dz1, H2, W2, F}, w1t, nullptr, nullptr, dups, B, H2, W2, 9 * F, Cx, 0,
+      stream);
+  if (e != cudaSuccess) return e;
+  e = tu::launch_wgrad(tu::NhwcLoader{y1, H2, W2, F}, g2, work2, dk2, db2, B, H2, W2, F, F, ns2,
+                       stream);
+  if (e != cudaSuccess) return e;
+  const tu::UpConcatLoader up{nullptr, x, ridx, rw, cidx, cw, H2, W2, 0, Cx};
+  e = tu::launch_wgrad(up, dz1, work1, dk1, db1, B, H2, W2, Cx, F, ns1, stream);
+  if (e != cudaSuccess) return e;
+  return tu::launch_upsample_adjoint(dups, aridx, arw, anr, acidx, acw, anc, dx, B, H2 / 2,
+                                     W2 / 2, Cx, stream);
 }

@@ -51,6 +51,10 @@ SIGNATURES = {
     "tu_unetup": [_P] * 12 + [_I] * 6 + [_P],
     # x, ridx, rw, cidx, cw, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F, stream
     "tu_upconv": [_P] * 11 + [_I] * 5 + [_P],
+    # g, out, y1, x, ridx, rw, cidx, cw, aridx, arw, anr, acidx, acw, anc,
+    # w2t, w1t, g2, dz1, dups, work1, work2, dk1, db1, dk2, db2, dx,
+    # B, H2, W2, Cx, F, ns1, ns2, stream
+    "tu_upconv_bwd": [_P] * 10 + [_I] + [_P] * 2 + [_I] + [_P] * 12 + [_I] * 7 + [_P],
     # logits, out, n_pix (int64), C, logits are bf16, out is uint8, stream
     "tu_argmax_mask": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
     # mask, mask is int32, img, palette, C, alpha, 1 - alpha, out,
@@ -85,7 +89,7 @@ SIGNATURES = {
 # C entry and nowhere else
 launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
-                 "unetup": 0, "upconv": 0, "argmax_mask": 0,
+                 "unetup": 0, "upconv": 0, "upconv_bwd": 0, "argmax_mask": 0,
                  "mask_palette": 0, "unetup_bwd": 0, "unetup_wgrad": 0,
                  "upsample_adjoint": 0, "vgg_block2_fwd": 0,
                  "vgg_block3_fwd": 0, "vgg_stem_bwd": 0, "vgg_block2_bwd": 0,

@@ -155,6 +155,16 @@ def _wgrad_splits(tiles: int, n_pix: int) -> int:
     return max(1, min(-(-WGRAD_BLOCKS // tiles), chunks // 8))
 
 
+def _wgrad_buffers(f: int, c: int, n_pix: int, device):
+    """One weight-gradient GEMM (``csrc/wgrad.cuh``, 9C % 64 == 0) over
+    ``n_pix`` pixels: its split count, float32 work (the split partials and
+    bias partials) and outputs dk (F, C, 3, 3), db (F)."""
+    ns = _wgrad_splits((f // 64) * (9 * c // 64), n_pix)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (ns, torch.empty(ns * f * (9 * c + 1), **f32), torch.empty((f, c, 3, 3), **f32),
+            torch.empty(f, **f32))
+
+
 def _unetup_wgrad_cuda(skip, x, dz1, y1, g2):
     _build.no_grad_inputs("unetup_wgrad", skip, x, dz1, y1, g2)
     B, H, W, cx = x.shape
@@ -168,15 +178,9 @@ def _unetup_wgrad_cuda(skip, x, dz1, y1, g2):
         _build.check(t, name, bf, (B, H2, W2, f), x.device)
     _check_stage("unetup_wgrad", H2, W2, f, cp, cs)
     n_pix = B * H2 * W2
-    ns1 = _wgrad_splits((f // 64) * (9 * cp // 64), n_pix)
-    ns2 = _wgrad_splits((f // 64) * (9 * f // 64), n_pix)
+    ns1, work1, dk1, db1 = _wgrad_buffers(f, cp, n_pix, x.device)
+    ns2, work2, dk2, db2 = _wgrad_buffers(f, f, n_pix, x.device)
     ridx, rw, cidx, cw = up2x_tables(H, W, x.device)
-    work1 = torch.empty(ns1 * f * (9 * cp + 1), dtype=torch.float32, device=x.device)
-    work2 = torch.empty(ns2 * f * (9 * f + 1), dtype=torch.float32, device=x.device)
-    dk1 = torch.empty((f, cp, 3, 3), dtype=torch.float32, device=x.device)
-    dk2 = torch.empty((f, f, 3, 3), dtype=torch.float32, device=x.device)
-    db1 = torch.empty(f, dtype=torch.float32, device=x.device)
-    db2 = torch.empty(f, dtype=torch.float32, device=x.device)
     _build.call("tu_unetup_wgrad", skip.data_ptr(), x.data_ptr(), ridx.data_ptr(),
                 rw.data_ptr(), cidx.data_ptr(), cw.data_ptr(), dz1.data_ptr(),
                 y1.data_ptr(), g2.data_ptr(), work1.data_ptr(), work2.data_ptr(),

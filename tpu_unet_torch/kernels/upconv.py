@@ -1,13 +1,21 @@
-"""The ``up_conv`` head of ``unet_resnet50`` and ``self_net``, forward:
+"""The ``up_conv`` head of ``unet_resnet50`` and ``self_net``:
 ``relu(conv2(relu(conv1(up2x(x)))))`` with 3×3 SAME convs and no skip
 (counterpart of ``tpu_unet/kernels/upconv.py``).
 
-CUDA kernel: ``csrc/upconv.cu`` on the conv core ``csrc/conv3x3.cuh`` —
-replaces ``upconv.py::fused_upconv_impl`` and ``_fused_upconv_call_p2``
-(two TPU schedules of this function).  conv1's operand loader lerps the up
-elements from x's four neighbours, so ``up2x(x)`` is never stored; conv1's
-output goes through device memory to conv2.  Bound and design in the
-source note.
+CUDA kernels in ``csrc/upconv.cu``, on the conv core ``csrc/conv3x3.cuh``:
+- :func:`upconv`, the forward — replaces ``upconv.py::fused_upconv_impl``
+  and ``_fused_upconv_call_p2`` (two TPU schedules of this function).
+  conv1's operand loader lerps the up elements from x's four neighbours, so
+  ``up2x(x)`` is never stored; conv1's output y1 goes through device memory
+  to conv2;
+- :func:`upconv_bwd`, the backward — replaces ``fused_upconv_bwd_impl``
+  (#12): both ReLU VJPs, both dgrads, both weight gradients with their bias
+  sums (float32) and the upsample's adjoint, the UnetUp stage backward of
+  ``kernels/decoder_train.py`` at zero skip channels, in one C entry;
+- :func:`upconv_train`, the head for training (``fused_upconv_train``): the
+  forward kernel keeping y1, the backward kernel.
+
+Bounds and designs are in the source's notes.
 """
 from __future__ import annotations
 
@@ -15,17 +23,23 @@ import torch
 
 from tpu_unet_torch.kernels import _build
 from tpu_unet_torch.kernels._plain import conv3x3_relu, on_cpu
-from tpu_unet_torch.kernels.decoder_train import up2x_tables
+from tpu_unet_torch.kernels.decoder_train import (_adjoint_tables, _wgrad_buffers, flip_t,
+                                                  unetup_bwd_full_plain, up2x_tables)
 from tpu_unet_torch.nn.resize import upsample2x
+
+
+def _upconv_plain_y1(x, w1, b1, w2, b2):
+    y1 = conv3x3_relu(upsample2x(x), w1, b1)
+    return conv3x3_relu(y1, w2, b2), y1
 
 
 def upconv_plain(x, w1, b1, w2, b2):
     """x (B, H, W, Cx) → (B, 2H, 2W, F); mirrors ``reference_upconv``
     (upconv.py:36-47)."""
-    return conv3x3_relu(conv3x3_relu(upsample2x(x), w1, b1), w2, b2)
+    return _upconv_plain_y1(x, w1, b1, w2, b2)[0]
 
 
-def _upconv_cuda(x, w1, b1, w2, b2):
+def _upconv_cuda(x, w1, b1, w2, b2, want_y1=False):
     _build.no_grad_inputs("upconv", x, w1, b1, w2, b2)
     B, H, W, cx = x.shape
     f = w1.shape[0]
@@ -46,7 +60,7 @@ def _upconv_cuda(x, w1, b1, w2, b2):
                 wt2.data_ptr(), b2f.data_ptr(), y1.data_ptr(), out.data_ptr(),
                 B, H2, W2, cx, f)
     _build.launch_counts["upconv"] += 1
-    return out
+    return (out, y1) if want_y1 else out
 
 
 def upconv(x, w1, b1, w2, b2):
@@ -56,3 +70,92 @@ def upconv(x, w1, b1, w2, b2):
     if on_cpu(x):
         return upconv_plain(x, w1, b1, w2, b2)
     return _upconv_cuda(x, w1, b1, w2, b2)
+
+
+def upconv_train_ok(H2: int, W2: int, cx: int, f: int) -> bool:
+    """The training head's shape rule (the forward's, with Cx % 64 for the
+    backward, whose conv1 dgrad writes Cx channels in blocks of 64): 2H % 8,
+    2W % 16, Cx % 64 and F % 64 all 0."""
+    return not (H2 % 8 or W2 % 16 or cx % 64 or f % 64)
+
+
+def upconv_bwd_plain(g, out, y1, x, w1, w2):
+    """g, out, y1 (B, 2H, 2W, F), x (B, H, W, Cx), w1 (F, Cx, 3, 3),
+    w2 (F, F, 3, 3) → (dx (B, H, W, Cx) in g's dtype, dk1, db1, dk2, db2 in
+    float32): the VJP of :func:`upconv_plain` given its out and y1, which is
+    what #12 computes (upconv.py:386-517) — the UnetUp stage backward with
+    a zero-channel skip."""
+    B, H2, W2, _ = g.shape
+    skip = g.new_zeros((B, H2, W2, 0))
+    return unetup_bwd_full_plain(g, out, y1, skip, x, w1, w2)[1:]
+
+
+def _upconv_bwd_cuda(g, out, y1, x, w1, w2):
+    _build.no_grad_inputs("upconv_bwd", g, out, y1, x, w1, w2)
+    B, H2, W2, f = g.shape
+    cx = x.shape[-1]
+    if not upconv_train_ok(H2, W2, cx, f):
+        raise ValueError(f"upconv_bwd kernel: 2H={H2} % 8, 2W={W2} % 16, Cx={cx} % 64 "
+                         f"and F={f} % 64 must all be 0")
+    bf = torch.bfloat16
+    _build.check(g, "g", bf)
+    for t, name in ((out, "out"), (y1, "y1")):
+        _build.check(t, name, bf, tuple(g.shape), g.device)
+    _build.check(x, "x", bf, (B, H2 // 2, W2 // 2, cx), g.device)
+    _build.check(w1, "w1", bf, (f, cx, 3, 3), g.device)
+    _build.check(w2, "w2", bf, (f, f, 3, 3), g.device)
+    h, w, dev = H2 // 2, W2 // 2, g.device
+    ns1, work1, dk1, db1 = _wgrad_buffers(f, cx, B * H2 * W2, dev)
+    ns2, work2, dk2, db2 = _wgrad_buffers(f, f, B * H2 * W2, dev)
+    ridx, rw, cidx, cw = up2x_tables(h, w, dev)
+    aridx, arw, acidx, acw = _adjoint_tables(h, w, dev)
+    w2t = _build.pack_conv3x3(flip_t(w2))
+    w1t = _build.pack_conv3x3(flip_t(w1))
+    g2, dz1 = torch.empty_like(g), torch.empty_like(g)
+    dups = torch.empty((B, H2, W2, cx), dtype=bf, device=dev)
+    dx = torch.empty((B, h, w, cx), dtype=bf, device=dev)
+    _build.call("tu_upconv_bwd", g.data_ptr(), out.data_ptr(), y1.data_ptr(), x.data_ptr(),
+                ridx.data_ptr(), rw.data_ptr(), cidx.data_ptr(), cw.data_ptr(),
+                aridx.data_ptr(), arw.data_ptr(), aridx.shape[1], acidx.data_ptr(),
+                acw.data_ptr(), acidx.shape[1], w2t.data_ptr(), w1t.data_ptr(), g2.data_ptr(),
+                dz1.data_ptr(), dups.data_ptr(), work1.data_ptr(), work2.data_ptr(),
+                dk1.data_ptr(), db1.data_ptr(), dk2.data_ptr(), db2.data_ptr(), dx.data_ptr(),
+                B, H2, W2, cx, f, ns1, ns2)
+    _build.launch_counts["upconv_bwd"] += 1
+    return dx, dk1, db1, dk2, db2
+
+
+def upconv_bwd(g, out, y1, x, w1, w2):
+    """Dispatching wrapper of #12's port: plain version for CPU tensors, the
+    CUDA kernel for tensors on the card (bf16; :func:`upconv_train_ok`)."""
+    if on_cpu(g):
+        return upconv_bwd_plain(g, out, y1, x, w1, w2)
+    return _upconv_bwd_cuda(g, out, y1, x, w1, w2)
+
+
+class _UpconvTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        if on_cpu(x):
+            out, y1 = _upconv_plain_y1(x, w1, b1, w2, b2)
+        else:
+            out, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
+        ctx.save_for_backward(x, w1, b1, w2, b2, y1, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, y1, out = ctx.saved_tensors
+        dx, dk1, db1, dk2, db2 = upconv_bwd(g.to(y1.dtype).contiguous(), out, y1, x, w1, w2)
+        # cast as _t_bwd (upconv.py:574-575)
+        return (dx.to(x.dtype), dk1.to(w1.dtype), db1.to(b1.dtype), dk2.to(w2.dtype),
+                db2.to(b2.dtype))
+
+
+def upconv_train(x, w1, b1, w2, b2):
+    """The head for training (``fused_upconv_train``, upconv.py:544-578):
+    the forward as :func:`upconv` keeping y1, the backward through
+    :func:`upconv_bwd` (#12).  JAX's column-paired output is the free
+    reshape of this one's natural (B, 2H, 2W, F).  CPU tensors take the
+    plain versions both ways."""
+    return _UpconvTrain.apply(x, w1, b1, w2, b2)

@@ -19,9 +19,12 @@ paired region.
 channels, module names of the reference (``conv1``, ``bn1``,
 ``layer{1..4}.{i}.conv{1,2,3}``, ``.bn{1,2,3}``, ``.downsample.{0,1}``).
 The JAX package runs it outside any Pallas kernel, so it is plain PyTorch
-here: ``F.conv2d`` on channels-last views of the NHWC tensors, batch norm in
-eval mode from the running statistics (``nn/blocks.py::bn``), and the
-ceil-mode max-pool.
+here: ``F.conv2d`` on channels-last views of the NHWC tensors, batch norm
+through ``nn/blocks.py::bn`` (eval: the running statistics; ``train=True``:
+flax's train mode, the batch statistics in float32 updating the running
+ones in place), and the ceil-mode max-pool; in training autograd takes
+their backward (cuDNN's convs, the pool's first-max routing), on both
+training routes.
 """
 from __future__ import annotations
 
@@ -103,12 +106,12 @@ class Bottleneck(nn.Module):
         self.downsample = nn.Sequential(
             *_conv_bn(inplanes, planes * 4, 1, stride)) if downsample else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(bn(self.conv1(x), self.bn1))
-        y = torch.relu(bn(self.conv2(y), self.bn2))
-        y = bn(self.conv3(y), self.bn3)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = torch.relu(bn(self.conv1(x), self.bn1, train))
+        y = torch.relu(bn(self.conv2(y), self.bn2, train))
+        y = bn(self.conv3(y), self.bn3, train)
         identity = x if self.downsample is None else \
-            bn(self.downsample[0](x), self.downsample[1])
+            bn(self.downsample[0](x), self.downsample[1], train)
         return torch.relu(y + identity)
 
 
@@ -129,13 +132,16 @@ class ResNet50(nn.Module):
                 inplanes = planes * 4
             setattr(self, f"layer{li + 1}", nn.Sequential(*mods))
 
-    def forward(self, x: torch.Tensor):
-        """(B, H, W, 3) float image → [feat1 … feat5], NHWC contiguous."""
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """(B, H, W, 3) float image → [feat1 … feat5], NHWC contiguous;
+        ``train`` as flax's ``ResNet50.__call__(x, train)``
+        (models/backbones.py:229-246)."""
         y = x.permute(0, 3, 1, 2)  # channels-last view, no copy
-        feat1 = torch.relu(bn(self.conv1(y), self.bn1)).permute(0, 2, 3, 1)
+        feat1 = torch.relu(bn(self.conv1(y), self.bn1, train)).permute(0, 2, 3, 1)
         y = max_pool_ceil(feat1, 3, 2).permute(0, 3, 1, 2)
         feats = [feat1.contiguous()]
         for li in range(1, 5):
-            y = getattr(self, f"layer{li}")(y)
+            for block in getattr(self, f"layer{li}"):
+                y = block(y, train)
             feats.append(y.permute(0, 2, 3, 1).contiguous())
         return feats

@@ -4,17 +4,18 @@ reference torch model (``vgg`` / ``resnet``, ``up_concat1..4``, ``up_conv``,
 ``final``).
 
 ``forward(x, features_out, train, generator, route)``: ``train=True`` is
-the training forward of ``unet_vgg``, routed by ``route``
+the training forward, routed by ``route``
 (``train/step.py::StepConfig.train_route``) as JAX's training switches
-route ``Unet.__call__`` (models/unet.py:56-87): under ``"paired"`` the VGG16
-stages through their training kernels (``models/backbones.py::VGG16``) and
-every decoder stage through ``unetup_train_full``, each where the kernels
-tile its shape; under ``"fused"`` the encoder as a plain composition under
-autograd, up1 through ``unetup_train`` and up2-up4 plain
-(``nn/blocks.py::UnetUp``).  The ResNet50 encoder's train mode comes with
-its slice (T4) and raises; the ``up_conv`` head's backward (#12) has no
-kernel yet: it raises in train mode on the card, and on the CPU the head
-runs its plain version.
+route ``Unet.__call__`` (models/unet.py:56-121): under ``"paired"`` the
+VGG16 stages through their training kernels (``models/backbones.py::VGG16``),
+every decoder stage through ``unetup_train_full`` and the ``up_conv`` head
+through ``upconv_train`` (#10 forward, #12 backward), each where the
+kernels tile its shape; under ``"fused"`` the VGG16 encoder as a plain
+composition under autograd, up1 through ``unetup_train``, up2-up4 and the
+head plain (``nn/blocks.py::UnetUp``; JAX's head under XLA autodiff,
+models/unet.py:115-119).  The ResNet50 encoder trains plain under autograd
+on both routes, batch norm on the batch statistics, as JAX runs it outside
+any Pallas kernel.
 
 The ResNet50 UNet, and ``self_net`` (VGG16 with ``force_up_conv``), end in
 the ``up_conv`` head (reference: nets/unet.py:47-54): ×2 align-corners
@@ -27,8 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tpu_unet_torch.kernels._plain import on_cpu
-from tpu_unet_torch.kernels.upconv import upconv, upconv_plain
+from tpu_unet_torch.kernels.upconv import upconv, upconv_plain, upconv_train, upconv_train_ok
 from tpu_unet_torch.models.backbones import VGG16, ResNet50
 from tpu_unet_torch.nn.blocks import UnetUp
 
@@ -77,12 +77,8 @@ class Unet(nn.Module):
         (``train/step.py::StepConfig.train_route``)."""
         if self.backbone == "vgg":
             feats = self.vgg(x, train, route)
-        elif train:
-            raise NotImplementedError(
-                "unet_resnet50 training (its ResNet50 in train mode, the up_conv "
-                "head's backward #12) is not ported yet (ROADMAP §1, T4)")
         else:
-            feats = self.resnet(x)
+            feats = self.resnet(x, train)
         feat1, feat2, feat3, feat4, feat5 = feats
         up4 = self.up_concat4(feat4, feat5, train, route)
         up3 = self.up_concat3(feat3, up4, train, route)
@@ -92,11 +88,9 @@ class Unet(nn.Module):
             c1, c2 = self.up_conv[1], self.up_conv[3]
             head = upconv
             if train:
-                if not on_cpu(up1):
-                    raise NotImplementedError(
-                        "training through the up_conv head needs its backward "
-                        "kernel #12, not ported yet (ROADMAP §2, T4)")
-                head = upconv_plain
+                _, h, w, cx = up1.shape
+                head = upconv_train if route == "paired" and upconv_train_ok(
+                    2 * h, 2 * w, cx, c1.out_channels) else upconv_plain
             up1 = head(up1, c1.weight, c1.bias, c2.weight, c2.bias)
         if features_out:
             return up1

@@ -8,22 +8,27 @@
 - Inputs as ``_prepare_batch`` (:120-126): uint8 images / 255 in float32,
   then the compute dtype; int labels.
 - Routing as ``make_train_step`` (:151-216) with the fused loss on, and no
-  aux weights: ``unet_vgg`` with CE (± dice) emits its 64-channel features
-  and the fused final-conv + loss (``kernels/loss.py``, #27 / #29) applies
-  ``final``; every other model whose logits come out at the target's size
-  (``_fused_shape_ok``, :226-243), with CE or focal (± dice), takes the
-  logit-level loss (#25 / #26; ``unet_vgg`` with focal too); the rest
-  (``lightweight``'s half-size logits, aux heads) take the plain losses on
-  the logits (``train/losses.py``).  The eval step always takes the plain
-  losses (:246-261) on the serving forward, batch norm on the running
-  statistics.
-- ``unet_vgg``'s encoder and decoder as JAX's training switches route
-  them, named by ``StepConfig.train_route``: ``"paired"`` (JAX's TPU
-  default) trains every stage the kernels tile through its kernel forward
-  and its one backward kernel (the stem #2 / #20, block 2 #21 / #22,
-  blocks 3-5 #23 / #24, the decoder stages #1 and #14-#19); ``"fused"``
-  trains the encoder plain, up1 through #1 and #13 and the other decoder
-  stages plain.
+  aux weights: a canonical ``Unet`` whose features come out at the
+  target's size (``unet_vgg``, and ``unet_resnet50`` after its ``up_conv``
+  head) with CE (± dice) emits its 64-channel features and the fused
+  final-conv + loss (``kernels/loss.py``, #27 / #29) applies ``final``, as
+  JAX's ``feat_model`` (:159-161, :197-205); every other model whose logits
+  come out at the target's size (``_fused_shape_ok``, :226-243), with CE or
+  focal (± dice), takes the logit-level loss (#25 / #26; ``unet_vgg``
+  and ``unet_resnet50`` with focal too); the rest (``self_net``'s and ``lightweight``'s
+  logits at 2× and ½ the input, aux heads) take the plain losses on the
+  logits (``train/losses.py``, which resize them to the target as JAX's
+  do).  The eval step always takes the plain losses (:246-261) on the
+  serving forward, batch norm on the running statistics.
+- The canonical UNets' encoder, decoder and head as JAX's training
+  switches route them, named by ``StepConfig.train_route``: ``"paired"``
+  (JAX's TPU default) trains every stage the kernels tile through its
+  kernel forward and its one backward kernel (the VGG16 stem #2 / #20,
+  block 2 #21 / #22, blocks 3-5 #23 / #24, the decoder stages #1 and
+  #14-#19, the ``up_conv`` head #10 / #12); ``"fused"`` trains the VGG16
+  encoder plain, up1 through #1 and #13 and the other decoder stages and
+  the head plain.  ResNet50 trains plain on both (cuDNN under autograd),
+  as JAX runs it outside any Pallas kernel.
 - Batch norm and dropout as ``apply(..., True, rngs={"dropout": key},
   mutable=["batch_stats"])``: the training forward normalises with the
   batch statistics and updates the modules' float32 running statistics in
@@ -37,9 +42,10 @@
   get no update and no decay.  ``torch.optim.Adam`` / ``SGD`` compute the
   optax chain's math.
 
-On the card only what has kernels trains, in bf16: ``unet_vgg`` and the
-DataB models (``traditional``, ``traditional22``, the ladder family;
-``lightweight`` on the plain losses, as JAX).  The rest raises
+On the card only what has kernels trains, in bf16: the canonical UNets
+(``unet_vgg``, ``unet_resnet50``, ``self_net``) and the DataB models
+(``traditional``, ``traditional22``, the ladder family; ``lightweight`` on
+the plain losses, as JAX).  float32 compute and deep supervision raise
 (:func:`check_ported`) instead of running a plain path silently; on the CPU
 every recipe runs through the plain versions.
 """
@@ -77,13 +83,14 @@ class StepConfig:
     """``train_route`` is the counterpart of JAX's two training switches
     (``core/fusion.py:101-112``): ``"paired"`` is ``TPU_UNET_PAIRED_TRAIN=1
     TPU_UNET_FUSED_TRAIN=0``, JAX's TPU default (the training stem and
-    encoder blocks, ``models/backbones.py:79-145``, and every decoder stage
-    with its whole stage backward, #14-#19); ``"fused"`` is
-    ``TPU_UNET_FUSED_TRAIN=1 TPU_UNET_PAIRED_TRAIN=0`` (the encoder plain,
-    the F < 128 decoder stages through #13, the wider ones plain).  It
-    routes ``Unet``'s encoder and decoder (``models/backbones.py::VGG16``,
-    ``nn/blocks.py::UnetUp``); on the CPU both run the plain versions.
-    Validated here only."""
+    encoder blocks, ``models/backbones.py:79-145``, every decoder stage
+    with its whole stage backward, #14-#19, and the ``up_conv`` head with
+    #12); ``"fused"`` is ``TPU_UNET_FUSED_TRAIN=1 TPU_UNET_PAIRED_TRAIN=0``
+    (the encoder plain, the F < 128 decoder stages through #13, the wider
+    ones and the head plain).  It routes ``Unet``'s encoder, decoder and
+    head (``models/backbones.py::VGG16``, ``nn/blocks.py::UnetUp``,
+    ``models/unet.py``); on the CPU all run the plain versions.  Validated
+    here only."""
     num_classes: int
     cls_weights: tuple
     use_focal: bool = False
@@ -132,19 +139,18 @@ def make_optimizer(model: nn.Module, optimizer_type: str = "adam",
 
 
 def _fused_route(model: nn.Module, cfg: StepConfig) -> bool:
-    """The fused final-conv + loss route: unet_vgg (the canonical UNet
-    without the up_conv head), no aux heads, CE (± dice)."""
-    return (isinstance(model, Unet) and model.backbone == "vgg"
-            and model.up_conv is None and not cfg.aux_weights and not cfg.use_focal)
+    """The fused final-conv + loss route: a canonical UNet whose features
+    come out at the input's (the target's) size — ``unet_vgg``, and
+    ``unet_resnet50``, whose head doubles its stride-2 decoder output;
+    not ``self_net``, whose head doubles the input size — with no aux heads
+    and CE (± dice)."""
+    return (isinstance(model, Unet) and (model.up_conv is None) == (model.backbone == "vgg")
+            and not cfg.aux_weights and not cfg.use_focal)
 
 
 def check_ported(model: nn.Module, cfg: StepConfig, device: torch.device) -> None:
     """Raise for a training configuration the port cannot run on ``device``
     without a kernel that is not ported yet; never fall back silently."""
-    if isinstance(model, Unet) and model.backbone != "vgg":
-        raise NotImplementedError(
-            "unet_resnet50 training (its ResNet50 in train mode, the up_conv head's "
-            "backward #12) is not ported yet (ROADMAP §1, T4)")
     if torch.device(device).type != "cuda":
         return
     if cfg.compute_dtype != torch.bfloat16:
@@ -155,10 +161,6 @@ def check_ported(model: nn.Module, cfg: StepConfig, device: torch.device) -> Non
         raise NotImplementedError(
             "deep supervision on the card: the aux heads' training is not ported "
             "yet (ROADMAP §1)")
-    if isinstance(model, Unet) and model.up_conv is not None:
-        raise NotImplementedError(
-            "training through the up_conv head (self_net) needs its backward kernel "
-            "#12, not ported yet (ROADMAP §2, T4)")
 
 
 def cast_params(model: nn.Module, dtype: torch.dtype) -> dict:
