@@ -23,8 +23,10 @@ Phases (any failure exits non-zero without the final result line):
    unet_resnet50 stages, the up_conv head's backward (#12) at both heads'
    shapes (batch 8; a planted dropped split as well), and the training
    encoder (the block forwards keeping their intermediates, the stem's and
-   the blocks' backwards) at its five stages, bit-identical on a second
-   launch — error, kernel time, plain time, library time and bound;
+   the blocks' backwards; blocks 3-5 on the Hopper conv core and
+   weight-gradient GEMM, a planted dropped split of the GEMM as well) at
+   its five stages, bit-identical on a second launch — error, kernel time,
+   plain time, library time, bound and the share of the bound;
 3. serving: ``tpu_unet_torch.infer.wrapper.Unet(model=..., num_classes=...,
    input_shape=...).serving_step()`` for ``unet_vgg``, ``unet_resnet50``
    and ``self_net`` (21 classes, a seeded uint8 batch of 8 at 512x512),
@@ -212,7 +214,7 @@ def record_case(results, card, kernel, case, outs, refs, fn, plain_fn, lib_fn, f
     line = {"kernel": kernel, "case": case, "max_abs_err": err,
             "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "gpu": card}
+            "share_of_bound": b_ms / ms, "gpu": card}
     print(json.dumps(line), flush=True)
     r = results.setdefault(kernel, {"max_abs_err": 0.0, "rel_err": 0.0,
                                     "ms": 0.0, "plain_ms": 0.0,
@@ -637,6 +639,28 @@ WGRAD_CHAIN_REL_TOL = 1e-3
 ADJOINT_REL_TOL = 1e-2
 
 
+def _fault_check(kernel, case, ns, fault):
+    print(json.dumps({"wgrad_planted_fault": f"{kernel} {case}", "dropped_split_of": ns,
+                      "rel_err": fault, "bounds": [WGRAD_REL_TOL, WGRAD_CHAIN_REL_TOL]}),
+          flush=True)
+    check(fault > max(WGRAD_REL_TOL, WGRAD_CHAIN_REL_TOL),
+          f"{kernel} {case}: a dropped split reads {fault:.3g}, inside the bounds")
+
+
+def first_split_mask(B, H, W, ns, scale=1):
+    """(B, H / scale, W / scale) bool: the pixels of the first of ``ns``
+    splits of the Hopper weight-gradient GEMM's 8×16 pixel patches (in
+    (b, row, column) order, ``kernels/sm90.py::split_ranges``), on an
+    image ``scale`` times smaller (the pool's)."""
+    from tpu_unet_torch.kernels.sm90 import PATCH_H, PATCH_W, split_ranges
+
+    th, tw = H // PATCH_H, W // PATCH_W
+    lost = torch.zeros(B * th * tw, dtype=torch.bool, device="cuda")
+    lost[:split_ranges(B * th * tw, ns)[0][1]] = True
+    lost = lost.view(B, th, tw)
+    return lost.repeat_interleave(PATCH_H // scale, 1).repeat_interleave(PATCH_W // scale, 2)
+
+
 def wgrad_fault_reading(kernel, case, g2, run, refs):
     """Plant a dropped split-K partial in ``kernel``'s dk2 / db2 GEMM and
     read it as the checks read the kernel: it must lie above both
@@ -653,12 +677,22 @@ def wgrad_fault_reading(kernel, case, g2, run, refs):
     lost = (n_pix // WGRAD_CHUNK) // ns * WGRAD_CHUNK
     faulty = g2.clone()
     faulty.view(-1, f)[:lost] = 0
-    fault = max(rel_err(a, b)[1] for a, b in zip(run(faulty), refs))
-    print(json.dumps({"wgrad_planted_fault": f"{kernel} {case}", "dropped_split_of": ns,
-                      "rel_err": fault, "bounds": [WGRAD_REL_TOL, WGRAD_CHAIN_REL_TOL]}),
-          flush=True)
-    check(fault > max(WGRAD_REL_TOL, WGRAD_CHAIN_REL_TOL),
-          f"{kernel} {case}: a dropped split reads {fault:.3g}, inside the bounds")
+    _fault_check(kernel, case, ns, max(rel_err(a, b)[1] for a, b in zip(run(faulty), refs)))
+
+
+def sm90_wgrad_fault_reading(key, case, ns, dskip, dpool, run, refs):
+    """Plant a dropped split in the Hopper weight-gradient GEMM of a block's
+    last conv (``csrc/wgrad_sm90.cuh``) and read it as the checks read the
+    kernel: zeroing the skip's and the pool's gradients over the first
+    split's patches zeroes the GEMM's G operand there, which is what losing
+    that split's partial computes; ``run(dskip, dpool)`` returns the (dk,
+    db) the kernel then computes, ``refs`` the plain version's on the sound
+    gradients."""
+    B, H, W, _ = dskip.shape
+    faulty = dskip.masked_fill(first_split_mask(B, H, W, ns)[..., None], 0)
+    fpool = None if dpool is None else \
+        dpool.masked_fill(first_split_mask(B, H, W, ns, 2)[..., None], 0)
+    _fault_check(key, case, ns, max(rel_err(a, b)[1] for a, b in zip(run(faulty, fpool), refs)))
 
 
 def decoder_bwd_kernels(record, gen):
@@ -828,11 +862,13 @@ def encoder_train_kernels(record, gen):
     against its plain version on the same intermediates — dx within
     CONV_REL_TOL, the last conv's weight and bias gradients (its input
     gradient is exact) within WGRAD_REL_TOL, the others within
-    WGRAD_CHAIN_REL_TOL, all bit-identical on a second launch — timed
-    against autograd of the cuDNN chain."""
+    WGRAD_CHAIN_REL_TOL, all bit-identical on a second launch, and for the
+    three-conv blocks (the Hopper kernels) a planted dropped split of the
+    last conv's weight-gradient GEMM read above both bounds — timed against
+    autograd of the cuDNN chain, each with its share of the bound."""
     from tpu_unet_torch.kernels._plain import conv3x3_relu
     from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, _vgg_stem_cuda,
-                                                      block_key, vgg_block_bwd,
+                                                      block_key, bwd_plan, vgg_block_bwd,
                                                       vgg_block_bwd_plain, vgg_stem_bwd,
                                                       vgg_stem_bwd_plain)
 
@@ -895,6 +931,12 @@ def encoder_train_kernels(record, gen):
                 WGRAD_REL_TOL if name[2:] == str(n - 1) else WGRAD_CHAIN_REL_TOL
             check(e <= tol, f"{key} {case}: {name} rel err {e:.3g} > {tol}")
         print(json.dumps({key: case, "rel_err_by_output": errs}), flush=True)
+        if n == 3:
+            ns = bwd_plan(B, h, h, tuple(chans), True)[1][n - 1]
+            sm90_wgrad_fault_reading(
+                key, case, ns, dskip, dpool,
+                lambda ds, dp: [r[n - 1] for r in vgg_block_bwd(ds, dp, x, mids, skip, ws)[1:]],
+                [ref[1][n - 1], ref[2][n - 1]])
         # the library yardstick: autograd of the cuDNN chain, graph built once
         with torch.enable_grad():
             xg = cl(x).detach().requires_grad_(not stem)
@@ -2395,13 +2437,15 @@ SOURCES = {
     # block kernel of encoder.cu under its training keys) and the backwards
     "vgg_block2_fwd": ("tpu_unet_torch/csrc/encoder.cu",
                        "tpu_unet/kernels/encoder_train.py:139"),
-    "vgg_block3_fwd": ("tpu_unet_torch/csrc/encoder.cu",
+    # blocks 3-5 on the Hopper core (wgmma, TMA), from csrc/encoder.cu
+    "vgg_block3_fwd": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh",
                        "tpu_unet/kernels/encoder3_train.py:279"),
     "vgg_stem_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",
                      "tpu_unet/kernels/stem_train.py:245"),
     "vgg_block2_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",
                        "tpu_unet/kernels/encoder_train.py:329"),
-    "vgg_block3_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",
+    # the Hopper weight-gradient GEMM and dgrads, from csrc/encoder_train.cu
+    "vgg_block3_bwd": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
                        "tpu_unet/kernels/encoder3_train.py:349"),
     "final_ce_dice_fwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:704"),
     "final_ce_dice_bwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:804"),

@@ -27,9 +27,8 @@ from tpu_unet.nn.blocks import max_pool_ceil as jax_max_pool_ceil
 from tpu_unet.train import step as jstep
 from tpu_unet_torch import cli
 from tpu_unet_torch.infer.convert import state_dict_from_flax
-from tpu_unet_torch.models import backbones
 from tpu_unet_torch.models.registry import build_model
-from tpu_unet_torch.nn.blocks import BN_MOMENTUM, max_pool_ceil
+from tpu_unet_torch.nn.blocks import max_pool_ceil
 from tpu_unet_torch.train import step as tstep
 from tpu_unet_torch.train.checkpoint import load_any
 
@@ -74,30 +73,6 @@ def rn50():
         for setter in (fusion.set_fused_loss, fusion.set_fused_decoder,
                        fusion.set_fused_train, fusion.set_paired_train):
             setter(None)
-
-
-def _bn_float64(x, module, train=False):
-    """``nn/blocks.py::bn`` in train mode with its statistics and
-    normalisation in float64.  The port's ``bn`` takes them in float32
-    whatever the input's dtype (flax takes them in float64 for a float64
-    input; ROADMAP §3), so a float64 evaluation of the port patches this
-    in (:func:`float64_batch_norm`)."""
-    assert train and x.dtype == torch.float64
-    mean = x.mean(dim=(0, 2, 3))
-    var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-    with torch.no_grad():
-        for buf, stat in ((module.running_mean, mean), (module.running_var, var)):
-            buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * stat)
-    mul = torch.rsqrt(var + module.eps) * module.weight
-    return (x - mean[:, None, None]) * mul[:, None, None] + module.bias[:, None, None]
-
-
-@contextlib.contextmanager
-def float64_batch_norm():
-    """ResNet50's batch norms in float64 while the block runs."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(backbones, "bn", _bn_float64)
-        yield
 
 
 def _port(jv):
@@ -175,7 +150,7 @@ def test_resnet50_train_mode_matches_flax(rn50):
     ref, mut = apply({"params": jv["params"]["resnet"],
                       "batch_stats": jv["batch_stats"]["resnet"]}, jnp.asarray(x))
     net = _port(jv)
-    with torch.no_grad(), float64_batch_norm():
+    with torch.no_grad():
         out64 = _port(jv).double().resnet(torch.from_numpy(x).double(), train=True)
     with torch.no_grad():
         out = net.resnet(torch.from_numpy(x), train=True)
@@ -230,12 +205,11 @@ def _loss64(logits, target):
 @pytest.fixture(scope="module")
 def f64_grads(rn50):
     """The gradients of a float64 evaluation of the port's model on the
-    step's batch (the same routes, batch norm in float64:
-    :func:`float64_batch_norm`)."""
+    step's batch (the same routes; ``bn`` takes a float64 input's batch
+    statistics in float64, as flax does)."""
     n64 = _port(rn50[1]).double()
     batch = _batch(STEP_BATCH)
-    with float64_batch_norm():
-        logits = n64(torch.from_numpy(batch["image"]).double() / 255.0, train=True)
+    logits = n64(torch.from_numpy(batch["image"]).double() / 255.0, train=True)
     _loss64(logits, torch.from_numpy(batch["label"])).backward()
     return {k: p.grad.numpy() for k, p in n64.named_parameters()}
 

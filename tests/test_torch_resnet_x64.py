@@ -3,8 +3,8 @@
 decoder, ``PAIRED_TRAIN=1``; the Pallas kernels in interpret mode) with
 ``jax_enable_x64`` and ``compute_dtype=float64``, in a subprocess (x64 is
 a process-wide switch), against the port's step with
-``compute_dtype=torch.float64`` (ResNet50's batch norms in float64 through
-``test_torch_resnet_train.float64_batch_norm``), on the weights and batch
+``compute_dtype=torch.float64`` (ResNet50's batch norms take a float64
+input's statistics in float64, as flax's do), on the weights and batch
 of ``test_torch_resnet_train.py``.  In float32 JAX's CPU step lies up to 13%
 from float64 on the decoder's gradients (that file); here the two steps
 compute the same function at a precision where its agreement shows.
@@ -18,8 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from test_torch_resnet_train import (CW, STEP_BATCH, _batch, _cos, _port, _rel,  # noqa: F401
-                                     float64_batch_norm, rn50)
+from test_torch_resnet_train import CW, STEP_BATCH, _batch, _cos, _port, _rel, rn50  # noqa: F401
 
 from tpu_unet_torch.train import step as tstep
 
@@ -99,8 +98,7 @@ def steps(rn50, tmp_path_factory):
     cfg = tstep.StepConfig(num_classes=len(CW), cls_weights=CW, use_dice=True,
                            compute_dtype=torch.float64)
     state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
-    with float64_batch_norm():
-        _, m = tstep.make_train_step(net, cfg)(state, batch, 1e-3)
+    _, m = tstep.make_train_step(net, cfg)(state, batch, 1e-3)
     return ref, (m["loss"].item(), m["f_score"].item(), net)
 
 

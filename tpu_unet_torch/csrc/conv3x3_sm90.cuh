@@ -1,0 +1,250 @@
+// The Hopper conv core: 3x3 SAME convolution as an implicit GEMM on wgmma,
+// its operands brought by TMA through an mbarrier ring.
+//
+// What it computes is conv3x3.cuh's function:
+//   out[b, y, x, n] = epi(sum_k A[(b, y, x), k] * Wt[n, k])
+// with k = (ky * 3 + kx) * C + c, A the NHWC bf16 input and Wt the packed
+// weights (F, 9C) of _build.pack_conv3x3 (K contiguous).
+//
+// Tile: M = 128 output pixels as an 8-row x 16-column patch, N = TN output
+// channels (256, 128 or 64: the largest that divides F; instantiations of
+// one kernel).  A K slice is one tap and 64 input channels (128 bytes):
+//   A: one 4-D TMA box (64 c, 16 x, 8 y, 1 b) of the input at
+//      (c0, x0 + kx - 1, y0 + ky - 1, b).  TMA fills every element outside
+//      the tensor with zero, which is the SAME padding (and the channels
+//      past C when C % 64 != 0), so the loop has no bounds check and no
+//      im2col arithmetic: the addressing lives in the tensor map;
+//   B: one 3-D box (64 c, 1 tap, TN n) of the weights viewed as (F, 9, C).
+// Both land 128-byte swizzled, K-major, which is what wgmma reads.
+// Block: 384 threads.  Warpgroups 0 and 1 consume: each issues
+// wgmma.mma_async m64nTNk16 on its 64 rows (4 patch rows), 4 per slice,
+// keeping one slice's products in flight before it releases the stage.
+// Warpgroup 2 produces: one thread waits on a stage's "empty" barrier and
+// issues its two TMA loads on the "full" one.  The ring fills 192 KB (4
+// stages of 48 KB at TN = 256, 6 at 128, 8 at 64); the epilogue stages its
+// tile in the ring once both consumers are done with it.  TN = 256 reads
+// 85 FLOP a byte from L2 against 64 at TN = 128: at these shapes the
+// operands stream from L2, whose rate bounds the smaller tile.  The grid
+// is 1-D, the TN-tiles of one patch adjacent, so the blocks that share a
+// patch's input run together out of L2.
+//
+// Epilogues (template OP, as conv3x3.cuh's): bias + ReLU + bf16 and, with
+// OP_FWD_POOL, the 2x2 max-pooled tile too (the forward); the dgrad's
+// out = v * [mask > 0] (OP_DGRAD_MASK); the dgrad's plain bf16 store
+// (OP_DGRAD: conv3x3.cuh's EPI_SPLIT at Fa = F, for dx).  The tile is
+// staged in shared memory and written coalesced, 16 bytes a thread.
+//
+// Bound on the H100: operations (2 * 9 * C * F multiply-adds a pixel: 64
+// to 1024 of them per byte moved at the VGG16 blocks).  What the host tells
+// the kernel (grid, tile, shared memory, tensor maps) is planned in
+// tpu_unet_torch/kernels/sm90.py and arrives as a launch record.
+// Shapes: H % 8 == 0, W % 16 == 0, C % 8 == 0 (16-byte TMA strides),
+// F % 64 == 0.
+#pragma once
+
+#include "sm90.cuh"
+
+namespace tu {
+namespace sm90 {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int PATCH_H = 8, PATCH_W = 16, PATCH = PATCH_H * PATCH_W;  // pixels of a tile
+constexpr int SLICE_C = 64;                  // input channels of a K slice (128 bytes)
+constexpr int BOX_BYTES = PATCH * SLICE_C * 2;  // one (64 c, 16 x, 8 y) box: 16 KB
+constexpr int CONSUMERS = 256;               // two consumer warpgroups
+constexpr int THREADS = 384;                 // and one producer warpgroup
+constexpr int RING_BYTES = 192 * 1024;
+
+template <int TN>
+struct ConvSmem {
+  static constexpr int STAGE = BOX_BYTES + TN * SLICE_C * 2;  // A box + B box
+  static constexpr int STAGES = RING_BYTES / STAGE;
+  static constexpr int LDC = TN + 8;                          // staging row (bf16), in the ring
+  static constexpr int BAR_OFF = STAGES * STAGE;
+  static constexpr int DYN = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static_assert(PATCH * LDC * 2 <= BAR_OFF, "the epilogue tile fits in the ring");
+};
+
+struct ConvArgs {
+  const float* bias;  // OP_FWD*: (F) float32
+  const bf16* mask;   // OP_DGRAD_MASK: laid out as out
+  bf16* out;
+  bf16* pooled;       // OP_FWD_POOL: (B, H / 2, W / 2, F)
+  int H, W, C, F;
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+template <int TN, int OP>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap wmap,
+                 ConvArgs p) {
+  using S = ConvSmem<TN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* empty = full + S::STAGES;
+  const int tid = threadIdx.x;
+  const int ntn = p.F / TN;
+  const int n0 = (blockIdx.x % ntn) * TN, m = blockIdx.x / ntn;
+  const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PATCH_H) * tiles_w;
+  const int b = m / tiles_hw, thw = m - b * tiles_hw;
+  const int y0 = (thw / tiles_w) * PATCH_H, x0 = (thw % tiles_w) * PATCH_W;
+  const int cs = (p.C + SLICE_C - 1) / SLICE_C, nk = 9 * cs;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warpgroup: one thread issues every load
+    producer_regs();
+    if (tid == CONSUMERS) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % S::STAGES;
+        if (it >= S::STAGES) mbar_wait(&empty[s], ((it / S::STAGES) - 1) & 1);
+        const int tap = it / cs, c0 = (it - tap * cs) * SLICE_C;
+        const int ky = tap / 3, kx = tap - 3 * ky;
+        uint8_t* st = smem + s * S::STAGE;
+        mbar_expect_tx(&full[s], S::STAGE);
+        tma_load_4d(st, &act, &full[s], c0, x0 + kx - 1, y0 + ky - 1, b);
+        tma_load_3d(st + BOX_BYTES, &wmap, &full[s], c0, tap, n0);
+      }
+    }
+    return;
+  }
+
+  consumer_regs();
+  const int wg = tid >> 7;
+  float acc[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % S::STAGES;
+    mbar_wait(&full[s], (it / S::STAGES) & 1);
+    const uint8_t* st = smem + s * S::STAGE;
+    const uint64_t da = desc_sw128(st + wg * (BOX_BYTES / 2), 16, 1024);
+    const uint64_t db = desc_sw128(st + BOX_BYTES, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < SLICE_C / 16; ++k)  // 32 bytes of K a step
+      wgmma<TN, 0, 0>(acc, da + 2 * k, db + 2 * k, 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous slice's products are done: release its stage
+    if (it > 0) mbar_arrive(&empty[(it - 1) % S::STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  bar_sync(1, CONSUMERS);  // both warpgroups are done reading the ring
+
+  // epilogue: the wgmma fragment (warp w of the warpgroup holds rows
+  // 16w .. 16w + 15; lane: row lane / 4 and + 8, columns 2 (lane % 4) + {0,1}
+  // of every 8-column group) staged as bf16 rows of the 128-pixel tile
+  bf16* sc = reinterpret_cast<bf16*>(smem);
+  const int lane = tid & 31, r = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < TN / 8; ++i) {
+    const int c = 8 * i + 2 * (lane & 3);
+    float v0 = acc[4 * i], v1 = acc[4 * i + 1], v2 = acc[4 * i + 2], v3 = acc[4 * i + 3];
+    if (OP == OP_FWD || OP == OP_FWD_POOL) {
+      const float b0 = p.bias[n0 + c], b1 = p.bias[n0 + c + 1];
+      v0 = fmaxf(v0 + b0, 0.f);
+      v1 = fmaxf(v1 + b1, 0.f);
+      v2 = fmaxf(v2 + b0, 0.f);
+      v3 = fmaxf(v3 + b1, 0.f);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(&sc[r * S::LDC + c]) = __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<__nv_bfloat162*>(&sc[(r + 8) * S::LDC + c]) = __floats2bfloat162_rn(v2, v3);
+  }
+  bar_sync(1, CONSUMERS);
+  constexpr int CH = TN / 8;  // 16-byte chunks of a pixel's TN channels
+  for (int v = tid; v < PATCH * CH; v += CONSUMERS) {
+    const int px = v / CH, sub = v - px * CH;
+    const size_t pix =
+        (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
+    const int n = n0 + sub * 8;
+    uint4 val = *reinterpret_cast<const uint4*>(&sc[px * S::LDC + sub * 8]);
+    if (OP == OP_DGRAD_MASK) {
+      const uint4 mu = *reinterpret_cast<const uint4*>(p.mask + pix * p.F + n);
+      const bf16* mv = reinterpret_cast<const bf16*>(&mu);
+      bf16* vv = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (!(__bfloat162float(mv[j]) > 0.f)) vv[j] = __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
+    } else {
+      *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
+    }
+  }
+  if (OP == OP_FWD_POOL) {
+    const int Hp = p.H / 2, Wp = p.W / 2;
+    for (int v = tid; v < (PATCH / 4) * CH; v += CONSUMERS) {
+      const int p2 = v / CH, sub = v - p2 * CH, py = p2 >> 3, px = p2 & 7;
+      const bf16* c00 = &sc[((2 * py) * PATCH_W + 2 * px) * S::LDC + sub * 8];
+      const __nv_bfloat162* q00 = reinterpret_cast<const __nv_bfloat162*>(c00);
+      const __nv_bfloat162* q01 = reinterpret_cast<const __nv_bfloat162*>(c00 + S::LDC);
+      const __nv_bfloat162* q10 = reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC);
+      const __nv_bfloat162* q11 =
+          reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC + S::LDC);
+      __align__(16) __nv_bfloat162 mx[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mx[j] = __hmax2(__hmax2(q00[j], q01[j]), __hmax2(q10[j], q11[j]));
+      *reinterpret_cast<uint4*>(
+          p.pooled + ((static_cast<size_t>(b) * Hp + y0 / 2 + py) * Wp + x0 / 2 + px) * p.F + n0 +
+          sub * 8) = *reinterpret_cast<const uint4*>(mx);
+    }
+  }
+}
+
+template <int TN, int OP>
+cudaError_t launch_conv_tn(const Launch& L, const bf16* in, const bf16* wt, const ConvArgs& a,
+                           cudaStream_t stream) {
+  using S = ConvSmem<TN>;
+  CUtensorMap ma, mw;
+  cudaError_t e = make_map(&ma, in, L.map(0));
+  if (e != cudaSuccess) return e;
+  e = make_map(&mw, wt, L.map(1));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(conv_sm90_kernel<TN, OP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           S::DYN);
+  if (e != cudaSuccess) return e;
+  conv_sm90_kernel<TN, OP><<<L.grid(), THREADS, S::DYN, stream>>>(ma, mw, a);
+  return cudaGetLastError();
+}
+
+template <int OP>
+cudaError_t launch_conv_op(const Launch& L, const bf16* in, const bf16* wt, const ConvArgs& a,
+                           cudaStream_t stream) {
+  if (L.tile_n() == 256) return launch_conv_tn<256, OP>(L, in, wt, a, stream);
+  if (L.tile_n() == 128) return launch_conv_tn<128, OP>(L, in, wt, a, stream);
+  if (L.tile_n() == 64) return launch_conv_tn<64, OP>(L, in, wt, a, stream);
+  return cudaErrorInvalidConfiguration;
+}
+
+// One conv per its launch record: `in` (B, H, W, C) bf16 under map 0,
+// `wt` (F, 9C) bf16 under map 1.
+inline cudaError_t launch_conv_sm90(const int64_t* record, const bf16* in, const bf16* wt,
+                                    const ConvArgs& a, cudaStream_t stream) {
+  const Launch L{record};
+  switch (L.op()) {
+    case OP_FWD: return launch_conv_op<OP_FWD>(L, in, wt, a, stream);
+    case OP_FWD_POOL: return launch_conv_op<OP_FWD_POOL>(L, in, wt, a, stream);
+    case OP_DGRAD_MASK: return launch_conv_op<OP_DGRAD_MASK>(L, in, wt, a, stream);
+    case OP_DGRAD: return launch_conv_op<OP_DGRAD>(L, in, wt, a, stream);
+    default: return cudaErrorInvalidConfiguration;
+  }
+}
+
+}  // namespace
+}  // namespace sm90
+}  // namespace tu

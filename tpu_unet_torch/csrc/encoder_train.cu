@@ -29,12 +29,18 @@
 // from conv to conv (one stream orders them).  No atomics, so the result
 // is bit-identical run to run.
 //
+// Three convs (blocks 3-5, #24) run step 2 on the Hopper kernels: the
+// weight gradient on csrc/wgrad_sm90.cuh (MN-major wgmma operands straight
+// from TMA boxes of g and the input) and the dgrad on csrc/conv3x3_sm90.cuh,
+// per the host plan's launch records (kernels/sm90.py); the stem and two
+// convs (#20, #22) on the mma.sync core and csrc/wgrad.cuh.
+//
 // Bound on the H100: operations — per conv a dgrad and a weight gradient
 // of 2 * 9 * P * Cin * Cout each (the stem at 512x512, batch 8: 0.33 ms at
-// 989 TFLOP/s bf16; blocks 3-5 0.49-0.78 ms).  The design is the
-// single-stage mma.sync core of the forward, at a similar share of the peak.
+// 989 TFLOP/s bf16; blocks 3-5 0.49-0.78 ms).
 // Shapes: H % 8, W % 16, widths % 64 (the image's 3 channels apart).
 #include "wgrad.cuh"
+#include "wgrad_sm90.cuh"
 
 namespace tu {
 namespace {
@@ -115,14 +121,16 @@ using tu::bf16;
 // mids[i] (i < n - 1) the ReLU outputs between the convs, out the last one;
 // wts[i] the dgrad weights flipT(w_i) packed (Cin_i, 9 * Cout_i), wts[0]
 // unused without dx; dpool null without the pool; ga, gb (B, H, W, C_n)
-// scratch; work holds max_i ns[i] * C_i+1 * (wgrad_k(C_i) + 1) floats.
+// scratch; work holds max_i ns[i] * C_i+1 * (wgrad_k(C_i) + 1) floats;
+// plan: for three convs, 2n launch records (conv i's weight gradient at
+// 2i, its dgrad at 2i + 1), null otherwise.
 extern "C" int tu_vgg_block_bwd(const bf16* x, int is_image, const bf16* mid0, const bf16* mid1,
                                 const bf16* out, const bf16* dskip, const bf16* dpool,
                                 const bf16* wt0, const bf16* wt1, const bf16* wt2, bf16* ga,
                                 bf16* gb, bf16* dx, float* work, float* dk0, float* dk1,
                                 float* dk2, float* db0, float* db1, float* db2, int n, int B,
                                 int H, int W, int c0, int c1, int c2, int c3, int ns0, int ns1,
-                                int ns2, cudaStream_t stream) {
+                                int ns2, const int64_t* plan, cudaStream_t stream) {
   const bf16* mids[2] = {mid0, mid1};
   const bf16* wts[3] = {wt0, wt1, wt2};
   float* dks[3] = {dk0, dk1, dk2};
@@ -142,6 +150,42 @@ extern "C" int tu_vgg_block_bwd(const bf16* x, int is_image, const bf16* mid0, c
   if (e != cudaSuccess) return e;
   bf16* g = ga;
   bf16* g_next = gb;
+  if (n == 3) {
+    if (plan == nullptr || is_image) return cudaErrorInvalidValue;
+    for (int i = n - 1; i >= 0; --i) {
+      const int cin = chans[i], cout = chans[i + 1];
+      const int64_t* wrec = plan + (2 * i) * tu::sm90::PLAN_WORDS;
+      const int64_t* drec = plan + (2 * i + 1) * tu::sm90::PLAN_WORDS;
+      const int nsplit = static_cast<int>(wrec[5]);
+      float* part = work;
+      float* bpart = work + static_cast<size_t>(nsplit) * cout * 9 * cin;
+      e = tu::sm90::launch_wgrad_sm90(wrec, g, i == 0 ? x : mids[i - 1],
+                                      tu::sm90::WgradArgs{part, bpart, B, H, W, cin, cout},
+                                      stream);
+      if (e != cudaSuccess) return e;
+      const size_t nk = static_cast<size_t>(cout) * 9 * cin;
+      tu::wgrad_reduce_kernel<<<static_cast<unsigned>((nk + 255) / 256), 256, 0, stream>>>(
+          part, bpart, dks[i], dbs[i], cout, cin, 9 * cin, nsplit);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      if (i > 0) {
+        if (drec[0] != tu::sm90::OP_DGRAD_MASK) return cudaErrorInvalidValue;
+        e = tu::sm90::launch_conv_sm90(
+            drec, g, wts[i],
+            tu::sm90::ConvArgs{nullptr, mids[i - 1], g_next, nullptr, H, W, cout, cin},
+            stream);
+      } else if (dx != nullptr) {
+        if (drec[0] != tu::sm90::OP_DGRAD) return cudaErrorInvalidValue;
+        e = tu::sm90::launch_conv_sm90(
+            drec, g, wts[0], tu::sm90::ConvArgs{nullptr, nullptr, dx, nullptr, H, W, cout, cin},
+            stream);
+      }
+      if (e != cudaSuccess) return e;
+      bf16* t = g;
+      g = g_next;
+      g_next = t;
+    }
+    return cudaSuccess;
+  }
   for (int i = n - 1; i >= 0; --i) {
     const int cin = chans[i], cout = chans[i + 1];
     if (i == 0 && is_image)

@@ -44,8 +44,8 @@ SIGNATURES = {
     # img, is_u8, w11, b11, w12, b12, a1, skip, pooled, B, H, W, F, stream
     "tu_vgg_stem": [_P, _I] + [_P] * 7 + [_I] * 4 + [_P],
     # x, n_convs, ws[3], bs[3], mids[2], skip, pooled, B, H, W, chans[4],
-    # stream
-    "tu_vgg_block": [_P, _I] + [_P] * 10 + [_I] * 7 + [_P],
+    # plan (int64 launch records, three convs), stream
+    "tu_vgg_block": [_P, _I] + [_P] * 10 + [_I] * 7 + [_P, _P],
     # skip, x, ridx, rw, cidx, cw, w1, b1, w2, b2, y1, out,
     # B, H2, W2, Cs, Cx, F, stream
     "tu_unetup": [_P] * 12 + [_I] * 6 + [_P],
@@ -73,8 +73,8 @@ SIGNATURES = {
     # db2, B, H2, W2, Cs, Cx, F, ns1, ns2, stream
     "tu_unetup_wgrad": [_P] * 15 + [_I] * 8 + [_P],
     # x, is_image, mid0, mid1, out, dskip, dpool, wt0..2, ga, gb, dx, work,
-    # dk0..2, db0..2, n, B, H, W, chans[4], ns[3], stream
-    "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 11 + [_P],
+    # dk0..2, db0..2, n, B, H, W, chans[4], ns[3], plan (three convs), stream
+    "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 11 + [_P, _P],
     # dup, ridx, rw, nr, cidx, cw, nc, dx, B, H, W, C, stream
     "tu_upsample_adjoint": [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] + [_I] * 4 + [_P],
     # logits, is_bf16, target, cls_weights, partial, sums, n_pix (int64), C,

@@ -15,7 +15,9 @@ between its convs and whose backward is one kernel.
   ``fused_vgg_block3_bwd_impl`` at encoder3_train.py:349), one CUDA source
   ``csrc/encoder_train.cu``: the pool's first-max routing with the skip's
   gradient and the last ReLU mask, then per conv the float32 weight and
-  bias gradients and the masked dgrad.  The stem computes no image
+  bias gradients and the masked dgrad — for three convs on the Hopper
+  kernels ``csrc/wgrad_sm90.cuh`` and ``csrc/conv3x3_sm90.cuh``, planned by
+  :mod:`tpu_unet_torch.kernels.sm90`.  The stem computes no image
   gradient (JAX's VJP returns zeros for it; the step never needs it).
 
 The TPU kernels' column-paired layouts, row tiles and P8 padding are TPU
@@ -24,10 +26,12 @@ design are in the source note.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.kernels import _build, sm90
 from tpu_unet_torch.kernels._plain import conv3x3_relu, max_pool2x2, on_cpu
 from tpu_unet_torch.kernels.decoder_train import (_conv_nobias, _wgrad_splits, conv_wgrad,
                                                   flip_t)
@@ -86,6 +90,21 @@ def vgg_block_train_ok(H: int, W: int, chans) -> bool:
     return vgg_block_shape_ok(H, W, chans) and chans[0] % 64 == 0
 
 
+@functools.lru_cache(maxsize=64)
+def bwd_plan(B: int, H: int, W: int, chans: tuple, want_dx: bool):
+    """The launch records of a three-conv block's backward on the Hopper
+    kernels (conv i's weight gradient at 2i, its dgrad at 2i + 1; none for
+    conv 0's without dx) and each conv's split count."""
+    launches, ns = [], []
+    for i in range(len(chans) - 1):
+        cin, cout = chans[i], chans[i + 1]
+        wg = sm90.wgrad_launch(B, H, W, cin, cout)
+        op = sm90.OP_DGRAD_MASK if i > 0 else sm90.OP_DGRAD
+        launches += [wg, sm90.conv_launch(op, B, H, W, cout, cin) if i > 0 or want_dx else None]
+        ns.append(wg["nsplit"])
+    return sm90.encode(launches), tuple(ns)
+
+
 def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
     _build.no_grad_inputs(key, dskip, dpool, x, mids, out, ws)
     n = len(ws)
@@ -113,7 +132,11 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
            for i, w in enumerate(ws)]
     n_pix = B * H * W
     kpad = [-(-9 * c // 64) * 64 for c in chans[:-1]]
-    ns = [_wgrad_splits((chans[i + 1] // 64) * (kpad[i] // 64), n_pix) for i in range(n)]
+    if n == 3:
+        plan, ns = bwd_plan(B, H, W, tuple(chans), bool(want_dx))
+    else:
+        plan = None
+        ns = [_wgrad_splits((chans[i + 1] // 64) * (kpad[i] // 64), n_pix) for i in range(n)]
     work = torch.empty(max(ns[i] * chans[i + 1] * (kpad[i] + 1) for i in range(n)),
                        dtype=torch.float32, device=x.device)
     ga, gb = torch.empty_like(out), torch.empty_like(out)
@@ -127,7 +150,8 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
                 dskip.data_ptr(), _build.ptr(dpool), *[_build.ptr(t) for t in wts], *pad,
                 ga.data_ptr(), gb.data_ptr(), _build.ptr(dx), work.data_ptr(),
                 *[t.data_ptr() for t in dks], *pad, *[t.data_ptr() for t in dbs], *pad,
-                n, B, H, W, *chans, *([0] * (4 - len(chans))), *ns, *([0] * (3 - n)))
+                n, B, H, W, *chans, *([0] * (4 - len(chans))), *ns, *([0] * (3 - n)),
+                _build.ptr(plan))
     _build.launch_counts[key] += 1
     return dx, dks, dbs
 

@@ -52,12 +52,13 @@ def bn(x: torch.Tensor, module: nn.BatchNorm2d, train: bool = False) -> torch.Te
     """Batch norm of NCHW ``x`` with ``module``'s parameters, whatever the
     module's own mode.  Eval: the running statistics.  Train, as flax's
     ``nn.BatchNorm`` (``_compute_stats`` / ``_normalize``): the batch mean
-    and the biased variance E[x²]−E[x]² (clipped at 0) in float32 over
-    (N, H, W), which also update the running statistics in place
-    (0.9·old + 0.1·batch, outside autograd; ``F.batch_norm`` would update
-    them with the unbiased variance); the normalisation in float32, the
-    output in ``x``'s dtype.  The running statistics stay float32 on every
-    device."""
+    and the biased variance E[x²]−E[x]² (clipped at 0) over (N, H, W),
+    which also update the running statistics in place (0.9·old + 0.1·batch,
+    outside autograd; ``F.batch_norm`` would update them with the unbiased
+    variance); statistics and normalisation in ``x``'s dtype promoted to at
+    least float32 (float32 for bf16 or float32 input, float64 for float64,
+    as flax computes them), the output in ``x``'s dtype.  The running
+    statistics keep the module's dtype."""
     if not train:
         if x.is_cuda or x.dtype == module.running_mean.dtype:
             return F.batch_norm(x, module.running_mean, module.running_var, module.weight,
@@ -66,14 +67,15 @@ def bn(x: torch.Tensor, module: nn.BatchNorm2d, train: bool = False) -> torch.Te
         return F.batch_norm(x.float(), module.running_mean, module.running_var,
                             module.weight.float(), module.bias.float(), False, 0.0,
                             module.eps).to(x.dtype)
-    xf = x.float()
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(dt)
     mean = xf.mean(dim=(0, 2, 3))
     var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
     with torch.no_grad():
         for buf, stat in ((module.running_mean, mean), (module.running_var, var)):
             buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * stat)
-    mul = torch.rsqrt(var + module.eps) * module.weight.float()
-    y = (xf - mean[:, None, None]) * mul[:, None, None] + module.bias.float()[:, None, None]
+    mul = torch.rsqrt(var + module.eps) * module.weight.to(dt)
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + module.bias.to(dt)[:, None, None]
     return y.to(x.dtype)
 
 
