@@ -17,10 +17,14 @@ Phases (any failure exits non-zero without the final result line):
    batch 32, the normalize kernel at one image and at 32, the argmax-mask
    kernel at its three generic serving shapes (ties and NaNs included) and
    the palette kernel at 8 frames of 256x256 (also against the host
-   render), the whole decoder-stage backward (#13's dgrads, the weight
-   gradients, the upsample's adjoint; a planted dropped split read against
-   the weight-gradient bounds) at the four unet_vgg and the four
-   unet_resnet50 stages, the up_conv head's backward (#12) at both heads'
+   render), the decoder stage's forward (#1: the upsample kernel, bit-exact
+   against the plain bf16 upsample, and conv1 over [skip | up] and conv2 on
+   the Hopper conv core) at the four unet_vgg and the four unet_resnet50
+   stages, with a single-tile float64 witness of conv1 and of dk1, the
+   whole decoder-stage backward (#13's dgrads, the weight gradients on the
+   Hopper GEMM, the upsample's adjoint; a planted dropped split read
+   against the weight-gradient bounds) at the same eight stages, the
+   up_conv head's backward (#12) at both heads'
    shapes (batch 8; a planted dropped split as well), and the training
    encoder (the block forwards keeping their intermediates, the stem's and
    the blocks' backwards; blocks 3-5 on the Hopper conv core and
@@ -257,6 +261,7 @@ def phase_build():
 def phase_kernels(card: str):
     from tpu_unet_torch.infer.wrapper import VOC_COLORS
     from tpu_unet_torch.kernels.decoder_fuse import unetup, unetup_plain
+    from tpu_unet_torch.kernels.decoder_train import up2x
     from tpu_unet_torch.kernels.encoder import vgg_block, vgg_block_plain
     from tpu_unet_torch.kernels.postprocess import (argmax_mask, argmax_mask_plain,
                                                     final_argmax,
@@ -268,6 +273,7 @@ def phase_kernels(card: str):
     from tpu_unet_torch.kernels.render import mask_palette, mask_palette_plain, palette_tensor
     from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
     from tpu_unet_torch.kernels.upconv import upconv, upconv_plain
+    from tpu_unet_torch.nn.resize import upsample2x
     from tpu_unet_torch.tools.predict import render
 
     dev = torch.device("cuda")
@@ -359,7 +365,16 @@ def phase_kernels(card: str):
                      lambda: unetup_plain(skip, x, w1, b1, w2, b2), lib,
                      flops, nbytes(skip, x, w1, b1, w2, b2, out))
         check(rel <= CONV_REL_TOL, f"unetup {m} F={f} rel err {rel:.3g}")
-        del skip, x, out, ref
+        # the stage's upsample pass alone: bit-exact against the plain bf16
+        # upsample; the yardstick is F.interpolate (another rounding)
+        up, uref = up2x(x), upsample2x(x)
+        case = f"{m} {B}x{h}x{h}x{cx}->{2 * h}^2"
+        check(bool(torch.equal(up, uref)), f"upsample2x {case}: not bit-exact")
+        record("upsample2x", case, [up], [uref], lambda: up2x(x), lambda: upsample2x(x),
+               lambda: F.interpolate(cl(x), scale_factor=2, mode="bilinear", align_corners=True),
+               9.0 * up.numel(), nbytes(x, up), peak=PEAK_F32)
+        del skip, x, out, ref, up, uref
+    stage_single_tile_float64(gen)
 
     # up_conv head: unet_resnet50's (x 256^2) and self_net's (x 512^2, at
     # batch 2 to bound the plain version's time and memory)
@@ -498,6 +513,61 @@ def phase_kernels(card: str):
     return results
 
 
+# a single-tile witness (one 8 x 16 output tile, batch 1) of the stage
+# kernels against float64 on the same bf16 operands: conv1's y1 within one
+# bf16 ulp of the largest value (its only rounding is the bf16 store), and
+# the weight gradient dk1 within float32's sums over 128 pixels (a wrong
+# tap, channel offset or split reads O(1) there)
+SINGLE_TILE_Y1_REL_TOL = 2.0 ** -8
+SINGLE_TILE_DK_REL_TOL = 1e-5
+
+
+def stage_single_tile_readings(gen, cs, cx, f):
+    """#1's conv1 (y1) and ``unetup_wgrad``'s dk1 at one 8×16 tile with
+    Cs, Cx and F channels, and the plain versions', each read against
+    float64 from the same bf16 skip, up2x(x) and weights."""
+    from tpu_unet_torch.kernels.decoder_fuse import _unetup_cuda, _unetup_plain_y1
+    from tpu_unet_torch.kernels.decoder_train import unetup_wgrad, unetup_wgrad_plain
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    dev, bf, f64 = torch.device("cuda"), torch.bfloat16, torch.float64
+    skip = torch.relu(torch.randn((1, 8, 16, cs), generator=gen, device=dev)).to(bf)
+    x = torch.relu(torch.randn((1, 4, 8, cx), generator=gen, device=dev)).to(bf)
+    w1 = (torch.randn((f, cs + cx, 3, 3), generator=gen, device=dev) / (9 * (cs + cx)) ** 0.5)
+    w1 = w1.to(bf)
+    b1 = (0.1 * torch.randn(f, generator=gen, device=dev)).to(bf)
+    w2 = (torch.randn((f, f, 3, 3), generator=gen, device=dev) / (9 * f) ** 0.5).to(bf)
+    _, y1 = _unetup_cuda(skip, x, w1, b1, w2, b1, want_y1=True)
+    _, py1 = _unetup_plain_y1(skip, x, w1, b1, w2, b1)
+    cc = torch.cat([skip, upsample2x(x)], -1).to(f64)
+    ey1 = torch.relu(F.conv2d(cl(cc), w1.to(f64), b1.to(f64), padding=1)).permute(0, 2, 3, 1)
+    dz1 = torch.randn((1, 8, 16, f), generator=gen, device=dev).to(bf)
+    dk1 = unetup_wgrad(skip, x, dz1, y1, dz1)[0]
+    pdk1 = unetup_wgrad_plain(skip, x, dz1, y1, dz1)[0]
+    edk1 = torch.ops.aten.convolution_backward(
+        cl(dz1.to(f64)), cl(cc), w1.to(f64), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [False, True, False])[1]
+    return {"y1": {"kernel_vs_float64": rel_err(y1, ey1)[1],
+                   "plain_vs_float64": rel_err(py1, ey1)[1]},
+            "dk1": {"kernel_vs_float64": rel_err(dk1, edk1)[1],
+                    "plain_vs_float64": rel_err(pdk1, edk1)[1]}}
+
+
+def stage_single_tile_float64(gen):
+    """:func:`stage_single_tile_readings` at unet_vgg's up1 and up4 widths
+    and unet_resnet50's up4's, printed and held to the single-tile limits,
+    so that a reading at full size can be told from a fault."""
+    for cs, cx, f in ((64, 128, 64), (512, 512, 512), (1024, 2048, 512)):
+        r = stage_single_tile_readings(gen, cs, cx, f)
+        print(json.dumps({"stage_single_tile_float64": f"1x8x16 Cs={cs} Cx={cx} F={f}",
+                          "readings": r}), flush=True)
+        check(r["y1"]["kernel_vs_float64"] <= SINGLE_TILE_Y1_REL_TOL,
+              f"unetup single tile Cs={cs}: y1 {r['y1']['kernel_vs_float64']:.3g} from float64")
+        check(r["dk1"]["kernel_vs_float64"] <= SINGLE_TILE_DK_REL_TOL,
+              f"unetup_wgrad single tile Cs={cs}: dk1 {r['dk1']['kernel_vs_float64']:.3g} "
+              "from float64")
+
+
 def phase_train_kernels(card: str, results: dict):
     """#27 / #29 and #13 against their plain versions at the shapes the two
     training recipes give them: unet_vgg at 512², batch 8, 21 classes (the
@@ -584,7 +654,8 @@ def phase_train_kernels(card: str, results: dict):
         g = torch.randn((n, size, size, f), generator=gen, device=dev).to(bf)
         out_ = torch.relu(torch.randn((n, size, size, f), generator=gen, device=dev)).to(bf)
         y1 = torch.relu(torch.randn((n, size, size, f), generator=gen, device=dev)).to(bf)
-        w1 = (torch.randn((f, cs + cx, 3, 3), generator=gen, device=dev) / (9 * (cs + cx)) ** 0.5).to(bf)
+        w1 = torch.randn((f, cs + cx, 3, 3), generator=gen, device=dev) / (9 * (cs + cx)) ** 0.5
+        w1 = w1.to(bf)
         w2 = (torch.randn((f, f, 3, 3), generator=gen, device=dev) / (9 * f) ** 0.5).to(bf)
         res = unetup_bwd(g, out_, y1, w1, w2, cs)
         ref = unetup_bwd_plain(g, out_, y1, w1, w2, cs)
@@ -681,13 +752,14 @@ def wgrad_fault_reading(kernel, case, g2, run, refs):
 
 
 def sm90_wgrad_fault_reading(key, case, ns, dskip, dpool, run, refs):
-    """Plant a dropped split in the Hopper weight-gradient GEMM of a block's
-    last conv (``csrc/wgrad_sm90.cuh``) and read it as the checks read the
-    kernel: zeroing the skip's and the pool's gradients over the first
-    split's patches zeroes the GEMM's G operand there, which is what losing
-    that split's partial computes; ``run(dskip, dpool)`` returns the (dk,
-    db) the kernel then computes, ``refs`` the plain version's on the sound
-    gradients."""
+    """Plant a dropped split in the Hopper weight-gradient GEMM
+    (``csrc/wgrad_sm90.cuh``) of a block's last conv, or of a decoder
+    stage's dk2 (``dskip`` = g2, no ``dpool``), and read it as the checks
+    read the kernel: zeroing the skip's and the pool's gradients over the
+    first split's patches zeroes the GEMM's G operand there, which is what
+    losing that split's partial computes; ``run(dskip, dpool)`` returns the
+    (dk, db) the kernel then computes, ``refs`` the plain version's on the
+    sound gradients."""
     B, H, W, _ = dskip.shape
     faulty = dskip.masked_fill(first_split_mask(B, H, W, ns)[..., None], 0)
     fpool = None if dpool is None else \
@@ -707,7 +779,7 @@ def decoder_bwd_kernels(record, gen):
     from tpu_unet_torch.kernels.decoder_train import (unetup_bwd_full, unetup_bwd_full_plain,
                                                       unetup_bwd_plain, unetup_wgrad,
                                                       unetup_wgrad_plain, upsample2x_adjoint,
-                                                      upsample2x_adjoint_plain)
+                                                      upsample2x_adjoint_plain, wgrad_plan)
     from tpu_unet_torch.nn.resize import upsample2x
 
     dev, bf, B = torch.device("cuda"), torch.bfloat16, BATCH
@@ -775,8 +847,9 @@ def decoder_bwd_kernels(record, gen):
                      nbytes(skip, x, dz1, y1, g2, *wres))
         check(rel <= WGRAD_REL_TOL, f"unetup_wgrad {case}: rel err {rel:.3g} > {WGRAD_REL_TOL}")
         if f == 64:
-            wgrad_fault_reading("unetup_wgrad", case, g2,
-                                lambda t: unetup_wgrad(skip, x, dz1, y1, t)[2:], wref[2:])
+            ns = wgrad_plan(B, h2, h2, cs, cx, f)[1][2]
+            sm90_wgrad_fault_reading("unetup_wgrad", case, ns, g2, None,
+                                     lambda t, _: unetup_wgrad(skip, x, dz1, y1, t)[2:], wref[2:])
         ares, aref = upsample2x_adjoint(dups, h, h), upsample2x_adjoint_plain(dups, h, h)
 
         def lib_a(x=x, dups=dups):
@@ -1105,10 +1178,11 @@ def expected(launches: dict) -> dict:
 # JAX step does, so normalize_images is 0 throughout.
 SERVING = {
     ("unet_vgg", BATCH, SIZE): {"final_argmax_hist": 1, "vgg_stem": 1, "vgg_block": 4,
-                                "unetup": 4},
-    ("unet_resnet50", BATCH, SIZE): {"final_argmax_hist": 1, "unetup": 4, "upconv": 1},
-    ("self_net", BATCH, SIZE): {"vgg_stem": 1, "vgg_block": 4, "unetup": 4, "upconv": 1,
-                                "argmax_mask": 1},
+                                "unetup": 4, "upsample2x": 4},
+    ("unet_resnet50", BATCH, SIZE): {"final_argmax_hist": 1, "unetup": 4, "upsample2x": 4,
+                                     "upconv": 1},
+    ("self_net", BATCH, SIZE): {"vgg_stem": 1, "vgg_block": 4, "unetup": 4, "upsample2x": 4,
+                                "upconv": 1, "argmax_mask": 1},
     ("traditional", DATAB_BATCH, DATAB_SIZE): {"final_argmax_hist": 1},
     ("traditional22", DATAB_BATCH, DATAB_SIZE): {"final_argmax_hist": 1},
     # 40,000 pixels an image: the mask-only tail and a separate histogram
@@ -1135,9 +1209,13 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     start and the last kernel's end.  The port's kernels are named
     ``conv3x3_kernel<Loader, pool>``, ``final_argmax_kernel<F, hist>``,
     ``normalize_kernel<T>``, ``argmax_kernel<T, V, Out>``,
-    ``palette_kernel<M>``, ``wgrad_kernel<Loader>``, ``wgrad_reduce_kernel``
-    and ``upsample_adjoint_kernel``; ``index_add_ms`` sums PyTorch's
-    ``index_add_`` kernels."""
+    ``palette_kernel<M>``, ``wgrad_kernel<Loader>``, ``wgrad_reduce_kernel``,
+    ``upsample_adjoint_kernel``, the training encoder's
+    ``(pool_)relu_grad_kernel``, the Hopper core's
+    ``conv_sm90_kernel<TN, OP, PH>``, ``wgrad_sm90_kernel<TN, NS>`` and
+    ``wgrad_sm90_reduce_kernel``, and ``upsample2x_kernel`` (all summed in
+    ``port_kernels_ms``); ``index_add_ms`` sums PyTorch's ``index_add_``
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1164,6 +1242,14 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = "port " + ("ce_dice_fwd_kernel" if "fwd" in name else "ce_dice_bwd_kernel")
         elif "sum_rows_kernel" in name:
             name = "port sum_rows_kernel"
+        elif "conv_sm90_kernel" in name or "wgrad_sm90_kernel" in name:
+            kind = "conv_sm90_kernel" if "conv_sm90" in name else "wgrad_sm90_kernel"
+            name = f"port {kind}<{name[name.index('<') + 1:name.index('>')]}>"
+        elif "wgrad_sm90_reduce_kernel" in name or "upsample2x_kernel" in name:
+            name = "port " + ("upsample2x_kernel" if "upsample2x" in name
+                              else "wgrad_sm90_reduce_kernel")
+        elif "relu_grad_kernel" in name:
+            name = "port " + ("pool_relu_grad_kernel" if "pool" in name else "relu_grad_kernel")
         elif "wgrad_kernel" in name:
             loader = "UpConcatLoader" if "UpConcatLoader" in name else "NhwcLoader"
             name = f"port wgrad_kernel<{loader}>"
@@ -1315,7 +1401,7 @@ def phase_serving(card: str):
 SINGLE = {
     ("traditional", DATAB_SIZE, 50): {"normalize_images": 1},
     ("unet_vgg", SIZE, 20): {"normalize_images": 1, "vgg_stem": 1, "vgg_block": 4,
-                             "unetup": 4},
+                             "unetup": 4, "upsample2x": 4},
 }
 
 
@@ -1596,13 +1682,15 @@ def phase_tools(card: str):
 # JAX's TPU configuration) runs the stem (#2 / #20), block 2 (#21 / #22),
 # blocks 3-5 (#23 / #24) and all four decoder stages (#1 and the whole stage
 # backward) through their kernels; "fused" trains the encoder through cuDNN
-# under autograd, up1 through #1 and #13 and the F >= 128 stages plain
+# under autograd, up1 through #1 and #13 and the F >= 128 stages plain.  A
+# stage's upsample kernel runs in #1 and again in unetup_wgrad
 TRAIN_STEP = {
     "paired": {"vgg_stem": 1, "vgg_block2_fwd": 1, "vgg_block3_fwd": 3, "vgg_stem_bwd": 1,
-               "vgg_block2_bwd": 1, "vgg_block3_bwd": 3, "unetup": 4, "unetup_bwd": 4,
-               "unetup_wgrad": 4, "upsample_adjoint": 4, "final_ce_dice_fwd": 1,
-               "final_ce_dice_bwd": 1},
-    "fused": {"unetup": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1},
+               "vgg_block2_bwd": 1, "vgg_block3_bwd": 3, "unetup": 4, "upsample2x": 8,
+               "unetup_bwd": 4, "unetup_wgrad": 4, "upsample_adjoint": 4,
+               "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1},
+    "fused": {"unetup": 1, "upsample2x": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1,
+              "final_ce_dice_bwd": 1},
 }
 
 
@@ -1770,7 +1858,8 @@ def phase_train(card: str):
 # unet_resnet50's default-route step: its four decoder stages (#1, #13,
 # unetup_wgrad, upsample_adjoint) and the up_conv head (#10 / #12) through
 # their kernels, the loss through #27 / #29, ResNet50 through cuDNN
-RN50_STEP = {"unetup": 4, "unetup_bwd": 4, "unetup_wgrad": 4, "upsample_adjoint": 4,
+RN50_STEP = {"unetup": 4, "upsample2x": 8, "unetup_bwd": 4, "unetup_wgrad": 4,
+             "upsample_adjoint": 4,
              "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
 # self_net's: unet_vgg's training encoder and decoder kernels, the head, and
 # the plain losses on its 2x logits (no loss kernel, as JAX's loss_fn)
@@ -2027,7 +2116,8 @@ def fit_voc_resnet50(card: str):
                  model_path=str(save / "best_epoch_weights.pth"))
         fn, net = u.serving_step()
         val = rect_batch(torch.Generator().manual_seed(21), 8, size, classes, "cuda")
-        (masks, hist), served = counted({"final_argmax_hist": 1, "unetup": 4, "upconv": 1},
+        (masks, hist), served = counted({"final_argmax_hist": 1, "unetup": 4, "upsample2x": 4,
+                                         "upconv": 1},
                                         "serving the trained voc_resnet50 .pth",
                                         lambda: fn(net, val["image"]))
         for k, v in served.items():
@@ -2413,6 +2503,10 @@ SOURCES = {
     "vgg_block": ("tpu_unet_torch/csrc/encoder.cu", "tpu_unet/kernels/encoder.py:288"),
     "unetup": ("tpu_unet_torch/csrc/decoder_fuse.cu",
                "tpu_unet/kernels/decoder_fuse.py:1149"),
+    # #1's up2x(x), written once for the Hopper conv core's TMA boxes (the
+    # TPU kernel lerps it inside the conv)
+    "upsample2x": ("tpu_unet_torch/csrc/decoder_fuse.cu",
+                   "tpu_unet/kernels/decoder_fuse.py:1149"),
     "final_argmax_hist": ("tpu_unet_torch/csrc/postprocess.cu",
                           "tpu_unet/kernels/postprocess.py:244"),
     "upconv": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:227"),

@@ -74,7 +74,7 @@ def test_plan_fits_the_card(B, H, W, chans):
                 dense.append(dense[-1] * d)
             assert list(m["strides"]) == dense
         tn = ln["tile"][1]
-        stage = (2 + tn // 64) * sm90.BOX_BYTES if what == "wgrad" else \
+        stage = sm90.wgrad_stage_boxes(*ln["tile"]) * sm90.BOX_BYTES if what == "wgrad" else \
             sm90.BOX_BYTES + tn * 64 * 2
         assert ln["stages"] >= 2 and ln["stages"] * stage <= sm90.RING_BYTES
         if what != "wgrad":  # the epilogue's bf16 tile is staged in the ring
@@ -113,9 +113,11 @@ def test_wgrad_tiles_and_splits(B, H, W, chans):
     for what, ln, c, f in _convs(B, H, W, chans):
         if what != "wgrad":
             continue
-        tn = ln["tile"][1]
+        tf, tn = ln["tile"]
         gx, gy, ns = ln["grid"]
-        assert gx * tn == 9 * c and gy * 128 >= f > (gy - 1) * 128 and ns == ln["nsplit"]
+        # 128 f x tn columns; at F = 64, 64 f x 128 (the last tile may hold 64)
+        assert gx * tn >= 9 * c > (gx - 1) * tn and (tf == 64 or gx * tn == 9 * c)
+        assert gy * tf >= f > (gy - 1) * tf and ns == ln["nsplit"]
         halves = [(k // c, k % c) for k in range(0, 9 * c, 64)]
         assert all(cc + 64 <= c for _, cc in halves)
         npatch = B * (H // 8) * (W // 16)
@@ -150,9 +152,10 @@ def test_records_match_plans():
         assert rec[i, 1:6].tolist() == [ln["tile"][1], *ln["grid"], 1]
         m0 = rec[i, sm90.HEAD_WORDS:sm90.HEAD_WORDS + sm90.MAP_WORDS].tolist()
         assert m0 == [4, *ln["maps"][0]["dims"], *ln["maps"][0]["strides"], *ln["maps"][0]["box"]]
-        m1 = rec[i, sm90.HEAD_WORDS + sm90.MAP_WORDS:].tolist()
+        m1 = rec[i, sm90.HEAD_WORDS + sm90.MAP_WORDS:sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS].tolist()
         assert m1 == [3, *ln["maps"][1]["dims"], 0, *ln["maps"][1]["strides"], 0,
                       *ln["maps"][1]["box"], 0]
+        assert rec[i, sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:].abs().sum() == 0  # one input map
     assert block_plan(B, H, W, chans, False)[:, 0].tolist() == [sm90.OP_FWD] * 3
     for want_dx in (True, False):
         rec, ns = bwd_plan(B, H, W, chans, want_dx)
@@ -190,7 +193,7 @@ def test_shape_rule_unchanged_and_tileable(train):
         for what, ln, c, f in _convs(1, H, W, chans, train):
             tn = ln["tile"][1]
             if what == "wgrad":
-                assert (9 * c) % tn == 0 and c % 64 == 0
+                assert c % 64 == 0 and ln["grid"][0] == -(-9 * c // tn)
             else:
                 assert f % tn == 0
             assert all(s % 16 == 0 for m in ln["maps"] for s in m["strides"])

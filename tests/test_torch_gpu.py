@@ -129,6 +129,76 @@ def test_unetup_kernel(cuda, h, cs, cx, f):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 8, 16, 128), (1, 5, 7, 64), (2, 16, 16, 512),
+                                   (1, 4, 4, 2048)])
+def test_upsample2x_kernel_bit_exact(cuda, shape):
+    """The stage's upsample pass: one launch, bit-equal to the plain bf16
+    upsample."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.decoder_train import up2x
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    x = torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16)
+    n = launch_counts["upsample2x"]
+    up = up2x(x)
+    assert launch_counts["upsample2x"] == n + 1
+    assert torch.equal(up, upsample2x(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,cs,cx,f", [(8, 64, 128, 64), (4, 1024, 2048, 512),
+                                       (8, 32, 96, 64), (12, 64, 128, 64)])
+def test_unetup_stage_on_hopper_core(cuda, h, cs, cx, f):
+    """#1 launches the upsample kernel and the two Hopper convs (one count
+    each of ``upsample2x`` and ``unetup``), within CONV_REL_TOL of the plain
+    version and bit-identical on a second launch; at F = 64 the plan's
+    256-pixel conv tile (2H = 16) and its 128-pixel tile (2H = 24, not a
+    multiple of 16); ``unetup_wgrad`` within 1e-4 of its plain version,
+    bit-identical run to run, one more upsample."""
+    from tpu_unet_torch.kernels import launch_counts, sm90
+    from tpu_unet_torch.kernels.decoder_fuse import _unetup_cuda, _unetup_plain_y1
+    from tpu_unet_torch.kernels.decoder_train import unetup_wgrad, unetup_wgrad_plain
+
+    skip, x = _act(cuda, 2, 2 * h, 4 * h, cs), _act(cuda, 2, h, 2 * h, cx)
+    w1, b1 = _conv(cuda, f, cs + cx)
+    w2, b2 = _conv(cuda, f, f)
+    n = {k: launch_counts[k] for k in ("unetup", "upsample2x")}
+    out, y1 = _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=True)
+    assert all(launch_counts[k] == v + 1 for k, v in n.items())
+    ref, ry1 = _unetup_plain_y1(skip, x, w1, b1, w2, b2)
+    assert _rel(out, ref) <= CONV_REL_TOL and _rel(y1, ry1) <= CONV_REL_TOL
+    assert torch.equal(out, _unetup_cuda(skip, x, w1, b1, w2, b2))
+    assert sm90.unetup_tile_m(2 * h, f) == (256 if f <= 128 and h % 8 == 0 else 128)
+    if (cs + cx) % 64:
+        return
+    dz1 = _act(cuda, 2, 2 * h, 4 * h, f)
+    g2 = torch.randn((2, 2 * h, 4 * h, f), generator=cuda, device="cuda").to(torch.bfloat16)
+    n = launch_counts["upsample2x"]
+    res = unetup_wgrad(skip, x, dz1, y1, g2)
+    assert launch_counts["upsample2x"] == n + 1
+    assert all(torch.equal(a, b) for a, b in zip(res, unetup_wgrad(skip, x, dz1, y1, g2)))
+    for a, b in zip(res, unetup_wgrad_plain(skip, x, dz1, y1, g2)):
+        assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cs,cx,f", [(64, 128, 64), (1024, 2048, 512)])
+def test_stage_single_tile_float64(cuda, cs, cx, f):
+    """At one 8x16 tile, conv1's y1 within one bf16 ulp of the largest value
+    of the float64 conv on the same bf16 operands, and dk1 within float32's
+    sums over 128 pixels of the float64 weight gradient: the witness and
+    limits of ``chip_smoke.py``; prints the kernel's and the plain version's
+    readings (pytest -s)."""
+    from chip_smoke import (SINGLE_TILE_DK_REL_TOL, SINGLE_TILE_Y1_REL_TOL,
+                            stage_single_tile_readings)
+
+    readings = stage_single_tile_readings(cuda, cs, cx, f)
+    print((cs, cx, f), readings)
+    assert readings["y1"]["kernel_vs_float64"] <= SINGLE_TILE_Y1_REL_TOL
+    assert readings["dk1"]["kernel_vs_float64"] <= SINGLE_TILE_DK_REL_TOL
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("h,w", [(8, 8), (4, 16)])
 def test_upconv_kernel(cuda, h, w):
     from tpu_unet_torch.kernels import launch_counts
@@ -628,10 +698,11 @@ def test_encoder_bwd_rejects_untileable_shape(cuda):
 # is no multiple of 16 wide: it trains plain)
 ROUTE_LAUNCHES = {
     "paired": {"vgg_stem": 1, "vgg_block2_fwd": 1, "vgg_block3_fwd": 2, "vgg_stem_bwd": 1,
-               "vgg_block2_bwd": 1, "vgg_block3_bwd": 2, "unetup": 4, "unetup_bwd": 4,
-               "unetup_wgrad": 4, "upsample_adjoint": 4, "final_ce_dice_fwd": 1,
-               "final_ce_dice_bwd": 1},
-    "fused": {"unetup": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1},
+               "vgg_block2_bwd": 1, "vgg_block3_bwd": 2, "unetup": 4, "upsample2x": 8,
+               "unetup_bwd": 4, "unetup_wgrad": 4, "upsample_adjoint": 4,
+               "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1},
+    "fused": {"unetup": 1, "upsample2x": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1,
+              "final_ce_dice_bwd": 1},
 }
 
 
@@ -829,8 +900,10 @@ def test_upconv_bwd_rejects_untileable_shape(cuda):
 
 
 # unet_resnet50's default-route step at 256² (every decoder stage and the
-# head tile): the stage kernels 4 each, the head's 1 each, the loss's 1 each
-RN50_LAUNCHES = {"unetup": 4, "unetup_bwd": 4, "unetup_wgrad": 4, "upsample_adjoint": 4,
+# head tile): the stage kernels 4 each (the upsample 8: in #1 and in
+# unetup_wgrad), the head's 1 each, the loss's 1 each
+RN50_LAUNCHES = {"unetup": 4, "upsample2x": 8, "unetup_bwd": 4, "unetup_wgrad": 4,
+                 "upsample_adjoint": 4,
                  "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
 
 

@@ -81,6 +81,8 @@ def _cuda_entries():
             torch.zeros(1, 8, 8, 128, dtype=torch.bfloat16), f, f, f),
         "upsample_adjoint": lambda: decoder_train._upsample_adjoint_cuda(
             torch.zeros(1, 16, 16, 128, dtype=torch.bfloat16), 8, 8),
+        "upsample2x": lambda: decoder_train._up2x_cuda(
+            torch.zeros(1, 8, 8, 128, dtype=torch.bfloat16)),
         "block3_fwd": lambda: encoder._vgg_block_cuda(f, [w64] * 3, [b] * 3, True,
                                                       "vgg_block3_fwd"),
         "stem_bwd": lambda: encoder_train._bwd_cuda(
@@ -107,7 +109,7 @@ def _cuda_entries():
 @pytest.mark.parametrize("name", ["stem", "block", "unetup", "tail", "upconv",
                                   "tail_natural", "tail_mask_only", "normalize",
                                   "argmax_mask", "mask_palette", "unetup_bwd",
-                                  "unetup_wgrad", "upsample_adjoint", "block3_fwd",
+                                  "unetup_wgrad", "upsample_adjoint", "upsample2x", "block3_fwd",
                                   "stem_bwd", "block_bwd",
                                   "final_ce_dice_fwd", "final_ce_dice_bwd", "ce_dice_fwd",
                                   "ce_dice_bwd"])
@@ -149,6 +151,7 @@ def _grad_calls():
             g(1, 16, 16, 64), g(1, 8, 8, 128), f, f, f)),
         "upsample_adjoint": (decoder_train, lambda: decoder_train.upsample2x_adjoint(
             g(1, 16, 16, 128), 8, 8)),
+        "upsample2x": (decoder_train, lambda: decoder_train.up2x(g(1, 8, 8, 128))),
         "vgg_stem_bwd": (encoder_train, lambda: encoder_train.vgg_stem_bwd(
             f, g(1, 8, 8, 64), g(1, 16, 16, 3), f, f, g(64, 3, 3, 3), w64)),
         "vgg_block2_bwd": (encoder_train, lambda: encoder_train.vgg_block_bwd(
@@ -168,7 +171,7 @@ def _grad_calls():
 
 @pytest.mark.parametrize("name", ["vgg_stem", "vgg_block", "unetup", "upconv",
                                   "final_argmax_hist", "final_argmax", "argmax_mask",
-                                  "unetup_bwd", "unetup_wgrad", "upsample_adjoint",
+                                  "unetup_bwd", "unetup_wgrad", "upsample_adjoint", "upsample2x",
                                   "vgg_stem_bwd", "vgg_block2_bwd", "vgg_block3_bwd",
                                   "final_ce_dice_fwd", "final_ce_dice_bwd",
                                   "ce_dice_fwd", "ce_dice_bwd"])

@@ -7,10 +7,11 @@ versions:
   ``adjoint_tables`` (what ``csrc/upsample_adjoint.cu`` reads), summed as
   the kernel sums them, against the plain version;
 - ``unetup_wgrad_plain`` against ``jax.vjp`` of ``reference_unetup`` (the
-  weight and bias cotangents); the pixel-major GEMM of
-  ``csrc/unetup_wgrad.cu`` (im2col of the forward loader's packed K
-  ``(ky * 3 + kx) * C + c``, split-K over 32-pixel chunks, the partials
-  added in split order, written as (F, C, 3, 3)) against the plain version.
+  weight and bias cotangents); the GEMMs of ``csrc/unetup_wgrad.cu`` on
+  ``csrc/wgrad_sm90.cuh`` (im2col with each tap padded to 64-column boxes,
+  split-K over 8 × 16 pixel patches, the partials added in split order,
+  dk1's skip and up launches written into their channel ranges of one
+  (F, Cs + Cx, 3, 3)) against the plain version.
 
 All float32 and cheap (no interpret mode)."""
 import jax
@@ -22,7 +23,7 @@ from _torch_stage import rel_err, stage_case
 
 from tpu_unet.kernels.decoder_fuse import reference_unetup
 from tpu_unet.nn.resize import upsample2x as jax_upsample2x
-from tpu_unet_torch.kernels import decoder_train
+from tpu_unet_torch.kernels import decoder_train, sm90
 from tpu_unet_torch.kernels.decoder_fuse import _unetup_plain_y1
 from tpu_unet_torch.kernels.decoder_train import unetup_bwd_plain, unetup_wgrad_plain
 from tpu_unet_torch.nn.resize import (adjoint_tables, lerp_tables, upsample2x,
@@ -121,41 +122,58 @@ def test_wgrad_plain_matches_jax_vjp(shape):
         assert rel_err(a, b) <= 1e-5, (name, rel_err(a, b))
 
 
-def _im2col(v):
-    """(P, 9C) operand of the forward conv, K index (ky * 3 + kx) * C + c,
-    zero outside the image (the loaders' SAME padding)."""
+def _im2col(v, cp):
+    """(P, 9 cp) operand of the forward conv, column tap * cp + c for
+    c < C, each tap's C channels padded to cp with zeros (TMA's fill past
+    the input's width), zero outside the image (the SAME halo)."""
     B, H, W, C = v.shape
-    p = np.pad(v, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    p = np.pad(v, ((0, 0), (1, 1), (1, 1), (0, cp - C)))
     cols = [p[:, ky:ky + H, kx:kx + W] for ky in range(3) for kx in range(3)]
-    return np.concatenate(cols, axis=-1).reshape(B * H * W, 9 * C)
+    return np.concatenate(cols, axis=-1).reshape(B * H * W, 9 * cp)
 
 
-def _gemm_like_kernel(v, gout, nsplit):
-    """csrc/unetup_wgrad.cu's arithmetic on the CPU: per split, the partial
-    G^T A over its 32-pixel chunks; the partials and the column sums added
-    in split order; (F, 9C) → (F, C, 3, 3)."""
-    a, gm = _im2col(v), gout.reshape(-1, gout.shape[-1])
-    nch = a.shape[0] // decoder_train.WGRAD_CHUNK
-    f, k = gm.shape[1], a.shape[1]
-    dk, db = np.zeros((f, k), np.float32), np.zeros(f, np.float32)
-    for s in range(nsplit):
-        lo = s * nch // nsplit * decoder_train.WGRAD_CHUNK
-        hi = (s + 1) * nch // nsplit * decoder_train.WGRAD_CHUNK
-        dk += gm[lo:hi].T @ a[lo:hi]
-        db += gm[lo:hi].sum(0)
-    c = v.shape[-1]
-    return dk.reshape(f, 3, 3, c).transpose(0, 3, 1, 2), db
+def _patch_pixels(B, H, W):
+    """Pixel rows (b, y, x order) of each 8 × 16 patch, patches in the
+    GEMM's (b, patch row, patch column) order."""
+    idx = np.arange(B * H * W).reshape(B, H // 8, 8, W // 16, 16)
+    return idx.transpose(0, 1, 3, 2, 4).reshape(-1, 128)
+
+
+def _gemm_like_kernel(v, gout, nsplit, ctot=None, coff=0, dk=None):
+    """csrc/wgrad_sm90.cuh's arithmetic on the CPU: per split, the partial
+    G^T A over its contiguous range of 8 × 16 pixel patches
+    (``sm90.split_ranges``), with each tap of A padded to tap_width(C)
+    columns; the partials and the column sums added in split order; the
+    reduce pass dropping the padding and writing channels [coff, coff + C)
+    of an (F, ctot, 3, 3) gradient."""
+    B, H, W, c = v.shape
+    cp = sm90.tap_width(c)
+    a, gm = _im2col(v, cp), gout.reshape(-1, gout.shape[-1])
+    pix = _patch_pixels(B, H, W)
+    f = gm.shape[1]
+    part, db = np.zeros((f, 9 * cp), np.float32), np.zeros(f, np.float32)
+    for lo, hi in sm90.split_ranges(len(pix), nsplit):
+        rows = pix[lo:hi].reshape(-1)
+        part += gm[rows].T @ a[rows]
+        db += gm[rows].sum(0)
+    ctot = c if ctot is None else ctot
+    dk = np.zeros((f, ctot, 3, 3), np.float32) if dk is None else dk
+    dk[:, coff:coff + c] = part.reshape(f, 3, 3, cp)[..., :c].transpose(0, 3, 1, 2)
+    return dk, db
 
 
 @pytest.mark.parametrize("nsplit", [1, 3])
 def test_kernel_gemm_layout_matches_plain(nsplit):
-    """The kernel's pixel-major GEMM and its output layout give the plain
-    version's dk1 / dk2 and bias sums (1e-5 of max)."""
-    (skip, x, k1, b1, k2, b2), g = stage_case(5, 2, 4, 8, 8, 16, 8)
+    """The Hopper GEMM's scheme (``unetup_wgrad``: dk1 as two launches over
+    skip and over up2x(x), each writing its channel range of one dk1, db1
+    from the first; dk2 over y1) gives the plain version's dk1 / dk2 and
+    bias sums (1e-5 of max); Cs = 8 pads each tap to 64 columns."""
+    (skip, x, k1, b1, k2, b2), g = stage_case(5, 2, 8, 16, 8, 16, 8)
     ts, tx, dz1, y1, g2 = _port_chain(skip, x, k1, b1, k2, b2, g)
     ref = unetup_wgrad_plain(ts, tx, dz1, y1, g2)
-    cc = torch.cat([ts, upsample2x(tx)], -1)
-    dk1, db1 = _gemm_like_kernel(cc.numpy(), dz1.numpy(), nsplit)
+    cs, cx = ts.shape[-1], tx.shape[-1]
+    dk1, db1 = _gemm_like_kernel(ts.numpy(), dz1.numpy(), nsplit, cs + cx, 0)
+    dk1, _ = _gemm_like_kernel(upsample2x(tx).numpy(), dz1.numpy(), nsplit, cs + cx, cs, dk1)
     dk2, db2 = _gemm_like_kernel(y1.numpy(), g2.numpy(), nsplit)
     for name, a, b in zip(("dk1", "db1", "dk2", "db2"), (dk1, db1, dk2, db2), ref):
         assert rel_err(a, b.numpy()) <= 1e-5, name
@@ -164,13 +182,17 @@ def test_kernel_gemm_layout_matches_plain(nsplit):
 @pytest.mark.parametrize("h,cs,cx,f", [(256, 64, 128, 64), (128, 128, 256, 128),
                                        (64, 256, 512, 256), (32, 512, 512, 512)])
 def test_wgrad_split_fills_the_card(h, cs, cx, f):
-    """At unet_vgg's stages (512², batch 8) the split-K gives each GEMM at
-    least two blocks per streaming multiprocessor (132 on an H100) and keeps
-    the partials under 32 MB (one partial per pixel tile would take up to
-    19 MB a tile at up4)."""
-    n_pix = 8 * (2 * h) ** 2
-    for c in (cs + cx, f):
-        tiles = (f // 64) * (9 * c // 64)
-        ns = decoder_train._wgrad_splits(tiles, n_pix)
-        assert tiles * ns >= 2 * 132
-        assert ns * f * 9 * c * 4 <= 32 * 2**20
+    """At unet_vgg's stages (512², batch 8) the split-K of each of the
+    stage's three Hopper GEMMs fills the 132 SMs of an H100 (at least 4
+    waves of blocks or a last wave at least 85% full), keeps at least 8
+    patches a split, and keeps the partials within the 50 MB L2 that the
+    reduce pass reads them from."""
+    launches = sm90.unetup_wgrad_launches(8, 2 * h, 2 * h, cs, cx, f)
+    assert decoder_train.wgrad_plan(8, 2 * h, 2 * h, cs, cx, f)[1] == \
+        tuple(ln["nsplit"] for ln in launches)
+    for ln in launches:
+        blocks = ln["grid"][0] * ln["grid"][1] * ln["nsplit"]
+        waves = blocks / 132
+        assert waves >= 4 or waves / -(-waves // 1) >= 0.85
+        assert ln["npatch"] // ln["nsplit"] >= 8
+        assert ln["nsplit"] * f * ln["k"] * 4 <= 50 * 2**20

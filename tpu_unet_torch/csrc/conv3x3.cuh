@@ -105,12 +105,45 @@ struct ImageLoader {
   }
 };
 
-// conv1 operand of a UnetUp stage: channel c < Cs from `skip` (B, H2, W2, Cs),
-// channel c >= Cs from the x2 align-corners bilinear upsample of
-// x (B, H2/2, W2/2, Cx), computed from its four neighbours.  Rounding
-// follows the plain version: the H pass rounds to bf16, then the W pass;
-// products and sums are kept unfused (__fmul_rn/__fadd_rn) so the result
-// is bit-equal to it.  Row/column tables: idx (2, n) int32, w (2, n) f32.
+// Eight channels [c, c + 8) at output pixel (uy, ux) of the x2
+// align-corners bilinear upsample of x (B, H2/2, W2/2, Cx), image b, from
+// its four neighbours.  Rounding follows the plain version: the H pass
+// rounds to bf16, then the W pass; products and sums are kept unfused
+// (__fmul_rn/__fadd_rn) so the result is bit-equal to it.  Row/column
+// tables: idx (2, n) int32, w (2, n) f32.
+__device__ __forceinline__ uint4 up2x_lerp8(const bf16* x, const int* ridx, const float* rw,
+                                            const int* cidx, const float* cw, int H2, int W2,
+                                            int Cx, int b, int uy, int ux, int c) {
+  const int Hx = H2 / 2, Wx = W2 / 2;
+  const int r0 = ridx[uy], r1 = ridx[H2 + uy];
+  const float wr0 = rw[uy], wr1 = rw[H2 + uy];
+  const int q0 = cidx[ux], q1 = cidx[W2 + ux];
+  const float wc0 = cw[ux], wc1 = cw[W2 + ux];
+  const bf16* base = x + static_cast<size_t>(b) * Hx * Wx * Cx + c;
+  const uint4 u00 = *reinterpret_cast<const uint4*>(base + (static_cast<size_t>(r0) * Wx + q0) * Cx);
+  const uint4 u10 = *reinterpret_cast<const uint4*>(base + (static_cast<size_t>(r1) * Wx + q0) * Cx);
+  const uint4 u01 = *reinterpret_cast<const uint4*>(base + (static_cast<size_t>(r0) * Wx + q1) * Cx);
+  const uint4 u11 = *reinterpret_cast<const uint4*>(base + (static_cast<size_t>(r1) * Wx + q1) * Cx);
+  const bf16* v00 = reinterpret_cast<const bf16*>(&u00);
+  const bf16* v10 = reinterpret_cast<const bf16*>(&u10);
+  const bf16* v01 = reinterpret_cast<const bf16*>(&u01);
+  const bf16* v11 = reinterpret_cast<const bf16*>(&u11);
+  __align__(16) bf16 o[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float h0 = __bfloat162float(__float2bfloat16_rn(__fadd_rn(
+        __fmul_rn(__bfloat162float(v00[j]), wr0), __fmul_rn(__bfloat162float(v10[j]), wr1))));
+    const float h1 = __bfloat162float(__float2bfloat16_rn(__fadd_rn(
+        __fmul_rn(__bfloat162float(v01[j]), wr0), __fmul_rn(__bfloat162float(v11[j]), wr1))));
+    o[j] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(h0, wc0), __fmul_rn(h1, wc1)));
+  }
+  return *reinterpret_cast<const uint4*>(o);
+}
+
+// conv1 operand of a concat [skip | up2x(x)] (the up_conv head's, at
+// Cs = 0: csrc/upconv.cu): channel c < Cs from `skip` (B, H2, W2, Cs),
+// channel c >= Cs from the x2 upsample of x, lerped as it is gathered
+// (up2x_lerp8).
 struct UpConcatLoader {
   const bf16* skip;
   const bf16* x;
@@ -122,37 +155,13 @@ struct UpConcatLoader {
   __device__ __forceinline__ uint4 operator()(int b, int y, int xo, int k) const {
     const int Cp = Cs + Cx;
     const int tap = k / Cp;
-    int c = k - tap * Cp;
+    const int c = k - tap * Cp;
     const int uy = y + tap / 3 - 1, ux = xo + tap % 3 - 1;
     if (uy < 0 || uy >= H2 || ux < 0 || ux >= W2) return zero4();
     if (c < Cs)
       return *reinterpret_cast<const uint4*>(
           skip + ((static_cast<size_t>(b) * H2 + uy) * W2 + ux) * Cs + c);
-    c -= Cs;
-    const int Hx = H2 / 2, Wx = W2 / 2;
-    const int r0 = ridx[uy], r1 = ridx[H2 + uy];
-    const float wr0 = rw[uy], wr1 = rw[H2 + uy];
-    const int q0 = cidx[ux], q1 = cidx[W2 + ux];
-    const float wc0 = cw[ux], wc1 = cw[W2 + ux];
-    const bf16* base = x + static_cast<size_t>(b) * Hx * Wx * Cx + c;
-    const uint4 u00 = *reinterpret_cast<const uint4*>(base + (static_cast<size_t>(r0) * Wx + q0) * Cx);
-    const uint4 u10 = *reinterpret_cast<const uint4*>(base + (static_cast<size_t>(r1) * Wx + q0) * Cx);
-    const uint4 u01 = *reinterpret_cast<const uint4*>(base + (static_cast<size_t>(r0) * Wx + q1) * Cx);
-    const uint4 u11 = *reinterpret_cast<const uint4*>(base + (static_cast<size_t>(r1) * Wx + q1) * Cx);
-    const bf16* v00 = reinterpret_cast<const bf16*>(&u00);
-    const bf16* v10 = reinterpret_cast<const bf16*>(&u10);
-    const bf16* v01 = reinterpret_cast<const bf16*>(&u01);
-    const bf16* v11 = reinterpret_cast<const bf16*>(&u11);
-    __align__(16) bf16 o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float h0 = __bfloat162float(__float2bfloat16_rn(__fadd_rn(
-          __fmul_rn(__bfloat162float(v00[j]), wr0), __fmul_rn(__bfloat162float(v10[j]), wr1))));
-      const float h1 = __bfloat162float(__float2bfloat16_rn(__fadd_rn(
-          __fmul_rn(__bfloat162float(v01[j]), wr0), __fmul_rn(__bfloat162float(v11[j]), wr1))));
-      o[j] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(h0, wc0), __fmul_rn(h1, wc1)));
-    }
-    return *reinterpret_cast<const uint4*>(o);
+    return up2x_lerp8(x, ridx, rw, cidx, cw, H2, W2, Cx, b, uy, ux, c - Cs);
   }
 };
 

@@ -3,30 +3,41 @@
 //
 // What it computes is conv3x3.cuh's function:
 //   out[b, y, x, n] = epi(sum_k A[(b, y, x), k] * Wt[n, k])
-// with k = (ky * 3 + kx) * C + c, A the NHWC bf16 input and Wt the packed
-// weights (F, 9C) of _build.pack_conv3x3 (K contiguous).
+// with k = (ky * 3 + kx) * Ct + c, A the NHWC bf16 input and Wt the packed
+// weights (F, 9 Ct) of _build.pack_conv3x3 (K contiguous).  The input is
+// one map of C channels, or the channel concat of two maps [in | in2]
+// (C + C2 = Ct channels: a UnetUp stage's [skip | up2x(x)]) that is never
+// stored: each K slice comes from one map or the other.
 //
-// Tile: M = 128 output pixels as an 8-row x 16-column patch, N = TN output
-// channels (256, 128 or 64: the largest that divides F; instantiations of
-// one kernel).  A K slice is one tap and 64 input channels (128 bytes):
-//   A: one 4-D TMA box (64 c, 16 x, 8 y, 1 b) of the input at
+// Tile: M = PH x 16 output pixels (an 8- or 16-row patch: 128 or 256
+// pixels), N = TN output channels (256, 128 or 64: the largest that
+// divides F; instantiations of one kernel).  A K slice is one tap and 64
+// input channels (128 bytes) of one map:
+//   A: one 4-D TMA box (64 c, 16 x, PH y, 1 b) of that map at
 //      (c0, x0 + kx - 1, y0 + ky - 1, b).  TMA fills every element outside
 //      the tensor with zero, which is the SAME padding (and the channels
-//      past C when C % 64 != 0), so the loop has no bounds check and no
-//      im2col arithmetic: the addressing lives in the tensor map;
-//   B: one 3-D box (64 c, 1 tap, TN n) of the weights viewed as (F, 9, C).
+//      past the map's width when it is no multiple of 64), so the loop has
+//      no bounds check and no im2col arithmetic: the addressing lives in
+//      the tensor map;
+//   B: one 3-D box (64 c, 1 tap, TN n) of the weights viewed as (F, 9, Ct)
+//      at the slice's channel offset (c0 for in, C + c0 for in2); weight
+//      channels past the slice's map multiply its zero fill.
+// Per tap the K walk takes in's ceil(C / 64) slices, then in2's.
 // Both land 128-byte swizzled, K-major, which is what wgmma reads.
 // Block: 384 threads.  Warpgroups 0 and 1 consume: each issues
-// wgmma.mma_async m64nTNk16 on its 64 rows (4 patch rows), 4 per slice,
-// keeping one slice's products in flight before it releases the stage.
-// Warpgroup 2 produces: one thread waits on a stage's "empty" barrier and
-// issues its two TMA loads on the "full" one.  The ring fills 192 KB (4
-// stages of 48 KB at TN = 256, 6 at 128, 8 at 64); the epilogue stages its
-// tile in the ring once both consumers are done with it.  TN = 256 reads
-// 85 FLOP a byte from L2 against 64 at TN = 128: at these shapes the
-// operands stream from L2, whose rate bounds the smaller tile.  The grid
-// is 1-D, the TN-tiles of one patch adjacent, so the blocks that share a
-// patch's input run together out of L2.
+// wgmma.mma_async m64nTNk16 on its M / 2 rows (PH / 8 m64 tiles), 4 per
+// slice, keeping one slice's products in flight before it releases the
+// stage.  Warpgroup 2 produces: one thread waits on a stage's "empty"
+// barrier and issues its two TMA loads on the "full" one.  The ring fills
+// 192 KB (4 stages of 48 KB at TN = 256, 6 at 128, 8 at 64; at PH = 16, 4
+// of 48 KB at TN = 128, 4 of 40 KB at 64); the epilogue stages its tile in
+// the ring once both
+// consumers are done with it.  TN = 256 reads 85 FLOP a byte from L2
+// against 64 at TN = 128 and 43 at TN = 64 (85 and 52 with the 256-pixel
+// tile):
+// at these shapes the operands stream from L2, whose rate bounds the
+// smaller tiles.  The grid is 1-D, the TN-tiles of one patch adjacent, so
+// the blocks that share a patch's input run together out of L2.
 //
 // Epilogues (template OP, as conv3x3.cuh's): bias + ReLU + bf16 and, with
 // OP_FWD_POOL, the 2x2 max-pooled tile too (the forward); the dgrad's
@@ -34,12 +45,12 @@
 // (OP_DGRAD: conv3x3.cuh's EPI_SPLIT at Fa = F, for dx).  The tile is
 // staged in shared memory and written coalesced, 16 bytes a thread.
 //
-// Bound on the H100: operations (2 * 9 * C * F multiply-adds a pixel: 64
-// to 1024 of them per byte moved at the VGG16 blocks).  What the host tells
-// the kernel (grid, tile, shared memory, tensor maps) is planned in
-// tpu_unet_torch/kernels/sm90.py and arrives as a launch record.
-// Shapes: H % 8 == 0, W % 16 == 0, C % 8 == 0 (16-byte TMA strides),
-// F % 64 == 0.
+// Bound on the H100: operations (2 * 9 * Ct * F multiply-adds a pixel: 64
+// to 1024 of them per byte moved at the VGG16 blocks and decoder stages).
+// What the host tells the kernel (grid, tile, shared memory, tensor maps)
+// is planned in tpu_unet_torch/kernels/sm90.py and arrives as a launch
+// record.  Shapes: H % PH == 0, W % 16 == 0, C % 8 == 0 and C2 % 8 == 0
+// (16-byte TMA strides), F % 64 == 0.
 #pragma once
 
 #include "sm90.cuh"
@@ -57,14 +68,16 @@ constexpr int CONSUMERS = 256;               // two consumer warpgroups
 constexpr int THREADS = 384;                 // and one producer warpgroup
 constexpr int RING_BYTES = 192 * 1024;
 
-template <int TN>
+template <int TN, int PH>
 struct ConvSmem {
-  static constexpr int STAGE = BOX_BYTES + TN * SLICE_C * 2;  // A box + B box
+  static constexpr int M = PH * PATCH_W;                       // pixels of the tile
+  static constexpr int A_BYTES = M * SLICE_C * 2;              // one input box
+  static constexpr int STAGE = A_BYTES + TN * SLICE_C * 2;     // A box + B box
   static constexpr int STAGES = RING_BYTES / STAGE;
-  static constexpr int LDC = TN + 8;                          // staging row (bf16), in the ring
+  static constexpr int LDC = TN + 8;                           // staging row (bf16), in the ring
   static constexpr int BAR_OFF = STAGES * STAGE;
   static constexpr int DYN = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
-  static_assert(PATCH * LDC * 2 <= BAR_OFF, "the epilogue tile fits in the ring");
+  static_assert(M * LDC * 2 <= BAR_OFF, "the epilogue tile fits in the ring");
 };
 
 struct ConvArgs {
@@ -73,17 +86,19 @@ struct ConvArgs {
   bf16* out;
   bf16* pooled;       // OP_FWD_POOL: (B, H / 2, W / 2, F)
   int H, W, C, F;
+  int C2;             // channels of the second input map (0: one map)
 };
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-template <int TN, int OP>
+template <int TN, int OP, int PH>
 __global__ void __launch_bounds__(THREADS, 1)
-conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap wmap,
-                 ConvArgs p) {
-  using S = ConvSmem<TN>;
+conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap act2,
+                 const __grid_constant__ CUtensorMap wmap, ConvArgs p) {
+  using S = ConvSmem<TN, PH>;
+  constexpr int MT = PH / 8;  // m64 tiles of a consumer warpgroup
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
@@ -91,10 +106,11 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
   const int tid = threadIdx.x;
   const int ntn = p.F / TN;
   const int n0 = (blockIdx.x % ntn) * TN, m = blockIdx.x / ntn;
-  const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PATCH_H) * tiles_w;
+  const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PH) * tiles_w;
   const int b = m / tiles_hw, thw = m - b * tiles_hw;
-  const int y0 = (thw / tiles_w) * PATCH_H, x0 = (thw % tiles_w) * PATCH_W;
-  const int cs = (p.C + SLICE_C - 1) / SLICE_C, nk = 9 * cs;
+  const int y0 = (thw / tiles_w) * PH, x0 = (thw % tiles_w) * PATCH_W;
+  const int cs0 = (p.C + SLICE_C - 1) / SLICE_C, cs = cs0 + (p.C2 + SLICE_C - 1) / SLICE_C;
+  const int nk = 9 * cs;
 
   if (tid == 0) {
 #pragma unroll
@@ -112,12 +128,14 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
       for (int it = 0; it < nk; ++it) {
         const int s = it % S::STAGES;
         if (it >= S::STAGES) mbar_wait(&empty[s], ((it / S::STAGES) - 1) & 1);
-        const int tap = it / cs, c0 = (it - tap * cs) * SLICE_C;
+        const int tap = it / cs, j = it - tap * cs;
         const int ky = tap / 3, kx = tap - 3 * ky;
+        const bool first = j < cs0;  // a slice of in, else of in2
+        const int c0 = (first ? j : j - cs0) * SLICE_C;
         uint8_t* st = smem + s * S::STAGE;
         mbar_expect_tx(&full[s], S::STAGE);
-        tma_load_4d(st, &act, &full[s], c0, x0 + kx - 1, y0 + ky - 1, b);
-        tma_load_3d(st + BOX_BYTES, &wmap, &full[s], c0, tap, n0);
+        tma_load_4d(st, first ? &act : &act2, &full[s], c0, x0 + kx - 1, y0 + ky - 1, b);
+        tma_load_3d(st + S::A_BYTES, &wmap, &full[s], first ? c0 : p.C + c0, tap, n0);
       }
     }
     return;
@@ -125,49 +143,62 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
 
   consumer_regs();
   const int wg = tid >> 7;
-  float acc[TN / 2];
+  float acc[MT][TN / 2];
 #pragma unroll
-  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < TN / 2; ++i) acc[t][i] = 0.f;
   for (int it = 0; it < nk; ++it) {
     const int s = it % S::STAGES;
     mbar_wait(&full[s], (it / S::STAGES) & 1);
     const uint8_t* st = smem + s * S::STAGE;
-    const uint64_t da = desc_sw128(st + wg * (BOX_BYTES / 2), 16, 1024);
-    const uint64_t db = desc_sw128(st + BOX_BYTES, 16, 1024);
+    const uint64_t db = desc_sw128(st + S::A_BYTES, 16, 1024);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < SLICE_C / 16; ++k)  // 32 bytes of K a step
-      wgmma<TN, 0, 0>(acc, da + 2 * k, db + 2 * k, 1);
+    for (int t = 0; t < MT; ++t) {  // rows (wg * MT + t) * 64 of the tile: 8 KB a tile
+      const uint64_t da = desc_sw128(st + (wg * MT + t) * (64 * SLICE_C * 2), 16, 1024);
+#pragma unroll
+      for (int k = 0; k < SLICE_C / 16; ++k)  // 32 bytes of K a step
+        wgmma<TN, 0, 0>(acc[t], da + 2 * k, db + 2 * k, 1);
+    }
     wgmma_commit();
     wgmma_wait<1>();  // the previous slice's products are done: release its stage
     if (it > 0) mbar_arrive(&empty[(it - 1) % S::STAGES]);
   }
   wgmma_wait<0>();
-  fence_acc(acc);
+#pragma unroll
+  for (int t = 0; t < MT; ++t) fence_acc(acc[t]);
   bar_sync(1, CONSUMERS);  // both warpgroups are done reading the ring
 
   // epilogue: the wgmma fragment (warp w of the warpgroup holds rows
-  // 16w .. 16w + 15; lane: row lane / 4 and + 8, columns 2 (lane % 4) + {0,1}
-  // of every 8-column group) staged as bf16 rows of the 128-pixel tile
+  // 16w .. 16w + 15 of each m64 tile; lane: row lane / 4 and + 8, columns
+  // 2 (lane % 4) + {0,1} of every 8-column group) staged as bf16 rows of
+  // the tile
   bf16* sc = reinterpret_cast<bf16*>(smem);
-  const int lane = tid & 31, r = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const int lane = tid & 31;
 #pragma unroll
-  for (int i = 0; i < TN / 8; ++i) {
-    const int c = 8 * i + 2 * (lane & 3);
-    float v0 = acc[4 * i], v1 = acc[4 * i + 1], v2 = acc[4 * i + 2], v3 = acc[4 * i + 3];
-    if (OP == OP_FWD || OP == OP_FWD_POOL) {
-      const float b0 = p.bias[n0 + c], b1 = p.bias[n0 + c + 1];
-      v0 = fmaxf(v0 + b0, 0.f);
-      v1 = fmaxf(v1 + b1, 0.f);
-      v2 = fmaxf(v2 + b0, 0.f);
-      v3 = fmaxf(v3 + b1, 0.f);
+  for (int t = 0; t < MT; ++t) {
+    const int r = (wg * MT + t) * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < TN / 8; ++i) {
+      const int c = 8 * i + 2 * (lane & 3);
+      float v0 = acc[t][4 * i], v1 = acc[t][4 * i + 1], v2 = acc[t][4 * i + 2],
+            v3 = acc[t][4 * i + 3];
+      if (OP == OP_FWD || OP == OP_FWD_POOL) {
+        const float b0 = p.bias[n0 + c], b1 = p.bias[n0 + c + 1];
+        v0 = fmaxf(v0 + b0, 0.f);
+        v1 = fmaxf(v1 + b1, 0.f);
+        v2 = fmaxf(v2 + b0, 0.f);
+        v3 = fmaxf(v3 + b1, 0.f);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(&sc[r * S::LDC + c]) = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(&sc[(r + 8) * S::LDC + c]) =
+          __floats2bfloat162_rn(v2, v3);
     }
-    *reinterpret_cast<__nv_bfloat162*>(&sc[r * S::LDC + c]) = __floats2bfloat162_rn(v0, v1);
-    *reinterpret_cast<__nv_bfloat162*>(&sc[(r + 8) * S::LDC + c]) = __floats2bfloat162_rn(v2, v3);
   }
   bar_sync(1, CONSUMERS);
   constexpr int CH = TN / 8;  // 16-byte chunks of a pixel's TN channels
-  for (int v = tid; v < PATCH * CH; v += CONSUMERS) {
+  for (int v = tid; v < S::M * CH; v += CONSUMERS) {
     const int px = v / CH, sub = v - px * CH;
     const size_t pix =
         (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
@@ -187,7 +218,7 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
   }
   if (OP == OP_FWD_POOL) {
     const int Hp = p.H / 2, Wp = p.W / 2;
-    for (int v = tid; v < (PATCH / 4) * CH; v += CONSUMERS) {
+    for (int v = tid; v < (S::M / 4) * CH; v += CONSUMERS) {
       const int p2 = v / CH, sub = v - p2 * CH, py = p2 >> 3, px = p2 & 7;
       const bf16* c00 = &sc[((2 * py) * PATCH_W + 2 * px) * S::LDC + sub * 8];
       const __nv_bfloat162* q00 = reinterpret_cast<const __nv_bfloat162*>(c00);
@@ -206,41 +237,58 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
   }
 }
 
-template <int TN, int OP>
-cudaError_t launch_conv_tn(const Launch& L, const bf16* in, const bf16* wt, const ConvArgs& a,
-                           cudaStream_t stream) {
-  using S = ConvSmem<TN>;
-  CUtensorMap ma, mw;
+template <int TN, int OP, int PH>
+cudaError_t launch_conv_tn(const Launch& L, const bf16* in, const bf16* in2, const bf16* wt,
+                           const ConvArgs& a, cudaStream_t stream) {
+  using S = ConvSmem<TN, PH>;
+  CUtensorMap ma, ma2, mw;
   cudaError_t e = make_map(&ma, in, L.map(0));
   if (e != cudaSuccess) return e;
   e = make_map(&mw, wt, L.map(1));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(conv_sm90_kernel<TN, OP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           S::DYN);
+  if (L.has_map(2)) {
+    if ((e = make_map(&ma2, in2, L.map(2))) != cudaSuccess) return e;
+  } else {
+    ma2 = ma;  // never read: the K walk has no slice of a second map
+  }
+  e = cudaFuncSetAttribute(conv_sm90_kernel<TN, OP, PH>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, S::DYN);
   if (e != cudaSuccess) return e;
-  conv_sm90_kernel<TN, OP><<<L.grid(), THREADS, S::DYN, stream>>>(ma, mw, a);
+  conv_sm90_kernel<TN, OP, PH><<<L.grid(), THREADS, S::DYN, stream>>>(ma, ma2, mw, a);
   return cudaGetLastError();
 }
 
 template <int OP>
-cudaError_t launch_conv_op(const Launch& L, const bf16* in, const bf16* wt, const ConvArgs& a,
-                           cudaStream_t stream) {
-  if (L.tile_n() == 256) return launch_conv_tn<256, OP>(L, in, wt, a, stream);
-  if (L.tile_n() == 128) return launch_conv_tn<128, OP>(L, in, wt, a, stream);
-  if (L.tile_n() == 64) return launch_conv_tn<64, OP>(L, in, wt, a, stream);
+cudaError_t launch_conv_op(const Launch& L, const bf16* in, const bf16* in2, const bf16* wt,
+                           const ConvArgs& a, cudaStream_t stream) {
+  if (L.tile_m() == PATCH) {
+    if (L.tile_n() == 256) return launch_conv_tn<256, OP, 8>(L, in, in2, wt, a, stream);
+    if (L.tile_n() == 128) return launch_conv_tn<128, OP, 8>(L, in, in2, wt, a, stream);
+    if (L.tile_n() == 64) return launch_conv_tn<64, OP, 8>(L, in, in2, wt, a, stream);
+  }
+  // the 256-pixel tile: the forward of 64- and 128-wide output tiles (a
+  // decoder's up1 and up2)
+  if constexpr (OP == OP_FWD) {
+    if (L.tile_m() == 2 * PATCH && L.tile_n() == 128)
+      return launch_conv_tn<128, OP, 16>(L, in, in2, wt, a, stream);
+    if (L.tile_m() == 2 * PATCH && L.tile_n() == 64)
+      return launch_conv_tn<64, OP, 16>(L, in, in2, wt, a, stream);
+  }
   return cudaErrorInvalidConfiguration;
 }
 
 // One conv per its launch record: `in` (B, H, W, C) bf16 under map 0,
-// `wt` (F, 9C) bf16 under map 1.
-inline cudaError_t launch_conv_sm90(const int64_t* record, const bf16* in, const bf16* wt,
-                                    const ConvArgs& a, cudaStream_t stream) {
+// `wt` (F, 9 (C + C2)) bf16 under map 1 and, where the record has map 2,
+// `in2` (B, H, W, C2) bf16 under it (a.C2 > 0 exactly then).
+inline cudaError_t launch_conv_sm90(const int64_t* record, const bf16* in, const bf16* in2,
+                                    const bf16* wt, const ConvArgs& a, cudaStream_t stream) {
   const Launch L{record};
+  if (L.has_map(2) != (a.C2 > 0) || (a.C2 > 0 && in2 == nullptr)) return cudaErrorInvalidValue;
   switch (L.op()) {
-    case OP_FWD: return launch_conv_op<OP_FWD>(L, in, wt, a, stream);
-    case OP_FWD_POOL: return launch_conv_op<OP_FWD_POOL>(L, in, wt, a, stream);
-    case OP_DGRAD_MASK: return launch_conv_op<OP_DGRAD_MASK>(L, in, wt, a, stream);
-    case OP_DGRAD: return launch_conv_op<OP_DGRAD>(L, in, wt, a, stream);
+    case OP_FWD: return launch_conv_op<OP_FWD>(L, in, in2, wt, a, stream);
+    case OP_FWD_POOL: return launch_conv_op<OP_FWD_POOL>(L, in, in2, wt, a, stream);
+    case OP_DGRAD_MASK: return launch_conv_op<OP_DGRAD_MASK>(L, in, in2, wt, a, stream);
+    case OP_DGRAD: return launch_conv_op<OP_DGRAD>(L, in, in2, wt, a, stream);
     default: return cudaErrorInvalidConfiguration;
   }
 }

@@ -49,7 +49,7 @@ extern "C" int tu_vgg_block(const bf16* x, int n_convs, const bf16* w0, const bf
         return cudaErrorInvalidValue;
       const tu::sm90::ConvArgs a{bs[i], nullptr, out, pool ? pooled : nullptr, H, W, chans[i],
                                  F};
-      e = tu::sm90::launch_conv_sm90(rec, in, ws[i], a, stream);
+      e = tu::sm90::launch_conv_sm90(rec, in, nullptr, ws[i], a, stream);
     } else if (last && pooled != nullptr)
       e = tu::launch_conv3x3<tu::NhwcLoader, true>(ld, ws[i], bs[i], out, pooled, B, H, W, K, F,
                                                    stream);

@@ -156,27 +156,19 @@ extern "C" int tu_vgg_block_bwd(const bf16* x, int is_image, const bf16* mid0, c
       const int cin = chans[i], cout = chans[i + 1];
       const int64_t* wrec = plan + (2 * i) * tu::sm90::PLAN_WORDS;
       const int64_t* drec = plan + (2 * i + 1) * tu::sm90::PLAN_WORDS;
-      const int nsplit = static_cast<int>(wrec[5]);
-      float* part = work;
-      float* bpart = work + static_cast<size_t>(nsplit) * cout * 9 * cin;
-      e = tu::sm90::launch_wgrad_sm90(wrec, g, i == 0 ? x : mids[i - 1],
-                                      tu::sm90::WgradArgs{part, bpart, B, H, W, cin, cout},
-                                      stream);
+      e = tu::sm90::launch_wgrad_sm90(wrec, g, i == 0 ? x : mids[i - 1], work, dks[i], dbs[i],
+                                      B, H, W, cin, cout, stream);
       if (e != cudaSuccess) return e;
-      const size_t nk = static_cast<size_t>(cout) * 9 * cin;
-      tu::wgrad_reduce_kernel<<<static_cast<unsigned>((nk + 255) / 256), 256, 0, stream>>>(
-          part, bpart, dks[i], dbs[i], cout, cin, 9 * cin, nsplit);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
       if (i > 0) {
         if (drec[0] != tu::sm90::OP_DGRAD_MASK) return cudaErrorInvalidValue;
         e = tu::sm90::launch_conv_sm90(
-            drec, g, wts[i],
+            drec, g, nullptr, wts[i],
             tu::sm90::ConvArgs{nullptr, mids[i - 1], g_next, nullptr, H, W, cout, cin},
             stream);
       } else if (dx != nullptr) {
         if (drec[0] != tu::sm90::OP_DGRAD) return cudaErrorInvalidValue;
         e = tu::sm90::launch_conv_sm90(
-            drec, g, wts[0], tu::sm90::ConvArgs{nullptr, nullptr, dx, nullptr, H, W, cout, cin},
+            drec, g, nullptr, wts[0], tu::sm90::ConvArgs{nullptr, nullptr, dx, nullptr, H, W, cout, cin},
             stream);
       }
       if (e != cudaSuccess) return e;

@@ -228,12 +228,16 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
 // ---- host: launch records and tensor maps ---------------------------------
 
 // One launch as tpu_unet_torch/kernels/sm90.py::encode lays it out
-// (int64 words): op, tile_n, grid x / y / z, split count, then two tensor
-// maps of MAP_WORDS each: rank, dims[4] (elements, innermost first), byte
-// strides of dims 1-3, box[4].  The ring's stages and shared memory follow
-// from tile_n at compile time.
+// (int64 words): op, tile_n, grid x / y / z, split count, tile_m (the
+// pixels of a tile), and for a weight gradient where its reduce pass
+// writes (the gradient's channel count Ctot, this launch's first channel,
+// whether it sums the bias gradient); then three tensor maps of MAP_WORDS
+// each: rank, dims[4] (elements, innermost first), byte strides of dims
+// 1-3, box[4]; rank 0 for a map the launch does not use (the conv's second
+// input map).  The ring's stages and shared memory follow from the tile at
+// compile time.
 enum { OP_FWD = 0, OP_FWD_POOL = 1, OP_DGRAD_MASK = 2, OP_DGRAD = 3, OP_WGRAD = 4 };
-constexpr int HEAD_WORDS = 6, MAP_WORDS = 12, PLAN_WORDS = HEAD_WORDS + 2 * MAP_WORDS;
+constexpr int HEAD_WORDS = 10, MAP_WORDS = 12, PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS;
 
 struct Launch {
   const int64_t* w;
@@ -244,7 +248,12 @@ struct Launch {
                 static_cast<unsigned>(w[4]));
   }
   int nsplit() const { return static_cast<int>(w[5]); }
+  int tile_m() const { return static_cast<int>(w[6]); }
+  int out_channels() const { return static_cast<int>(w[7]); }
+  int out_offset() const { return static_cast<int>(w[8]); }
+  bool bias() const { return w[9] != 0; }
   const int64_t* map(int i) const { return w + HEAD_WORDS + i * MAP_WORDS; }
+  bool has_map(int i) const { return map(i)[0] != 0; }
 };
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

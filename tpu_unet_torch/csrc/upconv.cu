@@ -7,7 +7,7 @@
 // upconv.py:227) and its other TPU schedule _fused_upconv_call_p2
 // (upconv.py:288), which compute the same function.  As on the TPU, the x2
 // upsampled tensor never reaches device memory: conv1's operand loader is
-// the decoder's UpConcatLoader with no skip channels (Cs = 0), which lerps
+// csrc/conv3x3.cuh's UpConcatLoader with no skip channels (Cs = 0), which lerps
 // each up element from x's four neighbours with host-made row/column tables
 // and rounds as the plain version does (H pass to bf16, then W pass).
 // conv1's output y1 goes through device memory to a second launch of the

@@ -46,9 +46,11 @@ SIGNATURES = {
     # x, n_convs, ws[3], bs[3], mids[2], skip, pooled, B, H, W, chans[4],
     # plan (int64 launch records, three convs), stream
     "tu_vgg_block": [_P, _I] + [_P] * 10 + [_I] * 7 + [_P, _P],
-    # skip, x, ridx, rw, cidx, cw, w1, b1, w2, b2, y1, out,
-    # B, H2, W2, Cs, Cx, F, stream
-    "tu_unetup": [_P] * 12 + [_I] * 6 + [_P],
+    # x, ridx, rw, cidx, cw, up, B, H2, W2, Cx, stream
+    "tu_upsample2x": [_P] * 6 + [_I] * 4 + [_P],
+    # skip, up, w1, b1, w2, b2, y1, out, B, H2, W2, Cs, Cx, F,
+    # plan (int64 launch records), stream
+    "tu_unetup": [_P] * 8 + [_I] * 6 + [_P, _P],
     # x, ridx, rw, cidx, cw, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F, stream
     "tu_upconv": [_P] * 11 + [_I] * 5 + [_P],
     # g, out, y1, x, ridx, rw, cidx, cw, aridx, arw, anr, acidx, acw, anc,
@@ -69,9 +71,9 @@ SIGNATURES = {
     "tu_final_ce_dice_bwd": [_P, _I] + [_P] * 10 + [ctypes.c_longlong, _I, _P],
     # g, out, y1, w2t, w1t, g2, dz1, dskip, dups, B, H2, W2, Cs, Cx, F, stream
     "tu_unetup_bwd": [_P] * 9 + [_I] * 6 + [_P],
-    # skip, x, ridx, rw, cidx, cw, dz1, y1, g2, work1, work2, dk1, db1, dk2,
-    # db2, B, H2, W2, Cs, Cx, F, ns1, ns2, stream
-    "tu_unetup_wgrad": [_P] * 15 + [_I] * 8 + [_P],
+    # skip, up, dz1, y1, g2, work, dk1, db1, dk2, db2, B, H2, W2, Cs, Cx, F,
+    # plan (int64 launch records), stream
+    "tu_unetup_wgrad": [_P] * 10 + [_I] * 6 + [_P, _P],
     # x, is_image, mid0, mid1, out, dskip, dpool, wt0..2, ga, gb, dx, work,
     # dk0..2, db0..2, n, B, H, W, chans[4], ns[3], plan (three convs), stream
     "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 11 + [_P, _P],
@@ -89,8 +91,8 @@ SIGNATURES = {
 # C entry and nowhere else
 launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
-                 "unetup": 0, "upconv": 0, "upconv_bwd": 0, "argmax_mask": 0,
-                 "mask_palette": 0, "unetup_bwd": 0, "unetup_wgrad": 0,
+                 "unetup": 0, "upsample2x": 0, "upconv": 0, "upconv_bwd": 0,
+                 "argmax_mask": 0, "mask_palette": 0, "unetup_bwd": 0, "unetup_wgrad": 0,
                  "upsample_adjoint": 0, "vgg_block2_fwd": 0,
                  "vgg_block3_fwd": 0, "vgg_stem_bwd": 0, "vgg_block2_bwd": 0,
                  "vgg_block3_bwd": 0, "final_ce_dice_fwd": 0,

@@ -2,12 +2,14 @@
 ``relu(conv2(relu(conv1(concat[skip, up2x(x)]))))`` with 3×3 SAME convs
 (counterpart of ``tpu_unet/kernels/decoder_fuse.py``).
 
-CUDA kernel: ``csrc/decoder_fuse.cu`` on the conv core
-``csrc/conv3x3.cuh`` — replaces ``decoder_fuse.py::_fused_unetup_fwd_impl``.
-conv1's operand loader gathers the skip channels and lerps the up channels
-from x's four neighbours, so neither ``up2x(x)`` nor the concat is stored;
-conv1's output goes through device memory to conv2.  Bound and design in
-the source note.
+CUDA kernels: ``csrc/decoder_fuse.cu`` — replaces
+``decoder_fuse.py::_fused_unetup_fwd_impl``.  ``decoder_train.up2x``
+(``tu_upsample2x``, launch key ``upsample2x``) writes ``up2x(x)`` once in
+bf16, bit-equal to ``nn/resize.py::upsample2x``; ``tu_unetup`` runs conv1
+over the two maps [skip | up] and conv2 over its output y1 on the Hopper
+conv core (``csrc/conv3x3_sm90.cuh``), the launches planned by
+:func:`stage_plan` (``kernels/sm90.py``).  The concat is never stored.
+Bound and design in the source note.
 
 Training, both run the same kernel forward keeping conv1's output y1:
 - :func:`unetup_train` (the port of ``fused_unetup_train``,
@@ -24,11 +26,13 @@ Training, both run the same kernel forward keeping conv1's output y1:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.kernels import _build, sm90
 from tpu_unet_torch.kernels._plain import conv3x3_relu, on_cpu
-from tpu_unet_torch.kernels.decoder_train import unetup_bwd, unetup_bwd_full, up2x_tables
+from tpu_unet_torch.kernels.decoder_train import _up2x_cuda, unetup_bwd, unetup_bwd_full
 from tpu_unet_torch.nn.resize import upsample2x
 
 
@@ -43,6 +47,30 @@ def unetup_plain(skip, x, w1, b1, w2, b2):
     return _unetup_plain_y1(skip, x, w1, b1, w2, b2)[0]
 
 
+def unetup_shape_ok(H2: int, W2: int, cs: int, cx: int, f: int) -> bool:
+    """#1's shape rule: 2H % 8, 2W % 16, Cs % 8, Cx % 8 (16-byte TMA
+    strides), (Cs + Cx) % 32 and F % 64 all 0."""
+    return not (H2 % 8 or W2 % 16 or cs % 8 or cx % 8 or (cs + cx) % 32 or f % 64)
+
+
+@functools.lru_cache(maxsize=64)
+def stage_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int) -> torch.Tensor:
+    """The launch records of a stage's two convs on the Hopper core."""
+    return sm90.encode(sm90.unetup_launches(B, H2, W2, cs, cx, f))
+
+
+def _stage_convs(skip, up, wt1, b1f, wt2, b2f, plan):
+    """conv1 over [skip | up] and conv2 per ``plan``: (out, y1)."""
+    B, H2, W2, cs = skip.shape
+    cx, f = up.shape[-1], wt1.shape[0]
+    y1 = torch.empty((B, H2, W2, f), dtype=torch.bfloat16, device=skip.device)
+    out = torch.empty_like(y1)
+    _build.call("tu_unetup", skip.data_ptr(), up.data_ptr(), wt1.data_ptr(), b1f.data_ptr(),
+                wt2.data_ptr(), b2f.data_ptr(), y1.data_ptr(), out.data_ptr(),
+                B, H2, W2, cs, cx, f, plan.data_ptr())
+    return out, y1
+
+
 def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
     _build.no_grad_inputs("unetup", skip, x, w1, b1, w2, b2)
     B, H, W, cx = x.shape
@@ -52,25 +80,20 @@ def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
     _build.check(skip, "skip", torch.bfloat16, (B, H2, W2, cs), x.device)
     _build.check(w1, "w1", torch.bfloat16, (f, cs + cx, 3, 3), x.device)
     _build.check(w2, "w2", torch.bfloat16, (f, f, 3, 3), x.device)
-    if H2 % 8 or W2 % 16 or cs % 8 or cx % 8 or (cs + cx) % 32 or f % 64:
+    if not unetup_shape_ok(H2, W2, cs, cx, f):
         raise ValueError(f"unetup kernel: 2H={H2} % 8, 2W={W2} % 16, Cs={cs} "
                          f"% 8, Cx={cx} % 8, Cs+Cx % 32 and F={f} % 64 must "
                          "all be 0")
-    ridx, rw, cidx, cw = up2x_tables(H, W, x.device)
-    wt1, wt2 = _build.pack_conv3x3(w1), _build.pack_conv3x3(w2)
-    b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
-    y1 = torch.empty((B, H2, W2, f), dtype=torch.bfloat16, device=x.device)
-    out = torch.empty_like(y1)
-    _build.call("tu_unetup", skip.data_ptr(), x.data_ptr(), ridx.data_ptr(),
-                rw.data_ptr(), cidx.data_ptr(), cw.data_ptr(), wt1.data_ptr(),
-                b1f.data_ptr(), wt2.data_ptr(), b2f.data_ptr(), y1.data_ptr(),
-                out.data_ptr(), B, H2, W2, cs, cx, f)
+    up = _up2x_cuda(x)
+    out, y1 = _stage_convs(skip, up, _build.pack_conv3x3(w1), b1.float().contiguous(),
+                           _build.pack_conv3x3(w2), b2.float().contiguous(),
+                           stage_plan(B, H2, W2, cs, cx, f))
     _build.launch_counts["unetup"] += 1
     return (out, y1) if want_y1 else out
 
 
 def unetup(skip, x, w1, b1, w2, b2):
-    """Dispatching wrapper: plain version for CPU tensors, the CUDA kernel
+    """Dispatching wrapper: plain version for CPU tensors, the CUDA kernels
     for tensors on the card (bf16; 2H % 8, 2W % 16, Cs % 8, Cx % 8,
     (Cs + Cx) % 32 and F % 64 all 0)."""
     if on_cpu(x):

@@ -1,6 +1,12 @@
 """The backward of one UnetUp decoder stage (counterpart of
-``tpu_unet/kernels/decoder_train.py``).
+``tpu_unet/kernels/decoder_train.py``), and the ×2 upsample that the
+stage's forward and weight gradients read.
 
+- :func:`up2x`: ``up2x(x)`` in bf16, bit-equal to ``nn/resize.py::
+  upsample2x``.  CUDA kernel ``csrc/decoder_fuse.cu::tu_upsample2x``
+  (launch key ``upsample2x``), part of #1's port: the Hopper conv core and
+  weight-gradient GEMM read ``up`` by TMA, so it is written once, where
+  the TPU kernels lerp it inside the conv.
 - :func:`unetup_bwd` (#13, ``fused_unetup_bwd_impl``): the
   activation-gradient chain
 
@@ -16,8 +22,10 @@
   writes the skip and up channels into two tensors.
 - :func:`unetup_wgrad`: both weight gradients and both bias sums in
   float32 (``_bwd_kernel_v2``, decoder_train.py:340-374, and #18's repack).
-  CUDA kernel ``csrc/unetup_wgrad.cu``: a GEMM over the pixels whose conv1
-  operand is gathered by the forward's concat loader.
+  CUDA kernel ``csrc/unetup_wgrad.cu``: three launches of the Hopper
+  weight-gradient GEMM (``csrc/wgrad_sm90.cuh``) — dk1 over skip and over
+  ``up2x(x)`` (recomputed by :func:`up2x`) into the channel ranges of one
+  dk1, dk2 over y1 — planned by :func:`wgrad_plan`.
 - :func:`upsample2x_adjoint`: dx at x's size from dups (the W- and H-lerp
   adjoints of :327-338 and #19's overlap-add).  CUDA kernel
   ``csrc/upsample_adjoint.cu``, a gather over the host tables of
@@ -35,14 +43,15 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.kernels import _build, sm90
 from tpu_unet_torch.kernels._plain import on_cpu
 from tpu_unet_torch.nn.resize import (adjoint_tables, lerp_tables, upsample2x,
                                       upsample2x_adjoint_plain)
 
-# the split-K of unetup_wgrad: about this many blocks per GEMM (8 a
-# streaming multiprocessor of the H100's 132), at least 8 pixel chunks of
-# 32 a split
+# the split-K of the mma.sync weight-gradient GEMM (csrc/wgrad.cuh, the
+# up_conv head's backward and VGG16 blocks 1-2): about this many blocks per
+# GEMM (8 a streaming multiprocessor of the H100's 132), at least 8 pixel
+# chunks of 32 a split
 WGRAD_BLOCKS = 8 * 132
 WGRAD_CHUNK = 32
 
@@ -55,10 +64,36 @@ def flip_t(w: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=32)
 def up2x_tables(h: int, w: int, device: torch.device):
     """Row and column (idx, wts) tables of the ×2 align-corners upsample,
-    with bf16-rounded weights, on ``device`` (the concat loader's)."""
+    with bf16-rounded weights, on ``device`` (what the upsample kernel and
+    the head's concat loader read)."""
     ridx, rw = lerp_tables(h, 2 * h, True, torch.bfloat16)
     cidx, cw = lerp_tables(w, 2 * w, True, torch.bfloat16)
     return tuple(t.contiguous().to(device) for t in (ridx, rw, cidx, cw))
+
+
+def _up2x_cuda(x):
+    _build.no_grad_inputs("upsample2x", x)
+    B, H, W, cx = x.shape
+    _build.check(x, "x", torch.bfloat16)
+    if cx % 8 or B * 4 * H * W * cx // 8 >= 2**32:
+        raise ValueError(f"upsample2x kernel: Cx={cx} % 8 must be 0 and the output "
+                         "below 2^35 elements")
+    ridx, rw, cidx, cw = up2x_tables(H, W, x.device)
+    up = torch.empty((B, 2 * H, 2 * W, cx), dtype=torch.bfloat16, device=x.device)
+    _build.call("tu_upsample2x", x.data_ptr(), ridx.data_ptr(), rw.data_ptr(), cidx.data_ptr(),
+                cw.data_ptr(), up.data_ptr(), B, 2 * H, 2 * W, cx)
+    _build.launch_counts["upsample2x"] += 1
+    return up
+
+
+def up2x(x):
+    """Dispatching wrapper of the ×2 align-corners upsample of NHWC ``x``:
+    ``nn/resize.py::upsample2x`` for CPU tensors, the CUDA kernel for
+    tensors on the card (bf16, C % 8 == 0; bit-equal to the plain version
+    in bf16)."""
+    if on_cpu(x):
+        return upsample2x(x)
+    return _up2x_cuda(x)
 
 
 @functools.lru_cache(maxsize=32)
@@ -150,6 +185,16 @@ def unetup_wgrad_plain(skip, x, dz1, y1, g2):
             conv_wgrad(y1, g2), g2.float().sum((0, 1, 2)))
 
 
+@functools.lru_cache(maxsize=64)
+def wgrad_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int):
+    """The launch records of a stage's three weight-gradient GEMMs on the
+    Hopper core, their split counts and the float32 words of the work area
+    they share."""
+    launches = sm90.unetup_wgrad_launches(B, H2, W2, cs, cx, f)
+    return (sm90.encode(launches), tuple(ln["nsplit"] for ln in launches),
+            sm90.wgrad_work(launches, f))
+
+
 def _wgrad_splits(tiles: int, n_pix: int) -> int:
     chunks = n_pix // WGRAD_CHUNK
     return max(1, min(-(-WGRAD_BLOCKS // tiles), chunks // 8))
@@ -177,15 +222,15 @@ def _unetup_wgrad_cuda(skip, x, dz1, y1, g2):
     for t, name in ((dz1, "dz1"), (y1, "y1"), (g2, "g2")):
         _build.check(t, name, bf, (B, H2, W2, f), x.device)
     _check_stage("unetup_wgrad", H2, W2, f, cp, cs)
-    n_pix = B * H2 * W2
-    ns1, work1, dk1, db1 = _wgrad_buffers(f, cp, n_pix, x.device)
-    ns2, work2, dk2, db2 = _wgrad_buffers(f, f, n_pix, x.device)
-    ridx, rw, cidx, cw = up2x_tables(H, W, x.device)
-    _build.call("tu_unetup_wgrad", skip.data_ptr(), x.data_ptr(), ridx.data_ptr(),
-                rw.data_ptr(), cidx.data_ptr(), cw.data_ptr(), dz1.data_ptr(),
-                y1.data_ptr(), g2.data_ptr(), work1.data_ptr(), work2.data_ptr(),
-                dk1.data_ptr(), db1.data_ptr(), dk2.data_ptr(), db2.data_ptr(),
-                B, H2, W2, cs, cx, f, ns1, ns2)
+    plan, _, work_words = wgrad_plan(B, H2, W2, cs, cx, f)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    work = torch.empty(work_words, **f32)
+    dk1, db1 = torch.empty((f, cp, 3, 3), **f32), torch.empty(f, **f32)
+    dk2, db2 = torch.empty((f, f, 3, 3), **f32), torch.empty(f, **f32)
+    up = _up2x_cuda(x)
+    _build.call("tu_unetup_wgrad", skip.data_ptr(), up.data_ptr(), dz1.data_ptr(),
+                y1.data_ptr(), g2.data_ptr(), work.data_ptr(), dk1.data_ptr(), db1.data_ptr(),
+                dk2.data_ptr(), db2.data_ptr(), B, H2, W2, cs, cx, f, plan.data_ptr())
     _build.launch_counts["unetup_wgrad"] += 1
     return dk1, db1, dk2, db2
 

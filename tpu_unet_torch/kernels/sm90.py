@@ -2,11 +2,13 @@
 weight-gradient GEMM (``csrc/wgrad_sm90.cuh``).
 
 Everything such a kernel is told comes from here: its tile, its grid, its
-split count and the TMA tensor maps (dims, byte strides, boxes) of its two
-operands.  :func:`encode` lays launches out as the int64 records that
-``csrc/sm90.cuh::Launch`` reads; the C side binds the tensors' addresses,
-picks the instantiation of the record's tile width and encodes the maps.
-The ring's stages and shared memory follow from the tile width: the C side
+split count and the TMA tensor maps (dims, byte strides, boxes) of its
+operands (a conv's input, or the two input maps of a channel concat, and
+its weights; a GEMM's output gradient and input).  :func:`encode` lays
+launches out as the int64 records that ``csrc/sm90.cuh::Launch`` reads;
+the C side binds the tensors' addresses, picks the instantiation of the
+record's tile and encodes the maps.
+The ring's stages and shared memory follow from the tile: the C side
 derives them (``ConvSmem``, ``WgradSmem``) and a plan states them for the
 CPU tests, which reach every number.
 """
@@ -24,36 +26,54 @@ CONSUMERS = 256                    # two consumer warpgroups (and one producer)
 RING_BYTES = 192 * 1024            # the TMA ring of either kernel
 SMS = 132                          # an H100 SXM's streaming multiprocessors
 OP_FWD, OP_FWD_POOL, OP_DGRAD_MASK, OP_DGRAD, OP_WGRAD = range(5)
-HEAD_WORDS, MAP_WORDS = 6, 12
-PLAN_WORDS = HEAD_WORDS + 2 * MAP_WORDS
+HEAD_WORDS, MAP_WORDS = 10, 12
+PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS
 
 
-def conv_stages(tile_n: int) -> int:
-    """Ring stages of the conv kernel: an input box and a weight box a
-    stage, as many as 192 KB hold."""
-    return RING_BYTES // (BOX_BYTES + tile_n * SLICE_C * 2)
+def conv_stage_bytes(tile_n: int, tile_m: int = PATCH) -> int:
+    """One stage of the conv kernel's ring: an input box of ``tile_m``
+    pixels and a weight box, 64 channels each."""
+    return (tile_m + tile_n) * SLICE_C * 2
 
 
-def conv_smem(tile_n: int) -> int:
+def conv_stages(tile_n: int, tile_m: int = PATCH) -> int:
+    """Ring stages of the conv kernel: as many as 192 KB hold."""
+    return RING_BYTES // conv_stage_bytes(tile_n, tile_m)
+
+
+def conv_smem(tile_n: int, tile_m: int = PATCH) -> int:
     """Dynamic shared memory of the conv kernel: the ring (the bf16
     epilogue tile is staged in it afterwards), the barriers and 1024 bytes
     to align the ring."""
-    n = conv_stages(tile_n)
-    return n * (BOX_BYTES + tile_n * SLICE_C * 2) + 2 * n * 8 + 1024
+    n = conv_stages(tile_n, tile_m)
+    return n * conv_stage_bytes(tile_n, tile_m) + 2 * n * 8 + 1024
 
 
-def wgrad_stages(tile_n: int) -> int:
-    """Ring stages of the weight-gradient kernel: two gradient boxes and
-    tile_n / 64 input boxes a stage, as many as 192 KB hold."""
-    return RING_BYTES // ((2 + tile_n // 64) * BOX_BYTES)
+def tap_width(c: int) -> int:
+    """A tap's columns in the weight-gradient GEMM's K: C padded to a
+    multiple of 64 (one TMA box never straddles two taps)."""
+    return -(-c // SLICE_C) * SLICE_C
 
 
-def wgrad_smem(tile_n: int) -> int:
+def wgrad_stage_boxes(tile_f: int, tile_n: int) -> int:
+    """TMA boxes a stage of the weight-gradient kernel holds: at 128 f, two
+    gradient boxes and tile_n / 64 input boxes; at 64 f (the warpgroups
+    splitting the 128 columns), one gradient box and two input boxes."""
+    return 2 + tile_n // 64 if tile_f == 128 else 3
+
+
+def wgrad_stages(tile_n: int, tile_f: int = 128) -> int:
+    """Ring stages of the weight-gradient kernel: as many as 192 KB hold."""
+    return RING_BYTES // (wgrad_stage_boxes(tile_f, tile_n) * BOX_BYTES)
+
+
+def wgrad_smem(tile_n: int, tile_f: int = 128) -> int:
     """Dynamic shared memory of the weight-gradient kernel: the ring, the
     bias partials (8 floats a consumer thread), the barriers and the
     alignment."""
-    n = wgrad_stages(tile_n)
-    return n * (2 + tile_n // 64) * BOX_BYTES + CONSUMERS * 8 * 4 + 2 * n * 8 + 1024
+    n = wgrad_stages(tile_n, tile_f)
+    return (n * wgrad_stage_boxes(tile_f, tile_n) * BOX_BYTES + CONSUMERS * 8 * 4 + 2 * n * 8
+            + 1024)
 
 
 def widest_tile(n: int) -> int:
@@ -71,10 +91,10 @@ def tensor_map(dims, box) -> dict:
     return {"dims": tuple(dims), "strides": tuple(strides), "box": tuple(box)}
 
 
-def nhwc_map(B: int, H: int, W: int, C: int) -> dict:
-    """(B, H, W, C) activations; the box is a tile's 8 x 16 pixels by 64
-    channels."""
-    return tensor_map((C, W, H, B), (SLICE_C, PATCH_W, PATCH_H, 1))
+def nhwc_map(B: int, H: int, W: int, C: int, patch_h: int = PATCH_H) -> dict:
+    """(B, H, W, C) activations; the box is a tile's ``patch_h`` x 16
+    pixels by 64 channels."""
+    return tensor_map((C, W, H, B), (SLICE_C, PATCH_W, patch_h, 1))
 
 
 def weight_map(C: int, F: int, tile_n: int) -> dict:
@@ -83,22 +103,43 @@ def weight_map(C: int, F: int, tile_n: int) -> dict:
     return tensor_map((C, 9, F), (SLICE_C, 1, tile_n))
 
 
-def conv_launch(op: int, B: int, H: int, W: int, C: int, F: int) -> dict:
-    """One 3×3 SAME conv (B, H, W, C) → (B, H, W, F) on the conv core: the
-    forward (``OP_FWD`` / ``OP_FWD_POOL``) or a dgrad (``OP_DGRAD_MASK``, or
-    ``OP_DGRAD`` unmasked; C is then the output gradient's width and F the
-    input's).  Tile: 128 pixels × the widest of 256 / 128 / 64 channels
-    that divides F: the widest reads the fewest L2 bytes a FLOP, and at
-    VGG16's block 5 (8 × 32², 512 channels) its 128 blocks make one wave
-    on the 132 SMs, so a narrower tile or a persistent tile loop has no
-    tail to fill there.  The grid is 1-D, the F / tile_n tiles of one
-    patch adjacent."""
+def conv_launch(op: int, B: int, H: int, W: int, C: int, F: int, C2: int = 0,
+                tile_m: int = PATCH) -> dict:
+    """One 3×3 SAME conv (B, H, W, C [+ C2]) → (B, H, W, F) on the conv
+    core: the forward (``OP_FWD`` / ``OP_FWD_POOL``) or a dgrad
+    (``OP_DGRAD_MASK``, or ``OP_DGRAD`` unmasked; C is then the output
+    gradient's width and F the input's).  With ``C2`` the input is the
+    channel concat of two maps, [in (C) | in2 (C2)], never stored: the
+    weights are (F, 9, C + C2) and the K walk (:func:`k_walk`) takes each
+    tap's slices of in, then of in2 (a UnetUp stage's conv1).  Tile:
+    ``tile_m`` pixels (128: 8 × 16; 256: 16 × 16, for the forward at
+    F = 64) × the widest of 256 / 128 / 64 channels that divides F: the
+    widest reads the fewest L2 bytes a FLOP, and at VGG16's block 5 (8 ×
+    32², 512 channels) its 128 blocks make one wave on the 132 SMs, so a
+    narrower tile or a persistent tile loop has no tail to fill there.  The
+    grid is 1-D, the F / tile_n tiles of one patch adjacent."""
     tile_n = widest_tile(F)
-    tiles_m = B * (H // PATCH_H) * (W // PATCH_W)
-    return {"op": op, "tile": (PATCH, tile_n), "grid": ((F // tile_n) * tiles_m, 1, 1),
-            "smem": conv_smem(tile_n), "stages": conv_stages(tile_n), "nsplit": 1,
-            "k_slices": 9 * -(-C // SLICE_C),
-            "maps": [nhwc_map(B, H, W, C), weight_map(C, F, tile_n)]}
+    patch_h = tile_m // PATCH_W
+    tiles_m = B * (H // patch_h) * (W // PATCH_W)
+    maps = [nhwc_map(B, H, W, C, patch_h), weight_map(C + C2, F, tile_n)]
+    if C2:
+        maps.append(nhwc_map(B, H, W, C2, patch_h))
+    return {"op": op, "tile": (tile_m, tile_n), "grid": ((F // tile_n) * tiles_m, 1, 1),
+            "smem": conv_smem(tile_n, tile_m), "stages": conv_stages(tile_n, tile_m),
+            "nsplit": 1, "k_slices": 9 * (-(-C // SLICE_C) + -(-C2 // SLICE_C)),
+            "maps": maps}
+
+
+def k_walk(C: int, C2: int = 0):
+    """The conv core's K slices in the producer's order: per tap, in's
+    ceil(C / 64) slices, then in2's ceil(C2 / 64); each as (tap, map, c0,
+    wc) — map 0 (in) or 2 (in2), the slice's first channel in that map and
+    in the weights (F, 9, C + C2)."""
+    out = []
+    for tap in range(9):
+        out += [(tap, 0, c0, c0) for c0 in range(0, C, SLICE_C)]
+        out += [(tap, 2, c0, C + c0) for c0 in range(0, C2, SLICE_C)]
+    return out
 
 
 def wgrad_splits(tiles: int, npatch: int) -> int:
@@ -123,32 +164,81 @@ def split_ranges(npatch: int, nsplit: int):
     return [(s * npatch // nsplit, (s + 1) * npatch // nsplit) for s in range(nsplit)]
 
 
-def wgrad_launch(B: int, H: int, W: int, C: int, F: int) -> dict:
+def wgrad_launch(B: int, H: int, W: int, C: int, F: int, out_channels: int | None = None,
+                 out_offset: int = 0, bias: bool = True) -> dict:
     """The weight gradient (F, 9C) of a conv with input (B, H, W, C) and
-    output gradient (B, H, W, F): tiles of 128 f × 128 K-columns (64 where
-    C % 128 != 0), split over the 8 × 16 pixel patches."""
-    tile_n = min(128, widest_tile(C))
+    output gradient (B, H, W, F) over K = 9 ``tap_width(C)`` columns, split
+    over the 8 × 16 pixel patches.  Tiles of 128 f × 128 K-columns (64
+    where the padded tap width is no multiple of 128), a warpgroup's 64 f
+    each; at F = 64, 64 f × 128 K-columns, a warpgroup's 64 columns each,
+    so that neither idles (the last tile may hold 64 columns).  Its reduce
+    pass writes channels [out_offset, out_offset + C) of an (F,
+    out_channels, 3, 3) gradient (default: the whole (F, C, 3, 3)) and,
+    with ``bias``, the bias gradient."""
+    cp = tap_width(C)
+    tile_f = 64 if F == 64 else 128
+    tile_n = 128 if tile_f == 64 else min(128, widest_tile(cp))
     npatch = B * (H // PATCH_H) * (W // PATCH_W)
-    grid_xy = ((9 * C) // tile_n, -(-F // 128))
+    grid_xy = (-(-(9 * cp) // tile_n), -(-F // tile_f))
     ns = wgrad_splits(grid_xy[0] * grid_xy[1], npatch)
-    return {"op": OP_WGRAD, "tile": (128, tile_n), "grid": (*grid_xy, ns),
-            "smem": wgrad_smem(tile_n), "stages": wgrad_stages(tile_n), "nsplit": ns,
-            "npatch": npatch,
+    return {"op": OP_WGRAD, "tile": (tile_f, tile_n), "grid": (*grid_xy, ns),
+            "smem": wgrad_smem(tile_n, tile_f), "stages": wgrad_stages(tile_n, tile_f),
+            "nsplit": ns,
+            "npatch": npatch, "k": 9 * cp,
+            "out": (C if out_channels is None else out_channels, out_offset, int(bias)),
             "maps": [nhwc_map(B, H, W, F), nhwc_map(B, H, W, C)]}
+
+
+def wgrad_work(launches, F: int) -> int:
+    """float32 words of the work area that the weight-gradient launches
+    share in turn (one stream orders them): the largest one's split
+    partials (nsplit, F, K) and bias partials (nsplit, F)."""
+    return max(ln["nsplit"] * F * (ln["k"] + 1) for ln in launches)
+
+
+def unetup_tile_m(H2: int, F: int) -> int:
+    """The conv tile's pixels at a decoder stage: 256 (16 × 16) where the
+    tile is at most 128 channels wide (F = 64 or 128: a decoder's up1 and
+    up2) and 2H % 16 == 0, else 128 (8 × 16).  The wider patch reads 52
+    rather than 43 FLOP a byte of L2 at 64 channels, 85 rather than 64 at
+    128; on an H100 it ran conv1 and conv2 10-12% faster at both models'
+    up1 and 19-22% at up2 (PERF.md, Findings).  At 256 channels the
+    128 × 256 tile already reads 85."""
+    return 2 * PATCH if widest_tile(F) <= 128 and H2 % 16 == 0 else PATCH
+
+
+def unetup_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
+    """A UnetUp stage's forward on the conv core: conv1 over the two maps
+    [skip (Cs) | up (Cx)] into y1, conv2 over y1, both with bias + ReLU, at
+    the tile of :func:`unetup_tile_m`."""
+    tm = unetup_tile_m(H2, F)
+    return [conv_launch(OP_FWD, B, H2, W2, Cs, F, Cx, tm),
+            conv_launch(OP_FWD, B, H2, W2, F, F, 0, tm)]
+
+
+def unetup_wgrad_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
+    """A UnetUp stage's weight gradients: dk1's skip channels from (dz1,
+    skip) with db1, dk1's up channels from (dz1, up), dk2 from (g2, y1)
+    with db2; each reduce pass writes its channel range of its gradient."""
+    return [wgrad_launch(B, H2, W2, Cs, F, Cs + Cx, 0, True),
+            wgrad_launch(B, H2, W2, Cx, F, Cs + Cx, Cs, False),
+            wgrad_launch(B, H2, W2, F, F)]
 
 
 def encode(launches) -> torch.Tensor:
     """(n, PLAN_WORDS) int64 records on the CPU: op, tile_n, grid x / y / z,
-    split count, then per map its rank, dims (4), byte strides (3) and box
-    (4), unused words 0."""
+    split count, tile_m, a weight gradient's output channels, first channel
+    and bias flag, then per map (three) its rank, dims (4), byte strides (3)
+    and box (4); unused words and absent maps 0."""
     out = torch.zeros((len(launches), PLAN_WORDS), dtype=torch.int64)
     for i, ln in enumerate(launches):
         if ln is None:
             continue
-        words = [ln["op"], ln["tile"][1], *ln["grid"], ln["nsplit"]]
+        words = [ln["op"], ln["tile"][1], *ln["grid"], ln["nsplit"], ln["tile"][0],
+                 *ln.get("out", (0, 0, 0))]
         for m in ln["maps"]:
             rank = len(m["dims"])
             words += [rank, *m["dims"], *([0] * (4 - rank)), *m["strides"],
                       *([0] * (3 - len(m["strides"]))), *m["box"], *([0] * (4 - rank))]
-        out[i] = torch.tensor(words, dtype=torch.int64)
+        out[i, :len(words)] = torch.tensor(words, dtype=torch.int64)
     return out

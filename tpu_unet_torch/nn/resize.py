@@ -7,7 +7,9 @@ H pass first, then W pass.
 
 Rounding follows the JAX package: each pass rounds to the input dtype, and
 the lerp weights are the resize matrix's entries cast to that dtype
-(``_apply_matrix`` casts the matrix to ``x.dtype``).  In float32 this is
+(``_apply_matrix`` casts the matrix to ``x.dtype``).  A pass computes in
+float32, or in float64 for a float64 input (as JAX's matrix product in
+that dtype).  In float32 this is
 ``torch.nn.functional.interpolate(..., align_corners=True)`` up to the
 last bit; in bfloat16 it reproduces the JAX rounding points.
 """
@@ -78,8 +80,9 @@ def _interp_axis(x: torch.Tensor, out_size: int, axis: int,
     shape[axis] = out_size
     w0 = wts[0].to(x.device).reshape(shape)
     w1 = wts[1].to(x.device).reshape(shape)
-    a = x.index_select(axis, idx[0]).float()
-    b = x.index_select(axis, idx[1]).float()
+    ct = torch.promote_types(x.dtype, torch.float32)
+    a = x.index_select(axis, idx[0]).to(ct)
+    b = x.index_select(axis, idx[1]).to(ct)
     return (a * w0 + b * w1).to(x.dtype)
 
 
@@ -124,15 +127,17 @@ def upsample2x_adjoint_plain(dup: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """The exact adjoint of :func:`upsample2x` at ``dup``'s dtype: NHWC
     ``dup`` (B, 2h, 2w, C) → (B, h, w, C).  The lerp weights are those the
     forward uses at that dtype (rounded to it); the sums run in float32 (W
-    pass first, as autograd of the forward takes them) and round once."""
+    pass first, as autograd of the forward takes them; float64 for a
+    float64 ``dup``) and round once."""
     ridx, rw = lerp_tables(h, 2 * h, True, dup.dtype)
     cidx, cw = lerp_tables(w, 2 * w, True, dup.dtype)
     dev = dup.device
-    d = dup.float()
-    dh = torch.zeros(d.shape[:2] + (w, d.shape[-1]), dtype=torch.float32, device=dev)
+    ct = torch.promote_types(dup.dtype, torch.float32)
+    d = dup.to(ct)
+    dh = torch.zeros(d.shape[:2] + (w, d.shape[-1]), dtype=ct, device=dev)
     for k in (0, 1):
         dh.index_add_(2, cidx[k].to(dev, torch.long), d * cw[k].to(dev)[:, None])
-    dx = torch.zeros((d.shape[0], h, w, d.shape[-1]), dtype=torch.float32, device=dev)
+    dx = torch.zeros((d.shape[0], h, w, d.shape[-1]), dtype=ct, device=dev)
     for k in (0, 1):
         dx.index_add_(1, ridx[k].to(dev, torch.long), dh * rw[k].to(dev)[:, None, None])
     return dx.to(dup.dtype)
