@@ -514,20 +514,25 @@ def phase_kernels(card: str):
 
 
 # a single-tile witness (one 8 x 16 output tile, batch 1) of the stage
-# kernels against float64 on the same bf16 operands: conv1's y1 within one
-# bf16 ulp of the largest value (its only rounding is the bf16 store), and
-# the weight gradient dk1 within float32's sums over 128 pixels (a wrong
-# tap, channel offset or split reads O(1) there)
-SINGLE_TILE_Y1_REL_TOL = 2.0 ** -8
+# kernels against float64 on the same bf16 operands: a conv whose only
+# rounding is its bf16 store (#1's y1; #13's dz1 from g2, which is exact,
+# and its [dskip | dups] from the kernel's own dz1) within one bf16 ulp of
+# the largest value, and the weight gradient dk1 within float32's sums over
+# 128 pixels (a wrong tap, channel offset, split or mask reads O(1) there)
+SINGLE_TILE_STORE_REL_TOL = 2.0 ** -8
 SINGLE_TILE_DK_REL_TOL = 1e-5
 
 
 def stage_single_tile_readings(gen, cs, cx, f):
-    """#1's conv1 (y1) and ``unetup_wgrad``'s dk1 at one 8×16 tile with
-    Cs, Cx and F channels, and the plain versions', each read against
-    float64 from the same bf16 skip, up2x(x) and weights."""
+    """#1's conv1 (y1), ``unetup_wgrad``'s dk1 and #13's two dgrads (dz1,
+    [dskip | dups]) at one 8×16 tile with Cs, Cx and F channels, and the
+    plain versions', each read against float64 from the same bf16 inputs:
+    skip, up2x(x) and the weights for y1 and dk1; for #13 the forward's
+    out and y1, a seeded g, and each dgrad's own bf16 input (g2, then the
+    version's own dz1)."""
     from tpu_unet_torch.kernels.decoder_fuse import _unetup_cuda, _unetup_plain_y1
-    from tpu_unet_torch.kernels.decoder_train import unetup_wgrad, unetup_wgrad_plain
+    from tpu_unet_torch.kernels.decoder_train import (flip_t, unetup_bwd, unetup_bwd_plain,
+                                                      unetup_wgrad, unetup_wgrad_plain)
     from tpu_unet_torch.nn.resize import upsample2x
 
     dev, bf, f64 = torch.device("cuda"), torch.bfloat16, torch.float64
@@ -537,7 +542,7 @@ def stage_single_tile_readings(gen, cs, cx, f):
     w1 = w1.to(bf)
     b1 = (0.1 * torch.randn(f, generator=gen, device=dev)).to(bf)
     w2 = (torch.randn((f, f, 3, 3), generator=gen, device=dev) / (9 * f) ** 0.5).to(bf)
-    _, y1 = _unetup_cuda(skip, x, w1, b1, w2, b1, want_y1=True)
+    out, y1 = _unetup_cuda(skip, x, w1, b1, w2, b1, want_y1=True)
     _, py1 = _unetup_plain_y1(skip, x, w1, b1, w2, b1)
     cc = torch.cat([skip, upsample2x(x)], -1).to(f64)
     ey1 = torch.relu(F.conv2d(cl(cc), w1.to(f64), b1.to(f64), padding=1)).permute(0, 2, 3, 1)
@@ -547,10 +552,24 @@ def stage_single_tile_readings(gen, cs, cx, f):
     edk1 = torch.ops.aten.convolution_backward(
         cl(dz1.to(f64)), cl(cc), w1.to(f64), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
         [False, True, False])[1]
+
+    def dgrad64(v, w):
+        return F.conv2d(cl(v.to(f64)), flip_t(w).to(f64), padding=1).permute(0, 2, 3, 1)
+
+    g = torch.randn((1, 8, 16, f), generator=gen, device=dev).to(bf)
+    dskip, dups, g2, kdz1 = unetup_bwd(g, out, y1, w1, w2, cs)
+    pskip, pups, pg2, pdz1 = unetup_bwd_plain(g, out, y1, w1, w2, cs)
+    edz1 = torch.where(y1 > 0, dgrad64(g2, w2), 0)
     return {"y1": {"kernel_vs_float64": rel_err(y1, ey1)[1],
                    "plain_vs_float64": rel_err(py1, ey1)[1]},
             "dk1": {"kernel_vs_float64": rel_err(dk1, edk1)[1],
-                    "plain_vs_float64": rel_err(pdk1, edk1)[1]}}
+                    "plain_vs_float64": rel_err(pdk1, edk1)[1]},
+            "g2_equal": bool(torch.equal(g2, pg2)),
+            "dz1": {"kernel_vs_float64": rel_err(kdz1, edz1)[1],
+                    "plain_vs_float64": rel_err(pdz1, edz1)[1]},
+            "dskip_dups": {
+                "kernel_vs_float64": rel_err(torch.cat([dskip, dups], -1), dgrad64(kdz1, w1))[1],
+                "plain_vs_float64": rel_err(torch.cat([pskip, pups], -1), dgrad64(pdz1, w1))[1]}}
 
 
 def stage_single_tile_float64(gen):
@@ -561,8 +580,11 @@ def stage_single_tile_float64(gen):
         r = stage_single_tile_readings(gen, cs, cx, f)
         print(json.dumps({"stage_single_tile_float64": f"1x8x16 Cs={cs} Cx={cx} F={f}",
                           "readings": r}), flush=True)
-        check(r["y1"]["kernel_vs_float64"] <= SINGLE_TILE_Y1_REL_TOL,
-              f"unetup single tile Cs={cs}: y1 {r['y1']['kernel_vs_float64']:.3g} from float64")
+        for name in ("y1", "dz1", "dskip_dups"):
+            check(r[name]["kernel_vs_float64"] <= SINGLE_TILE_STORE_REL_TOL,
+                  f"stage single tile Cs={cs}: {name} {r[name]['kernel_vs_float64']:.3g} "
+                  "from float64")
+        check(r["g2_equal"], f"unetup_bwd single tile Cs={cs}: g2 != plain")
         check(r["dk1"]["kernel_vs_float64"] <= SINGLE_TILE_DK_REL_TOL,
               f"unetup_wgrad single tile Cs={cs}: dk1 {r['dk1']['kernel_vs_float64']:.3g} "
               "from float64")
@@ -571,7 +593,9 @@ def stage_single_tile_float64(gen):
 def phase_train_kernels(card: str, results: dict):
     """#27 / #29 and #13 against their plain versions at the shapes the two
     training recipes give them: unet_vgg at 512², batch 8, 21 classes (the
-    canonical recipe) and at 256², batch 32, 4 classes (``train_py``)."""
+    canonical recipe; #13 at the eight decoder stages of unet_vgg and
+    unet_resnet50, bit-identical on a second launch) and at 256², batch
+    32, 4 classes (``train_py``; #13 at up1)."""
     from tpu_unet_torch.kernels.decoder_train import unetup_bwd, unetup_bwd_plain
     from tpu_unet_torch.kernels.loss import (final_ce_dice_bwd, final_ce_dice_bwd_plain,
                                              final_ce_dice_fwd, final_ce_dice_fwd_plain,
@@ -648,18 +672,21 @@ def phase_train_kernels(card: str, results: dict):
             del out, ref, fg, wg, bg, lf, p, oh, graph
         del feats, t, r, t_cl, f2
 
-    # #13 at up1 of both recipes: Cs 64, Cx 128, F 64
-    cs, cx, f = 64, 128, 64
-    for n, size in ((BATCH, SIZE), (DATAB_BATCH, DATAB_SIZE)):
+    # #13 at the eight decoder stages (512², batch 8) and at up1 of the
+    # train_py recipe (256², batch 32)
+    stages = [(BATCH, 2 * h, cs, cx, f) for h, cs, cx, f in VGG_STAGES + RN50_STAGES]
+    for n, size, cs, cx, f in stages + [(DATAB_BATCH, DATAB_SIZE, 64, 128, 64)]:
         g = torch.randn((n, size, size, f), generator=gen, device=dev).to(bf)
         out_ = torch.relu(torch.randn((n, size, size, f), generator=gen, device=dev)).to(bf)
         y1 = torch.relu(torch.randn((n, size, size, f), generator=gen, device=dev)).to(bf)
         w1 = torch.randn((f, cs + cx, 3, 3), generator=gen, device=dev) / (9 * (cs + cx)) ** 0.5
         w1 = w1.to(bf)
         w2 = (torch.randn((f, f, 3, 3), generator=gen, device=dev) / (9 * f) ** 0.5).to(bf)
-        res = unetup_bwd(g, out_, y1, w1, w2, cs)
+        res, again = unetup_bwd(g, out_, y1, w1, w2, cs), unetup_bwd(g, out_, y1, w1, w2, cs)
         ref = unetup_bwd_plain(g, out_, y1, w1, w2, cs)
         case = f"{n}x{size}x{size} Cs={cs} Cx={cx} F={f}"
+        check(all(torch.equal(a, b) for a, b in zip(res, again)),
+              f"unetup_bwd {case}: two launches differ")
         check(bool(torch.equal(res[2], ref[2])), f"unetup_bwd {case}: g2 != plain")
         placeholder = torch.empty((n, cs + cx, size, size), dtype=bf, device=dev,
                                   memory_format=torch.channels_last)
@@ -679,7 +706,8 @@ def phase_train_kernels(card: str, results: dict):
                      conv_flops(n, size, size, f, f) + conv_flops(n, size, size, f, cs + cx),
                      nbytes(g, out_, y1, w1, w2, *res))
         check(rel <= CONV_REL_TOL, f"unetup_bwd {case}: rel err {rel:.3g} > {CONV_REL_TOL}")
-        del g, out_, y1, res, ref, placeholder
+        del g, out_, y1, res, again, ref, placeholder
+        torch.cuda.empty_cache()
     decoder_bwd_kernels(record, gen)
     upconv_bwd_kernels(record, gen)
     encoder_train_kernels(record, gen)
@@ -936,8 +964,8 @@ def encoder_train_kernels(record, gen):
     CONV_REL_TOL, the last conv's weight and bias gradients (its input
     gradient is exact) within WGRAD_REL_TOL, the others within
     WGRAD_CHAIN_REL_TOL, all bit-identical on a second launch, and for the
-    three-conv blocks (the Hopper kernels) a planted dropped split of the
-    last conv's weight-gradient GEMM read above both bounds — timed against
+    blocks (the Hopper kernels) a planted dropped split of the last conv's
+    weight-gradient GEMM read above both bounds — timed against
     autograd of the cuDNN chain, each with its share of the bound."""
     from tpu_unet_torch.kernels._plain import conv3x3_relu
     from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, _vgg_stem_cuda,
@@ -1004,7 +1032,7 @@ def encoder_train_kernels(record, gen):
                 WGRAD_REL_TOL if name[2:] == str(n - 1) else WGRAD_CHAIN_REL_TOL
             check(e <= tol, f"{key} {case}: {name} rel err {e:.3g} > {tol}")
         print(json.dumps({key: case, "rel_err_by_output": errs}), flush=True)
-        if n == 3:
+        if not stem:
             ns = bwd_plan(B, h, h, tuple(chans), True)[1][n - 1]
             sm90_wgrad_fault_reading(
                 key, case, ns, dskip, dpool,
@@ -2519,7 +2547,8 @@ SOURCES = {
                          "tpu_unet/kernels/preprocess.py:39"),
     "argmax_mask": ("tpu_unet_torch/csrc/argmax.cu", "tpu_unet/kernels/postprocess.py:56"),
     "mask_palette": ("tpu_unet_torch/csrc/palette.cu", "tpu_unet/kernels/postprocess.py:300"),
-    "unetup_bwd": ("tpu_unet_torch/csrc/decoder_train.cu",
+    # the mask pass and the two Hopper dgrads, from csrc/decoder_train.cu
+    "unetup_bwd": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh",
                    "tpu_unet/kernels/decoder_train.py:140"),
     # the in-kernel weight gradients of #14 (:506) and #16 (:1459)
     "unetup_wgrad": ("tpu_unet_torch/csrc/unetup_wgrad.cu",
@@ -2536,9 +2565,10 @@ SOURCES = {
                        "tpu_unet/kernels/encoder3_train.py:279"),
     "vgg_stem_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",
                      "tpu_unet/kernels/stem_train.py:245"),
-    "vgg_block2_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",
+    # blocks 2-5: the Hopper weight-gradient GEMM and dgrads, from
+    # csrc/encoder_train.cu
+    "vgg_block2_bwd": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
                        "tpu_unet/kernels/encoder_train.py:329"),
-    # the Hopper weight-gradient GEMM and dgrads, from csrc/encoder_train.cu
     "vgg_block3_bwd": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
                        "tpu_unet/kernels/encoder3_train.py:349"),
     "final_ce_dice_fwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:704"),

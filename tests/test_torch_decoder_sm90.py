@@ -1,17 +1,21 @@
 """The host plan of a UnetUp decoder stage on the Hopper conv core and
-weight-gradient GEMM (``tpu_unet_torch/kernels/sm90.py::unetup_launches``
-and ``unetup_wgrad_launches``: #1's two convs, ``unetup_wgrad``'s three
-GEMMs), on the CPU, at the eight stages of unet_vgg / self_net and
+weight-gradient GEMM (``tpu_unet_torch/kernels/sm90.py::unetup_launches``,
+``unetup_bwd_launches`` and ``unetup_wgrad_launches``: #1's two convs,
+#13's two dgrads, ``unetup_wgrad``'s three GEMMs), on the CPU, at the
+eight stages of unet_vgg / self_net and
 unet_resnet50 (512², batch 8) and at small sizes: shared memory within the
 card's 227 KB, TMA boxes within the 128-byte swizzle span, 16-byte strides,
 conv tiles that cover every output pixel and channel once, conv1's K walk
 over every (tap, skip slice) and (tap, up slice) once at the weight
 channels of (F, 9, Cs + Cx), dk1's two GEMMs writing disjoint channel
 ranges that cover (F, Cs + Cx, 3, 3) once with db1 summed once, splits
-that cover every pixel patch once in order, the records, and the stage
-kernels' shape rules, which the new core leaves as they were.  Then conv1
-and conv2 emulated in float64 slice by slice in the plan's K order against
-``unetup_plain`` and, through it, JAX's ``reference_unetup``."""
+that cover every pixel patch once in order, conv1's dgrad sending every
+channel of [0, Cs + Cx) to exactly one of dskip and dups, the records,
+and the stage kernels' shape rules, which the new core leaves as they
+were.  Then conv1 and conv2 emulated in float64 slice by slice in the
+plan's K order against ``unetup_plain`` and, through it, JAX's
+``reference_unetup``, and #13's two dgrads the same way against
+``unetup_bwd_plain``."""
 import itertools
 
 import jax.numpy as jnp
@@ -24,7 +28,8 @@ from tpu_unet.kernels.decoder_fuse import reference_unetup
 from tpu_unet_torch.kernels import sm90
 from tpu_unet_torch.kernels.decoder_fuse import (_unetup_plain_y1, stage_plan, unetup_plain,
                                                  unetup_shape_ok)
-from tpu_unet_torch.kernels.decoder_train import stage_shape_ok, wgrad_plan
+from tpu_unet_torch.kernels.decoder_train import (dgrad_plan, flip_t, stage_shape_ok,
+                                                  unetup_bwd_plain, wgrad_plan)
 from tpu_unet_torch.nn.resize import upsample2x
 
 SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory (227 KB)
@@ -33,21 +38,29 @@ SWIZZLE_BYTES = 128   # the span of CU_TENSOR_MAP_SWIZZLE_128B
 # (B, 2H, 2W, Cs, Cx, F): unet_vgg's (and self_net's) up1-up4 and
 # unet_resnet50's at a 512² input, batch 8; then the test sizes (batch
 # 1-2, 8-32 pixels, widths cut; Cs % 64 != 0 where the rules allow it;
-# 2H = 8 or 24 for the 128-pixel tile at F ≤ 128)
+# 2H = 8 or 24 for the 128-pixel tile at F ≤ 128; Cs = 8, a split inside
+# conv1's dgrad tile, at the GPU test's size)
 FULL = [(8, 512, 512, 64, 128, 64), (8, 256, 256, 128, 256, 128),
         (8, 128, 128, 256, 512, 256), (8, 64, 64, 512, 512, 512),
         (8, 256, 256, 64, 128, 64), (8, 128, 128, 256, 256, 128),
         (8, 64, 64, 512, 512, 256), (8, 32, 32, 1024, 2048, 512)]
 SMALL = [(2, 16, 32, 64, 128, 64), (1, 16, 16, 128, 256, 128), (2, 16, 32, 256, 512, 256),
          (1, 8, 16, 512, 512, 512), (1, 8, 16, 1024, 2048, 512), (2, 8, 16, 32, 96, 64),
-         (1, 16, 32, 8, 56, 64), (2, 24, 32, 96, 160, 128), (1, 24, 32, 64, 128, 64)]
+         (1, 16, 32, 8, 56, 64), (2, 24, 32, 96, 160, 128), (1, 24, 32, 64, 128, 64),
+         (2, 8, 16, 8, 120, 64)]
 CASES = FULL + SMALL
 
 
-def _convs(B, H2, W2, Cs, Cx, F):
-    """(name, launch, C, C2, F) of the stage plan's two conv launches."""
+def _convs(B, H2, W2, Cs, Cx, F, train=True):
+    """(name, launch, C, C2, F) of the stage plan's conv launches: #1's two
+    convs and, with ``train``, #13's two dgrads (C the output gradient's
+    width, F the dgrad's output width)."""
     c1, c2 = sm90.unetup_launches(B, H2, W2, Cs, Cx, F)
-    return [("conv1", c1, Cs, Cx, F), ("conv2", c2, F, 0, F)]
+    out = [("conv1", c1, Cs, Cx, F), ("conv2", c2, F, 0, F)]
+    if train:
+        d2, d1 = sm90.unetup_bwd_launches(B, H2, W2, Cs, Cx, F)
+        out += [("dgrad2", d2, F, 0, F), ("dgrad1", d1, F, 0, Cs + Cx)]
+    return out
 
 
 def _conv_tiles(launch, B, H, W, F):
@@ -78,14 +91,19 @@ def test_plan_fits_the_card(case):
     """Shared memory within 227 KB; each map's box within the 128-byte
     swizzle span on its innermost dim, at most 256 on every dim; byte
     strides multiples of 16 (TMA's rule) and those of the dense tensor; the
-    ring holds at least two stages and, for a conv, the epilogue's tile."""
+    ring holds at least two stages and, for a conv, the epilogue's tile:
+    beside the ring where that leaves 4 stages (a block then walks many
+    tiles), else inside it."""
     B, H2, W2, Cs, Cx, F = case
     for name, ln, c, c2, f in _convs(*case):
         tm, tn = ln["tile"]
-        stage = (tm + tn) * 64 * 2
+        stage, out = (tm + tn) * 64 * 2, tm * (tn + 8) * 2  # bf16 epilogue tile
         assert ln["smem"] <= SMEM_LIMIT and ln["stages"] >= 2, name
         assert ln["stages"] * stage <= sm90.RING_BYTES
-        assert tm * (tn + 8) * 2 <= ln["stages"] * stage  # bf16 epilogue tile
+        if sm90.conv_own_staging(tn, tm):
+            assert ln["stages"] >= 4 and ln["smem"] >= ln["stages"] * stage + out
+        else:
+            assert (tn, tm) in ((256, 128), (128, 256)) and out <= ln["stages"] * stage
         for m in ln["maps"]:
             _check_map(m)
     for ln in sm90.unetup_wgrad_launches(*case):
@@ -96,14 +114,35 @@ def test_plan_fits_the_card(case):
             _check_map(m)
 
 
+def _split_routes(rec, tile_n, f):
+    """conv3x3_sm90.cuh's OP_DGRAD_SPLIT store on the CPU, from the encoded
+    record's split word: how often each channel of the first output
+    (split) and of the second (f - split) is written, over the 16-byte
+    chunks of every N tile of one pixel patch."""
+    split = int(rec[7])
+    hits = [np.zeros(split, int), np.zeros(f - split, int)]
+    for n0 in range(0, f, tile_n):
+        for n in range(n0, n0 + tile_n, 8):
+            side, at = (0, n) if n < split else (1, n - split)
+            assert at + 8 <= len(hits[side])  # a chunk never straddles the split
+            hits[side][at:at + 8] += 1
+    return split, hits
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_conv_tiles_cover_output_once(case):
-    """Both convs' tiles, at the plan's tile, cover every (pixel patch,
-    output channel block) exactly once (decoded block by block at
-    the test sizes, counted at 512²); conv1's maps are skip's and up's NHWC
-    (the same box) and the packed w1 seen as (F, 9, Cs + Cx), conv2's y1's
-    and w2's, with no second input map."""
+    """The four convs' tiles (#1's two, #13's two dgrads), at the plan's
+    tile, cover every (pixel patch, output channel block) exactly once
+    (decoded block by block at the test sizes, counted at 512²); conv1's
+    maps are skip's and up's NHWC (the same box) and the packed w1 seen as
+    (F, 9, Cs + Cx), conv2's y1's and w2's, the dgrads' g2's and dz1's with
+    flipT(w2) and flipT(w1) packed (F, 9, F) and (Cs + Cx, 9, F), with no
+    second input map; conv1's dgrad, from its record, sends every channel
+    of [0, Cs + Cx) to exactly one of dskip (Cs) and dups (Cx), once."""
     B, H2, W2, Cs, Cx, F = case
+    split, hits = _split_routes(dgrad_plan(*case)[1], _convs(*case)[3][1]["tile"][1], Cs + Cx)
+    assert split == Cs and [len(h) for h in hits] == [Cs, Cx]
+    assert all((h == 1).all() for h in hits)
     for name, ln, c, c2, f in _convs(*case):
         tm, tn = ln["tile"]
         ph = tm // 16
@@ -126,15 +165,31 @@ def test_conv_tiles_cover_output_once(case):
 
 
 def test_tile_rule():
-    """The plan's conv tile: 256 pixels at the F = 64 and F = 128 stages
-    (up1, up2 of both models at 512²), 128 at F ≥ 256 and where 2H % 16 !=
-    0; the kernel builds the 256-pixel tile at 64 and 128 channels only.
-    The test sizes reach both tiles at both of those widths."""
+    """The plan's conv tile, the forward's and the dgrads' alike: 256
+    pixels where the N tile is at most 128 wide (the F = 64 and F = 128
+    stages, up1 and up2 of both models at 512²), 128 at N tiles of 192
+    (conv1's dgrad at Cs + Cx = 192 and 384: where 192 divides N and 256
+    does not) and 256 and where 2H % 16 != 0; the kernel builds the
+    256-pixel tile at 64 and 128 channels only.  The test sizes reach both
+    tiles at both of those widths, the 192-wide tile, and a split of
+    conv1's dgrad inside an N tile (Cs = 8)."""
     got = {case: sm90.unetup_launches(*case)[0]["tile"] for case in FULL}
     assert got == {case: ((256, case[-1]) if case[-1] <= 128 else (128, 256)) for case in FULL}
-    reached = {sm90.unetup_launches(*case)[0]["tile"] for case in SMALL}
-    assert {(128, 64), (256, 64), (128, 128), (256, 128)} <= reached
-    assert sm90.unetup_tile_m(24, 64) == 128 and sm90.unetup_tile_m(32, 192) == 256
+    for case in FULL:
+        d2, d1 = (ln["tile"] for ln in sm90.unetup_bwd_launches(*case))
+        assert d2 == got[case]
+        n = sm90.conv_tile_n(case[3] + case[4])
+        assert d1 == ((256 if n <= 128 else 128), n)
+    assert [sm90.unetup_bwd_launches(*c)[1]["tile"] for c in FULL[:2] + FULL[4:6]] == \
+        [(128, 192), (128, 192), (128, 192), (128, 256)]
+    reached = {ln["tile"] for case in SMALL for ln in sm90.unetup_launches(*case)
+               + sm90.unetup_bwd_launches(*case)}
+    assert {(128, 64), (256, 64), (128, 128), (256, 128), (128, 192)} <= reached
+    assert any(case[3] % sm90.unetup_bwd_launches(*case)[1]["tile"][1] for case in SMALL)
+    assert [sm90.conv_tile_n(n) for n in (64, 128, 192, 256, 320, 384, 576, 768)] == \
+        [64, 128, 192, 256, 64, 192, 192, 256]
+    assert sm90.conv_tile_m(24, 64) == 128 and sm90.conv_tile_m(32, 128) == 256
+    assert sm90.conv_tile_m(32, 192) == 128 and sm90.conv_tile_m(32, 320) == 256
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -244,7 +299,8 @@ def test_full_size_splits_fill_the_card():
 def test_records_match_plans():
     """The cached int64 records (``csrc/sm90.cuh::Launch``) carry each
     launch's numbers: the two convs OP_FWD, conv1 with the up map third;
-    the three GEMMs OP_WGRAD with their split counts and work area."""
+    the three GEMMs OP_WGRAD with their split counts and work area; #13's
+    dgrads OP_DGRAD_MASK and OP_DGRAD_SPLIT with the split at Cs."""
     B, H2, W2, Cs, Cx, F = 2, 16, 32, 64, 128, 64
     rec = stage_plan(B, H2, W2, Cs, Cx, F)
     assert tuple(rec.shape) == (2, sm90.PLAN_WORDS)
@@ -265,6 +321,13 @@ def test_records_match_plans():
     wl = sm90.unetup_wgrad_launches(B, H2, W2, Cs, Cx, F)
     assert wrec[:, 0].tolist() == [sm90.OP_WGRAD] * 3 and wrec[:, 5].tolist() == list(ns)
     assert work == max(ln["nsplit"] * F * (ln["k"] + 1) for ln in wl)
+    drec = dgrad_plan(B, H2, W2, Cs, Cx, F)
+    dl = sm90.unetup_bwd_launches(B, H2, W2, Cs, Cx, F)
+    assert drec[:, 0].tolist() == [sm90.OP_DGRAD_MASK, sm90.OP_DGRAD_SPLIT]
+    assert drec[:, 7:10].tolist() == [[0, 0, 0], [Cs, 0, 0]]  # conv1's split at Cs
+    for rec, ln in zip(drec, dl):
+        assert rec[1:7].tolist() == [ln["tile"][1], *ln["grid"], 1, ln["tile"][0]]
+        assert rec[sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:].abs().sum() == 0  # one input map
 
 
 def _old_fwd_rule(H2, W2, cs, cx, f):
@@ -300,17 +363,18 @@ def test_shape_rules_unchanged_and_tileable(train):
             for ln in sm90.unetup_wgrad_launches(1, H2, W2, cs, cx, f):
                 assert ln["grid"][0] == -(-ln["k"] // ln["tile"][1]) and ln["k"] % 64 == 0
                 assert all(s % 16 == 0 for m in ln["maps"] for s in m["strides"])
-        for _, ln, c, c2, fo in _convs(1, H2, W2, cs, cx, f):
+        for _, ln, c, c2, fo in _convs(1, H2, W2, cs, cx, f, train):
             assert fo % ln["tile"][1] == 0 and H2 % (ln["tile"][0] // 16) == 0
             assert all(s % 16 == 0 for m in ln["maps"] for s in m["strides"])
 
 
-def _emulate_conv(ins, wt, bias, ln, C, C2):
+def _emulate_conv(ins, wt, ln, C, C2, bias=None, mask=None):
     """The conv core's arithmetic in float64 on the CPU, block by block and
     slice by slice in the plan's K order: each slice's input box gathered
     from its map (zero outside the image and past the map's width, TMA's
     fill) and contracted with the weight box at its channel offset of the
-    packed (F, 9, C + C2) weights; bias + ReLU in the epilogue."""
+    packed (F, 9, C + C2) weights; the epilogue bias + ReLU (the forward),
+    · [mask > 0] (``OP_DGRAD_MASK``) or the plain store (a dgrad)."""
     B, H, W, _ = ins[0].shape
     F = wt.shape[0]
     tm, tn = ln["tile"]
@@ -324,20 +388,33 @@ def _emulate_conv(ins, wt, bias, ln, C, C2):
             ky, kx = divmod(tap, 3)
             a = padded[m][b, y0 + ky:y0 + ky + ph, x0 + kx:x0 + kx + 16, c0:c0 + 64]
             acc += a.reshape(tm, 64) @ wp[n0:n0 + tn, tap, wc:wc + 64].T
-        out[b, y0:y0 + ph, x0:x0 + 16, n0:n0 + tn] = \
-            torch.relu(acc + bias[n0:n0 + tn]).reshape(ph, 16, tn)
+        v = acc.reshape(ph, 16, tn)
+        if bias is not None:
+            v = torch.relu(v + bias[n0:n0 + tn])
+        if mask is not None:
+            v = v * (mask[b, y0:y0 + ph, x0:x0 + 16, n0:n0 + tn] > 0)
+        out[b, y0:y0 + ph, x0:x0 + 16, n0:n0 + tn] = v
     return out
 
 
-@pytest.mark.parametrize("case,tile_m", [((1, 24, 32, 96, 64, 64), 128),
-                                         ((1, 16, 32, 96, 64, 64), 256),
+def _pack(w):
+    """OIHW (O, I, 3, 3) → (O, 9, I), ``_build.pack_conv3x3``'s layout."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], 9, -1)
+
+
+@pytest.mark.parametrize("case,tile_m", [((1, 24, 32, 96, 96, 64), 128),
+                                         ((1, 16, 32, 96, 96, 64), 256),
                                          ((2, 8, 16, 64, 128, 128), 128)])
 def test_conv1_k_order_float64(case, tile_m):
     """conv1 over [skip | upsample2x(x)] emulated in float64 in the plan's K
-    order (skip's 64-channel slices then up's, per tap, with Cs % 64 != 0
-    exercising the zero fill) and conv2 over its y1: within 1e-12 of
+    order (skip's 64-channel slices then up's, per tap, with Cs and Cx %
+    64 != 0 exercising the zero fill) and conv2 over its y1: within 1e-12 of
     ``unetup_plain`` (and its y1), which is within 1e-12 of JAX's
-    ``reference_unetup`` (decoder_fuse.py:1181) in float64."""
+    ``reference_unetup`` (decoder_fuse.py:1181) in float64.  Then #13 on
+    that forward's out and y1: the mask pass, conv2's dgrad masked by y1 >
+    0 and conv1's split at the record's Cs (inside a 64-wide N tile at Cs =
+    96), emulated the same way at the plan's tiles, within 1e-12 of
+    ``unetup_bwd_plain`` (dskip, dups, g2, dz1)."""
     B, H2, W2, Cs, Cx, F = case
     rng = np.random.default_rng(sum(case) + tile_m)
     skip = rng.standard_normal((B, H2, W2, Cs))
@@ -351,9 +428,9 @@ def test_conv1_k_order_float64(case, tile_m):
     out, y1 = _unetup_plain_y1(t[0], t[1], oihw[0], t[3], oihw[1], t[5])
     conv1, conv2 = sm90.unetup_launches(B, H2, W2, Cs, Cx, F)
     assert conv1["tile"][0] == conv2["tile"][0] == tile_m  # the plan's rule picks it
-    packed = [w.permute(0, 2, 3, 1).reshape(F, 9, -1) for w in oihw]  # _build.pack_conv3x3
-    ey1 = _emulate_conv({0: t[0], 2: upsample2x(t[1])}, packed[0], t[3], conv1, Cs, Cx)
-    eout = _emulate_conv({0: ey1}, packed[1], t[5], conv2, F, 0)
+    packed = [_pack(w) for w in oihw]
+    ey1 = _emulate_conv({0: t[0], 2: upsample2x(t[1])}, packed[0], conv1, Cs, Cx, bias=t[3])
+    eout = _emulate_conv({0: ey1}, packed[1], conv2, F, 0, bias=t[5])
     assert (ey1 - y1).abs().max() <= 1e-12 * y1.abs().max()
     assert (eout - out).abs().max() <= 1e-12 * out.abs().max()
     with enable_x64(True):
@@ -361,3 +438,12 @@ def test_conv1_k_order_float64(case, tile_m):
     assert ref.dtype == np.float64
     plain = unetup_plain(*t[:2], oihw[0], t[3], oihw[1], t[5]).numpy()
     assert np.abs(plain - ref).max() <= 1e-12 * np.abs(ref).max()
+    g = torch.from_numpy(rng.standard_normal((B, H2, W2, F)))
+    d2, d1 = sm90.unetup_bwd_launches(B, H2, W2, Cs, Cx, F)
+    split = int(dgrad_plan(B, H2, W2, Cs, Cx, F)[1, 7])
+    g2 = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype))
+    dz1 = _emulate_conv({0: g2}, _pack(flip_t(oihw[1])), d2, F, 0, mask=y1)
+    d = _emulate_conv({0: dz1}, _pack(flip_t(oihw[0])), d1, F, 0)
+    refs = unetup_bwd_plain(g, out, y1, oihw[0], oihw[1], Cs)
+    for e, r in zip((d[..., :split], d[..., split:], g2, dz1), refs):
+        assert e.shape == r.shape and (e - r).abs().max() <= 1e-12 * r.abs().max()

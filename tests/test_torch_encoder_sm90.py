@@ -1,7 +1,8 @@
 """The host plan of the Hopper conv core and weight-gradient GEMM
 (``tpu_unet_torch/kernels/sm90.py``), on the CPU: what the kernels are
-told at every blocks 3-5 shape of unet_vgg and self_net (512², batch 8)
-and at the test sizes — shared memory within the card's 227 KB, TMA boxes
+told at every blocks 2-5 shape of unet_vgg and self_net (512², batch 8;
+block 2's backward only, its forward stays on the mma.sync core) and at
+the test sizes — shared memory within the card's 227 KB, TMA boxes
 within the 128-byte swizzle span, 16-byte strides, tiles that cover every
 output pixel and channel once, splits that cover every pixel patch once
 in order — and the block kernels' shape rule, which the new core leaves as
@@ -17,38 +18,41 @@ from tpu_unet_torch.kernels.encoder_train import bwd_plan, vgg_block_train_ok
 SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory (227 KB)
 SWIZZLE_BYTES = 128   # the span of CU_TENSOR_MAP_SWIZZLE_128B
 
-# blocks 3-5 of VGG16 at a 512² input (unet_vgg and self_net share the
-# encoder), batch 8: (H, widths); and the GPU tests' sizes
-FULL = [(8, 128, 128, [128, 256, 256, 256]), (8, 64, 64, [256, 512, 512, 512]),
-        (8, 32, 32, [512, 512, 512, 512])]
+# blocks 2-5 of VGG16 at a 512² input (unet_vgg and self_net share the
+# encoder), batch 8: (H, widths); and the GPU tests' sizes (block 2's at
+# H = 16, the 256-pixel dgrad tile, and at H = 8, the 128-pixel one)
+FULL = [(8, 256, 256, [64, 128, 128]), (8, 128, 128, [128, 256, 256, 256]),
+        (8, 64, 64, [256, 512, 512, 512]), (8, 32, 32, [512, 512, 512, 512])]
 SMALL = [(2, 16, 32, [128, 256, 256, 256]), (2, 16, 32, [256, 512, 512, 512]),
          (2, 16, 32, [512, 512, 512, 512]), (1, 8, 16, [64, 64, 64, 64]),
-         (2, 24, 32, [96, 128, 192, 64]), (2, 8, 16, [32, 64, 128, 128])]
+         (2, 24, 32, [96, 128, 192, 64]), (2, 8, 16, [32, 64, 128, 128]),
+         (2, 16, 32, [64, 128, 128]), (1, 8, 16, [64, 128, 128])]
 
 
 def _convs(B, H, W, chans, train=True):
     """Every launch of a block: (what, launch, C, F) with C the input's
-    width and F the output's of that product."""
-    out = []
-    for cin, cout in zip(chans[:-1], chans[1:]):
-        out.append(("fwd", sm90.conv_launch(sm90.OP_FWD, B, H, W, cin, cout), cin, cout))
-        if train:
-            out.append(("dgrad", sm90.conv_launch(sm90.OP_DGRAD_MASK, B, H, W, cout, cin),
-                        cout, cin))
-            out.append(("wgrad", sm90.wgrad_launch(B, H, W, cin, cout), cin, cout))
+    width and F the output's of that product; with ``train`` the backward's
+    as ``sm90.block_bwd_launches`` plans them (conv 0's dgrad to dx)."""
+    out = [("fwd", sm90.conv_launch(sm90.OP_FWD, B, H, W, cin, cout), cin, cout)
+           for cin, cout in zip(chans[:-1], chans[1:])]
+    if train:
+        bwd = sm90.block_bwd_launches(B, H, W, chans, True)
+        for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+            out += [("wgrad", bwd[2 * i], cin, cout), ("dgrad", bwd[2 * i + 1], cout, cin)]
     return out
 
 
 def _conv_tiles(launch, B, H, W, F):
     """The (b, y0, x0, n0) tile of every block, decoded as
-    ``conv3x3_sm90.cuh`` decodes ``blockIdx.x``."""
-    tn = launch["tile"][1]
+    ``conv3x3_sm90.cuh`` decodes ``blockIdx.x`` (PH = tile_m / 16 rows)."""
+    tm, tn = launch["tile"]
+    ph = tm // sm90.PATCH_W
     ntn = F // tn
-    tiles_w, tiles_hw = W // sm90.PATCH_W, (H // sm90.PATCH_H) * (W // sm90.PATCH_W)
+    tiles_w, tiles_hw = W // sm90.PATCH_W, (H // ph) * (W // sm90.PATCH_W)
     for bid in range(launch["grid"][0]):
         n0, m = (bid % ntn) * tn, bid // ntn
         b, thw = divmod(m, tiles_hw)
-        yield b, (thw // tiles_w) * sm90.PATCH_H, (thw % tiles_w) * sm90.PATCH_W, n0
+        yield b, (thw // tiles_w) * ph, (thw % tiles_w) * sm90.PATCH_W, n0
 
 
 def _train_case(B, H, W, chans):
@@ -62,7 +66,8 @@ TRAIN = [case for case in FULL + SMALL if _train_case(*case)]
 def test_plan_fits_the_card(B, H, W, chans):
     """Shared memory within 227 KB; each map's box within the 128-byte
     swizzle span on its innermost dim, at most 256 on every dim; byte
-    strides multiples of 16 (TMA's rule) and those of the dense tensor."""
+    strides multiples of 16 (TMA's rule) and those of the dense tensor; a
+    conv's epilogue tile beside a ring of at least 4 stages, or in it."""
     for what, ln, c, f in _convs(B, H, W, chans, _train_case(B, H, W, chans)):
         assert ln["smem"] <= SMEM_LIMIT, (what, ln["smem"])
         for m in ln["maps"]:
@@ -73,34 +78,42 @@ def test_plan_fits_the_card(B, H, W, chans):
             for d in m["dims"][1:-1]:
                 dense.append(dense[-1] * d)
             assert list(m["strides"]) == dense
-        tn = ln["tile"][1]
+        tm, tn = ln["tile"]
         stage = sm90.wgrad_stage_boxes(*ln["tile"]) * sm90.BOX_BYTES if what == "wgrad" else \
-            sm90.BOX_BYTES + tn * 64 * 2
+            (tm + tn) * 64 * 2
         assert ln["stages"] >= 2 and ln["stages"] * stage <= sm90.RING_BYTES
-        if what != "wgrad":  # the epilogue's bf16 tile is staged in the ring
-            assert sm90.PATCH * (tn + 8) * 2 <= ln["stages"] * stage
+        if what != "wgrad":  # the epilogue's bf16 tile: beside the ring, or in it
+            out = tm * (tn + 8) * 2
+            if sm90.conv_own_staging(tn, tm):
+                assert ln["stages"] >= 4 and ln["smem"] >= ln["stages"] * stage + out
+            else:
+                assert out <= ln["stages"] * stage
 
 
 @pytest.mark.parametrize("B,H,W,chans", FULL + SMALL)
 def test_conv_tiles_cover_output_once(B, H, W, chans):
     """The forward's and the dgrad's tiles cover every (pixel patch, output
     channel block) exactly once (decoded block by block at the test sizes,
-    counted at 512²); the maps are the input's NHWC and the packed weights'
-    (F, 9, C); the K slices cover every tap and channel."""
+    counted at 512²), the forward at 128 pixels, the dgrads at the plan's
+    rule (256 where the N tile is at most 128 wide and H % 16 == 0); the
+    maps are the input's NHWC and the packed weights' (F, 9, C); the K
+    slices cover every tap and channel."""
     for what, ln, c, f in _convs(B, H, W, chans, _train_case(B, H, W, chans)):
         if what == "wgrad":
             continue
-        tn = ln["tile"][1]
-        assert f % tn == 0 and ln["tile"][0] == sm90.PATCH
-        n_tiles = B * (H // 8) * (W // 16) * (f // tn)
+        tm, tn = ln["tile"]
+        assert tm == (sm90.conv_tile_m(H, f) if what == "dgrad" else sm90.PATCH)
+        ph = tm // 16
+        assert f % tn == 0 and H % ph == 0
+        n_tiles = B * (H // ph) * (W // 16) * (f // tn)
         assert ln["grid"] == (n_tiles, 1, 1)
         if B * H * W <= 4096:
             tiles = list(_conv_tiles(ln, B, H, W, f))
             assert len(set(tiles)) == len(tiles) == n_tiles
             assert {(b, y, x) for b, y, x, _ in tiles} == {
-                (b, y, x) for b in range(B) for y in range(0, H, 8) for x in range(0, W, 16)}
+                (b, y, x) for b in range(B) for y in range(0, H, ph) for x in range(0, W, 16)}
             assert {n for *_, n in tiles} == set(range(0, f, tn))
-        assert ln["maps"][0]["dims"] == (c, W, H, B)
+        assert ln["maps"][0]["dims"] == (c, W, H, B) and ln["maps"][0]["box"] == (64, 16, ph, 1)
         assert ln["maps"][1]["dims"] == (c, 9, f) and ln["maps"][1]["box"] == (64, 1, tn)
         assert ln["k_slices"] * 64 >= 9 * c > (ln["k_slices"] - 9) * 64
 
@@ -142,7 +155,9 @@ def test_full_size_splits():
 def test_records_match_plans():
     """The int64 records (``csrc/sm90.cuh::Launch``) carry each launch's
     numbers: forward records pool on the last conv only; the backward's
-    conv 0 dgrad record is the unmasked epilogue, empty without dx."""
+    (three convs and block 2's two) conv 0 dgrad record is the unmasked
+    epilogue with every channel to dx, empty without dx, the dgrads at the
+    tile rule's pixels."""
     B, H, W, chans = 2, 16, 32, (128, 256, 256, 256)
     rec = block_plan(B, H, W, chans, True)
     assert tuple(rec.shape) == (3, sm90.PLAN_WORDS)
@@ -157,13 +172,20 @@ def test_records_match_plans():
                       *ln["maps"][1]["box"], 0]
         assert rec[i, sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:].abs().sum() == 0  # one input map
     assert block_plan(B, H, W, chans, False)[:, 0].tolist() == [sm90.OP_FWD] * 3
-    for want_dx in (True, False):
-        rec, ns = bwd_plan(B, H, W, chans, want_dx)
-        assert rec[0::2, 0].tolist() == [sm90.OP_WGRAD] * 3
-        assert rec[0::2, 5].tolist() == list(ns)
-        assert rec[1::2, 0].tolist() == [sm90.OP_DGRAD if want_dx else 0,
-                                         sm90.OP_DGRAD_MASK, sm90.OP_DGRAD_MASK]
-        assert (rec[1].abs().sum() > 0) == want_dx
+    for bwd_chans in (chans, (64, 128, 128)):  # block 3's widths, block 2's
+        n = len(bwd_chans) - 1
+        for want_dx in (True, False):
+            rec, ns = bwd_plan(B, H, W, bwd_chans, want_dx)
+            assert tuple(rec.shape) == (2 * n, sm90.PLAN_WORDS)
+            assert rec[0::2, 0].tolist() == [sm90.OP_WGRAD] * n
+            assert rec[0::2, 5].tolist() == list(ns)
+            assert rec[1::2, 0].tolist() == [sm90.OP_DGRAD_SPLIT if want_dx else 0] + \
+                [sm90.OP_DGRAD_MASK] * (n - 1)
+            assert (rec[1].abs().sum() > 0) == want_dx
+            # conv 0's dgrad sends every channel to dx: its split is Cin
+            assert rec[1, 7] == (bwd_chans[0] if want_dx else 0)
+            assert rec[1::2, 6].tolist() == [sm90.conv_tile_m(H, c) if want_dx or i else 0
+                                             for i, c in enumerate(bwd_chans[:-1])]
 
 
 def _old_shape_ok(H, W, chans):

@@ -168,7 +168,7 @@ def test_unetup_stage_on_hopper_core(cuda, h, cs, cx, f):
     ref, ry1 = _unetup_plain_y1(skip, x, w1, b1, w2, b2)
     assert _rel(out, ref) <= CONV_REL_TOL and _rel(y1, ry1) <= CONV_REL_TOL
     assert torch.equal(out, _unetup_cuda(skip, x, w1, b1, w2, b2))
-    assert sm90.unetup_tile_m(2 * h, f) == (256 if f <= 128 and h % 8 == 0 else 128)
+    assert sm90.conv_tile_m(2 * h, f) == (256 if f <= 128 and h % 8 == 0 else 128)
     if (cs + cx) % 64:
         return
     dz1 = _act(cuda, 2, 2 * h, 4 * h, f)
@@ -184,17 +184,20 @@ def test_unetup_stage_on_hopper_core(cuda, h, cs, cx, f):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cs,cx,f", [(64, 128, 64), (1024, 2048, 512)])
 def test_stage_single_tile_float64(cuda, cs, cx, f):
-    """At one 8x16 tile, conv1's y1 within one bf16 ulp of the largest value
-    of the float64 conv on the same bf16 operands, and dk1 within float32's
-    sums over 128 pixels of the float64 weight gradient: the witness and
-    limits of ``chip_smoke.py``; prints the kernel's and the plain version's
-    readings (pytest -s)."""
-    from chip_smoke import (SINGLE_TILE_DK_REL_TOL, SINGLE_TILE_Y1_REL_TOL,
+    """At one 8x16 tile, conv1's y1 and #13's dz1 and [dskip | dups] within
+    one bf16 ulp of the largest value of the float64 conv on the same bf16
+    operands (each dgrad from its own bf16 input), g2 equal to the plain
+    version's, and dk1 within float32's sums over 128 pixels of the float64
+    weight gradient: the witness and limits of ``chip_smoke.py``; prints
+    the kernel's and the plain version's readings (pytest -s)."""
+    from chip_smoke import (SINGLE_TILE_DK_REL_TOL, SINGLE_TILE_STORE_REL_TOL,
                             stage_single_tile_readings)
 
     readings = stage_single_tile_readings(cuda, cs, cx, f)
     print((cs, cx, f), readings)
-    assert readings["y1"]["kernel_vs_float64"] <= SINGLE_TILE_Y1_REL_TOL
+    for name in ("y1", "dz1", "dskip_dups"):
+        assert readings[name]["kernel_vs_float64"] <= SINGLE_TILE_STORE_REL_TOL, name
+    assert readings["g2_equal"]
     assert readings["dk1"]["kernel_vs_float64"] <= SINGLE_TILE_DK_REL_TOL
 
 
@@ -480,9 +483,16 @@ def test_final_loss_deterministic(cuda):
 @pytest.mark.parametrize("h,w,cs,cx,f", [(16, 32, 64, 128, 64), (8, 16, 8, 120, 64)])
 def test_unetup_bwd_kernel(cuda, h, w, cs, cx, f):
     """#13 against its plain version: g2 exact, dz1 / dskip / dups within
-    CONV_REL_TOL."""
+    CONV_REL_TOL; the plan's dgrad tiles (pixels, channels): conv2's 256 x
+    64 at 2H = 16 and 128 x 64 at 2H = 8, conv1's 128 x 192 (Cs + Cx =
+    192, the split at 64 inside it) and 128 x 128 (the split at Cs = 8
+    inside it)."""
     from tpu_unet_torch.kernels import launch_counts
-    from tpu_unet_torch.kernels.decoder_train import unetup_bwd, unetup_bwd_plain
+    from tpu_unet_torch.kernels.decoder_train import dgrad_plan, unetup_bwd, unetup_bwd_plain
+
+    rec = dgrad_plan(2, h, w, cs, cx, f)
+    tiles = list(zip(rec[:, 6].tolist(), rec[:, 1].tolist()))
+    assert tiles == ([(256, 64), (128, 192)] if h == 16 else [(128, 64), (128, 128)])
 
     g = torch.randn((2, h, w, f), generator=cuda, device="cuda").to(torch.bfloat16)
     out = torch.randn((2, h, w, f), generator=cuda, device="cuda").to(torch.bfloat16)
@@ -649,7 +659,8 @@ def _block_bwd_float64(dskip, dpool, x, mids, out, ws):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("chans", [[128, 256, 256, 256], [256, 512, 512, 512]])
+@pytest.mark.parametrize("chans", [[128, 256, 256, 256], [256, 512, 512, 512],
+                                   [64, 128, 128]])
 def test_block_bwd_single_tile_float64(cuda, chans):
     """At one 8x16 tile (128 pixels) the kernel's and the plain version's
     weight and bias gradients (both round the activation gradients to bf16
@@ -657,12 +668,12 @@ def test_block_bwd_single_tile_float64(cuda, chans):
     intermediates: the kernel no further from it than the plain version,
     with a quarter's margin (the readings agree to 3%).  Prints the
     readings (pytest -s)."""
-    from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, vgg_block_bwd,
+    from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, block_key, vgg_block_bwd,
                                                       vgg_block_bwd_plain)
 
     x = _act(cuda, 1, 8, 16, chans[0])
     ws, bs = zip(*[_conv(cuda, f, c) for c, f in zip(chans[:-1], chans[1:])])
-    skip, pooled, mids = _vgg_block_cuda(x, list(ws), list(bs), True, "vgg_block3_fwd")
+    skip, pooled, mids = _vgg_block_cuda(x, list(ws), list(bs), True, block_key(len(ws), "fwd"))
     dskip = torch.randn(skip.shape, generator=cuda, device="cuda").to(torch.bfloat16)
     dpool = torch.randn(pooled.shape, generator=cuda, device="cuda").to(torch.bfloat16)
     res = vgg_block_bwd(dskip, dpool, x, mids, skip, list(ws))

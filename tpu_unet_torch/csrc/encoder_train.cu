@@ -19,33 +19,37 @@
 //   1. pool_relu_grad: one thread owns a pooled pixel's 2x2 window and 8
 //      channels (16-byte loads), picks the first maximum per channel, adds
 //      the pooled gradient to the skip's there (one bf16 rounding, as a bf16
-//      add) and applies the ReLU mask; without the pool, the mask only;
-//   2. per conv, last first: the weight gradient through the shared GEMM
-//      over the pixels (csrc/wgrad.cuh; conv1_1's 27 columns padded to 64
-//      and gathered by the image loader), then the dgrad through the conv
-//      core (csrc/conv3x3.cuh) with the ReLU mask of its input in the
-//      epilogue.  The stem computes no image gradient, as JAX's does not.
+//      add) and applies the ReLU mask; without the pool, the mask only
+//      (csrc/relu_grad.cuh);
+//   2. per conv, last first: the weight gradient through a GEMM over the
+//      pixels, then the dgrad through a conv core with the ReLU mask of its
+//      input in the epilogue (conv 0 of a block: the plain store to dx).
 // Two gradient buffers alternate; the weight-gradient work area is reused
 // from conv to conv (one stream orders them).  No atomics, so the result
 // is bit-identical run to run.
 //
-// Three convs (blocks 3-5, #24) run step 2 on the Hopper kernels: the
+// The blocks (2 convs, #22; 3, #24) run step 2 on the Hopper kernels: the
 // weight gradient on csrc/wgrad_sm90.cuh (MN-major wgmma operands straight
-// from TMA boxes of g and the input) and the dgrad on csrc/conv3x3_sm90.cuh,
-// per the host plan's launch records (kernels/sm90.py); the stem and two
-// convs (#20, #22) on the mma.sync core and csrc/wgrad.cuh.
+// from TMA boxes of g and the input) and the dgrad on csrc/conv3x3_sm90.cuh
+// (OP_DGRAD_MASK; conv 0's OP_DGRAD_SPLIT with every channel to dx), per
+// the host plan's launch records (kernels/sm90.py::block_bwd_launches;
+// the dgrads at the 256-pixel tile where the N tile is at most 128 wide
+// and H % 16 == 0).  The stem (#20) runs on the mma.sync core
+// (csrc/conv3x3.cuh) and csrc/wgrad.cuh: conv1_2's weight gradient and
+// masked dgrad, then conv1_1's weight gradient, its 27 columns padded to
+// 64 and gathered from the image by the image loader.  The stem computes
+// no image gradient, as JAX's does not.
 //
 // Bound on the H100: operations — per conv a dgrad and a weight gradient
 // of 2 * 9 * P * Cin * Cout each (the stem at 512x512, batch 8: 0.33 ms at
-// 989 TFLOP/s bf16; blocks 3-5 0.49-0.78 ms).
+// 989 TFLOP/s bf16; block 2 0.469 ms; blocks 3-5 0.24-0.78 ms).
 // Shapes: H % 8, W % 16, widths % 64 (the image's 3 channels apart).
+#include "relu_grad.cuh"
 #include "wgrad.cuh"
 #include "wgrad_sm90.cuh"
 
 namespace tu {
 namespace {
-
-__device__ __forceinline__ uint4 ld16(const bf16* p) { return *reinterpret_cast<const uint4*>(p); }
 
 // pooled: one thread a (b, py, px, 8 channels) slot of dpool (B, H/2, W/2, C)
 __global__ void __launch_bounds__(256)
@@ -96,22 +100,6 @@ pool_relu_grad_kernel(const bf16* __restrict__ dskip, const bf16* __restrict__ d
   for (int q = 0; q < 4; ++q) *reinterpret_cast<uint4*>(g + o[q]) = *reinterpret_cast<const uint4*>(res[q]);
 }
 
-// no pool: one thread a (pixel, 8 channels) slot, g = dskip * [out > 0]
-__global__ void __launch_bounds__(256)
-relu_grad_kernel(const bf16* __restrict__ dskip, const bf16* __restrict__ out,
-                 bf16* __restrict__ g, size_t n8) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n8) return;
-  const uint4 su = ld16(dskip + idx * 8), ou = ld16(out + idx * 8);
-  __align__(16) bf16 res[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    res[j] = __bfloat162float(reinterpret_cast<const bf16*>(&ou)[j]) > 0.f
-                 ? reinterpret_cast<const bf16*>(&su)[j]
-                 : __float2bfloat16_rn(0.f);
-  *reinterpret_cast<uint4*>(g + idx * 8) = *reinterpret_cast<const uint4*>(res);
-}
-
 }  // namespace
 }  // namespace tu
 
@@ -122,8 +110,8 @@ using tu::bf16;
 // wts[i] the dgrad weights flipT(w_i) packed (Cin_i, 9 * Cout_i), wts[0]
 // unused without dx; dpool null without the pool; ga, gb (B, H, W, C_n)
 // scratch; work holds max_i ns[i] * C_i+1 * (wgrad_k(C_i) + 1) floats;
-// plan: for three convs, 2n launch records (conv i's weight gradient at
-// 2i, its dgrad at 2i + 1), null otherwise.
+// plan: for a block, 2n launch records (conv i's weight gradient at 2i,
+// its dgrad at 2i + 1), null for the stem; ns: the stem's split counts.
 extern "C" int tu_vgg_block_bwd(const bf16* x, int is_image, const bf16* mid0, const bf16* mid1,
                                 const bf16* out, const bf16* dskip, const bf16* dpool,
                                 const bf16* wt0, const bf16* wt1, const bf16* wt2, bf16* ga,
@@ -131,69 +119,55 @@ extern "C" int tu_vgg_block_bwd(const bf16* x, int is_image, const bf16* mid0, c
                                 float* dk2, float* db0, float* db1, float* db2, int n, int B,
                                 int H, int W, int c0, int c1, int c2, int c3, int ns0, int ns1,
                                 int ns2, const int64_t* plan, cudaStream_t stream) {
+  namespace sm90 = tu::sm90;
   const bf16* mids[2] = {mid0, mid1};
   const bf16* wts[3] = {wt0, wt1, wt2};
   float* dks[3] = {dk0, dk1, dk2};
   float* dbs[3] = {db0, db1, db2};
-  const int chans[4] = {c0, c1, c2, c3}, ns[3] = {ns0, ns1, ns2};
+  const int chans[4] = {c0, c1, c2, c3};
   const int C = chans[n];
+  cudaError_t e;
   if (dpool != nullptr) {
     const size_t m = static_cast<size_t>(B) * (H / 2) * (W / 2) * (C / 8);
     tu::pool_relu_grad_kernel<<<static_cast<unsigned>((m + 255) / 256), 256, 0, stream>>>(
         dskip, dpool, out, ga, B, H, W, C);
+    e = cudaGetLastError();
   } else {
-    const size_t m = static_cast<size_t>(B) * H * W * (C / 8);
-    tu::relu_grad_kernel<<<static_cast<unsigned>((m + 255) / 256), 256, 0, stream>>>(dskip, out,
-                                                                                      ga, m);
+    e = tu::launch_relu_grad(dskip, out, ga, static_cast<size_t>(B) * H * W * (C / 8), stream);
   }
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   bf16* g = ga;
   bf16* g_next = gb;
-  if (n == 3) {
-    if (plan == nullptr || is_image) return cudaErrorInvalidValue;
-    for (int i = n - 1; i >= 0; --i) {
-      const int cin = chans[i], cout = chans[i + 1];
-      const int64_t* wrec = plan + (2 * i) * tu::sm90::PLAN_WORDS;
-      const int64_t* drec = plan + (2 * i + 1) * tu::sm90::PLAN_WORDS;
-      e = tu::sm90::launch_wgrad_sm90(wrec, g, i == 0 ? x : mids[i - 1], work, dks[i], dbs[i],
-                                      B, H, W, cin, cout, stream);
-      if (e != cudaSuccess) return e;
-      if (i > 0) {
-        if (drec[0] != tu::sm90::OP_DGRAD_MASK) return cudaErrorInvalidValue;
-        e = tu::sm90::launch_conv_sm90(
-            drec, g, nullptr, wts[i],
-            tu::sm90::ConvArgs{nullptr, mids[i - 1], g_next, nullptr, H, W, cout, cin},
-            stream);
-      } else if (dx != nullptr) {
-        if (drec[0] != tu::sm90::OP_DGRAD) return cudaErrorInvalidValue;
-        e = tu::sm90::launch_conv_sm90(
-            drec, g, nullptr, wts[0], tu::sm90::ConvArgs{nullptr, nullptr, dx, nullptr, H, W, cout, cin},
-            stream);
-      }
-      if (e != cudaSuccess) return e;
-      bf16* t = g;
-      g = g_next;
-      g_next = t;
-    }
-    return cudaSuccess;
+  if (is_image) {  // the stem (#20): conv1_2, then conv1_1's weight gradient over the image
+    if (n != 2 || plan != nullptr || dx != nullptr) return cudaErrorInvalidValue;
+    e = tu::launch_wgrad(tu::NhwcLoader{mid0, H, W, c1}, g, work, dk1, db1, B, H, W, c1, c2, ns1,
+                         stream);
+    if (e != cudaSuccess) return e;
+    e = tu::launch_conv3x3_grad<tu::NhwcLoader, tu::EPI_MASK>(
+        tu::NhwcLoader{g, H, W, c2}, wt1, mid0, g_next, nullptr, B, H, W, 9 * c2, c1, c1, stream);
+    if (e != cudaSuccess) return e;
+    return tu::launch_wgrad(tu::ImageLoader<false>{x, H, W}, g_next, work, dk0, db0, B, H, W, 3,
+                            c1, ns0, stream);
   }
+  if (plan == nullptr) return cudaErrorInvalidValue;
   for (int i = n - 1; i >= 0; --i) {
     const int cin = chans[i], cout = chans[i + 1];
-    if (i == 0 && is_image)
-      e = tu::launch_wgrad(tu::ImageLoader<false>{x, H, W}, g, work, dks[i], dbs[i], B, H, W, 3,
-                           cout, ns[i], stream);
-    else
-      e = tu::launch_wgrad(tu::NhwcLoader{i == 0 ? x : mids[i - 1], H, W, cin}, g, work, dks[i],
-                           dbs[i], B, H, W, cin, cout, ns[i], stream);
+    const int64_t* wrec = plan + (2 * i) * sm90::PLAN_WORDS;
+    const int64_t* drec = plan + (2 * i + 1) * sm90::PLAN_WORDS;
+    e = sm90::launch_wgrad_sm90(wrec, g, i == 0 ? x : mids[i - 1], work, dks[i], dbs[i], B, H, W,
+                                cin, cout, stream);
     if (e != cudaSuccess) return e;
-    const tu::NhwcLoader gl{g, H, W, cout};
     if (i > 0) {
-      e = tu::launch_conv3x3_grad<tu::NhwcLoader, tu::EPI_MASK>(
-          gl, wts[i], mids[i - 1], g_next, nullptr, B, H, W, 9 * cout, cin, cin, stream);
+      if (drec[0] != sm90::OP_DGRAD_MASK) return cudaErrorInvalidValue;
+      e = sm90::launch_conv_sm90(
+          drec, g, nullptr, wts[i],
+          sm90::ConvArgs{nullptr, mids[i - 1], g_next, nullptr, H, W, cout, cin}, stream);
     } else if (dx != nullptr) {
-      e = tu::launch_conv3x3_grad<tu::NhwcLoader, tu::EPI_SPLIT>(
-          gl, wts[0], nullptr, dx, nullptr, B, H, W, 9 * cout, cin, cin, stream);
+      if (drec[0] != sm90::OP_DGRAD_SPLIT || sm90::Launch{drec}.split() != cin)
+        return cudaErrorInvalidValue;
+      e = sm90::launch_conv_sm90(drec, g, nullptr, wts[0],
+                                 sm90::ConvArgs{nullptr, nullptr, dx, nullptr, H, W, cout, cin},
+                                 stream);
     }
     if (e != cudaSuccess) return e;
     bf16* t = g;

@@ -169,6 +169,38 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint
 }
 
 template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n192(float (&d)[96], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int scale_d) {
   asm volatile(
@@ -219,6 +251,8 @@ template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
   if constexpr (N == 256)
     wgmma_m64n256<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 192)
+    wgmma_m64n192<TA, TB>(d, da, db, scale_d);
   else if constexpr (N == 128)
     wgmma_m64n128<TA, TB>(d, da, db, scale_d);
   else
@@ -231,12 +265,13 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
 // (int64 words): op, tile_n, grid x / y / z, split count, tile_m (the
 // pixels of a tile), and for a weight gradient where its reduce pass
 // writes (the gradient's channel count Ctot, this launch's first channel,
-// whether it sums the bias gradient); then three tensor maps of MAP_WORDS
-// each: rank, dims[4] (elements, innermost first), byte strides of dims
-// 1-3, box[4]; rank 0 for a map the launch does not use (the conv's second
-// input map).  The ring's stages and shared memory follow from the tile at
-// compile time.
-enum { OP_FWD = 0, OP_FWD_POOL = 1, OP_DGRAD_MASK = 2, OP_DGRAD = 3, OP_WGRAD = 4 };
+// whether it sums the bias gradient), for a split dgrad the channel count
+// of its first output in the first of those words; then three tensor maps
+// of MAP_WORDS each: rank, dims[4] (elements, innermost first), byte
+// strides of dims 1-3, box[4]; rank 0 for a map the launch does not use
+// (the conv's second input map).  The ring's stages and shared memory
+// follow from the tile at compile time.
+enum { OP_FWD = 0, OP_FWD_POOL = 1, OP_DGRAD_MASK = 2, OP_DGRAD_SPLIT = 3, OP_WGRAD = 4 };
 constexpr int HEAD_WORDS = 10, MAP_WORDS = 12, PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS;
 
 struct Launch {
@@ -250,6 +285,7 @@ struct Launch {
   int nsplit() const { return static_cast<int>(w[5]); }
   int tile_m() const { return static_cast<int>(w[6]); }
   int out_channels() const { return static_cast<int>(w[7]); }
+  int split() const { return static_cast<int>(w[7]); }  // OP_DGRAD_SPLIT
   int out_offset() const { return static_cast<int>(w[8]); }
   bool bias() const { return w[9] != 0; }
   const int64_t* map(int i) const { return w + HEAD_WORDS + i * MAP_WORDS; }

@@ -69,13 +69,14 @@ SIGNATURES = {
     # feats, is_bf16, target, wt, bias, cls_weights, coefA, coefB, inv_sw,
     # dfeat, partial, acc, n_pix (int64), C, stream
     "tu_final_ce_dice_bwd": [_P, _I] + [_P] * 10 + [ctypes.c_longlong, _I, _P],
-    # g, out, y1, w2t, w1t, g2, dz1, dskip, dups, B, H2, W2, Cs, Cx, F, stream
-    "tu_unetup_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # g, out, y1, w2t, w1t, g2, dz1, dskip, dups, B, H2, W2, Cs, Cx, F,
+    # plan (int64 launch records), stream
+    "tu_unetup_bwd": [_P] * 9 + [_I] * 6 + [_P, _P],
     # skip, up, dz1, y1, g2, work, dk1, db1, dk2, db2, B, H2, W2, Cs, Cx, F,
     # plan (int64 launch records), stream
     "tu_unetup_wgrad": [_P] * 10 + [_I] * 6 + [_P, _P],
     # x, is_image, mid0, mid1, out, dskip, dpool, wt0..2, ga, gb, dx, work,
-    # dk0..2, db0..2, n, B, H, W, chans[4], ns[3], plan (three convs), stream
+    # dk0..2, db0..2, n, B, H, W, chans[4], ns[3], plan (blocks), stream
     "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 11 + [_P, _P],
     # dup, ridx, rw, nr, cidx, cw, nc, dx, B, H, W, C, stream
     "tu_upsample_adjoint": [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] + [_I] * 4 + [_P],

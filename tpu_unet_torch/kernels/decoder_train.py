@@ -16,10 +16,10 @@ stage's forward and weight gradients read.
 
   with SAME 3×3 convs and no bias; ``flipT`` flips (ky, kx) and swaps the
   input and output channels (decoder_train.py:55-57).  CUDA kernel
-  ``csrc/decoder_train.cu`` on the conv core ``csrc/conv3x3.cuh``: the
-  first conv masks g by out > 0 as its operand loader gathers it (and
-  writes g2 once), its epilogue masks by y1 > 0; the second conv's epilogue
-  writes the skip and up channels into two tensors.
+  ``csrc/decoder_train.cu``: a ReLU mask pass writes g2, then two dgrads
+  on the Hopper conv core ``csrc/conv3x3_sm90.cuh`` planned by
+  :func:`dgrad_plan` — conv2's epilogue masks by y1 > 0, conv1's sends the
+  skip and up channels into two tensors.
 - :func:`unetup_wgrad`: both weight gradients and both bias sums in
   float32 (``_bwd_kernel_v2``, decoder_train.py:340-374, and #18's repack).
   CUDA kernel ``csrc/unetup_wgrad.cu``: three launches of the Hopper
@@ -49,7 +49,7 @@ from tpu_unet_torch.nn.resize import (adjoint_tables, lerp_tables, upsample2x,
                                       upsample2x_adjoint_plain)
 
 # the split-K of the mma.sync weight-gradient GEMM (csrc/wgrad.cuh, the
-# up_conv head's backward and VGG16 blocks 1-2): about this many blocks per
+# up_conv head's backward and the stem): about this many blocks per
 # GEMM (8 a streaming multiprocessor of the H100's 132), at least 8 pixel
 # chunks of 32 a split
 WGRAD_BLOCKS = 8 * 132
@@ -132,6 +132,13 @@ def _check_stage(name, H2, W2, f, cp, cs):
                          f"Cs+Cx={cp} % 64 and Cs={cs} % 8 must all be 0, Cx > 0")
 
 
+@functools.lru_cache(maxsize=64)
+def dgrad_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int) -> torch.Tensor:
+    """The launch records of #13's two dgrads on the Hopper conv core
+    (``sm90.unetup_bwd_launches``)."""
+    return sm90.encode(sm90.unetup_bwd_launches(B, H2, W2, cs, cx, f))
+
+
 def _unetup_bwd_cuda(g, out, y1, w1, w2, cs):
     _build.no_grad_inputs("unetup_bwd", g, out, y1, w1, w2)
     B, H2, W2, f = g.shape
@@ -149,9 +156,10 @@ def _unetup_bwd_cuda(g, out, y1, w1, w2, cs):
     g2, dz1 = torch.empty_like(g), torch.empty_like(g)
     dskip = torch.empty((B, H2, W2, cs), dtype=bf, device=g.device)
     dups = torch.empty((B, H2, W2, cx), dtype=bf, device=g.device)
+    plan = dgrad_plan(B, H2, W2, cs, cx, f)
     _build.call("tu_unetup_bwd", g.data_ptr(), out.data_ptr(), y1.data_ptr(),
                 w2t.data_ptr(), w1t.data_ptr(), g2.data_ptr(), dz1.data_ptr(),
-                dskip.data_ptr(), dups.data_ptr(), B, H2, W2, cs, cx, f)
+                dskip.data_ptr(), dups.data_ptr(), B, H2, W2, cs, cx, f, plan.data_ptr())
     _build.launch_counts["unetup_bwd"] += 1
     return dskip, dups, g2, dz1
 

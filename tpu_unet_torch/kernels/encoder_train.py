@@ -15,10 +15,11 @@ between its convs and whose backward is one kernel.
   ``fused_vgg_block3_bwd_impl`` at encoder3_train.py:349), one CUDA source
   ``csrc/encoder_train.cu``: the pool's first-max routing with the skip's
   gradient and the last ReLU mask, then per conv the float32 weight and
-  bias gradients and the masked dgrad — for three convs on the Hopper
+  bias gradients and the masked dgrad — for the blocks on the Hopper
   kernels ``csrc/wgrad_sm90.cuh`` and ``csrc/conv3x3_sm90.cuh``, planned by
-  :mod:`tpu_unet_torch.kernels.sm90`.  The stem computes no image
-  gradient (JAX's VJP returns zeros for it; the step never needs it).
+  :mod:`tpu_unet_torch.kernels.sm90`, for the stem on the ``mma.sync``
+  core.  The stem computes no image gradient (JAX's VJP returns zeros for
+  it; the step never needs it).
 
 The TPU kernels' column-paired layouts, row tiles and P8 padding are TPU
 layout; in natural NHWC there is one function per stage.  Bounds and
@@ -92,17 +93,12 @@ def vgg_block_train_ok(H: int, W: int, chans) -> bool:
 
 @functools.lru_cache(maxsize=64)
 def bwd_plan(B: int, H: int, W: int, chans: tuple, want_dx: bool):
-    """The launch records of a three-conv block's backward on the Hopper
-    kernels (conv i's weight gradient at 2i, its dgrad at 2i + 1; none for
-    conv 0's without dx) and each conv's split count."""
-    launches, ns = [], []
-    for i in range(len(chans) - 1):
-        cin, cout = chans[i], chans[i + 1]
-        wg = sm90.wgrad_launch(B, H, W, cin, cout)
-        op = sm90.OP_DGRAD_MASK if i > 0 else sm90.OP_DGRAD
-        launches += [wg, sm90.conv_launch(op, B, H, W, cout, cin) if i > 0 or want_dx else None]
-        ns.append(wg["nsplit"])
-    return sm90.encode(launches), tuple(ns)
+    """The launch records of a block's backward (two or three convs) on the
+    Hopper kernels (``sm90.block_bwd_launches``: conv i's weight gradient
+    at 2i, its dgrad at 2i + 1; none for conv 0's without dx) and each
+    conv's split count."""
+    launches = sm90.block_bwd_launches(B, H, W, chans, want_dx)
+    return sm90.encode(launches), tuple(ln["nsplit"] for ln in launches[0::2])
 
 
 def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
@@ -130,13 +126,13 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
     # the dgrad weights flipT(w_i), (Cin_i, 9 Cout_i); conv 0's only for dx
     wts = [None if i == 0 and not want_dx else _build.pack_conv3x3(flip_t(w))
            for i, w in enumerate(ws)]
-    n_pix = B * H * W
     kpad = [-(-9 * c // 64) * 64 for c in chans[:-1]]
-    if n == 3:
-        plan, ns = bwd_plan(B, H, W, tuple(chans), bool(want_dx))
-    else:
+    if is_image:
         plan = None
-        ns = [_wgrad_splits((chans[i + 1] // 64) * (kpad[i] // 64), n_pix) for i in range(n)]
+        ns = [_wgrad_splits((chans[i + 1] // 64) * (kpad[i] // 64), B * H * W)
+              for i in range(n)]
+    else:
+        plan, ns = bwd_plan(B, H, W, tuple(chans), bool(want_dx))
     work = torch.empty(max(ns[i] * chans[i + 1] * (kpad[i] + 1) for i in range(n)),
                        dtype=torch.float32, device=x.device)
     ga, gb = torch.empty_like(out), torch.empty_like(out)

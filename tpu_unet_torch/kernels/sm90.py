@@ -23,9 +23,10 @@ PATCH = PATCH_H * PATCH_W
 SLICE_C = 64                       # channels of a box (128 bytes, the swizzle span)
 BOX_BYTES = PATCH * SLICE_C * 2
 CONSUMERS = 256                    # two consumer warpgroups (and one producer)
-RING_BYTES = 192 * 1024            # the TMA ring of either kernel
+RING_BYTES = 192 * 1024            # the TMA ring (the conv kernel's where it stages in it)
+SMEM_MAX = 232448                  # a block's dynamic shared memory on an H100, 227 KB
 SMS = 132                          # an H100 SXM's streaming multiprocessors
-OP_FWD, OP_FWD_POOL, OP_DGRAD_MASK, OP_DGRAD, OP_WGRAD = range(5)
+OP_FWD, OP_FWD_POOL, OP_DGRAD_MASK, OP_DGRAD_SPLIT, OP_WGRAD = range(5)
 HEAD_WORDS, MAP_WORDS = 10, 12
 PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS
 
@@ -36,17 +37,36 @@ def conv_stage_bytes(tile_n: int, tile_m: int = PATCH) -> int:
     return (tile_m + tile_n) * SLICE_C * 2
 
 
+def conv_out_bytes(tile_n: int, tile_m: int = PATCH) -> int:
+    """The conv kernel's epilogue tile: bf16 rows of tile_n + 8 channels."""
+    return tile_m * (tile_n + 8) * 2
+
+
+def conv_own_staging(tile_n: int, tile_m: int = PATCH) -> bool:
+    """Whether the epilogue tile has shared memory of its own (and a block
+    walks many tiles, the producer filling the ring during the epilogue):
+    where that leaves the ring at least 4 stages."""
+    fit = (SMEM_MAX - 2048 - conv_out_bytes(tile_n, tile_m)) // conv_stage_bytes(tile_n, tile_m)
+    return fit >= 4
+
+
 def conv_stages(tile_n: int, tile_m: int = PATCH) -> int:
-    """Ring stages of the conv kernel: as many as 192 KB hold."""
-    return RING_BYTES // conv_stage_bytes(tile_n, tile_m)
+    """Ring stages of the conv kernel: beside its own epilogue tile, as many
+    as fit (at most 8); else as many as 192 KB hold, the epilogue tile
+    staged in the ring."""
+    stage = conv_stage_bytes(tile_n, tile_m)
+    if conv_own_staging(tile_n, tile_m):
+        return min(8, (SMEM_MAX - 2048 - conv_out_bytes(tile_n, tile_m)) // stage)
+    return RING_BYTES // stage
 
 
 def conv_smem(tile_n: int, tile_m: int = PATCH) -> int:
-    """Dynamic shared memory of the conv kernel: the ring (the bf16
-    epilogue tile is staged in it afterwards), the barriers and 1024 bytes
-    to align the ring."""
+    """Dynamic shared memory of the conv kernel: the ring, the epilogue
+    tile where it has its own, the barriers and 1024 bytes to align the
+    ring."""
     n = conv_stages(tile_n, tile_m)
-    return n * conv_stage_bytes(tile_n, tile_m) + 2 * n * 8 + 1024
+    out = conv_out_bytes(tile_n, tile_m) if conv_own_staging(tile_n, tile_m) else 0
+    return n * conv_stage_bytes(tile_n, tile_m) + out + 2 * n * 8 + 1024
 
 
 def tap_width(c: int) -> int:
@@ -81,6 +101,17 @@ def widest_tile(n: int) -> int:
     return next(t for t in (256, 128, 64) if n % t == 0)
 
 
+def conv_tile_n(n: int) -> int:
+    """The conv core's N tile for an output of ``n`` channels: 192 where 192
+    divides n and 256 does not (conv1's dgrad at a decoder's up1 and up2,
+    Cs + Cx = 192 and 384), else the widest of 256 / 128 / 64 that divides
+    it.  On an H100 one 128 × 192 tile ran that dgrad 19% faster than
+    three 256 × 64 tiles at up1 (77 FLOP a byte of L2 against 52) and two
+    ran it 13% faster than three 256 × 128 tiles at up2, whose 48 KB stages
+    leave no room for a staging tile of their own (PERF.md, Findings)."""
+    return 192 if n % 192 == 0 and n % 256 else widest_tile(n)
+
+
 def tensor_map(dims, box) -> dict:
     """A bf16 tensor map: ``dims`` and ``box`` innermost first, the byte
     strides of dims 1.. of the dense tensor."""
@@ -104,30 +135,36 @@ def weight_map(C: int, F: int, tile_n: int) -> dict:
 
 
 def conv_launch(op: int, B: int, H: int, W: int, C: int, F: int, C2: int = 0,
-                tile_m: int = PATCH) -> dict:
+                tile_m: int = PATCH, split: int | None = None) -> dict:
     """One 3×3 SAME conv (B, H, W, C [+ C2]) → (B, H, W, F) on the conv
-    core: the forward (``OP_FWD`` / ``OP_FWD_POOL``) or a dgrad
-    (``OP_DGRAD_MASK``, or ``OP_DGRAD`` unmasked; C is then the output
-    gradient's width and F the input's).  With ``C2`` the input is the
-    channel concat of two maps, [in (C) | in2 (C2)], never stored: the
-    weights are (F, 9, C + C2) and the K walk (:func:`k_walk`) takes each
-    tap's slices of in, then of in2 (a UnetUp stage's conv1).  Tile:
-    ``tile_m`` pixels (128: 8 × 16; 256: 16 × 16, for the forward at
-    F = 64) × the widest of 256 / 128 / 64 channels that divides F: the
-    widest reads the fewest L2 bytes a FLOP, and at VGG16's block 5 (8 ×
-    32², 512 channels) its 128 blocks make one wave on the 132 SMs, so a
-    narrower tile or a persistent tile loop has no tail to fill there.  The
-    grid is 1-D, the F / tile_n tiles of one patch adjacent."""
-    tile_n = widest_tile(F)
+    core: the forward (``OP_FWD`` / ``OP_FWD_POOL``) or a dgrad (C is then
+    the output gradient's width and F the input's): ``OP_DGRAD_MASK``, or
+    ``OP_DGRAD_SPLIT`` unmasked, channels [0, ``split``) to one output and
+    [split, F) to another (``split`` defaults to F; the record carries
+    it).  With ``C2`` the input is the channel concat of two maps, [in (C)
+    | in2 (C2)], never stored: the weights are (F, 9, C + C2) and the K walk
+    (:func:`k_walk`) takes each tap's slices of in, then of in2 (a UnetUp
+    stage's conv1).  Tile: ``tile_m`` pixels (128: 8 × 16; 256: 16 × 16,
+    :func:`conv_tile_m`'s rule) × :func:`conv_tile_n`'s channels: the
+    widest reads the fewest L2 bytes a FLOP, and at
+    VGG16's block 5 (8 × 32², 512 channels) its 128 blocks make one wave
+    on the 132 SMs.  The grid's x is the tile count, the F / tile_n tiles of
+    one patch adjacent (the kernel launches one block an SM that walks them
+    where its epilogue tile has memory of its own,
+    :func:`conv_own_staging`)."""
+    tile_n = conv_tile_n(F)
     patch_h = tile_m // PATCH_W
     tiles_m = B * (H // patch_h) * (W // PATCH_W)
     maps = [nhwc_map(B, H, W, C, patch_h), weight_map(C + C2, F, tile_n)]
     if C2:
         maps.append(nhwc_map(B, H, W, C2, patch_h))
-    return {"op": op, "tile": (tile_m, tile_n), "grid": ((F // tile_n) * tiles_m, 1, 1),
-            "smem": conv_smem(tile_n, tile_m), "stages": conv_stages(tile_n, tile_m),
-            "nsplit": 1, "k_slices": 9 * (-(-C // SLICE_C) + -(-C2 // SLICE_C)),
-            "maps": maps}
+    ln = {"op": op, "tile": (tile_m, tile_n), "grid": ((F // tile_n) * tiles_m, 1, 1),
+          "smem": conv_smem(tile_n, tile_m), "stages": conv_stages(tile_n, tile_m),
+          "nsplit": 1, "k_slices": 9 * (-(-C // SLICE_C) + -(-C2 // SLICE_C)),
+          "maps": maps}
+    if op == OP_DGRAD_SPLIT:
+        ln["out"] = (F if split is None else split, 0, 0)
+    return ln
 
 
 def k_walk(C: int, C2: int = 0):
@@ -196,24 +233,52 @@ def wgrad_work(launches, F: int) -> int:
     return max(ln["nsplit"] * F * (ln["k"] + 1) for ln in launches)
 
 
-def unetup_tile_m(H2: int, F: int) -> int:
-    """The conv tile's pixels at a decoder stage: 256 (16 × 16) where the
-    tile is at most 128 channels wide (F = 64 or 128: a decoder's up1 and
-    up2) and 2H % 16 == 0, else 128 (8 × 16).  The wider patch reads 52
-    rather than 43 FLOP a byte of L2 at 64 channels, 85 rather than 64 at
-    128; on an H100 it ran conv1 and conv2 10-12% faster at both models'
-    up1 and 19-22% at up2 (PERF.md, Findings).  At 256 channels the
-    128 × 256 tile already reads 85."""
-    return 2 * PATCH if widest_tile(F) <= 128 and H2 % 16 == 0 else PATCH
+def conv_tile_m(H: int, F: int) -> int:
+    """The conv tile's pixels for an output of F channels, H rows high: 256
+    (16 × 16) where the N tile is at most 128 channels wide (a decoder's
+    up1 and up2, VGG16 block 2's dgrads) and H % 16 == 0, else 128 (8 ×
+    16).  The wider patch reads 52 rather than 43 FLOP a byte of L2 at 64
+    channels, 85 rather than 64 at 128; on an H100 it ran the decoder's
+    conv1 and conv2 10-12% faster at both models' up1 and 19-22% at up2
+    (PERF.md, Findings).  At 256 channels the 128 × 256 tile already reads
+    85.  The forward of the VGG16 blocks, which pools in its epilogue,
+    keeps 128."""
+    return 2 * PATCH if conv_tile_n(F) <= 128 and H % 16 == 0 else PATCH
 
 
 def unetup_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
     """A UnetUp stage's forward on the conv core: conv1 over the two maps
     [skip (Cs) | up (Cx)] into y1, conv2 over y1, both with bias + ReLU, at
-    the tile of :func:`unetup_tile_m`."""
-    tm = unetup_tile_m(H2, F)
+    the tile of :func:`conv_tile_m`."""
+    tm = conv_tile_m(H2, F)
     return [conv_launch(OP_FWD, B, H2, W2, Cs, F, Cx, tm),
             conv_launch(OP_FWD, B, H2, W2, F, F, 0, tm)]
+
+
+def unetup_bwd_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
+    """#13's two dgrads, each at the tile of :func:`conv_tile_m` for its
+    output: conv2's over g2 (F → F), masked by y1 > 0 into dz1
+    (``OP_DGRAD_MASK``); conv1's over dz1 (F → Cs + Cx), split at Cs into
+    dskip and dups (``OP_DGRAD_SPLIT``)."""
+    return [conv_launch(OP_DGRAD_MASK, B, H2, W2, F, F, 0, conv_tile_m(H2, F)),
+            conv_launch(OP_DGRAD_SPLIT, B, H2, W2, F, Cs + Cx, 0, conv_tile_m(H2, Cs + Cx),
+                        split=Cs)]
+
+
+def block_bwd_launches(B: int, H: int, W: int, chans, want_dx: bool):
+    """A VGG16 block's backward (two or three convs): per conv i, its weight
+    gradient at 2i and its dgrad at 2i + 1 — masked by the ReLU of its input
+    for i > 0, for conv 0 the plain store to dx (``OP_DGRAD_SPLIT`` with
+    every channel to dx), None without dx — the dgrads at the tile of
+    :func:`conv_tile_m`."""
+    launches = []
+    for i in range(len(chans) - 1):
+        cin, cout = chans[i], chans[i + 1]
+        op = OP_DGRAD_MASK if i > 0 else OP_DGRAD_SPLIT
+        dgrad = conv_launch(op, B, H, W, cout, cin, 0, conv_tile_m(H, cin)) \
+            if i > 0 or want_dx else None
+        launches += [wgrad_launch(B, H, W, cin, cout), dgrad]
+    return launches
 
 
 def unetup_wgrad_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):

@@ -2,20 +2,23 @@
 
     python -m tpu_unet_torch.tools.bench_sm90
 
-- the three-conv VGG16 blocks (#23 forward, #24 backward) at unet_vgg's
-  training shapes (512² input, batch 8: blocks 3, 4 and 5): one JSON line
+- the VGG16 blocks 2-5 in training (#22 / #24 backward on the Hopper
+  kernels; #23 forward at blocks 3-5, block 2's forward on the ``mma.sync``
+  core) at unet_vgg's training shapes (512² input, batch 8): one JSON line
   per block with the forward's and the backward's ms per launch in each of
   5 rounds of 20 launches (CUDA events, after 3 warm-up launches), their
   medians and those medians' shares of the bf16 bound, and the backward's
   device time by kernel (``torch.profiler``, ms per launch);
-- the UnetUp decoder stages (#1 forward, ``unetup_wgrad``) at the eight
-  stages of unet_vgg and unet_resnet50 (512², batch 8): one JSON line per
-  stage with #1's and ``unetup_wgrad``'s ms per launch in the same rounds,
-  their medians, the cuDNN yardsticks of ``chip_smoke.py`` (the stage's
-  forward chain, and ``convolution_backward``'s weight and bias outputs of
-  both convs), each median's share of its bound, and the device time by
-  kernel: conv1, conv2 and the upsample pass of #1, the three GEMMs and
-  their reduce passes of ``unetup_wgrad``.
+- the UnetUp decoder stages (#1 forward, #13 ``unetup_bwd``,
+  ``unetup_wgrad``) at the eight stages of unet_vgg and unet_resnet50
+  (512², batch 8): one JSON line per stage with each kernel's ms per
+  launch in the same rounds, their medians, the cuDNN yardsticks of
+  ``chip_smoke.py`` (the stage's forward chain; ``convolution_backward``'s
+  data outputs of both convs; its weight and bias outputs), each median's
+  share of its bound, and the device time by kernel in launch order:
+  conv1, conv2 and the upsample pass of #1; the mask pass and the two
+  dgrads of #13; the three GEMMs and their reduce passes of
+  ``unetup_wgrad``.
 
 Every line carries the card's name and power limit.
 """
@@ -33,8 +36,8 @@ from tpu_unet_torch.kernels import decoder_fuse, decoder_train, encoder, encoder
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
-BLOCKS = ((128, [128, 256, 256, 256], True), (64, [256, 512, 512, 512], True),
-          (32, [512, 512, 512, 512], False))
+BLOCKS = ((256, [64, 128, 128], True), (128, [128, 256, 256, 256], True),
+          (64, [256, 512, 512, 512], True), (32, [512, 512, 512, 512], False))
 # the decoder stages at 512², batch 8: (model, x H, Cs, Cx, F)
 STAGES = (("vgg", 256, 64, 128, 64), ("vgg", 128, 128, 256, 128), ("vgg", 64, 256, 512, 256),
           ("vgg", 32, 512, 512, 512), ("rn50", 128, 64, 128, 64), ("rn50", 64, 256, 256, 128),
@@ -133,6 +136,18 @@ def _stage(smi, gen, model, h, cs, cx, f, B=8):
     g2 = torch.randn((B, h2, h2, f), generator=gen, device=dev).to(bf)
     wg_fn = lambda: decoder_train._unetup_wgrad_cuda(skip, x, dz1, y1, g2)  # noqa: E731
     cb = torch.ops.aten.convolution_backward
+    out_ = act(B, h2, h2, f)
+    bwd_fn = lambda: decoder_train._unetup_bwd_cuda(g2, out_, y1, w1, w2, cs)  # noqa: E731
+    cc_like = torch.empty((B, cs + cx, h2, h2), dtype=bf, device=dev,
+                          memory_format=torch.channels_last)
+
+    def bwd_lib():
+        g = torch.where(out_ > 0, g2, 0)
+        d = cb(g.permute(0, 3, 1, 2), y1.permute(0, 3, 1, 2), w2, None, [1, 1], [1, 1], [1, 1],
+               False, [0, 0], 1, [True, False, False])[0]
+        d = torch.where(y1.permute(0, 3, 1, 2) > 0, d, 0)
+        return cb(d, cc_like, w1, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                  [True, False, False])[0]
 
     def wg_lib():
         up = decoder_train.upsample2x(x)
@@ -146,15 +161,23 @@ def _stage(smi, gen, model, h, cs, cx, f, B=8):
     px = B * h2 * h2
     c1, c2 = 2.0 * px * 9 * (cs + cx) * f / PEAK_BF16 * 1e3, 2.0 * px * 9 * f * f / PEAK_BF16 * 1e3
     up_bound = 2.0 * (B * h * h * cx + px * cx) / PEAK_BYTES * 1e3
+    # #13's bytes: g, out, y1 read; g2, dz1, dskip, dups written
+    bwd_bound = max(c1 + c2, 2.0 * px * (5 * f + cs + cx) / PEAK_BYTES * 1e3)
     fwd, lib = _rounds(fwd_fn), _rounds(fwd_lib)
+    bwd, blib = _rounds(bwd_fn), _rounds(bwd_lib)
     wg, wlib = _rounds(wg_fn), _rounds(wg_lib)
     fwd_ms, lib_ms = statistics.median(fwd), statistics.median(lib)
+    bwd_ms, blib_ms = statistics.median(bwd), statistics.median(blib)
     wg_ms, wlib_ms = statistics.median(wg), statistics.median(wlib)
     line = {"stage": f"{model} {B}x{h2}x{h2} Cs={cs} Cx={cx} F={f}",
             "unetup_ms_rounds": fwd, "unetup_ms": fwd_ms, "unetup_cudnn_ms": lib_ms,
             "unetup_bound_ms": c1 + c2, "unetup_share_of_bound": (c1 + c2) / fwd_ms,
             "unetup_ms_by_kernel": _kernel_sequence(fwd_fn),
             "conv1_bound_ms": c1, "conv2_bound_ms": c2, "upsample2x_bound_ms": up_bound,
+            "unetup_bwd_ms_rounds": bwd, "unetup_bwd_ms": bwd_ms,
+            "unetup_bwd_cudnn_ms": blib_ms, "unetup_bwd_bound_ms": bwd_bound,
+            "unetup_bwd_share_of_bound": bwd_bound / bwd_ms,
+            "unetup_bwd_ms_by_kernel": _kernel_sequence(bwd_fn),
             "unetup_wgrad_ms_rounds": wg, "unetup_wgrad_ms": wg_ms,
             "unetup_wgrad_cudnn_ms": wlib_ms, "unetup_wgrad_bound_ms": c1 + c2,
             "unetup_wgrad_share_of_bound": (c1 + c2) / wg_ms,
@@ -177,11 +200,12 @@ def main() -> int:
         ws = [(torch.randn((f, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5).to(bf)
               for c, f in zip(chans[:-1], chans[1:])]
         bs = [(0.1 * torch.randn(f, generator=gen, device=dev)).to(bf) for f in chans[1:]]
-        skip, pooled, mids = encoder._vgg_block_cuda(x, ws, bs, pool, "vgg_block3_fwd")
+        key = encoder_train.block_key(len(ws), "fwd")
+        skip, pooled, mids = encoder._vgg_block_cuda(x, ws, bs, pool, key)
         dskip = torch.randn(skip.shape, generator=gen, device=dev).to(bf)
         dpool = None if pooled is None else \
             torch.randn(pooled.shape, generator=gen, device=dev).to(bf)
-        fwd = _rounds(lambda: encoder._vgg_block_cuda(x, ws, bs, pool, "vgg_block3_fwd"))
+        fwd = _rounds(lambda: encoder._vgg_block_cuda(x, ws, bs, pool, key))
 
         def bwd_fn():
             return encoder_train.vgg_block_bwd(dskip, dpool, x, mids, skip, ws)
