@@ -14,7 +14,9 @@ Phases (any failure exits non-zero without the final result line):
    head at batch 2; the stem also at one 512x512 image of the normalize
    kernel's bf16 output, as the single-image forward gives it), the
    TraditionalUnet tails at 256x256 and 200x200,
-   batch 32, the normalize kernel at one image and at 32, the argmax-mask
+   batch 32, the normalize kernel at one image and at 32 (with the host
+   time per call and the profiler's device time of the kernel and of the
+   library's two ops beside the events time), the argmax-mask
    kernel at its three generic serving shapes (ties and NaNs included) and
    the palette kernel at 8 frames of 256x256 (also against the host
    render), the decoder stage's forward (#1: the upsample kernel, bit-exact
@@ -205,20 +207,21 @@ def cudnn_chain(x, ws, bs, pool):
 
 
 def record_case(results, card, kernel, case, outs, refs, fn, plain_fn, lib_fn, flops, nb,
-                peak=PEAK_BF16):
+                peak=PEAK_BF16, extra=None, reps=REPS):
     """Time one case of ``kernel`` against its plain version (and the
-    library yardstick), print its JSON line and add it to ``results``;
-    returns the largest error relative to the reference's scale."""
+    library yardstick) over ``reps`` calls each, print its JSON line (with
+    ``extra``'s keys) and add it to ``results``; returns the largest error
+    relative to the reference's scale."""
     errs = [rel_err(o, r) for o, r in zip(outs, refs)]
     err = max(e[0] for e in errs)
     rel = max(e[1] for e in errs)
-    ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-    lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+    ms, plain_ms = time_ms(fn, reps), time_ms(plain_fn, reps)
+    lib_ms = time_ms(lib_fn, reps) if lib_fn is not None else None
     b_ms, b_by = bound(flops, nb, peak)
     line = {"kernel": kernel, "case": case, "max_abs_err": err,
             "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "share_of_bound": b_ms / ms, "gpu": card}
+            "share_of_bound": b_ms / ms, **(extra or {}), "gpu": card}
     print(json.dumps(line), flush=True)
     r = results.setdefault(kernel, {"max_abs_err": 0.0, "rel_err": 0.0,
                                     "ms": 0.0, "plain_ms": 0.0,
@@ -274,6 +277,7 @@ def phase_kernels(card: str):
     from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
     from tpu_unet_torch.kernels.upconv import upconv, upconv_plain
     from tpu_unet_torch.nn.resize import upsample2x
+    from tpu_unet_torch.tools.bench_launch import device_ms, host_ms
     from tpu_unet_torch.tools.predict import render
 
     dev = torch.device("cuda")
@@ -329,10 +333,12 @@ def phase_kernels(card: str):
         x = act(B, h, h, chans[0])
         wb = [conv_w(f, c) for c, f in zip(chans[:-1], chans[1:])]
         ws, bs = [w for w, _ in wb], [b for _, b in wb]
-        out = vgg_block(x, ws, bs, pool)
+        out, again = vgg_block(x, ws, bs, pool), vgg_block(x, ws, bs, pool)
         ref = vgg_block_plain(x, ws, bs, pool)
         outs = [o for o in out if o is not None]
         refs = [r for r in ref if r is not None]
+        check(all(torch.equal(a, b) for a, b in zip(outs, again)),
+              f"vgg_block {chans}: two launches differ")
         flops = sum(conv_flops(B, h, h, c, f) for c, f in zip(chans[:-1], chans[1:]))
         rel = record("vgg_block", f"{B}x{h}x{h} {chans} pool={pool}", outs, refs,
                      lambda: vgg_block(x, ws, bs, pool),
@@ -465,16 +471,22 @@ def phase_kernels(card: str):
     tail("final_argmax", DATAB_BATCH, 200, 200, 32, c4, False)
 
     # normalize: the single image at each model's size, and a DataB batch;
-    # bit-exact against the plain version
+    # bit-exact against the plain version.  Back-to-back calls of so small
+    # a kernel time the host's cost per call (over 200 calls: 10 read the
+    # host's noise), so each case also reads the host time per call and the
+    # profiler's device time, of the kernel and of the library's two ops
     for n, h in ((1, DATAB_SIZE), (DATAB_BATCH, DATAB_SIZE), (1, S)):
         img = torch.randint(0, 256, (n, h, h, 3), generator=gen, device=dev, dtype=torch.uint8)
         for dt in (torch.float32, torch.bfloat16):
             out, ref = normalize_images(img, dt), normalize_images_plain(img, dt)
             case = f"{n}x{h}x{h}x3 u8->{str(dt).split('.')[-1]}"
             check(bool(torch.equal(out, ref)), f"normalize_images {case}: not bit-exact")
-            record("normalize_images", case, [out], [ref],
-                   lambda: normalize_images(img, dt), lambda: normalize_images_plain(img, dt),
-                   lambda: img.to(dt).mul_(1 / 255), 0.0, nbytes(img, out))
+            kern, lib = (lambda: normalize_images(img, dt)), (lambda: img.to(dt).mul_(1 / 255))
+            record("normalize_images", case, [out], [ref], kern,
+                   lambda: normalize_images_plain(img, dt), lib, 0.0, nbytes(img, out),
+                   extra={"host_ms": host_ms(kern), "device_ms": device_ms(kern),
+                          "library_host_ms": host_ms(lib), "library_device_ms": device_ms(lib)},
+                   reps=200)
 
     # argmax mask at the generic step's shapes: self_net (f32 after the
     # resize), the ladder models (bf16 logits), lightweight (f32 after the
@@ -2528,7 +2540,8 @@ def cli_train(card: str):
 
 SOURCES = {
     "vgg_stem": ("tpu_unet_torch/csrc/stem.cu", "tpu_unet/kernels/stem.py:220"),
-    "vgg_block": ("tpu_unet_torch/csrc/encoder.cu", "tpu_unet/kernels/encoder.py:288"),
+    # blocks 2-5 on the Hopper core (wgmma, TMA), from csrc/encoder.cu
+    "vgg_block": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh", "tpu_unet/kernels/encoder.py:288"),
     "unetup": ("tpu_unet_torch/csrc/decoder_fuse.cu",
                "tpu_unet/kernels/decoder_fuse.py:1149"),
     # #1's up2x(x), written once for the Hopper conv core's TMA boxes (the
@@ -2557,10 +2570,10 @@ SOURCES = {
     "upsample_adjoint": ("tpu_unet_torch/csrc/upsample_adjoint.cu",
                          "tpu_unet/kernels/decoder_train.py:1208"),
     # the training encoder: block forwards keeping their intermediates (the
-    # block kernel of encoder.cu under its training keys) and the backwards
-    "vgg_block2_fwd": ("tpu_unet_torch/csrc/encoder.cu",
+    # block kernel of encoder.cu under its training keys, on the Hopper
+    # core) and the backwards
+    "vgg_block2_fwd": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh",
                        "tpu_unet/kernels/encoder_train.py:139"),
-    # blocks 3-5 on the Hopper core (wgmma, TMA), from csrc/encoder.cu
     "vgg_block3_fwd": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh",
                        "tpu_unet/kernels/encoder3_train.py:279"),
     "vgg_stem_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",

@@ -1,12 +1,11 @@
 """The host plan of the Hopper conv core and weight-gradient GEMM
 (``tpu_unet_torch/kernels/sm90.py``), on the CPU: what the kernels are
 told at every blocks 2-5 shape of unet_vgg and self_net (512², batch 8;
-block 2's backward only, its forward stays on the mma.sync core) and at
-the test sizes — shared memory within the card's 227 KB, TMA boxes
-within the 128-byte swizzle span, 16-byte strides, tiles that cover every
-output pixel and channel once, splits that cover every pixel patch once
-in order — and the block kernels' shape rule, which the new core leaves as
-it was."""
+forward and backward, two convs or three) and at the test sizes — shared
+memory within the card's 227 KB, TMA boxes within the 128-byte swizzle
+span, 16-byte strides, tiles that cover every output pixel and channel
+once, splits that cover every pixel patch once in order — and the block
+kernels' shape rule, which the new core leaves as it was."""
 import itertools
 
 import pytest
@@ -26,15 +25,18 @@ FULL = [(8, 256, 256, [64, 128, 128]), (8, 128, 128, [128, 256, 256, 256]),
 SMALL = [(2, 16, 32, [128, 256, 256, 256]), (2, 16, 32, [256, 512, 512, 512]),
          (2, 16, 32, [512, 512, 512, 512]), (1, 8, 16, [64, 64, 64, 64]),
          (2, 24, 32, [96, 128, 192, 64]), (2, 8, 16, [32, 64, 128, 128]),
-         (2, 16, 32, [64, 128, 128]), (1, 8, 16, [64, 128, 128])]
+         (2, 16, 32, [64, 128, 128]), (1, 8, 16, [64, 128, 128]), (2, 24, 32, [64, 128, 128]),
+         (2, 8, 16, [32, 64, 64])]
 
 
 def _convs(B, H, W, chans, train=True):
     """Every launch of a block: (what, launch, C, F) with C the input's
-    width and F the output's of that product; with ``train`` the backward's
-    as ``sm90.block_bwd_launches`` plans them (conv 0's dgrad to dx)."""
-    out = [("fwd", sm90.conv_launch(sm90.OP_FWD, B, H, W, cin, cout), cin, cout)
-           for cin, cout in zip(chans[:-1], chans[1:])]
+    width and F the output's of that product; the forward's (pooling) as
+    ``sm90.block_fwd_launches`` plans them, and with ``train`` the
+    backward's as ``sm90.block_bwd_launches`` does (conv 0's dgrad to
+    dx)."""
+    fwd = sm90.block_fwd_launches(B, H, W, chans, True)
+    out = [("fwd", ln, cin, cout) for ln, cin, cout in zip(fwd, chans[:-1], chans[1:])]
     if train:
         bwd = sm90.block_bwd_launches(B, H, W, chans, True)
         for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
@@ -94,15 +96,17 @@ def test_plan_fits_the_card(B, H, W, chans):
 def test_conv_tiles_cover_output_once(B, H, W, chans):
     """The forward's and the dgrad's tiles cover every (pixel patch, output
     channel block) exactly once (decoded block by block at the test sizes,
-    counted at 512²), the forward at 128 pixels, the dgrads at the plan's
-    rule (256 where the N tile is at most 128 wide and H % 16 == 0); the
+    counted at 512²), both at the plan's rule (256 pixels where the N tile
+    is at most 128 wide and H % 16 == 0: block 2's convs at 512²); the
     maps are the input's NHWC and the packed weights' (F, 9, C); the K
     slices cover every tap and channel."""
     for what, ln, c, f in _convs(B, H, W, chans, _train_case(B, H, W, chans)):
         if what == "wgrad":
             continue
         tm, tn = ln["tile"]
-        assert tm == (sm90.conv_tile_m(H, f) if what == "dgrad" else sm90.PATCH)
+        assert tm == sm90.conv_tile_m(H, f)
+        if (H, chans) == (256, [64, 128, 128]):
+            assert tm == 2 * sm90.PATCH
         ph = tm // 16
         assert f % tn == 0 and H % ph == 0
         n_tiles = B * (H // ph) * (W // 16) * (f // tn)
@@ -152,26 +156,39 @@ def test_full_size_splits():
                 assert waves >= 4 or waves / -(-waves // 1) >= 0.85, (chans, waves)
 
 
-def test_records_match_plans():
-    """The int64 records (``csrc/sm90.cuh::Launch``) carry each launch's
-    numbers: forward records pool on the last conv only; the backward's
-    (three convs and block 2's two) conv 0 dgrad record is the unmasked
-    epilogue with every channel to dx, empty without dx, the dgrads at the
-    tile rule's pixels."""
-    B, H, W, chans = 2, 16, 32, (128, 256, 256, 256)
+@pytest.mark.parametrize("B,H,W,chans", [(2, 16, 32, (128, 256, 256, 256)),
+                                         (8, 256, 256, (64, 128, 128)),
+                                         (2, 24, 32, (64, 128, 128))])
+def test_forward_records_match_plans(B, H, W, chans):
+    """A block's forward records (``csrc/sm90.cuh::Launch``), two convs or
+    three: ``OP_FWD`` and the pool on the last conv only, each conv's tile,
+    grid, split count and pixels, its input and weight maps and no second
+    input map, within the card's shared memory."""
+    n = len(chans) - 1
     rec = block_plan(B, H, W, chans, True)
-    assert tuple(rec.shape) == (3, sm90.PLAN_WORDS)
-    assert rec[:, 0].tolist() == [sm90.OP_FWD, sm90.OP_FWD, sm90.OP_FWD_POOL]
-    for i in range(3):
-        ln = sm90.conv_launch(sm90.OP_FWD, B, H, W, chans[i], chans[i + 1])
-        assert rec[i, 1:6].tolist() == [ln["tile"][1], *ln["grid"], 1]
+    assert tuple(rec.shape) == (n, sm90.PLAN_WORDS)
+    assert rec[:, 0].tolist() == [sm90.OP_FWD] * (n - 1) + [sm90.OP_FWD_POOL]
+    for i, ln in enumerate(sm90.block_fwd_launches(B, H, W, chans, True)):
+        tm, tn = ln["tile"]
+        assert ln["op"] == rec[i, 0] and ln["smem"] <= SMEM_LIMIT
+        assert tn == sm90.conv_tile_n(chans[i + 1]) and tm == sm90.conv_tile_m(H, chans[i + 1])
+        assert tm == (2 * sm90.PATCH if chans[0] == 64 and H % 16 == 0 else sm90.PATCH)
+        assert rec[i, 1:7].tolist() == [tn, *ln["grid"], 1, tm]
+        assert ln["grid"] == (B * (H // (tm // 16)) * (W // 16) * (chans[i + 1] // tn), 1, 1)
         m0 = rec[i, sm90.HEAD_WORDS:sm90.HEAD_WORDS + sm90.MAP_WORDS].tolist()
-        assert m0 == [4, *ln["maps"][0]["dims"], *ln["maps"][0]["strides"], *ln["maps"][0]["box"]]
+        assert m0 == [4, chans[i], W, H, B, *ln["maps"][0]["strides"], 64, 16, tm // 16, 1]
         m1 = rec[i, sm90.HEAD_WORDS + sm90.MAP_WORDS:sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS].tolist()
-        assert m1 == [3, *ln["maps"][1]["dims"], 0, *ln["maps"][1]["strides"], 0,
-                      *ln["maps"][1]["box"], 0]
+        assert m1 == [3, chans[i], 9, chans[i + 1], 0, *ln["maps"][1]["strides"], 0,
+                      64, 1, tn, 0]
         assert rec[i, sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:].abs().sum() == 0  # one input map
-    assert block_plan(B, H, W, chans, False)[:, 0].tolist() == [sm90.OP_FWD] * 3
+    assert block_plan(B, H, W, chans, False)[:, 0].tolist() == [sm90.OP_FWD] * n
+
+
+def test_records_match_plans():
+    """The backward's records (three convs and block 2's two): conv 0's
+    dgrad record is the unmasked epilogue with every channel to dx, empty
+    without dx, the dgrads at the tile rule's pixels."""
+    B, H, W, chans = 2, 16, 32, (128, 256, 256, 256)
     for bwd_chans in (chans, (64, 128, 128)):  # block 3's widths, block 2's
         n = len(bwd_chans) - 1
         for want_dx in (True, False):
@@ -193,20 +210,24 @@ def _old_shape_ok(H, W, chans):
                 or any(c % 64 for c in chans[1:]))
 
 
-GRID = list(itertools.product((8, 12, 16, 24, 32), (8, 16, 24, 32, 48),
-                              itertools.product((32, 48, 64, 96, 128), (64, 96, 128),
-                                                (64, 128), (64, 192, 512))))
+HW = list(itertools.product((8, 12, 16, 24, 32), (8, 16, 24, 32, 48)))
+WIDTHS = {3: list(itertools.product((32, 48, 64, 96, 128), (64, 96, 128), (64, 128),
+                                    (64, 192, 512))),
+          2: list(itertools.product((32, 48, 64, 96, 128), (64, 96, 128, 192),
+                                    (64, 128, 192, 256)))}
 
 
+@pytest.mark.parametrize("n_convs", [2, 3])
 @pytest.mark.parametrize("train", [False, True])
-def test_shape_rule_unchanged_and_tileable(train):
-    """The three-conv block's shape rule accepts exactly what it accepted
-    before the Hopper core (forward: H % 8, W % 16, input widths % 32,
-    output widths % 64; training: the input % 64 as well), over a grid of
-    H, W and widths; every shape it accepts gets plans that tile it (output
-    widths whole multiples of the tile, TMA strides multiples of 16)."""
+def test_shape_rule_unchanged_and_tileable(train, n_convs):
+    """The block's shape rule, two convs or three, accepts exactly what it
+    accepted before the Hopper core (forward: H % 8, W % 16, input widths %
+    32, output widths % 64; training: the input % 64 as well), over a grid
+    of H, W and widths; every shape it accepts gets plans that tile it
+    (output widths whole multiples of the tile, TMA strides multiples of
+    16) within the card's shared memory."""
     rule = vgg_block_train_ok if train else vgg_block_shape_ok
-    for H, W, chans in GRID:
+    for (H, W), chans in itertools.product(HW, WIDTHS[n_convs]):
         chans = list(chans)
         old = _old_shape_ok(H, W, chans) and (not train or chans[0] % 64 == 0)
         assert rule(H, W, chans) == old, (H, W, chans)
@@ -217,5 +238,6 @@ def test_shape_rule_unchanged_and_tileable(train):
             if what == "wgrad":
                 assert c % 64 == 0 and ln["grid"][0] == -(-9 * c // tn)
             else:
-                assert f % tn == 0
+                assert f % tn == 0 and H % (ln["tile"][0] // 16) == 0
+            assert ln["smem"] <= SMEM_LIMIT
             assert all(s % 16 == 0 for m in ln["maps"] for s in m["strides"])

@@ -84,11 +84,16 @@ def test_stem_kernel_bf16_input(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("chans,pool,bhw", [
+    # every conv runs on the Hopper core (csrc/conv3x3_sm90.cuh): block 2's
+    # widths at H % 16 == 0 and != 0 and at one tile, two convs from input
+    # width 32; blocks 3-5's widths, the smallest tile, H != W, input width
+    # 32 (the forward's rule takes % 32) and F = 64 (the core's narrow
+    # instantiation)
     ([64, 128, 128], True, (2, 16, 32)),
+    ([64, 128, 128], True, (2, 24, 32)),
+    ([64, 128, 128], False, (1, 8, 16)),
+    ([32, 64, 64], True, (2, 8, 48)),
     ([128, 256, 256, 256], False, (2, 16, 32)),
-    # three convs run on the Hopper core (csrc/conv3x3_sm90.cuh): blocks 3-5's
-    # widths, the smallest tile, H != W, input width 32 (the forward's rule
-    # takes % 32) and F = 64 (the core's narrow instantiation)
     ([128, 256, 256, 256], True, (2, 16, 32)),
     ([256, 512, 512, 512], True, (2, 16, 32)),
     ([512, 512, 512, 512], False, (2, 16, 32)),
@@ -288,6 +293,44 @@ def test_normalize_kernel_bit_exact(cuda, shape, dtype):
     # a view that is not 16-byte aligned takes the one-at-a-time path
     flat = img.reshape(-1)[1:]
     assert torch.equal(normalize_images(flat, dtype), normalize_images_plain(flat, dtype))
+
+
+@pytest.mark.gpu
+def test_normalize_kernel_runs_on_current_stream(cuda):
+    """Launched inside ``torch.cuda.stream(s)`` the kernel runs on s: it
+    reads the images that s copies in after a long sleep (on another stream
+    it would read them before the copy)."""
+    from tpu_unet_torch.kernels.preprocess import normalize_images, normalize_images_plain
+
+    img = torch.zeros((1, 256, 256, 3), device="cuda", dtype=torch.uint8)
+    new = torch.randint(1, 256, img.shape, generator=cuda, device="cuda", dtype=torch.uint8)
+    s = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        img.copy_(new)
+        out = normalize_images(img, torch.bfloat16)
+    s.synchronize()
+    assert torch.equal(out, normalize_images_plain(new, torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_normalize_kernel_refuses_on_card(cuda):
+    """On the card too every refused input raises and launches nothing."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.preprocess import normalize_images
+
+    n = launch_counts["normalize_images"]
+    img = torch.zeros((1, 8, 8, 6), device="cuda", dtype=torch.uint8)
+    with pytest.raises(ValueError, match="contiguous"):
+        normalize_images(img[..., ::2], torch.bfloat16)
+    with pytest.raises(ValueError, match="normalize_images kernel"):
+        normalize_images(img.float(), torch.bfloat16)
+    with pytest.raises(ValueError, match="normalize_images kernel"):
+        normalize_images(img, torch.float16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        normalize_images(img.float().requires_grad_(), torch.float32)
+    assert launch_counts["normalize_images"] == n
 
 
 @pytest.mark.gpu
@@ -632,6 +675,35 @@ def test_encoder_train_kernels(cuda, chans, pool, bhw):
             assert a.shape == b.shape and a.dtype == torch.float32
             assert _rel(a, b) <= tol
             assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bhw", [(2, 16, 32), (2, 24, 32)])
+def test_block2_train_forward_keeps_mid(cuda, bhw):
+    """Block 2's training forward (#21) on the Hopper core: one launch
+    under ``vgg_block2_fwd`` (none under serving's ``vgg_block``), the mid
+    ReLU output kept, mid / skip / pooled within CONV_REL_TOL of the plain
+    chain, bit-identical on a second launch."""
+    from tpu_unet_torch.kernels import _plain, launch_counts
+    from tpu_unet_torch.kernels.encoder_train import _vgg_block_cuda, block_key
+
+    key = block_key(2, "fwd")
+    assert key == "vgg_block2_fwd"
+    x = _act(cuda, *bhw, 64)
+    ws, bs = zip(*[_conv(cuda, 128, 64), _conv(cuda, 128, 128)])
+    before = dict(launch_counts)
+    skip, pooled, mids = _vgg_block_cuda(x, list(ws), list(bs), True, key)
+    assert launch_counts[key] == before[key] + 1
+    assert launch_counts["vgg_block"] == before["vgg_block"]
+    assert len(mids) == 1 and mids[0].shape == (*bhw, 128)
+    mid = _plain.conv3x3_relu(x, ws[0], bs[0])
+    ref = _plain.conv3x3_relu(mid, ws[1], bs[1])
+    assert _rel(mids[0], mid) <= CONV_REL_TOL
+    assert _rel(skip, ref) <= CONV_REL_TOL
+    assert _rel(pooled, _plain.max_pool2x2(ref)) <= CONV_REL_TOL
+    again = _vgg_block_cuda(x, list(ws), list(bs), True, key)
+    assert all(torch.equal(a, b) for a, b in zip((skip, pooled, *mids),
+                                                  (again[0], again[1], *again[2])))
 
 
 def _block_bwd_float64(dskip, dpool, x, mids, out, ws):

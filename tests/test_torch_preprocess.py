@@ -65,3 +65,22 @@ def test_kernel_refuses_other_dtypes(images, dtype):
     device, and never falls back."""
     with pytest.raises(ValueError, match="normalize_images kernel"):
         _normalize_images_cuda(images, dtype)
+
+
+@pytest.mark.parametrize("images,dtype,exc,match", [
+    # a float input that autograd records: refused as having no backward
+    (torch.zeros(1, 8, 8, 3, requires_grad=True), torch.float32, RuntimeError, "no backward"),
+    (torch.zeros(1, 8, 8, 3, dtype=torch.uint8), torch.float32, ValueError, "CUDA tensor"),
+    (torch.zeros(1, 8, 8, 6, dtype=torch.uint8)[..., ::2], torch.bfloat16, ValueError,
+     "CUDA tensor"),
+    (torch.zeros(1, 8, 8, 3, dtype=torch.uint8, device="meta"), torch.bfloat16, ValueError,
+     "CUDA tensor"),
+])
+def test_kernel_refusals_after_the_one_test(images, dtype, exc, match):
+    """The wrapper takes an input after one combined test; every input that
+    fails it still raises what the separate checks raised, and launches
+    nothing."""
+    n = launch_counts["normalize_images"]
+    with pytest.raises(exc, match=match):
+        _normalize_images_cuda(images, dtype)
+    assert launch_counts["normalize_images"] == n

@@ -10,7 +10,7 @@
 // stored: each K slice comes from one map or the other.
 //
 // Tile: M = PH x 16 output pixels (an 8- or 16-row patch: 128 or 256
-// pixels; 256 only at TN <= 128 and not with the pool), N = TN output
+// pixels; 256 only at TN <= 128), N = TN output
 // channels (256, 192, 128 or 64: 192 where 192 divides F and 256 does not,
 // else the widest of 256 / 128 / 64 that divides F, as kernels/sm90.py::
 // conv_tile_n plans it; instantiations of one kernel).  A K slice is one
@@ -346,14 +346,12 @@ cudaError_t launch_conv_op(const Launch& L, const bf16* in, const bf16* in2, con
     if (L.tile_n() == 128) return launch_conv_tn<128, OP, 8>(L, in, in2, wt, a, stream);
     if (L.tile_n() == 64) return launch_conv_tn<64, OP, 8>(L, in, in2, wt, a, stream);
   }
-  // the 256-pixel tile: the forward and the dgrads of 64- and 128-wide
-  // output tiles (a decoder's up1 and up2, VGG16 block 2)
-  if constexpr (OP != OP_FWD_POOL) {
-    if (L.tile_m() == 2 * PATCH && L.tile_n() == 128)
-      return launch_conv_tn<128, OP, 16>(L, in, in2, wt, a, stream);
-    if (L.tile_m() == 2 * PATCH && L.tile_n() == 64)
-      return launch_conv_tn<64, OP, 16>(L, in, in2, wt, a, stream);
-  }
+  // the 256-pixel tile: the forwards (pooling or not) and the dgrads of
+  // 64- and 128-wide output tiles (a decoder's up1 and up2, VGG16 block 2)
+  if (L.tile_m() == 2 * PATCH && L.tile_n() == 128)
+    return launch_conv_tn<128, OP, 16>(L, in, in2, wt, a, stream);
+  if (L.tile_m() == 2 * PATCH && L.tile_n() == 64)
+    return launch_conv_tn<64, OP, 16>(L, in, in2, wt, a, stream);
   return cudaErrorInvalidConfiguration;
 }
 

@@ -3,9 +3,10 @@
 ``csrc/*.cu`` are compiled with ``nvcc`` for ``sm_90a`` — one ``nvcc`` per
 source, all started together — and linked into one shared library with a
 plain C interface under ``build/`` at the repository root, on first use
-(never at import).  The library is loaded with ``ctypes``.  Every C entry
-launches on the stream it is given and returns ``cudaGetLastError()``;
-:func:`call` raises when that is not 0.
+(never at import).  The library is loaded with ``ctypes`` and each C
+entry is resolved once, when it loads.  Every C entry launches on the
+stream it is given and returns ``cudaGetLastError()``; :func:`call` raises
+when that is not 0.
 
 The build is keyed by a hash of the sources, so an edited kernel is rebuilt
 and a stale library is never loaded.
@@ -101,6 +102,8 @@ launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
 
 _lock = threading.Lock()
 _lib = None
+# C entry name -> its ctypes function (argtypes set), filled once by lib()
+_entries: dict = {}
 build_log = ""  # nvcc/ptxas output of the last build (registers, spills)
 
 
@@ -172,8 +175,12 @@ def build() -> Path:
 
 
 def lib():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call).  Every entry of
+    SIGNATURES is resolved into ``_entries`` before the library is
+    published, so once it is loaded no lock is taken."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
@@ -181,14 +188,24 @@ def lib():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _entries[name] = fn
             _lib = handle
     return _lib
 
 
 def call(name: str, *args) -> None:
-    """Call C entry ``name`` on the current stream; raise on a launch error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), name)(*args, stream)
+    """Call C entry ``name`` on the current stream; raise on a launch error.
+
+    The cost a call adds to the launch is the fewest Python operations: the
+    entry resolved at load (no lock, no lookup by name on the library) and
+    the raw handle of the stream that is current on the current device,
+    read at every call (never a stream cached across calls) without
+    building a ``torch.cuda.Stream``."""
+    fn = _entries.get(name)
+    if fn is None:
+        lib()
+        fn = _entries[name]
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")

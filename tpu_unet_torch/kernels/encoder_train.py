@@ -4,11 +4,13 @@ as one ``torch.autograd.Function`` whose forward keeps the ReLU outputs
 between its convs and whose backward is one kernel.
 
 - Forward: the serving kernels, keeping their intermediates — the stem
-  (``csrc/stem.cu``, #2, as JAX's ``_stem_train_fwd`` runs #2 with a1 kept),
-  block 2 (``csrc/encoder.cu``, counted as ``vgg_block2_fwd``: the port of
-  ``fused_vgg_block2_fwd_impl``, encoder_train.py:139, #21, a5 kept) and
-  blocks 3-5 (counted as ``vgg_block3_fwd``: ``fused_vgg_block3_fwd_impl``,
-  encoder3_train.py:279, #23, a1 and a2 kept).
+  (``csrc/stem.cu``, #2, as JAX's ``_stem_train_fwd`` runs #2 with a1 kept)
+  and the block kernel ``csrc/encoder.cu`` on the Hopper conv core
+  (``csrc/conv3x3_sm90.cuh``) for block 2 (counted as ``vgg_block2_fwd``:
+  the port of ``fused_vgg_block2_fwd_impl``, encoder_train.py:139, #21, a5
+  kept) and blocks 3-5 (counted as ``vgg_block3_fwd``:
+  ``fused_vgg_block3_fwd_impl``, encoder3_train.py:279, #23, a1 and a2
+  kept).
 - Backward: :func:`vgg_stem_bwd` (#20, ``fused_vgg_stem_bwd_impl``,
   stem_train.py:245) and :func:`vgg_block_bwd` (#22 for two convs,
   ``fused_vgg_block2_bwd_impl`` at encoder_train.py:329; #24 for three,

@@ -236,13 +236,13 @@ def wgrad_work(launches, F: int) -> int:
 def conv_tile_m(H: int, F: int) -> int:
     """The conv tile's pixels for an output of F channels, H rows high: 256
     (16 × 16) where the N tile is at most 128 channels wide (a decoder's
-    up1 and up2, VGG16 block 2's dgrads) and H % 16 == 0, else 128 (8 ×
-    16).  The wider patch reads 52 rather than 43 FLOP a byte of L2 at 64
-    channels, 85 rather than 64 at 128; on an H100 it ran the decoder's
-    conv1 and conv2 10-12% faster at both models' up1 and 19-22% at up2
-    (PERF.md, Findings).  At 256 channels the 128 × 256 tile already reads
-    85.  The forward of the VGG16 blocks, which pools in its epilogue,
-    keeps 128."""
+    up1 and up2, VGG16 block 2's convs and dgrads) and H % 16 == 0, else
+    128 (8 × 16).  The wider patch reads 52 rather than 43 FLOP a byte of
+    L2 at 64 channels, 85 rather than 64 at 128; on an H100 it ran the
+    decoder's conv1 and conv2 10-12% faster at both models' up1 and 19-22%
+    at up2, and block 2's conv 1 (9 K slices) 14% faster than the
+    persistent 128-pixel tile (PERF.md, Findings).  At 256 channels the
+    128 × 256 tile already reads 85."""
     return 2 * PATCH if conv_tile_n(F) <= 128 and H % 16 == 0 else PATCH
 
 
@@ -263,6 +263,15 @@ def unetup_bwd_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
     return [conv_launch(OP_DGRAD_MASK, B, H2, W2, F, F, 0, conv_tile_m(H2, F)),
             conv_launch(OP_DGRAD_SPLIT, B, H2, W2, F, Cs + Cx, 0, conv_tile_m(H2, Cs + Cx),
                         split=Cs)]
+
+
+def block_fwd_launches(B: int, H: int, W: int, chans, pool: bool):
+    """A VGG16 block's forward (two or three convs), each conv bias + ReLU:
+    ``OP_FWD``, the last conv ``OP_FWD_POOL`` when ``pool``, each at the
+    tile of :func:`conv_tile_m` for its output (256 pixels at block 2)."""
+    n = len(chans) - 1
+    return [conv_launch(OP_FWD_POOL if pool and i == n - 1 else OP_FWD, B, H, W, chans[i],
+                        chans[i + 1], 0, conv_tile_m(H, chans[i + 1])) for i in range(n)]
 
 
 def block_bwd_launches(B: int, H: int, W: int, chans, want_dx: bool):

@@ -2,13 +2,18 @@
 
     python -m tpu_unet_torch.tools.bench_sm90
 
-- the VGG16 blocks 2-5 in training (#22 / #24 backward on the Hopper
-  kernels; #23 forward at blocks 3-5, block 2's forward on the ``mma.sync``
-  core) at unet_vgg's training shapes (512² input, batch 8): one JSON line
-  per block with the forward's and the backward's ms per launch in each of
-  5 rounds of 20 launches (CUDA events, after 3 warm-up launches), their
-  medians and those medians' shares of the bf16 bound, and the backward's
-  device time by kernel (``torch.profiler``, ms per launch);
+- the VGG16 blocks 2-5 in training (#21 / #23 forward, #22 / #24
+  backward, all on the Hopper kernels) at unet_vgg's training shapes (512²
+  input, batch 8): one JSON line per block with the forward's and the
+  backward's ms per launch in each of 5 rounds of 20 launches (CUDA
+  events, after 3 warm-up launches), their medians and those medians'
+  shares of the bf16 bound, and the device time by kernel (``torch.profiler``,
+  ms per launch) of both;
+- block 2's forward (8 × 256², 64 → 128 → 128 + pool) with its convs at
+  the conv core's two pixel tiles, 128 (persistent, 5 stages) and 256 (4
+  stages of 48 KB, a block a tile): conv 1 / conv 2 at 128 / 128, 256 /
+  128 and 256 / 256, in turns (each plan, then the same in reverse): one
+  JSON line with each turn's ms per forward and its convs by kernel;
 - the UnetUp decoder stages (#1 forward, #13 ``unetup_bwd``,
   ``unetup_wgrad``) at the eight stages of unet_vgg and unet_resnet50
   (512², batch 8): one JSON line per stage with each kernel's ms per
@@ -32,7 +37,7 @@ import torch
 
 import torch.nn.functional as F
 
-from tpu_unet_torch.kernels import decoder_fuse, decoder_train, encoder, encoder_train
+from tpu_unet_torch.kernels import decoder_fuse, decoder_train, encoder, encoder_train, sm90
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -186,12 +191,44 @@ def _stage(smi, gen, model, h, cs, cx, f, B=8):
     print(json.dumps(line), flush=True)
 
 
+def _block2_tiles(smi, gen, B=8, h=256):
+    """Block 2's forward with its two convs at 128 or 256 pixels, in turns:
+    each turn's ms per forward, by kernel, and whether its outputs equal
+    the first turn's."""
+    dev, bf, chans = "cuda", torch.bfloat16, (64, 128, 128)
+    x = torch.relu(torch.randn((B, h, h, 64), generator=gen, device=dev)).to(bf)
+    ws = [(torch.randn((f, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5).to(bf)
+          for c, f in zip(chans[:-1], chans[1:])]
+    bs = [(0.1 * torch.randn(f, generator=gen, device=dev)).to(bf) for f in chans[1:]]
+    tiles = ((128, 128), (256, 128), (256, 256))
+    plans = {t: sm90.encode([sm90.conv_launch(sm90.OP_FWD, B, h, h, 64, 128, tile_m=t[0]),
+                             sm90.conv_launch(sm90.OP_FWD_POOL, B, h, h, 128, 128, tile_m=t[1])])
+             for t in tiles}
+    rule = encoder.block_plan
+    turns, ref = [], None
+    try:
+        for t in tiles + tiles[::-1]:
+            encoder.block_plan = lambda *_a, t=t: plans[t]  # noqa: E731
+            fn = lambda: encoder._vgg_block_cuda(x, ws, bs, True)  # noqa: E731
+            out = fn()
+            ref = out if ref is None else ref
+            same = all(torch.equal(a, b) for a, b in zip(out[:2], ref[:2]))
+            turns.append({"tile_m": t, "ms_rounds": _rounds(fn),
+                          "ms_by_kernel": _kernel_sequence(fn), "equal_to_first": same})
+    finally:
+        encoder.block_plan = rule
+    c1 = 2.0 * B * h * h * 9 * 64 * 128 / PEAK_BF16 * 1e3
+    print(json.dumps({"block2_tiles": f"{B}x{h}x{h} {list(chans)}", "turns": turns,
+                      "conv1_bound_ms": c1, "conv2_bound_ms": 2 * c1, "gpu": smi}), flush=True)
+
+
 def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     dev, bf, B = "cuda", torch.bfloat16, 8
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.backends.cudnn.allow_tf32 = False
+    _block2_tiles(smi, gen)
     for stage in STAGES:
         _stage(smi, gen, *stage)
         torch.cuda.empty_cache()
@@ -216,6 +253,8 @@ def main() -> int:
         print(json.dumps({"block": f"{B}x{h}x{h} {chans}", "fwd_ms_rounds": fwd,
                           "bwd_ms_rounds": bwd, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
                           "fwd_share_of_bound": bound / fwd_ms,
+                          "fwd_ms_by_kernel": _kernel_sequence(
+                              lambda: encoder._vgg_block_cuda(x, ws, bs, pool, key)),
                           "bwd_share_of_bound": 2 * bound / bwd_ms,
                           "bwd_ms_by_kernel": _by_kernel(bwd_fn), "gpu": smi}), flush=True)
     return 0
