@@ -26,12 +26,14 @@ Phases (any failure exits non-zero without the final result line):
    whole decoder-stage backward (#13's dgrads, the weight gradients on the
    Hopper GEMM, the upsample's adjoint; a planted dropped split read
    against the weight-gradient bounds) at the same eight stages, the
-   up_conv head's backward (#12) at both heads'
+   up_conv head's forward (#10: the upsample kernel, then conv1 over up
+   and conv2 on the Hopper conv core) and backward (#12) at both heads'
    shapes (batch 8; a planted dropped split as well), and the training
    encoder (the block forwards keeping their intermediates, the stem's and
-   the blocks' backwards; blocks 3-5 on the Hopper conv core and
-   weight-gradient GEMM, a planted dropped split of the GEMM as well) at
-   its five stages, bit-identical on a second launch — error, kernel time,
+   the blocks' backwards; the stem's conv1_2 and blocks 2-5 on the Hopper
+   conv core and weight-gradient GEMM, a planted dropped split of the GEMM
+   as well) at its five stages, bit-identical on a second launch — error,
+   kernel time,
    plain time, library time, bound and the share of the bound;
 3. serving: ``tpu_unet_torch.infer.wrapper.Unet(model=..., num_classes=...,
    input_shape=...).serving_step()`` for ``unet_vgg``, ``unet_resnet50``
@@ -388,7 +390,8 @@ def phase_kernels(card: str):
         x = act(b, h, h, 64)
         w1, b1 = conv_w(64, 64)
         w2, b2 = conv_w(64, 64)
-        out = upconv(x, w1, b1, w2, b2)
+        out, again = upconv(x, w1, b1, w2, b2), upconv(x, w1, b1, w2, b2)
+        check(bool(torch.equal(out, again)), f"upconv {b}x{h}^2: two launches differ")
         ref = upconv_plain(x, w1, b1, w2, b2)
 
         def lib(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
@@ -403,7 +406,7 @@ def phase_kernels(card: str):
                      lambda: upconv_plain(x, w1, b1, w2, b2), lib,
                      flops, nbytes(x, w1, b1, w2, b2, out))
         check(rel <= CONV_REL_TOL, f"upconv {b}x{h}^2 rel err {rel:.3g}")
-        del x, out, ref
+        del x, out, again, ref
     # the self_net head's kernel and cuDNN's chain at the serving batch (no
     # plain version: it is timed at batch 2 above)
     x = act(B, S, S, 64)
@@ -975,10 +978,10 @@ def encoder_train_kernels(record, gen):
     against its plain version on the same intermediates — dx within
     CONV_REL_TOL, the last conv's weight and bias gradients (its input
     gradient is exact) within WGRAD_REL_TOL, the others within
-    WGRAD_CHAIN_REL_TOL, all bit-identical on a second launch, and for the
-    blocks (the Hopper kernels) a planted dropped split of the last conv's
-    weight-gradient GEMM read above both bounds — timed against
-    autograd of the cuDNN chain, each with its share of the bound."""
+    WGRAD_CHAIN_REL_TOL, all bit-identical on a second launch, and a
+    planted dropped split of the last conv's Hopper weight-gradient GEMM
+    read above both bounds — timed against autograd of the cuDNN chain,
+    each with its share of the bound."""
     from tpu_unet_torch.kernels._plain import conv3x3_relu
     from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, _vgg_stem_cuda,
                                                       block_key, bwd_plan, vgg_block_bwd,
@@ -1044,12 +1047,15 @@ def encoder_train_kernels(record, gen):
                 WGRAD_REL_TOL if name[2:] == str(n - 1) else WGRAD_CHAIN_REL_TOL
             check(e <= tol, f"{key} {case}: {name} rel err {e:.3g} > {tol}")
         print(json.dumps({key: case, "rel_err_by_output": errs}), flush=True)
-        if not stem:
-            ns = bwd_plan(B, h, h, tuple(chans), True)[1][n - 1]
-            sm90_wgrad_fault_reading(
-                key, case, ns, dskip, dpool,
-                lambda ds, dp: [r[n - 1] for r in vgg_block_bwd(ds, dp, x, mids, skip, ws)[1:]],
-                [ref[1][n - 1], ref[2][n - 1]])
+        ns = bwd_plan(B, h, h, tuple(chans), not stem)[1][n - 1]
+        if stem:
+            def faulty(ds, dp):
+                return [r[n - 1] for r in vgg_stem_bwd(ds, dp, x, mids[0], skip, ws[0], ws[1])]
+        else:
+            def faulty(ds, dp):
+                return [r[n - 1] for r in vgg_block_bwd(ds, dp, x, mids, skip, ws)[1:]]
+        sm90_wgrad_fault_reading(key, case, ns, dskip, dpool, faulty,
+                                 [ref[1][n - 1], ref[2][n - 1]])
         # the library yardstick: autograd of the cuDNN chain, graph built once
         with torch.enable_grad():
             xg = cl(x).detach().requires_grad_(not stem)
@@ -1215,13 +1221,14 @@ def expected(launches: dict) -> dict:
 
 # each counted serving step (model, batch, size) and the launches it must
 # make; every other kernel 0.  Serving normalises in plain PyTorch, as the
-# JAX step does, so normalize_images is 0 throughout.
+# JAX step does, so normalize_images is 0 throughout.  The upsample kernel
+# runs once in each UnetUp stage and once in the up_conv head.
 SERVING = {
     ("unet_vgg", BATCH, SIZE): {"final_argmax_hist": 1, "vgg_stem": 1, "vgg_block": 4,
                                 "unetup": 4, "upsample2x": 4},
-    ("unet_resnet50", BATCH, SIZE): {"final_argmax_hist": 1, "unetup": 4, "upsample2x": 4,
+    ("unet_resnet50", BATCH, SIZE): {"final_argmax_hist": 1, "unetup": 4, "upsample2x": 5,
                                      "upconv": 1},
-    ("self_net", BATCH, SIZE): {"vgg_stem": 1, "vgg_block": 4, "unetup": 4, "upsample2x": 4,
+    ("self_net", BATCH, SIZE): {"vgg_stem": 1, "vgg_block": 4, "unetup": 4, "upsample2x": 5,
                                 "upconv": 1, "argmax_mask": 1},
     ("traditional", DATAB_BATCH, DATAB_SIZE): {"final_argmax_hist": 1},
     ("traditional22", DATAB_BATCH, DATAB_SIZE): {"final_argmax_hist": 1},
@@ -1253,7 +1260,8 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     ``upsample_adjoint_kernel``, the training encoder's
     ``(pool_)relu_grad_kernel``, the Hopper core's
     ``conv_sm90_kernel<TN, OP, PH>``, ``wgrad_sm90_kernel<TN, NS>`` and
-    ``wgrad_sm90_reduce_kernel``, and ``upsample2x_kernel`` (all summed in
+    ``wgrad_sm90_reduce_kernel``, the stem's ``wgrad_image_kernel`` and
+    ``wgrad_image_reduce_kernel``, and ``upsample2x_kernel`` (all summed in
     ``port_kernels_ms``); ``index_add_ms`` sums PyTorch's ``index_add_``
     kernels."""
     from torch.autograd import DeviceType
@@ -1285,6 +1293,9 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
         elif "conv_sm90_kernel" in name or "wgrad_sm90_kernel" in name:
             kind = "conv_sm90_kernel" if "conv_sm90" in name else "wgrad_sm90_kernel"
             name = f"port {kind}<{name[name.index('<') + 1:name.index('>')]}>"
+        elif "wgrad_image" in name:
+            name = "port " + ("wgrad_image_reduce_kernel" if "reduce" in name
+                              else "wgrad_image_kernel")
         elif "wgrad_sm90_reduce_kernel" in name or "upsample2x_kernel" in name:
             name = "port " + ("upsample2x_kernel" if "upsample2x" in name
                               else "wgrad_sm90_reduce_kernel")
@@ -1897,14 +1908,16 @@ def phase_train(card: str):
 
 # unet_resnet50's default-route step: its four decoder stages (#1, #13,
 # unetup_wgrad, upsample_adjoint) and the up_conv head (#10 / #12) through
-# their kernels, the loss through #27 / #29, ResNet50 through cuDNN
-RN50_STEP = {"unetup": 4, "upsample2x": 8, "unetup_bwd": 4, "unetup_wgrad": 4,
+# their kernels, the loss through #27 / #29, ResNet50 through cuDNN; the
+# upsample kernel twice a stage and once in the head's forward
+RN50_STEP = {"unetup": 4, "upsample2x": 9, "unetup_bwd": 4, "unetup_wgrad": 4,
              "upsample_adjoint": 4,
              "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
 # self_net's: unet_vgg's training encoder and decoder kernels, the head, and
 # the plain losses on its 2x logits (no loss kernel, as JAX's loss_fn)
 SELF_NET_STEP = {**{k: v for k, v in TRAIN_STEP["paired"].items()
-                    if not k.startswith("final_")}, "upconv": 1, "upconv_bwd": 1}
+                    if not k.startswith("final_")}, "upsample2x": 9, "upconv": 1,
+                 "upconv_bwd": 1}
 
 
 def canonical_step(name: str, card: str, expect: dict, seed: int):
@@ -2156,7 +2169,7 @@ def fit_voc_resnet50(card: str):
                  model_path=str(save / "best_epoch_weights.pth"))
         fn, net = u.serving_step()
         val = rect_batch(torch.Generator().manual_seed(21), 8, size, classes, "cuda")
-        (masks, hist), served = counted({"final_argmax_hist": 1, "unetup": 4, "upsample2x": 4,
+        (masks, hist), served = counted({"final_argmax_hist": 1, "unetup": 4, "upsample2x": 5,
                                          "upconv": 1},
                                         "serving the trained voc_resnet50 .pth",
                                         lambda: fn(net, val["image"]))
@@ -2550,7 +2563,9 @@ SOURCES = {
                    "tpu_unet/kernels/decoder_fuse.py:1149"),
     "final_argmax_hist": ("tpu_unet_torch/csrc/postprocess.cu",
                           "tpu_unet/kernels/postprocess.py:244"),
-    "upconv": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:227"),
+    # the head's two convs on the Hopper core, from csrc/upconv.cu (its
+    # up2x(x) counted under upsample2x)
+    "upconv": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh", "tpu_unet/kernels/upconv.py:227"),
     "upconv_bwd": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:475"),
     "final_argmax_hist_natural": ("tpu_unet_torch/csrc/postprocess.cu",
                                   "tpu_unet/kernels/postprocess.py:154"),
@@ -2576,10 +2591,11 @@ SOURCES = {
                        "tpu_unet/kernels/encoder_train.py:139"),
     "vgg_block3_fwd": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh",
                        "tpu_unet/kernels/encoder3_train.py:279"),
-    "vgg_stem_bwd": ("tpu_unet_torch/csrc/encoder_train.cu",
+    # the stem's conv1_2 and blocks 2-5: the Hopper weight-gradient GEMM
+    # and dgrads, from csrc/encoder_train.cu (the stem's conv1_1 GEMM over
+    # the image is that file's own)
+    "vgg_stem_bwd": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
                      "tpu_unet/kernels/stem_train.py:245"),
-    # blocks 2-5: the Hopper weight-gradient GEMM and dgrads, from
-    # csrc/encoder_train.cu
     "vgg_block2_bwd": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
                        "tpu_unet/kernels/encoder_train.py:329"),
     "vgg_block3_bwd": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",

@@ -41,12 +41,15 @@ def float32_batch_norm():
         yield
 
 
-# the largest distance of the float32 step's gradients from the float64
-# evaluation with float64 batch norm, measured on this batch and these
-# weights on the CPU: 3.49e-2 (traditional, ``up3.conv.double_conv.0.weight``)
-# and 7.5e-5 (the ladder, ``enc3.conv.4.weight``); each bound is its
-# measurement with about 40% room for another CPU's float32 summation order
-TRUE_F64_TOL = {"traditional": 5e-2, "ultralight_large_optimized": 1.1e-4}
+# the largest distance of the float64 evaluation with float32 batch
+# statistics from the one in float64 throughout, over every parameter,
+# measured on this batch and these weights: 3.49e-2 (traditional,
+# ``up3.conv.double_conv.0.weight``) and 2.73e-5 (the ladder,
+# ``enc1.conv.1.weight``); each bound is its measurement with about 40%
+# room.  Both sides are float64, so no CPU's float32 summation order is in
+# it; the float32 step is held to the all-float64 evaluation by the sum of
+# this bound and its own (the triangle inequality)
+TRUE_F64_TOL = {"traditional": 5e-2, "ultralight_large_optimized": 4e-5}
 
 
 def _float64_grads(name, variables, batch, cw):
@@ -75,11 +78,12 @@ def test_step_gradients_match_float64(name):
     whose batch norms take float32 statistics (:func:`float32_batch_norm`)
     (max |error| over max |gradient| of each parameter; 5e-3 for the ladder,
     whose 2×2 bridge normalises 8 values a channel), except the conv biases
-    before a batch norm (exact gradient 0; both at noise level).  Against
-    the evaluation in float64 throughout, batch norm included, within
-    ``TRUE_F64_TOL``: the float32 batch statistics of 8-2048 values a
-    channel, whose mean cancels, move the gradients behind them by up to
-    that much.  JAX's float32 step is no arbiter here: on this CPU its
+    before a batch norm (exact gradient 0; both at noise level).  That
+    reference lies within ``TRUE_F64_TOL`` of the evaluation in float64
+    throughout, batch norm included: the float32 batch statistics of
+    8-2048 values a channel, whose mean cancels, move the gradients behind
+    them by up to that much; so the step lies within the sum of the two
+    bounds of the all-float64 evaluation.  JAX's float32 step is no arbiter here: on this CPU its
     gradients of these models lie up to 3.5% (traditional) and 12% (the
     ladder, at 64²) from the float64 ones; its fused and plain loss routes
     agree to 2e-6, so that error lies in XLA's float32 backward of the
@@ -106,7 +110,8 @@ def test_step_gradients_match_float64(name):
             assert t.abs().max() <= 1e-5, k
         else:
             assert _rel(g, r) <= tol, (k, _rel(g, r))
-            assert _rel(g, t) <= TRUE_F64_TOL[name], (k, _rel(g, t))
+            assert _rel(r, t) <= TRUE_F64_TOL[name], (k, _rel(r, t))
+            assert _rel(g, t) <= tol + TRUE_F64_TOL[name], (k, _rel(g, t))
 
 
 # --- reinit_weights ---------------------------------------------------------

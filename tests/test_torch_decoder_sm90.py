@@ -15,7 +15,10 @@ and the stage kernels' shape rules, which the new core leaves as they
 were.  Then conv1 and conv2 emulated in float64 slice by slice in the
 plan's K order against ``unetup_plain`` and, through it, JAX's
 ``reference_unetup``, and #13's two dgrads the same way against
-``unetup_bwd_plain``."""
+``unetup_bwd_plain``.  The ``up_conv`` head's forward (#10) is the stage at
+Cs = 0: its plan (``decoder_fuse.stage_plan`` at Cs = 0) at both heads' shapes
+and small ones, and its two convs emulated the same way against
+``upconv_plain`` and JAX's ``reference_upconv``."""
 import itertools
 
 import jax.numpy as jnp
@@ -25,11 +28,13 @@ import torch
 from jax import enable_x64
 
 from tpu_unet.kernels.decoder_fuse import reference_unetup
+from tpu_unet.kernels.upconv import reference_upconv
 from tpu_unet_torch.kernels import sm90
 from tpu_unet_torch.kernels.decoder_fuse import (_unetup_plain_y1, stage_plan, unetup_plain,
                                                  unetup_shape_ok)
 from tpu_unet_torch.kernels.decoder_train import (dgrad_plan, flip_t, stage_shape_ok,
                                                   unetup_bwd_plain, wgrad_plan)
+from tpu_unet_torch.kernels.upconv import _upconv_plain_y1, upconv_plain
 from tpu_unet_torch.nn.resize import upsample2x
 
 SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory (227 KB)
@@ -447,3 +452,71 @@ def test_conv1_k_order_float64(case, tile_m):
     refs = unetup_bwd_plain(g, out, y1, oihw[0], oihw[1], Cs)
     for e, r in zip((d[..., :split], d[..., split:], g2, dz1), refs):
         assert e.shape == r.shape and (e - r).abs().max() <= 1e-12 * r.abs().max()
+
+
+# the up_conv head's forward, (B, 2H, 2W, Cx, F): unet_resnet50's (x 256²)
+# and self_net's (x 512²) at batch 8, then small sizes (the 128-pixel tile
+# at 2H = 8 / 24; Cx = 32, 96: the zero fill past the map's width)
+HEADS = [(8, 512, 512, 64, 64), (8, 1024, 1024, 64, 64), (2, 16, 32, 64, 64),
+         (1, 24, 32, 96, 128), (2, 8, 16, 32, 64)]
+
+
+@pytest.mark.parametrize("case", HEADS)
+def test_head_plan(case):
+    """The head's two convs are a stage's at Cs = 0: conv1 over the one map
+    up (Cx → F; no second map, the K walk ceil(Cx / 64) slices of it per
+    tap), conv2 over y1, both OP_FWD at the tile rule's pixels and N tile
+    (256 × 64, persistent, at both heads), within the card's shared memory;
+    their tiles cover every output pixel and channel once; the cached
+    records carry them."""
+    B, H2, W2, Cx, F = case
+    lns = sm90.unetup_launches(B, H2, W2, 0, Cx, F)
+    rec = stage_plan(B, H2, W2, 0, Cx, F)
+    assert tuple(rec.shape) == (2, sm90.PLAN_WORDS)
+    for i, (ln, c) in enumerate(zip(lns, (Cx, F))):
+        tm, tn = ln["tile"]
+        assert ln["op"] == sm90.OP_FWD and len(ln["maps"]) == 2
+        assert (tm, tn) == (sm90.conv_tile_m(H2, F), sm90.conv_tile_n(F))
+        if (B, Cx, F) == (8, 64, 64):
+            assert (tm, tn) == (256, 64) and sm90.conv_own_staging(tn, tm)
+        assert ln["maps"][0]["dims"] == (c, W2, H2, B) and ln["maps"][1]["dims"] == (c, 9, F)
+        assert ln["k_slices"] == 9 * -(-c // 64)
+        assert ln["smem"] <= SMEM_LIMIT
+        for m in ln["maps"]:
+            _check_map(m)
+        n_tiles = B * (H2 // (tm // 16)) * (W2 // 16) * (F // tn)
+        assert ln["grid"] == (n_tiles, 1, 1)
+        if B * H2 * W2 <= 4096:
+            tiles = list(_conv_tiles(ln, B, H2, W2, F))
+            assert len(set(tiles)) == len(tiles) == n_tiles
+        assert rec[i, :7].tolist() == [sm90.OP_FWD, tn, *ln["grid"], 1, tm]
+        assert rec[i, sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:].abs().sum() == 0  # one input map
+    assert sm90.k_walk(Cx) == [(t, 0, c0, c0) for t in range(9) for c0 in range(0, Cx, 64)]
+
+
+@pytest.mark.parametrize("case", [(1, 24, 32, 96, 64), (2, 16, 32, 64, 128)])
+def test_head_k_order_float64(case):
+    """The head's conv1 over upsample2x(x) (Cx = 96 exercising the zero
+    fill) and conv2 over its y1, emulated in float64 in the plan's K order
+    at its tiles: within 1e-12 of ``upconv_plain`` (and its y1), which is
+    within 1e-12 of JAX's ``reference_upconv`` (upconv.py:36) in float64."""
+    B, H2, W2, Cx, F = case
+    rng = np.random.default_rng(sum(case))
+    x = rng.standard_normal((B, H2 // 2, W2 // 2, Cx))
+    k1 = rng.standard_normal((3, 3, Cx, F)) / np.sqrt(9 * Cx)
+    b1 = 0.1 * rng.standard_normal(F)
+    k2 = rng.standard_normal((3, 3, F, F)) / np.sqrt(9 * F)
+    b2 = 0.1 * rng.standard_normal(F)
+    t = [torch.from_numpy(a) for a in (x, k1, b1, k2, b2)]
+    oihw = [t[1].permute(3, 2, 0, 1), t[3].permute(3, 2, 0, 1)]
+    out, y1 = _upconv_plain_y1(t[0], oihw[0], t[2], oihw[1], t[4])
+    conv1, conv2 = sm90.unetup_launches(B, H2, W2, 0, Cx, F)
+    ey1 = _emulate_conv({0: upsample2x(t[0])}, _pack(oihw[0]), conv1, Cx, 0, bias=t[2])
+    eout = _emulate_conv({0: ey1}, _pack(oihw[1]), conv2, F, 0, bias=t[4])
+    assert (ey1 - y1).abs().max() <= 1e-12 * y1.abs().max()
+    assert (eout - out).abs().max() <= 1e-12 * out.abs().max()
+    with enable_x64(True):
+        ref = np.asarray(reference_upconv(*[jnp.asarray(a) for a in (x, k1, b1, k2, b2)]))
+    assert ref.dtype == np.float64
+    plain = upconv_plain(t[0], oihw[0], t[2], oihw[1], t[4]).numpy()
+    assert np.abs(plain - ref).max() <= 1e-12 * np.abs(ref).max()

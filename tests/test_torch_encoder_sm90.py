@@ -4,11 +4,15 @@ told at every blocks 2-5 shape of unet_vgg and self_net (512², batch 8;
 forward and backward, two convs or three) and at the test sizes — shared
 memory within the card's 227 KB, TMA boxes within the 128-byte swizzle
 span, 16-byte strides, tiles that cover every output pixel and channel
-once, splits that cover every pixel patch once in order — and the block
-kernels' shape rule, which the new core leaves as it was."""
+once, splits that cover every pixel patch once in order — the stem's
+backward (#20: conv1_2's weight gradient and masked dgrad) the same way,
+and the block kernels' shape rule, which the new core leaves as it
+was."""
 import itertools
 
+import numpy as np
 import pytest
+import torch
 
 from tpu_unet_torch.kernels import sm90
 from tpu_unet_torch.kernels.encoder import block_plan, vgg_block_shape_ok
@@ -203,6 +207,94 @@ def test_records_match_plans():
             assert rec[1, 7] == (bwd_chans[0] if want_dx else 0)
             assert rec[1::2, 6].tolist() == [sm90.conv_tile_m(H, c) if want_dx or i else 0
                                              for i, c in enumerate(bwd_chans[:-1])]
+
+
+@pytest.mark.parametrize("B,H,W", [(8, 512, 512), (2, 24, 32)])
+def test_stem_bwd_plan(B, H, W):
+    """The stem's backward laid out as a block's (conv i's records at 2i
+    and 2i + 1): conv1_1's weight gradient over the image
+    (``OP_WGRAD_IMAGE``: 64 f × 64 columns, the G box its one map, two
+    blocks an SM at 512², splits covering every pixel patch once in order, at
+    least 8 patches each) and no dgrad; conv1_2's weight gradient over a1
+    (``OP_WGRAD``, 64 f × 128 columns: 5 column tiles of K = 576) and its
+    dgrad masked by a1 > 0 (``OP_DGRAD_MASK``, 64 wide at the tile rule's
+    pixels: 256 and persistent at 512²), maps of g and a1, within the
+    card's shared memory."""
+    rec, ns = bwd_plan(B, H, W, (3, 64, 64), False)
+    lns = sm90.stem_bwd_launches(B, H, W, 64)
+    assert tuple(rec.shape) == (4, sm90.PLAN_WORDS) and lns[1] is None
+    assert rec[1].abs().sum() == 0
+    assert rec[0::2, 0].tolist() == [sm90.OP_WGRAD_IMAGE, sm90.OP_WGRAD]
+    assert rec[3, 0] == sm90.OP_DGRAD_MASK
+    wi, wg, dg = lns[0], lns[2], lns[3]
+    npatch = B * (H // 8) * (W // 16)
+    assert rec[0, 1:10].tolist() == [64, 1, 1, ns[0], ns[0], 64, 3, 0, 1]
+    assert ns[0] == min(2 * sm90.SMS, npatch // 8) and wi["npatch"] == npatch
+    assert wi["maps"][0]["dims"] == (64, W, H, B) and wi["maps"][0]["box"] == (64, 16, 8, 1)
+    assert rec[0, sm90.HEAD_WORDS + sm90.MAP_WORDS:].abs().sum() == 0  # one map: G's
+    assert wg["tile"] == (64, 128) and wg["k"] == 576 and wg["npatch"] == npatch
+    assert rec[2, 1:10].tolist() == [128, 5, 1, ns[1], ns[1], 64, 64, 0, 1]
+    for n in ns:
+        ranges = sm90.split_ranges(npatch, n)
+        assert ranges[0][0] == 0 and ranges[-1][1] == npatch
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all(hi - lo >= min(8, npatch) for lo, hi in ranges)
+    assert wg["maps"][0]["dims"] == wg["maps"][1]["dims"] == (64, W, H, B)
+    tm = sm90.conv_tile_m(H, 64)
+    assert dg["tile"] == (tm, 64) and dg["k_slices"] == 9
+    assert rec[3, 1:7].tolist() == [64, B * (H // (tm // 16)) * (W // 16), 1, 1, 1, tm]
+    assert dg["maps"][0]["dims"] == (64, W, H, B) and dg["maps"][1]["dims"] == (64, 9, 64)
+    assert rec[3, sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:].abs().sum() == 0  # one input map
+    for ln in (wi, wg, dg):
+        assert ln["smem"] <= SMEM_LIMIT
+        assert all(s % 16 == 0 for m in ln["maps"] for s in m["strides"])
+    assert 2 * wi["smem"] <= SMEM_LIMIT and wi["stages"] >= 3  # two blocks an SM
+    if H == 512:
+        assert ns[0] == 2 * sm90.SMS and tm == 256 and sm90.conv_own_staging(64, tm)
+        waves = wg["grid"][0] * ns[1] / sm90.SMS
+        assert waves >= 4 or waves / -(-waves // 1) >= 0.85
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 16, 32), (1, 24, 16)])
+def test_image_wgrad_float64(B, H, W):
+    """The image GEMM's arithmetic in float64 on the CPU, as
+    ``wgrad_image_kernel`` and its reduce pass do it: per split, over its
+    8 × 16 patches in order, G^T times the 128 × 64 im2col box (column k =
+    tap · 3 + c of each pixel's 3 × 3 neighbourhood, zero outside the image
+    and past 27), then the splits added in order and column k sent to dk[f,
+    k % 3, tap = k // 3], the bias from G's sums: within 1e-12 of the plain
+    version's weight and bias gradients (``conv_wgrad``'s
+    ``convolution_backward``, here in float64)."""
+    rng = np.random.default_rng(B * H * W)
+    img = torch.from_numpy(rng.random((B, H, W, 3)))
+    g = torch.from_numpy(rng.standard_normal((B, H, W, 64)))
+    ln = sm90.wgrad_image_launch(B, H, W, 64)
+    pad = torch.nn.functional.pad(img, (0, 0, 1, 1, 1, 1))
+    cols = torch.zeros((B, H, W, 64), dtype=torch.float64)
+    for tap in range(9):
+        ky, kx = divmod(tap, 3)
+        cols[..., 3 * tap:3 * tap + 3] = pad[:, ky:ky + H, kx:kx + W]
+    tiles_w, tiles_hw = W // 16, (H // 8) * (W // 16)
+    part = torch.zeros((ln["nsplit"], 64, 64), dtype=torch.float64)
+    bpart = torch.zeros((ln["nsplit"], 64), dtype=torch.float64)
+    for s, (lo, hi) in enumerate(sm90.split_ranges(ln["npatch"], ln["nsplit"])):
+        for q in range(lo, hi):
+            b, thw = divmod(q, tiles_hw)
+            y0, x0 = (thw // tiles_w) * 8, (thw % tiles_w) * 16
+            gb = g[b, y0:y0 + 8, x0:x0 + 16].reshape(128, 64)
+            part[s] += gb.T @ cols[b, y0:y0 + 8, x0:x0 + 16].reshape(128, 64)
+            bpart[s] += gb.sum(0)
+    total = part.sum(0)
+    assert total[:, 27:].abs().max() == 0  # the padding columns
+    dk = torch.zeros((64, 3, 3, 3), dtype=torch.float64)
+    for k in range(27):
+        dk[:, k % 3, (k // 3) // 3, (k // 3) % 3] = total[:, k]
+    ref = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), img.permute(0, 3, 1, 2), dk, None, [1, 1], [1, 1], [1, 1],
+        False, [0, 0], 1, [False, True, False])[1]
+    assert ref.shape == dk.shape and (dk - ref).abs().max() <= 1e-12 * ref.abs().max()
+    db = bpart.sum(0)
+    assert (db - g.sum((0, 1, 2))).abs().max() <= 1e-12 * db.abs().max()
 
 
 def _old_shape_ok(H, W, chans):

@@ -209,17 +209,29 @@ def test_stage_single_tile_float64(cuda, cs, cx, f):
 @pytest.mark.gpu
 @pytest.mark.parametrize("h,w", [(8, 8), (4, 16)])
 def test_upconv_kernel(cuda, h, w):
-    from tpu_unet_torch.kernels import launch_counts
+    """The head's forward (#10) on the Hopper conv core: the plan's two
+    convs at the tile rule's pixels (256 where 2H % 16 == 0, else 128) × 64
+    channels, conv1 over the one map up; one ``upconv`` and one
+    ``upsample2x`` launch a call; within CONV_REL_TOL of the plain version
+    and bit-identical on a second launch."""
+    from tpu_unet_torch.kernels import launch_counts, sm90
+    from tpu_unet_torch.kernels.decoder_fuse import stage_plan
     from tpu_unet_torch.kernels.upconv import upconv, upconv_plain
 
     x = _act(cuda, 2, h, w, 64)
     w1, b1 = _conv(cuda, 64, 64)
     w2, b2 = _conv(cuda, 64, 64)
-    n = launch_counts["upconv"]
+    plan = stage_plan(2, 2 * h, 2 * w, 0, 64, 64)
+    tm = 256 if (2 * h) % 16 == 0 else 128
+    assert plan[:, 0].tolist() == [sm90.OP_FWD] * 2
+    assert plan[:, 1].tolist() == [64, 64] and plan[:, 6].tolist() == [tm, tm]
+    assert plan[:, sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:].abs().sum() == 0  # one input map
+    n = {k: launch_counts[k] for k in ("upconv", "upsample2x")}
     out = upconv(x, w1, b1, w2, b2)
-    assert launch_counts["upconv"] == n + 1
+    assert {k: launch_counts[k] - v for k, v in n.items()} == {"upconv": 1, "upsample2x": 1}
     assert out.shape == (2, 2 * h, 2 * w, 64)
     assert _rel(out, upconv_plain(x, w1, b1, w2, b2)) <= CONV_REL_TOL
+    assert torch.equal(out, upconv(x, w1, b1, w2, b2))
 
 
 @pytest.mark.gpu
@@ -609,7 +621,8 @@ def test_stage_backward_rejects_untileable_shape(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("chans,pool,bhw", [
-    ([3, 64, 64], True, (2, 16, 32)), ([64, 128, 128], True, (2, 16, 32)),
+    ([3, 64, 64], True, (2, 16, 32)), ([3, 64, 64], True, (2, 24, 32)),
+    ([64, 128, 128], True, (2, 16, 32)),
     ([128, 256, 256, 256], True, (2, 16, 32)), ([512, 512, 512, 512], False, (2, 16, 32)),
     # three convs on the Hopper kernels (csrc/conv3x3_sm90.cuh, wgrad_sm90.cuh):
     # block 4's widths, the smallest tile (8 images of one 8x16 tile, and one
@@ -628,9 +641,9 @@ def test_encoder_train_kernels(cuda, chans, pool, bhw):
     convs' inputs carry the kernel's bf16 dgrad rounding;
     SINGLE_TILE_WGRAD_REL_TOL at 128 pixels), bit-identical on a second
     launch, one launch under its key."""
-    from tpu_unet_torch.kernels import _plain, launch_counts
+    from tpu_unet_torch.kernels import _plain, launch_counts, sm90
     from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, _vgg_stem_cuda,
-                                                      block_key, vgg_block_bwd,
+                                                      block_key, bwd_plan, vgg_block_bwd,
                                                       vgg_block_bwd_plain, vgg_stem_bwd,
                                                       vgg_stem_bwd_plain)
 
@@ -658,6 +671,13 @@ def test_encoder_train_kernels(cuda, chans, pool, bhw):
     key = "vgg_stem_bwd" if stem else block_key(len(ws), "bwd")
     before = launch_counts[key]
     if stem:
+        # conv1_1's weight gradient over the image (its own GEMM), no
+        # dgrad; conv1_2's weight gradient and masked dgrad
+        rec, ns = bwd_plan(B, H, W, tuple(chans), False)
+        assert rec[:, 0].tolist() == [sm90.OP_WGRAD_IMAGE, 0, sm90.OP_WGRAD,
+                                      sm90.OP_DGRAD_MASK]
+        assert rec[1].abs().sum() == 0 and rec[0::2, 5].tolist() == list(ns)
+        assert rec[3, 6] == sm90.conv_tile_m(H, chans[1])
         res = vgg_stem_bwd(dskip, dpool, x, mids[0], skip, ws[0], ws[1])
         again = vgg_stem_bwd(dskip, dpool, x, mids[0], skip, ws[0], ws[1])
         ref = vgg_stem_bwd_plain(dskip, dpool, x, mids[0], skip, ws[0], ws[1])
@@ -951,7 +971,8 @@ def test_upconv_train_on_card(cuda):
     reset_launch_counts()
     out = upconv_train(*args)
     grads = torch.autograd.grad(out, args, g)
-    assert {k: v for k, v in launch_counts.items() if v} == {"upconv": 1, "upconv_bwd": 1}
+    assert {k: v for k, v in launch_counts.items() if v} == {"upconv": 1, "upsample2x": 1,
+                                                              "upconv_bwd": 1}
     with torch.no_grad():
         out_k, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
         own = upconv_bwd(g, out_k, y1, x, w1, w2)
@@ -983,9 +1004,10 @@ def test_upconv_bwd_rejects_untileable_shape(cuda):
 
 
 # unet_resnet50's default-route step at 256² (every decoder stage and the
-# head tile): the stage kernels 4 each (the upsample 8: in #1 and in
-# unetup_wgrad), the head's 1 each, the loss's 1 each
-RN50_LAUNCHES = {"unetup": 4, "upsample2x": 8, "unetup_bwd": 4, "unetup_wgrad": 4,
+# head tile): the stage kernels 4 each (the upsample 9: in #1 and in
+# unetup_wgrad, and in the head's forward), the head's 1 each, the loss's 1
+# each
+RN50_LAUNCHES = {"unetup": 4, "upsample2x": 9, "unetup_bwd": 4, "unetup_wgrad": 4,
                  "upsample_adjoint": 4,
                  "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
 

@@ -140,8 +140,8 @@ __device__ __forceinline__ uint4 up2x_lerp8(const bf16* x, const int* ridx, cons
   return *reinterpret_cast<const uint4*>(o);
 }
 
-// conv1 operand of a concat [skip | up2x(x)] (the up_conv head's, at
-// Cs = 0: csrc/upconv.cu): channel c < Cs from `skip` (B, H2, W2, Cs),
+// operand of a concat [skip | up2x(x)] (the up_conv head backward's dk1
+// GEMM, at Cs = 0: csrc/upconv.cu): channel c < Cs from `skip` (B, H2, W2, Cs),
 // channel c >= Cs from the x2 upsample of x, lerped as it is gathered
 // (up2x_lerp8).
 struct UpConcatLoader {

@@ -28,28 +28,42 @@
 // from conv to conv (one stream orders them).  No atomics, so the result
 // is bit-identical run to run.
 //
-// The blocks (2 convs, #22; 3, #24) run step 2 on the Hopper kernels: the
-// weight gradient on csrc/wgrad_sm90.cuh (MN-major wgmma operands straight
-// from TMA boxes of g and the input) and the dgrad on csrc/conv3x3_sm90.cuh
-// (OP_DGRAD_MASK; conv 0's OP_DGRAD_SPLIT with every channel to dx), per
-// the host plan's launch records (kernels/sm90.py::block_bwd_launches;
-// the dgrads at the 256-pixel tile where the N tile is at most 128 wide
-// and H % 16 == 0).  The stem (#20) runs on the mma.sync core
-// (csrc/conv3x3.cuh) and csrc/wgrad.cuh: conv1_2's weight gradient and
-// masked dgrad, then conv1_1's weight gradient, its 27 columns padded to
-// 64 and gathered from the image by the image loader.  The stem computes
-// no image gradient, as JAX's does not.
+// Step 2 runs on the Hopper kernels: the weight gradient on
+// csrc/wgrad_sm90.cuh (MN-major wgmma operands straight from TMA boxes of
+// g and the input) and the dgrad on csrc/conv3x3_sm90.cuh (OP_DGRAD_MASK;
+// a block's conv 0 OP_DGRAD_SPLIT with every channel to dx), per the host
+// plan's launch records (kernels/sm90.py::block_bwd_launches and, for the
+// stem, stem_bwd_launches; the dgrads at the 256-pixel tile where the N
+// tile is at most 128 wide and H % 16 == 0).
+//
+// The stem's conv1_1 weight gradient over the 3-channel image has a GEMM
+// of its own here (wgrad_image_kernel): an image pixel is 6 bytes and
+// TMA's strides are multiples of 16, so no TMA box takes the image.  The
+// GEMM is 2% of the stem's operations and bound by reading g0 once (8 x
+// 512^2 x 64 bf16: 0.080 ms at 3.35 TB/s).  A's G^T boxes come by TMA as
+// wgrad_sm90.cuh takes them; B's 27 im2col columns (k = tap * 3 + c,
+// padded to 64 with zeros) are gathered by the producer warpgroup, a
+// thread a pixel of the 8 x 16 patch, and stored in the layout of a
+// 128-byte-swizzled TMA box, so one consumer warpgroup reads both with
+// wgrad_sm90.cuh's descriptors (64 f x 64 columns).  Two blocks an SM,
+// split over the patches, each a ring of 3 stages: a producer thread waits
+// on its pixel's loads stage by stage, so the second block's producer
+// gathers while the first's waits.  On the mma.sync GEMM of
+// csrc/wgrad.cuh (the image loader, 32 pixels a stage) it took 0.617 ms
+// with its reduce pass on an H100 (700 W), 7.7 times that floor.  The
+// stem computes no image gradient, as JAX's does not.
 //
 // Bound on the H100: operations — per conv a dgrad and a weight gradient
 // of 2 * 9 * P * Cin * Cout each (the stem at 512x512, batch 8: 0.33 ms at
 // 989 TFLOP/s bf16; block 2 0.469 ms; blocks 3-5 0.24-0.78 ms).
 // Shapes: H % 8, W % 16, widths % 64 (the image's 3 channels apart).
 #include "relu_grad.cuh"
-#include "wgrad.cuh"
 #include "wgrad_sm90.cuh"
 
 namespace tu {
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 // pooled: one thread a (b, py, px, 8 channels) slot of dpool (B, H/2, W/2, C)
 __global__ void __launch_bounds__(256)
@@ -101,6 +115,199 @@ pool_relu_grad_kernel(const bf16* __restrict__ dskip, const bf16* __restrict__ d
 }
 
 }  // namespace
+
+namespace sm90 {
+namespace {
+
+constexpr int IMG_K = 27;  // the image's im2col columns: 9 taps x 3 channels
+
+// two blocks an SM, so that one's producer gathers while the other's waits
+// on its loads
+struct WgradImageSmem {
+  static constexpr int STAGE = 2 * BOX_BYTES;            // a G box and the gathered im2col box
+  static constexpr int STAGES = RING_BYTES / 2 / STAGE;  // 3
+  static constexpr int SB_OFF = STAGES * STAGE;      // bias partials, 8 floats a consumer
+  static constexpr int BAR_OFF = SB_OFF + 128 * 8 * 4;
+  static constexpr int DYN = BAR_OFF + 2 * STAGES * 8 + 1024;
+};
+
+// part (nsplit, F, 64) and bpart (nsplit, F) float32: block (0, f tile,
+// split s) sums G^T (64 f) x im2col(img) (64 columns) over its contiguous
+// range of 8 x 16 pixel patches.  Threads 0-127 consume (wgmma m64n64k16,
+// the bias sums from the G box), threads 128-255 produce: the first issues
+// the G box's TMA load, and each gathers one pixel's 27 columns.
+__global__ void __launch_bounds__(256, 2)
+wgrad_image_kernel(const __grid_constant__ CUtensorMap gmap, const bf16* __restrict__ img,
+                   WgradArgs p) {
+  using S = WgradImageSmem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* empty = full + S::STAGES;
+  const int tid = threadIdx.x;
+  const int f0 = blockIdx.y * 64, s = blockIdx.z, ns = gridDim.z;
+  const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PATCH_H) * tiles_w;
+  const long long npatch = static_cast<long long>(p.B) * tiles_hw;
+  const int q_begin = static_cast<int>(s * npatch / ns);
+  const int n_it = static_cast<int>((s + 1) * npatch / ns) - q_begin;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < S::STAGES; ++i) {
+      mbar_init(&full[i], 129);  // 128 producers' stores, and the G box's bytes
+      mbar_init(&empty[i], 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warpgroup
+    const int pt = tid - 128, py = pt >> 4, px = pt & 15;  // row pt of the patch's boxes
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % S::STAGES;
+      if (it >= S::STAGES) mbar_wait(&empty[st], ((it / S::STAGES) - 1) & 1);
+      const int q = q_begin + it, b = q / tiles_hw, thw = q - b * tiles_hw;
+      const int y0 = (thw / tiles_w) * PATCH_H, x0 = (thw % tiles_w) * PATCH_W;
+      uint8_t* base = smem + st * S::STAGE;
+      if (pt == 0) {
+        mbar_expect_tx(&full[st], BOX_BYTES);
+        tma_load_4d(base, &gmap, &full[st], f0, x0, y0, b);
+      }
+      __align__(16) bf16 v[64];
+#pragma unroll
+      for (int k = IMG_K; k < 64; ++k) v[k] = __float2bfloat16_rn(0.f);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {  // SAME padding: zeros outside the image
+        const int iy = y0 + py + tap / 3 - 1, ix = x0 + px + tap % 3 - 1;
+        if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W) {
+          const bf16* src = img + ((static_cast<size_t>(b) * p.H + iy) * p.W + ix) * 3;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) v[tap * 3 + c] = src[c];
+        } else {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) v[tap * 3 + c] = __float2bfloat16_rn(0.f);
+        }
+      }
+      // logical 16-byte chunk j of row pt at physical chunk j ^ (pt % 8),
+      // as TMA's 128-byte swizzle stores it
+      uint8_t* row = base + BOX_BYTES + pt * 128;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint4*>(row + ((j ^ (pt & 7)) << 4)) =
+            *reinterpret_cast<const uint4*>(&v[8 * j]);
+      fence_proxy_async();
+      mbar_arrive(&full[st]);
+    }
+    return;
+  }
+
+  const int lane = tid & 31;
+  const bool bias = p.bpart != nullptr;
+  float acc[32], bacc[8];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) bacc[j] = 0.f;
+  // the bias sums: thread tid reads logical 16-byte chunk tid & 7 (8 f) of
+  // pixel rows tid / 8 + 16 i, found at physical chunk (tid & 7) ^ (row & 7)
+  const int bchunk = ((tid & 7) ^ ((tid >> 3) & 7)) * 16;
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % S::STAGES;
+    mbar_wait(&full[st], (it / S::STAGES) & 1);
+    const uint8_t* base = smem + st * S::STAGE;
+    const uint64_t da = desc_sw128(base, BOX_BYTES, 1024);
+    const uint64_t db = desc_sw128(base + BOX_BYTES, BOX_BYTES, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < PATCH / 16; ++k)  // 16 pixel rows (2048 bytes) a step
+      wgmma<64, 1, 1>(acc, da + 128 * k, db + 128 * k, 1);
+    wgmma_commit();
+    if (bias) {
+      const uint8_t* g = base + (tid >> 3) * 128 + bchunk;
+#pragma unroll
+      for (int i = 0; i < PATCH / 16; ++i) {
+        const uint4 u = *reinterpret_cast<const uint4*>(g + i * 16 * 128);
+        const bf16* gv = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bacc[j] += __bfloat162float(gv[j]);
+      }
+    }
+    wgmma_wait<1>();  // the previous step's products are done: release its stage
+    if (it > 0) mbar_arrive(&empty[(it - 1) % S::STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  float* out = p.part + static_cast<size_t>(s) * p.F * 64;
+  const int f = f0 + (tid >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = 8 * i + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(out + static_cast<size_t>(f) * 64 + k) =
+        make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(out + static_cast<size_t>(f + 8) * 64 + k) =
+        make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  if (bias) {  // the 16 threads of each chunk, added in thread order
+    float* sb = reinterpret_cast<float*>(smem + S::SB_OFF);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sb[tid * 8 + j] = bacc[j];
+    bar_sync(1, 128);
+    if (tid < 64) {
+      const int chunk = tid >> 3, j = tid & 7;
+      float sum = 0.f;
+      for (int rr = 0; rr < 16; ++rr) sum += sb[(rr * 8 + chunk) * 8 + j];
+      p.bpart[static_cast<size_t>(s) * p.F + f0 + tid] = sum;
+    }
+  }
+}
+
+// dk (F, 3, 3, 3) from part (nsplit, F, 64): column k = tap * 3 + c to
+// dk[f, c, tap], the splits added in order; db (F) likewise from bpart.
+// A block an f, a thread a column (thread 27 the bias).
+__global__ void __launch_bounds__(32)
+wgrad_image_reduce_kernel(const float* __restrict__ part, const float* __restrict__ bpart,
+                          float* __restrict__ dk, float* __restrict__ db, int F, int nsplit) {
+  const int f = blockIdx.x, k = threadIdx.x;
+  float sum = 0.f;
+  if (k < IMG_K) {
+    for (int i = 0; i < nsplit; ++i) sum += part[(static_cast<size_t>(i) * F + f) * 64 + k];
+    dk[(f * 3 + k % 3) * 9 + k / 3] = sum;
+  } else if (k == IMG_K) {
+    for (int i = 0; i < nsplit; ++i) sum += bpart[static_cast<size_t>(i) * F + f];
+    db[f] = sum;
+  }
+}
+
+// Both passes per the record (OP_WGRAD_IMAGE; gout (B, H, W, F) under map
+// 0): the partials into work (nsplit * F * 65 floats), then dk (F, 3, 3, 3)
+// and db (F).
+inline cudaError_t launch_wgrad_image(const int64_t* record, const bf16* gout, const bf16* img,
+                                      float* work, float* dk, float* db, int B, int H, int W,
+                                      int F, cudaStream_t stream) {
+  using S = WgradImageSmem;
+  const Launch L{record};
+  const dim3 grid = L.grid();
+  if (L.op() != OP_WGRAD_IMAGE || L.map(0)[1] != F || L.tile_m() != 64 || L.tile_n() != 64 ||
+      grid.x != 1 || static_cast<int>(grid.y) * 64 != F ||
+      static_cast<int>(grid.z) != L.nsplit())
+    return cudaErrorInvalidValue;
+  CUtensorMap mg;
+  cudaError_t e = make_map(&mg, gout, L.map(0));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(wgrad_image_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           S::DYN);
+  if (e != cudaSuccess) return e;
+  float* bpart = work + static_cast<size_t>(L.nsplit()) * F * 64;
+  const WgradArgs a{work, bpart, dk, db, B, H, W, 3, F, 3, 0};
+  wgrad_image_kernel<<<grid, 256, S::DYN, stream>>>(mg, img, a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  wgrad_image_reduce_kernel<<<F, 32, 0, stream>>>(work, bpart, dk, db, F, L.nsplit());
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace sm90
 }  // namespace tu
 
 using tu::bf16;
@@ -109,16 +316,18 @@ using tu::bf16;
 // mids[i] (i < n - 1) the ReLU outputs between the convs, out the last one;
 // wts[i] the dgrad weights flipT(w_i) packed (Cin_i, 9 * Cout_i), wts[0]
 // unused without dx; dpool null without the pool; ga, gb (B, H, W, C_n)
-// scratch; work holds max_i ns[i] * C_i+1 * (wgrad_k(C_i) + 1) floats;
-// plan: for a block, 2n launch records (conv i's weight gradient at 2i,
-// its dgrad at 2i + 1), null for the stem; ns: the stem's split counts.
+// scratch; work holds the largest of the convs' weight-gradient work
+// areas (nsplit * C_i+1 * (9 * tap_width(C_i) + 1) floats; the stem's
+// conv1_1 nsplit * C_1 * 65); plan: 2n launch records (conv i's weight
+// gradient at 2i, its dgrad at 2i + 1; none for the stem's conv1_1
+// dgrad).
 extern "C" int tu_vgg_block_bwd(const bf16* x, int is_image, const bf16* mid0, const bf16* mid1,
                                 const bf16* out, const bf16* dskip, const bf16* dpool,
                                 const bf16* wt0, const bf16* wt1, const bf16* wt2, bf16* ga,
                                 bf16* gb, bf16* dx, float* work, float* dk0, float* dk1,
                                 float* dk2, float* db0, float* db1, float* db2, int n, int B,
-                                int H, int W, int c0, int c1, int c2, int c3, int ns0, int ns1,
-                                int ns2, const int64_t* plan, cudaStream_t stream) {
+                                int H, int W, int c0, int c1, int c2, int c3,
+                                const int64_t* plan, cudaStream_t stream) {
   namespace sm90 = tu::sm90;
   const bf16* mids[2] = {mid0, mid1};
   const bf16* wts[3] = {wt0, wt1, wt2};
@@ -126,6 +335,7 @@ extern "C" int tu_vgg_block_bwd(const bf16* x, int is_image, const bf16* mid0, c
   float* dbs[3] = {db0, db1, db2};
   const int chans[4] = {c0, c1, c2, c3};
   const int C = chans[n];
+  if (plan == nullptr || (is_image && (n != 2 || dx != nullptr))) return cudaErrorInvalidValue;
   cudaError_t e;
   if (dpool != nullptr) {
     const size_t m = static_cast<size_t>(B) * (H / 2) * (W / 2) * (C / 8);
@@ -138,24 +348,15 @@ extern "C" int tu_vgg_block_bwd(const bf16* x, int is_image, const bf16* mid0, c
   if (e != cudaSuccess) return e;
   bf16* g = ga;
   bf16* g_next = gb;
-  if (is_image) {  // the stem (#20): conv1_2, then conv1_1's weight gradient over the image
-    if (n != 2 || plan != nullptr || dx != nullptr) return cudaErrorInvalidValue;
-    e = tu::launch_wgrad(tu::NhwcLoader{mid0, H, W, c1}, g, work, dk1, db1, B, H, W, c1, c2, ns1,
-                         stream);
-    if (e != cudaSuccess) return e;
-    e = tu::launch_conv3x3_grad<tu::NhwcLoader, tu::EPI_MASK>(
-        tu::NhwcLoader{g, H, W, c2}, wt1, mid0, g_next, nullptr, B, H, W, 9 * c2, c1, c1, stream);
-    if (e != cudaSuccess) return e;
-    return tu::launch_wgrad(tu::ImageLoader<false>{x, H, W}, g_next, work, dk0, db0, B, H, W, 3,
-                            c1, ns0, stream);
-  }
-  if (plan == nullptr) return cudaErrorInvalidValue;
   for (int i = n - 1; i >= 0; --i) {
     const int cin = chans[i], cout = chans[i + 1];
     const int64_t* wrec = plan + (2 * i) * sm90::PLAN_WORDS;
     const int64_t* drec = plan + (2 * i + 1) * sm90::PLAN_WORDS;
-    e = sm90::launch_wgrad_sm90(wrec, g, i == 0 ? x : mids[i - 1], work, dks[i], dbs[i], B, H, W,
-                                cin, cout, stream);
+    if (is_image && i == 0)  // the stem's conv1_1 over the image
+      e = sm90::launch_wgrad_image(wrec, g, x, work, dk0, db0, B, H, W, cout, stream);
+    else
+      e = sm90::launch_wgrad_sm90(wrec, g, i == 0 ? x : mids[i - 1], work, dks[i], dbs[i], B, H,
+                                  W, cin, cout, stream);
     if (e != cudaSuccess) return e;
     if (i > 0) {
       if (drec[0] != sm90::OP_DGRAD_MASK) return cudaErrorInvalidValue;

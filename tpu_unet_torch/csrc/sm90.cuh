@@ -62,6 +62,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// shared-memory stores of this thread made visible to the async proxy
+// (wgmma's operand reads), before the barrier arrive that publishes them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- device: TMA tile loads (out-of-bounds elements arrive as zeros) ------
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -271,7 +277,8 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
 // strides of dims 1-3, box[4]; rank 0 for a map the launch does not use
 // (the conv's second input map).  The ring's stages and shared memory
 // follow from the tile at compile time.
-enum { OP_FWD = 0, OP_FWD_POOL = 1, OP_DGRAD_MASK = 2, OP_DGRAD_SPLIT = 3, OP_WGRAD = 4 };
+enum { OP_FWD = 0, OP_FWD_POOL = 1, OP_DGRAD_MASK = 2, OP_DGRAD_SPLIT = 3, OP_WGRAD = 4,
+       OP_WGRAD_IMAGE = 5 };
 constexpr int HEAD_WORDS = 10, MAP_WORDS = 12, PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS;
 
 struct Launch {

@@ -1,13 +1,14 @@
-// Shared weight-gradient GEMM of the port's training kernels
-// (csrc/unetup_wgrad.cu, csrc/encoder_train.cu): for a 3x3 SAME conv with
-// NHWC input A and output gradient G over the B * H * W pixels p,
+// The mma.sync weight-gradient GEMM of the up_conv head's backward
+// (csrc/upconv.cu; the other training kernels take csrc/wgrad_sm90.cuh):
+// for a 3x3 SAME conv with NHWC input A and output gradient G over the
+// B * H * W pixels p,
 //   dk[f, c, ky, kx] = sum_p G[p, f] * A[p + (ky - 1, kx - 1), c]
 //   db[f]            = sum_p G[p, f]
 // in float32.  D (F x K) = G^T (F x P) * im2col(A) (P x K) with the pixels
 // as the reduction dimension; the im2col operand is gathered by one of the
 // forward's loaders (csrc/conv3x3.cuh), so SAME padding gives zero halos
 // and the packed K index is the forward's (ky * 3 + kx) * C + c (K = 9C,
-// padded to a multiple of 64 with zero columns for the 3-channel image).
+// padded to a multiple of 64 with zero columns).
 // Both operands are staged pixel-major in shared memory (32 pixels a
 // stage, 144-byte rows) and read into the mma.sync m16n8k16 fragments with
 // ldmatrix.trans, which transposes 8x8 tiles on the way and reads every

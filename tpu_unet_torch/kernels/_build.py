@@ -52,8 +52,9 @@ SIGNATURES = {
     # skip, up, w1, b1, w2, b2, y1, out, B, H2, W2, Cs, Cx, F,
     # plan (int64 launch records), stream
     "tu_unetup": [_P] * 8 + [_I] * 6 + [_P, _P],
-    # x, ridx, rw, cidx, cw, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F, stream
-    "tu_upconv": [_P] * 11 + [_I] * 5 + [_P],
+    # up, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F,
+    # plan (int64 launch records), stream
+    "tu_upconv": [_P] * 7 + [_I] * 5 + [_P, _P],
     # g, out, y1, x, ridx, rw, cidx, cw, aridx, arw, anr, acidx, acw, anc,
     # w2t, w1t, g2, dz1, dups, work1, work2, dk1, db1, dk2, db2, dx,
     # B, H2, W2, Cx, F, ns1, ns2, stream
@@ -77,8 +78,9 @@ SIGNATURES = {
     # plan (int64 launch records), stream
     "tu_unetup_wgrad": [_P] * 10 + [_I] * 6 + [_P, _P],
     # x, is_image, mid0, mid1, out, dskip, dpool, wt0..2, ga, gb, dx, work,
-    # dk0..2, db0..2, n, B, H, W, chans[4], ns[3], plan (blocks), stream
-    "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 11 + [_P, _P],
+    # dk0..2, db0..2, n, B, H, W, chans[4], plan (int64 launch records),
+    # stream
+    "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 8 + [_P, _P],
     # dup, ridx, rw, nr, cidx, cw, nc, dx, B, H, W, C, stream
     "tu_upsample_adjoint": [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] + [_I] * 4 + [_P],
     # logits, is_bf16, target, cls_weights, partial, sums, n_pix (int64), C,

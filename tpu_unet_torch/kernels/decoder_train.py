@@ -49,7 +49,7 @@ from tpu_unet_torch.nn.resize import (adjoint_tables, lerp_tables, upsample2x,
                                       upsample2x_adjoint_plain)
 
 # the split-K of the mma.sync weight-gradient GEMM (csrc/wgrad.cuh, the
-# up_conv head's backward and the stem): about this many blocks per
+# up_conv head's backward): about this many blocks per
 # GEMM (8 a streaming multiprocessor of the H100's 132), at least 8 pixel
 # chunks of 32 a split
 WGRAD_BLOCKS = 8 * 132

@@ -17,11 +17,12 @@ between its convs and whose backward is one kernel.
   ``fused_vgg_block3_bwd_impl`` at encoder3_train.py:349), one CUDA source
   ``csrc/encoder_train.cu``: the pool's first-max routing with the skip's
   gradient and the last ReLU mask, then per conv the float32 weight and
-  bias gradients and the masked dgrad — for the blocks on the Hopper
-  kernels ``csrc/wgrad_sm90.cuh`` and ``csrc/conv3x3_sm90.cuh``, planned by
-  :mod:`tpu_unet_torch.kernels.sm90`, for the stem on the ``mma.sync``
-  core.  The stem computes no image gradient (JAX's VJP returns zeros for
-  it; the step never needs it).
+  bias gradients and the masked dgrad on the Hopper kernels
+  ``csrc/wgrad_sm90.cuh`` and ``csrc/conv3x3_sm90.cuh`` (the stem's conv1_1
+  weight gradient over the 3-channel image on a GEMM of its own in
+  ``csrc/encoder_train.cu``), planned by :mod:`tpu_unet_torch.kernels.sm90`.
+  The stem computes no image gradient (JAX's VJP returns zeros for it;
+  the step never needs it).
 
 The TPU kernels' column-paired layouts, row tiles and P8 padding are TPU
 layout; in natural NHWC there is one function per stage.  Bounds and
@@ -36,8 +37,7 @@ import torch.nn.functional as F
 
 from tpu_unet_torch.kernels import _build, sm90
 from tpu_unet_torch.kernels._plain import conv3x3_relu, max_pool2x2, on_cpu
-from tpu_unet_torch.kernels.decoder_train import (_conv_nobias, _wgrad_splits, conv_wgrad,
-                                                  flip_t)
+from tpu_unet_torch.kernels.decoder_train import _conv_nobias, conv_wgrad, flip_t
 from tpu_unet_torch.kernels.encoder import _vgg_block_cuda, vgg_block_shape_ok
 from tpu_unet_torch.kernels.stem import _vgg_stem_cuda, vgg_stem_shape_ok
 
@@ -95,11 +95,14 @@ def vgg_block_train_ok(H: int, W: int, chans) -> bool:
 
 @functools.lru_cache(maxsize=64)
 def bwd_plan(B: int, H: int, W: int, chans: tuple, want_dx: bool):
-    """The launch records of a block's backward (two or three convs) on the
-    Hopper kernels (``sm90.block_bwd_launches``: conv i's weight gradient
-    at 2i, its dgrad at 2i + 1; none for conv 0's without dx) and each
-    conv's split count."""
-    launches = sm90.block_bwd_launches(B, H, W, chans, want_dx)
+    """The launch records of a stage's backward on the Hopper kernels and
+    each conv's split count: a block's two or three convs
+    (``sm90.block_bwd_launches``: conv i's weight gradient at 2i, its dgrad
+    at 2i + 1; none for conv 0's without dx), or the stem's (``chans[0] ==
+    3``, ``sm90.stem_bwd_launches``: conv1_1's weight gradient over the
+    image, no dgrad; conv1_2's two)."""
+    launches = sm90.stem_bwd_launches(B, H, W, chans[1]) if chans[0] == 3 else \
+        sm90.block_bwd_launches(B, H, W, chans, want_dx)
     return sm90.encode(launches), tuple(ln["nsplit"] for ln in launches[0::2])
 
 
@@ -129,12 +132,7 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
     wts = [None if i == 0 and not want_dx else _build.pack_conv3x3(flip_t(w))
            for i, w in enumerate(ws)]
     kpad = [-(-9 * c // 64) * 64 for c in chans[:-1]]
-    if is_image:
-        plan = None
-        ns = [_wgrad_splits((chans[i + 1] // 64) * (kpad[i] // 64), B * H * W)
-              for i in range(n)]
-    else:
-        plan, ns = bwd_plan(B, H, W, tuple(chans), bool(want_dx))
+    plan, ns = bwd_plan(B, H, W, tuple(chans), bool(want_dx))
     work = torch.empty(max(ns[i] * chans[i + 1] * (kpad[i] + 1) for i in range(n)),
                        dtype=torch.float32, device=x.device)
     ga, gb = torch.empty_like(out), torch.empty_like(out)
@@ -148,8 +146,7 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
                 dskip.data_ptr(), _build.ptr(dpool), *[_build.ptr(t) for t in wts], *pad,
                 ga.data_ptr(), gb.data_ptr(), _build.ptr(dx), work.data_ptr(),
                 *[t.data_ptr() for t in dks], *pad, *[t.data_ptr() for t in dbs], *pad,
-                n, B, H, W, *chans, *([0] * (4 - len(chans))), *ns, *([0] * (3 - n)),
-                _build.ptr(plan))
+                n, B, H, W, *chans, *([0] * (4 - len(chans))), plan.data_ptr())
     _build.launch_counts[key] += 1
     return dx, dks, dbs
 

@@ -26,7 +26,7 @@ CONSUMERS = 256                    # two consumer warpgroups (and one producer)
 RING_BYTES = 192 * 1024            # the TMA ring (the conv kernel's where it stages in it)
 SMEM_MAX = 232448                  # a block's dynamic shared memory on an H100, 227 KB
 SMS = 132                          # an H100 SXM's streaming multiprocessors
-OP_FWD, OP_FWD_POOL, OP_DGRAD_MASK, OP_DGRAD_SPLIT, OP_WGRAD = range(5)
+OP_FWD, OP_FWD_POOL, OP_DGRAD_MASK, OP_DGRAD_SPLIT, OP_WGRAD, OP_WGRAD_IMAGE = range(6)
 HEAD_WORDS, MAP_WORDS = 10, 12
 PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS
 
@@ -226,6 +226,31 @@ def wgrad_launch(B: int, H: int, W: int, C: int, F: int, out_channels: int | Non
             "maps": [nhwc_map(B, H, W, F), nhwc_map(B, H, W, C)]}
 
 
+def wgrad_image_stages() -> int:
+    """Ring stages of the image GEMM: a G box and a gathered im2col box a
+    stage, as many as half of 192 KB hold (two blocks an SM)."""
+    return RING_BYTES // 2 // (2 * BOX_BYTES)
+
+
+def wgrad_image_launch(B: int, H: int, W: int, F: int) -> dict:
+    """The stem's conv1_1 weight gradient (F, 3, 3, 3) over the 3-channel
+    image (``csrc/encoder_train.cu::wgrad_image_kernel``, ``OP_WGRAD_IMAGE``):
+    G^T from TMA boxes of the output gradient as :func:`wgrad_launch` takes
+    them, the 27 im2col columns (k = tap · 3 + c, padded to 64) gathered by
+    the producer warpgroup (an image pixel is 6 bytes: no TMA box).  Tile 64
+    f × 64 columns, one consumer warpgroup; split over the 8 × 16 pixel
+    patches so that F / 64 × splits blocks take two an SM (each split
+    keeping at least 8 patches): the GEMM is bound by reading G once.  Its
+    reduce pass writes the whole (F, 3, 3, 3) and the bias gradient."""
+    npatch = B * (H // PATCH_H) * (W // PATCH_W)
+    ns = max(1, min(2 * SMS // (F // 64), npatch // 8))
+    stages = wgrad_image_stages()
+    return {"op": OP_WGRAD_IMAGE, "tile": (64, 64), "grid": (1, F // 64, ns),
+            "smem": stages * 2 * BOX_BYTES + 128 * 8 * 4 + 2 * stages * 8 + 1024,
+            "stages": stages, "nsplit": ns, "npatch": npatch, "k": 64, "out": (3, 0, 1),
+            "maps": [nhwc_map(B, H, W, F)]}
+
+
 def wgrad_work(launches, F: int) -> int:
     """float32 words of the work area that the weight-gradient launches
     share in turn (one stream orders them): the largest one's split
@@ -249,10 +274,12 @@ def conv_tile_m(H: int, F: int) -> int:
 def unetup_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
     """A UnetUp stage's forward on the conv core: conv1 over the two maps
     [skip (Cs) | up (Cx)] into y1, conv2 over y1, both with bias + ReLU, at
-    the tile of :func:`conv_tile_m`."""
+    the tile of :func:`conv_tile_m`.  At Cs = 0 (the ``up_conv`` head,
+    #10 / #11) conv1 reads the one map up."""
     tm = conv_tile_m(H2, F)
-    return [conv_launch(OP_FWD, B, H2, W2, Cs, F, Cx, tm),
-            conv_launch(OP_FWD, B, H2, W2, F, F, 0, tm)]
+    conv1 = conv_launch(OP_FWD, B, H2, W2, Cs, F, Cx, tm) if Cs else \
+        conv_launch(OP_FWD, B, H2, W2, Cx, F, 0, tm)
+    return [conv1, conv_launch(OP_FWD, B, H2, W2, F, F, 0, tm)]
 
 
 def unetup_bwd_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
@@ -288,6 +315,18 @@ def block_bwd_launches(B: int, H: int, W: int, chans, want_dx: bool):
             if i > 0 or want_dx else None
         launches += [wgrad_launch(B, H, W, cin, cout), dgrad]
     return launches
+
+
+def stem_bwd_launches(B: int, H: int, W: int, F: int):
+    """The stem's backward (#20) laid out as a block's
+    (:func:`block_bwd_launches`: conv i's weight gradient at 2i, its dgrad
+    at 2i + 1): conv1_1's weight gradient over the image
+    (:func:`wgrad_image_launch`) and no dgrad (the stem computes no image
+    gradient); conv1_2's weight gradient over a1 (F → F; at F = 64 the 64
+    f × 128-column tile) and its dgrad masked by a1 > 0 at the tile of
+    :func:`conv_tile_m`."""
+    return [wgrad_image_launch(B, H, W, F), None,
+            *block_bwd_launches(B, H, W, [F, F, F], False)[2:]]
 
 
 def unetup_wgrad_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):

@@ -2,16 +2,20 @@
 ``relu(conv2(relu(conv1(up2x(x)))))`` with 3×3 SAME convs and no skip
 (counterpart of ``tpu_unet/kernels/upconv.py``).
 
-CUDA kernels in ``csrc/upconv.cu``, on the conv core ``csrc/conv3x3.cuh``:
+CUDA kernels in ``csrc/upconv.cu``:
 - :func:`upconv`, the forward — replaces ``upconv.py::fused_upconv_impl``
-  and ``_fused_upconv_call_p2`` (two TPU schedules of this function).
-  conv1's operand loader lerps the up elements from x's four neighbours, so
-  ``up2x(x)`` is never stored; conv1's output y1 goes through device memory
-  to conv2;
+  and ``_fused_upconv_call_p2`` (two TPU schedules of this function): a
+  UnetUp stage (``kernels/decoder_fuse.py``) with no skip channels.
+  ``decoder_train.up2x`` (``tu_upsample2x``, launch key ``upsample2x``)
+  writes ``up2x(x)`` once in bf16; ``tu_upconv`` runs conv1 over ``up``
+  and conv2 over its output y1 on the Hopper conv core
+  (``csrc/conv3x3_sm90.cuh``), the launches planned as a stage's at
+  Cs = 0 (``decoder_fuse.stage_plan``);
 - :func:`upconv_bwd`, the backward — replaces ``fused_upconv_bwd_impl``
   (#12): both ReLU VJPs, both dgrads, both weight gradients with their bias
   sums (float32) and the upsample's adjoint, the UnetUp stage backward of
-  ``kernels/decoder_train.py`` at zero skip channels, in one C entry;
+  ``kernels/decoder_train.py`` at zero skip channels, in one C entry on
+  the ``mma.sync`` core (``csrc/conv3x3.cuh``, ``csrc/wgrad.cuh``);
 - :func:`upconv_train`, the head for training (``fused_upconv_train``): the
   forward kernel keeping y1, the backward kernel.
 
@@ -23,8 +27,9 @@ import torch
 
 from tpu_unet_torch.kernels import _build
 from tpu_unet_torch.kernels._plain import conv3x3_relu, on_cpu
-from tpu_unet_torch.kernels.decoder_train import (_adjoint_tables, _wgrad_buffers, flip_t,
-                                                  unetup_bwd_full_plain, up2x_tables)
+from tpu_unet_torch.kernels.decoder_fuse import stage_plan
+from tpu_unet_torch.kernels.decoder_train import (_adjoint_tables, _up2x_cuda, _wgrad_buffers,
+                                                  flip_t, unetup_bwd_full_plain, up2x_tables)
 from tpu_unet_torch.nn.resize import upsample2x
 
 
@@ -50,15 +55,14 @@ def _upconv_cuda(x, w1, b1, w2, b2, want_y1=False):
     _build.check(x, "x", torch.bfloat16)
     _build.check(w1, "w1", torch.bfloat16, (f, cx, 3, 3), x.device)
     _build.check(w2, "w2", torch.bfloat16, (f, f, 3, 3), x.device)
-    ridx, rw, cidx, cw = up2x_tables(H, W, x.device)
+    up = _up2x_cuda(x)
     wt1, wt2 = _build.pack_conv3x3(w1), _build.pack_conv3x3(w2)
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
     y1 = torch.empty((B, H2, W2, f), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(y1)
-    _build.call("tu_upconv", x.data_ptr(), ridx.data_ptr(), rw.data_ptr(),
-                cidx.data_ptr(), cw.data_ptr(), wt1.data_ptr(), b1f.data_ptr(),
-                wt2.data_ptr(), b2f.data_ptr(), y1.data_ptr(), out.data_ptr(),
-                B, H2, W2, cx, f)
+    _build.call("tu_upconv", up.data_ptr(), wt1.data_ptr(), b1f.data_ptr(), wt2.data_ptr(),
+                b2f.data_ptr(), y1.data_ptr(), out.data_ptr(), B, H2, W2, cx, f,
+                stage_plan(B, H2, W2, 0, cx, f).data_ptr())
     _build.launch_counts["upconv"] += 1
     return (out, y1) if want_y1 else out
 

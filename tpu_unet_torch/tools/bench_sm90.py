@@ -1,6 +1,9 @@
 """Time the Hopper kernels on one CUDA card:
 
-    python -m tpu_unet_torch.tools.bench_sm90
+    python -m tpu_unet_torch.tools.bench_sm90 [part ...]
+
+with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head`` (all by
+default):
 
 - the VGG16 blocks 2-5 in training (#21 / #23 forward, #22 / #24
   backward, all on the Hopper kernels) at unet_vgg's training shapes (512²
@@ -23,7 +26,17 @@
   share of its bound, and the device time by kernel in launch order:
   conv1, conv2 and the upsample pass of #1; the mask pass and the two
   dgrads of #13; the three GEMMs and their reduce passes of
-  ``unetup_wgrad``.
+  ``unetup_wgrad``;
+- the stem's backward (#20) at 8 × 512²: ms per launch in the same
+  rounds, the median, autograd of the cuDNN chain, the share of the bound
+  and the device time by kernel in launch order (the pool pass, conv1_2's
+  GEMM and reduce pass and its masked dgrad on the Hopper kernels,
+  conv1_1's GEMM over the image on ``csrc/wgrad.cuh`` and its reduce
+  pass), with conv1_1's floor: reading its output gradient once;
+- the ``up_conv`` head's forward (#10) at unet_resnet50's (8 × 256² →
+  512²) and self_net's (8 × 512² → 1024²) shapes: the same, against
+  cuDNN's chain (interpolate and two convs), by kernel the upsample pass,
+  conv1 and conv2.
 
 Every line carries the card's name and power limit.
 """
@@ -32,12 +45,14 @@ from __future__ import annotations
 import json
 import statistics
 import subprocess
+import sys
 
 import torch
 
 import torch.nn.functional as F
 
-from tpu_unet_torch.kernels import decoder_fuse, decoder_train, encoder, encoder_train, sm90
+from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encoder_train, sm90,
+                                    upconv)
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -222,16 +237,65 @@ def _block2_tiles(smi, gen, B=8, h=256):
                       "conv1_bound_ms": c1, "conv2_bound_ms": 2 * c1, "gpu": smi}), flush=True)
 
 
-def main() -> int:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    dev, bf, B = "cuda", torch.bfloat16, 8
-    gen = torch.Generator(device=dev).manual_seed(0)
-    torch.backends.cudnn.allow_tf32 = False
-    _block2_tiles(smi, gen)
-    for stage in STAGES:
-        _stage(smi, gen, *stage)
-        torch.cuda.empty_cache()
+def _stem_bwd(smi, gen, B=8, h=512):
+    """The stem's backward at unet_vgg's training shape against autograd of
+    the cuDNN chain, by kernel."""
+    dev, bf = "cuda", torch.bfloat16
+    x = torch.rand((B, h, h, 3), generator=gen, device=dev).to(bf)
+    w11, w12 = [(torch.randn((64, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5).to(bf)
+                for c in (3, 64)]
+    b11, b12 = [(0.1 * torch.randn(64, generator=gen, device=dev)).to(bf) for _ in range(2)]
+    skip, pooled, a1 = encoder_train._vgg_stem_cuda(x, w11, b11, w12, b12)
+    dskip = torch.randn(skip.shape, generator=gen, device=dev).to(bf)
+    dpool = torch.randn(pooled.shape, generator=gen, device=dev).to(bf)
+    fn = lambda: encoder_train.vgg_stem_bwd(dskip, dpool, x, a1, skip, w11, w12)  # noqa: E731
+    with torch.enable_grad():
+        ws = [t.detach().requires_grad_() for t in (w11, b11, w12, b12)]
+        y = torch.relu(F.conv2d(x.permute(0, 3, 1, 2), ws[0], ws[1], padding=1))
+        y = torch.relu(F.conv2d(y, ws[2], ws[3], padding=1))
+        outs = [y, F.max_pool2d(y, 2)]
+    cots = [dskip.permute(0, 3, 1, 2), dpool.permute(0, 3, 1, 2)]
+    lib = lambda: torch.autograd.grad(outs, ws, cots, retain_graph=True)  # noqa: E731
+    px = B * h * h
+    bound = 2.0 * px * 9 * (64 * 64 + 3 * 64 + 64 * 64) / PEAK_BF16 * 1e3
+    ms, lib_ms = _rounds(fn), _rounds(lib)
+    med = statistics.median(ms)
+    print(json.dumps({"stem_bwd": f"{B}x{h}x{h} [3, 64, 64]", "ms_rounds": ms, "ms": med,
+                      "cudnn_ms": statistics.median(lib_ms), "bound_ms": bound,
+                      "share_of_bound": bound / med, "ms_by_kernel": _kernel_sequence(fn),
+                      "conv1_1_wgrad_floor_ms": 2.0 * px * 64 / PEAK_BYTES * 1e3,
+                      "gpu": smi}), flush=True)
+
+
+def _head(smi, gen, B, h):
+    """The up_conv head's forward at x (B, h, h, 64) against cuDNN's chain,
+    by kernel."""
+    dev, bf = "cuda", torch.bfloat16
+    x = torch.relu(torch.randn((B, h, h, 64), generator=gen, device=dev)).to(bf)
+    (w1, b1), (w2, b2) = [((torch.randn((64, 64, 3, 3), generator=gen, device=dev) / 24).to(bf),
+                           (0.1 * torch.randn(64, generator=gen, device=dev)).to(bf))
+                          for _ in range(2)]
+    fn = lambda: upconv._upconv_cuda(x, w1, b1, w2, b2)  # noqa: E731
+
+    def lib():
+        up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
+                           align_corners=True)
+        y = torch.relu(F.conv2d(up, w1, b1, padding=1))
+        return torch.relu(F.conv2d(y, w2, b2, padding=1))
+
+    h2 = 2 * h
+    conv = 2.0 * B * h2 * h2 * 9 * 64 * 64 / PEAK_BF16 * 1e3
+    ms, lib_ms = _rounds(fn), _rounds(lib)
+    med = statistics.median(ms)
+    print(json.dumps({"upconv": f"{B}x{h}x{h}x64->{h2}^2x64", "ms_rounds": ms, "ms": med,
+                      "cudnn_ms": statistics.median(lib_ms), "bound_ms": 2 * conv,
+                      "share_of_bound": 2 * conv / med, "conv_bound_ms": conv,
+                      "upsample2x_bound_ms": 2.0 * B * 64 * (h * h + h2 * h2) / PEAK_BYTES * 1e3,
+                      "ms_by_kernel": _kernel_sequence(fn), "gpu": smi}), flush=True)
+
+
+def _blocks(smi, gen, B=8):
+    dev, bf = "cuda", torch.bfloat16
     for h, chans, pool in BLOCKS:
         x = torch.relu(torch.randn((B, h, h, chans[0]), generator=gen, device=dev)).to(bf)
         ws = [(torch.randn((f, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5).to(bf)
@@ -257,6 +321,33 @@ def main() -> int:
                               lambda: encoder._vgg_block_cuda(x, ws, bs, pool, key)),
                           "bwd_share_of_bound": 2 * bound / bwd_ms,
                           "bwd_ms_by_kernel": _by_kernel(bwd_fn), "gpu": smi}), flush=True)
+
+
+def main(argv=None) -> int:
+    parts = list(argv if argv is not None else sys.argv[1:]) or \
+        ["tiles", "stages", "blocks", "stem", "head"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.backends.cudnn.allow_tf32 = False
+    for part in parts:
+        if part == "tiles":
+            _block2_tiles(smi, gen)
+        elif part == "stages":
+            for stage in STAGES:
+                _stage(smi, gen, *stage)
+                torch.cuda.empty_cache()
+        elif part == "blocks":
+            _blocks(smi, gen)
+        elif part == "stem":
+            _stem_bwd(smi, gen)
+        elif part == "head":
+            for B, h in ((8, 256), (8, 512)):
+                _head(smi, gen, B, h)
+                torch.cuda.empty_cache()
+        else:
+            raise SystemExit(f"bench_sm90: unknown part {part!r}")
+        torch.cuda.empty_cache()
     return 0
 
 
