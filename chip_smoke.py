@@ -304,6 +304,8 @@ def phase_kernels(card: str):
     w11, b11 = conv_w(64, 3)
     w12, b12 = conv_w(64, 64)
     out = vgg_stem(img, w11, b11, w12, b12)
+    check(all(torch.equal(a, b) for a, b in zip(out, vgg_stem(img, w11, b11, w12, b12))),
+          "vgg_stem: two launches differ")
     ref = vgg_stem_plain(img, w11, b11, w12, b12)
     xn = img.to(bf) / torch.tensor(255.0, dtype=bf, device=dev)
     rel = record("vgg_stem", f"{B}x{S}x{S}x3->64", out, ref,
@@ -314,7 +316,7 @@ def phase_kernels(card: str):
                  nbytes(img, w11, b11, w12, b12, *out))
     check(rel <= CONV_REL_TOL, f"vgg_stem rel err {rel:.3g} > {CONV_REL_TOL}")
     # stem: the single-image forward's input, the normalize kernel's bf16
-    # output at one 512^2 image (the kernel's ImageLoader<false> branch)
+    # output at one 512^2 image (conv1_1's gather of a bf16 image)
     img1 = torch.randint(0, 256, (1, S, S, 3), generator=gen, device=dev, dtype=torch.uint8)
     x1 = normalize_images(img1, bf)
     out = vgg_stem(x1, w11, b11, w12, b12)
@@ -745,7 +747,7 @@ RN50_STAGES = ((SIZE // 4, 64, 128, 64), (SIZE // 8, 256, 256, 128),
 # dk1; 7.1e-4 at block 5's first conv, behind two kernel dgrads).  A
 # dropped split-K partial — the fault these bounds must catch — reads
 # 8.7e-2 at up1's dk2 (one split of 118) on an H100, and is planted and read
-# in every run (wgrad_fault_reading).  The bounds sit between the two.
+# in every run (sm90_wgrad_fault_reading).  The bounds sit between the two.
 WGRAD_REL_TOL = 5e-4
 WGRAD_CHAIN_REL_TOL = 1e-3
 # the upsample's adjoint: float32 sums of the same products rounded once to
@@ -775,29 +777,11 @@ def first_split_mask(B, H, W, ns, scale=1):
     return lost.repeat_interleave(PATCH_H // scale, 1).repeat_interleave(PATCH_W // scale, 2)
 
 
-def wgrad_fault_reading(kernel, case, g2, run, refs):
-    """Plant a dropped split-K partial in ``kernel``'s dk2 / db2 GEMM and
-    read it as the checks read the kernel: it must lie above both
-    weight-gradient bounds.  ``g2`` (..., F) is the GEMM's output-gradient
-    operand, whose pixels of split 0 are zeroed (which is what losing that
-    split's partial computes; zeroing them in the ReLU-masked g gives the
-    same g2); ``run(faulty)`` returns the (dk2, db2) the kernel then
-    computes, ``refs`` the plain version's on the sound operand."""
-    from tpu_unet_torch.kernels.decoder_train import WGRAD_CHUNK, _wgrad_splits
-
-    f = g2.shape[-1]
-    n_pix = g2.numel() // f
-    ns = _wgrad_splits((f // 64) * (9 * f // 64), n_pix)
-    lost = (n_pix // WGRAD_CHUNK) // ns * WGRAD_CHUNK
-    faulty = g2.clone()
-    faulty.view(-1, f)[:lost] = 0
-    _fault_check(kernel, case, ns, max(rel_err(a, b)[1] for a, b in zip(run(faulty), refs)))
-
-
 def sm90_wgrad_fault_reading(key, case, ns, dskip, dpool, run, refs):
     """Plant a dropped split in the Hopper weight-gradient GEMM
-    (``csrc/wgrad_sm90.cuh``) of a block's last conv, or of a decoder
-    stage's dk2 (``dskip`` = g2, no ``dpool``), and read it as the checks
+    (``csrc/wgrad_sm90.cuh``) of a block's last conv, of a decoder stage's
+    dk2 (``dskip`` = g2, no ``dpool``) or of the up_conv head's dk2
+    (``dskip`` = g, whose ReLU mask gives g2), and read it as the checks
     read the kernel: zeroing the skip's and the pool's gradients over the
     first split's patches zeroes the GEMM's G operand there, which is what
     losing that split's partial computes; ``run(dskip, dpool)`` returns the
@@ -919,9 +903,13 @@ def upconv_bwd_kernels(record, gen):
     and the given y1) within WGRAD_REL_TOL, dk1 / db1 (from dz1, which
     carries the kernel dgrad's bf16 rounding) within WGRAD_CHAIN_REL_TOL,
     all five bit-identical on a second launch, and a planted dropped split
-    of the dk2 GEMM read above both bounds; timed against autograd of the
-    cuDNN chain with ``upsample2x`` (its adjoint an ``index_add_``)."""
-    from tpu_unet_torch.kernels.upconv import upconv_bwd, upconv_bwd_plain
+    of the dk2 GEMM (``csrc/wgrad_sm90.cuh``, the plan's split count) read
+    above both bounds; a witness line of dk2, the kernel's and the plain
+    version's, against a float64 evaluation on the card (8.4M pixels a GEMM
+    at self_net's head, where the bounds were set at up to 2.1M); timed
+    against autograd of the cuDNN chain with ``upsample2x`` (its adjoint an
+    ``index_add_``)."""
+    from tpu_unet_torch.kernels.upconv import bwd_plan, upconv_bwd, upconv_bwd_plain
     from tpu_unet_torch.nn.resize import upsample2x
 
     dev, bf, B = torch.device("cuda"), torch.bfloat16, BATCH
@@ -946,8 +934,17 @@ def upconv_bwd_kernels(record, gen):
         for n, e in errs.items():
             check(e <= tols[n], f"upconv_bwd {case}: {n} rel err {e:.3g} > {tols[n]}")
         print(json.dumps({"upconv_bwd": case, "rel_err_by_output": errs}), flush=True)
-        wgrad_fault_reading("upconv_bwd", case, g,
-                            lambda t: upconv_bwd(t, out_, y1, x, w1, w2)[3:], ref[3:])
+        g2 = torch.where(out_ > 0, g, 0).double()
+        dk2_64 = torch.ops.aten.convolution_backward(
+            cl(g2), cl(y1.double()), w2.double(), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, False])[1]
+        print(json.dumps({"upconv_bwd_dk2_float64": case,
+                          "kernel_vs_float64": rel_err(res[3], dk2_64)[1],
+                          "plain_vs_float64": rel_err(ref[3], dk2_64)[1],
+                          "kernel_vs_plain": errs["dk2"], "bound": WGRAD_REL_TOL}), flush=True)
+        del g2, dk2_64
+        sm90_wgrad_fault_reading("upconv_bwd", case, bwd_plan(B, h2, h2, 64, 64)[1][0], g, None,
+                                 lambda t, _: upconv_bwd(t, out_, y1, x, w1, w2)[3:], ref[3:])
         # the library yardstick: autograd of the cuDNN chain, graph built once
         with torch.enable_grad():
             xg = x.detach().requires_grad_()
@@ -1281,10 +1278,7 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
         name = e.name
         if "indexFunc" in name:  # index_add_ (the plain upsample's adjoint)
             index_add += e.time_range.elapsed_us() / 1e3 / steps
-        if "conv3x3_grad_kernel" in name:
-            loader = "ReluGradLoader" if "ReluGradLoader" in name else "NhwcLoader"
-            name = f"port conv3x3_grad_kernel<{loader}>"
-        elif "final_loss_fwd_kernel" in name or "final_loss_bwd_kernel" in name:
+        if "final_loss_fwd_kernel" in name or "final_loss_bwd_kernel" in name:
             name = "port " + ("final_loss_fwd_kernel" if "fwd" in name else "final_loss_bwd_kernel")
         elif "ce_dice_fwd_kernel" in name or "ce_dice_bwd_kernel" in name:
             name = "port " + ("ce_dice_fwd_kernel" if "fwd" in name else "ce_dice_bwd_kernel")
@@ -1301,15 +1295,10 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
                               else "wgrad_sm90_reduce_kernel")
         elif "relu_grad_kernel" in name:
             name = "port " + ("pool_relu_grad_kernel" if "pool" in name else "relu_grad_kernel")
-        elif "wgrad_kernel" in name:
-            loader = "UpConcatLoader" if "UpConcatLoader" in name else "NhwcLoader"
-            name = f"port wgrad_kernel<{loader}>"
-        elif "wgrad_reduce_kernel" in name or "upsample_adjoint_kernel" in name:
-            name = "port " + ("wgrad_reduce_kernel" if "wgrad" in name else "upsample_adjoint_kernel")
-        elif "conv3x3_kernel" in name:
-            loader = next((n for n in ("ImageLoader", "UpConcatLoader", "NhwcLoader")
-                           if n in name), "?")
-            name = f"port conv3x3_kernel<{loader}>"
+        elif "upsample_adjoint_kernel" in name:
+            name = "port upsample_adjoint_kernel"
+        elif "conv_image_kernel" in name:
+            name = "port conv_image_kernel"
         elif "final_argmax_kernel" in name:
             name = f"port final_argmax_kernel<{'hist' if 'true' in name else 'mask'}>"
         elif "normalize_kernel" in name:
@@ -1909,14 +1898,15 @@ def phase_train(card: str):
 # unet_resnet50's default-route step: its four decoder stages (#1, #13,
 # unetup_wgrad, upsample_adjoint) and the up_conv head (#10 / #12) through
 # their kernels, the loss through #27 / #29, ResNet50 through cuDNN; the
-# upsample kernel twice a stage and once in the head's forward
-RN50_STEP = {"unetup": 4, "upsample2x": 9, "unetup_bwd": 4, "unetup_wgrad": 4,
+# upsample kernel twice a stage and twice in the head (its forward's and
+# its backward's up)
+RN50_STEP = {"unetup": 4, "upsample2x": 10, "unetup_bwd": 4, "unetup_wgrad": 4,
              "upsample_adjoint": 4,
              "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
 # self_net's: unet_vgg's training encoder and decoder kernels, the head, and
 # the plain losses on its 2x logits (no loss kernel, as JAX's loss_fn)
 SELF_NET_STEP = {**{k: v for k, v in TRAIN_STEP["paired"].items()
-                    if not k.startswith("final_")}, "upsample2x": 9, "upconv": 1,
+                    if not k.startswith("final_")}, "upsample2x": 10, "upconv": 1,
                  "upconv_bwd": 1}
 
 
@@ -2552,6 +2542,8 @@ def cli_train(card: str):
 
 
 SOURCES = {
+    # conv1_1's image GEMM (csrc/stem.cu, its gather csrc/image_gather.cuh)
+    # and conv1_2 with the pool on the Hopper conv core
     "vgg_stem": ("tpu_unet_torch/csrc/stem.cu", "tpu_unet/kernels/stem.py:220"),
     # blocks 2-5 on the Hopper core (wgmma, TMA), from csrc/encoder.cu
     "vgg_block": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh", "tpu_unet/kernels/encoder.py:288"),
@@ -2566,7 +2558,9 @@ SOURCES = {
     # the head's two convs on the Hopper core, from csrc/upconv.cu (its
     # up2x(x) counted under upsample2x)
     "upconv": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh", "tpu_unet/kernels/upconv.py:227"),
-    "upconv_bwd": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:475"),
+    # the mask pass, the two Hopper dgrads, the dk2 and dk1 GEMMs on the
+    # Hopper weight-gradient core and the adjoint, from csrc/upconv.cu
+    "upconv_bwd": ("tpu_unet_torch/csrc/wgrad_sm90.cuh", "tpu_unet/kernels/upconv.py:475"),
     "final_argmax_hist_natural": ("tpu_unet_torch/csrc/postprocess.cu",
                                   "tpu_unet/kernels/postprocess.py:154"),
     "final_argmax": ("tpu_unet_torch/csrc/postprocess.cu",

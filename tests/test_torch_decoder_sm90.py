@@ -18,7 +18,11 @@ plan's K order against ``unetup_plain`` and, through it, JAX's
 ``unetup_bwd_plain``.  The ``up_conv`` head's forward (#10) is the stage at
 Cs = 0: its plan (``decoder_fuse.stage_plan`` at Cs = 0) at both heads' shapes
 and small ones, and its two convs emulated the same way against
-``upconv_plain`` and JAX's ``reference_upconv``."""
+``upconv_plain`` and JAX's ``reference_upconv``.  The head's backward
+(#12) is the stage backward at Cs = 0: its plan
+(``upconv.bwd_plan``, ``sm90.upconv_bwd_launches``) at both heads' shapes
+and a small one, and its two dgrads and two weight-gradient GEMMs emulated
+in float64 in the plan's order against ``upconv_bwd_plain``."""
 import itertools
 
 import jax.numpy as jnp
@@ -34,8 +38,9 @@ from tpu_unet_torch.kernels.decoder_fuse import (_unetup_plain_y1, stage_plan, u
                                                  unetup_shape_ok)
 from tpu_unet_torch.kernels.decoder_train import (dgrad_plan, flip_t, stage_shape_ok,
                                                   unetup_bwd_plain, wgrad_plan)
-from tpu_unet_torch.kernels.upconv import _upconv_plain_y1, upconv_plain
-from tpu_unet_torch.nn.resize import upsample2x
+from tpu_unet_torch.kernels.upconv import (_upconv_plain_y1, bwd_plan, upconv_bwd_plain,
+                                           upconv_plain)
+from tpu_unet_torch.nn.resize import upsample2x, upsample2x_adjoint_plain
 
 SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory (227 KB)
 SWIZZLE_BYTES = 128   # the span of CU_TENSOR_MAP_SWIZZLE_128B
@@ -290,12 +295,29 @@ def test_wgrad_tiles_and_splits(case):
         assert ln["maps"][0]["dims"] == (F, W2, H2, B) and ln["maps"][1]["dims"] == (c, W2, H2, B)
 
 
+def _old_wgrad_splits(tiles, npatch):
+    """``sm90.wgrad_splits`` before its cap on a split's patches."""
+    best, best_fill = 1, 0.0
+    for ns in range(1, max(1, npatch // 8) + 1):
+        waves = tiles * ns / sm90.SMS
+        fill = waves / -(-waves // 1)
+        if fill >= 0.85 or waves >= 4:
+            return ns
+        if fill > best_fill:
+            best, best_fill = ns, fill
+    return best
+
+
 def test_full_size_splits_fill_the_card():
     """At 512², batch 8 each GEMM's splits give at least 4 waves of blocks
     on the 132 SMs or a last wave at least 85% full, and its partials fit
-    in the H100's 50 MB L2, from which the reduce pass reads them."""
+    in the H100's 50 MB L2, from which the reduce pass reads them; the cap
+    on a split's patches (``sm90.MAX_SPLIT_PATCHES``) leaves every split
+    count as it was."""
     for case in FULL:
         for ln in sm90.unetup_wgrad_launches(*case):
+            assert ln["nsplit"] == _old_wgrad_splits(ln["grid"][0] * ln["grid"][1],
+                                                     ln["npatch"])
             waves = ln["grid"][0] * ln["grid"][1] * ln["nsplit"] / sm90.SMS
             assert waves >= 4 or waves / -(-waves // 1) >= 0.85, (case, waves)
             assert ln["nsplit"] * case[-1] * ln["k"] * 4 <= 50 * 2**20, case
@@ -520,3 +542,145 @@ def test_head_k_order_float64(case):
     assert ref.dtype == np.float64
     plain = upconv_plain(t[0], oihw[0], t[2], oihw[1], t[4]).numpy()
     assert np.abs(plain - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+# the up_conv head's backward, (B, 2H, 2W, Cx, F): unet_resnet50's and
+# self_net's at batch 8, then a small one
+HEAD_BWD = [(8, 512, 512, 64, 64), (8, 1024, 1024, 64, 64), (2, 16, 32, 64, 64)]
+
+
+@pytest.mark.parametrize("case", HEAD_BWD)
+def test_upconv_bwd_plan(case):
+    """#12's plan: conv2's dgrad (``OP_DGRAD_MASK``, F → F over g2) and
+    conv1's (``OP_DGRAD_SPLIT`` over dz1, F → Cx, its record's split = Cx:
+    every channel to dups), at the tile rule's pixels (256 × 64, persistent,
+    at both heads), their tiles covering dz1 and dups once; the dk2 GEMM
+    over (g2, y1) and the dk1 GEMM over (dz1, up), 64 f × 128 columns, each
+    writing every (f, c, tap) of its gradient once with its bias gradient,
+    their splits covering every pixel patch once in order (at least 4 waves
+    or a last wave 85% full at both heads); the work area
+    ``sm90.wgrad_work``'s; every map's dims, boxes and 16-byte strides
+    (self_net's 8 × 1024² × 64 too) and shared memory within the card's."""
+    B, H2, W2, Cx, F = case
+    lns = sm90.upconv_bwd_launches(*case)
+    rec, ns, work = bwd_plan(*case)
+    assert tuple(rec.shape) == (4, sm90.PLAN_WORDS)
+    assert rec[:, 0].tolist() == [sm90.OP_DGRAD_MASK, sm90.OP_DGRAD_SPLIT, sm90.OP_WGRAD,
+                                  sm90.OP_WGRAD]
+    assert rec[1, 7] == Cx and rec[0, 7:10].abs().sum() == 0
+    assert rec[2:, 7:10].tolist() == [[F, 0, 1], [Cx, 0, 1]]
+    assert work == sm90.wgrad_work(lns[2:], F) and rec[2:, 5].tolist() == list(ns)
+    assert work >= max(ln["nsplit"] * F * (ln["k"] + 1) for ln in lns[2:])
+    for i, (ln, c, f) in enumerate(zip(lns[:2], (F, F), (F, Cx))):
+        tm, tn = ln["tile"]
+        ph = tm // 16
+        assert (tm, tn) == (sm90.conv_tile_m(H2, f), sm90.conv_tile_n(f))
+        if B == 8:
+            assert (tm, tn) == (256, 64) and sm90.conv_own_staging(tn, tm)
+        n_tiles = B * (H2 // ph) * (W2 // 16) * (f // tn)
+        assert ln["grid"] == (n_tiles, 1, 1) and ln["smem"] <= SMEM_LIMIT
+        assert rec[i, 1:7].tolist() == [tn, n_tiles, 1, 1, 1, tm]
+        if B * H2 * W2 <= 4096:
+            tiles = list(_conv_tiles(ln, B, H2, W2, f))
+            assert len(set(tiles)) == len(tiles) == n_tiles
+            assert {(b, y, x) for b, y, x, _ in tiles} == {
+                (b, y, x) for b in range(B) for y in range(0, H2, ph) for x in range(0, W2, 16)}
+        assert ln["maps"][0]["dims"] == (c, W2, H2, B) and ln["maps"][1]["dims"] == (c, 9, f)
+        assert len(ln["maps"]) == 2
+        assert rec[i, sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:].abs().sum() == 0  # one input map
+    split, hits = _split_routes(rec[1], lns[1]["tile"][1], Cx)
+    assert split == Cx and [len(h) for h in hits] == [Cx, 0] and (hits[0] == 1).all()
+    npatch = B * (H2 // 8) * (W2 // 16)
+    for ln, c in zip(lns[2:], (F, Cx)):
+        w, size = _written(ln)
+        assert size == F * c * 9 and (np.bincount(w, minlength=size) == 1).all()
+        assert ln["tile"] == (64, 128) and ln["npatch"] == npatch and ln["smem"] <= SMEM_LIMIT
+        assert ln["maps"][0]["dims"] == (F, W2, H2, B) and ln["maps"][1]["dims"] == (c, W2, H2, B)
+        ranges = sm90.split_ranges(npatch, ln["nsplit"])
+        assert ranges[0][0] == 0 and ranges[-1][1] == npatch
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(ranges, ranges[1:]))
+        # each split's float32 run at most MAX_SPLIT_PATCHES patches (52 of
+        # 1260 at self_net's 8.4M pixels; 23 of 712 at unet_resnet50's)
+        assert all(hi - lo <= sm90.MAX_SPLIT_PATCHES for lo, hi in ranges)
+        assert ln["nsplit"] == {16384: 23, 65536: 52}.get(npatch, ln["nsplit"])
+        if B == 8:
+            waves = ln["grid"][0] * ln["grid"][1] * ln["nsplit"] / sm90.SMS
+            assert waves >= 4 or waves / -(-waves // 1) >= 0.85
+    for ln in lns:
+        for m in ln["maps"]:
+            _check_map(m)
+            assert all(d < 2**32 for d in m["dims"]) and all(s < 2**40 for s in m["strides"])
+
+
+def _emulate_wgrad(gout, inp, ln):
+    """The weight-gradient GEMM's arithmetic in float64 on the CPU, as
+    ``wgrad_sm90.cuh`` and its reduce pass do it: per split, over its 8 × 16
+    patches in order, G^T times the patch's im2col (column tap ·
+    tap_width(C) + c of each pixel's 3 × 3 neighbourhood, zero outside the
+    image and past C), the splits added in order and column tap · Cp + c
+    sent to dk[f, c, tap]; db from G's sums the same way."""
+    B, H, W, F = gout.shape
+    C = inp.shape[-1]
+    cp = sm90.tap_width(C)
+    pad = torch.nn.functional.pad(inp, (0, cp - C, 1, 1, 1, 1))
+    cols = torch.cat([pad[:, ky:ky + H, kx:kx + W] for ky in range(3) for kx in range(3)], -1)
+    tiles_w, tiles_hw = W // 16, (H // 8) * (W // 16)
+    total, bias = torch.zeros((F, 9 * cp), dtype=torch.float64), torch.zeros(F, dtype=torch.float64)
+    for lo, hi in sm90.split_ranges(ln["npatch"], ln["nsplit"]):
+        part = torch.zeros_like(total)
+        bpart = torch.zeros_like(bias)
+        for q in range(lo, hi):
+            b, thw = divmod(q, tiles_hw)
+            y0, x0 = (thw // tiles_w) * 8, (thw % tiles_w) * 16
+            gb = gout[b, y0:y0 + 8, x0:x0 + 16].reshape(128, F)
+            part += gb.T @ cols[b, y0:y0 + 8, x0:x0 + 16].reshape(128, 9 * cp)
+            bpart += gb.sum(0)
+        total, bias = total + part, bias + bpart
+    dk = total.reshape(F, 9, cp)[:, :, :C].permute(0, 2, 1).reshape(F, C, 3, 3)
+    return dk, bias
+
+
+@pytest.mark.parametrize("case", [(2, 16, 32, 64, 64), (1, 24, 32, 128, 64)])
+def test_head_bwd_k_order_float64(case):
+    """#12 at Cs = 0 emulated in float64 in its plan's order, on the
+    forward's out and y1 (``_upconv_plain_y1``) and a seeded g: the mask,
+    conv2's dgrad masked by y1 > 0 and conv1's dgrad into dups at the
+    plan's tiles (256 or 128 pixels; Cx = 128 a 128-wide N tile), then the
+    dk2 GEMM over (g2, y1) and the dk1 GEMM over (dz1, upsample2x(x)) in
+    split order and the adjoint of dups: g2, dz1, dups and dx within 1e-12
+    of ``upconv_bwd_plain`` (its ``unetup_bwd_plain`` and
+    ``upsample2x_adjoint_plain`` keep float64), the weight and bias
+    gradients within 1e-12 of its ``conv_wgrad`` arithmetic
+    (``convolution_backward``) and sums in float64 (``conv_wgrad`` itself
+    returns float32, as JAX's kernel does)."""
+    B, H2, W2, Cx, F = case
+    rng = np.random.default_rng(sum(case) + 12)
+    x = torch.from_numpy(rng.standard_normal((B, H2 // 2, W2 // 2, Cx)))
+    w1 = torch.from_numpy(rng.standard_normal((F, Cx, 3, 3)) / np.sqrt(9 * Cx))
+    w2 = torch.from_numpy(rng.standard_normal((F, F, 3, 3)) / np.sqrt(9 * F))
+    b1, b2 = (torch.from_numpy(0.1 * rng.standard_normal(F)) for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal((B, H2, W2, F)))
+    out, y1 = _upconv_plain_y1(x, w1, b1, w2, b2)
+    d2, d1, wg2, wg1 = sm90.upconv_bwd_launches(*case)
+    split = int(bwd_plan(*case)[0][1, 7])
+    g2 = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype))
+    dz1 = _emulate_conv({0: g2}, _pack(flip_t(w2)), d2, F, 0, mask=y1)
+    dups = _emulate_conv({0: dz1}, _pack(flip_t(w1)), d1, F, 0)[..., :split]
+    dk2, db2 = _emulate_wgrad(g2, y1, wg2)
+    dk1, db1 = _emulate_wgrad(dz1, upsample2x(x), wg1)
+    dx = upsample2x_adjoint_plain(dups, H2 // 2, W2 // 2)
+    _, pdups, pg2, pdz1 = unetup_bwd_plain(g, out, y1, w1, w2, 0)
+    pdx = upconv_bwd_plain(g, out, y1, x, w1, w2)[0]
+
+    def wgrad64(gout, inp):
+        like = torch.empty((F, inp.shape[-1], 3, 3), dtype=torch.float64)
+        return torch.ops.aten.convolution_backward(
+            gout.permute(0, 3, 1, 2), inp.permute(0, 3, 1, 2), like, None, [1, 1], [1, 1],
+            [1, 1], False, [0, 0], 1, [False, True, False])[1]
+
+    refs = [(g2, pg2), (dz1, pdz1), (dups, pdups), (dx, pdx),
+            (dk2, wgrad64(pg2, y1)), (db2, pg2.sum((0, 1, 2))),
+            (dk1, wgrad64(pdz1, upsample2x(x))), (db1, pdz1.sum((0, 1, 2)))]
+    for e, r in refs:
+        assert e.dtype == r.dtype == torch.float64 and e.shape == r.shape
+        assert (e - r).abs().max() <= 1e-12 * r.abs().max()

@@ -6,6 +6,8 @@ memory within the card's 227 KB, TMA boxes within the 128-byte swizzle
 span, 16-byte strides, tiles that cover every output pixel and channel
 once, splits that cover every pixel patch once in order — the stem's
 backward (#20: conv1_2's weight gradient and masked dgrad) the same way,
+the stem's forward (#2: conv1_1's gathering image GEMM, conv1_2 with the
+pool) the same way, with conv1_1 emulated in float64 in the plan's order,
 and the block kernels' shape rule, which the new core leaves as it
 was."""
 import itertools
@@ -14,9 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_unet_torch.kernels import sm90
+from tpu_unet_torch.core.precision import normalize_u8
+from tpu_unet_torch.kernels import _build, sm90
+from tpu_unet_torch.kernels._plain import conv3x3_relu, max_pool2x2
 from tpu_unet_torch.kernels.encoder import block_plan, vgg_block_shape_ok
 from tpu_unet_torch.kernels.encoder_train import bwd_plan, vgg_block_train_ok
+from tpu_unet_torch.kernels.stem import stem_plan, vgg_stem_plain
 
 SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory (227 KB)
 SWIZZLE_BYTES = 128   # the span of CU_TENSOR_MAP_SWIZZLE_128B
@@ -295,6 +300,92 @@ def test_image_wgrad_float64(B, H, W):
     assert ref.shape == dk.shape and (dk - ref).abs().max() <= 1e-12 * ref.abs().max()
     db = bpart.sum(0)
     assert (db - g.sum((0, 1, 2))).abs().max() <= 1e-12 * db.abs().max()
+
+
+@pytest.mark.parametrize("B,H,W", [(8, 512, 512), (1, 512, 512), (2, 24, 32)])
+def test_stem_fwd_plan(B, H, W):
+    """The stem's forward: conv1_1 on the image GEMM (``OP_FWD_IMAGE``: 128
+    pixels × 64 channels, no tensor map, grid x blocks walking the 8 × 16
+    patches, two an SM, grid y the F / 64 channel tiles; two blocks' shared
+    memory within the SM's) and conv1_2 over a1 with the pool
+    (``OP_FWD_POOL``, the maps of a1 and the packed w12) at the tile rule's
+    pixels: 256 × 64 and persistent where H % 16 == 0, 128 × 64 where not;
+    the blocks' patch walks cover every patch once; the cached records
+    carry it all."""
+    F = 64
+    img, conv = sm90.stem_fwd_launches(B, H, W, F)
+    rec = stem_plan(B, H, W, F)
+    npatch = B * (H // 8) * (W // 16)
+    assert tuple(rec.shape) == (2, sm90.PLAN_WORDS)
+    assert img["op"] == sm90.OP_FWD_IMAGE and img["tile"] == (128, 64) and img["maps"] == []
+    assert img["grid"] == (min(npatch, 2 * sm90.SMS), 1, 1) and img["npatch"] == npatch
+    assert rec[0, :7].tolist() == [sm90.OP_FWD_IMAGE, 64, *img["grid"], 1, 128]
+    assert rec[0, 7:].abs().sum() == 0
+    assert 2 * (img["smem"] + 1024) <= SMEM_LIMIT + 1024  # two blocks an SM (228 KB)
+    assert img["smem"] == (img["stages"] * (16384 + 16) + 8192 + 128 * 72 * 2 + 512
+                           + 1024)
+    walks = [q for i in range(img["grid"][0]) for q in range(i, npatch, img["grid"][0])]
+    assert sorted(walks) == list(range(npatch))
+    tm = 128 if H % 16 else 256
+    assert conv["op"] == sm90.OP_FWD_POOL and conv["tile"] == (tm, 64)
+    assert sm90.conv_own_staging(64, tm) and conv["smem"] <= SMEM_LIMIT
+    assert conv["grid"] == (B * (H // (tm // 16)) * (W // 16), 1, 1) and conv["k_slices"] == 9
+    assert conv["maps"][0]["dims"] == (F, W, H, B) and conv["maps"][1]["dims"] == (F, 9, F)
+    assert rec[1, :7].tolist() == [sm90.OP_FWD_POOL, 64, *conv["grid"], 1, tm]
+    assert rec[1, sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:].abs().sum() == 0  # one input map
+    for m in conv["maps"]:
+        assert all(s % 16 == 0 for s in m["strides"]) and m["box"][0] * 2 <= SWIZZLE_BYTES
+
+
+def _pack_image(w):
+    """OIHW (F, 3, 3, 3) → (F, 64), column k = tap · 3 + c, zero past 27:
+    ``_build.pack_conv3x3(w, 64)``'s layout in ``w``'s dtype."""
+    p = w.permute(0, 2, 3, 1).reshape(w.shape[0], 27)
+    return torch.nn.functional.pad(p, (0, 64 - 27))
+
+
+@pytest.mark.parametrize("u8", [True, False])
+@pytest.mark.parametrize("B,H,W", [(2, 16, 32), (1, 24, 16)])
+def test_image_fwd_float64(B, H, W, u8):
+    """conv1_1's image GEMM in float64 on the CPU, as ``conv_image_kernel``
+    does it: block i of the plan walks patches i, i + blocks, ..., gathering
+    each pixel's 64 im2col columns (k = tap · 3 + c, zero outside the image
+    and past 27; a uint8 image normalised in the weights' dtype, a bf16
+    image's values as they are), multiplying the 128 × 64 tile by the packed
+    weights (the layout of ``_build.pack_conv3x3(w11, 64)``) and adding bias
+    + ReLU: within 1e-12 of ``vgg_stem_plain``'s conv1_1 in float64; that
+    a1 through conv1_2 and the pool within 1e-12 of ``vgg_stem_plain``'s
+    skip and pooled."""
+    rng = np.random.default_rng(B * H * W + u8)
+    if u8:
+        img = torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8))
+    else:
+        img = torch.from_numpy(rng.random((B, H, W, 3))).to(torch.bfloat16)
+    w11 = torch.from_numpy(rng.standard_normal((64, 3, 3, 3)) / np.sqrt(27))
+    w12 = torch.from_numpy(rng.standard_normal((64, 64, 3, 3)) / 24)
+    b11, b12 = (torch.from_numpy(0.1 * rng.standard_normal(64)) for _ in range(2))
+    wt = _pack_image(w11)
+    assert torch.equal(_build.pack_conv3x3(w11, 64), wt.to(torch.bfloat16))
+    x = normalize_u8(img, torch.float64) if u8 else img.to(torch.float64)
+    pad = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.zeros((B, H, W, 64), dtype=torch.float64)
+    for tap in range(9):
+        ky, kx = divmod(tap, 3)
+        cols[..., 3 * tap:3 * tap + 3] = pad[:, ky:ky + H, kx:kx + W]
+    ln = sm90.image_fwd_launch(B, H, W, 64)
+    tiles_w, tiles_hw = W // 16, (H // 8) * (W // 16)
+    a1 = torch.full((B, H, W, 64), float("nan"), dtype=torch.float64)
+    for i in range(ln["grid"][0]):
+        for q in range(i, ln["npatch"], ln["grid"][0]):
+            b, thw = divmod(q, tiles_hw)
+            y0, x0 = (thw // tiles_w) * 8, (thw % tiles_w) * 16
+            acc = cols[b, y0:y0 + 8, x0:x0 + 16].reshape(128, 64) @ wt.T
+            a1[b, y0:y0 + 8, x0:x0 + 16] = torch.relu(acc + b11).reshape(8, 16, 64)
+    ref = conv3x3_relu(x, w11, b11)
+    assert ref.dtype == torch.float64 and (a1 - ref).abs().max() <= 1e-12 * ref.abs().max()
+    skip = conv3x3_relu(a1, w12, b12)
+    for e, r in zip((skip, max_pool2x2(skip)), vgg_stem_plain(img, w11, b11, w12, b12)):
+        assert r.dtype == torch.float64 and (e - r).abs().max() <= 1e-12 * r.abs().max()
 
 
 def _old_shape_ok(H, W, chans):

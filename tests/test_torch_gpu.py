@@ -45,26 +45,75 @@ def _conv(gen, f, c):
 
 
 @pytest.mark.gpu
-def test_stem_kernel(cuda):
-    from tpu_unet_torch.kernels import launch_counts
-    from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
+@pytest.mark.parametrize("shape", [(2, 32, 48), (2, 24, 48)])
+def test_stem_kernel(cuda, shape):
+    """The stem's forward on the Hopper kernels from a uint8 image: conv1_1's
+    image GEMM, then conv1_2 with the pool at the tile rule's pixels (256
+    at H = 32, 128 at H = 24); one launch, within CONV_REL_TOL of the plain
+    version, bit-identical on a second launch."""
+    from tpu_unet_torch.kernels import launch_counts, sm90
+    from tpu_unet_torch.kernels.stem import stem_plan, vgg_stem, vgg_stem_plain
 
-    img = torch.randint(0, 256, (2, 32, 48, 3), generator=cuda, device="cuda",
+    B, H, W = shape
+    img = torch.randint(0, 256, (B, H, W, 3), generator=cuda, device="cuda",
                         dtype=torch.uint8)
     w11, b11 = _conv(cuda, 64, 3)
     w12, b12 = _conv(cuda, 64, 64)
+    plan = stem_plan(B, H, W, 64)
+    assert plan[:, 0].tolist() == [sm90.OP_FWD_IMAGE, sm90.OP_FWD_POOL]
+    assert plan[1, 6] == (128 if H % 16 else 256)
     n = launch_counts["vgg_stem"]
     out = vgg_stem(img, w11, b11, w12, b12)
     assert launch_counts["vgg_stem"] == n + 1
     ref = vgg_stem_plain(img, w11, b11, w12, b12)
     for o, r in zip(out, ref):
         assert _rel(o, r) <= CONV_REL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(out, vgg_stem(img, w11, b11, w12, b12)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u8", [True, False])
+def test_stem_single_tile_float64(cuda, u8):
+    """At one 8x16 tile (uint8, and bf16 as the normalize kernel gives it):
+    the kernel's a1 within one bf16 ulp of the largest value of the float64
+    conv1_1 over the same bf16 image values (a uint8 image normalised as
+    bf16(bf16(u8) / bf16(255))), its skip within one ulp of the float64
+    conv1_2 over its own a1, its pooled the 2x2 max of its skip; prints the
+    kernel's and the plain version's readings (pytest -s)."""
+    import torch.nn.functional as F
+
+    from chip_smoke import SINGLE_TILE_STORE_REL_TOL
+    from tpu_unet_torch.core.precision import normalize_u8
+    from tpu_unet_torch.kernels._plain import conv3x3_relu, max_pool2x2
+    from tpu_unet_torch.kernels.stem import _vgg_stem_cuda
+
+    img = torch.randint(0, 256, (1, 8, 16, 3), generator=cuda, device="cuda", dtype=torch.uint8)
+    x = img if u8 else normalize_u8(img, torch.bfloat16)
+    xb = normalize_u8(img, torch.bfloat16)
+    w11, b11 = _conv(cuda, 64, 3)
+    w12, b12 = _conv(cuda, 64, 64)
+    skip, pooled, a1 = _vgg_stem_cuda(x, w11, b11, w12, b12)
+    pa1 = conv3x3_relu(xb, w11, b11)
+    pskip = conv3x3_relu(pa1, w12, b12)
+
+    def conv64(v, w, b):
+        y = F.conv2d(v.permute(0, 3, 1, 2).double(), w.double(), b.double(), padding=1)
+        return torch.relu(y).permute(0, 2, 3, 1)
+
+    readings = {"a1": {"kernel_vs_float64": _rel(a1, conv64(xb, w11, b11)),
+                       "plain_vs_float64": _rel(pa1, conv64(xb, w11, b11))},
+                "skip": {"kernel_vs_float64": _rel(skip, conv64(a1, w12, b12)),
+                         "plain_vs_float64": _rel(pskip, conv64(pa1, w12, b12))}}
+    print(u8, readings)
+    for name, r in readings.items():
+        assert r["kernel_vs_float64"] <= SINGLE_TILE_STORE_REL_TOL, name
+    assert torch.equal(pooled, max_pool2x2(skip))
 
 
 @pytest.mark.gpu
 def test_stem_kernel_bf16_input(cuda):
     """The single-image forward's input: the normalize kernel's bf16 output
-    (the stem's ImageLoader<false> branch)."""
+    (conv1_1's gather of a bf16 image)."""
     from tpu_unet_torch.kernels import launch_counts
     from tpu_unet_torch.kernels.preprocess import normalize_images
     from tpu_unet_torch.kernels.stem import vgg_stem, vgg_stem_plain
@@ -951,10 +1000,59 @@ def test_upconv_bwd_kernel(cuda, h, w):
 
 
 @pytest.mark.gpu
+def test_upconv_bwd_single_tile_float64(cuda):
+    """#12 at one 8x16 output tile, each reading against float64 from the
+    kernel's own bf16 inputs: dz1 (from g2 = g · [out > 0], exact) and dups
+    (from its own dz1) within one bf16 ulp of the largest value of the
+    float64 dgrads; dk2 / db2 (from g2 and y1) and dk1 / db1
+    (from its own dz1 and up = up2x(x), the plain bf16 upsample's, bit for
+    bit) within float32's sums over 128 pixels; dx within one ulp of the
+    float64 adjoint of its own dups.  Prints the readings (pytest -s)."""
+    import torch.nn.functional as F
+
+    from chip_smoke import SINGLE_TILE_DK_REL_TOL, SINGLE_TILE_STORE_REL_TOL
+    from tpu_unet_torch.kernels.decoder_train import flip_t
+    from tpu_unet_torch.kernels.upconv import _upconv_bwd_cuda
+    from tpu_unet_torch.nn.resize import upsample2x, upsample2x_adjoint_plain
+
+    f64 = torch.float64
+    x = _act(cuda, 1, 4, 8, 64)
+    g = torch.randn((1, 8, 16, 64), generator=cuda, device="cuda").to(torch.bfloat16)
+    out, y1 = _act(cuda, 1, 8, 16, 64), _act(cuda, 1, 8, 16, 64)
+    w1, _ = _conv(cuda, 64, 64)
+    w2, _ = _conv(cuda, 64, 64)
+    dx, dk1, db1, dk2, db2, dz1, dups = _upconv_bwd_cuda(g, out, y1, x, w1, w2)
+    g2 = torch.where(out > 0, g, 0)
+
+    def dgrad64(v, w):
+        return F.conv2d(v.permute(0, 3, 1, 2).to(f64), flip_t(w).to(f64), padding=1) \
+            .permute(0, 2, 3, 1)
+
+    def wgrad64(gout, v):
+        like = torch.empty((64, v.shape[-1], 3, 3), dtype=f64, device="cuda")
+        return torch.ops.aten.convolution_backward(
+            gout.permute(0, 3, 1, 2).to(f64), v.permute(0, 3, 1, 2).to(f64), like, None,
+            [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False])[1]
+
+    up = upsample2x(x)
+    readings = {"dz1": _rel(dz1, torch.where(y1 > 0, dgrad64(g2, w2), 0)),
+                "dups": _rel(dups, dgrad64(dz1, w1)),
+                "dx": _rel(dx, upsample2x_adjoint_plain(dups.to(f64), 4, 8)),
+                "dk2": _rel(dk2, wgrad64(g2, y1)), "db2": _rel(db2, g2.to(f64).sum((0, 1, 2))),
+                "dk1": _rel(dk1, wgrad64(dz1, up)), "db1": _rel(db1, dz1.to(f64).sum((0, 1, 2)))}
+    print(readings)
+    for name in ("dz1", "dups", "dx"):
+        assert readings[name] <= SINGLE_TILE_STORE_REL_TOL, name
+    for name in ("dk2", "db2", "dk1", "db1"):
+        assert readings[name] <= SINGLE_TILE_DK_REL_TOL, name
+
+
+@pytest.mark.gpu
 def test_upconv_train_on_card(cuda):
     """``upconv_train`` on the card, bf16: one launch of the forward kernel
-    keeping y1 and one of #12; its gradients are #12's on that forward's
-    own out and y1, cast as ``_t_bwd`` casts them (bit for bit); against
+    keeping y1 and one of #12, each after an upsample launch; its
+    gradients are #12's on that forward's own out and y1, cast as
+    ``_t_bwd`` casts them (bit for bit); against
     autograd of ``upconv_plain`` in float32 on the same values, the output
     within CONV_REL_TOL and every gradient at a cosine ≥ 0.99 (the bf16
     forward puts a pre-activation near 0 on the other side of its ReLU now
@@ -971,7 +1069,7 @@ def test_upconv_train_on_card(cuda):
     reset_launch_counts()
     out = upconv_train(*args)
     grads = torch.autograd.grad(out, args, g)
-    assert {k: v for k, v in launch_counts.items() if v} == {"upconv": 1, "upsample2x": 1,
+    assert {k: v for k, v in launch_counts.items() if v} == {"upconv": 1, "upsample2x": 2,
                                                               "upconv_bwd": 1}
     with torch.no_grad():
         out_k, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
@@ -1004,10 +1102,10 @@ def test_upconv_bwd_rejects_untileable_shape(cuda):
 
 
 # unet_resnet50's default-route step at 256² (every decoder stage and the
-# head tile): the stage kernels 4 each (the upsample 9: in #1 and in
-# unetup_wgrad, and in the head's forward), the head's 1 each, the loss's 1
-# each
-RN50_LAUNCHES = {"unetup": 4, "upsample2x": 9, "unetup_bwd": 4, "unetup_wgrad": 4,
+# head tile): the stage kernels 4 each (the upsample 10: in #1 and in
+# unetup_wgrad, and in the head's forward and backward), the head's 1 each,
+# the loss's 1 each
+RN50_LAUNCHES = {"unetup": 4, "upsample2x": 10, "unetup_bwd": 4, "unetup_wgrad": 4,
                  "upsample_adjoint": 4,
                  "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
 

@@ -1,7 +1,7 @@
 // The Hopper conv core: 3x3 SAME convolution as an implicit GEMM on wgmma,
 // its operands brought by TMA through an mbarrier ring.
 //
-// What it computes is conv3x3.cuh's function:
+// What it computes:
 //   out[b, y, x, n] = epi(sum_k A[(b, y, x), k] * Wt[n, k])
 // with k = (ky * 3 + kx) * Ct + c, A the NHWC bf16 input and Wt the packed
 // weights (F, 9 Ct) of _build.pack_conv3x3 (K contiguous).  The input is
@@ -51,7 +51,7 @@
 // adjacent, so the blocks that share a patch's input run together out of
 // L2.
 //
-// Epilogues (template OP, as conv3x3.cuh's): bias + ReLU + bf16 and, with
+// Epilogues (template OP): bias + ReLU + bf16 and, with
 // OP_FWD_POOL, the 2x2 max-pooled tile too (the forward); the dgrad's
 // out = v * [mask > 0] (OP_DGRAD_MASK); the dgrad's plain bf16 store split
 // at a channel S that the launch record carries (OP_DGRAD_SPLIT: channels

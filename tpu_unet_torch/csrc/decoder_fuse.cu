@@ -8,7 +8,7 @@
 // launches:
 //   1. tu_upsample2x writes up = up2x(x) (B, 2H, 2W, Cx) in bf16, once:
 //      one thread an output pixel's 8 channels, 16-byte loads and stores,
-//      the lerp of conv3x3.cuh::up2x_lerp8 (bit-equal to the plain
+//      the lerp of csrc/upsample2x.cuh::up2x_lerp8 (bit-equal to the plain
 //      version).  Bound by bytes: it reads x and writes up, a quarter of
 //      the stage's activation traffic at most;
 //   2. conv1 on the Hopper conv core (csrc/conv3x3_sm90.cuh) over two input
@@ -25,10 +25,10 @@
 // bf16 pass over the up half of conv1's input (about 2 bytes a pixel and
 // channel of 9 * Ct * 2 FLOP); the lerp inside the ring (a producer
 // warpgroup filling the up slices from TMA boxes of x) would save it.
-#include "conv3x3.cuh"
 #include "conv3x3_sm90.cuh"
+#include "upsample2x.cuh"
 
-using tu::bf16;
+using bf16 = __nv_bfloat16;
 
 namespace {
 

@@ -44,19 +44,19 @@
 // wgrad_sm90.cuh takes them; B's 27 im2col columns (k = tap * 3 + c,
 // padded to 64 with zeros) are gathered by the producer warpgroup, a
 // thread a pixel of the 8 x 16 patch, and stored in the layout of a
-// 128-byte-swizzled TMA box, so one consumer warpgroup reads both with
+// 128-byte-swizzled TMA box (csrc/image_gather.cuh, shared with the
+// stem's forward), so one consumer warpgroup reads both with
 // wgrad_sm90.cuh's descriptors (64 f x 64 columns).  Two blocks an SM,
 // split over the patches, each a ring of 3 stages: a producer thread waits
 // on its pixel's loads stage by stage, so the second block's producer
-// gathers while the first's waits.  On the mma.sync GEMM of
-// csrc/wgrad.cuh (the image loader, 32 pixels a stage) it took 0.617 ms
-// with its reduce pass on an H100 (700 W), 7.7 times that floor.  The
-// stem computes no image gradient, as JAX's does not.
+// gathers while the first's waits.  The stem computes no image gradient,
+// as JAX's does not.
 //
 // Bound on the H100: operations — per conv a dgrad and a weight gradient
 // of 2 * 9 * P * Cin * Cout each (the stem at 512x512, batch 8: 0.33 ms at
 // 989 TFLOP/s bf16; block 2 0.469 ms; blocks 3-5 0.24-0.78 ms).
 // Shapes: H % 8, W % 16, widths % 64 (the image's 3 channels apart).
+#include "image_gather.cuh"
 #include "relu_grad.cuh"
 #include "wgrad_sm90.cuh"
 
@@ -119,8 +119,6 @@ pool_relu_grad_kernel(const bf16* __restrict__ dskip, const bf16* __restrict__ d
 namespace sm90 {
 namespace {
 
-constexpr int IMG_K = 27;  // the image's im2col columns: 9 taps x 3 channels
-
 // two blocks an SM, so that one's producer gathers while the other's waits
 // on its loads
 struct WgradImageSmem {
@@ -173,28 +171,8 @@ wgrad_image_kernel(const __grid_constant__ CUtensorMap gmap, const bf16* __restr
         mbar_expect_tx(&full[st], BOX_BYTES);
         tma_load_4d(base, &gmap, &full[st], f0, x0, y0, b);
       }
-      __align__(16) bf16 v[64];
-#pragma unroll
-      for (int k = IMG_K; k < 64; ++k) v[k] = __float2bfloat16_rn(0.f);
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {  // SAME padding: zeros outside the image
-        const int iy = y0 + py + tap / 3 - 1, ix = x0 + px + tap % 3 - 1;
-        if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W) {
-          const bf16* src = img + ((static_cast<size_t>(b) * p.H + iy) * p.W + ix) * 3;
-#pragma unroll
-          for (int c = 0; c < 3; ++c) v[tap * 3 + c] = src[c];
-        } else {
-#pragma unroll
-          for (int c = 0; c < 3; ++c) v[tap * 3 + c] = __float2bfloat16_rn(0.f);
-        }
-      }
-      // logical 16-byte chunk j of row pt at physical chunk j ^ (pt % 8),
-      // as TMA's 128-byte swizzle stores it
-      uint8_t* row = base + BOX_BYTES + pt * 128;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint4*>(row + ((j ^ (pt & 7)) << 4)) =
-            *reinterpret_cast<const uint4*>(&v[8 * j]);
+      gather_image_row<false>(img, nullptr, b, p.H, p.W, y0 + py, x0 + px, base + BOX_BYTES,
+                              pt);
       fence_proxy_async();
       mbar_arrive(&full[st]);
     }

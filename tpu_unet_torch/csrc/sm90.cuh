@@ -1,6 +1,7 @@
 // Hopper building blocks of the port's sm_90a kernels (csrc/conv3x3_sm90.cuh,
-// csrc/wgrad_sm90.cuh): mbarriers, TMA tile loads, wgmma descriptors and
-// the m64nNk16 bf16 products with float32 accumulators, and, on the host,
+// csrc/wgrad_sm90.cuh and the stem's image GEMMs): mbarriers, TMA tile
+// loads, wgmma descriptors and the m64nNk16 bf16 products with float32
+// accumulators, and, on the host,
 // the tensor maps and the launch records that the Python side plans
 // (tpu_unet_torch/kernels/sm90.py).
 //
@@ -278,7 +279,7 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
 // (the conv's second input map).  The ring's stages and shared memory
 // follow from the tile at compile time.
 enum { OP_FWD = 0, OP_FWD_POOL = 1, OP_DGRAD_MASK = 2, OP_DGRAD_SPLIT = 3, OP_WGRAD = 4,
-       OP_WGRAD_IMAGE = 5 };
+       OP_WGRAD_IMAGE = 5, OP_FWD_IMAGE = 6 };
 constexpr int HEAD_WORDS = 10, MAP_WORDS = 12, PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS;
 
 struct Launch {

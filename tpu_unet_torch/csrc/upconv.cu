@@ -1,5 +1,5 @@
 // upconv: the up_conv head of unet_resnet50 and self_net, forward and
-// backward.  Forward (tu_upconv) —
+// backward, both on the Hopper kernels.  Forward (tu_upconv) —
 //   relu(conv2(relu(conv1(up2x_align_corners(x)))))
 // with both convs 3x3 SAME and no skip.
 //
@@ -26,12 +26,11 @@
 // ms, at self_net's 8x512x512x64 -> 8x1024x1024x64).  Storing up costs
 // one bf16 write and read of conv1's input (0.27 GB at the unet_resnet50
 // head, 1.07 GB at self_net's); the lerp inside the ring would save it.
-#include "conv3x3.cuh"
-#include "conv3x3_sm90.cuh"
+#include "relu_grad.cuh"
 #include "upsample_adjoint.cuh"
-#include "wgrad.cuh"
+#include "wgrad_sm90.cuh"
 
-using tu::bf16;
+using bf16 = __nv_bfloat16;
 
 // up (B, H2, W2, Cx) = up2x(x); plan: conv1's and conv2's launch records
 // (kernels/sm90.py::encode), both OP_FWD over one input map.
@@ -54,12 +53,12 @@ extern "C" int tu_upconv(const bf16* up, const bf16* w1, const float* b1, const 
       l2.w, y1, nullptr, w2, sm90::ConvArgs{b2, nullptr, out, nullptr, H2, W2, F, F}, stream);
 }
 
-// tu_upconv_bwd: the head's backward for training, from the forward's out,
-// y1 and x and the output gradient g (B, 2H, 2W, F) —
+// tu_upconv_bwd: the head's backward for training, from the forward's out
+// and y1, up = up2x(x) and the output gradient g (B, 2H, 2W, F) —
 //   g2   = g * [out > 0]                          (conv2's ReLU)
 //   dz1  = conv3x3(g2, flipT(w2)) * [y1 > 0]      (conv2 dgrad, conv1's ReLU)
 //   dups = conv3x3(dz1, flipT(w1))                (conv1 dgrad, Cx channels)
-//   dk2, db2 = wgrad(y1, g2); dk1, db1 = wgrad(up2x(x), dz1)   (float32)
+//   dk2, db2 = wgrad(y1, g2); dk1, db1 = wgrad(up, dz1)   (float32)
 //   dx   = the x2 upsample's adjoint of dups      (B, H, W, Cx)
 //
 // Replaces tpu_unet/kernels/upconv.py::fused_upconv_bwd_impl (the Pallas call
@@ -68,45 +67,73 @@ extern "C" int tu_upconv(const bf16* up, const bf16* w1, const float* b1, const 
 // row tiles.  That kernel is a UnetUp stage backward without the skip, built
 // from decoder_train.py's helpers, so this port is the stage backward of
 // csrc/decoder_train.cu, csrc/unetup_wgrad.cu and csrc/upsample_adjoint.cuh
-// at Cs = 0, in one C entry: the dgrad pair on the mma.sync conv core
-// (csrc/conv3x3.cuh; the first masks g by out > 0 as its loader gathers
-// it and writes g2 once, its epilogue masks by y1 > 0; the second writes
-// all its channels to dups), the float32 weight-gradient GEMM of
-// csrc/wgrad.cuh for dk2 over y1 and for dk1 over csrc/conv3x3.cuh's
-// UpConcatLoader at Cs = 0 (so up2x(x) is lerped as the GEMM gathers it
-// and never stored), and the adjoint's gather.  g2, dz1 and dups go
-// through device memory; the TPU kernel keeps them in VMEM.  The split-K
-// partials are added in split order: bit-identical run to run.
+// at Cs = 0, six launches in one C entry per the host plan
+// (kernels/sm90.py::upconv_bwd_launches):
+//   1. the ReLU mask pass (csrc/relu_grad.cuh) writes g2: the conv core
+//      reads its operand by TMA, which cannot mask;
+//   2. conv2's dgrad on the Hopper conv core (csrc/conv3x3_sm90.cuh) over
+//      g2 with flipT(w2), its epilogue masking by y1 > 0 (OP_DGRAD_MASK)
+//      into dz1;
+//   3. dk2 / db2 on the Hopper weight-gradient GEMM (csrc/wgrad_sm90.cuh)
+//      over (g2, y1), with its split-K reduce pass: g2's last read;
+//   4. conv1's dgrad on the conv core over dz1 with flipT(w1) into dups,
+//      the split store at split = Cx (OP_DGRAD_SPLIT with every channel to
+//      its first output, as a VGG block's conv 0 writes dx; the core takes
+//      0 < split <= F, and a stage at Cs = 0 would split at 0).  dups may
+//      take g2's memory, so the head's backward holds one activation
+//      gradient less at the training step's peak (1.07 GB at self_net's);
+//   5. dk1 / db1 the same over (dz1, up); up is written by one more launch
+//      of the upsample kernel (the wrapper's, launch key upsample2x), as a
+//      decoder stage's weight gradients take it, so the training step
+//      keeps no `up` from the forward to the backward;
+//   6. the adjoint's gather (csrc/upsample_adjoint.cuh) writes dx.
+// g2, dz1 and dups go through device memory; the TPU kernel keeps them in
+// VMEM.  Both dgrads at the tile of conv_tile_m (256 x 64, persistent, at
+// both heads); the GEMMs at 64 f x 128 columns, their splits filling the
+// 132 SMs, each split at most 1280 patches of 8 x 16 pixels
+// (sm90.py::MAX_SPLIT_PATCHES: 52 splits at self_net's 8.4M pixels, whose
+// float32 runs at 23 splits read dk2 3.8e-4 of max |dk2| from float64 on
+// an H100); the partials are added in split order, so the result is
+// bit-identical run to run.
 //
 // Bound on the H100: operations (four 3x3 GEMM-convs of 2 * 9 * P * 64 * 64
 // at P = 8 x 512 x 512, the unet_resnet50 head at batch 8: 618 GFLOP,
-// 0.625 ms at 989 TFLOP/s; the least bytes, g, out, y1, x and dx, 0.94 GB,
-// 0.28 ms at 3.35 TB/s).  The design is the single-stage mma.sync core
-// (csrc/conv3x3.cuh, csrc/wgrad.cuh), at 10% of that bound.  Shapes:
-// 2H % 8, 2W % 16, Cx % 64, F % 64 all 0.
-// work1 holds ns1 * F * (9 * Cx + 1) floats, work2 ns2 * F * (9 * F + 1).
-extern "C" int tu_upconv_bwd(const bf16* g, const bf16* out, const bf16* y1, const bf16* x,
-                             const int* ridx, const float* rw, const int* cidx,
-                             const float* cw, const int* aridx, const float* arw, int anr,
-                             const int* acidx, const float* acw, int anc, const bf16* w2t,
-                             const bf16* w1t, bf16* g2, bf16* dz1, bf16* dups, float* work1,
-                             float* work2, float* dk1, float* db1, float* dk2, float* db2,
-                             bf16* dx, int B, int H2, int W2, int Cx, int F, int ns1, int ns2,
-                             cudaStream_t stream) {
-  const tu::ReluGradLoader lg{g, out, g2, H2, W2, F};
-  cudaError_t e = tu::launch_conv3x3_grad<tu::ReluGradLoader, tu::EPI_MASK>(
-      lg, w2t, y1, dz1, nullptr, B, H2, W2, 9 * F, F, F, stream);
+// 0.625 ms at 989 TFLOP/s; self_net's at 8 x 1024 x 1024, 2.50 ms; the
+// least bytes, g, out, y1, x and dx, 0.94 GB, 0.28 ms at 3.35 TB/s).  The
+// mask pass moves 6 bytes a value and the stored up 4 (0.25 / 0.16 ms at
+// the unet_resnet50 head).  Shapes: 2H % 8, 2W % 16, Cx % 64, F % 64 all 0.
+// plan: four launch records, conv2's dgrad (OP_DGRAD_MASK), conv1's
+// (OP_DGRAD_SPLIT at Cx), dk2's GEMM and dk1's (OP_WGRAD); work holds the
+// larger GEMM's nsplit * F * (9 * tap_width(C) + 1) floats; dups may share
+// g2's memory (it is written after g2's last read).
+extern "C" int tu_upconv_bwd(const bf16* g, const bf16* out, const bf16* y1, const bf16* up,
+                             const int* aridx, const float* arw, int anr, const int* acidx,
+                             const float* acw, int anc, const bf16* w2t, const bf16* w1t,
+                             bf16* g2, bf16* dz1, bf16* dups, float* work, float* dk1,
+                             float* db1, float* dk2, float* db2, bf16* dx, int B, int H2,
+                             int W2, int Cx, int F, const int64_t* plan, cudaStream_t stream) {
+  namespace sm90 = tu::sm90;
+  if (plan == nullptr) return cudaErrorInvalidValue;
+  const int64_t* r2 = plan;
+  const int64_t* r1 = plan + sm90::PLAN_WORDS;
+  if (r2[0] != sm90::OP_DGRAD_MASK || r1[0] != sm90::OP_DGRAD_SPLIT ||
+      sm90::Launch{r1}.split() != Cx)
+    return cudaErrorInvalidValue;
+  cudaError_t e =
+      tu::launch_relu_grad(g, out, g2, static_cast<size_t>(B) * H2 * W2 * (F / 8), stream);
   if (e != cudaSuccess) return e;
-  // no skip channels: EPI_SPLIT at Fa = 0 writes every channel to dups
-  e = tu::launch_conv3x3_grad<tu::NhwcLoader, tu::EPI_SPLIT>(
-      tu::NhwcLoader{dz1, H2, W2, F}, w1t, nullptr, nullptr, dups, B, H2, W2, 9 * F, Cx, 0,
-      stream);
+  e = sm90::launch_conv_sm90(r2, g2, nullptr, w2t,
+                             sm90::ConvArgs{nullptr, y1, dz1, nullptr, H2, W2, F, F}, stream);
   if (e != cudaSuccess) return e;
-  e = tu::launch_wgrad(tu::NhwcLoader{y1, H2, W2, F}, g2, work2, dk2, db2, B, H2, W2, F, F, ns2,
-                       stream);
+  e = sm90::launch_wgrad_sm90(plan + 2 * sm90::PLAN_WORDS, g2, y1, work, dk2, db2, B, H2, W2, F,
+                              F, stream);
   if (e != cudaSuccess) return e;
-  const tu::UpConcatLoader up{nullptr, x, ridx, rw, cidx, cw, H2, W2, 0, Cx};
-  e = tu::launch_wgrad(up, dz1, work1, dk1, db1, B, H2, W2, Cx, F, ns1, stream);
+  e = sm90::launch_conv_sm90(r1, dz1, nullptr, w1t,
+                             sm90::ConvArgs{nullptr, nullptr, dups, nullptr, H2, W2, F, Cx},
+                             stream);
+  if (e != cudaSuccess) return e;
+  e = sm90::launch_wgrad_sm90(plan + 3 * sm90::PLAN_WORDS, dz1, up, work, dk1, db1, B, H2, W2,
+                              Cx, F, stream);
   if (e != cudaSuccess) return e;
   return tu::launch_upsample_adjoint(dups, aridx, arw, anr, acidx, acw, anc, dx, B, H2 / 2,
                                      W2 / 2, Cx, stream);

@@ -3,8 +3,8 @@
 //   dk[f, tap * Cp + c] = sum_p G[p, f] * A[p + (ky - 1, kx - 1), c]
 //   db[f]               = sum_p G[p, f]
 // in float32, D (F x 9Cp) = G^T * im2col(A) with the pixels as the
-// reduction dimension (csrc/wgrad.cuh's function, on wgmma and TMA); each
-// tap's C columns padded to Cp = 64 * ceil(C / 64).
+// reduction dimension, on wgmma and TMA; each tap's C columns padded to
+// Cp = 64 * ceil(C / 64).
 //
 // Operands come straight from TMA boxes of the natural NHWC tensors over
 // 8 x 16 pixel patches (a K step of 128 pixels), 128-byte swizzled:

@@ -42,8 +42,9 @@ SIGNATURES = {
     "tu_final_argmax": [_P] * 4 + [_I] * 3 + [_P],
     # u8 in, out, n (int64), out is bf16, stream
     "tu_normalize_images": [_P, _P, ctypes.c_longlong, _I, _P],
-    # img, is_u8, w11, b11, w12, b12, a1, skip, pooled, B, H, W, F, stream
-    "tu_vgg_stem": [_P, _I] + [_P] * 7 + [_I] * 4 + [_P],
+    # img, is_u8, w11, b11, w12, b12, a1, skip, pooled, B, H, W, F,
+    # plan (int64 launch records), stream
+    "tu_vgg_stem": [_P, _I] + [_P] * 7 + [_I] * 4 + [_P, _P],
     # x, n_convs, ws[3], bs[3], mids[2], skip, pooled, B, H, W, chans[4],
     # plan (int64 launch records, three convs), stream
     "tu_vgg_block": [_P, _I] + [_P] * 10 + [_I] * 7 + [_P, _P],
@@ -55,10 +56,10 @@ SIGNATURES = {
     # up, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F,
     # plan (int64 launch records), stream
     "tu_upconv": [_P] * 7 + [_I] * 5 + [_P, _P],
-    # g, out, y1, x, ridx, rw, cidx, cw, aridx, arw, anr, acidx, acw, anc,
-    # w2t, w1t, g2, dz1, dups, work1, work2, dk1, db1, dk2, db2, dx,
-    # B, H2, W2, Cx, F, ns1, ns2, stream
-    "tu_upconv_bwd": [_P] * 10 + [_I] + [_P] * 2 + [_I] + [_P] * 12 + [_I] * 7 + [_P],
+    # g, out, y1, up, aridx, arw, anr, acidx, acw, anc, w2t, w1t, g2, dz1,
+    # dups, work, dk1, db1, dk2, db2, dx, B, H2, W2, Cx, F,
+    # plan (int64 launch records), stream
+    "tu_upconv_bwd": [_P] * 6 + [_I] + [_P] * 2 + [_I] + [_P] * 11 + [_I] * 5 + [_P, _P],
     # logits, out, n_pix (int64), C, logits are bf16, out is uint8, stream
     "tu_argmax_mask": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
     # mask, mask is int32, img, palette, C, alpha, 1 - alpha, out,
@@ -249,8 +250,12 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
 
 def pack_conv3x3(w: torch.Tensor, k_pad: int | None = None) -> torch.Tensor:
     """OIHW (F, C, 3, 3) conv weight → (F, K) bf16 with
-    K index ``(ky * 3 + kx) * C + c``, zero-padded to ``k_pad`` columns:
-    the B operand layout of ``csrc/conv3x3.cuh`` (K contiguous)."""
+    K index ``(ky * 3 + kx) * C + c``, zero-padded to ``k_pad`` columns, K
+    contiguous: the weight operand of the Hopper conv core, which reads it
+    as (F, 9, C) through TMA boxes of one tap's 64 channels
+    (``csrc/conv3x3_sm90.cuh``; ``kernels/sm90.py::weight_map``), and, at
+    C = 3 padded to 64 columns, of the stem's conv1_1 GEMM
+    (``csrc/stem.cu``)."""
     f, c = w.shape[0], w.shape[1]
     p = w.permute(0, 2, 3, 1).reshape(f, 9 * c).to(torch.bfloat16)
     if k_pad is not None and k_pad > 9 * c:

@@ -48,13 +48,6 @@ from tpu_unet_torch.kernels._plain import on_cpu
 from tpu_unet_torch.nn.resize import (adjoint_tables, lerp_tables, upsample2x,
                                       upsample2x_adjoint_plain)
 
-# the split-K of the mma.sync weight-gradient GEMM (csrc/wgrad.cuh, the
-# up_conv head's backward): about this many blocks per
-# GEMM (8 a streaming multiprocessor of the H100's 132), at least 8 pixel
-# chunks of 32 a split
-WGRAD_BLOCKS = 8 * 132
-WGRAD_CHUNK = 32
-
 
 def flip_t(w: torch.Tensor) -> torch.Tensor:
     """dgrad weights: OIHW (F, C, 3, 3) → (C, F, 3, 3), flipped in ky/kx."""
@@ -64,8 +57,8 @@ def flip_t(w: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=32)
 def up2x_tables(h: int, w: int, device: torch.device):
     """Row and column (idx, wts) tables of the ×2 align-corners upsample,
-    with bf16-rounded weights, on ``device`` (what the upsample kernel and
-    the head's concat loader read)."""
+    with bf16-rounded weights, on ``device`` (what the upsample kernel
+    reads)."""
     ridx, rw = lerp_tables(h, 2 * h, True, torch.bfloat16)
     cidx, cw = lerp_tables(w, 2 * w, True, torch.bfloat16)
     return tuple(t.contiguous().to(device) for t in (ridx, rw, cidx, cw))
@@ -201,21 +194,6 @@ def wgrad_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int):
     launches = sm90.unetup_wgrad_launches(B, H2, W2, cs, cx, f)
     return (sm90.encode(launches), tuple(ln["nsplit"] for ln in launches),
             sm90.wgrad_work(launches, f))
-
-
-def _wgrad_splits(tiles: int, n_pix: int) -> int:
-    chunks = n_pix // WGRAD_CHUNK
-    return max(1, min(-(-WGRAD_BLOCKS // tiles), chunks // 8))
-
-
-def _wgrad_buffers(f: int, c: int, n_pix: int, device):
-    """One weight-gradient GEMM (``csrc/wgrad.cuh``, 9C % 64 == 0) over
-    ``n_pix`` pixels: its split count, float32 work (the split partials and
-    bias partials) and outputs dk (F, C, 3, 3), db (F)."""
-    ns = _wgrad_splits((f // 64) * (9 * c // 64), n_pix)
-    f32 = dict(dtype=torch.float32, device=device)
-    return (ns, torch.empty(ns * f * (9 * c + 1), **f32), torch.empty((f, c, 3, 3), **f32),
-            torch.empty(f, **f32))
 
 
 def _unetup_wgrad_cuda(skip, x, dz1, y1, g2):

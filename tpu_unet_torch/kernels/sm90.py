@@ -1,5 +1,6 @@
-"""Host plan of the Hopper conv core (``csrc/conv3x3_sm90.cuh``) and
-weight-gradient GEMM (``csrc/wgrad_sm90.cuh``).
+"""Host plan of the Hopper conv core (``csrc/conv3x3_sm90.cuh``), the
+weight-gradient GEMM (``csrc/wgrad_sm90.cuh``) and the stem's image GEMMs
+(``csrc/stem.cu``, ``csrc/encoder_train.cu``).
 
 Everything such a kernel is told comes from here: its tile, its grid, its
 split count and the TMA tensor maps (dims, byte strides, boxes) of its
@@ -26,7 +27,8 @@ CONSUMERS = 256                    # two consumer warpgroups (and one producer)
 RING_BYTES = 192 * 1024            # the TMA ring (the conv kernel's where it stages in it)
 SMEM_MAX = 232448                  # a block's dynamic shared memory on an H100, 227 KB
 SMS = 132                          # an H100 SXM's streaming multiprocessors
-OP_FWD, OP_FWD_POOL, OP_DGRAD_MASK, OP_DGRAD_SPLIT, OP_WGRAD, OP_WGRAD_IMAGE = range(6)
+OP_FWD, OP_FWD_POOL, OP_DGRAD_MASK, OP_DGRAD_SPLIT, OP_WGRAD, OP_WGRAD_IMAGE, OP_FWD_IMAGE = \
+    range(7)
 HEAD_WORDS, MAP_WORDS = 10, 12
 PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS
 
@@ -179,13 +181,23 @@ def k_walk(C: int, C2: int = 0):
     return out
 
 
+# the most 8 × 16 patches a weight-gradient split sums in one float32
+# accumulator: its error grows with that run (self_net's head at 8.4M
+# pixels, 23 splits of 2849 patches, read dk2 3.8e-4 of max |dk2| from a
+# float64 evaluation on an H100); every other GEMM of the port at 512²,
+# batch 8 runs at most 1260 and keeps its splits
+MAX_SPLIT_PATCHES = 1280
+
+
 def wgrad_splits(tiles: int, npatch: int) -> int:
     """The split count of a weight-gradient GEMM with ``tiles`` output tiles
     over ``npatch`` pixel patches: the smallest that fills the last wave of
     blocks on the SMs to 85% or gives at least 4 waves, each split keeping
-    at least 8 patches (else the best fill found)."""
-    best, best_fill = 1, 0.0
-    for ns in range(1, max(1, npatch // 8) + 1):
+    at least 8 patches and at most ``MAX_SPLIT_PATCHES`` (else the best
+    fill found)."""
+    least = -(-npatch // MAX_SPLIT_PATCHES)
+    best, best_fill = least, 0.0
+    for ns in range(least, max(least, npatch // 8) + 1):
         waves = tiles * ns / SMS
         fill = waves / math.ceil(waves)
         if fill >= 0.85 or waves >= 4:
@@ -249,6 +261,33 @@ def wgrad_image_launch(B: int, H: int, W: int, F: int) -> dict:
             "smem": stages * 2 * BOX_BYTES + 128 * 8 * 4 + 2 * stages * 8 + 1024,
             "stages": stages, "nsplit": ns, "npatch": npatch, "k": 64, "out": (3, 0, 1),
             "maps": [nhwc_map(B, H, W, F)]}
+
+
+IMAGE_FWD_STAGES = 4  # csrc/stem.cu::ImageFwdSmem
+
+
+def image_fwd_smem() -> int:
+    """Dynamic shared memory of conv1_1's forward GEMM: a ring of gathered
+    128-pixel tiles, the block's 64 f × 64 columns of the weights, the
+    epilogue's bf16 tile (rows of 72), the uint8 normalisation table (256
+    bf16), the barriers and the alignment."""
+    return (IMAGE_FWD_STAGES * BOX_BYTES + 64 * SLICE_C * 2 + PATCH * (64 + 8) * 2 + 256 * 2
+            + 2 * IMAGE_FWD_STAGES * 8 + 1024)
+
+
+def image_fwd_launch(B: int, H: int, W: int, F: int) -> dict:
+    """The stem's conv1_1 forward (``csrc/stem.cu::conv_image_kernel``,
+    ``OP_FWD_IMAGE``): a1 = relu(im2col(image) · W11ᵀ + b11) with the 27
+    im2col columns (k = tap · 3 + c) padded to 64 and gathered by the
+    producer warpgroup (no TMA box takes the image: no tensor map).  Tile
+    128 pixels (an 8 × 16 patch) × 64 output channels; grid y the F / 64
+    channel tiles, grid x blocks that walk the patches, two an SM: the GEMM
+    is bound by writing a1."""
+    npatch = B * (H // PATCH_H) * (W // PATCH_W)
+    blocks = max(1, min(npatch, 2 * SMS // (F // 64)))
+    return {"op": OP_FWD_IMAGE, "tile": (PATCH, 64), "grid": (blocks, F // 64, 1),
+            "smem": image_fwd_smem(), "stages": IMAGE_FWD_STAGES, "nsplit": 1,
+            "npatch": npatch, "maps": []}
 
 
 def wgrad_work(launches, F: int) -> int:
@@ -327,6 +366,27 @@ def stem_bwd_launches(B: int, H: int, W: int, F: int):
     :func:`conv_tile_m`."""
     return [wgrad_image_launch(B, H, W, F), None,
             *block_bwd_launches(B, H, W, [F, F, F], False)[2:]]
+
+
+def stem_fwd_launches(B: int, H: int, W: int, F: int):
+    """The stem's forward (#2): conv1_1 over the image into a1
+    (:func:`image_fwd_launch`), then conv1_2 over a1 with bias + ReLU and
+    the 2 × 2 max-pool in its epilogue (``OP_FWD_POOL``) at the tile of
+    :func:`conv_tile_m`, as block 2's second conv runs."""
+    return [image_fwd_launch(B, H, W, F),
+            conv_launch(OP_FWD_POOL, B, H, W, F, F, 0, conv_tile_m(H, F))]
+
+
+def upconv_bwd_launches(B: int, H2: int, W2: int, Cx: int, F: int):
+    """The ``up_conv`` head's backward (#12), the stage backward at Cs = 0:
+    conv2's dgrad masked by y1 > 0 into dz1 (:func:`unetup_bwd_launches`'s
+    first); conv1's dgrad over dz1 (F → Cx) with every channel to dups
+    (``OP_DGRAD_SPLIT`` at split = Cx, as a block's conv 0 writes dx: the
+    core takes 0 < split ≤ F); the weight gradients dk2 / db2 over (g2, y1)
+    and dk1 / db1 over (dz1, up) (:func:`wgrad_launch`)."""
+    return [unetup_bwd_launches(B, H2, W2, 0, Cx, F)[0],
+            conv_launch(OP_DGRAD_SPLIT, B, H2, W2, F, Cx, 0, conv_tile_m(H2, Cx)),
+            wgrad_launch(B, H2, W2, F, F), wgrad_launch(B, H2, W2, Cx, F)]
 
 
 def unetup_wgrad_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):

@@ -14,8 +14,12 @@ CUDA kernels in ``csrc/upconv.cu``:
 - :func:`upconv_bwd`, the backward — replaces ``fused_upconv_bwd_impl``
   (#12): both ReLU VJPs, both dgrads, both weight gradients with their bias
   sums (float32) and the upsample's adjoint, the UnetUp stage backward of
-  ``kernels/decoder_train.py`` at zero skip channels, in one C entry on
-  the ``mma.sync`` core (``csrc/conv3x3.cuh``, ``csrc/wgrad.cuh``);
+  ``kernels/decoder_train.py`` at zero skip channels.  ``decoder_train.up2x``
+  writes ``up2x(x)`` again (launch key ``upsample2x``, as a stage's weight
+  gradients take it), then one C entry ``tu_upconv_bwd`` runs the ReLU mask
+  pass, both dgrads on the Hopper conv core, both weight gradients on the
+  Hopper GEMM (``csrc/wgrad_sm90.cuh``) and the adjoint, planned by
+  :func:`bwd_plan` (``sm90.upconv_bwd_launches``);
 - :func:`upconv_train`, the head for training (``fused_upconv_train``): the
   forward kernel keeping y1, the backward kernel.
 
@@ -23,13 +27,15 @@ Bounds and designs are in the source's notes.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.kernels import _build, sm90
 from tpu_unet_torch.kernels._plain import conv3x3_relu, on_cpu
 from tpu_unet_torch.kernels.decoder_fuse import stage_plan
-from tpu_unet_torch.kernels.decoder_train import (_adjoint_tables, _up2x_cuda, _wgrad_buffers,
-                                                  flip_t, unetup_bwd_full_plain, up2x_tables)
+from tpu_unet_torch.kernels.decoder_train import (_adjoint_tables, _up2x_cuda, flip_t,
+                                                  unetup_bwd_full_plain)
 from tpu_unet_torch.nn.resize import upsample2x
 
 
@@ -94,6 +100,48 @@ def upconv_bwd_plain(g, out, y1, x, w1, w2):
     return unetup_bwd_full_plain(g, out, y1, skip, x, w1, w2)[1:]
 
 
+@functools.lru_cache(maxsize=16)
+def bwd_plan(B: int, H2: int, W2: int, cx: int, f: int):
+    """The launch records of #12 on the Hopper kernels
+    (``sm90.upconv_bwd_launches``: conv2's masked dgrad, conv1's dgrad, the
+    dk2 and dk1 GEMMs), the two GEMMs' split counts and the float32 words of
+    the work area they share in turn."""
+    launches = sm90.upconv_bwd_launches(B, H2, W2, cx, f)
+    return (sm90.encode(launches), tuple(ln["nsplit"] for ln in launches[2:]),
+            sm90.wgrad_work(launches[2:], f))
+
+
+def _upconv_bwd_launch(g, out, y1, up, w1, w2):
+    """``tu_upconv_bwd`` on the forward's out and y1 and a given ``up`` =
+    up2x(x): (dx, dk1, db1, dk2, db2, dz1, dups), the last two the kernel's
+    own intermediates.  dups takes g2's memory: the kernel writes it after
+    g2's last read."""
+    B, H2, W2, f = g.shape
+    cx = up.shape[-1]
+    h, w, dev, bf = H2 // 2, W2 // 2, g.device, torch.bfloat16
+    plan, _, work_words = bwd_plan(B, H2, W2, cx, f)
+    aridx, arw, acidx, acw = _adjoint_tables(h, w, dev)
+    w2t = _build.pack_conv3x3(flip_t(w2))
+    w1t = _build.pack_conv3x3(flip_t(w1))
+    n = B * H2 * W2
+    g2_dups = torch.empty(n * max(f, cx), dtype=bf, device=dev)
+    g2, dups = g2_dups[:n * f].view(g.shape), g2_dups[:n * cx].view(B, H2, W2, cx)
+    dz1 = torch.empty_like(g)
+    dx = torch.empty((B, h, w, cx), dtype=bf, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    work = torch.empty(work_words, **f32)
+    dk1, db1 = torch.empty((f, cx, 3, 3), **f32), torch.empty(f, **f32)
+    dk2, db2 = torch.empty((f, f, 3, 3), **f32), torch.empty(f, **f32)
+    _build.call("tu_upconv_bwd", g.data_ptr(), out.data_ptr(), y1.data_ptr(), up.data_ptr(),
+                aridx.data_ptr(), arw.data_ptr(), aridx.shape[1], acidx.data_ptr(),
+                acw.data_ptr(), acidx.shape[1], w2t.data_ptr(), w1t.data_ptr(), g2.data_ptr(),
+                dz1.data_ptr(), dups.data_ptr(), work.data_ptr(), dk1.data_ptr(),
+                db1.data_ptr(), dk2.data_ptr(), db2.data_ptr(), dx.data_ptr(), B, H2, W2, cx, f,
+                plan.data_ptr())
+    _build.launch_counts["upconv_bwd"] += 1
+    return dx, dk1, db1, dk2, db2, dz1, dups
+
+
 def _upconv_bwd_cuda(g, out, y1, x, w1, w2):
     _build.no_grad_inputs("upconv_bwd", g, out, y1, x, w1, w2)
     B, H2, W2, f = g.shape
@@ -108,25 +156,7 @@ def _upconv_bwd_cuda(g, out, y1, x, w1, w2):
     _build.check(x, "x", bf, (B, H2 // 2, W2 // 2, cx), g.device)
     _build.check(w1, "w1", bf, (f, cx, 3, 3), g.device)
     _build.check(w2, "w2", bf, (f, f, 3, 3), g.device)
-    h, w, dev = H2 // 2, W2 // 2, g.device
-    ns1, work1, dk1, db1 = _wgrad_buffers(f, cx, B * H2 * W2, dev)
-    ns2, work2, dk2, db2 = _wgrad_buffers(f, f, B * H2 * W2, dev)
-    ridx, rw, cidx, cw = up2x_tables(h, w, dev)
-    aridx, arw, acidx, acw = _adjoint_tables(h, w, dev)
-    w2t = _build.pack_conv3x3(flip_t(w2))
-    w1t = _build.pack_conv3x3(flip_t(w1))
-    g2, dz1 = torch.empty_like(g), torch.empty_like(g)
-    dups = torch.empty((B, H2, W2, cx), dtype=bf, device=dev)
-    dx = torch.empty((B, h, w, cx), dtype=bf, device=dev)
-    _build.call("tu_upconv_bwd", g.data_ptr(), out.data_ptr(), y1.data_ptr(), x.data_ptr(),
-                ridx.data_ptr(), rw.data_ptr(), cidx.data_ptr(), cw.data_ptr(),
-                aridx.data_ptr(), arw.data_ptr(), aridx.shape[1], acidx.data_ptr(),
-                acw.data_ptr(), acidx.shape[1], w2t.data_ptr(), w1t.data_ptr(), g2.data_ptr(),
-                dz1.data_ptr(), dups.data_ptr(), work1.data_ptr(), work2.data_ptr(),
-                dk1.data_ptr(), db1.data_ptr(), dk2.data_ptr(), db2.data_ptr(), dx.data_ptr(),
-                B, H2, W2, cx, f, ns1, ns2)
-    _build.launch_counts["upconv_bwd"] += 1
-    return dx, dk1, db1, dk2, db2
+    return _upconv_bwd_launch(g, out, y1, _up2x_cuda(x), w1, w2)
 
 
 def upconv_bwd(g, out, y1, x, w1, w2):
@@ -134,7 +164,7 @@ def upconv_bwd(g, out, y1, x, w1, w2):
     CUDA kernel for tensors on the card (bf16; :func:`upconv_train_ok`)."""
     if on_cpu(g):
         return upconv_bwd_plain(g, out, y1, x, w1, w2)
-    return _upconv_bwd_cuda(g, out, y1, x, w1, w2)
+    return _upconv_bwd_cuda(g, out, y1, x, w1, w2)[:5]
 
 
 class _UpconvTrain(torch.autograd.Function):

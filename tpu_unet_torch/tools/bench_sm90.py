@@ -2,8 +2,8 @@
 
     python -m tpu_unet_torch.tools.bench_sm90 [part ...]
 
-with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head`` (all by
-default):
+with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
+``stem_fwd``, ``head_bwd`` (all by default):
 
 - the VGG16 blocks 2-5 in training (#21 / #23 forward, #22 / #24
   backward, all on the Hopper kernels) at unet_vgg's training shapes (512²
@@ -31,12 +31,23 @@ default):
   rounds, the median, autograd of the cuDNN chain, the share of the bound
   and the device time by kernel in launch order (the pool pass, conv1_2's
   GEMM and reduce pass and its masked dgrad on the Hopper kernels,
-  conv1_1's GEMM over the image on ``csrc/wgrad.cuh`` and its reduce
-  pass), with conv1_1's floor: reading its output gradient once;
+  conv1_1's GEMM over the image and its reduce pass), with conv1_1's
+  floor: reading its output gradient once;
 - the ``up_conv`` head's forward (#10) at unet_resnet50's (8 × 256² →
   512²) and self_net's (8 × 512² → 1024²) shapes: the same, against
   cuDNN's chain (interpolate and two convs), by kernel the upsample pass,
-  conv1 and conv2.
+  conv1 and conv2;
+- the stem's forward (#2) at 8 × 512² from a uint8 batch and at 1 × 512²
+  from a bf16 image: the same, against cuDNN's chain (the /255, two convs,
+  the pool), by kernel conv1_1's image GEMM and conv1_2 with the pool,
+  with the function's bound (operations) and the two-launch floor (the
+  bytes with a1 stored and read back) and conv1_1's floor (writing a1);
+- the head's backward (#12) at both heads' shapes: the same, against
+  autograd of the cuDNN chain, by kernel the upsample pass, the mask
+  pass, the two dgrads, the two GEMMs and their reduce passes and the
+  adjoint; and, in turns with the shipped call, the backward from an
+  ``up`` given (the forward's, kept from the forward instead of written
+  again), with the bytes that keeping it would hold.
 
 Every line carries the card's name and power limit.
 """
@@ -52,7 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encoder_train, sm90,
-                                    upconv)
+                                    stem, upconv)
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -294,6 +305,77 @@ def _head(smi, gen, B, h):
                       "ms_by_kernel": _kernel_sequence(fn), "gpu": smi}), flush=True)
 
 
+def _stem_fwd(smi, gen, B, h, u8):
+    """The stem's forward at (B, h, h, 3) uint8 (or bf16 from the normalize
+    step) against cuDNN's chain, by kernel, with its floors."""
+    dev, bf = "cuda", torch.bfloat16
+    img = torch.randint(0, 256, (B, h, h, 3), generator=gen, device=dev, dtype=torch.uint8)
+    xb = img.to(bf) / torch.tensor(255.0, dtype=bf, device=dev)
+    x = img if u8 else xb
+    (w11, b11), (w12, b12) = [((torch.randn((64, c, 3, 3), generator=gen, device=dev)
+                                / (9 * c) ** 0.5).to(bf),
+                               (0.1 * torch.randn(64, generator=gen, device=dev)).to(bf))
+                              for c in (3, 64)]
+    fn = lambda: stem._vgg_stem_cuda(x, w11, b11, w12, b12)  # noqa: E731
+
+    def lib():
+        v = (img.to(bf) / torch.tensor(255.0, dtype=bf, device=dev)) if u8 else xb
+        y = torch.relu(F.conv2d(v.permute(0, 3, 1, 2), w11, b11, padding=1))
+        y = torch.relu(F.conv2d(y, w12, b12, padding=1))
+        return y, F.max_pool2d(y, 2)
+
+    px = B * h * h
+    bound = 2.0 * px * 9 * (3 * 64 + 64 * 64) / PEAK_BF16 * 1e3
+    a1_bytes = 2.0 * px * 64
+    floor = (x.numel() * x.element_size() + 3 * a1_bytes + a1_bytes / 4) / PEAK_BYTES * 1e3
+    ms, lib_ms = _rounds(fn), _rounds(lib)
+    med = statistics.median(ms)
+    print(json.dumps({"stem_fwd": f"{B}x{h}x{h}x3 {'uint8' if u8 else 'bf16'}->64",
+                      "ms_rounds": ms, "ms": med, "cudnn_ms": statistics.median(lib_ms),
+                      "bound_ms": bound, "share_of_bound": bound / med,
+                      "two_launch_floor_ms": floor,
+                      "conv1_1_floor_ms": a1_bytes / PEAK_BYTES * 1e3,
+                      "conv1_2_bound_ms": 2.0 * px * 9 * 64 * 64 / PEAK_BF16 * 1e3,
+                      "ms_by_kernel": _kernel_sequence(fn), "gpu": smi}), flush=True)
+
+
+def _head_bwd(smi, gen, B, h):
+    """The up_conv head's backward at x (B, h, h, 64) against autograd of the
+    cuDNN chain, by kernel; then the shipped call and the backward from a
+    kept ``up`` in turns."""
+    dev, bf = "cuda", torch.bfloat16
+    h2 = 2 * h
+    x = torch.relu(torch.randn((B, h, h, 64), generator=gen, device=dev)).to(bf)
+    g = torch.randn((B, h2, h2, 64), generator=gen, device=dev).to(bf)
+    out_, y1 = [torch.relu(torch.randn((B, h2, h2, 64), generator=gen, device=dev)).to(bf)
+                for _ in range(2)]
+    w1, w2 = [(torch.randn((64, 64, 3, 3), generator=gen, device=dev) / 24).to(bf)
+              for _ in range(2)]
+    fn = lambda: upconv.upconv_bwd(g, out_, y1, x, w1, w2)  # noqa: E731
+    up = decoder_train.up2x(x)
+    kept = lambda: upconv._upconv_bwd_launch(g, out_, y1, up, w1, w2)  # noqa: E731
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_()
+        wg = [w.detach().requires_grad_() for w in (w1, w2)]
+        bg = [torch.zeros(64, dtype=bf, device=dev, requires_grad=True) for _ in range(2)]
+        y = torch.relu(F.conv2d(decoder_train.upsample2x(xg).permute(0, 3, 1, 2), wg[0], bg[0],
+                                padding=1))
+        y = torch.relu(F.conv2d(y, wg[1], bg[1], padding=1))
+    cot = g.permute(0, 3, 1, 2)
+    lib = lambda: torch.autograd.grad(y, [xg, *wg, *bg], cot, retain_graph=True)  # noqa: E731
+    conv = 2.0 * B * h2 * h2 * 9 * 64 * 64 / PEAK_BF16 * 1e3
+    ms, lib_ms = _rounds(fn), _rounds(lib)
+    med = statistics.median(ms)
+    turns = [("shipped", fn), ("up_kept", kept), ("up_kept", kept), ("shipped", fn)]
+    turn_ms = [(name, statistics.median(_rounds(f))) for name, f in turns]
+    print(json.dumps({"upconv_bwd": f"{B}x{h}x{h}x64->{h2}^2x64", "ms_rounds": ms, "ms": med,
+                      "cudnn_ms": statistics.median(lib_ms), "bound_ms": 4 * conv,
+                      "share_of_bound": 4 * conv / med, "conv_bound_ms": conv,
+                      "mask_bound_ms": 6.0 * B * h2 * h2 * 64 / PEAK_BYTES * 1e3,
+                      "ms_by_kernel": _kernel_sequence(fn) or _by_kernel(fn), "turns_ms": turn_ms,
+                      "up_kept_bytes": up.numel() * up.element_size(), "gpu": smi}), flush=True)
+
+
 def _blocks(smi, gen, B=8):
     dev, bf = "cuda", torch.bfloat16
     for h, chans, pool in BLOCKS:
@@ -325,7 +407,7 @@ def _blocks(smi, gen, B=8):
 
 def main(argv=None) -> int:
     parts = list(argv if argv is not None else sys.argv[1:]) or \
-        ["tiles", "stages", "blocks", "stem", "head"]
+        ["tiles", "stages", "blocks", "stem", "head", "stem_fwd", "head_bwd"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -344,6 +426,13 @@ def main(argv=None) -> int:
         elif part == "head":
             for B, h in ((8, 256), (8, 512)):
                 _head(smi, gen, B, h)
+                torch.cuda.empty_cache()
+        elif part == "stem_fwd":
+            for B, u8 in ((8, True), (1, False)):
+                _stem_fwd(smi, gen, B, 512, u8)
+        elif part == "head_bwd":
+            for B, h in ((8, 256), (8, 512)):
+                _head_bwd(smi, gen, B, h)
                 torch.cuda.empty_cache()
         else:
             raise SystemExit(f"bench_sm90: unknown part {part!r}")
