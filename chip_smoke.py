@@ -607,6 +607,41 @@ def stage_single_tile_float64(gen):
               "from float64")
 
 
+def final_bwd_witness(card, feats, w, b, t, cw, c, dice, res, gl, out, ref, case):
+    """#29's dW and db against a float64 evaluation of the same function
+    (the logits rounded as both versions round them, then the residuals,
+    dlog and both sums in float64): the kernel's and the plain version's
+    distances to it; and a planted fault, the kernel's dW without one
+    block's partial row, read against the 1e-3 bound."""
+    from tpu_unet_torch.kernels import loss as L
+
+    f2 = feats.reshape(-1, 64)
+    x = L._logits(f2, w, b, c).double()
+    tc = L._clamped(t, c)
+    cw64 = torch.tensor(cw, dtype=torch.float64, device=x.device)
+    _, _, (s_w, denom, score) = L._finish(L._sums(x, tc, cw64, c), c, dice)
+    g64 = gl.double()
+    a, bb = L.dice_coefs(score, denom, c, g64, dice)
+    dlog = L._dlogits(x, tc, cw64, c, a, bb, L._inv(g64, s_w))
+    dw64, db64 = (f2.double().t() @ dlog).t(), dlog.sum(0)
+    del x, dlog
+    partial = L._bwd_cuda(feats, w, b, t, cw, c, dice, res, gl)[4]
+    g = partial.shape[0]
+    keep = torch.arange(g, device=partial.device) != g // 2
+    dropped = partial[keep].sum(0)[:64 * c].reshape(c, 64)
+    line = {"witness": "final_ce_dice_bwd float64", "case": case,
+            "kernel_dw_vs_f64": rel_err(out[1].reshape(c, 64), dw64)[1],
+            "plain_dw_vs_f64": rel_err(ref[1].reshape(c, 64), dw64)[1],
+            "kernel_db_vs_f64": rel_err(out[2], db64)[1],
+            "plain_db_vs_f64": rel_err(ref[2], db64)[1],
+            "blocks": g, "dropped_block_dw_vs_plain": rel_err(dropped, ref[1].reshape(c, 64))[1],
+            "bound": 1e-3, "gpu": card}
+    print(json.dumps(line), flush=True)
+    check(line["dropped_block_dw_vs_plain"] > 1e-3,
+          f"final_ce_dice_bwd {case}: a dropped block partial reads "
+          f"{line['dropped_block_dw_vs_plain']:.3g}, inside the 1e-3 bound")
+
+
 def phase_train_kernels(card: str, results: dict):
     """#27 / #29 and #13 against their plain versions at the shapes the two
     training recipes give them: unet_vgg at 512², batch 8, 21 classes (the
@@ -672,6 +707,12 @@ def phase_train_kernels(card: str, results: dict):
             rels = [rel_err(o, r_)[1] for o, r_ in zip(out, ref)]
             check(rels[0] <= CONV_REL_TOL, f"final_ce_dice_bwd {case}: dfeat rel err {rels[0]:.3g}")
             check(max(rels[1:]) <= 1e-3, f"final_ce_dice_bwd {case}: dW/db rel err {max(rels[1:]):.3g}")
+            again_b = final_ce_dice_bwd(feats, w, b, t, cw, c, dice, res, gl)
+            check(all(torch.equal(x, y) for x, y in zip(out, again_b)),
+                  f"final_ce_dice_bwd {case}: two runs differ")
+            del again_b
+            if n == BATCH and dice:
+                final_bwd_witness(card, feats, w, b, t, cw, c, dice, res, gl, out, ref, case)
             fg = f2.detach().clone().requires_grad_()
             wg, bg = w2.clone().requires_grad_(), b.to(bf).clone().requires_grad_()
             lf = F.linear(fg, wg, bg).float()
@@ -1260,7 +1301,7 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     ``wgrad_sm90_reduce_kernel``, the stem's ``wgrad_image_kernel`` and
     ``wgrad_image_reduce_kernel``, and ``upsample2x_kernel`` (all summed in
     ``port_kernels_ms``); ``index_add_ms`` sums PyTorch's ``index_add_``
-    kernels."""
+    kernels; ``loss_kernels_ms`` gives the loss kernels' own (#25-#29)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1321,7 +1362,8 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     port = sum(v for k, v in top if k.startswith("port "))
     return {"device_ms_per_step": busy / 1e3 / steps, "port_kernels_ms": port,
             "index_add_ms": index_add, "idle_share": 1 - busy / window if window else 0.0,
-            "top_kernels_ms": [[k, v] for k, v in top[:8]]}
+            "top_kernels_ms": [[k, v] for k, v in top[:8]],
+            "loss_kernels_ms": {k: v for k, v in top if "final_loss" in k or "ce_dice" in k}}
 
 
 def serve(model: str, batch: int, size: int, card: str):
@@ -2594,6 +2636,8 @@ SOURCES = {
                        "tpu_unet/kernels/encoder_train.py:329"),
     "vgg_block3_bwd": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
                        "tpu_unet/kernels/encoder3_train.py:349"),
+    # #27 / #29: one persistent kernel a pass, wgmma behind a TMA ring
+    # (csrc/loss.cu on csrc/sm90.cuh), the scalar epilogue on the device
     "final_ce_dice_fwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:704"),
     "final_ce_dice_bwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:804"),
     "ce_dice_fwd": ("tpu_unet_torch/csrc/loss_logits.cu", "tpu_unet/kernels/loss.py:173"),

@@ -546,16 +546,19 @@ def _loss_case(gen, n, h, w, c, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("with_dice", [True, False])
-@pytest.mark.parametrize("c", [21, 4])
-def test_final_loss_kernels(cuda, dtype, with_dice, c):
+@pytest.mark.parametrize("c", [21, 4, 1, 126])
+@pytest.mark.parametrize("shape", [(2, 24, 40), (1, 9, 23)])
+def test_final_loss_kernels(cuda, dtype, with_dice, c, shape):
     """#27 and #29 against their plain versions: loss within 1e-4
     relative, f_score within 1e-4, dW and db within 1e-3 of their largest
-    entry, dfeat within CONV_REL_TOL."""
+    entry, dfeat within CONV_REL_TOL; at every class padding (C = 1, 4,
+    21, 126: 16, 16, 32, 128 columns) and at a pixel count no 128-pixel
+    tile divides (207: the last tile's rows past n are TMA's zero fill)."""
     from tpu_unet_torch.kernels import launch_counts
     from tpu_unet_torch.kernels.loss import (final_ce_dice_bwd, final_ce_dice_bwd_plain,
                                              final_ce_dice_fwd, final_ce_dice_fwd_plain)
 
-    feats, w, b, t, cw = _loss_case(cuda, 2, 24, 40, c, dtype)
+    feats, w, b, t, cw = _loss_case(cuda, *shape, c, dtype)
     n0, n1 = launch_counts["final_ce_dice_fwd"], launch_counts["final_ce_dice_bwd"]
     loss, fs, res = final_ce_dice_fwd(feats, w, b, t, cw, c, with_dice)
     ploss, pfs, pres = final_ce_dice_fwd_plain(feats, w, b, t, cw, c, with_dice)
@@ -573,14 +576,71 @@ def test_final_loss_kernels(cuda, dtype, with_dice, c):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_final_loss_all_ignored(cuda, dtype):
+    """Every target ignored (s_w = 0): the CE term is 0 / max(0, 1e-12) and
+    its gradient w·inv = 0 at inv = 1e12, on the kernels as on the plain
+    versions; the dice term and its gradient remain."""
+    from tpu_unet_torch.kernels.loss import (final_ce_dice_bwd, final_ce_dice_bwd_plain,
+                                             final_ce_dice_fwd, final_ce_dice_fwd_plain)
+
+    feats, w, b, t, cw = _loss_case(cuda, 2, 16, 24, 21, dtype)
+    t = torch.where(t < 10, torch.full_like(t, 21), torch.full_like(t, 255))
+    loss, fs, res = final_ce_dice_fwd(feats, w, b, t, cw, 21, True)
+    ploss, pfs, pres = final_ce_dice_fwd_plain(feats, w, b, t, cw, 21, True)
+    assert res[0].item() == 0.0 and pres[0].item() == 0.0
+    assert abs(loss.item() - ploss.item()) <= 1e-4 * abs(ploss.item())
+    assert abs(fs.item() - pfs.item()) <= 1e-4
+    gl = torch.tensor(1.0, device="cuda")
+    out = final_ce_dice_bwd(feats, w, b, t, cw, 21, True, res, gl)
+    ref = final_ce_dice_bwd_plain(feats, w, b, t, cw, 21, True, pres, gl)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    assert _rel(out[0], ref[0]) <= CONV_REL_TOL
+    for o, r in zip(out[1:], ref[1:]):
+        assert _rel(o, r) <= 1e-3
+
+
+@pytest.mark.gpu
 def test_final_loss_deterministic(cuda):
-    """Two runs of #27 give the bit-identical loss (no float atomics)."""
-    from tpu_unet_torch.kernels.loss import final_ce_dice_fwd
+    """Two runs of #27 give the bit-identical loss, f_score and residuals,
+    two runs of #29 the bit-identical dfeat, dW and db (no float atomics:
+    the blocks' partial rows are added in row order)."""
+    from tpu_unet_torch.kernels.loss import final_ce_dice_bwd, final_ce_dice_fwd
 
     feats, w, b, t, cw = _loss_case(cuda, 2, 64, 64, 21, torch.bfloat16)
     a = final_ce_dice_fwd(feats, w, b, t, cw, 21, True)
     z = final_ce_dice_fwd(feats, w, b, t, cw, 21, True)
     assert torch.equal(a[0], z[0]) and torch.equal(a[1], z[1])
+    assert all(torch.equal(x, y) for x, y in zip(a[2], z[2]))
+    gl = torch.tensor(1.0, device="cuda")
+    g1 = final_ce_dice_bwd(feats, w, b, t, cw, 21, True, a[2], gl)
+    g2 = final_ce_dice_bwd(feats, w, b, t, cw, 21, True, a[2], gl)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_dice", [True, False])
+def test_final_loss_scalars(cuda, with_dice):
+    """The scalar epilogues on the device: #27's loss, f_score and
+    residuals (s_w, denom, score) equal the plain ``_finish`` of the
+    kernel's own sums, and #29's A, B and inv the plain ``dice_coefs`` /
+    ``_inv`` of the residuals and the cotangent, within 1e-6."""
+    from tpu_unet_torch.kernels import loss as L
+
+    feats, w, b, t, cw = _loss_case(cuda, 2, 24, 40, 21, torch.bfloat16)
+    loss, fs, res, sums = L._fwd_cuda(feats, w, b, t, cw, 21, with_dice)
+    ploss, pfs, pres = L._finish(sums, 21, with_dice)
+
+    def close(x, y):
+        return bool(((x - y).abs() <= 1e-6 * y.abs().clamp_min(1.0)).all())
+
+    assert close(loss, ploss) and close(fs, pfs)
+    assert all(close(x, y) for x, y in zip(res, pres))
+    gl = torch.tensor(0.75, device="cuda")
+    coefs = L._bwd_cuda(feats, w, b, t, cw, 21, with_dice, res, gl)[3]
+    a, bb = L.dice_coefs(res[2], res[1], 21, gl, with_dice)
+    assert close(coefs[:21], a) and close(coefs[21:42], bb)
+    assert close(coefs[42], L._inv(gl, res[0]))
 
 
 @pytest.mark.gpu

@@ -1,8 +1,9 @@
 // Hopper building blocks of the port's sm_90a kernels (csrc/conv3x3_sm90.cuh,
-// csrc/wgrad_sm90.cuh and the stem's image GEMMs): mbarriers, TMA tile
-// loads, wgmma descriptors and the m64nNk16 bf16 products with float32
-// accumulators, and, on the host,
-// the tensor maps and the launch records that the Python side plans
+// csrc/wgrad_sm90.cuh, the stem's image GEMMs and the fused loss,
+// csrc/loss.cu): mbarriers, TMA tile loads, wgmma descriptors and the
+// m64nNk16 bf16 products with float32 accumulators (both operands from
+// shared memory, or A from registers), and, on the host, the tensor maps
+// and the launch records that the Python side plans
 // (tpu_unet_torch/kernels/sm90.py).
 //
 // Tensor maps are encoded with cuTensorMapEncodeTiled, a driver-API
@@ -71,6 +72,24 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // ---- device: TMA tile loads (out-of-bounds elements arrive as zeros) ------
 
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -88,6 +107,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ---- device: TMA tile stores (out-of-bounds elements are not written) -----
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's stores have read their shared memory (.read) or are done
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- device: wgmma --------------------------------------------------------
@@ -118,6 +160,32 @@ template <int R>
 __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// four 8 x 8 b16 matrices of an mma fragment (register i: thread t holds
+// row t / 4, columns 2 (t % 4) + {0, 1} of matrix i) into shared memory,
+// 16 bytes a row: lane 8i + k gives the address of row k of matrix i;
+// with .trans that row receives column k of the fragment's matrix
+__device__ __forceinline__ void stmatrix_x4(void* row, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_addr(row)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+__device__ __forceinline__ void stmatrix_x4_trans(void* row, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_addr(row)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// keep the compiler from reusing a register A operand before the wait
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // registers moved from the producer warpgroup (which only issues TMA) to
@@ -253,6 +321,36 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16(float (&d)[8], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
@@ -262,8 +360,41 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
     wgmma_m64n192<TA, TB>(d, da, db, scale_d);
   else if constexpr (N == 128)
     wgmma_m64n128<TA, TB>(d, da, db, scale_d);
-  else
+  else if constexpr (N == 64)
     wgmma_m64n64<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 32)
+    wgmma_m64n32<TA, TB>(d, da, db, scale_d);
+  else {
+    static_assert(N == 16, "wgmma widths: 16, 32, 64, 128, 192, 256");
+    wgmma_m64n16<TA, TB>(d, da, db, scale_d);
+  }
+}
+
+// D (64 x 64, float32) += A (64 x 16, bf16, from registers) * B (16 x 64,
+// shared memory; TB = 1 for an N-major B).  A is the warpgroup's fragment
+// of its 64 rows: register 2i + {0, 1} of thread (warp w, lane l) holds row
+// 16w + l / 4 (+ 8 for registers 1 and 3), columns 2 (l % 4) + {0, 1} (+ 8
+// for registers 2 and 3): the layout of an m64nN float32 accumulator's
+// columns 16k .. 16k + 15, packed in pairs, so a product's accumulator
+// feeds the next product's A without a shuffle.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t* a, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // ---- host: launch records and tensor maps ---------------------------------
@@ -318,25 +449,36 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A tiled tensor map of `base`: rank 1-4, dims (elements, innermost
+// first), byte strides of dims 1 .. rank - 1, box (elements); zero fill out
+// of bounds.
+inline cudaError_t encode_map(CUtensorMap* m, CUtensorMapDataType type, int rank,
+                              const void* base, const cuuint64_t* dims,
+                              const cuuint64_t* strides, const cuuint32_t* box,
+                              CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(m, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims,
+                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // bf16 tensor map of `base` per the record's map words, 128-byte swizzle,
 // zero fill out of bounds
 inline cudaError_t make_map(CUtensorMap* m, const void* base, const int64_t* spec) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorSymbolNotFound;
   const int rank = static_cast<int>(spec[0]);
   if (rank < 2 || rank > 4) return cudaErrorInvalidValue;
   cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4], estr[4] = {1, 1, 1, 1};
+  cuuint32_t box[4];
   for (int i = 0; i < rank; ++i) {
     dims[i] = static_cast<cuuint64_t>(spec[1 + i]);
     box[i] = static_cast<cuuint32_t>(spec[8 + i]);
   }
   for (int i = 0; i < rank - 1; ++i) strides[i] = static_cast<cuuint64_t>(spec[5 + i]);
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-                         const_cast<void*>(base), dims, strides, box, estr,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

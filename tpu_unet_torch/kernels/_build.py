@@ -66,12 +66,14 @@ SIGNATURES = {
     # n_pix (int64), stream
     "tu_mask_palette": [_P, _I, _P, _P, _I, ctypes.c_float, ctypes.c_float,
                         _P, ctypes.c_longlong, _P],
-    # feats, is_bf16, target, wt, bias, cls_weights, partial, sums,
-    # n_pix (int64), C, stream
-    "tu_final_ce_dice_fwd": [_P, _I] + [_P] * 6 + [ctypes.c_longlong, _I, _P],
-    # feats, is_bf16, target, wt, bias, cls_weights, coefA, coefB, inv_sw,
-    # dfeat, partial, acc, n_pix (int64), C, stream
-    "tu_final_ce_dice_bwd": [_P, _I] + [_P] * 10 + [ctypes.c_longlong, _I, _P],
+    # feats, is_bf16, target, wt, bias, cls_weights, partial, ticket, loss,
+    # fscore, res, n_pix (int64), C, with_dice, np, stages, smem, grid,
+    # stream
+    "tu_final_ce_dice_fwd": [_P, _I] + [_P] * 9 + [ctypes.c_longlong] + [_I] * 6 + [_P],
+    # feats, is_bf16, target, wt, bias, cls_weights, gl, s_w, denom, score,
+    # partial, ticket, dfeat, dw, db, coefs, n_pix (int64), C, with_dice,
+    # grad_bf16, np, stages, smem, grid, stream
+    "tu_final_ce_dice_bwd": [_P, _I] + [_P] * 14 + [ctypes.c_longlong] + [_I] * 7 + [_P],
     # g, out, y1, w2t, w1t, g2, dz1, dskip, dups, B, H2, W2, Cs, Cx, F,
     # plan (int64 launch records), stream
     "tu_unetup_bwd": [_P] * 9 + [_I] * 6 + [_P, _P],

@@ -15,7 +15,14 @@ Two pairs of CUDA kernels:
   :func:`final_ce_dice_loss` as the natural-layout
   ``final_ce_dice_loss_grad``.  Each reads the (pixels, 64) feature map
   once and recomputes the logits per pixel, so the logit map is never
-  stored.
+  stored.  Both are one Hopper kernel a pass: a persistent grid of at most
+  132 blocks fed 128-pixel tiles by a TMA ring, the logits and the two
+  gradient products on ``wgmma``, the softmax and the sums in registers,
+  and the scalar epilogue on the device (the forward's ``_finish``, the
+  backward's ``dice_coefs`` / ``_inv``): one launch a pass and no eager op
+  around it.  :func:`final_loss_plan` gives the launch its shape (C padded
+  to 16, 32, 64 or 128 classes, the ring's stages, its shared memory, the
+  grid), which the C entry checks against the kernel's own.
 
 Block partial sums are added in a fixed order (the loss is the same on
 every run).  Bounds and designs in the source notes.
@@ -36,7 +43,17 @@ Numerics, as ``_reduce_body`` / ``_grad_body`` / ``_fwd_impl`` /
   smooth = 1e-5, the gradient in the closed form of ``_dice_coefs``;
   f_score at threshold 0.5 carries no gradient;
 - dlogits in the logits' dtype; dfeat = dlog·W in the feature dtype; dW and
-  db summed in float32, then cast to the weight's and the bias's dtype.
+  db summed in float32, then cast to the weight's and the bias's dtype;
+- #29 on the card feeds its float32 dlog to the bf16 tensor cores as two
+  pieces, hi = bf16(dlog) and lo = bf16(dlog − hi), two products into one
+  float32 accumulator: dlog to ~2⁻¹⁶ relative, where one bf16 dlog (the
+  TPU's paired route, #30) would give 2⁻⁹.  Float32 features and weights
+  are split the same way (hi·hi + hi·lo + lo·hi).  The logits of bf16
+  features are exact products with float32 sums, as before; only the
+  order of the sums changes.  The kernels' softmax takes one exp an
+  element (the hardware's 2^x, p = e · rcp(Σe), nll = log Σe + max − x[t]):
+  float32 rounding apart from ``log_softmax``, well inside the 1e-4 loss
+  bound.
 
 Limits: 1 ≤ C ≤ 126 (JAX's int8 target encoding, loss.py:220-224,
 670-673), 64 features for #27 / #29.  The CUDA kernels read one byte a
@@ -48,7 +65,9 @@ the f32 compute path of training (ROADMAP §1).
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -57,10 +76,19 @@ from tpu_unet_torch.kernels._plain import on_cpu
 
 _CF = 64
 _MAX_CLASSES = 126
-# csrc/loss.cu: pixels a tile and the most blocks (partial-sum rows)
+# csrc/loss_logits.cu (#25 / #26): pixels a tile and the most blocks
+# (partial-sum rows)
 _TILE = 128
 _MAX_BLOCKS = 1024
 _SMOOTH = 1e-5
+# csrc/loss.cu (#27 / #29): the most blocks of a pass (a constant, so the
+# pixels of a partial sum depend on n only), the shared memory a block may
+# take, the ring's most stages, the bytes of per-class constants and
+# counters
+_CTAS = 132
+_SMEM_MAX = 232448
+_MAX_STAGES = 6
+_SMALL = 4096
 
 
 def _check_classes(num_classes: int) -> None:
@@ -206,10 +234,79 @@ def final_ce_dice_bwd_plain(feats, w, b, target, cls_weights, num_classes: int,
     return dfeat, dw, dlog.sum(0).to(b.dtype)
 
 
+class LossPlan(NamedTuple):
+    np: int      # classes padded to a wgmma width
+    stages: int  # of the TMA ring
+    smem: int    # a block's dynamic shared memory, bytes
+    row: int     # floats of a block's partial row
+
+
+@functools.lru_cache(maxsize=None)
+def final_loss_plan(num_classes: int, f32: bool, backward: bool) -> LossPlan:
+    """The launch shape of #27 (``backward`` False) or #29 for ``num_classes``
+    and bf16 (or float32, ``f32``) features, as ``csrc/loss.cu::Layout``
+    computes it: ``np`` the classes padded to a ``wgmma`` width (16, 32, 64
+    or 128), ``stages`` of the TMA ring (as many 128-pixel tiles and their
+    target bytes as fit beside W, the backward's dlogᵀ tiles and its dfeat
+    boxes for the TMA store, at most 6), ``smem`` the block's dynamic shared memory and
+    ``row`` the floats of a block's partial row (the forward's 2 + 5C sums;
+    the backward's dW (C, 64) then db (C))."""
+    c = num_classes
+    _check_classes(c)
+    np_ = max(16, 1 << (c - 1).bit_length())
+    size = 4 if f32 else 2
+    ft = 128 * _CF * size
+    wt = np_ * 128
+    fixed = (2 if f32 else 1) * wt + _SMALL + 1024
+    if backward:
+        fixed += 4 * wt + 2 * 64 * _CF * size
+    per_stage = ft + 128 + 16
+    stages = min(_MAX_STAGES, (_SMEM_MAX - fixed) // per_stage)
+    return LossPlan(np_, stages, fixed + stages * per_stage,
+                    (_CF + 1) * c if backward else 2 + 5 * c)
+
+
+def final_loss_grid(n: int) -> int:
+    """Blocks of a #27 / #29 pass over n pixels: one a 128-pixel tile, at
+    most 132; block i sums the tiles i, i + grid, ..."""
+    return min(_CTAS, math.ceil(n / _TILE))
+
+
+_cw_cache: dict = {}
+_tickets: dict = {}
+
+
+def _cw_device(cls_weights, num_classes, device):
+    """The class weights on ``device``, copied there once per tuple."""
+    key = (tuple(float(v) for v in cls_weights), num_classes, device)
+    cw = _cw_cache.get(key)
+    if cw is None:
+        cw = _cw_cache[key] = _cw(key[0], num_classes, device)
+    return cw
+
+
+def _ticket(device):
+    """The pass's ticket counter on ``device`` for the current stream: zero
+    before a pass, and set back to zero by the pass's last block."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    key = (idx, torch._C._cuda_getCurrentRawStream(idx))
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (a TMA
+    tensor map's base must be)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _operands(feats, w, b, target, cls_weights, num_classes, name):
     """Shape rule (before the device), then the CUDA operands: uint8
-    targets, (C, 64) float32 weights and the float32 bias holding the
-    feature-dtype values, float32 class weights."""
+    targets, the (C, 64) weights and the bias in the feature dtype (one
+    cast at most: none for bf16 parameters and features), the class
+    weights (cached on the device)."""
     c = num_classes
     _check_classes(c)
     if feats.dtype not in (torch.bfloat16, torch.float32) or feats.shape[-1] != _CF:
@@ -223,56 +320,73 @@ def _operands(feats, w, b, target, cls_weights, num_classes, name):
         raise ValueError(f"{name} kernel: final conv {tuple(w.shape)} / "
                          f"{tuple(b.shape)} for {c} classes")
     dev, dt = feats.device, feats.dtype
-    t8 = pack_targets(target.to(dev), c).contiguous()
-    wt = w.reshape(c, _CF).to(dev).to(dt).float().contiguous()
-    bf = b.to(dev).to(dt).float().contiguous()
-    return t8, wt, bf, _cw(cls_weights, c, dev)
+    t8 = _aligned(pack_targets(target.to(dev), c).contiguous())
+    wt = w.reshape(c, _CF).to(device=dev, dtype=dt).contiguous()
+    bt = b.to(device=dev, dtype=dt).contiguous()
+    return _aligned(feats), t8, wt, bt, _cw_device(cls_weights, c, dev)
 
 
 def _rows(n: int) -> int:
     return min(math.ceil(n / _TILE), _MAX_BLOCKS)
 
 
+def _launch_shape(feats, c, backward):
+    n = feats.numel() // _CF
+    plan = final_loss_plan(c, feats.dtype == torch.float32, backward)
+    return n, plan, (final_loss_grid(n) if n else 0)
+
+
 def _fwd_cuda(feats, w, b, target, cls_weights, num_classes, with_dice):
+    """#27 on the card → (loss, f_score, residuals (s_w, denom, score),
+    the sums [Σw·nll, Σw, tp, psum, tsum, tp@0.5, pos@0.5]), all written
+    by the kernel (views of one buffer but the two scalars)."""
     _build.no_grad_inputs("final_ce_dice_fwd", feats, w, b)
     c = num_classes
-    t8, wt, bf, cw = _operands(feats, w, b, target, cls_weights, c, "final_ce_dice_fwd")
-    n = feats.numel() // _CF
-    sums = torch.zeros(2 + 5 * c, dtype=torch.float32, device=feats.device)
-    if n:
-        partial = torch.empty((_rows(n), 2 + 5 * c), dtype=torch.float32,
-                              device=feats.device)
-        _build.call("tu_final_ce_dice_fwd", feats.data_ptr(),
-                    int(feats.dtype == torch.bfloat16), t8.data_ptr(), wt.data_ptr(),
-                    bf.data_ptr(), cw.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-                    n, c)
-        _build.launch_counts["final_ce_dice_fwd"] += 1
-    return _finish(sums, c, with_dice)
+    feats, t8, wt, bt, cw = _operands(feats, w, b, target, cls_weights, c, "final_ce_dice_fwd")
+    n, plan, grid = _launch_shape(feats, c, False)
+    dev = feats.device
+    if not n:
+        sums = torch.zeros(2 + 5 * c, dtype=torch.float32, device=dev)
+        return (*_finish(sums, c, with_dice), sums)
+    partial = torch.empty((grid, plan.row), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    fscore = torch.empty((), dtype=torch.float32, device=dev)
+    res = torch.empty(3 + 7 * c, dtype=torch.float32, device=dev)
+    _build.call("tu_final_ce_dice_fwd", feats.data_ptr(), int(feats.dtype == torch.bfloat16),
+                t8.data_ptr(), wt.data_ptr(), bt.data_ptr(), cw.data_ptr(), partial.data_ptr(),
+                _ticket(dev).data_ptr(), loss.data_ptr(), fscore.data_ptr(), res.data_ptr(), n,
+                c, int(with_dice), plan.np, plan.stages, plan.smem, grid)
+    _build.launch_counts["final_ce_dice_fwd"] += 1
+    return loss, fscore, (res[0], res[1:1 + c], res[1 + c:1 + 2 * c]), res[1 + 2 * c:]
 
 
 def _bwd_cuda(feats, w, b, target, cls_weights, num_classes, with_dice, residuals, gl):
+    """#29 on the card → (dfeat, dW, db, coefs [A, B, inv] as the kernel
+    computed them, the blocks' partial rows)."""
     _build.no_grad_inputs("final_ce_dice_bwd", feats, w, b)
     c = num_classes
-    t8, wt, bf, cw = _operands(feats, w, b, target, cls_weights, c, "final_ce_dice_bwd")
-    s_w, denom, score = residuals
-    a, bb = dice_coefs(score, denom, c, gl, with_dice)
-    a, bb = a.float().contiguous(), bb.float().contiguous()
-    inv = (gl / torch.clamp_min(s_w, 1e-12)).float().reshape(1).contiguous()
-    n = feats.numel() // _CF
+    feats, t8, wt, bt, cw = _operands(feats, w, b, target, cls_weights, c, "final_ce_dice_bwd")
+    n, plan, grid = _launch_shape(feats, c, True)
+    dev = feats.device
+    s_w, denom, score = (r.to(device=dev, dtype=torch.float32).contiguous() for r in residuals)
+    gl = gl.to(device=dev, dtype=torch.float32).contiguous()
     dfeat = torch.empty_like(feats)
-    acc = torch.zeros((_CF + 1) * c, dtype=torch.float32, device=feats.device)
-    if n:
-        partial = torch.empty((_rows(n), (_CF + 1) * c), dtype=torch.float32,
-                              device=feats.device)
-        _build.call("tu_final_ce_dice_bwd", feats.data_ptr(),
-                    int(feats.dtype == torch.bfloat16), t8.data_ptr(), wt.data_ptr(),
-                    bf.data_ptr(), cw.data_ptr(), a.data_ptr(), bb.data_ptr(),
-                    inv.data_ptr(), dfeat.data_ptr(), partial.data_ptr(), acc.data_ptr(),
-                    n, c)
-        _build.launch_counts["final_ce_dice_bwd"] += 1
-    acc = acc.reshape(_CF + 1, c)
-    dw = acc[:_CF].t().reshape(w.shape).to(w.dtype)
-    return dfeat, dw, acc[_CF].to(b.dtype)
+    if not n:
+        zero = torch.zeros(c, _CF, dtype=torch.float32, device=dev)
+        return dfeat, zero.reshape(w.shape).to(w.dtype), zero[:, 0].to(b.dtype), None, None
+    gdt = torch.bfloat16 if (w.dtype, b.dtype) == (torch.bfloat16,) * 2 else torch.float32
+    dw = torch.empty((c, _CF), dtype=gdt, device=dev)
+    db = torch.empty(c, dtype=gdt, device=dev)
+    coefs = torch.empty(2 * c + 1, dtype=torch.float32, device=dev)
+    partial = torch.empty((grid, plan.row), dtype=torch.float32, device=dev)
+    _build.call("tu_final_ce_dice_bwd", feats.data_ptr(), int(feats.dtype == torch.bfloat16),
+                t8.data_ptr(), wt.data_ptr(), bt.data_ptr(), cw.data_ptr(), gl.data_ptr(),
+                s_w.data_ptr(), denom.data_ptr(), score.data_ptr(), partial.data_ptr(),
+                _ticket(dev).data_ptr(), dfeat.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                coefs.data_ptr(), n, c, int(with_dice), int(gdt == torch.bfloat16),
+                plan.np, plan.stages, plan.smem, grid)
+    _build.launch_counts["final_ce_dice_bwd"] += 1
+    return (dfeat, dw.reshape(w.shape).to(w.dtype), db.to(b.dtype), coefs, partial)
 
 
 def final_ce_dice_fwd(feats, w, b, target, cls_weights, num_classes: int,
@@ -282,7 +396,7 @@ def final_ce_dice_fwd(feats, w, b, target, cls_weights, num_classes: int,
     if on_cpu(feats):
         return final_ce_dice_fwd_plain(feats, w, b, target, cls_weights, num_classes,
                                        with_dice)
-    return _fwd_cuda(feats, w, b, target, cls_weights, num_classes, with_dice)
+    return _fwd_cuda(feats, w, b, target, cls_weights, num_classes, with_dice)[:3]
 
 
 def final_ce_dice_bwd(feats, w, b, target, cls_weights, num_classes: int,
@@ -293,7 +407,7 @@ def final_ce_dice_bwd(feats, w, b, target, cls_weights, num_classes: int,
         return final_ce_dice_bwd_plain(feats, w, b, target, cls_weights, num_classes,
                                        with_dice, residuals, gl)
     return _bwd_cuda(feats, w, b, target, cls_weights, num_classes, with_dice,
-                     residuals, gl)
+                     residuals, gl)[:3]
 
 
 class _FinalCEDice(torch.autograd.Function):

@@ -3,7 +3,7 @@
     python -m tpu_unet_torch.tools.bench_sm90 [part ...]
 
 with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
-``stem_fwd``, ``head_bwd`` (all by default):
+``stem_fwd``, ``head_bwd``, ``loss`` (all by default):
 
 - the VGG16 blocks 2-5 in training (#21 / #23 forward, #22 / #24
   backward, all on the Hopper kernels) at unet_vgg's training shapes (512²
@@ -62,8 +62,8 @@ import torch
 
 import torch.nn.functional as F
 
-from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encoder_train, sm90,
-                                    stem, upconv)
+from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encoder_train, loss,
+                                    sm90, stem, upconv)
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -405,9 +405,74 @@ def _blocks(smi, gen, B=8):
                           "bwd_ms_by_kernel": _by_kernel(bwd_fn), "gpu": smi}), flush=True)
 
 
+def _loss(smi, gen, B, h, c):
+    """#27 and #29 at (B, h, h, 64) bf16 features → c classes (see the
+    module note)."""
+    dev, bf = "cuda", torch.bfloat16
+    feats = torch.relu(torch.randn((B, h, h, 64), generator=gen, device=dev)).to(bf)
+    w = (torch.randn((c, 64, 1, 1), generator=gen, device=dev) / 8).to(bf).float()
+    b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(bf).float()
+    t32 = torch.randint(0, c, (B, h, h), generator=gen, device=dev, dtype=torch.int32)
+    t32 = torch.where(torch.rand((B, h, h), generator=gen, device=dev) < 0.03,
+                      torch.full_like(t32, c), t32)
+    t = loss.pack_targets(t32, c)
+    cw = tuple(1.0 + 0.1 * i for i in range(c))
+    gl = torch.tensor(1.0, device=dev)
+    res = loss.final_ce_dice_fwd(feats, w, b, t, cw, c, True)[2]
+    passes = {
+        "final_ce_dice_fwd": (lambda: loss.final_ce_dice_fwd(feats, w, b, t, cw, c, True),
+                              lambda: loss.final_ce_dice_fwd_plain(feats, w, b, t, cw, c, True)),
+        "final_ce_dice_bwd": (lambda: loss.final_ce_dice_bwd(feats, w, b, t, cw, c, True, res, gl),
+                              lambda: loss.final_ce_dice_bwd_plain(feats, w, b, t, cw, c, True,
+                                                                   res, gl)),
+    }
+    f2, w2, tl = feats.reshape(-1, 64), w.reshape(c, 64).to(bf), torch.clamp_max(t, c).long()
+    cw_t = torch.tensor(cw, device=dev)
+
+    def chain(f2, w2, b2):
+        lf = F.linear(f2, w2, b2).float()
+        ce = F.cross_entropy(lf, tl.reshape(-1), weight=cw_t, ignore_index=c)
+        p = torch.softmax(lf, -1)
+        oh = F.one_hot(tl.reshape(-1), c + 1)[:, :c].float()
+        tp, ps, ts = (p * oh).sum(0), p.sum(0), oh.sum(0)
+        return ce + 1 - ((2 * tp + 1e-5) / (2 * tp + (ts - tp) + (ps - tp) + 1e-5)).mean()
+
+    with torch.enable_grad():
+        leaves = [f2.detach().clone().requires_grad_(), w2.detach().clone().requires_grad_(),
+                  b.to(bf).detach().clone().requires_grad_()]
+        graph = chain(*leaves)
+    libs = {"final_ce_dice_fwd": lambda: chain(f2, w2, b.to(bf)),
+            "final_ce_dice_bwd": lambda: torch.autograd.grad(graph, leaves, retain_graph=True)}
+    in_bytes = feats.numel() * 2 + t.numel() + c * 65 * 4
+    out_bytes = {"final_ce_dice_fwd": 4 * (5 + 2 * c), "final_ce_dice_bwd": feats.numel() * 2 + c * 65 * 4}
+    for name, (fn, plain) in passes.items():
+        ms = _rounds(fn)
+        med = statistics.median(ms)
+        bound = (in_bytes + out_bytes[name]) / PEAK_BYTES * 1e3
+        print(json.dumps({"kernel": name, "case": f"{B}x{h}x{h}x64 bf16 -> {c}", "ms_rounds": ms,
+                          "ms": med, "plain_ms": statistics.median(_rounds(plain)),
+                          "library_ms": statistics.median(_rounds(libs[name])),
+                          "bound_ms": bound, "bound_by": "bytes", "share_of_bound": bound / med,
+                          "ms_by_kernel": _kernel_sequence(fn) or _by_kernel(fn), "gpu": smi}),
+              flush=True)
+    # the device kernels of the loss and its backward, as a train step calls them
+    with torch.enable_grad():
+        fg = feats.detach().clone().requires_grad_()
+        wg = w.to(bf).detach().requires_grad_()
+        bg = b.to(bf).detach().requires_grad_()
+
+        def step():
+            fg.grad = wg.grad = bg.grad = None  # as the step's zero_grad(set_to_none=True)
+            lo, _ = loss.final_ce_dice_loss(fg, wg, bg, t32, cw, c, True)
+            lo.backward()
+        seq = _kernel_sequence(step)
+    print(json.dumps({"loss_step_kernels": f"{B}x{h}x{h}x64 bf16 -> {c}", "launches": len(seq),
+                      "kernels": sorted(seq), "gpu": smi}), flush=True)
+
+
 def main(argv=None) -> int:
     parts = list(argv if argv is not None else sys.argv[1:]) or \
-        ["tiles", "stages", "blocks", "stem", "head", "stem_fwd", "head_bwd"]
+        ["tiles", "stages", "blocks", "stem", "head", "stem_fwd", "head_bwd", "loss"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -433,6 +498,10 @@ def main(argv=None) -> int:
         elif part == "head_bwd":
             for B, h in ((8, 256), (8, 512)):
                 _head_bwd(smi, gen, B, h)
+                torch.cuda.empty_cache()
+        elif part == "loss":
+            for B, h, c in ((8, 512, 21), (32, 256, 4)):
+                _loss(smi, gen, B, h, c)
                 torch.cuda.empty_cache()
         else:
             raise SystemExit(f"bench_sm90: unknown part {part!r}")
