@@ -418,19 +418,24 @@ def phase_kernels(card: str):
                       "ms": head_ms, "library_ms": lib_ms, "gpu": card}), flush=True)
     del x
 
-    def tail(kernel, n, h, w, f, c, hist):
+    def tail(kernel, n, h, w, f, c, hist, into=None):
         """A serving tail (final 1x1 conv + argmax, with or without the
         histogram) against its plain version: masks identical wherever the
         plain top-1/top-2 gap exceeds TAIL_MARGIN of the logit scale, hist
-        = bincount of the kernel's own masks.  Its error is the largest
-        per-class count difference against plain (hist), or the largest
-        class-index difference (mask only)."""
+        = bincount of the kernel's own masks, a second launch bit-identical.
+        Its error is the largest per-class count difference against plain
+        (hist), or the largest class-index difference (mask only).  The
+        F = 64 tail runs its products on the tensor cores, as the TPU
+        kernel does (its bound at the bf16 peak: the bytes); F = 22 / 32
+        on the float32 pipes.  ``into``: the results it is summed into (the
+        kernel's line by default)."""
         feats = act(n, h, w, f)
         wf = (torch.randn((c, f, 1, 1), generator=gen, device=dev) / f ** 0.5).to(bf)
         bfin = (0.1 * torch.randn(c, generator=gen, device=dev)).to(bf)
         fn, plain_fn = (final_argmax_hist, final_argmax_hist_plain) if hist \
             else (final_argmax, final_argmax_plain)
         out, ref = fn(feats, wf, bfin, c), plain_fn(feats, wf, bfin, c)
+        again = fn(feats, wf, bfin, c)
         masks, pm = (out[0], ref[0]) if hist else (out, ref)
         logits = feats.reshape(-1, f).float() @ wf.reshape(c, f).float().t() + bfin.float()
         top2 = logits.topk(2, dim=-1).values
@@ -439,6 +444,8 @@ def phase_kernels(card: str):
         flips_outside = int((differ & (gap > TAIL_MARGIN * logits.abs().max())).sum())
         case = f"{n}x{h}x{w}x{f}->{c}"
         check(flips_outside == 0, f"{kernel} {case}: {flips_outside} mask flips outside the margin")
+        check(all(torch.equal(a, b) for a, b in zip(out, again)) if hist
+              else torch.equal(out, again), f"{kernel} {case}: two launches differ")
         if hist:
             own_hist = torch.stack([torch.bincount(m.flatten().long(), minlength=c)
                                     for m in masks]).to(torch.int32)
@@ -458,12 +465,13 @@ def phase_kernels(card: str):
             offs = torch.arange(n, device=dev).reshape(n, 1, 1) * c
             return torch.bincount((cls + offs).reshape(-1), minlength=n * c)
 
-        record(kernel, case, [out[1].float()] if hist else [masks.float()],
-               [ref[1].float()] if hist else [pm.float()],
-               lambda: fn(feats, wf, bfin, c), lambda: plain_fn(feats, wf, bfin, c), lib,
-               2.0 * n * h * w * f * c, nbytes(feats, wf, bfin, *(out if hist else [out])),
-               peak=PEAK_F32)
-        del feats, out, ref
+        record_case(results if into is None else into, card, kernel, case,
+                    [out[1].float()] if hist else [masks.float()],
+                    [ref[1].float()] if hist else [pm.float()],
+                    lambda: fn(feats, wf, bfin, c), lambda: plain_fn(feats, wf, bfin, c), lib,
+                    2.0 * n * h * w * f * c, nbytes(feats, wf, bfin, *(out if hist else [out])),
+                    peak=PEAK_BF16 if f == 64 else PEAK_F32)
+        del feats, out, ref, again
 
     # tails: the canonical UNets' (F = 64, 21 classes); the TraditionalUnet
     # family's at DataB's 256x256 / batch 32 / 4 classes (F = 32 and 22);
@@ -474,6 +482,10 @@ def phase_kernels(card: str):
     for f in (32, 22):
         tail("final_argmax_hist_natural", DATAB_BATCH, DATAB_SIZE, DATAB_SIZE, f, c4, True)
     tail("final_argmax", DATAB_BATCH, 200, 200, 32, c4, False)
+    # the F = 64 mask-only tail (csrc/tail_sm90.cu), which the canonical
+    # UNets take where H*W is no multiple of 256: its own line, not summed
+    # into final_argmax's (the traditional tail at 200x200)
+    tail("final_argmax", B, 500, 500, 64, CLASSES["unet_vgg"], False, into={})
 
     # normalize: the single image at each model's size, and a DataB batch;
     # bit-exact against the plain version.  Back-to-back calls of so small
@@ -843,11 +855,12 @@ def decoder_bwd_kernels(record, gen):
     all six bit-identical on a second launch), against the cuDNN chain
     (``convolution_backward`` with the data, weight and bias outputs of both
     convs, and autograd of ``upsample2x``); then ``unetup_wgrad`` and
-    ``upsample_adjoint`` each against its plain version on the same inputs."""
+    ``upsample_adjoint`` each against its plain version on the same inputs
+    (the adjoint bit-identical on a second launch, its launch plan the
+    host's), the adjoint also at both heads' shapes."""
     from tpu_unet_torch.kernels.decoder_train import (unetup_bwd_full, unetup_bwd_full_plain,
                                                       unetup_bwd_plain, unetup_wgrad,
-                                                      unetup_wgrad_plain, upsample2x_adjoint,
-                                                      upsample2x_adjoint_plain, wgrad_plan)
+                                                      unetup_wgrad_plain, wgrad_plan)
     from tpu_unet_torch.nn.resize import upsample2x
 
     dev, bf, B = torch.device("cuda"), torch.bfloat16, BATCH
@@ -918,22 +931,47 @@ def decoder_bwd_kernels(record, gen):
             ns = wgrad_plan(B, h2, h2, cs, cx, f)[1][2]
             sm90_wgrad_fault_reading("unetup_wgrad", case, ns, g2, None,
                                      lambda t, _: unetup_wgrad(skip, x, dz1, y1, t)[2:], wref[2:])
-        ares, aref = upsample2x_adjoint(dups, h, h), upsample2x_adjoint_plain(dups, h, h)
-
-        def lib_a(x=x, dups=dups):
-            with torch.enable_grad():
-                xg = x.detach().requires_grad_()
-                up = upsample2x(xg)
-            return torch.autograd.grad(up, xg, dups)[0]
-
-        rel = record("upsample_adjoint", f"{B}x{h2}x{h2}x{cx}->{h}^2", [ares], [aref],
-                     lambda: upsample2x_adjoint(dups, h, h),
-                     lambda: upsample2x_adjoint_plain(dups, h, h), lib_a,
-                     2.0 * 4 * dups.numel(), nbytes(dups, ares), peak=PEAK_F32)
-        check(rel <= ADJOINT_REL_TOL,
-              f"upsample_adjoint {case}: rel err {rel:.3g} > {ADJOINT_REL_TOL}")
-        del skip, x, g, out_, y1, res, again, ref, dups, g2, dz1, wres, wref, ares, aref
+        adjoint_case(record, dups, h)
+        del skip, x, g, out_, y1, res, again, ref, dups, g2, dz1, wres, wref
         torch.cuda.empty_cache()
+    # the heads' adjoints (unet_resnet50's 8 x 512^2 x 64 and self_net's
+    # 8 x 1024^2 x 64 dups)
+    for h in (256, 512):
+        adjoint_case(record, torch.randn((B, 2 * h, 2 * h, 64), generator=gen, device=dev).to(bf),
+                     h)
+        torch.cuda.empty_cache()
+
+
+def adjoint_case(record, dups, h):
+    """``upsample_adjoint`` of (B, 2h, 2h, C) ``dups`` against its plain
+    version (ADJOINT_REL_TOL), bit-identical on a second launch, launched
+    with the host's plan; recorded against autograd of ``upsample2x``."""
+    from tpu_unet_torch.kernels.decoder_train import (adjoint_plan, adjoint_plan_on_card,
+                                                      upsample2x_adjoint,
+                                                      upsample2x_adjoint_plain)
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    B, h2, c = dups.shape[0], 2 * h, dups.shape[-1]
+    case = f"{B}x{h2}x{h2}x{c}->{h}^2"
+    ares, aref = upsample2x_adjoint(dups, h, h), upsample2x_adjoint_plain(dups, h, h)
+    check(torch.equal(ares, upsample2x_adjoint(dups, h, h)),
+          f"upsample_adjoint {case}: two launches differ")
+    plan = adjoint_plan(B, h, h, c)
+    check(adjoint_plan_on_card(B, h, h, c) == plan,
+          f"upsample_adjoint {case}: the kernel's plan is not the host's {plan}")
+    x = torch.zeros((B, h, h, c), dtype=dups.dtype, device=dups.device)
+
+    def lib_a():
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            up = upsample2x(xg)
+        return torch.autograd.grad(up, xg, dups)[0]
+
+    rel = record("upsample_adjoint", case, [ares], [aref], lambda: upsample2x_adjoint(dups, h, h),
+                 lambda: upsample2x_adjoint_plain(dups, h, h), lib_a,
+                 2.0 * 4 * dups.numel(), nbytes(dups, ares), peak=PEAK_F32,
+                 extra={"plan": plan._asdict()})
+    check(rel <= ADJOINT_REL_TOL, f"upsample_adjoint {case}: rel err {rel:.3g} > {ADJOINT_REL_TOL}")
 
 
 def upconv_bwd_kernels(record, gen):
@@ -1293,6 +1331,7 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     ``steps`` steps) and the device's idle share between the first kernel's
     start and the last kernel's end.  The port's kernels are named
     ``conv3x3_kernel<Loader, pool>``, ``final_argmax_kernel<F, hist>``,
+    ``final_tail_kernel<NP, hist>`` (F = 64),
     ``normalize_kernel<T>``, ``argmax_kernel<T, V, Out>``,
     ``palette_kernel<M>``, ``wgrad_kernel<Loader>``, ``wgrad_reduce_kernel``,
     ``upsample_adjoint_kernel``, the training encoder's
@@ -1301,7 +1340,9 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     ``wgrad_sm90_reduce_kernel``, the stem's ``wgrad_image_kernel`` and
     ``wgrad_image_reduce_kernel``, and ``upsample2x_kernel`` (all summed in
     ``port_kernels_ms``); ``index_add_ms`` sums PyTorch's ``index_add_``
-    kernels; ``loss_kernels_ms`` gives the loss kernels' own (#25-#29)."""
+    kernels; ``loss_kernels_ms`` gives the loss kernels' own (#25-#29),
+    ``tail_adjoint_kernels_ms`` the serving tails' and the upsample
+    adjoint's (#4, #5, #7, #19)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1340,8 +1381,9 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = "port upsample_adjoint_kernel"
         elif "conv_image_kernel" in name:
             name = "port conv_image_kernel"
-        elif "final_argmax_kernel" in name:
-            name = f"port final_argmax_kernel<{'hist' if 'true' in name else 'mask'}>"
+        elif "final_argmax_kernel" in name or "final_tail_kernel" in name:
+            kind = "final_tail_kernel" if "final_tail" in name else "final_argmax_kernel"
+            name = f"port {kind}<{'hist' if 'true' in name else 'mask'}>"
         elif "normalize_kernel" in name:
             name = "port normalize_kernel"
         elif "argmax_kernel" in name:
@@ -1363,7 +1405,9 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     return {"device_ms_per_step": busy / 1e3 / steps, "port_kernels_ms": port,
             "index_add_ms": index_add, "idle_share": 1 - busy / window if window else 0.0,
             "top_kernels_ms": [[k, v] for k, v in top[:8]],
-            "loss_kernels_ms": {k: v for k, v in top if "final_loss" in k or "ce_dice" in k}}
+            "loss_kernels_ms": {k: v for k, v in top if "final_loss" in k or "ce_dice" in k},
+            "tail_adjoint_kernels_ms": {k: v for k, v in top if "final_tail" in k
+                                        or "final_argmax" in k or "upsample_adjoint" in k}}
 
 
 def serve(model: str, batch: int, size: int, card: str):

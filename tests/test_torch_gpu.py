@@ -338,6 +338,109 @@ def test_mask_only_tail_kernel(cuda, shape):
     assert (masks != final_argmax_plain(feats, w, b, 4)).float().mean().item() < 1e-3
 
 
+def _tail64(gen, n, h, w, c):
+    feats = _act(gen, n, h, w, 64)
+    wt = (torch.randn((c, 64, 1, 1), generator=gen, device="cuda") / 8).to(torch.bfloat16)
+    b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    return feats, wt, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 4, 21, 32])
+@pytest.mark.parametrize("hist", [True, False])
+def test_tail64_kernel(cuda, c, hist):
+    """The F = 64 tail on wgmma (csrc/tail_sm90.cu) at 3 images of 128 x
+    128 (384 tiles over 132 blocks: ranges that cross images): masks as
+    plain up to near-ties, hist = bincount of its own masks, bit-identical
+    on relaunch, one launch."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.postprocess import (final_argmax, final_argmax_hist,
+                                                    final_argmax_hist_plain, final_argmax_plain)
+
+    feats, w, b = _tail64(cuda, 3, 128, 128, c)
+    key, fn = ("final_argmax_hist", final_argmax_hist) if hist else ("final_argmax", final_argmax)
+    n = launch_counts[key]
+    out = fn(feats, w, b, c)
+    assert launch_counts[key] == n + 1
+    again = fn(feats, w, b, c)
+    masks = out[0] if hist else out
+    pm = final_argmax_hist_plain(feats, w, b, c)[0] if hist else final_argmax_plain(feats, w, b, c)
+    assert masks.shape == (3, 128, 128) and masks.dtype == torch.uint8
+    assert (masks != pm).float().mean().item() < 1e-3
+    if hist:
+        own = torch.stack([torch.bincount(m.flatten().long(), minlength=c) for m in masks])
+        assert torch.equal(own.to(torch.int32), out[1])
+        assert all(torch.equal(a, b) for a, b in zip(out, again))
+    else:
+        assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hist", [True, False])
+def test_tail64_ties_go_to_the_lower_class(cuda, hist):
+    """Classes 2 and 5 (and 9 and 10) share their weights and bias: their
+    logits tie exactly, and the lower class wins, as torch.argmax keeps
+    the first maximum.  The masks equal those with classes 5 and 10 given
+    a -inf bias (which never win), and class 2 wins most pixels."""
+    from tpu_unet_torch.kernels.postprocess import (final_argmax, final_argmax_hist,
+                                                    final_argmax_plain)
+
+    c = 12
+    feats, w, b = _tail64(cuda, 2, 32, 32, c)
+    w[5], w[10] = w[2], w[9]
+    b[2] = b[5] = 3.0
+    b[10] = b[9]
+    fn = final_argmax_hist if hist else final_argmax
+    out = fn(feats, w, b, c)
+    masks = out[0] if hist else out
+    b_out = b.clone()
+    b_out[5] = b_out[10] = float("-inf")
+    without = fn(feats, w, b_out, c)
+    assert torch.equal(masks, without[0] if hist else without)
+    assert (masks == 2).float().mean().item() > 0.5
+    assert (masks != final_argmax_plain(feats, w, b_out, c)).float().mean().item() < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,c", [((3, 20, 30), 4), ((1, 7, 13), 21), ((2, 25, 25), 32),
+                                     ((1, 1, 1), 1), ((5, 16, 16), 21)])
+def test_tail64_mask_only_ragged(cuda, shape, c):
+    """The F = 64 mask-only tail at pixel counts that leave a ragged last
+    tile (and at one pixel): masks as plain up to near-ties, bit-identical
+    on relaunch."""
+    from tpu_unet_torch.kernels.postprocess import final_argmax, final_argmax_plain
+
+    feats, w, b = _tail64(cuda, *shape, c)
+    masks = final_argmax(feats, w, b, c)
+    assert masks.shape == shape and int(masks.max()) < c
+    assert (masks != final_argmax_plain(feats, w, b, c)).float().mean().item() < 1e-3
+    assert torch.equal(masks, final_argmax(feats, w, b, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1, 5, 8), (2, 3, 5, 16), (2, 4, 8, 8), (1, 3, 8, 24),
+                                   (1, 5, 33, 8), (1, 70, 9, 8), (2, 17, 40, 64),
+                                   (1, 16, 16, 2048), (2, 3, 8, 2048)])
+def test_adjoint_kernel_odd_sizes(cuda, shape):
+    """The streamed adjoint at odd sizes and C = 2048: within one bf16 ulp
+    (1e-2) of the plain version, bit-identical on relaunch, one launch, its
+    plan the host's."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.decoder_train import (adjoint_plan, adjoint_plan_on_card,
+                                                      upsample2x_adjoint,
+                                                      upsample2x_adjoint_plain)
+
+    B, h, w, c = shape
+    dup = torch.randn((B, 2 * h, 2 * w, c), generator=cuda, device="cuda").to(torch.bfloat16)
+    n = launch_counts["upsample_adjoint"]
+    dx = upsample2x_adjoint(dup, h, w)
+    assert launch_counts["upsample_adjoint"] == n + 1
+    assert dx.shape == (B, h, w, c) and dx.dtype == torch.bfloat16
+    assert torch.equal(dx, upsample2x_adjoint(dup, h, w))
+    assert _rel(dx, upsample2x_adjoint_plain(dup, h, w)) <= 1e-2
+    assert adjoint_plan_on_card(B, h, w, c) == adjoint_plan(B, h, w, c)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 256, 256, 3), (2, 17, 9, 3)])

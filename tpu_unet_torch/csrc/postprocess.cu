@@ -4,12 +4,13 @@
 //
 // Replaces three functions of tpu_unet/kernels/postprocess.py:
 //   - fused_final_argmax_hist_paired (the Pallas call at :244), the
-//     canonical UNets' tail, F = 64;
+//     canonical UNets' tail, F = 64: csrc/tail_sm90.cu, the products on
+//     wgmma behind a TMA ring, which the C entries below call at F = 64;
 //   - fused_final_argmax_hist (:154), the natural-layout tail of the
 //     TraditionalUnet family, F = 32 (traditional) and 22 (traditional22);
 //   - fused_final_argmax (:92), the mask-only tail that :148-152 takes when
 //     an image's pixel count is not a multiple of the row block.
-// One kernel template on the feature width F (22, 32 or 64) and on HIST.
+// Here: one kernel template on the feature width F (22 or 32) and on HIST.
 //
 // One thread per pixel, 256 pixels a block.  A block's 256 feature rows are
 // contiguous in device memory (256 * F * 2 bytes, a multiple of 16), so the
@@ -32,6 +33,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace tu {
+int launch_final_tail(const __nv_bfloat16* feats, const float* w, const float* bias,
+                      uint8_t* mask, int* hist, int n, int per_img, int C, bool with_hist,
+                      cudaStream_t stream);
+}
 
 namespace {
 
@@ -122,7 +129,8 @@ int dispatch(const __nv_bfloat16* feats, const float* w, const float* bias, uint
   switch (F) {
     case 22: return launch<22, HIST>(feats, w, bias, mask, hist, n_pix, per_img, C, stream);
     case 32: return launch<32, HIST>(feats, w, bias, mask, hist, n_pix, per_img, C, stream);
-    case 64: return launch<64, HIST>(feats, w, bias, mask, hist, n_pix, per_img, C, stream);
+    case 64:
+      return tu::launch_final_tail(feats, w, bias, mask, hist, n_pix, per_img, C, HIST, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,10 @@
 // Hopper building blocks of the port's sm_90a kernels (csrc/conv3x3_sm90.cuh,
-// csrc/wgrad_sm90.cuh, the stem's image GEMMs and the fused loss,
-// csrc/loss.cu): mbarriers, TMA tile loads, wgmma descriptors and the
-// m64nNk16 bf16 products with float32 accumulators (both operands from
-// shared memory, or A from registers), and, on the host, the tensor maps
-// and the launch records that the Python side plans
+// csrc/wgrad_sm90.cuh, the stem's image GEMMs, the fused loss
+// csrc/loss.cu, the serving tail csrc/tail_sm90.cu and the upsample's
+// adjoint csrc/upsample_adjoint.cuh): mbarriers, TMA tile loads, wgmma
+// descriptors and the m64nNk16 bf16 products with float32 accumulators
+// (both operands from shared memory, or A from registers), and, on the
+// host, the tensor maps and the launch records that the Python side plans
 // (tpu_unet_torch/kernels/sm90.py).
 //
 // Tensor maps are encoded with cuTensorMapEncodeTiled, a driver-API
@@ -352,6 +353,35 @@ __device__ __forceinline__ void wgmma_m64n16(float (&d)[8], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n24(float (&d)[12], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, %15, %16;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8(float (&d)[4], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
   if constexpr (N == 256)
@@ -364,9 +394,13 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
     wgmma_m64n64<TA, TB>(d, da, db, scale_d);
   else if constexpr (N == 32)
     wgmma_m64n32<TA, TB>(d, da, db, scale_d);
-  else {
-    static_assert(N == 16, "wgmma widths: 16, 32, 64, 128, 192, 256");
+  else if constexpr (N == 24)
+    wgmma_m64n24<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 16)
     wgmma_m64n16<TA, TB>(d, da, db, scale_d);
+  else {
+    static_assert(N == 8, "wgmma widths: 8, 16, 24, 32, 64, 128, 192, 256");
+    wgmma_m64n8<TA, TB>(d, da, db, scale_d);
   }
 }
 

@@ -86,7 +86,7 @@ extern "C" int tu_upconv(const bf16* up, const bf16* w1, const float* b1, const 
 //      of the upsample kernel (the wrapper's, launch key upsample2x), as a
 //      decoder stage's weight gradients take it, so the training step
 //      keeps no `up` from the forward to the backward;
-//   6. the adjoint's gather (csrc/upsample_adjoint.cuh) writes dx.
+//   6. the adjoint (csrc/upsample_adjoint.cuh) writes dx.
 // g2, dz1 and dups go through device memory; the TPU kernel keeps them in
 // VMEM.  Both dgrads at the tile of conv_tile_m (256 x 64, persistent, at
 // both heads); the GEMMs at 64 f x 128 columns, their splits filling the

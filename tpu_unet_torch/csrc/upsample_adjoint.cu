@@ -16,3 +16,15 @@ extern "C" int tu_upsample_adjoint(const bf16* dup, const int* ridx, const float
                                    int H, int W, int C, cudaStream_t stream) {
   return tu::launch_upsample_adjoint(dup, ridx, rw, nr, cidx, cw, nc, dx, B, H, W, C, stream);
 }
+
+// The launch plan the kernel takes at (B, H, W, C), for the host's mirror
+// (kernels/decoder_train.py::adjoint_plan) to be checked against:
+// out = [tw, cc, th, strips, chunks, bands, consumers, stage_bytes, smem, grid].
+extern "C" int tu_upsample_adjoint_plan(int B, int H, int W, int C, long long* out) {
+  if (B < 1 || H < 1 || W < 1 || C < 8 || C % 8) return cudaErrorInvalidValue;
+  const tu::adj::Plan p = tu::adj::plan(B, H, W, C);
+  const long long words[10] = {p.tw,     p.cc,        p.th,   p.strips, p.chunks,
+                               p.bands,  p.consumers, p.stage_bytes, p.smem, p.grid};
+  for (int k = 0; k < 10; ++k) out[k] = words[k];
+  return 0;
+}

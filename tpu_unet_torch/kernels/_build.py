@@ -86,6 +86,8 @@ SIGNATURES = {
     "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 8 + [_P, _P],
     # dup, ridx, rw, nr, cidx, cw, nc, dx, B, H, W, C, stream
     "tu_upsample_adjoint": [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] + [_I] * 4 + [_P],
+    # B, H, W, C, out (10 int64): the adjoint's launch plan (no stream)
+    "tu_upsample_adjoint_plan": [_I] * 4 + [_P],
     # logits, is_bf16, target, cls_weights, partial, sums, n_pix (int64), C,
     # focal, alpha, gamma, stream
     "tu_ce_dice_fwd": [_P, _I] + [_P] * 4 + [ctypes.c_longlong, _I, _I, _F, _F, _P],
@@ -214,6 +216,15 @@ def call(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def query(name: str, *args) -> None:
+    """Call host-only C entry ``name`` (no stream, nothing launched); raise
+    when it returns an error."""
+    lib()
+    err = _entries[name](*args)
+    if err:
+        raise RuntimeError(f"{name}: error {err}")
 
 
 def no_grad_inputs(name: str, *tensors) -> None:

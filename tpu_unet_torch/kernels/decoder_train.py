@@ -28,7 +28,9 @@ stage's forward and weight gradients read.
   dk1, dk2 over y1 — planned by :func:`wgrad_plan`.
 - :func:`upsample2x_adjoint`: dx at x's size from dups (the W- and H-lerp
   adjoints of :327-338 and #19's overlap-add).  CUDA kernel
-  ``csrc/upsample_adjoint.cu``, a gather over the host tables of
+  ``csrc/upsample_adjoint.cu``: a streamed pass that reads dups once
+  through a TMA ring, blocks of a strip of columns, a channel chunk and a
+  band of rows planned by :func:`adjoint_plan`, with the tables of
   ``nn/resize.py::adjoint_tables``.
 - :func:`unetup_bwd_full` (#14-#19, ``fused_unetup_bwd_paired_impl`` and
   ``fused_unetup_bwd_wide_impl`` with their low-res schedules): the whole
@@ -38,7 +40,9 @@ Bounds and designs are in the sources' notes.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -95,6 +99,62 @@ def _adjoint_tables(h: int, w: int, device: torch.device):
     weights, on ``device``."""
     return tuple(t.contiguous().to(device)
                  for t in (*adjoint_tables(h, torch.bfloat16), *adjoint_tables(w, torch.bfloat16)))
+
+
+class AdjointPlan(NamedTuple):
+    """The upsample adjoint kernel's launch at one shape (the mirror of
+    ``csrc/upsample_adjoint.cuh::adj::plan``): a block takes a strip of
+    ``tw`` low-resolution columns, a chunk of ``cc`` channels and a band of
+    ``th`` rows of one image, with ``consumers`` threads and a producer
+    warp; ``stage_bytes`` a ring stage, ``smem`` in all."""
+    tw: int
+    cc: int
+    th: int
+    strips: int
+    chunks: int
+    bands: int
+    consumers: int
+    stage_bytes: int
+    smem: int
+    grid: int
+
+
+ADJ_RPS, ADJ_STAGES = 2, 4  # high-resolution rows a stage, stages a ring
+ADJ_MAX_CONSUMERS, ADJ_MAX_TH, ADJ_MIN_TH = 256, 64, 8
+ADJ_MIN_BLOCKS = 132  # the H100's SMs
+ADJ_SLOT_BYTES = (2 * ADJ_MAX_TH + 4) * 2 * 8
+
+
+@functools.lru_cache(maxsize=64)
+def adjoint_plan(B: int, h: int, w: int, c: int) -> AdjointPlan:
+    """The adjoint kernel's plan for dx (B, h, w, c): ``tw`` the power of
+    two in 8..32 that covers w (or 32), ``cc`` the largest power-of-two
+    chunk (≤ 256) dividing c with at most 256 consumer threads, ``th`` 64
+    rows halved (to 8 at least) while the grid has fewer blocks than the
+    card has SMs, and at most h."""
+    tw = 8
+    while tw < w and tw < 32:
+        tw *= 2
+    cc = next(k for k in (256, 128, 64, 32, 16, 8)
+              if c % k == 0 and tw * (k // 8) <= ADJ_MAX_CONSUMERS)
+    strips, chunks = -(-w // tw), c // cc
+    th = ADJ_MAX_TH
+    while th > ADJ_MIN_TH and B * strips * chunks * -(-h // th) < ADJ_MIN_BLOCKS:
+        th //= 2
+    th = min(th, h)
+    bands = -(-h // th)
+    stage_bytes = ADJ_RPS * (2 * tw + 4) * cc * 2
+    return AdjointPlan(tw, cc, th, strips, chunks, bands, -(-tw * (cc // 8) // 32) * 32,
+                       stage_bytes, ADJ_STAGES * stage_bytes + ADJ_SLOT_BYTES
+                       + 2 * ADJ_STAGES * 8 + 128, B * bands * chunks * strips)
+
+
+def adjoint_plan_on_card(B: int, h: int, w: int, c: int) -> AdjointPlan:
+    """The plan the kernel library itself computes at (B, h, w, c), to hold
+    :func:`adjoint_plan` to (needs the CUDA build)."""
+    out = (ctypes.c_longlong * len(AdjointPlan._fields))()
+    _build.query("tu_upsample_adjoint_plan", B, h, w, c, out)
+    return AdjointPlan(*out)
 
 
 def _conv_nobias(x, w):

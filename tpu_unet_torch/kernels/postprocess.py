@@ -2,8 +2,11 @@
 the per-image class histogram (counterpart of
 ``tpu_unet/kernels/postprocess.py``).
 
-CUDA kernels: ``csrc/postprocess.cu``, one template on the feature width
-F ∈ {22, 32, 64}:
+CUDA kernels, behind the C entries of ``csrc/postprocess.cu``: at F = 64
+``csrc/tail_sm90.cu`` (the products on ``wgmma`` behind a TMA ring, the
+argmax, mask and histogram in its epilogue; planned as :func:`tail_plan`
+says), at F ∈ {22, 32} ``csrc/postprocess.cu``'s one-thread-a-pixel
+template:
 
 - ``final_argmax_hist`` replaces ``fused_final_argmax_hist_paired`` (the
   tail of ``unet_vgg`` and ``unet_resnet50``, F = 64) and
@@ -17,7 +20,9 @@ F ∈ {22, 32, 64}:
   :func:`masks_and_hist`, as ``postprocess.py:148-152`` does.
 
 Both keep the logits out of device memory.  Bound on the H100: memory
-(reading the features), see the source note.
+(reading the features), see the sources' notes.  At F = 64 the weights are
+rounded to bf16 for the tensor cores, as the TPU kernel casts them to the
+feature dtype (the serving models' weights are bf16 already).
 
 CUDA kernel ``csrc/argmax.cu``: ``argmax_mask`` replaces
 ``fused_argmax_mask`` (``postprocess.py:38-67``), the class mask of logits
@@ -28,6 +33,8 @@ counts as the maximum; int32 as JAX returns it, or uint8 as the serving
 step writes it.  Bound on the H100: memory (reading the logits).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +47,36 @@ _MAX_CLASSES = 32
 _LOGIT_DTYPES = (torch.float32, torch.bfloat16)
 _MASK_DTYPES = (torch.int32, torch.uint8)
 HIST_BLOCK = 256  # pixels a CUDA block; a histogram block never spans two images
+TAIL_TILE, TAIL_CTAS = 128, 132  # the F = 64 tail's pixels a tile, most blocks
+
+
+class TailPlan(NamedTuple):
+    """The F = 64 tail's launch (the mirror of ``csrc/tail_sm90.cu``):
+    ``np`` classes padded to the ``wgmma`` width (a multiple of 8),
+    ``tiles`` of 128 pixels, ``grid`` persistent blocks, block g taking the
+    tiles ``[tiles·g / grid, tiles·(g + 1) / grid)``; with the histogram,
+    ``flushes[i]`` is how many blocks add counts of image i (one global
+    ``atomicAdd`` a class each)."""
+    np: int
+    tiles: int
+    grid: int
+    flushes: tuple
+
+
+def tail_plan(n_pix: int, num_classes: int, per_img: int | None = None) -> TailPlan:
+    """The F = 64 tail's plan for ``n_pix`` pixels (``per_img`` a multiple
+    of 128 with the histogram, None for the mask alone)."""
+    tiles = -(-n_pix // TAIL_TILE)
+    grid = min(tiles, TAIL_CTAS)
+    flushes = ()
+    if per_img is not None:
+        counts = [0] * (n_pix // per_img)
+        for g in range(grid):
+            t0, t1 = tiles * g // grid, tiles * (g + 1) // grid
+            for img in range(t0 * TAIL_TILE // per_img, (t1 - 1) * TAIL_TILE // per_img + 1):
+                counts[img] += 1
+        flushes = tuple(counts)
+    return TailPlan(-(-num_classes // 8) * 8, tiles, grid, flushes)
 
 
 def _weights(weight: torch.Tensor, bias: torch.Tensor, num_classes: int):

@@ -3,7 +3,8 @@
     python -m tpu_unet_torch.tools.bench_sm90 [part ...]
 
 with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
-``stem_fwd``, ``head_bwd``, ``loss`` (all by default):
+``stem_fwd``, ``head_bwd``, ``loss``, ``adjoint``, ``tail`` (all by
+default):
 
 - the VGG16 blocks 2-5 in training (#21 / #23 forward, #22 / #24
   backward, all on the Hopper kernels) at unet_vgg's training shapes (512²
@@ -47,12 +48,30 @@ with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
   pass, the two dgrads, the two GEMMs and their reduce passes and the
   adjoint; and, in turns with the shipped call, the backward from an
   ``up`` given (the forward's, kept from the forward instead of written
-  again), with the bytes that keeping it would hold.
+  again), with the bytes that keeping it would hold;
+- the fused loss (#27 / #29) at 8 × 512² × 21 and 32 × 256² × 4;
+- the upsample's adjoint (#19, ``upsample_adjoint``) at every dx shape it
+  serves: unet_vgg's and unet_resnet50's four decoder stages and both
+  heads (512², batch 8): ms per launch in the same rounds and their
+  median, the device time by ``torch.profiler``, each one's share of the
+  bytes bound, autograd of ``upsample2x`` as the library yardstick, the
+  launch plan where the tree has one, and a hash of dx (its int16 view's
+  sum and a sha1 of its bytes; each shape's dups come from a generator of
+  its own seed, so runs of two trees show whether their dx are
+  bit-identical);
+- the canonical serving tail (#4, F = 64): 8 × 512² × 64 → 21 with the
+  histogram and the mask alone at 8 × 500² (no multiple of 256 an image,
+  the mask-only call): the same readings against ``F.linear`` +
+  ``argmax`` (+ the offset ``bincount``), and a hash of the masks (and
+  histogram).
 
-Every line carries the card's name and power limit.
+Every line carries the card's name and power limit.  Another tree's
+kernels are timed by running this file with that tree's root first on
+``PYTHONPATH`` (``PYTHONPATH=<root> python <this file> adjoint tail``).
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -63,7 +82,8 @@ import torch
 import torch.nn.functional as F
 
 from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encoder_train, loss,
-                                    sm90, stem, upconv)
+                                    postprocess, sm90, stem, upconv)
+from tpu_unet_torch.nn.resize import upsample2x
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -73,11 +93,17 @@ BLOCKS = ((256, [64, 128, 128], True), (128, [128, 256, 256, 256], True),
 STAGES = (("vgg", 256, 64, 128, 64), ("vgg", 128, 128, 256, 128), ("vgg", 64, 256, 512, 256),
           ("vgg", 32, 512, 512, 512), ("rn50", 128, 64, 128, 64), ("rn50", 64, 256, 256, 128),
           ("rn50", 32, 512, 512, 256), ("rn50", 16, 1024, 2048, 512))
+# #19's dx shapes (B, h, C): unet_vgg up1-up4, unet_resnet50 up1-up4, the
+# unet_resnet50 and self_net heads
+ADJOINT_SHAPES = (("vgg up1", 8, 256, 128), ("vgg up2", 8, 128, 256), ("vgg up3", 8, 64, 512),
+                  ("vgg up4", 8, 32, 512), ("rn50 up1", 8, 128, 128), ("rn50 up2", 8, 64, 256),
+                  ("rn50 up3", 8, 32, 512), ("rn50 up4", 8, 16, 2048),
+                  ("rn50 head", 8, 256, 64), ("self_net head", 8, 512, 64))
 ROUNDS, REPS = 5, 20
 
 
-def _rounds(fn):
-    """ms per call of ``fn`` in each of ROUNDS rounds of REPS calls."""
+def _rounds(fn, reps=REPS):
+    """ms per call of ``fn`` in each of ROUNDS rounds of ``reps`` calls."""
     for _ in range(3):
         fn()
     out = []
@@ -85,12 +111,24 @@ def _rounds(fn):
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         t1.record()
         torch.cuda.synchronize()
-        out.append(t0.elapsed_time(t1) / REPS)
+        out.append(t0.elapsed_time(t1) / reps)
     return out
+
+
+def _digest(*ts):
+    """A hash of tensors' bytes: the sum of their 16-bit (bf16) or 8-bit
+    views and a sha1 of the bytes."""
+    h, total = hashlib.sha1(), 0
+    for t in ts:
+        v = t.contiguous().reshape(-1)
+        v = v.view(torch.int16 if v.element_size() == 2 else torch.uint8)
+        total += int(v.sum(dtype=torch.int64))
+        h.update(v.cpu().numpy().tobytes())
+    return {"sum": total, "sha1": h.hexdigest()}
 
 
 def _by_kernel(fn, reps=5):
@@ -470,9 +508,74 @@ def _loss(smi, gen, B, h, c):
                       "kernels": sorted(seq), "gpu": smi}), flush=True)
 
 
+def _adjoint(smi, name, B, h, c):
+    """#19 at dx (B, h, h, c) (see the module note)."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 * h + c)
+    dups = torch.randn((B, 2 * h, 2 * h, c), generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.zeros((B, h, h, c), dtype=torch.bfloat16, device="cuda")
+
+    def fn():
+        return decoder_train.upsample2x_adjoint(dups, h, h)
+
+    def lib():
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            up = upsample2x(xg)
+        return torch.autograd.grad(up, xg, dups)[0]
+
+    dx = fn()
+    ms = _rounds(fn)
+    med = statistics.median(ms)
+    by = _by_kernel(fn, reps=20)
+    dev_ms = sum(v for k, v in by.items() if "upsample_adjoint" in k)
+    bound = 2 * (dups.numel() + dx.numel()) / PEAK_BYTES * 1e3
+    plan = getattr(decoder_train, "adjoint_plan", None)
+    print(json.dumps({"kernel": "upsample_adjoint", "case": f"{name}: {B}x{2 * h}^2x{c} -> {h}^2",
+                      "ms_rounds": ms, "ms": med, "device_ms": dev_ms,
+                      "library_ms": statistics.median(_rounds(lib, reps=2)), "bound_ms": bound,
+                      "bound_by": "bytes", "share_of_bound": bound / dev_ms,
+                      "events_share_of_bound": bound / med, "ms_by_kernel": by,
+                      "plan": plan(B, h, h, c)._asdict() if plan else None,
+                      "dx": _digest(dx), "gpu": smi}), flush=True)
+
+
+def _tail(smi, B, h, c, hist):
+    """#4 at (B, h, h, 64) bf16 features → c classes (see the module note)."""
+    gen = torch.Generator(device="cuda").manual_seed(7 * h + c)
+    bf = torch.bfloat16
+    feats = torch.relu(torch.randn((B, h, h, 64), generator=gen, device="cuda")).to(bf)
+    w = (torch.randn((c, 64, 1, 1), generator=gen, device="cuda") / 8).to(bf)
+    b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(bf)
+    tail = postprocess.final_argmax_hist if hist else postprocess.final_argmax
+    w2 = w.reshape(c, 64)
+    offs = torch.arange(B, device="cuda").reshape(B, 1, 1) * c
+
+    def fn():
+        return tail(feats, w, b, c)
+
+    def lib():  # cuBLAS bf16 logits, argmax (+ one offset bincount)
+        cls = F.linear(feats, w2, b).argmax(-1)
+        return torch.bincount((cls + offs).reshape(-1), minlength=B * c) if hist else cls
+
+    out = fn()
+    ms = _rounds(fn)
+    med = statistics.median(ms)
+    by = _by_kernel(fn, reps=20)
+    dev_ms = sum(v for k, v in by.items() if "final_tail_kernel" in k or "final_argmax_kernel" in k)
+    outs = out if hist else (out,)
+    bound = (feats.numel() * 2 + sum(t.numel() * t.element_size() for t in outs)) / PEAK_BYTES * 1e3
+    print(json.dumps({"kernel": "final_argmax_hist" if hist else "final_argmax",
+                      "case": f"{B}x{h}x{h}x64 -> {c}", "ms_rounds": ms, "ms": med,
+                      "device_ms": dev_ms, "library_ms": statistics.median(_rounds(lib)),
+                      "bound_ms": bound, "bound_by": "bytes", "share_of_bound": bound / dev_ms,
+                      "events_share_of_bound": bound / med, "ms_by_kernel": by,
+                      "masks": _digest(*outs), "gpu": smi}), flush=True)
+
+
 def main(argv=None) -> int:
     parts = list(argv if argv is not None else sys.argv[1:]) or \
-        ["tiles", "stages", "blocks", "stem", "head", "stem_fwd", "head_bwd", "loss"]
+        ["tiles", "stages", "blocks", "stem", "head", "stem_fwd", "head_bwd", "loss", "adjoint",
+         "tail"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -503,6 +606,13 @@ def main(argv=None) -> int:
             for B, h, c in ((8, 512, 21), (32, 256, 4)):
                 _loss(smi, gen, B, h, c)
                 torch.cuda.empty_cache()
+        elif part == "adjoint":
+            for name, B, h, c in ADJOINT_SHAPES:
+                _adjoint(smi, name, B, h, c)
+                torch.cuda.empty_cache()
+        elif part == "tail":
+            _tail(smi, 8, 512, 21, True)
+            _tail(smi, 8, 500, 21, False)
         else:
             raise SystemExit(f"bench_sm90: unknown part {part!r}")
         torch.cuda.empty_cache()
