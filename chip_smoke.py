@@ -1153,11 +1153,15 @@ def logit_loss_kernels(record, gen):
     """#25 / #26 against their plain versions: the DataB presets' shape
     (32x256^2x4 bf16; ``traditional``'s weights (1, 15, 0, 0) and the
     ladder's (1, 15, 1.5, 2)), CE + dice, unet_vgg + focal's 8x512^2x21
-    bf16, and a float32 case; targets with the ignore class and raw 255s.
-    Loss and f_score within 1e-4 relative, dlogits within 1% of max |plain|
-    (bf16) or 1e-5 (float32), the loss bit-identical run to run."""
+    bf16, the widest class count (126: sixteen threads a pixel) and a
+    float32 case; targets with the ignore class and raw 255s.  Loss and
+    f_score within 1e-4 relative, dlogits within 1% of max |plain| (bf16)
+    or 1e-5 (float32), the loss bit-identical run to run.  Each line also
+    carries the pass's device time (``torch.profiler``: every kernel the
+    wrapper launches) and its share of the bound."""
     from tpu_unet_torch.kernels.loss import (ce_dice_bwd, ce_dice_bwd_plain, ce_dice_fwd,
                                              ce_dice_fwd_plain, pack_targets)
+    from tpu_unet_torch.tools.bench_launch import device_ms
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -1166,6 +1170,7 @@ def logit_loss_kernels(record, gen):
              (DATAB_BATCH, DATAB_SIZE, 4, bf, ladder, True, True),
              (DATAB_BATCH, DATAB_SIZE, 4, bf, ladder, False, True),
              (BATCH, SIZE, 21, bf, tuple(1.0 + 0.1 * i for i in range(21)), True, True),
+             (4, DATAB_SIZE, 126, bf, tuple(1.0 + 0.01 * i for i in range(126)), True, True),
              (4, DATAB_SIZE, 4, torch.float32, ladder, True, True)]
     for n, size, c, dt, cw, focal, dice in cases:
         x = (2 * torch.randn((n, size, size, c), generator=gen, device=dev)).to(dt)
@@ -1198,10 +1203,13 @@ def logit_loss_kernels(record, gen):
             pt = (p > 0.5).float()
             return ce, (p * oh).sum(0), p.sum(0), oh.sum(0), (pt * oh).sum(0), pt.sum(0)
 
-        record("ce_dice_fwd", case, [loss, fs], [ploss, pfs],
-               lambda: ce_dice_fwd(x, t, cw, c, dice, focal),
+        kern = lambda: ce_dice_fwd(x, t, cw, c, dice, focal)  # noqa: E731
+        dms = device_ms(kern)
+        record("ce_dice_fwd", case, [loss, fs], [ploss, pfs], kern,
                lambda: ce_dice_fwd_plain(x, t, cw, c, dice, focal), lib,
-               12.0 * npix * c, nbytes(x, t), peak=PEAK_F32)
+               12.0 * npix * c, nbytes(x, t), peak=PEAK_F32,
+               extra={"device_ms": dms, "device_share_of_bound":
+                      bound(12.0 * npix * c, nbytes(x, t), PEAK_F32)[0] / dms})
         out = ce_dice_bwd(x, t, cw, c, dice, focal, 0.5, 2.0, res, gl)
         ref = ce_dice_bwd_plain(x, t, cw, c, dice, focal, 0.5, 2.0, pres, gl)
         drel = rel_err(out, ref)[1]
@@ -1214,11 +1222,16 @@ def logit_loss_kernels(record, gen):
         tp, ps, ts = (p * oh).sum(0), p.sum(0), oh.sum(0)
         graph = F.cross_entropy(lf, t_cl, weight=cw_t, ignore_index=c) + \
             1 - ((2 * tp + 1e-5) / (ps + ts + 1e-5)).mean()
-        record("ce_dice_bwd", case, [out], [ref],
-               lambda: ce_dice_bwd(x, t, cw, c, dice, focal, 0.5, 2.0, res, gl),
+        check(bool(torch.equal(out, ce_dice_bwd(x, t, cw, c, dice, focal, 0.5, 2.0, res, gl))),
+              f"ce_dice_bwd {case}: two runs differ")
+        kern = lambda: ce_dice_bwd(x, t, cw, c, dice, focal, 0.5, 2.0, res, gl)  # noqa: E731
+        dms = device_ms(kern)
+        record("ce_dice_bwd", case, [out], [ref], kern,
                lambda: ce_dice_bwd_plain(x, t, cw, c, dice, focal, 0.5, 2.0, pres, gl),
                lambda: torch.autograd.grad(graph, [xg], retain_graph=True),
-               14.0 * npix * c, nbytes(x, t, out), peak=PEAK_F32)
+               14.0 * npix * c, nbytes(x, t, out), peak=PEAK_F32,
+               extra={"device_ms": dms, "device_share_of_bound":
+                      bound(14.0 * npix * c, nbytes(x, t, out), PEAK_F32)[0] / dms})
         del x, t, r, t_cl, out, ref, xg, lf, p, oh, graph
 
 
@@ -1364,8 +1377,6 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = "port " + ("final_loss_fwd_kernel" if "fwd" in name else "final_loss_bwd_kernel")
         elif "ce_dice_fwd_kernel" in name or "ce_dice_bwd_kernel" in name:
             name = "port " + ("ce_dice_fwd_kernel" if "fwd" in name else "ce_dice_bwd_kernel")
-        elif "sum_rows_kernel" in name:
-            name = "port sum_rows_kernel"
         elif "conv_sm90_kernel" in name or "wgrad_sm90_kernel" in name:
             kind = "conv_sm90_kernel" if "conv_sm90" in name else "wgrad_sm90_kernel"
             name = f"port {kind}<{name[name.index('<') + 1:name.index('>')]}>"

@@ -746,6 +746,163 @@ def test_final_loss_scalars(cuda, with_dice):
     assert close(coefs[42], L._inv(gl, res[0]))
 
 
+def _logit_inputs(gen, shape, c, dtype, cw=None):
+    """Logits (shape + (C,)), int targets with ~3% the ignore class C and
+    ~2% raw 255, class weights 1 + 0.1 c unless given."""
+    x = (2 * torch.randn((*shape, c), generator=gen, device="cuda")).to(dtype)
+    t = torch.randint(0, c, shape, generator=gen, device="cuda")
+    r = torch.rand(shape, generator=gen, device="cuda")
+    t = torch.where(r < 0.03, torch.full_like(t, c), t)
+    t = torch.where(r > 0.98, torch.full_like(t, 255), t)
+    return x, t, cw if cw is not None else tuple(1.0 + 0.1 * i for i in range(c))
+
+
+def _check_logit_loss(x, t, cw, c, with_dice, focal):
+    """#25 and #26 against their plain versions (loss within 1e-4
+    relative, f_score within 1e-4 as in test_logit_loss_kernels, dlogits within 1% of max |plain| for bf16, 1e-5 for
+    float32), one launch a pass, a relaunch bit-identical."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.loss import (ce_dice_bwd, ce_dice_bwd_plain, ce_dice_fwd,
+                                             ce_dice_fwd_plain)
+
+    n0, n1 = launch_counts["ce_dice_fwd"], launch_counts["ce_dice_bwd"]
+    loss, fs, res = ce_dice_fwd(x, t, cw, c, with_dice, focal)
+    ploss, pfs, pres = ce_dice_fwd_plain(x, t, cw, c, with_dice, focal)
+    assert launch_counts["ce_dice_fwd"] == n0 + 1
+    assert abs(loss.item() - ploss.item()) <= 1e-4 * abs(ploss.item())
+    assert abs(fs.item() - pfs.item()) <= 1e-4
+    again = ce_dice_fwd(x, t, cw, c, with_dice, focal)
+    assert torch.equal(loss, again[0]) and torch.equal(fs, again[1])
+    assert all(torch.equal(a, b) for a, b in zip(res, again[2]))
+    gl = torch.tensor(1.0, device="cuda")
+    out = ce_dice_bwd(x, t, cw, c, with_dice, focal, 0.5, 2.0, res, gl)
+    ref = ce_dice_bwd_plain(x, t, cw, c, with_dice, focal, 0.5, 2.0, pres, gl)
+    assert launch_counts["ce_dice_bwd"] == n1 + 1
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert _rel(out, ref) <= (1e-2 if x.dtype == torch.bfloat16 else 1e-5)
+    assert torch.equal(out, ce_dice_bwd(x, t, cw, c, with_dice, focal, 0.5, 2.0, res, gl))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("focal", [False, True])
+@pytest.mark.parametrize("with_dice", [True, False])
+@pytest.mark.parametrize("c", [4, 1, 21, 126])
+@pytest.mark.parametrize("shape", [(3, 40, 72), (1, 9, 23)])
+def test_logit_loss_layouts(cuda, dtype, focal, with_dice, c, shape):
+    """#25 / #26 at every thread layout the class counts take (C = 1, 4:
+    a thread a pixel; 21: four threads; 126: sixteen), CE and focal, dice
+    on and off, over several tiles and blocks (3 x 40 x 72) and at a
+    ragged pixel count (207: a last tile whose bytes are no multiple of
+    16)."""
+    x, t, cw = _logit_inputs(cuda, shape, c, dtype)
+    _check_logit_loss(x, t, cw, c, with_dice, focal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["traditional_weights", "all_ignored", "unaligned", "ragged"])
+def test_logit_loss_edges(cuda, dtype, case):
+    """The DataB weights (1, 15, 0, 0), focal + dice (u = 0 on two
+    classes: the backward's 1 - pt clamped at 1e-12); every target
+    ignored (s_w = 0); logits and targets as views no 16 bytes align (the
+    wrapper copies them); pixel counts one past a tile and one short."""
+    from tpu_unet_torch.kernels.loss import logit_loss_plan
+
+    if case == "traditional_weights":
+        x, t, _ = _logit_inputs(cuda, (4, 48, 48), 4, dtype)
+        _check_logit_loss(x, t, (1.0, 15.0, 0.0, 0.0), 4, True, True)
+    elif case == "all_ignored":
+        x, t, cw = _logit_inputs(cuda, (2, 16, 24), 21, dtype)
+        t = torch.where(t < 10, torch.full_like(t, 21), torch.full_like(t, 255))
+        for focal in (False, True):
+            _check_logit_loss(x, t, cw, 21, True, focal)
+    elif case == "unaligned":
+        x, t, cw = _logit_inputs(cuda, (2, 17, 19), 4, dtype)
+        xb = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        xb[1:] = x.reshape(-1)
+        tb = torch.empty(t.numel() + 1, dtype=torch.uint8, device="cuda")
+        tb[1:] = torch.clamp(t, max=255).to(torch.uint8).reshape(-1)
+        xv, tv = xb[1:].view(x.shape), tb[1:].view(t.shape)
+        assert xv.data_ptr() % 16 and tv.data_ptr() % 16
+        _check_logit_loss(xv, tv, cw, 4, True, True)
+    else:
+        tile = logit_loss_plan(4, dtype == torch.float32, False).tile
+        for n in (tile + 1, 2 * tile - 1):
+            x, t, cw = _logit_inputs(cuda, (1, n), 4, dtype)
+            _check_logit_loss(x, t, cw, 4, True, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("focal", [False, True])
+@pytest.mark.parametrize("with_dice", [True, False])
+def test_logit_loss_scalars(cuda, with_dice, focal):
+    """The device epilogue and prologue: #25's loss, f_score and residuals
+    equal the plain ``_finish`` of the kernel's own sums, and #26's A, B
+    and inv the plain ``dice_coefs`` / ``_inv``, within 1e-6."""
+    from tpu_unet_torch.kernels import loss as L
+
+    x, t, cw = _logit_inputs(cuda, (2, 24, 40), 21, torch.bfloat16)
+    loss, fs, res, sums = L._ce_fwd_cuda(x, t, cw, 21, with_dice, focal, 0.5, 2.0)
+    n = x.numel() // 21
+    ploss, pfs, pres = L._finish(sums, 21, with_dice, n if focal else None)
+
+    def close(a, b):
+        return bool(((a - b).abs() <= 1e-6 * b.abs().clamp_min(1.0)).all())
+
+    assert close(loss, ploss) and close(fs, pfs)
+    assert all(close(a, b) for a, b in zip(res, pres))
+    gl = torch.tensor(0.75, device="cuda")
+    coefs = L._ce_bwd_cuda(x, t, cw, 21, with_dice, focal, 0.5, 2.0, res, gl)[1]
+    a, bb = L.dice_coefs(res[2], res[1], 21, gl, with_dice)
+    assert close(coefs[:21], a) and close(coefs[21:42], bb)
+    assert close(coefs[42], L._inv(gl, res[0], n if focal else None))
+
+
+def _device_kernels(fn):
+    """The device kernels ``fn`` launches, by name, in launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return [e.name for e in evs]
+
+
+@pytest.mark.gpu
+def test_logit_loss_one_kernel_a_pass(cuda):
+    """``ce_dice_loss`` forward and backward, as the DataB step runs them:
+    with packed targets exactly the two kernels; with int targets those two
+    and ``pack_targets``' own kernels, nothing else (no second launch, no
+    eager epilogue)."""
+    from tpu_unet_torch.kernels.loss import ce_dice_loss, pack_targets
+
+    x, t, _ = _logit_inputs(cuda, (4, 64, 64), 4, torch.bfloat16)
+    xg = x.detach().requires_grad_()
+    gl = torch.tensor(1.0, device="cuda")
+    cw = (1.0, 15.0, 1.5, 2.0)
+
+    def step(target):
+        def fn():
+            loss, _ = ce_dice_loss(xg, target, cw, 4, True, True)
+            torch.autograd.grad(loss, xg, gl)
+        return fn
+
+    t8 = pack_targets(t, 4)
+    names = _device_kernels(step(t8))
+    assert len(names) == 2
+    assert "ce_dice_fwd_kernel" in names[0] and "ce_dice_bwd_kernel" in names[1]
+    packing = _device_kernels(lambda: pack_targets(t, 4))
+    names = _device_kernels(step(t))
+    assert [n for n in names if "ce_dice" not in n] == packing
+    assert sum("ce_dice" in n for n in names) == 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("h,w,cs,cx,f", [(16, 32, 64, 128, 64), (8, 16, 8, 120, 64)])
 def test_unetup_bwd_kernel(cuda, h, w, cs, cx, f):

@@ -67,8 +67,8 @@
 // reduces its partials in a fixed order (shuffles, then warps in order)
 // into its row of `partial`; the last block to finish, found by an integer
 // ticket after __threadfence(), adds the rows in row order and runs the
-// scalar epilogue.  No float atomics: every result is the same on every
-// run.
+// scalar epilogue (both in loss_common.cuh, shared with #25 / #26).  No
+// float atomics: every result is the same on every run.
 //
 // On an H100 at the shape above: 0.165 ms forward (49% of its bound),
 // 0.263 backward (61%).  The rings alone stream at 83% of the bound and
@@ -78,11 +78,12 @@
 // Targets are one byte a pixel, as the TPU kernel's int8 targets: C <= 126
 // and the raw 255 border fit; a value >= C is the ignore class.
 // Limits: 64 features, 1 <= C <= 126.
-#include "sm90.cuh"
+#include "loss_common.cuh"
 
 namespace {
 
 using namespace tu::sm90;
+using namespace tu::loss;
 using bf16 = __nv_bfloat16;
 
 constexpr int CF = 64;            // features
@@ -93,7 +94,6 @@ constexpr int THREADS = 384;      // and one producer warpgroup
 constexpr int SMEM_MAX = 232448;  // a block's dynamic shared memory, 227 KB
 constexpr int MAX_STAGES = 6;
 constexpr int SMALL = 4096;       // per-class constants, counters, scalars
-constexpr float SMOOTH = 1e-5f;
 
 // Shared memory of a pass (kernels/loss.py::final_loss_plan mirrors it):
 // the ring's feature tiles, W (hi and, for f32, lo), the backward's dlog^T
@@ -133,13 +133,6 @@ constexpr int S_BIAS = 0, S_CW = 128, S_A = 256, S_B = 384, S_TS = 512, S_TPT = 
 constexpr int S_AB = S_TS;  // the backward's A + B (it keeps no counts)
 constexpr int S_BB = 960;   // the bias as bf16 (128 of them in 64 floats)
 constexpr int NO_CLASS = 1024;  // the target of an ignored pixel or a row past n
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 struct Args {
   const void* wt;     // (C, 64) in the feature dtype
@@ -251,11 +244,7 @@ __device__ __forceinline__ void final_loss_body(const CUtensorMap* fmap, const C
         // dice_coefs and _inv (kernels/loss.py), the same float32 operations
         const float g = *a.gl;
         float ca = 0.f, cb = 0.f;
-        if (real && a.with_dice) {
-          const float d = a.denom[tid], num = a.score[tid] * d;
-          ca = (-(2.f / d) / static_cast<float>(C)) * g;
-          cb = (-(-num / (d * d)) / static_cast<float>(C)) * g;
-        }
+        if (real && a.with_dice) dice_coef(g, a.denom[tid], a.score[tid], C, ca, cb);
         sm[S_A + tid] = ca;
         sm[S_B + tid] = cb;
         sm[S_AB + tid] = ca + cb;
@@ -717,56 +706,20 @@ __device__ __forceinline__ void final_loss_body(const CUtensorMap* fmap, const C
   }
 
   // ---- the last block adds the rows in row order, then the epilogue ------
-  __threadfence();
-  bar_sync(3, CONSUMERS);
-  if (tid == 0) si[S_LAST] = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
-  bar_sync(3, CONSUMERS);
-  if (!si[S_LAST]) return;
-  __threadfence();
+  if (!last_block(a.ticket, &si[S_LAST], 3, CONSUMERS)) return;
   const int G = gridDim.x;
   if constexpr (!BWD) {
     float* S = red;  // the sums
     for (int j = tid; j < ROWLEN; j += CONSUMERS) {
-      float v = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < G; ++r) v += __ldcg(a.partial + static_cast<size_t>(r) * ROWLEN + j);
+      const float v = row_order_sum(a.partial, G, ROWLEN, j);
       S[j] = v;
       a.res[1 + 2 * C + j] = v;
     }
     bar_sync(3, CONSUMERS);
-    float* E = red + 1024;  // score[c], fscore terms[c]
-    if (tid < C) {  // _finish, the same float32 operations
-      const float tp_ = S[2 + tid], ps_ = S[2 + C + tid], ts_ = S[2 + 2 * C + tid];
-      const float tpt_ = S[2 + 3 * C + tid], pts_ = S[2 + 4 * C + tid];
-      const float fp = ps_ - tp_, fn = ts_ - tp_;
-      const float den = 2.f * tp_ + fn + fp + SMOOTH;
-      const float sc = (2.f * tp_ + SMOOTH) / den;
-      const float fpt = pts_ - tpt_, fnt = ts_ - tpt_;
-      a.res[1 + tid] = den;
-      a.res[1 + C + tid] = sc;
-      E[tid] = sc;
-      E[128 + tid] = (2.f * tpt_ + SMOOTH) / (2.f * tpt_ + fnt + fpt + SMOOTH);
-    }
-    bar_sync(3, CONSUMERS);
-    if (tid == 0) {
-      float ms = 0.f, mf = 0.f;
-      for (int c = 0; c < C; ++c) {
-        ms += E[c];
-        mf += E[128 + c];
-      }
-      ms /= static_cast<float>(C);
-      mf /= static_cast<float>(C);
-      const float ce = S[0] / fmaxf(S[1], 1e-12f);
-      *a.loss = a.with_dice ? ce + (1.f - ms) : ce;
-      *a.fscore = mf;
-      a.res[0] = S[1];
-      *a.ticket = 0u;
-    }
+    finish(S, C, a.with_dice, 0.f, a.loss, a.fscore, a.res, red + 1024, 3, CONSUMERS);
   } else {
     for (int j = tid; j < ROWLEN; j += CONSUMERS) {
-      float v = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < G; ++r) v += __ldcg(a.partial + static_cast<size_t>(r) * ROWLEN + j);
+      const float v = row_order_sum(a.partial, G, ROWLEN, j);
       // dW (C, 64) then db (C)
       void* dst = j < CF * C ? a.dw : a.db;
       const int o = j < CF * C ? j : j - CF * C;
@@ -779,10 +732,7 @@ __device__ __forceinline__ void final_loss_body(const CUtensorMap* fmap, const C
       a.coefs[tid] = sm[S_A + tid];
       a.coefs[C + tid] = sm[S_B + tid];
     }
-    if (tid == 0) {
-      a.coefs[2 * C] = inv;
-      *a.ticket = 0u;
-    }
+    if (tid == 0) a.coefs[2 * C] = inv;
   }
 }
 

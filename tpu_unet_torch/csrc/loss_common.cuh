@@ -1,112 +1,104 @@
-// Shared by the loss kernels, csrc/loss.cu (#27, #29) and
-// csrc/loss_logits.cu (#25, #26): the tile of 128 pixels, the per-class
-// sums of a tile, a block's partial row, and the second launch that adds
-// the blocks' partial rows in block order (no float atomics, so a loss is
-// the same on every run).
+// The device epilogue shared by the loss kernels, csrc/loss.cu (#27, #29)
+// and csrc/loss_logits.cu (#25, #26): the softmax's exponential, the
+// integer ticket that finds a pass's last block, the ordered sum of the
+// blocks' partial rows, kernels/loss.py::_finish and ::dice_coefs in the
+// same float32 operations.  No float atomics anywhere: a loss is the same
+// on every run.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
-namespace {
+namespace tu {
+namespace loss {
 
-using bf16 = __nv_bfloat16;
+constexpr float SMOOTH = 1e-5f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr int NT = 128;          // threads a block = pixels a tile
-constexpr int LDP = NT + 1;      // row stride of the per-class tiles [C][LDP]
-constexpr int MAX_BLOCKS = 1024; // partial-sum rows (the wrapper allocates them)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// the pixel's clamped target: min(t, C); C is the ignore class
-__device__ __forceinline__ int clamp_target(uint8_t t, int C) { return t > C ? C : t; }
+// Called by threads 0 .. nthreads - 1 of every block (named barrier `bar`)
+// once the block's partial row is written: true in the block that
+// finishes last, which then sees every row.  The ticket is 0 before a pass
+// and set back to 0 by its last block; `flag` is an int of shared memory.
+__device__ __forceinline__ bool last_block(unsigned* ticket, int* flag, int bar, int nthreads) {
+  __threadfence();
+  sm90::bar_sync(bar, nthreads);
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) *ticket = 0u;
+    *flag = last;
+  }
+  sm90::bar_sync(bar, nthreads);
+  if (!*flag) return false;
+  __threadfence();
+  return true;
+}
 
-// the block's sum of v, valid in thread 0; red holds NT / 32 floats
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
+// column j of the `rows` partial rows of M floats, added in row order
+// (32 loads in flight)
+__device__ __forceinline__ float row_order_sum(const float* partial, int rows, int M, int j) {
   float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < NT / 32; ++w) s += red[w];
+  for (int r0 = 0; r0 < rows; r0 += 32) {
+    float v[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      v[i] = r0 + i < rows ? __ldcg(partial + static_cast<size_t>(r0 + i) * M + j) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (r0 + i < rows) s += v[i];
+  }
   return s;
 }
 
-// The per-class dice and f_score sums of a thread over the tiles of its
-// block: thread tid sums class tid % C over the pixels tid / C, + NT / C,
-// ... of each tile (threads past (NT / C) * C idle).
-struct ClassSums {
-  float tp = 0.f, ps = 0.f, ts = 0.f, tpt = 0.f, pts = 0.f;
-
-  // P[c * LDP + i]: the tile's probabilities; Ts[i]: its clamped targets
-  // (C + 1 and zero probabilities for a pixel past the end)
-  __device__ void add(const float* P, const int* Ts, int C) {
-    const int G = NT / C, tid = threadIdx.x;
-    if (tid >= G * C) return;
-    const int cc = tid % C;
-    for (int i = tid / C; i < NT; i += G) {
-      const float pv = P[cc * LDP + i];
-      const bool hit = Ts[i] == cc, pos = pv > 0.5f;
-      tp += hit ? pv : 0.f;
-      ps += pv;
-      ts += hit ? 1.f : 0.f;
-      tpt += (hit && pos) ? 1.f : 0.f;
-      pts += pos ? 1.f : 0.f;
-    }
-  }
-};
-
-// A block's partial row [s0, s1, tp[C], psum[C], tsum[C], tp@0.5[C],
-// pos@0.5[C]]; R holds 5 * NT floats of scratch.
-__device__ void write_partial(float* row, float s0, float s1, const ClassSums& a, float* R,
-                              int C) {
-  const int tid = threadIdx.x, G = NT / C;
-  if (tid < G * C) {
-    R[0 * NT + tid] = a.tp;
-    R[1 * NT + tid] = a.ps;
-    R[2 * NT + tid] = a.ts;
-    R[3 * NT + tid] = a.tpt;
-    R[4 * NT + tid] = a.pts;
-  }
-  __syncthreads();
+// _finish on the device, by threads 0 .. nthreads - 1 (named barrier
+// `bar`), from the sums S = [S0, S1, tp[C], psum[C], tsum[C], tp@0.5[C],
+// pos@0.5[C]] in shared memory: the CE term S0 / max(S1, 1e-12), or S0 /
+// focal_n for the focal loss (focal_n > 0, the pixel count); writes loss,
+// fscore and res[0 .. 2C] = [s_w, denom[C], score[C]].  E: 256 floats of
+// shared scratch.
+__device__ __forceinline__ void finish(const float* S, int C, int with_dice, float focal_n,
+                                       float* loss, float* fscore, float* res, float* E, int bar,
+                                       int nthreads) {
+  const int tid = threadIdx.x;
   if (tid < C) {
-    for (int q = 0; q < 5; ++q) {
-      float s = 0.f;
-      for (int g = 0; g < G; ++g) s += R[q * NT + g * C + tid];
-      row[2 + q * C + tid] = s;
-    }
+    const float tp = S[2 + tid], ps = S[2 + C + tid], ts = S[2 + 2 * C + tid];
+    const float tpt = S[2 + 3 * C + tid], pts = S[2 + 4 * C + tid];
+    const float fp = ps - tp, fn = ts - tp;
+    const float den = 2.f * tp + fn + fp + SMOOTH;
+    const float sc = (2.f * tp + SMOOTH) / den;
+    const float fpt = pts - tpt, fnt = ts - tpt;
+    res[1 + tid] = den;
+    res[1 + C + tid] = sc;
+    E[tid] = sc;
+    E[128 + tid] = (2.f * tpt + SMOOTH) / (2.f * tpt + fnt + fpt + SMOOTH);
   }
-  __syncthreads();
-  const float x = block_sum(s0, R);
-  const float y = block_sum(s1, R);
+  sm90::bar_sync(bar, nthreads);
   if (tid == 0) {
-    row[0] = x;
-    row[1] = y;
+    float ms = 0.f, mf = 0.f;
+    for (int c = 0; c < C; ++c) {
+      ms += E[c];
+      mf += E[128 + c];
+    }
+    ms /= static_cast<float>(C);
+    mf /= static_cast<float>(C);
+    const float ce = S[0] / (focal_n > 0.f ? focal_n : fmaxf(S[1], 1e-12f));
+    *loss = with_dice ? ce + (1.f - ms) : ce;
+    *fscore = mf;
+    res[0] = S[1];
   }
 }
 
-// out[j] = sum over the nb rows of partial[:, j], in row order
-__global__ void sum_rows_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                int nb, int M) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= M) return;
-  float s = 0.f;
-  for (int r = 0; r < nb; ++r) s += partial[static_cast<size_t>(r) * M + j];
-  out[j] = s;
+// dice_coefs for one class: dL/dp = A·onehot + B, scaled by the cotangent gl
+__device__ __forceinline__ void dice_coef(float gl, float denom, float score, int C, float& a,
+                                          float& b) {
+  const float num = score * denom;
+  a = (-(2.f / denom) / static_cast<float>(C)) * gl;
+  b = (-(-num / (denom * denom)) / static_cast<float>(C)) * gl;
 }
 
-// blocks of a grid-stride pass over n pixels: one a tile, at most MAX_BLOCKS
-inline int blocks_for(long long n) {
-  const long long tiles = (n + NT - 1) / NT;
-  return static_cast<int>(tiles < MAX_BLOCKS ? tiles : MAX_BLOCKS);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-}  // namespace
+}  // namespace loss
+}  // namespace tu

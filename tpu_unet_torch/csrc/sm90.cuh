@@ -1,7 +1,8 @@
 // Hopper building blocks of the port's sm_90a kernels (csrc/conv3x3_sm90.cuh,
-// csrc/wgrad_sm90.cuh, the stem's image GEMMs, the fused loss
-// csrc/loss.cu, the serving tail csrc/tail_sm90.cu and the upsample's
-// adjoint csrc/upsample_adjoint.cuh): mbarriers, TMA tile loads, wgmma
+// csrc/wgrad_sm90.cuh, the stem's image GEMMs, the losses csrc/loss.cu
+// and csrc/loss_logits.cu, the serving tail csrc/tail_sm90.cu and the
+// upsample's adjoint csrc/upsample_adjoint.cuh): mbarriers, TMA tile loads
+// and stores, 1-D bulk copies, wgmma
 // descriptors and the m64nNk16 bf16 products with float32 accumulators
 // (both operands from shared memory, or A from registers), and, on the
 // host, the tensor maps and the launch records that the Python side plans
@@ -108,6 +109,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// ---- device: 1-D bulk copies (no tensor map; both addresses 16-byte
+// aligned, `bytes` a multiple of 16) ----------------------------------------
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared → global, completed through the bulk group (bulk_commit, bulk_wait*)
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
 }
 
 // ---- device: TMA tile stores (out-of-bounds elements are not written) -----

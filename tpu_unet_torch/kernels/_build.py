@@ -88,12 +88,16 @@ SIGNATURES = {
     "tu_upsample_adjoint": [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] + [_I] * 4 + [_P],
     # B, H, W, C, out (10 int64): the adjoint's launch plan (no stream)
     "tu_upsample_adjoint_plan": [_I] * 4 + [_P],
-    # logits, is_bf16, target, cls_weights, partial, sums, n_pix (int64), C,
-    # focal, alpha, gamma, stream
-    "tu_ce_dice_fwd": [_P, _I] + [_P] * 4 + [ctypes.c_longlong, _I, _I, _F, _F, _P],
-    # logits, is_bf16, target, cls_weights, coefA, coefB, inv, dlogits,
-    # n_pix (int64), C, focal, alpha, gamma, stream
-    "tu_ce_dice_bwd": [_P, _I] + [_P] * 6 + [ctypes.c_longlong, _I, _I, _F, _F, _P],
+    # logits, is_bf16, target, cls_weights, partial, ticket, loss, fscore,
+    # res, n_pix (int64), C, with_dice, focal, alpha, gamma, tile, stages,
+    # smem, grid, stream
+    "tu_ce_dice_fwd": [_P, _I] + [_P] * 7 + [ctypes.c_longlong] + [_I] * 3 + [_F, _F]
+                      + [_I] * 4 + [_P],
+    # logits, is_bf16, target, cls_weights, gl, s_w, denom, score, dlogits,
+    # coefs, n_pix (int64), C, with_dice, focal, alpha, gamma, tile, stages,
+    # smem, grid, stream
+    "tu_ce_dice_bwd": [_P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 3 + [_F, _F]
+                      + [_I] * 4 + [_P],
 }
 
 # launches of each kernel wrapper; a wrapper adds one where it calls its

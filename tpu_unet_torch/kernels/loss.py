@@ -8,7 +8,16 @@ Two pairs of CUDA kernels:
   ``loss.py::_reductions`` (#25) and ``ce_dice_bwd`` replaces
   ``loss.py::_vjp_bwd`` (#26), the entry :func:`ce_dice_loss` as
   ``ce_dice_loss_grad`` (:205-237).  CE or focal (α 0.5, γ 2), ± dice, on
-  logits that come out at the target's size;
+  logits that come out at the target's size.  Each is one Hopper kernel a
+  pass: a persistent grid of at most 132 blocks fed tiles of a power of
+  two pixels (their logits and target bytes) by 1-D bulk copies through a
+  ring of stages, 512 consumer threads taking two pixel slots at once, G
+  threads a pixel each holding K of its classes, the
+  forward's sums reduced in a fixed order and its ``_finish`` on the
+  device, the backward's ``dice_coefs`` / ``_inv`` in its prologue and its
+  dlogits written back by a bulk store a tile: one launch a pass and no
+  eager op around it.  :func:`logit_loss_plan` gives the launch its shape,
+  which the C entry checks against the kernel's own;
 - the final 1×1 classifier fused into the loss (CE only), ``csrc/loss.cu``:
   ``final_ce_dice_fwd`` replaces ``_final_fwd_impl`` (#27) and
   ``final_ce_dice_bwd`` replaces ``_final_vjp_bwd`` (#29), the entry
@@ -76,19 +85,25 @@ from tpu_unet_torch.kernels._plain import on_cpu
 
 _CF = 64
 _MAX_CLASSES = 126
-# csrc/loss_logits.cu (#25 / #26): pixels a tile and the most blocks
-# (partial-sum rows)
-_TILE = 128
-_MAX_BLOCKS = 1024
 _SMOOTH = 1e-5
-# csrc/loss.cu (#27 / #29): the most blocks of a pass (a constant, so the
-# pixels of a partial sum depend on n only), the shared memory a block may
-# take, the ring's most stages, the bytes of per-class constants and
-# counters
+# both Hopper losses: the most blocks of a pass (a constant, so the pixels
+# of a partial sum depend on n only), the shared memory a block may take,
+# the bytes of per-class constants and scalars
 _CTAS = 132
 _SMEM_MAX = 232448
-_MAX_STAGES = 6
 _SMALL = 4096
+# csrc/loss.cu (#27 / #29): pixels a tile, the ring's most stages
+_TILE = 128
+_MAX_STAGES = 6
+# csrc/loss_logits.cu (#25 / #26): the logit bytes a stage aims at, the
+# tile's most pixels, the ring's most stages, the forward's bytes of sums at
+# the target class a class slot, the consumer threads and the pixel slots
+# each takes at once
+_LOGIT_STAGE_BYTES = 16384
+_LOGIT_MAX_TILE = 2048
+_LOGIT_MAX_STAGES = 8
+_LOGIT_TARGET_SUMS = 12
+LOGIT_THREADS, LOGIT_SLOTS = 512, 2
 
 
 def _check_classes(num_classes: int) -> None:
@@ -326,10 +341,6 @@ def _operands(feats, w, b, target, cls_weights, num_classes, name):
     return _aligned(feats), t8, wt, bt, _cw_device(cls_weights, c, dev)
 
 
-def _rows(n: int) -> int:
-    return min(math.ceil(n / _TILE), _MAX_BLOCKS)
-
-
 def _launch_shape(feats, c, backward):
     n = feats.numel() // _CF
     plan = final_loss_plan(c, feats.dtype == torch.float32, backward)
@@ -420,10 +431,13 @@ class _FinalCEDice(torch.autograd.Function):
         ctx.save_for_backward(feats, weight, bias, target, s_w, denom, score)
         ctx.cfg = (cls_weights, num_classes, with_dice)
         ctx.mark_non_differentiable(fscore)
+        ctx.set_materialize_grads(False)  # no zeros launched for f_score's gradient
         return loss, fscore
 
     @staticmethod
     def backward(ctx, gl, _gfs):
+        if gl is None:
+            return None, None, None, None, None, None, None
         feats, weight, bias, target, s_w, denom, score = ctx.saved_tensors
         cls_weights, num_classes, with_dice = ctx.cfg
         dfeat, dw, db = final_ce_dice_bwd(feats, weight, bias, target, cls_weights,
@@ -477,9 +491,58 @@ def ce_dice_bwd_plain(logits, target, cls_weights, num_classes: int, with_dice: 
     return dlog.to(logits.dtype).reshape(logits.shape)
 
 
+class LogitPlan(NamedTuple):
+    k: int       # classes a thread holds: 4, 6 or 8
+    g: int       # threads a pixel, a power of two
+    tile: int    # pixels a tile, a power of two
+    stages: int  # of the bulk-copy ring
+    smem: int    # a block's dynamic shared memory, bytes
+    row: int     # floats of a block's partial row (the forward's 2 + 5C sums)
+
+
+@functools.lru_cache(maxsize=None)
+def logit_loss_plan(num_classes: int, f32: bool, backward: bool) -> LogitPlan:
+    """The launch shape of #25 (``backward`` False) or #26 for
+    ``num_classes`` and bf16 (or float32, ``f32``) logits, as
+    ``csrc/loss_logits.cu::plan_for`` computes it: ``g`` threads a pixel (1
+    up to 8 classes, else ⌈C / 8⌉ rounded up to a power of two) and ``k``
+    classes a thread (4, 6 or 8, the fewest that hold C); ``tile`` the
+    largest power of two up to 2048 pixels whose logits fit 16 KB, but
+    LOGIT_SLOTS · LOGIT_THREADS pixel slots (tile · g) at least, so every
+    step of every consumer thread is whole; ``stages`` of the ring (a
+    stage: the tile's logits, its target bytes, two barriers), as many as
+    fit up to 8 beside the forward's sums at the target class (12 bytes a
+    class slot of a consumer thread); ``smem`` the block's dynamic shared
+    memory; ``row`` the
+    floats of the forward's partial row (0 for the backward, which sums
+    nothing across pixels)."""
+    c = num_classes
+    _check_classes(c)
+    g = 1
+    while 8 * g < c:
+        g *= 2
+    k = 4 if c <= 4 else 6 if -(-c // g) <= 6 else 8
+    b = c * (4 if f32 else 2)
+    tile = _LOGIT_MAX_TILE
+    while tile * b > _LOGIT_STAGE_BYTES and tile * g > LOGIT_SLOTS * LOGIT_THREADS:
+        tile //= 2
+    per_stage = tile * b + tile + 16
+    fixed = _SMALL + (0 if backward else _LOGIT_TARGET_SUMS * k * LOGIT_THREADS)
+    stages = min(_LOGIT_MAX_STAGES, (_SMEM_MAX - fixed) // per_stage)
+    return LogitPlan(k, g, tile, stages, fixed + stages * per_stage,
+                     0 if backward else 2 + 5 * c)
+
+
+def logit_loss_grid(n: int, tile: int) -> int:
+    """Blocks of a #25 / #26 pass over n pixels: one a tile, at most 132;
+    block i takes the tiles i, i + grid, ..."""
+    return min(_CTAS, math.ceil(n / tile))
+
+
 def _logit_operands(logits, target, cls_weights, num_classes, name):
-    """Shape rule, then the CUDA operands: uint8 targets, float32 class
-    weights."""
+    """Shape rule (before the device), then the CUDA operands: the logits
+    (copied only where a view is not 16-byte aligned), uint8 targets, the
+    class weights (cached on the device), the launch plan and grid."""
     c = num_classes
     _check_classes(c)
     if logits.dtype not in (torch.bfloat16, torch.float32) or logits.shape[-1] != c:
@@ -490,42 +553,58 @@ def _logit_operands(logits, target, cls_weights, num_classes, name):
         raise ValueError(f"{name} kernel: target {tuple(target.shape)} for "
                          f"logits {tuple(logits.shape)}")
     dev = logits.device
-    return pack_targets(target.to(dev), c).contiguous(), _cw(cls_weights, c, dev)
+    t8 = _aligned(pack_targets(target.to(dev), c).contiguous())
+    n = logits.numel() // c
+    plan = logit_loss_plan(c, logits.dtype == torch.float32, name == "ce_dice_bwd")
+    return (_aligned(logits), t8, _cw_device(cls_weights, c, dev), n, plan,
+            logit_loss_grid(n, plan.tile) if n else 0)
 
 
 def _ce_fwd_cuda(logits, target, cls_weights, num_classes, with_dice, focal, alpha, gamma):
+    """#25 on the card → (loss, f_score, residuals (s_w, denom, score),
+    the sums [S, Σw, tp, psum, tsum, tp@0.5, pos@0.5]), all written by the
+    kernel (views of one buffer but the two scalars)."""
     _build.no_grad_inputs("ce_dice_fwd", logits)
     c = num_classes
-    t8, cw = _logit_operands(logits, target, cls_weights, c, "ce_dice_fwd")
-    n = logits.numel() // c
-    sums = torch.zeros(2 + 5 * c, dtype=torch.float32, device=logits.device)
-    if n:
-        partial = torch.empty((_rows(n), 2 + 5 * c), dtype=torch.float32,
-                              device=logits.device)
-        _build.call("tu_ce_dice_fwd", logits.data_ptr(), int(logits.dtype == torch.bfloat16),
-                    t8.data_ptr(), cw.data_ptr(), partial.data_ptr(), sums.data_ptr(), n, c,
-                    int(focal), float(alpha), float(gamma))
-        _build.launch_counts["ce_dice_fwd"] += 1
-    return _finish(sums, c, with_dice, n if focal else None)
+    logits, t8, cw, n, plan, grid = _logit_operands(logits, target, cls_weights, c,
+                                                    "ce_dice_fwd")
+    dev = logits.device
+    if not n:
+        sums = torch.zeros(2 + 5 * c, dtype=torch.float32, device=dev)
+        return (*_finish(sums, c, with_dice, 0 if focal else None), sums)
+    partial = torch.empty((grid, plan.row), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    fscore = torch.empty((), dtype=torch.float32, device=dev)
+    res = torch.empty(3 + 7 * c, dtype=torch.float32, device=dev)
+    _build.call("tu_ce_dice_fwd", logits.data_ptr(), int(logits.dtype == torch.bfloat16),
+                t8.data_ptr(), cw.data_ptr(), partial.data_ptr(), _ticket(dev).data_ptr(),
+                loss.data_ptr(), fscore.data_ptr(), res.data_ptr(), n, c, int(with_dice),
+                int(focal), float(alpha), float(gamma), plan.tile, plan.stages, plan.smem, grid)
+    _build.launch_counts["ce_dice_fwd"] += 1
+    return loss, fscore, (res[0], res[1:1 + c], res[1 + c:1 + 2 * c]), res[1 + 2 * c:]
 
 
 def _ce_bwd_cuda(logits, target, cls_weights, num_classes, with_dice, focal, alpha, gamma,
                  residuals, gl):
+    """#26 on the card → (dlogits, coefs [A, B, inv] as the kernel computed
+    them)."""
     _build.no_grad_inputs("ce_dice_bwd", logits)
     c = num_classes
-    t8, cw = _logit_operands(logits, target, cls_weights, c, "ce_dice_bwd")
-    s_w, denom, score = residuals
-    n = logits.numel() // c
-    a, bb = dice_coefs(score, denom, c, gl, with_dice)
-    a, bb = a.float().contiguous(), bb.float().contiguous()
-    inv = _inv(gl, s_w, n if focal else None).float().reshape(1).contiguous()
+    logits, t8, cw, n, plan, grid = _logit_operands(logits, target, cls_weights, c,
+                                                    "ce_dice_bwd")
+    dev = logits.device
+    s_w, denom, score = (r.to(device=dev, dtype=torch.float32).contiguous() for r in residuals)
+    gl = gl.to(device=dev, dtype=torch.float32).contiguous()
     dlog = torch.empty_like(logits)
-    if n:
-        _build.call("tu_ce_dice_bwd", logits.data_ptr(), int(logits.dtype == torch.bfloat16),
-                    t8.data_ptr(), cw.data_ptr(), a.data_ptr(), bb.data_ptr(), inv.data_ptr(),
-                    dlog.data_ptr(), n, c, int(focal), float(alpha), float(gamma))
-        _build.launch_counts["ce_dice_bwd"] += 1
-    return dlog
+    if not n:
+        return dlog, None
+    coefs = torch.empty(2 * c + 1, dtype=torch.float32, device=dev)
+    _build.call("tu_ce_dice_bwd", logits.data_ptr(), int(logits.dtype == torch.bfloat16),
+                t8.data_ptr(), cw.data_ptr(), gl.data_ptr(), s_w.data_ptr(), denom.data_ptr(),
+                score.data_ptr(), dlog.data_ptr(), coefs.data_ptr(), n, c, int(with_dice),
+                int(focal), float(alpha), float(gamma), plan.tile, plan.stages, plan.smem, grid)
+    _build.launch_counts["ce_dice_bwd"] += 1
+    return dlog, coefs
 
 
 def ce_dice_fwd(logits, target, cls_weights, num_classes: int, with_dice: bool = True,
@@ -536,7 +615,7 @@ def ce_dice_fwd(logits, target, cls_weights, num_classes: int, with_dice: bool =
         return ce_dice_fwd_plain(logits, target, cls_weights, num_classes, with_dice, focal,
                                  alpha, gamma)
     return _ce_fwd_cuda(logits, target, cls_weights, num_classes, with_dice, focal, alpha,
-                        gamma)
+                        gamma)[:3]
 
 
 def ce_dice_bwd(logits, target, cls_weights, num_classes: int, with_dice: bool,
@@ -547,7 +626,7 @@ def ce_dice_bwd(logits, target, cls_weights, num_classes: int, with_dice: bool,
         return ce_dice_bwd_plain(logits, target, cls_weights, num_classes, with_dice, focal,
                                  alpha, gamma, residuals, gl)
     return _ce_bwd_cuda(logits, target, cls_weights, num_classes, with_dice, focal, alpha,
-                        gamma, residuals, gl)
+                        gamma, residuals, gl)[0]
 
 
 class _CEDice(torch.autograd.Function):
@@ -561,10 +640,13 @@ class _CEDice(torch.autograd.Function):
         ctx.save_for_backward(logits, target, s_w, denom, score)
         ctx.cfg = cfg
         ctx.mark_non_differentiable(fscore)
+        ctx.set_materialize_grads(False)  # no zeros launched for f_score's gradient
         return loss, fscore
 
     @staticmethod
     def backward(ctx, gl, _gfs):
+        if gl is None:
+            return None, None, None
         logits, target, s_w, denom, score = ctx.saved_tensors
         cls_weights, num_classes, *rest = ctx.cfg
         dlog = ce_dice_bwd(logits, target, cls_weights, num_classes, *rest,

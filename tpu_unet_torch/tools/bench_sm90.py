@@ -3,8 +3,8 @@
     python -m tpu_unet_torch.tools.bench_sm90 [part ...]
 
 with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
-``stem_fwd``, ``head_bwd``, ``loss``, ``adjoint``, ``tail`` (all by
-default):
+``stem_fwd``, ``head_bwd``, ``loss``, ``logit_loss``, ``adjoint``,
+``tail`` (all by default):
 
 - the VGG16 blocks 2-5 in training (#21 / #23 forward, #22 / #24
   backward, all on the Hopper kernels) at unet_vgg's training shapes (512²
@@ -50,6 +50,17 @@ default):
   ``up`` given (the forward's, kept from the forward instead of written
   again), with the bytes that keeping it would hold;
 - the fused loss (#27 / #29) at 8 × 512² × 21 and 32 × 256² × 4;
+- the logit-level loss (#25 / #26), focal + dice, at the DataB presets'
+  32 × 256² × 4 bf16 (weights (1, 15, 0, 0)) and 8 × 512² × 21 bf16: per
+  pass the ms per call in the same rounds and their median, the device
+  time by ``torch.profiler`` of the pass's own kernels (a second launch
+  that adds partial rows counted in) and of everything the wrapper
+  launches, the plain version, one PyTorch yardstick (``cross_entropy``
+  and the softmax sums; autograd of that chain), the bytes bound and the
+  device time's share of it, the kernels in launch order and a hash of
+  the outputs (loss, f_score, residuals; dlogits); then the device
+  kernels of ``ce_dice_loss``'s forward and backward as a DataB step runs
+  them (int32 targets, ``backward()``);
 - the upsample's adjoint (#19, ``upsample_adjoint``) at every dx shape it
   serves: unet_vgg's and unet_resnet50's four decoder stages and both
   heads (512², batch 8): ms per launch in the same rounds and their
@@ -508,6 +519,78 @@ def _loss(smi, gen, B, h, c):
                       "kernels": sorted(seq), "gpu": smi}), flush=True)
 
 
+def _logit_loss(smi, B, h, c):
+    """#25 and #26 at (B, h, h, c) bf16 logits, focal + dice (see the
+    module note)."""
+    gen = torch.Generator(device="cuda").manual_seed(11 * h + c)
+    dev, bf = "cuda", torch.bfloat16
+    x = (2 * torch.randn((B, h, h, c), generator=gen, device=dev)).to(bf)
+    t32 = torch.randint(0, c, (B, h, h), generator=gen, device=dev, dtype=torch.int32)
+    r = torch.rand((B, h, h), generator=gen, device=dev)
+    t32 = torch.where(r < 0.03, torch.full_like(t32, c), t32)
+    t32 = torch.where(r > 0.98, torch.full_like(t32, 255), t32)
+    t = loss.pack_targets(t32, c)
+    cw = (1.0, 15.0, 0.0, 0.0) if c == 4 else tuple(1.0 + 0.1 * i for i in range(c))
+    gl = torch.tensor(1.0, device=dev)
+    lo, fs, res = loss.ce_dice_fwd(x, t, cw, c, True, True)
+    _, _, pres = loss.ce_dice_fwd_plain(x, t, cw, c, True, True)
+    dlog = loss.ce_dice_bwd(x, t, cw, c, True, True, 0.5, 2.0, res, gl)
+    passes = {
+        "ce_dice_fwd": (lambda: loss.ce_dice_fwd(x, t, cw, c, True, True),
+                        lambda: loss.ce_dice_fwd_plain(x, t, cw, c, True, True)),
+        "ce_dice_bwd": (lambda: loss.ce_dice_bwd(x, t, cw, c, True, True, 0.5, 2.0, res, gl),
+                        lambda: loss.ce_dice_bwd_plain(x, t, cw, c, True, True, 0.5, 2.0,
+                                                       pres, gl)),
+    }
+    xf, tl, cw_t = x.reshape(-1, c), t.long().reshape(-1), torch.tensor(cw, device=dev)
+
+    def chain(lf):
+        ce = F.cross_entropy(lf, tl, weight=cw_t, ignore_index=c)
+        p = torch.softmax(lf, -1)
+        oh = F.one_hot(torch.clamp_max(tl, c), c + 1)[:, :c].float()
+        pt = (p > 0.5).float()
+        tp, ps, ts = (p * oh).sum(0), p.sum(0), oh.sum(0)
+        dice = 1 - ((2 * tp + 1e-5) / (2 * tp + (ts - tp) + (ps - tp) + 1e-5)).mean()
+        return ce + dice, (pt * oh).sum(0), pt.sum(0)
+
+    with torch.enable_grad():
+        xg = xf.detach().float().requires_grad_()
+        graph = chain(xg)[0]
+    libs = {"ce_dice_fwd": lambda: chain(xf.float()),
+            "ce_dice_bwd": lambda: torch.autograd.grad(graph, [xg], retain_graph=True)}
+    outs = {"ce_dice_fwd": (lo, fs, *res), "ce_dice_bwd": (dlog,)}
+    in_bytes = x.numel() * 2 + t.numel()
+    out_bytes = {"ce_dice_fwd": 0, "ce_dice_bwd": x.numel() * 2}
+    plan = getattr(loss, "logit_loss_plan", None)
+    for name, (fn, plain) in passes.items():
+        ms = _rounds(fn)
+        med = statistics.median(ms)
+        by = _by_kernel(fn, reps=20)
+        own = sum(v for k, v in by.items() if "ce_dice" in k or "sum_rows" in k)
+        bound = (in_bytes + out_bytes[name]) / PEAK_BYTES * 1e3
+        print(json.dumps({"kernel": name, "case": f"{B}x{h}x{h}x{c} bf16 focal + dice",
+                          "ms_rounds": ms, "ms": med, "device_ms": own,
+                          "wrapper_device_ms": sum(by.values()),
+                          "plain_ms": statistics.median(_rounds(plain)),
+                          "library_ms": statistics.median(_rounds(libs[name])),
+                          "bound_ms": bound, "bound_by": "bytes",
+                          "share_of_bound": bound / own, "events_share_of_bound": bound / med,
+                          "ms_by_kernel": _kernel_sequence(fn) or by,
+                          "plan": plan(c, False, name == "ce_dice_bwd")._asdict() if plan else None,
+                          "outputs": _digest(*outs[name]), "gpu": smi}), flush=True)
+    # the device kernels of the loss and its backward, as a DataB step calls them
+    with torch.enable_grad():
+        lg = x.detach().clone().requires_grad_()
+
+        def step():
+            lg.grad = None  # as the step's zero_grad(set_to_none=True)
+            lo_, _ = loss.ce_dice_loss(lg, t32, cw, c, True, True)
+            lo_.backward()
+        seq = _kernel_sequence(step)
+    print(json.dumps({"loss_step_kernels": f"{B}x{h}x{h}x{c} bf16 focal + dice",
+                      "launches": len(seq), "kernels": sorted(seq), "gpu": smi}), flush=True)
+
+
 def _adjoint(smi, name, B, h, c):
     """#19 at dx (B, h, h, c) (see the module note)."""
     gen = torch.Generator(device="cuda").manual_seed(1000 * h + c)
@@ -574,8 +657,8 @@ def _tail(smi, B, h, c, hist):
 
 def main(argv=None) -> int:
     parts = list(argv if argv is not None else sys.argv[1:]) or \
-        ["tiles", "stages", "blocks", "stem", "head", "stem_fwd", "head_bwd", "loss", "adjoint",
-         "tail"]
+        ["tiles", "stages", "blocks", "stem", "head", "stem_fwd", "head_bwd", "loss",
+         "logit_loss", "adjoint", "tail"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -605,6 +688,10 @@ def main(argv=None) -> int:
         elif part == "loss":
             for B, h, c in ((8, 512, 21), (32, 256, 4)):
                 _loss(smi, gen, B, h, c)
+                torch.cuda.empty_cache()
+        elif part == "logit_loss":
+            for B, h, c in ((32, 256, 4), (8, 512, 21)):
+                _logit_loss(smi, B, h, c)
                 torch.cuda.empty_cache()
         elif part == "adjoint":
             for name, B, h, c in ADJOINT_SHAPES:
