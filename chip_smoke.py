@@ -13,8 +13,8 @@ Phases (any failure exits non-zero without the final result line):
    ``unet_resnet50`` and ``self_net`` at 512x512, batch 8 (the self_net
    head at batch 2; the stem also at one 512x512 image of the normalize
    kernel's bf16 output, as the single-image forward gives it), the
-   TraditionalUnet tails at 256x256 and 200x200,
-   batch 32, the normalize kernel at one image and at 32 (with the host
+   TraditionalUnet tails at 256x256 (F = 32 and 22, also F = 32 at 21
+   classes) and 200x200, batch 32, the normalize kernel at one image and at 32 (with the host
    time per call and the profiler's device time of the kernel and of the
    library's two ops beside the events time), the argmax-mask
    kernel at its three generic serving shapes (ties and NaNs included) and
@@ -44,7 +44,8 @@ Phases (any failure exits non-zero without the final result line):
    (the DataB submission model), ``lightweight``, ``ultralight``,
    ``ultralight_large`` and ``ultralight44`` at 256x256 / batch 32 / 4
    classes — launch counts (set to 0 just before the counted step,
-   read just after), img/s, peak memory, a ``torch.profiler`` breakdown,
+   read just after), img/s, peak memory, a ``torch.profiler`` breakdown
+   (with the in-step device time of the tail or argmax-mask kernel),
    masks against the plain versions on the card, and a small batch against
    the CPU float32 path;
 4. single image: ``detect_image`` (mix_type 0/1/2, ``count``, ``fast``),
@@ -57,7 +58,8 @@ Phases (any failure exits non-zero without the final result line):
    (``traditional``, 40 JPEG/PNG images of mixed sizes, batch 32) against
    ``batch_infer`` on PIL-letterboxed copies, with images per second and
    the loader route; ``predict_video_batched`` (``ultralight_large_optimized``,
-   a 20-frame 256x256 MJPG clip, batch 8, the palette kernel on the card);
+   a 20-frame 256x256 MJPG clip, batch 8, the palette kernel on the card,
+   its three launches' device time read by the profiler on a second run);
    ``evaluate`` over 8 images against the CPU float32 path; the ``predict``
    and ``miou`` CLI subcommands in the process;
 6. training: (a) the ``unet_vgg`` train step (``train/step.py``) at
@@ -424,11 +426,10 @@ def phase_kernels(card: str):
         plain top-1/top-2 gap exceeds TAIL_MARGIN of the logit scale, hist
         = bincount of the kernel's own masks, a second launch bit-identical.
         Its error is the largest per-class count difference against plain
-        (hist), or the largest class-index difference (mask only).  The
-        F = 64 tail runs its products on the tensor cores, as the TPU
-        kernel does (its bound at the bf16 peak: the bytes); F = 22 / 32
-        on the float32 pipes.  ``into``: the results it is summed into (the
-        kernel's line by default)."""
+        (hist), or the largest class-index difference (mask only).  Every
+        width runs its products on the tensor cores, as the TPU kernel
+        does (its bound at the bf16 peak: the bytes).  ``into``: the
+        results it is summed into (the kernel's line by default)."""
         feats = act(n, h, w, f)
         wf = (torch.randn((c, f, 1, 1), generator=gen, device=dev) / f ** 0.5).to(bf)
         bfin = (0.1 * torch.randn(c, generator=gen, device=dev)).to(bf)
@@ -469,18 +470,19 @@ def phase_kernels(card: str):
                     [out[1].float()] if hist else [masks.float()],
                     [ref[1].float()] if hist else [pm.float()],
                     lambda: fn(feats, wf, bfin, c), lambda: plain_fn(feats, wf, bfin, c), lib,
-                    2.0 * n * h * w * f * c, nbytes(feats, wf, bfin, *(out if hist else [out])),
-                    peak=PEAK_BF16 if f == 64 else PEAK_F32)
+                    2.0 * n * h * w * f * c, nbytes(feats, wf, bfin, *(out if hist else [out])))
         del feats, out, ref, again
 
     # tails: the canonical UNets' (F = 64, 21 classes); the TraditionalUnet
-    # family's at DataB's 256x256 / batch 32 / 4 classes (F = 32 and 22);
-    # the mask-only tail at 200x200, whose 40,000 pixels an image the JAX
-    # tail's 1024-row block does not divide
+    # family's at DataB's 256x256 / batch 32 / 4 classes (F = 32 and 22),
+    # and at 21 classes (F = 32), which the wrapper allows; the mask-only
+    # tail at 200x200, whose 40,000 pixels an image the JAX tail's
+    # 1024-row block does not divide
     tail("final_argmax_hist", B, S, S, 64, CLASSES["unet_vgg"], True)
     c4 = CLASSES["traditional"]
     for f in (32, 22):
         tail("final_argmax_hist_natural", DATAB_BATCH, DATAB_SIZE, DATAB_SIZE, f, c4, True)
+    tail("final_argmax_hist_natural", DATAB_BATCH, DATAB_SIZE, DATAB_SIZE, 32, 21, True)
     tail("final_argmax", DATAB_BATCH, 200, 200, 32, c4, False)
     # the F = 64 mask-only tail (csrc/tail_sm90.cu), which the canonical
     # UNets take where H*W is no multiple of 256: its own line, not summed
@@ -1343,8 +1345,7 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     """Device time per serving step by kernel (torch.profiler over
     ``steps`` steps) and the device's idle share between the first kernel's
     start and the last kernel's end.  The port's kernels are named
-    ``conv3x3_kernel<Loader, pool>``, ``final_argmax_kernel<F, hist>``,
-    ``final_tail_kernel<NP, hist>`` (F = 64),
+    ``conv3x3_kernel<Loader, pool>``, ``final_tail_kernel<F, NP, hist>``,
     ``normalize_kernel<T>``, ``argmax_kernel<T, V, Out>``,
     ``palette_kernel<M>``, ``wgrad_kernel<Loader>``, ``wgrad_reduce_kernel``,
     ``upsample_adjoint_kernel``, the training encoder's
@@ -1355,7 +1356,8 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     ``port_kernels_ms``); ``index_add_ms`` sums PyTorch's ``index_add_``
     kernels; ``loss_kernels_ms`` gives the loss kernels' own (#25-#29),
     ``tail_adjoint_kernels_ms`` the serving tails' and the upsample
-    adjoint's (#4, #5, #7, #19)."""
+    adjoint's (#4, #5, #7, #19), ``small_kernels_ms`` the tails', the
+    argmax mask's and the palette blend's (#4-#8)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1392,9 +1394,8 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = "port upsample_adjoint_kernel"
         elif "conv_image_kernel" in name:
             name = "port conv_image_kernel"
-        elif "final_argmax_kernel" in name or "final_tail_kernel" in name:
-            kind = "final_tail_kernel" if "final_tail" in name else "final_argmax_kernel"
-            name = f"port {kind}<{'hist' if 'true' in name else 'mask'}>"
+        elif "final_tail_kernel" in name:
+            name = f"port final_tail_kernel<{'hist' if 'true' in name else 'mask'}>"
         elif "normalize_kernel" in name:
             name = "port normalize_kernel"
         elif "argmax_kernel" in name:
@@ -1418,7 +1419,16 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             "top_kernels_ms": [[k, v] for k, v in top[:8]],
             "loss_kernels_ms": {k: v for k, v in top if "final_loss" in k or "ce_dice" in k},
             "tail_adjoint_kernels_ms": {k: v for k, v in top if "final_tail" in k
-                                        or "final_argmax" in k or "upsample_adjoint" in k}}
+                                        or "upsample_adjoint" in k},
+            "small_kernels_ms": {k: v for k, v in top if "final_tail" in k or "argmax_kernel" in k
+                                 or "palette_kernel" in k}}
+
+
+# the device kernels of a step's small kernels and the launch keys they
+# count under
+SMALL_KERNELS = (("final_tail_kernel<hist>", "final_argmax_hist"),
+                 ("final_tail_kernel<mask>", "final_argmax"), ("argmax_kernel", "argmax_mask"),
+                 ("palette_kernel", "mask_palette"))
 
 
 def serve(model: str, batch: int, size: int, card: str):
@@ -1517,6 +1527,13 @@ def serve(model: str, batch: int, size: int, card: str):
     print(json.dumps(line), flush=True)
     if breakdown is not None:
         print(json.dumps({"serving": model, "size": size, "profile": breakdown}), flush=True)
+        # the in-step device time of the step's tail or argmax-mask kernel
+        # (#4 / #5 / #7 / #6), ms a step
+        for k, v in breakdown["small_kernels_ms"].items():
+            key = next(key for part, key in SMALL_KERNELS if part in k)
+            print(json.dumps({"in_step": model, "batch": batch, "size": size,
+                              "kernel": entry(model, key), "device_kernel": k,
+                              "device_ms": v, "gpu": card}), flush=True)
     del u, fn, net, imgs, x
     return counts
 
@@ -1751,10 +1768,21 @@ def phase_tools(card: str):
             written += 1
         cap.release()
         check(done == 20 and written == 20, f"predict_video_batched: {done} done, {written} written")
+        # #8's device time in predict_video_batched: its three launches, read by the
+        # profiler over a second run (not the timed one)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            P.predict_video_batched(uv, clip, str(tmp / "out2.avi"), batch_size=8)
+            torch.cuda.synchronize()
+        pal = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "palette_kernel" in e.name]
+        check(len(pal) == 3, f"predict_video_batched: {len(pal)} palette kernels in the profile")
         print(json.dumps({"tools": "predict_video_batched", "model": "ultralight_large_optimized",
                           "frames": done, "written": written, "batch": 8, "size": size,
                           "frames_per_s_end_to_end": done / dt, "launches": counts,
-                          "gpu": card}), flush=True)
+                          "mask_palette_device_ms": pal, "gpu": card}), flush=True)
 
         # evaluate over 8 images with ground-truth PNGs, against the CPU
         # float32 path on the same seeded weights
@@ -2650,7 +2678,9 @@ SOURCES = {
     # TPU kernel lerps it inside the conv)
     "upsample2x": ("tpu_unet_torch/csrc/decoder_fuse.cu",
                    "tpu_unet/kernels/decoder_fuse.py:1149"),
-    "final_argmax_hist": ("tpu_unet_torch/csrc/postprocess.cu",
+    # the serving tails at every width: csrc/tail_sm90.cu, through the C
+    # entries of csrc/postprocess.cu
+    "final_argmax_hist": ("tpu_unet_torch/csrc/tail_sm90.cu",
                           "tpu_unet/kernels/postprocess.py:244"),
     # the head's two convs on the Hopper core, from csrc/upconv.cu (its
     # up2x(x) counted under upsample2x)
@@ -2658,9 +2688,9 @@ SOURCES = {
     # the mask pass, the two Hopper dgrads, the dk2 and dk1 GEMMs on the
     # Hopper weight-gradient core and the adjoint, from csrc/upconv.cu
     "upconv_bwd": ("tpu_unet_torch/csrc/wgrad_sm90.cuh", "tpu_unet/kernels/upconv.py:475"),
-    "final_argmax_hist_natural": ("tpu_unet_torch/csrc/postprocess.cu",
+    "final_argmax_hist_natural": ("tpu_unet_torch/csrc/tail_sm90.cu",
                                   "tpu_unet/kernels/postprocess.py:154"),
-    "final_argmax": ("tpu_unet_torch/csrc/postprocess.cu",
+    "final_argmax": ("tpu_unet_torch/csrc/tail_sm90.cu",
                      "tpu_unet/kernels/postprocess.py:92"),
     "normalize_images": ("tpu_unet_torch/csrc/preprocess.cu",
                          "tpu_unet/kernels/preprocess.py:39"),

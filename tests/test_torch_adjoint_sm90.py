@@ -1,17 +1,14 @@
-"""Host-side checks of two Hopper kernels' plans and orders, on the CPU:
-
-- the ×2 upsample's adjoint (``csrc/upsample_adjoint.cuh``, planned by
-  ``kernels/decoder_train.py::adjoint_plan``): its blocks (strip of
-  columns × channel chunk × band of rows × image) cover dx once, each
-  block's TMA boxes hold every dup position that ``adjoint_tables`` lists
-  for it, the per-row slots it gathers from the row table fit, and its
-  streamed order (a W pass per arriving high-resolution row, the H pass by
-  increasing row into two open accumulators), emulated, lies within 1e-12
-  of ``upsample2x_adjoint_plain`` in float64 and equals the gather order
-  (the old kernel's) element for element in float32;
-- the F = 64 serving tail (``csrc/tail_sm90.cu``, planned by
-  ``kernels/postprocess.py::tail_plan``): the padded class count, the
-  tiles, the persistent grid and the histogram's flushes per image.
+"""Host-side checks of a Hopper kernel's plan and order, on the CPU: the
+×2 upsample's adjoint (``csrc/upsample_adjoint.cuh``, planned by
+``kernels/decoder_train.py::adjoint_plan``): its blocks (strip of columns
+× channel chunk × band of rows × image) cover dx once, each block's TMA
+boxes hold every dup position that ``adjoint_tables`` lists for it, the
+per-row slots it gathers from the row table fit, and its streamed order
+(a W pass per arriving high-resolution row, the H pass by increasing row
+into two open accumulators), emulated, lies within 1e-12 of
+``upsample2x_adjoint_plain`` in float64 and equals the gather order (the
+old kernel's) element for element in float32.  The serving tail's plan is
+checked in ``tests/test_torch_tail_sm90.py``.
 """
 import numpy as np
 import pytest
@@ -19,7 +16,6 @@ import torch
 
 from tpu_unet_torch.kernels.decoder_train import (ADJ_MAX_CONSUMERS, ADJ_RPS, ADJ_STAGES,
                                                   adjoint_plan)
-from tpu_unet_torch.kernels.postprocess import TAIL_CTAS, TAIL_TILE, tail_plan
 from tpu_unet_torch.nn.resize import adjoint_tables, upsample2x_adjoint_plain
 
 SMEM_MAX = 232448  # a block's dynamic shared memory on the H100
@@ -234,30 +230,3 @@ def test_streamed_order_is_the_gather_order(shape):
     dup = torch.from_numpy(dup).to(torch.bfloat16).float().numpy()
     assert np.array_equal(_streamed_adjoint(dup, h, w, np.float32),
                           _gather_adjoint(dup, h, w, np.float32))
-
-
-@pytest.mark.parametrize("n_pix,c,per_img,np_,tiles,grid", [
-    (8 * 512 * 512, 21, 512 * 512, 24, 16384, 132),   # unet_vgg serving
-    (1 * 512 * 512, 21, 512 * 512, 24, 2048, 132),    # the single image
-    (2 * 32 * 32, 4, 32 * 32, 8, 16, 16),
-    (3 * 64 * 128, 32, 64 * 128, 32, 192, 132),
-    (8 * 500 * 500, 21, None, 24, 15625, 132),         # mask only, 500² is no multiple of 256
-    (3 * 20 * 30, 1, None, 8, 15, 15),                 # mask only, a ragged last tile
-    (1, 9, None, 16, 1, 1),
-])
-def test_tail_plan(n_pix, c, per_img, np_, tiles, grid):
-    p = tail_plan(n_pix, c, per_img)
-    assert (p.np, p.tiles, p.grid) == (np_, tiles, grid)
-    assert p.grid <= TAIL_CTAS and p.tiles * TAIL_TILE >= n_pix > (p.tiles - 1) * TAIL_TILE
-    owner = np.concatenate([np.full(tiles * (g + 1) // grid - tiles * g // grid, g)
-                            for g in range(grid)])
-    assert len(owner) == tiles and (np.diff(owner) >= 0).all()  # contiguous ranges, in order
-    if per_img is None:
-        assert p.flushes == ()
-        return
-    # a block flushes an image's counts once if any of its tiles lies there
-    img = np.arange(tiles) * TAIL_TILE // per_img
-    want = tuple(len(set(owner[img == i])) for i in range(n_pix // per_img))
-    assert p.flushes == want and min(want) >= 1
-    if (n_pix, per_img) == (8 * 512 * 512, 512 * 512):
-        assert p.flushes == (17,) * 8

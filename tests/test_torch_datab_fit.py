@@ -8,6 +8,7 @@ images, both curves written, the ``predict_fn`` route), and
 import contextlib
 import io
 import os
+import shutil
 import sys
 
 import jax
@@ -36,11 +37,20 @@ from tpu_unet_torch.train.fit import fit
 CLASSES = 4
 
 
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's directory, removed once the test is done: the whole-model
+    checkpoints written there would otherwise stay behind."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def voc(tmp_path_factory):
     root = tmp_path_factory.mktemp("voc_heavy")
     train_ids, val_ids = write_voc(str(root), 4, 4, seed=5)
-    return str(root), train_ids, val_ids
+    yield str(root), train_ids, val_ids
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_heavy_aug_byte_equal_to_jax():

@@ -6,6 +6,7 @@ over a seeded synthetic VOC-layout tree."""
 import contextlib
 import io
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -28,6 +29,14 @@ from tpu_unet_torch.train.checkpoint import load_any, partial_load
 from tpu_unet_torch.train.fit import fit, reinit_weights
 
 CLASSES = 4
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's directory, removed once the test is done: the whole-model
+    checkpoints written there would otherwise stay behind."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def write_voc(root, n_train, n_val, seed=0, size=(40, 48)):
@@ -61,7 +70,8 @@ def write_voc(root, n_train, n_val, seed=0, size=(40, 48)):
 def voc(tmp_path_factory):
     root = tmp_path_factory.mktemp("voc")
     train_ids, val_ids = write_voc(str(root), 6, 2)
-    return str(root), train_ids, val_ids
+    yield str(root), train_ids, val_ids
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.mark.parametrize("train", [True, False])

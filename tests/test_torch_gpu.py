@@ -497,6 +497,121 @@ def test_normalize_kernel_refuses_on_card(cuda):
     assert launch_counts["normalize_images"] == n
 
 
+# the natural tails' masks must equal the plain version's wherever the
+# plain top-1 / top-2 gap exceeds this share of the logit scale (float32
+# sums in another order; chip_smoke.py's TAIL_MARGIN)
+TAIL_MARGIN = 1e-3
+
+
+def _natural(gen, shape, f, c):
+    feats = _act(gen, *shape, f)
+    w = (torch.randn((c, f, 1, 1), generator=gen, device="cuda") / f ** 0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    return feats, w, b
+
+
+def _flips_outside_margin(masks, feats, w, b, c):
+    """Pixels where the kernel's mask differs from the plain version's
+    though the plain top-1 / top-2 gap exceeds TAIL_MARGIN of the scale."""
+    from tpu_unet_torch.kernels.postprocess import final_argmax_plain
+
+    f = feats.shape[-1]
+    logits = feats.reshape(-1, f).float() @ w.reshape(c, f).float().t() + b.float()
+    differ = (masks != final_argmax_plain(feats, w, b, c)).reshape(-1)
+    if c == 1:
+        return int(differ.sum())
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    return int((differ & (gap > TAIL_MARGIN * logits.abs().max())).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [22, 32])
+@pytest.mark.parametrize("c", [1, 4, 21, 32])
+@pytest.mark.parametrize("hist", [True, False])
+def test_natural_tail_on_wgmma(cuda, f, c, hist):
+    """The F = 22 / 32 tails on the Hopper tail kernel at 5 images of
+    128 x 128 (320 tiles of 256 pixels over 132 blocks: ranges that cross
+    images): one launch, masks as the plain version's outside the margin,
+    the histogram the bincount of the kernel's own masks, bit-identical on
+    relaunch."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.postprocess import final_argmax, final_argmax_hist
+
+    feats, w, b = _natural(cuda, (5, 128, 128), f, c)
+    key, fn = ("final_argmax_hist", final_argmax_hist) if hist else ("final_argmax", final_argmax)
+    n = launch_counts[key]
+    out = fn(feats, w, b, c)
+    assert launch_counts[key] == n + 1
+    again = fn(feats, w, b, c)
+    masks = out[0] if hist else out
+    assert masks.shape == (5, 128, 128) and masks.dtype == torch.uint8 and int(masks.max()) < c
+    assert _flips_outside_margin(masks, feats, w, b, c) == 0
+    if hist:
+        own = torch.stack([torch.bincount(m.flatten().long(), minlength=c) for m in masks])
+        assert torch.equal(own.to(torch.int32), out[1])
+        assert all(torch.equal(x, y) for x, y in zip(out, again))
+    else:
+        assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [22, 32])
+@pytest.mark.parametrize("shape,c", [((32, 25, 25), 4), ((2, 25, 25), 21), ((1, 7, 13), 32),
+                                     ((1, 1, 1), 1), ((3, 20, 30), 4), ((1, 3, 5), 21),
+                                     ((32, 200, 200), 4)])
+def test_natural_tail_mask_only_ragged(cuda, f, shape, c):
+    """The F = 22 / 32 mask-only tail at pixel counts that leave a ragged
+    last tile (at F = 22 one whose bytes are no multiple of 16: its rest is
+    read in device memory): masks as plain outside the margin,
+    bit-identical on relaunch."""
+    from tpu_unet_torch.kernels.postprocess import final_argmax
+
+    feats, w, b = _natural(cuda, shape, f, c)
+    masks = final_argmax(feats, w, b, c)
+    assert masks.shape == shape and int(masks.max()) < c
+    assert _flips_outside_margin(masks, feats, w, b, c) == 0
+    assert torch.equal(masks, final_argmax(feats, w, b, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [22, 32])
+@pytest.mark.parametrize("c", [1, 4, 21, 32])
+def test_natural_tail_all_tied(cuda, f, c):
+    """Every class with zero weights and one bias: every logit ties, and
+    every pixel takes class 0 (the first maximum), in the mask and in the
+    histogram."""
+    from tpu_unet_torch.kernels.postprocess import final_argmax, final_argmax_hist
+
+    feats = _act(cuda, 2, 32, 32, f)
+    w = torch.zeros((c, f, 1, 1), device="cuda", dtype=torch.bfloat16)
+    b = torch.full((c,), 0.5, device="cuda", dtype=torch.bfloat16)
+    masks, hist = final_argmax_hist(feats, w, b, c)
+    assert int(masks.max()) == 0 and int(final_argmax(feats, w, b, c).max()) == 0
+    want = torch.zeros((2, c), dtype=torch.int32, device="cuda")
+    want[:, 0] = 32 * 32
+    assert torch.equal(hist, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [22, 32])
+def test_natural_tail_shape_rule_on_the_card(cuda, f):
+    """The shape rule raises on the card before any launch: H·W no
+    multiple of 256 with the histogram, more than 32 classes."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.postprocess import final_argmax, final_argmax_hist
+
+    counts = dict(launch_counts)
+    feats, w, b = _natural(cuda, (1, 10, 10), f, 4)
+    with pytest.raises(ValueError, match="H\\*W=100"):
+        final_argmax_hist(feats, w, b, 4)
+    feats, w, b = _natural(cuda, (1, 16, 16), f, 33)
+    for tail in (final_argmax_hist, final_argmax):
+        with pytest.raises(ValueError, match="classes=33"):
+            tail(feats, w, b, 33)
+    assert launch_counts == counts
+
+
 @pytest.mark.gpu
 def test_tail_rejects_untileable_shape(cuda):
     from tpu_unet_torch.kernels import launch_counts

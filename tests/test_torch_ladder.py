@@ -5,6 +5,7 @@ bridged weights with batch norm and dense biases drawn at random, the
 bridge's keys, the seeded init, the serving step, the trained
 ``examples/medical_ultralight.msgpack`` weights, and the checkpoint loading
 of ``Unet(model_path=...)``."""
+import shutil
 from pathlib import Path
 
 import jax
@@ -29,6 +30,14 @@ SIZE, CLASSES = 64, 4
 MODELS = ["ultralight", "ultralight_large", "ultralight_large_optimized",
           "ultralight44", "lightweight"]
 ARTIFACT = Path(__file__).resolve().parents[1] / "examples" / "medical_ultralight.msgpack"
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's directory, removed once the test is done: the whole-model
+    checkpoints written there would otherwise stay behind."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def randomize_dense_biases(params, rng):
@@ -73,7 +82,8 @@ def pair(request, tmp_path_factory):
     imgs = np.random.default_rng(7).integers(0, 256, (2, SIZE, SIZE, 3)).astype(np.uint8)
     logits = np.asarray(jax.jit(ju.net.apply, static_argnums=2)(
         ju.variables, imgs.astype(np.float32) / 255.0, False))
-    return name, ju, tu, str(path), imgs, logits
+    yield name, ju, tu, str(path), imgs, logits
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def test_logits_match_jax(pair):

@@ -10,6 +10,7 @@ the freeze phase, and ``cli train --preset voc_resnet50``.  Weights are
 carried across by the bridge, batch norm drawn at random."""
 import contextlib
 import io
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,14 @@ CW = tuple(1.0 + 0.05 * i for i in range(C))
 # 0 may take another ReLU mask in each and move every gradient above it
 # (tests/test_torch_train.py); this batch has no such near-tie
 STEP_BATCH = 5
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """The test's directory, removed once the test is done: the whole-model
+    checkpoints written there would otherwise stay behind."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _rel(a, b):

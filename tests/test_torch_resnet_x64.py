@@ -11,6 +11,7 @@ compute the same function at a precision where its agreement shows.
 Neither side is float64 throughout: the Pallas kernels and the port's
 plain weight gradients, upsample adjoint and loss keep float32 inside."""
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -94,6 +95,7 @@ def steps(rn50, tmp_path_factory):
     subprocess.run([sys.executable, "-c", _JAX_STEP, str(tmp / "in.npz"), str(tmp / "out.npz")],
                    check=True, env=env, cwd=str(ROOT), timeout=600)
     ref = dict(np.load(tmp / "out.npz"))
+    shutil.rmtree(tmp, ignore_errors=True)
     net = _port(jv).double()
     cfg = tstep.StepConfig(num_classes=len(CW), cls_weights=CW, use_dice=True,
                            compute_dtype=torch.float64)

@@ -3,6 +3,7 @@
 import jax
 import numpy as np
 import pytest
+import shutil
 import torch
 
 from tpu_unet.infer.wrapper import Unet as JaxUnet
@@ -23,7 +24,8 @@ def pair(tmp_path_factory):
     torch.save(state_dict_from_flax(variables_np), path)
     tu = Unet(model="unet_vgg", num_classes=CLASSES, input_shape=[SIZE, SIZE],
               cuda=False, model_path=str(path))
-    return ju, tu, variables_np
+    yield ju, tu, variables_np
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def _images(seed, n=2):

@@ -5,6 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import shutil
 import torch
 from test_torch_resnet import randomize_batch_norm, to_numpy
 
@@ -32,7 +33,8 @@ def pair(request, tmp_path_factory):
     torch.save(state_dict_from_flax(variables_np, name), path)
     tu = Unet(model=name, num_classes=CLASSES, input_shape=[SIZE, SIZE],
               cuda=False, model_path=str(path))
-    return name, ju, tu
+    yield name, ju, tu
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def _images(seed, n=2):

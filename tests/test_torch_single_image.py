@@ -7,6 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import shutil
 import torch
 from PIL import Image
 from test_torch_resnet import randomize_batch_norm, to_numpy
@@ -42,7 +43,8 @@ def pair(request, tmp_path_factory):
     torch.save(state_dict_from_flax(variables_np, name), path)
     tu = Unet(model=name, num_classes=classes, input_shape=[SIZE, SIZE],
               cuda=False, model_path=str(path))
-    return ju, tu
+    yield ju, tu
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 @pytest.mark.parametrize("size", [(50, 40), (40, 50), (64, 64), (130, 20)])

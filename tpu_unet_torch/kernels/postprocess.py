@@ -2,11 +2,12 @@
 the per-image class histogram (counterpart of
 ``tpu_unet/kernels/postprocess.py``).
 
-CUDA kernels, behind the C entries of ``csrc/postprocess.cu``: at F = 64
-``csrc/tail_sm90.cu`` (the products on ``wgmma`` behind a TMA ring, the
-argmax, mask and histogram in its epilogue; planned as :func:`tail_plan`
-says), at F ∈ {22, 32} ``csrc/postprocess.cu``'s one-thread-a-pixel
-template:
+One CUDA kernel at every feature width F ∈ {22, 32, 64},
+``csrc/tail_sm90.cu`` behind the C entries of ``csrc/postprocess.cu``:
+the products on ``wgmma``, the argmax, mask and histogram in its
+epilogue; a ring of TMA loads at F = 64, of 1-D bulk copies at F = 22 and
+32 (A then from registers, the features in the K order
+:func:`tail_k_order` gives); planned as :func:`tail_plan` says.
 
 - ``final_argmax_hist`` replaces ``fused_final_argmax_hist_paired`` (the
   tail of ``unet_vgg`` and ``unet_resnet50``, F = 64) and
@@ -20,9 +21,9 @@ template:
   :func:`masks_and_hist`, as ``postprocess.py:148-152`` does.
 
 Both keep the logits out of device memory.  Bound on the H100: memory
-(reading the features), see the sources' notes.  At F = 64 the weights are
-rounded to bf16 for the tensor cores, as the TPU kernel casts them to the
-feature dtype (the serving models' weights are bf16 already).
+(reading the features), see the source's note.  The weights are rounded
+to bf16 for the tensor cores, as the TPU kernels cast them to the feature
+dtype (the serving models' weights are bf16 already).
 
 CUDA kernel ``csrc/argmax.cu``: ``argmax_mask`` replaces
 ``fused_argmax_mask`` (``postprocess.py:38-67``), the class mask of logits
@@ -46,37 +47,90 @@ _WIDTHS = (22, 32, 64)
 _MAX_CLASSES = 32
 _LOGIT_DTYPES = (torch.float32, torch.bfloat16)
 _MASK_DTYPES = (torch.int32, torch.uint8)
-HIST_BLOCK = 256  # pixels a CUDA block; a histogram block never spans two images
-TAIL_TILE, TAIL_CTAS = 128, 132  # the F = 64 tail's pixels a tile, most blocks
+HIST_BLOCK = 256  # a histogram image's pixels are a multiple of this
+TAIL_SMS = 132    # the H100's SMs
+TAIL_KN = 32      # K columns at F = 22 and 32: two k16 steps
+
+
+def tail_tile(f: int) -> int:
+    """Pixels a tile of the tail at feature width ``f``: 64 a consumer
+    warpgroup, two warpgroups at F = 64, four at F = 22 and 32."""
+    return 128 if f == 64 else 256
+
+
+def tail_ctas(f: int) -> int:
+    """The tail's most blocks at feature width ``f``: one an SM at F = 64,
+    two at F = 22 and 32 (two rings fit an SM's shared memory)."""
+    return TAIL_SMS * (1 if f == 64 else 2)
 
 
 class TailPlan(NamedTuple):
-    """The F = 64 tail's launch (the mirror of ``csrc/tail_sm90.cu``):
-    ``np`` classes padded to the ``wgmma`` width (a multiple of 8),
-    ``tiles`` of 128 pixels, ``grid`` persistent blocks, block g taking the
-    tiles ``[tiles·g / grid, tiles·(g + 1) / grid)``; with the histogram,
-    ``flushes[i]`` is how many blocks add counts of image i (one global
-    ``atomicAdd`` a class each)."""
+    """The tail's launch (the mirror of ``csrc/tail_sm90.cu``): ``np``
+    classes padded to the ``wgmma`` width (a multiple of 8), ``tiles`` of
+    ``tile`` pixels, ``grid`` persistent blocks, block g taking the tiles
+    ``[tiles·g / grid, tiles·(g + 1) / grid)``; ``copy`` the bytes a full
+    tile's load brings (a TMA box at F = 64, one bulk copy else),
+    ``last_copy`` the last tile's and ``rest`` the bytes of the last tile
+    that its consumers read in device memory (a bulk copy moves a multiple
+    of 16 bytes; TMA boxes fill the rows past n with zeros); with the
+    histogram, ``flushes[i]`` is how many blocks add counts of image i (one
+    global ``atomicAdd`` a class each)."""
     np: int
+    tile: int
     tiles: int
     grid: int
+    copy: int
+    last_copy: int
+    rest: int
     flushes: tuple
 
 
-def tail_plan(n_pix: int, num_classes: int, per_img: int | None = None) -> TailPlan:
-    """The F = 64 tail's plan for ``n_pix`` pixels (``per_img`` a multiple
-    of 128 with the histogram, None for the mask alone)."""
-    tiles = -(-n_pix // TAIL_TILE)
-    grid = min(tiles, TAIL_CTAS)
+def tail_plan(n_pix: int, num_classes: int, per_img: int | None = None, *,
+              f: int) -> TailPlan:
+    """The tail's plan for ``n_pix`` pixels of ``f`` features (``per_img``
+    a multiple of the tile with the histogram, None for the mask alone)."""
+    tile = tail_tile(f)
+    tiles = -(-n_pix // tile)
+    grid = min(tiles, tail_ctas(f))
+    copy = tile * f * 2
+    last = (n_pix - (tiles - 1) * tile) * f * 2
+    last_copy = copy if f == 64 else last & ~15
     flushes = ()
     if per_img is not None:
         counts = [0] * (n_pix // per_img)
         for g in range(grid):
             t0, t1 = tiles * g // grid, tiles * (g + 1) // grid
-            for img in range(t0 * TAIL_TILE // per_img, (t1 - 1) * TAIL_TILE // per_img + 1):
+            for img in range(t0 * tile // per_img, (t1 - 1) * tile // per_img + 1):
                 counts[img] += 1
         flushes = tuple(counts)
-    return TailPlan(-(-num_classes // 8) * 8, tiles, grid, flushes)
+    return TailPlan(-(-num_classes // 8) * 8, tile, tiles, grid, copy, last_copy,
+                    0 if f == 64 else last - last_copy, flushes)
+
+
+def tail_word(f: int, q: int, m: int) -> int:
+    """At F = 22 and 32: the word of a pixel's row (features 2·word and
+    2·word + 1) that quad lane ``q`` puts in A slot ``m`` (k16 step m // 2;
+    fragment registers 0 / 1 at m even, 2 / 3 at m odd), or -1 for a zero:
+    the 16-byte run 4q .. 4q + 3 at F = 32, 3q .. 3q + 2 below 11 at F =
+    22."""
+    if f == 32:
+        return 4 * q + m
+    return 3 * q + m if m < 3 and 3 * q + m < f // 2 else -1
+
+
+def tail_k_order(f: int) -> tuple:
+    """The feature behind each K column of the tail's products (-1 where A
+    and W hold zeros): at F = 64 the features in order; at F = 22 and 32
+    the order the threads' word loads give (``tail_word``)."""
+    if f == 64:
+        return tuple(range(64))
+    out = []
+    for k in range(TAIL_KN):
+        s, c = divmod(k, 16)
+        q, e, h = (c % 8) // 2, c % 2, c // 8
+        word = tail_word(f, q, 2 * s + h)
+        out.append(-1 if word < 0 else 2 * word + e)
+    return tuple(out)
 
 
 def _weights(weight: torch.Tensor, bias: torch.Tensor, num_classes: int):

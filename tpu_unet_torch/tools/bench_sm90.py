@@ -4,7 +4,7 @@
 
 with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
 ``stem_fwd``, ``head_bwd``, ``loss``, ``logit_loss``, ``adjoint``,
-``tail`` (all by default):
+``tail``, ``argmax``, ``palette`` (all by default) and ``sass``:
 
 - the VGG16 blocks 2-5 in training (#21 / #23 forward, #22 / #24
   backward, all on the Hopper kernels) at unet_vgg's training shapes (512²
@@ -70,15 +70,33 @@ with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
   sum and a sha1 of its bytes; each shape's dups come from a generator of
   its own seed, so runs of two trees show whether their dx are
   bit-identical);
-- the canonical serving tail (#4, F = 64): 8 × 512² × 64 → 21 with the
-  histogram and the mask alone at 8 × 500² (no multiple of 256 an image,
-  the mask-only call): the same readings against ``F.linear`` +
-  ``argmax`` (+ the offset ``bincount``), and a hash of the masks (and
-  histogram).
+- the serving tails, one kernel (``csrc/tail_sm90.cu``): #4 (F = 64) at
+  8 × 512² × 64 → 21 with the histogram and the mask alone at 8 × 500²
+  (no multiple of 256 an image, the mask-only call); #5 (F = 32 and 22,
+  the TraditionalUnet family) at the DataB batch 32 × 256² → 4, → 21 and
+  (F = 32) → 32; #7 (mask only) at 32 × 200² × 32 → 4: ms per call in the
+  same rounds (the host's cost per call at these sizes), the device time
+  by ``torch.profiler`` warm and cold (each call after a read that
+  evicts the L2), the bytes bound and each time's share of it, the plain
+  version, ``F.linear`` + ``argmax`` (+ the offset ``bincount``), and a
+  hash of the masks (and histogram);
+- the argmax mask (#6, ``argmax_mask``, uint8 out) at self_net's 8 ×
+  512² × 21 float32, the ladder models' 32 × 256² × 4 bf16 and
+  lightweight's 32 × 256² × 4 float32, against ``torch.argmax``, and the
+  palette blend (#8, ``mask_palette``) at 8 × 256² beside its eager
+  composition (no single PyTorch call blends a palette): the same
+  readings;
+- ``sass`` (not in the default set): the shared-memory (``LDS`` /
+  ``STS``), generic (``LD`` / ``ST``) and global loads and stores in the
+  SASS of each instance of the tail kernel (``cuobjdump -sass`` of the
+  built library), and ptxas's report of its registers when it was built
+  in the call.
 
 Every line carries the card's name and power limit.  Another tree's
 kernels are timed by running this file with that tree's root first on
 ``PYTHONPATH`` (``PYTHONPATH=<root> python <this file> adjoint tail``).
+The cases' inputs come from generators of their own seeds, so two trees'
+hashes can be compared.
 """
 from __future__ import annotations
 
@@ -87,6 +105,7 @@ import json
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -622,15 +641,65 @@ def _adjoint(smi, name, B, h, c):
                       "dx": _digest(dx), "gpu": smi}), flush=True)
 
 
-def _tail(smi, B, h, c, hist):
-    """#4 at (B, h, h, 64) bf16 features → c classes (see the module note)."""
-    gen = torch.Generator(device="cuda").manual_seed(7 * h + c)
+def _cold_device_ms(fn, match, reps=20):
+    """The device time per call of ``fn``'s kernels whose name holds one of
+    ``match`` (``torch.profiler``), each call after a 256 MB read that
+    evicts its inputs from the 50 MB L2 (the read not counted; a read
+    leaves no dirty lines to write back during the call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.zeros(64 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and any(m in e.name for m in match)) \
+        / 1e3 / reps
+
+
+def _small_kernel(smi, kernel, case, fn, plain, lib, match, nbytes, digest, lib_label):
+    """One JSON line for a small kernel: events (the host's cost per call
+    at these sizes), the profiler's device time warm and cold, the bytes
+    bound and each share of it, the plain version's and the library's
+    events, a hash of the output."""
+    ms = _rounds(fn)
+    med = statistics.median(ms)
+    by = _by_kernel(fn, reps=20)
+    dev_ms = sum(v for k, v in by.items() if any(m in k for m in match))
+    cold = _cold_device_ms(fn, match)
+    bound = nbytes / PEAK_BYTES * 1e3
+    print(json.dumps({"kernel": kernel, "case": case, "ms_rounds": ms, "ms": med,
+                      "device_ms": dev_ms, "device_ms_cold": cold,
+                      "plain_ms": statistics.median(_rounds(plain, reps=5)),
+                      lib_label: None if lib is None else statistics.median(_rounds(lib)),
+                      "bound_ms": bound, "bound_by": "bytes",
+                      "share_of_bound": bound / dev_ms if dev_ms else None,
+                      "cold_share_of_bound": bound / cold if cold else None,
+                      "events_share_of_bound": bound / med,
+                      "ms_by_kernel": by, "out": digest, "gpu": smi}), flush=True)
+
+
+# the tails' kernels under both trees' names (the F = 22 / 32 template of
+# csrc/postprocess.cu before the one tail kernel)
+TAIL_KERNELS = ("final_tail_kernel", "final_argmax_kernel")
+
+
+def _tail(smi, B, h, c, hist, f=64):
+    """A serving tail at (B, h, h, f) bf16 features → c classes (see the
+    module note)."""
+    gen = torch.Generator(device="cuda").manual_seed(7 * h + c + (0 if f == 64 else 1000 * f))
     bf = torch.bfloat16
-    feats = torch.relu(torch.randn((B, h, h, 64), generator=gen, device="cuda")).to(bf)
-    w = (torch.randn((c, 64, 1, 1), generator=gen, device="cuda") / 8).to(bf)
+    feats = torch.relu(torch.randn((B, h, h, f), generator=gen, device="cuda")).to(bf)
+    w = (torch.randn((c, f, 1, 1), generator=gen, device="cuda") / f ** 0.5).to(bf)
     b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(bf)
     tail = postprocess.final_argmax_hist if hist else postprocess.final_argmax
-    w2 = w.reshape(c, 64)
+    plain = postprocess.final_argmax_hist_plain if hist else postprocess.final_argmax_plain
+    w2 = w.reshape(c, f)
     offs = torch.arange(B, device="cuda").reshape(B, 1, 1) * c
 
     def fn():
@@ -641,24 +710,83 @@ def _tail(smi, B, h, c, hist):
         return torch.bincount((cls + offs).reshape(-1), minlength=B * c) if hist else cls
 
     out = fn()
-    ms = _rounds(fn)
-    med = statistics.median(ms)
-    by = _by_kernel(fn, reps=20)
-    dev_ms = sum(v for k, v in by.items() if "final_tail_kernel" in k or "final_argmax_kernel" in k)
     outs = out if hist else (out,)
-    bound = (feats.numel() * 2 + sum(t.numel() * t.element_size() for t in outs)) / PEAK_BYTES * 1e3
-    print(json.dumps({"kernel": "final_argmax_hist" if hist else "final_argmax",
-                      "case": f"{B}x{h}x{h}x64 -> {c}", "ms_rounds": ms, "ms": med,
-                      "device_ms": dev_ms, "library_ms": statistics.median(_rounds(lib)),
-                      "bound_ms": bound, "bound_by": "bytes", "share_of_bound": bound / dev_ms,
-                      "events_share_of_bound": bound / med, "ms_by_kernel": by,
-                      "masks": _digest(*outs), "gpu": smi}), flush=True)
+    _small_kernel(smi, "final_argmax_hist" if hist else "final_argmax", f"{B}x{h}x{h}x{f} -> {c}",
+                  fn, lambda: plain(feats, w, b, c), lib, TAIL_KERNELS,
+                  feats.numel() * 2 + sum(t.numel() * t.element_size() for t in outs),
+                  _digest(*outs), "library_ms")
+
+
+def _argmax(smi, n, h, c, dt):
+    """#6 (``argmax_mask``, uint8 out) at a generic serving step's shape:
+    small-integer logits (ties on most pixels), a NaN every 37th row."""
+    from tpu_unet_torch.kernels.postprocess import argmax_mask, argmax_mask_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(n * h + c)
+    x = torch.randint(-3, 4, (n, h, h, c), generator=gen, device="cuda").to(dt)
+    x.view(-1, c)[::37, c // 2] = float("nan")
+    u8 = torch.uint8
+    out = argmax_mask(x, u8)
+    _small_kernel(smi, "argmax_mask", f"{n}x{h}x{h}x{c} {str(dt).split('.')[-1]}->uint8",
+                  lambda: argmax_mask(x, u8), lambda: argmax_mask_plain(x, u8),
+                  lambda: torch.argmax(x, dim=-1), ("argmax_kernel",),
+                  x.numel() * x.element_size() + out.numel(), _digest(out), "library_ms")
+
+
+def _palette(smi, n, h):
+    """#8 (``mask_palette``) over n frames of h x h with 4-class masks; no
+    single PyTorch call blends a palette: the eager composition (the plain
+    version) is timed in its place."""
+    from tpu_unet_torch.infer.wrapper import VOC_COLORS
+    from tpu_unet_torch.kernels.render import mask_palette, mask_palette_plain, palette_tensor
+
+    gen = torch.Generator(device="cuda").manual_seed(n * h)
+    pal = palette_tensor(VOC_COLORS, "cuda")
+    mask = torch.randint(0, 4, (n, h, h), generator=gen, device="cuda", dtype=torch.uint8)
+    img = torch.randint(0, 256, (n, h, h, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    out = mask_palette(mask, img, pal)
+    _small_kernel(smi, "mask_palette", f"{n}x{h}x{h} uint8 mask, {pal.shape[0]} colours",
+                  lambda: mask_palette(mask, img, pal), lambda: mask_palette_plain(mask, img, pal),
+                  lambda: mask_palette_plain(mask, img, pal), ("palette_kernel",),
+                  mask.numel() + img.numel() + out.numel() + pal.numel(), _digest(out),
+                  "eager_composition_ms")
+
+
+def _sass(smi):
+    """The shared-memory and generic loads and stores in the SASS of each
+    instance of the tail kernel (``cuobjdump -sass`` of the built library):
+    shared memory reached through a generic pointer shows as ``LD`` /
+    ``ST``, not ``LDS`` / ``STS``."""
+    import re
+
+    from tpu_unet_torch.kernels import _build
+
+    so = _build.build()
+    log = _build.build_log  # ptxas's registers, spills and shared memory, when built here
+    m = re.search(r"^tail_sm90\.cu:\n(.*?)(?=^\w+\.cu:$|\Z)", log, re.S | re.M)
+    if m:
+        print(m.group(1), flush=True)
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    parts = re.split(r"Function : (\S+)", text)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        if "final_tail_kernel" not in name:
+            continue
+        ops = {}
+        for line in body.splitlines():
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+            if m:
+                op = m.group(1).split(".")[0]
+                if op in ("LDS", "LD", "LDG", "STS", "ST", "STG", "LDSM"):
+                    ops[op] = ops.get(op, 0) + 1
+        print(json.dumps({"sass": name, "ops": ops, "gpu": smi}), flush=True)
 
 
 def main(argv=None) -> int:
     parts = list(argv if argv is not None else sys.argv[1:]) or \
         ["tiles", "stages", "blocks", "stem", "head", "stem_fwd", "head_bwd", "loss",
-         "logit_loss", "adjoint", "tail"]
+         "logit_loss", "adjoint", "tail", "argmax", "palette"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -700,6 +828,20 @@ def main(argv=None) -> int:
         elif part == "tail":
             _tail(smi, 8, 512, 21, True)
             _tail(smi, 8, 500, 21, False)
+            # #5 at the DataB serving batch (traditional, traditional22) and
+            # at 21 classes, #7 at 200² (mask only)
+            for f, h, c, hist in ((32, 256, 4, True), (22, 256, 4, True), (32, 200, 4, False),
+                                  (32, 256, 21, True), (22, 256, 21, True), (32, 256, 32, True)):
+                _tail(smi, 32, h, c, hist, f)
+                torch.cuda.empty_cache()
+        elif part == "argmax":  # #6 at self_net's, the ladder models' and lightweight's shapes
+            for n, h, c, dt in ((8, 512, 21, torch.float32), (32, 256, 4, torch.bfloat16),
+                                (32, 256, 4, torch.float32)):
+                _argmax(smi, n, h, c, dt)
+        elif part == "palette":  # #8 at the batched video path's 8 frames
+            _palette(smi, 8, 256)
+        elif part == "sass":
+            _sass(smi)
         else:
             raise SystemExit(f"bench_sm90: unknown part {part!r}")
         torch.cuda.empty_cache()
