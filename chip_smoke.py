@@ -100,13 +100,34 @@ Phases (any failure exits non-zero without the final result line):
    ``voc_resnet50`` preset (no ImageNet file) over a seeded VOC-layout
    directory at 256^2: one frozen and one unfrozen epoch, a resume, and
    serving from the trained ``.pth``;
-7. one ``{"kernels": [...]}`` line, then the card line, then
+7. the float32 path (``unet_vgg``'s float32 training, the voc and medical
+   presets): the float32 instantiations of the conv core, the
+   weight-gradient GEMM, the image GEMMs and the elementwise passes at the
+   training encoder's five stages and the four decoder stages (512², batch
+   8), and #27 / #29 in float32 at 21 and 2 classes, each against its
+   plain float32 version (TF32 off) within the bounds of
+   ``tpu_unet_torch/kernels/tf32.py``, bit-identical on a second launch,
+   a planted dropped split of the float32 GEMM read above its bounds, the
+   first tile of each product against a float64 TF32 emulation under
+   either operand rule (which one the card applied), timed against its
+   plain version and cuDNN's float32 with TF32 on, bound at the TF32 peak;
+   the float32 ``"paired"`` and ``"fused"`` steps against a plain float32
+   step, closer to it than the bf16 step on the same weights and batch in
+   the loss and every gradient, with exact launches, times, idle share
+   and peak memory beside the bf16 step's; the preset's batch 2; a 128²
+   step against the CPU float32 path; 20 learning steps; ``cli train
+   --preset voc --no-pretrained`` (one frozen and one unfrozen epoch at
+   512², batch 2), a resume, serving from the trained ``.pth``, and
+   ``--preset medical`` for one epoch;
+8. one ``{"kernels": [...]}`` line (the float32 instantiations under their
+   ``_f32`` keys beside the bf16 ones), then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the ``tpu_unet`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -134,6 +155,7 @@ CLASSES = {"unet_vgg": 21, "unet_resnet50": 21, "self_net": 21,
 GENERIC = ("ultralight", "ultralight_large", "ultralight_large_optimized",
            "ultralight44", "lightweight")
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+PEAK_TF32 = 494.7e12   # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 # conv outputs: bf16 storage with float32 sums taken in another order than
@@ -1379,8 +1401,10 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = "port " + ("final_loss_fwd_kernel" if "fwd" in name else "final_loss_bwd_kernel")
         elif "ce_dice_fwd_kernel" in name or "ce_dice_bwd_kernel" in name:
             name = "port " + ("ce_dice_fwd_kernel" if "fwd" in name else "ce_dice_bwd_kernel")
-        elif "conv_sm90_kernel" in name or "wgrad_sm90_kernel" in name:
-            kind = "conv_sm90_kernel" if "conv_sm90" in name else "wgrad_sm90_kernel"
+        elif "conv_sm90_kernel" in name or "wgrad_sm90_kernel" in name \
+                or "wgrad_f32_kernel" in name:
+            kind = "conv_sm90_kernel" if "conv_sm90" in name else \
+                "wgrad_f32_kernel" if "wgrad_f32" in name else "wgrad_sm90_kernel"
             name = f"port {kind}<{name[name.index('<') + 1:name.index('>')]}>"
         elif "wgrad_image" in name:
             name = "port " + ("wgrad_image_reduce_kernel" if "reduce" in name
@@ -1878,15 +1902,16 @@ def rect_batch(gen, n, size, classes, device):
     return {"image": imgs, "label": lbl}
 
 
-def plain_step(net, batch, num_classes, cls_weights):
+def plain_step(net, batch, num_classes, cls_weights, dtype=torch.bfloat16, dice=True):
     """Loss, float32 gradients and the running statistics after one bf16
-    step of a canonical UNet (``unet_vgg``, ``unet_resnet50``, ``self_net``)
-    composed here of the plain modules and ``train/losses.py`` under
-    autograd, no kernel: a bf16 copy of ``net`` (a cast's backward is the
-    gradient's cast, so these are the gradients of the float32 masters),
-    ResNet50's batch norm on the batch statistics, self_net's 2x logits
-    resized to the target by the losses.  ``tests/test_torch_gpu.py`` holds
-    its train steps to this same reference."""
+    (or ``dtype``) step of a canonical UNet (``unet_vgg``,
+    ``unet_resnet50``, ``self_net``) composed here of the plain modules and
+    ``train/losses.py`` under autograd, no kernel: a copy of ``net`` in
+    ``dtype`` (a cast's backward is the gradient's cast, so these are the
+    gradients of the float32 masters), ResNet50's batch norm on the batch
+    statistics, self_net's 2x logits resized to the target by the losses;
+    CE, + dice with ``dice``.  ``tests/test_torch_gpu.py`` holds its train
+    steps to this same reference."""
     from tpu_unet_torch.kernels.decoder_fuse import unetup_plain
     from tpu_unet_torch.kernels.upconv import upconv_plain
     from tpu_unet_torch.train.losses import ce_loss, dice_loss, one_hot
@@ -1894,8 +1919,8 @@ def plain_step(net, batch, num_classes, cls_weights):
 
     n16 = copy.deepcopy(net)
     for p in n16.parameters():
-        p.data = p.data.to(torch.bfloat16)
-    imgs, target = prepare_batch(batch, torch.bfloat16, "cuda")
+        p.data = p.data.to(dtype)
+    imgs, target = prepare_batch(batch, dtype, "cuda")
     # the encoders' plain compositions
     feats = n16.vgg(imgs, True, "fused") if n16.backbone == "vgg" else n16.resnet(imgs, True)
     up = feats[4]
@@ -1906,8 +1931,9 @@ def plain_step(net, batch, num_classes, cls_weights):
         c1, c2 = n16.up_conv[1], n16.up_conv[3]
         up = upconv_plain(up, c1.weight, c1.bias, c2.weight, c2.bias)
     logits = (up @ n16.final.weight.reshape(num_classes, -1).t() + n16.final.bias).float()
-    loss = ce_loss(logits, target, cls_weights, num_classes) + \
-        dice_loss(logits, one_hot(target, num_classes))
+    loss = ce_loss(logits, target, cls_weights, num_classes)
+    if dice:
+        loss = loss + dice_loss(logits, one_hot(target, num_classes))
     loss.backward()
     return (loss.item(), {k: p.grad.float() for k, p in n16.named_parameters()},
             bn_stats(n16))
@@ -2666,6 +2692,828 @@ def cli_train(card: str):
     return totals
 
 
+# ---- phase 7: the float32 path (TF32 products, float32 everywhere else) ----
+#
+# unet_vgg's float32 training (the voc and medical presets, fp16=False) on
+# the float32 instantiations of its kernels: each against its plain float32
+# version with TF32 off (main() sets both switches), within the bounds of
+# tpu_unet_torch/kernels/tf32.py that the CPU emulation fixes; a single-tile
+# float64 witness of each product (which operand rule the card applied); a
+# planted dropped split read above the weight-gradient bounds; a second
+# launch bit-identical.  Times beside the plain version's and cuDNN's float32
+# with TF32 on (the same arithmetic), bounds at the TF32 peak.
+
+
+def tf32_on(fn):
+    """``fn`` run with cuDNN's and cuBLAS's TF32 on: the library's float32
+    yardstick, which computes in the kernels' arithmetic."""
+    def run():
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+    return run
+
+
+def f32_tile(maps, w, rule, b=None, mask=None):
+    """The TF32 emulation in float64 of a 3×3 SAME conv's first 8×16 output
+    tile of image 0 (its halo's zeros the SAME padding):
+    the channel concat of NHWC ``maps`` taken to TF32 by ``rule``, OIHW
+    ``w`` rounded as packed; + bias and ReLU with ``b``, times [mask > 0]
+    with ``mask``."""
+    from tpu_unet_torch.kernels import tf32
+
+    x = torch.cat([m[:1, :9, :17] for m in maps], -1)
+    # the halo: zeros above and left, and below / right where the image ends
+    xt = F.pad(tf32.RULES[rule](x).double().permute(0, 3, 1, 2),
+               (1, 17 - x.shape[2], 1, 9 - x.shape[1]))
+    y = F.conv2d(xt, tf32.round_tf32(w).double()).permute(0, 2, 3, 1)
+    if b is not None:
+        y = torch.relu(y + b.double())
+    if mask is not None:
+        y = torch.where(mask[:1, :8, :16] > 0, y, 0)
+    return y
+
+
+def f32_witness(what, out, emulate, k, rule="trunc"):
+    """Print one float32 product's first tile against its TF32 emulation
+    under either operand rule (truncated, rounded), and check the distance
+    under ``rule``, the one ``kernels/tf32.py`` states for the product
+    (``"trunc"``: a TMA operand of the conv core; ``"round"``: the gathered
+    image), against ``tile_rel_tol(k)`` for its reduction of ``k``
+    products; returns the readings."""
+    from tpu_unet_torch.kernels import tf32
+
+    d = {r: rel_err(out[:1, :8, :16], emulate(r))[1] for r in ("trunc", "round")}
+    tol = tf32.tile_rel_tol(k)
+    line = {"f32_witness": what, "kernel_vs_tf32_truncated": d["trunc"],
+            "kernel_vs_tf32_rounded": d["round"], "rule": rule, "k": k, "bound": tol}
+    print(json.dumps(line), flush=True)
+    check(d[rule] <= tol, f"{what}: float32 tile {d} from its TF32 emulation "
+                          f"({rule}) > {tol:.3g}")
+    return line
+
+
+def f32_encoder_kernels(record, gen):
+    """The training encoder in float32 at unet_vgg's five stages (512²,
+    batch 8): the stem's forward (``vgg_stem_f32``), the blocks' forwards
+    keeping their intermediates (``vgg_block2_fwd_f32`` /
+    ``vgg_block3_fwd_f32``, and the serving key ``vgg_block_f32``), each
+    stage's backward (``vgg_stem_bwd_f32``, ``vgg_block2_bwd_f32``,
+    ``vgg_block3_bwd_f32``), as phase 2's bf16 checks with float32's
+    bounds; the first tile of each forward's last conv (and the stem's
+    conv1_1) against its TF32 emulation."""
+    from tpu_unet_torch.kernels._plain import conv3x3_relu
+    from tpu_unet_torch.kernels.encoder import vgg_block
+    from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, _vgg_stem_cuda,
+                                                      block_key, bwd_plan, vgg_block_bwd,
+                                                      vgg_block_bwd_plain, vgg_stem_bwd,
+                                                      vgg_stem_bwd_plain)
+    from tpu_unet_torch.kernels.stem import vgg_stem_plain
+
+    from tpu_unet_torch.kernels import tf32
+
+    dev, B = torch.device("cuda"), BATCH
+    for h, chans, pool in VGG_TRAIN_STAGES:
+        stem = chans[0] == 3
+        n = len(chans) - 1
+        x = (torch.rand((B, h, h, 3), generator=gen, device=dev) if stem else
+             torch.relu(torch.randn((B, h, h, chans[0]), generator=gen, device=dev)))
+        ws = [torch.randn((f, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5
+              for c, f in zip(chans[:-1], chans[1:])]
+        bs = [0.1 * torch.randn(f, generator=gen, device=dev) for f in chans[1:]]
+        case = f"{B}x{h}x{h} {chans} pool={pool} float32"
+        flops = sum(conv_flops(B, h, h, c, f) for c, f in zip(chans[:-1], chans[1:]))
+
+        def plain_fwd(x=x, ws=ws, bs=bs, pool=pool):
+            y, acts = x, []
+            for w, b in zip(ws, bs):
+                y = conv3x3_relu(y, w, b)
+                acts.append(y)
+            return acts, (F.max_pool2d(cl(y), 2).permute(0, 2, 3, 1) if pool else None)
+
+        if stem:
+            skip, pooled, a1 = _vgg_stem_cuda(x, ws[0], bs[0], ws[1], bs[1])
+            mids = [a1]
+            ref = vgg_stem_plain(x, ws[0], bs[0], ws[1], bs[1])
+            again = _vgg_stem_cuda(x, ws[0], bs[0], ws[1], bs[1])
+            check(all(torch.equal(a, b) for a, b in zip((skip, pooled, a1), again)),
+                  f"vgg_stem_f32 {case}: two launches differ")
+            rel = record("vgg_stem_f32", case, [skip, pooled], list(ref),
+                         lambda: _vgg_stem_cuda(x, ws[0], bs[0], ws[1], bs[1]),
+                         lambda: vgg_stem_plain(x, ws[0], bs[0], ws[1], bs[1]),
+                         tf32_on(lambda: cudnn_chain(x, ws, bs, True)), flops,
+                         nbytes(x, *ws, *bs, skip, pooled), peak=PEAK_TF32)
+            check(rel <= tf32.CONV_REL_TOL, f"vgg_stem_f32 {case}: rel err {rel:.3g}")
+            f32_witness("vgg_stem_f32 conv1_1 (the gathered image)", a1,
+                        lambda r: f32_tile([x], ws[0], r, bs[0]), 27, "round")
+            f32_witness("vgg_stem_f32 conv1_2", skip, lambda r: f32_tile([a1], ws[1], r, bs[1]),
+                        9 * 64)
+            del again
+        else:
+            key = block_key(n, "fwd")
+            skip, pooled, mids = _vgg_block_cuda(x, ws, bs, pool, key)
+            again = _vgg_block_cuda(x, ws, bs, pool, key)
+            check(torch.equal(skip, again[0]), f"{key}_f32 {case}: two launches differ")
+            acts, ppool = plain_fwd()
+            outs = [*mids, skip] + ([pooled] if pool else [])
+            refs = acts + ([ppool] if pool else [])
+            rel = record(key + "_f32", case, outs, refs,
+                         lambda: _vgg_block_cuda(x, ws, bs, pool, key), plain_fwd,
+                         tf32_on(lambda: cudnn_chain(x, ws, bs, pool)), flops,
+                         nbytes(x, *ws, *bs, *outs), peak=PEAK_TF32)
+            check(rel <= tf32.CONV_REL_TOL, f"{key}_f32 {case}: rel err {rel:.3g}")
+            # the serving key: the same kernel through vgg_block
+            record("vgg_block_f32", case, [t for t in vgg_block(x, ws, bs, pool) if t is not None],
+                   [acts[-1], ppool] if pool else [acts[-1]],
+                   lambda: vgg_block(x, ws, bs, pool), plain_fwd,
+                   tf32_on(lambda: cudnn_chain(x, ws, bs, pool)), flops,
+                   nbytes(x, *ws, *bs, *outs), peak=PEAK_TF32)
+            last_in = mids[-1] if mids else x
+            f32_witness(f"{key}_f32 {chans} last conv", skip,
+                        lambda r: f32_tile([last_in], ws[-1], r, bs[-1]), 9 * chans[-2])
+            del again, acts, ppool
+        dskip = torch.randn(skip.shape, generator=gen, device=dev)
+        dpool = torch.randn((B, h // 2, h // 2, chans[-1]), generator=gen, device=dev) \
+            if pool else None
+        if stem:
+            key = "vgg_stem_bwd"
+            kern = lambda: (None, *vgg_stem_bwd(dskip, dpool, x, mids[0], skip, ws[0], ws[1]))  # noqa: E731
+            plain = lambda: (None, *vgg_stem_bwd_plain(dskip, dpool, x, mids[0], skip, ws[0],  # noqa: E731
+                                                       ws[1]))
+        else:
+            key = block_key(n, "bwd")
+            kern = lambda: vgg_block_bwd(dskip, dpool, x, mids, skip, ws)  # noqa: E731
+            plain = lambda: vgg_block_bwd_plain(dskip, dpool, x, mids, skip, ws)  # noqa: E731
+        res, again, ref = kern(), kern(), plain()
+        flat = lambda r: ([] if r[0] is None else [r[0]]) + list(r[1]) + list(r[2])  # noqa: E731
+        check(all(torch.equal(a, b) for a, b in zip(flat(res), flat(again))),
+              f"{key}_f32 {case}: two launches differ")
+        errs = {} if res[0] is None else {"dx": rel_err(res[0], ref[0])[1]}
+        for i in range(n):
+            errs[f"dk{i}"] = rel_err(res[1][i], ref[1][i])[1]
+            errs[f"db{i}"] = rel_err(res[2][i], ref[2][i])[1]
+        for name, e in errs.items():
+            tol = tf32.CONV_REL_TOL if name == "dx" else \
+                tf32.WGRAD_REL_TOL if name[2:] == str(n - 1) else tf32.WGRAD_CHAIN_REL_TOL
+            check(e <= tol, f"{key}_f32 {case}: {name} rel err {e:.3g} > {tol}")
+        print(json.dumps({key + "_f32": case, "rel_err_by_output": errs}), flush=True)
+        ns = bwd_plan(B, h, h, tuple(chans), not stem, True)[1][n - 1]
+        if stem:
+            def faulty(ds, dp):
+                return [r[n - 1] for r in vgg_stem_bwd(ds, dp, x, mids[0], skip, ws[0], ws[1])]
+        else:
+            def faulty(ds, dp):
+                return [r[n - 1] for r in vgg_block_bwd(ds, dp, x, mids, skip, ws)[1:]]
+        B_, H_, W_, _ = dskip.shape
+        bad = dskip.masked_fill(first_split_mask(B_, H_, W_, ns)[..., None], 0)
+        badp = None if dpool is None else \
+            dpool.masked_fill(first_split_mask(B_, H_, W_, ns, 2)[..., None], 0)
+        fault = max(rel_err(a, b)[1] for a, b in zip(faulty(bad, badp),
+                                                     [ref[1][n - 1], ref[2][n - 1]]))
+        print(json.dumps({"wgrad_planted_fault": f"{key}_f32 {case}", "dropped_split_of": ns,
+                          "rel_err": fault,
+                          "bounds": [tf32.WGRAD_REL_TOL, tf32.WGRAD_CHAIN_REL_TOL]}), flush=True)
+        check(fault > tf32.WGRAD_CHAIN_REL_TOL,
+              f"{key}_f32 {case}: a dropped split reads {fault:.3g}, inside the bounds")
+        with torch.enable_grad():
+            xg = cl(x).detach().requires_grad_(not stem)
+            wg = [w.detach().requires_grad_() for w in ws]
+            bg = [b.detach().requires_grad_() for b in bs]
+            y = tf32_on(lambda: cudnn_chain(xg.permute(0, 2, 3, 1), wg, bg, pool))()
+            outs, cots = ((list(y), [cl(dskip), cl(dpool)]) if pool else ([y], [cl(dskip)]))
+        wrt = ([] if stem else [xg]) + wg + bg
+        lib = tf32_on(lambda: torch.autograd.grad(outs, wrt, cots, retain_graph=True))
+        bwd_flops = 2 * flops - (conv_flops(B, h, h, 3, chans[1]) if stem else 0)
+        record(key + "_f32", case, flat(res), flat(ref), kern, plain, lib, bwd_flops,
+               nbytes(x, *mids, skip, dskip, dpool, *ws, *flat(res)), peak=PEAK_TF32)
+        del x, ws, bs, skip, pooled, mids, dskip, dpool, res, again, ref, xg, wg, bg, y, outs
+        torch.cuda.empty_cache()
+
+
+def f32_decoder_kernels(record, gen):
+    """The four unet_vgg decoder stages in float32 (512², batch 8): #1
+    (``unetup_f32``, its upsample ``upsample2x_f32`` bit-equal to the plain
+    float32 upsample), #13 (``unetup_bwd_f32``: g2 equal to the plain mask
+    pass's), ``unetup_wgrad_f32`` (a planted dropped split at up1's dk2) and
+    ``upsample_adjoint_f32`` (its plan the host's), each against its plain
+    float32 version, bit-identical on a second launch; conv1's and #13's
+    dz1's first tiles against their TF32 emulations; the whole stage
+    backward against the plain one."""
+    from tpu_unet_torch.kernels.decoder_fuse import _unetup_cuda, _unetup_plain_y1
+    from tpu_unet_torch.kernels.decoder_train import (
+        adjoint_plan, adjoint_plan_on_card, flip_t, up2x, unetup_bwd, unetup_bwd_full,
+        unetup_bwd_full_plain, unetup_bwd_plain, unetup_wgrad, unetup_wgrad_plain, wgrad_plan,
+        upsample2x_adjoint, upsample2x_adjoint_plain)
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    from tpu_unet_torch.kernels import tf32
+
+    dev, B = torch.device("cuda"), BATCH
+    cb = torch.ops.aten.convolution_backward
+    for h, cs, cx, f in VGG_STAGES:
+        h2, cp = 2 * h, cs + cx
+        skip = torch.relu(torch.randn((B, h2, h2, cs), generator=gen, device=dev))
+        x = torch.relu(torch.randn((B, h, h, cx), generator=gen, device=dev))
+        w1 = torch.randn((f, cp, 3, 3), generator=gen, device=dev) / (9 * cp) ** 0.5
+        w2 = torch.randn((f, f, 3, 3), generator=gen, device=dev) / (9 * f) ** 0.5
+        b1, b2 = (0.1 * torch.randn(f, generator=gen, device=dev) for _ in range(2))
+        case = f"{B}x{h2}x{h2} Cs={cs} Cx={cx} F={f} float32"
+        up = up2x(x)
+        check(torch.equal(up, upsample2x(x)), f"upsample2x_f32 {case}: not the plain upsample")
+        record("upsample2x_f32", case, [up], [upsample2x(x)], lambda: up2x(x),
+               lambda: upsample2x(x), None, 6.0 * up.numel(), nbytes(x, up), peak=PEAK_F32)
+        out, y1 = _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=True)
+        check(torch.equal(out, _unetup_cuda(skip, x, w1, b1, w2, b2)),
+              f"unetup_f32 {case}: two launches differ")
+        pout, py1 = _unetup_plain_y1(skip, x, w1, b1, w2, b2)
+
+        def lib_f(skip=skip, x=x, w1=w1, b1=b1, w2=w2, b2=b2):
+            cc = torch.cat([cl(skip), cl(upsample2x(x))], 1)
+            return F.relu(F.conv2d(F.relu(F.conv2d(cc, w1, b1, padding=1)), w2, b2, padding=1))
+
+        rel = record("unetup_f32", case, [out, y1], [pout, py1],
+                     lambda: _unetup_cuda(skip, x, w1, b1, w2, b2),
+                     lambda: _unetup_plain_y1(skip, x, w1, b1, w2, b2), tf32_on(lib_f),
+                     conv_flops(B, h2, h2, cp, f) + conv_flops(B, h2, h2, f, f),
+                     nbytes(skip, x, w1, w2, out, y1), peak=PEAK_TF32)
+        check(rel <= tf32.CONV_REL_TOL, f"unetup_f32 {case}: rel err {rel:.3g}")
+        f32_witness(f"unetup_f32 {case} conv1", y1, lambda r: f32_tile([skip, up], w1, r, b1),
+                    9 * cp)
+        g = torch.randn((B, h2, h2, f), generator=gen, device=dev)
+        args = (g, out, y1, skip, x, w1, w2)
+        res = unetup_bwd_full(*args)
+        check(all(torch.equal(a, b) for a, b in zip(res, unetup_bwd_full(*args))),
+              f"unetup_bwd_full_f32 {case}: two launches differ")
+        ref = unetup_bwd_full_plain(*args)
+        errs = {n: rel_err(a, b)[1] for n, a, b in
+                zip(("dskip", "dx", "dk1", "db1", "dk2", "db2"), res, ref)}
+        for n, e in errs.items():
+            tol = tf32.CONV_REL_TOL if n in ("dskip", "dx") else tf32.WGRAD_CHAIN_REL_TOL
+            check(e <= tol, f"unetup_bwd_full_f32 {case}: {n} rel err {e:.3g} > {tol}")
+        print(json.dumps({"unetup_bwd_full_f32": case, "rel_err_by_output": errs}), flush=True)
+        del res, ref
+        # #13 alone
+        r13 = unetup_bwd(g, out, y1, w1, w2, cs)
+        p13 = unetup_bwd_plain(g, out, y1, w1, w2, cs)
+        check(all(torch.equal(a, b) for a, b in zip(r13, unetup_bwd(g, out, y1, w1, w2, cs))),
+              f"unetup_bwd_f32 {case}: two launches differ")
+        check(bool(torch.equal(r13[2], p13[2])), f"unetup_bwd_f32 {case}: g2 != plain")
+        f32_witness(f"unetup_bwd_f32 {case} dz1", r13[3],
+                    lambda r: f32_tile([r13[2]], flip_t(w2), r, mask=y1), 9 * f)
+        placeholder = torch.empty((B, cp, h2, h2), device=dev, memory_format=torch.channels_last)
+
+        def lib13(g=g, out=out, y1=y1, w1=w1, w2=w2, placeholder=placeholder):
+            g2 = torch.where(out > 0, g, 0)
+            dz1 = cb(cl(g2), cl(y1), w2, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                     [True, False, False])[0]
+            dz1 = torch.where(cl(y1) > 0, dz1, 0)
+            return cb(dz1, placeholder, w1, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                      [True, False, False])[0]
+
+        rel = record("unetup_bwd_f32", case, [r13[3], r13[0], r13[1]], [p13[3], p13[0], p13[1]],
+                     lambda: unetup_bwd(g, out, y1, w1, w2, cs),
+                     lambda: unetup_bwd_plain(g, out, y1, w1, w2, cs), tf32_on(lib13),
+                     conv_flops(B, h2, h2, f, f) + conv_flops(B, h2, h2, f, cp),
+                     nbytes(g, out, y1, w1, w2, *r13), peak=PEAK_TF32)
+        check(rel <= tf32.CONV_REL_TOL, f"unetup_bwd_f32 {case}: rel err {rel:.3g}")
+        _, dups, g2, dz1 = p13
+        del r13, placeholder
+        wres, wref = unetup_wgrad(skip, x, dz1, y1, g2), unetup_wgrad_plain(skip, x, dz1, y1, g2)
+        check(all(torch.equal(a, b) for a, b in zip(wres, unetup_wgrad(skip, x, dz1, y1, g2))),
+              f"unetup_wgrad_f32 {case}: two launches differ")
+
+        def lib_w(skip=skip, x=x, dz1=dz1, y1=y1, g2=g2, w1=w1, w2=w2, f=f):
+            cc = torch.cat([cl(skip), cl(upsample2x(x))], dim=1)
+            _, dk1, db1 = cb(cl(dz1), cc, w1, [f], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                             [False, True, True])
+            _, dk2, db2 = cb(cl(g2), cl(y1), w2, [f], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                             [False, True, True])
+            return dk1, db1, dk2, db2
+
+        rel = record("unetup_wgrad_f32", case, list(wres), list(wref),
+                     lambda: unetup_wgrad(skip, x, dz1, y1, g2),
+                     lambda: unetup_wgrad_plain(skip, x, dz1, y1, g2), tf32_on(lib_w),
+                     conv_flops(B, h2, h2, cp, f) + conv_flops(B, h2, h2, f, f),
+                     nbytes(skip, x, dz1, y1, g2, *wres), peak=PEAK_TF32)
+        check(rel <= tf32.WGRAD_REL_TOL, f"unetup_wgrad_f32 {case}: rel err {rel:.3g}")
+        if f == 64:
+            ns = wgrad_plan(B, h2, h2, cs, cx, f, True)[1][2]
+            bad = g2.masked_fill(first_split_mask(B, h2, h2, ns)[..., None], 0)
+            fault = max(rel_err(a, b)[1] for a, b in
+                        zip(unetup_wgrad(skip, x, dz1, y1, bad)[2:], wref[2:]))
+            print(json.dumps({"wgrad_planted_fault": f"unetup_wgrad_f32 {case}",
+                              "dropped_split_of": ns, "rel_err": fault,
+                              "bounds": [tf32.WGRAD_REL_TOL, tf32.WGRAD_CHAIN_REL_TOL]}),
+                  flush=True)
+            check(fault > tf32.WGRAD_CHAIN_REL_TOL,
+                  f"unetup_wgrad_f32 {case}: a dropped split reads {fault:.3g}")
+        ares = upsample2x_adjoint(dups, h, h)
+        check(torch.equal(ares, upsample2x_adjoint(dups, h, h)),
+              f"upsample_adjoint_f32 {case}: two launches differ")
+        check(adjoint_plan_on_card(B, h, h, cx, True) == adjoint_plan(B, h, h, cx, True),
+              f"upsample_adjoint_f32 {case}: the kernel's plan is not the host's")
+        xz = torch.zeros((B, h, h, cx), device=dev)
+
+        def lib_a(xz=xz, dups=dups):
+            with torch.enable_grad():
+                xg = xz.detach().requires_grad_()
+                u = upsample2x(xg)
+            return torch.autograd.grad(u, xg, dups)[0]
+
+        rel = record("upsample_adjoint_f32", case, [ares],
+                     [upsample2x_adjoint_plain(dups, h, h)],
+                     lambda: upsample2x_adjoint(dups, h, h),
+                     lambda: upsample2x_adjoint_plain(dups, h, h), lib_a,
+                     2.0 * 4 * dups.numel(), nbytes(dups, ares), peak=PEAK_F32)
+        check(rel <= F32_ADJOINT_REL_TOL, f"upsample_adjoint_f32 {case}: rel err {rel:.3g}")
+        del skip, x, g, out, y1, up, wres, wref, dups, g2, dz1, ares, p13
+        torch.cuda.empty_cache()
+
+
+# the float32 adjoint against its plain version: the same float32 products
+# summed in another order (fused multiply-adds against index_add_'s rounded
+# products and sums)
+F32_ADJOINT_REL_TOL = 1e-5
+
+
+def f32_loss_kernels(record, gen):
+    """#27 / #29's float32 instantiations at the float32 step's shapes:
+    8 × 512² × 21 (voc, CE without dice) and the medical preset's C = 2, each
+    against its plain version (loss within 1e-4, f_score within 1e-4, dW /
+    db within 1e-3, dfeat within the conv bound), bit-identical on a second
+    run."""
+    from tpu_unet_torch.kernels.loss import (final_ce_dice_bwd, final_ce_dice_bwd_plain,
+                                             final_ce_dice_fwd, final_ce_dice_fwd_plain,
+                                             pack_targets)
+
+    from tpu_unet_torch.kernels import tf32
+
+    dev = torch.device("cuda")
+    for c in (CLASSES["unet_vgg"], 2):
+        feats = torch.relu(torch.randn((BATCH, SIZE, SIZE, 64), generator=gen, device=dev))
+        w = torch.randn((c, 64, 1, 1), generator=gen, device=dev) / 8
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        t = torch.randint(0, c, (BATCH, SIZE, SIZE), generator=gen, device=dev,
+                          dtype=torch.int32)
+        t = pack_targets(torch.where(torch.rand(t.shape, generator=gen, device=dev) < 0.03,
+                                     torch.full_like(t, 255), t), c)
+        cw = tuple(1.0 for _ in range(c))
+        npix = feats.numel() // 64
+        gl = torch.tensor(1.0, device=dev)
+        case = f"{BATCH}x{SIZE}x{SIZE}x64 float32 -> {c} classes, dice=False"
+        loss, fs, res = final_ce_dice_fwd(feats, w, b, t, cw, c, False)
+        ploss, pfs, pres = final_ce_dice_fwd_plain(feats, w, b, t, cw, c, False)
+        again = final_ce_dice_fwd(feats, w, b, t, cw, c, False)
+        check(bool(torch.equal(loss, again[0])), f"final_ce_dice_fwd_f32 {case}: runs differ")
+        lrel = abs(loss.item() - ploss.item()) / abs(ploss.item())
+        check(lrel <= 1e-4 and abs(fs.item() - pfs.item()) <= 1e-4,
+              f"final_ce_dice_fwd_f32 {case}: loss rel {lrel:.3g}, f_score {fs.item()}")
+        f2, t_cl = feats.reshape(-1, 64), torch.clamp_max(t, c).long().reshape(-1)
+
+        def lib_fwd(f2=f2, w=w, b=b, t_cl=t_cl, c=c):
+            return F.cross_entropy(F.linear(f2, w.reshape(c, 64), b), t_cl, ignore_index=c)
+
+        record("final_ce_dice_fwd_f32", case, [loss, fs], [ploss, pfs],
+               lambda: final_ce_dice_fwd(feats, w, b, t, cw, c, False),
+               lambda: final_ce_dice_fwd_plain(feats, w, b, t, cw, c, False),
+               tf32_on(lib_fwd), 2.0 * npix * 64 * c, nbytes(feats, t, w, b), peak=PEAK_TF32)
+        out = final_ce_dice_bwd(feats, w, b, t, cw, c, False, res, gl)
+        ref = final_ce_dice_bwd_plain(feats, w, b, t, cw, c, False, pres, gl)
+        rels = [rel_err(o, r)[1] for o, r in zip(out, ref)]
+        check(rels[0] <= tf32.CONV_REL_TOL and max(rels[1:]) <= 1e-3,
+              f"final_ce_dice_bwd_f32 {case}: rel errs {rels}")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(out, final_ce_dice_bwd(feats, w, b, t, cw, c, False, res, gl))),
+              f"final_ce_dice_bwd_f32 {case}: two runs differ")
+        fg = f2.detach().clone().requires_grad_()
+        wg, bg = w.reshape(c, 64).clone().requires_grad_(), b.clone().requires_grad_()
+        with torch.enable_grad():
+            graph = F.cross_entropy(F.linear(fg, wg, bg), t_cl, ignore_index=c)
+        record("final_ce_dice_bwd_f32", case, list(out), list(ref),
+               lambda: final_ce_dice_bwd(feats, w, b, t, cw, c, False, res, gl),
+               lambda: final_ce_dice_bwd_plain(feats, w, b, t, cw, c, False, pres, gl),
+               tf32_on(lambda: torch.autograd.grad(graph, [fg, wg, bg], retain_graph=True)),
+               6.0 * npix * 64 * c, nbytes(feats, t, w, b, *out), peak=PEAK_TF32)
+        del feats, t, out, ref, fg, wg, bg, graph, f2, t_cl
+        torch.cuda.empty_cache()
+
+
+def f32_single_tile_readings(gen):
+    """One 8 × 16 tile of each float32 product at the path's widths, as
+    phase 2 reads the bf16 ones: the stem (conv1_1 over a float32 image,
+    conv1_2), up1's and up4's conv1 over [skip | up], #13's two dgrads and
+    the weight-gradient GEMM's dk (the first two against the TF32
+    emulation of both operand rules, dk against the rounding one, the only
+    one its register fragments take); kernel and plain version against
+    the exact float64 product too."""
+    from tpu_unet_torch.kernels.decoder_fuse import _unetup_cuda
+    from tpu_unet_torch.kernels.decoder_train import flip_t, unetup_bwd, unetup_wgrad
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    from tpu_unet_torch.kernels import tf32
+
+    dev = torch.device("cuda")
+    lines = []
+    for cs, cx, f in ((64, 128, 64), (512, 512, 512)):
+        skip = torch.relu(torch.randn((1, 8, 16, cs), generator=gen, device=dev))
+        x = torch.relu(torch.randn((1, 4, 8, cx), generator=gen, device=dev))
+        w1 = torch.randn((f, cs + cx, 3, 3), generator=gen, device=dev) / (9 * (cs + cx)) ** 0.5
+        w2 = torch.randn((f, f, 3, 3), generator=gen, device=dev) / (9 * f) ** 0.5
+        b1 = 0.1 * torch.randn(f, generator=gen, device=dev)
+        out, y1 = _unetup_cuda(skip, x, w1, b1, w2, b1, want_y1=True)
+        up = upsample2x(x)
+        lines.append(f32_witness(f"single tile Cs={cs} Cx={cx} F={f} conv1", y1,
+                                 lambda r: f32_tile([skip, up], w1, r, b1), 9 * (cs + cx)))
+        g = torch.randn((1, 8, 16, f), generator=gen, device=dev)
+        dskip, dups, g2, dz1 = unetup_bwd(g, out, y1, w1, w2, cs)
+        lines.append(f32_witness(f"single tile F={f} dz1", dz1,
+                                 lambda r: f32_tile([g2], flip_t(w2), r, mask=y1), 9 * f))
+        lines.append(f32_witness(f"single tile F={f} [dskip | dups]",
+                                 torch.cat([dskip, dups], -1),
+                                 lambda r: f32_tile([dz1], flip_t(w1), r), 9 * f))
+        dk1 = unetup_wgrad(skip, x, dz1, y1, dz1)[0]
+        cc = torch.cat([skip, up], -1)
+        e = {"round": rel_err(dk1, tf32.wgrad(cc, dz1))[1],
+             "exact": rel_err(dk1, torch.ops.aten.convolution_backward(
+                 cl(dz1.double()), cl(cc.double()), w1.double(), None, [1, 1], [1, 1], [1, 1],
+                 False, [0, 0], 1, [False, True, False])[1])[1]}
+        tol = tf32.tile_rel_tol(8 * 16)  # the 128 pixels of the tile
+        print(json.dumps({"f32_witness": f"single tile dk1 Cs={cs} Cx={cx} F={f}",
+                          "kernel_vs_tf32_rounded": e["round"],
+                          "kernel_vs_float64": e["exact"], "rule": "round", "k": 128,
+                          "bound": tol}), flush=True)
+        check(e["round"] <= tol, f"single tile dk1 F={f}: {e}")
+    return lines
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Within the block, every kernel wrapper takes its plain version for
+    the card's tensors too (its ``on_cpu`` test answers yes): the port's
+    step in plain PyTorch on the card, no kernel launched."""
+    import importlib
+    import pkgutil
+
+    import tpu_unet_torch.kernels as kernels
+
+    mods = [importlib.import_module(f"tpu_unet_torch.kernels.{m.name}")
+            for m in pkgutil.iter_modules(kernels.__path__)]
+    saved = [(m, m.on_cpu) for m in mods if hasattr(m, "on_cpu")]
+    try:
+        for m, _ in saved:
+            m.on_cpu = lambda t: True
+        yield
+    finally:
+        for m, fn in saved:
+            m.on_cpu = fn
+
+
+def emulated_f32_step(init, batch, cfg):
+    """Loss and float32 gradients of one step of the port's float32 step
+    from ``init`` with every kernel's TF32 arithmetic emulated
+    (``kernels/tf32.py::emulated_plain_versions``: TF32 operands, float64
+    sums) through the plain versions on the card: the reading that fixes
+    STEP_LOSS_REL_TOL at the card's shapes."""
+    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.train import step as tstep
+
+    net = copy.deepcopy(init)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    with plain_on_card(), tf32.emulated_plain_versions():
+        _, m = tstep.make_train_step(net, cfg)(state, batch, 1e-4)
+    grads = {k: p.grad.float().clone() for k, p in net.named_parameters()}
+    del net, state
+    return m["loss"].item(), grads
+
+
+def f32_train_step(card: str):
+    """The float32 ``"paired"`` step of unet_vgg at 512², batch 8, 21
+    classes, as the voc preset trains (CE without dice, Adam 1e-4), from
+    ``init_model(seed=0)`` weights: exact launches of the float32 keys,
+    loss and every gradient against a plain float32 step (TF32 off): closer
+    to it than the bf16 step on the same weights and batch is, in the loss
+    and in every gradient, the loss within STEP_LOSS_REL_TOL, every
+    gradient within STEP_GRAD_REL_TOL and STEP_GRAD_COS; first, the same
+    step with the TF32 arithmetic emulated in float64 (the reading that
+    fixes STEP_LOSS_REL_TOL, which must still hold it); times (events,
+    host, device, port kernels, idle share) and peak memory beside the bf16
+    step's; the ``"fused"`` route held the same way; the preset's batch 2;
+    a 128² step against the CPU float32 path, closer than the bf16 step and
+    within STEP_LOSS_REL_TOL (the emulation read there too);
+    20 steps on one batch, the loss falling.  Returns the launches."""
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+
+    from tpu_unet_torch.kernels import tf32
+
+    totals: dict = {}
+    classes = CLASSES["unet_vgg"]
+    cw = tuple(1.0 for _ in range(classes))
+    f32 = tstep.StepConfig(classes, cw)
+    bf = dataclasses.replace(f32, compute_dtype=torch.bfloat16)
+    batch = rect_batch(torch.Generator().manual_seed(20), BATCH, SIZE, classes, "cuda")
+    init = init_model(build_model("unet_vgg", classes), seed=0).cuda()
+    ploss, pgrads, _ = plain_step(init, batch, classes, cw, torch.float32, dice=False)
+
+    def grad_readings(grads):
+        out = {}
+        for k, g in grads.items():
+            a, b = g.ravel(), pgrads[k].ravel()
+            cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+            out[k] = (((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item(), cos)
+        return out
+
+    t0 = time.perf_counter()
+    eloss, egrads = emulated_f32_step(init, batch, f32)
+    elrel, er = abs(eloss - ploss) / abs(ploss), grad_readings(egrads)
+    del egrads
+    print(json.dumps({
+        "f32_emulated_step": "unet_vgg", "batch": BATCH, "size": SIZE,
+        "loss_rel_err_vs_plain": elrel, "worst_grad_rel_err": max(v[0] for v in er.values()),
+        "worst_grad_cosine": min(v[1] for v in er.values()),
+        "fixes": {"STEP_LOSS_EMULATED": tf32.STEP_LOSS_EMULATED,
+                  "STEP_LOSS_REL_TOL": tf32.STEP_LOSS_REL_TOL},
+        "seconds": time.perf_counter() - t0, "gpu": card}), flush=True)
+    check(elrel <= tf32.STEP_LOSS_EMULATED,
+          f"emulated float32 step: loss rel {elrel:.3g} over the reading "
+          f"{tf32.STEP_LOSS_EMULATED:.3g} that fixes STEP_LOSS_REL_TOL")
+    check(4 * max(v[0] for v in er.values()) <= tf32.STEP_GRAD_REL_TOL
+          and 4 * (1 - min(v[1] for v in er.values())) <= 1 - tf32.STEP_GRAD_COS,
+          "emulated float32 step: gradients times 4 outside STEP_GRAD_REL_TOL / STEP_GRAD_COS")
+
+    def run(cfg, expect=None, what=""):
+        net = copy.deepcopy(init)
+        state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+        fn = tstep.make_train_step(net, cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if expect is None:
+            state, m = fn(state, batch, 1e-4)
+            counts = None
+        else:
+            (state, m), counts = counted(expect, what, lambda: fn(state, batch, 1e-4))
+        loss = m["loss"].item()
+        lrel = abs(loss - ploss) / abs(ploss)
+        grads = {k: p.grad.float().clone() for k, p in net.named_parameters()}
+        step = lambda: fn(state, batch, 1e-4)  # noqa: E731
+        ms = time_ms(step, reps=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / 5
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        profile = device_breakdown(lambda _n, _i: step(), None, None)
+        del net, state, fn, step
+        return loss, lrel, grads, counts, {"step_ms_events": ms, "step_ms_host": host * 1e3,
+                                           "img_per_s": BATCH / host, "peak_mem_gib": peak,
+                                           "device_ms": profile["device_ms_per_step"],
+                                           "port_kernels_ms": profile["port_kernels_ms"],
+                                           "idle_share": profile["idle_share"],
+                                           "top_kernels_ms": profile["top_kernels_ms"]}
+
+    for route in ("paired", "fused"):
+        cfg32 = dataclasses.replace(f32, train_route=route)
+        cfg16 = dataclasses.replace(bf, train_route=route)
+        loss16, lrel16, g16, _, t16 = run(cfg16)
+        loss32, lrel32, g32, counts, t32 = run(cfg32, F32_TRAIN_STEP[route],
+                                              f"float32 train step ({route})")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        r16, r32 = grad_readings(g16), grad_readings(g32)
+        check(lrel32 < lrel16 or lrel32 == 0.0,
+              f"float32 step ({route}) loss rel {lrel32:.3g} not closer than bf16's {lrel16:.3g}")
+        check(lrel32 <= tf32.STEP_LOSS_REL_TOL,
+              f"float32 step ({route}) loss rel {lrel32:.3g} > {tf32.STEP_LOSS_REL_TOL:.3g}")
+        worse = [k for k in r32 if not r32[k][0] < r16[k][0]]
+        check(not worse, f"float32 step ({route}): gradients not closer than bf16's: {worse}")
+        for k, (rel, cos) in r32.items():
+            check(rel <= tf32.STEP_GRAD_REL_TOL and cos >= tf32.STEP_GRAD_COS,
+                  f"float32 step ({route}) gradient of {k}: rel {rel:.3g}, cosine {cos:.6f}")
+        print(json.dumps({
+            "train_step": "unet_vgg", "dtype": "float32 (TF32 products)", "train_route": route,
+            "batch": BATCH, "size": SIZE, "classes": classes, "recipe": "voc: CE, Adam 1e-4",
+            "launches": counts, **t32, "loss": loss32, "loss_plain_f32_step": ploss,
+            "loss_rel_err_vs_plain": lrel32, "bf16_loss_rel_err_vs_plain": lrel16,
+            "worst_grad_rel_err": max(v[0] for v in r32.values()),
+            "worst_grad_cosine": min(v[1] for v in r32.values()),
+            "bf16_worst_grad_rel_err": max(v[0] for v in r16.values()),
+            "bf16_worst_grad_cosine": min(v[1] for v in r16.values()),
+            "grad_rel_err_f32_vs_bf16": {k: [r32[k][0], r16[k][0]] for k in r32},
+            "bf16_step": t16, "gpu": card}), flush=True)
+        del g16, g32
+    del pgrads
+    torch.cuda.empty_cache()
+
+    # the preset's batch 2
+    small = {k: v[:2] for k, v in batch.items()}
+    net = copy.deepcopy(init)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    fn = tstep.make_train_step(net, f32)
+    (_, m), counts = counted(F32_TRAIN_STEP["paired"], "float32 step, batch 2",
+                             lambda: fn(state, small, 1e-4))
+    ms = time_ms(lambda: fn(state, small, 1e-4), reps=5)
+    print(json.dumps({"train_step": "unet_vgg float32", "batch": 2, "size": SIZE,
+                      "step_ms_events": ms, "img_per_s": 2e3 / ms, "loss": m["loss"].item(),
+                      "gpu": card}), flush=True)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    del net, state, fn
+
+    # the card against the CPU float32 path: one step at batch 1, 128², the
+    # float32 step closer to it than the bf16 step
+    one = rect_batch(torch.Generator().manual_seed(21), 1, 128, classes, "cuda")
+    cpu_net = copy.deepcopy(init).cpu()
+    _, mcpu = tstep.make_train_step(cpu_net, f32)(
+        tstep.TrainState(cpu_net, tstep.make_optimizer(cpu_net)),
+        {k: v.cpu() for k, v in one.items()}, 1e-4)
+    cpu_rel = {}
+    for name, cfg in (("float32", f32), ("bf16", bf)):
+        card_net = copy.deepcopy(init)
+        _, mc = tstep.make_train_step(card_net, cfg)(
+            tstep.TrainState(card_net, tstep.make_optimizer(card_net)), one, 1e-4)
+        cpu_rel[name] = abs(mc["loss"].item() - mcpu["loss"].item()) / abs(mcpu["loss"].item())
+        del card_net
+    eloss, _ = emulated_f32_step(init, one, f32)
+    cpu_rel["emulated float32"] = abs(eloss - mcpu["loss"].item()) / abs(mcpu["loss"].item())
+    check(cpu_rel["float32"] < cpu_rel["bf16"],
+          f"float32 step 128² vs CPU float32: loss rel {cpu_rel}, not closer than bf16's")
+    check(cpu_rel["float32"] <= tf32.STEP_LOSS_REL_TOL
+          and cpu_rel["emulated float32"] <= tf32.STEP_LOSS_EMULATED,
+          f"float32 step 128² vs CPU float32: loss rel {cpu_rel}, bound "
+          f"{tf32.STEP_LOSS_REL_TOL:.3g} (the emulation's {tf32.STEP_LOSS_EMULATED:.3g})")
+    del cpu_net
+
+    lnet = copy.deepcopy(init)
+    lstate = tstep.TrainState(lnet, tstep.make_optimizer(lnet, "adam", 0.9))
+    lfn = tstep.make_train_step(lnet, f32)
+    losses = [lfn(lstate, batch, 1e-4)[1]["loss"].item() for _ in range(20)]
+    check(losses[-1] <= 0.9 * losses[0],
+          f"float32, 20 steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}, not 10% lower")
+    print(json.dumps({"train_step": "unet_vgg float32",
+                      "loss_rel_err_vs_cpu_f32_128px_by_dtype": cpu_rel,
+                      "losses_20_steps": losses, "gpu": card}), flush=True)
+    del lnet, lstate, init
+    torch.cuda.empty_cache()
+    return totals
+
+
+# the float32 step's launches: the paired route's kernels under their
+# float32 keys; "fused" as its bf16 counterpart
+F32_TRAIN_STEP = {route: {k + "_f32": v for k, v in TRAIN_STEP[route].items()}
+                  for route in TRAIN_STEP}
+
+
+def write_medical(root: Path, n: int, size: int, seed: int):
+    """A seeded Medical_Datasets tree (Images/*.png, Labels/*.png: a dark
+    cell (label ≤ 127, class 1) on a bright field) with its train split."""
+    from PIL import Image
+
+    base = root / "Medical_Datasets"
+    for d in ("Images", "Labels", "ImageSets/Segmentation"):
+        (base / d).mkdir(parents=True, exist_ok=True)
+    bt = rect_batch(torch.Generator().manual_seed(seed), n, size, 2, "cpu")
+    ids = [f"m{i:03d}" for i in range(n)]
+    for name, img, lbl in zip(ids, bt["image"].numpy(), bt["label"].numpy()):
+        Image.fromarray(img).save(base / "Images" / f"{name}.png")
+        Image.fromarray(np.where(lbl == 1, 0, 255).astype(np.uint8)).save(
+            base / "Labels" / f"{name}.png")
+    (base / "ImageSets" / "Segmentation" / "train.txt").write_text("\n".join(ids))
+    return ids
+
+
+@contextlib.contextmanager
+def first_epoch_frozen():
+    """Within the block, a preset's frozen phase is its first epoch only
+    (``get_preset`` as ``cli train`` calls it, with ``freeze_epoch=1``)."""
+    from tpu_unet_torch.configs import presets
+
+    real = presets.get_preset
+    presets.get_preset = lambda name, **kw: real(name, **{**kw, "freeze_epoch": 1})
+    try:
+        yield
+    finally:
+        presets.get_preset = real
+
+
+def cli_train_f32(card: str):
+    """``cli.main(["train", "--preset", "voc", "--no-pretrained", ...])`` at
+    512², batch 2, over a seeded VOC-layout directory, the preset's frozen
+    phase cut to its first epoch: one frozen epoch (the VGG frozen) and one
+    unfrozen epoch of 2 steps each, a full-state
+    resume for a third, ``serving_step()`` from the trained ``.pth``; then
+    ``--preset medical`` (2 classes) for one epoch.  Launch counts of the
+    float32 keys; returns them."""
+    import io
+    import tempfile
+
+    from tpu_unet_torch import cli
+    from tpu_unet_torch.configs.presets import get_preset
+    from tpu_unet_torch.infer.wrapper import Unet
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.train.checkpoint import load_any
+    from tpu_unet_torch.train.fit import fit
+
+    totals: dict = {}
+
+    def add():
+        for k, v in launch_counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train_ids, val_ids = write_voc(tmp, 4, 2, SIZE, 21, seed=22)
+        save = tmp / "voc"
+        buf = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), first_epoch_frozen():
+            cli.main(["train", "--preset", "voc", "--no-pretrained", "--data-root", str(tmp),
+                      "--epochs", "2", "--save-dir", str(save), "--no-eval"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        add()
+        trained = dict(launch_counts)
+        # 2 epochs of 2 steps, the paired route: the frozen epoch's VGG runs
+        # its training kernels forward only (no backward: no weight of it
+        # trains and the image needs no gradient)
+        check(trained["unetup_bwd_f32"] == 16 and trained["final_ce_dice_bwd_f32"] == 4
+              and trained["vgg_block3_bwd_f32"] == 6 and trained["vgg_stem_f32"] >= 4,
+              f"cli train voc: launches {trained}")
+        check(all(v == 0 for k, v in trained.items() if k in TRAIN_STEP["paired"]),
+              f"cli train voc: bf16 kernels launched {trained}")
+        last = load_any(str(save / "last_epoch_weights.pth"))
+        check(last["epoch"] == 2 and last["step"] == 4,
+              f"voc: last checkpoint epoch {last['epoch']} step {last['step']}")
+        cfg = get_preset("voc", resume=True, model_path=str(save / "last_epoch_weights.pth"),
+                         unfreeze_epoch=3, freeze_epoch=1, pretrained_backbone=False,
+                         eval_flag=False, save_dir=str(tmp / "resumed"))
+        buf2 = io.StringIO()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(buf2):
+            state = fit(cfg, train_ids, val_ids, base_dir=str(tmp))
+        torch.cuda.synchronize()
+        add()
+        again = load_any(str(tmp / "resumed" / "last_epoch_weights.pth"))
+        check("Resuming full training state at epoch 2" in buf2.getvalue()
+              and again["epoch"] == 3 and state.step == 6,
+              f"voc resume: epoch {again['epoch']}, steps {state.step}")
+        reset_launch_counts()
+        u = Unet(model="unet_vgg", num_classes=21, input_shape=[SIZE, SIZE],
+                 model_path=str(save / "last_epoch_weights.pth"))
+        fn, net = u.serving_step()
+        val = rect_batch(torch.Generator().manual_seed(23), 2, SIZE, 21, "cuda")
+        masks, hist = fn(net, val["image"])
+        torch.cuda.synchronize()
+        add()
+        check(masks.shape == (2, SIZE, SIZE) and int(hist.sum()) == 2 * SIZE ** 2,
+              f"voc serving from the trained weights: masks {tuple(masks.shape)}")
+        medical_ids = write_medical(tmp, 4, SIZE, seed=24)
+        buf3 = io.StringIO()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(buf3), first_epoch_frozen():
+            cli.main(["train", "--preset", "medical", "--no-pretrained", "--data-root",
+                      str(tmp), "--epochs", "1", "--save-dir", str(tmp / "medical")])
+        torch.cuda.synchronize()
+        add()
+        med = dict(launch_counts)
+        mlast = load_any(str(tmp / "medical" / "last_epoch_weights.pth"))
+        check(mlast["epoch"] == 1 and mlast["step"] == 2 and med["final_ce_dice_fwd_f32"] == 2,
+              f"cli train medical: epoch {mlast['epoch']} step {mlast['step']}, launches {med}")
+        print(json.dumps({
+            "cli_train_f32": ["voc", "medical"], "images": [len(train_ids), len(medical_ids)],
+            "seconds_wall_incl_warmup": secs,
+            "epoch_lines": [ln for ln in (buf.getvalue() + buf3.getvalue()).splitlines()
+                            if ln.startswith("Epoch")],
+            "resumed_epoch_lines": [ln for ln in buf2.getvalue().splitlines()
+                                    if ln.startswith("Epoch")],
+            "launches": totals, "gpu": card}), flush=True)
+    return totals
+
+
+def phase_f32(card: str, results: dict):
+    """Phase 7, the float32 path: its kernels (encoder, decoder, loss), the
+    single-tile witnesses, the step, ``cli train`` of the voc and medical
+    presets.  Returns the launches of the counted runs."""
+    t0 = time.perf_counter()
+    record = functools.partial(record_case, results, card)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    f32_single_tile_readings(gen)
+    f32_encoder_kernels(record, gen)
+    f32_decoder_kernels(record, gen)
+    f32_loss_kernels(record, gen)
+    totals = f32_train_step(card)
+    for k, v in cli_train_f32(card).items():
+        totals[k] = totals.get(k, 0) + v
+    print(f"phase 7: float32 path in {time.perf_counter() - t0:.1f} s", flush=True)
+    return totals
+
+
 SOURCES = {
     # conv1_1's image GEMM (csrc/stem.cu, its gather csrc/image_gather.cuh)
     # and conv1_2 with the pool on the Hopper conv core
@@ -2727,6 +3575,33 @@ SOURCES = {
     "final_ce_dice_bwd": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:804"),
     "ce_dice_fwd": ("tpu_unet_torch/csrc/loss_logits.cu", "tpu_unet/kernels/loss.py:173"),
     "ce_dice_bwd": ("tpu_unet_torch/csrc/loss_logits.cu", "tpu_unet/kernels/loss.py:313"),
+    # the float32 path (phase 7): the same sources' float32 instantiations,
+    # TF32 products (the weight-gradient GEMM's on mma.sync in
+    # csrc/wgrad_sm90.cuh, the image GEMMs' in stem.cu / encoder_train.cu)
+    "vgg_stem_f32": ("tpu_unet_torch/csrc/stem.cu", "tpu_unet/kernels/stem.py:220"),
+    "vgg_block_f32": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh", "tpu_unet/kernels/encoder.py:288"),
+    "unetup_f32": ("tpu_unet_torch/csrc/decoder_fuse.cu",
+                   "tpu_unet/kernels/decoder_fuse.py:1149"),
+    "upsample2x_f32": ("tpu_unet_torch/csrc/upsample2x.cuh",
+                       "tpu_unet/kernels/decoder_fuse.py:1149"),
+    "unetup_bwd_f32": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh",
+                       "tpu_unet/kernels/decoder_train.py:140"),
+    "unetup_wgrad_f32": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
+                         "tpu_unet/kernels/decoder_train.py:1459"),
+    "upsample_adjoint_f32": ("tpu_unet_torch/csrc/upsample_adjoint.cuh",
+                             "tpu_unet/kernels/decoder_train.py:1208"),
+    "vgg_block2_fwd_f32": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh",
+                           "tpu_unet/kernels/encoder_train.py:139"),
+    "vgg_block3_fwd_f32": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh",
+                           "tpu_unet/kernels/encoder3_train.py:279"),
+    "vgg_stem_bwd_f32": ("tpu_unet_torch/csrc/encoder_train.cu",
+                         "tpu_unet/kernels/stem_train.py:245"),
+    "vgg_block2_bwd_f32": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
+                           "tpu_unet/kernels/encoder_train.py:329"),
+    "vgg_block3_bwd_f32": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
+                           "tpu_unet/kernels/encoder3_train.py:349"),
+    "final_ce_dice_fwd_f32": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:704"),
+    "final_ce_dice_bwd_f32": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:804"),
 }
 
 
@@ -2750,6 +3625,8 @@ def main() -> int:
     for phase in (phase_single_image, phase_tools, phase_train):
         for k, v in phase(card).items():
             counts[k] = counts.get(k, 0) + v
+    for k, v in phase_f32(card, results).items():
+        counts[k] = counts.get(k, 0) + v
     kernels = []
     for name, (src, repl) in SOURCES.items():
         r = results[name]

@@ -197,6 +197,40 @@ def test_cli_train_dry_run_and_one_epoch(voc, tmp_path):
         _run_cli(common + ["--wandb"])
 
 
+def test_cli_train_voc_preset_float32(voc, tmp_path, monkeypatch):
+    """(d) The float32 recipe of the reference's train.py (``--preset voc``:
+    fp16=False, the VGG frozen first), ``--no-pretrained --cpu`` at 64²:
+    one frozen epoch (its optimizer holds the decoder and the final conv
+    only) and one unfrozen (every parameter), the float32 weights written
+    and the VGG's trained in the second."""
+    from tpu_unet_torch.configs import presets
+    from tpu_unet_torch.train import fit as fit_mod
+
+    phases = []
+    make = fit_mod.make_optimizer
+
+    def spy(model, *args, **kw):
+        opt = make(model, *args, **kw)
+        phases.append(len(opt.param_groups[0]["params"]))
+        return opt
+
+    monkeypatch.setattr(fit_mod, "make_optimizer", spy)
+    # the preset's frozen phase cut to its first epoch
+    monkeypatch.setattr(presets, "get_preset",
+                        lambda name, **kw: get_preset(name, **{**kw, "freeze_epoch": 1}))
+    root, _, _ = voc
+    text = _run_cli(["train", "--preset", "voc", "--no-pretrained", "--cpu", "--data-root", root,
+                     "--input-shape", "64", "64", "--batch-size", "3", "--epochs", "2",
+                     "--no-eval", "--save-dir", str(tmp_path)])
+    assert "Epoch 1/2" in text and "Epoch 2/2" in text
+    names = [n for n, _ in build_model("unet_vgg", 21).named_parameters()]
+    assert phases == [sum(not n.startswith("vgg.") for n in names), len(names)]
+    last = load_any(str(tmp_path / "last_epoch_weights.pth"))
+    w = last["model_state_dict"]["vgg.features.0.weight"]
+    assert last["epoch"] == 2 and w.dtype == torch.float32
+    assert len(last["optimizer"]["param_groups"][0]["params"]) == len(names)
+
+
 def test_missing_pretrained_backbone_raises_as_jax(tmp_path, monkeypatch):
     """The ``voc`` preset asks for ImageNet VGG16 weights: both packages look
     in ``<base_dir>/model_data`` (or ``$TPU_UNET_PRETRAINED_DIR``) and raise

@@ -771,22 +771,25 @@ def test_final_loss_kernels(cuda, dtype, with_dice, c, shape):
     relative, f_score within 1e-4, dW and db within 1e-3 of their largest
     entry, dfeat within CONV_REL_TOL; at every class padding (C = 1, 4,
     21, 126: 16, 16, 32, 128 columns) and at a pixel count no 128-pixel
-    tile divides (207: the last tile's rows past n are TMA's zero fill)."""
+    tile divides (207: the last tile's rows past n are TMA's zero fill);
+    the float32 instantiations counted under their ``_f32`` keys."""
     from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels._build import count_key
     from tpu_unet_torch.kernels.loss import (final_ce_dice_bwd, final_ce_dice_bwd_plain,
                                              final_ce_dice_fwd, final_ce_dice_fwd_plain)
 
     feats, w, b, t, cw = _loss_case(cuda, *shape, c, dtype)
-    n0, n1 = launch_counts["final_ce_dice_fwd"], launch_counts["final_ce_dice_bwd"]
+    kf, kb = count_key("final_ce_dice_fwd", dtype), count_key("final_ce_dice_bwd", dtype)
+    n0, n1 = launch_counts[kf], launch_counts[kb]
     loss, fs, res = final_ce_dice_fwd(feats, w, b, t, cw, c, with_dice)
     ploss, pfs, pres = final_ce_dice_fwd_plain(feats, w, b, t, cw, c, with_dice)
-    assert launch_counts["final_ce_dice_fwd"] == n0 + 1
+    assert launch_counts[kf] == n0 + 1
     assert abs(loss.item() - ploss.item()) <= 1e-4 * abs(ploss.item())
     assert abs(fs.item() - pfs.item()) <= 1e-4
     gl = torch.tensor(1.0, device="cuda")
     out = final_ce_dice_bwd(feats, w, b, t, cw, c, with_dice, res, gl)
     ref = final_ce_dice_bwd_plain(feats, w, b, t, cw, c, with_dice, pres, gl)
-    assert launch_counts["final_ce_dice_bwd"] == n1 + 1
+    assert launch_counts[kb] == n1 + 1
     assert out[0].dtype == dtype and out[1].shape == w.shape and out[2].shape == b.shape
     assert _rel(out[0], ref[0]) <= CONV_REL_TOL
     for o, r in zip(out[1:], ref[1:]):
@@ -1575,3 +1578,277 @@ def test_resnet50_train_step_on_card(cuda):
     stats = net.state_dict()
     for k, v in pstats.items():
         assert _rel(stats[k], v) <= 1e-2, k
+
+
+# ---- the float32 path: TF32 instantiations of the Hopper kernels ----------
+#
+# Each float32 kernel against its plain float32 version (TF32 off, the
+# fixture) within the bounds of kernels/tf32.py, which the CPU emulation
+# fixes (tests/test_torch_tf32.py), and one product of each against that
+# emulation in float64 within tile_rel_tol of its reduction, under the
+# operand rule kernels/tf32.py states for it (the witness: the other
+# rule's distance printed beside it).
+
+
+def _act32(gen, *shape):
+    return torch.relu(torch.randn(shape, generator=gen, device="cuda"))
+
+
+def _conv32(gen, f, c):
+    w = torch.randn((f, c, 3, 3), generator=gen, device="cuda") / (9 * c) ** 0.5
+    return w, 0.1 * torch.randn(f, generator=gen, device="cuda")
+
+
+def _witness(out, emulate, k, rule="trunc"):
+    """The distance of ``out`` to ``emulate(r)`` under either operand rule,
+    printed; the stated rule's (``"trunc"``: a TMA operand of the conv
+    core) within ``tf32.tile_rel_tol(k)`` for a reduction of ``k``
+    products.  Returns that distance."""
+    from tpu_unet_torch.kernels import tf32
+
+    d = {r: tf32.rel(out, emulate(r)) for r in ("trunc", "round")}
+    print("witness", k, rule, d)
+    assert d[rule] <= tf32.tile_rel_tol(k), (k, rule, d)
+    return d[rule]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u8", [True, False])
+@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 24, 16)])
+def test_f32_stem_kernel(cuda, shape, u8):
+    """The stem's float32 forward (``vgg_stem_f32``): within CONV_REL_TOL
+    of the plain float32 stem; conv1_1's a1 within ``tile_rel_tol`` of its
+    emulation (the image rounded to TF32 as the producers gather it,
+    through the table f32(v) / 255 for a uint8 image), conv1_2's skip of
+    the emulation over the kernel's a1 (a TMA operand), the pool exact;
+    bit-identical on a second launch."""
+    from tpu_unet_torch.core.precision import normalize_u8
+    from tpu_unet_torch.kernels import launch_counts, tf32
+    from tpu_unet_torch.kernels._plain import max_pool2x2
+    from tpu_unet_torch.kernels.stem import _vgg_stem_cuda, vgg_stem_plain
+
+    B, H, W = shape
+    img = (torch.randint(0, 256, (B, H, W, 3), generator=cuda, device="cuda",
+                         dtype=torch.uint8) if u8 else
+           torch.rand((B, H, W, 3), generator=cuda, device="cuda"))
+    w11, b11 = _conv32(cuda, 64, 3)
+    w12, b12 = _conv32(cuda, 64, 64)
+    n = launch_counts["vgg_stem_f32"]
+    skip, pooled, a1 = _vgg_stem_cuda(img, w11, b11, w12, b12)
+    assert launch_counts["vgg_stem_f32"] == n + 1 and skip.dtype == torch.float32
+    ref = vgg_stem_plain(img, w11, b11, w12, b12)
+    for o, r in zip((skip, pooled), ref):
+        assert _rel(o, r) <= tf32.CONV_REL_TOL
+    x = normalize_u8(img, torch.float32) if u8 else img
+    _witness(a1, lambda r: tf32.conv3x3_relu(x, w11, b11, r), 27, "round")
+    _witness(skip, lambda r: tf32.conv3x3_relu(a1, w12, b12, r), 9 * 64)
+    assert torch.equal(pooled, max_pool2x2(skip))
+    again = _vgg_stem_cuda(img, w11, b11, w12, b12)
+    assert all(torch.equal(a, b) for a, b in zip((skip, pooled, a1), again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chans,pool,bhw", [
+    ([64, 128, 128], True, (2, 16, 32)),
+    ([64, 128, 128], True, (2, 24, 32)),
+    ([128, 256, 256, 256], True, (2, 16, 32)),
+    ([256, 512, 512, 512], True, (1, 8, 16)),
+    ([512, 512, 512, 512], False, (2, 16, 32)),
+    ([32, 64, 64], True, (2, 8, 48))])
+def test_f32_block_kernel(cuda, chans, pool, bhw):
+    """A block's float32 forward keeping its intermediates: within
+    CONV_REL_TOL of the plain chain, each conv within ``tile_rel_tol`` of its
+    emulation over the kernel's own input, the pool exact, bit-identical on
+    a second launch, counted under ``vgg_block_f32``."""
+    from tpu_unet_torch.kernels import launch_counts, tf32
+    from tpu_unet_torch.kernels._plain import max_pool2x2
+    from tpu_unet_torch.kernels.encoder import _vgg_block_cuda, vgg_block_plain
+
+    x = _act32(cuda, *bhw, chans[0])
+    wb = [_conv32(cuda, f, c) for c, f in zip(chans[:-1], chans[1:])]
+    ws, bs = [w for w, _ in wb], [b for _, b in wb]
+    n = launch_counts["vgg_block_f32"]
+    skip, pooled, mids = _vgg_block_cuda(x, ws, bs, pool)
+    assert launch_counts["vgg_block_f32"] == n + 1
+    ref = vgg_block_plain(x, ws, bs, pool)
+    assert _rel(skip, ref[0]) <= tf32.CONV_REL_TOL
+    ins, outs = [x, *mids], [*mids, skip]
+    for i, (a, o) in enumerate(zip(ins, outs)):
+        _witness(o, lambda r, a=a, i=i: tf32.conv3x3_relu(a, ws[i], bs[i], r), 9 * chans[i])
+    if pool:
+        assert torch.equal(pooled, max_pool2x2(skip))
+    again = _vgg_block_cuda(x, ws, bs, pool)
+    assert torch.equal(skip, again[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 8, 16, 128), (1, 5, 7, 64), (1, 4, 4, 512)])
+def test_f32_upsample2x_kernel_bit_exact(cuda, shape):
+    """The upsample pass in float32 (``upsample2x_f32``): bit-equal to the
+    plain float32 upsample (no rounding between its passes)."""
+    from tpu_unet_torch.kernels import launch_counts
+    from tpu_unet_torch.kernels.decoder_train import up2x
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    x = torch.randn(shape, generator=cuda, device="cuda")
+    n = launch_counts["upsample2x_f32"]
+    up = up2x(x)
+    assert launch_counts["upsample2x_f32"] == n + 1
+    assert torch.equal(up, upsample2x(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,cs,cx,f", [(8, 64, 128, 64), (4, 128, 256, 128),
+                                       (4, 512, 512, 512), (12, 64, 128, 64)])
+def test_f32_unetup_stage(cuda, h, cs, cx, f):
+    """#1 in float32: y1 and out within CONV_REL_TOL of the plain stage,
+    conv1 over [skip | up] and conv2 within ``tile_rel_tol`` of their
+    emulations (up the kernel's upsample, bit-equal to the plain one),
+    bit-identical on a second launch; counted as ``unetup_f32`` and
+    ``upsample2x_f32``."""
+    from tpu_unet_torch.kernels import launch_counts, tf32
+    from tpu_unet_torch.kernels.decoder_fuse import _unetup_cuda, _unetup_plain_y1
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    skip, x = _act32(cuda, 2, 2 * h, 4 * h, cs), _act32(cuda, 2, h, 2 * h, cx)
+    w1, b1 = _conv32(cuda, f, cs + cx)
+    w2, b2 = _conv32(cuda, f, f)
+    n = {k: launch_counts[k] for k in ("unetup_f32", "upsample2x_f32")}
+    out, y1 = _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=True)
+    assert all(launch_counts[k] == v + 1 for k, v in n.items())
+    ref, ry1 = _unetup_plain_y1(skip, x, w1, b1, w2, b2)
+    assert _rel(out, ref) <= tf32.CONV_REL_TOL and _rel(y1, ry1) <= tf32.CONV_REL_TOL
+    cc = torch.cat([skip, upsample2x(x)], dim=-1)
+    _witness(y1, lambda r: tf32.conv3x3_relu(cc, w1, b1, r), 9 * (cs + cx))
+    _witness(out, lambda r: tf32.conv3x3_relu(y1, w2, b2, r), 9 * f)
+    assert torch.equal(out, _unetup_cuda(skip, x, w1, b1, w2, b2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,cs,cx,f", [(8, 64, 128, 64), (4, 128, 256, 128),
+                                       (4, 512, 512, 512)])
+def test_f32_stage_backward(cuda, h, cs, cx, f):
+    """The float32 stage backward (#13, ``unetup_wgrad``, #19): the whole
+    of it within CONV_REL_TOL (dskip, dx) and WGRAD_CHAIN_REL_TOL (the
+    weight and bias gradients) of the plain version, bit-identical on a
+    second launch; g2 equal to the plain mask pass's, conv2's masked dgrad
+    and conv1's split dgrad within ``tile_rel_tol`` of their emulations over
+    the kernel's own inputs; the weight gradients from the plain chain's
+    dz1 / g2 within WGRAD_REL_TOL of the plain version and ``tile_rel_tol``
+    of their emulation (rounded operands); the adjoint within 1e-5 of its
+    plain version (the same float32 products, fused), its plan the
+    host's."""
+    from tpu_unet_torch.kernels import launch_counts, tf32
+    from tpu_unet_torch.kernels.decoder_train import (
+        adjoint_plan, adjoint_plan_on_card, flip_t, unetup_bwd, unetup_bwd_full,
+        unetup_bwd_full_plain, unetup_bwd_plain, unetup_wgrad, unetup_wgrad_plain,
+        upsample2x_adjoint, upsample2x_adjoint_plain)
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    B, H2, W2 = 2, 2 * h, 4 * h
+    skip, x = _act32(cuda, B, H2, W2, cs), _act32(cuda, B, h, 2 * h, cx)
+    g = torch.randn((B, H2, W2, f), generator=cuda, device="cuda")
+    out_, y1 = _act32(cuda, B, H2, W2, f), _act32(cuda, B, H2, W2, f)
+    w1, _ = _conv32(cuda, f, cs + cx)
+    w2, _ = _conv32(cuda, f, f)
+    args = (g, out_, y1, skip, x, w1, w2)
+    keys = ("unetup_bwd_f32", "unetup_wgrad_f32", "upsample_adjoint_f32")
+    n = {k: launch_counts[k] for k in keys}
+    res = unetup_bwd_full(*args)
+    assert all(launch_counts[k] == v + 1 for k, v in n.items())
+    assert all(torch.equal(a, b) for a, b in zip(res, unetup_bwd_full(*args)))
+    ref = unetup_bwd_full_plain(*args)
+    for name, a, b in zip(("dskip", "dx", "dk1", "db1", "dk2", "db2"), res, ref):
+        tol = tf32.CONV_REL_TOL if name in ("dskip", "dx") else tf32.WGRAD_CHAIN_REL_TOL
+        assert _rel(a, b) <= tol, name
+    dskip, dups, g2, dz1 = unetup_bwd(g, out_, y1, w1, w2, cs)
+    pg2 = unetup_bwd_plain(g, out_, y1, w1, w2, cs)[2]
+    assert torch.equal(g2, pg2)
+    _witness(dz1, lambda r: torch.where(y1 > 0, tf32.conv3x3(g2, flip_t(w2), r), 0), 9 * f)
+    _witness(torch.cat([dskip, dups], -1), lambda r: tf32.conv3x3(dz1, flip_t(w1), r), 9 * f)
+    _, pdups, pg2, pdz1 = unetup_bwd_plain(g, out_, y1, w1, w2, cs)
+    wres = unetup_wgrad(skip, x, pdz1, y1, pg2)
+    for a, b in zip(wres, unetup_wgrad_plain(skip, x, pdz1, y1, pg2)):
+        assert _rel(a, b) <= tf32.WGRAD_REL_TOL
+    cc = torch.cat([skip, upsample2x(x)], dim=-1)
+    pixels = B * H2 * W2  # the weight gradients' reduction
+    assert tf32.rel(wres[0], tf32.wgrad(cc, pdz1)) <= tf32.tile_rel_tol(pixels)
+    assert tf32.rel(wres[2], tf32.wgrad(y1, pg2)) <= tf32.tile_rel_tol(pixels)
+    assert tf32.rel(wres[1], pdz1.double().sum((0, 1, 2))) <= 1e-5
+    dx = upsample2x_adjoint(pdups, h, 2 * h)
+    assert _rel(dx, upsample2x_adjoint_plain(pdups, h, 2 * h)) <= 1e-5
+    assert torch.equal(dx, upsample2x_adjoint(pdups, h, 2 * h))
+    assert adjoint_plan_on_card(B, h, 2 * h, cx, True) == adjoint_plan(B, h, 2 * h, cx, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chans,hw", [([3, 64, 64], (32, 48)), ([64, 128, 128], (16, 32)),
+                                      ([128, 256, 256, 256], (16, 32)),
+                                      ([512, 512, 512, 512], (8, 16))])
+def test_f32_encoder_backward(cuda, chans, hw):
+    """The float32 training encoder's backward (#20 at the stem's widths,
+    #22, #24): dx within CONV_REL_TOL, the last conv's weight and bias
+    gradients within WGRAD_REL_TOL and the others within
+    WGRAD_CHAIN_REL_TOL of the plain version, bit-identical on a second
+    launch; the last conv's weight gradient within ``tile_rel_tol`` of its
+    emulation from the plain (exact) pool / ReLU gradient."""
+    from tpu_unet_torch.kernels import launch_counts, tf32
+    from tpu_unet_torch.kernels.encoder_train import (block_key, pool_relu_grad_plain,
+                                                      vgg_block_bwd, vgg_block_bwd_plain,
+                                                      vgg_stem_bwd, vgg_stem_bwd_plain)
+    from tpu_unet_torch.kernels._plain import conv3x3_relu
+
+    B, (H, W) = 2, hw
+    stem, n = chans[0] == 3, len(chans) - 1
+    x = (torch.rand((B, H, W, 3), generator=cuda, device="cuda") if stem
+         else _act32(cuda, B, H, W, chans[0]))
+    wb = [_conv32(cuda, f, c) for c, f in zip(chans[:-1], chans[1:])]
+    ws, bs = [w for w, _ in wb], [b for _, b in wb]
+    acts, y = [], x
+    for w, b in zip(ws, bs):
+        y = conv3x3_relu(y, w, b)
+        acts.append(y)
+    mids, skip = acts[:-1], acts[-1]
+    dskip = torch.randn(skip.shape, generator=cuda, device="cuda")
+    dpool = torch.randn((B, H // 2, W // 2, chans[-1]), generator=cuda, device="cuda")
+    key = "vgg_stem_bwd" if stem else block_key(n, "bwd")
+    c0 = launch_counts[key + "_f32"]
+    if stem:
+        res = (None, *vgg_stem_bwd(dskip, dpool, x, mids[0], skip, ws[0], ws[1]))
+        ref = (None, *vgg_stem_bwd_plain(dskip, dpool, x, mids[0], skip, ws[0], ws[1]))
+        again = (None, *vgg_stem_bwd(dskip, dpool, x, mids[0], skip, ws[0], ws[1]))
+    else:
+        res = vgg_block_bwd(dskip, dpool, x, mids, skip, ws)
+        ref = vgg_block_bwd_plain(dskip, dpool, x, mids, skip, ws)
+        again = vgg_block_bwd(dskip, dpool, x, mids, skip, ws)
+    assert launch_counts[key + "_f32"] == c0 + 2
+    if not stem:
+        assert _rel(res[0], ref[0]) <= tf32.CONV_REL_TOL
+        assert torch.equal(res[0], again[0])
+    for i in range(n):
+        tol = tf32.WGRAD_REL_TOL if i == n - 1 else tf32.WGRAD_CHAIN_REL_TOL
+        assert _rel(res[1][i], ref[1][i]) <= tol, i
+        assert _rel(res[2][i], ref[2][i]) <= tol, i
+        assert torch.equal(res[1][i], again[1][i]) and torch.equal(res[2][i], again[2][i])
+    g = pool_relu_grad_plain(dskip, dpool, skip)
+    ins = [x, *mids]
+    assert tf32.rel(res[1][n - 1], tf32.wgrad(ins[n - 1], g)) <= tf32.tile_rel_tol(B * H * W)
+
+
+@pytest.mark.gpu
+def test_f32_kernels_refuse_other_dtypes(cuda):
+    """A float32 path's wrapper handed float16 (a dtype with no kernel)
+    raises; no cast, no fallback."""
+    from tpu_unet_torch.kernels.decoder_train import up2x, upsample2x_adjoint
+    from tpu_unet_torch.kernels.encoder import vgg_block
+
+    x = torch.zeros((1, 8, 16, 64), device="cuda", dtype=torch.float16)
+    w = torch.zeros((64, 64, 3, 3), device="cuda", dtype=torch.float16)
+    b = torch.zeros(64, device="cuda", dtype=torch.float16)
+    for fn in (lambda: vgg_block(x, [w, w], [b, b]), lambda: up2x(x),
+               lambda: upsample2x_adjoint(x, 4, 8)):
+        with pytest.raises(ValueError, match="bf16 or float32"):
+            fn()
+    # mixed: float32 activations with bf16 weights
+    with pytest.raises(ValueError, match="dtype"):
+        vgg_block(x.float(), [w.to(torch.bfloat16)] * 2, [b.float()] * 2)

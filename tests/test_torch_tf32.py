@@ -1,0 +1,370 @@
+"""The float32 path on the CPU, before any card run: (a) the float32 launch
+plans of the conv core, the weight-gradient GEMM and the image GEMMs at
+every shape of unet_vgg's 512², batch 8 training step; (b) a float64
+emulation of each float32 kernel with its TF32 operand rules, in its plan's
+K and split order (``tests/_torch_tf32.py``), against the plain float32
+versions and the JAX package's float32 references (``reference_unetup``,
+``reference_vgg_block``, ``reference_vgg_stem``, ``encoder3_train.
+_ref_diff``, their VJPs).  Each emulation's distance from the plain
+version, times ``MARGIN``, must lie within the bound the card is held to
+(``tpu_unet_torch/kernels/tf32.py``): these readings fix the bounds."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_tf32 as emu
+from tpu_unet.kernels.decoder_fuse import reference_unetup
+from tpu_unet.kernels.encoder import reference_vgg_block
+from tpu_unet.kernels.encoder3_train import _ref_diff
+from tpu_unet.kernels.stem import reference_vgg_stem
+from tpu_unet_torch.kernels import sm90, tf32
+from tpu_unet_torch.kernels._build import pack_conv3x3, round_tf32
+from tpu_unet_torch.kernels.decoder_fuse import _unetup_plain_y1
+from tpu_unet_torch.kernels.decoder_train import adjoint_plan, unetup_bwd_full_plain
+from tpu_unet_torch.kernels.encoder import vgg_block_plain
+from tpu_unet_torch.kernels.encoder_train import vgg_block_bwd_plain, vgg_stem_bwd_plain
+from tpu_unet_torch.kernels.stem import vgg_stem_plain
+
+SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory (227 KB)
+SM_SMEM = 233472      # an H100 SM's shared memory (228 KB), two blocks' worth
+# the margin between an emulation's reading and the card's bound
+MARGIN = 4
+
+# unet_vgg's float32 training step at 512², batch 8: the stem and blocks
+# 2-5 (H, widths, pool) and the decoder stages (x's H, Cs, Cx, F)
+B = 8
+ENCODER = [(512, [3, 64, 64], True), (256, [64, 128, 128], True),
+           (128, [128, 256, 256, 256], True), (64, [256, 512, 512, 512], True),
+           (32, [512, 512, 512, 512], False)]
+DECODER = [(256, 64, 128, 64), (128, 128, 256, 128), (64, 256, 512, 256),
+           (32, 512, 512, 512)]
+
+
+def _launches():
+    """Every float32 launch of the step: (what, launch, C (the conv's input
+    or the GEMM's input width), F)."""
+    out = []
+    for H, chans, pool in ENCODER:
+        if chans[0] == 3:
+            img, conv = sm90.stem_fwd_launches(B, H, H, 64, True)
+            out += [("image_fwd", img, 3, 64), ("fwd", conv, 64, 64)]
+            bwd = sm90.stem_bwd_launches(B, H, H, 64, True)
+            out += [("image_wgrad", bwd[0], 3, 64), ("wgrad", bwd[2], 64, 64),
+                    ("dgrad", bwd[3], 64, 64)]
+            continue
+        for ln, c, f in zip(sm90.block_fwd_launches(B, H, H, chans, pool, True), chans[:-1],
+                            chans[1:]):
+            out.append(("fwd", ln, c, f))
+        bwd = sm90.block_bwd_launches(B, H, H, chans, True, True)
+        for i, (c, f) in enumerate(zip(chans[:-1], chans[1:])):
+            out += [("wgrad", bwd[2 * i], c, f), ("dgrad", bwd[2 * i + 1], f, c)]
+    for h, cs, cx, f in DECODER:
+        h2 = 2 * h
+        c1, c2 = sm90.unetup_launches(B, h2, h2, cs, cx, f, True)
+        d2, d1 = sm90.unetup_bwd_launches(B, h2, h2, cs, cx, f, True)
+        w = sm90.unetup_wgrad_launches(B, h2, h2, cs, cx, f, True)
+        out += [("fwd", c1, cs + cx, f), ("fwd", c2, f, f), ("dgrad", d2, f, f),
+                ("dgrad", d1, f, cs + cx), ("wgrad", w[0], cs, f), ("wgrad", w[1], cx, f),
+                ("wgrad", w[2], f, f)]
+    return out
+
+
+@pytest.mark.parametrize("what", ["fwd", "dgrad", "wgrad", "image_fwd", "image_wgrad"])
+def test_f32_plans_fit_the_card(what):
+    """(a) Every float32 launch of the step: 4-byte tensor-map strides of
+    the dense tensors (multiples of 16), boxes of 32 channels (128 bytes,
+    the swizzle span), the record's element-type word 1; the conv core's K
+    slices of 32 channels, its stage bytes and ring within 227 KB, its
+    epilogue's float32 tile beside a ring of 4 stages or more (persistent)
+    or in the ring; the weight-gradient GEMM's float32 tiles (8 warps of 32
+    × 32) and two 96 KB stages, its splits covering every patch once in
+    order, each under the 1280-patch cap; the image GEMMs two blocks an
+    SM."""
+    cases = [c for c in _launches() if c[0] == what]
+    assert cases
+    for _, ln, c, f in cases:
+        rec = sm90.encode([ln])[0]
+        assert rec[10] == 1 and ln["f32"]
+        assert ln["smem"] <= SMEM_LIMIT
+        for m in ln["maps"]:
+            assert m["box"][0] == 32 and m["box"][0] * 4 == 128
+            dense = [4 * m["dims"][0]]
+            for d in m["dims"][1:-1]:
+                dense.append(dense[-1] * d)
+            assert list(m["strides"]) == dense and all(s % 16 == 0 for s in dense)
+        tm, tn = ln["tile"]
+        if what in ("fwd", "dgrad"):
+            C = ln["maps"][0]["dims"][0] + (ln["maps"][2]["dims"][0] if len(ln["maps"]) > 2 else 0)
+            assert ln["k_slices"] == 9 * sum(-(-m["dims"][0] // 32)
+                                             for m in [ln["maps"][0], *ln["maps"][2:]])
+            assert C == c
+            stage = (tm + tn) * 128
+            out = tm * (tn + 4) * 4
+            assert ln["stages"] * stage <= sm90.RING_BYTES or sm90.conv_own_staging(tn, tm, True)
+            if sm90.conv_own_staging(tn, tm, True):
+                assert 4 <= ln["stages"] <= 8
+                assert ln["smem"] == ln["stages"] * stage + out + 16 * ln["stages"] + 1024
+            else:
+                assert out <= ln["stages"] * stage == sm90.RING_BYTES // stage * stage
+            # the bf16 plan's own decision stands apart: a 128 x 192 or
+            # 256 x 64 tile is persistent in bf16, not in float32
+            if (tm, tn) in ((128, 192), (256, 64)):
+                assert sm90.conv_own_staging(tn, tm) and not sm90.conv_own_staging(tn, tm, True)
+        elif what == "wgrad":
+            assert (tm, tn) == ((128, 64) if f % 128 == 0 else (64, 128))
+            assert ln["stages"] == 2 and ln["k"] == 9 * sm90.tap_width(c, True)
+            assert ln["grid"][0] * tn >= ln["k"] > (ln["grid"][0] - 1) * tn
+            assert ln["grid"][1] * tm == f
+        elif what == "image_wgrad":
+            assert (tm, tn) == (64, 32) and ln["k"] == 32 and ln["stages"] == 2
+            assert 2 * (ln["smem"] + 1024) <= SM_SMEM
+        else:
+            assert (tm, tn) == (128, 64) and ln["maps"] == []
+            assert 2 * (ln["smem"] + 1024) <= SM_SMEM
+        if what in ("wgrad", "image_wgrad"):
+            ranges = sm90.split_ranges(ln["npatch"], ln["nsplit"])
+            assert ranges[0][0] == 0 and ranges[-1][1] == ln["npatch"]
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            assert all(8 <= hi - lo <= sm90.MAX_SPLIT_PATCHES for lo, hi in ranges)
+
+
+def test_f32_adjoint_plan():
+    """(a) #19 in float32: the plan of bf16 with its stage bytes doubled,
+    within the card's shared memory at the four stages' dx shapes."""
+    for h, cs, cx, f in DECODER:
+        p, q = adjoint_plan(B, h, h, cx, True), adjoint_plan(B, h, h, cx)
+        assert p[:7] == q[:7] and p.stage_bytes == 2 * q.stage_bytes and p.smem <= SMEM_LIMIT
+
+
+def test_f32_weight_packing():
+    """float32 weights packed for the conv core are rounded to TF32 (ties
+    away from zero, as cvt.rna): within 2^-11 relative of each weight, the
+    low 13 bits zero, the layout of the bf16 packing."""
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((64, 32, 3, 3)).astype(np.float32))
+    p = pack_conv3x3(w, dtype=torch.float32)
+    assert p.dtype == torch.float32 and p.shape == (64, 9 * 32)
+    assert int((p.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    ref = w.permute(0, 2, 3, 1).reshape(64, -1)
+    assert ((p - ref).abs() <= ref.abs() * 2.0 ** -11).all()
+    assert torch.equal(round_tf32(torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11)])),
+                       torch.tensor([1 + 2 ** -10, -(1 + 2 ** -10)]))
+    assert torch.equal(tf32.trunc_tf32(torch.tensor([1 + 2 ** -10 + 2 ** -12])),
+                       torch.tensor([1 + 2 ** -10]))
+
+
+def _np(rng, *shape, relu=False, scale=1.0):
+    a = rng.standard_normal(shape).astype(np.float32) * scale
+    return np.maximum(a, 0) if relu else a
+
+
+def _hwio(w):
+    return jnp.asarray(w.permute(2, 3, 1, 0).numpy())
+
+
+def _torch(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _record(readings, key, value):
+    readings[key] = max(readings.get(key, 0.0), value)
+
+
+# small stages with the path's widths (the K depth is what the TF32 error
+# grows with): up1's and up4's
+STAGES = [(1, 8, 64, 128, 64), (1, 4, 512, 512, 512)]
+
+
+@pytest.mark.parametrize("b,h,cs,cx,f", STAGES)
+def test_f32_stage_emulation(b, h, cs, cx, f):
+    """(b) #1 and the stage backward (#13, ``unetup_wgrad``, #19) emulated
+    with their TF32 rules in their float32 plans' orders: the forward
+    against ``unetup_plain`` (float32) and JAX's ``reference_unetup``; the
+    backward against ``unetup_bwd_full_plain`` and the VJP of
+    ``reference_unetup``: each reading times MARGIN within CONV_REL_TOL
+    (activations) or WGRAD_CHAIN_REL_TOL (weight and bias gradients)."""
+    rng = np.random.default_rng(h * cs + f)
+    H2, W2 = 2 * h, 4 * h
+    skip = _np(rng, b, H2, W2, cs, relu=True)
+    x = _np(rng, b, h, 2 * h, cx, relu=True)
+    w1 = torch.from_numpy(_np(rng, f, cs + cx, 3, 3, scale=(9 * (cs + cx)) ** -0.5))
+    w2 = torch.from_numpy(_np(rng, f, f, 3, 3, scale=(9 * f) ** -0.5))
+    b1 = torch.from_numpy(_np(rng, f, scale=0.1))
+    b2 = torch.from_numpy(_np(rng, f, scale=0.1))
+    g = torch.from_numpy(_np(rng, b, H2, W2, f))
+    ts, tx = torch.from_numpy(skip), torch.from_numpy(x)
+    readings = {}
+    out, y1 = emu.stage_fwd(ts, tx, w1, b1, w2, b2)
+    pout, py1 = _unetup_plain_y1(ts, tx, w1, b1, w2, b2)
+    jfn = lambda s, xx, k1, k2: reference_unetup(s, xx, k1, jnp.asarray(b1.numpy()), k2,  # noqa
+                                                 jnp.asarray(b2.numpy()))
+    jout, vjp = jax.vjp(jfn, jnp.asarray(skip), jnp.asarray(x), _hwio(w1), _hwio(w2))
+    _record(readings, "fwd_vs_plain", max(tf32.rel(out, pout), tf32.rel(y1, py1)))
+    _record(readings, "fwd_vs_jax", tf32.rel(out, _torch(jout)))
+    assert tf32.rel(pout, _torch(jout)) <= 1e-5  # the plain version is JAX's
+    res = emu.stage_bwd(g, out, y1, ts, tx, w1, w2)
+    ref = unetup_bwd_full_plain(g, out, y1, ts, tx, w1, w2)
+    for name, a, r in zip(("dskip", "dx", "dk1", "db1", "dk2", "db2"), res, ref):
+        _record(readings, name + "_vs_plain", tf32.rel(a, r))
+    # JAX's VJP at JAX's own forward: dskip, dx, dk1, dk2 (HWIO → OIHW)
+    jds, jdx, jdk1, jdk2 = vjp(jnp.asarray(g.numpy()))
+    jres = emu.stage_bwd(g, *(t.float() for t in (pout, py1)), ts, tx, w1, w2)
+    for name, a, r in (("dskip", jres[0], jds), ("dx", jres[1], jdx),
+                       ("dk1", jres[2], np.transpose(np.asarray(jdk1), (3, 2, 0, 1))),
+                       ("dk2", jres[4], np.transpose(np.asarray(jdk2), (3, 2, 0, 1)))):
+        _record(readings, name + "_vs_jax", tf32.rel(a, _torch(r)))
+    print((b, h, cs, cx, f), readings)
+    for k, v in readings.items():
+        tol = tf32.CONV_REL_TOL if k.startswith(("fwd", "dskip", "dx")) else \
+            tf32.WGRAD_CHAIN_REL_TOL
+        assert v * MARGIN <= tol, (k, v)
+    # a single conv and a single weight gradient of exact inputs, against
+    # their own bounds
+    c1 = emu.conv_kwalk([py1], w2)
+    assert tf32.rel(c1, torch.nn.functional.conv2d(
+        py1.double().permute(0, 3, 1, 2), w2.double(), padding=1).permute(0, 2, 3, 1)) \
+        * MARGIN <= tf32.CONV_REL_TOL
+    lns = sm90.unetup_wgrad_launches(b, H2, W2, cs, cx, f, True)
+    dk2, db2 = emu.wgrad_splits(py1, g, lns[2])
+    like = torch.empty((f, f, 3, 3), dtype=torch.float64)
+    dk2_64 = torch.ops.aten.convolution_backward(
+        g.double().permute(0, 3, 1, 2), py1.double().permute(0, 3, 1, 2), like, None, [1, 1],
+        [1, 1], [1, 1], False, [0, 0], 1, [False, True, False])[1]
+    assert tf32.rel(dk2, dk2_64) * MARGIN <= tf32.WGRAD_REL_TOL
+    assert tf32.rel(db2, g.double().sum((0, 1, 2))) <= 1e-12
+
+
+ENC = [(1, 16, 32, [64, 128, 128], True), (1, 8, 16, [256, 512, 512, 512], True),
+       (1, 8, 16, [512, 512, 512, 512], False)]
+
+
+@pytest.mark.parametrize("b,H,W,chans,pool", ENC)
+def test_f32_block_emulation(b, H, W, chans, pool):
+    """(b) A block's float32 forward (#3 / #21 / #23) and backward (#22 /
+    #24) emulated: the forward against ``vgg_block_plain`` and JAX's
+    ``reference_vgg_block``, the backward against ``vgg_block_bwd_plain``
+    and the VJP of ``encoder3_train._ref_diff`` (three convs) or of
+    ``reference_vgg_block`` (two): readings times MARGIN within
+    CONV_REL_TOL (activations, dx) and WGRAD_REL_TOL (the last conv's
+    gradients) / WGRAD_CHAIN_REL_TOL (the others)."""
+    rng = np.random.default_rng(H * chans[0])
+    n = len(chans) - 1
+    x = _np(rng, b, H, W, chans[0], relu=True)
+    ws = [torch.from_numpy(_np(rng, f, c, 3, 3, scale=(9 * c) ** -0.5))
+          for c, f in zip(chans[:-1], chans[1:])]
+    bs = [torch.from_numpy(_np(rng, f, scale=0.1)) for f in chans[1:]]
+    tx = torch.from_numpy(x)
+    acts, pooled = emu.block_fwd(tx, ws, bs, pool)
+    ref = vgg_block_plain(tx, ws, bs, pool)
+    readings = {"fwd_vs_plain": tf32.rel(acts[-1], ref[0])}
+    jb = [jnp.asarray(t.numpy()) for t in bs]
+    if n == 3:
+        jfn = lambda xx, k1, k2, k3: _ref_diff(xx, k1, jb[0], k2, jb[1], k3, jb[2], pool)  # noqa
+    else:
+        jfn = lambda xx, k1, k2: reference_vgg_block(xx, [k1, k2], jb, pool)  # noqa
+    jout, vjp = jax.vjp(jfn, jnp.asarray(x), *[_hwio(w) for w in ws])
+    readings["fwd_vs_jax"] = tf32.rel(acts[-1], _torch(jout[0]))
+    dskip = torch.from_numpy(_np(rng, b, H, W, chans[-1]))
+    dpool = torch.from_numpy(_np(rng, b, H // 2, W // 2, chans[-1])) if pool else None
+    mids, out = acts[:-1], acts[-1]
+    dx, dks, dbs = emu.block_bwd(dskip, dpool, tx, mids, out, ws)
+    pdx, pdks, pdbs = vgg_block_bwd_plain(dskip, dpool, tx, mids, out, ws)
+    readings["dx_vs_plain"] = tf32.rel(dx, pdx)
+    for i in range(n):
+        readings[f"dk{i}_vs_plain"] = tf32.rel(dks[i], pdks[i])
+        readings[f"db{i}_vs_plain"] = tf32.rel(dbs[i], pdbs[i])
+    # JAX's VJP at JAX's own forward, the emulated backward at the plain one
+    pacts = [vgg_block_plain(tx, ws[:i + 1], bs[:i + 1], False)[0] for i in range(n)]
+    cot = (jnp.asarray(dskip.numpy()), None if dpool is None else jnp.asarray(dpool.numpy()))
+    jgr = vjp(cot)
+    edx, edks, _ = emu.block_bwd(dskip, dpool, tx, pacts[:-1], pacts[-1], ws)
+    readings["dx_vs_jax"] = tf32.rel(edx, _torch(jgr[0]))
+    for i in range(n):
+        readings[f"dk{i}_vs_jax"] = tf32.rel(
+            edks[i], _torch(np.transpose(np.asarray(jgr[1 + i]), (3, 2, 0, 1))))
+    print((b, H, W, chans, pool), readings)
+    for k, v in readings.items():
+        tol = tf32.CONV_REL_TOL if k.startswith(("fwd", "dx")) else \
+            tf32.WGRAD_REL_TOL if k[2] == str(n - 1) else tf32.WGRAD_CHAIN_REL_TOL
+        assert v * MARGIN <= tol, (k, v)
+
+
+def test_f32_stem_emulation():
+    """(b) The stem's float32 forward (#2: the image rounded to TF32 by the
+    gather, conv1_2 over a1 truncated) against ``vgg_stem_plain`` and JAX's
+    ``reference_vgg_stem`` (its skip unpaired); its backward (#20: the
+    image GEMM's rounded operands in its splits, conv1_2's weight gradient
+    and masked dgrad) against ``vgg_stem_bwd_plain``'s and the VJP of
+    ``reference_vgg_stem``: readings times MARGIN within the bounds."""
+    rng = np.random.default_rng(3)
+    b, H, W = 2, 16, 32
+    img = rng.random((b, H, W, 3)).astype(np.float32)
+    ws = [torch.from_numpy(_np(rng, 64, c, 3, 3, scale=(9 * c) ** -0.5)) for c in (3, 64)]
+    bs = [torch.from_numpy(_np(rng, 64, scale=0.1)) for _ in range(2)]
+    ti = torch.from_numpy(img)
+    acts, pooled = emu.block_fwd(ti, ws, bs, True, image=True)
+    ref = vgg_stem_plain(ti, ws[0], bs[0], ws[1], bs[1])
+    readings = {"fwd_vs_plain": max(tf32.rel(acts[1], ref[0]), tf32.rel(pooled, ref[1]))}
+    jb = [jnp.asarray(t.numpy()) for t in bs]
+    jfn = lambda k1, k2: reference_vgg_stem(jnp.asarray(img), k1, jb[0], k2, jb[1])  # noqa
+    (jskip, jpool), vjp = jax.vjp(jfn, _hwio(ws[0]), _hwio(ws[1]))
+    readings["fwd_vs_jax"] = tf32.rel(acts[1], _torch(jskip).reshape(b, H, W, 64))
+    dskip = torch.from_numpy(_np(rng, b, H, W, 64))
+    dpool = torch.from_numpy(_np(rng, b, H // 2, W // 2, 64))
+    _, dks, dbs = emu.block_bwd(dskip, dpool, ti, acts[:1], acts[1], ws, False, image=True)
+    pacts = [ref[0] if i else torch.relu(torch.nn.functional.conv2d(
+        ti.permute(0, 3, 1, 2), ws[0], bs[0], padding=1)).permute(0, 2, 3, 1)
+        for i in range(2)]
+    # the plain backward on the emulated forward's activations (the same
+    # ReLU masks), as the card's checks hold the kernel to it
+    pdks, pdbs = vgg_stem_bwd_plain(dskip, dpool, ti, acts[0], acts[1], *ws)
+    for i in range(2):
+        readings[f"dk{i}_vs_plain"] = tf32.rel(dks[i], pdks[i])
+        readings[f"db{i}_vs_plain"] = tf32.rel(dbs[i], pdbs[i])
+    jdk = vjp((jnp.asarray(dskip.numpy()).reshape(b, H, W // 2, 128),
+               jnp.asarray(dpool.numpy())))
+    _, edks, _ = emu.block_bwd(dskip, dpool, ti, [pacts[0].contiguous()], ref[0], ws, False,
+                               image=True)
+    for i in range(2):
+        readings[f"dk{i}_vs_jax"] = tf32.rel(
+            edks[i], _torch(np.transpose(np.asarray(jdk[i]), (3, 2, 0, 1))))
+    print(readings)
+    for k, v in readings.items():
+        tol = tf32.CONV_REL_TOL if k.startswith("fwd") else \
+            tf32.WGRAD_REL_TOL if k[2] == "1" else tf32.WGRAD_CHAIN_REL_TOL
+        assert v * MARGIN <= tol, (k, v)
+
+
+def _round_toward_zero_f32(x):
+    """float64 ``x`` cut to float32's 24-bit significand, toward zero."""
+    m, e = torch.frexp(x)
+    return torch.ldexp(torch.trunc(m * 2.0 ** 24), (e - 24).double())
+
+
+@pytest.mark.parametrize("k,rule", [(27, "round"), (9 * 64, "trunc"), (9 * 192, "trunc"),
+                                    (9 * 1024, "trunc"), (128 * 8, "round")])
+def test_tile_bound_holds_the_tensor_core_sum(k, rule):
+    """(b) ``tf32.tile_rel_tol``, the bound of the single-tile witnesses,
+    at the witnesses' reductions (the stem's 27 image columns, the conv
+    core's 9 × 64 / 192 / 1024, a weight-gradient chain of 8 patches):
+    128 pixels × 64 outputs from ReLU'd activations taken to TF32 by the
+    operand's rule and rounded weights, summed as the bound's model has
+    the tensor cores do it (each k8 step's products added to a float32
+    accumulator rounded toward zero), lie within the bound of their
+    float64 sum; and the bound lies under half the distance between the
+    two operand rules, so a witness within it tells which one the card
+    applied."""
+    g = torch.Generator().manual_seed(k)
+    x = torch.relu(torch.randn((128, k), generator=g))
+    w = torch.randn((k, 64), generator=g) / k ** 0.5
+    a, b = tf32.RULES[rule](x).double(), round_tf32(w).double()
+    exact = a @ b
+    acc = torch.zeros_like(exact)
+    for k0 in range(0, k, 8):
+        acc = _round_toward_zero_f32(acc + a[:, k0:k0 + 8] @ b[k0:k0 + 8])
+    other = tf32.RULES["trunc" if rule == "round" else "round"](x).double() @ b
+    reading, gap = tf32.rel(acc, exact), tf32.rel(other, exact)
+    print(k, rule, {"model": reading, "bound": tf32.tile_rel_tol(k), "rules_apart": gap})
+    assert reading <= tf32.tile_rel_tol(k) <= gap / 2

@@ -236,3 +236,76 @@ def test_two_steps_match_jax(kernel_config, opt, wd):
     else:
         assert d.max().item() <= 2 * LR * 2 and d.mean().item() <= LR / 100, \
             (d.max().item(), d.mean().item())
+
+
+@pytest.mark.parametrize("route", tstep.TRAIN_ROUTES)
+def test_f32_card_arithmetic_step_matches_jax(kernel_config, jax_step, route):
+    """(c) The float32 step the card runs (``check_ported`` lets unet_vgg
+    through on the card in float32, both routes), here on the CPU with
+    every kernel's TF32 arithmetic emulated (``kernels/tf32.py::
+    emulated_plain_versions``: truncated activations, rounded weights,
+    rounded weight-gradient operands, float64 sums): loss, f_score and
+    every gradient against JAX's float32 step.  The readings times 4 lie
+    within the bounds that ``chip_smoke.py`` holds the card's float32 step
+    to against a plain float32 step (``kernels/tf32.py``:
+    STEP_LOSS_REL_TOL, STEP_GRAD_REL_TOL, STEP_GRAD_COS); the loss's bound
+    is fixed by the same emulation at the card's shape, which
+    ``chip_smoke.py`` reads on the card in each run."""
+    from tpu_unet_torch.kernels import tf32
+
+    _, variables = kernel_config
+    jloss, jfs, _, ref = jax_step
+    tstep.check_ported(_port(variables), _cfg(train_route=route), torch.device("cuda"))
+    with tf32.emulated_plain_versions():
+        loss, fs, params = _port_step(variables, route)
+    worst_rel, worst_cos = 0.0, 1.0
+    for k, v in ref.items():
+        g, r = params[k].grad.numpy().ravel(), v.numpy().ravel()
+        worst_rel = max(worst_rel, _rel(g, r))
+        worst_cos = min(worst_cos, float(g @ r / (np.linalg.norm(g) * np.linalg.norm(r))))
+    lrel = abs(loss - jloss) / abs(jloss)
+    print(route, {"loss": lrel, "f_score": abs(fs - jfs), "grad_rel": worst_rel,
+                  "grad_1-cos": 1 - worst_cos})
+    assert lrel * 4 <= tf32.STEP_LOSS_REL_TOL
+    assert worst_rel * 4 <= tf32.STEP_GRAD_REL_TOL
+    assert (1 - worst_cos) * 4 <= 1 - tf32.STEP_GRAD_COS
+    if route != "paired":
+        return
+    # the kind of batch the card's check trains on (chip_smoke.rect_batch:
+    # a rectangle on a uniform gray field), where the TF32 errors of the
+    # many equal pixels do not average out: the emulated step against the
+    # port's plain float32 step, as the card's check reads it (the routes
+    # read alike; the paired one)
+    rect = _rect_batch(7)
+    net = _port(variables)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    _, pm = tstep.make_train_step(net, _cfg(train_route=route))(state, rect, LR)
+    plain = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net = _port(variables)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    with tf32.emulated_plain_versions():
+        _, em = tstep.make_train_step(net, _cfg(train_route=route))(state, rect, LR)
+    rlrel = abs(em["loss"].item() - pm["loss"].item()) / abs(pm["loss"].item())
+    rrel = max(_rel(p.grad.numpy(), plain[k].numpy()) for k, p in net.named_parameters())
+    print(route, "rectangles", {"loss": rlrel, "grad_rel": rrel})
+    assert rlrel * 4 <= tf32.STEP_LOSS_REL_TOL
+    assert rrel * 4 <= tf32.STEP_GRAD_REL_TOL
+
+
+def _rect_batch(seed):
+    """A batch like ``chip_smoke.rect_batch``'s: each image a rectangle of
+    its class's colour on a gray field, labelled inside, 0 outside, a
+    2-pixel 255 border."""
+    rng = np.random.default_rng(seed)
+    img = np.full((B, SIZE, SIZE, 3), 128, np.uint8)
+    lbl = np.zeros((B, SIZE, SIZE), np.int32)
+    palette = rng.integers(0, 256, (C, 3))
+    for i in range(B):
+        c = int(rng.integers(1, C))
+        h, w = rng.integers(SIZE // 4, SIZE // 2, 2)
+        y0, x0 = rng.integers(0, SIZE - h), rng.integers(0, SIZE - w)
+        img[i, y0:y0 + h, x0:x0 + w] = palette[c]
+        lbl[i, y0:y0 + h, x0:x0 + w] = c
+    lbl[:, :2], lbl[:, -2:], lbl[:, :, :2], lbl[:, :, -2:] = 255, 255, 255, 255
+    return {"image": img, "label": lbl}
+

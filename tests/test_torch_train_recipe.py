@@ -2,6 +2,9 @@
 plain losses and f_score (``train/losses.py``), the lr schedules, the freeze
 phase, and the configurations that raise instead of running a plain path
 on the card."""
+import dataclasses
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,12 +97,15 @@ def test_plain_route_trains_focal_and_self_net():
         assert all(p.grad is not None for p in net.parameters())
 
 
-@pytest.mark.parametrize("case", ["focal", "self_net", "f32", "batch_norm", "aux", "resnet50"])
+@pytest.mark.parametrize("case", ["focal", "self_net", "f32", "batch_norm", "aux", "resnet50",
+                                  "f32_up_conv"])
 def test_unported_configurations_raise(case):
-    """On the card: float32 compute (the bf16-only conv core), deep
-    supervision.  Focal (#25/#26), batch norm in train mode (the DataB
-    slice), the up_conv head (self_net, #12) and unet_resnet50 (its
-    ResNet50 in train mode) are ported: they pass on both devices."""
+    """On the card: float32 compute with the up_conv head (self_net; its
+    #10-#12 have no float32 kernels yet), deep supervision.  Focal
+    (#25/#26), batch norm in train mode (the DataB slice), the up_conv head
+    (self_net, #12) in bf16, unet_resnet50 (its ResNet50 in train mode) and
+    unet_vgg in float32 on both training routes (the float32
+    instantiations) are ported: they pass on both devices."""
     bf = torch.bfloat16
     model, cfg = "unet_vgg", tstep.StepConfig(4, (1.0,) * 4, compute_dtype=bf)
     if case == "focal":
@@ -108,6 +114,8 @@ def test_unported_configurations_raise(case):
         model = "self_net"
     elif case == "f32":
         cfg = tstep.StepConfig(4, (1.0,) * 4)
+    elif case == "f32_up_conv":
+        model, cfg = "self_net", tstep.StepConfig(4, (1.0,) * 4)
     elif case == "batch_norm":
         model = "traditional"
         cfg = tstep.StepConfig(4, (1, 15, 0, 0), use_focal=True, use_dice=True, compute_dtype=bf)
@@ -120,7 +128,12 @@ def test_unported_configurations_raise(case):
         for dev in ("cuda", "cpu"):
             tstep.check_ported(net, cfg, torch.device(dev))
         return
-    match = {"f32": "f32 compute", "aux": "deep supervision"}[case]
+    if case == "f32":
+        for dev, route in itertools.product(("cuda", "cpu"), tstep.TRAIN_ROUTES):
+            tstep.check_ported(net, dataclasses.replace(cfg, train_route=route),
+                               torch.device(dev))
+        return
+    match = {"f32_up_conv": "float32 compute.*ROADMAP", "aux": "deep supervision"}[case]
     with pytest.raises(NotImplementedError, match=match):
         tstep.check_ported(net, cfg, torch.device("cuda"))
     # the same model and recipe run on the CPU

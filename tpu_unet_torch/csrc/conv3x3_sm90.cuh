@@ -63,6 +63,25 @@
 //
 // Bound on the H100: operations (2 * 9 * Ct * F multiply-adds a pixel: 64
 // to 1024 of them per byte moved at the VGG16 blocks and decoder stages).
+// Element type (template T): bf16, or float32 for the float32 training
+// path (the voc and medical presets, fp16=False).  In float32 the
+// activations, weights and accumulators are float32 and the products TF32
+// (wgmma m64nNk8 .tf32).  That is what PyTorch computes for a float32
+// convolution on this card (cudnn.allow_tf32 is on by default), so it is
+// what the reference's float32 training computes on an H100, and it is at
+// least as precise as XLA's default for a float32 convolution on a TPU (one
+// bf16 pass).  A K slice is 128 bytes in either type (64 bf16 or 32 float32
+// channels): the stage bytes and the 32-byte K steps stay, and the K walk
+// is twice as long in float32.  The activation (or gradient) operand goes
+// from its TMA box to the tensor cores as it is, so it is truncated to TF32
+// (its low 13 mantissa bits unused: an H100 reads 1e-6 to 2e-5 from a
+// truncating float64 emulation, 4e-4 to 7e-4 from a rounding one); the
+// weights are rounded to nearest when they are packed
+// (kernels/_build.py::pack_conv3x3).  The epilogue's float32 tile takes
+// twice the bytes, so the persistence test follows from it: the 128 x 192
+// and 256 x 64 tiles are persistent in bf16 and stage in the ring in
+// float32 (kernels/sm90.py::conv_own_staging).
+//
 // What the host tells the kernel (grid, tile, shared memory, tensor maps)
 // is planned in tpu_unet_torch/kernels/sm90.py and arrives as a launch
 // record.  Shapes: H % PH == 0, W % 16 == 0, C % 8 == 0 and C2 % 8 == 0
@@ -78,76 +97,81 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int PATCH_H = 8, PATCH_W = 16, PATCH = PATCH_H * PATCH_W;  // pixels of a tile
-constexpr int SLICE_C = 64;                  // input channels of a K slice (128 bytes)
-constexpr int BOX_BYTES = PATCH * SLICE_C * 2;  // one (64 c, 16 x, 8 y) box: 16 KB
+constexpr int BOX_BYTES = PATCH * 128;       // one (128-byte, 16 x, 8 y) box: 16 KB
 constexpr int CONSUMERS = 256;               // two consumer warpgroups
 constexpr int THREADS = 384;                 // and one producer warpgroup
 constexpr int RING_BYTES = 192 * 1024;     // the weight-gradient GEMM's TMA ring
 constexpr int SMEM_MAX = 232448;           // a block's dynamic shared memory, 227 KB
 
-template <int TN, int PH>
+// channels of T in a K slice: the 128 bytes of the swizzle span (64 bf16, 32
+// float32)
+template <typename T>
+__host__ __device__ constexpr int slice_of() {
+  return 128 / static_cast<int>(sizeof(T));
+}
+
+template <typename T, int TN, int PH>
 struct ConvSmem {
   static constexpr int M = PH * PATCH_W;                       // pixels of the tile
-  static constexpr int A_BYTES = M * SLICE_C * 2;              // one input box
-  static constexpr int STAGE = A_BYTES + TN * SLICE_C * 2;     // A box + B box
-  static constexpr int LDC = TN + 8;                           // staging row (bf16)
-  static constexpr int OUT_BYTES = M * LDC * 2;                // the epilogue's tile
+  static constexpr int A_BYTES = M * 128;                      // one input box
+  static constexpr int STAGE = A_BYTES + TN * 128;             // A box + B box
+  static constexpr int LDC = TN + 16 / static_cast<int>(sizeof(T));  // staging row (T)
+  static constexpr int OUT_BYTES = M * LDC * static_cast<int>(sizeof(T));  // the epilogue's tile
   // Where a staging tile of its own leaves the ring 4 stages (of the 227 KB,
-  // less the barriers and the 1024 bytes of alignment slack; at most 8), a
+  // less the barriers and 1024 spare bytes; at most 8), a
   // block walks many tiles and the producer fills the ring during the
-  // epilogue; else (TN = 256 at 128 pixels, TN = 128 at 256, which 3 stages
-  // would starve) the tile is staged in the 192 KB ring and a block takes one.
+  // epilogue; else (bf16: TN = 256 at 128 pixels, TN = 128 at 256; float32:
+  // also TN = 192 at 128 and TN = 64 at 256, whose tiles take twice the
+  // bytes) the tile is staged in the 192 KB ring and a block takes one.
   static constexpr int OWN_FIT = (SMEM_MAX - 2048 - OUT_BYTES) / STAGE;
   static constexpr bool OWN = OWN_FIT >= 4;
   static constexpr int STAGES = OWN ? (OWN_FIT < 8 ? OWN_FIT : 8) : RING_BYTES / STAGE;
   static constexpr int OUT_OFF = OWN ? STAGES * STAGE : 0;
   static constexpr int BAR_OFF = STAGES * STAGE + (OWN ? OUT_BYTES : 0);
-  static constexpr int DYN = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static constexpr int DYN = BAR_OFF + 2 * STAGES * 8 + 1024;  // + 1024 as sm90.py counts
   static_assert(DYN <= SMEM_MAX && (OWN || OUT_BYTES <= BAR_OFF), "the tiles fit");
 };
 
-struct ConvArgs {
+template <typename T>
+struct ConvArgsT {
   const float* bias;  // OP_FWD*: (F) float32
-  const bf16* mask;   // OP_DGRAD_MASK: laid out as out
-  bf16* out;          // (B, H, W, F); OP_DGRAD_SPLIT: (B, H, W, split)
-  bf16* pooled;       // OP_FWD_POOL: (B, H / 2, W / 2, F)
+  const T* mask;      // OP_DGRAD_MASK: laid out as out
+  T* out;             // (B, H, W, F); OP_DGRAD_SPLIT: (B, H, W, split)
+  T* pooled;          // OP_FWD_POOL: (B, H / 2, W / 2, F)
   int H, W, C, F;
   int C2;             // channels of the second input map (0: one map)
-  bf16* out2;         // OP_DGRAD_SPLIT: (B, H, W, F - split), null at split == F
+  T* out2;            // OP_DGRAD_SPLIT: (B, H, W, F - split), null at split == F
   int split;          // OP_DGRAD_SPLIT: set from the launch record
   int tiles;          // output tiles, set from the launch record
 };
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
+using ConvArgs = ConvArgsT<bf16>;
 
 // output tile t: the TN channels from n0 of the PH x 16 pixels from (b, y0, x0)
 struct Tile {
   int n0, b, y0, x0;
 };
 
-template <int TN, int PH>
-__device__ __forceinline__ Tile tile_of(int t, const ConvArgs& p) {
+template <int TN, int PH, typename A>
+__device__ __forceinline__ Tile tile_of(int t, const A& p) {
   const int ntn = p.F / TN, m = t / ntn;
   const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PH) * tiles_w;
   const int b = m / tiles_hw, thw = m - b * tiles_hw;
   return Tile{(t - m * ntn) * TN, b, (thw / tiles_w) * PH, (thw % tiles_w) * PATCH_W};
 }
 
-template <int TN, int OP, int PH>
+template <typename T, int TN, int OP, int PH>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap act2,
-                 const __grid_constant__ CUtensorMap wmap, ConvArgs p) {
-  using S = ConvSmem<TN, PH>;
+                 const __grid_constant__ CUtensorMap wmap, ConvArgsT<T> p) {
+  using S = ConvSmem<T, TN, PH>;
+  constexpr int SL = slice_of<T>();
   constexpr int MT = PH / 8;  // m64 tiles of a consumer warpgroup
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
-  bf16* sc = reinterpret_cast<bf16*>(smem + S::OUT_OFF);
+  extern __shared__ __align__(1024) uint8_t smem[];
+  T* sc = reinterpret_cast<T*>(smem + S::OUT_OFF);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
   uint64_t* empty = full + S::STAGES;
   const int tid = threadIdx.x;
-  const int cs0 = (p.C + SLICE_C - 1) / SLICE_C, cs = cs0 + (p.C2 + SLICE_C - 1) / SLICE_C;
+  const int cs0 = (p.C + SL - 1) / SL, cs = cs0 + (p.C2 + SL - 1) / SL;
   const int nk = 9 * cs;
 
   if (tid == 0) {
@@ -169,18 +193,19 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
     if (tid == CONSUMERS) {
       int g = 0;
       for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-        const Tile T = tile_of<TN, PH>(t, p);
+        const Tile T_ = tile_of<TN, PH>(t, p);
         for (int it = 0; it < nk; ++it, ++g) {
           const int s = g % S::STAGES;
           if (g >= S::STAGES) mbar_wait(&empty[s], ((g / S::STAGES) - 1) & 1);
           const int tap = it / cs, j = it - tap * cs;
           const int ky = tap / 3, kx = tap - 3 * ky;
           const bool first = j < cs0;  // a slice of in, else of in2
-          const int c0 = (first ? j : j - cs0) * SLICE_C;
+          const int c0 = (first ? j : j - cs0) * SL;
           uint8_t* st = smem + s * S::STAGE;
           mbar_expect_tx(&full[s], S::STAGE);
-          tma_load_4d(st, first ? &act : &act2, &full[s], c0, T.x0 + kx - 1, T.y0 + ky - 1, T.b);
-          tma_load_3d(st + S::A_BYTES, &wmap, &full[s], first ? c0 : p.C + c0, tap, T.n0);
+          tma_load_4d(st, first ? &act : &act2, &full[s], c0, T_.x0 + kx - 1, T_.y0 + ky - 1,
+                      T_.b);
+          tma_load_3d(st + S::A_BYTES, &wmap, &full[s], first ? c0 : p.C + c0, tap, T_.n0);
         }
       }
     }
@@ -190,13 +215,18 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
   consumer_regs();
   const int wg = tid >> 7;
   const int lane = tid & 31;
-  constexpr int CH = TN / 8;                 // 16-byte chunks of a pixel's TN channels
+  constexpr int EL = 16 / static_cast<int>(sizeof(T));  // elements of a 16-byte chunk
+  constexpr int CH = TN / EL;                 // 16-byte chunks of a pixel's TN channels
   constexpr int PER = S::M * CH / CONSUMERS;  // chunks a consumer thread stores
   static_assert(S::M * CH % CONSUMERS == 0, "the store loop has no ragged end");
+  // OP_DGRAD_MASK: the mask chunks a thread loads at once, before it stores
+  // them (all of a tile's in bf16; float32's wider tiles in two rounds)
+  constexpr int MB = PER <= 16 ? PER : (PER % 16 == 0 ? 16 : PER / 2);
+  static_assert(PER % MB == 0, "whole mask rounds");
   int g = 0;
   for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-    const Tile T = tile_of<TN, PH>(t, p);
-    const int n0 = T.n0, b = T.b, y0 = T.y0, x0 = T.x0;
+    const Tile T_ = tile_of<TN, PH>(t, p);
+    const int n0 = T_.n0, b = T_.b, y0 = T_.y0, x0 = T_.x0;
     float acc[MT][TN / 2];
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -210,10 +240,10 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
       wgmma_fence();
 #pragma unroll
       for (int i = 0; i < MT; ++i) {  // rows (wg * MT + i) * 64 of the tile: 8 KB a tile
-        const uint64_t da = desc_sw128(st + (wg * MT + i) * (64 * SLICE_C * 2), 16, 1024);
+        const uint64_t da = desc_sw128(st + (wg * MT + i) * (64 * 128), 16, 1024);
 #pragma unroll
-        for (int k = 0; k < SLICE_C / 16; ++k)  // 32 bytes of K a step
-          wgmma<TN, 0, 0>(acc[i], da + 2 * k, db + 2 * k, 1);
+        for (int k = 0; k < 4; ++k)  // 32 bytes of K a step (k16 bf16, k8 TF32)
+          wgmma_k32<T, TN>(acc[i], da + 2 * k, db + 2 * k);
       }
       wgmma_commit();
       wgmma_wait<1>();  // the previous slice's products are done: release its stage
@@ -227,7 +257,7 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
 
     // epilogue: the wgmma fragment (warp w of the warpgroup holds rows
     // 16w .. 16w + 15 of each m64 tile; lane: row lane / 4 and + 8, columns
-    // 2 (lane % 4) + {0,1} of every 8-column group) staged as bf16 rows of
+    // 2 (lane % 4) + {0,1} of every 8-column group) staged as T rows of
     // the tile
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
@@ -244,137 +274,166 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
           v2 = fmaxf(v2 + b0, 0.f);
           v3 = fmaxf(v3 + b1, 0.f);
         }
-        *reinterpret_cast<__nv_bfloat162*>(&sc[r * S::LDC + c]) = __floats2bfloat162_rn(v0, v1);
-        *reinterpret_cast<__nv_bfloat162*>(&sc[(r + 8) * S::LDC + c]) =
-            __floats2bfloat162_rn(v2, v3);
+        if constexpr (is_f32<T>()) {
+          *reinterpret_cast<float2*>(&sc[r * S::LDC + c]) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(&sc[(r + 8) * S::LDC + c]) = make_float2(v2, v3);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(&sc[r * S::LDC + c]) = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(&sc[(r + 8) * S::LDC + c]) =
+              __floats2bfloat162_rn(v2, v3);
+        }
       }
     }
-    // OP_DGRAD_MASK: this thread's mask chunks, loaded all at once (the
-    // accumulators are staged, so their registers are free) rather than one
-    // dependent round trip a chunk in the store loop
-    uint4 mk[OP == OP_DGRAD_MASK ? PER : 1];
-    if (OP == OP_DGRAD_MASK) {
 #pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        const int v = tid + j * CONSUMERS, px = v / CH;
+    for (int j0 = 0; j0 < PER; j0 += MB) {
+      // OP_DGRAD_MASK: this round's mask chunks, loaded all at once (the
+      // accumulators are staged, so their registers are free) rather than
+      // one dependent round trip a chunk in the store loop
+      uint4 mk[OP == OP_DGRAD_MASK ? MB : 1];
+      if (OP == OP_DGRAD_MASK) {
+#pragma unroll
+        for (int j = 0; j < MB; ++j) {
+          const int v = tid + (j0 + j) * CONSUMERS, px = v / CH;
+          const size_t pix =
+              (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
+          mk[j] = *reinterpret_cast<const uint4*>(p.mask + pix * p.F + n0 + (v - px * CH) * EL);
+        }
+      }
+      if (j0 == 0) bar_sync(1, CONSUMERS);
+#pragma unroll
+      for (int j = 0; j < MB; ++j) {
+        const int v = tid + (j0 + j) * CONSUMERS;
+        const int px = v / CH, sub = v - px * CH;
         const size_t pix =
             (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
-        mk[j] = *reinterpret_cast<const uint4*>(p.mask + pix * p.F + n0 + (v - px * CH) * 8);
-      }
-    }
-    bar_sync(1, CONSUMERS);
+        const int n = n0 + sub * EL;
+        uint4 val = *reinterpret_cast<const uint4*>(&sc[px * S::LDC + sub * EL]);
+        if (OP == OP_DGRAD_MASK) {
+          const T* mv = reinterpret_cast<const T*>(&mk[j]);
+          T* vv = reinterpret_cast<T*>(&val);
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int v = tid + j * CONSUMERS;
-      const int px = v / CH, sub = v - px * CH;
-      const size_t pix =
-          (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
-      const int n = n0 + sub * 8;
-      uint4 val = *reinterpret_cast<const uint4*>(&sc[px * S::LDC + sub * 8]);
-      if (OP == OP_DGRAD_MASK) {
-        const bf16* mv = reinterpret_cast<const bf16*>(&mk[j]);
-        bf16* vv = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (!(__bfloat162float(mv[e]) > 0.f)) vv[e] = __float2bfloat16_rn(0.f);
-        *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
-      } else if (OP == OP_DGRAD_SPLIT) {
-        if (n < p.split)
-          *reinterpret_cast<uint4*>(p.out + pix * p.split + n) = val;
-        else
-          *reinterpret_cast<uint4*>(p.out2 + pix * (p.F - p.split) + n - p.split) = val;
-      } else {
-        *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
+          for (int e = 0; e < EL; ++e)
+            if (!(to_f(mv[e]) > 0.f)) vv[e] = from_f<T>(0.f);
+          *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
+        } else if (OP == OP_DGRAD_SPLIT) {
+          if (n < p.split)
+            *reinterpret_cast<uint4*>(p.out + pix * p.split + n) = val;
+          else
+            *reinterpret_cast<uint4*>(p.out2 + pix * (p.F - p.split) + n - p.split) = val;
+        } else {
+          *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
+        }
       }
     }
     if (OP == OP_FWD_POOL) {
       const int Hp = p.H / 2, Wp = p.W / 2;
       for (int v = tid; v < (S::M / 4) * CH; v += CONSUMERS) {
         const int p2 = v / CH, sub = v - p2 * CH, py = p2 >> 3, px = p2 & 7;
-        const bf16* c00 = &sc[((2 * py) * PATCH_W + 2 * px) * S::LDC + sub * 8];
-        const __nv_bfloat162* q00 = reinterpret_cast<const __nv_bfloat162*>(c00);
-        const __nv_bfloat162* q01 = reinterpret_cast<const __nv_bfloat162*>(c00 + S::LDC);
-        const __nv_bfloat162* q10 = reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC);
-        const __nv_bfloat162* q11 =
-            reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC + S::LDC);
-        __align__(16) __nv_bfloat162 mx[4];
+        const T* c00 = &sc[((2 * py) * PATCH_W + 2 * px) * S::LDC + sub * EL];
+        T* dst = p.pooled + ((static_cast<size_t>(b) * Hp + y0 / 2 + py) * Wp + x0 / 2 + px) * p.F +
+                 n0 + sub * EL;
+        if constexpr (is_f32<T>()) {
+          const float4 q00 = *reinterpret_cast<const float4*>(c00);
+          const float4 q01 = *reinterpret_cast<const float4*>(c00 + S::LDC);
+          const float4 q10 = *reinterpret_cast<const float4*>(c00 + PATCH_W * S::LDC);
+          const float4 q11 = *reinterpret_cast<const float4*>(c00 + PATCH_W * S::LDC + S::LDC);
+          *reinterpret_cast<float4*>(dst) = make_float4(
+              fmaxf(fmaxf(q00.x, q01.x), fmaxf(q10.x, q11.x)),
+              fmaxf(fmaxf(q00.y, q01.y), fmaxf(q10.y, q11.y)),
+              fmaxf(fmaxf(q00.z, q01.z), fmaxf(q10.z, q11.z)),
+              fmaxf(fmaxf(q00.w, q01.w), fmaxf(q10.w, q11.w)));
+        } else {
+          const __nv_bfloat162* q00 = reinterpret_cast<const __nv_bfloat162*>(c00);
+          const __nv_bfloat162* q01 = reinterpret_cast<const __nv_bfloat162*>(c00 + S::LDC);
+          const __nv_bfloat162* q10 =
+              reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC);
+          const __nv_bfloat162* q11 =
+              reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC + S::LDC);
+          __align__(16) __nv_bfloat162 mx[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          mx[e] = __hmax2(__hmax2(q00[e], q01[e]), __hmax2(q10[e], q11[e]));
-        *reinterpret_cast<uint4*>(
-            p.pooled + ((static_cast<size_t>(b) * Hp + y0 / 2 + py) * Wp + x0 / 2 + px) * p.F +
-            n0 + sub * 8) = *reinterpret_cast<const uint4*>(mx);
+          for (int e = 0; e < 4; ++e)
+            mx[e] = __hmax2(__hmax2(q00[e], q01[e]), __hmax2(q10[e], q11[e]));
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(mx);
+        }
       }
     }
   }
 }
 
-template <int TN, int OP, int PH>
-cudaError_t launch_conv_tn(const Launch& L, const bf16* in, const bf16* in2, const bf16* wt,
-                           const ConvArgs& a, cudaStream_t stream) {
-  using S = ConvSmem<TN, PH>;
+template <typename T, int TN, int OP, int PH>
+cudaError_t launch_conv_tn(const Launch& L, const T* in, const T* in2, const T* wt,
+                           const ConvArgsT<T>& a, cudaStream_t stream) {
+  using S = ConvSmem<T, TN, PH>;
+  constexpr bool F32 = is_f32<T>();
   CUtensorMap ma, ma2, mw;
-  cudaError_t e = make_map(&ma, in, L.map(0));
+  cudaError_t e = make_map(&ma, in, L.map(0), F32);
   if (e != cudaSuccess) return e;
-  e = make_map(&mw, wt, L.map(1));
+  e = make_map(&mw, wt, L.map(1), F32);
   if (e != cudaSuccess) return e;
   if (L.has_map(2)) {
-    if ((e = make_map(&ma2, in2, L.map(2))) != cudaSuccess) return e;
+    if ((e = make_map(&ma2, in2, L.map(2), F32)) != cudaSuccess) return e;
   } else {
     ma2 = ma;  // never read: the K walk has no slice of a second map
   }
-  e = cudaFuncSetAttribute(conv_sm90_kernel<TN, OP, PH>,
+  e = cudaFuncSetAttribute(conv_sm90_kernel<T, TN, OP, PH>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, S::DYN);
   if (e != cudaSuccess) return e;
   int dev, sms;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
-  ConvArgs args = a;
+  ConvArgsT<T> args = a;
   args.tiles = static_cast<int>(L.grid().x);
   const int blocks = S::OWN && args.tiles > sms ? sms : args.tiles;
-  conv_sm90_kernel<TN, OP, PH><<<blocks, THREADS, S::DYN, stream>>>(ma, ma2, mw, args);
+  conv_sm90_kernel<T, TN, OP, PH><<<blocks, THREADS, S::DYN, stream>>>(ma, ma2, mw, args);
   return cudaGetLastError();
 }
 
-template <int OP>
-cudaError_t launch_conv_op(const Launch& L, const bf16* in, const bf16* in2, const bf16* wt,
-                           const ConvArgs& a, cudaStream_t stream) {
+template <typename T, int OP>
+cudaError_t launch_conv_op(const Launch& L, const T* in, const T* in2, const T* wt,
+                           const ConvArgsT<T>& a, cudaStream_t stream) {
   if (L.tile_m() == PATCH) {
-    if (L.tile_n() == 256) return launch_conv_tn<256, OP, 8>(L, in, in2, wt, a, stream);
-    if (L.tile_n() == 192) return launch_conv_tn<192, OP, 8>(L, in, in2, wt, a, stream);
-    if (L.tile_n() == 128) return launch_conv_tn<128, OP, 8>(L, in, in2, wt, a, stream);
-    if (L.tile_n() == 64) return launch_conv_tn<64, OP, 8>(L, in, in2, wt, a, stream);
+    if (L.tile_n() == 256) return launch_conv_tn<T, 256, OP, 8>(L, in, in2, wt, a, stream);
+    if (L.tile_n() == 192) return launch_conv_tn<T, 192, OP, 8>(L, in, in2, wt, a, stream);
+    if (L.tile_n() == 128) return launch_conv_tn<T, 128, OP, 8>(L, in, in2, wt, a, stream);
+    if (L.tile_n() == 64) return launch_conv_tn<T, 64, OP, 8>(L, in, in2, wt, a, stream);
   }
   // the 256-pixel tile: the forwards (pooling or not) and the dgrads of
   // 64- and 128-wide output tiles (a decoder's up1 and up2, VGG16 block 2)
   if (L.tile_m() == 2 * PATCH && L.tile_n() == 128)
-    return launch_conv_tn<128, OP, 16>(L, in, in2, wt, a, stream);
+    return launch_conv_tn<T, 128, OP, 16>(L, in, in2, wt, a, stream);
   if (L.tile_m() == 2 * PATCH && L.tile_n() == 64)
-    return launch_conv_tn<64, OP, 16>(L, in, in2, wt, a, stream);
+    return launch_conv_tn<T, 64, OP, 16>(L, in, in2, wt, a, stream);
   return cudaErrorInvalidConfiguration;
 }
 
-// One conv per its launch record: `in` (B, H, W, C) bf16 under map 0,
-// `wt` (F, 9 (C + C2)) bf16 under map 1 and, where the record has map 2,
-// `in2` (B, H, W, C2) bf16 under it (a.C2 > 0 exactly then).  A split
-// dgrad's record carries its split S (0 < S <= F, S % 8 == 0; a.out2 set
-// where S < F).
-inline cudaError_t launch_conv_sm90(const int64_t* record, const bf16* in, const bf16* in2,
-                                    const bf16* wt, const ConvArgs& a, cudaStream_t stream) {
+// One conv per its launch record: `in` (B, H, W, C) under map 0, `wt` (F,
+// 9 (C + C2)) under map 1 and, where the record has map 2, `in2` (B, H, W,
+// C2) under it (a.C2 > 0 exactly then), all of the element type T (bf16 or
+// float32), which the record names.  A split dgrad's record carries its
+// split S (0 < S <= F, S % 8 == 0; a.out2 set where S < F).
+template <typename T>
+struct Same {
+  using type = T;
+};
+
+template <typename T>
+cudaError_t launch_conv_sm90(const int64_t* record, const T* in, const typename Same<T>::type* in2,
+                             const T* wt, const ConvArgsT<T>& a, cudaStream_t stream) {
   const Launch L{record};
-  if (L.has_map(2) != (a.C2 > 0) || (a.C2 > 0 && in2 == nullptr)) return cudaErrorInvalidValue;
+  if (L.f32() != is_f32<T>() || L.has_map(2) != (a.C2 > 0) || (a.C2 > 0 && in2 == nullptr))
+    return cudaErrorInvalidValue;
   switch (L.op()) {
-    case OP_FWD: return launch_conv_op<OP_FWD>(L, in, in2, wt, a, stream);
-    case OP_FWD_POOL: return launch_conv_op<OP_FWD_POOL>(L, in, in2, wt, a, stream);
-    case OP_DGRAD_MASK: return launch_conv_op<OP_DGRAD_MASK>(L, in, in2, wt, a, stream);
+    case OP_FWD: return launch_conv_op<T, OP_FWD>(L, in, in2, wt, a, stream);
+    case OP_FWD_POOL: return launch_conv_op<T, OP_FWD_POOL>(L, in, in2, wt, a, stream);
+    case OP_DGRAD_MASK: return launch_conv_op<T, OP_DGRAD_MASK>(L, in, in2, wt, a, stream);
     case OP_DGRAD_SPLIT: {
       const int s = L.split();
       if (s <= 0 || s > a.F || s % 8 || (s < a.F && a.out2 == nullptr))
         return cudaErrorInvalidValue;
-      ConvArgs args = a;
+      ConvArgsT<T> args = a;
       args.split = s;
-      return launch_conv_op<OP_DGRAD_SPLIT>(L, in, in2, wt, args, stream);
+      return launch_conv_op<T, OP_DGRAD_SPLIT>(L, in, in2, wt, args, stream);
     }
     default: return cudaErrorInvalidConfiguration;
   }

@@ -29,6 +29,9 @@
 // ring's fill otherwise.  The mask epilogue loads a thread's mask chunks
 // at once, before the store loop.
 //
+// In bf16 or, for the float32 training path, float32 (the mask pass and
+// the conv core's float32 instantiations).
+//
 // Bound on the H100: the larger of the operations — the two dgrads have
 // the forward's FLOPs, 2 * 9 * P * F * (F + Cs + Cx) — and the bytes (g,
 // out, y1 read, g2, dz1, dskip, dups written once).  At up1 the bytes:
@@ -44,25 +47,45 @@
 using bf16 = __nv_bfloat16;
 namespace sm90 = tu::sm90;
 
-// plan: two conv launch records, conv2's dgrad (OP_DGRAD_MASK) then
-// conv1's (OP_DGRAD_SPLIT at Cs); w2t = flipT(w2) packed (F, 9F), w1t =
-// flipT(w1) packed (Cs + Cx, 9F).
-extern "C" int tu_unetup_bwd(const bf16* g, const bf16* out, const bf16* y1, const bf16* w2t,
-                             const bf16* w1t, bf16* g2, bf16* dz1, bf16* dskip, bf16* dups,
-                             int B, int H2, int W2, int Cs, int Cx, int F, const int64_t* plan,
-                             cudaStream_t stream) {
+namespace {
+
+template <typename T>
+int unetup_bwd(const void* g, const void* out, const void* y1, const void* w2t, const void* w1t,
+               void* g2, void* dz1, void* dskip, void* dups, int B, int H2, int W2, int Cs,
+               int Cx, int F, const int64_t* plan, cudaStream_t stream) {
   const int64_t* r2 = plan;
   const int64_t* r1 = plan + sm90::PLAN_WORDS;
   if (r2[0] != sm90::OP_DGRAD_MASK || r1[0] != sm90::OP_DGRAD_SPLIT ||
       sm90::Launch{r1}.split() != Cs)
     return cudaErrorInvalidValue;
-  cudaError_t e =
-      tu::launch_relu_grad(g, out, g2, static_cast<size_t>(B) * H2 * W2 * (F / 8), stream);
+  T* tg2 = static_cast<T*>(g2);
+  T* tdz1 = static_cast<T*>(dz1);
+  cudaError_t e = tu::launch_relu_grad<T>(static_cast<const T*>(g), static_cast<const T*>(out),
+                                          tg2, static_cast<size_t>(B) * H2 * W2 * F /
+                                                   (16 / sizeof(T)), stream);
   if (e != cudaSuccess) return e;
-  e = sm90::launch_conv_sm90(r2, g2, nullptr, w2t,
-                             sm90::ConvArgs{nullptr, y1, dz1, nullptr, H2, W2, F, F}, stream);
+  e = sm90::launch_conv_sm90<T>(
+      r2, tg2, nullptr, static_cast<const T*>(w2t),
+      sm90::ConvArgsT<T>{nullptr, static_cast<const T*>(y1), tdz1, nullptr, H2, W2, F, F},
+      stream);
   if (e != cudaSuccess) return e;
-  return sm90::launch_conv_sm90(
-      r1, dz1, nullptr, w1t,
-      sm90::ConvArgs{nullptr, nullptr, dskip, nullptr, H2, W2, F, Cs + Cx, 0, dups}, stream);
+  return sm90::launch_conv_sm90<T>(
+      r1, tdz1, nullptr, static_cast<const T*>(w1t),
+      sm90::ConvArgsT<T>{nullptr, nullptr, static_cast<T*>(dskip), nullptr, H2, W2, F, Cs + Cx, 0,
+                         static_cast<T*>(dups)},
+      stream);
+}
+
+}  // namespace
+
+// plan: two conv launch records, conv2's dgrad (OP_DGRAD_MASK) then
+// conv1's (OP_DGRAD_SPLIT at Cs); w2t = flipT(w2) packed (F, 9F), w1t =
+// flipT(w1) packed (Cs + Cx, 9F); every tensor of the element type the
+// records name (bf16, or float32 with f32).
+extern "C" int tu_unetup_bwd(const void* g, const void* out, const void* y1, const void* w2t,
+                             const void* w1t, void* g2, void* dz1, void* dskip, void* dups,
+                             int B, int H2, int W2, int Cs, int Cx, int F, int f32,
+                             const int64_t* plan, cudaStream_t stream) {
+  return (f32 ? unetup_bwd<float> : unetup_bwd<bf16>)(g, out, y1, w2t, w1t, g2, dz1, dskip, dups,
+                                                      B, H2, W2, Cs, Cx, F, plan, stream);
 }

@@ -52,6 +52,12 @@
 // gathers while the first's waits.  The stem computes no image gradient,
 // as JAX's does not.
 //
+// The float32 path (T = float, the stage's dtype) runs the same chain:
+// the pool / ReLU pass in float32 (the skip's and the pooled gradient's sum
+// one float32 add), the weight gradients on the float32 GEMM of
+// csrc/wgrad_sm90.cuh (mma.sync TF32), the dgrads on the conv core's
+// float32 instantiation, and the image GEMM on wgrad_image_f32_kernel.
+//
 // Bound on the H100: operations — per conv a dgrad and a weight gradient
 // of 2 * 9 * P * Cin * Cout each (the stem at 512x512, batch 8: 0.33 ms at
 // 989 TFLOP/s bf16; block 2 0.469 ms; blocks 3-5 0.24-0.78 ms).
@@ -65,16 +71,18 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// pooled: one thread a (b, py, px, 8 channels) slot of dpool (B, H/2, W/2, C)
+// pooled: one thread a (b, py, px, 16 bytes of channels) slot of dpool (B,
+// H/2, W/2, C): 8 bf16 channels, or 4 float32
+template <typename T>
 __global__ void __launch_bounds__(256)
-pool_relu_grad_kernel(const bf16* __restrict__ dskip, const bf16* __restrict__ dpool,
-                      const bf16* __restrict__ out, bf16* __restrict__ g, int B, int H, int W,
-                      int C) {
-  const int cg = C / 8, Hp = H / 2, Wp = W / 2;
+pool_relu_grad_kernel(const T* __restrict__ dskip, const T* __restrict__ dpool,
+                      const T* __restrict__ out, T* __restrict__ g, int B, int H, int W, int C) {
+  constexpr int EL = 16 / static_cast<int>(sizeof(T));
+  const int cg = C / EL, Hp = H / 2, Wp = W / 2;
   const size_t n = static_cast<size_t>(B) * Hp * Wp * cg;
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const int c = static_cast<int>(idx % cg) * 8;
+  const int c = static_cast<int>(idx % cg) * EL;
   size_t r = idx / cg;
   const int px = static_cast<int>(r % Wp);
   r /= Wp;
@@ -85,29 +93,29 @@ pool_relu_grad_kernel(const bf16* __restrict__ dskip, const bf16* __restrict__ d
   for (int q = 0; q < 4; ++q)
     o[q] = ((static_cast<size_t>(b) * H + 2 * py + (q >> 1)) * W + 2 * px + (q & 1)) * C + c;
   const uint4 pu = ld16(dpool + ((static_cast<size_t>(b) * Hp + py) * Wp + px) * C + c);
-  const bf16* pv = reinterpret_cast<const bf16*>(&pu);
+  const T* pv = reinterpret_cast<const T*>(&pu);
   uint4 ou[4], su[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     ou[q] = ld16(out + o[q]);
     su[q] = ld16(dskip + o[q]);
   }
-  __align__(16) bf16 res[4][8];
+  __align__(16) T res[4][EL];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < EL; ++j) {
     float v[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) v[q] = __bfloat162float(reinterpret_cast<const bf16*>(&ou[q])[j]);
+    for (int q = 0; q < 4; ++q) v[q] = to_f(reinterpret_cast<const T*>(&ou[q])[j]);
     int first = 0;
 #pragma unroll
     for (int q = 1; q < 4; ++q)
       if (v[q] > v[first]) first = q;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const bf16 s = reinterpret_cast<const bf16*>(&su[q])[j];
-      const bf16 t = q == first ? __float2bfloat16_rn(__bfloat162float(s) + __bfloat162float(pv[j]))
-                                : s;
-      res[q][j] = v[q] > 0.f ? t : __float2bfloat16_rn(0.f);
+      const T s = reinterpret_cast<const T*>(&su[q])[j];
+      // one rounding to T of the sum, as the plain version's add in T
+      const T t = q == first ? from_f<T>(to_f(s) + to_f(pv[j])) : s;
+      res[q][j] = v[q] > 0.f ? t : from_f<T>(0.f);
     }
   }
 #pragma unroll
@@ -129,6 +137,37 @@ struct WgradImageSmem {
   static constexpr int DYN = BAR_OFF + 2 * STAGES * 8 + 1024;
 };
 
+// The producer warpgroup of both image GEMMs: for each of the block's n_it
+// patches from q_begin, thread pt = 0 loads the G boxes of the block's 64 f
+// (64 / SL boxes, SL = slice_of<T>() f each) into stage it % STAGES (of
+// STAGE bytes), and thread pt gathers row pt (a pixel's 27 columns) of the
+// im2col box after them.
+template <typename T, int STAGES, int STAGE>
+__device__ __forceinline__ void wgrad_image_produce(uint8_t* smem, uint64_t* full,
+                                                    uint64_t* empty, const CUtensorMap* gmap,
+                                                    const T* img, const WgradArgs& p,
+                                                    int q_begin, int n_it, int f0, int pt) {
+  constexpr int SL = slice_of<T>(), NG = 64 / SL;
+  const int py = pt >> 4, px = pt & 15;  // row pt of the patch's boxes
+  const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PATCH_H) * tiles_w;
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % STAGES;
+    if (it >= STAGES) mbar_wait(&empty[st], ((it / STAGES) - 1) & 1);
+    const int q = q_begin + it, b = q / tiles_hw, thw = q - b * tiles_hw;
+    const int y0 = (thw / tiles_w) * PATCH_H, x0 = (thw % tiles_w) * PATCH_W;
+    uint8_t* base = smem + st * STAGE;
+    if (pt == 0) {
+      mbar_expect_tx(&full[st], NG * BOX_BYTES);
+      for (int w = 0; w < NG; ++w)
+        tma_load_4d(base + w * BOX_BYTES, gmap, &full[st], f0 + SL * w, x0, y0, b);
+    }
+    gather_image_row<false, T>(img, nullptr, b, p.H, p.W, y0 + py, x0 + px,
+                               base + NG * BOX_BYTES, pt);
+    fence_proxy_async();
+    mbar_arrive(&full[st]);
+  }
+}
+
 // part (nsplit, F, 64) and bpart (nsplit, F) float32: block (0, f tile,
 // split s) sums G^T (64 f) x im2col(img) (64 columns) over its contiguous
 // range of 8 x 16 pixel patches.  Threads 0-127 consume (wgmma m64n64k16,
@@ -138,8 +177,7 @@ __global__ void __launch_bounds__(256, 2)
 wgrad_image_kernel(const __grid_constant__ CUtensorMap gmap, const bf16* __restrict__ img,
                    WgradArgs p) {
   using S = WgradImageSmem;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
+  extern __shared__ __align__(1024) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
   uint64_t* empty = full + S::STAGES;
   const int tid = threadIdx.x;
@@ -160,22 +198,8 @@ wgrad_image_kernel(const __grid_constant__ CUtensorMap gmap, const bf16* __restr
   __syncthreads();
 
   if (tid >= 128) {  // the producer warpgroup
-    const int pt = tid - 128, py = pt >> 4, px = pt & 15;  // row pt of the patch's boxes
-    for (int it = 0; it < n_it; ++it) {
-      const int st = it % S::STAGES;
-      if (it >= S::STAGES) mbar_wait(&empty[st], ((it / S::STAGES) - 1) & 1);
-      const int q = q_begin + it, b = q / tiles_hw, thw = q - b * tiles_hw;
-      const int y0 = (thw / tiles_w) * PATCH_H, x0 = (thw % tiles_w) * PATCH_W;
-      uint8_t* base = smem + st * S::STAGE;
-      if (pt == 0) {
-        mbar_expect_tx(&full[st], BOX_BYTES);
-        tma_load_4d(base, &gmap, &full[st], f0, x0, y0, b);
-      }
-      gather_image_row<false>(img, nullptr, b, p.H, p.W, y0 + py, x0 + px, base + BOX_BYTES,
-                              pt);
-      fence_proxy_async();
-      mbar_arrive(&full[st]);
-    }
+    wgrad_image_produce<bf16, S::STAGES, S::STAGE>(smem, full, empty, &gmap, img, p, q_begin,
+                                                   n_it, f0, tid - 128);
     return;
   }
 
@@ -240,16 +264,18 @@ wgrad_image_kernel(const __grid_constant__ CUtensorMap gmap, const bf16* __restr
   }
 }
 
-// dk (F, 3, 3, 3) from part (nsplit, F, 64): column k = tap * 3 + c to
-// dk[f, c, tap], the splits added in order; db (F) likewise from bpart.
-// A block an f, a thread a column (thread 27 the bias).
+// dk (F, 3, 3, 3) from part (nsplit, F, kp) (kp = 64 bf16, 32 float32
+// columns): column k = tap * 3 + c to dk[f, c, tap], the splits added in
+// order; db (F) likewise from bpart.  A block an f, a thread a column
+// (thread 27 the bias).
 __global__ void __launch_bounds__(32)
 wgrad_image_reduce_kernel(const float* __restrict__ part, const float* __restrict__ bpart,
-                          float* __restrict__ dk, float* __restrict__ db, int F, int nsplit) {
+                          float* __restrict__ dk, float* __restrict__ db, int F, int nsplit,
+                          int kp) {
   const int f = blockIdx.x, k = threadIdx.x;
   float sum = 0.f;
   if (k < IMG_K) {
-    for (int i = 0; i < nsplit; ++i) sum += part[(static_cast<size_t>(i) * F + f) * 64 + k];
+    for (int i = 0; i < nsplit; ++i) sum += part[(static_cast<size_t>(i) * F + f) * kp + k];
     dk[(f * 3 + k % 3) * 9 + k / 3] = sum;
   } else if (k == IMG_K) {
     for (int i = 0; i < nsplit; ++i) sum += bpart[static_cast<size_t>(i) * F + f];
@@ -257,31 +283,207 @@ wgrad_image_reduce_kernel(const float* __restrict__ part, const float* __restric
   }
 }
 
+// The float32 path's image GEMM: part (nsplit, F, 32) and bpart (nsplit, F)
+// as wgrad_image_kernel, on mma.sync TF32 (csrc/wgrad_sm90.cuh's float32
+// consumer: the G box is MN-major, which .tf32 wgmma does not take).  A
+// stage: two G boxes (64 f of 32) by TMA and the gathered box of 32
+// float32 columns (27 used), rounded to TF32 as the producers store it.
+// Warps 0-1 multiply G box w by the gathered box (32 f x 32 columns
+// each); warps 2-3 sum G's columns for the bias.  Two blocks an SM.
+struct WgradImageF32Smem {
+  static constexpr int STAGE = 3 * BOX_BYTES;
+  static constexpr int STAGES = RING_BYTES / 2 / STAGE;  // 2
+  static constexpr int SB_OFF = STAGES * STAGE;          // bias partials, 4 floats a thread
+  static constexpr int BAR_OFF = SB_OFF + 64 * 4 * 4;
+  static constexpr int DYN = BAR_OFF + 2 * STAGES * 8 + 1024;
+};
+
+__global__ void __launch_bounds__(256, 2)
+wgrad_image_f32_kernel(const __grid_constant__ CUtensorMap gmap, const float* __restrict__ img,
+                       WgradArgs p) {
+  using S = WgradImageF32Smem;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* empty = full + S::STAGES;
+  const int tid = threadIdx.x;
+  const int f0 = blockIdx.y * 64, s = blockIdx.z, ns = gridDim.z;
+  const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PATCH_H) * tiles_w;
+  const long long npatch = static_cast<long long>(p.B) * tiles_hw;
+  const int q_begin = static_cast<int>(s * npatch / ns);
+  const int n_it = static_cast<int>((s + 1) * npatch / ns) - q_begin;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < S::STAGES; ++i) {
+      mbar_init(&full[i], 129);  // 128 producers' stores, and the G boxes' bytes
+      mbar_init(&empty[i], 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warpgroup
+    wgrad_image_produce<float, S::STAGES, S::STAGE>(smem, full, empty, &gmap, img, p, q_begin,
+                                                    n_it, f0, tid - 128);
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int c = perm8(g);
+  const bool gemm = warp < 2, bias = !gemm && p.bpart != nullptr;
+  // the bias: thread lt = tid - 64 reads logical chunk lt % 8 (4 f) of G
+  // box lt / 32, pixel rows (lt / 8) % 4 + 4 i
+  const int lt = tid - 64, bbox = lt >> 5, bchunk = lt & 7, brg = (lt >> 3) & 3;
+  float acc[2][4][4], bacc[4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) bacc[e] = 0.f;
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % S::STAGES;
+    mbar_wait(&full[st], (it / S::STAGES) & 1);
+    const uint8_t* base = smem + st * S::STAGE;
+    if (gemm) wgrad_f32_stage(acc, base + warp * BOX_BYTES, base + 2 * BOX_BYTES, c, t);
+    if (bias) {
+      const uint8_t* gb = base + bbox * BOX_BYTES;
+#pragma unroll 4
+      for (int i = 0; i < PATCH / 4; ++i) {
+        const int row = brg + 4 * i;
+        const float4 v = *reinterpret_cast<const float4*>(gb + row * 128 +
+                                                          ((bchunk ^ (row & 7)) << 4));
+        bacc[0] += v.x;
+        bacc[1] += v.y;
+        bacc[2] += v.z;
+        bacc[3] += v.w;
+      }
+    }
+    mbar_arrive(&empty[st]);
+  }
+
+  if (gemm) {
+    float* out = p.part + static_cast<size_t>(s) * p.F * 32;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = f0 + 32 * warp + 4 * c + 2 * i + (e >> 1);
+        const int col = 4 * perm8(2 * t + (e & 1));
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(f) * 32 + col) =
+            make_float4(acc[i][0][e], acc[i][1][e], acc[i][2][e], acc[i][3][e]);
+      }
+  } else if (bias) {  // the 4 threads of each chunk, added in thread order
+    float* sb = reinterpret_cast<float*>(smem + S::SB_OFF);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sb[lt * 4 + e] = bacc[e];
+    bar_sync(2, 64);
+    const int box = lt >> 5, fc = lt & 31, chunk = fc >> 2, e = fc & 3;
+    float sum = 0.f;
+    for (int rr = 0; rr < 4; ++rr) sum += sb[(box * 32 + rr * 8 + chunk) * 4 + e];
+    p.bpart[static_cast<size_t>(s) * p.F + f0 + lt] = sum;
+  }
+}
+
 // Both passes per the record (OP_WGRAD_IMAGE; gout (B, H, W, F) under map
-// 0): the partials into work (nsplit * F * 65 floats), then dk (F, 3, 3, 3)
-// and db (F).
-inline cudaError_t launch_wgrad_image(const int64_t* record, const bf16* gout, const bf16* img,
-                                      float* work, float* dk, float* db, int B, int H, int W,
-                                      int F, cudaStream_t stream) {
-  using S = WgradImageSmem;
+// 0, of the element type T the record names, img (B, H, W, 3) of T): the
+// partials into work (nsplit * F * (kp + 1) floats, kp = 64 bf16 / 32
+// float32 columns), then dk (F, 3, 3, 3) and db (F).
+template <typename T>
+cudaError_t launch_wgrad_image(const int64_t* record, const T* gout, const T* img, float* work,
+                               float* dk, float* db, int B, int H, int W, int F,
+                               cudaStream_t stream) {
+  constexpr bool F32 = is_f32<T>();
+  constexpr int KP = slice_of<T>();
   const Launch L{record};
   const dim3 grid = L.grid();
-  if (L.op() != OP_WGRAD_IMAGE || L.map(0)[1] != F || L.tile_m() != 64 || L.tile_n() != 64 ||
-      grid.x != 1 || static_cast<int>(grid.y) * 64 != F ||
+  if (L.op() != OP_WGRAD_IMAGE || L.f32() != F32 || L.map(0)[1] != F || L.tile_m() != 64 ||
+      L.tile_n() != KP || grid.x != 1 || static_cast<int>(grid.y) * 64 != F ||
       static_cast<int>(grid.z) != L.nsplit())
     return cudaErrorInvalidValue;
   CUtensorMap mg;
-  cudaError_t e = make_map(&mg, gout, L.map(0));
+  cudaError_t e = make_map(&mg, gout, L.map(0), F32);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(wgrad_image_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           S::DYN);
-  if (e != cudaSuccess) return e;
-  float* bpart = work + static_cast<size_t>(L.nsplit()) * F * 64;
+  float* bpart = work + static_cast<size_t>(L.nsplit()) * F * KP;
   const WgradArgs a{work, bpart, dk, db, B, H, W, 3, F, 3, 0};
-  wgrad_image_kernel<<<grid, 256, S::DYN, stream>>>(mg, img, a);
+  if constexpr (F32) {
+    using S = WgradImageF32Smem;
+    e = cudaFuncSetAttribute(wgrad_image_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::DYN);
+    if (e != cudaSuccess) return e;
+    wgrad_image_f32_kernel<<<grid, 256, S::DYN, stream>>>(mg, img, a);
+  } else {
+    using S = WgradImageSmem;
+    e = cudaFuncSetAttribute(wgrad_image_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::DYN);
+    if (e != cudaSuccess) return e;
+    wgrad_image_kernel<<<grid, 256, S::DYN, stream>>>(mg, img, a);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  wgrad_image_reduce_kernel<<<F, 32, 0, stream>>>(work, bpart, dk, db, F, L.nsplit());
+  wgrad_image_reduce_kernel<<<F, 32, 0, stream>>>(work, bpart, dk, db, F, L.nsplit(), KP);
   return cudaGetLastError();
+}
+
+// The stage backward of the header note in the element type T, from the C
+// entry's untyped pointers.
+template <typename T>
+int block_bwd(const void* vx, bool is_image, const void* mid0, const void* mid1, const void* vout,
+              const void* vdskip, const void* vdpool, const void* wt0, const void* wt1,
+              const void* wt2, void* vga, void* vgb, void* vdx, float* work, float* const* dks,
+              float* const* dbs, int n, int B, int H, int W, const int* chans,
+              const int64_t* plan, cudaStream_t stream) {
+  constexpr int EL = 16 / static_cast<int>(sizeof(T));
+  const T* x = static_cast<const T*>(vx);
+  const T* mids[2] = {static_cast<const T*>(mid0), static_cast<const T*>(mid1)};
+  const T* out = static_cast<const T*>(vout);
+  const T* dskip = static_cast<const T*>(vdskip);
+  const T* dpool = static_cast<const T*>(vdpool);
+  const T* wts[3] = {static_cast<const T*>(wt0), static_cast<const T*>(wt1),
+                     static_cast<const T*>(wt2)};
+  T* ga = static_cast<T*>(vga);
+  T* gb = static_cast<T*>(vgb);
+  T* dx = static_cast<T*>(vdx);
+  const int C = chans[n];
+  cudaError_t e;
+  if (dpool != nullptr) {
+    const size_t m = static_cast<size_t>(B) * (H / 2) * (W / 2) * (C / EL);
+    pool_relu_grad_kernel<T><<<static_cast<unsigned>((m + 255) / 256), 256, 0, stream>>>(
+        dskip, dpool, out, ga, B, H, W, C);
+    e = cudaGetLastError();
+  } else {
+    e = launch_relu_grad(dskip, out, ga, static_cast<size_t>(B) * H * W * C / EL, stream);
+  }
+  if (e != cudaSuccess) return e;
+  T* g = ga;
+  T* g_next = gb;
+  for (int i = n - 1; i >= 0; --i) {
+    const int cin = chans[i], cout = chans[i + 1];
+    const int64_t* wrec = plan + (2 * i) * PLAN_WORDS;
+    const int64_t* drec = plan + (2 * i + 1) * PLAN_WORDS;
+    if (is_image && i == 0)  // the stem's conv1_1 over the image
+      e = launch_wgrad_image<T>(wrec, g, x, work, dks[0], dbs[0], B, H, W, cout, stream);
+    else
+      e = launch_wgrad_sm90<T>(wrec, g, i == 0 ? x : mids[i - 1], work, dks[i], dbs[i], B, H, W,
+                               cin, cout, stream);
+    if (e != cudaSuccess) return e;
+    if (i > 0) {
+      if (drec[0] != OP_DGRAD_MASK) return cudaErrorInvalidValue;
+      e = launch_conv_sm90<T>(drec, g, nullptr, wts[i],
+                              ConvArgsT<T>{nullptr, mids[i - 1], g_next, nullptr, H, W, cout, cin},
+                              stream);
+    } else if (dx != nullptr) {
+      if (drec[0] != OP_DGRAD_SPLIT || Launch{drec}.split() != cin) return cudaErrorInvalidValue;
+      e = launch_conv_sm90<T>(drec, g, nullptr, wts[0],
+                              ConvArgsT<T>{nullptr, nullptr, dx, nullptr, H, W, cout, cin}, stream);
+    }
+    if (e != cudaSuccess) return e;
+    T* tmp = g;
+    g = g_next;
+    g_next = tmp;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -290,68 +492,30 @@ inline cudaError_t launch_wgrad_image(const int64_t* record, const bf16* gout, c
 
 using tu::bf16;
 
-// chans[0..n] the widths (chans[0] == 3 with is_image: x is the bf16 image);
-// mids[i] (i < n - 1) the ReLU outputs between the convs, out the last one;
-// wts[i] the dgrad weights flipT(w_i) packed (Cin_i, 9 * Cout_i), wts[0]
-// unused without dx; dpool null without the pool; ga, gb (B, H, W, C_n)
-// scratch; work holds the largest of the convs' weight-gradient work
-// areas (nsplit * C_i+1 * (9 * tap_width(C_i) + 1) floats; the stem's
-// conv1_1 nsplit * C_1 * 65); plan: 2n launch records (conv i's weight
-// gradient at 2i, its dgrad at 2i + 1; none for the stem's conv1_1
-// dgrad).
-extern "C" int tu_vgg_block_bwd(const bf16* x, int is_image, const bf16* mid0, const bf16* mid1,
-                                const bf16* out, const bf16* dskip, const bf16* dpool,
-                                const bf16* wt0, const bf16* wt1, const bf16* wt2, bf16* ga,
-                                bf16* gb, bf16* dx, float* work, float* dk0, float* dk1,
+// chans[0..n] the widths (chans[0] == 3 with is_image: x is the image of
+// the element type); mids[i] (i < n - 1) the ReLU outputs between the
+// convs, out the last one; wts[i] the dgrad weights flipT(w_i) packed (Cin_i,
+// 9 * Cout_i), wts[0] unused without dx; dpool null without the pool; ga, gb
+// (B, H, W, C_n) scratch; every activation tensor and the packed weights of
+// the element type (bf16, or float32 with f32); work holds the largest of
+// the convs' weight-gradient work areas (nsplit * C_i+1 * (9 * Cp_i + 1)
+// floats; the stem's conv1_1 nsplit * C_1 * (kp + 1)); plan: 2n launch
+// records (conv i's weight gradient at 2i, its dgrad at 2i + 1; none for
+// the stem's conv1_1 dgrad), naming that type.
+extern "C" int tu_vgg_block_bwd(const void* x, int is_image, const void* mid0, const void* mid1,
+                                const void* out, const void* dskip, const void* dpool,
+                                const void* wt0, const void* wt1, const void* wt2, void* ga,
+                                void* gb, void* dx, float* work, float* dk0, float* dk1,
                                 float* dk2, float* db0, float* db1, float* db2, int n, int B,
-                                int H, int W, int c0, int c1, int c2, int c3,
+                                int H, int W, int c0, int c1, int c2, int c3, int f32,
                                 const int64_t* plan, cudaStream_t stream) {
   namespace sm90 = tu::sm90;
-  const bf16* mids[2] = {mid0, mid1};
-  const bf16* wts[3] = {wt0, wt1, wt2};
   float* dks[3] = {dk0, dk1, dk2};
   float* dbs[3] = {db0, db1, db2};
   const int chans[4] = {c0, c1, c2, c3};
-  const int C = chans[n];
-  if (plan == nullptr || (is_image && (n != 2 || dx != nullptr))) return cudaErrorInvalidValue;
-  cudaError_t e;
-  if (dpool != nullptr) {
-    const size_t m = static_cast<size_t>(B) * (H / 2) * (W / 2) * (C / 8);
-    tu::pool_relu_grad_kernel<<<static_cast<unsigned>((m + 255) / 256), 256, 0, stream>>>(
-        dskip, dpool, out, ga, B, H, W, C);
-    e = cudaGetLastError();
-  } else {
-    e = tu::launch_relu_grad(dskip, out, ga, static_cast<size_t>(B) * H * W * (C / 8), stream);
-  }
-  if (e != cudaSuccess) return e;
-  bf16* g = ga;
-  bf16* g_next = gb;
-  for (int i = n - 1; i >= 0; --i) {
-    const int cin = chans[i], cout = chans[i + 1];
-    const int64_t* wrec = plan + (2 * i) * sm90::PLAN_WORDS;
-    const int64_t* drec = plan + (2 * i + 1) * sm90::PLAN_WORDS;
-    if (is_image && i == 0)  // the stem's conv1_1 over the image
-      e = sm90::launch_wgrad_image(wrec, g, x, work, dk0, db0, B, H, W, cout, stream);
-    else
-      e = sm90::launch_wgrad_sm90(wrec, g, i == 0 ? x : mids[i - 1], work, dks[i], dbs[i], B, H,
-                                  W, cin, cout, stream);
-    if (e != cudaSuccess) return e;
-    if (i > 0) {
-      if (drec[0] != sm90::OP_DGRAD_MASK) return cudaErrorInvalidValue;
-      e = sm90::launch_conv_sm90(
-          drec, g, nullptr, wts[i],
-          sm90::ConvArgs{nullptr, mids[i - 1], g_next, nullptr, H, W, cout, cin}, stream);
-    } else if (dx != nullptr) {
-      if (drec[0] != sm90::OP_DGRAD_SPLIT || sm90::Launch{drec}.split() != cin)
-        return cudaErrorInvalidValue;
-      e = sm90::launch_conv_sm90(drec, g, nullptr, wts[0],
-                                 sm90::ConvArgs{nullptr, nullptr, dx, nullptr, H, W, cout, cin},
-                                 stream);
-    }
-    if (e != cudaSuccess) return e;
-    bf16* t = g;
-    g = g_next;
-    g_next = t;
-  }
-  return cudaSuccess;
+  if (plan == nullptr || n < 2 || n > 3 || (is_image && (n != 2 || dx != nullptr)))
+    return cudaErrorInvalidValue;
+  return (f32 ? sm90::block_bwd<float> : sm90::block_bwd<bf16>)(
+      x, is_image != 0, mid0, mid1, out, dskip, dpool, wt0, wt1, wt2, ga, gb, dx, work, dks, dbs, n,
+      B, H, W, chans, plan, stream);
 }

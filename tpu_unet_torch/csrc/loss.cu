@@ -200,9 +200,7 @@ __device__ __forceinline__ void final_loss_body(const CUtensorMap* fmap, const C
                                                 const CUtensorMap* omap, const Args& a) {
   using L = Layout<T, NP, BWD>;
   constexpr int NA = NP / 2;  // accumulators of an m64nNP product a thread
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  extern __shared__ __align__(1024) uint8_t smem[];
   float* sm = reinterpret_cast<float*>(smem + L::S_OFF);
   int* si = reinterpret_cast<int*>(sm);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);

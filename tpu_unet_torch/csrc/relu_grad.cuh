@@ -1,42 +1,48 @@
 // The ReLU's gradient as a pass of its own: g = d * [out > 0] over NHWC
-// bf16 tensors, one thread a 16-byte slot of 8 channels.  A VGG16 block
-// without the pool (block 5, csrc/encoder_train.cu) and a UnetUp stage's
-// conv2 (g2 of csrc/decoder_train.cu) run it before their dgrads, which
-// the Hopper conv core reads by TMA and cannot mask.
+// tensors of bf16 or float32, one thread a 16-byte slot (8 bf16 or 4
+// float32 channels).  A VGG16 block without the pool (block 5,
+// csrc/encoder_train.cu) and a UnetUp stage's conv2 (g2 of
+// csrc/decoder_train.cu) run it before their dgrads, which the Hopper conv
+// core reads by TMA and cannot mask.  It selects, so it is exact in either
+// type.
 //
-// Bound on the H100: bytes (d and out read, g written: 6 bytes a value).
+// Bound on the H100: bytes (d and out read, g written: 3 values a value).
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace tu {
 namespace {
 
-__device__ __forceinline__ uint4 ld16(const __nv_bfloat16* p) {
+using sm90::from_f;
+using sm90::to_f;
+
+template <typename T>
+__device__ __forceinline__ uint4 ld16(const T* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-relu_grad_kernel(const __nv_bfloat16* __restrict__ d, const __nv_bfloat16* __restrict__ out,
-                 __nv_bfloat16* __restrict__ g, size_t n8) {
+relu_grad_kernel(const T* __restrict__ d, const T* __restrict__ out, T* __restrict__ g,
+                 size_t n16) {
+  constexpr int EL = 16 / static_cast<int>(sizeof(T));
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n8) return;
-  const uint4 du = ld16(d + idx * 8), ou = ld16(out + idx * 8);
-  __align__(16) __nv_bfloat16 res[8];
+  if (idx >= n16) return;
+  const uint4 du = ld16(d + idx * EL), ou = ld16(out + idx * EL);
+  __align__(16) T res[EL];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    res[j] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&ou)[j]) > 0.f
-                 ? reinterpret_cast<const __nv_bfloat16*>(&du)[j]
-                 : __float2bfloat16_rn(0.f);
-  *reinterpret_cast<uint4*>(g + idx * 8) = *reinterpret_cast<const uint4*>(res);
+  for (int j = 0; j < EL; ++j)
+    res[j] = to_f(reinterpret_cast<const T*>(&ou)[j]) > 0.f ? reinterpret_cast<const T*>(&du)[j]
+                                                          : from_f<T>(0.f);
+  *reinterpret_cast<uint4*>(g + idx * EL) = *reinterpret_cast<const uint4*>(res);
 }
 
-// g = d * [out > 0] over n8 * 8 values (the tensors' sizes, % 8 == 0)
-inline cudaError_t launch_relu_grad(const __nv_bfloat16* d, const __nv_bfloat16* out,
-                                    __nv_bfloat16* g, size_t n8, cudaStream_t stream) {
-  relu_grad_kernel<<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, stream>>>(d, out, g, n8);
+// g = d * [out > 0] over n16 16-byte slots (the tensors' bytes / 16)
+template <typename T>
+cudaError_t launch_relu_grad(const T* d, const T* out, T* g, size_t n16, cudaStream_t stream) {
+  relu_grad_kernel<T><<<static_cast<unsigned>((n16 + 255) / 256), 256, 0, stream>>>(d, out, g,
+                                                                                    n16);
   return cudaGetLastError();
 }
 

@@ -4,7 +4,9 @@
 // upsample's adjoint csrc/upsample_adjoint.cuh): mbarriers, TMA tile loads
 // and stores, 1-D bulk copies, wgmma
 // descriptors and the m64nNk16 bf16 products with float32 accumulators
-// (both operands from shared memory, or A from registers), and, on the
+// (both operands from shared memory, or A from registers), the float32
+// path's TF32 products (m64nNk8 wgmma from shared memory, m16n8k8 mma.sync
+// from registers) and its rounding to TF32, and, on the
 // host, the tensor maps and the launch records that the Python side plans
 // (tpu_unet_torch/kernels/sm90.py).
 //
@@ -528,6 +530,188 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+// ---- device: TF32 products (the float32 path) ------------------------------
+//
+// The float32 instantiations of the conv core, the weight-gradient GEMM and
+// the image GEMMs keep activations, weights and accumulators in float32 and
+// multiply in TF32 (the PTX ISA: a .tf32 operand is a 32-bit word of which
+// only the sign, the 8 exponent bits and the top 10 mantissa bits are
+// used).  An operand that reaches the tensor cores straight from a TMA box
+// is therefore truncated to TF32; one that a kernel builds in registers or
+// stores itself is first rounded to nearest (ties away) by to_tf32.
+
+// D (64 x N, float32) += A (64 x 8) * B (8 x N), TF32, both operands
+// K-major from shared memory (.tf32 takes no transpose): a k8 step is 32
+// bytes of K, as a bf16 k16 step is.
+__device__ __forceinline__ void wgmma_m64n256k8_tf32(float (&d)[128], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n192k8_tf32(float (&d)[96], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (N == 256)
+    wgmma_m64n256k8_tf32(d, da, db, scale_d);
+  else if constexpr (N == 192)
+    wgmma_m64n192k8_tf32(d, da, db, scale_d);
+  else if constexpr (N == 128)
+    wgmma_m64n128k8_tf32(d, da, db, scale_d);
+  else {
+    static_assert(N == 64, "TF32 wgmma widths: 64, 128, 192, 256");
+    wgmma_m64n64k8_tf32(d, da, db, scale_d);
+  }
+}
+
+// One 32-byte K step of a K-major product from shared memory in the element
+// type T: m64nNk16 bf16, or m64nNk8 TF32 (float).
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_k32(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (sizeof(T) == 4)
+    wgmma_tf32<N>(d, da, db, 1);
+  else
+    wgmma<N, 0, 0>(d, da, db, 1);
+}
+
+// an element of bf16 or float32 as float32, and back (to nearest even)
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (sizeof(T) == 4)
+    return v;
+  else
+    return __float2bfloat16_rn(v);
+}
+
+// float32 -> TF32, rounded to nearest with ties away from zero (the low 13
+// bits of the result are zero)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// D (16 x 8, float32) += A (16 x 8) * B (8 x 8), TF32 operands from
+// registers (mma.sync): a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4); b0 (k t, col g), b1 (t + 4, g); d0 / d1 (row g, cols 2t,
+// 2t + 1), d2 / d3 (row g + 8); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // ---- host: launch records and tensor maps ---------------------------------
 
 // One launch as tpu_unet_torch/kernels/sm90.py::encode lays it out
@@ -535,14 +719,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 // pixels of a tile), and for a weight gradient where its reduce pass
 // writes (the gradient's channel count Ctot, this launch's first channel,
 // whether it sums the bias gradient), for a split dgrad the channel count
-// of its first output in the first of those words; then three tensor maps
+// of its first output in the first of those words; the element type (0
+// bf16, 1 float32: every tensor the launch reads or writes but the float32
+// bias and weight gradients); then three tensor maps
 // of MAP_WORDS each: rank, dims[4] (elements, innermost first), byte
 // strides of dims 1-3, box[4]; rank 0 for a map the launch does not use
 // (the conv's second input map).  The ring's stages and shared memory
 // follow from the tile at compile time.
 enum { OP_FWD = 0, OP_FWD_POOL = 1, OP_DGRAD_MASK = 2, OP_DGRAD_SPLIT = 3, OP_WGRAD = 4,
        OP_WGRAD_IMAGE = 5, OP_FWD_IMAGE = 6 };
-constexpr int HEAD_WORDS = 10, MAP_WORDS = 12, PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS;
+constexpr int HEAD_WORDS = 11, MAP_WORDS = 12, PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS;
 
 struct Launch {
   const int64_t* w;
@@ -558,6 +744,7 @@ struct Launch {
   int split() const { return static_cast<int>(w[7]); }  // OP_DGRAD_SPLIT
   int out_offset() const { return static_cast<int>(w[8]); }
   bool bias() const { return w[9] != 0; }
+  bool f32() const { return w[10] != 0; }
   const int64_t* map(int i) const { return w + HEAD_WORDS + i * MAP_WORDS; }
   bool has_map(int i) const { return map(i)[0] != 0; }
 };
@@ -596,9 +783,10 @@ inline cudaError_t encode_map(CUtensorMap* m, CUtensorMapDataType type, int rank
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// bf16 tensor map of `base` per the record's map words, 128-byte swizzle,
-// zero fill out of bounds
-inline cudaError_t make_map(CUtensorMap* m, const void* base, const int64_t* spec) {
+// bf16 (or, with f32, float32) tensor map of `base` per the record's map
+// words, 128-byte swizzle, zero fill out of bounds
+inline cudaError_t make_map(CUtensorMap* m, const void* base, const int64_t* spec,
+                            bool f32 = false) {
   const int rank = static_cast<int>(spec[0]);
   if (rank < 2 || rank > 4) return cudaErrorInvalidValue;
   cuuint64_t dims[4], strides[3];
@@ -608,8 +796,14 @@ inline cudaError_t make_map(CUtensorMap* m, const void* base, const int64_t* spe
     box[i] = static_cast<cuuint32_t>(spec[8 + i]);
   }
   for (int i = 0; i < rank - 1; ++i) strides[i] = static_cast<cuuint64_t>(spec[5 + i]);
-  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base, dims, strides, box,
-                    CU_TENSOR_MAP_SWIZZLE_128B);
+  return encode_map(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    rank, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the element type's flag in a launch record (Launch::f32)
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return sizeof(T) == 4;
 }
 
 }  // namespace sm90

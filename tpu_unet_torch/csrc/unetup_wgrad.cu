@@ -25,6 +25,9 @@
 // channel range of the one (F, Cs + Cx, 3, 3) dk1.  The partials are added
 // in split order, so the result is bit-identical run to run.
 //
+// In bf16 or, for the float32 training path, float32 inputs (the float32
+// GEMM of csrc/wgrad_sm90.cuh, mma.sync TF32).
+//
 // Bound on the H100: operations (2 * 9 * P * F * (Cs + Cx + F): 0.63 ms for
 // up1 at 512x512, batch 8, at 989 TFLOP/s bf16).
 // Shapes: 2H % 8, 2W % 16, F % 64, Cs % 8, Cx % 8 all 0.
@@ -33,24 +36,39 @@
 using bf16 = __nv_bfloat16;
 namespace sm90 = tu::sm90;
 
-// plan: three OP_WGRAD launch records (dk1's skip and up channels, dk2;
-// each names its channel range and whether it sums the bias gradient);
-// work holds, for the largest of them, nsplit * F * (9 * Cp + 1) floats
-// (Cp = 64 * ceil(C / 64) of its input).
-extern "C" int tu_unetup_wgrad(const bf16* skip, const bf16* up, const bf16* dz1, const bf16* y1,
-                               const bf16* g2, float* work, float* dk1, float* db1, float* dk2,
-                               float* db2, int B, int H2, int W2, int Cs, int Cx, int F,
-                               const int64_t* plan, cudaStream_t stream) {
-  const bf16* gouts[3] = {dz1, dz1, g2};
-  const bf16* ins[3] = {skip, up, y1};
+namespace {
+
+template <typename T>
+int unetup_wgrad(const void* skip, const void* up, const void* dz1, const void* y1,
+                 const void* g2, float* work, float* dk1, float* db1, float* dk2, float* db2,
+                 int B, int H2, int W2, int Cs, int Cx, int F, const int64_t* plan,
+                 cudaStream_t stream) {
+  const void* gouts[3] = {dz1, dz1, g2};
+  const void* ins[3] = {skip, up, y1};
   const int cs[3] = {Cs, Cx, F};
   float* dks[3] = {dk1, dk1, dk2};
   float* dbs[3] = {db1, db1, db2};
   for (int i = 0; i < 3; ++i) {
-    const cudaError_t e = sm90::launch_wgrad_sm90(plan + i * sm90::PLAN_WORDS, gouts[i], ins[i],
-                                                  work, dks[i], dbs[i], B, H2, W2, cs[i], F,
-                                                  stream);
+    const cudaError_t e = sm90::launch_wgrad_sm90<T>(
+        plan + i * sm90::PLAN_WORDS, static_cast<const T*>(gouts[i]),
+        static_cast<const T*>(ins[i]), work, dks[i], dbs[i], B, H2, W2, cs[i], F, stream);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
+}
+
+}  // namespace
+
+// plan: three OP_WGRAD launch records (dk1's skip and up channels, dk2;
+// each names its channel range, whether it sums the bias gradient and the
+// element type of skip, up, dz1, y1 and g2: bf16, or float32 with f32);
+// work holds, for the largest of them, nsplit * F * (9 * Cp + 1) floats
+// (Cp the input's tap width: C padded to 64 in bf16, to 32 in float32).
+extern "C" int tu_unetup_wgrad(const void* skip, const void* up, const void* dz1, const void* y1,
+                               const void* g2, float* work, float* dk1, float* db1, float* dk2,
+                               float* db2, int B, int H2, int W2, int Cs, int Cx, int F, int f32,
+                               const int64_t* plan, cudaStream_t stream) {
+  return (f32 ? unetup_wgrad<float> : unetup_wgrad<bf16>)(skip, up, dz1, y1, g2, work, dk1, db1,
+                                                          dk2, db2, B, H2, W2, Cs, Cx, F, plan,
+                                                          stream);
 }

@@ -1,5 +1,5 @@
 // The adjoint of the x2 align-corners bilinear upsample of
-// NHWC bf16 tensors, dx (B, H, W, C) from dup (B, 2H, 2W, C):
+// NHWC bf16 or float32 tensors, dx (B, H, W, C) from dup (B, 2H, 2W, C):
 //   dx[b, i, j, c] = sum_{(u, wr) in R(i)} wr * sum_{(v, wc) in C(j)} wc * dup[b, u, v, c]
 // where R(i) / C(j) list the high-resolution rows / columns whose lerp reads
 // low-resolution row i / column j, with the forward's bf16-rounded weights
@@ -37,7 +37,10 @@
 //            entry, is rounded to bf16 once and stored (16 bytes).
 // Per (i, j, c) that is the gather's float32 operation sequence exactly
 // (W pass inside, H pass outside, both in table order, one rounding), so dx
-// is bit-identical to the gather form's.  u's entries (the slots) are
+// is bit-identical to the gather form's.  The float32 instantiation (T =
+// float: the stages hold float32, a consumer loads its 8 channels as two
+// 16-byte chunks, the row is stored unrounded) keeps that order; the plan
+// is the same, its stage and shared-memory bytes twice bf16's.  u's entries (the slots) are
 // gathered from the row table into shared memory when the block starts.
 // No atomics: the result is the same on every run.  Shapes: C % 8 == 0.
 //
@@ -59,7 +62,8 @@ constexpr int MIN_TH = 8;
 constexpr int MIN_BLOCKS = 132;      // a block an SM before a band is halved
 constexpr int UMAX = 2 * MAX_TH + 4;  // high-resolution rows of a band
 constexpr int SLOT_BYTES = UMAX * 2 * 8;  // (row, weight) x 2 a high-resolution row
-constexpr int SMEM_MAX = STAGES * RPS * (2 * 8 + 4) * 256 * 2 + SLOT_BYTES + 2 * STAGES * 8 + 128;
+// the most dynamic shared memory a plan asks for (float32's)
+constexpr int SMEM_MAX = STAGES * RPS * (2 * 8 + 4) * 256 * 4 + SLOT_BYTES + 2 * STAGES * 8 + 128;
 
 struct Plan {
   int tw, cc, th, strips, chunks, bands, consumers, stage_bytes, smem;
@@ -69,8 +73,9 @@ struct Plan {
 // TW: the low-resolution columns a strip, a power of two in 8 .. 32;
 // CC: the largest power-of-two channel chunk (<= 256) dividing C with at
 // most 256 consumer threads; TH: 64 rows, halved (to 8 at least) while the
-// grid has fewer blocks than the card has SMs, and at most H.
-inline Plan plan(int B, int H, int W, int C) {
+// grid has fewer blocks than the card has SMs, and at most H; the stage
+// bytes for elements of `esize` bytes (2 bf16, 4 float32).
+inline Plan plan(int B, int H, int W, int C, int esize = 2) {
   Plan p;
   p.tw = 8;
   while (p.tw < W && p.tw < 32) p.tw *= 2;
@@ -89,7 +94,7 @@ inline Plan plan(int B, int H, int W, int C) {
   if (p.th > H) p.th = H;
   p.bands = (H + p.th - 1) / p.th;
   p.consumers = (p.tw * (p.cc / 8) + 31) / 32 * 32;
-  p.stage_bytes = RPS * (2 * p.tw + 4) * p.cc * 2;
+  p.stage_bytes = RPS * (2 * p.tw + 4) * p.cc * esize;
   p.smem = STAGES * p.stage_bytes + SLOT_BYTES + 2 * STAGES * 8 + 128;
   p.grid = static_cast<long long>(B) * p.bands * p.chunks * p.strips;
   return p;
@@ -108,11 +113,31 @@ __device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[8]) {
   for (int k = 0; k < 8; ++k) o[k] = __float2bfloat16_rn(acc[k]);
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
 }
+// float32: stored as they are, two 16-byte chunks
+__device__ __forceinline__ void store_row(float* dst, const float (&acc)[8]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
+}
 
+// 8 channels of a stage row as float32
+__device__ __forceinline__ void load8(const bf16* src, float (&v)[8]) {
+  const uint4 d = *reinterpret_cast<const uint4*>(src);
+  const bf16* dv = reinterpret_cast<const bf16*>(&d);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(dv[k]);
+}
+__device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(adj::MAX_CONSUMERS + 32)
 upsample_adjoint_kernel(const __grid_constant__ CUtensorMap map, const int* __restrict__ ridx,
                         const float* __restrict__ rw, int nr, const int* __restrict__ cidx,
-                        const float* __restrict__ cw, int nc, bf16* __restrict__ dx, int H,
+                        const float* __restrict__ cw, int nc, T* __restrict__ dx, int H,
                         int W, int C, int tw, int cc, int th, int strips, int chunks, int bands,
                         int consumers) {
   using namespace tu::sm90;
@@ -121,7 +146,7 @@ upsample_adjoint_kernel(const __grid_constant__ CUtensorMap map, const int* __re
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
   const int cols = 2 * tw + 4;  // high-resolution columns a stage row
-  const int stage_bytes = RPS * cols * cc * 2;
+  const int stage_bytes = RPS * cols * cc * static_cast<int>(sizeof(T));
   int* slot_i = reinterpret_cast<int*>(smem + STAGES * stage_bytes);
   float* slot_w = reinterpret_cast<float*>(slot_i + 2 * UMAX);
   uint64_t* full = reinterpret_cast<uint64_t*>(slot_w + 2 * UMAX);
@@ -196,7 +221,7 @@ upsample_adjoint_kernel(const __grid_constant__ CUtensorMap map, const int* __re
     vq[q] = v < 0 ? -1 : (v - (2 * j0 - 2)) * cc;
     wq[q] = v < 0 ? 0.f : cw[j * nc + q];
   }
-  bf16* out = dx + ((static_cast<size_t>(b) * H) * W + j) * C + c0 + c8 * 8;
+  T* out = dx + ((static_cast<size_t>(b) * H) * W + j) * C + c0 + c8 * 8;
   const size_t row_stride = static_cast<size_t>(W) * C;
   const int iend = ib0 + rows;
 
@@ -207,22 +232,22 @@ upsample_adjoint_kernel(const __grid_constant__ CUtensorMap map, const int* __re
   for (int st = 0; st < nstage; ++st) {
     const int s = st % STAGES;
     mbar_wait(&full[s], (st / STAGES) & 1);
-    const bf16* stage = reinterpret_cast<const bf16*>(smem + s * stage_bytes) + c8 * 8;
+    const T* stage = reinterpret_cast<const T*>(smem + s * stage_bytes) + c8 * 8;
 #pragma unroll
     for (int rr = 0; rr < RPS; ++rr) {
       const int l = st * RPS + rr;
       if (slot_i[2 * l] < 0) continue;  // no band row lists u
-      const bf16* src = stage + rr * cols * cc;
+      const T* src = stage + rr * cols * cc;
       float row[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) row[k] = 0.f;
 #pragma unroll
       for (int q = 0; q < MAXN; ++q) {
         if (vq[q] < 0) break;
-        const uint4 d = *reinterpret_cast<const uint4*>(src + vq[q]);
-        const bf16* dv = reinterpret_cast<const bf16*>(&d);
+        float dv[8];
+        load8(src + vq[q], dv);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) row[k] = fmaf(wq[q], __bfloat162float(dv[k]), row[k]);
+        for (int k = 0; k < 8; ++k) row[k] = fmaf(wq[q], dv[k], row[k]);
       }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -258,35 +283,37 @@ upsample_adjoint_kernel(const __grid_constant__ CUtensorMap map, const int* __re
 
 // Launch on `stream`; returns the first CUDA error (an invalid shape or
 // table width, the tensor map, the launch).
-inline cudaError_t launch_upsample_adjoint(const bf16* dup, const int* ridx, const float* rw,
-                                           int nr, const int* cidx, const float* cw, int nc,
-                                           bf16* dx, int B, int H, int W, int C,
-                                           cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_upsample_adjoint(const T* dup, const int* ridx, const float* rw, int nr,
+                                    const int* cidx, const float* cw, int nc, T* dx, int B, int H,
+                                    int W, int C, cudaStream_t stream) {
+  constexpr int ES = static_cast<int>(sizeof(T));
   using namespace tu::adj;
   if (B < 1 || H < 1 || W < 1 || C < 8 || C % 8 || nr < 1 || nr > MAXN || nc < 1 ||
       nc > MAXN || (reinterpret_cast<uintptr_t>(dup) & 15) || (reinterpret_cast<uintptr_t>(dx) & 15))
     return cudaErrorInvalidValue;
-  const Plan p = plan(B, H, W, C);
+  const Plan p = plan(B, H, W, C, ES);
   if (p.grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(2 * W),
                               static_cast<cuuint64_t>(2 * H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
-                                 static_cast<cuuint64_t>(2 * W) * C * 2,
-                                 static_cast<cuuint64_t>(4) * H * W * C * 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * ES,
+                                 static_cast<cuuint64_t>(2 * W) * C * ES,
+                                 static_cast<cuuint64_t>(4) * H * W * C * ES};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(p.cc), static_cast<cuuint32_t>(2 * p.tw + 4),
                              static_cast<cuuint32_t>(RPS), 1};
   CUtensorMap m;
-  cudaError_t e = sm90::encode_map(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, dup, dims, strides,
-                                   box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  cudaError_t e = sm90::encode_map(
+      &m, ES == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, dup,
+      dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != cudaSuccess) return e;
   static bool attr = false;
   if (!attr) {
-    e = cudaFuncSetAttribute(upsample_adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_MAX);
+    e = cudaFuncSetAttribute(upsample_adjoint_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (e != cudaSuccess) return e;
     attr = true;
   }
-  upsample_adjoint_kernel<<<static_cast<unsigned>(p.grid), p.consumers + 32, p.smem, stream>>>(
+  upsample_adjoint_kernel<T><<<static_cast<unsigned>(p.grid), p.consumers + 32, p.smem, stream>>>(
       m, ridx, rw, nr, cidx, cw, nc, dx, H, W, C, p.tw, p.cc, p.th, p.strips, p.chunks, p.bands,
       p.consumers);
   return cudaGetLastError();

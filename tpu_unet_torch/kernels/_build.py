@@ -42,17 +42,17 @@ SIGNATURES = {
     "tu_final_argmax": [_P] * 4 + [_I] * 3 + [_P],
     # u8 in, out, n (int64), out is bf16, stream
     "tu_normalize_images": [_P, _P, ctypes.c_longlong, _I, _P],
-    # img, is_u8, w11, b11, w12, b12, a1, skip, pooled, B, H, W, F,
+    # img, is_u8, w11, b11, w12, b12, a1, skip, pooled, B, H, W, F, f32,
     # plan (int64 launch records), stream
-    "tu_vgg_stem": [_P, _I] + [_P] * 7 + [_I] * 4 + [_P, _P],
+    "tu_vgg_stem": [_P, _I] + [_P] * 7 + [_I] * 5 + [_P, _P],
     # x, n_convs, ws[3], bs[3], mids[2], skip, pooled, B, H, W, chans[4],
-    # plan (int64 launch records, three convs), stream
-    "tu_vgg_block": [_P, _I] + [_P] * 10 + [_I] * 7 + [_P, _P],
-    # x, ridx, rw, cidx, cw, up, B, H2, W2, Cx, stream
-    "tu_upsample2x": [_P] * 6 + [_I] * 4 + [_P],
-    # skip, up, w1, b1, w2, b2, y1, out, B, H2, W2, Cs, Cx, F,
+    # f32, plan (int64 launch records, three convs), stream
+    "tu_vgg_block": [_P, _I] + [_P] * 10 + [_I] * 8 + [_P, _P],
+    # x, ridx, rw, cidx, cw, up, B, H2, W2, Cx, f32, stream
+    "tu_upsample2x": [_P] * 6 + [_I] * 5 + [_P],
+    # skip, up, w1, b1, w2, b2, y1, out, B, H2, W2, Cs, Cx, F, f32,
     # plan (int64 launch records), stream
-    "tu_unetup": [_P] * 8 + [_I] * 6 + [_P, _P],
+    "tu_unetup": [_P] * 8 + [_I] * 7 + [_P, _P],
     # up, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F,
     # plan (int64 launch records), stream
     "tu_upconv": [_P] * 7 + [_I] * 5 + [_P, _P],
@@ -74,20 +74,20 @@ SIGNATURES = {
     # partial, ticket, dfeat, dw, db, coefs, n_pix (int64), C, with_dice,
     # grad_bf16, np, stages, smem, grid, stream
     "tu_final_ce_dice_bwd": [_P, _I] + [_P] * 14 + [ctypes.c_longlong] + [_I] * 7 + [_P],
-    # g, out, y1, w2t, w1t, g2, dz1, dskip, dups, B, H2, W2, Cs, Cx, F,
+    # g, out, y1, w2t, w1t, g2, dz1, dskip, dups, B, H2, W2, Cs, Cx, F, f32,
     # plan (int64 launch records), stream
-    "tu_unetup_bwd": [_P] * 9 + [_I] * 6 + [_P, _P],
+    "tu_unetup_bwd": [_P] * 9 + [_I] * 7 + [_P, _P],
     # skip, up, dz1, y1, g2, work, dk1, db1, dk2, db2, B, H2, W2, Cs, Cx, F,
-    # plan (int64 launch records), stream
-    "tu_unetup_wgrad": [_P] * 10 + [_I] * 6 + [_P, _P],
+    # f32, plan (int64 launch records), stream
+    "tu_unetup_wgrad": [_P] * 10 + [_I] * 7 + [_P, _P],
     # x, is_image, mid0, mid1, out, dskip, dpool, wt0..2, ga, gb, dx, work,
-    # dk0..2, db0..2, n, B, H, W, chans[4], plan (int64 launch records),
-    # stream
-    "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 8 + [_P, _P],
-    # dup, ridx, rw, nr, cidx, cw, nc, dx, B, H, W, C, stream
-    "tu_upsample_adjoint": [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] + [_I] * 4 + [_P],
-    # B, H, W, C, out (10 int64): the adjoint's launch plan (no stream)
-    "tu_upsample_adjoint_plan": [_I] * 4 + [_P],
+    # dk0..2, db0..2, n, B, H, W, chans[4], f32, plan (int64 launch
+    # records), stream
+    "tu_vgg_block_bwd": [_P, _I] + [_P] * 18 + [_I] * 9 + [_P, _P],
+    # dup, ridx, rw, nr, cidx, cw, nc, dx, B, H, W, C, f32, stream
+    "tu_upsample_adjoint": [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] + [_I] * 5 + [_P],
+    # B, H, W, C, f32, out (10 int64): the adjoint's launch plan (no stream)
+    "tu_upsample_adjoint_plan": [_I] * 5 + [_P],
     # logits, is_bf16, target, cls_weights, partial, ticket, loss, fscore,
     # res, n_pix (int64), C, with_dice, focal, alpha, gamma, tile, stages,
     # smem, grid, stream
@@ -101,7 +101,11 @@ SIGNATURES = {
 }
 
 # launches of each kernel wrapper; a wrapper adds one where it calls its
-# C entry and nowhere else
+# C entry and nowhere else.  A kernel with a float32 instantiation counts
+# its float32 launches under its key + "_f32" (:func:`count_key`).
+F32_KERNELS = ("vgg_stem", "vgg_block", "unetup", "upsample2x", "unetup_bwd", "unetup_wgrad",
+               "upsample_adjoint", "vgg_block2_fwd", "vgg_block3_fwd", "vgg_stem_bwd",
+               "vgg_block2_bwd", "vgg_block3_bwd", "final_ce_dice_fwd", "final_ce_dice_bwd")
 launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
                  "unetup": 0, "upsample2x": 0, "upconv": 0, "upconv_bwd": 0,
@@ -109,7 +113,8 @@ launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "upsample_adjoint": 0, "vgg_block2_fwd": 0,
                  "vgg_block3_fwd": 0, "vgg_stem_bwd": 0, "vgg_block2_bwd": 0,
                  "vgg_block3_bwd": 0, "final_ce_dice_fwd": 0,
-                 "final_ce_dice_bwd": 0, "ce_dice_fwd": 0, "ce_dice_bwd": 0}
+                 "final_ce_dice_bwd": 0, "ce_dice_fwd": 0, "ce_dice_bwd": 0,
+                 **{k + "_f32": 0 for k in F32_KERNELS}}
 
 _lock = threading.Lock()
 _lib = None
@@ -121,6 +126,21 @@ build_log = ""  # nvcc/ptxas output of the last build (registers, spills)
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def count_key(key: str, dtype: torch.dtype) -> str:
+    """The launch key of kernel ``key``'s instantiation for ``dtype``."""
+    return key + "_f32" if dtype == torch.float32 else key
+
+
+def conv_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    """The element type of a conv kernel's call: ``t``'s, which must be
+    bf16 or float32 (the two instantiations); no other is cast or taken."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: dtype {t.dtype}, the kernels take bf16 or float32")
+    return t.dtype
 
 
 def _sources():
@@ -265,16 +285,25 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
                              f"expected {tuple(shape)}")
 
 
-def pack_conv3x3(w: torch.Tensor, k_pad: int | None = None) -> torch.Tensor:
-    """OIHW (F, C, 3, 3) conv weight → (F, K) bf16 with
-    K index ``(ky * 3 + kx) * C + c``, zero-padded to ``k_pad`` columns, K
-    contiguous: the weight operand of the Hopper conv core, which reads it
-    as (F, 9, C) through TMA boxes of one tap's 64 channels
-    (``csrc/conv3x3_sm90.cuh``; ``kernels/sm90.py::weight_map``), and, at
-    C = 3 padded to 64 columns, of the stem's conv1_1 GEMM
-    (``csrc/stem.cu``)."""
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 (10 mantissa bits; to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``), stored as float32."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def pack_conv3x3(w: torch.Tensor, k_pad: int | None = None,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """OIHW (F, C, 3, 3) conv weight → (F, K) bf16 (or float32, its values
+    rounded to TF32 by :func:`round_tf32`) with K index ``(ky * 3 + kx) * C
+    + c``, zero-padded to ``k_pad`` columns, K contiguous: the weight
+    operand of the Hopper conv core, which reads it as (F, 9, C) through
+    TMA boxes of one tap's 128 bytes of channels (``csrc/conv3x3_sm90.cuh``;
+    ``kernels/sm90.py::weight_map``), and, at C = 3 padded to 128 bytes of
+    columns, of the stem's conv1_1 GEMM (``csrc/stem.cu``)."""
     f, c = w.shape[0], w.shape[1]
-    p = w.permute(0, 2, 3, 1).reshape(f, 9 * c).to(torch.bfloat16)
+    p = w.permute(0, 2, 3, 1).reshape(f, 9 * c)
+    p = round_tf32(p) if dtype == torch.float32 else p.to(dtype)
     if k_pad is not None and k_pad > 9 * c:
         p = torch.nn.functional.pad(p, (0, k_pad - 9 * c))
     return p.contiguous()

@@ -54,20 +54,23 @@ def unetup_shape_ok(H2: int, W2: int, cs: int, cx: int, f: int) -> bool:
 
 
 @functools.lru_cache(maxsize=64)
-def stage_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int) -> torch.Tensor:
-    """The launch records of a stage's two convs on the Hopper core."""
-    return sm90.encode(sm90.unetup_launches(B, H2, W2, cs, cx, f))
+def stage_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int,
+               f32: bool = False) -> torch.Tensor:
+    """The launch records of a stage's two convs on the Hopper core, in
+    bf16 or (``f32``) float32."""
+    return sm90.encode(sm90.unetup_launches(B, H2, W2, cs, cx, f, f32))
 
 
 def _stage_convs(skip, up, wt1, b1f, wt2, b2f, plan):
-    """conv1 over [skip | up] and conv2 per ``plan``: (out, y1)."""
+    """conv1 over [skip | up] and conv2 per ``plan``: (out, y1), in
+    ``skip``'s dtype."""
     B, H2, W2, cs = skip.shape
     cx, f = up.shape[-1], wt1.shape[0]
-    y1 = torch.empty((B, H2, W2, f), dtype=torch.bfloat16, device=skip.device)
+    y1 = torch.empty((B, H2, W2, f), dtype=skip.dtype, device=skip.device)
     out = torch.empty_like(y1)
     _build.call("tu_unetup", skip.data_ptr(), up.data_ptr(), wt1.data_ptr(), b1f.data_ptr(),
                 wt2.data_ptr(), b2f.data_ptr(), y1.data_ptr(), out.data_ptr(),
-                B, H2, W2, cs, cx, f, plan.data_ptr())
+                B, H2, W2, cs, cx, f, int(skip.dtype == torch.float32), plan.data_ptr())
     return out, y1
 
 
@@ -76,26 +79,27 @@ def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
     B, H, W, cx = x.shape
     cs, f = skip.shape[-1], w1.shape[0]
     H2, W2 = 2 * H, 2 * W
-    _build.check(x, "x", torch.bfloat16)
-    _build.check(skip, "skip", torch.bfloat16, (B, H2, W2, cs), x.device)
-    _build.check(w1, "w1", torch.bfloat16, (f, cs + cx, 3, 3), x.device)
-    _build.check(w2, "w2", torch.bfloat16, (f, f, 3, 3), x.device)
+    dt = _build.conv_dtype(x, "unetup")
+    _build.check(x, "x", dt)
+    _build.check(skip, "skip", dt, (B, H2, W2, cs), x.device)
+    _build.check(w1, "w1", dt, (f, cs + cx, 3, 3), x.device)
+    _build.check(w2, "w2", dt, (f, f, 3, 3), x.device)
     if not unetup_shape_ok(H2, W2, cs, cx, f):
         raise ValueError(f"unetup kernel: 2H={H2} % 8, 2W={W2} % 16, Cs={cs} "
                          f"% 8, Cx={cx} % 8, Cs+Cx % 32 and F={f} % 64 must "
                          "all be 0")
     up = _up2x_cuda(x)
-    out, y1 = _stage_convs(skip, up, _build.pack_conv3x3(w1), b1.float().contiguous(),
-                           _build.pack_conv3x3(w2), b2.float().contiguous(),
-                           stage_plan(B, H2, W2, cs, cx, f))
-    _build.launch_counts["unetup"] += 1
+    out, y1 = _stage_convs(skip, up, _build.pack_conv3x3(w1, dtype=dt), b1.float().contiguous(),
+                           _build.pack_conv3x3(w2, dtype=dt), b2.float().contiguous(),
+                           stage_plan(B, H2, W2, cs, cx, f, dt == torch.float32))
+    _build.launch_counts[_build.count_key("unetup", dt)] += 1
     return (out, y1) if want_y1 else out
 
 
 def unetup(skip, x, w1, b1, w2, b2):
     """Dispatching wrapper: plain version for CPU tensors, the CUDA kernels
-    for tensors on the card (bf16; 2H % 8, 2W % 16, Cs % 8, Cx % 8,
-    (Cs + Cx) % 32 and F % 64 all 0)."""
+    for tensors on the card (bf16, or float32 on TF32 products; 2H % 8, 2W
+    % 16, Cs % 8, Cx % 8, (Cs + Cx) % 32 and F % 64 all 0)."""
     if on_cpu(x):
         return unetup_plain(skip, x, w1, b1, w2, b2)
     return _unetup_cuda(skip, x, w1, b1, w2, b2)

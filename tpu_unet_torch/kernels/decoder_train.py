@@ -59,46 +59,47 @@ def flip_t(w: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def up2x_tables(h: int, w: int, device: torch.device):
+def up2x_tables(h: int, w: int, device: torch.device, dtype: torch.dtype = torch.bfloat16):
     """Row and column (idx, wts) tables of the ×2 align-corners upsample,
-    with bf16-rounded weights, on ``device`` (what the upsample kernel
-    reads)."""
-    ridx, rw = lerp_tables(h, 2 * h, True, torch.bfloat16)
-    cidx, cw = lerp_tables(w, 2 * w, True, torch.bfloat16)
+    with weights rounded to ``dtype``, on ``device`` (what the upsample
+    kernel reads)."""
+    ridx, rw = lerp_tables(h, 2 * h, True, dtype)
+    cidx, cw = lerp_tables(w, 2 * w, True, dtype)
     return tuple(t.contiguous().to(device) for t in (ridx, rw, cidx, cw))
 
 
 def _up2x_cuda(x):
     _build.no_grad_inputs("upsample2x", x)
     B, H, W, cx = x.shape
-    _build.check(x, "x", torch.bfloat16)
-    if cx % 8 or B * 4 * H * W * cx // 8 >= 2**32:
+    dt = _build.conv_dtype(x, "upsample2x")
+    _build.check(x, "x", dt)
+    if cx % 8 or B * 4 * H * W * cx * x.element_size() // 16 >= 2**32:
         raise ValueError(f"upsample2x kernel: Cx={cx} % 8 must be 0 and the output "
-                         "below 2^35 elements")
-    ridx, rw, cidx, cw = up2x_tables(H, W, x.device)
-    up = torch.empty((B, 2 * H, 2 * W, cx), dtype=torch.bfloat16, device=x.device)
+                         "below 2^36 bytes")
+    ridx, rw, cidx, cw = up2x_tables(H, W, x.device, dt)
+    up = torch.empty((B, 2 * H, 2 * W, cx), dtype=dt, device=x.device)
     _build.call("tu_upsample2x", x.data_ptr(), ridx.data_ptr(), rw.data_ptr(), cidx.data_ptr(),
-                cw.data_ptr(), up.data_ptr(), B, 2 * H, 2 * W, cx)
-    _build.launch_counts["upsample2x"] += 1
+                cw.data_ptr(), up.data_ptr(), B, 2 * H, 2 * W, cx, int(dt == torch.float32))
+    _build.launch_counts[_build.count_key("upsample2x", dt)] += 1
     return up
 
 
 def up2x(x):
     """Dispatching wrapper of the ×2 align-corners upsample of NHWC ``x``:
     ``nn/resize.py::upsample2x`` for CPU tensors, the CUDA kernel for
-    tensors on the card (bf16, C % 8 == 0; bit-equal to the plain version
-    in bf16)."""
+    tensors on the card (bf16 or float32, C % 8 == 0; bit-equal to the plain
+    version in either)."""
     if on_cpu(x):
         return upsample2x(x)
     return _up2x_cuda(x)
 
 
 @functools.lru_cache(maxsize=32)
-def _adjoint_tables(h: int, w: int, device: torch.device):
-    """Row and column gather tables of the upsample's adjoint, bf16
-    weights, on ``device``."""
+def _adjoint_tables(h: int, w: int, device: torch.device, dtype: torch.dtype = torch.bfloat16):
+    """Row and column gather tables of the upsample's adjoint, weights
+    rounded to ``dtype``, on ``device``."""
     return tuple(t.contiguous().to(device)
-                 for t in (*adjoint_tables(h, torch.bfloat16), *adjoint_tables(w, torch.bfloat16)))
+                 for t in (*adjoint_tables(h, dtype), *adjoint_tables(w, dtype)))
 
 
 class AdjointPlan(NamedTuple):
@@ -126,12 +127,13 @@ ADJ_SLOT_BYTES = (2 * ADJ_MAX_TH + 4) * 2 * 8
 
 
 @functools.lru_cache(maxsize=64)
-def adjoint_plan(B: int, h: int, w: int, c: int) -> AdjointPlan:
+def adjoint_plan(B: int, h: int, w: int, c: int, f32: bool = False) -> AdjointPlan:
     """The adjoint kernel's plan for dx (B, h, w, c): ``tw`` the power of
     two in 8..32 that covers w (or 32), ``cc`` the largest power-of-two
     chunk (≤ 256) dividing c with at most 256 consumer threads, ``th`` 64
     rows halved (to 8 at least) while the grid has fewer blocks than the
-    card has SMs, and at most h."""
+    card has SMs, and at most h; in float32 (``f32``) the same, its stage
+    and shared-memory bytes doubled."""
     tw = 8
     while tw < w and tw < 32:
         tw *= 2
@@ -143,17 +145,17 @@ def adjoint_plan(B: int, h: int, w: int, c: int) -> AdjointPlan:
         th //= 2
     th = min(th, h)
     bands = -(-h // th)
-    stage_bytes = ADJ_RPS * (2 * tw + 4) * cc * 2
+    stage_bytes = ADJ_RPS * (2 * tw + 4) * cc * (4 if f32 else 2)
     return AdjointPlan(tw, cc, th, strips, chunks, bands, -(-tw * (cc // 8) // 32) * 32,
                        stage_bytes, ADJ_STAGES * stage_bytes + ADJ_SLOT_BYTES
                        + 2 * ADJ_STAGES * 8 + 128, B * bands * chunks * strips)
 
 
-def adjoint_plan_on_card(B: int, h: int, w: int, c: int) -> AdjointPlan:
+def adjoint_plan_on_card(B: int, h: int, w: int, c: int, f32: bool = False) -> AdjointPlan:
     """The plan the kernel library itself computes at (B, h, w, c), to hold
     :func:`adjoint_plan` to (needs the CUDA build)."""
     out = (ctypes.c_longlong * len(AdjointPlan._fields))()
-    _build.query("tu_upsample_adjoint_plan", B, h, w, c, out)
+    _build.query("tu_upsample_adjoint_plan", B, h, w, c, int(f32), out)
     return AdjointPlan(*out)
 
 
@@ -186,10 +188,11 @@ def _check_stage(name, H2, W2, f, cp, cs):
 
 
 @functools.lru_cache(maxsize=64)
-def dgrad_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int) -> torch.Tensor:
+def dgrad_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int,
+               f32: bool = False) -> torch.Tensor:
     """The launch records of #13's two dgrads on the Hopper conv core
-    (``sm90.unetup_bwd_launches``)."""
-    return sm90.encode(sm90.unetup_bwd_launches(B, H2, W2, cs, cx, f))
+    (``sm90.unetup_bwd_launches``), in bf16 or (``f32``) float32."""
+    return sm90.encode(sm90.unetup_bwd_launches(B, H2, W2, cs, cx, f, f32))
 
 
 def _unetup_bwd_cuda(g, out, y1, w1, w2, cs):
@@ -197,30 +200,32 @@ def _unetup_bwd_cuda(g, out, y1, w1, w2, cs):
     B, H2, W2, f = g.shape
     cp = w1.shape[1]
     cx = cp - cs
-    bf = torch.bfloat16
-    _build.check(g, "g", bf)
+    dt = _build.conv_dtype(g, "unetup_bwd")
+    _build.check(g, "g", dt)
     for t, name in ((out, "out"), (y1, "y1")):
-        _build.check(t, name, bf, tuple(g.shape), g.device)
-    _build.check(w1, "w1", bf, (f, cp, 3, 3), g.device)
-    _build.check(w2, "w2", bf, (f, f, 3, 3), g.device)
+        _build.check(t, name, dt, tuple(g.shape), g.device)
+    _build.check(w1, "w1", dt, (f, cp, 3, 3), g.device)
+    _build.check(w2, "w2", dt, (f, f, 3, 3), g.device)
     _check_stage("unetup_bwd", H2, W2, f, cp, cs)
-    w2t = _build.pack_conv3x3(flip_t(w2))
-    w1t = _build.pack_conv3x3(flip_t(w1))
+    f32 = dt == torch.float32
+    w2t = _build.pack_conv3x3(flip_t(w2), dtype=dt)
+    w1t = _build.pack_conv3x3(flip_t(w1), dtype=dt)
     g2, dz1 = torch.empty_like(g), torch.empty_like(g)
-    dskip = torch.empty((B, H2, W2, cs), dtype=bf, device=g.device)
-    dups = torch.empty((B, H2, W2, cx), dtype=bf, device=g.device)
-    plan = dgrad_plan(B, H2, W2, cs, cx, f)
+    dskip = torch.empty((B, H2, W2, cs), dtype=dt, device=g.device)
+    dups = torch.empty((B, H2, W2, cx), dtype=dt, device=g.device)
+    plan = dgrad_plan(B, H2, W2, cs, cx, f, f32)
     _build.call("tu_unetup_bwd", g.data_ptr(), out.data_ptr(), y1.data_ptr(),
                 w2t.data_ptr(), w1t.data_ptr(), g2.data_ptr(), dz1.data_ptr(),
-                dskip.data_ptr(), dups.data_ptr(), B, H2, W2, cs, cx, f, plan.data_ptr())
-    _build.launch_counts["unetup_bwd"] += 1
+                dskip.data_ptr(), dups.data_ptr(), B, H2, W2, cs, cx, f, int(f32),
+                plan.data_ptr())
+    _build.launch_counts[_build.count_key("unetup_bwd", dt)] += 1
     return dskip, dups, g2, dz1
 
 
 def unetup_bwd(g, out, y1, w1, w2, cs: int):
     """Dispatching wrapper of #13: plain version for CPU tensors, the CUDA
-    kernel for tensors on the card (bf16; 2H % 8, 2W % 16, F % 64,
-    (Cs + Cx) % 64 and Cs % 8 all 0)."""
+    kernel for tensors on the card (bf16, or float32 on TF32 products; 2H %
+    8, 2W % 16, F % 64, (Cs + Cx) % 64 and Cs % 8 all 0)."""
     if on_cpu(g):
         return unetup_bwd_plain(g, out, y1, w1, w2, cs)
     return _unetup_bwd_cuda(g, out, y1, w1, w2, cs)
@@ -247,11 +252,11 @@ def unetup_wgrad_plain(skip, x, dz1, y1, g2):
 
 
 @functools.lru_cache(maxsize=64)
-def wgrad_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int):
+def wgrad_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int, f32: bool = False):
     """The launch records of a stage's three weight-gradient GEMMs on the
     Hopper core, their split counts and the float32 words of the work area
-    they share."""
-    launches = sm90.unetup_wgrad_launches(B, H2, W2, cs, cx, f)
+    they share, in bf16 or (``f32``) float32."""
+    launches = sm90.unetup_wgrad_launches(B, H2, W2, cs, cx, f, f32)
     return (sm90.encode(launches), tuple(ln["nsplit"] for ln in launches),
             sm90.wgrad_work(launches, f))
 
@@ -262,29 +267,31 @@ def _unetup_wgrad_cuda(skip, x, dz1, y1, g2):
     H2, W2, f = 2 * H, 2 * W, dz1.shape[-1]
     cs = skip.shape[-1]
     cp = cs + cx
-    bf = torch.bfloat16
-    _build.check(x, "x", bf)
-    _build.check(skip, "skip", bf, (B, H2, W2, cs), x.device)
+    dt = _build.conv_dtype(x, "unetup_wgrad")
+    _build.check(x, "x", dt)
+    _build.check(skip, "skip", dt, (B, H2, W2, cs), x.device)
     for t, name in ((dz1, "dz1"), (y1, "y1"), (g2, "g2")):
-        _build.check(t, name, bf, (B, H2, W2, f), x.device)
+        _build.check(t, name, dt, (B, H2, W2, f), x.device)
     _check_stage("unetup_wgrad", H2, W2, f, cp, cs)
-    plan, _, work_words = wgrad_plan(B, H2, W2, cs, cx, f)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    work = torch.empty(work_words, **f32)
-    dk1, db1 = torch.empty((f, cp, 3, 3), **f32), torch.empty(f, **f32)
-    dk2, db2 = torch.empty((f, f, 3, 3), **f32), torch.empty(f, **f32)
+    f32 = dt == torch.float32
+    plan, _, work_words = wgrad_plan(B, H2, W2, cs, cx, f, f32)
+    fl = dict(dtype=torch.float32, device=x.device)
+    work = torch.empty(work_words, **fl)
+    dk1, db1 = torch.empty((f, cp, 3, 3), **fl), torch.empty(f, **fl)
+    dk2, db2 = torch.empty((f, f, 3, 3), **fl), torch.empty(f, **fl)
     up = _up2x_cuda(x)
     _build.call("tu_unetup_wgrad", skip.data_ptr(), up.data_ptr(), dz1.data_ptr(),
                 y1.data_ptr(), g2.data_ptr(), work.data_ptr(), dk1.data_ptr(), db1.data_ptr(),
-                dk2.data_ptr(), db2.data_ptr(), B, H2, W2, cs, cx, f, plan.data_ptr())
-    _build.launch_counts["unetup_wgrad"] += 1
+                dk2.data_ptr(), db2.data_ptr(), B, H2, W2, cs, cx, f, int(f32),
+                plan.data_ptr())
+    _build.launch_counts[_build.count_key("unetup_wgrad", dt)] += 1
     return dk1, db1, dk2, db2
 
 
 def unetup_wgrad(skip, x, dz1, y1, g2):
     """Dispatching wrapper of the stage's weight and bias gradients: plain
-    version for CPU tensors, the CUDA kernel for tensors on the card (bf16;
-    the shapes of :func:`unetup_bwd`)."""
+    version for CPU tensors, the CUDA kernel for tensors on the card (bf16,
+    or float32 on TF32 products; the shapes of :func:`unetup_bwd`)."""
     if on_cpu(x):
         return unetup_wgrad_plain(skip, x, dz1, y1, g2)
     return _unetup_wgrad_cuda(skip, x, dz1, y1, g2)
@@ -293,22 +300,23 @@ def unetup_wgrad(skip, x, dz1, y1, g2):
 def _upsample_adjoint_cuda(dup, h, w):
     _build.no_grad_inputs("upsample_adjoint", dup)
     B, c = dup.shape[0], dup.shape[-1]
-    _build.check(dup, "dup", torch.bfloat16, (B, 2 * h, 2 * w, c))
+    dt = _build.conv_dtype(dup, "upsample_adjoint")
+    _build.check(dup, "dup", dt, (B, 2 * h, 2 * w, c))
     if c % 8:
         raise ValueError(f"upsample_adjoint kernel: C={c} % 8 must be 0")
-    ridx, rw, cidx, cw = _adjoint_tables(h, w, dup.device)
-    dx = torch.empty((B, h, w, c), dtype=torch.bfloat16, device=dup.device)
+    ridx, rw, cidx, cw = _adjoint_tables(h, w, dup.device, dt)
+    dx = torch.empty((B, h, w, c), dtype=dt, device=dup.device)
     _build.call("tu_upsample_adjoint", dup.data_ptr(), ridx.data_ptr(), rw.data_ptr(),
                 ridx.shape[1], cidx.data_ptr(), cw.data_ptr(), cidx.shape[1], dx.data_ptr(),
-                B, h, w, c)
-    _build.launch_counts["upsample_adjoint"] += 1
+                B, h, w, c, int(dt == torch.float32))
+    _build.launch_counts[_build.count_key("upsample_adjoint", dt)] += 1
     return dx
 
 
 def upsample2x_adjoint(dup, h: int, w: int):
     """Dispatching wrapper of the ×2 upsample's adjoint, (B, 2h, 2w, C) →
     (B, h, w, C): plain version for CPU tensors, the CUDA kernel for tensors
-    on the card (bf16, C % 8 == 0)."""
+    on the card (bf16 or float32, C % 8 == 0)."""
     if on_cpu(dup):
         return upsample2x_adjoint_plain(dup, h, w)
     return _upsample_adjoint_cuda(dup, h, w)

@@ -35,54 +35,54 @@ def vgg_block_shape_ok(H: int, W: int, chans) -> bool:
 
 
 @functools.lru_cache(maxsize=64)
-def block_plan(B: int, H: int, W: int, chans: tuple, pool: bool) -> torch.Tensor:
+def block_plan(B: int, H: int, W: int, chans: tuple, pool: bool,
+               f32: bool = False) -> torch.Tensor:
     """The launch records of a block's forward on the Hopper core, one a
-    conv (the last pooling when ``pool``)."""
-    return sm90.encode(sm90.block_fwd_launches(B, H, W, chans, pool))
+    conv (the last pooling when ``pool``), in bf16 or (``f32``) float32."""
+    return sm90.encode(sm90.block_fwd_launches(B, H, W, chans, pool, f32))
 
 
 def _vgg_block_cuda(x, ws, bs, pool, key="vgg_block"):
     """The kernel; returns (skip, pooled or None, [the intermediate ReLU
     outputs]), counted under ``key`` (the training forward's keys name the
-    JAX kernel it stands for)."""
+    JAX kernel it stands for; float32 under its ``_f32`` key)."""
     _build.no_grad_inputs(key, x, ws, bs)
     n = len(ws)
     B, H, W, C = x.shape
     chans = [C] + [int(w.shape[0]) for w in ws]
-    _build.check(x, "x", torch.bfloat16)
+    dt = _build.conv_dtype(x, key)
+    _build.check(x, "x", dt)
     if n not in (2, 3) or len(bs) != n:
         raise ValueError(f"vgg_block kernel takes 2 or 3 convs, got {n}")
     for i, w in enumerate(ws):
-        _build.check(w, f"ws[{i}]", torch.bfloat16,
-                     (chans[i + 1], chans[i], 3, 3), x.device)
+        _build.check(w, f"ws[{i}]", dt, (chans[i + 1], chans[i], 3, 3), x.device)
     if not vgg_block_shape_ok(H, W, chans):
         raise ValueError(f"vgg_block kernel: H={H} % 8, W={W} % 16, input "
                          f"widths % 32 and output widths % 64 must be 0 "
                          f"(chans {chans})")
-    wts = [_build.pack_conv3x3(w) for w in ws]
+    f32 = dt == torch.float32
+    wts = [_build.pack_conv3x3(w, dtype=dt) for w in ws]
     bfs = [b.float().contiguous() for b in bs]
-    mids = [torch.empty((B, H, W, c), dtype=torch.bfloat16, device=x.device)
-            for c in chans[1:-1]]
-    skip = torch.empty((B, H, W, chans[-1]), dtype=torch.bfloat16,
-                       device=x.device)
-    pooled = (torch.empty((B, H // 2, W // 2, chans[-1]), dtype=torch.bfloat16,
-                          device=x.device) if pool else None)
+    mids = [torch.empty((B, H, W, c), dtype=dt, device=x.device) for c in chans[1:-1]]
+    skip = torch.empty((B, H, W, chans[-1]), dtype=dt, device=x.device)
+    pooled = (torch.empty((B, H // 2, W // 2, chans[-1]), dtype=dt, device=x.device)
+              if pool else None)
     pad = [None] * (3 - n)
-    plan = block_plan(B, H, W, tuple(chans), pool)
+    plan = block_plan(B, H, W, tuple(chans), pool, f32)
     _build.call("tu_vgg_block", x.data_ptr(), n,
                 *[t.data_ptr() for t in wts], *pad,
                 *[t.data_ptr() for t in bfs], *pad,
                 *[t.data_ptr() for t in mids], *([None] * (2 - len(mids))),
                 skip.data_ptr(), _build.ptr(pooled), B, H, W,
-                *chans, *([0] * (4 - len(chans))), plan.data_ptr())
-    _build.launch_counts[key] += 1
+                *chans, *([0] * (4 - len(chans))), int(f32), plan.data_ptr())
+    _build.launch_counts[_build.count_key(key, dt)] += 1
     return skip, pooled, mids
 
 
 def vgg_block(x, ws, bs, pool: bool = True):
     """Dispatching wrapper: plain version for CPU tensors, the CUDA kernel
-    for tensors on the card (bf16; H % 8, W % 16, input widths % 32 and
-    output widths % 64 all 0)."""
+    for tensors on the card (bf16, or float32 on TF32 products; H % 8, W %
+    16, input widths % 32 and output widths % 64 all 0)."""
     if on_cpu(x):
         return vgg_block_plain(x, ws, bs, pool)
     return _vgg_block_cuda(x, ws, bs, pool)[:2]

@@ -94,15 +94,15 @@ def vgg_block_train_ok(H: int, W: int, chans) -> bool:
 
 
 @functools.lru_cache(maxsize=64)
-def bwd_plan(B: int, H: int, W: int, chans: tuple, want_dx: bool):
+def bwd_plan(B: int, H: int, W: int, chans: tuple, want_dx: bool, f32: bool = False):
     """The launch records of a stage's backward on the Hopper kernels and
     each conv's split count: a block's two or three convs
     (``sm90.block_bwd_launches``: conv i's weight gradient at 2i, its dgrad
     at 2i + 1; none for conv 0's without dx), or the stem's (``chans[0] ==
     3``, ``sm90.stem_bwd_launches``: conv1_1's weight gradient over the
-    image, no dgrad; conv1_2's two)."""
-    launches = sm90.stem_bwd_launches(B, H, W, chans[1]) if chans[0] == 3 else \
-        sm90.block_bwd_launches(B, H, W, chans, want_dx)
+    image, no dgrad; conv1_2's two); in bf16 or (``f32``) float32."""
+    launches = sm90.stem_bwd_launches(B, H, W, chans[1], f32) if chans[0] == 3 else \
+        sm90.block_bwd_launches(B, H, W, chans, want_dx, f32)
     return sm90.encode(launches), tuple(ln["nsplit"] for ln in launches[0::2])
 
 
@@ -111,29 +111,32 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
     n = len(ws)
     B, H, W, c0 = x.shape
     chans = [c0] + [int(w.shape[0]) for w in ws]
-    bf = torch.bfloat16
+    dt = _build.conv_dtype(x, key)
+    f32 = dt == torch.float32
     if n not in (2, 3) or len(mids) != n - 1:
         raise ValueError(f"{key} kernel takes 2 or 3 convs and their n - 1 intermediates")
-    _build.check(x, "x", bf)
+    _build.check(x, "x", dt)
     ok = (vgg_stem_shape_ok(H, W, chans[1]) and chans == [3, chans[1], chans[1]]) if is_image \
         else vgg_block_train_ok(H, W, chans)
     if not ok:
         raise ValueError(f"{key} kernel: H={H} % 8, W={W} % 16 and the widths {chans} % 64 "
                          "(the stem's image 3) must all be 0")
     for i, w in enumerate(ws):
-        _build.check(w, f"ws[{i}]", bf, (chans[i + 1], chans[i], 3, 3), x.device)
+        _build.check(w, f"ws[{i}]", dt, (chans[i + 1], chans[i], 3, 3), x.device)
     for i, m in enumerate(mids):
-        _build.check(m, f"mids[{i}]", bf, (B, H, W, chans[i + 1]), x.device)
-    _build.check(out, "out", bf, (B, H, W, chans[-1]), x.device)
-    _build.check(dskip, "dskip", bf, (B, H, W, chans[-1]), x.device)
+        _build.check(m, f"mids[{i}]", dt, (B, H, W, chans[i + 1]), x.device)
+    _build.check(out, "out", dt, (B, H, W, chans[-1]), x.device)
+    _build.check(dskip, "dskip", dt, (B, H, W, chans[-1]), x.device)
     if dpool is not None:
-        _build.check(dpool, "dpool", bf, (B, H // 2, W // 2, chans[-1]), x.device)
+        _build.check(dpool, "dpool", dt, (B, H // 2, W // 2, chans[-1]), x.device)
     # the dgrad weights flipT(w_i), (Cin_i, 9 Cout_i); conv 0's only for dx
-    wts = [None if i == 0 and not want_dx else _build.pack_conv3x3(flip_t(w))
+    wts = [None if i == 0 and not want_dx else _build.pack_conv3x3(flip_t(w), dtype=dt)
            for i, w in enumerate(ws)]
-    kpad = [-(-9 * c // 64) * 64 for c in chans[:-1]]
-    plan, ns = bwd_plan(B, H, W, tuple(chans), bool(want_dx))
-    work = torch.empty(max(ns[i] * chans[i + 1] * (kpad[i] + 1) for i in range(n)),
+    plan, ns = bwd_plan(B, H, W, tuple(chans), bool(want_dx), f32)
+    # each GEMM's K (the image GEMM's padded columns) for the shared work area
+    ks = [sm90.slice_c(f32) if is_image and i == 0 else 9 * sm90.tap_width(c, f32)
+          for i, c in enumerate(chans[:-1])]
+    work = torch.empty(max(ns[i] * chans[i + 1] * (ks[i] + 1) for i in range(n)),
                        dtype=torch.float32, device=x.device)
     ga, gb = torch.empty_like(out), torch.empty_like(out)
     dx = torch.empty_like(x) if want_dx else None
@@ -146,8 +149,8 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
                 dskip.data_ptr(), _build.ptr(dpool), *[_build.ptr(t) for t in wts], *pad,
                 ga.data_ptr(), gb.data_ptr(), _build.ptr(dx), work.data_ptr(),
                 *[t.data_ptr() for t in dks], *pad, *[t.data_ptr() for t in dbs], *pad,
-                n, B, H, W, *chans, *([0] * (4 - len(chans))), plan.data_ptr())
-    _build.launch_counts[key] += 1
+                n, B, H, W, *chans, *([0] * (4 - len(chans))), int(f32), plan.data_ptr())
+    _build.launch_counts[_build.count_key(key, dt)] += 1
     return dx, dks, dbs
 
 
@@ -159,8 +162,8 @@ def block_key(n_convs: int, phase: str) -> str:
 
 def vgg_block_bwd(dskip, dpool, x, mids, out, ws, want_dx=True):
     """Dispatching wrapper of #22 / #24: plain version for CPU tensors, the
-    CUDA kernel for tensors on the card (bf16; the shapes of
-    ``vgg_block_shape_ok``, every width % 64)."""
+    CUDA kernel for tensors on the card (bf16, or float32 on TF32 products;
+    the shapes of ``vgg_block_shape_ok``, every width % 64)."""
     if on_cpu(x):
         return vgg_block_bwd_plain(dskip, dpool, x, mids, out, ws, want_dx)
     return _bwd_cuda(block_key(len(ws), "bwd"), dskip, dpool, x, mids, out, ws, want_dx, False)
@@ -168,8 +171,8 @@ def vgg_block_bwd(dskip, dpool, x, mids, out, ws, want_dx=True):
 
 def vgg_stem_bwd(dskip, dpool, x, a1, out, w11, w12):
     """Dispatching wrapper of #20: plain version for CPU tensors, the CUDA
-    kernel for tensors on the card (bf16 image; the stem kernel's shapes,
-    ``vgg_stem_shape_ok``)."""
+    kernel for tensors on the card (a bf16 or float32 image, as the
+    weights; the stem kernel's shapes, ``vgg_stem_shape_ok``)."""
     if on_cpu(x):
         return vgg_stem_bwd_plain(dskip, dpool, x, a1, out, w11, w12)
     _, dks, dbs = _bwd_cuda("vgg_stem_bwd", dskip, dpool, x, [a1], out, [w11, w12], False, True)

@@ -67,10 +67,9 @@ Numerics, as ``_reduce_body`` / ``_grad_body`` / ``_fwd_impl`` /
 Limits: 1 ≤ C ≤ 126 (JAX's int8 target encoding, loss.py:220-224,
 670-673), 64 features for #27 / #29.  The CUDA kernels read one byte a
 target (:func:`pack_targets`, as JAX casts ``min(target, C)`` to int8
-before its kernels) and take bf16 or float32 logits / features.  The train
-step reaches only bf16 on the card today (``train/step.py::check_ported``);
-the float32 instantiations match JAX's float32 kernel cases and wait for
-the f32 compute path of training (ROADMAP §1).
+before its kernels) and take bf16 or float32 logits / features.  The
+float32 train step of ``unet_vgg`` reaches #27 / #29's float32
+instantiations, counted under their ``_f32`` launch keys.
 """
 from __future__ import annotations
 
@@ -367,7 +366,7 @@ def _fwd_cuda(feats, w, b, target, cls_weights, num_classes, with_dice):
                 t8.data_ptr(), wt.data_ptr(), bt.data_ptr(), cw.data_ptr(), partial.data_ptr(),
                 _ticket(dev).data_ptr(), loss.data_ptr(), fscore.data_ptr(), res.data_ptr(), n,
                 c, int(with_dice), plan.np, plan.stages, plan.smem, grid)
-    _build.launch_counts["final_ce_dice_fwd"] += 1
+    _build.launch_counts[_build.count_key("final_ce_dice_fwd", feats.dtype)] += 1
     return loss, fscore, (res[0], res[1:1 + c], res[1 + c:1 + 2 * c]), res[1 + 2 * c:]
 
 
@@ -396,7 +395,7 @@ def _bwd_cuda(feats, w, b, target, cls_weights, num_classes, with_dice, residual
                 _ticket(dev).data_ptr(), dfeat.data_ptr(), dw.data_ptr(), db.data_ptr(),
                 coefs.data_ptr(), n, c, int(with_dice), int(gdt == torch.bfloat16),
                 plan.np, plan.stages, plan.smem, grid)
-    _build.launch_counts["final_ce_dice_bwd"] += 1
+    _build.launch_counts[_build.count_key("final_ce_dice_bwd", feats.dtype)] += 1
     return (dfeat, dw.reshape(w.shape).to(w.dtype), db.to(b.dtype), coefs, partial)
 
 

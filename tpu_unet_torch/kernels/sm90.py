@@ -12,6 +12,17 @@ record's tile and encodes the maps.
 The ring's stages and shared memory follow from the tile: the C side
 derives them (``ConvSmem``, ``WgradSmem``) and a plan states them for the
 CPU tests, which reach every number.
+
+Every plan is in an element type: bf16, or float32 with ``f32=True`` (the
+float32 training path; its products are TF32).  A record names it (its
+word 10), and the C entries refuse a record of the other type.  In float32
+a box's 128 bytes hold 32 channels, not 64: the conv core's K slices and
+the weight-gradient GEMM's tap widths follow, the stage bytes stay, and the
+epilogue's float32 tile takes twice the bytes, so the persistence test is
+made again (:func:`conv_own_staging`).  The weight-gradient GEMM in
+float32 is another kernel (``mma.sync`` TF32 from the same boxes: .tf32
+``wgmma`` takes no transposed operand) with tiles of its own
+(:func:`wgrad_launch`).
 """
 from __future__ import annotations
 
@@ -21,81 +32,102 @@ import torch
 
 PATCH_H, PATCH_W = 8, 16           # a tile's pixels: 8 rows x 16 columns
 PATCH = PATCH_H * PATCH_W
-SLICE_C = 64                       # channels of a box (128 bytes, the swizzle span)
-BOX_BYTES = PATCH * SLICE_C * 2
+BOX_BYTES = PATCH * 128            # a box: a tile's pixels by 128 bytes (the swizzle span)
 CONSUMERS = 256                    # two consumer warpgroups (and one producer)
 RING_BYTES = 192 * 1024            # the TMA ring (the conv kernel's where it stages in it)
 SMEM_MAX = 232448                  # a block's dynamic shared memory on an H100, 227 KB
 SMS = 132                          # an H100 SXM's streaming multiprocessors
 OP_FWD, OP_FWD_POOL, OP_DGRAD_MASK, OP_DGRAD_SPLIT, OP_WGRAD, OP_WGRAD_IMAGE, OP_FWD_IMAGE = \
     range(7)
-HEAD_WORDS, MAP_WORDS = 10, 12
+HEAD_WORDS, MAP_WORDS = 11, 12
 PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS
+
+
+def itemsize(f32: bool = False) -> int:
+    """Bytes of an element: 2 (bf16) or 4 (float32)."""
+    return 4 if f32 else 2
+
+
+def slice_c(f32: bool = False) -> int:
+    """Channels of a box's 128 bytes: 64 bf16, 32 float32."""
+    return 128 // itemsize(f32)
 
 
 def conv_stage_bytes(tile_n: int, tile_m: int = PATCH) -> int:
     """One stage of the conv kernel's ring: an input box of ``tile_m``
-    pixels and a weight box, 64 channels each."""
-    return (tile_m + tile_n) * SLICE_C * 2
+    pixels and a weight box, 128 bytes of channels each (in either
+    type)."""
+    return (tile_m + tile_n) * 128
 
 
-def conv_out_bytes(tile_n: int, tile_m: int = PATCH) -> int:
-    """The conv kernel's epilogue tile: bf16 rows of tile_n + 8 channels."""
-    return tile_m * (tile_n + 8) * 2
+def conv_out_bytes(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> int:
+    """The conv kernel's epilogue tile: rows of tile_n channels and 16
+    bytes of padding, in the element type."""
+    es = itemsize(f32)
+    return tile_m * (tile_n + 16 // es) * es
 
 
-def conv_own_staging(tile_n: int, tile_m: int = PATCH) -> bool:
+def conv_own_staging(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> bool:
     """Whether the epilogue tile has shared memory of its own (and a block
     walks many tiles, the producer filling the ring during the epilogue):
-    where that leaves the ring at least 4 stages."""
-    fit = (SMEM_MAX - 2048 - conv_out_bytes(tile_n, tile_m)) // conv_stage_bytes(tile_n, tile_m)
+    where that leaves the ring at least 4 stages.  In float32 the tile's
+    bytes double: 128 × 192 and 256 × 64 tiles are persistent in bf16 and
+    not in float32."""
+    fit = (SMEM_MAX - 2048 - conv_out_bytes(tile_n, tile_m, f32)) // \
+        conv_stage_bytes(tile_n, tile_m)
     return fit >= 4
 
 
-def conv_stages(tile_n: int, tile_m: int = PATCH) -> int:
+def conv_stages(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> int:
     """Ring stages of the conv kernel: beside its own epilogue tile, as many
     as fit (at most 8); else as many as 192 KB hold, the epilogue tile
     staged in the ring."""
     stage = conv_stage_bytes(tile_n, tile_m)
-    if conv_own_staging(tile_n, tile_m):
-        return min(8, (SMEM_MAX - 2048 - conv_out_bytes(tile_n, tile_m)) // stage)
+    if conv_own_staging(tile_n, tile_m, f32):
+        return min(8, (SMEM_MAX - 2048 - conv_out_bytes(tile_n, tile_m, f32)) // stage)
     return RING_BYTES // stage
 
 
-def conv_smem(tile_n: int, tile_m: int = PATCH) -> int:
+def conv_smem(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> int:
     """Dynamic shared memory of the conv kernel: the ring, the epilogue
-    tile where it has its own, the barriers and 1024 bytes to align the
-    ring."""
-    n = conv_stages(tile_n, tile_m)
-    out = conv_out_bytes(tile_n, tile_m) if conv_own_staging(tile_n, tile_m) else 0
+    tile where it has its own, the barriers and 1024 spare bytes (the
+    ring is aligned by its declaration)."""
+    n = conv_stages(tile_n, tile_m, f32)
+    out = conv_out_bytes(tile_n, tile_m, f32) if conv_own_staging(tile_n, tile_m, f32) else 0
     return n * conv_stage_bytes(tile_n, tile_m) + out + 2 * n * 8 + 1024
 
 
-def tap_width(c: int) -> int:
+def tap_width(c: int, f32: bool = False) -> int:
     """A tap's columns in the weight-gradient GEMM's K: C padded to a
-    multiple of 64 (one TMA box never straddles two taps)."""
-    return -(-c // SLICE_C) * SLICE_C
+    box's channels, 64 (bf16) or 32 (float32), so one TMA box never
+    straddles two taps."""
+    s = slice_c(f32)
+    return -(-c // s) * s
 
 
-def wgrad_stage_boxes(tile_f: int, tile_n: int) -> int:
-    """TMA boxes a stage of the weight-gradient kernel holds: at 128 f, two
-    gradient boxes and tile_n / 64 input boxes; at 64 f (the warpgroups
-    splitting the 128 columns), one gradient box and two input boxes."""
+def wgrad_stage_boxes(tile_f: int, tile_n: int, f32: bool = False) -> int:
+    """TMA boxes a stage of the weight-gradient kernel holds.  bf16: at 128
+    f, two gradient boxes and tile_n / 64 input boxes; at 64 f (the
+    warpgroups splitting the 128 columns), one gradient box and two input
+    boxes.  float32: tile_f / 32 gradient boxes and tile_n / 32 input
+    boxes."""
+    if f32:
+        return tile_f // 32 + tile_n // 32
     return 2 + tile_n // 64 if tile_f == 128 else 3
 
 
-def wgrad_stages(tile_n: int, tile_f: int = 128) -> int:
+def wgrad_stages(tile_n: int, tile_f: int = 128, f32: bool = False) -> int:
     """Ring stages of the weight-gradient kernel: as many as 192 KB hold."""
-    return RING_BYTES // (wgrad_stage_boxes(tile_f, tile_n) * BOX_BYTES)
+    return RING_BYTES // (wgrad_stage_boxes(tile_f, tile_n, f32) * BOX_BYTES)
 
 
-def wgrad_smem(tile_n: int, tile_f: int = 128) -> int:
+def wgrad_smem(tile_n: int, tile_f: int = 128, f32: bool = False) -> int:
     """Dynamic shared memory of the weight-gradient kernel: the ring, the
-    bias partials (8 floats a consumer thread), the barriers and the
-    alignment."""
-    n = wgrad_stages(tile_n, tile_f)
-    return (n * wgrad_stage_boxes(tile_f, tile_n) * BOX_BYTES + CONSUMERS * 8 * 4 + 2 * n * 8
-            + 1024)
+    bias partials (8 floats a consumer thread in bf16, 4 in float32), the
+    barriers and 1024 spare bytes."""
+    n = wgrad_stages(tile_n, tile_f, f32)
+    return (n * wgrad_stage_boxes(tile_f, tile_n, f32) * BOX_BYTES
+            + CONSUMERS * (4 if f32 else 8) * 4 + 2 * n * 8 + 1024)
 
 
 def widest_tile(n: int) -> int:
@@ -114,30 +146,30 @@ def conv_tile_n(n: int) -> int:
     return 192 if n % 192 == 0 and n % 256 else widest_tile(n)
 
 
-def tensor_map(dims, box) -> dict:
-    """A bf16 tensor map: ``dims`` and ``box`` innermost first, the byte
-    strides of dims 1.. of the dense tensor."""
-    strides, s = [], 2
+def tensor_map(dims, box, f32: bool = False) -> dict:
+    """A tensor map of bf16 (or float32) elements: ``dims`` and ``box``
+    innermost first, the byte strides of dims 1.. of the dense tensor."""
+    strides, s = [], itemsize(f32)
     for d in dims[:-1]:
         s *= d
         strides.append(s)
     return {"dims": tuple(dims), "strides": tuple(strides), "box": tuple(box)}
 
 
-def nhwc_map(B: int, H: int, W: int, C: int, patch_h: int = PATCH_H) -> dict:
+def nhwc_map(B: int, H: int, W: int, C: int, patch_h: int = PATCH_H, f32: bool = False) -> dict:
     """(B, H, W, C) activations; the box is a tile's ``patch_h`` x 16
-    pixels by 64 channels."""
-    return tensor_map((C, W, H, B), (SLICE_C, PATCH_W, patch_h, 1))
+    pixels by 128 bytes of channels (64 bf16, 32 float32)."""
+    return tensor_map((C, W, H, B), (slice_c(f32), PATCH_W, patch_h, 1), f32)
 
 
-def weight_map(C: int, F: int, tile_n: int) -> dict:
-    """Packed weights (F, 9C) seen as (F, 9, C); the box is one tap's 64
-    channels of tile_n output channels."""
-    return tensor_map((C, 9, F), (SLICE_C, 1, tile_n))
+def weight_map(C: int, F: int, tile_n: int, f32: bool = False) -> dict:
+    """Packed weights (F, 9C) seen as (F, 9, C); the box is one tap's 128
+    bytes of channels of tile_n output channels."""
+    return tensor_map((C, 9, F), (slice_c(f32), 1, tile_n), f32)
 
 
 def conv_launch(op: int, B: int, H: int, W: int, C: int, F: int, C2: int = 0,
-                tile_m: int = PATCH, split: int | None = None) -> dict:
+                tile_m: int = PATCH, split: int | None = None, f32: bool = False) -> dict:
     """One 3×3 SAME conv (B, H, W, C [+ C2]) → (B, H, W, F) on the conv
     core: the forward (``OP_FWD`` / ``OP_FWD_POOL``) or a dgrad (C is then
     the output gradient's width and F the input's): ``OP_DGRAD_MASK``, or
@@ -153,31 +185,35 @@ def conv_launch(op: int, B: int, H: int, W: int, C: int, F: int, C2: int = 0,
     on the 132 SMs.  The grid's x is the tile count, the F / tile_n tiles of
     one patch adjacent (the kernel launches one block an SM that walks them
     where its epilogue tile has memory of its own,
-    :func:`conv_own_staging`)."""
+    :func:`conv_own_staging`).  With ``f32`` the launch is float32's: the
+    same tiles (the wider tile still reads the fewest L2 bytes a FLOP), K
+    slices of 32 channels, its own persistence and stages."""
     tile_n = conv_tile_n(F)
     patch_h = tile_m // PATCH_W
     tiles_m = B * (H // patch_h) * (W // PATCH_W)
-    maps = [nhwc_map(B, H, W, C, patch_h), weight_map(C + C2, F, tile_n)]
+    sl = slice_c(f32)
+    maps = [nhwc_map(B, H, W, C, patch_h, f32), weight_map(C + C2, F, tile_n, f32)]
     if C2:
-        maps.append(nhwc_map(B, H, W, C2, patch_h))
+        maps.append(nhwc_map(B, H, W, C2, patch_h, f32))
     ln = {"op": op, "tile": (tile_m, tile_n), "grid": ((F // tile_n) * tiles_m, 1, 1),
-          "smem": conv_smem(tile_n, tile_m), "stages": conv_stages(tile_n, tile_m),
-          "nsplit": 1, "k_slices": 9 * (-(-C // SLICE_C) + -(-C2 // SLICE_C)),
-          "maps": maps}
+          "smem": conv_smem(tile_n, tile_m, f32), "stages": conv_stages(tile_n, tile_m, f32),
+          "nsplit": 1, "k_slices": 9 * (-(-C // sl) + -(-C2 // sl)),
+          "maps": maps, "f32": f32}
     if op == OP_DGRAD_SPLIT:
         ln["out"] = (F if split is None else split, 0, 0)
     return ln
 
 
-def k_walk(C: int, C2: int = 0):
+def k_walk(C: int, C2: int = 0, f32: bool = False):
     """The conv core's K slices in the producer's order: per tap, in's
-    ceil(C / 64) slices, then in2's ceil(C2 / 64); each as (tap, map, c0,
-    wc) — map 0 (in) or 2 (in2), the slice's first channel in that map and
-    in the weights (F, 9, C + C2)."""
+    ceil(C / s) slices, then in2's ceil(C2 / s) (s = 64 bf16, 32 float32
+    channels); each as (tap, map, c0, wc) — map 0 (in) or 2 (in2), the
+    slice's first channel in that map and in the weights (F, 9, C + C2)."""
+    s = slice_c(f32)
     out = []
     for tap in range(9):
-        out += [(tap, 0, c0, c0) for c0 in range(0, C, SLICE_C)]
-        out += [(tap, 2, c0, C + c0) for c0 in range(0, C2, SLICE_C)]
+        out += [(tap, 0, c0, c0) for c0 in range(0, C, s)]
+        out += [(tap, 2, c0, C + c0) for c0 in range(0, C2, s)]
     return out
 
 
@@ -214,7 +250,7 @@ def split_ranges(npatch: int, nsplit: int):
 
 
 def wgrad_launch(B: int, H: int, W: int, C: int, F: int, out_channels: int | None = None,
-                 out_offset: int = 0, bias: bool = True) -> dict:
+                 out_offset: int = 0, bias: bool = True, f32: bool = False) -> dict:
     """The weight gradient (F, 9C) of a conv with input (B, H, W, C) and
     output gradient (B, H, W, F) over K = 9 ``tap_width(C)`` columns, split
     over the 8 × 16 pixel patches.  Tiles of 128 f × 128 K-columns (64
@@ -223,28 +259,36 @@ def wgrad_launch(B: int, H: int, W: int, C: int, F: int, out_channels: int | Non
     so that neither idles (the last tile may hold 64 columns).  Its reduce
     pass writes channels [out_offset, out_offset + C) of an (F,
     out_channels, 3, 3) gradient (default: the whole (F, C, 3, 3)) and,
-    with ``bias``, the bias gradient."""
-    cp = tap_width(C)
-    tile_f = 64 if F == 64 else 128
-    tile_n = 128 if tile_f == 64 else min(128, widest_tile(cp))
+    with ``bias``, the bias gradient.  With ``f32`` the float32 GEMM
+    (``mma.sync`` TF32): taps padded to 32 columns, tiles of 128 f × 64
+    columns, or 64 f × 128 where F % 128 != 0 (8 warps of 32 × 32 either
+    way; the last column tile may hold fewer), two stages of 96 KB."""
+    cp = tap_width(C, f32)
+    if f32:
+        tile_f = 128 if F % 128 == 0 else 64
+        tile_n = 64 if tile_f == 128 else 128
+    else:
+        tile_f = 64 if F == 64 else 128
+        tile_n = 128 if tile_f == 64 else min(128, widest_tile(cp))
     npatch = B * (H // PATCH_H) * (W // PATCH_W)
     grid_xy = (-(-(9 * cp) // tile_n), -(-F // tile_f))
     ns = wgrad_splits(grid_xy[0] * grid_xy[1], npatch)
     return {"op": OP_WGRAD, "tile": (tile_f, tile_n), "grid": (*grid_xy, ns),
-            "smem": wgrad_smem(tile_n, tile_f), "stages": wgrad_stages(tile_n, tile_f),
+            "smem": wgrad_smem(tile_n, tile_f, f32), "stages": wgrad_stages(tile_n, tile_f, f32),
             "nsplit": ns,
             "npatch": npatch, "k": 9 * cp,
             "out": (C if out_channels is None else out_channels, out_offset, int(bias)),
-            "maps": [nhwc_map(B, H, W, F), nhwc_map(B, H, W, C)]}
+            "maps": [nhwc_map(B, H, W, F, f32=f32), nhwc_map(B, H, W, C, f32=f32)], "f32": f32}
 
 
-def wgrad_image_stages() -> int:
-    """Ring stages of the image GEMM: a G box and a gathered im2col box a
-    stage, as many as half of 192 KB hold (two blocks an SM)."""
-    return RING_BYTES // 2 // (2 * BOX_BYTES)
+def wgrad_image_stages(f32: bool = False) -> int:
+    """Ring stages of the image GEMM: a G box (float32: two) and a gathered
+    im2col box a stage, as many as half of 192 KB hold (two blocks an
+    SM)."""
+    return RING_BYTES // 2 // ((3 if f32 else 2) * BOX_BYTES)
 
 
-def wgrad_image_launch(B: int, H: int, W: int, F: int) -> dict:
+def wgrad_image_launch(B: int, H: int, W: int, F: int, f32: bool = False) -> dict:
     """The stem's conv1_1 weight gradient (F, 3, 3, 3) over the 3-channel
     image (``csrc/encoder_train.cu::wgrad_image_kernel``, ``OP_WGRAD_IMAGE``):
     G^T from TMA boxes of the output gradient as :func:`wgrad_launch` takes
@@ -253,41 +297,49 @@ def wgrad_image_launch(B: int, H: int, W: int, F: int) -> dict:
     f × 64 columns, one consumer warpgroup; split over the 8 × 16 pixel
     patches so that F / 64 × splits blocks take two an SM (each split
     keeping at least 8 patches): the GEMM is bound by reading G once.  Its
-    reduce pass writes the whole (F, 3, 3, 3) and the bias gradient."""
+    reduce pass writes the whole (F, 3, 3, 3) and the bias gradient.  With
+    ``f32``: 32 columns (27 used), two G boxes of 32 f a stage, the
+    product on ``mma.sync`` TF32 (two warps) and the bias sums (two
+    others)."""
     npatch = B * (H // PATCH_H) * (W // PATCH_W)
     ns = max(1, min(2 * SMS // (F // 64), npatch // 8))
-    stages = wgrad_image_stages()
-    return {"op": OP_WGRAD_IMAGE, "tile": (64, 64), "grid": (1, F // 64, ns),
-            "smem": stages * 2 * BOX_BYTES + 128 * 8 * 4 + 2 * stages * 8 + 1024,
-            "stages": stages, "nsplit": ns, "npatch": npatch, "k": 64, "out": (3, 0, 1),
-            "maps": [nhwc_map(B, H, W, F)]}
+    stages = wgrad_image_stages(f32)
+    kp = slice_c(f32)
+    smem = (stages * 3 * BOX_BYTES + 64 * 4 * 4 if f32 else
+            stages * 2 * BOX_BYTES + 128 * 8 * 4) + 2 * stages * 8 + 1024
+    return {"op": OP_WGRAD_IMAGE, "tile": (64, kp), "grid": (1, F // 64, ns),
+            "smem": smem, "stages": stages, "nsplit": ns, "npatch": npatch, "k": kp,
+            "out": (3, 0, 1), "maps": [nhwc_map(B, H, W, F, f32=f32)], "f32": f32}
 
 
 IMAGE_FWD_STAGES = 4  # csrc/stem.cu::ImageFwdSmem
 
 
-def image_fwd_smem() -> int:
+def image_fwd_smem(f32: bool = False) -> int:
     """Dynamic shared memory of conv1_1's forward GEMM: a ring of gathered
-    128-pixel tiles, the block's 64 f × 64 columns of the weights, the
-    epilogue's bf16 tile (rows of 72), the uint8 normalisation table (256
-    bf16), the barriers and the alignment."""
-    return (IMAGE_FWD_STAGES * BOX_BYTES + 64 * SLICE_C * 2 + PATCH * (64 + 8) * 2 + 256 * 2
+    128-pixel tiles, the block's 64 f × 128 bytes of the weights, the
+    epilogue's tile (rows of 64 channels and 16 bytes), the uint8
+    normalisation table (256 elements), the barriers and 1024 spare bytes;
+    in the element type."""
+    es = itemsize(f32)
+    return (IMAGE_FWD_STAGES * BOX_BYTES + 64 * 128 + PATCH * (64 + 16 // es) * es + 256 * es
             + 2 * IMAGE_FWD_STAGES * 8 + 1024)
 
 
-def image_fwd_launch(B: int, H: int, W: int, F: int) -> dict:
+def image_fwd_launch(B: int, H: int, W: int, F: int, f32: bool = False) -> dict:
     """The stem's conv1_1 forward (``csrc/stem.cu::conv_image_kernel``,
     ``OP_FWD_IMAGE``): a1 = relu(im2col(image) · W11ᵀ + b11) with the 27
     im2col columns (k = tap · 3 + c) padded to 64 and gathered by the
     producer warpgroup (no TMA box takes the image: no tensor map).  Tile
     128 pixels (an 8 × 16 patch) × 64 output channels; grid y the F / 64
     channel tiles, grid x blocks that walk the patches, two an SM: the GEMM
-    is bound by writing a1."""
+    is bound by writing a1.  With ``f32`` the columns are 32 float32
+    (rounded to TF32 as they are gathered) and the product TF32."""
     npatch = B * (H // PATCH_H) * (W // PATCH_W)
     blocks = max(1, min(npatch, 2 * SMS // (F // 64)))
     return {"op": OP_FWD_IMAGE, "tile": (PATCH, 64), "grid": (blocks, F // 64, 1),
-            "smem": image_fwd_smem(), "stages": IMAGE_FWD_STAGES, "nsplit": 1,
-            "npatch": npatch, "maps": []}
+            "smem": image_fwd_smem(f32), "stages": IMAGE_FWD_STAGES, "nsplit": 1,
+            "npatch": npatch, "maps": [], "f32": f32}
 
 
 def wgrad_work(launches, F: int) -> int:
@@ -310,37 +362,38 @@ def conv_tile_m(H: int, F: int) -> int:
     return 2 * PATCH if conv_tile_n(F) <= 128 and H % 16 == 0 else PATCH
 
 
-def unetup_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
+def unetup_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int, f32: bool = False):
     """A UnetUp stage's forward on the conv core: conv1 over the two maps
     [skip (Cs) | up (Cx)] into y1, conv2 over y1, both with bias + ReLU, at
     the tile of :func:`conv_tile_m`.  At Cs = 0 (the ``up_conv`` head,
     #10 / #11) conv1 reads the one map up."""
     tm = conv_tile_m(H2, F)
-    conv1 = conv_launch(OP_FWD, B, H2, W2, Cs, F, Cx, tm) if Cs else \
-        conv_launch(OP_FWD, B, H2, W2, Cx, F, 0, tm)
-    return [conv1, conv_launch(OP_FWD, B, H2, W2, F, F, 0, tm)]
+    conv1 = conv_launch(OP_FWD, B, H2, W2, Cs, F, Cx, tm, f32=f32) if Cs else \
+        conv_launch(OP_FWD, B, H2, W2, Cx, F, 0, tm, f32=f32)
+    return [conv1, conv_launch(OP_FWD, B, H2, W2, F, F, 0, tm, f32=f32)]
 
 
-def unetup_bwd_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
+def unetup_bwd_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int, f32: bool = False):
     """#13's two dgrads, each at the tile of :func:`conv_tile_m` for its
     output: conv2's over g2 (F → F), masked by y1 > 0 into dz1
     (``OP_DGRAD_MASK``); conv1's over dz1 (F → Cs + Cx), split at Cs into
     dskip and dups (``OP_DGRAD_SPLIT``)."""
-    return [conv_launch(OP_DGRAD_MASK, B, H2, W2, F, F, 0, conv_tile_m(H2, F)),
+    return [conv_launch(OP_DGRAD_MASK, B, H2, W2, F, F, 0, conv_tile_m(H2, F), f32=f32),
             conv_launch(OP_DGRAD_SPLIT, B, H2, W2, F, Cs + Cx, 0, conv_tile_m(H2, Cs + Cx),
-                        split=Cs)]
+                        split=Cs, f32=f32)]
 
 
-def block_fwd_launches(B: int, H: int, W: int, chans, pool: bool):
+def block_fwd_launches(B: int, H: int, W: int, chans, pool: bool, f32: bool = False):
     """A VGG16 block's forward (two or three convs), each conv bias + ReLU:
     ``OP_FWD``, the last conv ``OP_FWD_POOL`` when ``pool``, each at the
     tile of :func:`conv_tile_m` for its output (256 pixels at block 2)."""
     n = len(chans) - 1
     return [conv_launch(OP_FWD_POOL if pool and i == n - 1 else OP_FWD, B, H, W, chans[i],
-                        chans[i + 1], 0, conv_tile_m(H, chans[i + 1])) for i in range(n)]
+                        chans[i + 1], 0, conv_tile_m(H, chans[i + 1]), f32=f32)
+            for i in range(n)]
 
 
-def block_bwd_launches(B: int, H: int, W: int, chans, want_dx: bool):
+def block_bwd_launches(B: int, H: int, W: int, chans, want_dx: bool, f32: bool = False):
     """A VGG16 block's backward (two or three convs): per conv i, its weight
     gradient at 2i and its dgrad at 2i + 1 — masked by the ReLU of its input
     for i > 0, for conv 0 the plain store to dx (``OP_DGRAD_SPLIT`` with
@@ -350,13 +403,13 @@ def block_bwd_launches(B: int, H: int, W: int, chans, want_dx: bool):
     for i in range(len(chans) - 1):
         cin, cout = chans[i], chans[i + 1]
         op = OP_DGRAD_MASK if i > 0 else OP_DGRAD_SPLIT
-        dgrad = conv_launch(op, B, H, W, cout, cin, 0, conv_tile_m(H, cin)) \
+        dgrad = conv_launch(op, B, H, W, cout, cin, 0, conv_tile_m(H, cin), f32=f32) \
             if i > 0 or want_dx else None
-        launches += [wgrad_launch(B, H, W, cin, cout), dgrad]
+        launches += [wgrad_launch(B, H, W, cin, cout, f32=f32), dgrad]
     return launches
 
 
-def stem_bwd_launches(B: int, H: int, W: int, F: int):
+def stem_bwd_launches(B: int, H: int, W: int, F: int, f32: bool = False):
     """The stem's backward (#20) laid out as a block's
     (:func:`block_bwd_launches`: conv i's weight gradient at 2i, its dgrad
     at 2i + 1): conv1_1's weight gradient over the image
@@ -364,17 +417,17 @@ def stem_bwd_launches(B: int, H: int, W: int, F: int):
     gradient); conv1_2's weight gradient over a1 (F → F; at F = 64 the 64
     f × 128-column tile) and its dgrad masked by a1 > 0 at the tile of
     :func:`conv_tile_m`."""
-    return [wgrad_image_launch(B, H, W, F), None,
-            *block_bwd_launches(B, H, W, [F, F, F], False)[2:]]
+    return [wgrad_image_launch(B, H, W, F, f32), None,
+            *block_bwd_launches(B, H, W, [F, F, F], False, f32)[2:]]
 
 
-def stem_fwd_launches(B: int, H: int, W: int, F: int):
+def stem_fwd_launches(B: int, H: int, W: int, F: int, f32: bool = False):
     """The stem's forward (#2): conv1_1 over the image into a1
     (:func:`image_fwd_launch`), then conv1_2 over a1 with bias + ReLU and
     the 2 × 2 max-pool in its epilogue (``OP_FWD_POOL``) at the tile of
     :func:`conv_tile_m`, as block 2's second conv runs."""
-    return [image_fwd_launch(B, H, W, F),
-            conv_launch(OP_FWD_POOL, B, H, W, F, F, 0, conv_tile_m(H, F))]
+    return [image_fwd_launch(B, H, W, F, f32),
+            conv_launch(OP_FWD_POOL, B, H, W, F, F, 0, conv_tile_m(H, F), f32=f32)]
 
 
 def upconv_bwd_launches(B: int, H2: int, W2: int, Cx: int, F: int):
@@ -389,26 +442,28 @@ def upconv_bwd_launches(B: int, H2: int, W2: int, Cx: int, F: int):
             wgrad_launch(B, H2, W2, F, F), wgrad_launch(B, H2, W2, Cx, F)]
 
 
-def unetup_wgrad_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int):
+def unetup_wgrad_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int,
+                          f32: bool = False):
     """A UnetUp stage's weight gradients: dk1's skip channels from (dz1,
     skip) with db1, dk1's up channels from (dz1, up), dk2 from (g2, y1)
     with db2; each reduce pass writes its channel range of its gradient."""
-    return [wgrad_launch(B, H2, W2, Cs, F, Cs + Cx, 0, True),
-            wgrad_launch(B, H2, W2, Cx, F, Cs + Cx, Cs, False),
-            wgrad_launch(B, H2, W2, F, F)]
+    return [wgrad_launch(B, H2, W2, Cs, F, Cs + Cx, 0, True, f32),
+            wgrad_launch(B, H2, W2, Cx, F, Cs + Cx, Cs, False, f32),
+            wgrad_launch(B, H2, W2, F, F, f32=f32)]
 
 
 def encode(launches) -> torch.Tensor:
     """(n, PLAN_WORDS) int64 records on the CPU: op, tile_n, grid x / y / z,
     split count, tile_m, a weight gradient's output channels, first channel
-    and bias flag, then per map (three) its rank, dims (4), byte strides (3)
-    and box (4); unused words and absent maps 0."""
+    and bias flag, the element type (0 bf16, 1 float32), then per map
+    (three) its rank, dims (4), byte strides (3) and box (4); unused words
+    and absent maps 0."""
     out = torch.zeros((len(launches), PLAN_WORDS), dtype=torch.int64)
     for i, ln in enumerate(launches):
         if ln is None:
             continue
         words = [ln["op"], ln["tile"][1], *ln["grid"], ln["nsplit"], ln["tile"][0],
-                 *ln.get("out", (0, 0, 0))]
+                 *ln.get("out", (0, 0, 0)), int(ln.get("f32", False))]
         for m in ln["maps"]:
             rank = len(m["dims"])
             words += [rank, *m["dims"], *([0] * (4 - rank)), *m["strides"],

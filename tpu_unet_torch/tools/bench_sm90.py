@@ -4,7 +4,8 @@
 
 with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
 ``stem_fwd``, ``head_bwd``, ``loss``, ``logit_loss``, ``adjoint``,
-``tail``, ``argmax``, ``palette`` (all by default) and ``sass``:
+``tail``, ``argmax``, ``palette`` (all by default), ``wgrad_f32`` and
+``sass``:
 
 - the VGG16 blocks 2-5 in training (#21 / #23 forward, #22 / #24
   backward, all on the Hopper kernels) at unet_vgg's training shapes (512²
@@ -49,7 +50,8 @@ with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
   adjoint; and, in turns with the shipped call, the backward from an
   ``up`` given (the forward's, kept from the forward instead of written
   again), with the bytes that keeping it would hold;
-- the fused loss (#27 / #29) at 8 × 512² × 21 and 32 × 256² × 4;
+- the fused loss (#27 / #29) at 8 × 512² × 21 and 32 × 256² × 4 bf16, and
+  its float32 instantiations at 8 × 512² × 21 and × 2;
 - the logit-level loss (#25 / #26), focal + dice, at the DataB presets'
   32 × 256² × 4 bf16 (weights (1, 15, 0, 0)) and 8 × 512² × 21 bf16: per
   pass the ms per call in the same rounds and their median, the device
@@ -86,10 +88,16 @@ with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
   palette blend (#8, ``mask_palette``) at 8 × 256² beside its eager
   composition (no single PyTorch call blends a palette): the same
   readings;
+- ``wgrad_f32`` (not in the default set): the float32 weight-gradient
+  GEMM at unet_vgg's four decoder stages (``unetup_wgrad``) and the stem's
+  float32 backward at 512², batch 8: ms per call in each round, the
+  median's share of the TF32 bound, ms by kernel, a hash of the output;
 - ``sass`` (not in the default set): the shared-memory (``LDS`` /
   ``STS``), generic (``LD`` / ``ST``) and global loads and stores in the
-  SASS of each instance of the tail kernel (``cuobjdump -sass`` of the
-  built library), and ptxas's report of its registers when it was built
+  SASS of each instance of the kernels that stage in shared memory — the
+  tail kernel, the conv core, the weight-gradient GEMMs, the stem's image
+  GEMMs, the adjoint (#19) and the fused loss (#27 / #29), bf16 and
+  float32 (``cuobjdump -sass`` of the built library) — and ptxas's report of the tail's registers when it was built
   in the call.
 
 Every line carries the card's name and power limit.  Another tree's
@@ -116,6 +124,7 @@ from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encode
 from tpu_unet_torch.nn.resize import upsample2x
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
+PEAK_TF32 = 494.7e12  # H100 SXM dense TF32 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 BLOCKS = ((256, [64, 128, 128], True), (128, [128, 256, 256, 256], True),
           (64, [256, 512, 512, 512], True), (32, [512, 512, 512, 512], False))
@@ -346,6 +355,51 @@ def _stem_bwd(smi, gen, B=8, h=512):
                       "gpu": smi}), flush=True)
 
 
+def _wgrad_f32(smi, B=8):
+    """The float32 weight-gradient GEMM (``wgrad_f32_kernel``, mma.sync
+    TF32) at unet_vgg's four decoder stages (``unetup_wgrad``: dk1 over
+    [skip | up], dk2) and the stem's float32 backward (its image GEMM
+    ``wgrad_image_f32_kernel``, conv1_2's GEMM and dgrad) at 512², batch
+    8: ms per call in each round, the median's share of the TF32 bound, by
+    kernel, and a hash of the gradients (inputs from seed 20)."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def act(*shape):
+        return torch.relu(torch.randn(shape, generator=gen, device=dev))
+
+    for _, h, cs, cx, f in STAGES[:4]:
+        h2 = 2 * h
+        skip, x, dz1, y1 = act(B, h2, h2, cs), act(B, h, h, cx), act(B, h2, h2, f), \
+            act(B, h2, h2, f)
+        g2 = torch.randn((B, h2, h2, f), generator=gen, device=dev)
+        fn = lambda: decoder_train._unetup_wgrad_cuda(skip, x, dz1, y1, g2)  # noqa: E731
+        ms = _rounds(fn)
+        med = statistics.median(ms)
+        bound = 2.0 * B * h2 * h2 * 9 * f * (cs + cx + f) / PEAK_TF32 * 1e3
+        print(json.dumps({"wgrad_f32": f"{B}x{h2}x{h2} Cs={cs} Cx={cx} F={f}", "ms_rounds": ms,
+                          "ms": med, "bound_ms": bound, "share_of_bound": bound / med,
+                          "ms_by_kernel": _by_kernel(fn), "digest": _digest(*fn()),
+                          "gpu": smi}), flush=True)
+        torch.cuda.empty_cache()
+    h = 512
+    x = torch.rand((B, h, h, 3), generator=gen, device=dev)
+    w11, w12 = [torch.randn((64, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5
+                for c in (3, 64)]
+    b11, b12 = [0.1 * torch.randn(64, generator=gen, device=dev) for _ in range(2)]
+    skip, pooled, a1 = encoder_train._vgg_stem_cuda(x, w11, b11, w12, b12)
+    dskip = torch.randn(skip.shape, generator=gen, device=dev)
+    dpool = torch.randn(pooled.shape, generator=gen, device=dev)
+    fn = lambda: encoder_train.vgg_stem_bwd(dskip, dpool, x, a1, skip, w11, w12)  # noqa: E731
+    ms = _rounds(fn)
+    med = statistics.median(ms)
+    bound = 2.0 * B * h * h * 9 * (64 * 64 + 3 * 64 + 64 * 64) / PEAK_TF32 * 1e3
+    print(json.dumps({"stem_bwd_f32": f"{B}x{h}x{h} [3, 64, 64]", "ms_rounds": ms, "ms": med,
+                      "bound_ms": bound, "share_of_bound": bound / med,
+                      "ms_by_kernel": _kernel_sequence(fn),
+                      "digest": _digest(*[t for r in fn() for t in r]), "gpu": smi}), flush=True)
+
+
 def _head(smi, gen, B, h):
     """The up_conv head's forward at x (B, h, h, 64) against cuDNN's chain,
     by kernel."""
@@ -473,13 +527,17 @@ def _blocks(smi, gen, B=8):
                           "bwd_ms_by_kernel": _by_kernel(bwd_fn), "gpu": smi}), flush=True)
 
 
-def _loss(smi, gen, B, h, c):
-    """#27 and #29 at (B, h, h, 64) bf16 features → c classes (see the
-    module note)."""
+def _loss(smi, gen, B, h, c, dt=torch.bfloat16):
+    """#27 and #29 at (B, h, h, 64) features of ``dt`` (bf16, or float32:
+    the float32 path's instantiations) → c classes (see the module
+    note)."""
     dev, bf = "cuda", torch.bfloat16
-    feats = torch.relu(torch.randn((B, h, h, 64), generator=gen, device=dev)).to(bf)
-    w = (torch.randn((c, 64, 1, 1), generator=gen, device=dev) / 8).to(bf).float()
-    b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(bf).float()
+    feats = torch.relu(torch.randn((B, h, h, 64), generator=gen, device=dev)).to(dt)
+    w = torch.randn((c, 64, 1, 1), generator=gen, device=dev) / 8
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    if dt == bf:
+        w, b = w.to(bf).float(), b.to(bf).float()
+    tag = "bf16" if dt == bf else "float32"
     t32 = torch.randint(0, c, (B, h, h), generator=gen, device=dev, dtype=torch.int32)
     t32 = torch.where(torch.rand((B, h, h), generator=gen, device=dev) < 0.03,
                       torch.full_like(t32, c), t32)
@@ -494,7 +552,7 @@ def _loss(smi, gen, B, h, c):
                               lambda: loss.final_ce_dice_bwd_plain(feats, w, b, t, cw, c, True,
                                                                    res, gl)),
     }
-    f2, w2, tl = feats.reshape(-1, 64), w.reshape(c, 64).to(bf), torch.clamp_max(t, c).long()
+    f2, w2, tl = feats.reshape(-1, 64), w.reshape(c, 64).to(dt), torch.clamp_max(t, c).long()
     cw_t = torch.tensor(cw, device=dev)
 
     def chain(f2, w2, b2):
@@ -507,17 +565,18 @@ def _loss(smi, gen, B, h, c):
 
     with torch.enable_grad():
         leaves = [f2.detach().clone().requires_grad_(), w2.detach().clone().requires_grad_(),
-                  b.to(bf).detach().clone().requires_grad_()]
+                  b.to(dt).detach().clone().requires_grad_()]
         graph = chain(*leaves)
-    libs = {"final_ce_dice_fwd": lambda: chain(f2, w2, b.to(bf)),
+    libs = {"final_ce_dice_fwd": lambda: chain(f2, w2, b.to(dt)),
             "final_ce_dice_bwd": lambda: torch.autograd.grad(graph, leaves, retain_graph=True)}
-    in_bytes = feats.numel() * 2 + t.numel() + c * 65 * 4
-    out_bytes = {"final_ce_dice_fwd": 4 * (5 + 2 * c), "final_ce_dice_bwd": feats.numel() * 2 + c * 65 * 4}
+    fb = feats.numel() * feats.element_size()
+    in_bytes = fb + t.numel() + c * 65 * 4
+    out_bytes = {"final_ce_dice_fwd": 4 * (5 + 2 * c), "final_ce_dice_bwd": fb + c * 65 * 4}
     for name, (fn, plain) in passes.items():
         ms = _rounds(fn)
         med = statistics.median(ms)
         bound = (in_bytes + out_bytes[name]) / PEAK_BYTES * 1e3
-        print(json.dumps({"kernel": name, "case": f"{B}x{h}x{h}x64 bf16 -> {c}", "ms_rounds": ms,
+        print(json.dumps({"kernel": name, "case": f"{B}x{h}x{h}x64 {tag} -> {c}", "ms_rounds": ms,
                           "ms": med, "plain_ms": statistics.median(_rounds(plain)),
                           "library_ms": statistics.median(_rounds(libs[name])),
                           "bound_ms": bound, "bound_by": "bytes", "share_of_bound": bound / med,
@@ -526,15 +585,15 @@ def _loss(smi, gen, B, h, c):
     # the device kernels of the loss and its backward, as a train step calls them
     with torch.enable_grad():
         fg = feats.detach().clone().requires_grad_()
-        wg = w.to(bf).detach().requires_grad_()
-        bg = b.to(bf).detach().requires_grad_()
+        wg = w.to(dt).detach().requires_grad_()
+        bg = b.to(dt).detach().requires_grad_()
 
         def step():
             fg.grad = wg.grad = bg.grad = None  # as the step's zero_grad(set_to_none=True)
             lo, _ = loss.final_ce_dice_loss(fg, wg, bg, t32, cw, c, True)
             lo.backward()
         seq = _kernel_sequence(step)
-    print(json.dumps({"loss_step_kernels": f"{B}x{h}x{h}x64 bf16 -> {c}", "launches": len(seq),
+    print(json.dumps({"loss_step_kernels": f"{B}x{h}x{h}x64 {tag} -> {c}", "launches": len(seq),
                       "kernels": sorted(seq), "gpu": smi}), flush=True)
 
 
@@ -752,11 +811,17 @@ def _palette(smi, n, h):
                   "eager_composition_ms")
 
 
+# the kernels whose shared memory ``sass`` reads, by their names' stems
+SASS_KERNELS = ("final_tail_kernel", "conv_sm90_kernel", "wgrad_sm90_kernel", "wgrad_f32_kernel",
+                "wgrad_image_kernel", "wgrad_image_f32_kernel", "conv_image_kernel",
+                "upsample_adjoint_kernel", "final_loss_fwd_kernel", "final_loss_bwd_kernel")
+
+
 def _sass(smi):
     """The shared-memory and generic loads and stores in the SASS of each
-    instance of the tail kernel (``cuobjdump -sass`` of the built library):
-    shared memory reached through a generic pointer shows as ``LD`` /
-    ``ST``, not ``LDS`` / ``STS``."""
+    instance of ``SASS_KERNELS`` (``cuobjdump -sass`` of the built
+    library): shared memory reached through a generic pointer shows as
+    ``LD`` / ``ST``, not ``LDS`` / ``STS``."""
     import re
 
     from tpu_unet_torch.kernels import _build
@@ -771,7 +836,7 @@ def _sass(smi):
                           check=True).stdout
     parts = re.split(r"Function : (\S+)", text)
     for name, body in zip(parts[1::2], parts[2::2]):
-        if "final_tail_kernel" not in name:
+        if not any(k in name for k in SASS_KERNELS):
             continue
         ops = {}
         for line in body.splitlines():
@@ -817,6 +882,9 @@ def main(argv=None) -> int:
             for B, h, c in ((8, 512, 21), (32, 256, 4)):
                 _loss(smi, gen, B, h, c)
                 torch.cuda.empty_cache()
+            for c in (21, 2):  # the float32 path: voc's and medical's classes
+                _loss(smi, gen, 8, 512, c, torch.float32)
+                torch.cuda.empty_cache()
         elif part == "logit_loss":
             for B, h, c in ((32, 256, 4), (8, 512, 21)):
                 _logit_loss(smi, B, h, c)
@@ -840,6 +908,8 @@ def main(argv=None) -> int:
                 _argmax(smi, n, h, c, dt)
         elif part == "palette":  # #8 at the batched video path's 8 frames
             _palette(smi, 8, 256)
+        elif part == "wgrad_f32":
+            _wgrad_f32(smi)
         elif part == "sass":
             _sass(smi)
         else:
