@@ -100,11 +100,12 @@ Phases (any failure exits non-zero without the final result line):
    ``voc_resnet50`` preset (no ImageNet file) over a seeded VOC-layout
    directory at 256^2: one frozen and one unfrozen epoch, a resume, and
    serving from the trained ``.pth``;
-7. the float32 path (``unet_vgg``'s float32 training, the voc and medical
-   presets): the float32 instantiations of the conv core, the
+7. the float32 path (``fp16=False``, the default: every model's float32
+   training): the float32 instantiations of the conv core, the
    weight-gradient GEMM, the image GEMMs and the elementwise passes at the
-   training encoder's five stages and the four decoder stages (512², batch
-   8), and #27 / #29 in float32 at 21 and 2 classes, each against its
+   training encoder's five stages, the four unet_vgg and the four
+   unet_resnet50 decoder stages and both up_conv heads (#10 / #11 and #12;
+   512², batch 8), and #27 / #29 in float32 at 21 and 2 classes, each against its
    plain float32 version (TF32 off) within the bounds of
    ``tpu_unet_torch/kernels/tf32.py``, bit-identical on a second launch,
    a planted dropped split of the float32 GEMM read above its bounds, the
@@ -114,7 +115,11 @@ Phases (any failure exits non-zero without the final result line):
    the float32 ``"paired"`` and ``"fused"`` steps against a plain float32
    step, closer to it than the bf16 step on the same weights and batch in
    the loss and every gradient, with exact launches, times, idle share
-   and peak memory beside the bf16 step's; the preset's batch 2; a 128²
+   and peak memory beside the bf16 step's (times under PyTorch's default
+   TF32 switches); the same for the ``"paired"`` steps of
+   ``unet_resnet50`` and ``self_net`` (CE + dice, the running statistics
+   too) and the DataB steps of ``traditional`` and
+   ``ultralight_large_optimized``; the preset's batch 2; a 128²
    step against the CPU float32 path; 20 learning steps; ``cli train
    --preset voc --no-pretrained`` (one frozen and one unfrozen epoch at
    512², batch 2), a resume, serving from the trained ``.pth``, and
@@ -175,6 +180,9 @@ TAIL_MARGIN = 1e-3
 SERVE_MARGIN = 5e-2
 SERVE_MISMATCH = 1e-2
 WARM, REPS = 2, 10
+# cuDNN's and cuBLAS's TF32 switches as PyTorch sets them in a fresh process
+# (read before main() turns both off for the checks)
+TF32_DEFAULT = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
 
 failures: list[str] = []
 
@@ -1229,11 +1237,12 @@ def logit_loss_kernels(record, gen):
 
         kern = lambda: ce_dice_fwd(x, t, cw, c, dice, focal)  # noqa: E731
         dms = device_ms(kern)
+        check(dms > 0, f"ce_dice_fwd {case}: no device events in the profile")
         record("ce_dice_fwd", case, [loss, fs], [ploss, pfs], kern,
                lambda: ce_dice_fwd_plain(x, t, cw, c, dice, focal), lib,
                12.0 * npix * c, nbytes(x, t), peak=PEAK_F32,
                extra={"device_ms": dms, "device_share_of_bound":
-                      bound(12.0 * npix * c, nbytes(x, t), PEAK_F32)[0] / dms})
+                      bound(12.0 * npix * c, nbytes(x, t), PEAK_F32)[0] / max(dms, 1e-9)})
         out = ce_dice_bwd(x, t, cw, c, dice, focal, 0.5, 2.0, res, gl)
         ref = ce_dice_bwd_plain(x, t, cw, c, dice, focal, 0.5, 2.0, pres, gl)
         drel = rel_err(out, ref)[1]
@@ -1250,12 +1259,13 @@ def logit_loss_kernels(record, gen):
               f"ce_dice_bwd {case}: two runs differ")
         kern = lambda: ce_dice_bwd(x, t, cw, c, dice, focal, 0.5, 2.0, res, gl)  # noqa: E731
         dms = device_ms(kern)
+        check(dms > 0, f"ce_dice_bwd {case}: no device events in the profile")
         record("ce_dice_bwd", case, [out], [ref], kern,
                lambda: ce_dice_bwd_plain(x, t, cw, c, dice, focal, 0.5, 2.0, pres, gl),
                lambda: torch.autograd.grad(graph, [xg], retain_graph=True),
                14.0 * npix * c, nbytes(x, t, out), peak=PEAK_F32,
                extra={"device_ms": dms, "device_share_of_bound":
-                      bound(14.0 * npix * c, nbytes(x, t, out), PEAK_F32)[0] / dms})
+                      bound(14.0 * npix * c, nbytes(x, t, out), PEAK_F32)[0] / max(dms, 1e-9)})
         del x, t, r, t_cl, out, ref, xg, lf, p, oh, graph
 
 
@@ -1363,6 +1373,23 @@ def entry(model: str, kernel: str) -> str:
     return kernel
 
 
+def profiled(run, activities, tries: int = 3):
+    """``run()`` under ``torch.profiler`` with ``activities``; a window in
+    which the profiler recorded no device event at all (it has returned
+    such a window on an H100 for steps that launch kernels) is taken again,
+    up to ``tries`` windows.  Returns the last profile; the caller's checks
+    read it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    for _ in range(tries):
+        with profile(activities=activities) as prof:
+            run()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            break
+    return prof
+
+
 def device_breakdown(fn, net, imgs, steps: int = 3):
     """Device time per serving step by kernel (torch.profiler over
     ``steps`` steps) and the device's idle share between the first kernel's
@@ -1385,10 +1412,13 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
 
     fn(net, imgs)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(steps):
             fn(net, imgs)
         torch.cuda.synchronize()
+
+    prof = profiled(run, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     spans, by_name, index_add = [], {}, 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1795,11 +1825,13 @@ def phase_tools(card: str):
         # #8's device time in predict_video_batched: its three launches, read by the
         # profiler over a second run (not the timed one)
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        def second_run():
             P.predict_video_batched(uv, clip, str(tmp / "out2.avi"), batch_size=8)
             torch.cuda.synchronize()
+
+        prof = profiled(second_run, [ProfilerActivity.CUDA])
         pal = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                if e.device_type == DeviceType.CUDA and "palette_kernel" in e.name]
         check(len(pal) == 3, f"predict_video_batched: {len(pal)} palette kernels in the profile")
@@ -2350,19 +2382,20 @@ def cancelled_biases(net):
             if isinstance(m, torch.nn.Conv2d) and k not in ("outc", "final")}
 
 
-def plain_datab_step(net, batch, cfg, seed):
+def plain_datab_step(net, batch, cfg, seed, dtype=torch.bfloat16):
     """Loss, float32 gradients and the running statistics after one bf16
-    step composed here of a bf16 copy of ``net`` in train mode (its dropout
-    drawn from a generator seeded ``seed``) and the plain losses of
-    ``train/losses.py`` under autograd, no kernel.  ``tests/test_torch_gpu.py``
-    holds its DataB step to this same reference."""
+    (or ``dtype``) step composed here of a copy of ``net`` in that dtype in
+    train mode (its dropout drawn from a generator seeded ``seed``) and the
+    plain losses of ``train/losses.py`` under autograd, no kernel.
+    ``tests/test_torch_gpu.py`` holds its DataB step to this same
+    reference."""
     from tpu_unet_torch.train.losses import dice_loss, focal_loss, one_hot
     from tpu_unet_torch.train.step import prepare_batch
 
     n16 = copy.deepcopy(net)
     for p in n16.parameters():
-        p.data = p.data.to(torch.bfloat16)
-    imgs, target = prepare_batch(batch, torch.bfloat16, "cuda")
+        p.data = p.data.to(dtype)
+    imgs, target = prepare_batch(batch, dtype, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     logits = n16(imgs, train=True, generator=gen).float()
     loss = focal_loss(logits, target, cfg.cls_weights, cfg.num_classes) + \
@@ -2895,7 +2928,8 @@ def f32_encoder_kernels(record, gen):
 
 
 def f32_decoder_kernels(record, gen):
-    """The four unet_vgg decoder stages in float32 (512², batch 8): #1
+    """The four unet_vgg and the four unet_resnet50 decoder stages in
+    float32 (512², batch 8; unet_resnet50's Cs + Cx up to 3072): #1
     (``unetup_f32``, its upsample ``upsample2x_f32`` bit-equal to the plain
     float32 upsample), #13 (``unetup_bwd_f32``: g2 equal to the plain mask
     pass's), ``unetup_wgrad_f32`` (a planted dropped split at up1's dk2) and
@@ -2914,7 +2948,7 @@ def f32_decoder_kernels(record, gen):
 
     dev, B = torch.device("cuda"), BATCH
     cb = torch.ops.aten.convolution_backward
-    for h, cs, cx, f in VGG_STAGES:
+    for h, cs, cx, f in VGG_STAGES + RN50_STAGES:
         h2, cp = 2 * h, cs + cx
         skip = torch.relu(torch.randn((B, h2, h2, cs), generator=gen, device=dev))
         x = torch.relu(torch.randn((B, h, h, cx), generator=gen, device=dev))
@@ -3031,6 +3065,106 @@ def f32_decoder_kernels(record, gen):
                      2.0 * 4 * dups.numel(), nbytes(dups, ares), peak=PEAK_F32)
         check(rel <= F32_ADJOINT_REL_TOL, f"upsample_adjoint_f32 {case}: rel err {rel:.3g}")
         del skip, x, g, out, y1, up, wres, wref, dups, g2, dz1, ares, p13
+        torch.cuda.empty_cache()
+
+
+def f32_head_kernels(record, gen):
+    """The up_conv head in float32 at both heads (batch 8, 64 channels):
+    unet_resnet50's (x 256² → 512²) and self_net's (x 512² → 1024²).  #10 /
+    #11 (``upconv_f32``: y1 and out within CONV_REL_TOL of the plain float32
+    head, conv1's and conv2's first tiles against their TF32 emulations)
+    and #12 (``upconv_bwd_f32``: dx within CONV_REL_TOL, dk1 / db1 / dk2 /
+    db2 within WGRAD_CHAIN_REL_TOL of ``upconv_bwd_plain``, the first tiles
+    of its two dgrads against their emulations), each bit-identical on a
+    second launch; a planted dropped split of the dk2 GEMM (g zeroed over
+    the split's patches: g2, its G operand, vanishes there) and of the dk1
+    GEMM (dz1, its G operand, then vanishes over that split's patches but
+    their one-pixel border) read above the bounds; dk2 and the plain
+    version's against a float64 evaluation on the card; timed against the
+    plain version and cuDNN's float32 with TF32 on, bound at the TF32
+    peak."""
+    from tpu_unet_torch.kernels.decoder_train import flip_t
+    from tpu_unet_torch.kernels.upconv import (_upconv_bwd_cuda, _upconv_cuda, _upconv_plain_y1,
+                                               bwd_plan, upconv_bwd, upconv_bwd_plain)
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    from tpu_unet_torch.kernels import tf32
+
+    dev, B, f = torch.device("cuda"), BATCH, 64
+    for h in (SIZE // 2, SIZE):
+        h2 = 2 * h
+        x = torch.relu(torch.randn((B, h, h, f), generator=gen, device=dev))
+        w1, w2 = (torch.randn((f, f, 3, 3), generator=gen, device=dev) / 24 for _ in range(2))
+        b1, b2 = (0.1 * torch.randn(f, generator=gen, device=dev) for _ in range(2))
+        case = f"{B}x{h}x{h}x{f}->{h2}^2x{f} float32"
+        flops = 2 * conv_flops(B, h2, h2, f, f)
+        out, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
+        check(torch.equal(out, _upconv_cuda(x, w1, b1, w2, b2)),
+              f"upconv_f32 {case}: two launches differ")
+        pout, py1 = _upconv_plain_y1(x, w1, b1, w2, b2)
+
+        def lib_f(x=x, w1=w1, b1=b1, w2=w2, b2=b2):
+            return F.relu(F.conv2d(F.relu(F.conv2d(cl(upsample2x(x)), w1, b1, padding=1)), w2,
+                                   b2, padding=1))
+
+        rel = record("upconv_f32", case, [out, y1], [pout, py1],
+                     lambda: _upconv_cuda(x, w1, b1, w2, b2),
+                     lambda: _upconv_plain_y1(x, w1, b1, w2, b2), tf32_on(lib_f), flops,
+                     nbytes(x, w1, w2, out, y1), peak=PEAK_TF32)
+        check(rel <= tf32.CONV_REL_TOL, f"upconv_f32 {case}: rel err {rel:.3g}")
+        up = upsample2x(x)
+        f32_witness(f"upconv_f32 {case} conv1", y1, lambda r: f32_tile([up], w1, r, b1), 9 * f)
+        f32_witness(f"upconv_f32 {case} conv2", out, lambda r: f32_tile([y1], w2, r, b2), 9 * f)
+        del pout, py1, up
+        g = torch.randn((B, h2, h2, f), generator=gen, device=dev)
+        args = (g, out, y1, x, w1, w2)
+        res = upconv_bwd(*args)
+        check(all(torch.equal(a, b) for a, b in zip(res, upconv_bwd(*args))),
+              f"upconv_bwd_f32 {case}: two launches differ")
+        ref = upconv_bwd_plain(*args)
+        errs = {n: rel_err(a, b)[1] for n, a, b in
+                zip(("dx", "dk1", "db1", "dk2", "db2"), res, ref)}
+        for n, e in errs.items():
+            tol = tf32.CONV_REL_TOL if n == "dx" else tf32.WGRAD_CHAIN_REL_TOL
+            check(e <= tol, f"upconv_bwd_f32 {case}: {n} rel err {e:.3g} > {tol}")
+        g2 = torch.where(out > 0, g, 0)
+        dk2_64 = torch.ops.aten.convolution_backward(
+            cl(g2.double()), cl(y1.double()), w2.double(), None, [1, 1], [1, 1], [1, 1], False,
+            [0, 0], 1, [False, True, False])[1]
+        print(json.dumps({"upconv_bwd_f32": case, "rel_err_by_output": errs,
+                          "dk2_kernel_vs_float64": rel_err(res[3], dk2_64)[1],
+                          "dk2_plain_vs_float64": rel_err(ref[3], dk2_64)[1]}), flush=True)
+        del dk2_64
+        dz1, dups = _upconv_bwd_cuda(*args)[5:]
+        f32_witness(f"upconv_bwd_f32 {case} dz1", dz1,
+                    lambda r: f32_tile([g2], flip_t(w2), r, mask=y1), 9 * f)
+        f32_witness(f"upconv_bwd_f32 {case} dups", dups,
+                    lambda r: f32_tile([dz1], flip_t(w1), r), 9 * f)
+        del dz1, dups, g2
+        # the planted dropped split: the first of the dk2 GEMM's splits (the
+        # dk1 GEMM's plan has the same, both over the 64 channels' pixels)
+        ns = bwd_plan(B, h2, h2, f, f, True)[1]
+        check(ns[0] == ns[1], f"upconv_bwd_f32 {case}: split counts {ns}")
+        bad = g.masked_fill(first_split_mask(B, h2, h2, ns[0])[..., None], 0)
+        fres = upconv_bwd(bad, out, y1, x, w1, w2)
+        fault = {"dk1": rel_err(fres[1], ref[1])[1], "dk2": rel_err(fres[3], ref[3])[1]}
+        print(json.dumps({"wgrad_planted_fault": f"upconv_bwd_f32 {case}",
+                          "dropped_split_of": ns[0], "rel_err": fault,
+                          "bounds": [tf32.WGRAD_REL_TOL, tf32.WGRAD_CHAIN_REL_TOL]}), flush=True)
+        check(min(fault.values()) > tf32.WGRAD_CHAIN_REL_TOL,
+              f"upconv_bwd_f32 {case}: a dropped split reads {fault}, inside the bounds")
+        del bad, fres
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            wg = [w.detach().requires_grad_() for w in (w1, w2)]
+            bg = [b.detach().requires_grad_() for b in (b1, b2)]
+            yl = tf32_on(lambda: F.relu(F.conv2d(F.relu(F.conv2d(
+                cl(upsample2x(xg)), wg[0], bg[0], padding=1)), wg[1], bg[1], padding=1)))()
+        lib = tf32_on(lambda: torch.autograd.grad(yl, [xg, *wg, *bg], cl(g), retain_graph=True))
+        record("upconv_bwd_f32", case, list(res), list(ref), lambda: upconv_bwd(*args),
+               lambda: upconv_bwd_plain(*args), lib, 2 * flops, nbytes(*args, *res),
+               peak=PEAK_TF32)
+        del x, g, out, y1, res, ref, args, xg, wg, bg, yl, lib
         torch.cuda.empty_cache()
 
 
@@ -3190,6 +3324,36 @@ def emulated_f32_step(init, batch, cfg):
     return m["loss"].item(), grads
 
 
+def read_emulated_step(name, init, batch, cfg, ploss, pgrads, card):
+    """Read ``name``'s float32 step with the TF32 arithmetic emulated
+    (:func:`emulated_f32_step`) against the plain float32 step's loss and
+    gradients: its loss within ``tf32.step_loss_emulated(name)``, the
+    reading that fixes the model's loss bound (STEP_LOSS_EMULATED, or the
+    model's own), its gradients times 4 within STEP_GRAD_REL_TOL and
+    STEP_GRAD_COS."""
+    from tpu_unet_torch.kernels import tf32
+
+    t0 = time.perf_counter()
+    eloss, egrads = emulated_f32_step(init, batch, cfg)
+    elrel, er = abs(eloss - ploss) / abs(ploss), grad_readings(egrads, pgrads)
+    del egrads
+    emulated = tf32.step_loss_emulated(name)
+    worst = max(er, key=lambda k: er[k][0])
+    print(json.dumps({
+        "f32_emulated_step": name, "batch": batch["image"].shape[0], "size": SIZE,
+        "loss_rel_err_vs_plain": elrel, "worst_grad_rel_err": er[worst][0],
+        "worst_grad": worst, "worst_grad_cosine": min(v[1] for v in er.values()),
+        "fixes": {"step_loss_emulated": emulated,
+                  "step_loss_rel_tol": tf32.step_loss_rel_tol(name)},
+        "seconds": time.perf_counter() - t0, "gpu": card}), flush=True)
+    check(elrel <= emulated, f"emulated float32 {name} step: loss rel {elrel:.3g} over the "
+                             f"reading {emulated:.3g} that fixes its loss bound")
+    check(4 * er[worst][0] <= tf32.STEP_GRAD_REL_TOL
+          and 4 * (1 - min(v[1] for v in er.values())) <= 1 - tf32.STEP_GRAD_COS,
+          f"emulated float32 {name} step: gradients times 4 outside STEP_GRAD_REL_TOL / "
+          "STEP_GRAD_COS")
+
+
 def f32_train_step(card: str):
     """The float32 ``"paired"`` step of unet_vgg at 512², batch 8, 21
     classes, as the voc preset trains (CE without dice, Adam 1e-4), from
@@ -3219,91 +3383,24 @@ def f32_train_step(card: str):
     init = init_model(build_model("unet_vgg", classes), seed=0).cuda()
     ploss, pgrads, _ = plain_step(init, batch, classes, cw, torch.float32, dice=False)
 
-    def grad_readings(grads):
-        out = {}
-        for k, g in grads.items():
-            a, b = g.ravel(), pgrads[k].ravel()
-            cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
-            out[k] = (((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item(), cos)
-        return out
-
-    t0 = time.perf_counter()
-    eloss, egrads = emulated_f32_step(init, batch, f32)
-    elrel, er = abs(eloss - ploss) / abs(ploss), grad_readings(egrads)
-    del egrads
-    print(json.dumps({
-        "f32_emulated_step": "unet_vgg", "batch": BATCH, "size": SIZE,
-        "loss_rel_err_vs_plain": elrel, "worst_grad_rel_err": max(v[0] for v in er.values()),
-        "worst_grad_cosine": min(v[1] for v in er.values()),
-        "fixes": {"STEP_LOSS_EMULATED": tf32.STEP_LOSS_EMULATED,
-                  "STEP_LOSS_REL_TOL": tf32.STEP_LOSS_REL_TOL},
-        "seconds": time.perf_counter() - t0, "gpu": card}), flush=True)
-    check(elrel <= tf32.STEP_LOSS_EMULATED,
-          f"emulated float32 step: loss rel {elrel:.3g} over the reading "
-          f"{tf32.STEP_LOSS_EMULATED:.3g} that fixes STEP_LOSS_REL_TOL")
-    check(4 * max(v[0] for v in er.values()) <= tf32.STEP_GRAD_REL_TOL
-          and 4 * (1 - min(v[1] for v in er.values())) <= 1 - tf32.STEP_GRAD_COS,
-          "emulated float32 step: gradients times 4 outside STEP_GRAD_REL_TOL / STEP_GRAD_COS")
-
-    def run(cfg, expect=None, what=""):
-        net = copy.deepcopy(init)
-        state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
-        fn = tstep.make_train_step(net, cfg)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        if expect is None:
-            state, m = fn(state, batch, 1e-4)
-            counts = None
-        else:
-            (state, m), counts = counted(expect, what, lambda: fn(state, batch, 1e-4))
-        loss = m["loss"].item()
-        lrel = abs(loss - ploss) / abs(ploss)
-        grads = {k: p.grad.float().clone() for k, p in net.named_parameters()}
-        step = lambda: fn(state, batch, 1e-4)  # noqa: E731
-        ms = time_ms(step, reps=5)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            step()
-        torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) / 5
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        profile = device_breakdown(lambda _n, _i: step(), None, None)
-        del net, state, fn, step
-        return loss, lrel, grads, counts, {"step_ms_events": ms, "step_ms_host": host * 1e3,
-                                           "img_per_s": BATCH / host, "peak_mem_gib": peak,
-                                           "device_ms": profile["device_ms_per_step"],
-                                           "port_kernels_ms": profile["port_kernels_ms"],
-                                           "idle_share": profile["idle_share"],
-                                           "top_kernels_ms": profile["top_kernels_ms"]}
+    read_emulated_step("unet_vgg", init, batch, f32, ploss, pgrads, card)
 
     for route in ("paired", "fused"):
         cfg32 = dataclasses.replace(f32, train_route=route)
         cfg16 = dataclasses.replace(bf, train_route=route)
-        loss16, lrel16, g16, _, t16 = run(cfg16)
-        loss32, lrel32, g32, counts, t32 = run(cfg32, F32_TRAIN_STEP[route],
-                                              f"float32 train step ({route})")
+        loss16, g16, _, _, t16 = timed_train_step(init, batch, cfg16, 1e-4, reps=5)
+        loss32, g32, st32, counts, t32 = timed_train_step(
+            init, batch, cfg32, 1e-4, F32_TRAIN_STEP[route], f"float32 train step ({route})",
+            reps=5)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
-        r16, r32 = grad_readings(g16), grad_readings(g32)
-        check(lrel32 < lrel16 or lrel32 == 0.0,
-              f"float32 step ({route}) loss rel {lrel32:.3g} not closer than bf16's {lrel16:.3g}")
-        check(lrel32 <= tf32.STEP_LOSS_REL_TOL,
-              f"float32 step ({route}) loss rel {lrel32:.3g} > {tf32.STEP_LOSS_REL_TOL:.3g}")
-        worse = [k for k in r32 if not r32[k][0] < r16[k][0]]
-        check(not worse, f"float32 step ({route}): gradients not closer than bf16's: {worse}")
-        for k, (rel, cos) in r32.items():
-            check(rel <= tf32.STEP_GRAD_REL_TOL and cos >= tf32.STEP_GRAD_COS,
-                  f"float32 step ({route}) gradient of {k}: rel {rel:.3g}, cosine {cos:.6f}")
+        r32, r16 = grad_readings(g32, pgrads), grad_readings(g16, pgrads)
+        held = hold_f32_step(f"float32 step ({route})", loss32, g32, st32, loss16, g16, ploss,
+                             pgrads, {})
         print(json.dumps({
             "train_step": "unet_vgg", "dtype": "float32 (TF32 products)", "train_route": route,
             "batch": BATCH, "size": SIZE, "classes": classes, "recipe": "voc: CE, Adam 1e-4",
-            "launches": counts, **t32, "loss": loss32, "loss_plain_f32_step": ploss,
-            "loss_rel_err_vs_plain": lrel32, "bf16_loss_rel_err_vs_plain": lrel16,
-            "worst_grad_rel_err": max(v[0] for v in r32.values()),
-            "worst_grad_cosine": min(v[1] for v in r32.values()),
-            "bf16_worst_grad_rel_err": max(v[0] for v in r16.values()),
-            "bf16_worst_grad_cosine": min(v[1] for v in r16.values()),
+            "launches": counts, **t32, "loss": loss32, "loss_plain_f32_step": ploss, **held,
             "grad_rel_err_f32_vs_bf16": {k: [r32[k][0], r16[k][0]] for k in r32},
             "bf16_step": t16, "gpu": card}), flush=True)
         del g16, g32
@@ -3367,6 +3464,199 @@ def f32_train_step(card: str):
 # float32 keys; "fused" as its bf16 counterpart
 F32_TRAIN_STEP = {route: {k + "_f32": v for k, v in TRAIN_STEP[route].items()}
                   for route in TRAIN_STEP}
+# unet_resnet50's and self_net's float32 "paired" steps: their bf16
+# steps' kernels under the float32 keys
+F32_MODEL_STEP = {"unet_resnet50": {k + "_f32": v for k, v in RN50_STEP.items()},
+                  "self_net": {k + "_f32": v for k, v in SELF_NET_STEP.items()}}
+
+
+@contextlib.contextmanager
+def library_tf32_default():
+    """Within the block, cuDNN's and cuBLAS's TF32 switches as PyTorch
+    leaves them in a user's process (``TF32_DEFAULT``, read when this
+    script is imported: cuDNN's on, cuBLAS's matmuls off); ``main()`` turns
+    both off for the checks.  The float32 steps' times are taken under
+    them: ResNet50, the DataB convs and the plain parts run on cuDNN."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = TF32_DEFAULT
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def grad_readings(grads: dict, ref: dict, skip=()) -> dict:
+    """Each gradient's largest deviation from ``ref``'s relative to its
+    largest entry, and its cosine, by name (``skip`` left out)."""
+    out = {}
+    for k, g in grads.items():
+        if k in skip:
+            continue
+        a, b = g.ravel(), ref[k].ravel()
+        cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+        out[k] = (((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item(), cos)
+    return out
+
+
+def timed_train_step(init, batch, cfg, lr, expect=None, what="", weight_decay=0.0,
+                     seed=None, reps=3):
+    """One step of the port's train step from a copy of ``init`` (Adam,
+    momentum 0.9, ``weight_decay``; the dropout from a generator seeded
+    ``seed``), counted against ``expect`` where given: (loss, float32
+    gradients, running statistics, launches, times), the times — events,
+    host, the profiler's device time, the port's kernels, the idle share —
+    and the peak memory taken over further steps with the library's TF32 as
+    PyTorch leaves it (:func:`library_tf32_default`)."""
+    from tpu_unet_torch.train import step as tstep
+
+    net = copy.deepcopy(init)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9, weight_decay))
+    fn = tstep.make_train_step(net, cfg)
+    gen = None if seed is None else torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = lambda: fn(state, batch, lr, gen)  # noqa: E731
+    if expect is None:
+        _, m = step()
+        counts = None
+    else:
+        (_, m), counts = counted(expect, what, step)
+    loss = m["loss"].item()
+    grads = {k: p.grad.float().clone() for k, p in net.named_parameters() if p.grad is not None}
+    stats = bn_stats(net)
+    with library_tf32_default():
+        ms = time_ms(step, reps=reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / reps
+        profile = device_breakdown(lambda _n, _i: step(), None, None, steps=2)
+    n = batch["image"].shape[0]
+    times = {"step_ms_events": ms, "step_ms_host": host * 1e3, "img_per_s": n / host,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "device_ms": profile["device_ms_per_step"],
+             "port_kernels_ms": profile["port_kernels_ms"], "idle_share": profile["idle_share"],
+             "top_kernels_ms": profile["top_kernels_ms"],
+             "library_tf32": "PyTorch's default: cuDNN {}, cuBLAS matmul {}".format(
+                 *("on" if v else "off" for v in TF32_DEFAULT))}
+    del net, state, fn, step
+    return loss, grads, stats, counts, times
+
+
+def hold_f32_step(what, loss32, g32, st32, loss16, g16, ploss, pgrads, pstats, skip=(),
+                  loss_tol=None):
+    """Hold a float32 step to the plain float32 step (TF32 off): closer to
+    it than the bf16 step is, in the loss and in every gradient (``skip``
+    left out), the loss within ``loss_tol`` (STEP_LOSS_REL_TOL, or a
+    model's own, ``tf32.step_loss_rel_tol``), every gradient within
+    STEP_GRAD_REL_TOL and STEP_GRAD_COS, the running statistics within
+    1e-2.  Returns the readings."""
+    from tpu_unet_torch.kernels import tf32
+
+    loss_tol = tf32.STEP_LOSS_REL_TOL if loss_tol is None else loss_tol
+    lrel32, lrel16 = abs(loss32 - ploss) / abs(ploss), abs(loss16 - ploss) / abs(ploss)
+    r32, r16 = grad_readings(g32, pgrads, skip), grad_readings(g16, pgrads, skip)
+    check(lrel32 < lrel16 or lrel32 == 0.0,
+          f"{what}: loss rel {lrel32:.3g} not closer than bf16's {lrel16:.3g}")
+    check(lrel32 <= loss_tol, f"{what}: loss rel {lrel32:.3g} > {loss_tol:.3g}")
+    worse = [k for k in r32 if not r32[k][0] < r16[k][0]]
+    check(not worse, f"{what}: gradients not closer than bf16's: {worse}")
+    for k, (rel, cos) in r32.items():
+        check(rel <= tf32.STEP_GRAD_REL_TOL and cos >= tf32.STEP_GRAD_COS,
+              f"{what}: gradient of {k}: rel {rel:.3g}, cosine {cos:.6f}")
+    stat_rel = max((((st32[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                    for k, v in pstats.items()), default=0.0)
+    check(stat_rel <= 1e-2, f"{what}: running statistics rel err {stat_rel:.3g} vs plain")
+    return {"loss_rel_err_vs_plain": lrel32, "loss_bound": loss_tol,
+            "bf16_loss_rel_err_vs_plain": lrel16,
+            "worst_grad_rel_err": max(v[0] for v in r32.values()),
+            "worst_grad": max(r32, key=lambda k: r32[k][0]),
+            "worst_grad_cosine": min(v[1] for v in r32.values()),
+            "bf16_worst_grad_rel_err": max(v[0] for v in r16.values()),
+            "bf16_worst_grad_cosine": min(v[1] for v in r16.values()),
+            "running_stats_rel_err_vs_plain": stat_rel}
+
+
+def f32_model_step(name: str, card: str, seed: int):
+    """The float32 ``"paired"`` step of ``unet_resnet50`` (the
+    ``voc_resnet50`` recipe with ``fp16=False``, ResNet50 on cuDNN with
+    batch norm on the batch statistics) or ``self_net`` (the plain losses
+    on its 2x logits) at 512², batch 8, 21 classes, CE + dice, Adam 1e-4,
+    from ``init_model(seed=0)`` weights: first the step with the TF32
+    arithmetic emulated (its loss within ``tf32.step_loss_emulated(name)``,
+    STEP_LOSS_EMULATED or the model's own reading; its gradients times 4
+    within STEP_GRAD_REL_TOL / STEP_GRAD_COS), then the kernels' step with
+    exact launches of the float32 keys held by :func:`hold_f32_step`, the
+    loss within ``tf32.step_loss_rel_tol(name)``;
+    times and peak memory beside the bf16 step's.  Returns the launches."""
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+
+    from tpu_unet_torch.kernels import tf32
+
+    classes = CLASSES[name]
+    cw = tuple(1.0 for _ in range(classes))
+    f32 = tstep.StepConfig(classes, cw, use_dice=True)
+    bf = dataclasses.replace(f32, compute_dtype=torch.bfloat16)
+    batch = rect_batch(torch.Generator().manual_seed(seed), BATCH, SIZE, classes, "cuda")
+    init = init_model(build_model(name, classes), seed=0).cuda()
+    ploss, pgrads, pstats = plain_step(init, batch, classes, cw, torch.float32)
+    read_emulated_step(name, init, batch, f32, ploss, pgrads, card)
+    torch.cuda.empty_cache()
+    loss16, g16, _, _, t16 = timed_train_step(init, batch, bf, 1e-4)
+    loss32, g32, st32, counts, t32 = timed_train_step(init, batch, f32, 1e-4,
+                                                      F32_MODEL_STEP[name],
+                                                      f"float32 {name} train step")
+    held = hold_f32_step(f"float32 {name} step", loss32, g32, st32, loss16, g16, ploss, pgrads,
+                         pstats, loss_tol=tf32.step_loss_rel_tol(name))
+    print(json.dumps({
+        "train_step": name, "dtype": "float32 (TF32 products)", "train_route": "paired",
+        "batch": BATCH, "size": SIZE, "classes": classes, "recipe": "CE + dice, Adam 1e-4",
+        "launches": counts, **t32, "loss": loss32, "loss_plain_f32_step": ploss, **held,
+        "bf16_step": t16, "gpu": card}), flush=True)
+    del init, pgrads, pstats, g16, g32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def f32_datab_step(name: str, card: str):
+    """The float32 DataB step of ``name`` (``datab_step``'s recipe with
+    ``fp16=False``: 256², batch 32, 4 classes, focal + dice with the
+    preset's class weights, Adam at ``fit``'s learning rate; cuDNN, batch
+    norm on the batch statistics, the logit-level loss #25 / #26 on float32
+    logits) held by :func:`hold_f32_step` against a plain float32 step with
+    the same dropout generator (the biases that feed a batch norm, whose
+    exact gradient is 0, left out); times beside the bf16 step's.  Returns
+    the launches."""
+    from tpu_unet_torch.configs.presets import get_preset
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+    from tpu_unet_torch.train.schedules import adaptive_lr
+
+    classes, n, size = 4, DATAB_BATCH, DATAB_SIZE
+    preset = get_preset(name)
+    lr = adaptive_lr(preset.init_lr, preset.min_lr, n, preset.optimizer_type)[0]
+    f32 = tstep.StepConfig(classes, DATAB_CW[name], use_focal=True, use_dice=True)
+    bf = dataclasses.replace(f32, compute_dtype=torch.bfloat16)
+    batch = rect_batch(torch.Generator().manual_seed(12), n, size, classes, "cuda")
+    init = init_model(build_model(name, classes), seed=0).cuda()
+    ploss, pgrads, pstats = plain_datab_step(init, batch, f32, seed=5, dtype=torch.float32)
+    wd = preset.weight_decay
+    loss16, g16, _, _, t16 = timed_train_step(init, batch, bf, lr, weight_decay=wd, seed=5)
+    loss32, g32, st32, counts, t32 = timed_train_step(
+        init, batch, f32, lr, DATAB_STEP, f"float32 {name} train step", wd, seed=5)
+    held = hold_f32_step(f"float32 {name} step", loss32, g32, st32, loss16, g16, ploss, pgrads,
+                         pstats, cancelled_biases(init))
+    print(json.dumps({
+        "train_step": name, "dtype": "float32", "batch": n, "size": size, "classes": classes,
+        "recipe": f"focal + dice, w={list(f32.cls_weights)}, Adam lr {lr:g} wd {wd:g}",
+        "launches": counts, **t32, "loss": loss32, "loss_plain_f32_step": ploss, **held,
+        "bf16_step": t16, "gpu": card}), flush=True)
+    del init, pgrads, pstats, g16, g32
+    torch.cuda.empty_cache()
+    return counts
 
 
 def write_medical(root: Path, n: int, size: int, seed: int):
@@ -3497,19 +3787,26 @@ def cli_train_f32(card: str):
 
 
 def phase_f32(card: str, results: dict):
-    """Phase 7, the float32 path: its kernels (encoder, decoder, loss), the
-    single-tile witnesses, the step, ``cli train`` of the voc and medical
-    presets.  Returns the launches of the counted runs."""
+    """Phase 7, the float32 path: its kernels (encoder, decoder at both
+    models' widths, the up_conv head at both heads, loss), the single-tile
+    witnesses, the unet_vgg, unet_resnet50, self_net and DataB steps,
+    ``cli train`` of the voc and medical presets.  Returns the launches of
+    the counted runs."""
     t0 = time.perf_counter()
     record = functools.partial(record_case, results, card)
     gen = torch.Generator(device="cuda").manual_seed(20)
     f32_single_tile_readings(gen)
     f32_encoder_kernels(record, gen)
     f32_decoder_kernels(record, gen)
+    f32_head_kernels(record, gen)
     f32_loss_kernels(record, gen)
     totals = f32_train_step(card)
-    for k, v in cli_train_f32(card).items():
-        totals[k] = totals.get(k, 0) + v
+    counts = [f32_model_step("unet_resnet50", card, seed=16), f32_model_step("self_net", card, 19)]
+    counts += [f32_datab_step(name, card) for name in DATAB_CW]
+    counts.append(cli_train_f32(card))
+    for c in counts:
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
     print(f"phase 7: float32 path in {time.perf_counter() - t0:.1f} s", flush=True)
     return totals
 
@@ -3602,6 +3899,10 @@ SOURCES = {
                            "tpu_unet/kernels/encoder3_train.py:349"),
     "final_ce_dice_fwd_f32": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:704"),
     "final_ce_dice_bwd_f32": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:804"),
+    # the up_conv head in float32: csrc/upconv.cu's float32 instantiations
+    # (#10 / #11 forward, #12 backward)
+    "upconv_f32": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:227"),
+    "upconv_bwd_f32": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:475"),
 }
 
 

@@ -93,6 +93,33 @@ def stage_bwd(g, out, y1, skip, x, w1, w2):
     return dskip, dx, torch.cat([dk1s, dk1u], 1), db1, dk2, db2
 
 
+def head_fwd(x, w1, b1, w2, b2):
+    """#10 / #11 in float32, the stage forward at Cs = 0: up (exact,
+    float32), conv1 over the one map up (``sm90.unetup_launches`` at Cs =
+    0: ``k_walk(Cx)``) and conv2 → (out, y1) float32."""
+    up = upsample2x(x)
+    y1 = torch.relu(conv_kwalk([up], w1) + b1.double()).float()
+    return torch.relu(conv_kwalk([y1], w2) + b2.double()).float(), y1
+
+
+def head_bwd(g, out, y1, x, w1, w2):
+    """#12 in float32 (``sm90.upconv_bwd_launches(..., f32=True)``): the
+    mask pass, conv2's masked dgrad, conv1's dgrad into dups, dk2 / db2 and
+    dk1 / db1 in their plan's splits, the adjoint → (dx, dk1, db1, dk2,
+    db2), dx float32, the weight and bias gradients in float64."""
+    B, H2, W2, f = g.shape
+    cx = x.shape[-1]
+    g2 = torch.where(out > 0, g, torch.zeros(()))
+    dz1 = torch.where(y1 > 0, conv_kwalk([g2], flip_t(w2)), torch.zeros((),
+                      dtype=torch.float64)).float()
+    dups = conv_kwalk([dz1], flip_t(w1)).float()
+    lns = sm90.upconv_bwd_launches(B, H2, W2, cx, f, True)
+    dk2, db2 = wgrad_splits(y1, g2, lns[2])
+    dk1, db1 = wgrad_splits(upsample2x(x), dz1, lns[3])
+    dx = upsample2x_adjoint_plain(dups.contiguous(), x.shape[1], x.shape[2])
+    return dx, dk1, db1, dk2, db2
+
+
 def block_fwd(x, ws, bs, pool=True, image=False):
     """A VGG block's (or, with ``image``, the stem's) float32 forward:
     each conv's input as the kernel takes it (the image rounded by the

@@ -1836,19 +1836,181 @@ def test_f32_encoder_backward(cuda, chans, hw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(8, 8), (4, 16)])
+def test_f32_upconv_kernel(cuda, h, w):
+    """The head's forward in float32 (#10 / #11, ``upconv_f32``): the
+    float32 plan's two convs (the tile rule's pixels × 64 channels, conv1
+    over the one map up); one ``upconv_f32`` and one ``upsample2x_f32``
+    launch a call, no bf16 key; y1 and out within CONV_REL_TOL of the plain
+    float32 head, each conv within ``tile_rel_tol`` of its TF32 emulation
+    over the kernel's own input (up bit-equal to the plain upsample; the
+    other operand rule printed beside), bit-identical on a second launch."""
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts, sm90, tf32
+    from tpu_unet_torch.kernels.decoder_fuse import stage_plan
+    from tpu_unet_torch.kernels.upconv import _upconv_cuda, _upconv_plain_y1, upconv
+    from tpu_unet_torch.nn.resize import upsample2x
+
+    x = _act32(cuda, 2, h, w, 64)
+    w1, b1 = _conv32(cuda, 64, 64)
+    w2, b2 = _conv32(cuda, 64, 64)
+    plan = stage_plan(2, 2 * h, 2 * w, 0, 64, 64, True)
+    tm = 256 if (2 * h) % 16 == 0 else 128
+    assert plan[:, 0].tolist() == [sm90.OP_FWD] * 2 and plan[:, 10].tolist() == [1, 1]
+    assert plan[:, 1].tolist() == [64, 64] and plan[:, 6].tolist() == [tm, tm]
+    reset_launch_counts()
+    out, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
+    assert {k: v for k, v in launch_counts.items() if v} == {"upconv_f32": 1,
+                                                              "upsample2x_f32": 1}
+    assert out.dtype == torch.float32 and out.shape == (2, 2 * h, 2 * w, 64)
+    rout, ry1 = _upconv_plain_y1(x, w1, b1, w2, b2)
+    assert _rel(out, rout) <= tf32.CONV_REL_TOL and _rel(y1, ry1) <= tf32.CONV_REL_TOL
+    _witness(y1, lambda r: tf32.conv3x3_relu(upsample2x(x), w1, b1, r), 9 * 64)
+    _witness(out, lambda r: tf32.conv3x3_relu(y1, w2, b2, r), 9 * 64)
+    assert torch.equal(out, upconv(x, w1, b1, w2, b2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(8, 16), (16, 24)])
+def test_f32_upconv_bwd_kernel(cuda, h, w):
+    """#12 in float32 (``upconv_bwd_f32``) against its plain float32
+    version, batch 2, x (2, h, w, 64): one counted launch; dx within
+    CONV_REL_TOL, the weight and bias gradients within WGRAD_CHAIN_REL_TOL,
+    all five bit-identical on a second launch; conv2's masked dgrad and
+    conv1's dgrad within ``tile_rel_tol`` of their TF32 emulations over the
+    kernel's own inputs (g2 exact), dk2 of its emulation (rounded
+    operands) over the whole reduction."""
+    from tpu_unet_torch.kernels import launch_counts, tf32
+    from tpu_unet_torch.kernels.decoder_train import flip_t
+    from tpu_unet_torch.kernels.upconv import _upconv_bwd_cuda, upconv_bwd, upconv_bwd_plain
+
+    x = _act32(cuda, 2, h, w, 64)
+    g = torch.randn((2, 2 * h, 2 * w, 64), generator=cuda, device="cuda")
+    out, y1 = _act32(cuda, 2, 2 * h, 2 * w, 64), _act32(cuda, 2, 2 * h, 2 * w, 64)
+    w1, _ = _conv32(cuda, 64, 64)
+    w2, _ = _conv32(cuda, 64, 64)
+    n = launch_counts["upconv_bwd_f32"]
+    res = upconv_bwd(g, out, y1, x, w1, w2)
+    assert launch_counts["upconv_bwd_f32"] == n + 1
+    assert all(torch.equal(a, b) for a, b in zip(res, upconv_bwd(g, out, y1, x, w1, w2)))
+    ref = upconv_bwd_plain(g, out, y1, x, w1, w2)
+    for i, (a, b) in enumerate(zip(res, ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+        assert _rel(a, b) <= (tf32.CONV_REL_TOL if i == 0 else tf32.WGRAD_CHAIN_REL_TOL), i
+    _, _, _, dk2, _, dz1, dups = _upconv_bwd_cuda(g, out, y1, x, w1, w2)
+    g2 = torch.where(out > 0, g, 0)
+    _witness(dz1, lambda r: torch.where(y1 > 0, tf32.conv3x3(g2, flip_t(w2), r), 0), 9 * 64)
+    _witness(dups, lambda r: tf32.conv3x3(dz1, flip_t(w1), r), 9 * 64)
+    assert tf32.rel(dk2, tf32.wgrad(y1, g2)) <= tf32.tile_rel_tol(g.numel() // 64)
+
+
+@pytest.mark.gpu
+def test_f32_upconv_bwd_single_tile_float64(cuda):
+    """#12 in float32 at one 8x16 output tile, each reading in float64 from
+    the kernel's own float32 inputs: dz1 (from g2, exact) and dups (from
+    its own dz1) within ``tile_rel_tol(9 × 64)`` of their TF32 emulations
+    under the stated rule (truncated TMA operand, rounded packed weights;
+    the rounding rule printed beside), dk2 / db2 (from g2 and y1) and dk1 /
+    db1 (from its own dz1 and up, the plain float32 upsample's bit for bit)
+    within ``tile_rel_tol(128)`` of theirs (both operands rounded), dx within
+    1e-5 of the float64 adjoint of its own dups (float32 sums of the same
+    products).  Prints the readings and the distance of each from the exact
+    float64 product (pytest -s)."""
+    import torch.nn.functional as F
+
+    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.kernels.decoder_train import flip_t
+    from tpu_unet_torch.kernels.upconv import _upconv_bwd_cuda
+    from tpu_unet_torch.nn.resize import upsample2x, upsample2x_adjoint_plain
+
+    f64 = torch.float64
+    x = _act32(cuda, 1, 4, 8, 64)
+    g = torch.randn((1, 8, 16, 64), generator=cuda, device="cuda")
+    out, y1 = _act32(cuda, 1, 8, 16, 64), _act32(cuda, 1, 8, 16, 64)
+    w1, _ = _conv32(cuda, 64, 64)
+    w2, _ = _conv32(cuda, 64, 64)
+    dx, dk1, db1, dk2, db2, dz1, dups = _upconv_bwd_cuda(g, out, y1, x, w1, w2)
+    g2 = torch.where(out > 0, g, 0)
+    up = upsample2x(x)
+
+    def exact_dgrad(v, w):
+        return F.conv2d(v.permute(0, 3, 1, 2).to(f64), flip_t(w).to(f64), padding=1) \
+            .permute(0, 2, 3, 1)
+
+    exact = {"dz1": tf32.rel(dz1, torch.where(y1 > 0, exact_dgrad(g2, w2), 0)),
+             "dups": tf32.rel(dups, exact_dgrad(dz1, w1))}
+    print("float64", exact)
+    _witness(dz1, lambda r: torch.where(y1 > 0, tf32.conv3x3(g2, flip_t(w2), r), 0), 9 * 64)
+    _witness(dups, lambda r: tf32.conv3x3(dz1, flip_t(w1), r), 9 * 64)
+    readings = {"dk2": tf32.rel(dk2, tf32.wgrad(y1, g2)),
+                "db2": tf32.rel(db2, g2.to(f64).sum((0, 1, 2))),
+                "dk1": tf32.rel(dk1, tf32.wgrad(up, dz1)),
+                "db1": tf32.rel(db1, dz1.to(f64).sum((0, 1, 2))),
+                "dx": tf32.rel(dx, upsample2x_adjoint_plain(dups.to(f64), 4, 8))}
+    print(readings)
+    for name in ("dk2", "db2", "dk1", "db1"):
+        assert readings[name] <= tf32.tile_rel_tol(128), name
+    assert readings["dx"] <= 1e-5
+
+
+@pytest.mark.gpu
+def test_f32_upconv_train_on_card(cuda):
+    """``upconv_train`` on the card in float32: one launch of the forward
+    kernel keeping y1 and one of #12 (``upconv_f32``, ``upconv_bwd_f32``),
+    each after an upsample launch, no bf16 key; its gradients are #12's on
+    that forward's own out and y1, bit for bit; against autograd of
+    ``upconv_plain`` in float32 (TF32 off) on the same values, the output
+    within CONV_REL_TOL and every gradient at a cosine ≥ 0.999 (a
+    pre-activation near 0 may take the other side of its ReLU under TF32
+    products)."""
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts, tf32
+    from tpu_unet_torch.kernels.upconv import (_upconv_cuda, upconv_bwd, upconv_plain,
+                                               upconv_train)
+
+    x = _act32(cuda, 2, 16, 16, 64)
+    w1, b1 = _conv32(cuda, 64, 64)
+    w2, b2 = _conv32(cuda, 64, 64)
+    g = torch.randn((2, 32, 32, 64), generator=cuda, device="cuda")
+    args = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    reset_launch_counts()
+    out = upconv_train(*args)
+    grads = torch.autograd.grad(out, args, g)
+    assert {k: v for k, v in launch_counts.items() if v} == {
+        "upconv_f32": 1, "upsample2x_f32": 2, "upconv_bwd_f32": 1}
+    with torch.no_grad():
+        out_k, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
+        own = upconv_bwd(g, out_k, y1, x, w1, w2)
+    assert torch.equal(out, out_k)
+    assert all(torch.equal(a, b) for a, b in zip(grads, own))
+    args32 = [t.detach().requires_grad_() for t in args]
+    ref = upconv_plain(*args32)
+    rgrads = torch.autograd.grad(ref, args32, g)
+    assert _rel(out, ref) <= tf32.CONV_REL_TOL
+    for i, (a, b) in enumerate(zip(grads, rgrads)):
+        a, b = a.ravel(), b.ravel()
+        assert (a @ b / (a.norm() * b.norm())).item() >= 0.999, i
+
+
+@pytest.mark.gpu
 def test_f32_kernels_refuse_other_dtypes(cuda):
     """A float32 path's wrapper handed float16 (a dtype with no kernel)
     raises; no cast, no fallback."""
     from tpu_unet_torch.kernels.decoder_train import up2x, upsample2x_adjoint
     from tpu_unet_torch.kernels.encoder import vgg_block
+    from tpu_unet_torch.kernels.upconv import upconv, upconv_bwd
 
     x = torch.zeros((1, 8, 16, 64), device="cuda", dtype=torch.float16)
     w = torch.zeros((64, 64, 3, 3), device="cuda", dtype=torch.float16)
     b = torch.zeros(64, device="cuda", dtype=torch.float16)
+    g = torch.zeros((1, 16, 32, 64), device="cuda", dtype=torch.float16)
     for fn in (lambda: vgg_block(x, [w, w], [b, b]), lambda: up2x(x),
-               lambda: upsample2x_adjoint(x, 4, 8)):
+               lambda: upsample2x_adjoint(x, 4, 8), lambda: upconv(x, w, b, w, b),
+               lambda: upconv_bwd(g, g, g, x, w, w)):
         with pytest.raises(ValueError, match="bf16 or float32"):
             fn()
     # mixed: float32 activations with bf16 weights
     with pytest.raises(ValueError, match="dtype"):
         vgg_block(x.float(), [w.to(torch.bfloat16)] * 2, [b.float()] * 2)
+    with pytest.raises(ValueError, match="dtype"):
+        upconv(x.float(), w.to(torch.bfloat16), b.float(), w.float(), b.float())
+    with pytest.raises(ValueError, match="dtype"):
+        upconv_bwd(g.float(), g.float(), g.float(), x.float(), w.to(torch.bfloat16), w.float())

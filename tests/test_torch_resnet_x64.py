@@ -124,3 +124,54 @@ def test_float64_step_matches_jax(steps):
     own = net.state_dict()
     for k in (k for k in own if "running" in k):
         assert _rel(own[k], ref[f"stat/{k}"]) <= 1e-5, (k, _rel(own[k], ref[f"stat/{k}"]))
+
+
+def test_f32_card_arithmetic_step_matches_float64(rn50, steps):
+    """The float32 step the card runs for unet_resnet50 (``check_ported``
+    lets it through on the card in float32, both routes), here on the CPU
+    with every kernel's TF32 arithmetic emulated (``kernels/tf32.py::
+    emulated_plain_versions``: the decoder stages and the up_conv head's
+    #10 / #12 on truncated activations and rounded weights, the weight
+    gradients on rounded operands, float64 sums; ResNet50 and its batch
+    norms plain float32, as cuDNN runs them on the card) on the
+    ``"paired"`` route, against JAX's float64 step (JAX's float32 step lies
+    up to 13% from it behind the batch norms, ``test_torch_resnet_train.py``):
+    the loss times 4 within STEP_LOSS_REL_TOL, the bound of the card's
+    float32 steps (``kernels/tf32.py``); the gradients of the decoder, the
+    head and ``final``, and every gradient's cosine, times 4 within this
+    model's bounds at 64² (STEP_GRAD_REL_TOL_RN50_64PX,
+    STEP_GRAD_COS_RN50_64PX: up4 normalises 32 pixels a channel here, 2048
+    on the card); the running statistics within 1e-2, as the card's check
+    reads them."""
+    import dataclasses
+
+    from tpu_unet_torch.kernels import tf32
+
+    _, jv = rn50
+    ref, _ = steps
+    net = _port(jv)
+    cfg = tstep.StepConfig(num_classes=len(CW), cls_weights=CW, use_dice=True)
+    assert cfg.compute_dtype == torch.float32 and cfg.train_route == "paired"
+    for route in tstep.TRAIN_ROUTES:
+        tstep.check_ported(net, dataclasses.replace(cfg, train_route=route),
+                           torch.device("cuda"))
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    with tf32.emulated_plain_versions():
+        _, m = tstep.make_train_step(net, cfg)(state, _batch(STEP_BATCH), 1e-3)
+    lrel = abs(m["loss"].item() - ref["loss"]) / abs(ref["loss"])
+    dec_rel, enc_rel, worst_cos = 0.0, 0.0, 1.0
+    for k, p in net.named_parameters():
+        g, r = p.grad.numpy(), ref[f"grad/{k}"]
+        if k.startswith("resnet."):
+            enc_rel = max(enc_rel, _rel(g, r))
+        else:
+            dec_rel = max(dec_rel, _rel(g, r))
+        worst_cos = min(worst_cos, _cos(g, r))
+    own = net.state_dict()
+    stat_rel = max(_rel(own[k], ref[f"stat/{k}"]) for k in own if "running" in k)
+    print({"loss": lrel, "grad_rel": dec_rel, "encoder_grad_rel": enc_rel,
+           "grad_1-cos": 1 - worst_cos, "running_stats": stat_rel})
+    assert lrel * 4 <= tf32.STEP_LOSS_REL_TOL
+    assert dec_rel * 4 <= tf32.STEP_GRAD_REL_TOL_RN50_64PX
+    assert (1 - worst_cos) * 4 <= 1 - tf32.STEP_GRAD_COS_RN50_64PX
+    assert stat_rel <= 1e-2

@@ -1,13 +1,16 @@
 """The float32 path on the CPU, before any card run: (a) the float32 launch
 plans of the conv core, the weight-gradient GEMM and the image GEMMs at
-every shape of unet_vgg's 512², batch 8 training step; (b) a float64
-emulation of each float32 kernel with its TF32 operand rules, in its plan's
-K and split order (``tests/_torch_tf32.py``), against the plain float32
-versions and the JAX package's float32 references (``reference_unetup``,
-``reference_vgg_block``, ``reference_vgg_stem``, ``encoder3_train.
-_ref_diff``, their VJPs).  Each emulation's distance from the plain
-version, times ``MARGIN``, must lie within the bound the card is held to
-(``tpu_unet_torch/kernels/tf32.py``): these readings fix the bounds."""
+every shape of unet_vgg's 512², batch 8 training step, of unet_resnet50's
+four decoder stages and of both up_conv heads (unet_resnet50's and
+self_net's) at their full shapes; (b) a float64 emulation of each float32
+kernel with its TF32 operand rules, in its plan's K and split order
+(``tests/_torch_tf32.py``), against the plain float32 versions and the JAX
+package's float32 references (``reference_unetup``, ``reference_upconv``
+and #10 / #12 in interpret mode, ``reference_vgg_block``,
+``reference_vgg_stem``, ``encoder3_train._ref_diff``, their VJPs).  Each
+emulation's distance from the plain version, times ``MARGIN``, must lie
+within the bound the card is held to (``tpu_unet_torch/kernels/tf32.py``):
+these readings fix the bounds."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,7 @@ from tpu_unet.kernels.decoder_fuse import reference_unetup
 from tpu_unet.kernels.encoder import reference_vgg_block
 from tpu_unet.kernels.encoder3_train import _ref_diff
 from tpu_unet.kernels.stem import reference_vgg_stem
+from tpu_unet.kernels.upconv import reference_upconv
 from tpu_unet_torch.kernels import sm90, tf32
 from tpu_unet_torch.kernels._build import pack_conv3x3, round_tf32
 from tpu_unet_torch.kernels.decoder_fuse import _unetup_plain_y1
@@ -26,6 +30,7 @@ from tpu_unet_torch.kernels.decoder_train import adjoint_plan, unetup_bwd_full_p
 from tpu_unet_torch.kernels.encoder import vgg_block_plain
 from tpu_unet_torch.kernels.encoder_train import vgg_block_bwd_plain, vgg_stem_bwd_plain
 from tpu_unet_torch.kernels.stem import vgg_stem_plain
+from tpu_unet_torch.kernels.upconv import _upconv_plain_y1, upconv_bwd_plain
 
 SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory (227 KB)
 SM_SMEM = 233472      # an H100 SM's shared memory (228 KB), two blocks' worth
@@ -40,6 +45,12 @@ ENCODER = [(512, [3, 64, 64], True), (256, [64, 128, 128], True),
            (32, [512, 512, 512, 512], False)]
 DECODER = [(256, 64, 128, 64), (128, 128, 256, 128), (64, 256, 512, 256),
            (32, 512, 512, 512)]
+# unet_resnet50's decoder stages at 512², batch 8 (its stride-2 pyramid:
+# Cs + Cx up to 3072), and the up_conv heads (x's H, Cx, F): unet_resnet50's
+# after its up1, self_net's after unet_vgg's
+RN50_DECODER = [(128, 64, 128, 64), (64, 256, 256, 128), (32, 512, 512, 256),
+                (16, 1024, 2048, 512)]
+HEADS = [(256, 64, 64), (512, 64, 64)]
 
 
 def _launches():
@@ -60,7 +71,7 @@ def _launches():
         bwd = sm90.block_bwd_launches(B, H, H, chans, True, True)
         for i, (c, f) in enumerate(zip(chans[:-1], chans[1:])):
             out += [("wgrad", bwd[2 * i], c, f), ("dgrad", bwd[2 * i + 1], f, c)]
-    for h, cs, cx, f in DECODER:
+    for h, cs, cx, f in DECODER + RN50_DECODER:
         h2 = 2 * h
         c1, c2 = sm90.unetup_launches(B, h2, h2, cs, cx, f, True)
         d2, d1 = sm90.unetup_bwd_launches(B, h2, h2, cs, cx, f, True)
@@ -68,12 +79,19 @@ def _launches():
         out += [("fwd", c1, cs + cx, f), ("fwd", c2, f, f), ("dgrad", d2, f, f),
                 ("dgrad", d1, f, cs + cx), ("wgrad", w[0], cs, f), ("wgrad", w[1], cx, f),
                 ("wgrad", w[2], f, f)]
+    for h, cx, f in HEADS:
+        h2 = 2 * h
+        c1, c2 = sm90.unetup_launches(B, h2, h2, 0, cx, f, True)
+        d2, d1, w2, w1 = sm90.upconv_bwd_launches(B, h2, h2, cx, f, True)
+        out += [("fwd", c1, cx, f), ("fwd", c2, f, f), ("dgrad", d2, f, f),
+                ("dgrad", d1, f, cx), ("wgrad", w2, f, f), ("wgrad", w1, cx, f)]
     return out
 
 
 @pytest.mark.parametrize("what", ["fwd", "dgrad", "wgrad", "image_fwd", "image_wgrad"])
 def test_f32_plans_fit_the_card(what):
-    """(a) Every float32 launch of the step: 4-byte tensor-map strides of
+    """(a) Every float32 launch of unet_vgg's step, of unet_resnet50's
+    decoder and of both heads: 4-byte tensor-map strides of
     the dense tensors (multiples of 16), boxes of 32 channels (128 bytes,
     the swizzle span), the record's element-type word 1; the conv core's K
     slices of 32 channels, its stage bytes and ring within 227 KB, its
@@ -236,6 +254,70 @@ def test_f32_stage_emulation(b, h, cs, cx, f):
     assert tf32.rel(db2, g.double().sum((0, 1, 2))) <= 1e-12
 
 
+# the up_conv head (b, H, W, Cx, F): x (b, H, W, Cx) → (b, 2H, 2W, F); at F
+# = 64 JAX's #10 and #12 take the shape (F < 128), at Cx = F = 128 only
+# reference_upconv does
+HEAD_CASES = [(1, 8, 16, 64, 64), (1, 4, 8, 128, 128)]
+
+
+@pytest.mark.parametrize("b,h,w,cx,f", HEAD_CASES)
+def test_f32_head_emulation(b, h, w, cx, f):
+    """(b) The up_conv head in float32, #10 / #11 and #12 emulated with
+    their TF32 rules in their float32 plans' orders (``_torch_tf32.
+    head_fwd`` / ``head_bwd``): the forward against ``upconv_plain`` in
+    float32, JAX's ``reference_upconv`` and (F < 128) #10 in interpret
+    mode; the backward against ``upconv_bwd_plain`` in float32, the VJP of
+    ``reference_upconv`` and (F < 128) #12 in interpret mode on its own
+    forward's out and y1: each reading times MARGIN within CONV_REL_TOL
+    (out, y1, dx) or WGRAD_CHAIN_REL_TOL (dk1, db1, dk2, db2)."""
+    from test_torch_upconv_train import _jax_bwd
+
+    rng = np.random.default_rng(h * cx + f)
+    x = _np(rng, b, h, w, cx, relu=True)
+    w1 = torch.from_numpy(_np(rng, f, cx, 3, 3, scale=(9 * cx) ** -0.5))
+    w2 = torch.from_numpy(_np(rng, f, f, 3, 3, scale=(9 * f) ** -0.5))
+    b1 = torch.from_numpy(_np(rng, f, scale=0.1))
+    b2 = torch.from_numpy(_np(rng, f, scale=0.1))
+    g = torch.from_numpy(_np(rng, b, 2 * h, 2 * w, f))
+    tx = torch.from_numpy(x)
+    readings = {}
+    out, y1 = emu.head_fwd(tx, w1, b1, w2, b2)
+    pout, py1 = _upconv_plain_y1(tx, w1, b1, w2, b2)
+    jfn = lambda xx, k1, jb1, k2, jb2: reference_upconv(xx, k1, jb1, k2, jb2)  # noqa: E731
+    jargs = (jnp.asarray(x), _hwio(w1), jnp.asarray(b1.numpy()), _hwio(w2),
+             jnp.asarray(b2.numpy()))
+    jout, vjp = jax.vjp(jfn, *jargs)
+    _record(readings, "fwd_vs_plain", max(tf32.rel(out, pout), tf32.rel(y1, py1)))
+    _record(readings, "fwd_vs_jax", tf32.rel(out, _torch(jout)))
+    assert tf32.rel(pout, _torch(jout)) <= 1e-5  # the plain version is JAX's
+    names = ("dx", "dk1", "db1", "dk2", "db2")
+    res = emu.head_bwd(g, out, y1, tx, w1, w2)
+    for name, a, r in zip(names, res, upconv_bwd_plain(g, out, y1, tx, w1, w2)):
+        _record(readings, name + "_vs_plain", tf32.rel(a, r))
+    # JAX's VJP at JAX's own forward (HWIO → OIHW), the emulation at the
+    # plain forward's out and y1 (the same ReLU masks)
+    jdx, jdk1, jdb1, jdk2, jdb2 = vjp(jnp.asarray(g.numpy()))
+    jres = emu.head_bwd(g, pout, py1, tx, w1, w2)
+    oihw = lambda k: _torch(np.transpose(np.asarray(k), (3, 2, 0, 1)))  # noqa: E731
+    for name, a, r in zip(names, jres, (_torch(jdx), oihw(jdk1), _torch(jdb1), oihw(jdk2),
+                                        _torch(jdb2))):
+        _record(readings, name + "_vs_jax", tf32.rel(a, r))
+    if f < 128:
+        args = (x, np.transpose(w1.numpy(), (2, 3, 1, 0)), b1.numpy(),
+                np.transpose(w2.numpy(), (2, 3, 1, 0)), b2.numpy())
+        (kout, ky1), kres = _jax_bwd(args, g.numpy())
+        _record(readings, "fwd_vs_kernel", max(tf32.rel(out, _torch(kout)),
+                                               tf32.rel(y1, _torch(ky1))))
+        eres = emu.head_bwd(g, _torch(kout), _torch(ky1), tx, w1, w2)
+        for name, a, r in zip(names, eres, kres):
+            r = np.transpose(r, (3, 2, 0, 1)) if r.ndim == 4 and name != "dx" else r
+            _record(readings, name + "_vs_kernel", tf32.rel(a, _torch(r)))
+    print((b, h, w, cx, f), readings)
+    for k, v in readings.items():
+        tol = tf32.CONV_REL_TOL if k.startswith(("fwd", "dx")) else tf32.WGRAD_CHAIN_REL_TOL
+        assert v * MARGIN <= tol, (k, v)
+
+
 ENC = [(1, 16, 32, [64, 128, 128], True), (1, 8, 16, [256, 512, 512, 512], True),
        (1, 8, 16, [512, 512, 512, 512], False)]
 
@@ -368,3 +450,16 @@ def test_tile_bound_holds_the_tensor_core_sum(k, rule):
     reading, gap = tf32.rel(acc, exact), tf32.rel(other, exact)
     print(k, rule, {"model": reading, "bound": tf32.tile_rel_tol(k), "rules_apart": gap})
     assert reading <= tf32.tile_rel_tol(k) <= gap / 2
+
+
+def test_step_loss_bounds_by_model():
+    """The float32 step's loss bound a model is held to on the card: 4
+    times its emulated step's reading, STEP_LOSS_EMULATED unless the model
+    has a reading of its own (set from its emulation, above the shared
+    one)."""
+    for model in ("unet_vgg", "self_net", "traditional"):
+        assert tf32.step_loss_emulated(model) == tf32.STEP_LOSS_EMULATED
+        assert tf32.step_loss_rel_tol(model) == tf32.STEP_LOSS_REL_TOL
+    for model, reading in tf32.STEP_LOSS_EMULATED_BY_MODEL.items():
+        assert reading > tf32.STEP_LOSS_EMULATED
+        assert tf32.step_loss_rel_tol(model) == 4 * reading

@@ -98,14 +98,15 @@ def test_plain_route_trains_focal_and_self_net():
 
 
 @pytest.mark.parametrize("case", ["focal", "self_net", "f32", "batch_norm", "aux", "resnet50",
-                                  "f32_up_conv"])
+                                  "f32_up_conv", "f32_resnet50", "f32_datab"])
 def test_unported_configurations_raise(case):
-    """On the card: float32 compute with the up_conv head (self_net; its
-    #10-#12 have no float32 kernels yet), deep supervision.  Focal
-    (#25/#26), batch norm in train mode (the DataB slice), the up_conv head
-    (self_net, #12) in bf16, unet_resnet50 (its ResNet50 in train mode) and
-    unet_vgg in float32 on both training routes (the float32
-    instantiations) are ported: they pass on both devices."""
+    """On the card: deep supervision raises.  Focal (#25/#26), batch norm
+    in train mode (the DataB slice), the up_conv head (self_net, #12) in
+    bf16, unet_resnet50 (its ResNet50 in train mode), and float32 on both
+    training routes for unet_vgg, self_net and unet_resnet50 (the float32
+    instantiations, the up_conv head's #10 / #12 among them) and for a
+    DataB model (``traditional``: cuDNN and the logit-level loss, which
+    takes float32 logits) are ported: they pass on both devices."""
     bf = torch.bfloat16
     model, cfg = "unet_vgg", tstep.StepConfig(4, (1.0,) * 4, compute_dtype=bf)
     if case == "focal":
@@ -116,6 +117,11 @@ def test_unported_configurations_raise(case):
         cfg = tstep.StepConfig(4, (1.0,) * 4)
     elif case == "f32_up_conv":
         model, cfg = "self_net", tstep.StepConfig(4, (1.0,) * 4)
+    elif case == "f32_resnet50":
+        model, cfg = "unet_resnet50", tstep.StepConfig(4, (1.0,) * 4, use_dice=True)
+    elif case == "f32_datab":
+        model = "traditional"
+        cfg = tstep.StepConfig(4, (1, 15, 0, 0), use_focal=True, use_dice=True)
     elif case == "batch_norm":
         model = "traditional"
         cfg = tstep.StepConfig(4, (1, 15, 0, 0), use_focal=True, use_dice=True, compute_dtype=bf)
@@ -128,15 +134,20 @@ def test_unported_configurations_raise(case):
         for dev in ("cuda", "cpu"):
             tstep.check_ported(net, cfg, torch.device(dev))
         return
-    if case == "f32":
+    if case.startswith("f32"):
+        assert cfg.compute_dtype == torch.float32
         for dev, route in itertools.product(("cuda", "cpu"), tstep.TRAIN_ROUTES):
             tstep.check_ported(net, dataclasses.replace(cfg, train_route=route),
                                torch.device(dev))
         return
-    match = {"f32_up_conv": "float32 compute.*ROADMAP", "aux": "deep supervision"}[case]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="deep supervision"):
         tstep.check_ported(net, cfg, torch.device("cuda"))
     # the same model and recipe run on the CPU
     tstep.check_ported(net, cfg, torch.device("cpu"))
     ok = tstep.StepConfig(4, (1.0,) * 4, use_dice=True, compute_dtype=bf)
     tstep.check_ported(build_model("unet_vgg", 4), ok, torch.device("cuda"))
+    # a compute dtype that has no kernel instantiation raises on the card
+    with pytest.raises(NotImplementedError, match="bf16 or float32"):
+        tstep.check_ported(build_model("unet_vgg", 4),
+                           tstep.StepConfig(4, (1.0,) * 4, compute_dtype=torch.float16),
+                           torch.device("cuda"))

@@ -150,6 +150,24 @@ def test_upconv_bwd_kernel_refuses_untileable_shapes(h, w, cx, f):
         _upconv_bwd_cuda(g, g, g, x, w1, w2)
 
 
+@pytest.mark.parametrize("h,w,cx,f", [(3, 8, 64, 64),    # 2H % 8
+                                      (4, 4, 64, 64),    # 2W % 16
+                                      (4, 8, 32, 64),    # Cx % 64 (float32's tap is 32)
+                                      (4, 8, 64, 32)])   # F % 64
+def test_upconv_bwd_kernel_refuses_untileable_shapes_f32(h, w, cx, f):
+    """The training head's rule is the same in float32: its 32-channel K
+    slices would take Cx = 32 as conv1's input, but conv1's dgrad writes Cx
+    channels in N tiles of 64 or more (``sm90.conv_tile_n``), so Cx % 64
+    stays; a shape outside it raises before the device, and the model
+    routes such a head to the plain composition."""
+    assert not upconv_train_ok(2 * h, 2 * w, cx, f)
+    g = torch.zeros(1, 2 * h, 2 * w, f)
+    x = torch.zeros(1, h, w, cx)
+    w1, w2 = torch.zeros(f, cx, 3, 3), torch.zeros(f, f, 3, 3)
+    with pytest.raises(ValueError, match="upconv_bwd kernel"):
+        _upconv_bwd_cuda(g, g, g, x, w1, w2)
+
+
 # --- self_net's step --------------------------------------------------------
 
 SIZE, B, C = 64, 2, 21
@@ -213,12 +231,13 @@ def self_net_steps():
         for setter in (fusion.set_fused_loss, fusion.set_fused_decoder,
                        fusion.set_fused_train, fusion.set_paired_train):
             setter(None)
+    sd = state_dict_from_flax(jv, "self_net")
     net = build_model("self_net", C)
-    net.load_state_dict(state_dict_from_flax(jv, "self_net"), strict=True)
+    net.load_state_dict(sd, strict=True)
     tstate = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
     _, tm = tstep.make_train_step(net, tstep.StepConfig(C, CW, use_dice=True))(
         tstate, _batch(STEP_BATCH), 1e-3)
-    return jres, (tm["loss"].item(), tm["f_score"].item(), net)
+    return jres, (tm["loss"].item(), tm["f_score"].item(), net), sd
 
 
 def test_self_net_step_matches_jax(self_net_steps):
@@ -228,7 +247,7 @@ def test_self_net_step_matches_jax(self_net_steps):
     function); the encoder's, behind PyTorch's and XLA's float32 convs, at a
     cosine of 0.99999 and 5e-3 relative, as unet_vgg's
     (``tests/test_torch_train.py``)."""
-    (jloss, jfs, jgrads), (loss, fs, net) = self_net_steps
+    (jloss, jfs, jgrads), (loss, fs, net), _ = self_net_steps
     assert abs(loss - jloss) <= 1e-5 * abs(jloss)
     assert abs(fs - jfs) <= 1e-5 * abs(jfs)
     params = dict(net.named_parameters())
@@ -240,3 +259,44 @@ def test_self_net_step_matches_jax(self_net_steps):
             assert cos >= 0.99999 and rel_err(g, r) <= 5e-3, (k, cos, rel_err(g, r))
         else:
             assert rel_err(g, r) <= 1e-4, (k, rel_err(g, r))
+
+
+def test_f32_card_arithmetic_step_matches_jax_self_net(self_net_steps):
+    """The float32 step the card runs for self_net (``check_ported`` lets
+    it through on the card in float32, both routes), here on the CPU with
+    every kernel's TF32 arithmetic emulated (``kernels/tf32.py::
+    emulated_plain_versions``: the VGG16 encoder, the decoder stages and
+    the up_conv head's #10 / #12 on truncated activations and rounded
+    weights, the weight gradients on rounded operands, float64 sums) on the
+    ``"paired"`` route: loss, f_score and every gradient against JAX's
+    float32 step.  The readings times 4 lie within the bounds that
+    ``chip_smoke.py`` holds the card's float32 step to (``kernels/tf32.py``:
+    STEP_LOSS_REL_TOL, STEP_GRAD_REL_TOL, STEP_GRAD_COS)."""
+    import dataclasses
+
+    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.models.registry import build_model
+    from tpu_unet_torch.train import step as tstep
+
+    (jloss, jfs, jgrads), _, sd = self_net_steps
+    cfg = tstep.StepConfig(C, CW, use_dice=True)
+    assert cfg.compute_dtype == torch.float32 and cfg.train_route == "paired"
+    net = build_model("self_net", C)
+    for route in tstep.TRAIN_ROUTES:
+        tstep.check_ported(net, dataclasses.replace(cfg, train_route=route),
+                           torch.device("cuda"))
+    net.load_state_dict(sd, strict=True)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9))
+    with tf32.emulated_plain_versions():
+        _, m = tstep.make_train_step(net, cfg)(state, _batch(STEP_BATCH), 1e-3)
+    lrel = abs(m["loss"].item() - jloss) / abs(jloss)
+    worst_rel, worst_cos = 0.0, 1.0
+    for k, p in net.named_parameters():
+        g, r = p.grad.numpy().ravel(), jgrads[k].numpy().ravel()
+        worst_rel = max(worst_rel, rel_err(g, r))
+        worst_cos = min(worst_cos, float(g @ r / (np.linalg.norm(g) * np.linalg.norm(r))))
+    print({"loss": lrel, "f_score": abs(m["f_score"].item() - jfs), "grad_rel": worst_rel,
+           "grad_1-cos": 1 - worst_cos})
+    assert lrel * 4 <= tf32.STEP_LOSS_REL_TOL
+    assert worst_rel * 4 <= tf32.STEP_GRAD_REL_TOL
+    assert (1 - worst_cos) * 4 <= 1 - tf32.STEP_GRAD_COS

@@ -9,10 +9,11 @@ ImageNet ResNet50 file is not in the repository: ``--no-pretrained`` /
 ``pretrained_backbone=False``), and the DataB presets
 ``traditional``, ``lightweight``, ``ultralight``, ``ultralight_large``,
 ``ultralight_large_optimized`` and ``wandb_traditional`` (focal or CE +
-dice on the heavy-augmentation set).  ``fp16=False`` presets need
-``fp16=True`` on the card (the conv core is bf16-only,
-``train/step.py::check_ported``).  The presets of the other registry models
-(and of deep supervision) come with the slices that port them.
+dice on the heavy-augmentation set).  Every preset trains on the card
+in either precision: ``fp16=True`` in bf16, ``fp16=False`` (the default)
+in float32 on the kernels' float32 instantiations (TF32 products,
+``train/step.py::check_ported``).  The presets of the other registry
+models (and of deep supervision) come with the slices that port them.
 """
 from __future__ import annotations
 

@@ -26,18 +26,35 @@
 // ms, at self_net's 8x512x512x64 -> 8x1024x1024x64).  Storing up costs
 // one bf16 write and read of conv1's input (0.27 GB at the unet_resnet50
 // head, 1.07 GB at self_net's); the lerp inside the ring would save it.
+//
+// Both entries in bf16 or, for the float32 training path (fp16=False),
+// float32 (a typed C entry with an f32 flag; each launch record names its
+// element type, word 10, and the conv core, the weight-gradient GEMM
+// refuse a record of the other type): the same launches on the float32
+// instantiations of the conv core (TF32 wgmma; 32-channel K slices; the
+// 256 x 64 tile, whose float32 epilogue tile leaves the ring too few
+// stages, runs one block a tile, not persistent), the float32
+// weight-gradient GEMM (mma.sync TF32; 52 splits of at most 1280 patches
+// at self_net's head, 23 at unet_resnet50's), the mask pass, the upsample
+// and its adjoint.  Bound in float32: operations at the TF32 peak, 494.7
+// TFLOP/s — the forward 309 GFLOP, 0.625 ms, at the unet_resnet50 head
+// and 1237 GFLOP, 2.50 ms, at self_net's; the backward 618 GFLOP, 1.25 ms,
+// and 2474 GFLOP, 5.0 ms — against about 1.9 GB of float32 bytes at the
+// unet_resnet50 head's backward (0.56 ms at 3.35 TB/s).
 #include "relu_grad.cuh"
 #include "upsample_adjoint.cuh"
 #include "wgrad_sm90.cuh"
 
 using bf16 = __nv_bfloat16;
 
-// up (B, H2, W2, Cx) = up2x(x); plan: conv1's and conv2's launch records
-// (kernels/sm90.py::encode), both OP_FWD over one input map.
-extern "C" int tu_upconv(const bf16* up, const bf16* w1, const float* b1, const bf16* w2,
-                         const float* b2, bf16* y1, bf16* out, int B, int H2, int W2, int Cx,
-                         int F, const int64_t* plan, cudaStream_t stream) {
-  namespace sm90 = tu::sm90;
+namespace sm90 = tu::sm90;
+
+namespace {
+
+template <typename T>
+int upconv(const void* up, const void* w1, const float* b1, const void* w2, const float* b2,
+           void* y1, void* out, int B, int H2, int W2, int Cx, int F, const int64_t* plan,
+           cudaStream_t stream) {
   const sm90::Launch l1{plan}, l2{plan + sm90::PLAN_WORDS};
   // each record's input map is the tensor it is given: (C, W2, H2, B)
   auto fits = [&](const int64_t* m, int C) {
@@ -46,11 +63,14 @@ extern "C" int tu_upconv(const bf16* up, const bf16* w1, const float* b1, const 
   if (l1.op() != sm90::OP_FWD || l2.op() != sm90::OP_FWD || l1.has_map(2) || l2.has_map(2) ||
       !fits(l1.map(0), Cx) || !fits(l2.map(0), F))
     return cudaErrorInvalidValue;
-  cudaError_t e = sm90::launch_conv_sm90(
-      l1.w, up, nullptr, w1, sm90::ConvArgs{b1, nullptr, y1, nullptr, H2, W2, Cx, F}, stream);
+  T* ty1 = static_cast<T*>(y1);
+  cudaError_t e = sm90::launch_conv_sm90<T>(
+      l1.w, static_cast<const T*>(up), nullptr, static_cast<const T*>(w1),
+      sm90::ConvArgsT<T>{b1, nullptr, ty1, nullptr, H2, W2, Cx, F}, stream);
   if (e != cudaSuccess) return e;
-  return sm90::launch_conv_sm90(
-      l2.w, y1, nullptr, w2, sm90::ConvArgs{b2, nullptr, out, nullptr, H2, W2, F, F}, stream);
+  return sm90::launch_conv_sm90<T>(
+      l2.w, ty1, nullptr, static_cast<const T*>(w2),
+      sm90::ConvArgsT<T>{b2, nullptr, static_cast<T*>(out), nullptr, H2, W2, F, F}, stream);
 }
 
 // tu_upconv_bwd: the head's backward for training, from the forward's out
@@ -101,40 +121,75 @@ extern "C" int tu_upconv(const bf16* up, const bf16* w1, const float* b1, const 
 // 0.625 ms at 989 TFLOP/s; self_net's at 8 x 1024 x 1024, 2.50 ms; the
 // least bytes, g, out, y1, x and dx, 0.94 GB, 0.28 ms at 3.35 TB/s).  The
 // mask pass moves 6 bytes a value and the stored up 4 (0.25 / 0.16 ms at
-// the unet_resnet50 head).  Shapes: 2H % 8, 2W % 16, Cx % 64, F % 64 all 0.
-// plan: four launch records, conv2's dgrad (OP_DGRAD_MASK), conv1's
-// (OP_DGRAD_SPLIT at Cx), dk2's GEMM and dk1's (OP_WGRAD); work holds the
-// larger GEMM's nsplit * F * (9 * tap_width(C) + 1) floats; dups may share
-// g2's memory (it is written after g2's last read).
-extern "C" int tu_upconv_bwd(const bf16* g, const bf16* out, const bf16* y1, const bf16* up,
-                             const int* aridx, const float* arw, int anr, const int* acidx,
-                             const float* acw, int anc, const bf16* w2t, const bf16* w1t,
-                             bf16* g2, bf16* dz1, bf16* dups, float* work, float* dk1,
-                             float* db1, float* dk2, float* db2, bf16* dx, int B, int H2,
-                             int W2, int Cx, int F, const int64_t* plan, cudaStream_t stream) {
-  namespace sm90 = tu::sm90;
+// the unet_resnet50 head).  Shapes: 2H % 8, 2W % 16, Cx % 64, F % 64 all 0
+// in either type (conv1's dgrad writes Cx channels in N tiles of 64 or
+// more).
+template <typename T>
+int upconv_bwd(const void* g, const void* out, const void* y1, const void* up, const int* aridx,
+               const float* arw, int anr, const int* acidx, const float* acw, int anc,
+               const void* w2t, const void* w1t, void* g2, void* dz1, void* dups, float* work,
+               float* dk1, float* db1, float* dk2, float* db2, void* dx, int B, int H2, int W2,
+               int Cx, int F, const int64_t* plan, cudaStream_t stream) {
   if (plan == nullptr) return cudaErrorInvalidValue;
   const int64_t* r2 = plan;
   const int64_t* r1 = plan + sm90::PLAN_WORDS;
   if (r2[0] != sm90::OP_DGRAD_MASK || r1[0] != sm90::OP_DGRAD_SPLIT ||
       sm90::Launch{r1}.split() != Cx)
     return cudaErrorInvalidValue;
-  cudaError_t e =
-      tu::launch_relu_grad(g, out, g2, static_cast<size_t>(B) * H2 * W2 * (F / 8), stream);
+  const T* tg2 = static_cast<const T*>(g2);
+  const T* tdz1 = static_cast<const T*>(dz1);
+  const T* ty1 = static_cast<const T*>(y1);
+  const T* tup = static_cast<const T*>(up);
+  cudaError_t e = tu::launch_relu_grad<T>(
+      static_cast<const T*>(g), static_cast<const T*>(out), static_cast<T*>(g2),
+      static_cast<size_t>(B) * H2 * W2 * F / (16 / sizeof(T)), stream);
   if (e != cudaSuccess) return e;
-  e = sm90::launch_conv_sm90(r2, g2, nullptr, w2t,
-                             sm90::ConvArgs{nullptr, y1, dz1, nullptr, H2, W2, F, F}, stream);
+  e = sm90::launch_conv_sm90<T>(
+      r2, tg2, nullptr, static_cast<const T*>(w2t),
+      sm90::ConvArgsT<T>{nullptr, ty1, static_cast<T*>(dz1), nullptr, H2, W2, F, F}, stream);
   if (e != cudaSuccess) return e;
-  e = sm90::launch_wgrad_sm90(plan + 2 * sm90::PLAN_WORDS, g2, y1, work, dk2, db2, B, H2, W2, F,
-                              F, stream);
+  e = sm90::launch_wgrad_sm90<T>(plan + 2 * sm90::PLAN_WORDS, tg2, ty1, work, dk2, db2, B, H2,
+                                 W2, F, F, stream);
   if (e != cudaSuccess) return e;
-  e = sm90::launch_conv_sm90(r1, dz1, nullptr, w1t,
-                             sm90::ConvArgs{nullptr, nullptr, dups, nullptr, H2, W2, F, Cx},
-                             stream);
+  e = sm90::launch_conv_sm90<T>(
+      r1, tdz1, nullptr, static_cast<const T*>(w1t),
+      sm90::ConvArgsT<T>{nullptr, nullptr, static_cast<T*>(dups), nullptr, H2, W2, F, Cx},
+      stream);
   if (e != cudaSuccess) return e;
-  e = sm90::launch_wgrad_sm90(plan + 3 * sm90::PLAN_WORDS, dz1, up, work, dk1, db1, B, H2, W2,
-                              Cx, F, stream);
+  e = sm90::launch_wgrad_sm90<T>(plan + 3 * sm90::PLAN_WORDS, tdz1, tup, work, dk1, db1, B, H2,
+                                 W2, Cx, F, stream);
   if (e != cudaSuccess) return e;
-  return tu::launch_upsample_adjoint(dups, aridx, arw, anr, acidx, acw, anc, dx, B, H2 / 2,
-                                     W2 / 2, Cx, stream);
+  return tu::launch_upsample_adjoint<T>(static_cast<const T*>(dups), aridx, arw, anr, acidx, acw,
+                                        anc, static_cast<T*>(dx), B, H2 / 2, W2 / 2, Cx, stream);
+}
+
+}  // namespace
+
+// up (B, H2, W2, Cx) = up2x(x); plan: conv1's and conv2's launch records
+// (kernels/sm90.py::encode), both OP_FWD over one input map; every tensor
+// but the float32 biases of the element type the records name (bf16, or
+// float32 with f32).
+extern "C" int tu_upconv(const void* up, const void* w1, const float* b1, const void* w2,
+                         const float* b2, void* y1, void* out, int B, int H2, int W2, int Cx,
+                         int F, int f32, const int64_t* plan, cudaStream_t stream) {
+  return (f32 ? upconv<float> : upconv<bf16>)(up, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F,
+                                              plan, stream);
+}
+
+// plan: four launch records, conv2's dgrad (OP_DGRAD_MASK), conv1's
+// (OP_DGRAD_SPLIT at Cx), dk2's GEMM and dk1's (OP_WGRAD); work holds the
+// larger GEMM's nsplit * F * (9 * tap_width(C) + 1) floats; dups may share
+// g2's memory (it is written after g2's last read).  g, out, y1, up, w2t,
+// w1t, g2, dz1, dups and dx of the element type the records name (bf16, or
+// float32 with f32); dk1, db1, dk2, db2 float32.
+extern "C" int tu_upconv_bwd(const void* g, const void* out, const void* y1, const void* up,
+                             const int* aridx, const float* arw, int anr, const int* acidx,
+                             const float* acw, int anc, const void* w2t, const void* w1t,
+                             void* g2, void* dz1, void* dups, float* work, float* dk1,
+                             float* db1, float* dk2, float* db2, void* dx, int B, int H2,
+                             int W2, int Cx, int F, int f32, const int64_t* plan,
+                             cudaStream_t stream) {
+  return (f32 ? upconv_bwd<float> : upconv_bwd<bf16>)(
+      g, out, y1, up, aridx, arw, anr, acidx, acw, anc, w2t, w1t, g2, dz1, dups, work, dk1, db1,
+      dk2, db2, dx, B, H2, W2, Cx, F, plan, stream);
 }

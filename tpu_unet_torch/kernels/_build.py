@@ -53,13 +53,13 @@ SIGNATURES = {
     # skip, up, w1, b1, w2, b2, y1, out, B, H2, W2, Cs, Cx, F, f32,
     # plan (int64 launch records), stream
     "tu_unetup": [_P] * 8 + [_I] * 7 + [_P, _P],
-    # up, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F,
+    # up, w1, b1, w2, b2, y1, out, B, H2, W2, Cx, F, f32,
     # plan (int64 launch records), stream
-    "tu_upconv": [_P] * 7 + [_I] * 5 + [_P, _P],
+    "tu_upconv": [_P] * 7 + [_I] * 6 + [_P, _P],
     # g, out, y1, up, aridx, arw, anr, acidx, acw, anc, w2t, w1t, g2, dz1,
-    # dups, work, dk1, db1, dk2, db2, dx, B, H2, W2, Cx, F,
+    # dups, work, dk1, db1, dk2, db2, dx, B, H2, W2, Cx, F, f32,
     # plan (int64 launch records), stream
-    "tu_upconv_bwd": [_P] * 6 + [_I] + [_P] * 2 + [_I] + [_P] * 11 + [_I] * 5 + [_P, _P],
+    "tu_upconv_bwd": [_P] * 6 + [_I] + [_P] * 2 + [_I] + [_P] * 11 + [_I] * 6 + [_P, _P],
     # logits, out, n_pix (int64), C, logits are bf16, out is uint8, stream
     "tu_argmax_mask": [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
     # mask, mask is int32, img, palette, C, alpha, 1 - alpha, out,
@@ -105,7 +105,8 @@ SIGNATURES = {
 # its float32 launches under its key + "_f32" (:func:`count_key`).
 F32_KERNELS = ("vgg_stem", "vgg_block", "unetup", "upsample2x", "unetup_bwd", "unetup_wgrad",
                "upsample_adjoint", "vgg_block2_fwd", "vgg_block3_fwd", "vgg_stem_bwd",
-               "vgg_block2_bwd", "vgg_block3_bwd", "final_ce_dice_fwd", "final_ce_dice_bwd")
+               "vgg_block2_bwd", "vgg_block3_bwd", "final_ce_dice_fwd", "final_ce_dice_bwd",
+               "upconv", "upconv_bwd")
 launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
                  "unetup": 0, "upsample2x": 0, "upconv": 0, "upconv_bwd": 0,

@@ -430,16 +430,17 @@ def stem_fwd_launches(B: int, H: int, W: int, F: int, f32: bool = False):
             conv_launch(OP_FWD_POOL, B, H, W, F, F, 0, conv_tile_m(H, F), f32=f32)]
 
 
-def upconv_bwd_launches(B: int, H2: int, W2: int, Cx: int, F: int):
+def upconv_bwd_launches(B: int, H2: int, W2: int, Cx: int, F: int, f32: bool = False):
     """The ``up_conv`` head's backward (#12), the stage backward at Cs = 0:
     conv2's dgrad masked by y1 > 0 into dz1 (:func:`unetup_bwd_launches`'s
     first); conv1's dgrad over dz1 (F → Cx) with every channel to dups
     (``OP_DGRAD_SPLIT`` at split = Cx, as a block's conv 0 writes dx: the
     core takes 0 < split ≤ F); the weight gradients dk2 / db2 over (g2, y1)
-    and dk1 / db1 over (dz1, up) (:func:`wgrad_launch`)."""
-    return [unetup_bwd_launches(B, H2, W2, 0, Cx, F)[0],
-            conv_launch(OP_DGRAD_SPLIT, B, H2, W2, F, Cx, 0, conv_tile_m(H2, Cx)),
-            wgrad_launch(B, H2, W2, F, F), wgrad_launch(B, H2, W2, Cx, F)]
+    and dk1 / db1 over (dz1, up) (:func:`wgrad_launch`); in bf16 or
+    (``f32``) float32."""
+    return [unetup_bwd_launches(B, H2, W2, 0, Cx, F, f32)[0],
+            conv_launch(OP_DGRAD_SPLIT, B, H2, W2, F, Cx, 0, conv_tile_m(H2, Cx), f32=f32),
+            wgrad_launch(B, H2, W2, F, F, f32=f32), wgrad_launch(B, H2, W2, Cx, F, f32=f32)]
 
 
 def unetup_wgrad_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int,

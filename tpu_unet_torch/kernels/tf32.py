@@ -6,11 +6,11 @@ gradients and accumulators in float32 and multiply in TF32 (PTX: a .tf32
 operand's low 13 mantissa bits are not used).  Which operands are rounded
 and which are cut depends on how they reach the tensor cores:
 
-- the conv core (``csrc/conv3x3_sm90.cuh``; #1, #2's conv1_2, #3, #13, the
-  dgrads of #20 / #22 / #24): the activation or gradient operand comes
-  straight from a TMA box, so it is truncated (:func:`trunc_tf32`); the
-  weights are rounded to nearest when they are packed
-  (``_build.pack_conv3x3``, :func:`round_tf32`);
+- the conv core (``csrc/conv3x3_sm90.cuh``; #1, #2's conv1_2, #3, #10 /
+  #11, #13, the dgrads of #12, #20 / #22 / #24): the activation or
+  gradient operand comes straight from a TMA box, so it is truncated
+  (:func:`trunc_tf32`); the weights are rounded to nearest when they are
+  packed (``_build.pack_conv3x3``, :func:`round_tf32`);
 - the weight-gradient GEMM (``csrc/wgrad_sm90.cuh``, ``mma.sync``) and the
   image GEMMs (``csrc/stem.cu``, ``csrc/encoder_train.cu``): every operand
   is built in registers or stored by the kernel itself, and rounded to
@@ -64,6 +64,34 @@ STEP_LOSS_EMULATED = 1.6e-5
 STEP_LOSS_REL_TOL = 4 * STEP_LOSS_EMULATED
 STEP_GRAD_REL_TOL = 0.4
 STEP_GRAD_COS = 0.995
+# A model whose emulated step reads its loss above STEP_LOSS_EMULATED at
+# the card's shape gets a reading of its own, set from the emulation (never
+# from the kernels' step), and 4 times it as its loss bound: unet_resnet50's
+# step (CE + dice) emulated at 512², batch 8 reads 2.63e-5 against the plain
+# float32 step on an H100 (the kernels' step the same, to the last bit).
+STEP_LOSS_EMULATED_BY_MODEL = {"unet_resnet50": 2.7e-5}
+# unet_resnet50's emulated step at 64², batch 2 against JAX's float64 step
+# (tests/test_torch_resnet_x64.py; JAX's float32 step lies up to 13% from
+# float64 behind the batch norms): its up4 sees 32 pixels a channel over
+# Cs + Cx = 3072 input channels, where the TF32 products flip the most ReLU
+# masks — up4's conv1 weight gradient reads 0.158 from float64 (the plain
+# float32 step 1.9e-4), and the batch norms carry that back into ResNet50
+# at a cosine of 1 - 1.67e-3.  That test's bounds, 4 times those readings
+# rounded up, set from the emulation as STEP_LOSS_EMULATED is; the card's
+# steps at 512², batch 8 are held to the bounds above.
+STEP_GRAD_REL_TOL_RN50_64PX = 0.65
+STEP_GRAD_COS_RN50_64PX = 0.993
+
+
+def step_loss_emulated(model: str) -> float:
+    """The emulated step's loss reading that fixes ``model``'s loss bound."""
+    return STEP_LOSS_EMULATED_BY_MODEL.get(model, STEP_LOSS_EMULATED)
+
+
+def step_loss_rel_tol(model: str) -> float:
+    """The bound of ``model``'s float32 step's loss against a plain float32
+    step: 4 times :func:`step_loss_emulated`."""
+    return 4 * step_loss_emulated(model)
 
 
 def tile_rel_tol(k: int) -> float:
@@ -157,10 +185,12 @@ def emulated_plain_versions():
     operands (truncated activations, rounded weights; the image rounded),
     every weight gradient on rounded operands, all summed in float64 and
     stored in float32."""
-    from tpu_unet_torch.kernels import decoder_fuse, decoder_train, encoder, encoder_train, stem
+    from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encoder_train,
+                                        stem, upconv)
 
     swaps = [(encoder, "conv3x3_relu", _conv3x3_relu), (stem, "conv3x3_relu", _conv3x3_relu),
              (decoder_fuse, "conv3x3_relu", _conv3x3_relu),
+             (upconv, "conv3x3_relu", _conv3x3_relu),
              (encoder_train, "conv3x3_relu", _conv3x3_relu),
              (encoder_train, "_conv_nobias", _conv_nobias),
              (decoder_train, "_conv_nobias", _conv_nobias),

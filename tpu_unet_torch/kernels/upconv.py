@@ -7,7 +7,7 @@ CUDA kernels in ``csrc/upconv.cu``:
   and ``_fused_upconv_call_p2`` (two TPU schedules of this function): a
   UnetUp stage (``kernels/decoder_fuse.py``) with no skip channels.
   ``decoder_train.up2x`` (``tu_upsample2x``, launch key ``upsample2x``)
-  writes ``up2x(x)`` once in bf16; ``tu_upconv`` runs conv1 over ``up``
+  writes ``up2x(x)`` once; ``tu_upconv`` runs conv1 over ``up``
   and conv2 over its output y1 on the Hopper conv core
   (``csrc/conv3x3_sm90.cuh``), the launches planned as a stage's at
   Cs = 0 (``decoder_fuse.stage_plan``);
@@ -23,7 +23,11 @@ CUDA kernels in ``csrc/upconv.cu``:
 - :func:`upconv_train`, the head for training (``fused_upconv_train``): the
   forward kernel keeping y1, the backward kernel.
 
-Bounds and designs are in the source's notes.
+Both kernels take bf16 or, for the float32 training path (``fp16=False``),
+float32 tensors: the C entries' float32 instantiations (TF32 products,
+float32 storage and sums), planned with ``f32=True`` and counted under
+``upconv_f32`` / ``upconv_bwd_f32`` (``_build.count_key``).  Bounds and
+designs are in the source's notes.
 """
 from __future__ import annotations
 
@@ -58,34 +62,38 @@ def _upconv_cuda(x, w1, b1, w2, b2, want_y1=False):
     if H2 % 8 or W2 % 16 or cx % 32 or f % 64:
         raise ValueError(f"upconv kernel: 2H={H2} % 8, 2W={W2} % 16, Cx={cx} "
                          f"% 32 and F={f} % 64 must all be 0")
-    _build.check(x, "x", torch.bfloat16)
-    _build.check(w1, "w1", torch.bfloat16, (f, cx, 3, 3), x.device)
-    _build.check(w2, "w2", torch.bfloat16, (f, f, 3, 3), x.device)
+    dt = _build.conv_dtype(x, "upconv")
+    _build.check(x, "x", dt)
+    _build.check(w1, "w1", dt, (f, cx, 3, 3), x.device)
+    _build.check(w2, "w2", dt, (f, f, 3, 3), x.device)
+    f32 = dt == torch.float32
     up = _up2x_cuda(x)
-    wt1, wt2 = _build.pack_conv3x3(w1), _build.pack_conv3x3(w2)
+    wt1, wt2 = _build.pack_conv3x3(w1, dtype=dt), _build.pack_conv3x3(w2, dtype=dt)
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
-    y1 = torch.empty((B, H2, W2, f), dtype=torch.bfloat16, device=x.device)
+    y1 = torch.empty((B, H2, W2, f), dtype=dt, device=x.device)
     out = torch.empty_like(y1)
     _build.call("tu_upconv", up.data_ptr(), wt1.data_ptr(), b1f.data_ptr(), wt2.data_ptr(),
-                b2f.data_ptr(), y1.data_ptr(), out.data_ptr(), B, H2, W2, cx, f,
-                stage_plan(B, H2, W2, 0, cx, f).data_ptr())
-    _build.launch_counts["upconv"] += 1
+                b2f.data_ptr(), y1.data_ptr(), out.data_ptr(), B, H2, W2, cx, f, int(f32),
+                stage_plan(B, H2, W2, 0, cx, f, f32).data_ptr())
+    _build.launch_counts[_build.count_key("upconv", dt)] += 1
     return (out, y1) if want_y1 else out
 
 
 def upconv(x, w1, b1, w2, b2):
     """Dispatching wrapper: plain version for CPU tensors, the CUDA kernel
-    for tensors on the card (bf16; 2H % 8, 2W % 16, Cx % 32 and F % 64
-    all 0)."""
+    for tensors on the card (bf16, or float32 on TF32 products; 2H % 8, 2W
+    % 16, Cx % 32 and F % 64 all 0)."""
     if on_cpu(x):
         return upconv_plain(x, w1, b1, w2, b2)
     return _upconv_cuda(x, w1, b1, w2, b2)
 
 
 def upconv_train_ok(H2: int, W2: int, cx: int, f: int) -> bool:
-    """The training head's shape rule (the forward's, with Cx % 64 for the
-    backward, whose conv1 dgrad writes Cx channels in blocks of 64): 2H % 8,
-    2W % 16, Cx % 64 and F % 64 all 0."""
+    """The training head's shape rule, in bf16 and float32 alike (the
+    forward's, with Cx % 64 for the backward, whose conv1 dgrad writes Cx
+    channels in N tiles of 64 or more, ``sm90.conv_tile_n``; float32's
+    32-channel K slices would take Cx % 32 as input, not as output): 2H %
+    8, 2W % 16, Cx % 64 and F % 64 all 0."""
     return not (H2 % 8 or W2 % 16 or cx % 64 or f % 64)
 
 
@@ -101,12 +109,12 @@ def upconv_bwd_plain(g, out, y1, x, w1, w2):
 
 
 @functools.lru_cache(maxsize=16)
-def bwd_plan(B: int, H2: int, W2: int, cx: int, f: int):
+def bwd_plan(B: int, H2: int, W2: int, cx: int, f: int, f32: bool = False):
     """The launch records of #12 on the Hopper kernels
     (``sm90.upconv_bwd_launches``: conv2's masked dgrad, conv1's dgrad, the
     dk2 and dk1 GEMMs), the two GEMMs' split counts and the float32 words of
-    the work area they share in turn."""
-    launches = sm90.upconv_bwd_launches(B, H2, W2, cx, f)
+    the work area they share in turn, in bf16 or (``f32``) float32."""
+    launches = sm90.upconv_bwd_launches(B, H2, W2, cx, f, f32)
     return (sm90.encode(launches), tuple(ln["nsplit"] for ln in launches[2:]),
             sm90.wgrad_work(launches[2:], f))
 
@@ -114,31 +122,33 @@ def bwd_plan(B: int, H2: int, W2: int, cx: int, f: int):
 def _upconv_bwd_launch(g, out, y1, up, w1, w2):
     """``tu_upconv_bwd`` on the forward's out and y1 and a given ``up`` =
     up2x(x): (dx, dk1, db1, dk2, db2, dz1, dups), the last two the kernel's
-    own intermediates.  dups takes g2's memory: the kernel writes it after
+    own intermediates, in g's dtype (bf16 or float32; the weight and bias
+    gradients float32).  dups takes g2's memory: the kernel writes it after
     g2's last read."""
     B, H2, W2, f = g.shape
     cx = up.shape[-1]
-    h, w, dev, bf = H2 // 2, W2 // 2, g.device, torch.bfloat16
-    plan, _, work_words = bwd_plan(B, H2, W2, cx, f)
-    aridx, arw, acidx, acw = _adjoint_tables(h, w, dev)
-    w2t = _build.pack_conv3x3(flip_t(w2))
-    w1t = _build.pack_conv3x3(flip_t(w1))
+    h, w, dev, dt = H2 // 2, W2 // 2, g.device, g.dtype
+    f32 = dt == torch.float32
+    plan, _, work_words = bwd_plan(B, H2, W2, cx, f, f32)
+    aridx, arw, acidx, acw = _adjoint_tables(h, w, dev, dt)
+    w2t = _build.pack_conv3x3(flip_t(w2), dtype=dt)
+    w1t = _build.pack_conv3x3(flip_t(w1), dtype=dt)
     n = B * H2 * W2
-    g2_dups = torch.empty(n * max(f, cx), dtype=bf, device=dev)
+    g2_dups = torch.empty(n * max(f, cx), dtype=dt, device=dev)
     g2, dups = g2_dups[:n * f].view(g.shape), g2_dups[:n * cx].view(B, H2, W2, cx)
     dz1 = torch.empty_like(g)
-    dx = torch.empty((B, h, w, cx), dtype=bf, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    work = torch.empty(work_words, **f32)
-    dk1, db1 = torch.empty((f, cx, 3, 3), **f32), torch.empty(f, **f32)
-    dk2, db2 = torch.empty((f, f, 3, 3), **f32), torch.empty(f, **f32)
+    dx = torch.empty((B, h, w, cx), dtype=dt, device=dev)
+    fl = dict(dtype=torch.float32, device=dev)
+    work = torch.empty(work_words, **fl)
+    dk1, db1 = torch.empty((f, cx, 3, 3), **fl), torch.empty(f, **fl)
+    dk2, db2 = torch.empty((f, f, 3, 3), **fl), torch.empty(f, **fl)
     _build.call("tu_upconv_bwd", g.data_ptr(), out.data_ptr(), y1.data_ptr(), up.data_ptr(),
                 aridx.data_ptr(), arw.data_ptr(), aridx.shape[1], acidx.data_ptr(),
                 acw.data_ptr(), acidx.shape[1], w2t.data_ptr(), w1t.data_ptr(), g2.data_ptr(),
                 dz1.data_ptr(), dups.data_ptr(), work.data_ptr(), dk1.data_ptr(),
                 db1.data_ptr(), dk2.data_ptr(), db2.data_ptr(), dx.data_ptr(), B, H2, W2, cx, f,
-                plan.data_ptr())
-    _build.launch_counts["upconv_bwd"] += 1
+                int(f32), plan.data_ptr())
+    _build.launch_counts[_build.count_key("upconv_bwd", dt)] += 1
     return dx, dk1, db1, dk2, db2, dz1, dups
 
 
@@ -149,19 +159,20 @@ def _upconv_bwd_cuda(g, out, y1, x, w1, w2):
     if not upconv_train_ok(H2, W2, cx, f):
         raise ValueError(f"upconv_bwd kernel: 2H={H2} % 8, 2W={W2} % 16, Cx={cx} % 64 "
                          f"and F={f} % 64 must all be 0")
-    bf = torch.bfloat16
-    _build.check(g, "g", bf)
+    dt = _build.conv_dtype(g, "upconv_bwd")
+    _build.check(g, "g", dt)
     for t, name in ((out, "out"), (y1, "y1")):
-        _build.check(t, name, bf, tuple(g.shape), g.device)
-    _build.check(x, "x", bf, (B, H2 // 2, W2 // 2, cx), g.device)
-    _build.check(w1, "w1", bf, (f, cx, 3, 3), g.device)
-    _build.check(w2, "w2", bf, (f, f, 3, 3), g.device)
+        _build.check(t, name, dt, tuple(g.shape), g.device)
+    _build.check(x, "x", dt, (B, H2 // 2, W2 // 2, cx), g.device)
+    _build.check(w1, "w1", dt, (f, cx, 3, 3), g.device)
+    _build.check(w2, "w2", dt, (f, f, 3, 3), g.device)
     return _upconv_bwd_launch(g, out, y1, _up2x_cuda(x), w1, w2)
 
 
 def upconv_bwd(g, out, y1, x, w1, w2):
     """Dispatching wrapper of #12's port: plain version for CPU tensors, the
-    CUDA kernel for tensors on the card (bf16; :func:`upconv_train_ok`)."""
+    CUDA kernel for tensors on the card (bf16, or float32 on TF32 products;
+    :func:`upconv_train_ok`)."""
     if on_cpu(g):
         return upconv_bwd_plain(g, out, y1, x, w1, w2)
     return _upconv_bwd_cuda(g, out, y1, x, w1, w2)[:5]

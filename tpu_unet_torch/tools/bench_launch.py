@@ -60,19 +60,27 @@ def host_ms(fn, reps: int = REPS) -> float:
     return host
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
     """``fn``'s device time per call: its kernels' durations
-    (``torch.profiler``) summed over ``reps`` calls."""
+    (``torch.profiler``) summed over ``reps`` calls.  A window in which the
+    profiler recorded no device event at all (it has returned such a window
+    on an H100 for calls that launch) is profiled again, up to ``tries``
+    windows; 0.0 if none holds one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    total = 0.0
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            break
+    return total / 1e3 / reps
 
 
 def main() -> int:

@@ -45,12 +45,13 @@
 On the card only what has kernels trains: in bf16 the canonical UNets
 (``unet_vgg``, ``unet_resnet50``, ``self_net``) and the DataB models
 (``traditional``, ``traditional22``, the ladder family; ``lightweight`` on
-the plain losses, as JAX), and in float32 (``fp16=False``, the ``voc`` and
-``medical`` presets) ``unet_vgg`` on both routes, through the float32
-instantiations of its kernels (TF32 products, float32 everywhere else).
-float32 with the ``up_conv`` head or another model, and deep supervision,
-raise (:func:`check_ported`) instead of running a plain path silently; on
-the CPU every recipe runs through the plain versions.
+the plain losses, as JAX), and in float32 (``fp16=False``, ``TrainConfig``'s
+default and the ``voc`` and ``medical`` presets') every one of them on both
+routes, through the float32 instantiations of the kernels (TF32 products,
+float32 everywhere else; the up_conv head's #10 / #12 as well).  Deep
+supervision, and a compute dtype other than bf16 or float32, raise
+(:func:`check_ported`) instead of running a plain path silently; on the
+CPU every recipe runs through the plain versions.
 """
 from __future__ import annotations
 
@@ -156,13 +157,9 @@ def check_ported(model: nn.Module, cfg: StepConfig, device: torch.device) -> Non
     without a kernel that is not ported yet; never fall back silently."""
     if torch.device(device).type != "cuda":
         return
-    if cfg.compute_dtype == torch.float32:
-        if not (isinstance(model, Unet) and model.backbone == "vgg" and model.up_conv is None):
-            raise NotImplementedError(
-                "float32 compute (fp16=False) on the card: only unet_vgg has float32 "
-                "kernels; the up_conv head (self_net, unet_resnet50: #10-#12) and the "
-                "other models are not ported in float32 yet (ROADMAP §1 item 1)")
-    elif cfg.compute_dtype != torch.bfloat16:
+    # every kernel on the models' training paths has a bf16 and a float32
+    # instantiation
+    if cfg.compute_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
             f"compute dtype {cfg.compute_dtype} on the card: the kernels take bf16 or "
             "float32")
