@@ -1399,8 +1399,9 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     ``palette_kernel<M>``, ``wgrad_kernel<Loader>``, ``wgrad_reduce_kernel``,
     ``upsample_adjoint_kernel``, the training encoder's
     ``(pool_)relu_grad_kernel``, the Hopper core's
-    ``conv_sm90_kernel<TN, OP, PH>``, ``wgrad_sm90_kernel<TN, NS>`` and
-    ``wgrad_sm90_reduce_kernel``, the stem's ``wgrad_image_kernel`` and
+    ``conv_sm90_kernel<TN, OP, PH>``, ``wgrad_sm90_kernel<TN, NS>``, the
+    float32 ``wgrad_tf32_kernel`` and ``wgrad_sm90_reduce_kernel``, the
+    stem's ``wgrad_image_kernel`` and
     ``wgrad_image_reduce_kernel``, and ``upsample2x_kernel`` (all summed in
     ``port_kernels_ms``); ``index_add_ms`` sums PyTorch's ``index_add_``
     kernels; ``loss_kernels_ms`` gives the loss kernels' own (#25-#29),
@@ -1431,11 +1432,11 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = "port " + ("final_loss_fwd_kernel" if "fwd" in name else "final_loss_bwd_kernel")
         elif "ce_dice_fwd_kernel" in name or "ce_dice_bwd_kernel" in name:
             name = "port " + ("ce_dice_fwd_kernel" if "fwd" in name else "ce_dice_bwd_kernel")
-        elif "conv_sm90_kernel" in name or "wgrad_sm90_kernel" in name \
-                or "wgrad_f32_kernel" in name:
-            kind = "conv_sm90_kernel" if "conv_sm90" in name else \
-                "wgrad_f32_kernel" if "wgrad_f32" in name else "wgrad_sm90_kernel"
+        elif "conv_sm90_kernel" in name or "wgrad_sm90_kernel" in name:
+            kind = "conv_sm90_kernel" if "conv_sm90" in name else "wgrad_sm90_kernel"
             name = f"port {kind}<{name[name.index('<') + 1:name.index('>')]}>"
+        elif "wgrad_tf32_kernel" in name:
+            name = "port wgrad_tf32_kernel"
         elif "wgrad_image" in name:
             name = "port " + ("wgrad_image_reduce_kernel" if "reduce" in name
                               else "wgrad_image_kernel")
@@ -3284,6 +3285,103 @@ def f32_single_tile_readings(gen):
     return lines
 
 
+# The float32 weight-gradient GEMM's shapes in the float32 path at 512²,
+# batch 8 (the stem, blocks 2-5, both decoders, both heads): every distinct
+# (H, C, F), a dk1 over a concat [skip | up] as its pair of launches into one
+# dk (Cx > 0): (what, H, Cs, Cx, F); tests/test_torch_tf32.py holds it to
+# the float32 plans' launches
+WGRAD_F32_SHAPES = (
+    ("stem conv1_2, vgg up1 dk2, rn50 head", 512, 64, 0, 64),
+    ("vgg up1 dk1", 512, 64, 128, 64),
+    ("block 2 conv 1", 256, 64, 0, 128),
+    ("block 2 conv 2, vgg up2 dk2", 256, 128, 0, 128),
+    ("vgg up2 dk1", 256, 128, 256, 128),
+    ("rn50 up1 dk1", 256, 64, 128, 64),
+    ("rn50 up1 dk2", 256, 64, 0, 64),
+    ("block 3 conv 1", 128, 128, 0, 256),
+    ("block 3 conv 2-3, vgg up3 dk2", 128, 256, 0, 256),
+    ("vgg up3 dk1", 128, 256, 512, 256),
+    ("rn50 up2 dk1", 128, 256, 256, 128),
+    ("rn50 up2 dk2", 128, 128, 0, 128),
+    ("block 4 conv 1", 64, 256, 0, 512),
+    ("block 4 conv 2-3, vgg up4 dk2", 64, 512, 0, 512),
+    ("vgg up4 dk1", 64, 512, 512, 512),
+    ("rn50 up3 dk1", 64, 512, 512, 256),
+    ("rn50 up3 dk2", 64, 256, 0, 256),
+    ("block 5, rn50 up4 dk2", 32, 512, 0, 512),
+    ("rn50 up4 dk1", 32, 1024, 2048, 512),
+    ("self_net head", 1024, 64, 0, 64),
+)
+
+
+def f32_wgrad_gemm(card: str, gen):
+    """The float32 weight-gradient GEMM alone (``decoder_train.wgrad_gemm``,
+    TF32 wgmma) at each of its shapes (``WGRAD_F32_SHAPES``): against
+    ``conv_wgrad``'s plain float32 version (TF32 off) within WGRAD_REL_TOL,
+    the bias exact to float32's sums; a single-tile float64 witness (one 8
+    × 16 patch, a chain of 128 pixels) under the rule ``kernels/tf32.py``
+    states (both operands rounded) within ``tile_rel_tol``, the truncating
+    rule's reading beside; a planted dropped split (the first of the
+    plan's) read above WGRAD_REL_TOL; a second launch bit-identical; ms by
+    CUDA events beside cuDNN's float32 weight gradient alone with TF32 on
+    (``convolution_backward``, output mask [False, True, False]), the TF32
+    bound and the share."""
+    from tpu_unet_torch.kernels import sm90, tf32
+    from tpu_unet_torch.kernels.decoder_train import conv_wgrad, wgrad_gemm
+
+    dev, B, cb = torch.device("cuda"), BATCH, torch.ops.aten.convolution_backward
+    t0 = time.perf_counter()
+    for what, h, cs, cx, f in WGRAD_F32_SHAPES:
+        c = cs + cx
+        v = torch.relu(torch.randn((B, h, h, c), generator=gen, device=dev))
+        g = torch.randn((B, h, h, f), generator=gen, device=dev)
+        parts = [v[..., :cs].contiguous(), v[..., cs:].contiguous()] if cx else [v]
+
+        def gemm(g=g, parts=parts, c=c):
+            dk, db = wgrad_gemm(parts[0], g, c, 0, True)
+            if len(parts) > 1:
+                wgrad_gemm(parts[1], g, c, cs, False, dk)
+            return dk, db
+
+        dk, db = gemm()
+        again = gemm()
+        check(torch.equal(dk, again[0]) and torch.equal(db, again[1]),
+              f"wgrad_gemm_f32 {what}: two launches differ")
+        ref = conv_wgrad(v, g)
+        rel = rel_err(dk, ref)[1]
+        db_rel = rel_err(db, g.double().sum((0, 1, 2)))[1]
+        check(rel <= tf32.WGRAD_REL_TOL, f"wgrad_gemm_f32 {what}: rel err {rel:.3g}")
+        check(db_rel <= 1e-5, f"wgrad_gemm_f32 {what}: db rel err {db_rel:.3g}")
+        # the first split of the first launch's plan dropped
+        ns = sm90.wgrad_launch(B, h, h, cs, f, c, 0, True, True)["nsplit"]
+        bad = g.masked_fill(first_split_mask(B, h, h, ns)[..., None], 0)
+        fault = rel_err(gemm(bad)[0], ref)[1]
+        check(fault > tf32.WGRAD_REL_TOL,
+              f"wgrad_gemm_f32 {what}: a dropped split reads {fault:.3g}")
+        # one patch: the K chain of 128 pixels
+        v1, g1 = v[:1, :8, :16].contiguous(), g[:1, :8, :16].contiguous()
+        tile = gemm(g1, [p[:1, :8, :16].contiguous() for p in parts])[0]
+        wit = {r: rel_err(tile, tf32.wgrad(v1, g1, r))[1] for r in ("round", "trunc")}
+        tol = tf32.tile_rel_tol(128)
+        check(wit["round"] <= tol, f"wgrad_gemm_f32 {what}: single tile {wit} > {tol:.3g}")
+        ms = time_ms(gemm)
+        lib_ms = time_ms(tf32_on(lambda v=v, g=g, f=f, c=c: cb(
+            cl(g), cl(v), torch.empty((f, c, 3, 3), device=dev), None, [1, 1], [1, 1], [1, 1],
+            False, [0, 0], 1, [False, True, False])[1]))
+        b_ms = conv_flops(B, h, h, c, f) / PEAK_TF32 * 1e3
+        print(json.dumps({"wgrad_gemm_f32": what, "shape": f"{B}x{h}x{h} C={cs}"
+                          + (f"+{cx}" if cx else "") + f" F={f}", "nsplit": ns,
+                          "rel_err": rel, "db_rel_err": db_rel, "dropped_split_rel_err": fault,
+                          "tile_vs_tf32_rounded": wit["round"],
+                          "tile_vs_tf32_truncated": wit["trunc"], "tile_bound": tol, "ms": ms,
+                          "cudnn_tf32_ms": lib_ms, "bound_ms": b_ms,
+                          "share_of_bound": b_ms / ms, "gpu": card}), flush=True)
+        del v, g, parts, dk, db, again, ref, bad
+        torch.cuda.empty_cache()
+    print(f"float32 GEMM alone at {len(WGRAD_F32_SHAPES)} shapes in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """Within the block, every kernel wrapper takes its plain version for
@@ -3798,6 +3896,7 @@ def phase_f32(card: str, results: dict):
     f32_single_tile_readings(gen)
     f32_encoder_kernels(record, gen)
     f32_decoder_kernels(record, gen)
+    f32_wgrad_gemm(card, gen)
     f32_head_kernels(record, gen)
     f32_loss_kernels(record, gen)
     totals = f32_train_step(card)
@@ -3873,8 +3972,9 @@ SOURCES = {
     "ce_dice_fwd": ("tpu_unet_torch/csrc/loss_logits.cu", "tpu_unet/kernels/loss.py:173"),
     "ce_dice_bwd": ("tpu_unet_torch/csrc/loss_logits.cu", "tpu_unet/kernels/loss.py:313"),
     # the float32 path (phase 7): the same sources' float32 instantiations,
-    # TF32 products (the weight-gradient GEMM's on mma.sync in
-    # csrc/wgrad_sm90.cuh, the image GEMMs' in stem.cu / encoder_train.cu)
+    # TF32 products (the weight-gradient GEMM's on TF32 wgmma, G restaged
+    # K-major, in csrc/wgrad_sm90.cuh; the image GEMMs' in stem.cu /
+    # encoder_train.cu)
     "vgg_stem_f32": ("tpu_unet_torch/csrc/stem.cu", "tpu_unet/kernels/stem.py:220"),
     "vgg_block_f32": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh", "tpu_unet/kernels/encoder.py:288"),
     "unetup_f32": ("tpu_unet_torch/csrc/decoder_fuse.cu",

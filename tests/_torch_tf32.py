@@ -3,7 +3,8 @@ plan's order (``tpu_unet_torch/kernels/sm90.py`` with ``f32=True``), with
 their TF32 operand rules (``tpu_unet_torch/kernels/tf32.py``): the conv
 core by its K walk of 32-channel slices (activations truncated as a TMA box
 hands them over, weights rounded as packed), the weight-gradient GEMMs by
-their split-K ranges of 8 × 16 patches (both operands rounded), the image
+their split-K ranges of 8 × 16 patches (both operands rounded: register
+fragments and a restaged G in the GEMM on TF32 wgmma), the image
 GEMMs with the gathered image rounded (the step's emulation is
 ``kernels/tf32.py::emulated_plain_versions``).  Used by
 ``test_torch_tf32.py``."""
@@ -49,8 +50,12 @@ def conv_kwalk(maps, w, rule="trunc"):
 def wgrad_splits(v, g, launch):
     """The float32 weight-gradient GEMM's (F, C, 3, 3) and bias gradient of
     NHWC input ``v`` and output gradient ``g``: per split of ``launch``,
-    over its contiguous 8 × 16 patches, the rounded operands' products in
-    float64, then the splits added in order."""
+    over its contiguous 8 × 16 patches (which the kernel walks as four 2 ×
+    16 stages of four k8 steps each; in float64 the order within a split
+    does not move these readings), the products of both operands rounded
+    to TF32 (the register fragments and the restaged G, the rule
+    ``kernels/tf32.py`` states) in float64, then the splits added in
+    order."""
     B, H, W, _ = g.shape
     th, tw = H // sm90.PATCH_H, W // sm90.PATCH_W
     dk, db = 0, 0

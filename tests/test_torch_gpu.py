@@ -2014,3 +2014,103 @@ def test_f32_kernels_refuse_other_dtypes(cuda):
         upconv(x.float(), w.to(torch.bfloat16), b.float(), w.float(), b.float())
     with pytest.raises(ValueError, match="dtype"):
         upconv_bwd(g.float(), g.float(), g.float(), x.float(), w.to(torch.bfloat16), w.float())
+
+
+def _dropped_first_split(g, ln):
+    """``g`` with the pixels of the first split of GEMM launch ``ln`` (its
+    contiguous 8 × 16 patches) zeroed: the gradient a GEMM that dropped
+    that split's partial would give."""
+    from tpu_unet_torch.kernels import sm90
+
+    B, H, W, _ = g.shape
+    lo, hi = sm90.split_ranges(ln["npatch"], ln["nsplit"])[0]
+    keep = torch.ones(B * (H // 8) * (W // 16), dtype=torch.bool, device=g.device)
+    keep[lo:hi] = False
+    keep = keep.view(B, H // 8, W // 16).repeat_interleave(8, 1).repeat_interleave(16, 2)
+    return torch.where(keep[..., None], g, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,f,coff", [(64, 64, 0), (128, 128, 0), (192, 256, 0), (96, 64, 64)])
+def test_f32_wgrad_gemm(cuda, c, f, coff):
+    """The float32 weight-gradient GEMM alone (``wgrad_gemm``: TF32 wgmma,
+    G restaged K-major) at F = 64, at F % 128 == 0 (and C = 192, three
+    column tiles) and as a concat's second map (C = 96 into channels [64,
+    160) of one dk, a column tile half past C): one launch, within
+    WGRAD_REL_TOL of the plain version, the bias exact to float32's sums,
+    within ``tile_rel_tol`` of its float64 emulation from operands rounded
+    to TF32 (the truncating rule's reading printed beside), bit-identical
+    on a second launch, the channels outside its range untouched; a
+    planted dropped split (the first of the plan's) reads above
+    WGRAD_REL_TOL."""
+    from tpu_unet_torch.kernels import launch_counts, sm90, tf32
+    from tpu_unet_torch.kernels.decoder_train import conv_wgrad, wgrad_gemm
+
+    B, H, W = 2, 32, 64
+    v = _act32(cuda, B, H, W, c)
+    g = torch.randn((B, H, W, f), generator=cuda, device="cuda")
+    oc = coff + c + (32 if coff else 0)
+    base = torch.full((f, oc, 3, 3), 7.0, device="cuda")
+    n = launch_counts["wgrad_gemm_f32"]
+    dk, db = wgrad_gemm(v, g, oc, coff, True, base.clone())
+    assert launch_counts["wgrad_gemm_f32"] == n + 1
+    part = dk[:, coff:coff + c]
+    assert bool((dk[:, :coff] == 7).all()) and bool((dk[:, coff + c:] == 7).all())
+    assert _rel(part, conv_wgrad(v, g)) <= tf32.WGRAD_REL_TOL
+    assert tf32.rel(db, g.double().sum((0, 1, 2))) <= 1e-5
+    d = {r: tf32.rel(part, tf32.wgrad(v, g, r)) for r in ("round", "trunc")}
+    print("wgrad_gemm witness", (c, f, coff), d, tf32.tile_rel_tol(B * H * W))
+    assert d["round"] <= tf32.tile_rel_tol(B * H * W)
+    dk2, db2 = wgrad_gemm(v, g, oc, coff, True, base.clone())
+    assert torch.equal(dk, dk2) and torch.equal(db, db2)
+    ln = sm90.wgrad_launch(B, H, W, c, f, oc, coff, True, True)
+    assert ln["nsplit"] > 1
+    faulty, _ = wgrad_gemm(v, _dropped_first_split(g, ln))
+    fault = _rel(faulty, conv_wgrad(v, g))
+    print("wgrad_gemm dropped split", (c, f, coff), ln["nsplit"], fault)
+    assert fault > tf32.WGRAD_REL_TOL
+
+
+@pytest.mark.gpu
+def test_f32_wgrad_gemm_single_tile_float64(cuda):
+    """At one 8 × 16 patch (batch 1, one split, a chain of 128 pixels) the
+    float32 GEMM's dk lies within ``tile_rel_tol(128)`` of the float64
+    product of its operands rounded to TF32 — the rule ``kernels/tf32.py``
+    states for it (the register fragments and the restaged G are both
+    rounded) — at F = 64 and 128, C = 64 and 128; the truncating rule's
+    reading and the distance from the exact float64 product are printed
+    (pytest -s)."""
+    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.kernels.decoder_train import wgrad_gemm
+
+    for c, f in ((64, 64), (128, 128)):
+        v = _act32(cuda, 1, 8, 16, c)
+        g = torch.randn((1, 8, 16, f), generator=cuda, device="cuda")
+        dk, db = wgrad_gemm(v, g)
+        d = {r: tf32.rel(dk, tf32.wgrad(v, g, r)) for r in ("round", "trunc")}
+        exact = tf32.rel(dk, torch.ops.aten.convolution_backward(
+            g.double().permute(0, 3, 1, 2), v.double().permute(0, 3, 1, 2),
+            torch.empty((f, c, 3, 3), dtype=torch.float64, device="cuda"), None, [1, 1], [1, 1],
+            [1, 1], False, [0, 0], 1, [False, True, False])[1])
+        print("wgrad_gemm single tile", (c, f), d, "float64", exact)
+        assert d["round"] <= tf32.tile_rel_tol(128), (c, f, d)
+        assert tf32.rel(db, g.double().sum((0, 1, 2))) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_f32_wgrad_gemm_refuses_a_bf16_record(cuda):
+    """The float32 GEMM's C entry refuses a bf16 launch record (and the bf16
+    one a float32 record): the call raises, nothing is launched."""
+    from tpu_unet_torch.kernels import _build, sm90
+
+    v = _act32(cuda, 1, 8, 16, 64)
+    g = torch.randn((1, 8, 16, 64), generator=cuda, device="cuda")
+    work = torch.empty(1 << 20, device="cuda")
+    dk, db = torch.empty((64, 64, 3, 3), device="cuda"), torch.empty(64, device="cuda")
+    for f32_tensors, f32_record in ((True, False), (False, True)):
+        ln = sm90.wgrad_launch(1, 8, 16, 64, 64, f32=f32_record)
+        t = (v, g) if f32_tensors else (v.to(torch.bfloat16), g.to(torch.bfloat16))
+        with pytest.raises(RuntimeError, match="tu_wgrad"):
+            _build.call("tu_wgrad", t[1].data_ptr(), t[0].data_ptr(), work.data_ptr(),
+                        dk.data_ptr(), db.data_ptr(), 1, 8, 16, 64, 64, int(f32_tensors),
+                        sm90.encode([ln]).data_ptr())

@@ -96,10 +96,13 @@ def test_f32_plans_fit_the_card(what):
     the swizzle span), the record's element-type word 1; the conv core's K
     slices of 32 channels, its stage bytes and ring within 227 KB, its
     epilogue's float32 tile beside a ring of 4 stages or more (persistent)
-    or in the ring; the weight-gradient GEMM's float32 tiles (8 warps of 32
-    × 32) and two 96 KB stages, its splits covering every patch once in
-    order, each under the 1280-patch cap; the image GEMMs two blocks an
-    SM."""
+    or in the ring; the weight-gradient GEMM's float32 plan (TF32 wgmma):
+    tiles of 64 f × 576 columns (a 64-channel slice's nine taps), six
+    stages of 34 KB (two G boxes of 2 × 16 pixels, two halo boxes of 4 ×
+    18, the restaged G) within 227 KB, its splits covering every patch
+    once in order, each under the 1280-patch cap, its grid filling the
+    last wave of the 132 SMs to 85% or running 4 waves; the image GEMMs
+    two blocks an SM."""
     cases = [c for c in _launches() if c[0] == what]
     assert cases
     for _, ln, c, f in cases:
@@ -131,10 +134,16 @@ def test_f32_plans_fit_the_card(what):
             if (tm, tn) in ((128, 192), (256, 64)):
                 assert sm90.conv_own_staging(tn, tm) and not sm90.conv_own_staging(tn, tm, True)
         elif what == "wgrad":
-            assert (tm, tn) == ((128, 64) if f % 128 == 0 else (64, 128))
-            assert ln["stages"] == 2 and ln["k"] == 9 * sm90.tap_width(c, True)
-            assert ln["grid"][0] * tn >= ln["k"] > (ln["grid"][0] - 1) * tn
+            assert (tm, tn) == (64, 9 * 64) and ln["stages"] == 6
+            assert ln["k"] == 9 * sm90.tap_width(c) == ln["grid"][0] * tn
             assert ln["grid"][1] * tm == f
+            stage = sm90.wgrad_stage_bytes(tm, tn, True)
+            assert stage == 2 * (2 * 16 * 128) + 2 * (4 * 18 * 128) + 64 * 128 == 34 * 1024
+            assert ln["smem"] == 6 * stage + 128 * 4 * 4 + 3 * 6 * 8 + 1024
+            assert [m["box"] for m in ln["maps"]] == [(32, 16, 2, 1), (32, 18, 4, 1)]
+            assert ln["maps"][0]["dims"] == (f, *ln["maps"][1]["dims"][1:])
+            waves = ln["grid"][0] * ln["grid"][1] * ln["nsplit"] / sm90.SMS
+            assert waves / -(-waves // 1) >= 0.85 or waves >= 4, (c, f, waves)
         elif what == "image_wgrad":
             assert (tm, tn) == (64, 32) and ln["k"] == 32 and ln["stages"] == 2
             assert 2 * (ln["smem"] + 1024) <= SM_SMEM
@@ -146,6 +155,161 @@ def test_f32_plans_fit_the_card(what):
             assert ranges[0][0] == 0 and ranges[-1][1] == ln["npatch"]
             assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
             assert all(8 <= hi - lo <= sm90.MAX_SPLIT_PATCHES for lo, hi in ranges)
+
+
+def _swizzled(rows):
+    """A TMA box's image in shared memory under the 128-byte swizzle, as
+    float32 words: row r's 16-byte unit u at unit u ^ (r % 8)."""
+    out = np.zeros_like(rows)
+    for r in range(rows.shape[0]):
+        for u in range(8):
+            p = u ^ (r & 7)
+            out[r, 4 * p:4 * p + 4] = rows[r, 4 * u:4 * u + 4]
+    return out
+
+
+@pytest.mark.parametrize("fo", [64, 128])
+def test_f32_wgrad_fragments_and_restaged_layout(fo):
+    """The float32 GEMM's shared-memory images and register fragments,
+    modelled thread by thread as ``csrc/wgrad_sm90.cuh::wgrad_tf32_kernel``
+    forms them, at B = 1, 8 × 32 pixels, C = 96 (two 64-channel slices, the
+    second past C), F = 64 or 128 (one or two 64-f tiles): per stage (a 2 ×
+    16 sub-patch) the TMA images of the G boxes and the halo boxes
+    (128-byte swizzle, zeros outside the image and past C); the restager's
+    4 × 4 blocks write every (f, pixel) of the K-major canonical layout
+    (row f, unit (k / 4) ^ (f % 8)) once, rounded to TF32, each
+    quarter-warp's 16-byte loads and stores on 8 distinct units, and its
+    threads round every 16 bytes of the halo boxes once in place, a
+    quarter-warp on one 128-byte row; each consumer's (thread, register)
+    of the m64nNk8 A fragment holds the rounded im2col element of its row's
+    channel (``sm90.wgrad_f32_row_channel``) and k8 pixel at its block's
+    tap, each half-warp's 8-byte loads on 16 distinct places; the products
+    of these fragments and the restaged G, summed over every stage and
+    scattered to (f, tap · Cp + channel) as the epilogue stores them, equal
+    the float64 weight gradient of the rounded operands within 1e-12, and
+    the restager's bias sums G's columns."""
+    rng = np.random.default_rng(7)
+    B, H, W, C = 1, 8, 32, 96
+    a = np.maximum(rng.standard_normal((B, H, W, C)), 0).astype(np.float32)
+    g = rng.standard_normal((B, H, W, fo)).astype(np.float32)
+    gr = round_tf32(torch.from_numpy(g)).numpy()
+    ln = sm90.wgrad_launch(B, H, W, C, fo, f32=True)
+    cp = sm90.tap_width(C)
+    assert ln["tile"] == (64, 576) and ln["grid"][:2] == (cp // 64, fo // 64)
+    assert [m["box"] for m in ln["maps"]] == [(32, 16, 2, 1), (32, 18, 4, 1)]
+    row_ch = [sm90.wgrad_f32_row_channel(r // 16, r % 8) + (r % 16) // 8 for r in range(64)]
+    assert sorted(row_ch) == list(range(64))  # row 16 v + 8 h + g: each channel once
+    chunks = sorted(rt + 128 * i for rt in range(128) for i in range(9))
+    assert chunks == list(range(2 * 18 * 4 * 8))  # the in-place rounding: each 16 bytes once
+    assert all(len({(rt + 128 * i) // 8 for rt in range(8 * q, 8 * q + 8)}) == 1
+               for q in range(16) for i in range(9))
+    part = np.zeros((fo, 9 * cp))
+    bias = np.zeros(fo)
+    apad = np.zeros((B, H + 2, W + 2, cp), np.float32)
+    apad[:, 1:-1, 1:-1, :C] = a
+    apr = round_tf32(torch.from_numpy(apad)).numpy()
+    kk = np.arange(32)
+    for cx in range(cp // 64):
+        for fy in range(fo // 64):
+            c0, f0 = 64 * cx, 64 * fy
+            acc = np.zeros((3, 3, 64, 64))  # (tap row, tap column, M row, f)
+            for q in range(ln["npatch"]):
+                for sub in range(4):
+                    y0, x0 = 2 * sub, 16 * q  # batch 1, one patch row
+                    gbox = [_swizzled(g[0, y0:y0 + 2, x0:x0 + 16, f0 + 32 * h:f0 + 32 * h + 32]
+                                      .reshape(32, 32)) for h in range(2)]
+                    halo = [_swizzled(apad[0, y0:y0 + 4, x0:x0 + 18,
+                                           c0 + 32 * h:c0 + 32 * h + 32].reshape(72, 32))
+                            for h in range(2)]
+                    halo = [round_tf32(torch.from_numpy(hb)).numpy() for hb in halo]  # in place
+                    # the restager: block (bx, j, pq) of thread (warp r, lane)
+                    rest = np.full((64, 32), np.nan, np.float32)
+                    for r in range(4):
+                        for lane in range(32):
+                            bx, j, pq = sm90.wgrad_f32_restage_block(lane, r)
+                            v = [gbox[bx][4 * pq + i].reshape(8, 4)[j ^ ((4 * pq + i) & 7)]
+                                 for i in range(4)]
+                            for e in range(4):
+                                f = 32 * bx + 4 * j + e
+                                u = pq ^ (f & 7)
+                                assert np.isnan(rest[f, 4 * u:4 * u + 4]).all()
+                                rest[f, 4 * u:4 * u + 4] = round_tf32(torch.tensor(
+                                    [v[i][e] for i in range(4)])).numpy()
+                                if cx == 0:
+                                    bias[f0 + f] += ((v[0][e] + v[1][e]) + v[2][e]) + v[3][e]
+                        for qw in range(4):  # a quarter-warp's 16-byte places, per instruction
+                            blocks = [sm90.wgrad_f32_restage_block(8 * qw + k, r)
+                                      for k in range(8)]
+                            for i in range(4):
+                                assert len({j ^ ((4 * pq + i) & 7) for _, j, pq in blocks}) == 8
+                                assert len({pq ^ ((32 * bx + 4 * j + i) & 7)
+                                            for bx, j, pq in blocks}) == 8
+                    # K-major B: (n, k) at row n, unit (k / 4) ^ (n % 8)
+                    bmat = np.stack([rest[n, 4 * ((kk // 4) ^ (n & 7)) + kk % 4]
+                                     for n in range(64)])
+                    assert np.array_equal(bmat, gr[0, y0:y0 + 2, x0:x0 + 16,
+                                                   f0:f0 + 64].reshape(32, 64).T)
+                    # the consumers' fragments: warpgroup w, block b at tap (w, b)
+                    for w in range(3):
+                        for b in range(3):
+                            frag = np.zeros((64, 32), np.float32)
+                            for v in range(4):
+                                hb = halo[v >> 1]
+                                for k in range(4):
+                                    places = {}  # (load, half-warp) -> 8-byte bank places
+                                    for lane in range(32):
+                                        gg, t = lane >> 2, lane & 3
+                                        chunk = 2 * (v & 1) + (gg >> 2) + 4 * ((gg & 3) >> 1)
+                                        assert sm90.wgrad_f32_row_channel(v, gg) % 32 == \
+                                            4 * chunk + 2 * (gg & 1)
+                                        ra = ((k >> 1) + w) * 18 + 8 * (k & 1) + t + b
+                                        regs = []
+                                        for ld, rr in enumerate((ra, ra + 4)):
+                                            u = chunk ^ (rr & 7)
+                                            o = 4 * u + 2 * (gg & 1)
+                                            regs += list(hb[rr, o:o + 2])
+                                            places.setdefault((ld, lane >> 4), set()).add(
+                                                2 * u + (gg & 1))
+                                        m0, k0 = 16 * v + gg, 8 * k + t
+                                        for mm, kq, val in ((m0, k0, regs[0]),
+                                                            (m0 + 8, k0, regs[1]),
+                                                            (m0, k0 + 4, regs[2]),
+                                                            (m0 + 8, k0 + 4, regs[3])):
+                                            frag[mm, kq] = val
+                                            py, px = kq // 16, kq % 16
+                                            want = apr[0, y0 + py + w, x0 + px + b,
+                                                       c0 + row_ch[mm]]
+                                            assert val == want, (w, b, v, k, lane)
+                                    assert all(len(pl) == 16 for pl in places.values())
+                            acc[w, b] += frag.astype(np.float64) @ bmat.T.astype(np.float64)
+            for w in range(3):
+                for b in range(3):
+                    for m in range(64):
+                        part[f0:f0 + 64, (3 * w + b) * cp + c0 + row_ch[m]] = acc[w, b, m]
+    dk = part.reshape(fo, 9, cp)[:, :, :C].transpose(0, 2, 1).reshape(fo, C, 3, 3)
+    ref = tf32.wgrad(torch.from_numpy(a), torch.from_numpy(g)).numpy()
+    assert np.abs(dk - ref).max() <= 1e-12 * np.abs(ref).max()
+    assert np.abs(bias - g.astype(np.float64).sum((0, 1, 2))).max() <= 1e-4
+
+
+def test_chip_smoke_holds_every_f32_gemm_shape():
+    """``chip_smoke.py`` holds the float32 weight-gradient GEMM alone at
+    every shape the float32 path launches it at (``WGRAD_F32_SHAPES``): the
+    distinct (H, C, F) of ``_launches()``'s GEMMs, a dk1 over a concat
+    [skip | up] as its pair (C = Cs, Cx), each once."""
+    import chip_smoke
+
+    shapes = set()
+    for what, ln, c, f in _launches():
+        if what != "wgrad":
+            continue
+        oc, off, _ = ln["out"]
+        h = ln["maps"][0]["dims"][2]
+        if off == 0:
+            shapes.add((h, c, oc - c, f))
+    listed = [s[1:] for s in chip_smoke.WGRAD_F32_SHAPES]
+    assert len(listed) == len(set(listed)) == 20
+    assert set(listed) == shapes
 
 
 def test_f32_adjoint_plan():

@@ -29,8 +29,8 @@
 // is bit-identical run to run.
 //
 // Step 2 runs on the Hopper kernels: the weight gradient on
-// csrc/wgrad_sm90.cuh (MN-major wgmma operands straight from TMA boxes of
-// g and the input) and the dgrad on csrc/conv3x3_sm90.cuh (OP_DGRAD_MASK;
+// csrc/wgrad_sm90.cuh (bf16: MN-major wgmma operands straight from TMA
+// boxes of g and the input) and the dgrad on csrc/conv3x3_sm90.cuh (OP_DGRAD_MASK;
 // a block's conv 0 OP_DGRAD_SPLIT with every channel to dx), per the host
 // plan's launch records (kernels/sm90.py::block_bwd_launches and, for the
 // stem, stem_bwd_launches; the dgrads at the 256-pixel tile where the N
@@ -55,7 +55,7 @@
 // The float32 path (T = float, the stage's dtype) runs the same chain:
 // the pool / ReLU pass in float32 (the skip's and the pooled gradient's sum
 // one float32 add), the weight gradients on the float32 GEMM of
-// csrc/wgrad_sm90.cuh (mma.sync TF32), the dgrads on the conv core's
+// csrc/wgrad_sm90.cuh (TF32 wgmma, G restaged K-major), the dgrads on the conv core's
 // float32 instantiation, and the image GEMM on wgrad_image_f32_kernel.
 //
 // Bound on the H100: operations — per conv a dgrad and a weight gradient
@@ -283,9 +283,48 @@ wgrad_image_reduce_kernel(const float* __restrict__ part, const float* __restric
   }
 }
 
+// ---- the float32 image GEMM on mma.sync TF32 -------------------------------
+//
+// Fragment order.  Thread (g = lane / 4, t = lane % 4) loads, for pixel
+// rows t and t + 4 of a k8 step, one 16-byte chunk of its warp's G box and
+// one of the gathered box: logical chunk c = PERM[g] (4 consecutive f, 4
+// consecutive columns).  Its four f are the rows (tile i, row g + 8 h) of
+// its m16 tiles, f = 4 PERM[g] + 2 i + h, and its four columns are column
+// g of its n8 tiles j, col = 4 PERM[g] + j; an accumulator's column 2t + e
+// is col 4 PERM[2t + e] + j.  PERM = 0 4 1 5 2 6 3 7 puts the two g of a
+// quarter-warp in chunks whose swizzled places (c ^ row % 8 over the
+// quarter-warp's 4 rows) differ, so the 16-byte loads are free of bank
+// conflicts.
+__device__ __forceinline__ int perm8(int g) { return (g >> 1) | ((g & 1) << 2); }
+
+// The k8 steps of one 128-pixel stage: acc[i][j] (m16 tile i, n8 tile j)
+// += TF32(G box rows) x TF32(gathered box rows) of this thread's chunk c.
+__device__ __forceinline__ void wgrad_f32_stage(float (&acc)[2][4][4], const uint8_t* gbox,
+                                                const uint8_t* abox, int c, int t) {
+#pragma unroll 4
+  for (int s = 0; s < PATCH / 8; ++s) {
+    const int r0 = 8 * s + t, r1 = r0 + 4;
+    const float4 g0 = *reinterpret_cast<const float4*>(gbox + r0 * 128 + ((c ^ (r0 & 7)) << 4));
+    const float4 g1 = *reinterpret_cast<const float4*>(gbox + r1 * 128 + ((c ^ (r1 & 7)) << 4));
+    const float4 x0 = *reinterpret_cast<const float4*>(abox + r0 * 128 + ((c ^ (r0 & 7)) << 4));
+    const float4 x1 = *reinterpret_cast<const float4*>(abox + r1 * 128 + ((c ^ (r1 & 7)) << 4));
+    const uint32_t ga[4] = {to_tf32(g0.x), to_tf32(g0.y), to_tf32(g0.z), to_tf32(g0.w)};
+    const uint32_t gb[4] = {to_tf32(g1.x), to_tf32(g1.y), to_tf32(g1.z), to_tf32(g1.w)};
+    const uint32_t xa[4] = {to_tf32(x0.x), to_tf32(x0.y), to_tf32(x0.z), to_tf32(x0.w)};
+    const uint32_t xb[4] = {to_tf32(x1.x), to_tf32(x1.y), to_tf32(x1.z), to_tf32(x1.w)};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t a[4] = {ga[2 * i], ga[2 * i + 1], gb[2 * i], gb[2 * i + 1]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], a, xa[j], xb[j]);
+    }
+  }
+}
+
 // The float32 path's image GEMM: part (nsplit, F, 32) and bpart (nsplit, F)
-// as wgrad_image_kernel, on mma.sync TF32 (csrc/wgrad_sm90.cuh's float32
-// consumer: the G box is MN-major, which .tf32 wgmma does not take).  A
+// as wgrad_image_kernel, on mma.sync TF32 (the G box is MN-major, which
+// .tf32 wgmma does not take from shared memory; the GEMM is bound by
+// reading G once).  A
 // stage: two G boxes (64 f of 32) by TMA and the gathered box of 32
 // float32 columns (27 used), rounded to TF32 as the producers store it.
 // Warps 0-1 multiply G box w by the gathered box (32 f x 32 columns

@@ -5,8 +5,9 @@
 // and stores, 1-D bulk copies, wgmma
 // descriptors and the m64nNk16 bf16 products with float32 accumulators
 // (both operands from shared memory, or A from registers), the float32
-// path's TF32 products (m64nNk8 wgmma from shared memory, m16n8k8 mma.sync
-// from registers) and its rounding to TF32, and, on the
+// path's TF32 products (m64nNk8 wgmma with A from shared memory or from
+// registers, m16n8k8 mma.sync from registers) and its rounding to TF32,
+// and, on the
 // host, the tensor maps and the launch records that the Python side plans
 // (tpu_unet_torch/kernels/sm90.py).
 //
@@ -211,15 +212,23 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
+// setmaxnreg: registers given up (dec) or taken (inc) by a warpgroup, each
+// value a multiple of 8, the warps' sum the registers the block was
+// launched with
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R) : "memory");
+}
+
 // registers moved from the producer warpgroup (which only issues TMA) to
 // the consumers (whose accumulators take 64-128 of them); 40 * 128 +
 // 232 * 256 fits the SM's 64K with one 384-thread block
-__device__ __forceinline__ void producer_regs() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-}
-__device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-}
+__device__ __forceinline__ void producer_regs() { regs_dec<40>(); }
+__device__ __forceinline__ void consumer_regs() { regs_inc<232>(); }
 
 // named barrier over the first `n` threads (the consumer warpgroups)
 __device__ __forceinline__ void bar_sync(int id, int n) {
@@ -668,6 +677,30 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint6
     static_assert(N == 64, "TF32 wgmma widths: 64, 128, 192, 256");
     wgmma_m64n64k8_tf32(d, da, db, scale_d);
   }
+}
+
+// D (64 x 64, float32) += A (64 x 8, TF32, from registers) * B (8 x 64,
+// K-major in shared memory).  A is the warpgroup's fragment of its 64 rows:
+// thread (warp v, lane l) holds a[0] (row 16 v + l / 4, k l % 4), a[1] (row
+// + 8, k l % 4), a[2] (row, k l % 4 + 4), a[3] (row + 8, k l % 4 + 4), each
+// a TF32 word (to_tf32).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // One 32-byte K step of a K-major product from shared memory in the element

@@ -26,7 +26,7 @@
 // in split order, so the result is bit-identical run to run.
 //
 // In bf16 or, for the float32 training path, float32 inputs (the float32
-// GEMM of csrc/wgrad_sm90.cuh, mma.sync TF32).
+// GEMM of csrc/wgrad_sm90.cuh, TF32 wgmma with G restaged K-major).
 //
 // Bound on the H100: operations (2 * 9 * P * F * (Cs + Cx + F): 0.63 ms for
 // up1 at 512x512, batch 8, at 989 TFLOP/s bf16).
@@ -63,7 +63,7 @@ int unetup_wgrad(const void* skip, const void* up, const void* dz1, const void* 
 // each names its channel range, whether it sums the bias gradient and the
 // element type of skip, up, dz1, y1 and g2: bf16, or float32 with f32);
 // work holds, for the largest of them, nsplit * F * (9 * Cp + 1) floats
-// (Cp the input's tap width: C padded to 64 in bf16, to 32 in float32).
+// (Cp the input's tap width: C padded to 64).
 extern "C" int tu_unetup_wgrad(const void* skip, const void* up, const void* dz1, const void* y1,
                                const void* g2, float* work, float* dk1, float* db1, float* dk2,
                                float* db2, int B, int H2, int W2, int Cs, int Cx, int F, int f32,
@@ -71,4 +71,21 @@ extern "C" int tu_unetup_wgrad(const void* skip, const void* up, const void* dz1
   return (f32 ? unetup_wgrad<float> : unetup_wgrad<bf16>)(skip, up, dz1, y1, g2, work, dk1, db1,
                                                           dk2, db2, B, H2, W2, Cs, Cx, F, plan,
                                                           stream);
+}
+
+// One launch of the weight-gradient GEMM alone (its partials and reduce
+// pass) per its OP_WGRAD record: dk (F, Ctot, 3, 3) channels [coff, coff +
+// C) and, where the record asks, db (F) from gout (B, H, W, F) and in (B,
+// H, W, C) of the record's element type; work as tu_unetup_wgrad's.  For
+// the checks and timings of the GEMM at one shape (kernels/decoder_train.py::
+// wgrad_gemm).
+extern "C" int tu_wgrad(const void* gout, const void* in, float* work, float* dk, float* db,
+                        int B, int H, int W, int C, int F, int f32, const int64_t* record,
+                        cudaStream_t stream) {
+  return f32 ? sm90::launch_wgrad_sm90<float>(record, static_cast<const float*>(gout),
+                                              static_cast<const float*>(in), work, dk, db, B, H, W,
+                                              C, F, stream)
+             : sm90::launch_wgrad_sm90<bf16>(record, static_cast<const bf16*>(gout),
+                                             static_cast<const bf16*>(in), work, dk, db, B, H, W,
+                                             C, F, stream);
 }

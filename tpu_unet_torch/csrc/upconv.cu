@@ -34,8 +34,8 @@
 // instantiations of the conv core (TF32 wgmma; 32-channel K slices; the
 // 256 x 64 tile, whose float32 epilogue tile leaves the ring too few
 // stages, runs one block a tile, not persistent), the float32
-// weight-gradient GEMM (mma.sync TF32; 52 splits of at most 1280 patches
-// at self_net's head, 23 at unet_resnet50's), the mask pass, the upsample
+// weight-gradient GEMM (TF32 wgmma, G restaged K-major; 113 splits of at
+// most 1280 patches at both heads), the mask pass, the upsample
 // and its adjoint.  Bound in float32: operations at the TF32 peak, 494.7
 // TFLOP/s — the forward 309 GFLOP, 0.625 ms, at the unet_resnet50 head
 // and 1237 GFLOP, 2.50 ms, at self_net's; the backward 618 GFLOP, 1.25 ms,

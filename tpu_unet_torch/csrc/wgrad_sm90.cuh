@@ -39,14 +39,16 @@
 // one launch per map into the one gradient, never storing the concat.  No
 // atomics, so the result is bit-identical run to run.
 //
-// That is the bf16 GEMM.  The float32 one (further below: wgrad_f32_kernel)
-// reads the same boxes through the same producer, splits and second pass,
-// and multiplies on mma.sync TF32: .tf32 wgmma takes no transposed operand
-// (its note says why this design and what it costs).
+// That is the bf16 GEMM.  The float32 one (further below:
+// wgrad_tf32_kernel) computes the same sums on TF32 wgmma with the same
+// split-K plan, bias sums and second pass, from boxes of its own: .tf32
+// wgmma reads no MN-major operand, so im2col(A)^T goes to the tensor cores
+// as register fragments and G is restaged K-major in shared memory by a
+// warpgroup of its own (its note says how, and what it reads).
 //
 // Bound on the H100: operations (2 * 9 * C * F multiply-adds a pixel).
 // Shapes: H % 8 == 0, W % 16 == 0, C % 8 == 0 (16-byte TMA strides),
-// F % 64 == 0.
+// F % 64 == 0; in float32 the same.
 #pragma once
 
 #include "conv3x3_sm90.cuh"
@@ -77,24 +79,20 @@ struct WgradArgs {
   int B, H, W, C, F, Ctot, coff;
 };
 
-// C padded to a box's channels (64 bf16, 32 float32): a box never straddles
-// two taps
-template <typename T>
-__host__ __device__ constexpr int tap_width(int C) {
-  return (C + slice_of<T>() - 1) / slice_of<T>() * slice_of<T>();
-}
+// C padded to 64 channels: a bf16 box's, or the float32 GEMM's column
+// tile (two 32-channel halo boxes), so a tile never straddles two taps
+__host__ __device__ constexpr int tap_width(int C) { return (C + 63) / 64 * 64; }
 
-// The producer of both weight-gradient GEMMs, one thread: for each of the
-// block's n_it patches from q_begin, stage it % STAGES (of STAGE bytes)
-// gets ng G boxes (SL = slice_of<T>() f each, from f0) and, from box slot
-// a0, na input boxes (each SL K-columns of one tap, from k0).
-template <typename T, int STAGES, int STAGE>
+// The producer of the bf16 GEMM, one thread: for each of the block's n_it
+// patches from q_begin, stage it % STAGES (of STAGE bytes) gets ng G boxes
+// (64 f each, from f0) and, from box slot a0, na input boxes (each 64
+// K-columns of one tap, from k0).
+template <int STAGES, int STAGE>
 __device__ __forceinline__ void wgrad_produce(uint8_t* smem, uint64_t* full, uint64_t* empty,
                                               const CUtensorMap* gmap, const CUtensorMap* amap,
                                               const WgradArgs& p, int q_begin, int n_it, int f0,
                                               int k0, int ng, int a0, int na) {
-  constexpr int SL = slice_of<T>();
-  const int Cp = tap_width<T>(p.C);
+  const int Cp = tap_width(p.C);
   const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PATCH_H) * tiles_w;
   for (int it = 0; it < n_it; ++it) {
     const int st = it % STAGES;
@@ -104,9 +102,9 @@ __device__ __forceinline__ void wgrad_produce(uint8_t* smem, uint64_t* full, uin
     uint8_t* base = smem + st * STAGE;
     mbar_expect_tx(&full[st], (ng + na) * BOX_BYTES);
     for (int w = 0; w < ng; ++w)
-      tma_load_4d(base + w * BOX_BYTES, gmap, &full[st], f0 + SL * w, x0, y0, b);
+      tma_load_4d(base + w * BOX_BYTES, gmap, &full[st], f0 + 64 * w, x0, y0, b);
     for (int h = 0; h < na; ++h) {
-      const int kk = k0 + SL * h, tap = kk / Cp, c = kk - tap * Cp;
+      const int kk = k0 + 64 * h, tap = kk / Cp, c = kk - tap * Cp;
       const int ky = tap / 3, kx = tap - 3 * ky;
       tma_load_4d(base + (a0 + h) * BOX_BYTES, amap, &full[st], c, x0 + kx - 1, y0 + ky - 1, b);
     }
@@ -127,7 +125,7 @@ wgrad_sm90_kernel(const __grid_constant__ CUtensorMap gmap,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
   uint64_t* empty = full + S::STAGES;
   const int tid = threadIdx.x;
-  const int Cp = tap_width<bf16>(p.C), K = 9 * Cp;
+  const int Cp = tap_width(p.C), K = 9 * Cp;
   const int k0 = blockIdx.x * BLOCK_N, f0 = blockIdx.y * BLOCK_F, s = blockIdx.z, ns = gridDim.z;
   // active consumer warpgroups: a 64-row f tile, or (NS) a last 64 columns
   const int nwg = NS ? (k0 + TN < K ? 2 : 1) : (p.F - f0 >= 128 ? 2 : 1);
@@ -150,7 +148,7 @@ wgrad_sm90_kernel(const __grid_constant__ CUtensorMap gmap,
   if (tid >= CONSUMERS) {  // the producer warpgroup: one thread issues every load
     producer_regs();
     if (tid == CONSUMERS)
-      wgrad_produce<bf16, S::STAGES, S::STAGE>(smem, full, empty, &gmap, &amap, p, q_begin, n_it,
+      wgrad_produce<S::STAGES, S::STAGE>(smem, full, empty, &gmap, &amap, p, q_begin, n_it,
                                                f0, k0, ng, S::G_BOXES, na);
     return;
   }
@@ -256,197 +254,279 @@ wgrad_sm90_reduce_kernel(const float* __restrict__ part, const float* __restrict
   }
 }
 
-// ---- the float32 path: TF32 on mma.sync -----------------------------------
+// ---- the float32 GEMM: TF32 wgmma, G restaged K-major -------------------
 //
-// In float32 both operands arrive MN-major, as in bf16 (channels innermost
-// in every NHWC box, the reduction over the pixels), and .tf32 wgmma takes
-// no transposed operand.  This GEMM therefore runs on mma.sync m16n8k8
-// (TF32, float32 accumulators), its fragments loaded from the same
-// swizzled TMA boxes with 16-byte shared-memory loads and rounded to TF32
-// (to_tf32, ties away) in registers: the simple kernel that is right, with
-// no copy of either operand and the producer, split-K, bias sums and
-// second pass of the bf16 GEMM.  The other ways a K-major operand could
-// reach wgmma cost more code or more bytes: restaging an operand K-major
-// in shared memory (a pass over every box, by the consumers or a
-// warpgroup of its own) or a transposed copy of it written once a layer
-// (its bytes in device memory).  The price of this one: mma.sync runs at
-// about half of wgmma's TF32 rate, and the fragments' shared-memory loads
-// compete with it (on an H100 the GEMM reads 17-19% of its TF32 bound at
-// unet_vgg's shapes, PERF.md), a redesign queued in ROADMAP §2.  A box
-// holds 32 float32 channels (128 bytes) of 128 pixels.  Tile: BF f x BN
-// K-columns, BF = 128 and BN = 64 (4 G boxes and 2 input boxes a stage)
-// or, at F = 64, BF = 64 and BN = 128 (2 and 4): 96 KB a stage, 2 stages
-// in the 192 KB ring.  Warp w (of 8)
-// owns 32 f of G box w % NG by 32 columns of input box w / NG: 2 x 4
-// m16n8 products a k8 step of 8 pixels.
+// .tf32 wgmma reads an operand from shared memory K-major only (no
+// transpose bit), and both of this GEMM's operands arrive MN-major: the
+// reduction runs over the pixels and every NHWC box holds channels
+// innermost.  So one operand goes through registers and the other is
+// restaged:
+//   A (M = the tile's K-columns, tap x channel; K = pixels): im2col(in)^T
+//      as register fragments, which have no major-ness, loaded by the
+//      consumers from the MN-major input boxes with 8-byte shared-memory
+//      loads;
+//   B (N = f; K = pixels): G, restaged K-major by a warpgroup of its own —
+//      it reads the G boxes (pixels x 32 f) and writes f rows x 32 pixels
+//      in the canonical 128-byte-swizzled layout.
+// G is the operand restaged because it is the narrower one a stage (64 f
+// against 576 K-columns).  The restager rounds both to TF32 (to_tf32,
+// ties away): G as it writes it, and the input boxes in place, each
+// element once (consumers that rounded their fragments paid it nine times
+// an element, once a tap, their largest cost on an H100).  The tensor
+// cores read the rounded words exactly, so both operands are rounded to
+// nearest, the rule of every float32 weight-gradient GEMM of the port
+// (kernels/tf32.py).
 //
-// Fragment order.  Thread (g = lane / 4, t = lane % 4) loads, for pixel
-// rows t and t + 4 of the step, one 16-byte chunk of its warp's G box and
-// one of its input box: logical chunk c = PERM[g] (4 consecutive f, 4
-// consecutive columns).  Its four f are the rows (tile i, row g + 8 h) of
-// its m16 tiles, f = 4 PERM[g] + 2 i + h, and its four columns are column
-// g of its n8 tiles j, col = 4 PERM[g] + j; an accumulator's column 2t + e
-// is col 4 PERM[2t + e] + j.  PERM = 0 4 1 5 2 6 3 7 puts the two g of a
-// quarter-warp in chunks whose swizzled places (c ^ row % 8 over the
-// quarter-warp's 4 rows) differ, so the 16-byte loads are free of bank
-// conflicts.
-__device__ __forceinline__ int perm8(int g) { return (g >> 1) | ((g & 1) << 2); }
+// Tile: 64 f x (64 channels x 9 taps) = 576 K-columns, all nine taps of a
+// 64-channel slice of the input.  A stage is a 2 x 16 pixel sub-patch (32
+// pixels, 4 k8 steps; a split's 8 x 16 patches walked a quarter at a
+// time) and holds: two G boxes (32 f, 16 x, 2 y), two halo boxes (32 c, 18
+// x, 4 y) of the input at (c0 + 32 h, x0 - 1, y0 - 1) — TMA's zero fill is
+// the SAME halo, and one halo box serves all nine taps, each tap a shift
+// of the rows the fragments read — and the restaged G: 34 KB, 6 stages.
+// Per pixel the tile streams 64 f + 2.25 x 64 channels (the halo) of L2,
+// 832 bytes for 73,728 FLOP: 89 FLOP a byte, against 21 of the mma.sync
+// GEMM this replaces (128 f x 64 or 64 f x 128 columns, per-tap boxes).
+// Block: 512 threads.  Warpgroups 0-2 consume, warpgroup w the taps of
+// row ky = w: three m64n64k8 products a k8 step (kx = 0, 1, 2), each 64
+// K-columns (one tap's 64 channels) by the 64 f, 96 accumulators a thread
+// (setmaxnreg gives the consumers 152 registers and the restager 56;
+// ptxas allocates the consumers what it gives them, and with 128 each the
+// GEMM ran far slower).  Warpgroup 3 restages, and its thread 0 issues
+// the TMA loads: after restaging stage j it refills the slot that stage j
+// - 2 left (F32_LAG), so the restager runs up to two stages ahead (one
+// held the consumers back).  On an H100 (700 W) the GEMM reads 37-45% of
+// its TF32 bound at the port's shapes (PERF.md).  Tried on the card and
+// dropped, each slower or no faster: a 128 f x (tap row x 64 channels)
+// tile on m64n128k8 (its stages carry a third of the work for the same
+// barriers), double-buffered fragments, a lead of 3 stages, the restaging
+// inside the consumer warpgroups (384 threads, 168 registers).
+//
+// Fragment order.  The m64nNk8 .tf32 A fragment: thread (warp v of its
+// warpgroup, g = lane / 4, t = lane % 4) holds a0 (row 16 v + g, k t), a1
+// (row + 8, k t), a2 (row, k t + 4), a3 (row + 8, k t + 4).  Row 16 v + g
+// stands for channel 32 (v / 2) + ch of the tile's slice, row + 8 for ch +
+// 1, with ch = 4 chunk + 2 (g % 2), chunk = 2 (v % 2) + g / 4 + 4 ((g % 4)
+// / 2): so (a0, a1) and (a2, a3) are two channels next to each other, one
+// 8-byte load each, and the 16 lanes of each half-warp read 16 distinct
+// 8-byte places of the swizzled rows (chunks c and c ^ 4 over 4
+// consecutive rows), free of bank conflicts at any tap shift.  Pixel k of a
+// stage is (k / 16, k % 16) of the sub-patch, as the restaged G's K order.
+// The restager: thread (warp r, lane l) takes the 4 x 4 block of f 32 (r /
+// 2) + 4 j + 0..3 (j = l % 8) by pixels 4 (j ^ d) + 0..3 (d = 4 (r % 2) + l
+// / 8): four 16-byte loads, four 16-byte stores, each quarter-warp on 8
+// distinct 16-byte places; then 16 bytes at a time of the halo boxes, a
+// quarter-warp on one 128-byte row.  It also sums G's columns for the bias
+// (the first column tile's blocks), in a fixed order.
+constexpr int F32_SUB_H = 2;                                  // a stage: 2 x 16 pixels
+constexpr int F32_SUBS = PATCH_H / F32_SUB_H;                 // stages a patch
+constexpr int F32_HALO_W = PATCH_W + 2, F32_HALO_H = F32_SUB_H + 2;
+constexpr int F32_G_BOX = F32_SUB_H * PATCH_W * 128;          // (32 f, 16 x, 2 y): 4 KB
+constexpr int F32_HALO_BOX = F32_HALO_W * F32_HALO_H * 128;   // (32 c, 18 x, 4 y): 9 KB
+constexpr int F32_THREADS = 512;  // three consumer warpgroups and the restager's
+// the restager's lead: after restaging stage j it refills the slot of stage
+// j - F32_LAG, so it may run F32_LAG stages ahead of the consumers
+constexpr int F32_LAG = 2;
 
-template <int NG, int NA>
-struct WgradF32Smem {
-  static constexpr int STAGE = (NG + NA) * BOX_BYTES;
-  static constexpr int STAGES = RING_BYTES / STAGE;
-  static constexpr int SB_OFF = STAGES * STAGE;  // bias partials, 4 floats a consumer thread
-  static constexpr int BAR_OFF = SB_OFF + CONSUMERS * 4 * 4;
-  static constexpr int DYN = BAR_OFF + 2 * STAGES * 8 + 1024;
-  static_assert(NG * NA == 8 && STAGES >= 2 && DYN <= SMEM_MAX, "8 warps, 2 stages");
+struct WgradTf32Smem {
+  static constexpr int A_OFF = 2 * F32_G_BOX;                // the two halo boxes
+  static constexpr int R_OFF = A_OFF + 2 * F32_HALO_BOX;     // G restaged: 64 f x 128 bytes
+  static constexpr int STAGE = R_OFF + 64 * 128;             // 34 KB
+  static constexpr int STAGES = 6;
+  static constexpr int SB_OFF = STAGES * STAGE;              // bias partials, 4 floats a thread
+  static constexpr int BAR_OFF = SB_OFF + 128 * 4 * 4;
+  static constexpr int DYN = BAR_OFF + 3 * STAGES * 8 + 1024;
+  static_assert(STAGE % 1024 == 0 && R_OFF % 1024 == 0 && DYN <= SMEM_MAX, "the ring fits");
 };
 
-// The k8 steps of one 128-pixel stage: acc[i][j] (m16 tile i, n8 tile j)
-// += TF32(G box rows) x TF32(input box rows) of this thread's chunk c.
-__device__ __forceinline__ void wgrad_f32_stage(float (&acc)[2][4][4], const uint8_t* gbox,
-                                                const uint8_t* abox, int c, int t) {
-#pragma unroll 4
-  for (int s = 0; s < PATCH / 8; ++s) {
-    const int r0 = 8 * s + t, r1 = r0 + 4;
-    const float4 g0 = *reinterpret_cast<const float4*>(gbox + r0 * 128 + ((c ^ (r0 & 7)) << 4));
-    const float4 g1 = *reinterpret_cast<const float4*>(gbox + r1 * 128 + ((c ^ (r1 & 7)) << 4));
-    const float4 x0 = *reinterpret_cast<const float4*>(abox + r0 * 128 + ((c ^ (r0 & 7)) << 4));
-    const float4 x1 = *reinterpret_cast<const float4*>(abox + r1 * 128 + ((c ^ (r1 & 7)) << 4));
-    const uint32_t ga[4] = {to_tf32(g0.x), to_tf32(g0.y), to_tf32(g0.z), to_tf32(g0.w)};
-    const uint32_t gb[4] = {to_tf32(g1.x), to_tf32(g1.y), to_tf32(g1.z), to_tf32(g1.w)};
-    const uint32_t xa[4] = {to_tf32(x0.x), to_tf32(x0.y), to_tf32(x0.z), to_tf32(x0.w)};
-    const uint32_t xb[4] = {to_tf32(x1.x), to_tf32(x1.y), to_tf32(x1.z), to_tf32(x1.w)};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const uint32_t a[4] = {ga[2 * i], ga[2 * i + 1], gb[2 * i], gb[2 * i + 1]};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], a, xa[j], xb[j]);
-    }
+// stage j of a block's run (patch q_begin + j / 4, its sub-row j % 4) into
+// `stage`, completing on `full`: two G boxes from f0, two halo boxes from
+// channel c0
+__device__ __forceinline__ void wgrad_tf32_load(uint8_t* stage, uint64_t* full,
+                                                const CUtensorMap* gmap, const CUtensorMap* amap,
+                                                const WgradArgs& p, int q_begin, int j, int f0,
+                                                int c0) {
+  const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PATCH_H) * tiles_w;
+  const int q = q_begin + j / F32_SUBS, b = q / tiles_hw, thw = q - b * tiles_hw;
+  const int y0 = (thw / tiles_w) * PATCH_H + F32_SUB_H * (j % F32_SUBS);
+  const int x0 = (thw % tiles_w) * PATCH_W;
+  mbar_expect_tx(full, 2 * (F32_G_BOX + F32_HALO_BOX));
+  for (int h = 0; h < 2; ++h) {
+    tma_load_4d(stage + h * F32_G_BOX, gmap, full, f0 + 32 * h, x0, y0, b);
+    tma_load_4d(stage + WgradTf32Smem::A_OFF + h * F32_HALO_BOX, amap, full, c0 + 32 * h,
+                x0 - 1, y0 - 1, b);
   }
 }
 
-// part (nsplit, F, 9 Cp) float32 (Cp = tap_width<float>(C)), bpart (nsplit,
-// F): block (column tile, f tile, split) as the bf16 kernel; threads 0-255
-// consume, one thread of the producer warpgroup loads.
-template <int NG, int NA>
-__global__ void __launch_bounds__(THREADS, 1)
-wgrad_f32_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap amap,
-                 WgradArgs p) {
-  using S = WgradF32Smem<NG, NA>;
-  constexpr int BN = 32 * NA, BF = 32 * NG;
+// part (nsplit, F, 9 Cp) float32 (Cp = tap_width(C)), bpart (nsplit, F):
+// block (64-channel slice, 64-f tile, split).
+__global__ void __launch_bounds__(F32_THREADS, 1)
+wgrad_tf32_kernel(const __grid_constant__ CUtensorMap gmap,
+                  const __grid_constant__ CUtensorMap amap, WgradArgs p) {
+  using S = WgradTf32Smem;
   extern __shared__ __align__(1024) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
-  uint64_t* empty = full + S::STAGES;
+  uint64_t* ready = full + S::STAGES;
+  uint64_t* empty = ready + S::STAGES;
   const int tid = threadIdx.x;
-  const int Cp = tap_width<float>(p.C), K = 9 * Cp;
-  const int k0 = blockIdx.x * BN, f0 = blockIdx.y * BF, s = blockIdx.z, ns = gridDim.z;
-  const int na = min(NA, (K - k0) / 32);  // the tile's input boxes (the last may hold fewer)
-  const int tiles_w = p.W / PATCH_W, tiles_hw = (p.H / PATCH_H) * tiles_w;
+  const int Cp = tap_width(p.C), K = 9 * Cp;
+  const int c0 = blockIdx.x * 64, f0 = blockIdx.y * 64, s = blockIdx.z, ns = gridDim.z;
+  const int tiles_hw = (p.H / PATCH_H) * (p.W / PATCH_W);
   const long long npatch = static_cast<long long>(p.B) * tiles_hw;
   const int q_begin = static_cast<int>(s * npatch / ns);
-  const int n_it = static_cast<int>((s + 1) * npatch / ns) - q_begin;
+  const int n_it = (static_cast<int>((s + 1) * npatch / ns) - q_begin) * F32_SUBS;
 
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < S::STAGES; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], CONSUMERS);
+      mbar_init(&ready[i], 128);
+      mbar_init(&empty[i], 384);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (tid >= CONSUMERS) {  // the producer warpgroup: one thread issues every load
-    producer_regs();
-    if (tid == CONSUMERS)
-      wgrad_produce<float, S::STAGES, S::STAGE>(smem, full, empty, &gmap, &amap, p, q_begin,
-                                                n_it, f0, k0, NG, NG, na);
+  if (tid >= 384) {  // the restager warpgroup; its thread 0 also loads
+    regs_dec<56>();
+    const int rt = tid - 384, rw = rt >> 5, jj = rt & 7;
+    const int bx = rw >> 1, pq = jj ^ (4 * (rw & 1) + ((rt & 31) >> 3));
+    const bool bias = blockIdx.x == 0 && p.bpart != nullptr;
+    float bacc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (rt == 0)
+      for (int i = 0; i < S::STAGES && i < n_it; ++i)
+        wgrad_tf32_load(smem + i * S::STAGE, &full[i], &gmap, &amap, p, q_begin, i, f0, c0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % S::STAGES;
+      mbar_wait(&full[st], (it / S::STAGES) & 1);
+      uint8_t* base = smem + st * S::STAGE;
+      // G: the 4 x 4 block of f 32 bx + 4 jj + e by pixels 4 pq + i, K-major
+      const uint8_t* gb = base + bx * F32_G_BOX;
+      float4 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 4 * pq + i;
+        v[i] = *reinterpret_cast<const float4*>(gb + row * 128 + ((jj ^ (row & 7)) << 4));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x0 = (&v[0].x)[e], x1 = (&v[1].x)[e], x2 = (&v[2].x)[e], x3 = (&v[3].x)[e];
+        const int f = 32 * bx + 4 * jj + e;
+        *reinterpret_cast<uint4*>(base + S::R_OFF + f * 128 + ((pq ^ (f & 7)) << 4)) =
+            make_uint4(to_tf32(x0), to_tf32(x1), to_tf32(x2), to_tf32(x3));
+        if (bias) bacc[e] += ((x0 + x1) + x2) + x3;
+      }
+      // the halo boxes rounded to TF32 in place, 16 bytes a thread at a time
+      // (a quarter-warp on one 128-byte row), so the consumers load their
+      // fragments rounded: each element once, not once a tap
+      uint4* hb = reinterpret_cast<uint4*>(base + S::A_OFF);
+#pragma unroll
+      for (int i = 0; i < 2 * F32_HALO_BOX / 16 / 128; ++i) {
+        const float4 h = *reinterpret_cast<const float4*>(hb + rt + 128 * i);
+        hb[rt + 128 * i] = make_uint4(to_tf32(h.x), to_tf32(h.y), to_tf32(h.z), to_tf32(h.w));
+      }
+      fence_proxy_async();  // the restaged G is read by wgmma (the async proxy)
+      mbar_arrive(&ready[st]);
+      if (rt == 0 && it >= F32_LAG && it - F32_LAG + S::STAGES < n_it) {  // refill a slot
+        const int sp = (it - F32_LAG) % S::STAGES;
+        mbar_wait(&empty[sp], ((it - F32_LAG) / S::STAGES) & 1);
+        wgrad_tf32_load(smem + sp * S::STAGE, &full[sp], &gmap, &amap, p, q_begin,
+                        it - F32_LAG + S::STAGES, f0, c0);
+      }
+    }
+    if (bias) {  // f = 32 bx + 4 jj + e: the 8 threads of its (bx, jj), added in d order
+      float* sb = reinterpret_cast<float*>(smem + S::SB_OFF);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sb[rt * 4 + e] = bacc[e];
+      bar_sync(1, 128);
+      if (rt < 64) {
+        const int fb = rt >> 5, fj = (rt & 31) >> 2, fe = rt & 3;
+        float sum = 0.f;
+        for (int d = 0; d < 8; ++d) sum += sb[((2 * fb + (d >> 2)) * 32 + 8 * (d & 3) + fj) * 4 + fe];
+        p.bpart[static_cast<size_t>(s) * p.F + f0 + rt] = sum;
+      }
+    }
     return;
   }
 
-  consumer_regs();
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int fw = warp % NG, cw = warp / NG;
-  const bool active = cw < na;
-  const int c = perm8(g);
-  // the bias sums (the first column tile's blocks): TPB threads a G box,
-  // thread lt reading logical chunk lt % 8 (4 f) of pixel rows lt / 8 +
-  // (TPB / 8) i
-  constexpr int TPB = CONSUMERS / NG, RG = TPB / 8;
-  const bool bias = blockIdx.x == 0 && p.bpart != nullptr;
-  const int bbox = tid / TPB, blt = tid % TPB, bchunk = blt & 7, brg = blt >> 3;
-  float acc[2][4][4], bacc[4];
+  regs_inc<152>();
+  const int wg = tid >> 7, v = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int chunk = 2 * (v & 1) + (g >> 2) + 4 * ((g & 3) >> 1), half = 8 * (g & 1);
+  const int ch = 32 * (v >> 1) + 4 * chunk + 2 * (g & 1);  // row g's channel; row g + 8: ch + 1
+  float acc[3][32];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int b = 0; b < 3; ++b)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) bacc[e] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+  uint32_t fr[3][4];
   for (int it = 0; it < n_it; ++it) {
-    const int st = it % S::STAGES;
-    mbar_wait(&full[st], (it / S::STAGES) & 1);
-    const uint8_t* base = smem + st * S::STAGE;
-    if (active) wgrad_f32_stage(acc, base + fw * BOX_BYTES, base + (NG + cw) * BOX_BYTES, c, t);
-    if (bias) {
-      const uint8_t* gb = base + bbox * BOX_BYTES;
-#pragma unroll 4
-      for (int i = 0; i < PATCH / RG; ++i) {
-        const int row = brg + RG * i;
-        const float4 v = *reinterpret_cast<const float4*>(gb + row * 128 +
-                                                          ((bchunk ^ (row & 7)) << 4));
-        bacc[0] += v.x;
-        bacc[1] += v.y;
-        bacc[2] += v.z;
-        bacc[3] += v.w;
+    const int st = it % S::STAGES, ph = (it / S::STAGES) & 1;
+    mbar_wait(&full[st], ph);
+    mbar_wait(&ready[st], ph);
+    const uint8_t* hb = smem + st * S::STAGE + S::A_OFF + (v >> 1) * F32_HALO_BOX;
+    const uint64_t dg = desc_sw128(smem + st * S::STAGE + S::R_OFF, 16, 1024);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_wait<0>();  // the last k8 step's products are done: its fragments are free
+      if (k == 1 && it > 0) mbar_arrive(&empty[(it - 1) % S::STAGES]);
+      const int r0 = ((k >> 1) + wg) * F32_HALO_W + 8 * (k & 1) + t;
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        fence_regs(fr[b]);
+        const int ra = r0 + b, rb = ra + 4;
+        const uint2 x0 = *reinterpret_cast<const uint2*>(hb + ra * 128 +
+                                                         ((chunk ^ (ra & 7)) << 4) + half);
+        const uint2 x1 = *reinterpret_cast<const uint2*>(hb + rb * 128 +
+                                                         ((chunk ^ (rb & 7)) << 4) + half);
+        fr[b][0] = x0.x;
+        fr[b][1] = x0.y;
+        fr[b][2] = x1.x;
+        fr[b][3] = x1.y;
       }
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < 3; ++b) wgmma_m64n64k8_tf32_rs(acc[b], fr[b], dg + 2 * k);
+      wgmma_commit();
     }
-    mbar_arrive(&empty[st]);  // this thread's reads of the stage are done
   }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < 3; ++b) fence_acc(acc[b]);
 
-  if (active) {
-    float* out = p.part + static_cast<size_t>(s) * p.F * K;
+  // acc[b][4 i + e]: row g (channel ch), f 8 i + 2 t + e; acc[b][4 i + 2 + e]:
+  // row g + 8 (channel ch + 1); block b is tap (wg, b)
+  float* out = p.part + static_cast<size_t>(s) * p.F * K;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int b = 0; b < 3; ++b) {
+    const int col = (3 * wg + b) * Cp + c0 + ch;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int f = f0 + 32 * fw + 4 * c + 2 * i + (e >> 1);
-        const int col = k0 + 32 * cw + 4 * perm8(2 * t + (e & 1));
-        *reinterpret_cast<float4*>(out + static_cast<size_t>(f) * K + col) =
-            make_float4(acc[i][0][e], acc[i][1][e], acc[i][2][e], acc[i][3][e]);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int f = f0 + 8 * i + 2 * t + e;
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(f) * K + col) =
+            make_float2(acc[b][4 * i + e], acc[b][4 * i + 2 + e]);
       }
-  }
-  if (bias) {  // the RG threads of each chunk, added in thread order
-    float* sb = reinterpret_cast<float*>(smem + S::SB_OFF);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sb[tid * 4 + e] = bacc[e];
-    bar_sync(1, CONSUMERS);
-    if (tid < BF) {
-      const int box = tid >> 5, fc = tid & 31, chunk = fc >> 2, e = fc & 3;
-      float sum = 0.f;
-      for (int rr = 0; rr < RG; ++rr) sum += sb[(box * TPB + rr * 8 + chunk) * 4 + e];
-      p.bpart[static_cast<size_t>(s) * p.F + f0 + tid] = sum;
-    }
   }
 }
 
-template <int NG, int NA>
-cudaError_t launch_wgrad_f32(const Launch& L, const float* gout, const float* in,
-                             const WgradArgs& a, cudaStream_t stream) {
-  using S = WgradF32Smem<NG, NA>;
+cudaError_t launch_wgrad_tf32(const Launch& L, const float* gout, const float* in,
+                              const WgradArgs& a, cudaStream_t stream) {
+  using S = WgradTf32Smem;
   const dim3 grid = L.grid();
-  if (static_cast<int>(grid.z) != L.nsplit()) return cudaErrorInvalidConfiguration;
+  const int64_t *gm = L.map(0), *am = L.map(1);
+  if (static_cast<int>(grid.x) * 64 != tap_width(a.C) || static_cast<int>(grid.y) * 64 != a.F ||
+      static_cast<int>(grid.z) != L.nsplit() || gm[8] != 32 || gm[9] != PATCH_W ||
+      gm[10] != F32_SUB_H || am[8] != 32 || am[9] != F32_HALO_W || am[10] != F32_HALO_H)
+    return cudaErrorInvalidConfiguration;
   CUtensorMap mg, ma;
-  cudaError_t e = make_map(&mg, gout, L.map(0), true);
+  cudaError_t e = make_map(&mg, gout, gm, true);
   if (e != cudaSuccess) return e;
-  e = make_map(&ma, in, L.map(1), true);
+  e = make_map(&ma, in, am, true);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(wgrad_f32_kernel<NG, NA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           S::DYN);
+  e = cudaFuncSetAttribute(wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::DYN);
   if (e != cudaSuccess) return e;
-  wgrad_f32_kernel<NG, NA><<<grid, THREADS, S::DYN, stream>>>(mg, ma, a);
+  wgrad_tf32_kernel<<<grid, F32_THREADS, S::DYN, stream>>>(mg, ma, a);
   return cudaGetLastError();
 }
 
@@ -483,19 +563,15 @@ cudaError_t launch_wgrad_sm90(const int64_t* record, const T* gout, const T* in,
   if (L.op() != OP_WGRAD || L.f32() != F32 || L.map(1)[1] != C || L.map(0)[1] != F ||
       L.out_offset() + C > L.out_channels() || (L.bias() && db == nullptr))
     return cudaErrorInvalidValue;
-  const int Cp = tap_width<T>(C);
+  const int Cp = tap_width(C);
   float* bpart = L.bias() ? work + static_cast<size_t>(L.nsplit()) * F * 9 * Cp : nullptr;
   const WgradArgs a{work, bpart, dk, L.bias() ? db : nullptr, B, H, W, C, F,
                     L.out_channels(), L.out_offset()};
   cudaError_t e;
   if constexpr (F32) {
-    // 128 f x 64 columns, or 64 f x 128 columns (a 64-wide F)
-    if (L.tile_m() == 128 && L.tile_n() == 64 && F % 128 == 0)
-      e = launch_wgrad_f32<4, 2>(L, gout, in, a, stream);
-    else if (L.tile_m() == 64 && L.tile_n() == 128 && F % 64 == 0)
-      e = launch_wgrad_f32<2, 4>(L, gout, in, a, stream);
-    else
-      return cudaErrorInvalidConfiguration;
+    // 64 f x 576 columns: a 64-channel slice's nine taps
+    if (L.tile_m() != 64 || L.tile_n() != 9 * 64) return cudaErrorInvalidConfiguration;
+    e = launch_wgrad_tf32(L, gout, in, a, stream);
   } else {
     // the record's tile: 128 f x tile_n columns, or 64 f x 128 columns with
     // the warpgroups splitting the columns (a 64-wide F)

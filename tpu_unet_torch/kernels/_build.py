@@ -80,6 +80,8 @@ SIGNATURES = {
     # skip, up, dz1, y1, g2, work, dk1, db1, dk2, db2, B, H2, W2, Cs, Cx, F,
     # f32, plan (int64 launch records), stream
     "tu_unetup_wgrad": [_P] * 10 + [_I] * 7 + [_P, _P],
+    # gout, in, work, dk, db, B, H, W, C, F, f32, record (int64), stream
+    "tu_wgrad": [_P] * 5 + [_I] * 6 + [_P, _P],
     # x, is_image, mid0, mid1, out, dskip, dpool, wt0..2, ga, gb, dx, work,
     # dk0..2, db0..2, n, B, H, W, chans[4], f32, plan (int64 launch
     # records), stream
@@ -104,6 +106,7 @@ SIGNATURES = {
 # C entry and nowhere else.  A kernel with a float32 instantiation counts
 # its float32 launches under its key + "_f32" (:func:`count_key`).
 F32_KERNELS = ("vgg_stem", "vgg_block", "unetup", "upsample2x", "unetup_bwd", "unetup_wgrad",
+               "wgrad_gemm",
                "upsample_adjoint", "vgg_block2_fwd", "vgg_block3_fwd", "vgg_stem_bwd",
                "vgg_block2_bwd", "vgg_block3_bwd", "final_ce_dice_fwd", "final_ce_dice_bwd",
                "upconv", "upconv_bwd")
@@ -111,6 +114,7 @@ launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "normalize_images": 0, "vgg_stem": 0, "vgg_block": 0,
                  "unetup": 0, "upsample2x": 0, "upconv": 0, "upconv_bwd": 0,
                  "argmax_mask": 0, "mask_palette": 0, "unetup_bwd": 0, "unetup_wgrad": 0,
+                 "wgrad_gemm": 0,
                  "upsample_adjoint": 0, "vgg_block2_fwd": 0,
                  "vgg_block3_fwd": 0, "vgg_stem_bwd": 0, "vgg_block2_bwd": 0,
                  "vgg_block3_bwd": 0, "final_ce_dice_fwd": 0,

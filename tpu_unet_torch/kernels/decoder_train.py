@@ -261,6 +261,46 @@ def wgrad_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int, f32: bool = F
             sm90.wgrad_work(launches, f))
 
 
+def wgrad_gemm(v, g, out_channels: int | None = None, out_offset: int = 0, bias: bool = True,
+               dk=None):
+    """The weight-gradient GEMM alone: channels [out_offset, out_offset + C)
+    of dk (F, out_channels, 3, 3) (a new one where ``dk`` is None; the
+    whole (F, C, 3, 3) by default) from NHWC input ``v`` (B, H, W, C) and
+    output gradient ``g`` (B, H, W, F), and db (F) with ``bias`` (else
+    None), float32.  Plain version for CPU tensors (:func:`conv_wgrad`, G's
+    column sums); for tensors on the card one launch of the Hopper GEMM and
+    its reduce pass (``csrc/unetup_wgrad.cu::tu_wgrad``; bf16, or float32
+    on TF32 ``wgmma``; H % 8, W % 16, C % 8 and F % 64 all 0), launch key
+    ``wgrad_gemm``.  No training path calls it: the stage, block and head
+    kernels launch this GEMM from their own C entries; it holds the GEMM
+    alone at one shape (``chip_smoke.py``, the card's tests,
+    ``tools/bench_sm90.py``)."""
+    B, H, W, c = v.shape
+    f = g.shape[-1]
+    oc = c if out_channels is None else out_channels
+    if dk is None:
+        dk = torch.zeros((f, oc, 3, 3), dtype=torch.float32, device=v.device)
+    if on_cpu(v):
+        dk[:, out_offset:out_offset + c] = conv_wgrad(v, g)
+        return dk, g.float().sum((0, 1, 2)) if bias else None
+    _build.no_grad_inputs("wgrad_gemm", v, g)
+    dt = _build.conv_dtype(v, "wgrad_gemm")
+    _build.check(g, "g", dt, (B, H, W, f), v.device)
+    _build.check(dk, "dk", torch.float32, (f, oc, 3, 3), v.device)
+    if H % 8 or W % 16 or c % 8 or f % 64 or out_offset + c > oc:
+        raise ValueError(f"wgrad_gemm kernel: H={H} % 8, W={W} % 16, C={c} % 8 and F={f} % 64 "
+                         f"must all be 0, channels {out_offset} + {c} within {oc}")
+    ln = sm90.wgrad_launch(B, H, W, c, f, oc, out_offset, bias, dt == torch.float32)
+    fl = dict(dtype=torch.float32, device=v.device)
+    work = torch.empty(sm90.wgrad_work([ln], f), **fl)
+    db = torch.empty(f, **fl) if bias else None
+    rec = sm90.encode([ln])  # read on the host by the C entry
+    _build.call("tu_wgrad", g.data_ptr(), v.data_ptr(), work.data_ptr(), dk.data_ptr(),
+                _build.ptr(db), B, H, W, c, f, int(dt == torch.float32), rec.data_ptr())
+    _build.launch_counts[_build.count_key("wgrad_gemm", dt)] += 1
+    return dk, db
+
+
 def _unetup_wgrad_cuda(skip, x, dz1, y1, g2):
     _build.no_grad_inputs("unetup_wgrad", skip, x, dz1, y1, g2)
     B, H, W, cx = x.shape

@@ -134,7 +134,7 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
            for i, w in enumerate(ws)]
     plan, ns = bwd_plan(B, H, W, tuple(chans), bool(want_dx), f32)
     # each GEMM's K (the image GEMM's padded columns) for the shared work area
-    ks = [sm90.slice_c(f32) if is_image and i == 0 else 9 * sm90.tap_width(c, f32)
+    ks = [sm90.slice_c(f32) if is_image and i == 0 else 9 * sm90.tap_width(c)
           for i, c in enumerate(chans[:-1])]
     work = torch.empty(max(ns[i] * chans[i + 1] * (ks[i] + 1) for i in range(n)),
                        dtype=torch.float32, device=x.device)

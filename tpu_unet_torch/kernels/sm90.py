@@ -16,13 +16,15 @@ CPU tests, which reach every number.
 Every plan is in an element type: bf16, or float32 with ``f32=True`` (the
 float32 training path; its products are TF32).  A record names it (its
 word 10), and the C entries refuse a record of the other type.  In float32
-a box's 128 bytes hold 32 channels, not 64: the conv core's K slices and
-the weight-gradient GEMM's tap widths follow, the stage bytes stay, and the
-epilogue's float32 tile takes twice the bytes, so the persistence test is
-made again (:func:`conv_own_staging`).  The weight-gradient GEMM in
-float32 is another kernel (``mma.sync`` TF32 from the same boxes: .tf32
-``wgmma`` takes no transposed operand) with tiles of its own
-(:func:`wgrad_launch`).
+a box's 128 bytes hold 32 channels, not 64: the conv core's K slices
+follow, the stage bytes stay, and the epilogue's float32 tile takes twice
+the bytes, so the persistence test is made again (:func:`conv_own_staging`).
+The weight-gradient GEMM in float32 is a kernel of its own
+(``wgrad_tf32_kernel``: TF32 ``wgmma``, whose .tf32 form reads no MN-major
+operand from shared memory, so the input goes in as register fragments and
+G is restaged K-major): 64 f × 576 columns, all nine taps of a 64-channel
+slice, from one halo box a 32-channel slice and a 2 × 16-pixel stage
+(:func:`wgrad_launch`, :func:`halo_map`).
 """
 from __future__ import annotations
 
@@ -97,37 +99,75 @@ def conv_smem(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> int:
     return n * conv_stage_bytes(tile_n, tile_m) + out + 2 * n * 8 + 1024
 
 
-def tap_width(c: int, f32: bool = False) -> int:
-    """A tap's columns in the weight-gradient GEMM's K: C padded to a
-    box's channels, 64 (bf16) or 32 (float32), so one TMA box never
-    straddles two taps."""
-    s = slice_c(f32)
-    return -(-c // s) * s
+def tap_width(c: int) -> int:
+    """A tap's columns in the weight-gradient GEMM's K: C padded to 64
+    channels (a bf16 box's; the float32 GEMM's column tile, two 32-channel
+    halo boxes), so one tile never straddles two taps."""
+    return -(-c // 64) * 64
 
 
-def wgrad_stage_boxes(tile_f: int, tile_n: int, f32: bool = False) -> int:
-    """TMA boxes a stage of the weight-gradient kernel holds.  bf16: at 128
+# the float32 GEMM's stage (csrc/wgrad_sm90.cuh::WgradTf32Smem): a 2 × 16
+# pixel sub-patch of an 8 × 16 patch; two G boxes (32 f, 16 x, 2 y), two
+# halo boxes (32 c, 18 x, 4 y) of the input and the restaged G (64 f rows
+# of 32 pixels), six of them in the ring
+WGRAD_F32_SUB_H = 2
+WGRAD_F32_G_BOX = WGRAD_F32_SUB_H * PATCH_W * 128
+WGRAD_F32_HALO_BOX = (PATCH_W + 2) * (WGRAD_F32_SUB_H + 2) * 128
+WGRAD_F32_STAGE = 2 * WGRAD_F32_G_BOX + 2 * WGRAD_F32_HALO_BOX + 64 * 128
+WGRAD_F32_STAGES = 6
+
+
+def wgrad_f32_row_channel(v: int, g: int) -> int:
+    """The float32 GEMM's register-A fragment: the channel of a column
+    tile's 64 that row 16 v + g of an m64 block stands for (warp v of the
+    warpgroup, g = lane / 4; row 16 v + g + 8 stands for the next channel),
+    so that each thread's two rows are one 8-byte load and a half-warp's
+    loads fall on 16 distinct 8-byte places of the swizzled halo rows
+    (``csrc/wgrad_sm90.cuh::wgrad_tf32_kernel`` computes the same)."""
+    chunk = 2 * (v & 1) + (g >> 2) + 4 * ((g & 3) >> 1)
+    return 32 * (v >> 1) + 4 * chunk + 2 * (g & 1)
+
+
+def wgrad_f32_restage_block(lane: int, r: int):
+    """The 4 × 4 block that thread ``lane`` of warp ``r`` (0-3) of the
+    float32 GEMM's restager warpgroup moves a stage: (bx, j, pq) for f 32
+    bx + 4 j + 0..3 by pixels 4 pq + 0..3 (``wgrad_tf32_kernel`` computes
+    the same)."""
+    j = lane & 7
+    return r >> 1, j, j ^ (4 * (r & 1) + (lane >> 3))
+
+
+def wgrad_stage_boxes(tile_f: int, tile_n: int) -> int:
+    """TMA boxes a stage of the bf16 weight-gradient kernel holds: at 128
     f, two gradient boxes and tile_n / 64 input boxes; at 64 f (the
     warpgroups splitting the 128 columns), one gradient box and two input
-    boxes.  float32: tile_f / 32 gradient boxes and tile_n / 32 input
     boxes."""
-    if f32:
-        return tile_f // 32 + tile_n // 32
     return 2 + tile_n // 64 if tile_f == 128 else 3
 
 
+def wgrad_stage_bytes(tile_f: int, tile_n: int, f32: bool = False) -> int:
+    """Bytes of a stage of the weight-gradient kernel's ring (float32: the
+    two G boxes, the two halo boxes and the restaged G, 34 KB)."""
+    return WGRAD_F32_STAGE if f32 else wgrad_stage_boxes(tile_f, tile_n) * BOX_BYTES
+
+
 def wgrad_stages(tile_n: int, tile_f: int = 128, f32: bool = False) -> int:
-    """Ring stages of the weight-gradient kernel: as many as 192 KB hold."""
-    return RING_BYTES // (wgrad_stage_boxes(tile_f, tile_n, f32) * BOX_BYTES)
+    """Ring stages of the weight-gradient kernel: as many as 192 KB hold
+    (bf16); six of 34 KB (float32)."""
+    if f32:
+        return WGRAD_F32_STAGES
+    return RING_BYTES // wgrad_stage_bytes(tile_f, tile_n)
 
 
 def wgrad_smem(tile_n: int, tile_f: int = 128, f32: bool = False) -> int:
     """Dynamic shared memory of the weight-gradient kernel: the ring, the
-    bias partials (8 floats a consumer thread in bf16, 4 in float32), the
-    barriers and 1024 spare bytes."""
+    bias partials (8 floats a consumer thread in bf16, 4 a restaging thread
+    in float32), the barriers (two a stage; float32 three) and 1024 spare
+    bytes."""
     n = wgrad_stages(tile_n, tile_f, f32)
-    return (n * wgrad_stage_boxes(tile_f, tile_n, f32) * BOX_BYTES
-            + CONSUMERS * (4 if f32 else 8) * 4 + 2 * n * 8 + 1024)
+    if f32:
+        return n * WGRAD_F32_STAGE + 128 * 4 * 4 + 3 * n * 8 + 1024
+    return n * wgrad_stage_bytes(tile_f, tile_n) + CONSUMERS * 8 * 4 + 2 * n * 8 + 1024
 
 
 def widest_tile(n: int) -> int:
@@ -160,6 +200,14 @@ def nhwc_map(B: int, H: int, W: int, C: int, patch_h: int = PATCH_H, f32: bool =
     """(B, H, W, C) activations; the box is a tile's ``patch_h`` x 16
     pixels by 128 bytes of channels (64 bf16, 32 float32)."""
     return tensor_map((C, W, H, B), (slice_c(f32), PATCH_W, patch_h, 1), f32)
+
+
+def halo_map(B: int, H: int, W: int, C: int) -> dict:
+    """(B, H, W, C) float32 activations seen by the float32 weight-gradient
+    GEMM: the box is a 2 × 16 stage's pixels with their one-pixel halo, 4 ×
+    18, by 32 channels; loaded at (c, x0 - 1, y0 - 1) its zero fill is the
+    SAME padding, and it serves all nine taps."""
+    return tensor_map((C, W, H, B), (slice_c(True), PATCH_W + 2, WGRAD_F32_SUB_H + 2, 1), True)
 
 
 def weight_map(C: int, F: int, tile_n: int, f32: bool = False) -> dict:
@@ -259,26 +307,29 @@ def wgrad_launch(B: int, H: int, W: int, C: int, F: int, out_channels: int | Non
     so that neither idles (the last tile may hold 64 columns).  Its reduce
     pass writes channels [out_offset, out_offset + C) of an (F,
     out_channels, 3, 3) gradient (default: the whole (F, C, 3, 3)) and,
-    with ``bias``, the bias gradient.  With ``f32`` the float32 GEMM
-    (``mma.sync`` TF32): taps padded to 32 columns, tiles of 128 f × 64
-    columns, or 64 f × 128 where F % 128 != 0 (8 warps of 32 × 32 either
-    way; the last column tile may hold fewer), two stages of 96 KB."""
-    cp = tap_width(C, f32)
+    with ``bias``, the bias gradient.  With ``f32`` the float32 GEMM (TF32
+    ``wgmma``): tiles of 64 f × 576 columns, a 64-channel slice's nine taps
+    (grid x the slices, y the 64-f tiles), its stages 2 × 16 pixels of a
+    split's patches (:data:`WGRAD_F32_STAGE`, six), the output gradient's
+    boxes 2 × 16 pixels by 32 f and the input's the halo boxes of
+    :func:`halo_map`."""
+    cp = tap_width(C)
+    npatch = B * (H // PATCH_H) * (W // PATCH_W)
     if f32:
-        tile_f = 128 if F % 128 == 0 else 64
-        tile_n = 64 if tile_f == 128 else 128
+        tile_f, tile_n = 64, 9 * 64
+        grid_xy = (cp // 64, F // 64)
+        maps = [nhwc_map(B, H, W, F, WGRAD_F32_SUB_H, True), halo_map(B, H, W, C)]
     else:
         tile_f = 64 if F == 64 else 128
         tile_n = 128 if tile_f == 64 else min(128, widest_tile(cp))
-    npatch = B * (H // PATCH_H) * (W // PATCH_W)
-    grid_xy = (-(-(9 * cp) // tile_n), -(-F // tile_f))
+        grid_xy = (-(-(9 * cp) // tile_n), -(-F // tile_f))
+        maps = [nhwc_map(B, H, W, F), nhwc_map(B, H, W, C)]
     ns = wgrad_splits(grid_xy[0] * grid_xy[1], npatch)
     return {"op": OP_WGRAD, "tile": (tile_f, tile_n), "grid": (*grid_xy, ns),
             "smem": wgrad_smem(tile_n, tile_f, f32), "stages": wgrad_stages(tile_n, tile_f, f32),
-            "nsplit": ns,
-            "npatch": npatch, "k": 9 * cp,
+            "nsplit": ns, "npatch": npatch, "k": 9 * cp,
             "out": (C if out_channels is None else out_channels, out_offset, int(bias)),
-            "maps": [nhwc_map(B, H, W, F, f32=f32), nhwc_map(B, H, W, C, f32=f32)], "f32": f32}
+            "maps": maps, "f32": f32}
 
 
 def wgrad_image_stages(f32: bool = False) -> int:

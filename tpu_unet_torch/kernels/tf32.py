@@ -11,10 +11,16 @@ and which are cut depends on how they reach the tensor cores:
   gradient operand comes straight from a TMA box, so it is truncated
   (:func:`trunc_tf32`); the weights are rounded to nearest when they are
   packed (``_build.pack_conv3x3``, :func:`round_tf32`);
-- the weight-gradient GEMM (``csrc/wgrad_sm90.cuh``, ``mma.sync``) and the
-  image GEMMs (``csrc/stem.cu``, ``csrc/encoder_train.cu``): every operand
-  is built in registers or stored by the kernel itself, and rounded to
-  nearest (``cvt.rna.tf32.f32``).
+- the weight-gradient GEMM (``csrc/wgrad_sm90.cuh::wgrad_tf32_kernel``,
+  TF32 ``wgmma``): G is restaged K-major and the input's boxes are
+  rounded in place by the kernel's restaging warpgroup before the
+  consumers load their register fragments from them, so both operands
+  are rounded to nearest (``cvt.rna.tf32.f32``); a fragment loaded
+  unrounded would be truncated, which shrinks a ReLU'd input's products
+  by ~2⁻¹² each (systematic, not averaging out over the pixels);
+- the image GEMMs (``csrc/stem.cu`` on ``wgmma``, ``csrc/encoder_train.cu``
+  on ``mma.sync``): every operand is gathered or stored by the kernel
+  itself, and rounded to nearest.
 
 The functions here compute a kernel's result from such operands in
 float64; the CPU tests hold them to the plain float32 versions and to the
@@ -136,12 +142,13 @@ def conv3x3_relu(x, w, b, rule: str = "trunc") -> torch.Tensor:
     return torch.relu(conv3x3(x, w, rule) + b.double())
 
 
-def wgrad(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def wgrad(v: torch.Tensor, g: torch.Tensor, rule: str = "round") -> torch.Tensor:
     """The weight-gradient GEMM's (F, C, 3, 3) from NHWC input ``v`` and
-    output gradient ``g``, both rounded to TF32 as its fragments are,
-    summed in float64."""
-    vf = round_tf32(v).double().permute(0, 3, 1, 2)
-    gf = round_tf32(g).double().permute(0, 3, 1, 2)
+    output gradient ``g``, both taken to TF32 by ``rule`` (``"round"``: as
+    the float32 GEMM's fragments and restaged G are), summed in
+    float64."""
+    vf = RULES[rule](v).double().permute(0, 3, 1, 2)
+    gf = RULES[rule](g).double().permute(0, 3, 1, 2)
     like = torch.empty((gf.shape[1], vf.shape[1], 3, 3), dtype=torch.float64, device=v.device)
     return torch.ops.aten.convolution_backward(gf, vf, like, None, [1, 1], [1, 1], [1, 1], False,
                                                [0, 0], 1, [False, True, False])[1]

@@ -89,15 +89,24 @@ with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
   composition (no single PyTorch call blends a palette): the same
   readings;
 - ``wgrad_f32`` (not in the default set): the float32 weight-gradient
-  GEMM at unet_vgg's four decoder stages (``unetup_wgrad``) and the stem's
-  float32 backward at 512², batch 8: ms per call in each round, the
-  median's share of the TF32 bound, ms by kernel, a hash of the output;
+  GEMM alone at each of its shapes in the float32 path at 512², batch 8
+  (``WGRAD_F32_CALLS``): device ms of its launches, cuDNN's float32
+  weight gradient alone with TF32 on, the TF32 bound and the share; the
+  float32 kernels that hold it (#22 / #24 at blocks 2-5,
+  ``unetup_wgrad`` at the eight decoder stages, #12 at both heads) by
+  events beside their bounds; and the stem's float32 backward: ms per
+  call in each round, the median's share of the TF32 bound, by kernel, a
+  hash of the output;
 - ``sass`` (not in the default set): the shared-memory (``LDS`` /
-  ``STS``), generic (``LD`` / ``ST``) and global loads and stores in the
-  SASS of each instance of the kernels that stage in shared memory — the
-  tail kernel, the conv core, the weight-gradient GEMMs, the stem's image
-  GEMMs, the adjoint (#19) and the fused loss (#27 / #29), bf16 and
-  float32 (``cuobjdump -sass`` of the built library) — and ptxas's report of the tail's registers when it was built
+  ``STS``), generic (``LD`` / ``ST``) and global loads and stores, the
+  tensor-core products (``HGMMA``: wgmma, ``HMMA``: mma.sync) and the
+  conversions (``F2F``, ``F2FP``, ``FRND``) in the SASS of each instance
+  of the kernels that stage in shared memory — the tail kernel, the conv
+  core, the weight-gradient GEMMs, the stem's image GEMMs, the adjoint
+  (#19) and the fused loss (#27 / #29), bf16 and float32 (``cuobjdump
+  -sass`` of the built library) — with each one's registers a thread and
+  static shared memory (``cuobjdump -res-usage``), and ptxas's report of
+  the tail's and the weight-gradient GEMM's registers when they were built
   in the call.
 
 Every line carries the card's name and power limit.  Another tree's
@@ -355,33 +364,175 @@ def _stem_bwd(smi, gen, B=8, h=512):
                       "gpu": smi}), flush=True)
 
 
-def _wgrad_f32(smi, B=8):
-    """The float32 weight-gradient GEMM (``wgrad_f32_kernel``, mma.sync
-    TF32) at unet_vgg's four decoder stages (``unetup_wgrad``: dk1 over
-    [skip | up], dk2) and the stem's float32 backward (its image GEMM
-    ``wgrad_image_f32_kernel``, conv1_2's GEMM and dgrad) at 512², batch
-    8: ms per call in each round, the median's share of the TF32 bound, by
-    kernel, and a hash of the gradients (inputs from seed 20)."""
-    dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(20)
+# The float32 weight-gradient GEMM's shapes at 512², batch 8: every
+# distinct (H, C, F) at which the float32 path launches it (a dk1 over a
+# concat [skip | up] as its pair of launches into one dk), each reached
+# through the three launches of ``tu_unetup_wgrad`` at a stage (H2, Cs, Cx,
+# F): skip's (0), up's (1) and dk2's (2).  Per stage call, the shapes it
+# reads: name -> (the launches summed, C, with the bias).
+WGRAD_F32_CALLS = (
+    ((512, 64, 128, 64), {"vgg up1 dk1": ((0, 1), 192),
+                          "stem conv1_2 / vgg up1 dk2 / rn50 head": ((2,), 64)}),
+    ((256, 128, 256, 128), {"vgg up2 dk1": ((0, 1), 384),
+                            "block2 conv2 / vgg up2 dk2": ((2,), 128)}),
+    ((128, 256, 512, 256), {"vgg up3 dk1": ((0, 1), 768),
+                            "block3 conv2-3 / vgg up3 dk2": ((2,), 256)}),
+    ((64, 512, 512, 512), {"vgg up4 dk1": ((0, 1), 1024),
+                           "block4 conv2-3 / vgg up4 dk2": ((2,), 512)}),
+    ((256, 64, 128, 64), {"rn50 up1 dk1": ((0, 1), 192), "rn50 up1 dk2": ((2,), 64)}),
+    ((128, 256, 256, 128), {"rn50 up2 dk1": ((0, 1), 512), "rn50 up2 dk2": ((2,), 128)}),
+    ((64, 512, 512, 256), {"rn50 up3 dk1": ((0, 1), 1024), "rn50 up3 dk2": ((2,), 256)}),
+    ((32, 1024, 2048, 512), {"rn50 up4 dk1": ((0, 1), 3072),
+                             "block5 / rn50 up4 dk2": ((2,), 512)}),
+    ((256, 64, 64, 128), {"block2 conv1": ((0,), 64)}),
+    ((128, 128, 128, 256), {"block3 conv1": ((0,), 128)}),
+    ((64, 256, 256, 512), {"block4 conv1": ((0,), 256)}),
+    ((1024, 64, 64, 64), {"self_net head dk1 / dk2": ((0,), 64)}),
+)
 
+
+def _f32_holders(smi, gen, dev, B):
+    """The float32 kernels that hold the weight-gradient GEMM, by CUDA
+    events in the rounds of ``_rounds`` (the median), each beside its TF32
+    bound: #22 / #24 (``vgg_block_bwd``) at blocks 2-5, ``unetup_wgrad`` at
+    the eight decoder stages and #12 (``upconv_bwd``) at both heads, at
+    512², batch 8."""
     def act(*shape):
         return torch.relu(torch.randn(shape, generator=gen, device=dev))
 
-    for _, h, cs, cx, f in STAGES[:4]:
+    def conv(h, c, f):
+        return 2.0 * B * h * h * 9 * c * f / PEAK_TF32 * 1e3
+
+    for h, chans, pool in BLOCKS:
+        x = act(B, h, h, chans[0])
+        ws = [torch.randn((f, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5
+              for c, f in zip(chans[:-1], chans[1:])]
+        mids = [act(B, h, h, f) for f in chans[1:-1]]
+        skip = act(B, h, h, chans[-1])
+        dskip = torch.randn(skip.shape, generator=gen, device=dev)
+        dpool = torch.randn((B, h // 2, h // 2, chans[-1]), generator=gen, device=dev) \
+            if pool else None
+        fn = lambda: encoder_train.vgg_block_bwd(dskip, dpool, x, mids, skip, ws)  # noqa: E731
+        med = statistics.median(_rounds(fn))
+        bound = 2 * sum(conv(h, c, f) for c, f in zip(chans[:-1], chans[1:]))
+        print(json.dumps({"block_bwd_f32": f"{B}x{h}x{h} {chans}", "ms": med, "bound_ms": bound,
+                          "share_of_bound": bound / med, "gpu": smi}), flush=True)
+        del x, ws, mids, skip, dskip, dpool
+        torch.cuda.empty_cache()
+    for model, h, cs, cx, f in STAGES:
         h2 = 2 * h
         skip, x, dz1, y1 = act(B, h2, h2, cs), act(B, h, h, cx), act(B, h2, h2, f), \
             act(B, h2, h2, f)
         g2 = torch.randn((B, h2, h2, f), generator=gen, device=dev)
         fn = lambda: decoder_train._unetup_wgrad_cuda(skip, x, dz1, y1, g2)  # noqa: E731
-        ms = _rounds(fn)
-        med = statistics.median(ms)
-        bound = 2.0 * B * h2 * h2 * 9 * f * (cs + cx + f) / PEAK_TF32 * 1e3
-        print(json.dumps({"wgrad_f32": f"{B}x{h2}x{h2} Cs={cs} Cx={cx} F={f}", "ms_rounds": ms,
+        med = statistics.median(_rounds(fn))
+        bound = conv(h2, cs + cx, f) + conv(h2, f, f)
+        print(json.dumps({"unetup_wgrad_f32": f"{model} {B}x{h2}x{h2} Cs={cs} Cx={cx} F={f}",
                           "ms": med, "bound_ms": bound, "share_of_bound": bound / med,
-                          "ms_by_kernel": _by_kernel(fn), "digest": _digest(*fn()),
                           "gpu": smi}), flush=True)
+        del skip, x, dz1, y1, g2
         torch.cuda.empty_cache()
+    for name, h in (("rn50 head", 256), ("self_net head", 512)):
+        h2 = 2 * h
+        x = act(B, h, h, 64)
+        g = torch.randn((B, h2, h2, 64), generator=gen, device=dev)
+        out_, y1 = act(B, h2, h2, 64), act(B, h2, h2, 64)
+        w1, w2 = [torch.randn((64, 64, 3, 3), generator=gen, device=dev) / 24 for _ in range(2)]
+        fn = lambda: upconv.upconv_bwd(g, out_, y1, x, w1, w2)  # noqa: E731
+        med = statistics.median(_rounds(fn))
+        bound = 4 * conv(h2, 64, 64)
+        print(json.dumps({"upconv_bwd_f32": f"{name} {B}x{h}x{h}x64->{h2}^2x64", "ms": med,
+                          "bound_ms": bound, "share_of_bound": bound / med, "gpu": smi}),
+              flush=True)
+        del x, g, out_, y1
+        torch.cuda.empty_cache()
+
+
+def _wgrad_f32(smi, B=8):
+    """The float32 weight-gradient GEMM alone at each of its shapes
+    (``WGRAD_F32_CALLS``): the device time of its launches and their
+    reduce passes (``torch.profiler``, ms per call, in launch order within
+    ``tu_unetup_wgrad``: the same reading in any tree that has that entry),
+    and where the tree has the single-GEMM entry ``tu_wgrad`` its ms by
+    CUDA events; beside it cuDNN's float32 weight gradient alone with TF32
+    on (``convolution_backward``, output mask [False, True, False], NCHW
+    views of the same tensors; events and device time), the TF32 bound and
+    the share; and the stage's dk1 / dk2 against ``convolution_backward``
+    with TF32 off (inputs from seed 20).  Then the stem's float32 backward
+    at 512², batch 8 (its image GEMM, conv1_2's GEMM and dgrad)."""
+    from tpu_unet_torch.kernels import _build
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(20)
+    cb = torch.ops.aten.convolution_backward
+
+    def act(*shape):
+        return torch.relu(torch.randn(shape, generator=gen, device=dev))
+
+    def cudnn(a, g, f):
+        like = torch.empty((f, a.shape[-1], 3, 3), device=dev)
+        return cb(g.permute(0, 3, 1, 2), a.permute(0, 3, 1, 2), like, None, [1, 1], [1, 1],
+                  [1, 1], False, [0, 0], 1, [False, True, False])[1]
+
+    def tf32(fn):
+        def run():
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                return fn()
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        return run
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    single = "tu_wgrad" in _build.SIGNATURES
+    for (h2, cs, cx, f), shapes in WGRAD_F32_CALLS:
+        skip, up, dz1, y1 = act(B, h2, h2, cs), act(B, h2, h2, cx), act(B, h2, h2, f), \
+            act(B, h2, h2, f)
+        g2 = torch.randn((B, h2, h2, f), generator=gen, device=dev)
+        plan, ns, words = decoder_train.wgrad_plan(B, h2, h2, cs, cx, f, True)
+        fl = dict(dtype=torch.float32, device=dev)
+        work = torch.empty(words, **fl)
+        dk1, db1 = torch.empty((f, cs + cx, 3, 3), **fl), torch.empty(f, **fl)
+        dk2, db2 = torch.empty((f, f, 3, 3), **fl), torch.empty(f, **fl)
+
+        def call():
+            _build.call("tu_unetup_wgrad", skip.data_ptr(), up.data_ptr(), dz1.data_ptr(),
+                        y1.data_ptr(), g2.data_ptr(), work.data_ptr(), dk1.data_ptr(),
+                        db1.data_ptr(), dk2.data_ptr(), db2.data_ptr(), B, h2, h2, cs, cx, f, 1,
+                        plan.data_ptr())
+
+        call()
+        torch.cuda.synchronize()
+        cc = torch.cat([skip, up], -1)
+        errs = {"dk1_rel_err_vs_tf32_off": rel(dk1, cudnn(cc, dz1, f)),
+                "dk2_rel_err_vs_tf32_off": rel(dk2, cudnn(y1, g2, f))}
+        seq = list(_kernel_sequence(call).items())
+        for name, (idx, c) in shapes.items():
+            a, g = (cc, dz1) if idx == (0, 1) else (skip, dz1) if idx == (0,) else (y1, g2)
+            ms = sum(v for k, v in seq if int(k.split(":")[0]) // 2 in idx)
+            lib = tf32(lambda a=a, g=g: cudnn(a, g, f))
+            lib_ms = statistics.median(_rounds(lib))
+            lib_dev = sum(_by_kernel(lib).values())
+            bound = 2.0 * B * h2 * h2 * 9 * c * f / PEAK_TF32 * 1e3
+            line = {"wgrad_f32": name, "shape": f"{B}x{h2}x{h2} C={c} F={f}",
+                    "nsplit": [ns[i] for i in idx], "device_ms": ms,
+                    "kernels": [k for k, _ in seq if int(k.split(":")[0]) // 2 in idx],
+                    "cudnn_tf32_ms": lib_ms, "cudnn_tf32_device_ms": lib_dev,
+                    "bound_ms": bound, "share_of_bound": bound / ms,
+                    "vs_cudnn": ms / lib_dev, **errs}
+            if single:
+                line["events_ms"] = statistics.median(_rounds(
+                    lambda idx=idx: [decoder_train.wgrad_gemm(*(
+                        (skip, dz1, cs + cx, 0, True) if i == 0 else
+                        (up, dz1, cs + cx, cs, False) if i == 1 else (y1, g2, f, 0, True)))
+                        for i in idx]))
+            line["gpu"] = smi
+            print(json.dumps(line), flush=True)
+        del skip, up, dz1, y1, g2, cc, work
+        torch.cuda.empty_cache()
+    _f32_holders(smi, gen, dev, B)
     h = 512
     x = torch.rand((B, h, h, 3), generator=gen, device=dev)
     w11, w12 = [torch.randn((64, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5
@@ -813,25 +964,34 @@ def _palette(smi, n, h):
 
 # the kernels whose shared memory ``sass`` reads, by their names' stems
 SASS_KERNELS = ("final_tail_kernel", "conv_sm90_kernel", "wgrad_sm90_kernel", "wgrad_f32_kernel",
-                "wgrad_image_kernel", "wgrad_image_f32_kernel", "conv_image_kernel",
-                "upsample_adjoint_kernel", "final_loss_fwd_kernel", "final_loss_bwd_kernel")
+                "wgrad_tf32_kernel", "wgrad_image_kernel", "wgrad_image_f32_kernel",
+                "conv_image_kernel", "upsample_adjoint_kernel", "final_loss_fwd_kernel",
+                "final_loss_bwd_kernel")
+SASS_OPS = ("LDS", "LD", "LDG", "STS", "ST", "STG", "LDSM", "HGMMA", "HMMA", "F2F", "F2FP",
+            "FRND")
 
 
 def _sass(smi):
-    """The shared-memory and generic loads and stores in the SASS of each
-    instance of ``SASS_KERNELS`` (``cuobjdump -sass`` of the built
-    library): shared memory reached through a generic pointer shows as
-    ``LD`` / ``ST``, not ``LDS`` / ``STS``."""
+    """The shared-memory and generic loads and stores, the tensor-core
+    products and the conversions in the SASS of each instance of
+    ``SASS_KERNELS`` (``cuobjdump -sass`` of the built library; shared
+    memory reached through a generic pointer shows as ``LD`` / ``ST``, not
+    ``LDS`` / ``STS``), each with its registers a thread
+    (``cuobjdump -res-usage``)."""
     import re
 
     from tpu_unet_torch.kernels import _build
 
     so = _build.build()
     log = _build.build_log  # ptxas's registers, spills and shared memory, when built here
-    m = re.search(r"^tail_sm90\.cu:\n(.*?)(?=^\w+\.cu:$|\Z)", log, re.S | re.M)
-    if m:
-        print(m.group(1), flush=True)
+    for src in ("tail_sm90", "unetup_wgrad"):
+        m = re.search(rf"^{src}\.cu:\n(.*?)(?=^\w+\.cu:$|\Z)", log, re.S | re.M)
+        if m:
+            print(m.group(1), flush=True)
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    res = subprocess.run([tool, "-res-usage", str(so)], capture_output=True, text=True,
+                         check=True).stdout
+    usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", res))
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
                           check=True).stdout
     parts = re.split(r"Function : (\S+)", text)
@@ -843,9 +1003,10 @@ def _sass(smi):
             m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
             if m:
                 op = m.group(1).split(".")[0]
-                if op in ("LDS", "LD", "LDG", "STS", "ST", "STG", "LDSM"):
+                if op in SASS_OPS:
                     ops[op] = ops.get(op, 0) + 1
-        print(json.dumps({"sass": name, "ops": ops, "gpu": smi}), flush=True)
+        print(json.dumps({"sass": name, "ops": ops, "usage": usage.get(name, ""), "gpu": smi}),
+              flush=True)
 
 
 def main(argv=None) -> int:
