@@ -34,7 +34,11 @@ Phases (any failure exits non-zero without the final result line):
    conv core and weight-gradient GEMM, a planted dropped split of the GEMM
    as well) at its five stages, bit-identical on a second launch — error,
    kernel time,
-   plain time, library time, bound and the share of the bound;
+   plain time, library time, bound and the share of the bound; and the
+   pack kernel (the conv core's weight operand, forward and dgrad layouts)
+   at every weight shape the ported models pack, bf16 and float32,
+   bit-equal to the eager plain pack and on a relaunch, with its time and
+   its bytes bound;
 3. serving: ``tpu_unet_torch.infer.wrapper.Unet(model=..., num_classes=...,
    input_shape=...).serving_step()`` for ``unet_vgg``, ``unet_resnet50``
    and ``self_net`` (21 classes, a seeded uint8 batch of 8 at 512x512),
@@ -814,6 +818,7 @@ def phase_train_kernels(card: str, results: dict):
     upconv_bwd_kernels(record, gen)
     encoder_train_kernels(record, gen)
     logit_loss_kernels(record, gen)
+    pack_kernels(record, gen)
     print("phase 2: training kernels done", flush=True)
 
 
@@ -1181,6 +1186,43 @@ def encoder_train_kernels(record, gen):
         torch.cuda.empty_cache()
 
 
+# (F, C) of every conv weight that the ported models pack for the conv core
+# (unet_vgg's encoder and decoder, unet_resnet50's decoder, the up_conv
+# head; self_net packs unet_vgg's and the head's), the stem's conv1_1
+# padded to one 128-byte box
+PACK_SHAPES = sorted({(chans[i + 1], chans[i]) for _, chans, _ in VGG_TRAIN_STAGES
+                      for i in range(len(chans) - 1)}
+                     | {s for _, cs, cx, f in VGG_STAGES + RN50_STAGES
+                        for s in ((f, cs + cx), (f, f))} | {(64, 64)})
+
+
+def pack_kernels(record, gen):
+    """The pack kernel (``csrc/pack_weights.cu``) at every weight shape of
+    PACK_SHAPES, in the forward and the dgrad layout (conv1_1, never a
+    dgrad's, in the forward layout with its pad), bf16 and float32:
+    bit-equal (``torch.equal``) to the eager plain pack on the same weights,
+    bit-identical on a relaunch; its time against the plain pack's and its
+    bytes bound (each weight read once, its operand written once)."""
+    from tpu_unet_torch.kernels import sm90
+    from tpu_unet_torch.kernels._build import pack_conv3x3_plain, pack_weights
+
+    for dt in (torch.bfloat16, torch.float32):
+        key = "pack_weights_f32" if dt == torch.float32 else "pack_weights"
+        for f, c in PACK_SHAPES:
+            w = (torch.randn((f, c, 3, 3), generator=gen, device="cuda") / (9 * c) ** 0.5).to(dt)
+            kp = sm90.slice_c(dt == torch.float32) if c == 3 else None
+            for flip in (False,) if c == 3 else (False, True):
+                case = f"({f}, {c}, 3, 3) {'dgrad' if flip else 'forward'} {dt}"
+                fn = functools.partial(pack_weights, [w], dt, flip, [kp])
+                out, again = fn()[0], fn()[0]
+                ref = pack_conv3x3_plain(w, kp, dt, flip)
+                check(torch.equal(out, ref) and torch.equal(out, again),
+                      f"{key} {case}: not bit-equal to the plain pack or its relaunch")
+                record(key, case, [out], [ref], fn,
+                       functools.partial(pack_conv3x3_plain, w, kp, dt, flip), None, 0.0,
+                       nbytes(w, out))
+
+
 def logit_loss_kernels(record, gen):
     """#25 / #26 against their plain versions: the DataB presets' shape
     (32x256^2x4 bf16; ``traditional``'s weights (1, 15, 0, 0) and the
@@ -1335,11 +1377,21 @@ def compare_masks(masks, logits, margin):
     return differ.float().mean().item(), outside, need
 
 
+# the kernels whose wrappers pack their conv weights on the card: one launch
+# of the pack kernel a call (pack_weights, float32 pack_weights_f32)
+PACKING = ("vgg_stem", "vgg_block", "vgg_block2_fwd", "vgg_block3_fwd", "vgg_stem_bwd",
+           "vgg_block2_bwd", "vgg_block3_bwd", "unetup", "unetup_bwd", "upconv", "upconv_bwd")
+
+
 def expected(launches: dict) -> dict:
-    """``launches`` with every other kernel at 0."""
+    """``launches`` with the pack kernel's launches that they make and every
+    other kernel at 0."""
     from tpu_unet_torch.kernels import launch_counts
 
-    return {k: launches.get(k, 0) for k in launch_counts}
+    out = {k: launches.get(k, 0) for k in launch_counts}
+    for sfx in ("", "_f32"):
+        out["pack_weights" + sfx] = sum(launches.get(k + sfx, 0) for k in PACKING)
+    return out
 
 
 # each counted serving step (model, batch, size) and the launches it must
@@ -1402,9 +1454,10 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     ``conv_sm90_kernel<TN, OP, PH>``, ``wgrad_sm90_kernel<TN, NS>``, the
     float32 ``wgrad_tf32_kernel`` and ``wgrad_sm90_reduce_kernel``, the
     stem's ``wgrad_image_kernel`` and
-    ``wgrad_image_reduce_kernel``, and ``upsample2x_kernel`` (all summed in
-    ``port_kernels_ms``); ``index_add_ms`` sums PyTorch's ``index_add_``
-    kernels; ``loss_kernels_ms`` gives the loss kernels' own (#25-#29),
+    ``wgrad_image_reduce_kernel``, ``upsample2x_kernel`` and the weight
+    pack's ``pack_kernel`` (all summed in ``port_kernels_ms``);
+    ``index_add_ms`` sums PyTorch's ``index_add_`` kernels;
+    ``loss_kernels_ms`` gives the loss kernels' own (#25-#29),
     ``tail_adjoint_kernels_ms`` the serving tails' and the upsample
     adjoint's (#4, #5, #7, #19), ``small_kernels_ms`` the tails', the
     argmax mask's and the palette blend's (#4-#8)."""
@@ -1457,6 +1510,8 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = "port argmax_kernel"
         elif "palette_kernel" in name:
             name = "port palette_kernel"
+        elif "pack_kernel" in name:
+            name = "port pack_kernel"
         else:
             name = name[:70]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
@@ -4003,6 +4058,13 @@ SOURCES = {
     # (#10 / #11 forward, #12 backward)
     "upconv_f32": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:227"),
     "upconv_bwd_f32": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:475"),
+    # the conv core's weight operand, packed on the card in one pass (bf16
+    # and TF32-rounded float32) by every wrapper that runs the core; the TPU
+    # kernels take theirs from XLA, which flips and transposes them for the
+    # dgrads (_flip_t, ahead of the pallas_call at decoder_train.py:140)
+    "pack_weights": ("tpu_unet_torch/csrc/pack_weights.cu", "tpu_unet/kernels/decoder_train.py:55"),
+    "pack_weights_f32": ("tpu_unet_torch/csrc/pack_weights.cu",
+                         "tpu_unet/kernels/decoder_train.py:55"),
 }
 
 

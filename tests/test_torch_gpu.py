@@ -1286,13 +1286,15 @@ def test_encoder_bwd_rejects_untileable_shape(cuda):
 
 # each route's launches in one unet_vgg train step at 128² (block 5's 8x8
 # is no multiple of 16 wide: it trains plain)
+# pack_weights: one launch of the pack kernel a call of each kernel that
+# runs the conv core (16 = 1 + 1 + 2 + 1 + 1 + 2 + 4 + 4)
 ROUTE_LAUNCHES = {
     "paired": {"vgg_stem": 1, "vgg_block2_fwd": 1, "vgg_block3_fwd": 2, "vgg_stem_bwd": 1,
                "vgg_block2_bwd": 1, "vgg_block3_bwd": 2, "unetup": 4, "upsample2x": 8,
                "unetup_bwd": 4, "unetup_wgrad": 4, "upsample_adjoint": 4,
-               "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1},
+               "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1, "pack_weights": 16},
     "fused": {"unetup": 1, "upsample2x": 1, "unetup_bwd": 1, "final_ce_dice_fwd": 1,
-              "final_ce_dice_bwd": 1},
+              "final_ce_dice_bwd": 1, "pack_weights": 2},
 }
 
 
@@ -1488,8 +1490,8 @@ def test_upconv_bwd_single_tile_float64(cuda):
 @pytest.mark.gpu
 def test_upconv_train_on_card(cuda):
     """``upconv_train`` on the card, bf16: one launch of the forward kernel
-    keeping y1 and one of #12, each after an upsample launch; its
-    gradients are #12's on that forward's own out and y1, cast as
+    keeping y1 and one of #12, each after an upsample launch and with one
+    pack launch; its gradients are #12's on that forward's own out and y1, cast as
     ``_t_bwd`` casts them (bit for bit); against
     autograd of ``upconv_plain`` in float32 on the same values, the output
     within CONV_REL_TOL and every gradient at a cosine ≥ 0.99 (the bf16
@@ -1508,7 +1510,8 @@ def test_upconv_train_on_card(cuda):
     out = upconv_train(*args)
     grads = torch.autograd.grad(out, args, g)
     assert {k: v for k, v in launch_counts.items() if v} == {"upconv": 1, "upsample2x": 2,
-                                                              "upconv_bwd": 1}
+                                                              "upconv_bwd": 1,
+                                                              "pack_weights": 2}
     with torch.no_grad():
         out_k, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
         own = upconv_bwd(g, out_k, y1, x, w1, w2)
@@ -1545,7 +1548,8 @@ def test_upconv_bwd_rejects_untileable_shape(cuda):
 # the loss's 1 each
 RN50_LAUNCHES = {"unetup": 4, "upsample2x": 10, "unetup_bwd": 4, "unetup_wgrad": 4,
                  "upsample_adjoint": 4,
-                 "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1}
+                 "upconv": 1, "upconv_bwd": 1, "final_ce_dice_fwd": 1, "final_ce_dice_bwd": 1,
+                 "pack_weights": 10}
 
 
 @pytest.mark.gpu
@@ -1840,8 +1844,8 @@ def test_f32_encoder_backward(cuda, chans, hw):
 def test_f32_upconv_kernel(cuda, h, w):
     """The head's forward in float32 (#10 / #11, ``upconv_f32``): the
     float32 plan's two convs (the tile rule's pixels × 64 channels, conv1
-    over the one map up); one ``upconv_f32`` and one ``upsample2x_f32``
-    launch a call, no bf16 key; y1 and out within CONV_REL_TOL of the plain
+    over the one map up); one ``upconv_f32``, one ``upsample2x_f32`` and one
+    ``pack_weights_f32`` launch a call, no bf16 key; y1 and out within CONV_REL_TOL of the plain
     float32 head, each conv within ``tile_rel_tol`` of its TF32 emulation
     over the kernel's own input (up bit-equal to the plain upsample; the
     other operand rule printed beside), bit-identical on a second launch."""
@@ -1860,7 +1864,8 @@ def test_f32_upconv_kernel(cuda, h, w):
     reset_launch_counts()
     out, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
     assert {k: v for k, v in launch_counts.items() if v} == {"upconv_f32": 1,
-                                                              "upsample2x_f32": 1}
+                                                              "upsample2x_f32": 1,
+                                                              "pack_weights_f32": 1}
     assert out.dtype == torch.float32 and out.shape == (2, 2 * h, 2 * w, 64)
     rout, ry1 = _upconv_plain_y1(x, w1, b1, w2, b2)
     assert _rel(out, rout) <= tf32.CONV_REL_TOL and _rel(y1, ry1) <= tf32.CONV_REL_TOL
@@ -1956,7 +1961,8 @@ def test_f32_upconv_bwd_single_tile_float64(cuda):
 def test_f32_upconv_train_on_card(cuda):
     """``upconv_train`` on the card in float32: one launch of the forward
     kernel keeping y1 and one of #12 (``upconv_f32``, ``upconv_bwd_f32``),
-    each after an upsample launch, no bf16 key; its gradients are #12's on
+    each after an upsample launch and with one pack launch, no bf16 key;
+    its gradients are #12's on
     that forward's own out and y1, bit for bit; against autograd of
     ``upconv_plain`` in float32 (TF32 off) on the same values, the output
     within CONV_REL_TOL and every gradient at a cosine ≥ 0.999 (a
@@ -1975,7 +1981,7 @@ def test_f32_upconv_train_on_card(cuda):
     out = upconv_train(*args)
     grads = torch.autograd.grad(out, args, g)
     assert {k: v for k, v in launch_counts.items() if v} == {
-        "upconv_f32": 1, "upsample2x_f32": 2, "upconv_bwd_f32": 1}
+        "upconv_f32": 1, "upsample2x_f32": 2, "upconv_bwd_f32": 1, "pack_weights_f32": 2}
     with torch.no_grad():
         out_k, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
         own = upconv_bwd(g, out_k, y1, x, w1, w2)
@@ -2114,3 +2120,47 @@ def test_f32_wgrad_gemm_refuses_a_bf16_record(cuda):
             _build.call("tu_wgrad", t[1].data_ptr(), t[0].data_ptr(), work.data_ptr(),
                         dk.data_ptr(), db.data_ptr(), 1, 8, 16, 64, 64, int(f32_tensors),
                         sm90.encode([ln]).data_ptr())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes,flip,kps", [
+    ([(40, 70)], False, [None]), ([(40, 70)], True, [None]),
+    ([(64, 3), (64, 64)], False, [64, None]), ([(64, 3), (64, 64)], False, [32, None]),
+    ([(33, 65), (96, 33), (32, 32)], True, [None, None, None]),
+    ([(33, 65)], True, [9 * 33 + 7]), ([(512, 3072), (512, 512)], True, [None, None]),
+    ([(512, 3072), (512, 512)], False, [None, None]), ([(48, 40), (40, 48)], False, [None, None]),
+    ([(48, 40), (40, 48)], True, [None, None]), ([(72, 96)], True, [9 * 72 + 8])])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_pack_kernel_bit_equal(cuda, shapes, flip, kps, dt):
+    """The pack kernel (``csrc/pack_weights.cu``): one launch for the call's
+    weights of ``dt``, each output bit-equal to the plain pack of the same
+    weight on the CPU, in bf16 and float32 (TF32), with its 16-byte stores
+    (``sm90.pack_vector``) or one value a thread, and on a relaunch."""
+    from tpu_unet_torch.kernels import _build, launch_counts
+
+    ws = [torch.randn((f, c, 3, 3), generator=cuda, device="cuda").to(dt) for f, c in shapes]
+    key = _build.count_key("pack_weights", dt)
+    n = launch_counts[key]
+    outs = _build.pack_weights(ws, dt, flip, kps)
+    assert launch_counts[key] == n + 1
+    again = _build.pack_weights(ws, dt, flip, kps)
+    torch.cuda.synchronize()
+    for o, a, w, kp in zip(outs, again, ws, kps):
+        ref = _build.pack_conv3x3(w.cpu(), kp, dt, flip)
+        assert o.dtype == dt and torch.equal(o.cpu(), ref) and torch.equal(o, a)
+
+
+@pytest.mark.gpu
+def test_pack_kernel_refuses_what_it_does_not_take(cuda):
+    """float64 weights, a non-contiguous weight, four weights, weights on
+    two devices, an output dtype other than bf16 / float32 and weights of
+    another type than the output's raise."""
+    from tpu_unet_torch.kernels import _build
+
+    w = torch.randn((64, 32, 3, 3), generator=cuda, device="cuda")
+    for ws, dt in (([w.double()], torch.float32), ([w.transpose(0, 1)], torch.float32),
+                   ([w] * 4, torch.float32), ([w, w.cpu()], torch.float32),
+                   ([w], torch.float16), ([w], torch.bfloat16),
+                   ([w.bfloat16()], torch.float32)):
+        with pytest.raises(ValueError):
+            _build.pack_weights(ws, dt)

@@ -95,8 +95,9 @@ def test_f32_plans_fit_the_card(what):
     the dense tensors (multiples of 16), boxes of 32 channels (128 bytes,
     the swizzle span), the record's element-type word 1; the conv core's K
     slices of 32 channels, its stage bytes and ring within 227 KB, its
-    epilogue's float32 tile beside a ring of 4 stages or more (persistent)
-    or in the ring; the weight-gradient GEMM's float32 plan (TF32 wgmma):
+    epilogue's float32 buffer (a chunk of columns, ``sm90.conv_chunk``)
+    beside a ring of 4-8 stages: every tile persistent; the
+    weight-gradient GEMM's float32 plan (TF32 wgmma):
     tiles of 64 f × 576 columns (a 64-channel slice's nine taps), six
     stages of 34 KB (two G boxes of 2 × 16 pixels, two halo boxes of 4 ×
     18, the restaged G) within 227 KB, its splits covering every patch
@@ -122,17 +123,17 @@ def test_f32_plans_fit_the_card(what):
                                              for m in [ln["maps"][0], *ln["maps"][2:]])
             assert C == c
             stage = (tm + tn) * 128
-            out = tm * (tn + 4) * 4
-            assert ln["stages"] * stage <= sm90.RING_BYTES or sm90.conv_own_staging(tn, tm, True)
-            if sm90.conv_own_staging(tn, tm, True):
-                assert 4 <= ln["stages"] <= 8
-                assert ln["smem"] == ln["stages"] * stage + out + 16 * ln["stages"] + 1024
-            else:
-                assert out <= ln["stages"] * stage == sm90.RING_BYTES // stage * stage
-            # the bf16 plan's own decision stands apart: a 128 x 192 or
-            # 256 x 64 tile is persistent in bf16, not in float32
+            out = tm * (sm90.conv_chunk(tn, tm, True) + 4) * 4
+            # every float32 tile persistent, its epilogue buffer a chunk
+            # of columns beside a ring of 4-8 stages
+            assert sm90.conv_own_staging(tn, tm, True)
+            assert 4 <= ln["stages"] <= 8
+            assert ln["smem"] == ln["stages"] * stage + out + 16 * ln["stages"] + 1024
+            # a 128 x 192 or 256 x 64 tile is persistent in both types,
+            # float32 through chunks narrower than the tile
             if (tm, tn) in ((128, 192), (256, 64)):
-                assert sm90.conv_own_staging(tn, tm) and not sm90.conv_own_staging(tn, tm, True)
+                assert sm90.conv_own_staging(tn, tm) and sm90.conv_own_staging(tn, tm, True)
+                assert sm90.conv_chunk(tn, tm, True) < tn == sm90.conv_chunk(tn, tm)
         elif what == "wgrad":
             assert (tm, tn) == (64, 9 * 64) and ln["stages"] == 6
             assert ln["k"] == 9 * sm90.tap_width(c) == ln["grid"][0] * tn
@@ -155,6 +156,101 @@ def test_f32_plans_fit_the_card(what):
             assert ranges[0][0] == 0 and ranges[-1][1] == ln["npatch"]
             assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
             assert all(8 <= hi - lo <= sm90.MAX_SPLIT_PATCHES for lo, hi in ranges)
+
+
+# every conv tile the plans make (pixels, channels): conv_tile_m's 256
+# pixels only at N tiles of 128 or fewer
+CONV_TILES = [(128, 256), (128, 192), (128, 128), (128, 64), (256, 128), (256, 64)]
+
+
+@pytest.mark.parametrize("tm,tn", CONV_TILES)
+def test_f32_epilogue_chunks_cover_the_tile(tm, tn):
+    """The conv core's float32 epilogue (``csrc/conv3x3_sm90.cuh``), emulated
+    thread by thread from the plan: the chunk is the widest of 64, 32 or 16
+    columns whose buffer leaves the ring 4 stages (``sm90.conv_chunk``), the
+    tile is persistent with 4-8 stages within 227 KB; the chunks' staging
+    writes put each accumulator where the whole tile's staging put it
+    (column c0 + 8 q + 2 (lane % 4) + {0, 1} of its fragment's column group
+    c0 / 8 + q), every (pixel, column) of the tile once, inside the buffer;
+    the store loop and the pool take each 16-byte piece of a chunk once."""
+    cw = sm90.conv_chunk(tn, tm, True)
+    fits = {w: sm90.conv_ring_fit(tn, tm, w, True) for w in sm90.CONV_F32_CHUNKS if w <= tn}
+    assert fits[cw] >= 4 and all(fits[w] < 4 for w in fits if w > cw)
+    assert tn % cw == 0 and sm90.conv_own_staging(tn, tm, True)
+    assert sm90.conv_stages(tn, tm, True) == min(8, fits[cw]) >= 4
+    assert sm90.conv_smem(tn, tm, True) <= SMEM_LIMIT
+    assert sm90.conv_out_bytes(tn, tm, True) == tm * (cw + 4) * 4
+    ldc, mt, ch = cw + 4, tm // 128, cw // 4
+    per = tm * ch // 256
+    assert tm * ch % 256 == 0 and per <= 16
+    staged = np.zeros((tm, tn), np.int64)
+    stored = np.zeros((tm, tn), np.int64)
+    pooled = np.zeros((tm // 4, tn), np.int64)
+    for k in range(tn // cw):
+        c0 = k * cw
+        buf = np.zeros(tm * ldc, np.int64)
+        for tid in range(256):
+            wg, lane = tid >> 7, tid & 31
+            for i in range(mt):
+                r = (wg * mt + i) * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2)
+                for q in range(cw // 8):
+                    c, a = 8 * q + 2 * (lane & 3), 4 * (c0 // 8 + q)
+                    # accumulator a's column in the whole tile's fragment
+                    assert c0 + c == 8 * (a // 4) + 2 * (lane & 3)
+                    for rr in (r, r + 8):
+                        assert rr * ldc + c + 1 < tm * ldc
+                        buf[rr * ldc + c:rr * ldc + c + 2] += 1
+                        staged[rr, c0 + c:c0 + c + 2] += 1
+        for tid in range(256):  # after the consumers' barrier
+            for j in range(per):
+                v = tid + j * 256
+                px, sub = v // ch, v % ch
+                assert (buf[px * ldc + 4 * sub:px * ldc + 4 * sub + 4] == 1).all()
+                stored[px, c0 + 4 * sub:c0 + 4 * sub + 4] += 1
+        for v in range(tm // 4 * ch):
+            p2, sub = v // ch, v % ch
+            py, px = p2 >> 3, p2 & 7
+            base = ((2 * py) * 16 + 2 * px) * ldc + 4 * sub
+            for off in (0, ldc, 16 * ldc, 16 * ldc + ldc):
+                assert (buf[base + off:base + off + 4] == 1).all()
+            pooled[p2, c0 + 4 * sub:c0 + 4 * sub + 4] += 1
+    assert (staged == 1).all() and (stored == 1).all() and (pooled == 1).all()
+
+
+def test_bf16_conv_plans_unchanged():
+    """The bf16 plans keep the whole tile as their one chunk, and their
+    persistence, stages and shared memory as before the float32 chunks."""
+    want = {(128, 256): (False, 4, 197696), (128, 192): (True, 4, 216128),
+            (128, 128): (True, 5, 199760), (128, 64): (True, 8, 216192),
+            (256, 128): (False, 4, 197696), (256, 64): (True, 4, 201792)}
+    for (tm, tn), (own, stages, smem) in want.items():
+        assert sm90.conv_chunk(tn, tm) == tn
+        assert (sm90.conv_own_staging(tn, tm), sm90.conv_stages(tn, tm),
+                sm90.conv_smem(tn, tm)) == (own, stages, smem)
+
+
+def test_f32_masked_dgrad_of_a_128_wide_tile_takes_128_pixels():
+    """``sm90.conv_tile_m``'s float32 rule: every float32 masked dgrad of
+    the step whose N tile is 128 wide (unet_vgg's up2 and block 2,
+    unet_resnet50's up2) runs 128 × 128 tiles, two 64-column chunks beside
+    5 stages, persistent; every other float32 launch, and every bf16
+    launch, keeps the tile of the rule without it."""
+    n = 0
+    for _, ln, c, f in _launches():
+        if ln["op"] not in (sm90.OP_FWD, sm90.OP_FWD_POOL, sm90.OP_DGRAD_MASK,
+                            sm90.OP_DGRAD_SPLIT):
+            continue
+        tm, tn = ln["tile"]
+        H = ln["maps"][0]["dims"][2]
+        rule = 2 * sm90.PATCH if tn <= 128 and H % 16 == 0 else sm90.PATCH
+        if ln["op"] == sm90.OP_DGRAD_MASK and tn == 128:
+            n += 1
+            assert (tm, sm90.conv_chunk(tn, tm, True), ln["stages"]) == (128, 64, 5)
+            assert sm90.conv_own_staging(tn, tm, True) and rule == 256
+            assert sm90.conv_tile_m(H, f, sm90.OP_DGRAD_MASK) == 256  # bf16's
+        else:
+            assert tm == rule
+    assert n == 3
 
 
 def _swizzled(rows):

@@ -31,18 +31,22 @@
 // slice, keeping one slice's products in flight before it releases the
 // stage.  Warpgroup 2 produces: one thread waits on a stage's "empty"
 // barrier and issues its two TMA loads on the "full" one.  Where the
-// epilogue's bf16 tile can have shared memory of its own beside a ring of
-// at least 4 stages (TN <= 192 at 128 pixels, TN = 64 at 256), the kernel
-// is persistent: one block an SM walks the tiles, the ring running on
-// across them, so the producer loads the next tile's first slices while
-// the consumers store the tile before (the ring takes what the 227 KB
-// leave, up to 8 stages: 8 of 24 KB at TN = 64, 5 of 32 KB at 128, 4 of
-// 40 KB at 192; at PH = 16, 4 of 40 KB at 64).  Else (TN = 256, and TN =
-// 128 at PH = 16, whose 3 stages would starve the long K walks of the
-// forward) the ring fills 192 KB (4 stages of 48 KB), the epilogue stages
-// its tile in it once both consumers are done with it, and a block takes
-// one tile.  A 9-slice K walk (a dgrad of 64 channels) ran 29-30% faster
-// persistent on an H100.  TN = 256 reads 85 FLOP a byte from L2 against 77
+// epilogue's staging buffer can have shared memory of its own beside a
+// ring of at least 4 stages, the kernel is persistent: one block an SM
+// walks the tiles, the ring running on across them, so the producer loads
+// the next tile's first slices while the consumers store the tile before
+// (the ring takes what the 227 KB leave, up to 8 stages).  In bf16 the
+// buffer holds the whole tile (TN <= 192 at 128 pixels, TN = 64 at 256:
+// 8 stages of 24 KB at TN = 64, 5 of 32 KB at 128, 4 of 40 KB at 192; at
+// PH = 16, 4 of 40 KB at 64); else (TN = 256, and TN = 128 at PH = 16,
+// whose 3 stages would starve the long K walks of the forward) the ring
+// fills 192 KB (4 stages of 48 KB), the epilogue stages its tile in it
+// once both consumers are done with it, and a block takes one tile.  A
+// 9-slice K walk (a dgrad of 64 channels) ran 29-30% faster persistent on
+// an H100.  In float32 every tile is persistent: the epilogue stages a
+// chunk of CW columns at a time (conv_chunk: the widest of 64, 32 or 16
+// that leaves 4 stages), the accumulators staying in registers until
+// their chunk's turn.  TN = 256 reads 85 FLOP a byte from L2 against 77
 // at TN = 192, 64 at 128 and 43 at 64 (85 and 52 with the 256-pixel
 // tile): at these shapes the operands stream from L2, whose rate bounds
 // the smaller tiles.  (A 256 x 192 tile would read 112, but its 192
@@ -57,9 +61,10 @@
 // at a channel S that the launch record carries (OP_DGRAD_SPLIT: channels
 // [0, S) to out (.., S), [S, F) to out2 (.., F - S); a UnetUp stage's
 // [dskip | dups] at S = Cs, a block's dx at S = F).  S % 8 == 0, so every
-// 16-byte chunk lies on one side; the split may fall inside a tile.  The
-// tile is staged in shared memory and written coalesced, 16 bytes a
-// thread.
+// 16-byte piece lies on one side; the split may fall inside a tile.  The
+// tile is staged in shared memory a chunk of columns at a time (bf16: one
+// chunk) and each chunk written coalesced, 16 bytes a thread; the mask
+// loads, the split and the pool (per channel) are a chunk's own.
 //
 // Bound on the H100: operations (2 * 9 * Ct * F multiply-adds a pixel: 64
 // to 1024 of them per byte moved at the VGG16 blocks and decoder stages).
@@ -77,10 +82,11 @@
 // (its low 13 mantissa bits unused: an H100 reads 1e-6 to 2e-5 from a
 // truncating float64 emulation, 4e-4 to 7e-4 from a rounding one); the
 // weights are rounded to nearest when they are packed
-// (kernels/_build.py::pack_conv3x3).  The epilogue's float32 tile takes
-// twice the bytes, so the persistence test follows from it: the 128 x 192
-// and 256 x 64 tiles are persistent in bf16 and stage in the ring in
-// float32 (kernels/sm90.py::conv_own_staging).
+// (kernels/_build.py::pack_conv3x3; on the card csrc/pack_weights.cu).
+// The epilogue's float32 tile takes twice the bytes, so it is staged in
+// chunks of 64, 32 or 16 columns (kernels/sm90.py::conv_chunk), which keep
+// every float32 tile persistent beside a ring of 4 stages or more; the K
+// walk and the products are those of a tile staged whole.
 //
 // What the host tells the kernel (grid, tile, shared memory, tensor maps)
 // is planned in tpu_unet_torch/kernels/sm90.py and arrives as a launch
@@ -110,26 +116,50 @@ __host__ __device__ constexpr int slice_of() {
   return 128 / static_cast<int>(sizeof(T));
 }
 
+// Ring stages that fit beside an epilogue buffer of `cols` columns of T (and
+// 16 bytes a row) at M pixels by TN channels: of the 227 KB, less the
+// barriers and 1024 spare bytes (kernels/sm90.py::conv_ring_fit)
+template <typename T>
+__host__ __device__ constexpr int conv_ring_fit(int m, int tn, int cols) {
+  return (SMEM_MAX - 2048 - m * (cols + 16 / static_cast<int>(sizeof(T))) *
+                                static_cast<int>(sizeof(T))) /
+         ((m + tn) * 128);
+}
+
+// The columns the epilogue stages at a time (kernels/sm90.py::conv_chunk):
+// bf16 the whole tile; float32 the widest of 64, 32 or 16 whose buffer
+// leaves the ring 4 stages (128 x 256: 32, 128 x 192: 64, 256 x 128: 16,
+// 256 x 64: 32, 128 x 128 and 128 x 64: 64)
+template <typename T>
+__host__ __device__ constexpr int conv_chunk(int m, int tn) {
+  return !is_f32<T>()                       ? tn
+         : conv_ring_fit<T>(m, tn, 64) >= 4 ? 64
+         : conv_ring_fit<T>(m, tn, 32) >= 4 ? 32
+                                            : 16;
+}
+
 template <typename T, int TN, int PH>
 struct ConvSmem {
   static constexpr int M = PH * PATCH_W;                       // pixels of the tile
   static constexpr int A_BYTES = M * 128;                      // one input box
   static constexpr int STAGE = A_BYTES + TN * 128;             // A box + B box
-  static constexpr int LDC = TN + 16 / static_cast<int>(sizeof(T));  // staging row (T)
-  static constexpr int OUT_BYTES = M * LDC * static_cast<int>(sizeof(T));  // the epilogue's tile
-  // Where a staging tile of its own leaves the ring 4 stages (of the 227 KB,
-  // less the barriers and 1024 spare bytes; at most 8), a
-  // block walks many tiles and the producer fills the ring during the
-  // epilogue; else (bf16: TN = 256 at 128 pixels, TN = 128 at 256; float32:
-  // also TN = 192 at 128 and TN = 64 at 256, whose tiles take twice the
-  // bytes) the tile is staged in the 192 KB ring and a block takes one.
-  static constexpr int OWN_FIT = (SMEM_MAX - 2048 - OUT_BYTES) / STAGE;
+  static constexpr int CW = conv_chunk<T>(M, TN);              // columns staged at a time
+  static constexpr int LDC = CW + 16 / static_cast<int>(sizeof(T));  // staging row (T)
+  static constexpr int OUT_BYTES = M * LDC * static_cast<int>(sizeof(T));  // the epilogue's buffer
+  // Where a staging buffer of its own leaves the ring 4 stages (at most 8),
+  // a block walks many tiles and the producer fills the ring during the
+  // epilogue: every float32 tile, through its chunks, and the bf16 tiles but
+  // TN = 256 at 128 pixels and TN = 128 at 256, whose whole tile is staged
+  // in the 192 KB ring once the consumers are done with it, a block a tile.
+  static constexpr int OWN_FIT = conv_ring_fit<T>(M, TN, CW);
   static constexpr bool OWN = OWN_FIT >= 4;
   static constexpr int STAGES = OWN ? (OWN_FIT < 8 ? OWN_FIT : 8) : RING_BYTES / STAGE;
   static constexpr int OUT_OFF = OWN ? STAGES * STAGE : 0;
   static constexpr int BAR_OFF = STAGES * STAGE + (OWN ? OUT_BYTES : 0);
   static constexpr int DYN = BAR_OFF + 2 * STAGES * 8 + 1024;  // + 1024 as sm90.py counts
   static_assert(DYN <= SMEM_MAX && (OWN || OUT_BYTES <= BAR_OFF), "the tiles fit");
+  static_assert(OWN || !is_f32<T>(), "every float32 tile is persistent");
+  static_assert(TN % CW == 0, "whole chunks");
 };
 
 template <typename T>
@@ -215,14 +245,11 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
   consumer_regs();
   const int wg = tid >> 7;
   const int lane = tid & 31;
-  constexpr int EL = 16 / static_cast<int>(sizeof(T));  // elements of a 16-byte chunk
-  constexpr int CH = TN / EL;                 // 16-byte chunks of a pixel's TN channels
-  constexpr int PER = S::M * CH / CONSUMERS;  // chunks a consumer thread stores
-  static_assert(S::M * CH % CONSUMERS == 0, "the store loop has no ragged end");
-  // OP_DGRAD_MASK: the mask chunks a thread loads at once, before it stores
-  // them (all of a tile's in bf16; float32's wider tiles in two rounds)
-  constexpr int MB = PER <= 16 ? PER : (PER % 16 == 0 ? 16 : PER / 2);
-  static_assert(PER % MB == 0, "whole mask rounds");
+  constexpr int EL = 16 / static_cast<int>(sizeof(T));  // elements of a 16-byte piece
+  constexpr int CW = S::CW;                   // columns of a chunk (bf16: the tile's)
+  constexpr int CH = CW / EL;                 // 16-byte pieces of a pixel's chunk
+  constexpr int PER = S::M * CH / CONSUMERS;  // pieces a consumer thread stores a chunk
+  static_assert(S::M * CH % CONSUMERS == 0 && PER <= 16, "the store loop has no ragged end");
   int g = 0;
   for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
     const Tile T_ = tile_of<TN, PH>(t, p);
@@ -253,60 +280,70 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
     mbar_arrive(&empty[(g - 1) % S::STAGES]);  // the tile's last slice
 #pragma unroll
     for (int i = 0; i < MT; ++i) fence_acc(acc[i]);
-    bar_sync(1, CONSUMERS);  // the ring's reads, and the tile before's stores, are done
 
-    // epilogue: the wgmma fragment (warp w of the warpgroup holds rows
-    // 16w .. 16w + 15 of each m64 tile; lane: row lane / 4 and + 8, columns
-    // 2 (lane % 4) + {0,1} of every 8-column group) staged as T rows of
-    // the tile
+    // epilogue, CW columns at a time (the accumulators stay in registers
+    // until their chunk is staged): the wgmma fragment (warp w of the
+    // warpgroup holds rows 16w .. 16w + 15 of each m64 tile; lane: row lane
+    // / 4 and + 8, columns 2 (lane % 4) + {0,1} of every 8-column group)
+    // staged as T rows of the chunk, then stored coalesced.
+    // OP_DGRAD_MASK: a chunk's mask pieces are loaded all at once rather
+    // than one dependent round trip a piece in the store loop: with one
+    // chunk once it is staged (the accumulators' registers are free), with
+    // several a chunk ahead, so that they fly during the barriers and the
+    // staging.  Each chunk still waits on its loads: a float32 masked
+    // dgrad of 128 channels runs 128-pixel tiles, two chunks, not eight
+    // (kernels/sm90.py::conv_tile_m)
+    uint4 mk[OP == OP_DGRAD_MASK ? PER : 1];
+    auto load_mask = [&](int c0) {
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int r = (wg * MT + i) * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+      for (int j = 0; j < PER; ++j) {
+        const int v = tid + j * CONSUMERS, px = v / CH;
+        const size_t pix =
+            (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
+        mk[j] = *reinterpret_cast<const uint4*>(p.mask + pix * p.F + n0 + c0 + (v - px * CH) * EL);
+      }
+    };
+    constexpr int NCH = TN / CW;  // chunks of the tile
+    if (OP == OP_DGRAD_MASK && NCH > 1) load_mask(0);
 #pragma unroll
-      for (int q = 0; q < TN / 8; ++q) {
-        const int c = 8 * q + 2 * (lane & 3);
-        float v0 = acc[i][4 * q], v1 = acc[i][4 * q + 1], v2 = acc[i][4 * q + 2],
-              v3 = acc[i][4 * q + 3];
-        if (OP == OP_FWD || OP == OP_FWD_POOL) {
-          const float b0 = p.bias[n0 + c], b1 = p.bias[n0 + c + 1];
-          v0 = fmaxf(v0 + b0, 0.f);
-          v1 = fmaxf(v1 + b1, 0.f);
-          v2 = fmaxf(v2 + b0, 0.f);
-          v3 = fmaxf(v3 + b1, 0.f);
-        }
-        if constexpr (is_f32<T>()) {
-          *reinterpret_cast<float2*>(&sc[r * S::LDC + c]) = make_float2(v0, v1);
-          *reinterpret_cast<float2*>(&sc[(r + 8) * S::LDC + c]) = make_float2(v2, v3);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(&sc[r * S::LDC + c]) = __floats2bfloat162_rn(v0, v1);
-          *reinterpret_cast<__nv_bfloat162*>(&sc[(r + 8) * S::LDC + c]) =
-              __floats2bfloat162_rn(v2, v3);
+    for (int k = 0; k < NCH; ++k) {
+      const int c0 = k * CW;
+      // the ring's reads (a staging ring) and the buffer's last reads are done
+      bar_sync(1, CONSUMERS);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = (wg * MT + i) * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+#pragma unroll
+        for (int q = 0; q < CW / 8; ++q) {
+          const int c = 8 * q + 2 * (lane & 3), a = 4 * (c0 / 8 + q);
+          float v0 = acc[i][a], v1 = acc[i][a + 1], v2 = acc[i][a + 2], v3 = acc[i][a + 3];
+          if (OP == OP_FWD || OP == OP_FWD_POOL) {
+            const float b0 = p.bias[n0 + c0 + c], b1 = p.bias[n0 + c0 + c + 1];
+            v0 = fmaxf(v0 + b0, 0.f);
+            v1 = fmaxf(v1 + b1, 0.f);
+            v2 = fmaxf(v2 + b0, 0.f);
+            v3 = fmaxf(v3 + b1, 0.f);
+          }
+          if constexpr (is_f32<T>()) {
+            *reinterpret_cast<float2*>(&sc[r * S::LDC + c]) = make_float2(v0, v1);
+            *reinterpret_cast<float2*>(&sc[(r + 8) * S::LDC + c]) = make_float2(v2, v3);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(&sc[r * S::LDC + c]) =
+                __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<__nv_bfloat162*>(&sc[(r + 8) * S::LDC + c]) =
+                __floats2bfloat162_rn(v2, v3);
+          }
         }
       }
-    }
+      if (OP == OP_DGRAD_MASK && NCH == 1) load_mask(c0);
+      bar_sync(1, CONSUMERS);
 #pragma unroll
-    for (int j0 = 0; j0 < PER; j0 += MB) {
-      // OP_DGRAD_MASK: this round's mask chunks, loaded all at once (the
-      // accumulators are staged, so their registers are free) rather than
-      // one dependent round trip a chunk in the store loop
-      uint4 mk[OP == OP_DGRAD_MASK ? MB : 1];
-      if (OP == OP_DGRAD_MASK) {
-#pragma unroll
-        for (int j = 0; j < MB; ++j) {
-          const int v = tid + (j0 + j) * CONSUMERS, px = v / CH;
-          const size_t pix =
-              (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
-          mk[j] = *reinterpret_cast<const uint4*>(p.mask + pix * p.F + n0 + (v - px * CH) * EL);
-        }
-      }
-      if (j0 == 0) bar_sync(1, CONSUMERS);
-#pragma unroll
-      for (int j = 0; j < MB; ++j) {
-        const int v = tid + (j0 + j) * CONSUMERS;
+      for (int j = 0; j < PER; ++j) {
+        const int v = tid + j * CONSUMERS;
         const int px = v / CH, sub = v - px * CH;
         const size_t pix =
             (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
-        const int n = n0 + sub * EL;
+        const int n = n0 + c0 + sub * EL;
         uint4 val = *reinterpret_cast<const uint4*>(&sc[px * S::LDC + sub * EL]);
         if (OP == OP_DGRAD_MASK) {
           const T* mv = reinterpret_cast<const T*>(&mk[j]);
@@ -324,36 +361,37 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
           *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
         }
       }
-    }
-    if (OP == OP_FWD_POOL) {
-      const int Hp = p.H / 2, Wp = p.W / 2;
-      for (int v = tid; v < (S::M / 4) * CH; v += CONSUMERS) {
-        const int p2 = v / CH, sub = v - p2 * CH, py = p2 >> 3, px = p2 & 7;
-        const T* c00 = &sc[((2 * py) * PATCH_W + 2 * px) * S::LDC + sub * EL];
-        T* dst = p.pooled + ((static_cast<size_t>(b) * Hp + y0 / 2 + py) * Wp + x0 / 2 + px) * p.F +
-                 n0 + sub * EL;
-        if constexpr (is_f32<T>()) {
-          const float4 q00 = *reinterpret_cast<const float4*>(c00);
-          const float4 q01 = *reinterpret_cast<const float4*>(c00 + S::LDC);
-          const float4 q10 = *reinterpret_cast<const float4*>(c00 + PATCH_W * S::LDC);
-          const float4 q11 = *reinterpret_cast<const float4*>(c00 + PATCH_W * S::LDC + S::LDC);
-          *reinterpret_cast<float4*>(dst) = make_float4(
-              fmaxf(fmaxf(q00.x, q01.x), fmaxf(q10.x, q11.x)),
-              fmaxf(fmaxf(q00.y, q01.y), fmaxf(q10.y, q11.y)),
-              fmaxf(fmaxf(q00.z, q01.z), fmaxf(q10.z, q11.z)),
-              fmaxf(fmaxf(q00.w, q01.w), fmaxf(q10.w, q11.w)));
-        } else {
-          const __nv_bfloat162* q00 = reinterpret_cast<const __nv_bfloat162*>(c00);
-          const __nv_bfloat162* q01 = reinterpret_cast<const __nv_bfloat162*>(c00 + S::LDC);
-          const __nv_bfloat162* q10 =
-              reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC);
-          const __nv_bfloat162* q11 =
-              reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC + S::LDC);
-          __align__(16) __nv_bfloat162 mx[4];
+      if (OP == OP_DGRAD_MASK && k + 1 < NCH) load_mask(c0 + CW);
+      if (OP == OP_FWD_POOL) {  // per channel, so a chunk pools whole
+        const int Hp = p.H / 2, Wp = p.W / 2;
+        for (int v = tid; v < (S::M / 4) * CH; v += CONSUMERS) {
+          const int p2 = v / CH, sub = v - p2 * CH, py = p2 >> 3, px = p2 & 7;
+          const T* c00 = &sc[((2 * py) * PATCH_W + 2 * px) * S::LDC + sub * EL];
+          T* dst = p.pooled + ((static_cast<size_t>(b) * Hp + y0 / 2 + py) * Wp + x0 / 2 + px) *
+                                  p.F + n0 + c0 + sub * EL;
+          if constexpr (is_f32<T>()) {
+            const float4 q00 = *reinterpret_cast<const float4*>(c00);
+            const float4 q01 = *reinterpret_cast<const float4*>(c00 + S::LDC);
+            const float4 q10 = *reinterpret_cast<const float4*>(c00 + PATCH_W * S::LDC);
+            const float4 q11 = *reinterpret_cast<const float4*>(c00 + PATCH_W * S::LDC + S::LDC);
+            *reinterpret_cast<float4*>(dst) = make_float4(
+                fmaxf(fmaxf(q00.x, q01.x), fmaxf(q10.x, q11.x)),
+                fmaxf(fmaxf(q00.y, q01.y), fmaxf(q10.y, q11.y)),
+                fmaxf(fmaxf(q00.z, q01.z), fmaxf(q10.z, q11.z)),
+                fmaxf(fmaxf(q00.w, q01.w), fmaxf(q10.w, q11.w)));
+          } else {
+            const __nv_bfloat162* q00 = reinterpret_cast<const __nv_bfloat162*>(c00);
+            const __nv_bfloat162* q01 = reinterpret_cast<const __nv_bfloat162*>(c00 + S::LDC);
+            const __nv_bfloat162* q10 =
+                reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC);
+            const __nv_bfloat162* q11 =
+                reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC + S::LDC);
+            __align__(16) __nv_bfloat162 mx[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            mx[e] = __hmax2(__hmax2(q00[e], q01[e]), __hmax2(q10[e], q11[e]));
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(mx);
+            for (int e = 0; e < 4; ++e)
+              mx[e] = __hmax2(__hmax2(q00[e], q01[e]), __hmax2(q10[e], q11[e]));
+            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(mx);
+          }
         }
       }
     }

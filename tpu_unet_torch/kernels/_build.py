@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from tpu_unet_torch.kernels._plain import flip_t, on_cpu
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG.parent / "build"
@@ -100,13 +102,15 @@ SIGNATURES = {
     # smem, grid, stream
     "tu_ce_dice_bwd": [_P, _I] + [_P] * 8 + [ctypes.c_longlong] + [_I] * 3 + [_F, _F]
                       + [_I] * 4 + [_P],
+    # desc (n x 5 int64: w, out, F, C, kp), n, f32, flip, stream
+    "tu_pack_weights": [_P] + [_I] * 3 + [_P],
 }
 
 # launches of each kernel wrapper; a wrapper adds one where it calls its
 # C entry and nowhere else.  A kernel with a float32 instantiation counts
 # its float32 launches under its key + "_f32" (:func:`count_key`).
 F32_KERNELS = ("vgg_stem", "vgg_block", "unetup", "upsample2x", "unetup_bwd", "unetup_wgrad",
-               "wgrad_gemm",
+               "wgrad_gemm", "pack_weights",
                "upsample_adjoint", "vgg_block2_fwd", "vgg_block3_fwd", "vgg_stem_bwd",
                "vgg_block2_bwd", "vgg_block3_bwd", "final_ce_dice_fwd", "final_ce_dice_bwd",
                "upconv", "upconv_bwd")
@@ -119,6 +123,7 @@ launch_counts = {"final_argmax_hist": 0, "final_argmax": 0,
                  "vgg_block3_fwd": 0, "vgg_stem_bwd": 0, "vgg_block2_bwd": 0,
                  "vgg_block3_bwd": 0, "final_ce_dice_fwd": 0,
                  "final_ce_dice_bwd": 0, "ce_dice_fwd": 0, "ce_dice_bwd": 0,
+                 "pack_weights": 0,
                  **{k + "_f32": 0 for k in F32_KERNELS}}
 
 _lock = threading.Lock()
@@ -298,20 +303,66 @@ def round_tf32(t: torch.Tensor) -> torch.Tensor:
 
 
 def pack_conv3x3(w: torch.Tensor, k_pad: int | None = None,
-                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                 dtype: torch.dtype = torch.bfloat16, flip: bool = False) -> torch.Tensor:
     """OIHW (F, C, 3, 3) conv weight → (F, K) bf16 (or float32, its values
     rounded to TF32 by :func:`round_tf32`) with K index ``(ky * 3 + kx) * C
     + c``, zero-padded to ``k_pad`` columns, K contiguous: the weight
     operand of the Hopper conv core, which reads it as (F, 9, C) through
     TMA boxes of one tap's 128 bytes of channels (``csrc/conv3x3_sm90.cuh``;
     ``kernels/sm90.py::weight_map``), and, at C = 3 padded to 128 bytes of
-    columns, of the stem's conv1_1 GEMM (``csrc/stem.cu``)."""
+    columns, of the stem's conv1_1 GEMM (``csrc/stem.cu``).  With ``flip``
+    the operand of the dgrad, the same of ``_plain.flip_t(w)``: (C, 9F).
+    :func:`pack_weights` of the one weight."""
+    return pack_weights([w], dtype, flip, [k_pad])[0]
+
+
+def pack_conv3x3_plain(w: torch.Tensor, k_pad: int | None = None,
+                       dtype: torch.dtype = torch.bfloat16, flip: bool = False) -> torch.Tensor:
+    """:func:`pack_conv3x3` in eager PyTorch, on any device: the flip copy,
+    the permute copy and the rounding."""
+    if flip:
+        w = flip_t(w)
     f, c = w.shape[0], w.shape[1]
     p = w.permute(0, 2, 3, 1).reshape(f, 9 * c)
     p = round_tf32(p) if dtype == torch.float32 else p.to(dtype)
     if k_pad is not None and k_pad > 9 * c:
         p = torch.nn.functional.pad(p, (0, k_pad - 9 * c))
     return p.contiguous()
+
+
+PACK_MAX_WEIGHTS = 3  # csrc/pack_weights.cu: the weights of one launch
+
+
+def pack_weights(ws, dtype: torch.dtype = torch.bfloat16, flip: bool = False,
+                 k_pads=None) -> list:
+    """:func:`pack_conv3x3` of each weight of ``ws`` (``k_pads`` each one's
+    ``k_pad``, default none): for CPU tensors its plain body, one weight at
+    a time; for CUDA tensors one launch of the pack kernel
+    (``csrc/pack_weights.cu``, launch key ``pack_weights``, float32 outputs
+    ``pack_weights_f32``) for all of them — at most three, on one card,
+    contiguous, of ``dtype`` — bit-identical to the plain body, or a
+    raise."""
+    k_pads = list(k_pads) if k_pads is not None else [None] * len(ws)
+    if on_cpu(ws[0]):
+        if not all(on_cpu(w) for w in ws):
+            raise ValueError("pack_weights: the weights lie on two devices")
+        return [pack_conv3x3_plain(w, kp, dtype, flip) for w, kp in zip(ws, k_pads)]
+    if not 1 <= len(ws) <= PACK_MAX_WEIGHTS or len(k_pads) != len(ws):
+        raise ValueError(f"pack_weights: 1-{PACK_MAX_WEIGHTS} weights and as many k_pads")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"pack_weights: dtype {dtype}, the kernel writes bf16 or float32")
+    outs, words = [], []
+    for i, (w, kp) in enumerate(zip(ws, k_pads)):
+        check(w, f"ws[{i}]", dtype, (None, None, 3, 3), ws[0].device)
+        f, c = int(w.shape[0]), int(w.shape[1])
+        rows, taps = (c, 9 * f) if flip else (f, 9 * c)
+        cols = max(taps, kp or 0)
+        outs.append(torch.empty((rows, cols), dtype=dtype, device=w.device))
+        words += [w.data_ptr(), outs[-1].data_ptr(), f, c, cols]  # a weight's descriptor
+    desc = (ctypes.c_int64 * len(words))(*words)
+    call("tu_pack_weights", desc, len(ws), int(dtype == torch.float32), int(flip))
+    launch_counts[count_key("pack_weights", dtype)] += 1
+    return outs
 
 
 def ptr(t: torch.Tensor | None):

@@ -19,6 +19,11 @@ def on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+def flip_t(w: torch.Tensor) -> torch.Tensor:
+    """dgrad weights: OIHW (F, C, 3, 3) → (C, F, 3, 3), flipped in ky/kx."""
+    return w.flip(2, 3).transpose(0, 1)
+
+
 def conv3x3_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """relu(3×3 SAME conv + bias) of NHWC ``x``."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype), padding=1)

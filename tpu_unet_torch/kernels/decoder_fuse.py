@@ -89,8 +89,8 @@ def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
                          f"% 8, Cx={cx} % 8, Cs+Cx % 32 and F={f} % 64 must "
                          "all be 0")
     up = _up2x_cuda(x)
-    out, y1 = _stage_convs(skip, up, _build.pack_conv3x3(w1, dtype=dt), b1.float().contiguous(),
-                           _build.pack_conv3x3(w2, dtype=dt), b2.float().contiguous(),
+    wt1, wt2 = _build.pack_weights([w1, w2], dt)
+    out, y1 = _stage_convs(skip, up, wt1, b1.float().contiguous(), wt2, b2.float().contiguous(),
                            stage_plan(B, H2, W2, cs, cx, f, dt == torch.float32))
     _build.launch_counts[_build.count_key("unetup", dt)] += 1
     return (out, y1) if want_y1 else out

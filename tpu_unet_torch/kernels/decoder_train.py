@@ -48,14 +48,9 @@ import torch
 import torch.nn.functional as F
 
 from tpu_unet_torch.kernels import _build, sm90
-from tpu_unet_torch.kernels._plain import on_cpu
+from tpu_unet_torch.kernels._plain import flip_t, on_cpu
 from tpu_unet_torch.nn.resize import (adjoint_tables, lerp_tables, upsample2x,
                                       upsample2x_adjoint_plain)
-
-
-def flip_t(w: torch.Tensor) -> torch.Tensor:
-    """dgrad weights: OIHW (F, C, 3, 3) → (C, F, 3, 3), flipped in ky/kx."""
-    return w.flip(2, 3).transpose(0, 1)
 
 
 @functools.lru_cache(maxsize=32)
@@ -208,8 +203,7 @@ def _unetup_bwd_cuda(g, out, y1, w1, w2, cs):
     _build.check(w2, "w2", dt, (f, f, 3, 3), g.device)
     _check_stage("unetup_bwd", H2, W2, f, cp, cs)
     f32 = dt == torch.float32
-    w2t = _build.pack_conv3x3(flip_t(w2), dtype=dt)
-    w1t = _build.pack_conv3x3(flip_t(w1), dtype=dt)
+    w2t, w1t = _build.pack_weights([w2, w1], dt, flip=True)
     g2, dz1 = torch.empty_like(g), torch.empty_like(g)
     dskip = torch.empty((B, H2, W2, cs), dtype=dt, device=g.device)
     dups = torch.empty((B, H2, W2, cx), dtype=dt, device=g.device)

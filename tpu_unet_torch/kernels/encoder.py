@@ -61,7 +61,7 @@ def _vgg_block_cuda(x, ws, bs, pool, key="vgg_block"):
                          f"widths % 32 and output widths % 64 must be 0 "
                          f"(chans {chans})")
     f32 = dt == torch.float32
-    wts = [_build.pack_conv3x3(w, dtype=dt) for w in ws]
+    wts = _build.pack_weights(ws, dt)
     bfs = [b.float().contiguous() for b in bs]
     mids = [torch.empty((B, H, W, c), dtype=dt, device=x.device) for c in chans[1:-1]]
     skip = torch.empty((B, H, W, chans[-1]), dtype=dt, device=x.device)

@@ -130,8 +130,8 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
     if dpool is not None:
         _build.check(dpool, "dpool", dt, (B, H // 2, W // 2, chans[-1]), x.device)
     # the dgrad weights flipT(w_i), (Cin_i, 9 Cout_i); conv 0's only for dx
-    wts = [None if i == 0 and not want_dx else _build.pack_conv3x3(flip_t(w), dtype=dt)
-           for i, w in enumerate(ws)]
+    wts = _build.pack_weights(ws if want_dx else ws[1:], dt, flip=True)
+    wts = wts if want_dx else [None, *wts]
     plan, ns = bwd_plan(B, H, W, tuple(chans), bool(want_dx), f32)
     # each GEMM's K (the image GEMM's padded columns) for the shared work area
     ks = [sm90.slice_c(f32) if is_image and i == 0 else 9 * sm90.tap_width(c)

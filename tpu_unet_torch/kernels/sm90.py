@@ -18,7 +18,8 @@ float32 training path; its products are TF32).  A record names it (its
 word 10), and the C entries refuse a record of the other type.  In float32
 a box's 128 bytes hold 32 channels, not 64: the conv core's K slices
 follow, the stage bytes stay, and the epilogue's float32 tile takes twice
-the bytes, so the persistence test is made again (:func:`conv_own_staging`).
+the bytes, so it is staged in chunks of columns (:func:`conv_chunk`) that
+keep every float32 tile persistent (:func:`conv_own_staging`).
 The weight-gradient GEMM in float32 is a kernel of its own
 (``wgrad_tf32_kernel``: TF32 ``wgmma``, whose .tf32 form reads no MN-major
 operand from shared memory, so the input goes in as register fragments and
@@ -62,41 +63,83 @@ def conv_stage_bytes(tile_n: int, tile_m: int = PATCH) -> int:
     return (tile_m + tile_n) * 128
 
 
-def conv_out_bytes(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> int:
-    """The conv kernel's epilogue tile: rows of tile_n channels and 16
-    bytes of padding, in the element type."""
+def conv_ring_fit(tile_n: int, tile_m: int, cols: int, f32: bool = False) -> int:
+    """Ring stages that fit beside an epilogue buffer of ``cols`` columns
+    (and 16 bytes a row) in the element type: of the 227 KB, less the
+    barriers and 1024 spare bytes."""
     es = itemsize(f32)
-    return tile_m * (tile_n + 16 // es) * es
+    return (SMEM_MAX - 2048 - tile_m * (cols + 16 // es) * es) // conv_stage_bytes(tile_n, tile_m)
+
+
+CONV_F32_CHUNKS = (64, 32, 16)  # the float32 epilogue's chunk widths, widest first
+
+
+def conv_chunk(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> int:
+    """Columns the conv kernel's epilogue stages at a time: in bf16 the
+    whole tile; in float32, whose tile takes twice the bytes, the widest of
+    64, 32 or 16 whose buffer leaves the ring 4 stages (128 × 256: 32, 128
+    × 192: 64, 256 × 128: 16, 256 × 64: 32, 128 × 128 and 128 × 64: 64),
+    the accumulators staying in registers until their chunk's turn."""
+    if not f32:
+        return tile_n
+    return next(w for w in CONV_F32_CHUNKS
+                if w <= tile_n and conv_ring_fit(tile_n, tile_m, w, True) >= 4)
+
+
+def conv_out_bytes(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> int:
+    """The conv kernel's epilogue buffer: rows of :func:`conv_chunk`'s
+    columns and 16 bytes of padding, in the element type."""
+    es = itemsize(f32)
+    return tile_m * (conv_chunk(tile_n, tile_m, f32) + 16 // es) * es
 
 
 def conv_own_staging(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> bool:
-    """Whether the epilogue tile has shared memory of its own (and a block
+    """Whether the epilogue buffer has shared memory of its own (and a block
     walks many tiles, the producer filling the ring during the epilogue):
-    where that leaves the ring at least 4 stages.  In float32 the tile's
-    bytes double: 128 × 192 and 256 × 64 tiles are persistent in bf16 and
-    not in float32."""
-    fit = (SMEM_MAX - 2048 - conv_out_bytes(tile_n, tile_m, f32)) // \
-        conv_stage_bytes(tile_n, tile_m)
-    return fit >= 4
+    where that leaves the ring at least 4 stages — every float32 tile,
+    through its chunks; in bf16 all but 128 × 256 and 256 × 128, whose
+    whole tile is staged in the ring."""
+    return conv_ring_fit(tile_n, tile_m, conv_chunk(tile_n, tile_m, f32), f32) >= 4
 
 
 def conv_stages(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> int:
-    """Ring stages of the conv kernel: beside its own epilogue tile, as many
-    as fit (at most 8); else as many as 192 KB hold, the epilogue tile
+    """Ring stages of the conv kernel: beside its own epilogue buffer, as
+    many as fit (at most 8); else as many as 192 KB hold, the epilogue tile
     staged in the ring."""
-    stage = conv_stage_bytes(tile_n, tile_m)
     if conv_own_staging(tile_n, tile_m, f32):
-        return min(8, (SMEM_MAX - 2048 - conv_out_bytes(tile_n, tile_m, f32)) // stage)
-    return RING_BYTES // stage
+        return min(8, conv_ring_fit(tile_n, tile_m, conv_chunk(tile_n, tile_m, f32), f32))
+    return RING_BYTES // conv_stage_bytes(tile_n, tile_m)
 
 
 def conv_smem(tile_n: int, tile_m: int = PATCH, f32: bool = False) -> int:
     """Dynamic shared memory of the conv kernel: the ring, the epilogue
-    tile where it has its own, the barriers and 1024 spare bytes (the
+    buffer where it has its own, the barriers and 1024 spare bytes (the
     ring is aligned by its declaration)."""
     n = conv_stages(tile_n, tile_m, f32)
     out = conv_out_bytes(tile_n, tile_m, f32) if conv_own_staging(tile_n, tile_m, f32) else 0
     return n * conv_stage_bytes(tile_n, tile_m) + out + 2 * n * 8 + 1024
+
+
+PACK_TILE = 32  # csrc/pack_weights.cu: a block's f and c (all nine taps)
+
+
+def pack_vector(dims, flip: bool, f32: bool) -> int:
+    """Outputs a pack-kernel thread writes at once in a launch over weights
+    of ``dims`` ((F, C, kp) each): 16 bytes (4 float32, 8 bf16) where every
+    output row (kp columns) and every run (starting at a multiple of C, or
+    F with ``flip``) keeps them aligned, else 1 (``csrc/pack_weights.cu``
+    decides the same)."""
+    v = 4 if f32 else 8
+    return v if all(kp % v == 0 and (F if flip else C) % v == 0 for F, C, kp in dims) else 1
+
+
+def pack_tiles(F: int, C: int):
+    """The pack kernel's tiles over one weight (F, C, 3, 3), in block order
+    (the c tiles of one f tile adjacent): (f0, c0), each PACK_TILE f × PACK_TILE
+    c, the last of each axis ragged where F or C is no multiple of it."""
+    tc = -(-C // PACK_TILE)
+    return [((t // tc) * PACK_TILE, (t % tc) * PACK_TILE)
+            for t in range(-(-F // PACK_TILE) * tc)]
 
 
 def tap_width(c: int) -> int:
@@ -232,10 +275,11 @@ def conv_launch(op: int, B: int, H: int, W: int, C: int, F: int, C2: int = 0,
     VGG16's block 5 (8 × 32², 512 channels) its 128 blocks make one wave
     on the 132 SMs.  The grid's x is the tile count, the F / tile_n tiles of
     one patch adjacent (the kernel launches one block an SM that walks them
-    where its epilogue tile has memory of its own,
+    where its epilogue buffer has memory of its own,
     :func:`conv_own_staging`).  With ``f32`` the launch is float32's: the
     same tiles (the wider tile still reads the fewest L2 bytes a FLOP), K
-    slices of 32 channels, its own persistence and stages."""
+    slices of 32 channels, the epilogue in chunks (:func:`conv_chunk`),
+    persistent, and its own stages."""
     tile_n = conv_tile_n(F)
     patch_h = tile_m // PATCH_W
     tiles_m = B * (H // patch_h) * (W // PATCH_W)
@@ -400,7 +444,7 @@ def wgrad_work(launches, F: int) -> int:
     return max(ln["nsplit"] * F * (ln["k"] + 1) for ln in launches)
 
 
-def conv_tile_m(H: int, F: int) -> int:
+def conv_tile_m(H: int, F: int, op: int = OP_FWD, f32: bool = False) -> int:
     """The conv tile's pixels for an output of F channels, H rows high: 256
     (16 × 16) where the N tile is at most 128 channels wide (a decoder's
     up1 and up2, VGG16 block 2's convs and dgrads) and H % 16 == 0, else
@@ -409,7 +453,14 @@ def conv_tile_m(H: int, F: int) -> int:
     decoder's conv1 and conv2 10-12% faster at both models' up1 and 19-22%
     at up2, and block 2's conv 1 (9 K slices) 14% faster than the
     persistent 128-pixel tile (PERF.md, Findings).  At 256 channels the
-    128 × 256 tile already reads 85."""
+    128 × 256 tile already reads 85.  A float32 masked dgrad
+    (``OP_DGRAD_MASK``) of a 128-wide tile takes 128 pixels: at 256 its
+    eight 16-column chunks (:func:`conv_chunk`) each wait on their mask
+    loads — on an H100 the 8 × 256² one read 0.66 ms, 0.51 with the loads
+    taken out, no less with them two chunks ahead or prefetched into L2 —
+    and at 128 its two 64-column chunks read 0.61-0.62 (PERF.md, Findings)."""
+    if f32 and op == OP_DGRAD_MASK and conv_tile_n(F) == 128:
+        return PATCH
     return 2 * PATCH if conv_tile_n(F) <= 128 and H % 16 == 0 else PATCH
 
 
@@ -429,7 +480,8 @@ def unetup_bwd_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int, f32:
     output: conv2's over g2 (F → F), masked by y1 > 0 into dz1
     (``OP_DGRAD_MASK``); conv1's over dz1 (F → Cs + Cx), split at Cs into
     dskip and dups (``OP_DGRAD_SPLIT``)."""
-    return [conv_launch(OP_DGRAD_MASK, B, H2, W2, F, F, 0, conv_tile_m(H2, F), f32=f32),
+    return [conv_launch(OP_DGRAD_MASK, B, H2, W2, F, F, 0,
+                        conv_tile_m(H2, F, OP_DGRAD_MASK, f32), f32=f32),
             conv_launch(OP_DGRAD_SPLIT, B, H2, W2, F, Cs + Cx, 0, conv_tile_m(H2, Cs + Cx),
                         split=Cs, f32=f32)]
 
@@ -454,7 +506,7 @@ def block_bwd_launches(B: int, H: int, W: int, chans, want_dx: bool, f32: bool =
     for i in range(len(chans) - 1):
         cin, cout = chans[i], chans[i + 1]
         op = OP_DGRAD_MASK if i > 0 else OP_DGRAD_SPLIT
-        dgrad = conv_launch(op, B, H, W, cout, cin, 0, conv_tile_m(H, cin), f32=f32) \
+        dgrad = conv_launch(op, B, H, W, cout, cin, 0, conv_tile_m(H, cin, op, f32), f32=f32) \
             if i > 0 or want_dx else None
         launches += [wgrad_launch(B, H, W, cin, cout, f32=f32), dgrad]
     return launches

@@ -64,8 +64,7 @@ def _vgg_stem_cuda(x, w11, b11, w12, b12):
         raise ValueError(f"vgg_stem kernel: H={H} % 8, W={W} % 16, F={f} % 64 "
                          "must all be 0")
     f32 = dt == torch.float32
-    wt11 = _build.pack_conv3x3(w11, sm90.slice_c(f32), dt)
-    wt12 = _build.pack_conv3x3(w12, dtype=dt)
+    wt11, wt12 = _build.pack_weights([w11, w12], dt, k_pads=[sm90.slice_c(f32), None])
     b11f, b12f = b11.float().contiguous(), b12.float().contiguous()
     a1 = torch.empty((B, H, W, f), dtype=dt, device=x.device)
     skip = torch.empty_like(a1)

@@ -38,7 +38,7 @@ import torch
 from tpu_unet_torch.kernels import _build, sm90
 from tpu_unet_torch.kernels._plain import conv3x3_relu, on_cpu
 from tpu_unet_torch.kernels.decoder_fuse import stage_plan
-from tpu_unet_torch.kernels.decoder_train import (_adjoint_tables, _up2x_cuda, flip_t,
+from tpu_unet_torch.kernels.decoder_train import (_adjoint_tables, _up2x_cuda,
                                                   unetup_bwd_full_plain)
 from tpu_unet_torch.nn.resize import upsample2x
 
@@ -68,7 +68,7 @@ def _upconv_cuda(x, w1, b1, w2, b2, want_y1=False):
     _build.check(w2, "w2", dt, (f, f, 3, 3), x.device)
     f32 = dt == torch.float32
     up = _up2x_cuda(x)
-    wt1, wt2 = _build.pack_conv3x3(w1, dtype=dt), _build.pack_conv3x3(w2, dtype=dt)
+    wt1, wt2 = _build.pack_weights([w1, w2], dt)
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
     y1 = torch.empty((B, H2, W2, f), dtype=dt, device=x.device)
     out = torch.empty_like(y1)
@@ -131,8 +131,7 @@ def _upconv_bwd_launch(g, out, y1, up, w1, w2):
     f32 = dt == torch.float32
     plan, _, work_words = bwd_plan(B, H2, W2, cx, f, f32)
     aridx, arw, acidx, acw = _adjoint_tables(h, w, dev, dt)
-    w2t = _build.pack_conv3x3(flip_t(w2), dtype=dt)
-    w1t = _build.pack_conv3x3(flip_t(w1), dtype=dt)
+    w2t, w1t = _build.pack_weights([w2, w1], dt, flip=True)
     n = B * H2 * W2
     g2_dups = torch.empty(n * max(f, cx), dtype=dt, device=dev)
     g2, dups = g2_dups[:n * f].view(g.shape), g2_dups[:n * cx].view(B, H2, W2, cx)

@@ -4,8 +4,9 @@
 
 with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
 ``stem_fwd``, ``head_bwd``, ``loss``, ``logit_loss``, ``adjoint``,
-``tail``, ``argmax``, ``palette`` (all by default), ``wgrad_f32`` and
-``sass``:
+``tail``, ``argmax``, ``palette`` (all by default), ``wgrad_f32``,
+``f32_conv`` (``f32_conv:<text>``: the cases whose name holds it),
+``sass`` and ``ptxas``:
 
 - the VGG16 blocks 2-5 in training (#21 / #23 forward, #22 / #24
   backward, all on the Hopper kernels) at unet_vgg's training shapes (512²
@@ -97,6 +98,16 @@ with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
   events beside their bounds; and the stem's float32 backward: ms per
   call in each round, the median's share of the TF32 bound, by kernel, a
   hash of the output;
+- ``f32_conv`` (not in the default set): every float32 call that runs
+  the conv core, at 512², batch 8 — #13 (``unetup_bwd``) and #1 at the
+  eight decoder stages, the block forwards #21 / #23 and backwards #22 /
+  #24 at blocks 2-5, the stem's forward #2 and backward #20, the head's
+  #10 and #12 at both heads: ms per call in the same rounds, the device
+  time by kernel split into the weight pack (the pack kernel, or the
+  eager kernels that packed before it) and the rest, the conv-core
+  launches' tiles, stages and persistence, cuDNN's float32 call with TF32
+  on, the TF32 bound and its share, and a digest of every output (inputs
+  from a seed a case, so two trees' outputs can be held bit-identical);
 - ``sass`` (not in the default set): the shared-memory (``LDS`` /
   ``STS``), generic (``LD`` / ``ST``) and global loads and stores, the
   tensor-core products (``HGMMA``: wgmma, ``HMMA``: mma.sync) and the
@@ -107,7 +118,11 @@ with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
   -sass`` of the built library) — with each one's registers a thread and
   static shared memory (``cuobjdump -res-usage``), and ptxas's report of
   the tail's and the weight-gradient GEMM's registers when they were built
-  in the call.
+  in the call;
+- ``ptxas`` (not in the default set): ptxas's registers, stack frame and
+  spill bytes of every conv-core instance (element type, tile, op) and
+  pack-kernel instance, from the build that the call makes (run first in
+  a tree of its own).
 
 Every line carries the card's name and power limit.  Another tree's
 kernels are timed by running this file with that tree's root first on
@@ -119,6 +134,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -197,6 +213,13 @@ def _by_kernel(fn, reps=5):
     return times
 
 
+def _short_name(name):
+    """A kernel's name without its namespaces, template arguments and
+    parameters."""
+    name = name.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
+    return name.split("::")[-1].split(" ")[-1]
+
+
 def _kernel_sequence(fn, reps=5):
     """Each device kernel ``fn`` launches, in launch order, as (name, ms per
     call): kernels of one name numbered by their place among that name's
@@ -220,9 +243,7 @@ def _kernel_sequence(fn, reps=5):
     per_call = len(evs) // reps
     out = {}
     for i, e in enumerate(evs[:per_call * reps]):
-        name = e.name.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0]
-        name = name.split("::")[-1].split(" ")[-1]
-        key = f"{i % per_call}:{name}"
+        key = f"{i % per_call}:{_short_name(e.name)}"
         out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     return out
 
@@ -391,6 +412,18 @@ WGRAD_F32_CALLS = (
 )
 
 
+def _tf32_on(fn):
+    """``fn`` run with cuDNN's TF32 on (PyTorch's default; the bench turns
+    it off for everything else)."""
+    def run():
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    return run
+
+
 def _f32_holders(smi, gen, dev, B):
     """The float32 kernels that hold the weight-gradient GEMM, by CUDA
     events in the rounds of ``_rounds`` (the median), each beside its TF32
@@ -474,15 +507,6 @@ def _wgrad_f32(smi, B=8):
         return cb(g.permute(0, 3, 1, 2), a.permute(0, 3, 1, 2), like, None, [1, 1], [1, 1],
                   [1, 1], False, [0, 0], 1, [False, True, False])[1]
 
-    def tf32(fn):
-        def run():
-            torch.backends.cudnn.allow_tf32 = True
-            try:
-                return fn()
-            finally:
-                torch.backends.cudnn.allow_tf32 = False
-        return run
-
     def rel(a, b):
         return ((a - b).abs().max() / b.abs().max()).item()
 
@@ -512,7 +536,7 @@ def _wgrad_f32(smi, B=8):
         for name, (idx, c) in shapes.items():
             a, g = (cc, dz1) if idx == (0, 1) else (skip, dz1) if idx == (0,) else (y1, g2)
             ms = sum(v for k, v in seq if int(k.split(":")[0]) // 2 in idx)
-            lib = tf32(lambda a=a, g=g: cudnn(a, g, f))
+            lib = _tf32_on(lambda a=a, g=g: cudnn(a, g, f))
             lib_ms = statistics.median(_rounds(lib))
             lib_dev = sum(_by_kernel(lib).values())
             bound = 2.0 * B * h2 * h2 * 9 * c * f / PEAK_TF32 * 1e3
@@ -549,6 +573,238 @@ def _wgrad_f32(smi, B=8):
                       "bound_ms": bound, "share_of_bound": bound / med,
                       "ms_by_kernel": _kernel_sequence(fn),
                       "digest": _digest(*[t for r in fn() for t in r]), "gpu": smi}), flush=True)
+
+
+def _port_kernels():
+    """The names of the ``__global__`` functions in the measured tree's
+    ``csrc/`` (a kernel of any other name in a call's sequence is
+    PyTorch's)."""
+    from tpu_unet_torch.kernels import _build
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)")
+    return {n for p in _build.CSRC.iterdir() for n in pat.findall(p.read_text())}
+
+
+def _tensors(out):
+    """The tensors of a nested result, in order (None left out)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in (out or ()) for t in _tensors(o)]
+
+
+def _f32_line(smi, port, kernel, case, fn, lib, flops, nbytes, launches):
+    """One JSON line of ``f32_conv``: ms per call in the rounds and their
+    median, the device time by kernel in launch order split into the weight
+    pack (``pack_kernel``, or the eager PyTorch kernels that packed the
+    weights before it: every kernel of the call not in ``csrc/``) and the
+    rest, cuDNN's float32 call with TF32 on, the bound at the TF32 peak
+    (or the bytes), the conv-core launches' tiles, stages and persistence,
+    and a digest of every output."""
+    ms = _rounds(fn)
+    med = statistics.median(ms)
+    # by name where the trace lost the call's sequence
+    seq = _kernel_sequence(fn) or {f"{i}:{_short_name(k)}": v
+                                   for i, (k, v) in enumerate(_by_kernel(fn).items())}
+    pack = sum(v for k, v in seq.items()
+               if k.split(":", 1)[1] == "pack_kernel" or k.split(":", 1)[1] not in port)
+    rest = sum(seq.values()) - pack
+    lib_ms = statistics.median(_rounds(_tf32_on(lib)))
+    t_ops, t_mem = flops / PEAK_TF32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_mem)
+    out = fn()
+    torch.cuda.synchronize()
+    plan = [{"tile": list(ln["tile"]), "stages": ln["stages"],
+             "persistent": sm90.conv_own_staging(ln["tile"][1], ln["tile"][0], True)}
+            for ln in launches]
+    print(json.dumps({"f32_conv": kernel, "case": case, "ms_rounds": ms, "ms": med,
+                      "pack_device_ms": pack, "kernels_device_ms": rest, "ms_by_kernel": seq,
+                      "cudnn_tf32_ms": lib_ms, "vs_cudnn": med / lib_ms, "bound_ms": bound,
+                      "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                      "share_of_bound": bound / med, "kernels_share_of_bound": bound / rest
+                      if rest else None, "conv_launches": plan,
+                      "digest": _digest(*_tensors(out)), "gpu": smi}), flush=True)
+
+
+def _f32_conv(smi, B=8, only=""):
+    """``f32_conv``: the float32 calls that run the conv core at 512², batch
+    8 — #13 and #1 at the eight decoder stages, the block forwards #21 /
+    #23 (#3's kernel) at blocks 2-5, the stem's forward #2, the head's #10
+    and #12 at both heads, the stem's backward #20 and the block backwards
+    #22 / #24 — each through :func:`_f32_line`, the inputs of each from a
+    generator of its own seed, so that two trees' digests can be compared
+    (the parent's by ``PYTHONPATH``).  With ``only`` the cases whose name
+    holds it (``f32_conv:8x256x256``: the 256-pixel tiles' shapes).  The
+    bytes bound counts each input read once and each output written
+    once."""
+    dev = "cuda"
+    port = _port_kernels()
+    cb = torch.ops.aten.convolution_backward
+    seed = iter(range(100, 200))
+
+    def gens():
+        return torch.Generator(device=dev).manual_seed(next(seed))
+
+    def act(gen, *shape):
+        return torch.relu(torch.randn(shape, generator=gen, device=dev))
+
+    def conv_w(gen, f, c):
+        return (torch.randn((f, c, 3, 3), generator=gen, device=dev) / (9 * c) ** 0.5,
+                0.1 * torch.randn(f, generator=gen, device=dev))
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in _tensors(ts))
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def up2(x):
+        return F.interpolate(nchw(x), scale_factor=2, mode="bilinear", align_corners=True)
+
+    def grads(outs, ins, cots):
+        """autograd of a cuDNN chain built once: a call recomputes the
+        gradients of ``ins``."""
+        return lambda: torch.autograd.grad(outs, ins, cots, retain_graph=True)  # noqa: E731
+
+    for model, h, cs, cx, f in STAGES:
+        gen, h2 = gens(), 2 * h
+        px = B * h2 * h2
+        name = f"{model} {B}x{h2}x{h2} Cs={cs} Cx={cx} F={f}"
+        if only not in name:
+            continue
+        (w1, b1), (w2, b2) = conv_w(gen, f, cs + cx), conv_w(gen, f, f)
+        g2 = torch.randn((B, h2, h2, f), generator=gen, device=dev)
+        out_, y1 = act(gen, B, h2, h2, f), act(gen, B, h2, h2, f)
+        like = torch.empty((B, cs + cx, h2, h2), device=dev, memory_format=torch.channels_last)
+
+        def bwd_lib():
+            g = torch.where(out_ > 0, g2, 0)
+            d = cb(nchw(g), nchw(y1), w2, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                   [True, False, False])[0]
+            d = torch.where(nchw(y1) > 0, d, 0)
+            return cb(d, like, w1, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                      [True, False, False])[0]
+
+        flops = 2.0 * px * 9 * f * (f + cs + cx)
+        _f32_line(smi, port, "unetup_bwd_f32", name,
+                  lambda: decoder_train._unetup_bwd_cuda(g2, out_, y1, w1, w2, cs), bwd_lib,
+                  flops, 4.0 * px * (5 * f + cs + cx) + nb(w1, w2),
+                  sm90.unetup_bwd_launches(B, h2, h2, cs, cx, f, True))
+        skip, x = act(gen, B, h2, h2, cs), act(gen, B, h, h, cx)
+
+        def fwd_lib():
+            cc = torch.cat([nchw(skip), up2(x)], dim=1)
+            y = torch.relu(F.conv2d(cc, w1, b1, padding=1))
+            return torch.relu(F.conv2d(y, w2, b2, padding=1))
+
+        _f32_line(smi, port, "unetup_f32", name,
+                  lambda: decoder_fuse._unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=True),
+                  fwd_lib, flops, nb(skip, x, w1, w2) + 2 * 4.0 * px * f,
+                  sm90.unetup_launches(B, h2, h2, cs, cx, f, True))
+        del w1, w2, g2, out_, y1, like, skip, x
+        torch.cuda.empty_cache()
+    for h, chans, pool in BLOCKS:
+        gen = gens()
+        n = len(chans) - 1
+        x = act(gen, B, h, h, chans[0])
+        wb = [conv_w(gen, fo, c) for c, fo in zip(chans[:-1], chans[1:])]
+        ws, bs = [w for w, _ in wb], [b for _, b in wb]
+        key = encoder_train.block_key(n, "fwd")
+        name = f"{B}x{h}x{h} {chans}"
+        if only not in name:
+            continue
+        flops = sum(2.0 * B * h * h * 9 * c * fo for c, fo in zip(chans[:-1], chans[1:]))
+        skip, pooled, mids = encoder._vgg_block_cuda(x, ws, bs, pool, key)
+
+        def blk_lib():
+            y = nchw(x)
+            for w, b in zip(ws, bs):
+                y = torch.relu(F.conv2d(y, w, b, padding=1))
+            return (y, F.max_pool2d(y, 2)) if pool else y
+
+        _f32_line(smi, port, key + "_f32", name,
+                  lambda: encoder._vgg_block_cuda(x, ws, bs, pool, key), blk_lib, flops,
+                  nb(x, ws, skip, pooled, mids),
+                  sm90.block_fwd_launches(B, h, h, chans, pool, True))
+        dskip = torch.randn(skip.shape, generator=gen, device=dev)
+        dpool = torch.randn(pooled.shape, generator=gen, device=dev) if pool else None
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            wg = [t.detach().requires_grad_() for t in ws + bs]
+            y = nchw(xg)
+            for w, b in zip(wg[:n], wg[n:]):
+                y = torch.relu(F.conv2d(y, w, b, padding=1))
+            outs = [y, F.max_pool2d(y, 2)] if pool else [y]
+        cots = [nchw(dskip)] + ([nchw(dpool)] if pool else [])
+        _f32_line(smi, port, encoder_train.block_key(n, "bwd") + "_f32", name,
+                  lambda: encoder_train.vgg_block_bwd(dskip, dpool, x, mids, skip, ws),
+                  grads(outs, [xg, *wg], cots), 2 * flops,
+                  nb(x, mids, skip, ws, dskip, dpool) + nb(x, ws),  # + dx, dks
+                  sm90.block_bwd_launches(B, h, h, chans, True, True)[1::2])
+        del x, ws, bs, wb, skip, pooled, mids, dskip, dpool, xg, wg, y, outs, cots
+        torch.cuda.empty_cache()
+    gen, h = gens(), 512
+    case = f"{B}x{h}x{h} [3, 64, 64]"
+    if only in case:
+        img = torch.rand((B, h, h, 3), generator=gen, device=dev)
+        (w11, b11), (w12, b12) = conv_w(gen, 64, 3), conv_w(gen, 64, 64)
+        px = B * h * h
+        flops = 2.0 * px * 9 * (3 * 64 + 64 * 64)
+        skip, pooled, a1 = stem._vgg_stem_cuda(img, w11, b11, w12, b12)
+
+        def stem_lib():
+            y = torch.relu(F.conv2d(nchw(img), w11, b11, padding=1))
+            y = torch.relu(F.conv2d(y, w12, b12, padding=1))
+            return y, F.max_pool2d(y, 2)
+
+        _f32_line(smi, port, "vgg_stem_f32", case,
+                  lambda: stem._vgg_stem_cuda(img, w11, b11, w12, b12), stem_lib, flops,
+                  nb(img, skip, pooled, a1), sm90.stem_fwd_launches(B, h, h, 64, True)[1:])
+        dskip = torch.randn(skip.shape, generator=gen, device=dev)
+        dpool = torch.randn(pooled.shape, generator=gen, device=dev)
+        with torch.enable_grad():
+            wg = [t.detach().requires_grad_() for t in (w11, b11, w12, b12)]
+            y = torch.relu(F.conv2d(nchw(img), wg[0], wg[1], padding=1))
+            y = torch.relu(F.conv2d(y, wg[2], wg[3], padding=1))
+            outs = [y, F.max_pool2d(y, 2)]
+        _f32_line(smi, port, "vgg_stem_bwd_f32", case,
+                  lambda: encoder_train.vgg_stem_bwd(dskip, dpool, img, a1, skip, w11, w12),
+                  grads(outs, wg, [nchw(dskip), nchw(dpool)]),
+                  flops + 2.0 * px * 9 * 64 * 64,
+                  nb(img, a1, skip, dskip, dpool, w11, w12) + nb(w11, w12),  # + dks
+                  sm90.stem_bwd_launches(B, h, h, 64, True)[3:])
+        del img, skip, pooled, a1, dskip, dpool, wg, y, outs
+        torch.cuda.empty_cache()
+    for name, h in (("rn50 head", 256), ("self_net head", 512)):
+        gen, h2 = gens(), 2 * h
+        px = B * h2 * h2
+        case = f"{name} {B}x{h}x{h}x64->{h2}^2x64"
+        if only not in case:
+            continue
+        x = act(gen, B, h, h, 64)
+        (w1, b1), (w2, b2) = conv_w(gen, 64, 64), conv_w(gen, 64, 64)
+        flops = 2 * 2.0 * px * 9 * 64 * 64
+
+        def head_lib():
+            y = torch.relu(F.conv2d(up2(x), w1, b1, padding=1))
+            return torch.relu(F.conv2d(y, w2, b2, padding=1))
+
+        out_, y1 = upconv._upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
+        _f32_line(smi, port, "upconv_f32", case,
+                  lambda: upconv._upconv_cuda(x, w1, b1, w2, b2, want_y1=True), head_lib, flops,
+                  nb(x, out_, y1), sm90.unetup_launches(B, h2, h2, 0, 64, 64, True))
+        g = torch.randn((B, h2, h2, 64), generator=gen, device=dev)
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_()
+            wg = [t.detach().requires_grad_() for t in (w1, b1, w2, b2)]
+            y = torch.relu(F.conv2d(up2(xg), wg[0], wg[1], padding=1))
+            y = torch.relu(F.conv2d(y, wg[2], wg[3], padding=1))
+        _f32_line(smi, port, "upconv_bwd_f32", case,
+                  lambda: upconv._upconv_bwd_cuda(g, out_, y1, x, w1, w2),
+                  grads([y], [xg, *wg], [nchw(g)]), 2 * flops,
+                  nb(g, out_, y1, x, w1, w2) + nb(x, w1, w2),  # + dx, dk1, dk2
+                  sm90.upconv_bwd_launches(B, h2, h2, 64, 64, True)[:2])
+        del x, out_, y1, g, xg, wg, y
+        torch.cuda.empty_cache()
 
 
 def _head(smi, gen, B, h):
@@ -1009,6 +1265,52 @@ def _sass(smi):
               flush=True)
 
 
+CONV_OPS = ("fwd", "fwd_pool", "dgrad_mask", "dgrad_split")  # kernels/sm90.py's OP_* order
+
+
+def _ptxas(smi):
+    """ptxas's report (``-Xptxas=-v``) of every conv-core instance
+    (``conv_sm90_kernel<T, TN, OP, PH>``) and pack-kernel instance in the
+    library that this process builds: one JSON line each with its source,
+    element type, N tile, op and pixel tile (``conv``) or layout and store
+    width (``pack``), registers a thread, stack frame and spill bytes.  Run
+    it first in a tree of its own: a library already built leaves no
+    report."""
+    import re
+
+    from tpu_unet_torch.kernels import _build
+
+    _build.build()
+    if not _build.build_log:
+        print(json.dumps({"ptxas": None, "why": "the library was built before this process",
+                          "gpu": smi}), flush=True)
+        return
+    src = name = frame = None
+    for line in _build.build_log.splitlines():
+        if m := re.match(r"^(\w+)\.cu:$", line):
+            src = m.group(1)
+        elif m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            frame = [int(v) for v in m.groups()]
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            row = {"source": f"{src}.cu", "registers": int(m.group(1)), "stack": frame[0],
+                   "spill_stores": frame[1], "spill_loads": frame[2], "gpu": smi}
+            dt = r"(13__nv_bfloat16|f)"
+            if c := re.search(rf"conv_sm90_kernelI{dt}Li(\d+)ELi(\d+)ELi(\d+)E", name):
+                t, tn, op, ph = c.groups()
+                print(json.dumps({"ptxas": "conv_sm90_kernel", "dtype": "float32" if t == "f"
+                                  else "bf16", "tile": [16 * int(ph), int(tn)],
+                                  "op": CONV_OPS[int(op)], **row}), flush=True)
+            elif c := re.search(rf"pack_kernelI{dt}Lb(\d)ELb(\d)E", name):
+                t, flip, vec = c.groups()
+                print(json.dumps({"ptxas": "pack_kernel", "dtype": "float32" if t == "f"
+                                  else "bf16", "flip": flip == "1", "vec": vec == "1", **row}),
+                      flush=True)
+            name = None
+
+
 def main(argv=None) -> int:
     parts = list(argv if argv is not None else sys.argv[1:]) or \
         ["tiles", "stages", "blocks", "stem", "head", "stem_fwd", "head_bwd", "loss",
@@ -1071,8 +1373,12 @@ def main(argv=None) -> int:
             _palette(smi, 8, 256)
         elif part == "wgrad_f32":
             _wgrad_f32(smi)
+        elif part.split(":")[0] == "f32_conv":
+            _f32_conv(smi, only=part.partition(":")[2])
         elif part == "sass":
             _sass(smi)
+        elif part == "ptxas":
+            _ptxas(smi)
         else:
             raise SystemExit(f"bench_sm90: unknown part {part!r}")
         torch.cuda.empty_cache()
