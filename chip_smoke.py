@@ -46,15 +46,19 @@ Phases (any failure exits non-zero without the final result line):
    classes, batch 32 at 256x256), ``traditional`` at 200x200 (the
    mask-only tail), and the generic step of ``ultralight_large_optimized``
    (the DataB submission model), ``lightweight``, ``ultralight``,
-   ``ultralight_large`` and ``ultralight44`` at 256x256 / batch 32 / 4
-   classes — launch counts (set to 0 just before the counted step,
+   ``ultralight_large``, ``ultralight44`` and the last eight registry
+   models (``sk_ultralight``, ``repvgg_segnet``, ``improved_ultralight``,
+   ``hybrid_efficientseg``, ``balancedseg``, ``balancedseg_fpn``,
+   ``balancedseg_fpn_sup``, ``balancedseg_crfs``: one #6 a step) at
+   256x256 / batch 32 / 4 classes — launch counts (set to 0 just before the counted step,
    read just after), img/s, peak memory, a ``torch.profiler`` breakdown
    (with the in-step device time of the tail or argmax-mask kernel),
    masks against the plain versions on the card, and a small batch against
    the CPU float32 path;
 4. single image: ``detect_image`` (mix_type 0/1/2, ``count``, ``fast``),
-   ``get_miou_png`` and ``get_FPS`` (both protocols) of ``traditional`` at
-   256x256 and ``unet_vgg`` at 512x512 on a seeded 300x200 PIL image —
+   ``get_miou_png`` and ``get_FPS`` (both protocols) of ``traditional`` and
+   ``balancedseg_fpn_sup`` at 256x256 and ``unet_vgg`` at 512x512 on a
+   seeded 300x200 PIL image —
    launches of each counted forward, the device mask against the argmax of
    the probabilities and against the CPU float32 path on the same weights
    and letterboxed image, seconds and FPS at batch 1;
@@ -103,7 +107,17 @@ Phases (any failure exits non-zero without the final result line):
    plain losses on its 2x logits) held the same way; (g) ``fit`` with the
    ``voc_resnet50`` preset (no ImageNet file) over a seeded VOC-layout
    directory at 256^2: one frozen and one unfrozen epoch, a resume, and
-   serving from the trained ``.pth``;
+   serving from the trained ``.pth``; (h) the bf16 step of each of the
+   last eight registry models at 256^2, 4 classes, the preset's batch
+   (``unfreeze_batch_size``) and recipe where the JAX package has one
+   (``hybrid_efficientseg``, ``balancedseg_fpn`` at batch 96,
+   ``balancedseg_crfs``, ``balancedseg_fpn_sup`` with its aux weights),
+   else the ladder presets' (batch 32, focal + dice) — exact launches
+   (#25 / #26 once a head: four each for ``balancedseg_fpn_sup``), loss,
+   every gradient the loss reaches and the running statistics against a
+   plain step with the same dropout generator, step time, img/s, peak
+   memory, device time and idle share; (i) ``repvgg_segnet`` folded by
+   ``cli fold`` and served in its deploy form against the training form;
 7. the float32 path (``fp16=False``, the default: every model's float32
    training): the float32 instantiations of the conv core, the
    weight-gradient GEMM, the image GEMMs and the elementwise passes at the
@@ -123,7 +137,9 @@ Phases (any failure exits non-zero without the final result line):
    TF32 switches); the same for the ``"paired"`` steps of
    ``unet_resnet50`` and ``self_net`` (CE + dice, the running statistics
    too) and the DataB steps of ``traditional`` and
-   ``ultralight_large_optimized``; the preset's batch 2; a 128²
+   ``ultralight_large_optimized`` and the deep-supervision step of
+   ``balancedseg_fpn_sup`` (four heads, #25 / #26 four times each); the
+   preset's batch 2; a 128²
    step against the CPU float32 path; 20 learning steps; ``cli train
    --preset voc --no-pretrained`` (one frozen and one unfrozen epoch at
    512², batch 2), a resume, serving from the trained ``.pth``, and
@@ -155,14 +171,18 @@ BATCH, SIZE = 8, 512              # the canonical UNets' serving shape
 DATAB_BATCH, DATAB_SIZE = 32, 256  # the TraditionalUnet family's (DataB)
 # classes of each model: VOC's 21, DataB's 4 (Background / Inclusions /
 # Patches / Scratches)
+# the last eight registry models: their own blocks on cuDNN (as XLA runs
+# them in JAX), serving through #6, training through #25 / #26 once a head
+ZOO = ("sk_ultralight", "repvgg_segnet", "improved_ultralight", "hybrid_efficientseg",
+       "balancedseg", "balancedseg_fpn", "balancedseg_fpn_sup", "balancedseg_crfs")
 CLASSES = {"unet_vgg": 21, "unet_resnet50": 21, "self_net": 21,
            "traditional": 4, "traditional22": 4, "ultralight": 4,
            "ultralight_large": 4, "ultralight_large_optimized": 4,
-           "ultralight44": 4, "lightweight": 4}
+           "ultralight44": 4, "lightweight": 4, **dict.fromkeys(ZOO, 4)}
 # the models whose serving step is the generic one with no kernel before
 # the argmax-mask kernel (self_net runs the VGG kernels first)
 GENERIC = ("ultralight", "ultralight_large", "ultralight_large_optimized",
-           "ultralight44", "lightweight")
+           "ultralight44", "lightweight", *ZOO)
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PEAK_TF32 = 494.7e12   # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s outside the tensor cores
@@ -1462,7 +1482,7 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     adjoint's (#4, #5, #7, #19), ``small_kernels_ms`` the tails', the
     argmax mask's and the palette blend's (#4-#8)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn(net, imgs)
     torch.cuda.synchronize()
@@ -1472,7 +1492,9 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             fn(net, imgs)
         torch.cuda.synchronize()
 
-    prof = profiled(run, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    # the device's events alone: nothing here reads the host's, whose tens of
+    # thousands a training step took seconds a window to process
+    prof = profiled(run, [ProfilerActivity.CUDA])
     spans, by_name, index_add = [], {}, 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1553,7 +1575,7 @@ def serve(model: str, batch: int, size: int, card: str):
     tag = f"{model} {batch}x{size}^2"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    t0 = t_serve = time.perf_counter()
     u = Unet(model=model, num_classes=classes, input_shape=[size, size])
     fn, net = u.serving_step()
     print(f"phase 3: {tag} built in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1633,7 +1655,8 @@ def serve(model: str, batch: int, size: int, card: str):
             "step_ms_events": step_ms, "encoder_ms_events": enc_ms, "launches": counts,
             "mask_mismatch_vs_plain": mism, "flips_outside_margin": outside,
             "largest_flip_gap": need, f"mask_mismatch_vs_cpu_f32_{small_size}px": mism_cpu,
-            "largest_flip_gap_vs_cpu": need_cpu, "peak_mem_gib": peak, "gpu": card}
+            "largest_flip_gap_vs_cpu": need_cpu, "peak_mem_gib": peak,
+            "wall_s": time.perf_counter() - t_serve, "gpu": card}
     print(json.dumps(line), flush=True)
     if breakdown is not None:
         print(json.dumps({"serving": model, "size": size, "profile": breakdown}), flush=True)
@@ -1652,9 +1675,11 @@ def phase_serving(card: str):
     """Each serving path with its own counted step; the launches by
     ``kernels`` entry."""
     totals: dict = {}
+    t0 = time.perf_counter()
     for model, batch, size in SERVING:
         for k, v in serve(model, batch, size, card).items():
             totals[entry(model, k)] = totals.get(entry(model, k), 0) + v
+    print(f"phase 3: serving in {time.perf_counter() - t0:.1f} s", flush=True)
     return totals
 
 
@@ -1664,6 +1689,8 @@ def phase_serving(card: str):
 # tail kernel.
 SINGLE = {
     ("traditional", DATAB_SIZE, 50): {"normalize_images": 1},
+    # a deep-supervision model: its eval forward gives the final head only
+    ("balancedseg_fpn_sup", DATAB_SIZE, 20): {"normalize_images": 1},
     ("unet_vgg", SIZE, 20): {"normalize_images": 1, "vgg_stem": 1, "vgg_block": 4,
                              "unetup": 4, "upsample2x": 4},
 }
@@ -1749,9 +1776,11 @@ def single_image(model: str, size: int, reps: int, card: str):
 
 def phase_single_image(card: str):
     totals: dict = {}
+    t0 = time.perf_counter()
     for model, size, reps in SINGLE:
         for k, v in single_image(model, size, reps, card).items():
             totals[k] = totals.get(k, 0) + v
+    print(f"phase 4: single image in {time.perf_counter() - t0:.1f} s", flush=True)
     return totals
 
 
@@ -2127,11 +2156,235 @@ def phase_train(card: str):
         "gpu": card}), flush=True)
     torch.cuda.empty_cache()
     for part in (rn50_training, self_net_training, fit_voc_resnet50, cli_train, datab_training,
-                 cli_train_datab):
+                 cli_train_datab, zoo_training, repvgg_fold):
+        t_part = time.perf_counter()
         for k, v in part(card).items():
             totals[k] = totals.get(k, 0) + v
+        print(f"phase 6: {part.__name__} in {time.perf_counter() - t_part:.1f} s", flush=True)
     print(f"phase 6: training in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return totals
+
+
+# ---- phase 6h / 6i: the last eight registry models' training, and the fold ----
+
+def zoo_recipe(name: str, dtype=torch.bfloat16):
+    """(batch, StepConfig, lr, weight decay) of a zoo model's step at 256²,
+    4 classes: its preset's (batch ``unfreeze_batch_size``, loss, class
+    weights, aux weights) where the JAX package has one, else the ladder
+    presets' (``ultralight_large_optimized``: batch 32, focal + dice with
+    (1, 15, 1.5, 2), Adam 1e-4, weight decay 1e-4); the lr as ``fit`` gives
+    it for that batch."""
+    from tpu_unet_torch.configs.presets import PRESETS, get_preset
+    from tpu_unet_torch.train import step as tstep
+    from tpu_unet_torch.train.schedules import adaptive_lr
+
+    p = get_preset(name if name in PRESETS else "ultralight_large_optimized")
+    n = p.unfreeze_batch_size
+    cfg = tstep.StepConfig(4, p.resolved_cls_weights(), use_focal=p.focal_loss,
+                           use_dice=p.dice_loss, aux_weights=tuple(p.aux_weights),
+                           compute_dtype=dtype)
+    return n, cfg, adaptive_lr(p.init_lr, p.min_lr, n, p.optimizer_type)[0], p.weight_decay
+
+
+def plain_zoo_step(net, batch, cfg, seed, dtype=torch.bfloat16):
+    """Loss, float32 gradients (of the parameters the loss reaches) and the
+    running statistics after one step composed here of a copy of ``net`` in
+    ``dtype`` in train mode (its dropout drawn from a generator seeded
+    ``seed``) and ``train/step.py::_total_loss``, the plain losses of every
+    head weighted by ``cfg.aux_weights`` (the first head's alone without),
+    under autograd: no kernel."""
+    from tpu_unet_torch.train.losses import one_hot
+    from tpu_unet_torch.train.step import _total_loss, prepare_batch
+
+    n16 = copy.deepcopy(net)
+    for p in n16.parameters():
+        p.data = p.data.to(dtype)
+    imgs, target = prepare_batch(batch, dtype, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    outputs = n16(imgs, train=True, generator=gen)
+    loss, _ = _total_loss(outputs, target, one_hot(target, cfg.num_classes), cfg)
+    loss.backward()
+    return (loss.item(), {k: p.grad.float() for k, p in n16.named_parameters()
+                          if p.grad is not None}, bn_stats(n16))
+
+
+def bn_fed_biases(net):
+    """The conv biases of the zoo's blocks that the next batch norm cancels
+    (their exact gradient is 0, so both steps give noise): LightConvBlock's
+    three, LightSKBlock's and RepVGGStem's 1×1 reduce, DWSeparableBNReLU's
+    two."""
+    from tpu_unet_torch.nn import blocks
+
+    parts = ((blocks.LightConvBlock, ("conv.0", "conv.3.depthwise", "conv.3.pointwise")),
+             (blocks.LightSKBlock, ("conv1.0",)), (blocks.RepVGGStem, ("conv.0",)),
+             (blocks.DWSeparableBNReLU, ("depthwise", "pointwise")))
+    params = dict(net.named_parameters())
+    return {f"{name}.{sub}.bias" for name, m in net.named_modules() for cls, subs in parts
+            if isinstance(m, cls) for sub in subs} & set(params)
+
+
+def zoo_step(name: str, card: str):
+    """Phase 6h for one zoo model: its bf16 step (``zoo_recipe``) from
+    ``init_model(seed=0)`` weights on seeded rectangles, counted (#25 / #26
+    once a head), against ``plain_zoo_step`` with the same dropout
+    generator: the loss within 1e-3, every gradient the loss reaches at
+    cosine >= 0.99 (the biases a batch norm cancels left out), the running
+    statistics within 1e-2 and moved; step time, img/s, peak memory and a
+    profile.  Returns the launches."""
+    from tpu_unet_torch.models.registry import build_model, init_model
+    from tpu_unet_torch.train import step as tstep
+
+    t_model = time.perf_counter()
+    n, cfg, lr, wd = zoo_recipe(name)
+    heads = len(cfg.aux_weights) or 1
+    batch = rect_batch(torch.Generator().manual_seed(21), n, DATAB_SIZE, 4, "cuda")
+    init = init_model(build_model(name, 4), seed=0).cuda()
+    before = bn_stats(init)
+    ploss, pgrads, pstats = plain_zoo_step(init, batch, cfg, seed=5)
+    net = copy.deepcopy(init)
+    state = tstep.TrainState(net, tstep.make_optimizer(net, "adam", 0.9, wd))
+    fn = tstep.make_train_step(net, cfg)
+    dgen = torch.Generator(device="cuda").manual_seed(5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), counts = counted({"ce_dice_fwd": heads, "ce_dice_bwd": heads},
+                                 f"{name} train step", lambda: fn(state, batch, lr, dgen))
+    loss0 = m["loss"].item()
+    lrel = abs(loss0 - ploss) / abs(ploss)
+    check(lrel <= 1e-3, f"{name} step loss {loss0} vs plain step {ploss}: rel {lrel:.3g}")
+    noise, unreached, worst_cos = bn_fed_biases(net), [], 1.0
+    for k, p in net.named_parameters():
+        if k not in pgrads:  # the loss does not reach it (an aux head, CRFS's conv_g)
+            unreached.append(k)
+            continue
+        if k in noise:
+            continue
+        a, b = p.grad.float().ravel(), pgrads[k].ravel()
+        cos = (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+        worst_cos = min(worst_cos, cos)
+        check(cos >= 0.99, f"{name} gradient of {k}: cosine {cos:.5f} against the plain step")
+    stats = bn_stats(net)
+    stat_rel = max(((stats[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                   for k, v in pstats.items())
+    moved = min(((stats[k] - v).abs().max()).item() for k, v in before.items())
+    check(stat_rel <= 1e-2 and moved > 0,
+          f"{name} running statistics: rel err {stat_rel:.3g} vs plain, least move {moved:.3g}")
+    del pgrads, pstats
+    step = lambda: fn(state, batch, lr, dgen)  # noqa: E731 (warm: the counted step)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(3):  # the same three steps by events and by the host's clock
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / 3
+    step_ms = start.elapsed_time(end) / 3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profile = device_breakdown(lambda _net, _imgs: step(), None, None, steps=1)
+    print(json.dumps({
+        "train_step": name, "batch": n, "size": DATAB_SIZE, "classes": 4, "dtype": "bf16",
+        "recipe": f"{'focal' if cfg.use_focal else 'CE'}{' + dice' if cfg.use_dice else ''}, "
+                  f"w={list(cfg.cls_weights)}, aux={list(cfg.aux_weights)}, Adam lr {lr:g} "
+                  f"wd {wd:g}", "launches": counts, "step_ms_events": step_ms,
+        "img_per_s": n / host, "step_ms_host": host * 1e3, "peak_mem_gib": peak,
+        "device_ms": profile["device_ms_per_step"], "idle_share": profile["idle_share"],
+        "loss_kernels_ms": profile["loss_kernels_ms"], "top_kernels_ms": profile["top_kernels_ms"],
+        "loss": loss0, "loss_plain_step": ploss, "loss_rel_err_vs_plain": lrel,
+        "worst_grad_cosine": worst_cos, "params_unreached_by_loss": unreached,
+        "running_stats_rel_err_vs_plain": stat_rel,
+        "wall_s": time.perf_counter() - t_model, "gpu": card}), flush=True)
+    del net, state, fn, step, init
+    torch.cuda.empty_cache()
+    return counts
+
+
+def zoo_training(card: str):
+    """Phase 6h: the zoo models' bf16 steps; returns their launches."""
+    totals: dict = {}
+    t0 = time.perf_counter()
+    for name in ZOO:
+        for k, v in zoo_step(name, card).items():
+            totals[k] = totals.get(k, 0) + v
+    print(f"phase 6h: zoo training in {time.perf_counter() - t0:.1f} s", flush=True)
+    return totals
+
+
+# the masks of the deploy form against the training form's logits: equal
+# wherever the top-1/top-2 gap exceeds this share of the logit scale (both
+# bf16 on the card, the folded 3x3 summing in another order)
+FOLD_MARGIN = 5e-2
+
+
+def repvgg_fold(card: str):
+    """Phase 6i: ``repvgg_segnet`` with seeded batch norms saved, folded by
+    ``cli fold``, both checkpoints served by ``Unet(model_path=...)`` (the
+    folded one builds the deploy form) on a seeded 32 x 256² batch: the
+    deploy masks against the training form's logits (plain PyTorch on the
+    card), within FOLD_MARGIN; the two forms' float32 logits (TF32 off);
+    both serving steps' times.  Returns the launches of the deploy form's
+    counted step."""
+    import io
+    import tempfile
+
+    from tpu_unet_torch import cli
+    from tpu_unet_torch.core.precision import normalize_u8
+    from tpu_unet_torch.infer.wrapper import Unet
+    from tpu_unet_torch.models.registry import build_model, init_model
+
+    net = init_model(build_model("repvgg_segnet", 4), seed=0)
+    g = torch.Generator().manual_seed(23)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(1 + 0.2 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    shape = [DATAB_SIZE, DATAB_SIZE]
+    with tempfile.TemporaryDirectory() as tmp:
+        train_path, deploy_path = Path(tmp) / "train.pth", Path(tmp) / "deploy.pth"
+        torch.save(net.state_dict(), train_path)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["fold", "--model-path", str(train_path), "--out", str(deploy_path)])
+        ut = Unet(model="repvgg_segnet", num_classes=4, input_shape=shape,
+                  model_path=str(train_path))
+        ud = Unet(model="repvgg_segnet", num_classes=4, input_shape=shape,
+                  model_path=str(deploy_path))
+    check(ud.net.enc1.conv[3].deploy and not ut.net.enc1.conv[3].deploy,
+          "cli fold: the folded checkpoint did not build the deploy form")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    imgs = torch.randint(0, 256, (DATAB_BATCH, *shape, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    fd, nd = ud.serving_step()
+    ft, nt = ut.serving_step()
+    fd(nd, imgs)
+    (masks, _), counts = counted({"argmax_mask": 1}, "repvgg_segnet deploy serving",
+                                 lambda: fd(nd, imgs))
+    with torch.no_grad():
+        logits = plain_logits("repvgg_segnet", nt, imgs)
+        x = normalize_u8(imgs[:4], torch.float32)
+        l32t, l32d = ut.net(x), ud.net(x)
+    mism, outside, need = compare_masks(masks, logits, FOLD_MARGIN)
+    check(outside == 0, f"repvgg_segnet deploy masks: {outside} flips outside {FOLD_MARGIN} "
+                        "of the training form's logit scale")
+    f32_rel = ((l32d - l32t).abs().max() / l32t.abs().max()).item()
+    check(f32_rel <= 1e-4, f"repvgg_segnet deploy vs training form float32 logits: rel "
+                           f"{f32_rel:.3g}")
+    ms_d, ms_t = time_ms(lambda: fd(nd, imgs), reps=5), time_ms(lambda: ft(nt, imgs), reps=5)
+    print(json.dumps({
+        "repvgg_fold": "cli fold -> Unet(model_path=...)", "batch": DATAB_BATCH,
+        "size": DATAB_SIZE, "launches": counts, "mask_mismatch_vs_training_form": mism,
+        "flips_outside_margin": outside, "largest_flip_gap": need,
+        "f32_logits_rel_err_vs_training_form": f32_rel,
+        "serving_ms_events_deploy": ms_d, "serving_ms_events_training_form": ms_t,
+        "img_per_s_deploy": DATAB_BATCH / ms_d * 1e3,
+        "img_per_s_training_form": DATAB_BATCH / ms_t * 1e3, "gpu": card}), flush=True)
+    del ut, ud, fd, nd, ft, nt, imgs, logits
+    torch.cuda.empty_cache()
+    return counts
 
 
 # unet_resnet50's default-route step: its four decoder stages (#1, #13,
@@ -3812,6 +4065,38 @@ def f32_datab_step(name: str, card: str):
     return counts
 
 
+def f32_zoo_step(card: str):
+    """Phase 7's deep-supervision step: ``balancedseg_fpn_sup`` in float32
+    (its preset with ``fp16=False``: 256², batch 16, CE, aux weights (1.0,
+    0.4, 0.3, 0.2); cuDNN, #25 / #26 on float32 logits once a head) held by
+    :func:`hold_f32_step` against ``plain_zoo_step`` in float32 with the
+    same dropout generator; times beside the bf16 step's.  Returns the
+    launches."""
+    from tpu_unet_torch.models.registry import build_model, init_model
+
+    name = "balancedseg_fpn_sup"
+    n, f32, lr, wd = zoo_recipe(name, torch.float32)
+    bf = dataclasses.replace(f32, compute_dtype=torch.bfloat16)
+    heads = len(f32.aux_weights)
+    batch = rect_batch(torch.Generator().manual_seed(22), n, DATAB_SIZE, 4, "cuda")
+    init = init_model(build_model(name, 4), seed=0).cuda()
+    ploss, pgrads, pstats = plain_zoo_step(init, batch, f32, seed=5, dtype=torch.float32)
+    loss16, g16, _, _, t16 = timed_train_step(init, batch, bf, lr, weight_decay=wd, seed=5)
+    loss32, g32, st32, counts, t32 = timed_train_step(
+        init, batch, f32, lr, {"ce_dice_fwd": heads, "ce_dice_bwd": heads},
+        f"float32 {name} train step", wd, seed=5)
+    held = hold_f32_step(f"float32 {name} step", loss32, g32, st32, loss16, g16, ploss, pgrads,
+                         pstats, bn_fed_biases(init) | (set(g32) - set(pgrads)))
+    print(json.dumps({
+        "train_step": name, "dtype": "float32", "batch": n, "size": DATAB_SIZE, "classes": 4,
+        "recipe": f"CE, aux={list(f32.aux_weights)}, Adam lr {lr:g} wd {wd:g}",
+        "launches": counts, **t32, "loss": loss32, "loss_plain_f32_step": ploss, **held,
+        "bf16_step": t16, "gpu": card}), flush=True)
+    del init, pgrads, pstats, g16, g32
+    torch.cuda.empty_cache()
+    return counts
+
+
 def write_medical(root: Path, n: int, size: int, seed: int):
     """A seeded Medical_Datasets tree (Images/*.png, Labels/*.png: a dark
     cell (label ≤ 127, class 1) on a bright field) with its train split."""
@@ -3954,10 +4239,17 @@ def phase_f32(card: str, results: dict):
     f32_wgrad_gemm(card, gen)
     f32_head_kernels(record, gen)
     f32_loss_kernels(record, gen)
+    t_steps = time.perf_counter()
+    print(f"phase 7: kernels in {t_steps - t0:.1f} s", flush=True)
     totals = f32_train_step(card)
     counts = [f32_model_step("unet_resnet50", card, seed=16), f32_model_step("self_net", card, 19)]
     counts += [f32_datab_step(name, card) for name in DATAB_CW]
+    t_zoo = time.perf_counter()
+    counts.append(f32_zoo_step(card))
+    t_cli = time.perf_counter()
     counts.append(cli_train_f32(card))
+    print(f"phase 7: steps in {t_zoo - t_steps:.1f} s, balancedseg_fpn_sup in "
+          f"{t_cli - t_zoo:.1f} s, cli train in {time.perf_counter() - t_cli:.1f} s", flush=True)
     for c in counts:
         for k, v in c.items():
             totals[k] = totals.get(k, 0) + v
@@ -4082,8 +4374,10 @@ def main() -> int:
     t_all = time.perf_counter()
     card = phase_device()
     phase_build()
+    t2 = time.perf_counter()
     results = phase_kernels(card)
     phase_train_kernels(card, results)
+    print(f"phase 2: kernels in {time.perf_counter() - t2:.1f} s", flush=True)
     counts = phase_serving(card)
     for phase in (phase_single_image, phase_tools, phase_train):
         for k, v in phase(card).items():

@@ -171,9 +171,12 @@ def test_init_model_fan_in():
 
 
 def test_unported_block_kinds_raise():
-    for kind in ("sk", "repvgg", "fusedmb"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            LadderUNet(CLASSES, (8, 8, 8, 8, 8), block=kind)
+    """Every block kind of JAX's ``_make_block`` builds; an unknown one
+    raises ``ValueError`` as there."""
+    for kind in ("light8", "light16", "sk", "repvgg", "fusedmb"):
+        LadderUNet(CLASSES, (16, 16, 16, 16, 16), block=kind)
+    with pytest.raises(ValueError, match="unknown block kind 'dense'"):
+        LadderUNet(CLASSES, (8, 8, 8, 8, 8), block="dense")
 
 
 def _jax_block_vars(jmod, *args):

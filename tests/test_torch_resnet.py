@@ -103,8 +103,9 @@ def test_bridge_is_strict_with_bn_buffers(rn50):
 
 
 def test_bridge_refuses_unported_model():
+    """The bridge covers every registry name and refuses any other."""
     with pytest.raises(ValueError, match="weight bridge"):
-        state_dict_from_flax({}, "sk_ultralight")
+        state_dict_from_flax({}, "sk_ultralight_v2")
 
 
 def test_init_model_batch_norm_as_flax():

@@ -100,13 +100,15 @@ def test_plain_route_trains_focal_and_self_net():
 @pytest.mark.parametrize("case", ["focal", "self_net", "f32", "batch_norm", "aux", "resnet50",
                                   "f32_up_conv", "f32_resnet50", "f32_datab"])
 def test_unported_configurations_raise(case):
-    """On the card: deep supervision raises.  Focal (#25/#26), batch norm
-    in train mode (the DataB slice), the up_conv head (self_net, #12) in
-    bf16, unet_resnet50 (its ResNet50 in train mode), and float32 on both
-    training routes for unet_vgg, self_net and unet_resnet50 (the float32
-    instantiations, the up_conv head's #10 / #12 among them) and for a
-    DataB model (``traditional``: cuDNN and the logit-level loss, which
-    takes float32 logits) are ported: they pass on both devices."""
+    """Deep supervision (``balancedseg_fpn_sup``'s aux weights: one #25 /
+    #26 launch a head), focal (#25/#26), batch norm in train mode (the
+    DataB slice), the up_conv head (self_net, #12) in bf16, unet_resnet50
+    (its ResNet50 in train mode), and float32 on both training routes for
+    unet_vgg, self_net and unet_resnet50 (the float32 instantiations, the
+    up_conv head's #10 / #12 among them) and for a DataB model
+    (``traditional``: cuDNN and the logit-level loss, which takes float32
+    logits) are ported: they pass on both devices.  A compute dtype with no
+    kernel instantiation raises on the card."""
     bf = torch.bfloat16
     model, cfg = "unet_vgg", tstep.StepConfig(4, (1.0,) * 4, compute_dtype=bf)
     if case == "focal":
@@ -126,7 +128,9 @@ def test_unported_configurations_raise(case):
         model = "traditional"
         cfg = tstep.StepConfig(4, (1, 15, 0, 0), use_focal=True, use_dice=True, compute_dtype=bf)
     elif case == "aux":
-        cfg = tstep.StepConfig(4, (1.0,) * 4, aux_weights=(1.0, 0.4), compute_dtype=bf)
+        model = "balancedseg_fpn_sup"
+        cfg = tstep.StepConfig(4, (1.0,) * 4, aux_weights=(1.0, 0.4, 0.3, 0.2),
+                               compute_dtype=bf)
     else:
         model = "unet_resnet50"
     net = build_model(model, 4)
@@ -140,10 +144,9 @@ def test_unported_configurations_raise(case):
             tstep.check_ported(net, dataclasses.replace(cfg, train_route=route),
                                torch.device(dev))
         return
-    with pytest.raises(NotImplementedError, match="deep supervision"):
-        tstep.check_ported(net, cfg, torch.device("cuda"))
-    # the same model and recipe run on the CPU
-    tstep.check_ported(net, cfg, torch.device("cpu"))
+    # deep supervision runs on the card and on the CPU
+    for dev in ("cuda", "cpu"):
+        tstep.check_ported(net, cfg, torch.device(dev))
     ok = tstep.StepConfig(4, (1.0,) * 4, use_dice=True, compute_dtype=bf)
     tstep.check_ported(build_model("unet_vgg", 4), ok, torch.device("cuda"))
     # a compute dtype that has no kernel instantiation raises on the card

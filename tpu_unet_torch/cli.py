@@ -8,9 +8,14 @@
         --split val.txt --image-dir JPEGImages --gt-dir SegmentationClass
 
     python -m tpu_unet_torch.cli train --preset traditional --data-root /data
+    python -m tpu_unet_torch.cli fold --model-path repvgg.pth --out deploy.pth
 
-Everything runs on the card; ``--cpu`` runs on the CPU instead.  The
-``fold``, ``summary`` and ``export`` subcommands come with their slices.
+Everything runs on the card; ``--cpu`` runs on the CPU instead.
+``--model`` puts any registry model in the preset's place (``predict``,
+``miou``, ``train``).  ``fold`` writes a ``repvgg_segnet`` checkpoint's
+deploy form (``models/repvgg.py::fold_repvgg``), which ``predict`` and
+``miou`` serve as they find it.  The ``summary`` and ``export``
+subcommands come with their slice.
 ``train --wandb`` logs through ``wandb`` and raises where it does not
 import (nothing is installed or downloaded).
 """
@@ -22,6 +27,8 @@ import os
 
 def _add_common(p):
     p.add_argument("--model-path", default="")
+    p.add_argument("--model", default="",
+                   help="registry model in place of the preset's")
     p.add_argument("--num-classes", type=int)
     p.add_argument("--input-shape", type=int, nargs=2)
     p.add_argument("--cpu", action="store_true",
@@ -30,6 +37,8 @@ def _add_common(p):
 
 def _wrapper_overrides(args):
     over = {"model_path": args.model_path, "cuda": not args.cpu}
+    if args.model:
+        over["model"] = args.model
     if args.num_classes:
         over["num_classes"] = args.num_classes
     if args.input_shape:
@@ -52,6 +61,8 @@ def cmd_train(args):
                                       f"does not import here ({e}); nothing is "
                                       "installed or downloaded") from e
     overrides = {}
+    if args.model:
+        overrides["model"] = args.model
     if args.model_path:
         overrides["model_path"] = args.model_path
     if args.num_classes:
@@ -159,6 +170,26 @@ def cmd_miou(args):
              image_dir=args.image_dir, pred_dir=args.pred_dir)
 
 
+def cmd_fold(args):
+    """The RepVGG re-parameterisation, ``switch_to_deploy``'s counterpart
+    (reference: RepVGG_Unet.py:203-207): a training checkpoint of the port
+    (a state dict or a full state) in, the deploy form's state dict out,
+    checked by loading it strictly into the ``deploy=True`` model."""
+    import torch
+
+    from tpu_unet_torch.infer.convert import read_state_dict
+    from tpu_unet_torch.models.registry import build_model
+    from tpu_unet_torch.models.repvgg import fold_repvgg
+
+    folded = fold_repvgg(read_state_dict(args.model_path))
+    classes = folded["final.weight"].shape[0]
+    build_model(args.model, classes, deploy=True).load_state_dict(folded, strict=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    torch.save(folded, args.out)
+    print(f"folded {args.model_path} -> {args.out} ({args.model}, {classes} classes, "
+          "deploy form: Unet(model_path=...) builds it)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="tpu_unet_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -210,6 +241,12 @@ def main(argv=None):
     p.add_argument("--names", default="")
     _add_common(p)
     p.set_defaults(fn=cmd_miou)
+
+    p = sub.add_parser("fold")
+    p.add_argument("--model", default="repvgg_segnet")
+    p.add_argument("--model-path", required=True)
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_fold)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -9,11 +9,14 @@ ImageNet ResNet50 file is not in the repository: ``--no-pretrained`` /
 ``pretrained_backbone=False``), and the DataB presets
 ``traditional``, ``lightweight``, ``ultralight``, ``ultralight_large``,
 ``ultralight_large_optimized`` and ``wandb_traditional`` (focal or CE +
-dice on the heavy-augmentation set).  Every preset trains on the card
-in either precision: ``fp16=True`` in bf16, ``fp16=False`` (the default)
-in float32 on the kernels' float32 instantiations (TF32 products,
-``train/step.py::check_ported``).  The presets of the other registry
-models (and of deep supervision) come with the slices that port them.
+dice on the heavy-augmentation set), ``hybrid_efficientseg`` (heavy
+augmentation), and ``balancedseg_fpn``, ``balancedseg_crfs`` and
+``balancedseg_fpn_sup`` (deep supervision, aux weights (1.0, 0.4, 0.3,
+0.2)) on the DataB defect layout.  That is every preset of the JAX
+package.  Every preset trains on the card in either precision:
+``fp16=True`` in bf16, ``fp16=False`` (the default) in float32 on the
+kernels' float32 instantiations (TF32 products,
+``train/step.py::check_ported``).
 """
 from __future__ import annotations
 
@@ -137,6 +140,38 @@ PRESETS = {
         freeze_batch_size=32, unfreeze_batch_size=32, init_lr=1e-4,
         weight_decay=1e-4, dice_loss=True, focal_loss=True, fp16=True,
         cls_weights=(1, 15, 1.5, 2), dataset="heavy"),
+    # reference: HybridEfficientSeg_Train.py (cls_weights [0,15,0,0])
+    "hybrid_efficientseg": TrainConfig(
+        model="hybrid_efficientseg", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=100, unfreeze_epoch=150, freeze_batch_size=32,
+        unfreeze_batch_size=32, init_lr=1e-2, weight_decay=1e-4,
+        dice_loss=True, focal_loss=True, fp16=True,
+        cls_weights=(0, 15, 0, 0), dataset="heavy"),
+    # reference: "dataB-train .py" (FPN, 1000 epochs, batch 96, Min_lr 1e-3·lr,
+    # EarlyStopping patience 100)
+    "balancedseg_fpn": TrainConfig(
+        model="balancedseg_fpn", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=100, unfreeze_epoch=1000, freeze_batch_size=16,
+        unfreeze_batch_size=96, init_lr=1e-2, min_lr_ratio=0.001,
+        weight_decay=1e-4, dice_loss=True, focal_loss=True, fp16=True,
+        patience=100, dataset="defect", dataset_path="datasets"),
+    # reference: "dataB-train_OptimizedBalancedSegWithCRFS .py"
+    "balancedseg_crfs": TrainConfig(
+        model="balancedseg_crfs", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=100, unfreeze_epoch=400, freeze_batch_size=16,
+        unfreeze_batch_size=16, init_lr=1e-2, weight_decay=1e-4,
+        dice_loss=True, focal_loss=True, fp16=True, patience=10,
+        dataset="defect", dataset_path="datasets"),
+    # reference: dataB-train_Supervision.py (deep supervision; the script's
+    # fit function is missing upstream — the aux weights are the JAX
+    # package's)
+    "balancedseg_fpn_sup": TrainConfig(
+        model="balancedseg_fpn_sup", num_classes=4, input_shape=(256, 256),
+        freeze_epoch=100, unfreeze_epoch=400, freeze_batch_size=16,
+        unfreeze_batch_size=16, init_lr=1e-2, weight_decay=1e-4,
+        dice_loss=False, focal_loss=False, fp16=True,
+        aux_weights=(1.0, 0.4, 0.3, 0.2), dataset="defect",
+        dataset_path="datasets"),
     # reference: "wandb-unet-train .py" (TraditionalUnet on heavy aug)
     "wandb_traditional": TrainConfig(
         model="traditional", num_classes=4, input_shape=(256, 256),

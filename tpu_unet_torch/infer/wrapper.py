@@ -1,9 +1,8 @@
 """The ``Unet`` inference wrapper of the port (counterpart of
 ``tpu_unet/infer/wrapper.py``): the batched serving step and the reference's
-single-image API, for every ported model (``unet_vgg``, ``unet_resnet50``,
-``self_net``, ``traditional``, ``traditional22``, ``lightweight``,
-``ultralight``, ``ultralight_large``, ``ultralight_large_optimized``,
-``ultralight44``).
+single-image API, for every model of the registry (``models/registry.py``,
+the JAX package's 18; a ``repvgg_segnet`` checkpoint in its folded deploy
+form builds the ``deploy=True`` model).
 
 ``cuda=True`` (the default) runs on the card through the hand-written
 kernels and raises when there is no card; ``cuda=False`` runs on the CPU
@@ -38,7 +37,7 @@ import torch
 
 from tpu_unet_torch.core.precision import cast_params, for_device, normalize_u8
 from tpu_unet_torch.data.transforms import cvt_rgb, letterbox_image
-from tpu_unet_torch.infer.convert import load_state_dict
+from tpu_unet_torch.infer.convert import load_state_dict, read_state_dict
 from tpu_unet_torch.kernels.postprocess import (HIST_BLOCK, argmax_mask,
                                                 final_argmax, final_argmax_hist,
                                                 masks_and_hist)
@@ -122,10 +121,16 @@ class Unet:
         """Build the net and its weights: a torch state dict in reference
         key names from ``model_path`` (``infer/convert.py::load_state_dict``:
         strict but for ``num_batches_tracked``, an EarlyStopping wrapper
-        unwrapped), else the seeded init of ``models/registry.py``."""
-        net = build_model(self._model_name(), self.num_classes)
-        if self.model_path:
-            load_state_dict(net, self.model_path)
+        unwrapped), else the seeded init of ``models/registry.py``.  Weights
+        with a ``reparam`` conv (``cli fold``'s output) build the deploy
+        form."""
+        name = self._model_name()
+        sd = read_state_dict(self.model_path) if self.model_path else None
+        kwargs = {"deploy": True} if sd is not None and any(
+            ".reparam." in k for k in sd) else {}
+        net = build_model(name, self.num_classes, **kwargs)
+        if sd is not None:
+            load_state_dict(net, sd, name)
         else:
             init_model(net, self.seed)
         self.net = net.to(self.device).eval()
@@ -152,7 +157,10 @@ class Unet:
         float32 logits ``(1, H, W, C)`` at the input resolution on the
         device."""
         x = torch.as_tensor(x).to(self.device)
-        logits = self._net()(normalize_images(x, self.prec.compute_dtype)).float()
+        logits = self._net()(normalize_images(x, self.prec.compute_dtype))
+        if isinstance(logits, (tuple, list)):  # a model that also returns heads
+            logits = logits[0]
+        logits = logits.float()
         # models whose logits are not at the input resolution (self_net ×2)
         if logits.shape[1:3] != x.shape[1:3]:
             logits = resize_bilinear(logits, x.shape[1:3], align_corners=True)
@@ -315,8 +323,9 @@ class Unet:
           the TraditionalUnet family JAX's 1024-row block,
           ``postprocess.py:146-152``); else the mask-only kernel and a
           separate histogram;
-        - any other model (``self_net``, the ladder models, ``lightweight``;
-          the JAX generic branch, ``wrapper.py:423-444``): logits (where
+        - any other model (``self_net``, the ladder models, ``lightweight``
+          and the other eight registry models; the JAX generic branch,
+          ``wrapper.py:423-444``, a tuple's first element): logits (where
           their size is not the input's: → float32 → align-corners resize)
           → the ``argmax_mask`` kernel, which compares in float32 and
           writes the uint8 mask → histogram.  JAX's ladder fused tail is opt-in only
@@ -348,6 +357,8 @@ class Unet:
                 return masks_and_hist(final_argmax(feats, final.weight, final.bias,
                                                    num_classes), num_classes)
             logits = net(x)
+            if isinstance(logits, (tuple, list)):
+                logits = logits[0]
             if logits.shape[1:3] != imgs.shape[1:3]:
                 logits = resize_bilinear(logits.float(), imgs.shape[1:3],
                                          align_corners=True)

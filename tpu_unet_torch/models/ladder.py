@@ -7,10 +7,12 @@ UltraLightweight family (counterpart of ``tpu_unet/models/ladder.py``):
                 block
     1×1 final conv → align-corners resize to the input size
 
-Four configurations: ``ultralight``, ``ultralight_large``,
+Six configurations: ``ultralight``, ``ultralight_large``,
 ``ultralight_large_optimized`` (the DataB submission model, 926,347
-parameters at 4 classes) and ``ultralight44``.  Only the ``light8`` and
-``light16`` block kinds are ported.  NHWC in and out; module names follow
+parameters at 4 classes), ``ultralight44``, ``sk_ultralight`` (the
+``"sk"`` kind, LightSKBlock) and ``repvgg_segnet`` (the ``"repvgg"`` kind,
+RepVGGStem, with its ``deploy`` form; ``"fusedmb"`` with
+``use_repvgg=False``).  NHWC in and out; module names follow
 the reference torch models (``enc{i}``, ``se{i}``, ``bridge``, ``dec{i}``,
 ``final``).  Plain PyTorch: the JAX package runs these models outside any
 Pallas kernel; the serving step's class mask is the ``argmax_mask`` kernel,
@@ -27,40 +29,49 @@ import torch
 from torch import nn
 
 from tpu_unet_torch.kernels._plain import max_pool2x2
-from tpu_unet_torch.nn.blocks import (SE, LightConvBlock, dropout2d, se_light,
-                                      se_light_large, se_lightweight)
+from tpu_unet_torch.nn.blocks import (SE, LightConvBlock, LightSKBlock, RepVGGStem, conv1x1,
+                                      dropout2d, se_light, se_light_large, se_lightweight)
 from tpu_unet_torch.nn.resize import resize_bilinear
 
-_MID_FLOOR = {"light8": 8, "light16": 16}
 _SE_RULES = {"light": se_light, "light_large": se_light_large,
              "lightweight": se_lightweight}
+
+
+def _make_block(kind: str, in_size: int, features: int, deploy: bool) -> nn.Module:
+    """The stage block of ``kind`` (JAX ``models/ladder.py::_make_block``)."""
+    if kind == "light8":
+        return LightConvBlock(in_size, features, 8)
+    if kind == "light16":
+        return LightConvBlock(in_size, features, 16)
+    if kind == "sk":
+        return LightSKBlock(in_size, features)
+    if kind == "repvgg":
+        return RepVGGStem(in_size, features, use_repvgg=True, deploy=deploy)
+    if kind == "fusedmb":
+        return RepVGGStem(in_size, features, use_repvgg=False)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 class LadderUNet(nn.Module):
     def __init__(self, num_classes: int, channels: Tuple[int, int, int, int, int],
                  block: str = "light8", se: Optional[str] = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, deploy: bool = False):
         super().__init__()
-        if block not in _MID_FLOOR:
-            raise NotImplementedError(
-                f"LadderUNet block kind {block!r} is not ported yet "
-                f"(ported: {sorted(_MID_FLOOR)})")
-        floor = _MID_FLOOR[block]
         self.num_classes = num_classes
         self.dropout = dropout  # Dropout2d on the bridge, in train mode
         c1, c2, c3, c4, cb = channels
         cin = 3
         for i, c in enumerate((c1, c2, c3, c4), start=1):
-            setattr(self, f"enc{i}", LightConvBlock(cin, c, floor))
+            setattr(self, f"enc{i}", _make_block(block, cin, c, deploy))
             cin = c
         self.se = se
         if se is not None:
             for i, c in enumerate((c1, c2, c3, c4), start=1):
                 setattr(self, f"se{i}", SE(c, _SE_RULES[se](c)))
-        self.bridge = LightConvBlock(c4, cb, floor)
+        self.bridge = _make_block(block, c4, cb, deploy)
         prev = cb
         for i, c in zip((4, 3, 2, 1), (c4, c3, c2, c1)):
-            setattr(self, f"dec{i}", LightConvBlock(prev + c, c, floor))
+            setattr(self, f"dec{i}", _make_block(block, prev + c, c, deploy))
             prev = c
         self.final = nn.Conv2d(c1, num_classes, 1)
 
@@ -85,9 +96,7 @@ class LadderUNet(nn.Module):
             h = getattr(self, f"dec{i}")(torch.cat([up, skip], dim=-1), train)
         if features_out:
             return h
-        w = self.final.weight.reshape(self.num_classes, -1)
-        logits = h @ w.t().to(h.dtype) + self.final.bias.to(h.dtype)
-        return resize_bilinear(logits, x.shape[1:3], align_corners=True)
+        return resize_bilinear(conv1x1(self.final, h), x.shape[1:3], align_corners=True)
 
 
 def ultralight(num_classes: int = 21) -> LadderUNet:
@@ -115,3 +124,19 @@ def ultralight44(num_classes: int = 21) -> LadderUNet:
     rule, mid floor 16)."""
     return LadderUNet(num_classes, (44, 88, 176, 352, 704), block="light16",
                       se="lightweight", dropout=0.15)
+
+
+def sk_ultralight(num_classes: int = 21) -> LadderUNet:
+    """SK_UltraLightweightUnet (reference: nets/SK_UltraLightweightUnet.py:85-141)."""
+    return LadderUNet(num_classes, (44, 88, 176, 352, 704), block="sk",
+                      se="light_large", dropout=0.15)
+
+
+def repvgg_segnet(num_classes: int = 21, use_repvgg: bool = True,
+                  deploy: bool = False) -> LadderUNet:
+    """ImprovedSegNet, the RepVGG-block UNet (reference: nets/RepVGG_Unet.py:150-207);
+    ``deploy=True`` is the folded form (``models/repvgg.py::fold_repvgg``),
+    ``use_repvgg=False`` the FusedMBConv variant."""
+    return LadderUNet(num_classes, (44, 88, 176, 352, 704),
+                      block="repvgg" if use_repvgg else "fusedmb",
+                      se="light_large", dropout=0.15, deploy=deploy)

@@ -1,10 +1,13 @@
 """Model registry of the port (counterpart of ``tpu_unet/models/registry.py``).
 
-Ported: the canonical UNets (``unet_vgg``, ``unet_resnet50``, ``self_net``),
-the TraditionalUnet family (``traditional``, ``traditional22``), the ladder
-family's ``ultralight``, ``ultralight_large``, ``ultralight_large_optimized``
-and ``ultralight44``, and ``lightweight``; the other registry models follow
-in later slices.
+All 18 models of the JAX registry: the canonical UNets (``unet_vgg``,
+``unet_resnet50``, ``self_net``), the TraditionalUnet family
+(``traditional``, ``traditional22``), ``lightweight``, the ladder family
+(``ultralight``, ``ultralight_large``, ``ultralight_large_optimized``,
+``ultralight44``, ``sk_ultralight``, ``repvgg_segnet``),
+``improved_ultralight``, ``hybrid_efficientseg`` and the OptimizedBalancedSeg
+family (``balancedseg``, ``balancedseg_fpn``, ``balancedseg_fpn_sup``,
+``balancedseg_crfs``).
 """
 from __future__ import annotations
 
@@ -14,8 +17,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpu_unet_torch.models.ladder import (ultralight, ultralight44,
-                                          ultralight_large,
+from tpu_unet_torch.models.balancedseg import (balancedseg, balancedseg_crfs,
+                                               balancedseg_fpn, balancedseg_fpn_sup)
+from tpu_unet_torch.models.hybrid import hybrid_efficientseg
+from tpu_unet_torch.models.improved import improved_ultralight
+from tpu_unet_torch.models.ladder import (repvgg_segnet, sk_ultralight, ultralight,
+                                          ultralight44, ultralight_large,
                                           ultralight_large_optimized)
 from tpu_unet_torch.models.lightweight import lightweight
 from tpu_unet_torch.models.traditional import traditional, traditional22
@@ -32,6 +39,14 @@ MODELS: Dict[str, Callable[..., nn.Module]] = {
     "ultralight_large": ultralight_large,
     "ultralight_large_optimized": ultralight_large_optimized,
     "ultralight44": ultralight44,
+    "improved_ultralight": improved_ultralight,
+    "sk_ultralight": sk_ultralight,
+    "repvgg_segnet": repvgg_segnet,
+    "hybrid_efficientseg": hybrid_efficientseg,
+    "balancedseg": balancedseg,
+    "balancedseg_fpn": balancedseg_fpn,
+    "balancedseg_fpn_sup": balancedseg_fpn_sup,
+    "balancedseg_crfs": balancedseg_crfs,
 }
 
 # flax's lecun_normal: truncated normal on (-2, 2), stddev corrected for the
@@ -58,8 +73,10 @@ def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded initialisation as flax does it for these layers
     (``nn/blocks.py:152-156``): lecun-normal fan-in conv and dense kernels
-    (fan-in ``prod(shape[1:])``: a Linear's inputs, a depthwise kernel's 9
-    taps, as flax counts them on its ``(3, 3, 1, C)`` kernel), zero biases;
+    (fan-in ``prod(shape[1:])``: a Linear's inputs, with or without a bias,
+    a grouped kernel's ``in / groups · kh · kw``, a depthwise kernel's 9
+    taps, as flax counts them on its ``(3, 3, 1, C)`` kernel, the spatial
+    attention's 7×7 over 2 channels 98), zero biases;
     batch norm as ``flax.linen.BatchNorm`` starts (scale 1, bias 0, mean 0,
     var 1).  Draws come from ``numpy.random.default_rng(seed)`` in
     conv-parameter order, so a seed gives the same weights on every

@@ -96,6 +96,27 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = True):
     return y if y.dtype == orig_dtype else y.to(orig_dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _nearest_idx(in_size: int, out_size: int) -> torch.Tensor:
+    # torch F.interpolate(mode='nearest'): src = floor(dst * in / out)
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * in_size / out_size)
+    return torch.from_numpy(np.clip(idx.astype(np.int64), 0, in_size - 1))
+
+
+def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
+    """Nearest-neighbour resize of NHWC (or HWC) ``x`` to ``size=(H, W)``
+    with torch's default ``F.interpolate(mode='nearest')`` index rule
+    (``tpu_unet/nn/resize.py:118-138``; the OptimizedBalancedSeg decoder
+    and heads, reference: nets/SegNets.py:658-670): a row and column
+    selection, exact in every dtype."""
+    oh, ow = int(size[0]), int(size[1])
+    y = x
+    for axis, out in ((x.ndim - 3, oh), (x.ndim - 2, ow)):
+        if y.shape[axis] != out:
+            y = y.index_select(axis, _nearest_idx(y.shape[axis], out).to(x.device))
+    return y
+
+
 def upsample2x(x: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
     """×2 bilinear upsample of NHWC ``x`` (decoder hot path)."""
     h, w = x.shape[-3], x.shape[-2]

@@ -56,11 +56,16 @@ def reinit_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """weights_init (reference: nets/unet_training.py:58-76), as JAX's
     ``reinit_weights`` draws it with its defaults: ``np.random.RandomState
     (seed)``, batch-norm scales ~ N(1, 0.02) first, then every conv kernel
-    ~ N(0, 0.02) in HWIO order, zero biases; dense layers keep their
+    ~ N(0, 0.02) in HWIO order, zero biases (dense layers' too, as JAX
+    zeroes the bias of every layer with a kernel); dense kernels keep their
     init.  ``model.modules()`` lists the batch norms and convs in flax's
-    param-tree order for every ported model: where the two trees order
-    their entries differently (the ladder's ``enc{i}`` / ``se{i}``), the
-    entries in between are SE gates, which hold neither."""
+    param-tree order for every model of the registry: where the two trees
+    order their entries differently (the ladder's ``enc{i}`` / ``se{i}``,
+    balancedseg's ``enc{i}_se``), the entries in between are SE gates,
+    which hold neither; the other models register their modules in flax's
+    creation order (improved_ultralight's ``fusion{i}`` before ``dec{i}``,
+    SKConv's ``conv.{i}`` before ``fc1``, RepVGG's 3×3 branch before its
+    1×1 and identity, the FPN's aux heads 3, 2, 1)."""
     rng = np.random.RandomState(seed)
     mods = list(model.modules())
     for m in mods:
@@ -75,6 +80,9 @@ def reinit_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
         k = rng.normal(0.0, 0.02, (kh, kw, i, o))  # HWIO, as JAX draws it
         m.weight.copy_(torch.from_numpy(np.asarray(k, np.float32).transpose(3, 2, 0, 1)))
         if m.bias is not None:
+            m.bias.zero_()
+    for m in mods:
+        if isinstance(m, torch.nn.Linear) and m.bias is not None:
             m.bias.zero_()
     return model
 

@@ -7,18 +7,24 @@
   flow back through the cast, so the optimizer updates float32.
 - Inputs as ``_prepare_batch`` (:120-126): uint8 images / 255 in float32,
   then the compute dtype; int labels.
-- Routing as ``make_train_step`` (:151-216) with the fused loss on, and no
-  aux weights: a canonical ``Unet`` whose features come out at the
-  target's size (``unet_vgg``, and ``unet_resnet50`` after its ``up_conv``
-  head) with CE (± dice) emits its 64-channel features and the fused
+- Routing as ``make_train_step`` (:151-216) with the fused loss on: a
+  canonical ``Unet`` whose features come out at the target's size
+  (``unet_vgg``, and ``unet_resnet50`` after its ``up_conv`` head) with CE
+  (± dice) emits its 64-channel features and the fused
   final-conv + loss (``kernels/loss.py``, #27 / #29) applies ``final``, as
   JAX's ``feat_model`` (:159-161, :197-205); every other model whose logits
   come out at the target's size (``_fused_shape_ok``, :226-243), with CE or
   focal (± dice), takes the logit-level loss (#25 / #26; ``unet_vgg``
-  and ``unet_resnet50`` with focal too); the rest (``self_net``'s and ``lightweight``'s
-  logits at 2× and ½ the input, aux heads) take the plain losses on the
-  logits (``train/losses.py``, which resize them to the target as JAX's
-  do).  The eval step always takes the plain losses (:246-261) on the
+  and ``unet_resnet50`` with focal too; a model that returns heads in train
+  mode with no aux weights, its first head, as JAX's ``fused_loss_fn``,
+  :177-189); with aux weights (deep supervision) every head at the
+  target's size takes its own #25 / #26 launch and the step sums the
+  weighted losses, the f_score from the first head's, which computes
+  JAX's ``_total_loss`` (:129-141); the rest (``self_net``'s and
+  ``lightweight``'s logits at 2× and ½ the input) take the plain losses on
+  the logits (``train/losses.py``, which resize them to the target as
+  JAX's do; ``_total_loss``, the plain version of the deep-supervision
+  sum).  The eval step always takes the plain losses (:246-261) on the
   serving forward, batch norm on the running statistics.
 - The canonical UNets' encoder, decoder and head as JAX's training
   switches route them, named by ``StepConfig.train_route``: ``"paired"``
@@ -45,13 +51,14 @@
 On the card only what has kernels trains: in bf16 the canonical UNets
 (``unet_vgg``, ``unet_resnet50``, ``self_net``) and the DataB models
 (``traditional``, ``traditional22``, the ladder family; ``lightweight`` on
-the plain losses, as JAX), and in float32 (``fp16=False``, ``TrainConfig``'s
-default and the ``voc`` and ``medical`` presets') every one of them on both
-routes, through the float32 instantiations of the kernels (TF32 products,
-float32 everywhere else; the up_conv head's #10 / #12 as well).  Deep
-supervision, and a compute dtype other than bf16 or float32, raise
-(:func:`check_ported`) instead of running a plain path silently; on the
-CPU every recipe runs through the plain versions.
+the plain losses, as JAX; the other eight registry models through cuDNN
+and #25 / #26, deep supervision included), and in float32 (``fp16=False``,
+``TrainConfig``'s default and the ``voc`` and ``medical`` presets') every
+one of them, through the float32 instantiations of the kernels (TF32
+products, float32 everywhere else; the up_conv head's #10 / #12 as well).
+A compute dtype other than bf16 or float32 raises (:func:`check_ported`)
+instead of running a plain path silently; on the CPU every recipe runs
+through the plain versions.
 """
 from __future__ import annotations
 
@@ -163,10 +170,6 @@ def check_ported(model: nn.Module, cfg: StepConfig, device: torch.device) -> Non
         raise NotImplementedError(
             f"compute dtype {cfg.compute_dtype} on the card: the kernels take bf16 or "
             "float32")
-    if cfg.aux_weights:
-        raise NotImplementedError(
-            "deep supervision on the card: the aux heads' training is not ported "
-            "yet (ROADMAP §1)")
 
 
 def cast_params(model: nn.Module, dtype: torch.dtype) -> dict:
@@ -187,6 +190,8 @@ def prepare_batch(batch, compute_dtype: torch.dtype, device: torch.device):
 
 
 def _total_loss(outputs, target, onehot, cfg: StepConfig):
+    """The weighted sum of every head's plain loss and the first head's
+    float32 logits (``step.py:129-141``)."""
     if not isinstance(outputs, (tuple, list)):
         outputs = (outputs,)
     weights = cfg.aux_weights or (1.0,)
@@ -227,10 +232,18 @@ def make_train_step(model: nn.Module, cfg: StepConfig):
                 cfg.cls_weights, cfg.num_classes, with_dice=cfg.use_dice)
         else:
             outputs = functional_call(state.model, params, (imgs,), kwargs)
-            out = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
-            if not cfg.aux_weights and out.shape[1:3] == target.shape[1:3]:
-                loss, fs = ce_dice_loss(out, target, cfg.cls_weights, cfg.num_classes,
+            heads = tuple(outputs) if isinstance(outputs, (tuple, list)) else (outputs,)
+            weights = cfg.aux_weights or (1.0,)
+            heads = heads[:len(weights)]
+            if all(h.shape[1:3] == target.shape[1:3] for h in heads):
+                # one #25 / #26 launch a head, the weighted sum of the losses
+                loss, fs = ce_dice_loss(heads[0], target, cfg.cls_weights, cfg.num_classes,
                                         with_dice=cfg.use_dice, use_focal=cfg.use_focal)
+                loss = loss * weights[0] if cfg.aux_weights else loss
+                for h, w in zip(heads[1:], weights[1:]):
+                    loss = loss + w * ce_dice_loss(
+                        h, target, cfg.cls_weights, cfg.num_classes, with_dice=cfg.use_dice,
+                        use_focal=cfg.use_focal)[0]
             else:
                 onehot = one_hot(target, cfg.num_classes)
                 loss, main = _total_loss(outputs, target, onehot, cfg)
@@ -238,6 +251,10 @@ def make_train_step(model: nn.Module, cfg: StepConfig):
                     fs = f_score(main, onehot)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:  # not reached by the loss: JAX's zero gradient
+                    p.grad = torch.zeros_like(p)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach(), "f_score": fs.detach()}
