@@ -70,6 +70,19 @@ Phases (any failure exits non-zero without the final result line):
    its three launches' device time read by the profiler on a second run);
    ``evaluate`` over 8 images against the CPU float32 path; the ``predict``
    and ``miou`` CLI subcommands in the process;
+5b. the rest of the CLI and tools: ``cli summary --model unet_vgg --size
+   512`` (JAX's parameter count); ``cli export --preset voc_vgg`` of
+   ``unet_vgg`` and of ``self_net`` at 512² on the card, each program's
+   graph (the kernels' operators, no convolution of aten), loaded back and
+   run on a seeded float32 image: its launches (the float32 kernels, those
+   of the live float32 forward), its probabilities bit-equal to the live
+   forward's; the logits within ``kernels/tf32.py``'s conv bound (relative
+   to their scale) and the probabilities within ``EXPORT_PROBS_ABS_TOL``
+   of the plain float32 forward on the card; ``quantized_apply`` of ``unet_vgg`` at
+   512², batch 8, against the plain float32 forward with the same
+   dequantized weights, and the int8 / float32 bytes; ``export_results``
+   with ``voc_vgg`` (4 classes) and ``traditional`` over four seeded
+   images, ``pack_submission`` and ``check_nan_in_npy``;
 6. training: (a) the ``unet_vgg`` train step (``train/step.py``) at
    512x512, batch 8, 21 classes, bf16, CE + dice, Adam, from
    ``init_model(seed=0)`` weights on seeded rectangle batches made on the
@@ -1980,6 +1993,223 @@ def phase_tools(card: str):
                           "miou_line": text.strip().splitlines()[-1],
                           "gpu": card}), flush=True)
     print(f"phase 5: tools in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return totals
+
+
+# the float32 forward of the export and of the quantized bundle (JAX's
+# float branch): the float32 instantiations of the kernels the eval forward
+# reaches, each upsample kernel once a decoder stage and once in the head
+EXPORT = {
+    "unet_vgg": {"vgg_stem_f32": 1, "vgg_block_f32": 4, "unetup_f32": 4, "upsample2x_f32": 4},
+    "self_net": {"vgg_stem_f32": 1, "vgg_block_f32": 4, "unetup_f32": 4, "upsample2x_f32": 5,
+                 "upconv_f32": 1},
+}
+# the exported programs' probabilities from the plain float32 forward's:
+# about 4x the readings on an H100 (2.46e-5 unet_vgg, 1.33e-5 self_net)
+EXPORT_PROBS_ABS_TOL = 1e-4
+# get_miou_png's single-image forward (bf16) at 512² for unet_vgg, 256² for
+# traditional
+MIOU_PNG = {"unet_vgg": SINGLE[("unet_vgg", SIZE, 20)],
+            "traditional": SINGLE[("traditional", DATAB_SIZE, 50)]}
+
+
+def export_case(model: str, card: str, tmp: Path, totals: dict, add):
+    """``cli export`` of ``model`` (the ``voc_vgg`` preset) at 512² on the
+    card, loaded back and run on a seeded float32 image: its launches
+    (those of the live float32 forward), its probabilities against the live
+    forward's, the logits and probabilities against the plain float32
+    forward's on the card (TF32 off), and its graph (the kernels'
+    operators, no convolution of aten)."""
+    import contextlib
+    import io
+
+    from tpu_unet_torch import cli
+    from tpu_unet_torch.configs.infer_presets import build_wrapper
+    from tpu_unet_torch.infer.wrapper import input_res_logits
+    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.tools.export import ProbsForward, load_program
+
+    path = tmp / f"{model}.pt2"
+    argv = ["export", "--preset", "voc_vgg", "--out", str(path)]
+    if model != "unet_vgg":
+        argv += ["--model", model]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        _, counts = counted({}, f"cli export {model}", lambda: cli.main(argv))
+    t_export = time.perf_counter() - t0
+    check("torch.export program saved to" in buf.getvalue(), f"cli export said {buf.getvalue()!r}")
+    program = torch.export.load(str(path))
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    ops = {t: targets.count(t) for t in targets if t.startswith("tpu_unet_torch.")}
+    want_ops = {"tpu_unet_torch.vgg_stem.default": 1, "tpu_unet_torch.vgg_block.default": 4,
+                "tpu_unet_torch.unetup.default": 4}
+    if model == "self_net":
+        want_ops["tpu_unet_torch.upconv.default"] = 1
+    check(ops == want_ops, f"export {model}: the graph's kernel operators {ops} != {want_ops}")
+    stand_ins = [t for t in targets if "conv" in t and not t.startswith("tpu_unet_torch.")]
+    check(not stand_ins, f"export {model}: {stand_ins} in the graph where the kernels run")
+    del program
+
+    x = torch.from_numpy(np.random.default_rng(7).random((1, SIZE, SIZE, 3), np.float32)).cuda()
+    run = load_program(str(path))
+    run(x)  # warm-up
+    out, counts = counted(EXPORT[model], f"exported {model}", lambda: run(x))
+    add(model, counts)
+    u = build_wrapper("voc_vgg", model=model)
+    live_fn = ProbsForward(u.net).eval()
+    with torch.no_grad():
+        live, live_counts = counted(EXPORT[model], f"live float32 {model}", lambda: live_fn(x))
+        logits = input_res_logits(u.net(x), x.shape[1:3])
+        with plain_on_card():
+            plain_logits = input_res_logits(u.net(x), x.shape[1:3])
+    bit_equal = bool(torch.equal(out, live))
+    check(bit_equal, f"export {model}: probabilities differ from the live forward's by "
+                     f"{(out - live).abs().max().item():.3e}")
+    # the program is the live forward, bit for bit; the kernels are held
+    # to the plain float32 forward on the logits, relative to their scale
+    # (a wrong kernel moves them by O(1) of it, TF32 by ~1e-3), and on the
+    # probabilities against EXPORT_PROBS_ABS_TOL
+    _, lrel = rel_err(logits, plain_logits)
+    check(lrel <= tf32.CONV_REL_TOL,
+          f"export {model}: logits {lrel:.3e} of their scale from the plain float32 forward")
+    err = (out - torch.softmax(plain_logits, -1)).abs().max().item()
+    check(err <= EXPORT_PROBS_ABS_TOL,
+          f"export {model}: probabilities {err:.3e} from the plain float32 forward")
+    check(tuple(out.shape) == (1, SIZE, SIZE, 21) and out.dtype == torch.float32
+          and bool(torch.isfinite(out).all())
+          and (out.sum(-1) - 1).abs().max().item() < 1e-4, f"export {model}: output")
+    ms = time_ms(lambda: run(x))
+    with torch.no_grad():
+        live_ms = time_ms(lambda: live_fn(x))
+    print(json.dumps({"tools": "export", "model": model, "size": SIZE,
+                      "bytes": path.stat().st_size, "export_s": t_export,
+                      "graph_kernel_ops": ops, "launches": counts,
+                      "equals_live_forward": bit_equal,
+                      "logits_rel_err_vs_plain_f32": lrel, "logits_bound": tf32.CONV_REL_TOL,
+                      "max_abs_err_vs_plain_f32": err, "bound": EXPORT_PROBS_ABS_TOL,
+                      "program_ms": ms, "live_ms": live_ms, "gpu": card}), flush=True)
+    del u, live_fn, run
+    torch.cuda.empty_cache()
+
+
+def quantized_case(card: str, add):
+    """``quantized_apply`` of unet_vgg at 512², batch 8, on the card
+    (float32 through the float32 kernels) against the plain float32
+    forward with the same dequantized weights; the int8 / float32 bytes."""
+    from tpu_unet_torch.configs.infer_presets import build_wrapper
+    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.tools.quantization import (dequantize_params, quantization_report,
+                                                   quantize_variables, quantized_apply)
+
+    u = build_wrapper("voc_vgg")
+    bundle = quantize_variables(u.net)
+    report = quantization_report(u.net)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device="cuda")
+    quantized_apply(u.net, bundle, x)  # warm-up
+    out, counts = counted(EXPORT["unet_vgg"], "quantized_apply unet_vgg",
+                          lambda: quantized_apply(u.net, bundle, x))
+    add("unet_vgg", counts)
+    state = {**dequantize_params(bundle["quantized"], bundle["rest"]), **bundle["batch_stats"]}
+    with torch.no_grad(), plain_on_card():
+        ref = torch.func.functional_call(u.net, state, (x,))
+    err, rel = rel_err(out, ref)
+    check(rel <= tf32.CONV_REL_TOL, f"quantized_apply: {rel:.3e} of the plain float32 logits")
+    w = u.net.vgg.features[0].weight
+    q = bundle["quantized"]["vgg.features.0.weight"]
+    check(q["values"].dtype == torch.int8 and q["values"].device == w.device
+          and q["scale"].shape == (w.shape[0], 1, 1, 1), "quantized bundle layout")
+    print(json.dumps({"tools": "quantized_apply", "model": "unet_vgg", "batch": BATCH,
+                      "size": SIZE, "launches": counts, "max_abs_err": err, "rel_err": rel,
+                      "bound": tf32.CONV_REL_TOL, "ms": time_ms(lambda: quantized_apply(
+                          u.net, bundle, x), 3),
+                      "f32_bytes": report["f32_bytes"], "int8_bytes": report["int8_bytes"],
+                      "int8_over_f32": report["ratio"], "gpu": card}), flush=True)
+    del u, bundle, state, out, ref
+    torch.cuda.empty_cache()
+
+
+def phase_export_tools(card: str):
+    """Phase 5b, the rest of the CLI and tools: ``cli summary``, ``cli
+    export`` of unet_vgg and self_net, ``quantized_apply``, the competition
+    export (``export_results``, ``pack_submission``, ``check_nan_in_npy``).
+    Returns the launches of the counted runs by ``kernels`` entry."""
+    import contextlib
+    import io
+    import tempfile
+
+    from PIL import Image
+
+    from tpu_unet_torch import cli
+    from tpu_unet_torch.configs.infer_presets import build_wrapper
+    from tpu_unet_torch.tools.results_export import (METRICS_FILE, check_nan_in_npy,
+                                                     export_results, pack_submission)
+
+    totals: dict = {}
+
+    def add(model, counts):
+        for k, v in counts.items():
+            totals[entry(model, k)] = totals.get(entry(model, k), 0) + v
+
+    t_phase = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["summary", "--model", "unet_vgg", "--size", "512"])
+    check("Total params:  24,892,437" in buf.getvalue(), f"cli summary said {buf.getvalue()!r}")
+    print(json.dumps({"tools": "summary", "lines": buf.getvalue().splitlines(),
+                      "seconds": time.perf_counter() - t_phase}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for model in ("unet_vgg", "self_net"):
+            export_case(model, card, tmp, totals, add)
+        quantized_case(card, add)
+
+        # the competition export: two wrappers over four seeded images
+        rng = np.random.default_rng(12)
+        img_dir, gt_dir = tmp / "img", tmp / "gt"
+        img_dir.mkdir()
+        gt_dir.mkdir()
+        ids = [f"c{i}" for i in range(4)]
+        for name in ids:
+            Image.fromarray(_seeded_image(rng, 300, 200)).save(img_dir / f"{name}.jpg", quality=90)
+            Image.fromarray(rng.integers(0, 4, (200, 300)).astype(np.uint8)).save(
+                gt_dir / f"{name}.png")
+        models = {"UNet": build_wrapper("voc_vgg", num_classes=4),
+                  "OursModel": build_wrapper("traditional")}
+        iters = 5
+        calls = len(ids) + 1 + iters  # the images, calculate_fps' warm-up and loop
+        expect = {}
+        for m in MIOU_PNG.values():
+            for k, v in m.items():
+                expect[k] = expect.get(k, 0) + v * calls
+        t0 = time.perf_counter()
+        metrics, counts = counted(expect, "export_results", lambda: export_results(
+            models, ids, str(img_dir), str(gt_dir), 4, str(tmp / "sub"), fps_iters=iters))
+        t_res = time.perf_counter() - t0
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        text = (tmp / "sub" / METRICS_FILE).read_text(encoding="utf-8")
+        check(text == repr(metrics), "export_results: the metrics file is not the dict's repr")
+        for name, m in metrics.items():
+            ok = all(np.isfinite(v) for v in m.values()) and m["FPS"] > 0 and 0 <= m["mIoU"] <= 1
+            check(ok and len(list((tmp / "sub" / name).glob("*.npy"))) == 2 * len(ids),
+                  f"export_results {name}: {m}")
+        check(metrics["UNet"]["Parameters"] == 24_891_332
+              and metrics["OursModel"]["Parameters"] == 1_949_796,
+              f"export_results parameters {[m['Parameters'] for m in metrics.values()]}")
+        archive = pack_submission(str(tmp / "sub"), str(tmp / "submission.zip"))
+        nan = [check_nan_in_npy(str(tmp / "sub" / name)) for name in metrics]
+        check(Path(archive).stat().st_size > 0 and nan == [0, 0], f"pack / NaN audit {nan}")
+        print(json.dumps({"tools": "export_results", "models": {
+            k: {"model": u._model_name(), "size": u.input_shape[0]} for k, u in models.items()},
+            "images": len(ids), "metrics": metrics, "seconds": t_res, "launches": counts,
+            "archive_bytes": Path(archive).stat().st_size, "nan_files": nan, "gpu": card}),
+            flush=True)
+        del models
+        torch.cuda.empty_cache()
+    print(f"phase 5b: the rest of the CLI and tools in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return totals
 
 
@@ -4377,9 +4607,11 @@ def main() -> int:
     t2 = time.perf_counter()
     results = phase_kernels(card)
     phase_train_kernels(card, results)
-    print(f"phase 2: kernels in {time.perf_counter() - t2:.1f} s", flush=True)
+    from tpu_unet_torch.tools.bench_launch import EMPTY_WINDOWS
+    print(f"phase 2: kernels in {time.perf_counter() - t2:.1f} s; "
+          f"{EMPTY_WINDOWS['windows']} empty profiler windows retaken", flush=True)
     counts = phase_serving(card)
-    for phase in (phase_single_image, phase_tools, phase_train):
+    for phase in (phase_single_image, phase_tools, phase_export_tools, phase_train):
         for k, v in phase(card).items():
             counts[k] = counts.get(k, 0) + v
     for k, v in phase_f32(card, results).items():

@@ -12,6 +12,7 @@ checked in ``tests/test_torch_tail_sm90.py``.
 """
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet_torch.kernels.decoder_train import (ADJ_MAX_CONSUMERS, ADJ_RPS, ADJ_STAGES,

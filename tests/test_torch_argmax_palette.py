@@ -6,6 +6,7 @@ outside the palette, several blend factors."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet.kernels.postprocess import fused_argmax_mask, fused_mask_palette

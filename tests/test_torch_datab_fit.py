@@ -14,6 +14,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from test_torch_fit import write_voc
 from test_torch_resnet import randomize_batch_norm, to_numpy

@@ -4,6 +4,7 @@ DataB step's float32 gradients against a float64 evaluation, on the CPU
 import contextlib
 
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from test_torch_datab_train import C, CW, LADDER_CW, _batch, _jax_vars, _pair, _rel
 from test_torch_resnet import to_numpy

@@ -4,6 +4,7 @@ tables the CUDA kernel's operand loader reads."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet.kernels.decoder_fuse import _fused_unetup_fwd_impl, reference_unetup

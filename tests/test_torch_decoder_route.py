@@ -18,6 +18,7 @@ The ``up_conv`` head of ``unet_resnet50`` and ``self_net`` trains through
 ``upconv_plain`` under ``"fused"``; ResNet50 trains plain on both."""
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet_torch.kernels import decoder_fuse, encoder_train, upconv

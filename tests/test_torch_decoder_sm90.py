@@ -28,6 +28,7 @@ import itertools
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from jax import enable_x64
 

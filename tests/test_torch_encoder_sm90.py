@@ -14,6 +14,7 @@ import itertools
 
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet_torch.core.precision import normalize_u8

@@ -11,6 +11,7 @@ import shutil
 import jax
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from PIL import Image
 

@@ -8,6 +8,7 @@ tests).  On a machine with a card and without JAX:
 This file imports only torch and the port.
 """
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 # conv outputs in bf16 with f32 sums in another order than cuDNN's
@@ -2164,3 +2165,100 @@ def test_pack_kernel_refuses_what_it_does_not_take(cuda):
                    ([w.bfloat16()], torch.float32)):
         with pytest.raises(ValueError):
             _build.pack_weights(ws, dt)
+
+
+def _op_case(gen, op, dt):
+    """(op, args) at small shapes its kernel tiles, in ``dt``."""
+    from tpu_unet_torch.kernels import decoder_fuse, encoder, stem, upconv
+
+    def conv(f, c):
+        w, b = _conv(gen, f, c)
+        return w.to(dt), b.to(dt)
+
+    act = lambda *s: _act(gen, *s).to(dt)  # noqa: E731
+    if op == "vgg_stem":
+        img = torch.randint(0, 256, (2, 32, 48, 3), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+        return stem.vgg_stem_op, (img, *conv(64, 3), *conv(64, 64))
+    if op == "vgg_block":
+        (w0, b0), (w1, b1) = conv(128, 64), conv(128, 128)
+        return encoder.vgg_block_op, (act(2, 32, 32, 64), [w0, w1], [b0, b1], True)
+    if op == "unetup":
+        return decoder_fuse.unetup_op, (act(2, 32, 32, 64), act(2, 16, 16, 128), *conv(64, 192),
+                                        *conv(64, 64))
+    return upconv.upconv_op, (act(2, 16, 16, 64), *conv(64, 64), *conv(64, 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("op", ["vgg_stem", "vgg_block", "unetup", "upconv"])
+def test_kernel_op_opcheck(cuda, op, dt):
+    """Each kernel's operator passes ``torch.library.opcheck`` (its schema,
+    its autograd registration, its fake against the kernel's outputs, a
+    dynamic-shape trace) in bf16 and float32."""
+    fn, args = _op_case(cuda, op, dt)
+    torch.library.opcheck(fn, args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,expect", [
+    ("unet_vgg", {"vgg_stem_f32": 1, "vgg_block_f32": 4, "unetup_f32": 4, "upsample2x_f32": 4,
+                  "pack_weights_f32": 9}),
+    ("self_net", {"vgg_stem_f32": 1, "vgg_block_f32": 4, "unetup_f32": 4, "upsample2x_f32": 5,
+                  "upconv_f32": 1, "pack_weights_f32": 10})])
+def test_exported_program_launches_the_kernels(cuda, model, expect, tmp_path):
+    """A program exported on the card at 256² holds the kernels' operators
+    and no convolution; run, it launches the float32 kernels as the live
+    float32 forward does and gives its probabilities bit for bit."""
+    import shutil
+
+    from tpu_unet_torch.infer.wrapper import Unet
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts
+    from tpu_unet_torch.tools.export import ProbsForward, load_program
+
+    u = Unet(model=model, num_classes=21, input_shape=[256, 256])
+    path = str(tmp_path / "m.pt2")
+    reset_launch_counts()
+    u.convert_to_export(path)
+    assert not any(launch_counts.values())  # tracing launches nothing
+    targets = [str(n.target) for n in torch.export.load(path).graph.nodes
+               if n.op == "call_function"]
+    assert not any("conv" in t and not t.startswith("tpu_unet_torch.") for t in targets)
+    x = torch.rand((1, 256, 256, 3), generator=cuda, device="cuda")
+    run = load_program(path)
+    reset_launch_counts()
+    out = run(x)
+    torch.cuda.synchronize()
+    want = {k: expect.get(k, 0) for k in launch_counts}
+    assert dict(launch_counts) == want
+    reset_launch_counts()
+    with torch.no_grad():
+        live = ProbsForward(u.net)(x)
+    assert dict(launch_counts) == want
+    assert torch.equal(out, live)
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.mark.gpu
+def test_quantized_apply_matches_plain(cuda):
+    """``quantized_apply`` of unet_vgg at 256², batch 2, on the float32
+    kernels against the plain float32 forward with the same dequantized
+    weights (TF32 off), within the float32 conv bound."""
+    from chip_smoke import plain_on_card
+
+    from tpu_unet_torch.infer.wrapper import Unet
+    from tpu_unet_torch.kernels import launch_counts, reset_launch_counts, tf32
+    from tpu_unet_torch.tools.quantization import (dequantize_params, quantize_variables,
+                                                   quantized_apply)
+
+    u = Unet(model="unet_vgg", num_classes=21, input_shape=[256, 256])
+    bundle = quantize_variables(u.net)
+    x = torch.rand((2, 256, 256, 3), generator=cuda, device="cuda")
+    reset_launch_counts()
+    out = quantized_apply(u.net, bundle, x)
+    torch.cuda.synchronize()
+    assert launch_counts["vgg_stem_f32"] == 1 and launch_counts["unetup_f32"] == 4
+    state = {**dequantize_params(bundle["quantized"], bundle["rest"]), **bundle["batch_stats"]}
+    with torch.no_grad(), plain_on_card():
+        ref = torch.func.functional_call(u.net, state, (x,))
+    assert _rel(out, ref) <= tf32.CONV_REL_TOL

@@ -5,6 +5,7 @@ import ast
 from pathlib import Path
 
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]

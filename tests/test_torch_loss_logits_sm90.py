@@ -28,6 +28,7 @@ import math
 
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet_torch.kernels import loss as L

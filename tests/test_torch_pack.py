@@ -8,6 +8,7 @@ without ``k_pad``, bf16 weights into bf16 and float32 weights into float32
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet.kernels.decoder_train import _flip_t

@@ -6,6 +6,7 @@ CUDA conv core reads."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 import torch.nn.functional as F
 

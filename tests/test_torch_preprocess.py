@@ -4,6 +4,7 @@ rule of its CUDA side."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet.kernels.preprocess import normalize_images as jax_normalize_images

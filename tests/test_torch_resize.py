@@ -3,6 +3,7 @@ JAX package's (tpu_unet/nn/resize.py) and torch's own interpolate."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 import torch.nn.functional as F
 

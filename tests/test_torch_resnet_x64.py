@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from test_torch_resnet_train import CW, STEP_BATCH, _batch, _cos, _port, _rel, rn50  # noqa: F401
 

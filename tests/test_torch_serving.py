@@ -4,6 +4,7 @@ import jax
 import numpy as np
 import pytest
 import shutil
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet.infer.wrapper import Unet as JaxUnet

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import shutil
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from PIL import Image
 from test_torch_resnet import randomize_batch_norm, to_numpy

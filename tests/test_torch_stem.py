@@ -3,6 +3,7 @@ interpret mode and against its XLA reference, in float32."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet.kernels.stem import fused_vgg_stem_impl, reference_vgg_stem

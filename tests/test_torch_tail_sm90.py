@@ -17,6 +17,7 @@ the CPU, no JAX:
 """
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet_torch.kernels.postprocess import (TAIL_KN, TAIL_SMS, final_argmax_plain, tail_ctas,

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 import _torch_tf32 as emu

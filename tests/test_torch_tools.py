@@ -6,6 +6,7 @@ weights, biases and batch norm drawn at random) at 64×64, 4 classes."""
 import jax
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from PIL import Image
 from test_torch_ladder import randomize

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import shutil
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from test_torch_resnet import randomize_batch_norm, to_numpy
 

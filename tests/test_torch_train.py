@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 
 from tpu_unet.core import fusion

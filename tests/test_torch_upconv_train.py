@@ -8,6 +8,7 @@ tensors unpaired by the free reshape; and the CUDA wrapper's shape rule."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from _torch_stage import rel_err
 

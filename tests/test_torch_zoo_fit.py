@@ -8,6 +8,7 @@ import os
 import shutil
 
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from test_torch_fit import write_voc
 from test_torch_resnet import to_numpy

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from test_torch_datab_train import _key_tree, _ordered
 from test_torch_ladder import randomize_dense_biases

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread a process)
 import torch
 from jax import enable_x64
 from test_torch_datab_train import LADDER_CW, _batch, _jax_vars, fused_loss  # noqa: F401

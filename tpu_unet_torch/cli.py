@@ -9,13 +9,20 @@
 
     python -m tpu_unet_torch.cli train --preset traditional --data-root /data
     python -m tpu_unet_torch.cli fold --model-path repvgg.pth --out deploy.pth
+    python -m tpu_unet_torch.cli summary --model unet_vgg --size 512
+    python -m tpu_unet_torch.cli export --preset voc_vgg --model-path ckpt.pth \
+        --out unet_vgg.pt2
 
 Everything runs on the card; ``--cpu`` runs on the CPU instead.
 ``--model`` puts any registry model in the preset's place (``predict``,
 ``miou``, ``train``).  ``fold`` writes a ``repvgg_segnet`` checkpoint's
 deploy form (``models/repvgg.py::fold_repvgg``), which ``predict`` and
-``miou`` serve as they find it.  The ``summary`` and ``export``
-subcommands come with their slice.
+``miou`` serve as they find it.  ``summary`` prints the parameter count (JAX's) and
+the FLOPs that ``torch.utils.flop_counter`` counts over the eval forward on
+the CPU (``tools/summary.py``; not XLA's count).  ``export`` writes the
+float32 forward + softmax as a ``torch.export`` program
+(``tools/export.py``) that runs on the device it was exported on: on the
+card its graph holds the hand-written kernels as operators.
 ``train --wandb`` logs through ``wandb`` and raises where it does not
 import (nothing is installed or downloaded).
 """
@@ -190,6 +197,18 @@ def cmd_fold(args):
           "deploy form: Unet(model_path=...) builds it)")
 
 
+def cmd_summary(args):
+    from tpu_unet_torch.tools.summary import summarize
+
+    summarize(args.model, (args.size, args.size), args.num_classes or 21)
+
+
+def cmd_export(args):
+    from tpu_unet_torch.configs.infer_presets import build_wrapper
+
+    build_wrapper(args.preset, **_wrapper_overrides(args)).convert_to_export(args.out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="tpu_unet_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -247,6 +266,20 @@ def main(argv=None):
     p.add_argument("--model-path", required=True)
     p.add_argument("--out", required=True)
     p.set_defaults(fn=cmd_fold)
+
+    p = sub.add_parser("summary")
+    p.add_argument("--model", required=True)
+    p.add_argument("--size", type=int, default=512)
+    p.add_argument("--num-classes", type=int)
+    p.add_argument("--cpu", action="store_true",
+                   help="accepted for the common flags; the count runs on the CPU anyway")
+    p.set_defaults(fn=cmd_summary)
+
+    p = sub.add_parser("export")
+    p.add_argument("--preset", required=True)
+    p.add_argument("--out", required=True)
+    _add_common(p)
+    p.set_defaults(fn=cmd_export)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -61,6 +61,19 @@ VOC_COLORS = [
 _TAIL_ROWS = 1024
 
 
+def input_res_logits(logits, size) -> torch.Tensor:
+    """A net's output → float32 logits at the input's ``size`` (H, W): a
+    tuple's first element (a model that also returns heads), and an
+    align-corners resize where the logits are at another size (self_net
+    ×2), as ``wrapper.py:144-152``."""
+    if isinstance(logits, (tuple, list)):
+        logits = logits[0]
+    logits = logits.float()
+    if tuple(logits.shape[1:3]) != tuple(size):
+        logits = resize_bilinear(logits, tuple(size), align_corners=True)
+    return logits
+
+
 @functools.lru_cache(maxsize=None)
 def _cv2():
     """OpenCV where it imports, else None: the JAX wrapper's choice of
@@ -157,14 +170,8 @@ class Unet:
         float32 logits ``(1, H, W, C)`` at the input resolution on the
         device."""
         x = torch.as_tensor(x).to(self.device)
-        logits = self._net()(normalize_images(x, self.prec.compute_dtype))
-        if isinstance(logits, (tuple, list)):  # a model that also returns heads
-            logits = logits[0]
-        logits = logits.float()
-        # models whose logits are not at the input resolution (self_net ×2)
-        if logits.shape[1:3] != x.shape[1:3]:
-            logits = resize_bilinear(logits, x.shape[1:3], align_corners=True)
-        return logits
+        return input_res_logits(self._net()(normalize_images(x, self.prec.compute_dtype)),
+                                x.shape[1:3])
 
     def _forward_probs(self, x) -> torch.Tensor:
         """Float32 class probabilities ``(1, H, W, C)`` on the device: the
@@ -281,6 +288,15 @@ class Unet:
         pr, _ = self._probs_for(image)
         pr = self._resize_probs(pr, orig_w, orig_h)
         return Image.fromarray(pr.argmax(axis=-1).astype(np.uint8))
+
+    def convert_to_export(self, path: str):
+        """The ``torch.export`` program of the float32 forward + softmax at
+        ``path`` (``tools/export.py::export_program``), the counterpart of
+        the JAX wrapper's StableHLO export (``wrapper.py:510``) and of the
+        reference's ``convert_to_onnx`` (unet.py:260-296)."""
+        from tpu_unet_torch.tools.export import export_program
+
+        return export_program(self, path)
 
     def get_FPS(self, image, test_interval: int, full_d2h: bool = False) -> float:
         """Seconds per image of the timed forward + softmax + crop + argmax

@@ -261,6 +261,15 @@ def query(name: str, *args) -> None:
         raise RuntimeError(f"{name}: error {err}")
 
 
+def traced(x: torch.Tensor) -> bool:
+    """True while ``torch.export`` or ``torch.compile`` traces a wrapper
+    (its input a fake or functional tensor, or the compiler's flag set):
+    the wrapper then calls its kernel's operator, which the graph keeps.
+    An eager call launches the kernel directly, without the operator's
+    dispatch."""
+    return type(x) is not torch.Tensor or torch.compiler.is_compiling()
+
+
 def no_grad_inputs(name: str, *tensors) -> None:
     """Raise when autograd would record a call to kernel ``name``: its CUDA
     output has no ``grad_fn``, so every parameter upstream would silently

@@ -9,7 +9,10 @@ bf16, bit-equal to ``nn/resize.py::upsample2x``; ``tu_unetup`` runs conv1
 over the two maps [skip | up] and conv2 over its output y1 on the Hopper
 conv core (``csrc/conv3x3_sm90.cuh``), the launches planned by
 :func:`stage_plan` (``kernels/sm90.py``).  The concat is never stored.
-Bound and design in the source note.
+Traced by ``torch.export``, the launches run as the operator
+``tpu_unet_torch::unetup`` (:func:`unetup_op`, with a fake that gives its
+output's shape), so the graph keeps the kernels; an eager call launches
+them directly.  Bound and design in the source note.
 
 Training, both run the same kernel forward keeping conv1's output y1:
 - :func:`unetup_train` (the port of ``fused_unetup_train``,
@@ -74,8 +77,9 @@ def _stage_convs(skip, up, wt1, b1f, wt2, b2f, plan):
     return out, y1
 
 
-def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
-    _build.no_grad_inputs("unetup", skip, x, w1, b1, w2, b2)
+def _unetup_check(skip, x, w1, b1, w2, b2):
+    """#1's checks, which read shapes, dtypes and devices only (so they run
+    on fake tensors too): (B, H2, W2, Cs, Cx, F, dtype) or a raise."""
     B, H, W, cx = x.shape
     cs, f = skip.shape[-1], w1.shape[0]
     H2, W2 = 2 * H, 2 * W
@@ -88,6 +92,12 @@ def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
         raise ValueError(f"unetup kernel: 2H={H2} % 8, 2W={W2} % 16, Cs={cs} "
                          f"% 8, Cx={cx} % 8, Cs+Cx % 32 and F={f} % 64 must "
                          "all be 0")
+    return B, H2, W2, cs, cx, f, dt
+
+
+def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
+    _build.no_grad_inputs("unetup", skip, x, w1, b1, w2, b2)
+    B, H2, W2, cs, cx, f, dt = _unetup_check(skip, x, w1, b1, w2, b2)
     up = _up2x_cuda(x)
     wt1, wt2 = _build.pack_weights([w1, w2], dt)
     out, y1 = _stage_convs(skip, up, wt1, b1.float().contiguous(), wt2, b2.float().contiguous(),
@@ -96,12 +106,33 @@ def _unetup_cuda(skip, x, w1, b1, w2, b2, want_y1=False):
     return (out, y1) if want_y1 else out
 
 
+@torch.library.custom_op("tpu_unet_torch::unetup", mutates_args=(),
+                         schema="(Tensor skip, Tensor x, Tensor w1, Tensor b1, Tensor w2, "
+                                "Tensor b2) -> Tensor")
+def unetup_op(skip, x, w1, b1, w2, b2):
+    """#1's launches (the upsample, then the stage's two convs) as an
+    operator: what a traced forward on the card calls and
+    ``torch.export`` keeps in its graph (``tools/export.py``); the
+    launch's checks refuse tensors off the card."""
+    return _unetup_cuda(skip, x, w1, b1, w2, b2)
+
+
+@unetup_op.register_fake
+def _unetup_fake(skip, x, w1, b1, w2, b2):
+    B, H2, W2, cs, cx, f, dt = _unetup_check(skip, x, w1, b1, w2, b2)
+    return x.new_empty((B, H2, W2, f), dtype=dt)
+
+
 def unetup(skip, x, w1, b1, w2, b2):
     """Dispatching wrapper: plain version for CPU tensors, the CUDA kernels
-    for tensors on the card (bf16, or float32 on TF32 products; 2H % 8, 2W
-    % 16, Cs % 8, Cx % 8, (Cs + Cx) % 32 and F % 64 all 0)."""
+    for tensors on the card, through :func:`unetup_op` while traced (bf16,
+    or float32 on TF32 products; 2H % 8, 2W % 16, Cs % 8, Cx % 8, (Cs +
+    Cx) % 32 and F % 64 all 0)."""
     if on_cpu(x):
         return unetup_plain(skip, x, w1, b1, w2, b2)
+    if _build.traced(x):
+        _build.no_grad_inputs("unetup", skip, x, w1, b1, w2, b2)
+        return unetup_op(skip, x, w1, b1, w2, b2)
     return _unetup_cuda(skip, x, w1, b1, w2, b2)
 
 

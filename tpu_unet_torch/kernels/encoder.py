@@ -5,8 +5,11 @@ CUDA kernel: ``csrc/encoder.cu`` — replaces ``encoder.py::fused_vgg_block_impl
 One launch per conv; the pool rides the last conv's epilogue.  Every conv,
 of two (block 2) or three (blocks 3-5), runs on the Hopper core
 ``csrc/conv3x3_sm90.cuh`` (wgmma, TMA), its launches planned by
-:func:`tpu_unet_torch.kernels.sm90.block_fwd_launches`.  Bound and design
-in the source notes.
+:func:`tpu_unet_torch.kernels.sm90.block_fwd_launches`.  Traced by
+``torch.export``, the launch runs as the operator
+``tpu_unet_torch::vgg_block`` (:func:`vgg_block_op`, with a fake that
+gives its outputs' shapes), so the graph keeps the kernel; an eager call
+launches it directly.  Bound and design in the source notes.
 """
 from __future__ import annotations
 
@@ -42,11 +45,9 @@ def block_plan(B: int, H: int, W: int, chans: tuple, pool: bool,
     return sm90.encode(sm90.block_fwd_launches(B, H, W, chans, pool, f32))
 
 
-def _vgg_block_cuda(x, ws, bs, pool, key="vgg_block"):
-    """The kernel; returns (skip, pooled or None, [the intermediate ReLU
-    outputs]), counted under ``key`` (the training forward's keys name the
-    JAX kernel it stands for; float32 under its ``_f32`` key)."""
-    _build.no_grad_inputs(key, x, ws, bs)
+def _vgg_block_check(x, ws, bs, key="vgg_block"):
+    """The block kernel's checks, which read shapes, dtypes and devices only
+    (so they run on fake tensors too): (B, H, W, chans, dtype) or a raise."""
     n = len(ws)
     B, H, W, C = x.shape
     chans = [C] + [int(w.shape[0]) for w in ws]
@@ -60,6 +61,16 @@ def _vgg_block_cuda(x, ws, bs, pool, key="vgg_block"):
         raise ValueError(f"vgg_block kernel: H={H} % 8, W={W} % 16, input "
                          f"widths % 32 and output widths % 64 must be 0 "
                          f"(chans {chans})")
+    return B, H, W, chans, dt
+
+
+def _vgg_block_cuda(x, ws, bs, pool, key="vgg_block"):
+    """The kernel; returns (skip, pooled or None, [the intermediate ReLU
+    outputs]), counted under ``key`` (the training forward's keys name the
+    JAX kernel it stands for; float32 under its ``_f32`` key)."""
+    _build.no_grad_inputs(key, x, ws, bs)
+    n = len(ws)
+    B, H, W, chans, dt = _vgg_block_check(x, ws, bs, key)
     f32 = dt == torch.float32
     wts = _build.pack_weights(ws, dt)
     bfs = [b.float().contiguous() for b in bs]
@@ -79,10 +90,33 @@ def _vgg_block_cuda(x, ws, bs, pool, key="vgg_block"):
     return skip, pooled, mids
 
 
+@torch.library.custom_op("tpu_unet_torch::vgg_block", mutates_args=(),
+                         schema="(Tensor x, Tensor[] ws, Tensor[] bs, bool pool) -> Tensor[]")
+def vgg_block_op(x, ws, bs, pool):
+    """The block kernel's launch as an operator, [skip, pooled] (``pool``)
+    or [skip]: what a traced forward on the card calls and
+    ``torch.export`` keeps in its graph (``tools/export.py``); the
+    launch's checks refuse tensors off the card."""
+    skip, pooled, _ = _vgg_block_cuda(x, ws, bs, pool)
+    return [skip, pooled] if pool else [skip]
+
+
+@vgg_block_op.register_fake
+def _vgg_block_fake(x, ws, bs, pool):
+    B, H, W, chans, dt = _vgg_block_check(x, ws, bs)
+    skip = x.new_empty((B, H, W, chans[-1]), dtype=dt)
+    return [skip, x.new_empty((B, H // 2, W // 2, chans[-1]), dtype=dt)] if pool else [skip]
+
+
 def vgg_block(x, ws, bs, pool: bool = True):
     """Dispatching wrapper: plain version for CPU tensors, the CUDA kernel
-    for tensors on the card (bf16, or float32 on TF32 products; H % 8, W %
-    16, input widths % 32 and output widths % 64 all 0)."""
+    for tensors on the card, through :func:`vgg_block_op` while traced
+    (bf16, or float32 on TF32 products; H % 8, W % 16, input widths % 32
+    and output widths % 64 all 0)."""
     if on_cpu(x):
         return vgg_block_plain(x, ws, bs, pool)
+    if _build.traced(x):
+        _build.no_grad_inputs("vgg_block", x, ws, bs)
+        outs = vgg_block_op(x, list(ws), list(bs), pool)
+        return outs[0], (outs[1] if pool else None)
     return _vgg_block_cuda(x, ws, bs, pool)[:2]

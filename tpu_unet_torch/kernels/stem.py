@@ -11,7 +11,11 @@ conv core ``csrc/conv3x3_sm90.cuh`` with the 2×2 max-pool in its epilogue,
 writing the natural-layout skip and the pooled tensor.  With float32
 weights the same two launches run the float32 instantiations (TF32
 products, float32 storage; a uint8 image normalised as f32(u8) / 255, a
-float32 image taken as it is).  Bound and design in the source note.
+float32 image taken as it is).  Traced by ``torch.export``, the
+launch runs as the operator ``tpu_unet_torch::vgg_stem``
+(:func:`vgg_stem_op`, with a fake that gives its outputs' shapes), so the
+graph keeps the kernel; an eager call launches it directly.  Bound and
+design in the source note.
 """
 from __future__ import annotations
 
@@ -47,10 +51,9 @@ def stem_plan(B: int, H: int, W: int, f: int, f32: bool = False) -> torch.Tensor
     return sm90.encode(sm90.stem_fwd_launches(B, H, W, f, f32))
 
 
-def _vgg_stem_cuda(x, w11, b11, w12, b12):
-    """The kernel; returns (skip, pooled, a1), a1 conv1_1's ReLU output, in
-    the weights' dtype (bf16, or float32 on TF32 products)."""
-    _build.no_grad_inputs("vgg_stem", x, w11, b11, w12, b12)
+def _vgg_stem_check(x, w11, b11, w12, b12):
+    """The stem kernel's checks, which read shapes, dtypes and devices only
+    (so they run on fake tensors too): (B, H, W, F, dtype) or a raise."""
     B, H, W = x.shape[:3]
     f = w11.shape[0]
     dt = _build.conv_dtype(w11, "vgg_stem")
@@ -63,6 +66,14 @@ def _vgg_stem_cuda(x, w11, b11, w12, b12):
     if not vgg_stem_shape_ok(H, W, f):
         raise ValueError(f"vgg_stem kernel: H={H} % 8, W={W} % 16, F={f} % 64 "
                          "must all be 0")
+    return B, H, W, f, dt
+
+
+def _vgg_stem_cuda(x, w11, b11, w12, b12):
+    """The kernel; returns (skip, pooled, a1), a1 conv1_1's ReLU output, in
+    the weights' dtype (bf16, or float32 on TF32 products)."""
+    _build.no_grad_inputs("vgg_stem", x, w11, b11, w12, b12)
+    B, H, W, f, dt = _vgg_stem_check(x, w11, b11, w12, b12)
     f32 = dt == torch.float32
     wt11, wt12 = _build.pack_weights([w11, w12], dt, k_pads=[sm90.slice_c(f32), None])
     b11f, b12f = b11.float().contiguous(), b12.float().contiguous()
@@ -78,10 +89,31 @@ def _vgg_stem_cuda(x, w11, b11, w12, b12):
     return skip, pooled, a1
 
 
+@torch.library.custom_op("tpu_unet_torch::vgg_stem", mutates_args=(),
+                         schema="(Tensor x, Tensor w11, Tensor b11, Tensor w12, Tensor b12)"
+                                " -> (Tensor, Tensor)")
+def vgg_stem_op(x, w11, b11, w12, b12):
+    """The stem kernel's launch as an operator, (skip, pooled): what a
+    traced forward on the card calls and ``torch.export`` keeps in its
+    graph (``tools/export.py``); the launch's checks refuse tensors off
+    the card."""
+    return _vgg_stem_cuda(x, w11, b11, w12, b12)[:2]
+
+
+@vgg_stem_op.register_fake
+def _vgg_stem_fake(x, w11, b11, w12, b12):
+    B, H, W, f, dt = _vgg_stem_check(x, w11, b11, w12, b12)
+    return x.new_empty((B, H, W, f), dtype=dt), x.new_empty((B, H // 2, W // 2, f), dtype=dt)
+
+
 def vgg_stem(x, w11, b11, w12, b12):
     """Dispatching wrapper: plain version for CPU tensors, the CUDA kernel
-    for tensors on the card (bf16 or float32 weights, a uint8 image or one
-    of their dtype, H % 8 == 0, W % 16 == 0)."""
+    for tensors on the card, through :func:`vgg_stem_op` while traced
+    (bf16 or float32 weights, a uint8 image or one of their dtype, H % 8
+    == 0, W % 16 == 0)."""
     if on_cpu(x):
         return vgg_stem_plain(x, w11, b11, w12, b12)
+    if _build.traced(x):
+        _build.no_grad_inputs("vgg_stem", x, w11, b11, w12, b12)
+        return vgg_stem_op(x, w11, b11, w12, b12)
     return _vgg_stem_cuda(x, w11, b11, w12, b12)[:2]

@@ -54,8 +54,9 @@ def upconv_plain(x, w1, b1, w2, b2):
     return _upconv_plain_y1(x, w1, b1, w2, b2)[0]
 
 
-def _upconv_cuda(x, w1, b1, w2, b2, want_y1=False):
-    _build.no_grad_inputs("upconv", x, w1, b1, w2, b2)
+def _upconv_check(x, w1, b1, w2, b2):
+    """#10's checks, which read shapes, dtypes and devices only (so they run
+    on fake tensors too): (B, H2, W2, Cx, F, dtype) or a raise."""
     B, H, W, cx = x.shape
     f = w1.shape[0]
     H2, W2 = 2 * H, 2 * W
@@ -66,6 +67,12 @@ def _upconv_cuda(x, w1, b1, w2, b2, want_y1=False):
     _build.check(x, "x", dt)
     _build.check(w1, "w1", dt, (f, cx, 3, 3), x.device)
     _build.check(w2, "w2", dt, (f, f, 3, 3), x.device)
+    return B, H2, W2, cx, f, dt
+
+
+def _upconv_cuda(x, w1, b1, w2, b2, want_y1=False):
+    _build.no_grad_inputs("upconv", x, w1, b1, w2, b2)
+    B, H2, W2, cx, f, dt = _upconv_check(x, w1, b1, w2, b2)
     f32 = dt == torch.float32
     up = _up2x_cuda(x)
     wt1, wt2 = _build.pack_weights([w1, w2], dt)
@@ -79,12 +86,33 @@ def _upconv_cuda(x, w1, b1, w2, b2, want_y1=False):
     return (out, y1) if want_y1 else out
 
 
+@torch.library.custom_op("tpu_unet_torch::upconv", mutates_args=(),
+                         schema="(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2)"
+                                " -> Tensor")
+def upconv_op(x, w1, b1, w2, b2):
+    """#10's launches (the upsample, then the head's two convs) as an
+    operator: what a traced forward on the card calls and
+    ``torch.export`` keeps in its graph (``tools/export.py``); the
+    launch's checks refuse tensors off the card."""
+    return _upconv_cuda(x, w1, b1, w2, b2)
+
+
+@upconv_op.register_fake
+def _upconv_fake(x, w1, b1, w2, b2):
+    B, H2, W2, cx, f, dt = _upconv_check(x, w1, b1, w2, b2)
+    return x.new_empty((B, H2, W2, f), dtype=dt)
+
+
 def upconv(x, w1, b1, w2, b2):
     """Dispatching wrapper: plain version for CPU tensors, the CUDA kernel
-    for tensors on the card (bf16, or float32 on TF32 products; 2H % 8, 2W
-    % 16, Cx % 32 and F % 64 all 0)."""
+    for tensors on the card, through :func:`upconv_op` while traced (bf16,
+    or float32 on TF32 products; 2H % 8, 2W % 16, Cx % 32 and F % 64 all
+    0)."""
     if on_cpu(x):
         return upconv_plain(x, w1, b1, w2, b2)
+    if _build.traced(x):
+        _build.no_grad_inputs("upconv", x, w1, b1, w2, b2)
+        return upconv_op(x, w1, b1, w2, b2)
     return _upconv_cuda(x, w1, b1, w2, b2)
 
 

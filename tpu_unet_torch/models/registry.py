@@ -60,6 +60,13 @@ def build_model(name: str, num_classes: int, **kwargs) -> nn.Module:
     return MODELS[name](num_classes=num_classes, **kwargs)
 
 
+def count_params(net: nn.Module) -> int:
+    """Elements of the net's parameters; its buffers (batch norm's running
+    statistics) are not counted, as JAX counts ``variables["params"]`` and
+    not ``batch_stats`` (``tpu_unet/models/registry.py:84-86``)."""
+    return sum(p.numel() for p in net.parameters())
+
+
 def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
     out = rng.standard_normal(shape)
     bad = np.abs(out) >= 2.0

@@ -75,14 +75,14 @@ def _interp_axis(x: torch.Tensor, out_size: int, axis: int,
     if in_size == out_size:
         return x
     idx, wts = lerp_tables(in_size, out_size, align_corners, x.dtype)
-    idx = idx.to(device=x.device, dtype=torch.long)
     shape = [1] * x.ndim
     shape[axis] = out_size
-    w0 = wts[0].to(x.device).reshape(shape)
-    w1 = wts[1].to(x.device).reshape(shape)
+    # rows split on the host, then moved (no indexing of a device tensor)
+    i0, i1 = (i.to(device=x.device, dtype=torch.long) for i in idx)
+    w0, w1 = (w.to(x.device).reshape(shape) for w in wts)
     ct = torch.promote_types(x.dtype, torch.float32)
-    a = x.index_select(axis, idx[0]).to(ct)
-    b = x.index_select(axis, idx[1]).to(ct)
+    a = x.index_select(axis, i0).to(ct)
+    b = x.index_select(axis, i1).to(ct)
     return (a * w0 + b * w1).to(x.dtype)
 
 
