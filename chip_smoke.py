@@ -328,7 +328,7 @@ def phase_build():
     print(f"phase 1: built {so.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("registers", "spill", "error", "Performance Loss")):
             print("  ptxas:", line.strip())
 
 
@@ -1485,6 +1485,7 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
     ``upsample_adjoint_kernel``, the training encoder's
     ``(pool_)relu_grad_kernel``, the Hopper core's
     ``conv_sm90_kernel<TN, OP, PH>``, ``wgrad_sm90_kernel<TN, NS>``, the
+    float32 head's ``halo_conv_kernel<OP, PH>``, the
     float32 ``wgrad_tf32_kernel`` and ``wgrad_sm90_reduce_kernel``, the
     stem's ``wgrad_image_kernel`` and
     ``wgrad_image_reduce_kernel``, ``upsample2x_kernel`` and the weight
@@ -1520,8 +1521,8 @@ def device_breakdown(fn, net, imgs, steps: int = 3):
             name = "port " + ("final_loss_fwd_kernel" if "fwd" in name else "final_loss_bwd_kernel")
         elif "ce_dice_fwd_kernel" in name or "ce_dice_bwd_kernel" in name:
             name = "port " + ("ce_dice_fwd_kernel" if "fwd" in name else "ce_dice_bwd_kernel")
-        elif "conv_sm90_kernel" in name or "wgrad_sm90_kernel" in name:
-            kind = "conv_sm90_kernel" if "conv_sm90" in name else "wgrad_sm90_kernel"
+        elif kind := next((k for k in ("conv_sm90_kernel", "wgrad_sm90_kernel",
+                                        "halo_conv_kernel") if k in name), None):
             name = f"port {kind}<{name[name.index('<') + 1:name.index('>')]}>"
         elif "wgrad_tf32_kernel" in name:
             name = "port wgrad_tf32_kernel"
@@ -3290,38 +3291,45 @@ def tf32_on(fn):
     return run
 
 
-def f32_tile(maps, w, rule, b=None, mask=None):
+def f32_tile(maps, w, rule, b=None, mask=None, last=False):
     """The TF32 emulation in float64 of a 3×3 SAME conv's first 8×16 output
-    tile of image 0 (its halo's zeros the SAME padding):
-    the channel concat of NHWC ``maps`` taken to TF32 by ``rule``, OIHW
-    ``w`` rounded as packed; + bias and ReLU with ``b``, times [mask > 0]
-    with ``mask``."""
+    tile of image 0 or, with ``last``, its last of the last image (its
+    halo's zeros the SAME padding: above and left of the first, below and
+    right of the last): the channel concat of NHWC ``maps`` taken to TF32
+    by ``rule``, OIHW ``w`` rounded as packed; + bias and ReLU with ``b``,
+    times [mask > 0] with ``mask``."""
     from tpu_unet_torch.kernels import tf32
 
-    x = torch.cat([m[:1, :9, :17] for m in maps], -1)
-    # the halo: zeros above and left, and below / right where the image ends
-    xt = F.pad(tf32.RULES[rule](x).double().permute(0, 3, 1, 2),
-               (1, 17 - x.shape[2], 1, 9 - x.shape[1]))
+    if last:
+        x = torch.cat([m[-1:, -9:, -17:] for m in maps], -1)
+        pad = (17 - x.shape[2], 1, 9 - x.shape[1], 1)
+    else:
+        x = torch.cat([m[:1, :9, :17] for m in maps], -1)
+        pad = (1, 17 - x.shape[2], 1, 9 - x.shape[1])
+    xt = F.pad(tf32.RULES[rule](x).double().permute(0, 3, 1, 2), pad)
     y = F.conv2d(xt, tf32.round_tf32(w).double()).permute(0, 2, 3, 1)
     if b is not None:
         y = torch.relu(y + b.double())
     if mask is not None:
-        y = torch.where(mask[:1, :8, :16] > 0, y, 0)
+        y = torch.where((mask[-1:, -8:, -16:] if last else mask[:1, :8, :16]) > 0, y, 0)
     return y
 
 
-def f32_witness(what, out, emulate, k, rule="trunc"):
-    """Print one float32 product's first tile against its TF32 emulation
-    under either operand rule (truncated, rounded), and check the distance
-    under ``rule``, the one ``kernels/tf32.py`` states for the product
+def f32_witness(what, out, emulate, k, rule="trunc", last=False):
+    """Print one float32 product's first tile (with ``last``: its last
+    tile of the last image) against its TF32 emulation under either
+    operand rule (truncated, rounded), and check the distance under
+    ``rule``, the one ``kernels/tf32.py`` states for the product
     (``"trunc"``: a TMA operand of the conv core; ``"round"``: the gathered
-    image), against ``tile_rel_tol(k)`` for its reduction of ``k``
-    products; returns the readings."""
+    image, the halo mainloop's fragments), against ``tile_rel_tol(k)`` for
+    its reduction of ``k`` products; returns the readings."""
     from tpu_unet_torch.kernels import tf32
 
-    d = {r: rel_err(out[:1, :8, :16], emulate(r))[1] for r in ("trunc", "round")}
+    tile = out[-1:, -8:, -16:] if last else out[:1, :8, :16]
+    d = {r: rel_err(tile, emulate(r))[1] for r in ("trunc", "round")}
     tol = tf32.tile_rel_tol(k)
-    line = {"f32_witness": what, "kernel_vs_tf32_truncated": d["trunc"],
+    line = {"f32_witness": what, "tile": "last" if last else "first",
+            "kernel_vs_tf32_truncated": d["trunc"],
             "kernel_vs_tf32_rounded": d["round"], "rule": rule, "k": k, "bound": tol}
     print(json.dumps(line), flush=True)
     check(d[rule] <= tol, f"{what}: float32 tile {d} from its TF32 emulation "
@@ -3609,14 +3617,17 @@ def f32_decoder_kernels(record, gen):
 
 def f32_head_kernels(record, gen):
     """The up_conv head in float32 at both heads (batch 8, 64 channels):
-    unet_resnet50's (x 256² → 512²) and self_net's (x 512² → 1024²).  #10 /
-    #11 (``upconv_f32``: y1 and out within CONV_REL_TOL of the plain float32
-    head, conv1's and conv2's first tiles against their TF32 emulations)
-    and #12 (``upconv_bwd_f32``: dx within CONV_REL_TOL, dk1 / db1 / dk2 /
-    db2 within WGRAD_CHAIN_REL_TOL of ``upconv_bwd_plain``, the first tiles
-    of its two dgrads against their emulations), each bit-identical on a
-    second launch; a planted dropped split of the dk2 GEMM (g zeroed over
-    the split's patches: g2, its G operand, vanishes there) and of the dk1
+    unet_resnet50's (x 256² → 512²) and self_net's (x 512² → 1024²), its
+    four convs on the halo mainloop (one line each: its mainloop, tile and
+    FLOP a byte of L2).  #10 / #11 (``upconv_f32``: y1 and out within
+    CONV_REL_TOL of the plain float32 head, conv1's and conv2's first and
+    last tiles against their TF32 emulations under the halo mainloop's
+    rule, the activation rounded) and #12 (``upconv_bwd_f32``: dx within
+    CONV_REL_TOL, dk1 / db1 / dk2 / db2 within WGRAD_CHAIN_REL_TOL of
+    ``upconv_bwd_plain``, the first and last tiles of its two dgrads
+    against their emulations), each bit-identical on a second launch; a
+    planted dropped split of the dk2 GEMM (g zeroed over the split's
+    patches: g2, its G operand, vanishes there) and of the dk1
     GEMM (dz1, its G operand, then vanishes over that split's patches but
     their one-pixel border) read above the bounds; dk2 and the plain
     version's against a float64 evaluation on the card; timed against the
@@ -3627,7 +3638,7 @@ def f32_head_kernels(record, gen):
                                                bwd_plan, upconv_bwd, upconv_bwd_plain)
     from tpu_unet_torch.nn.resize import upsample2x
 
-    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.kernels import sm90, tf32
 
     dev, B, f = torch.device("cuda"), BATCH, 64
     for h in (SIZE // 2, SIZE):
@@ -3637,6 +3648,16 @@ def f32_head_kernels(record, gen):
         b1, b2 = (0.1 * torch.randn(f, generator=gen, device=dev) for _ in range(2))
         case = f"{B}x{h}x{h}x{f}->{h2}^2x{f} float32"
         flops = 2 * conv_flops(B, h2, h2, f, f)
+        convs = zip(("conv1", "conv2", "dgrad of conv2 (masked)", "dgrad of conv1"),
+                    sm90.unetup_launches(B, h2, h2, 0, f, f, True)
+                    + sm90.upconv_bwd_launches(B, h2, h2, f, f, True)[:2])
+        for name, ln in convs:
+            halo = ln.get("mainloop") == sm90.MAINLOOP_HALO
+            print(json.dumps({"f32_head_launch": name, "case": case,
+                              "mainloop": "halo" if halo else "tap", "tile": list(ln["tile"]),
+                              "k_slices": ln["k_slices"],
+                              "flop_per_l2_byte": sm90.flop_per_l2_byte(ln)}), flush=True)
+            check(halo, f"upconv f32 {case} {name}: not on the halo mainloop")
         out, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
         check(torch.equal(out, _upconv_cuda(x, w1, b1, w2, b2)),
               f"upconv_f32 {case}: two launches differ")
@@ -3652,8 +3673,11 @@ def f32_head_kernels(record, gen):
                      nbytes(x, w1, w2, out, y1), peak=PEAK_TF32)
         check(rel <= tf32.CONV_REL_TOL, f"upconv_f32 {case}: rel err {rel:.3g}")
         up = upsample2x(x)
-        f32_witness(f"upconv_f32 {case} conv1", y1, lambda r: f32_tile([up], w1, r, b1), 9 * f)
-        f32_witness(f"upconv_f32 {case} conv2", out, lambda r: f32_tile([y1], w2, r, b2), 9 * f)
+        for last in (False, True):
+            f32_witness(f"upconv_f32 {case} conv1", y1,
+                        lambda r: f32_tile([up], w1, r, b1, last=last), 9 * f, "round", last)
+            f32_witness(f"upconv_f32 {case} conv2", out,
+                        lambda r: f32_tile([y1], w2, r, b2, last=last), 9 * f, "round", last)
         del pout, py1, up
         g = torch.randn((B, h2, h2, f), generator=gen, device=dev)
         args = (g, out, y1, x, w1, w2)
@@ -3675,10 +3699,13 @@ def f32_head_kernels(record, gen):
                           "dk2_plain_vs_float64": rel_err(ref[3], dk2_64)[1]}), flush=True)
         del dk2_64
         dz1, dups = _upconv_bwd_cuda(*args)[5:]
-        f32_witness(f"upconv_bwd_f32 {case} dz1", dz1,
-                    lambda r: f32_tile([g2], flip_t(w2), r, mask=y1), 9 * f)
-        f32_witness(f"upconv_bwd_f32 {case} dups", dups,
-                    lambda r: f32_tile([dz1], flip_t(w1), r), 9 * f)
+        for last in (False, True):
+            f32_witness(f"upconv_bwd_f32 {case} dz1", dz1,
+                        lambda r: f32_tile([g2], flip_t(w2), r, mask=y1, last=last), 9 * f,
+                        "round", last)
+            f32_witness(f"upconv_bwd_f32 {case} dups", dups,
+                        lambda r: f32_tile([dz1], flip_t(w1), r, last=last), 9 * f, "round",
+                        last)
         del dz1, dups, g2
         # the planted dropped split: the first of the dk2 GEMM's splits (the
         # dk1 GEMM's plan has the same, both over the 64 channels' pixels)
@@ -4577,8 +4604,10 @@ SOURCES = {
     "final_ce_dice_fwd_f32": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:704"),
     "final_ce_dice_bwd_f32": ("tpu_unet_torch/csrc/loss.cu", "tpu_unet/kernels/loss.py:804"),
     # the up_conv head in float32: csrc/upconv.cu's float32 instantiations
-    # (#10 / #11 forward, #12 backward)
-    "upconv_f32": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:227"),
+    # (#10 / #11 forward, #12 backward), the four convs on the halo mainloop
+    # (csrc/conv3x3_halo_sm90.cuh)
+    "upconv_f32": ("tpu_unet_torch/csrc/conv3x3_halo_sm90.cuh",
+                   "tpu_unet/kernels/upconv.py:227"),
     "upconv_bwd_f32": ("tpu_unet_torch/csrc/upconv.cu", "tpu_unet/kernels/upconv.py:475"),
     # the conv core's weight operand, packed on the card in one pass (bf16
     # and TF32-rounded float32) by every wrapper that runs the core; the TPU

@@ -2,7 +2,9 @@
 plan's order (``tpu_unet_torch/kernels/sm90.py`` with ``f32=True``), with
 their TF32 operand rules (``tpu_unet_torch/kernels/tf32.py``): the conv
 core by its K walk of 32-channel slices (activations truncated as a TMA box
-hands them over, weights rounded as packed), the weight-gradient GEMMs by
+hands them over, weights rounded as packed), the up_conv head's four convs
+by the halo mainloop's slice-major walk (activations rounded, as its
+register fragments take them), the weight-gradient GEMMs by
 their split-K ranges of 8 × 16 patches (both operands rounded: register
 fragments and a restaged G in the GEMM on TF32 wgmma), the image
 GEMMs with the gathered image rounded (the step's emulation is
@@ -44,6 +46,29 @@ def conv_kwalk(maps, w, rule="trunc"):
         n = min(32, (C if m == 0 else C2) - c0)
         wc = c0 if m == 0 else C + c0
         out = out + F.conv2d(xs[0 if m == 0 else 1][:, c0:c0 + n], wt[:, wc:wc + n], padding=1)
+    return out.permute(0, 2, 3, 1)
+
+
+def conv_halo(x, w, rule="round"):
+    """A 3×3 SAME conv of NHWC ``x`` with OIHW ``w``, no bias, as the halo
+    mainloop takes it (``sm90.halo_walk(C)``: per 32-channel slice, its
+    nine taps; each (tap, channel) once, which is checked): ``x`` taken to
+    TF32 by ``rule`` (``"round"``: the register fragments' rule), ``w``
+    rounded as packed, the slices summed in the walk's order, a slice's
+    nine taps in one float64 conv."""
+    C = x.shape[-1]
+    xt = tf32.RULES[rule](x).double().permute(0, 3, 1, 2)
+    wt = round_tf32(w).double()
+    seen = torch.zeros((9, C), dtype=torch.int64)
+    slices = []
+    for tap, c0 in sm90.halo_walk(C):
+        seen[tap, c0:c0 + 32] += 1
+        if c0 not in slices:
+            slices.append(c0)
+    assert bool((seen == 1).all()), "the halo walk takes every (tap, channel) once"
+    out = 0
+    for c0 in slices:
+        out = out + F.conv2d(xt[:, c0:c0 + 32], wt[:, c0:c0 + 32], padding=1)
     return out.permute(0, 2, 3, 1)
 
 
@@ -99,25 +124,26 @@ def stage_bwd(g, out, y1, skip, x, w1, w2):
 
 
 def head_fwd(x, w1, b1, w2, b2):
-    """#10 / #11 in float32, the stage forward at Cs = 0: up (exact,
-    float32), conv1 over the one map up (``sm90.unetup_launches`` at Cs =
-    0: ``k_walk(Cx)``) and conv2 → (out, y1) float32."""
+    """#10 / #11 in float32: up (exact, float32), conv1 over up and conv2
+    over y1 on the halo mainloop (``sm90.unetup_launches`` at Cs = 0:
+    :func:`conv_halo`, up and y1 rounded) → (out, y1) float32."""
     up = upsample2x(x)
-    y1 = torch.relu(conv_kwalk([up], w1) + b1.double()).float()
-    return torch.relu(conv_kwalk([y1], w2) + b2.double()).float(), y1
+    y1 = torch.relu(conv_halo(up, w1) + b1.double()).float()
+    return torch.relu(conv_halo(y1, w2) + b2.double()).float(), y1
 
 
 def head_bwd(g, out, y1, x, w1, w2):
     """#12 in float32 (``sm90.upconv_bwd_launches(..., f32=True)``): the
-    mask pass, conv2's masked dgrad, conv1's dgrad into dups, dk2 / db2 and
-    dk1 / db1 in their plan's splits, the adjoint → (dx, dk1, db1, dk2,
-    db2), dx float32, the weight and bias gradients in float64."""
+    mask pass, conv2's masked dgrad and conv1's dgrad into dups on the halo
+    mainloop (:func:`conv_halo`, g2 and dz1 rounded), dk2 / db2 and dk1 /
+    db1 in their plan's splits, the adjoint → (dx, dk1, db1, dk2, db2), dx
+    float32, the weight and bias gradients in float64."""
     B, H2, W2, f = g.shape
     cx = x.shape[-1]
     g2 = torch.where(out > 0, g, torch.zeros(()))
-    dz1 = torch.where(y1 > 0, conv_kwalk([g2], flip_t(w2)), torch.zeros((),
+    dz1 = torch.where(y1 > 0, conv_halo(g2, flip_t(w2)), torch.zeros((),
                       dtype=torch.float64)).float()
-    dups = conv_kwalk([dz1], flip_t(w1)).float()
+    dups = conv_halo(dz1, flip_t(w1)).float()
     lns = sm90.upconv_bwd_launches(B, H2, W2, cx, f, True)
     dk2, db2 = wgrad_splits(y1, g2, lns[2])
     dk1, db1 = wgrad_splits(upsample2x(x), dz1, lns[3])

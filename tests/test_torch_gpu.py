@@ -285,6 +285,43 @@ def test_upconv_kernel(cuda, h, w):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,cx,f", [(2, 8, 8, 64, 64), (1, 4, 16, 64, 64),
+                                         (1, 8, 8, 64, 128), (1, 8, 8, 96, 64)])
+def test_upconv_f32_halo_kernel(cuda, b, h, w, cx, f):
+    """The float32 head's four convs on the halo mainloop at the tile's
+    two heights (256 pixels where 2H % 16 == 0, else 128), two channel
+    tiles a patch (F = 128) and three slices (Cx = 96, the forward only:
+    the backward takes Cx % 64): every conv record names the halo
+    mainloop; #10 within ``tf32.CONV_REL_TOL`` of the plain float32 head
+    and bit-identical on a second launch; #12's dx within CONV_REL_TOL and
+    its weight and bias gradients within WGRAD_CHAIN_REL_TOL of
+    ``upconv_bwd_plain``, bit-identical on a second launch."""
+    from tpu_unet_torch.kernels import sm90, tf32
+    from tpu_unet_torch.kernels.decoder_fuse import stage_plan
+    from tpu_unet_torch.kernels.upconv import (_upconv_cuda, _upconv_plain_y1, bwd_plan,
+                                               upconv_bwd, upconv_bwd_plain)
+
+    x = torch.relu(torch.randn((b, h, w, cx), generator=cuda, device="cuda"))
+    w1, w2 = (torch.randn((f, c, 3, 3), generator=cuda, device="cuda") / (9 * c) ** 0.5
+              for c in (cx, f))
+    b1, b2 = (0.1 * torch.randn(f, generator=cuda, device="cuda") for _ in range(2))
+    assert stage_plan(b, 2 * h, 2 * w, 0, cx, f, True)[:, 9].tolist() == [sm90.MAINLOOP_HALO] * 2
+    out, y1 = _upconv_cuda(x, w1, b1, w2, b2, want_y1=True)
+    pout, py1 = _upconv_plain_y1(x, w1, b1, w2, b2)
+    assert _rel(y1, py1) <= tf32.CONV_REL_TOL and _rel(out, pout) <= tf32.CONV_REL_TOL
+    assert torch.equal(out, _upconv_cuda(x, w1, b1, w2, b2))
+    if cx % 64:
+        return
+    assert bwd_plan(b, 2 * h, 2 * w, cx, f, True)[0][:2, 9].tolist() == [sm90.MAINLOOP_HALO] * 2
+    g = torch.randn(out.shape, generator=cuda, device="cuda")
+    res = upconv_bwd(g, out, y1, x, w1, w2)
+    ref = upconv_bwd_plain(g, out, y1, x, w1, w2)
+    for i, (a, r) in enumerate(zip(res, ref)):
+        assert _rel(a, r) <= (tf32.CONV_REL_TOL if i == 0 else tf32.WGRAD_CHAIN_REL_TOL), i
+    assert all(torch.equal(a, z) for a, z in zip(res, upconv_bwd(g, out, y1, x, w1, w2)))
+
+
+@pytest.mark.gpu
 def test_tail_kernel(cuda):
     from tpu_unet_torch.kernels.postprocess import (final_argmax_hist,
                                                     final_argmax_hist_plain)
@@ -1607,8 +1644,9 @@ def _conv32(gen, f, c):
 def _witness(out, emulate, k, rule="trunc"):
     """The distance of ``out`` to ``emulate(r)`` under either operand rule,
     printed; the stated rule's (``"trunc"``: a TMA operand of the conv
-    core) within ``tf32.tile_rel_tol(k)`` for a reduction of ``k``
-    products.  Returns that distance."""
+    core; ``"round"``: the halo mainloop's register fragments) within
+    ``tf32.tile_rel_tol(k)`` for a reduction of ``k`` products.  Returns
+    that distance."""
     from tpu_unet_torch.kernels import tf32
 
     d = {r: tf32.rel(out, emulate(r)) for r in ("trunc", "round")}
@@ -1848,8 +1886,9 @@ def test_f32_upconv_kernel(cuda, h, w):
     over the one map up); one ``upconv_f32``, one ``upsample2x_f32`` and one
     ``pack_weights_f32`` launch a call, no bf16 key; y1 and out within CONV_REL_TOL of the plain
     float32 head, each conv within ``tile_rel_tol`` of its TF32 emulation
-    over the kernel's own input (up bit-equal to the plain upsample; the
-    other operand rule printed beside), bit-identical on a second launch."""
+    over the kernel's own input under the halo mainloop's rule (the
+    activation rounded; up bit-equal to the plain upsample; the other
+    operand rule printed beside), bit-identical on a second launch."""
     from tpu_unet_torch.kernels import launch_counts, reset_launch_counts, sm90, tf32
     from tpu_unet_torch.kernels.decoder_fuse import stage_plan
     from tpu_unet_torch.kernels.upconv import _upconv_cuda, _upconv_plain_y1, upconv
@@ -1870,8 +1909,8 @@ def test_f32_upconv_kernel(cuda, h, w):
     assert out.dtype == torch.float32 and out.shape == (2, 2 * h, 2 * w, 64)
     rout, ry1 = _upconv_plain_y1(x, w1, b1, w2, b2)
     assert _rel(out, rout) <= tf32.CONV_REL_TOL and _rel(y1, ry1) <= tf32.CONV_REL_TOL
-    _witness(y1, lambda r: tf32.conv3x3_relu(upsample2x(x), w1, b1, r), 9 * 64)
-    _witness(out, lambda r: tf32.conv3x3_relu(y1, w2, b2, r), 9 * 64)
+    _witness(y1, lambda r: tf32.conv3x3_relu(upsample2x(x), w1, b1, r), 9 * 64, "round")
+    _witness(out, lambda r: tf32.conv3x3_relu(y1, w2, b2, r), 9 * 64, "round")
     assert torch.equal(out, upconv(x, w1, b1, w2, b2))
 
 
@@ -1883,8 +1922,9 @@ def test_f32_upconv_bwd_kernel(cuda, h, w):
     CONV_REL_TOL, the weight and bias gradients within WGRAD_CHAIN_REL_TOL,
     all five bit-identical on a second launch; conv2's masked dgrad and
     conv1's dgrad within ``tile_rel_tol`` of their TF32 emulations over the
-    kernel's own inputs (g2 exact), dk2 of its emulation (rounded
-    operands) over the whole reduction."""
+    kernel's own inputs (g2 exact) under the halo mainloop's rule (the
+    gradient rounded), dk2 of its emulation (rounded operands) over the
+    whole reduction."""
     from tpu_unet_torch.kernels import launch_counts, tf32
     from tpu_unet_torch.kernels.decoder_train import flip_t
     from tpu_unet_torch.kernels.upconv import _upconv_bwd_cuda, upconv_bwd, upconv_bwd_plain
@@ -1904,8 +1944,9 @@ def test_f32_upconv_bwd_kernel(cuda, h, w):
         assert _rel(a, b) <= (tf32.CONV_REL_TOL if i == 0 else tf32.WGRAD_CHAIN_REL_TOL), i
     _, _, _, dk2, _, dz1, dups = _upconv_bwd_cuda(g, out, y1, x, w1, w2)
     g2 = torch.where(out > 0, g, 0)
-    _witness(dz1, lambda r: torch.where(y1 > 0, tf32.conv3x3(g2, flip_t(w2), r), 0), 9 * 64)
-    _witness(dups, lambda r: tf32.conv3x3(dz1, flip_t(w1), r), 9 * 64)
+    _witness(dz1, lambda r: torch.where(y1 > 0, tf32.conv3x3(g2, flip_t(w2), r), 0), 9 * 64,
+             "round")
+    _witness(dups, lambda r: tf32.conv3x3(dz1, flip_t(w1), r), 9 * 64, "round")
     assert tf32.rel(dk2, tf32.wgrad(y1, g2)) <= tf32.tile_rel_tol(g.numel() // 64)
 
 
@@ -1914,8 +1955,9 @@ def test_f32_upconv_bwd_single_tile_float64(cuda):
     """#12 in float32 at one 8x16 output tile, each reading in float64 from
     the kernel's own float32 inputs: dz1 (from g2, exact) and dups (from
     its own dz1) within ``tile_rel_tol(9 × 64)`` of their TF32 emulations
-    under the stated rule (truncated TMA operand, rounded packed weights;
-    the rounding rule printed beside), dk2 / db2 (from g2 and y1) and dk1 /
+    under the stated rule (the halo mainloop's: the gradient rounded as its
+    register fragments take it, rounded packed weights; the truncating rule
+    printed beside), dk2 / db2 (from g2 and y1) and dk1 /
     db1 (from its own dz1 and up, the plain float32 upsample's bit for bit)
     within ``tile_rel_tol(128)`` of theirs (both operands rounded), dx within
     1e-5 of the float64 adjoint of its own dups (float32 sums of the same
@@ -1945,8 +1987,9 @@ def test_f32_upconv_bwd_single_tile_float64(cuda):
     exact = {"dz1": tf32.rel(dz1, torch.where(y1 > 0, exact_dgrad(g2, w2), 0)),
              "dups": tf32.rel(dups, exact_dgrad(dz1, w1))}
     print("float64", exact)
-    _witness(dz1, lambda r: torch.where(y1 > 0, tf32.conv3x3(g2, flip_t(w2), r), 0), 9 * 64)
-    _witness(dups, lambda r: tf32.conv3x3(dz1, flip_t(w1), r), 9 * 64)
+    _witness(dz1, lambda r: torch.where(y1 > 0, tf32.conv3x3(g2, flip_t(w2), r), 0), 9 * 64,
+             "round")
+    _witness(dups, lambda r: tf32.conv3x3(dz1, flip_t(w1), r), 9 * 64, "round")
     readings = {"dk2": tf32.rel(dk2, tf32.wgrad(y1, g2)),
                 "db2": tf32.rel(db2, g2.to(f64).sum((0, 1, 2))),
                 "dk1": tf32.rel(dk1, tf32.wgrad(up, dz1)),

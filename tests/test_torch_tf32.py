@@ -94,7 +94,9 @@ def test_f32_plans_fit_the_card(what):
     """(a) Every float32 launch of unet_vgg's step, of unet_resnet50's
     decoder and of both heads: 4-byte tensor-map strides of
     the dense tensors (multiples of 16), boxes of 32 channels (128 bytes,
-    the swizzle span), the record's element-type word 1; the conv core's K
+    the swizzle span), the record's element-type word 1; the head's convs
+    on the halo mainloop (its record's word 9), one 32-channel slice a halo
+    box; every other conv's K
     slices of 32 channels, its stage bytes and ring within 227 KB, its
     epilogue's float32 buffer (a chunk of columns, ``sm90.conv_chunk``)
     beside a ring of 4-8 stages: every tile persistent; the
@@ -118,7 +120,14 @@ def test_f32_plans_fit_the_card(what):
                 dense.append(dense[-1] * d)
             assert list(m["strides"]) == dense and all(s % 16 == 0 for s in dense)
         tm, tn = ln["tile"]
-        if what in ("fwd", "dgrad"):
+        if what in ("fwd", "dgrad") and ln.get("mainloop") == sm90.MAINLOOP_HALO:
+            # the up_conv head's convs on the halo mainloop (its plan:
+            # test_f32_halo_plans_fit_the_card): one slice a halo box
+            assert rec[9] == sm90.MAINLOOP_HALO and (tm, tn) == (256, 64)
+            assert ln["maps"][0]["dims"][0] == c and ln["k_slices"] == -(-c // 32)
+            assert ln["smem"] == sm90.halo_smem(tm, ln["op"])
+        elif what in ("fwd", "dgrad"):
+            assert rec[9] == sm90.MAINLOOP_TAP
             C = ln["maps"][0]["dims"][0] + (ln["maps"][2]["dims"][0] if len(ln["maps"]) > 2 else 0)
             assert ln["k_slices"] == 9 * sum(-(-m["dims"][0] // 32)
                                              for m in [ln["maps"][0], *ln["maps"][2:]])
@@ -387,6 +396,236 @@ def test_f32_wgrad_fragments_and_restaged_layout(fo):
     ref = tf32.wgrad(torch.from_numpy(a), torch.from_numpy(g)).numpy()
     assert np.abs(dk - ref).max() <= 1e-12 * np.abs(ref).max()
     assert np.abs(bias - g.astype(np.float64).sum((0, 1, 2))).max() <= 1e-4
+
+
+# the up_conv head's float32 convs on the halo mainloop, (B, 2H, 2W, Cx, F):
+# unet_resnet50's and self_net's heads at batch 8, then small ones (H2 = 8:
+# the 128-pixel tile; Cx = F = 128: four slices, two channel tiles a patch)
+HALO_CASES = [(8, 512, 512, 64, 64), (8, 1024, 1024, 64, 64), (2, 16, 32, 64, 64),
+              (1, 8, 16, 64, 64), (1, 16, 16, 128, 128)]
+
+
+def _halo_refusal(rec, C, F):
+    """What ``csrc/conv3x3_halo_sm90.cuh::launch_halo_conv_sm90`` and
+    ``launch_halo_tn`` answer a record with, checked in their order: None
+    (launched) or the CUDA error's name; ``C`` the input's channels, ``F``
+    the output's."""
+    hm = rec[sm90.HEAD_WORDS:sm90.HEAD_WORDS + sm90.MAP_WORDS]
+    wm = rec[sm90.HEAD_WORDS + sm90.MAP_WORDS:sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS]
+    if rec[10] != 1 or rec[9] != sm90.MAINLOOP_HALO or rec[sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS]:
+        return "cudaErrorInvalidValue"
+    if rec[0] == sm90.OP_DGRAD_SPLIT:
+        split = rec[7]
+        if split <= 0 or split > F or split % 8 or split < F:  # the head writes one output
+            return "cudaErrorInvalidValue"
+    elif rec[0] not in (sm90.OP_FWD, sm90.OP_DGRAD_MASK):
+        return "cudaErrorInvalidConfiguration"
+    if rec[1] != 64 or rec[6] not in (128, 256):
+        return "cudaErrorInvalidConfiguration"
+    ph = rec[6] // 16
+    if list(hm[8:12]) != [32, 18, ph + 2, 1] or list(wm[8:11]) != [32, 1, 64]:
+        return "cudaErrorInvalidConfiguration"
+    if hm[1] != C or wm[1] != C or wm[2] != 9 or wm[3] != F:
+        return "cudaErrorInvalidValue"  # the tensors bound are not the record's
+    return None
+
+
+@pytest.mark.parametrize("case", HALO_CASES)
+def test_f32_halo_plans_fit_the_card(case):
+    """(a) The head's four float32 convs on the halo mainloop
+    (``sm90.halo_conv_launch``): conv1 and conv2 (``unetup_launches`` at Cs
+    = 0), conv2's masked dgrad and conv1's split dgrad (``upconv_bwd_
+    launches``).  Each record names the halo mainloop and the C side
+    accepts it (``_halo_refusal``), while the conv core refuses it (its
+    word 9) and the halo mainloop refuses the bf16 head's records; the
+    shared memory (2 halo stages of the box rounded to 1024 bytes, 9
+    weight boxes of 8 KB, the 64-column epilogue buffer, the barriers)
+    within 227 KB (the epilogue's buffer 64 columns, or a masked dgrad's
+    two chunks of 32), every box and buffer on a 1024-byte boundary, box dims
+    at most 256 and 128 bytes of channels; the tiles cover every output
+    pixel and channel once; the slice-major walk takes each (tap, channel)
+    once; the epilogue's store loop has no ragged end."""
+    B, H2, W2, Cx, F = case
+    fwd = sm90.unetup_launches(B, H2, W2, 0, Cx, F, True)
+    bwd = sm90.upconv_bwd_launches(B, H2, W2, Cx, F, True)
+    convs = [(fwd[0], Cx, F), (fwd[1], F, F), (bwd[0], F, F), (bwd[1], F, Cx)]
+    assert [ln["op"] for ln, _, _ in convs] == [sm90.OP_FWD, sm90.OP_FWD, sm90.OP_DGRAD_MASK,
+                                                 sm90.OP_DGRAD_SPLIT]
+    assert [ln["op"] for ln in bwd[2:]] == [sm90.OP_WGRAD] * 2 and "mainloop" not in bwd[2]
+    tm = 256 if H2 % 16 == 0 else 128
+    ph = tm // 16
+    slot = sm90.halo_slot(tm)
+    assert sm90.halo_box_bytes(tm) == 18 * (ph + 2) * 128 <= slot < sm90.halo_box_bytes(tm) + 1024
+    w_off = sm90.HALO_STAGES * slot
+    out_off = w_off + sm90.HALO_W_STAGES * 64 * 128
+    assert slot % 1024 == w_off % 1024 == out_off % 1024 == 0 and 64 * 128 % 1024 == 0
+    for op, cw in ((sm90.OP_FWD, 64), (sm90.OP_DGRAD_MASK, 32), (sm90.OP_DGRAD_SPLIT, 64)):
+        assert sm90.halo_chunk(op) == cw
+        bar_off = out_off + tm * (cw + 4) * 4
+        assert sm90.halo_smem(tm, op) == bar_off + 8 * (3 * 2 + 2 * 9) + 1024 <= SMEM_LIMIT
+        ch = cw // 4
+        assert tm * ch % 256 == 0 and tm * ch // 256 <= 16  # the epilogue's store loop
+    if tm == 256:
+        assert sm90.halo_smem(tm) == 228544 and sm90.halo_box_bytes(tm) == 41472
+    recs = sm90.encode([ln for ln, _, _ in convs])
+    bf16 = sm90.encode(sm90.unetup_launches(B, H2, W2, 0, Cx, F)
+                       + sm90.upconv_bwd_launches(B, H2, W2, Cx, F)[:2])
+    for i, (ln, c, f) in enumerate(convs):
+        rec = recs[i].tolist()
+        assert ln["f32"] and ln["mainloop"] == sm90.MAINLOOP_HALO and rec[9] == 1
+        assert ln["tile"] == (tm, 64) and ln["stages"] == 2 and ln["w_stages"] == 9
+        assert ln["smem"] == sm90.halo_smem(tm, ln["op"]) and ln["k_slices"] == -(-c // 32)
+        assert _halo_refusal(rec, c, f) is None
+        assert rec[9] != sm90.MAINLOOP_TAP  # the conv core's check refuses it
+        assert _halo_refusal(bf16[i].tolist(), c, f) == "cudaErrorInvalidValue"
+        assert bf16[i, 9] == sm90.MAINLOOP_TAP
+        hm, wm = ln["maps"]
+        assert hm["box"] == (32, 18, ph + 2, 1) and hm["dims"] == (c, W2, H2, B)
+        assert wm["box"] == (32, 1, 64) and wm["dims"] == (c, 9, f)
+        for m in ln["maps"]:
+            assert all(0 < d <= 256 for d in m["box"]) and m["box"][0] * 4 == 128
+            dense = [4 * m["dims"][0]]
+            for d in m["dims"][1:-1]:
+                dense.append(dense[-1] * d)
+            assert list(m["strides"]) == dense and all(q % 16 == 0 for q in dense)
+        if ln["op"] == sm90.OP_DGRAD_SPLIT:
+            assert rec[7] == Cx == f
+        n_tiles = B * (H2 // ph) * (W2 // 16) * (f // 64)
+        assert ln["grid"] == (n_tiles, 1, 1)
+        if B * H2 * W2 <= 4096:  # csrc/conv3x3_sm90.cuh::tile_of<64, PH>
+            hits = np.zeros((B, H2, W2, f), np.int64)
+            for t in range(n_tiles):
+                ntn = f // 64
+                mm, n0 = t // ntn, (t % ntn) * 64
+                tw = W2 // 16
+                b, thw = divmod(mm, (H2 // ph) * tw)
+                y0, x0 = (thw // tw) * ph, (thw % tw) * 16
+                hits[b, y0:y0 + ph, x0:x0 + 16, n0:n0 + 64] += 1
+            assert (hits == 1).all()
+        walk = sm90.halo_walk(c)
+        assert walk == [(tap, c0) for c0 in range(0, c, 32) for tap in range(9)]
+        seen = np.zeros((9, -(-c // 32) * 32), np.int64)
+        for tap, c0 in walk:
+            seen[tap, c0:c0 + 32] += 1
+        assert (seen == 1).all()
+
+
+def _halo_ldmatrix(words, wg, v, i, s, ky, kx):
+    """One consumer warp's ldmatrix.x4 of the halo mainloop (warp ``v`` of
+    warpgroup ``wg``, m64 tile ``i``, k8 step ``s``, tap (ky, kx)) from the
+    float32 words of a swizzled halo box: each lane's row address
+    (``sm90.halo_fragment_row``: halo row (y + ky) · 18 + x + kx, the step's
+    16-byte unit swizzled) and the four words lane t receives (word t % 4
+    of row t / 4 of matrix i), checking that each matrix's 8 rows fall on
+    32 distinct banks."""
+    addr = []
+    for lane in range(32):
+        mx, mu = sm90.halo_fragment_row(lane)
+        r = (8 * wg + 4 * i + v + ky) * 18 + mx + kx
+        addr.append(r * 128 + (((2 * s + mu) ^ (r & 7)) << 4))
+    for m in range(4):
+        banks = {(a // 4 + e) % 32 for a in addr[8 * m:8 * m + 8] for e in range(4)}
+        assert len(banks) == 32, (wg, v, i, s, ky, kx, m)
+    return [[words[addr[8 * m + (t >> 2)] // 4 + (t & 3)] for m in range(4)] for t in range(32)]
+
+
+def test_f32_halo_fragments():
+    """The halo mainloop's register fragments, modelled thread by thread as
+    ``csrc/conv3x3_halo_sm90.cuh`` forms them, at B = 1, 16 × 32 pixels
+    (two 16 × 16 tiles), C = 64 (two slices), F = 64: per slice the TMA
+    image of the halo box (32 c, 18 x, 18 y: 128-byte swizzle, zeros
+    outside the image), rounded to TF32 in place; per (consumer thread, m64
+    tile, tap, k8 step) its ldmatrix.x4 row address and the four words it
+    receives (``_halo_ldmatrix``); every (pixel, tap, channel) of a tile
+    loaded once, into the register of the m64n64k8 TF32 A fragment that
+    its (row, k) asks for; each matrix of each ldmatrix on 32 distinct
+    banks at every tap shift; the products of the fragments and the packed
+    weights, summed slice by slice, tap by tap, equal the float64 conv of
+    the rounded input within 1e-12."""
+    rng = np.random.default_rng(11)
+    B, H, W, C, F = 1, 16, 32, 64, 64
+    x = np.maximum(rng.standard_normal((B, H, W, C)), 0).astype(np.float32)
+    w = rng.standard_normal((F, C, 3, 3)).astype(np.float32) / 24
+    ln = sm90.halo_conv_launch(sm90.OP_FWD, B, H, W, C, F)
+    assert ln["tile"] == (256, 64) and ln["maps"][0]["box"] == (32, 18, 18, 1)
+    xpad = np.zeros((B, H + 2, W + 2, C), np.float32)
+    xpad[:, 1:-1, 1:-1] = x
+    xr = round_tf32(torch.from_numpy(xpad)).numpy()
+    wr = round_tf32(torch.from_numpy(w)).numpy().astype(np.float64)
+    out = np.zeros((B, H, W, F))
+    for t in range(ln["grid"][0]):
+        x0 = 16 * t
+        acc = np.zeros((256, F))  # the tile's rows (epilogue order: pixel r = (r / 16, r % 16))
+        for c0 in range(0, C, 32):
+            box = xpad[0, :18, x0:x0 + 18, c0:c0 + 32].reshape(18 * 18, 32)
+            words = round_tf32(torch.from_numpy(_swizzled(box))).numpy().reshape(-1)  # in place
+            hits = np.zeros((256, 9, 32), np.int64)
+            for tap in range(9):
+                ky, kx = divmod(tap, 3)
+                for wg, v, i in np.ndindex(2, 4, 2):
+                    frag = np.zeros((64, 32))  # the m64 tile's A over the slice's k
+                    for s in range(4):
+                        regs = _halo_ldmatrix(words, wg, v, i, s, ky, kx)
+                        for lane in range(32):
+                            g, tt = lane >> 2, lane & 3
+                            rows_k = ((16 * v + g, tt), (16 * v + g + 8, tt),
+                                      (16 * v + g, tt + 4), (16 * v + g + 8, tt + 4))
+                            for (row, k), val in zip(rows_k, regs[lane]):
+                                frag[row, 8 * s + k] = val
+                                py, px = 8 * wg + 4 * i + row // 16, row % 16
+                                want = xr[0, py + ky, x0 + px + kx, c0 + 8 * s + k]
+                                assert val == want, (t, c0, tap, wg, v, i, s, lane)
+                                hits[(2 * wg + i) * 64 + row, tap, 8 * s + k] += 1
+                    rows = slice((2 * wg + i) * 64, (2 * wg + i + 1) * 64)
+                    acc[rows] += frag @ wr[:, c0:c0 + 32, ky, kx].T  # B: the tap's box, K-major
+            assert (hits == 1).all()
+        out[0, :, x0:x0 + 16] = acc.reshape(16, 16, F)
+    ref = emu.conv_halo(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    assert np.abs(out - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+# sha256 of the launch records of every plan of the step in one type (the
+# shapes of _launches()), the float32 head's four convs left out: the halo
+# mainloop's are the only records this redesign changed (its parent's
+# digests, computed there)
+RECORD_DIGESTS = {
+    False: (107, "ba7e743244e32ac0d4c4cd55919c0fc0adb093ddea6c3917fb0c8f8510b3ea87"),
+    True: (99, "1a61d6d430620ae2003a0bfdd0752107610f0c6b78580fc162b5e8c85de4dbe4"),
+}
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_conv_records_unchanged_but_the_f32_head(f32):
+    """(a) The bf16 plans, and every float32 plan but the head's four convs
+    (its two weight-gradient GEMMs included), encode to the records they
+    encoded before the halo mainloop: the stem, blocks 2-5 and both
+    decoders forward and backward, the heads (bf16: all six launches), at
+    the step's shapes; their convs name the conv core (word 9 = 0)."""
+    import hashlib
+
+    lns = []
+    for H, chans, pool in ENCODER:
+        if chans[0] == 3:
+            lns += (sm90.stem_fwd_launches(B, H, H, 64, f32)
+                    + sm90.stem_bwd_launches(B, H, H, 64, f32))
+        else:
+            lns += (sm90.block_fwd_launches(B, H, H, chans, pool, f32)
+                    + sm90.block_bwd_launches(B, H, H, chans, True, f32))
+    for h, cs, cx, f in DECODER + RN50_DECODER:
+        h2 = 2 * h
+        lns += (sm90.unetup_launches(B, h2, h2, cs, cx, f, f32)
+                + sm90.unetup_bwd_launches(B, h2, h2, cs, cx, f, f32)
+                + sm90.unetup_wgrad_launches(B, h2, h2, cs, cx, f, f32))
+    for h, cx, f in HEADS:
+        h2 = 2 * h
+        head = (sm90.unetup_launches(B, h2, h2, 0, cx, f, f32)
+                + sm90.upconv_bwd_launches(B, h2, h2, cx, f, f32))
+        lns += head[4:] if f32 else head
+    rec = sm90.encode(lns)
+    conv = [i for i, ln in enumerate(lns) if ln is not None and ln["op"] <= sm90.OP_DGRAD_SPLIT]
+    assert (rec[conv, 9] == sm90.MAINLOOP_TAP).all()
+    got = (rec.shape[0], hashlib.sha256(rec.numpy().tobytes()).hexdigest())
+    assert got == RECORD_DIGESTS[f32]
 
 
 def test_chip_smoke_holds_every_f32_gemm_shape():

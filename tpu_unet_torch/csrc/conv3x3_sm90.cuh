@@ -55,7 +55,8 @@
 // adjacent, so the blocks that share a patch's input run together out of
 // L2.
 //
-// Epilogues (template OP): bias + ReLU + bf16 and, with
+// Epilogues (template OP; conv_epilogue, which the halo mainloop of
+// conv3x3_halo_sm90.cuh calls too): bias + ReLU + bf16 and, with
 // OP_FWD_POOL, the 2x2 max-pooled tile too (the forward); the dgrad's
 // out = v * [mask > 0] (OP_DGRAD_MASK); the dgrad's plain bf16 store split
 // at a channel S that the launch record carries (OP_DGRAD_SPLIT: channels
@@ -189,6 +190,140 @@ __device__ __forceinline__ Tile tile_of(int t, const A& p) {
   return Tile{(t - m * ntn) * TN, b, (thw / tiles_w) * PH, (thw % tiles_w) * PATCH_W};
 }
 
+// The conv's epilogue, shared by conv_sm90_kernel and the halo mainloop
+// (conv3x3_halo_sm90.cuh): a tile's accumulators, CW columns at a time
+// (they stay in registers until their chunk is staged), in the wgmma
+// fragment layout (warp w of consumer warpgroup wg holds rows 16w .. 16w +
+// 15 of each of its PH / 8 m64 tiles, rows (wg * PH / 8 + i) * 64 + ...:
+// pixel r of the PH x 16 tile is (r / 16, r % 16); lane: row lane / 4 and
+// + 8, columns 2 (lane % 4) + {0,1} of every 8-column group) staged as T
+// rows of the chunk in `sc` (M rows of CW + 16 bytes), then stored
+// coalesced, 16 bytes a thread.
+// OP_DGRAD_MASK: a chunk's mask pieces are loaded all at once rather
+// than one dependent round trip a piece in the store loop: with one
+// chunk once it is staged (the accumulators' registers are free), with
+// several a chunk ahead, so that they fly during the barriers and the
+// staging.  Each chunk still waits on its loads: a float32 masked
+// dgrad of 128 channels runs 128-pixel tiles, two chunks, not eight
+// (kernels/sm90.py::conv_tile_m).  The 256 consumer threads call it
+// together (named barrier 1).
+template <typename T, int TN, int OP, int PH, int CW>
+__device__ __forceinline__ void conv_epilogue(float (&acc)[PH / 8][TN / 2],
+                                              const ConvArgsT<T>& p, const Tile& tile, T* sc,
+                                              int tid) {
+  constexpr int MT = PH / 8;                  // m64 tiles of a consumer warpgroup
+  constexpr int M = PH * PATCH_W;             // pixels of the tile
+  constexpr int EL = 16 / static_cast<int>(sizeof(T));  // elements of a 16-byte piece
+  constexpr int LDC = CW + EL;                // staging row (T)
+  constexpr int CH = CW / EL;                 // 16-byte pieces of a pixel's chunk
+  constexpr int PER = M * CH / CONSUMERS;     // pieces a consumer thread stores a chunk
+  static_assert(M * CH % CONSUMERS == 0 && PER <= 16, "the store loop has no ragged end");
+  const int wg = tid >> 7, lane = tid & 31;
+  const int n0 = tile.n0, b = tile.b, y0 = tile.y0, x0 = tile.x0;
+  uint4 mk[OP == OP_DGRAD_MASK ? PER : 1];
+  auto load_mask = [&](int c0) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int v = tid + j * CONSUMERS, px = v / CH;
+      const size_t pix =
+          (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
+      mk[j] = *reinterpret_cast<const uint4*>(p.mask + pix * p.F + n0 + c0 + (v - px * CH) * EL);
+    }
+  };
+  constexpr int NCH = TN / CW;  // chunks of the tile
+  if (OP == OP_DGRAD_MASK && NCH > 1) load_mask(0);
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    const int c0 = k * CW;
+    // the ring's reads (a staging ring) and the buffer's last reads are done
+    bar_sync(1, CONSUMERS);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = (wg * MT + i) * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+#pragma unroll
+      for (int q = 0; q < CW / 8; ++q) {
+        const int c = 8 * q + 2 * (lane & 3), a = 4 * (c0 / 8 + q);
+        float v0 = acc[i][a], v1 = acc[i][a + 1], v2 = acc[i][a + 2], v3 = acc[i][a + 3];
+        if (OP == OP_FWD || OP == OP_FWD_POOL) {
+          const float b0 = p.bias[n0 + c0 + c], b1 = p.bias[n0 + c0 + c + 1];
+          v0 = fmaxf(v0 + b0, 0.f);
+          v1 = fmaxf(v1 + b1, 0.f);
+          v2 = fmaxf(v2 + b0, 0.f);
+          v3 = fmaxf(v3 + b1, 0.f);
+        }
+        if constexpr (is_f32<T>()) {
+          *reinterpret_cast<float2*>(&sc[r * LDC + c]) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(&sc[(r + 8) * LDC + c]) = make_float2(v2, v3);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(&sc[r * LDC + c]) =
+              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(&sc[(r + 8) * LDC + c]) =
+              __floats2bfloat162_rn(v2, v3);
+        }
+      }
+    }
+    if (OP == OP_DGRAD_MASK && NCH == 1) load_mask(c0);
+    bar_sync(1, CONSUMERS);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int v = tid + j * CONSUMERS;
+      const int px = v / CH, sub = v - px * CH;
+      const size_t pix =
+          (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
+      const int n = n0 + c0 + sub * EL;
+      uint4 val = *reinterpret_cast<const uint4*>(&sc[px * LDC + sub * EL]);
+      if (OP == OP_DGRAD_MASK) {
+        const T* mv = reinterpret_cast<const T*>(&mk[j]);
+        T* vv = reinterpret_cast<T*>(&val);
+#pragma unroll
+        for (int e = 0; e < EL; ++e)
+          if (!(to_f(mv[e]) > 0.f)) vv[e] = from_f<T>(0.f);
+        *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
+      } else if (OP == OP_DGRAD_SPLIT) {
+        if (n < p.split)
+          *reinterpret_cast<uint4*>(p.out + pix * p.split + n) = val;
+        else
+          *reinterpret_cast<uint4*>(p.out2 + pix * (p.F - p.split) + n - p.split) = val;
+      } else {
+        *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
+      }
+    }
+    if (OP == OP_DGRAD_MASK && k + 1 < NCH) load_mask(c0 + CW);
+    if (OP == OP_FWD_POOL) {  // per channel, so a chunk pools whole
+      const int Hp = p.H / 2, Wp = p.W / 2;
+      for (int v = tid; v < (M / 4) * CH; v += CONSUMERS) {
+        const int p2 = v / CH, sub = v - p2 * CH, py = p2 >> 3, px = p2 & 7;
+        const T* c00 = &sc[((2 * py) * PATCH_W + 2 * px) * LDC + sub * EL];
+        T* dst = p.pooled + ((static_cast<size_t>(b) * Hp + y0 / 2 + py) * Wp + x0 / 2 + px) *
+                                p.F + n0 + c0 + sub * EL;
+        if constexpr (is_f32<T>()) {
+          const float4 q00 = *reinterpret_cast<const float4*>(c00);
+          const float4 q01 = *reinterpret_cast<const float4*>(c00 + LDC);
+          const float4 q10 = *reinterpret_cast<const float4*>(c00 + PATCH_W * LDC);
+          const float4 q11 = *reinterpret_cast<const float4*>(c00 + PATCH_W * LDC + LDC);
+          *reinterpret_cast<float4*>(dst) = make_float4(
+              fmaxf(fmaxf(q00.x, q01.x), fmaxf(q10.x, q11.x)),
+              fmaxf(fmaxf(q00.y, q01.y), fmaxf(q10.y, q11.y)),
+              fmaxf(fmaxf(q00.z, q01.z), fmaxf(q10.z, q11.z)),
+              fmaxf(fmaxf(q00.w, q01.w), fmaxf(q10.w, q11.w)));
+        } else {
+          const __nv_bfloat162* q00 = reinterpret_cast<const __nv_bfloat162*>(c00);
+          const __nv_bfloat162* q01 = reinterpret_cast<const __nv_bfloat162*>(c00 + LDC);
+          const __nv_bfloat162* q10 =
+              reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * LDC);
+          const __nv_bfloat162* q11 =
+              reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * LDC + LDC);
+          __align__(16) __nv_bfloat162 mx[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[e] = __hmax2(__hmax2(q00[e], q01[e]), __hmax2(q10[e], q11[e]));
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(mx);
+        }
+      }
+    }
+  }
+}
+
 template <typename T, int TN, int OP, int PH>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant__ CUtensorMap act2,
@@ -244,16 +379,9 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
 
   consumer_regs();
   const int wg = tid >> 7;
-  const int lane = tid & 31;
-  constexpr int EL = 16 / static_cast<int>(sizeof(T));  // elements of a 16-byte piece
-  constexpr int CW = S::CW;                   // columns of a chunk (bf16: the tile's)
-  constexpr int CH = CW / EL;                 // 16-byte pieces of a pixel's chunk
-  constexpr int PER = S::M * CH / CONSUMERS;  // pieces a consumer thread stores a chunk
-  static_assert(S::M * CH % CONSUMERS == 0 && PER <= 16, "the store loop has no ragged end");
   int g = 0;
   for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
     const Tile T_ = tile_of<TN, PH>(t, p);
-    const int n0 = T_.n0, b = T_.b, y0 = T_.y0, x0 = T_.x0;
     float acc[MT][TN / 2];
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -281,120 +409,7 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap act, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < MT; ++i) fence_acc(acc[i]);
 
-    // epilogue, CW columns at a time (the accumulators stay in registers
-    // until their chunk is staged): the wgmma fragment (warp w of the
-    // warpgroup holds rows 16w .. 16w + 15 of each m64 tile; lane: row lane
-    // / 4 and + 8, columns 2 (lane % 4) + {0,1} of every 8-column group)
-    // staged as T rows of the chunk, then stored coalesced.
-    // OP_DGRAD_MASK: a chunk's mask pieces are loaded all at once rather
-    // than one dependent round trip a piece in the store loop: with one
-    // chunk once it is staged (the accumulators' registers are free), with
-    // several a chunk ahead, so that they fly during the barriers and the
-    // staging.  Each chunk still waits on its loads: a float32 masked
-    // dgrad of 128 channels runs 128-pixel tiles, two chunks, not eight
-    // (kernels/sm90.py::conv_tile_m)
-    uint4 mk[OP == OP_DGRAD_MASK ? PER : 1];
-    auto load_mask = [&](int c0) {
-#pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        const int v = tid + j * CONSUMERS, px = v / CH;
-        const size_t pix =
-            (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
-        mk[j] = *reinterpret_cast<const uint4*>(p.mask + pix * p.F + n0 + c0 + (v - px * CH) * EL);
-      }
-    };
-    constexpr int NCH = TN / CW;  // chunks of the tile
-    if (OP == OP_DGRAD_MASK && NCH > 1) load_mask(0);
-#pragma unroll
-    for (int k = 0; k < NCH; ++k) {
-      const int c0 = k * CW;
-      // the ring's reads (a staging ring) and the buffer's last reads are done
-      bar_sync(1, CONSUMERS);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = (wg * MT + i) * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
-#pragma unroll
-        for (int q = 0; q < CW / 8; ++q) {
-          const int c = 8 * q + 2 * (lane & 3), a = 4 * (c0 / 8 + q);
-          float v0 = acc[i][a], v1 = acc[i][a + 1], v2 = acc[i][a + 2], v3 = acc[i][a + 3];
-          if (OP == OP_FWD || OP == OP_FWD_POOL) {
-            const float b0 = p.bias[n0 + c0 + c], b1 = p.bias[n0 + c0 + c + 1];
-            v0 = fmaxf(v0 + b0, 0.f);
-            v1 = fmaxf(v1 + b1, 0.f);
-            v2 = fmaxf(v2 + b0, 0.f);
-            v3 = fmaxf(v3 + b1, 0.f);
-          }
-          if constexpr (is_f32<T>()) {
-            *reinterpret_cast<float2*>(&sc[r * S::LDC + c]) = make_float2(v0, v1);
-            *reinterpret_cast<float2*>(&sc[(r + 8) * S::LDC + c]) = make_float2(v2, v3);
-          } else {
-            *reinterpret_cast<__nv_bfloat162*>(&sc[r * S::LDC + c]) =
-                __floats2bfloat162_rn(v0, v1);
-            *reinterpret_cast<__nv_bfloat162*>(&sc[(r + 8) * S::LDC + c]) =
-                __floats2bfloat162_rn(v2, v3);
-          }
-        }
-      }
-      if (OP == OP_DGRAD_MASK && NCH == 1) load_mask(c0);
-      bar_sync(1, CONSUMERS);
-#pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        const int v = tid + j * CONSUMERS;
-        const int px = v / CH, sub = v - px * CH;
-        const size_t pix =
-            (static_cast<size_t>(b) * p.H + y0 + px / PATCH_W) * p.W + x0 + px % PATCH_W;
-        const int n = n0 + c0 + sub * EL;
-        uint4 val = *reinterpret_cast<const uint4*>(&sc[px * S::LDC + sub * EL]);
-        if (OP == OP_DGRAD_MASK) {
-          const T* mv = reinterpret_cast<const T*>(&mk[j]);
-          T* vv = reinterpret_cast<T*>(&val);
-#pragma unroll
-          for (int e = 0; e < EL; ++e)
-            if (!(to_f(mv[e]) > 0.f)) vv[e] = from_f<T>(0.f);
-          *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
-        } else if (OP == OP_DGRAD_SPLIT) {
-          if (n < p.split)
-            *reinterpret_cast<uint4*>(p.out + pix * p.split + n) = val;
-          else
-            *reinterpret_cast<uint4*>(p.out2 + pix * (p.F - p.split) + n - p.split) = val;
-        } else {
-          *reinterpret_cast<uint4*>(p.out + pix * p.F + n) = val;
-        }
-      }
-      if (OP == OP_DGRAD_MASK && k + 1 < NCH) load_mask(c0 + CW);
-      if (OP == OP_FWD_POOL) {  // per channel, so a chunk pools whole
-        const int Hp = p.H / 2, Wp = p.W / 2;
-        for (int v = tid; v < (S::M / 4) * CH; v += CONSUMERS) {
-          const int p2 = v / CH, sub = v - p2 * CH, py = p2 >> 3, px = p2 & 7;
-          const T* c00 = &sc[((2 * py) * PATCH_W + 2 * px) * S::LDC + sub * EL];
-          T* dst = p.pooled + ((static_cast<size_t>(b) * Hp + y0 / 2 + py) * Wp + x0 / 2 + px) *
-                                  p.F + n0 + c0 + sub * EL;
-          if constexpr (is_f32<T>()) {
-            const float4 q00 = *reinterpret_cast<const float4*>(c00);
-            const float4 q01 = *reinterpret_cast<const float4*>(c00 + S::LDC);
-            const float4 q10 = *reinterpret_cast<const float4*>(c00 + PATCH_W * S::LDC);
-            const float4 q11 = *reinterpret_cast<const float4*>(c00 + PATCH_W * S::LDC + S::LDC);
-            *reinterpret_cast<float4*>(dst) = make_float4(
-                fmaxf(fmaxf(q00.x, q01.x), fmaxf(q10.x, q11.x)),
-                fmaxf(fmaxf(q00.y, q01.y), fmaxf(q10.y, q11.y)),
-                fmaxf(fmaxf(q00.z, q01.z), fmaxf(q10.z, q11.z)),
-                fmaxf(fmaxf(q00.w, q01.w), fmaxf(q10.w, q11.w)));
-          } else {
-            const __nv_bfloat162* q00 = reinterpret_cast<const __nv_bfloat162*>(c00);
-            const __nv_bfloat162* q01 = reinterpret_cast<const __nv_bfloat162*>(c00 + S::LDC);
-            const __nv_bfloat162* q10 =
-                reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC);
-            const __nv_bfloat162* q11 =
-                reinterpret_cast<const __nv_bfloat162*>(c00 + PATCH_W * S::LDC + S::LDC);
-            __align__(16) __nv_bfloat162 mx[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              mx[e] = __hmax2(__hmax2(q00[e], q01[e]), __hmax2(q10[e], q11[e]));
-            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(mx);
-          }
-        }
-      }
-    }
+    conv_epilogue<T, TN, OP, PH, S::CW>(acc, p, T_, sc, tid);
   }
 }
 
@@ -448,7 +463,8 @@ cudaError_t launch_conv_op(const Launch& L, const T* in, const T* in2, const T* 
 // One conv per its launch record: `in` (B, H, W, C) under map 0, `wt` (F,
 // 9 (C + C2)) under map 1 and, where the record has map 2, `in2` (B, H, W,
 // C2) under it (a.C2 > 0 exactly then), all of the element type T (bf16 or
-// float32), which the record names.  A split dgrad's record carries its
+// float32), which the record names; a record of the halo mainloop is
+// refused.  A split dgrad's record carries its
 // split S (0 < S <= F, S % 8 == 0; a.out2 set where S < F).
 template <typename T>
 struct Same {
@@ -459,7 +475,8 @@ template <typename T>
 cudaError_t launch_conv_sm90(const int64_t* record, const T* in, const typename Same<T>::type* in2,
                              const T* wt, const ConvArgsT<T>& a, cudaStream_t stream) {
   const Launch L{record};
-  if (L.f32() != is_f32<T>() || L.has_map(2) != (a.C2 > 0) || (a.C2 > 0 && in2 == nullptr))
+  if (L.f32() != is_f32<T>() || L.mainloop() != MAINLOOP_TAP || L.has_map(2) != (a.C2 > 0) ||
+      (a.C2 > 0 && in2 == nullptr))
     return cudaErrorInvalidValue;
   switch (L.op()) {
     case OP_FWD: return launch_conv_op<T, OP_FWD>(L, in, in2, wt, a, stream);

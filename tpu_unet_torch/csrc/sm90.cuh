@@ -1,8 +1,9 @@
 // Hopper building blocks of the port's sm_90a kernels (csrc/conv3x3_sm90.cuh,
 // csrc/wgrad_sm90.cuh, the stem's image GEMMs, the losses csrc/loss.cu
 // and csrc/loss_logits.cu, the serving tail csrc/tail_sm90.cu and the
-// upsample's adjoint csrc/upsample_adjoint.cuh): mbarriers, TMA tile loads
-// and stores, 1-D bulk copies, wgmma
+// upsample's adjoint csrc/upsample_adjoint.cuh, the halo mainloop
+// csrc/conv3x3_halo_sm90.cuh): mbarriers, TMA tile loads and stores, 1-D
+// bulk copies, ldmatrix / stmatrix, wgmma
 // descriptors and the m64nNk16 bf16 products with float32 accumulators
 // (both operands from shared memory, or A from registers), the float32
 // path's TF32 products (m64nNk8 wgmma with A from shared memory or from
@@ -202,6 +203,18 @@ __device__ __forceinline__ void stmatrix_x4_trans(void* row, uint32_t r0, uint32
   asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
                    smem_addr(row)),
                "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// four 8 x 8 b16 matrices from shared memory into an mma fragment (the
+// inverse of stmatrix_x4): lane 8i + k gives the address of row k (16
+// bytes) of matrix i, and register i of thread t receives row t / 4, 32-bit
+// word t % 4 of matrix i.  For float32 rows (4 words of 16 bytes) that is a
+// TF32 A fragment's layout: word t % 4 is the fragment's k t % 4.
+__device__ __forceinline__ void ldmatrix_x4(const void* row, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
                : "memory");
 }
 
@@ -757,10 +770,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // bias and weight gradients); then three tensor maps
 // of MAP_WORDS each: rank, dims[4] (elements, innermost first), byte
 // strides of dims 1-3, box[4]; rank 0 for a map the launch does not use
-// (the conv's second input map).  The ring's stages and shared memory
-// follow from the tile at compile time.
+// (the conv's second input map).  A conv's record (OP_FWD .. OP_DGRAD_SPLIT)
+// names its mainloop in word 9: 0 the conv core's per-tap K slices
+// (conv3x3_sm90.cuh), 1 the halo mainloop (conv3x3_halo_sm90.cuh); each
+// refuses the other's records.  The ring's stages and shared memory follow
+// from the tile at compile time.
 enum { OP_FWD = 0, OP_FWD_POOL = 1, OP_DGRAD_MASK = 2, OP_DGRAD_SPLIT = 3, OP_WGRAD = 4,
        OP_WGRAD_IMAGE = 5, OP_FWD_IMAGE = 6 };
+enum { MAINLOOP_TAP = 0, MAINLOOP_HALO = 1 };
 constexpr int HEAD_WORDS = 11, MAP_WORDS = 12, PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS;
 
 struct Launch {
@@ -777,6 +794,7 @@ struct Launch {
   int split() const { return static_cast<int>(w[7]); }  // OP_DGRAD_SPLIT
   int out_offset() const { return static_cast<int>(w[8]); }
   bool bias() const { return w[9] != 0; }
+  int mainloop() const { return static_cast<int>(w[9]); }  // a conv's
   bool f32() const { return w[10] != 0; }
   const int64_t* map(int i) const { return w + HEAD_WORDS + i * MAP_WORDS; }
   bool has_map(int i) const { return map(i)[0] != 0; }

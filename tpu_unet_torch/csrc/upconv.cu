@@ -30,17 +30,22 @@
 // Both entries in bf16 or, for the float32 training path (fp16=False),
 // float32 (a typed C entry with an f32 flag; each launch record names its
 // element type, word 10, and the conv core, the weight-gradient GEMM
-// refuse a record of the other type): the same launches on the float32
-// instantiations of the conv core (TF32 wgmma; 32-channel K slices; the
-// 256 x 64 tile, whose float32 epilogue tile leaves the ring too few
-// stages, runs one block a tile, not persistent), the float32
-// weight-gradient GEMM (TF32 wgmma, G restaged K-major; 113 splits of at
-// most 1280 patches at both heads), the mask pass, the upsample
-// and its adjoint.  Bound in float32: operations at the TF32 peak, 494.7
-// TFLOP/s — the forward 309 GFLOP, 0.625 ms, at the unet_resnet50 head
-// and 1237 GFLOP, 2.50 ms, at self_net's; the backward 618 GFLOP, 1.25 ms,
-// and 2474 GFLOP, 5.0 ms — against about 1.9 GB of float32 bytes at the
-// unet_resnet50 head's backward (0.56 ms at 3.35 TB/s).
+// refuse a record of the other type).  In float32 the head's four convs run
+// on the halo mainloop (csrc/conv3x3_halo_sm90.cuh: 16 x 16 x 64 tiles,
+// persistent; each 32-channel K slice one TMA halo box that serves all
+// nine taps, the activation rounded to TF32 in place and fed to TF32 wgmma
+// as register fragments), whose records name it (word 9;
+// kernels/sm90.py::halo_conv_launch), where the 256 x 64 tile of the conv
+// core, one box a tap, read its operands from L2 at 25.6 FLOP a byte; the
+// rest are the float32 weight-gradient GEMM (TF32 wgmma, G restaged
+// K-major; 113 splits of at most 1280 patches at both heads), the mask
+// pass, the upsample and its adjoint.  Bound in float32: operations at the
+// TF32 peak, 494.7 TFLOP/s — the forward 309 GFLOP, 0.625 ms, at the
+// unet_resnet50 head and 1237 GFLOP, 2.50 ms, at self_net's; the backward
+// 618 GFLOP, 1.25 ms, and 2474 GFLOP, 5.0 ms — against about 1.9 GB of
+// float32 bytes at the unet_resnet50 head's backward (0.56 ms at 3.35
+// TB/s).
+#include "conv3x3_halo_sm90.cuh"
 #include "relu_grad.cuh"
 #include "upsample_adjoint.cuh"
 #include "wgrad_sm90.cuh"
@@ -50,6 +55,17 @@ using bf16 = __nv_bfloat16;
 namespace sm90 = tu::sm90;
 
 namespace {
+
+// one of the head's convs per its record: float32 on the halo mainloop,
+// bf16 on the conv core (each refuses a record of the other)
+template <typename T>
+cudaError_t head_conv(const int64_t* record, const T* in, const T* wt,
+                      const sm90::ConvArgsT<T>& a, cudaStream_t stream) {
+  if constexpr (sm90::is_f32<T>())
+    return sm90::launch_halo_conv_sm90(record, in, wt, a, stream);
+  else
+    return sm90::launch_conv_sm90<T>(record, in, nullptr, wt, a, stream);
+}
 
 template <typename T>
 int upconv(const void* up, const void* w1, const float* b1, const void* w2, const float* b2,
@@ -64,12 +80,12 @@ int upconv(const void* up, const void* w1, const float* b1, const void* w2, cons
       !fits(l1.map(0), Cx) || !fits(l2.map(0), F))
     return cudaErrorInvalidValue;
   T* ty1 = static_cast<T*>(y1);
-  cudaError_t e = sm90::launch_conv_sm90<T>(
-      l1.w, static_cast<const T*>(up), nullptr, static_cast<const T*>(w1),
-      sm90::ConvArgsT<T>{b1, nullptr, ty1, nullptr, H2, W2, Cx, F}, stream);
+  cudaError_t e = head_conv<T>(l1.w, static_cast<const T*>(up), static_cast<const T*>(w1),
+                               sm90::ConvArgsT<T>{b1, nullptr, ty1, nullptr, H2, W2, Cx, F},
+                               stream);
   if (e != cudaSuccess) return e;
-  return sm90::launch_conv_sm90<T>(
-      l2.w, ty1, nullptr, static_cast<const T*>(w2),
+  return head_conv<T>(
+      l2.w, ty1, static_cast<const T*>(w2),
       sm90::ConvArgsT<T>{b2, nullptr, static_cast<T*>(out), nullptr, H2, W2, F, F}, stream);
 }
 
@@ -109,8 +125,9 @@ int upconv(const void* up, const void* w1, const float* b1, const void* w2, cons
 //   6. the adjoint (csrc/upsample_adjoint.cuh) writes dx.
 // g2, dz1 and dups go through device memory; the TPU kernel keeps them in
 // VMEM.  Both dgrads at the tile of conv_tile_m (256 x 64, persistent, at
-// both heads); the GEMMs at 64 f x 128 columns, their splits filling the
-// 132 SMs, each split at most 1280 patches of 8 x 16 pixels
+// both heads; in float32 on the halo mainloop); the GEMMs at 64 f x 128
+// columns, their splits filling the 132 SMs, each split at most 1280
+// patches of 8 x 16 pixels
 // (sm90.py::MAX_SPLIT_PATCHES: 52 splits at self_net's 8.4M pixels, whose
 // float32 runs at 23 splits read dk2 3.8e-4 of max |dk2| from float64 on
 // an H100); the partials are added in split order, so the result is
@@ -144,15 +161,15 @@ int upconv_bwd(const void* g, const void* out, const void* y1, const void* up, c
       static_cast<const T*>(g), static_cast<const T*>(out), static_cast<T*>(g2),
       static_cast<size_t>(B) * H2 * W2 * F / (16 / sizeof(T)), stream);
   if (e != cudaSuccess) return e;
-  e = sm90::launch_conv_sm90<T>(
-      r2, tg2, nullptr, static_cast<const T*>(w2t),
-      sm90::ConvArgsT<T>{nullptr, ty1, static_cast<T*>(dz1), nullptr, H2, W2, F, F}, stream);
+  e = head_conv<T>(r2, tg2, static_cast<const T*>(w2t),
+                   sm90::ConvArgsT<T>{nullptr, ty1, static_cast<T*>(dz1), nullptr, H2, W2, F, F},
+                   stream);
   if (e != cudaSuccess) return e;
   e = sm90::launch_wgrad_sm90<T>(plan + 2 * sm90::PLAN_WORDS, tg2, ty1, work, dk2, db2, B, H2,
                                  W2, F, F, stream);
   if (e != cudaSuccess) return e;
-  e = sm90::launch_conv_sm90<T>(
-      r1, tdz1, nullptr, static_cast<const T*>(w1t),
+  e = head_conv<T>(
+      r1, tdz1, static_cast<const T*>(w1t),
       sm90::ConvArgsT<T>{nullptr, nullptr, static_cast<T*>(dups), nullptr, H2, W2, F, Cx},
       stream);
   if (e != cudaSuccess) return e;

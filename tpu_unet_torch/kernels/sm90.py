@@ -25,7 +25,13 @@ The weight-gradient GEMM in float32 is a kernel of its own
 operand from shared memory, so the input goes in as register fragments and
 G is restaged K-major): 64 f × 576 columns, all nine taps of a 64-channel
 slice, from one halo box a 32-channel slice and a 2 × 16-pixel stage
-(:func:`wgrad_launch`, :func:`halo_map`).
+(:func:`wgrad_launch`, :func:`halo_map`).  The up_conv head's four float32
+convs run on a mainloop of their own (``csrc/conv3x3_halo_sm90.cuh``,
+:func:`halo_conv_launch`): a K slice is one halo box of 32 channels that
+serves all nine taps, each tap a shift of the rows its register fragments
+read.  A conv's record names its mainloop (its word 9:
+:data:`MAINLOOP_TAP`, :data:`MAINLOOP_HALO`), and each refuses the
+other's.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ OP_FWD, OP_FWD_POOL, OP_DGRAD_MASK, OP_DGRAD_SPLIT, OP_WGRAD, OP_WGRAD_IMAGE, OP
     range(7)
 HEAD_WORDS, MAP_WORDS = 11, 12
 PLAN_WORDS = HEAD_WORDS + 3 * MAP_WORDS
+MAINLOOP_TAP, MAINLOOP_HALO = 0, 1  # a conv record's word 9
 
 
 def itemsize(f32: bool = False) -> int:
@@ -245,12 +252,13 @@ def nhwc_map(B: int, H: int, W: int, C: int, patch_h: int = PATCH_H, f32: bool =
     return tensor_map((C, W, H, B), (slice_c(f32), PATCH_W, patch_h, 1), f32)
 
 
-def halo_map(B: int, H: int, W: int, C: int) -> dict:
-    """(B, H, W, C) float32 activations seen by the float32 weight-gradient
-    GEMM: the box is a 2 × 16 stage's pixels with their one-pixel halo, 4 ×
-    18, by 32 channels; loaded at (c, x0 - 1, y0 - 1) its zero fill is the
+def halo_map(B: int, H: int, W: int, C: int, rows: int = WGRAD_F32_SUB_H) -> dict:
+    """(B, H, W, C) float32 activations seen through a halo box: ``rows`` ×
+    16 pixels with their one-pixel halo, (rows + 2) × 18, by 32 channels
+    (the float32 weight-gradient GEMM's 2 × 16 stage; the halo mainloop's
+    tile, 16 or 8 rows); loaded at (c, x0 - 1, y0 - 1) its zero fill is the
     SAME padding, and it serves all nine taps."""
-    return tensor_map((C, W, H, B), (slice_c(True), PATCH_W + 2, WGRAD_F32_SUB_H + 2, 1), True)
+    return tensor_map((C, W, H, B), (slice_c(True), PATCH_W + 2, rows + 2, 1), True)
 
 
 def weight_map(C: int, F: int, tile_n: int, f32: bool = False) -> dict:
@@ -294,6 +302,100 @@ def conv_launch(op: int, B: int, H: int, W: int, C: int, F: int, C2: int = 0,
     if op == OP_DGRAD_SPLIT:
         ln["out"] = (F if split is None else split, 0, 0)
     return ln
+
+
+# the halo mainloop (csrc/conv3x3_halo_sm90.cuh::HaloSmem): 64 output
+# channels a tile; a ring of 2 halo boxes and one of 9 weight boxes (32 c,
+# 1 tap, 64 n: a slice's nine taps); the epilogue's buffer beside them
+HALO_TN = 64
+HALO_STAGES = 2
+HALO_W_STAGES = 9
+
+
+def halo_box_bytes(tile_m: int) -> int:
+    """Bytes of the halo mainloop's box: the tile's (tile_m / 16) × 16
+    pixels with their halo, by 128 bytes (41,472 at 256 pixels)."""
+    return (PATCH_W + 2) * (tile_m // PATCH_W + 2) * 128
+
+
+def halo_slot(tile_m: int) -> int:
+    """A halo box's stage: its bytes rounded up to 1024 (the 128-byte
+    swizzle's repeat, on which TMA and the fragments' addressing agree)."""
+    return -(-halo_box_bytes(tile_m) // 1024) * 1024
+
+
+def halo_chunk(op: int) -> int:
+    """Columns the halo mainloop's epilogue stages at a time: the tile's 64,
+    or 32 for a masked dgrad (its second chunk's mask loads fly during the
+    first chunk's stores)."""
+    return 32 if op == OP_DGRAD_MASK else HALO_TN
+
+
+def halo_smem(tile_m: int, op: int = OP_FWD) -> int:
+    """Dynamic shared memory of the halo mainloop: 2 halo stages, 9 weight
+    boxes of 8 KB, the epilogue's buffer (rows of :func:`halo_chunk`'s
+    columns and 16 bytes), 3 barriers a halo stage and 2 a weight stage,
+    1024 spare bytes."""
+    return (HALO_STAGES * halo_slot(tile_m) + HALO_W_STAGES * HALO_TN * 128
+            + tile_m * (halo_chunk(op) + 4) * 4 + 8 * (3 * HALO_STAGES + 2 * HALO_W_STAGES)
+            + 1024)
+
+
+def halo_tile_m(H: int) -> int:
+    """The halo mainloop's tile: 256 pixels (16 × 16) where H % 16 == 0,
+    else 128 (8 × 16)."""
+    return 2 * PATCH if H % 16 == 0 else PATCH
+
+
+def halo_conv_launch(op: int, B: int, H: int, W: int, C: int, F: int,
+                     split: int | None = None) -> dict:
+    """One float32 3×3 SAME conv (B, H, W, C) → (B, H, W, F) on the halo
+    mainloop (``OP_FWD``, ``OP_DGRAD_MASK`` or ``OP_DGRAD_SPLIT`` as
+    :func:`conv_launch` takes them): tiles of :func:`halo_tile_m`'s pixels
+    × 64 channels, the F / 64 channel tiles of a patch adjacent, persistent;
+    its K walk slice-major (:func:`halo_walk`): per 32-channel slice one
+    halo box (:func:`halo_map` at the tile's rows) and the nine taps' weight
+    boxes (:func:`weight_map` at 64 channels).  At 256 pixels a slice is
+    41.5 KB of input and 72 KB of weights for 9.44 MFLOP, 82 FLOP a byte of
+    L2 against 25.6 of the conv core's 256 × 64 float32 tile."""
+    tile_m = halo_tile_m(H)
+    patch_h = tile_m // PATCH_W
+    tiles_m = B * (H // patch_h) * (W // PATCH_W)
+    ln = {"op": op, "tile": (tile_m, HALO_TN), "grid": ((F // HALO_TN) * tiles_m, 1, 1),
+          "smem": halo_smem(tile_m, op), "stages": HALO_STAGES, "w_stages": HALO_W_STAGES,
+          "nsplit": 1, "k_slices": -(-C // slice_c(True)),
+          "maps": [halo_map(B, H, W, C, patch_h), weight_map(C, F, HALO_TN, True)],
+          "f32": True, "mainloop": MAINLOOP_HALO}
+    if op == OP_DGRAD_SPLIT:
+        ln["out"] = (F if split is None else split, 0, 0)
+    return ln
+
+
+def flop_per_l2_byte(ln: dict) -> float:
+    """A conv launch's operations per byte of its K slice's boxes (what its
+    tiles read from L2): the conv core's slice is one tap's box of the
+    input and of the weights; the halo mainloop's a halo box and the nine
+    taps' weight boxes."""
+    tm, tn = ln["tile"]
+    sl = slice_c(ln["f32"])
+    if ln.get("mainloop") == MAINLOOP_HALO:
+        return 2 * tm * tn * 9 * sl / (halo_box_bytes(tm) + 9 * tn * 128)
+    return 2 * tm * tn * sl / conv_stage_bytes(tn, tm)
+
+
+def halo_walk(C: int):
+    """The halo mainloop's K walk, slice-major: per 32-channel slice of the
+    input (its first channel c0), the nine taps, each as (tap, c0)."""
+    return [(tap, c0) for c0 in range(0, C, slice_c(True)) for tap in range(9)]
+
+
+def halo_fragment_row(lane: int):
+    """The halo mainloop's ldmatrix.x4 address of ``lane`` of a consumer
+    warp, which gives row lane % 8 of matrix lane / 8: (x, unit) — the
+    pixel column of the row it points at (matrices 1 and 3: 8 on) and the
+    16-byte unit of the k8 step (matrices 2 and 3: the second)
+    (``csrc/conv3x3_halo_sm90.cuh`` computes the same)."""
+    return (lane & 7) + 8 * ((lane >> 3) & 1), lane >> 4
 
 
 def k_walk(C: int, C2: int = 0, f32: bool = False):
@@ -468,7 +570,11 @@ def unetup_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int, f32: boo
     """A UnetUp stage's forward on the conv core: conv1 over the two maps
     [skip (Cs) | up (Cx)] into y1, conv2 over y1, both with bias + ReLU, at
     the tile of :func:`conv_tile_m`.  At Cs = 0 (the ``up_conv`` head,
-    #10 / #11) conv1 reads the one map up."""
+    #10 / #11) conv1 reads the one map up; in float32 there both convs run
+    on the halo mainloop (:func:`halo_conv_launch`)."""
+    if f32 and not Cs:
+        return [halo_conv_launch(OP_FWD, B, H2, W2, Cx, F),
+                halo_conv_launch(OP_FWD, B, H2, W2, F, F)]
     tm = conv_tile_m(H2, F)
     conv1 = conv_launch(OP_FWD, B, H2, W2, Cs, F, Cx, tm, f32=f32) if Cs else \
         conv_launch(OP_FWD, B, H2, W2, Cx, F, 0, tm, f32=f32)
@@ -540,7 +646,12 @@ def upconv_bwd_launches(B: int, H2: int, W2: int, Cx: int, F: int, f32: bool = F
     (``OP_DGRAD_SPLIT`` at split = Cx, as a block's conv 0 writes dx: the
     core takes 0 < split ≤ F); the weight gradients dk2 / db2 over (g2, y1)
     and dk1 / db1 over (dz1, up) (:func:`wgrad_launch`); in bf16 or
-    (``f32``) float32."""
+    (``f32``) float32, where the two dgrads run on the halo mainloop
+    (:func:`halo_conv_launch`)."""
+    if f32:
+        return [halo_conv_launch(OP_DGRAD_MASK, B, H2, W2, F, F),
+                halo_conv_launch(OP_DGRAD_SPLIT, B, H2, W2, F, Cx, split=Cx),
+                wgrad_launch(B, H2, W2, F, F, f32=True), wgrad_launch(B, H2, W2, Cx, F, f32=True)]
     return [unetup_bwd_launches(B, H2, W2, 0, Cx, F, f32)[0],
             conv_launch(OP_DGRAD_SPLIT, B, H2, W2, F, Cx, 0, conv_tile_m(H2, Cx), f32=f32),
             wgrad_launch(B, H2, W2, F, F, f32=f32), wgrad_launch(B, H2, W2, Cx, F, f32=f32)]
@@ -559,15 +670,18 @@ def unetup_wgrad_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int,
 def encode(launches) -> torch.Tensor:
     """(n, PLAN_WORDS) int64 records on the CPU: op, tile_n, grid x / y / z,
     split count, tile_m, a weight gradient's output channels, first channel
-    and bias flag, the element type (0 bf16, 1 float32), then per map
-    (three) its rank, dims (4), byte strides (3) and box (4); unused words
-    and absent maps 0."""
+    and bias flag (a split dgrad's split in the first; a conv's mainloop in
+    the third), the element type (0 bf16, 1 float32), then per map (three)
+    its rank, dims (4), byte strides (3) and box (4); unused words and
+    absent maps 0."""
     out = torch.zeros((len(launches), PLAN_WORDS), dtype=torch.int64)
     for i, ln in enumerate(launches):
         if ln is None:
             continue
         words = [ln["op"], ln["tile"][1], *ln["grid"], ln["nsplit"], ln["tile"][0],
                  *ln.get("out", (0, 0, 0)), int(ln.get("f32", False))]
+        if "mainloop" in ln:
+            words[9] = ln["mainloop"]
         for m in ln["maps"]:
             rank = len(m["dims"])
             words += [rank, *m["dims"], *([0] * (4 - rank)), *m["strides"],

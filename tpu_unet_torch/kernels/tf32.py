@@ -6,11 +6,19 @@ gradients and accumulators in float32 and multiply in TF32 (PTX: a .tf32
 operand's low 13 mantissa bits are not used).  Which operands are rounded
 and which are cut depends on how they reach the tensor cores:
 
-- the conv core (``csrc/conv3x3_sm90.cuh``; #1, #2's conv1_2, #3, #10 /
-  #11, #13, the dgrads of #12, #20 / #22 / #24): the activation or
-  gradient operand comes straight from a TMA box, so it is truncated
-  (:func:`trunc_tf32`); the weights are rounded to nearest when they are
-  packed (``_build.pack_conv3x3``, :func:`round_tf32`);
+- the conv core (``csrc/conv3x3_sm90.cuh``; #1, #2's conv1_2, #3, #13,
+  #20 / #22 / #24): the activation or gradient operand comes straight
+  from a TMA box, so it is truncated (:func:`trunc_tf32`); the weights
+  are rounded to nearest when they are packed (``_build.pack_conv3x3``,
+  :func:`round_tf32`);
+- the halo mainloop (``csrc/conv3x3_halo_sm90.cuh``; the up_conv head's
+  four convs: #10 / #11's conv1 and conv2, #12's masked dgrad of conv2
+  and its dgrad of conv1, ``sm90.halo_conv_launch``): the activation or
+  gradient reaches the tensor cores as register fragments, loaded from
+  halo boxes that the kernel's producer warpgroup rounds in place, so it
+  is rounded to nearest (``cvt.rna.tf32.f32``, :func:`round_tf32`), and
+  the weights are rounded as packed; its K walk is slice-major
+  (``sm90.halo_walk``: per 32-channel slice, the nine taps);
 - the weight-gradient GEMM (``csrc/wgrad_sm90.cuh::wgrad_tf32_kernel``,
   TF32 ``wgmma``): G is restaged K-major and the input's boxes are
   rounded in place by the kernel's restaging warpgroup before the
@@ -34,6 +42,7 @@ module.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -168,15 +177,16 @@ def _ste(rule, t):
     return t + (RULES[rule](t.detach()) - t).detach()
 
 
-def _conv3x3_relu(x, w, b):
-    rule = "round" if x.shape[-1] == 3 else "trunc"  # the stem's image GEMM rounds
+def _conv3x3_relu(x, w, b, rule=None):
+    if rule is None:  # the stem's image GEMM rounds, the conv core truncates
+        rule = "round" if x.shape[-1] == 3 else "trunc"
     y = F.conv2d(_ste(rule, x).double().permute(0, 3, 1, 2), _ste("round", w).double(),
                  b.double(), padding=1)
     return torch.relu(y).permute(0, 2, 3, 1).float().contiguous()
 
 
-def _conv_nobias(x, w):
-    y = F.conv2d(_ste("trunc", x).double().permute(0, 3, 1, 2), _ste("round", w).double(),
+def _conv_nobias(x, w, rule="trunc"):
+    y = F.conv2d(_ste(rule, x).double().permute(0, 3, 1, 2), _ste("round", w).double(),
                  padding=1)
     return y.permute(0, 2, 3, 1).float().contiguous()
 
@@ -189,15 +199,29 @@ def _conv_wgrad(v, gout):
 def emulated_plain_versions():
     """Within the block, the plain versions that the float32 step reaches
     compute as the float32 kernels do: every 3×3 conv and dgrad on TF32
-    operands (truncated activations, rounded weights; the image rounded),
+    operands (truncated activations, rounded weights; the image rounded;
+    the up_conv head's four convs on rounded activations and gradients),
     every weight gradient on rounded operands, all summed in float64 and
     stored in float32."""
     from tpu_unet_torch.kernels import (decoder_fuse, decoder_train, encoder, encoder_train,
                                         stem, upconv)
 
+    head_bwd_plain = upconv.upconv_bwd_plain
+
+    def head_bwd(g, out, y1, x, w1, w2):
+        # the head's two dgrads on the halo mainloop's rule (the gradient
+        # rounded); the decoder stages' stay truncating
+        keep = decoder_train._conv_nobias
+        decoder_train._conv_nobias = lambda a, w: _conv_nobias(a, w, "round")
+        try:
+            return head_bwd_plain(g, out, y1, x, w1, w2)
+        finally:
+            decoder_train._conv_nobias = keep
+
     swaps = [(encoder, "conv3x3_relu", _conv3x3_relu), (stem, "conv3x3_relu", _conv3x3_relu),
              (decoder_fuse, "conv3x3_relu", _conv3x3_relu),
-             (upconv, "conv3x3_relu", _conv3x3_relu),
+             (upconv, "conv3x3_relu", functools.partial(_conv3x3_relu, rule="round")),
+             (upconv, "upconv_bwd_plain", head_bwd),
              (encoder_train, "conv3x3_relu", _conv3x3_relu),
              (encoder_train, "_conv_nobias", _conv_nobias),
              (decoder_train, "_conv_nobias", _conv_nobias),

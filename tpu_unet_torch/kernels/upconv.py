@@ -9,25 +9,29 @@ CUDA kernels in ``csrc/upconv.cu``:
   ``decoder_train.up2x`` (``tu_upsample2x``, launch key ``upsample2x``)
   writes ``up2x(x)`` once; ``tu_upconv`` runs conv1 over ``up``
   and conv2 over its output y1 on the Hopper conv core
-  (``csrc/conv3x3_sm90.cuh``), the launches planned as a stage's at
-  Cs = 0 (``decoder_fuse.stage_plan``);
+  (``csrc/conv3x3_sm90.cuh``) in bf16 and, in float32, on the halo
+  mainloop (``csrc/conv3x3_halo_sm90.cuh``: one TMA halo box a 32-channel
+  K slice serving all nine taps), the launches planned as a stage's at
+  Cs = 0 (``decoder_fuse.stage_plan``, ``sm90.halo_conv_launch``);
 - :func:`upconv_bwd`, the backward — replaces ``fused_upconv_bwd_impl``
   (#12): both ReLU VJPs, both dgrads, both weight gradients with their bias
   sums (float32) and the upsample's adjoint, the UnetUp stage backward of
   ``kernels/decoder_train.py`` at zero skip channels.  ``decoder_train.up2x``
   writes ``up2x(x)`` again (launch key ``upsample2x``, as a stage's weight
   gradients take it), then one C entry ``tu_upconv_bwd`` runs the ReLU mask
-  pass, both dgrads on the Hopper conv core, both weight gradients on the
-  Hopper GEMM (``csrc/wgrad_sm90.cuh``) and the adjoint, planned by
-  :func:`bwd_plan` (``sm90.upconv_bwd_launches``);
+  pass, both dgrads on the Hopper conv core (in float32 on the halo
+  mainloop), both weight gradients on the Hopper GEMM
+  (``csrc/wgrad_sm90.cuh``) and the adjoint, planned by :func:`bwd_plan`
+  (``sm90.upconv_bwd_launches``);
 - :func:`upconv_train`, the head for training (``fused_upconv_train``): the
   forward kernel keeping y1, the backward kernel.
 
 Both kernels take bf16 or, for the float32 training path (``fp16=False``),
 float32 tensors: the C entries' float32 instantiations (TF32 products,
-float32 storage and sums), planned with ``f32=True`` and counted under
+float32 storage and sums; the halo mainloop rounds the activation to TF32,
+``kernels/tf32.py``), planned with ``f32=True`` and counted under
 ``upconv_f32`` / ``upconv_bwd_f32`` (``_build.count_key``).  Bounds and
-designs are in the source's notes.
+designs are in the sources' notes.
 """
 from __future__ import annotations
 

@@ -104,8 +104,9 @@ with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
   #24 at blocks 2-5, the stem's forward #2 and backward #20, the head's
   #10 and #12 at both heads: ms per call in the same rounds, the device
   time by kernel split into the weight pack (the pack kernel, or the
-  eager kernels that packed before it) and the rest, the conv-core
-  launches' tiles, stages and persistence, cuDNN's float32 call with TF32
+  eager kernels that packed before it) and the rest, the conv launches'
+  mainloops (the head's on the halo mainloop), tiles, stages and
+  persistence, cuDNN's float32 call with TF32
   on, the TF32 bound and its share, and a digest of every output (inputs
   from a seed a case, so two trees' outputs can be held bit-identical);
 - ``sass`` (not in the default set): the shared-memory (``LDS`` /
@@ -598,8 +599,9 @@ def _f32_line(smi, port, kernel, case, fn, lib, flops, nbytes, launches):
     pack (``pack_kernel``, or the eager PyTorch kernels that packed the
     weights before it: every kernel of the call not in ``csrc/``) and the
     rest, cuDNN's float32 call with TF32 on, the bound at the TF32 peak
-    (or the bytes), the conv-core launches' tiles, stages and persistence,
-    and a digest of every output."""
+    (or the bytes), the conv launches' mainloops (the conv core's per-tap
+    slices, or the halo mainloop's), tiles, stages and persistence, and a
+    digest of every output."""
     ms = _rounds(fn)
     med = statistics.median(ms)
     # by name where the trace lost the call's sequence
@@ -613,8 +615,11 @@ def _f32_line(smi, port, kernel, case, fn, lib, flops, nbytes, launches):
     bound = max(t_ops, t_mem)
     out = fn()
     torch.cuda.synchronize()
+    halo = getattr(sm90, "MAINLOOP_HALO", None)  # a parent tree's plan may have none
     plan = [{"tile": list(ln["tile"]), "stages": ln["stages"],
-             "persistent": sm90.conv_own_staging(ln["tile"][1], ln["tile"][0], True)}
+             "mainloop": "halo" if halo is not None and ln.get("mainloop") == halo else "tap",
+             "persistent": (halo is not None and ln.get("mainloop") == halo)
+             or sm90.conv_own_staging(ln["tile"][1], ln["tile"][0], True)}
             for ln in launches]
     print(json.dumps({"f32_conv": kernel, "case": case, "ms_rounds": ms, "ms": med,
                       "pack_device_ms": pack, "kernels_device_ms": rest, "ms_by_kernel": seq,
@@ -1219,10 +1224,10 @@ def _palette(smi, n, h):
 
 
 # the kernels whose shared memory ``sass`` reads, by their names' stems
-SASS_KERNELS = ("final_tail_kernel", "conv_sm90_kernel", "wgrad_sm90_kernel", "wgrad_f32_kernel",
-                "wgrad_tf32_kernel", "wgrad_image_kernel", "wgrad_image_f32_kernel",
-                "conv_image_kernel", "upsample_adjoint_kernel", "final_loss_fwd_kernel",
-                "final_loss_bwd_kernel")
+SASS_KERNELS = ("final_tail_kernel", "conv_sm90_kernel", "halo_conv_kernel",
+                "wgrad_sm90_kernel", "wgrad_f32_kernel", "wgrad_tf32_kernel",
+                "wgrad_image_kernel", "wgrad_image_f32_kernel", "conv_image_kernel",
+                "upsample_adjoint_kernel", "final_loss_fwd_kernel", "final_loss_bwd_kernel")
 SASS_OPS = ("LDS", "LD", "LDG", "STS", "ST", "STG", "LDSM", "HGMMA", "HMMA", "F2F", "F2FP",
             "FRND")
 
@@ -1270,7 +1275,8 @@ CONV_OPS = ("fwd", "fwd_pool", "dgrad_mask", "dgrad_split")  # kernels/sm90.py's
 
 def _ptxas(smi):
     """ptxas's report (``-Xptxas=-v``) of every conv-core instance
-    (``conv_sm90_kernel<T, TN, OP, PH>``) and pack-kernel instance in the
+    (``conv_sm90_kernel<T, TN, OP, PH>``), halo-mainloop instance
+    (``halo_conv_kernel<OP, PH>``) and pack-kernel instance in the
     library that this process builds: one JSON line each with its source,
     element type, N tile, op and pixel tile (``conv``) or layout and store
     width (``pack``), registers a thread, stack frame and spill bytes.  Run
@@ -1303,6 +1309,11 @@ def _ptxas(smi):
                 print(json.dumps({"ptxas": "conv_sm90_kernel", "dtype": "float32" if t == "f"
                                   else "bf16", "tile": [16 * int(ph), int(tn)],
                                   "op": CONV_OPS[int(op)], **row}), flush=True)
+            elif c := re.search(r"halo_conv_kernelILi(\d+)ELi(\d+)E", name):
+                op, ph = c.groups()
+                print(json.dumps({"ptxas": "halo_conv_kernel", "dtype": "float32",
+                                  "tile": [16 * int(ph), 64], "op": CONV_OPS[int(op)], **row}),
+                      flush=True)
             elif c := re.search(rf"pack_kernelI{dt}Lb(\d)ELb(\d)E", name):
                 t, flip, vec = c.groups()
                 print(json.dumps({"ptxas": "pack_kernel", "dtype": "float32" if t == "f"
