@@ -3345,16 +3345,21 @@ def f32_encoder_kernels(record, gen):
     stage's backward (``vgg_stem_bwd_f32``, ``vgg_block2_bwd_f32``,
     ``vgg_block3_bwd_f32``), as phase 2's bf16 checks with float32's
     bounds; the first tile of each forward's last conv (and the stem's
-    conv1_1) against its TF32 emulation."""
+    conv1_1) against its TF32 emulation; the stem backward's masked dgrad
+    of conv1_2 one line (mainloop, tile, K slices, FLOP a byte of L2: the
+    halo mainloop, checked), its first and last tiles against their TF32
+    emulations under the halo mainloop's rule (the gradient rounded),
+    bit-identical on a second launch."""
     from tpu_unet_torch.kernels._plain import conv3x3_relu
+    from tpu_unet_torch.kernels.decoder_train import flip_t
     from tpu_unet_torch.kernels.encoder import vgg_block
-    from tpu_unet_torch.kernels.encoder_train import (_vgg_block_cuda, _vgg_stem_cuda,
-                                                      block_key, bwd_plan, vgg_block_bwd,
-                                                      vgg_block_bwd_plain, vgg_stem_bwd,
-                                                      vgg_stem_bwd_plain)
+    from tpu_unet_torch.kernels.encoder_train import (_bwd_cuda, _vgg_block_cuda,
+                                                      _vgg_stem_cuda, block_key, bwd_plan,
+                                                      vgg_block_bwd, vgg_block_bwd_plain,
+                                                      vgg_stem_bwd, vgg_stem_bwd_plain)
     from tpu_unet_torch.kernels.stem import vgg_stem_plain
 
-    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.kernels import sm90, tf32
 
     dev, B = torch.device("cuda"), BATCH
     for h, chans, pool in VGG_TRAIN_STAGES:
@@ -3441,6 +3446,24 @@ def f32_encoder_kernels(record, gen):
                 tf32.WGRAD_REL_TOL if name[2:] == str(n - 1) else tf32.WGRAD_CHAIN_REL_TOL
             check(e <= tol, f"{key}_f32 {case}: {name} rel err {e:.3g} > {tol}")
         print(json.dumps({key + "_f32": case, "rel_err_by_output": errs}), flush=True)
+        if stem:  # conv1_2's masked dgrad on the halo mainloop: g in ga, the dgrad in gb
+            ln = sm90.stem_bwd_launches(B, h, h, chans[1], True)[3]
+            halo = ln.get("mainloop") == sm90.MAINLOOP_HALO
+            print(json.dumps({"f32_stem_bwd_launch": "dgrad of conv1_2 (masked)", "case": case,
+                              "mainloop": "halo" if halo else "tap", "tile": list(ln["tile"]),
+                              "k_slices": ln["k_slices"],
+                              "flop_per_l2_byte": sm90.flop_per_l2_byte(ln)}), flush=True)
+            check(halo, f"vgg_stem_bwd_f32 {case}: its dgrad not on the halo mainloop")
+            bufs = [_bwd_cuda(key, dskip, dpool, x, mids, skip, ws, False, True)[3:]
+                    for _ in range(2)]
+            check(all(torch.equal(a, b) for a, b in zip(*bufs)),
+                  f"{key}_f32 {case}: the dgrad's two launches differ")
+            g, dz = bufs[0]
+            for last in (False, True):
+                f32_witness(f"{key}_f32 {case} dgrad of conv1_2", dz,
+                            lambda r: f32_tile([g], flip_t(ws[1]), r, mask=mids[0], last=last),
+                            9 * chans[2], tf32.launch_rule(ln), last)
+            del bufs, g, dz
         ns = bwd_plan(B, h, h, tuple(chans), not stem, True)[1][n - 1]
         if stem:
             def faulty(ds, dp):
@@ -3481,9 +3504,13 @@ def f32_decoder_kernels(record, gen):
     float32 upsample), #13 (``unetup_bwd_f32``: g2 equal to the plain mask
     pass's), ``unetup_wgrad_f32`` (a planted dropped split at up1's dk2) and
     ``upsample_adjoint_f32`` (its plan the host's), each against its plain
-    float32 version, bit-identical on a second launch; conv1's and #13's
-    dz1's first tiles against their TF32 emulations; the whole stage
-    backward against the plain one."""
+    float32 version, bit-identical on a second launch; #1's two convs one
+    line each (mainloop, tile, K slices, FLOP a byte of L2: the halo
+    mainloop at F ≤ 256, conv1 over its two maps, checked), their first and
+    last tiles against their TF32 emulations under their mainloop's rule
+    (``tf32.launch_rule``: rounded on the halo mainloop, truncated on the
+    core); #13's dz1's first tile; the whole stage backward against the
+    plain one."""
     from tpu_unet_torch.kernels.decoder_fuse import _unetup_cuda, _unetup_plain_y1
     from tpu_unet_torch.kernels.decoder_train import (
         adjoint_plan, adjoint_plan_on_card, flip_t, up2x, unetup_bwd, unetup_bwd_full,
@@ -3491,18 +3518,27 @@ def f32_decoder_kernels(record, gen):
         upsample2x_adjoint, upsample2x_adjoint_plain)
     from tpu_unet_torch.nn.resize import upsample2x
 
-    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.kernels import sm90, tf32
 
     dev, B = torch.device("cuda"), BATCH
     cb = torch.ops.aten.convolution_backward
     for h, cs, cx, f in VGG_STAGES + RN50_STAGES:
         h2, cp = 2 * h, cs + cx
+        case = f"{B}x{h2}x{h2} Cs={cs} Cx={cx} F={f} float32"
+        convs = sm90.unetup_launches(B, h2, h2, cs, cx, f, True)
+        for name, ln in zip(("conv1", "conv2"), convs):
+            halo = ln.get("mainloop") == sm90.MAINLOOP_HALO
+            print(json.dumps({"f32_decoder_launch": name, "case": case,
+                              "mainloop": "halo" if halo else "tap", "tile": list(ln["tile"]),
+                              "k_slices": ln["k_slices"], "maps": len(ln["maps"]) - 1,
+                              "flop_per_l2_byte": sm90.flop_per_l2_byte(ln)}), flush=True)
+            check(halo == (f <= 256), f"unetup f32 {case} {name}: on the "
+                                      f"{'halo' if halo else 'tap'} mainloop, not its plan's")
         skip = torch.relu(torch.randn((B, h2, h2, cs), generator=gen, device=dev))
         x = torch.relu(torch.randn((B, h, h, cx), generator=gen, device=dev))
         w1 = torch.randn((f, cp, 3, 3), generator=gen, device=dev) / (9 * cp) ** 0.5
         w2 = torch.randn((f, f, 3, 3), generator=gen, device=dev) / (9 * f) ** 0.5
         b1, b2 = (0.1 * torch.randn(f, generator=gen, device=dev) for _ in range(2))
-        case = f"{B}x{h2}x{h2} Cs={cs} Cx={cx} F={f} float32"
         up = up2x(x)
         check(torch.equal(up, upsample2x(x)), f"upsample2x_f32 {case}: not the plain upsample")
         record("upsample2x_f32", case, [up], [upsample2x(x)], lambda: up2x(x),
@@ -3522,8 +3558,12 @@ def f32_decoder_kernels(record, gen):
                      conv_flops(B, h2, h2, cp, f) + conv_flops(B, h2, h2, f, f),
                      nbytes(skip, x, w1, w2, out, y1), peak=PEAK_TF32)
         check(rel <= tf32.CONV_REL_TOL, f"unetup_f32 {case}: rel err {rel:.3g}")
-        f32_witness(f"unetup_f32 {case} conv1", y1, lambda r: f32_tile([skip, up], w1, r, b1),
-                    9 * cp)
+        r1, r2 = (tf32.launch_rule(ln) for ln in convs)
+        for last in (False, True):
+            f32_witness(f"unetup_f32 {case} conv1", y1,
+                        lambda r: f32_tile([skip, up], w1, r, b1, last=last), 9 * cp, r1, last)
+            f32_witness(f"unetup_f32 {case} conv2", out,
+                        lambda r: f32_tile([y1], w2, r, b2, last=last), 9 * f, r2, last)
         g = torch.randn((B, h2, h2, f), generator=gen, device=dev)
         args = (g, out, y1, skip, x, w1, w2)
         res = unetup_bwd_full(*args)
@@ -3808,13 +3848,14 @@ def f32_single_tile_readings(gen):
     conv1_2), up1's and up4's conv1 over [skip | up], #13's two dgrads and
     the weight-gradient GEMM's dk (the first two against the TF32
     emulation of both operand rules, dk against the rounding one, the only
-    one its register fragments take); kernel and plain version against
+    one its register fragments take; conv1 under the rule of the mainloop
+    its plan names, ``tf32.launch_rule``); kernel and plain version against
     the exact float64 product too."""
     from tpu_unet_torch.kernels.decoder_fuse import _unetup_cuda
     from tpu_unet_torch.kernels.decoder_train import flip_t, unetup_bwd, unetup_wgrad
     from tpu_unet_torch.nn.resize import upsample2x
 
-    from tpu_unet_torch.kernels import tf32
+    from tpu_unet_torch.kernels import sm90, tf32
 
     dev = torch.device("cuda")
     lines = []
@@ -3826,8 +3867,10 @@ def f32_single_tile_readings(gen):
         b1 = 0.1 * torch.randn(f, generator=gen, device=dev)
         out, y1 = _unetup_cuda(skip, x, w1, b1, w2, b1, want_y1=True)
         up = upsample2x(x)
+        rule = tf32.launch_rule(sm90.unetup_launches(1, 8, 16, cs, cx, f, True)[0])
         lines.append(f32_witness(f"single tile Cs={cs} Cx={cx} F={f} conv1", y1,
-                                 lambda r: f32_tile([skip, up], w1, r, b1), 9 * (cs + cx)))
+                                 lambda r: f32_tile([skip, up], w1, r, b1), 9 * (cs + cx),
+                                 rule))
         g = torch.randn((1, 8, 16, f), generator=gen, device=dev)
         dskip, dups, g2, dz1 = unetup_bwd(g, out, y1, w1, w2, cs)
         lines.append(f32_witness(f"single tile F={f} dz1", dz1,
@@ -4581,7 +4624,9 @@ SOURCES = {
     # encoder_train.cu)
     "vgg_stem_f32": ("tpu_unet_torch/csrc/stem.cu", "tpu_unet/kernels/stem.py:220"),
     "vgg_block_f32": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh", "tpu_unet/kernels/encoder.py:288"),
-    "unetup_f32": ("tpu_unet_torch/csrc/decoder_fuse.cu",
+    # #1's two convs on the halo mainloop at F <= 256 (conv1 over [skip |
+    # up], both models' up1-up3), on the conv core at up4
+    "unetup_f32": ("tpu_unet_torch/csrc/conv3x3_halo_sm90.cuh",
                    "tpu_unet/kernels/decoder_fuse.py:1149"),
     "upsample2x_f32": ("tpu_unet_torch/csrc/upsample2x.cuh",
                        "tpu_unet/kernels/decoder_fuse.py:1149"),
@@ -4595,7 +4640,10 @@ SOURCES = {
                            "tpu_unet/kernels/encoder_train.py:139"),
     "vgg_block3_fwd_f32": ("tpu_unet_torch/csrc/conv3x3_sm90.cuh",
                            "tpu_unet/kernels/encoder3_train.py:279"),
-    "vgg_stem_bwd_f32": ("tpu_unet_torch/csrc/encoder_train.cu",
+    # csrc/encoder_train.cu's float32 chain: conv1_2's masked dgrad on the
+    # halo mainloop, its weight gradient on the float32 GEMM, conv1_1's on
+    # the image GEMM
+    "vgg_stem_bwd_f32": ("tpu_unet_torch/csrc/conv3x3_halo_sm90.cuh",
                          "tpu_unet/kernels/stem_train.py:245"),
     "vgg_block2_bwd_f32": ("tpu_unet_torch/csrc/wgrad_sm90.cuh",
                            "tpu_unet/kernels/encoder_train.py:329"),

@@ -2,8 +2,9 @@
 plan's order (``tpu_unet_torch/kernels/sm90.py`` with ``f32=True``), with
 their TF32 operand rules (``tpu_unet_torch/kernels/tf32.py``): the conv
 core by its K walk of 32-channel slices (activations truncated as a TMA box
-hands them over, weights rounded as packed), the up_conv head's four convs
-by the halo mainloop's slice-major walk (activations rounded, as its
+hands them over, weights rounded as packed), the convs whose plan names the
+halo mainloop (the up_conv head's four, #1's two at F ≤ 256, the stem's
+masked dgrad) by its slice-major walk (activations rounded, as its
 register fragments take them), the weight-gradient GEMMs by
 their split-K ranges of 8 × 16 patches (both operands rounded: register
 fragments and a restaged G in the GEMM on TF32 wgmma), the image
@@ -49,27 +50,41 @@ def conv_kwalk(maps, w, rule="trunc"):
     return out.permute(0, 2, 3, 1)
 
 
-def conv_halo(x, w, rule="round"):
-    """A 3×3 SAME conv of NHWC ``x`` with OIHW ``w``, no bias, as the halo
-    mainloop takes it (``sm90.halo_walk(C)``: per 32-channel slice, its
-    nine taps; each (tap, channel) once, which is checked): ``x`` taken to
-    TF32 by ``rule`` (``"round"``: the register fragments' rule), ``w``
-    rounded as packed, the slices summed in the walk's order, a slice's
-    nine taps in one float64 conv."""
-    C = x.shape[-1]
-    xt = tf32.RULES[rule](x).double().permute(0, 3, 1, 2)
+def conv_halo(maps, w, rule="round"):
+    """A 3×3 SAME conv of the channel concat of NHWC ``maps`` (one, or two
+    in a forward) with OIHW ``w``, no bias, as the halo mainloop takes it
+    (``sm90.halo_walk(C, C2)``: per 32-channel slice of in, then of in2,
+    its nine taps; each (tap, channel) once at the weight channel of the
+    packed (F, 9, C + C2), which is checked): the maps taken to TF32 by
+    ``rule`` (``"round"``: the register fragments' rule), ``w`` rounded as
+    packed, the slices summed in the walk's order, a slice's nine taps in
+    one float64 conv."""
+    C = maps[0].shape[-1]
+    C2 = maps[1].shape[-1] if len(maps) > 1 else 0
+    xs = [tf32.RULES[rule](m).double().permute(0, 3, 1, 2) for m in maps]
     wt = round_tf32(w).double()
-    seen = torch.zeros((9, C), dtype=torch.int64)
+    seen = torch.zeros((9, C + C2), dtype=torch.int64)
     slices = []
-    for tap, c0 in sm90.halo_walk(C):
-        seen[tap, c0:c0 + 32] += 1
-        if c0 not in slices:
-            slices.append(c0)
+    for tap, m, c0, wc in sm90.halo_walk(C, C2):
+        n = min(32, (C if m == 0 else C2) - c0)
+        seen[tap, wc:wc + n] += 1
+        if (m, c0, wc) not in slices:
+            slices.append((m, c0, wc))
     assert bool((seen == 1).all()), "the halo walk takes every (tap, channel) once"
     out = 0
-    for c0 in slices:
-        out = out + F.conv2d(xt[:, c0:c0 + 32], wt[:, c0:c0 + 32], padding=1)
+    for m, c0, wc in slices:
+        n = min(32, (C if m == 0 else C2) - c0)
+        out = out + F.conv2d(xs[m // 2][:, c0:c0 + n], wt[:, wc:wc + n], padding=1)
     return out.permute(0, 2, 3, 1)
+
+
+def conv_planned(maps, w, launch):
+    """A 3×3 SAME conv of ``maps`` as ``launch`` runs it: on the halo
+    mainloop where its record names it (:func:`conv_halo`, rounded), else
+    on the conv core (:func:`conv_kwalk`, truncated)."""
+    if launch.get("mainloop") == sm90.MAINLOOP_HALO:
+        return conv_halo(maps, w)
+    return conv_kwalk(maps, w)
 
 
 def wgrad_splits(v, g, launch):
@@ -96,12 +111,16 @@ def wgrad_splits(v, g, launch):
 
 
 def stage_fwd(skip, x, w1, b1, w2, b2):
-    """#1 in float32: up (exact, float32), conv1 over [skip | up] and conv2
-    (y1 as the float32 kernel stores it, then truncated by conv2's TMA
-    boxes) → (out, y1) float32."""
+    """#1 in float32 (``sm90.unetup_launches(..., f32=True)``): up (exact,
+    float32), conv1 over [skip | up] and conv2 over y1 as the float32
+    kernel stores it, each on its plan's mainloop (:func:`conv_planned`:
+    the halo mainloop at F ≤ 256, the operands rounded; else the conv
+    core, truncated) → (out, y1) float32."""
+    B, H2, W2, cs = skip.shape
+    l1, l2 = sm90.unetup_launches(B, H2, W2, cs, x.shape[-1], w1.shape[0], True)
     up = upsample2x(x)
-    y1 = torch.relu(conv_kwalk([skip, up], w1) + b1.double()).float()
-    return torch.relu(conv_kwalk([y1], w2) + b2.double()).float(), y1
+    y1 = torch.relu(conv_planned([skip, up], w1, l1) + b1.double()).float()
+    return torch.relu(conv_planned([y1], w2, l2) + b2.double()).float(), y1
 
 
 def stage_bwd(g, out, y1, skip, x, w1, w2):
@@ -128,8 +147,8 @@ def head_fwd(x, w1, b1, w2, b2):
     over y1 on the halo mainloop (``sm90.unetup_launches`` at Cs = 0:
     :func:`conv_halo`, up and y1 rounded) → (out, y1) float32."""
     up = upsample2x(x)
-    y1 = torch.relu(conv_halo(up, w1) + b1.double()).float()
-    return torch.relu(conv_halo(y1, w2) + b2.double()).float(), y1
+    y1 = torch.relu(conv_halo([up], w1) + b1.double()).float()
+    return torch.relu(conv_halo([y1], w2) + b2.double()).float(), y1
 
 
 def head_bwd(g, out, y1, x, w1, w2):
@@ -141,9 +160,9 @@ def head_bwd(g, out, y1, x, w1, w2):
     B, H2, W2, f = g.shape
     cx = x.shape[-1]
     g2 = torch.where(out > 0, g, torch.zeros(()))
-    dz1 = torch.where(y1 > 0, conv_halo(g2, flip_t(w2)), torch.zeros((),
+    dz1 = torch.where(y1 > 0, conv_halo([g2], flip_t(w2)), torch.zeros((),
                       dtype=torch.float64)).float()
-    dups = conv_halo(dz1, flip_t(w1)).float()
+    dups = conv_halo([dz1], flip_t(w1)).float()
     lns = sm90.upconv_bwd_launches(B, H2, W2, cx, f, True)
     dk2, db2 = wgrad_splits(y1, g2, lns[2])
     dk1, db1 = wgrad_splits(upsample2x(x), dz1, lns[3])
@@ -168,8 +187,10 @@ def block_fwd(x, ws, bs, pool=True, image=False):
 def block_bwd(dskip, dpool, x, mids, out, ws, want_dx=True, image=False):
     """The float32 training encoder's backward (#20 / #22 / #24) → (dx or
     None, [dk_i], [db_i]): the exact pool / ReLU pass, then per conv, last
-    first, the weight gradient in its plan's splits and the masked dgrad
-    (truncated gradient, rounded flipT(w))."""
+    first, the weight gradient in its plan's splits and the dgrad on its
+    plan's mainloop (:func:`conv_planned`: the stem's masked dgrad on the
+    halo mainloop, the gradient rounded; the blocks' on the conv core,
+    truncated; rounded flipT(w))."""
     B, H, W, _ = x.shape
     chans = [x.shape[-1]] + [int(w.shape[0]) for w in ws]
     lns = sm90.stem_bwd_launches(B, H, W, chans[1], True) if image else \
@@ -181,8 +202,8 @@ def block_bwd(dskip, dpool, x, mids, out, ws, want_dx=True, image=False):
     for i in range(n - 1, -1, -1):
         dks[i], dbs[i] = wgrad_splits(ins[i], g, lns[2 * i])
         if i > 0:
-            d = conv_kwalk([g], flip_t(ws[i]))
+            d = conv_planned([g], flip_t(ws[i]), lns[2 * i + 1])
             g = torch.where(ins[i] > 0, d, torch.zeros((), dtype=torch.float64)).float()
         elif want_dx:
-            dx = conv_kwalk([g], flip_t(ws[0])).float()
+            dx = conv_planned([g], flip_t(ws[0]), lns[1]).float()
     return dx, dks, dbs

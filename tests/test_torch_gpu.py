@@ -1742,14 +1742,18 @@ def test_f32_upsample2x_kernel_bit_exact(cuda, shape):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("h,cs,cx,f", [(8, 64, 128, 64), (4, 128, 256, 128),
-                                       (4, 512, 512, 512), (12, 64, 128, 64)])
+                                       (4, 256, 512, 256), (4, 512, 512, 512),
+                                       (12, 64, 128, 64)])
 def test_f32_unetup_stage(cuda, h, cs, cx, f):
     """#1 in float32: y1 and out within CONV_REL_TOL of the plain stage,
     conv1 over [skip | up] and conv2 within ``tile_rel_tol`` of their
-    emulations (up the kernel's upsample, bit-equal to the plain one),
+    emulations under the rule of the mainloop their plan names
+    (``tf32.launch_rule``: at F ≤ 256 the halo mainloop's, the activation
+    rounded; at F = 512 the conv core's, truncated; up the kernel's
+    upsample, bit-equal to the plain one),
     bit-identical on a second launch; counted as ``unetup_f32`` and
     ``upsample2x_f32``."""
-    from tpu_unet_torch.kernels import launch_counts, tf32
+    from tpu_unet_torch.kernels import launch_counts, sm90, tf32
     from tpu_unet_torch.kernels.decoder_fuse import _unetup_cuda, _unetup_plain_y1
     from tpu_unet_torch.nn.resize import upsample2x
 
@@ -1762,8 +1766,11 @@ def test_f32_unetup_stage(cuda, h, cs, cx, f):
     ref, ry1 = _unetup_plain_y1(skip, x, w1, b1, w2, b2)
     assert _rel(out, ref) <= tf32.CONV_REL_TOL and _rel(y1, ry1) <= tf32.CONV_REL_TOL
     cc = torch.cat([skip, upsample2x(x)], dim=-1)
-    _witness(y1, lambda r: tf32.conv3x3_relu(cc, w1, b1, r), 9 * (cs + cx))
-    _witness(out, lambda r: tf32.conv3x3_relu(y1, w2, b2, r), 9 * f)
+    r1, r2 = (tf32.launch_rule(ln) for ln in sm90.unetup_launches(2, 2 * h, 4 * h, cs, cx, f,
+                                                                  True))
+    assert r1 == r2 == ("round" if f <= 256 else "trunc")
+    _witness(y1, lambda r: tf32.conv3x3_relu(cc, w1, b1, r), 9 * (cs + cx), r1)
+    _witness(out, lambda r: tf32.conv3x3_relu(y1, w2, b2, r), 9 * f, r2)
     assert torch.equal(out, _unetup_cuda(skip, x, w1, b1, w2, b2))
 
 
@@ -1834,11 +1841,16 @@ def test_f32_encoder_backward(cuda, chans, hw):
     gradients within WGRAD_REL_TOL and the others within
     WGRAD_CHAIN_REL_TOL of the plain version, bit-identical on a second
     launch; the last conv's weight gradient within ``tile_rel_tol`` of its
-    emulation from the plain (exact) pool / ReLU gradient."""
+    emulation from the plain (exact) pool / ReLU gradient; the stem's
+    masked dgrad (the halo mainloop's) within ``tile_rel_tol`` of its
+    emulation under the rounding rule from the kernel's own g, bit-identical
+    on a second launch."""
     from tpu_unet_torch.kernels import launch_counts, tf32
-    from tpu_unet_torch.kernels.encoder_train import (block_key, pool_relu_grad_plain,
-                                                      vgg_block_bwd, vgg_block_bwd_plain,
-                                                      vgg_stem_bwd, vgg_stem_bwd_plain)
+    from tpu_unet_torch.kernels.decoder_train import flip_t
+    from tpu_unet_torch.kernels.encoder_train import (_bwd_cuda, block_key,
+                                                      pool_relu_grad_plain, vgg_block_bwd,
+                                                      vgg_block_bwd_plain, vgg_stem_bwd,
+                                                      vgg_stem_bwd_plain)
     from tpu_unet_torch.kernels._plain import conv3x3_relu
 
     B, (H, W) = 2, hw
@@ -1876,6 +1888,13 @@ def test_f32_encoder_backward(cuda, chans, hw):
     g = pool_relu_grad_plain(dskip, dpool, skip)
     ins = [x, *mids]
     assert tf32.rel(res[1][n - 1], tf32.wgrad(ins[n - 1], g)) <= tf32.tile_rel_tol(B * H * W)
+    if stem:  # the kernel's g in ga, conv1_2's masked dgrad in gb
+        bufs = [_bwd_cuda("vgg_stem_bwd", dskip, dpool, x, mids, skip, ws, False, True)[3:]
+                for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*bufs))
+        kg, dz = bufs[0]
+        _witness(dz, lambda r: torch.where(mids[0] > 0, tf32.conv3x3(kg, flip_t(ws[1]), r), 0),
+                 9 * chans[2], "round")
 
 
 @pytest.mark.gpu

@@ -121,11 +121,14 @@ def test_f32_plans_fit_the_card(what):
             assert list(m["strides"]) == dense and all(s % 16 == 0 for s in dense)
         tm, tn = ln["tile"]
         if what in ("fwd", "dgrad") and ln.get("mainloop") == sm90.MAINLOOP_HALO:
-            # the up_conv head's convs on the halo mainloop (its plan:
-            # test_f32_halo_plans_fit_the_card): one slice a halo box
-            assert rec[9] == sm90.MAINLOOP_HALO and (tm, tn) == (256, 64)
-            assert ln["maps"][0]["dims"][0] == c and ln["k_slices"] == -(-c // 32)
-            assert ln["smem"] == sm90.halo_smem(tm, ln["op"])
+            # the convs on the halo mainloop (their plans:
+            # test_f32_halo_plans_fit_the_card, test_f32_halo_two_map_plans):
+            # one slice a halo box of each input map
+            assert rec[9] == sm90.MAINLOOP_HALO and (tm, tn) == (256, sm90.halo_tile_n(f, ln["op"]))
+            ins = [ln["maps"][0], *ln["maps"][2:]]
+            assert sum(m["dims"][0] for m in ins) == c
+            assert ln["k_slices"] == sum(-(-m["dims"][0] // 32) for m in ins)
+            assert ln["smem"] == sm90.halo_smem(tm, ln["op"], tn)
         elif what in ("fwd", "dgrad"):
             assert rec[9] == sm90.MAINLOOP_TAP
             C = ln["maps"][0]["dims"][0] + (ln["maps"][2]["dims"][0] if len(ln["maps"]) > 2 else 0)
@@ -405,14 +408,17 @@ HALO_CASES = [(8, 512, 512, 64, 64), (8, 1024, 1024, 64, 64), (2, 16, 32, 64, 64
               (1, 8, 16, 64, 64), (1, 16, 16, 128, 128)]
 
 
-def _halo_refusal(rec, C, F):
+def _halo_refusal(rec, C, F, C2=0):
     """What ``csrc/conv3x3_halo_sm90.cuh::launch_halo_conv_sm90`` and
     ``launch_halo_tn`` answer a record with, checked in their order: None
-    (launched) or the CUDA error's name; ``C`` the input's channels, ``F``
-    the output's."""
+    (launched) or the CUDA error's name; ``C`` the input's channels (map
+    0's), ``C2`` the second input map's (0: none given), ``F`` the
+    output's."""
     hm = rec[sm90.HEAD_WORDS:sm90.HEAD_WORDS + sm90.MAP_WORDS]
     wm = rec[sm90.HEAD_WORDS + sm90.MAP_WORDS:sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS]
-    if rec[10] != 1 or rec[9] != sm90.MAINLOOP_HALO or rec[sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS]:
+    hm2 = rec[sm90.HEAD_WORDS + 2 * sm90.MAP_WORDS:sm90.HEAD_WORDS + 3 * sm90.MAP_WORDS]
+    if rec[10] != 1 or rec[9] != sm90.MAINLOOP_HALO or bool(hm2[0]) != (C2 > 0) or \
+            (C2 > 0 and rec[0] != sm90.OP_FWD):
         return "cudaErrorInvalidValue"
     if rec[0] == sm90.OP_DGRAD_SPLIT:
         split = rec[7]
@@ -420,12 +426,15 @@ def _halo_refusal(rec, C, F):
             return "cudaErrorInvalidValue"
     elif rec[0] not in (sm90.OP_FWD, sm90.OP_DGRAD_MASK):
         return "cudaErrorInvalidConfiguration"
-    if rec[1] != 64 or rec[6] not in (128, 256):
+    if rec[1] not in ((64, 128) if rec[0] == sm90.OP_FWD else (64,)) or rec[6] not in (128, 256):
         return "cudaErrorInvalidConfiguration"
     ph = rec[6] // 16
-    if list(hm[8:12]) != [32, 18, ph + 2, 1] or list(wm[8:11]) != [32, 1, 64]:
+    box = [32, 18, ph + 2, 1]
+    if list(hm[8:12]) != box or (C2 and list(hm2[8:12]) != box) or \
+            list(wm[8:11]) != [32, 1, rec[1]]:
         return "cudaErrorInvalidConfiguration"
-    if hm[1] != C or wm[1] != C or wm[2] != 9 or wm[3] != F:
+    if hm[1] != C or wm[1] != C + C2 or wm[2] != 9 or wm[3] != F or (C2 and hm2[1] != C2) \
+            or (C2 and list(hm2[2:5]) != list(hm[2:5])):
         return "cudaErrorInvalidValue"  # the tensors bound are not the record's
     return None
 
@@ -457,31 +466,39 @@ def test_f32_halo_plans_fit_the_card(case):
     slot = sm90.halo_slot(tm)
     assert sm90.halo_box_bytes(tm) == 18 * (ph + 2) * 128 <= slot < sm90.halo_box_bytes(tm) + 1024
     w_off = sm90.HALO_STAGES * slot
-    out_off = w_off + sm90.HALO_W_STAGES * 64 * 128
-    assert slot % 1024 == w_off % 1024 == out_off % 1024 == 0 and 64 * 128 % 1024 == 0
+    assert sm90.halo_w_stages(64) == 9 and sm90.halo_w_stages(128) == 4
     for op, cw in ((sm90.OP_FWD, 64), (sm90.OP_DGRAD_MASK, 32), (sm90.OP_DGRAD_SPLIT, 64)):
         assert sm90.halo_chunk(op) == cw
-        bar_off = out_off + tm * (cw + 4) * 4
-        assert sm90.halo_smem(tm, op) == bar_off + 8 * (3 * 2 + 2 * 9) + 1024 <= SMEM_LIMIT
+        for tn in (64, 128) if op == sm90.OP_FWD else (64,):  # the 128-wide tile: forwards
+            ws = sm90.halo_w_stages(tn)
+            out_off = w_off + ws * tn * 128
+            assert slot % 1024 == w_off % 1024 == out_off % 1024 == 0 and tn * 128 % 1024 == 0
+            bar_off = out_off + tm * (cw + 4) * 4
+            assert sm90.halo_smem(tm, op, tn) == bar_off + 8 * (3 * 2 + 2 * ws) + 1024 <= \
+                SMEM_LIMIT
         ch = cw // 4
         assert tm * ch % 256 == 0 and tm * ch // 256 <= 16  # the epilogue's store loop
     if tm == 256:
         assert sm90.halo_smem(tm) == 228544 and sm90.halo_box_bytes(tm) == 41472
+        assert sm90.halo_smem(tm, sm90.OP_FWD, 128) == 220272
     recs = sm90.encode([ln for ln, _, _ in convs])
     bf16 = sm90.encode(sm90.unetup_launches(B, H2, W2, 0, Cx, F)
                        + sm90.upconv_bwd_launches(B, H2, W2, Cx, F)[:2])
     for i, (ln, c, f) in enumerate(convs):
         rec = recs[i].tolist()
         assert ln["f32"] and ln["mainloop"] == sm90.MAINLOOP_HALO and rec[9] == 1
-        assert ln["tile"] == (tm, 64) and ln["stages"] == 2 and ln["w_stages"] == 9
-        assert ln["smem"] == sm90.halo_smem(tm, ln["op"]) and ln["k_slices"] == -(-c // 32)
+        tn = sm90.halo_tile_n(f, ln["op"])  # 128 for a forward at F = 128
+        assert tn == (128 if ln["op"] == sm90.OP_FWD and f == 128 else 64)
+        assert ln["tile"] == (tm, tn) and ln["stages"] == 2
+        assert ln["w_stages"] == sm90.halo_w_stages(tn)
+        assert ln["smem"] == sm90.halo_smem(tm, ln["op"], tn) and ln["k_slices"] == -(-c // 32)
         assert _halo_refusal(rec, c, f) is None
         assert rec[9] != sm90.MAINLOOP_TAP  # the conv core's check refuses it
         assert _halo_refusal(bf16[i].tolist(), c, f) == "cudaErrorInvalidValue"
         assert bf16[i, 9] == sm90.MAINLOOP_TAP
         hm, wm = ln["maps"]
         assert hm["box"] == (32, 18, ph + 2, 1) and hm["dims"] == (c, W2, H2, B)
-        assert wm["box"] == (32, 1, 64) and wm["dims"] == (c, 9, f)
+        assert wm["box"] == (32, 1, tn) and wm["dims"] == (c, 9, f)
         for m in ln["maps"]:
             assert all(0 < d <= 256 for d in m["box"]) and m["box"][0] * 4 == 128
             dense = [4 * m["dims"][0]]
@@ -490,22 +507,22 @@ def test_f32_halo_plans_fit_the_card(case):
             assert list(m["strides"]) == dense and all(q % 16 == 0 for q in dense)
         if ln["op"] == sm90.OP_DGRAD_SPLIT:
             assert rec[7] == Cx == f
-        n_tiles = B * (H2 // ph) * (W2 // 16) * (f // 64)
+        n_tiles = B * (H2 // ph) * (W2 // 16) * (f // tn)
         assert ln["grid"] == (n_tiles, 1, 1)
-        if B * H2 * W2 <= 4096:  # csrc/conv3x3_sm90.cuh::tile_of<64, PH>
+        if B * H2 * W2 <= 4096:  # csrc/conv3x3_sm90.cuh::tile_of<TN, PH>
             hits = np.zeros((B, H2, W2, f), np.int64)
             for t in range(n_tiles):
-                ntn = f // 64
-                mm, n0 = t // ntn, (t % ntn) * 64
+                ntn = f // tn
+                mm, n0 = t // ntn, (t % ntn) * tn
                 tw = W2 // 16
                 b, thw = divmod(mm, (H2 // ph) * tw)
                 y0, x0 = (thw // tw) * ph, (thw % tw) * 16
-                hits[b, y0:y0 + ph, x0:x0 + 16, n0:n0 + 64] += 1
+                hits[b, y0:y0 + ph, x0:x0 + 16, n0:n0 + tn] += 1
             assert (hits == 1).all()
         walk = sm90.halo_walk(c)
-        assert walk == [(tap, c0) for c0 in range(0, c, 32) for tap in range(9)]
+        assert walk == [(tap, 0, c0, c0) for c0 in range(0, c, 32) for tap in range(9)]
         seen = np.zeros((9, -(-c // 32) * 32), np.int64)
-        for tap, c0 in walk:
+        for tap, _, c0, _ in walk:
             seen[tap, c0:c0 + 32] += 1
         assert (seen == 1).all()
 
@@ -580,47 +597,72 @@ def test_f32_halo_fragments():
                     acc[rows] += frag @ wr[:, c0:c0 + 32, ky, kx].T  # B: the tap's box, K-major
             assert (hits == 1).all()
         out[0, :, x0:x0 + 16] = acc.reshape(16, 16, F)
-    ref = emu.conv_halo(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    ref = emu.conv_halo([torch.from_numpy(x)], torch.from_numpy(w)).numpy()
     assert np.abs(out - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
 # sha256 of the launch records of every plan of the step in one type (the
-# shapes of _launches()), the float32 head's four convs left out: the halo
-# mainloop's are the only records this redesign changed (its parent's
-# digests, computed there)
+# shapes of _launches()), the float32 launches on the halo mainloop left
+# out: the head's four convs, #1's conv1 and conv2 at both models' up1-up3
+# (F <= 256) and the stem backward's masked dgrad are the only records
+# the halo mainloop changed (the digests of the plans before them, computed
+# there over the same records)
 RECORD_DIGESTS = {
     False: (107, "ba7e743244e32ac0d4c4cd55919c0fc0adb093ddea6c3917fb0c8f8510b3ea87"),
-    True: (99, "1a61d6d430620ae2003a0bfdd0752107610f0c6b78580fc162b5e8c85de4dbe4"),
+    True: (86, "b9b22ba7198d9f654583ff6ecc90863b4528a3714832f6bc673577f3777cc8cc"),
 }
+# the float32 launches on the halo mainloop, by what they run: the heads'
+# four convs, the decoder stages' two convs at F <= 256 (as (x's H, Cs, Cx,
+# F, conv)), the stem backward's masked dgrad
+HALO_F32 = {"head": 2 * 4, "stage": 2 * 6, "stem dgrad": 1}
+HALO_STAGES = [(h, cs, cx, f, i) for h, cs, cx, f in
+               [(256, 64, 128, 64), (128, 128, 256, 128), (64, 256, 512, 256),
+                (128, 64, 128, 64), (64, 256, 256, 128), (32, 512, 512, 256)]
+               for i in (1, 2)]
 
 
 @pytest.mark.parametrize("f32", [False, True])
-def test_conv_records_unchanged_but_the_f32_head(f32):
-    """(a) The bf16 plans, and every float32 plan but the head's four convs
-    (its two weight-gradient GEMMs included), encode to the records they
-    encoded before the halo mainloop: the stem, blocks 2-5 and both
-    decoders forward and backward, the heads (bf16: all six launches), at
-    the step's shapes; their convs name the conv core (word 9 = 0)."""
+def test_conv_records_unchanged_but_the_halo_convs(f32):
+    """(a) The bf16 plans, and every float32 plan but the convs on the halo
+    mainloop (the heads' four convs, #1's two at both models' up1-up3,
+    the stem backward's masked dgrad; the weight-gradient GEMMs beside
+    them included), encode to the records they encoded before the halo
+    mainloop: the stem, blocks 2-5 and both decoders forward and backward,
+    the heads (bf16: all six launches), at the step's shapes; their convs
+    name the conv core (word 9 = 0); and the float32 launches left out are
+    exactly those."""
     import hashlib
 
-    lns = []
+    lns, halo = [], {}
+
+    def keep(what, launches):
+        """``launches`` but the float32 halo ones, counted under ``what``."""
+        out = [ln for ln in launches if ln is None or ln.get("mainloop") != sm90.MAINLOOP_HALO]
+        if len(out) < len(launches):
+            halo[what] = halo.get(what, 0) + len(launches) - len(out)
+        return out
+
     for H, chans, pool in ENCODER:
         if chans[0] == 3:
             lns += (sm90.stem_fwd_launches(B, H, H, 64, f32)
-                    + sm90.stem_bwd_launches(B, H, H, 64, f32))
+                    + keep("stem dgrad", sm90.stem_bwd_launches(B, H, H, 64, f32)))
         else:
             lns += (sm90.block_fwd_launches(B, H, H, chans, pool, f32)
                     + sm90.block_bwd_launches(B, H, H, chans, True, f32))
+    stages = []
     for h, cs, cx, f in DECODER + RN50_DECODER:
         h2 = 2 * h
-        lns += (sm90.unetup_launches(B, h2, h2, cs, cx, f, f32)
-                + sm90.unetup_bwd_launches(B, h2, h2, cs, cx, f, f32)
+        fwd = sm90.unetup_launches(B, h2, h2, cs, cx, f, f32)
+        stages += [(h, cs, cx, f, i + 1) for i, ln in enumerate(fwd)
+                   if ln.get("mainloop") == sm90.MAINLOOP_HALO]
+        lns += (keep("stage", fwd) + sm90.unetup_bwd_launches(B, h2, h2, cs, cx, f, f32)
                 + sm90.unetup_wgrad_launches(B, h2, h2, cs, cx, f, f32))
     for h, cx, f in HEADS:
         h2 = 2 * h
-        head = (sm90.unetup_launches(B, h2, h2, 0, cx, f, f32)
-                + sm90.upconv_bwd_launches(B, h2, h2, cx, f, f32))
-        lns += head[4:] if f32 else head
+        lns += keep("head", sm90.unetup_launches(B, h2, h2, 0, cx, f, f32)
+                    + sm90.upconv_bwd_launches(B, h2, h2, cx, f, f32))
+    assert halo == (HALO_F32 if f32 else {})
+    assert stages == (HALO_STAGES if f32 else [])
     rec = sm90.encode(lns)
     conv = [i for i, ln in enumerate(lns) if ln is not None and ln["op"] <= sm90.OP_DGRAD_SPLIT]
     assert (rec[conv, 9] == sm90.MAINLOOP_TAP).all()

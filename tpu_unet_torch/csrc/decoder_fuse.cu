@@ -21,15 +21,23 @@
 // the host (kernels/sm90.py::unetup_launches).
 //
 // In bf16 or, for the float32 training path, float32: the upsample without
-// bf16 rounding, the convs on the conv core's float32 instantiation (TF32
-// products).
+// bf16 rounding, the convs in TF32 products: where F <= 256 (both models'
+// up1-up3) on the halo mainloop (csrc/conv3x3_halo_sm90.cuh: per
+// 32-channel slice of skip, then of up, one TMA halo box that serves all
+// nine taps, rounded to TF32 in place; at F = 128 and 256 tiles of 128
+// channels; conv2 over y1 the same), at up4 on the conv core's float32
+// instantiation (a TMA operand truncated), where the halo mainloop ran
+// slower.
+// Each conv runs on the mainloop its record names (word 9;
+// kernels/sm90.py::unetup_launches), and each mainloop refuses the
+// other's records.
 //
 // Bound on the H100: operations (464-619 GFLOP per stage at 512x512,
 // batch 8; 0.47-0.63 ms at 989 TFLOP/s).  Writing up costs one extra
 // bf16 pass over the up half of conv1's input (about 2 bytes a pixel and
 // channel of 9 * Ct * 2 FLOP); the lerp inside the ring (a producer
 // warpgroup filling the up slices from TMA boxes of x) would save it.
-#include "conv3x3_sm90.cuh"
+#include "conv3x3_halo_sm90.cuh"
 #include "upsample2x.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -82,11 +90,11 @@ int unetup(const void* skip, const void* up, const void* w1, const float* b1, co
       !fits(l1.map(2), Cx) || !fits(l2.map(0), F))
     return cudaErrorInvalidValue;
   T* ty1 = static_cast<T*>(y1);
-  cudaError_t e = sm90::launch_conv_sm90<T>(
+  cudaError_t e = sm90::launch_conv_record<T>(
       l1.w, static_cast<const T*>(skip), static_cast<const T*>(up), static_cast<const T*>(w1),
       sm90::ConvArgsT<T>{b1, nullptr, ty1, nullptr, H2, W2, Cs, F, Cx}, stream);
   if (e != cudaSuccess) return e;
-  return sm90::launch_conv_sm90<T>(
+  return sm90::launch_conv_record<T>(
       l2.w, ty1, nullptr, static_cast<const T*>(w2),
       sm90::ConvArgsT<T>{b2, nullptr, static_cast<T*>(out), nullptr, H2, W2, F, F}, stream);
 }

@@ -55,13 +55,19 @@
 // The float32 path (T = float, the stage's dtype) runs the same chain:
 // the pool / ReLU pass in float32 (the skip's and the pooled gradient's sum
 // one float32 add), the weight gradients on the float32 GEMM of
-// csrc/wgrad_sm90.cuh (TF32 wgmma, G restaged K-major), the dgrads on the conv core's
-// float32 instantiation, and the image GEMM on wgrad_image_f32_kernel.
+// csrc/wgrad_sm90.cuh (TF32 wgmma, G restaged K-major), the blocks' dgrads
+// on the conv core's float32 instantiation, the stem's masked dgrad on the
+// halo mainloop (csrc/conv3x3_halo_sm90.cuh: one TMA halo box a 32-channel
+// slice serves all nine taps, the gradient rounded to TF32 in place), and
+// the image GEMM on wgrad_image_f32_kernel.  Each dgrad runs on the
+// mainloop its record names (word 9; kernels/sm90.py::stem_bwd_launches,
+// block_bwd_launches), and each mainloop refuses the other's records.
 //
 // Bound on the H100: operations — per conv a dgrad and a weight gradient
 // of 2 * 9 * P * Cin * Cout each (the stem at 512x512, batch 8: 0.33 ms at
 // 989 TFLOP/s bf16; block 2 0.469 ms; blocks 3-5 0.24-0.78 ms).
 // Shapes: H % 8, W % 16, widths % 64 (the image's 3 channels apart).
+#include "conv3x3_halo_sm90.cuh"
 #include "image_gather.cuh"
 #include "relu_grad.cuh"
 #include "wgrad_sm90.cuh"
@@ -509,13 +515,15 @@ int block_bwd(const void* vx, bool is_image, const void* mid0, const void* mid1,
     if (e != cudaSuccess) return e;
     if (i > 0) {
       if (drec[0] != OP_DGRAD_MASK) return cudaErrorInvalidValue;
-      e = launch_conv_sm90<T>(drec, g, nullptr, wts[i],
-                              ConvArgsT<T>{nullptr, mids[i - 1], g_next, nullptr, H, W, cout, cin},
-                              stream);
+      e = launch_conv_record<T>(drec, g, nullptr, wts[i],
+                                ConvArgsT<T>{nullptr, mids[i - 1], g_next, nullptr, H, W, cout,
+                                             cin},
+                                stream);
     } else if (dx != nullptr) {
       if (drec[0] != OP_DGRAD_SPLIT || Launch{drec}.split() != cin) return cudaErrorInvalidValue;
-      e = launch_conv_sm90<T>(drec, g, nullptr, wts[0],
-                              ConvArgsT<T>{nullptr, nullptr, dx, nullptr, H, W, cout, cin}, stream);
+      e = launch_conv_record<T>(drec, g, nullptr, wts[0],
+                                ConvArgsT<T>{nullptr, nullptr, dx, nullptr, H, W, cout, cin},
+                                stream);
     }
     if (e != cudaSuccess) return e;
     T* tmp = g;

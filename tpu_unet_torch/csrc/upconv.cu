@@ -56,17 +56,6 @@ namespace sm90 = tu::sm90;
 
 namespace {
 
-// one of the head's convs per its record: float32 on the halo mainloop,
-// bf16 on the conv core (each refuses a record of the other)
-template <typename T>
-cudaError_t head_conv(const int64_t* record, const T* in, const T* wt,
-                      const sm90::ConvArgsT<T>& a, cudaStream_t stream) {
-  if constexpr (sm90::is_f32<T>())
-    return sm90::launch_halo_conv_sm90(record, in, wt, a, stream);
-  else
-    return sm90::launch_conv_sm90<T>(record, in, nullptr, wt, a, stream);
-}
-
 template <typename T>
 int upconv(const void* up, const void* w1, const float* b1, const void* w2, const float* b2,
            void* y1, void* out, int B, int H2, int W2, int Cx, int F, const int64_t* plan,
@@ -80,12 +69,14 @@ int upconv(const void* up, const void* w1, const float* b1, const void* w2, cons
       !fits(l1.map(0), Cx) || !fits(l2.map(0), F))
     return cudaErrorInvalidValue;
   T* ty1 = static_cast<T*>(y1);
-  cudaError_t e = head_conv<T>(l1.w, static_cast<const T*>(up), static_cast<const T*>(w1),
-                               sm90::ConvArgsT<T>{b1, nullptr, ty1, nullptr, H2, W2, Cx, F},
-                               stream);
+  // each conv on the mainloop its record names: float32 on the halo
+  // mainloop, bf16 on the conv core (each refuses a record of the other)
+  cudaError_t e = sm90::launch_conv_record<T>(
+      l1.w, static_cast<const T*>(up), nullptr, static_cast<const T*>(w1),
+      sm90::ConvArgsT<T>{b1, nullptr, ty1, nullptr, H2, W2, Cx, F}, stream);
   if (e != cudaSuccess) return e;
-  return head_conv<T>(
-      l2.w, ty1, static_cast<const T*>(w2),
+  return sm90::launch_conv_record<T>(
+      l2.w, ty1, nullptr, static_cast<const T*>(w2),
       sm90::ConvArgsT<T>{b2, nullptr, static_cast<T*>(out), nullptr, H2, W2, F, F}, stream);
 }
 
@@ -161,15 +152,15 @@ int upconv_bwd(const void* g, const void* out, const void* y1, const void* up, c
       static_cast<const T*>(g), static_cast<const T*>(out), static_cast<T*>(g2),
       static_cast<size_t>(B) * H2 * W2 * F / (16 / sizeof(T)), stream);
   if (e != cudaSuccess) return e;
-  e = head_conv<T>(r2, tg2, static_cast<const T*>(w2t),
-                   sm90::ConvArgsT<T>{nullptr, ty1, static_cast<T*>(dz1), nullptr, H2, W2, F, F},
-                   stream);
+  e = sm90::launch_conv_record<T>(
+      r2, tg2, nullptr, static_cast<const T*>(w2t),
+      sm90::ConvArgsT<T>{nullptr, ty1, static_cast<T*>(dz1), nullptr, H2, W2, F, F}, stream);
   if (e != cudaSuccess) return e;
   e = sm90::launch_wgrad_sm90<T>(plan + 2 * sm90::PLAN_WORDS, tg2, ty1, work, dk2, db2, B, H2,
                                  W2, F, F, stream);
   if (e != cudaSuccess) return e;
-  e = head_conv<T>(
-      r1, tdz1, static_cast<const T*>(w1t),
+  e = sm90::launch_conv_record<T>(
+      r1, tdz1, nullptr, static_cast<const T*>(w1t),
       sm90::ConvArgsT<T>{nullptr, nullptr, static_cast<T*>(dups), nullptr, H2, W2, F, Cx},
       stream);
   if (e != cudaSuccess) return e;

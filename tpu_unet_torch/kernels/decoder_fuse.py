@@ -7,8 +7,10 @@ CUDA kernels: ``csrc/decoder_fuse.cu`` — replaces
 (``tu_upsample2x``, launch key ``upsample2x``) writes ``up2x(x)`` once in
 bf16, bit-equal to ``nn/resize.py::upsample2x``; ``tu_unetup`` runs conv1
 over the two maps [skip | up] and conv2 over its output y1 on the Hopper
-conv core (``csrc/conv3x3_sm90.cuh``), the launches planned by
-:func:`stage_plan` (``kernels/sm90.py``).  The concat is never stored.
+conv core (``csrc/conv3x3_sm90.cuh``) or, in float32 at F ≤ 256, on the
+halo mainloop (``csrc/conv3x3_halo_sm90.cuh``), the launches planned by
+:func:`stage_plan` (``kernels/sm90.py::unetup_launches``).  The concat is
+never stored.
 Traced by ``torch.export``, the launches run as the operator
 ``tpu_unet_torch::unetup`` (:func:`unetup_op`, with a fake that gives its
 output's shape), so the graph keeps the kernels; an eager call launches
@@ -59,8 +61,8 @@ def unetup_shape_ok(H2: int, W2: int, cs: int, cx: int, f: int) -> bool:
 @functools.lru_cache(maxsize=64)
 def stage_plan(B: int, H2: int, W2: int, cs: int, cx: int, f: int,
                f32: bool = False) -> torch.Tensor:
-    """The launch records of a stage's two convs on the Hopper core, in
-    bf16 or (``f32``) float32."""
+    """The launch records of a stage's two convs, in bf16 or (``f32``)
+    float32, each naming its mainloop."""
     return sm90.encode(sm90.unetup_launches(B, H2, W2, cs, cx, f, f32))
 
 

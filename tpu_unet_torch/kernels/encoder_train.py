@@ -20,7 +20,9 @@ between its convs and whose backward is one kernel.
   bias gradients and the masked dgrad on the Hopper kernels
   ``csrc/wgrad_sm90.cuh`` and ``csrc/conv3x3_sm90.cuh`` (the stem's conv1_1
   weight gradient over the 3-channel image on a GEMM of its own in
-  ``csrc/encoder_train.cu``), planned by :mod:`tpu_unet_torch.kernels.sm90`.
+  ``csrc/encoder_train.cu``; in float32 the stem's masked dgrad on the halo
+  mainloop, ``csrc/conv3x3_halo_sm90.cuh``), planned by
+  :mod:`tpu_unet_torch.kernels.sm90`.
   The stem computes no image gradient (JAX's VJP returns zeros for it;
   the step never needs it).
 
@@ -107,6 +109,9 @@ def bwd_plan(B: int, H: int, W: int, chans: tuple, want_dx: bool, f32: bool = Fa
 
 
 def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
+    """The backward's launch: (dx or None, [dk_i], [db_i], ga, gb) — the
+    last two the gradient buffers the chain alternates: the stem leaves its
+    pool / ReLU pass's g in ga and conv1_2's masked dgrad in gb."""
     _build.no_grad_inputs(key, dskip, dpool, x, mids, out, ws)
     n = len(ws)
     B, H, W, c0 = x.shape
@@ -151,7 +156,7 @@ def _bwd_cuda(key, dskip, dpool, x, mids, out, ws, want_dx, is_image):
                 *[t.data_ptr() for t in dks], *pad, *[t.data_ptr() for t in dbs], *pad,
                 n, B, H, W, *chans, *([0] * (4 - len(chans))), int(f32), plan.data_ptr())
     _build.launch_counts[_build.count_key(key, dt)] += 1
-    return dx, dks, dbs
+    return dx, dks, dbs, ga, gb
 
 
 def block_key(n_convs: int, phase: str) -> str:
@@ -166,7 +171,8 @@ def vgg_block_bwd(dskip, dpool, x, mids, out, ws, want_dx=True):
     the shapes of ``vgg_block_shape_ok``, every width % 64)."""
     if on_cpu(x):
         return vgg_block_bwd_plain(dskip, dpool, x, mids, out, ws, want_dx)
-    return _bwd_cuda(block_key(len(ws), "bwd"), dskip, dpool, x, mids, out, ws, want_dx, False)
+    return _bwd_cuda(block_key(len(ws), "bwd"), dskip, dpool, x, mids, out, ws, want_dx,
+                     False)[:3]
 
 
 def vgg_stem_bwd(dskip, dpool, x, a1, out, w11, w12):
@@ -175,7 +181,8 @@ def vgg_stem_bwd(dskip, dpool, x, a1, out, w11, w12):
     weights; the stem kernel's shapes, ``vgg_stem_shape_ok``)."""
     if on_cpu(x):
         return vgg_stem_bwd_plain(dskip, dpool, x, a1, out, w11, w12)
-    _, dks, dbs = _bwd_cuda("vgg_stem_bwd", dskip, dpool, x, [a1], out, [w11, w12], False, True)
+    _, dks, dbs = _bwd_cuda("vgg_stem_bwd", dskip, dpool, x, [a1], out, [w11, w12], False,
+                            True)[:3]
     return dks, dbs
 
 

@@ -26,7 +26,9 @@ operand from shared memory, so the input goes in as register fragments and
 G is restaged K-major): 64 f × 576 columns, all nine taps of a 64-channel
 slice, from one halo box a 32-channel slice and a 2 × 16-pixel stage
 (:func:`wgrad_launch`, :func:`halo_map`).  The up_conv head's four float32
-convs run on a mainloop of their own (``csrc/conv3x3_halo_sm90.cuh``,
+convs, a UnetUp stage's two float32 convs at F ≤ 256 (conv1 over its two
+maps) and the stem backward's float32 masked dgrad run on a mainloop of
+their own (``csrc/conv3x3_halo_sm90.cuh``,
 :func:`halo_conv_launch`): a K slice is one halo box of 32 channels that
 serves all nine taps, each tap a shift of the rows its register fragments
 read.  A conv's record names its mainloop (its word 9:
@@ -305,11 +307,24 @@ def conv_launch(op: int, B: int, H: int, W: int, C: int, F: int, C2: int = 0,
 
 
 # the halo mainloop (csrc/conv3x3_halo_sm90.cuh::HaloSmem): 64 output
-# channels a tile; a ring of 2 halo boxes and one of 9 weight boxes (32 c,
-# 1 tap, 64 n: a slice's nine taps); the epilogue's buffer beside them
+# channels a tile (a forward at F % 128 == 0: 128); a ring of 2 halo boxes
+# and one of weight boxes (32 c, 1 tap, 64 n: 9, a slice's nine taps; 128
+# n: 4); the epilogue's buffer beside them
 HALO_TN = 64
 HALO_STAGES = 2
-HALO_W_STAGES = 9
+
+
+def halo_tile_n(F: int, op: int = OP_FWD) -> int:
+    """The halo mainloop's N tile: 128 channels for a forward where F %
+    128 == 0 (one halo box serves both 64-channel halves), else 64."""
+    return 2 * HALO_TN if op == OP_FWD and F % (2 * HALO_TN) == 0 else HALO_TN
+
+
+def halo_w_stages(tile_n: int = HALO_TN) -> int:
+    """The halo mainloop's weight ring: a slice's nine tap boxes at 64
+    channels (8 KB each); the four that fit beside the halo stages and the
+    epilogue's buffer at 128 (16 KB)."""
+    return 9 if tile_n == HALO_TN else 4
 
 
 def halo_box_bytes(tile_m: int) -> int:
@@ -331,14 +346,14 @@ def halo_chunk(op: int) -> int:
     return 32 if op == OP_DGRAD_MASK else HALO_TN
 
 
-def halo_smem(tile_m: int, op: int = OP_FWD) -> int:
-    """Dynamic shared memory of the halo mainloop: 2 halo stages, 9 weight
-    boxes of 8 KB, the epilogue's buffer (rows of :func:`halo_chunk`'s
-    columns and 16 bytes), 3 barriers a halo stage and 2 a weight stage,
-    1024 spare bytes."""
-    return (HALO_STAGES * halo_slot(tile_m) + HALO_W_STAGES * HALO_TN * 128
-            + tile_m * (halo_chunk(op) + 4) * 4 + 8 * (3 * HALO_STAGES + 2 * HALO_W_STAGES)
-            + 1024)
+def halo_smem(tile_m: int, op: int = OP_FWD, tile_n: int = HALO_TN) -> int:
+    """Dynamic shared memory of the halo mainloop: 2 halo stages, the
+    weight ring (:func:`halo_w_stages` boxes of tile_n × 128 bytes), the
+    epilogue's buffer (rows of :func:`halo_chunk`'s columns and 16 bytes),
+    3 barriers a halo stage and 2 a weight stage, 1024 spare bytes."""
+    ws = halo_w_stages(tile_n)
+    return (HALO_STAGES * halo_slot(tile_m) + ws * tile_n * 128
+            + tile_m * (halo_chunk(op) + 4) * 4 + 8 * (3 * HALO_STAGES + 2 * ws) + 1024)
 
 
 def halo_tile_m(H: int) -> int:
@@ -347,24 +362,35 @@ def halo_tile_m(H: int) -> int:
     return 2 * PATCH if H % 16 == 0 else PATCH
 
 
-def halo_conv_launch(op: int, B: int, H: int, W: int, C: int, F: int,
+def halo_conv_launch(op: int, B: int, H: int, W: int, C: int, F: int, C2: int = 0,
                      split: int | None = None) -> dict:
-    """One float32 3×3 SAME conv (B, H, W, C) → (B, H, W, F) on the halo
-    mainloop (``OP_FWD``, ``OP_DGRAD_MASK`` or ``OP_DGRAD_SPLIT`` as
+    """One float32 3×3 SAME conv (B, H, W, C [+ C2]) → (B, H, W, F) on the
+    halo mainloop (``OP_FWD``, ``OP_DGRAD_MASK`` or ``OP_DGRAD_SPLIT`` as
     :func:`conv_launch` takes them): tiles of :func:`halo_tile_m`'s pixels
-    × 64 channels, the F / 64 channel tiles of a patch adjacent, persistent;
-    its K walk slice-major (:func:`halo_walk`): per 32-channel slice one
-    halo box (:func:`halo_map` at the tile's rows) and the nine taps' weight
-    boxes (:func:`weight_map` at 64 channels).  At 256 pixels a slice is
-    41.5 KB of input and 72 KB of weights for 9.44 MFLOP, 82 FLOP a byte of
-    L2 against 25.6 of the conv core's 256 × 64 float32 tile."""
-    tile_m = halo_tile_m(H)
+    × :func:`halo_tile_n`'s channels, the F / tile_n channel tiles of a
+    patch adjacent, persistent; its K walk slice-major (:func:`halo_walk`):
+    per 32-channel slice one halo box (:func:`halo_map` at the tile's rows)
+    and the nine taps' weight boxes (:func:`weight_map` at the tile's
+    channels).  With ``C2`` (``OP_FWD`` only: a UnetUp stage's conv1) the
+    input is the channel concat [in (C) | in2 (C2)], never stored: map 2 is
+    in2's halo map, the weights (F, 9, C + C2), and the walk takes in's
+    slices, then in2's.  At 256 pixels × 64 channels a slice is 41.5 KB of
+    input and 72 KB of weights for 9.44 MFLOP, 82 FLOP a byte of L2 (× 128
+    channels: 100) against 25.6 of the conv core's 256 × 64 float32
+    tile."""
+    if C2 and op != OP_FWD:
+        raise ValueError("the halo mainloop takes a second input map only in a forward")
+    tile_m, tile_n = halo_tile_m(H), halo_tile_n(F, op)
     patch_h = tile_m // PATCH_W
     tiles_m = B * (H // patch_h) * (W // PATCH_W)
-    ln = {"op": op, "tile": (tile_m, HALO_TN), "grid": ((F // HALO_TN) * tiles_m, 1, 1),
-          "smem": halo_smem(tile_m, op), "stages": HALO_STAGES, "w_stages": HALO_W_STAGES,
-          "nsplit": 1, "k_slices": -(-C // slice_c(True)),
-          "maps": [halo_map(B, H, W, C, patch_h), weight_map(C, F, HALO_TN, True)],
+    sl = slice_c(True)
+    maps = [halo_map(B, H, W, C, patch_h), weight_map(C + C2, F, tile_n, True)]
+    if C2:
+        maps.append(halo_map(B, H, W, C2, patch_h))
+    ln = {"op": op, "tile": (tile_m, tile_n), "grid": ((F // tile_n) * tiles_m, 1, 1),
+          "smem": halo_smem(tile_m, op, tile_n), "stages": HALO_STAGES,
+          "w_stages": halo_w_stages(tile_n),
+          "nsplit": 1, "k_slices": -(-C // sl) + -(-C2 // sl), "maps": maps,
           "f32": True, "mainloop": MAINLOOP_HALO}
     if op == OP_DGRAD_SPLIT:
         ln["out"] = (F if split is None else split, 0, 0)
@@ -383,10 +409,14 @@ def flop_per_l2_byte(ln: dict) -> float:
     return 2 * tm * tn * sl / conv_stage_bytes(tn, tm)
 
 
-def halo_walk(C: int):
-    """The halo mainloop's K walk, slice-major: per 32-channel slice of the
-    input (its first channel c0), the nine taps, each as (tap, c0)."""
-    return [(tap, c0) for c0 in range(0, C, slice_c(True)) for tap in range(9)]
+def halo_walk(C: int, C2: int = 0):
+    """The halo mainloop's K walk, slice-major: per 32-channel slice of in
+    (C channels), then of in2 (C2), the nine taps; each as (tap, map, c0,
+    wc) — map 0 (in) or 2 (in2), the slice's first channel in that map and
+    in the weights (F, 9, C + C2), as :func:`k_walk` has them."""
+    s = slice_c(True)
+    slices = [(0, c0, c0) for c0 in range(0, C, s)] + [(2, c0, C + c0) for c0 in range(0, C2, s)]
+    return [(tap, m, c0, wc) for m, c0, wc in slices for tap in range(9)]
 
 
 def halo_fragment_row(lane: int):
@@ -567,13 +597,23 @@ def conv_tile_m(H: int, F: int, op: int = OP_FWD, f32: bool = False) -> int:
 
 
 def unetup_launches(B: int, H2: int, W2: int, Cs: int, Cx: int, F: int, f32: bool = False):
-    """A UnetUp stage's forward on the conv core: conv1 over the two maps
-    [skip (Cs) | up (Cx)] into y1, conv2 over y1, both with bias + ReLU, at
-    the tile of :func:`conv_tile_m`.  At Cs = 0 (the ``up_conv`` head,
-    #10 / #11) conv1 reads the one map up; in float32 there both convs run
-    on the halo mainloop (:func:`halo_conv_launch`)."""
-    if f32 and not Cs:
-        return [halo_conv_launch(OP_FWD, B, H2, W2, Cx, F),
+    """A UnetUp stage's forward: conv1 over the two maps [skip (Cs) | up
+    (Cx)] into y1, conv2 over y1, both with bias + ReLU; at Cs = 0 (the
+    ``up_conv`` head, #10 / #11) conv1 reads the one map up.  In bf16 both
+    convs run on the conv core at the tile of :func:`conv_tile_m`; in
+    float32 at the head and where F ≤ 256 (both models' up1-up3) on the
+    halo mainloop (:func:`halo_conv_launch`: conv1 over the two maps; at F
+    = 128 and 256 the 128-wide tile), else (up4) on the conv core.  The
+    readings that fixed it (an H100, 700 W, in turns, ms, core → halo):
+    per conv by the profiler, conv1 at vgg up1 2.31-2.36 → 1.61-1.67, up2
+    2.43-2.53 → 1.29-1.38, rn50 up1 0.60-0.62 → 0.41-0.44, up2 0.82-0.87 →
+    0.41-0.43; conv2 at up1 0.80-0.83 → 0.63-0.66 and 0.21 → 0.17-0.18, at
+    up2 0.55 → 0.49-0.52 and 0.14 → 0.12-0.13 (the 64-wide tile lost there:
+    0.58, 0.15); by stage at up3 2.02-2.03 → 1.83-1.85 (vgg) and 0.616-0.618
+    → 0.580-0.585 (rn50), but at up4 1.17-1.23 → 1.27-1.31 and 0.76-0.77 →
+    0.79-0.80 (PERF.md, Findings)."""
+    if f32 and (not Cs or F <= 256):
+        return [halo_conv_launch(OP_FWD, B, H2, W2, Cs or Cx, F, Cx if Cs else 0),
                 halo_conv_launch(OP_FWD, B, H2, W2, F, F)]
     tm = conv_tile_m(H2, F)
     conv1 = conv_launch(OP_FWD, B, H2, W2, Cs, F, Cx, tm, f32=f32) if Cs else \
@@ -625,9 +665,13 @@ def stem_bwd_launches(B: int, H: int, W: int, F: int, f32: bool = False):
     (:func:`wgrad_image_launch`) and no dgrad (the stem computes no image
     gradient); conv1_2's weight gradient over a1 (F → F; at F = 64 the 64
     f × 128-column tile) and its dgrad masked by a1 > 0 at the tile of
-    :func:`conv_tile_m`."""
-    return [wgrad_image_launch(B, H, W, F, f32), None,
-            *block_bwd_launches(B, H, W, [F, F, F], False, f32)[2:]]
+    :func:`conv_tile_m` — in float32 on the halo mainloop
+    (:func:`halo_conv_launch`), as the head's masked dgrad of the same
+    shape and op runs."""
+    wgrad, dgrad = block_bwd_launches(B, H, W, [F, F, F], False, f32)[2:]
+    if f32:
+        dgrad = halo_conv_launch(OP_DGRAD_MASK, B, H, W, F, F)
+    return [wgrad_image_launch(B, H, W, F, f32), None, wgrad, dgrad]
 
 
 def stem_fwd_launches(B: int, H: int, W: int, F: int, f32: bool = False):

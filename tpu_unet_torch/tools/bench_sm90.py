@@ -105,8 +105,10 @@ with parts ``tiles``, ``stages``, ``blocks``, ``stem``, ``head``,
   #10 and #12 at both heads: ms per call in the same rounds, the device
   time by kernel split into the weight pack (the pack kernel, or the
   eager kernels that packed before it) and the rest, the conv launches'
-  mainloops (the head's on the halo mainloop), tiles, stages and
-  persistence, cuDNN's float32 call with TF32
+  mainloops (the head's, #1's at F ≤ 256 and #20's dgrad on the halo
+  mainloop), tiles, stages and persistence, each conv launch's device
+  time by the profiler beside its TF32 bound and share, cuDNN's float32
+  call with TF32
   on, the TF32 bound and its share, and a digest of every output (inputs
   from a seed a case, so two trees' outputs can be held bit-identical);
 - ``sass`` (not in the default set): the shared-memory (``LDS`` /
@@ -600,8 +602,10 @@ def _f32_line(smi, port, kernel, case, fn, lib, flops, nbytes, launches):
     weights before it: every kernel of the call not in ``csrc/``) and the
     rest, cuDNN's float32 call with TF32 on, the bound at the TF32 peak
     (or the bytes), the conv launches' mainloops (the conv core's per-tap
-    slices, or the halo mainloop's), tiles, stages and persistence, and a
-    digest of every output."""
+    slices, or the halo mainloop's), tiles, stages and persistence, each
+    one's device time (the call's conv kernels in launch order, the
+    ``launches`` in plan order) beside its operations at the TF32 peak and
+    that bound's share, and a digest of every output."""
     ms = _rounds(fn)
     med = statistics.median(ms)
     # by name where the trace lost the call's sequence
@@ -621,6 +625,14 @@ def _f32_line(smi, port, kernel, case, fn, lib, flops, nbytes, launches):
              "persistent": (halo is not None and ln.get("mainloop") == halo)
              or sm90.conv_own_staging(ln["tile"][1], ln["tile"][0], True)}
             for ln in launches]
+    conv_ms = [v for k, v in seq.items()
+               if k.split(":", 1)[1] in ("conv_sm90_kernel", "halo_conv_kernel")]
+    if len(conv_ms) == len(launches):
+        for p, ln, t in zip(plan, launches, conv_ms):
+            _, w, h, b = ln["maps"][0]["dims"]
+            ct, _, f = ln["maps"][1]["dims"]  # the weights (F, 9, C [+ C2])
+            p_bound = 2.0 * b * h * w * 9 * ct * f / PEAK_TF32 * 1e3
+            p.update({"device_ms": t, "bound_ms": p_bound, "share_of_bound": p_bound / t})
     print(json.dumps({"f32_conv": kernel, "case": case, "ms_rounds": ms, "ms": med,
                       "pack_device_ms": pack, "kernels_device_ms": rest, "ms_by_kernel": seq,
                       "cudnn_tf32_ms": lib_ms, "vs_cudnn": med / lib_ms, "bound_ms": bound,
